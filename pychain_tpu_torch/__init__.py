@@ -4,7 +4,9 @@ The PyTorch/CUDA port of ``pychain_tpu``, kept beside it.  It imports
 PyTorch and never JAX or the JAX package.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``; the shared denominator
 runs on two hand-written Hopper kernels (``ops/fact_kernels.py``), the
-linear numerators on a closed form.
+linear numerators on a closed form, and any other log-domain numerator
+list (cyclic, self-loop, flat-start: ``graphs/builder.py``) on two more
+(``ops/semiring_kernels.py``).
 
 Public surface, for what is ported (the reference's
 ``__init__.py:1-2`` re-exports loss + graph):

@@ -1,10 +1,11 @@
 """Carry graph state from the JAX package into the port.
 
 The functions read attributes and go through ``np.asarray``, so they take
-the JAX package's ``FactorizedArrays`` / ``LinearArrays`` (or anything
-with the same fields) without importing JAX, and return the port's
-tensors on ``device`` (default: the CPU, since the result usually feeds
-a ChainGraphBatch-free call in a test or a script that moves it).
+the JAX package's ``FactorizedArrays`` / ``LinearArrays`` /
+``SemiringXLArrays`` (or anything with the same fields) without
+importing JAX, and return the port's tensors on ``device`` (default: the
+CPU, since the result usually feeds a ChainGraphBatch-free call in a
+test or a script that moves it).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from .ops.factorized import FactorizedArrays, WArrays
 from .ops.linear import LinearArrays
+from .ops.semiring import SemiringArrays, semiring_from_ids
 
 
 def _t(v, dtype=None):
@@ -67,3 +69,12 @@ def linear_from_numpy(la, device="cpu") -> LinearArrays:
                                                       np.float32),
         final=_t(la.final, np.float32), graph_len=_t(la.graph_len, np.int64),
     ).to(device)
+
+
+def semiring_from_numpy(xa, device="cpu") -> SemiringArrays:
+    """The port's SemiringArrays from the fields of the JAX package's
+    ``SemiringXLArrays`` (arc ids padded with S_pad, logp with -inf): the
+    kernels' per-graph lists are built here from the ids."""
+    return semiring_from_ids(
+        *(np.asarray(getattr(xa, f)) for f in
+          ("src", "dst", "pdf", "logp", "initial", "final"))).to(device)

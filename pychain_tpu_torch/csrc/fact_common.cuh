@@ -1,10 +1,10 @@
-// Shared pieces of the factorized denominator kernels (fact_fwd.cu,
-// fact_bwd.cu): block shape, a deterministic block-wide sum and the
-// sparse row product.
+// Shared pieces of the port's kernels (fact_fwd.cu, fact_bwd.cu,
+// semiring_fwd.cu, semiring_bwd.cu): block shape, deterministic
+// block-wide reductions and the sparse row product.
 //
-// Both kernels give one thread block to one batch column and run that
-// column's whole time loop inside the block; a thread owns the state
-// rows s = threadIdx.x + k * FACT_THREADS.  Every sum is taken in a
+// Every kernel gives one thread block to one batch column (sequence)
+// and runs that column's whole time loop inside the block; a thread owns
+// the state rows s = threadIdx.x + k * FACT_THREADS.  Every sum is taken in a
 // fixed order (rows in ascending column order, warp shuffles, then
 // the warp partials in warp order), so the results do not change from
 // run to run and no atomics are used.
@@ -16,15 +16,15 @@
 #define FACT_WARPS (FACT_THREADS / 32)
 
 // Sum NV values over the block.  Every thread receives the totals in v.
-// red: shared scratch of FACT_WARPS * NV + NV floats.  Contains two
+// red: shared scratch of FACT_WARPS * NV + NV values.  Contains two
 // __syncthreads(), so it is also a barrier for everything before it.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* red) {
+template <int NV, typename F>
+__device__ __forceinline__ void block_sum(F (&v)[NV], F* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    float x = v[k];
+    F x = v[k];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       x += __shfl_down_sync(0xffffffffu, x, off);
@@ -34,7 +34,7 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* red) {
   if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
-      float x = lane < FACT_WARPS ? red[lane * NV + k] : 0.0f;
+      F x = lane < FACT_WARPS ? red[lane * NV + k] : F(0);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         x += __shfl_down_sync(0xffffffffu, x, off);
@@ -44,6 +44,42 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* red) {
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < NV; ++k) v[k] = red[FACT_WARPS * NV + k];
+}
+
+// The sum of s and the max of m over the block, every thread receiving
+// both.  Every m must be >= 0 (0 is the identity of the max).  red:
+// shared scratch of 2 * FACT_WARPS + 2 values.  Contains two
+// __syncthreads(), so it is also a barrier for everything before it.
+template <typename F>
+__device__ __forceinline__ void block_sum_max(F& s, F& m, F* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    m = fmax(m, __shfl_down_sync(0xffffffffu, m, off));
+  }
+  if (lane == 0) {
+    red[2 * warp] = s;
+    red[2 * warp + 1] = m;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    F x = lane < FACT_WARPS ? red[2 * lane] : F(0);
+    F y = lane < FACT_WARPS ? red[2 * lane + 1] : F(0);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      x += __shfl_down_sync(0xffffffffu, x, off);
+      y = fmax(y, __shfl_down_sync(0xffffffffu, y, off));
+    }
+    if (lane == 0) {
+      red[2 * FACT_WARPS] = x;
+      red[2 * FACT_WARPS + 1] = y;
+    }
+  }
+  __syncthreads();
+  s = red[2 * FACT_WARPS];
+  m = red[2 * FACT_WARPS + 1];
 }
 
 // Row r of a matrix in sliced ELL form times a vector v held in shared

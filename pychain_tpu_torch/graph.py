@@ -10,14 +10,20 @@ reference's ``pychain/graph.py``):
 
 Ported batch forms: a shared prob-domain graph broadcast over the batch
 (the denominator: factorized, ``ops/factorized.py``) and a list of
-linear log-domain graphs (the numerators: ``ops/linear.py``).  Every
-other batch needs an engine that is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+log-domain graphs (the numerators): linear chains in closed form
+(``ops/linear.py``), any other graph (cyclic, self-loop, flat-start) in
+arc-id form for the semiring kernels (``ops/semiring.py``).  A shared
+log-domain graph and a list of prob-domain graphs need engines that are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from .graphs.compiler import CompiledGraph, compile_fst, \
     leaky_probs as _leaky_probs
@@ -102,6 +108,8 @@ class ChainGraphBatch:
         self._tile_dtype = tile_dtype
         self._fact = None
         self._linear = None
+        self._semiring = None
+        self._graphs = None
         gs = graphs if isinstance(graphs, (list, tuple)) else [graphs]
         self.num_pdfs = max(
             (getattr(g, "num_pdfs", 0) for g in gs), default=0)
@@ -159,14 +167,49 @@ class ChainGraphBatch:
                     f"graph {i} exceeds padding shape: "
                     f"K={g.num_transitions}>{max_k} or "
                     f"S={g.num_states}>{max_s}")
+        if not self.log_domain:
+            raise NotImplementedError(
+                "a list batch of prob-domain graphs needs the dense_list or "
+                "gather engine, not ported yet (ROADMAP.md, deferred "
+                "modules); the port runs log-domain numerator lists and a "
+                "shared prob-domain denominator")
+        # the source graphs (references) let a forced impl="semiring"
+        # compile arc-id arrays for a batch the linear form claimed
+        self._graphs = list(graphs)
         from .ops.linear import is_linear_graph, linear_arrays
-        if self.log_domain and all(is_linear_graph(g) for g in graphs):
+        if all(is_linear_graph(g) for g in graphs):
             self._linear = linear_arrays(graphs, max_k).to(self.device)
+        else:
+            self.semiring()
+
+    def semiring(self):
+        """The batch in arc-id form for the semiring kernels, built on
+        first use (at construction for a batch that is not linear), or
+        None for a batch that is not a log-domain list."""
+        if self._semiring is None and self._graphs is not None:
+            from .ops.semiring import semiring_arrays
+            self._semiring = semiring_arrays(
+                self._graphs, self.num_transitions,
+                self.num_states).to(self.device)
+        return self._semiring
+
+    def reorder(self, new_order):
+        """Permute the batch (reference graph.py:177-194).  Every
+        per-sequence form moves with the graphs: the linear arrays, the
+        arc-id arrays with their per-graph lists, and the source graphs,
+        so no graph is paired with another sequence afterwards.  A
+        broadcast batch is left as it is."""
+        if self.shared:
             return
-        kind = ("non-linear log-domain" if self.log_domain
-                else "prob-domain")
-        raise NotImplementedError(
-            f"a list batch of {kind} graphs needs the leveled, semiring, "
-            "XL, dense_list or gather engine, not ported yet (ROADMAP.md, "
-            "deferred modules); the port runs linear numerators and a "
-            "shared prob-domain denominator")
+        order = [int(i) for i in np.asarray(new_order)]
+        if sorted(order) != list(range(self.batch_size)):
+            raise ValueError(f"new_order {order} is not a permutation of "
+                             f"range({self.batch_size})")
+        if self._linear is not None:
+            idx = torch.tensor(order, device=self.device)
+            self._linear = dataclasses.replace(self._linear, **{
+                f.name: getattr(self._linear, f.name).index_select(0, idx)
+                for f in dataclasses.fields(self._linear)})
+        if self._semiring is not None:
+            self._semiring = self._semiring.take(order)
+        self._graphs = [self._graphs[i] for i in order]

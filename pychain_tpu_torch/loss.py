@@ -15,8 +15,14 @@ reference's ``pychain/loss.py``):
 
 Dispatch: a factorized denominator goes to the CUDA kernels of
 ``ops/fact_kernels.py`` (on CPU tensors, their plain version); a batch
-of linear numerators to the closed form of ``ops/linear.py``.
-``impl="factorized"`` asks for the plain PyTorch engine on any device.
+of linear numerators to the closed form of ``ops/linear.py``; any other
+log-domain list batch (cyclic, self-loop, flat-start) to the semiring
+kernels of ``ops/semiring_kernels.py``, which serve what the JAX package
+splits over ``impl="semiring_pallas"`` and ``"semiring_xl"`` (both taken
+here as ``"auto"``).
+``impl="factorized"`` (denominator) and ``impl="semiring"`` (numerator
+lists) ask for the plain PyTorch engine on any device, as the JAX
+package's ``impl="semiring"`` forces its XLA scan.
 """
 
 from __future__ import annotations
@@ -29,35 +35,50 @@ from .ops.fact_kernels import forward_backward_prob_kernel
 from .ops.factorized import FactorizedArrays, forward_backward_prob_fact
 from .ops.fwdbwd import FwdBwdResult
 from .ops.linear import LinearArrays, forward_backward_linear
+from .ops.semiring import SemiringArrays, forward_backward_semiring
+from .ops.semiring_kernels import forward_backward_semiring_kernel
 from .utils.device import resolve_device
 
 CLAMP = 30.0  # reference loss.py:30
 
-IMPLS = ("auto", "factorized", "linear")
+IMPLS = ("auto", "factorized", "linear", "semiring")
+# the JAX package's names for its semiring kernels: one kernel pair
+# serves both of its classes here, and "auto" already selects it
+_ALIASES = {"semiring_pallas": "auto", "semiring_xl": "auto"}
 # engines of the JAX package that the port does not have yet
-_NOT_PORTED = ("gather", "leveled", "semiring", "semiring_pallas",
-               "semiring_xl", "dense_list", "pallas")
+_NOT_PORTED = ("gather", "leveled", "dense_list", "pallas")
 
 
 def dispatch_arrays(graphs, impl: str = "auto"):
     """The engine-facing arrays of a graph batch.
 
-    impl: "auto" (linear closed form for linear numerator batches; the
-    CUDA kernels for a shared prob-domain graph), "factorized" (the
-    plain PyTorch engine for the denominator) or "linear"."""
+    impl: "auto" (linear closed form for linear numerator batches, the
+    semiring kernels for other log-domain lists, the factorized kernels
+    for a shared prob-domain graph), "factorized" (the plain PyTorch
+    engine for the denominator), "linear", or "semiring" (the plain
+    PyTorch engine for a log-domain list, built for a linear batch too).
+    "semiring_pallas" and "semiring_xl" are accepted as "auto"."""
+    impl = _ALIASES.get(impl, impl)
     if impl not in IMPLS:
         if impl in _NOT_PORTED:
             raise NotImplementedError(
                 f"impl={impl!r} is not ported yet (ROADMAP.md, deferred "
                 "modules); the port has " + ", ".join(IMPLS))
         raise ValueError(f"unknown impl {impl!r}")
-    if isinstance(graphs, (FactorizedArrays, LinearArrays)):
+    if isinstance(graphs, (FactorizedArrays, LinearArrays, SemiringArrays)):
         return graphs
     if graphs._linear is not None and impl in ("auto", "linear"):
         return graphs._linear
     if impl == "linear":
         raise ValueError("linear impl requires a batch of linear-chain "
                          "log-domain graphs")
+    if impl == "semiring" or (impl == "auto"
+                              and graphs._semiring is not None):
+        sr = graphs.semiring()
+        if sr is None:
+            raise ValueError(f"impl={impl!r} requires a list batch of "
+                             "log-domain graphs")
+        return sr
     if graphs._fact is not None:
         return graphs._fact
     raise ValueError(f"impl={impl!r} requires a shared prob-domain "
@@ -80,6 +101,10 @@ def _run(x, lengths, g, leaky_coefficient, impl="auto",
         x = torch.clamp(x, -CLAMP, CLAMP)
         if isinstance(g, LinearArrays):
             return forward_backward_linear(x, lengths, g)
+        if isinstance(g, SemiringArrays):
+            if impl == "semiring":
+                return forward_backward_semiring(x, lengths, g)
+            return forward_backward_semiring_kernel(x, lengths, g)
         if isinstance(g, FactorizedArrays):
             if impl == "factorized":
                 return forward_backward_prob_fact(torch.exp(x), lengths, g,

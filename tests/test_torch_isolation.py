@@ -24,7 +24,10 @@ def _forbidden(name: str) -> bool:
 
 def test_import_loads_no_jax():
     code = ("import sys, pychain_tpu_torch, pychain_tpu_torch.convert, "
-            "pychain_tpu_torch.csrc.build, pychain_tpu_torch.ops.fact_kernels;"
+            "pychain_tpu_torch.csrc.build, pychain_tpu_torch.ops.fact_kernels,"
+            " pychain_tpu_torch.ops.semiring, "
+            "pychain_tpu_torch.ops.semiring_kernels, "
+            "pychain_tpu_torch.graphs.builder;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

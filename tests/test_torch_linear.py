@@ -62,6 +62,13 @@ def test_linear_detection_and_convert():
     cyclic = pt.ChainGraph(random_fst(num_states=5, seed=0),
                            log_domain=True)
     assert not is_linear_graph(cyclic)
+    # a cyclic log-domain list goes to the semiring arrays instead
+    batch = pt.ChainGraphBatch([cyclic], max_num_transitions=20,
+                               max_num_states=5, device="cpu")
+    assert batch._linear is None and batch._semiring is not None
+    # a prob-domain list still has no engine in the port
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ChainGraphBatch([cyclic], max_num_transitions=20,
-                           max_num_states=5, device="cpu")
+        pt.ChainGraphBatch([pt.ChainGraph(random_fst(num_states=5,
+                                                     seed=0))],
+                           max_num_transitions=20, max_num_states=5,
+                           device="cpu")

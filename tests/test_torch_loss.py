@@ -19,8 +19,11 @@ from pychain_tpu.loss import chain_function_with_aux as j_aux
 import pychain_tpu_torch as pt
 from pychain_tpu_torch import loss as pt_loss
 from pychain_tpu_torch.convert import factorized_from_numpy
+from pychain_tpu_torch.graphs.builder import ChainTopology, \
+    make_numerator_fst
 from pychain_tpu_torch.graphs.fst import FST
 from pychain_tpu_torch.ops import fact_kernels as fk
+from pychain_tpu_torch.ops import semiring_kernels as sk
 from pychain_tpu_torch.utils.testgraphs import denominator_fst, linear_fst
 
 
@@ -143,7 +146,7 @@ def test_error_probes():
         pt.ChainGraphBatch(pt.ChainGraph(den_fst, log_domain=True), 2,
                            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_loss.chain_function(xt, lens, nums, impl="semiring")
+        pt_loss.chain_function(xt, lens, nums, impl="leveled")
 
 
 def test_precision_errors():
@@ -186,5 +189,86 @@ def test_cuda_chain_loss_matches_cpu():
     vg = gpu(xg, lens, num_gpu)
     vg.backward()
     assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
+    torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Flat-start (end-to-end) numerators: the semiring path
+# ----------------------------------------------------------------------
+
+def _flat_start(B=3, T=9, seed=0, device="cpu"):
+    """A denominator and B flat-start numerators (make_numerator_fst,
+    lm=None) over its pdfs, N_b phones in T frames."""
+    den_fst, P = denominator_fst(num_phones=10, states_per_phone=2,
+                                 seed=seed)
+    rng = np.random.RandomState(seed)
+    topo = ChainTopology(num_phones=P // 2)
+    fsts = [make_numerator_fst(rng.randint(0, P // 2, size=n), topo)
+            for n in rng.randint(2, 5, size=B)]
+    x = rng.randn(B, T, P).astype(np.float32)
+    lens = np.array([T, T - 2, T - 4][:B], np.int32)
+    K, S = 2 * 4, 4 + 1
+    nums = pt.ChainGraphBatch(
+        [pt.ChainGraph(f, log_domain=True) for f in fsts],
+        max_num_transitions=K, max_num_states=S, device=device)
+    jnums = JChainGraphBatch([JChainGraph(f, log_domain=True) for f in fsts],
+                             max_num_transitions=K, max_num_states=S)
+    return den_fst, x, lens, nums, jnums
+
+
+def test_flat_start_chain_loss_matches_jax():
+    den_fst, x, lens, nums, jnums = _flat_start()
+    assert nums._linear is None and nums._semiring is not None
+    assert jnums._semiring is not None
+    # the port first, while no JAX work is in flight
+    loss_mod = pt.ChainLoss(pt.ChainGraph(den_fst), device="cpu")
+    xt = torch.from_numpy(x.copy()).requires_grad_(True)
+    val = loss_mod(xt, torch.from_numpy(lens), nums)
+    val.backward()
+    jloss = JChainLoss(JChainGraph(den_fst))
+    jval, jgrad = jax.value_and_grad(
+        lambda xx: jloss(xx, jnp.asarray(lens), jnums))(jnp.array(x))
+    np.testing.assert_allclose(float(val.detach()), float(jval), rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad),
+                               rtol=0, atol=1e-6)
+
+
+def test_flat_start_sgd_step_lowers_the_loss():
+    den_fst, x, lens, nums, _ = _flat_start(seed=1)
+    loss_mod = pt.ChainLoss(pt.ChainGraph(den_fst), device="cpu")
+    xt = torch.from_numpy(x).requires_grad_(True)
+    losses = []
+    sk.reset_launch_counts()
+    for _ in range(3):
+        val = loss_mod(xt, lens, nums)
+        val.backward()
+        assert torch.isfinite(xt.grad).all()
+        with torch.no_grad():
+            xt -= 2.0 * xt.grad
+        xt.grad = None
+        losses.append(float(val.detach()))
+    assert np.isfinite(losses).all() and losses[0] > losses[1] > losses[2]
+    assert sk.LAUNCHES == {"semiring_fwd": 0, "semiring_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_flat_start_chain_loss_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    den_fst, x, lens, nums, _ = _flat_start(seed=2)
+    cpu = pt.ChainLoss(pt.ChainGraph(den_fst), device="cpu")
+    xc = torch.from_numpy(x).requires_grad_(True)
+    vc = cpu(xc, lens, nums)
+    vc.backward()
+    gpu = pt.ChainLoss(pt.ChainGraph(den_fst))
+    _, _, _, num_gpu, _ = _flat_start(seed=2, device="cuda")
+    xg = torch.from_numpy(x).cuda().requires_grad_(True)
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    vg = gpu(xg, lens, num_gpu)
+    vg.backward()
+    assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
+    assert sk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
     torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
     torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)
