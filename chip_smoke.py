@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the four kernels from csrc/*.cu with nvcc (sm_90a), all
+2. build the five kernels from csrc/*.cu with nvcc (sm_90a), all
    sources at once, one nvcc each;
 3. the denominator kernels (fact_fwd, fact_bwd) against their plain
    PyTorch version on the card: small graphs in the three x_src modes
@@ -33,11 +33,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    (make_numerator_fst, lm=None; N_b phones drawn from 100..150, T=500,
    padded to K=300, S=151): each step must launch each of the four
    kernels exactly once; then one profiled step;
-7. one JSON line {"kernels": [...]} with each kernel's launches on the
+7. the Viterbi kernel (viterbi) against its plain version, bit for bit
+   (objf, pdfs, states, ok): small cyclic batches at unequal lengths
+   with a linear graph at a length it cannot accept and a length 0,
+   under x of which about a fifth lies beyond the [-30, 30] clamp, a
+   shared broadcast batch, and a tie-heavy batch of +-8 oracle
+   emissions;
+8. main path 3, realignment (examples/train_corpus.py:552-586):
+   viterbi_align over main path 2's batch and x, durations and
+   tolerance-3 constrained numerators (make_constrained_numerator) from
+   each best path, then three ChainLoss SGD steps on them: the loss
+   must fall, the alignment launch viterbi once and each step each of
+   the four loss kernels once;
+9. three size classes of the Viterbi kernel, each bit-identical to the
+   plain version, with both times and the bound: "realign" (main path
+   2's batch and x), "b11" (bench.py --viterbi: B=128, T=500,
+   random_fst(512, 512, 4)), "decode" (the graph of phase 10);
+10. decoding: PhoneDecoder over a bigram phone LM of 2,000 seeded
+   transcripts of 20-60 phones over 48 phones (ChainTopology(48): S=49,
+   K=2,400, P=96), once on random x and once on +-8 oracle emissions, at
+   B=128, T=500, lengths 250..500: one launch per call, and the oracle
+   decode must give the planned phones (PER 0) and durations;
+11. one JSON line {"kernels": [...]} with each kernel's launches on the
    main path that runs it, its error against the plain version, its
    time, the plain version's time and the least time the card could take
-   (bound_ms); the semiring kernels get one row per size class;
-8. the card's name and power limit, then the last line
+   (bound_ms); the semiring and Viterbi kernels get one row per size
+   class;
+12. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero and prints no result.  It
@@ -47,6 +69,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -317,24 +340,32 @@ def sr_class(name, batch, x, lens, reps):
                         errs["gamma_sum_abs"]))}
 
 
-def flat_start_fsts(B, num_phones, n_lo, n_hi, seed):
-    """B flat-start numerators (make_numerator_fst, lm=None) of N_b
-    phones drawn uniformly from n_lo..n_hi, phone ids from
-    0..num_phones-1."""
-    from pychain_tpu_torch.graphs.builder import (ChainTopology,
-                                                  make_numerator_fst)
+def flat_start_phones(B, num_phones, n_lo, n_hi, seed):
+    """B transcripts of N_b phones drawn uniformly from n_lo..n_hi, phone
+    ids from 0..num_phones-1."""
     rng = np.random.RandomState(seed)
-    topo = ChainTopology(num_phones=num_phones)
-    return [make_numerator_fst(rng.randint(0, num_phones, size=n), topo)
+    return [rng.randint(0, num_phones, size=n)
             for n in rng.randint(n_lo, n_hi + 1, size=B)]
 
 
-def train_steps(loss_mod, x, x_lengths, nums, counters, want, label):
-    """Three SGD steps with every launch count set to 0 just before and
-    read just after; returns (losses, step_ms, launches)."""
+def flat_start_fsts(B, num_phones, n_lo, n_hi, seed):
+    """The flat-start numerators (make_numerator_fst, lm=None) of
+    :func:`flat_start_phones`."""
+    from pychain_tpu_torch.graphs.builder import (ChainTopology,
+                                                  make_numerator_fst)
+    topo = ChainTopology(num_phones=num_phones)
+    return [make_numerator_fst(p, topo) for p in
+            flat_start_phones(B, num_phones, n_lo, n_hi, seed)]
+
+
+def train_steps(loss_mod, x, x_lengths, nums, counters, want, label,
+                reset=True):
+    """Three SGD steps with every launch count set to 0 just before
+    (unless the caller did so before more work of its path) and read just
+    after; returns (losses, step_ms, launches)."""
     lr = 0.1 * float(x_lengths.sum())
     losses, step_ms, per_step = [], [], []
-    for c in counters:
+    for c in counters if reset else ():
         for k in c:
             c[k] = 0
     for step in range(3):
@@ -386,6 +417,261 @@ def profiled_step(loss_mod, x, x_lengths, nums, label):
     for e in events[:14]:
         print(f"#   {e.device_time_total / 1e3:9.3f} {e.count:4d}  "
               f"{e.key[:90]}")
+
+
+# ----------------------------------------------------------------------
+# The Viterbi kernel
+# ----------------------------------------------------------------------
+
+def vit_compare(g, x, lens, label, want_ok=None):
+    """Viterbi kernel vs plain version on the same x (each clamps it as
+    it reads it): objf, pdfs, states and ok must be bit-identical (the
+    kernel adds float32 in the plain version's order and compares).  Returns the number of
+    mismatching entries (0) and the largest objf difference (0.0)."""
+    from pychain_tpu_torch.ops import viterbi_kernels as vk
+    from pychain_tpu_torch.ops.viterbi import viterbi_plain
+    got = vk.viterbi_kernel(x, lens, g)
+    ref = viterbi_plain(x, lens, g)
+    torch.cuda.synchronize()
+    bad = {k: int((getattr(got, k) != getattr(ref, k)).sum())
+           for k in ref._fields}
+    live = torch.isfinite(ref.objf)
+    err = float((got.objf[live] - ref.objf[live]).abs().max()) \
+        if bool(live.any()) else 0.0
+    print(f"# {label}: mismatches {bad}, objf max abs diff {err:.3e}, ok "
+          f"{int(got.ok.sum())}/{len(got.ok)}", flush=True)
+    check(sum(bad.values()) == 0, f"{label}: kernel differs from the plain "
+          f"version: {bad}")
+    if want_ok is not None:
+        check(got.ok.tolist() == want_ok, f"{label}: ok {got.ok.tolist()}, "
+              f"want {want_ok}")
+    check(bool((got.pdfs[~got.ok] == -1).all()), f"{label}: a path on an "
+          "infeasible sequence")
+    return sum(bad.values()), err
+
+
+def vit_small(dev):
+    """The kernel against its plain version on small batches."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.graphs.builder import (ChainTopology,
+                                                  alignment_to_pdf_sequence,
+                                                  make_numerator_fst)
+    from pychain_tpu_torch.graphs.fst import FST
+    from pychain_tpu_torch.utils.testgraphs import linear_fst, random_fst
+    gen = torch.Generator(device=dev).manual_seed(6)
+    # cyclic graphs at unequal lengths, a linear graph that accepts only
+    # length 3 at length 5, and a length 0
+    mixed, _ = list_batch([random_fst(num_states=6 + b, num_pdfs=10,
+                                      max_arcs_per_state=4, seed=b)
+                           for b in range(3)]
+                          + [linear_fst([1, 2, 3]),
+                             random_fst(num_states=5, num_pdfs=10, seed=9)],
+                          dev)
+    # about a fifth of x lies beyond the clamp
+    x = 24.0 * torch.randn(5, 16, 10, generator=gen, device=dev)
+    out = [vit_compare(mixed.semiring(), x, torch.tensor([16, 11, 7, 5, 0]),
+                       "viterbi small cyclic",
+                       [True, True, True, False, False])]
+    topo = ChainTopology(num_phones=5)
+    shared = ChainGraphBatch(ChainGraph(make_numerator_fst([0, 3, 1, 4],
+                                                           topo),
+                                        log_domain=True), 4, device=dev)
+    x = torch.randn(4, 16, 10, generator=gen, device=dev)
+    out.append(vit_compare(shared.semiring(), x, torch.tensor([16, 11, 7, 4]),
+                           "viterbi small shared", [True] * 4))
+    # ties: weightless flat-start arcs under +-8 oracle emissions with
+    # extra +8 frames, and an ergodic weightless graph, every state final,
+    # under flat emissions
+    rng = np.random.RandomState(6)
+    plans = [([1, 3, 0, 2], [3, 4, 2, 5]), ([2, 2, 4], [1, 6, 3]),
+             ([4, 0], [7, 2])]
+    fsts = [make_numerator_fst(ph, topo) for ph, _ in plans]
+    fsts.append(FST.from_arcs(
+        4, 0, [(s, d, p + 1, p + 1, 0.0) for s, d, p in
+               ((0, 1, 0), (0, 2, 1), (1, 3, 2), (2, 3, 3), (3, 0, 4),
+                (1, 1, 5), (2, 2, 5), (3, 3, 6), (0, 3, 7))],
+        {s: 0.0 for s in range(4)}))
+    xo = np.full((4, 16, 10), -8.0, np.float32)
+    lens = []
+    for b, (ph, du) in enumerate(plans):
+        seq = alignment_to_pdf_sequence(ph, du, topo)
+        xo[b, np.arange(len(seq)), seq] = 8.0
+        for t in np.nonzero(rng.rand(16) < 0.5)[0]:
+            xo[b, t, [f(p) for p in ph
+                      for f in (topo.fwd_pdf, topo.self_pdf)]] = 8.0
+        lens.append(len(seq))
+    xo[3] = 8.0
+    ties, _ = list_batch(fsts, dev)
+    out.append(vit_compare(ties.semiring(), torch.from_numpy(xo).to(dev),
+                           torch.tensor(lens + [16]), "viterbi small ties",
+                           [True] * 4))
+    return out
+
+
+def vit_bytes_ops(g, lens, B, T):
+    """What the function must move and compute for this run's data: x at
+    each graph's pdfs and one backpointer per state of each graph, for
+    live frames; each distinct graph's arrays once (src, pdf, logp;
+    initial, final, in-arc offsets); lengths, objf, pdfs and states.  A
+    backpointer need only name the winner's place in its state's in-arc
+    list: ceil(log2(max in-degree)) bits, in whole bytes, at least one
+    (the kernel writes int32 arc ids, a choice of its design).
+    Operations: two adds and a compare per arc and live frame."""
+    real = g.dst < g.num_states
+    n_arcs = real.sum(dim=1)
+    n_states = torch.where(real, torch.maximum(g.src, g.dst),
+                           torch.full_like(g.src, -1)).amax(dim=1) + 1
+    n_pdfs = torch.tensor([len(set(g.pdf[r][real[r]].tolist()))
+                           for r in range(g.rows)], device=g.device)
+    max_in = int((g.in_ptr[:, 1:] - g.in_ptr[:, :-1]).max())
+    bp_bytes = max(1, -(-math.ceil(math.log2(max(max_in, 1))) // 8))
+    per_b = (lambda v: v.expand(B)) if g.rows == 1 else (lambda v: v)
+    L = lens.to(g.device).long()
+    nbytes = (4 * int((L * per_b(n_pdfs)).sum())
+              + bp_bytes * int((L * per_b(n_states)).sum())
+              + 12 * int(n_arcs.sum()) + 12 * int(n_states.sum())
+              + 8 * B + 8 * B * T)
+    ops = 3 * int((L * per_b(n_arcs)).sum())
+    return nbytes, ops, (int(n_arcs.min()), int(n_arcs.max()),
+                         int(n_states.min()), int(n_states.max()), max_in,
+                         bp_bytes)
+
+
+def vit_class(name, g, x, lens, reps):
+    """One size class: bit-identical check, kernel and plain times,
+    bytes and operations."""
+    from pychain_tpu_torch.ops import viterbi_kernels as vk
+    from pychain_tpu_torch.ops.viterbi import viterbi_plain
+    B, T, P = x.shape
+    bad, err = vit_compare(g, x, lens, f"viterbi class {name}")
+    lens32 = lens.int().to(x.device)
+    ms = cuda_ms(lambda: vk.viterbi_sweep(x, lens32, g), reps)
+    plain_ms = cuda_ms(lambda: viterbi_plain(x, lens32, g), 1)
+    nbytes, ops, (k0, k1, s0, s1, max_in, bp_bytes) = vit_bytes_ops(
+        g, lens, B, T)
+    print(f"# viterbi class {name}: B={B} T={T} P={P} rows={g.rows} "
+          f"K_pad={g.k_pad} S_pad={g.num_states} arcs {k0}..{k1} states "
+          f"{s0}..{s1} max in-degree {max_in} (backpointer {bp_bytes} B in "
+          f"the bound) lengths {int(lens.min())}..{int(lens.max())}; "
+          f"viterbi {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+    return ms, plain_ms, nbytes, ops, err, bad
+
+
+def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
+            counters, vit_counter):
+    """Main path 3 (examples/train_corpus.py:552-586): align main path
+    2's batch with its x, build tolerance-3 constrained numerators from
+    the best paths, then three ChainLoss SGD steps on them.  Every count
+    is set to 0 before the alignment and read after the last step."""
+    from pychain_tpu_torch import viterbi_align
+    from pychain_tpu_torch.graphs.builder import (ChainTopology,
+                                                  durations_from_alignment,
+                                                  make_constrained_numerator)
+    for c in (*counters, vit_counter):
+        for k in c:
+            c[k] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = viterbi_align(x.detach(), x_lengths, flat_batch)
+    end.record()
+    torch.cuda.synchronize()
+    align_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    ok = res.ok.cpu().numpy()
+    states = res.states.cpu().numpy()
+    lens = x_lengths.cpu().numpy()
+    check(bool(ok.all()), f"realign: {int((~ok).sum())} sequences have no "
+          "alignment")
+    topo = ChainTopology(num_phones=num_phones)
+    fsts, durs_all = [], []
+    for b, phones in enumerate(flat_phones):
+        durs = durations_from_alignment(states[b], int(lens[b]))
+        check(len(durs) == len(phones) and sum(durs) == lens[b],
+              f"realign: sequence {b} durations {durs}")
+        durs_all.append(durs)
+        fsts.append(make_constrained_numerator(phones, durs, topo,
+                                               tolerance=3))
+    batch, batch_ms = list_batch(fsts, x.device)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    g = batch.semiring()
+    print(f"# main path 3 (realignment): viterbi_align {align_ms:.3f} ms "
+          f"(CUDA events); durations + constrained numerators + "
+          f"ChainGraphBatch {host_ms:.1f} ms on the host (of it the "
+          f"batch {batch_ms:.1f} ms); K_pad={g.k_pad} S_pad="
+          f"{g.num_states}; phone durations "
+          f"{min(min(d) for d in durs_all)}..{max(max(d) for d in durs_all)}"
+          " frames", flush=True)
+    losses, step_ms, launches = train_steps(
+        loss_mod, x, x_lengths, batch, counters,
+        {"fact_fwd": 1, "fact_bwd": 1, "semiring_fwd": 1,
+         "semiring_bwd": 1}, "main path 3 (constrained numerators)",
+        reset=False)
+    launches = {**launches, **vit_counter}
+    print(f"# main path 3 launches: {launches}", flush=True)
+    check(vit_counter["viterbi"] == 1, f"realign: viterbi launched "
+          f"{vit_counter['viterbi']} times, want 1")
+    profiled_step(loss_mod, x, x_lengths, batch, "constrained numerators")
+    return step_ms, launches, align_ms, host_ms
+
+
+def decoding(dev, B, T, vit_counter):
+    """The decoding path: PhoneDecoder over a bigram phone LM at B=128,
+    T=500, once on random x and once on oracle emissions.  Returns the
+    decoder's batch arrays, the random x and lengths (the "decode"
+    class) and the launches."""
+    from pychain_tpu_torch import viterbi_align
+    from pychain_tpu_torch.decode import PhoneDecoder, phone_error_rate
+    from pychain_tpu_torch.graphs.builder import (ChainTopology,
+                                                  alignment_to_pdf_sequence,
+                                                  estimate_phone_lm)
+    n_ph = 48
+    rng = np.random.RandomState(7)
+    t0 = time.perf_counter()
+    texts = [[int(p) for p in rng.randint(0, n_ph, size=rng.randint(20, 61))]
+             for _ in range(2000)]
+    topo = ChainTopology(num_phones=n_ph)
+    dec = PhoneDecoder(estimate_phone_lm(texts, num_phones=n_ph, order=2),
+                       topo)
+    build_s = time.perf_counter() - t0
+    lens = torch.from_numpy(rng.randint(T // 2, T + 1, size=B))
+    x_rand = torch.randn(B, T, topo.num_pdfs, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev)
+    refs, durs = texts[:B], []
+    xo = np.full((B, T, topo.num_pdfs), -8.0, np.float32)
+    for b, ph in enumerate(refs):
+        n, L = len(ph), int(lens[b])
+        du = 1 + rng.multinomial(L - n, [1.0 / n] * n)
+        durs.append([int(d) for d in du])
+        seq = alignment_to_pdf_sequence(ph, du, topo)
+        xo[b, np.arange(L), seq] = 8.0
+    x_or = torch.from_numpy(xo).to(dev)
+    for k in vit_counter:
+        vit_counter[k] = 0
+    times = []
+    for xx in (x_rand, x_or):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = dec(xx, lens)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(np.isfinite(res.scores).all()), "decode: non-finite "
+              "scores")
+    launches = dict(vit_counter)
+    batch = dec._batches[(B, x_rand.device)]
+    align_ms = cuda_ms(lambda: viterbi_align(x_rand, lens, batch), 1)
+    per = phone_error_rate(refs, res.phones)
+    print(f"# decoding: graph S={dec.graph.num_states} "
+          f"K={dec.graph.num_transitions} P={topo.num_pdfs} built in "
+          f"{build_s:.2f} s; B={B} T={T} lengths {int(lens.min())}.."
+          f"{int(lens.max())}; call (viterbi_align + host pdf->phone "
+          f"reading) random x {times[0]:.1f} ms, oracle x {times[1]:.1f} "
+          f"ms; viterbi_align alone {align_ms:.3f} ms (CUDA events); "
+          f"oracle PER {per}; launches {launches}", flush=True)
+    check(per == 0.0, f"decode: oracle PER {per}")
+    check(res.durations == durs, "decode: oracle durations differ")
+    check(launches == {"viterbi": 2}, f"decode: launches {launches}, want "
+          "one per call")
+    return batch.semiring(), x_rand, lens, launches
 
 
 def bound(nbytes, ops, peak_flops=PEAK_F32_FLOPS):
@@ -595,6 +881,38 @@ def main():
     profiled_step(loss_mod, x, x_lengths, flat_batch,
                   "flat-start numerators")
 
+    # -- phase 7: the Viterbi kernel vs plain, small batches --------------
+    from pychain_tpu_torch.ops import viterbi_kernels as vk
+    vit_small_out = vit_small(dev)
+
+    # -- phase 8: main path 3, realignment -------------------------------
+    x_flat = x.detach().clone()      # main path 2's x, for the class below
+    re_step_ms, re_launches, align_ms, _ = realign(
+        loss_mod, x, x_lengths, flat_batch,
+        flat_start_phones(B, 1500, 100, 150, seed=0), 1500,
+        (fk.LAUNCHES, sk.LAUNCHES), vk.LAUNCHES)
+    del x
+
+    # -- phase 9: the Viterbi size classes -------------------------------
+    vit_classes = {"realign": vit_class("realign", flat_batch.semiring(),
+                                        x_flat, lens, 5)}
+    del x_flat
+    t0 = time.perf_counter()
+    b11_batch, _ = list_batch(
+        [random_fst(num_states=512, num_pdfs=512, max_arcs_per_state=4,
+                    seed=s) for s in range(B)], dev)
+    print(f"# b11 batch built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    x_b11 = torch.randn(B, T, 512, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    vit_classes["b11"] = vit_class("b11", b11_batch.semiring(), x_b11, lens,
+                                   5)
+    del x_b11, b11_batch
+
+    # -- phase 10: decoding ----------------------------------------------
+    dec_g, x_dec, dec_lens, dec_launches = decoding(dev, B, T, vk.LAUNCHES)
+    vit_classes["decode"] = vit_class("decode", dec_g, x_dec, dec_lens, 5)
+
     # -- phase 7: the kernels line ---------------------------------------
     L = int(lens.sum())
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
@@ -641,13 +959,32 @@ def main():
                 "max_abs_err": err, "max_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "bytes": nbytes, "ops": ops, "library_ms": None})
+    vit_launches = {"realign": re_launches["viterbi"],
+                    "decode": dec_launches["viterbi"], "b11": 0}
+    for cls, (ms, plain_ms, nbytes, ops, err, bad) in vit_classes.items():
+        bms, by = bound(nbytes, ops)
+        rows.append({
+            "name": "viterbi", "route": "cuda", "size_class": cls,
+            "source": "pychain_tpu_torch/csrc/viterbi.cu",
+            "replaces": "pychain_tpu/ops/viterbi.py:175",
+            "replaces_fn": "pychain_tpu/ops/viterbi.py::_vit_kernel",
+            # main path 3 runs the "realign" class, decoding "decode"
+            "launches": vit_launches[cls],
+            "on_main_path": cls != "b11",
+            "max_abs_err": err, "max_err": err, "mismatches": bad,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "ops": ops, "library_ms": None})
     small_worst = {k: max(e[k] for e in errs_small) for k in errs_small[0]}
     print(f"# small-graph worst errors (denominator): {small_worst}")
     sr_worst = {k: max(e[k] for e in errs_sr_small)
                 for k in errs_sr_small[0]}
     print(f"# small-batch worst errors (semiring): {sr_worst}")
+    print(f"# small-batch Viterbi mismatches: "
+          f"{sum(b for b, _ in vit_small_out)}")
     print(f"# step ms (timed step, after warm-up): linear numerators "
-          f"{step_ms[-1]:.3f}, flat-start numerators {flat_step_ms[-1]:.3f}")
+          f"{step_ms[-1]:.3f}, flat-start numerators {flat_step_ms[-1]:.3f}"
+          f", constrained numerators {re_step_ms[-1]:.3f}; realignment "
+          f"viterbi_align {align_ms:.3f}")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

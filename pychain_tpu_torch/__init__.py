@@ -6,7 +6,9 @@ device unless the caller passes ``device="cpu"``; the shared denominator
 runs on two hand-written Hopper kernels (``ops/fact_kernels.py``), the
 linear numerators on a closed form, and any other log-domain numerator
 list (cyclic, self-loop, flat-start: ``graphs/builder.py``) on two more
-(``ops/semiring_kernels.py``).
+(``ops/semiring_kernels.py``); Viterbi alignment and phone decoding
+(``viterbi_align``, ``decode.PhoneDecoder``) on a fifth
+(``ops/viterbi_kernels.py``).
 
 Public surface, for what is ported (the reference's
 ``__init__.py:1-2`` re-exports loss + graph):
@@ -21,6 +23,7 @@ from .loss import (
     chain_loss,
 )
 from .graphs.fst import FST
+from .ops.viterbi import ViterbiResult, viterbi_align
 from .utils.diagnostics import (
     check_result,
     get_verbose_level,
@@ -38,6 +41,8 @@ __all__ = [
     "chain_function_with_aux",
     "chain_loss",
     "FST",
+    "viterbi_align",
+    "ViterbiResult",
     "check_result",
     "set_verbose_level",
     "get_verbose_level",

@@ -2,10 +2,10 @@
 
 The functions read attributes and go through ``np.asarray``, so they take
 the JAX package's ``FactorizedArrays`` / ``LinearArrays`` /
-``SemiringXLArrays`` (or anything with the same fields) without
-importing JAX, and return the port's tensors on ``device`` (default: the
-CPU, since the result usually feeds a ChainGraphBatch-free call in a
-test or a script that moves it).
+``SemiringXLArrays`` / ``GraphArrays`` (or anything with the same
+fields) without importing JAX, and return the port's tensors on
+``device`` (default: the CPU, since the result usually feeds a
+ChainGraphBatch-free call in a test or a script that moves it).
 """
 
 from __future__ import annotations
@@ -78,3 +78,19 @@ def semiring_from_numpy(xa, device="cpu") -> SemiringArrays:
     return semiring_from_ids(
         *(np.asarray(getattr(xa, f)) for f in
           ("src", "dst", "pdf", "logp", "initial", "final"))).to(device)
+
+
+def viterbi_from_numpy(ga, device="cpu") -> SemiringArrays:
+    """The arrays ``viterbi_align`` reads from the fields of the JAX
+    package's ``GraphArrays`` (log domain): ``bwd_*`` arcs (B, K) or,
+    ``shared``, (K,) as one row.  The in-arc lists of the backward order
+    are its own runs, so the arc ids are the JAX package's; its padded
+    arcs (src = dst = 0, prob -inf) join state 0's list, inert."""
+    if getattr(ga, "leaky", None) is not None:
+        raise ValueError("viterbi_from_numpy needs log-domain GraphArrays, "
+                         "got prob-domain ones (leaky is set)")
+    f = [np.asarray(getattr(ga, n)) for n in
+         ("bwd_src", "bwd_dst", "bwd_pdf", "bwd_prob", "initial", "final")]
+    if ga.shared:
+        f = [a[None] for a in f]
+    return semiring_from_ids(*f).to(device)

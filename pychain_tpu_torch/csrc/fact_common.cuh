@@ -1,6 +1,7 @@
 // Shared pieces of the port's kernels (fact_fwd.cu, fact_bwd.cu,
-// semiring_fwd.cu, semiring_bwd.cu): block shape, deterministic
-// block-wide reductions and the sparse row product.
+// semiring_fwd.cu, semiring_bwd.cu; viterbi.cu takes only
+// fact_set_smem): block shape, deterministic block-wide reductions and
+// the sparse row product.
 //
 // Every kernel gives one thread block to one batch column (sequence)
 // and runs that column's whole time loop inside the block; a thread owns

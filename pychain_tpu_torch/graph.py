@@ -12,10 +12,13 @@ Ported batch forms: a shared prob-domain graph broadcast over the batch
 (the denominator: factorized, ``ops/factorized.py``) and a list of
 log-domain graphs (the numerators): linear chains in closed form
 (``ops/linear.py``), any other graph (cyclic, self-loop, flat-start) in
-arc-id form for the semiring kernels (``ops/semiring.py``).  A shared
-log-domain graph and a list of prob-domain graphs need engines that are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+arc-id form for the semiring kernels (``ops/semiring.py``).  Every
+log-domain batch, shared (the decoding graph: one row) or list, has the
+arc-id form that ``viterbi_align`` (``ops/viterbi.py``) reads, built on
+first use.  A list of prob-domain graphs needs an engine that is not
+ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item,
+and the loss on a shared log-domain batch raises in
+``loss.dispatch_arrays`` (ROADMAP.md A.5).
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ class ChainGraphBatch:
         self._fact = None
         self._linear = None
         self._semiring = None
+        self._graph = None
         self._graphs = None
         gs = graphs if isinstance(graphs, (list, tuple)) else [graphs]
         self.num_pdfs = max(
@@ -143,11 +147,12 @@ class ChainGraphBatch:
         self.shared = True
         self.num_states = graph.num_states
         self.num_transitions = graph.num_transitions
+        self._graph = graph
         if graph.log_domain:
-            raise NotImplementedError(
-                "a shared log-domain graph needs the factorized "
-                "log_semantics engine, not ported yet (ROADMAP.md, "
-                "deferred modules)")
+            # the decoding graph: only semiring() builds anything, for
+            # viterbi_align; the loss raises on such a batch
+            # (loss.dispatch_arrays)
+            return
         from .graphs.factorize import factorize
         from .ops.factorized import from_factorized_graph
         fg = factorize(graph)
@@ -183,22 +188,22 @@ class ChainGraphBatch:
             self.semiring()
 
     def semiring(self):
-        """The batch in arc-id form for the semiring kernels, built on
-        first use (at construction for a batch that is not linear), or
-        None for a batch that is not a log-domain list."""
-        if self._semiring is None and self._graphs is not None:
+        """The batch in arc-id form, built on first use (at construction
+        for a list batch that is not linear): B rows for a list, one
+        broadcast row for a shared log-domain graph, None for a
+        prob-domain batch."""
+        if self._semiring is None and self.log_domain:
             from .ops.semiring import semiring_arrays
             self._semiring = semiring_arrays(
-                self._graphs, self.num_transitions,
-                self.num_states).to(self.device)
+                [self._graph] if self.shared else self._graphs,
+                self.num_transitions, self.num_states).to(self.device)
         return self._semiring
 
     def reorder(self, new_order):
         """Permute the batch (reference graph.py:177-194).  Every
         per-sequence form moves with the graphs: the linear arrays, the
-        arc-id arrays with their per-graph lists, and the source graphs,
-        so no graph is paired with another sequence afterwards.  A
-        broadcast batch is left as it is."""
+        arc-id arrays with their per-graph lists and the source graphs,
+        so no graph is paired with another sequence afterwards.  A broadcast batch is left as it is."""
         if self.shared:
             return
         order = [int(i) for i in np.asarray(new_order)]

@@ -352,13 +352,15 @@ class FST:
         w_i32(_VECTOR_FST_FILE_VERSION)
         w_i32(0)  # flags: no symbol tables
         f.write(struct.pack("<Q", 0))  # properties (none asserted)
+        # n_states: simplefst.StdVectorFst makes num_states a method
+        num_states = n_states(self)
         w_i64(self.start)
-        w_i64(self.num_states)
+        w_i64(num_states)
         w_i64(self.num_arcs)
         arc_dt = np.dtype(
             [("il", "<i4"), ("ol", "<i4"), ("w", "<f4"), ("ns", "<i4")]
         )
-        for s in range(self.num_states):
+        for s in range(num_states):
             lo, hi = int(self.arc_offsets[s]), int(self.arc_offsets[s + 1])
             f.write(struct.pack("<f", float(self.final[s])))
             f.write(struct.pack("<q", hi - lo))

@@ -67,6 +67,11 @@ def dispatch_arrays(graphs, impl: str = "auto"):
         raise ValueError(f"unknown impl {impl!r}")
     if isinstance(graphs, (FactorizedArrays, LinearArrays, SemiringArrays)):
         return graphs
+    if graphs.shared and graphs.log_domain:
+        raise NotImplementedError(
+            "the loss on a shared log-domain graph needs the factorized "
+            "log_semantics engine, not ported yet (ROADMAP.md A.5); such "
+            "a batch serves viterbi_align and PhoneDecoder only")
     if graphs._linear is not None and impl in ("auto", "linear"):
         return graphs._linear
     if impl == "linear":

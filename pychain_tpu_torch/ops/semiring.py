@@ -81,6 +81,11 @@ class SemiringArrays:
         return self.logp.device
 
     @property
+    def rows(self) -> int:
+        """B, or 1 for a shared graph (``viterbi_align`` broadcasts it)."""
+        return int(self.src.shape[0])
+
+    @property
     def num_states(self) -> int:
         return int(self.initial.shape[1])
 

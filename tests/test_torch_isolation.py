@@ -27,6 +27,9 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.csrc.build, pychain_tpu_torch.ops.fact_kernels,"
             " pychain_tpu_torch.ops.semiring, "
             "pychain_tpu_torch.ops.semiring_kernels, "
+            "pychain_tpu_torch.ops.viterbi, "
+            "pychain_tpu_torch.ops.viterbi_kernels, "
+            "pychain_tpu_torch.decode, pychain_tpu_torch.simplefst, "
             "pychain_tpu_torch.graphs.builder;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
