@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.
+Every loss kernel is held to its plain version with objf relative and
+gamma and traces absolute errors of at most 1e-4, and gamma and the
+alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the five kernels from csrc/*.cu with nvcc (sm_90a), all
-   sources at once, one nvcc each;
+2. build the seven kernels from csrc/*.cu with nvcc (sm_90a), all
+   sources at once, one nvcc each, and check that each kernel's shared
+   memory size in Python equals its source's;
 3. the denominator kernels (fact_fwd, fact_bwd) against their plain
    PyTorch version on the card: small graphs in the three x_src modes
    with unequal lengths and debug True/False, then the headline graph
    (bench.py's: denominator_fst(1500, 2, bigram_fanout=30), S=3000,
    K=49.5k, P=3000) at B=128, T=500, with the kernels' and the plain
-   version's times;
+   version's times, and the cluster kernels' (phase 11) at C=2;
 4. the semiring kernels (semiring_fwd, semiring_bwd) against their plain
    version: small cyclic (random_fst), sausage (sausage_fst) and
    flat-start (make_numerator_fst) batches with unequal lengths and one
@@ -54,12 +58,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    K=2,400, P=96), once on random x and once on +-8 oracle emissions, at
    B=128, T=500, lengths 250..500: one launch per call, and the oracle
    decode must give the planned phones (PER 0) and durations;
-11. one JSON line {"kernels": [...]} with each kernel's launches on the
+11. the cluster kernels (stream_fwd, stream_bwd: B3/B4) against their
+   plain version on small graphs in the three x_src modes with the
+   cluster size forced to 2, 4 and 8, unequal lengths and debug
+   True/False, each gamma bit-identical on a rerun; then the "s8k" class
+   (bench.py --s8k: denominator_fst(4000, 2, bigram_fanout=30), B=64,
+   T=300, which the JAX package streams in float32) forced to
+   engine="stream", against the plain version and against B1/B2 on the
+   same inputs, with both pairs' times;
+12. main path 4: ChainLoss over the 12k-state Kaldi-topology denominator
+   (denominator_fst(6000, 2, num_pdfs=3000, bigram_fanout=30,
+   forward_pdf_mode="separate"): S=12,000, K=198,000, P=6,000, past one
+   block's shared memory) with B=128 linear numerators of length T=500
+   over random pdfs in [0, 6000): the tier and cluster size the dispatch
+   picks, the pair against the plain version at full B with debug True
+   and False, with both times (and the pair's at C=4 and 8), three SGD
+   steps (loss finite and falling, gradient finite, one launch of each
+   cluster kernel a step and none of B1/B2), a timed and a profiled step;
+13. one JSON line {"kernels": [...]} with each kernel's launches on the
    main path that runs it, its error against the plain version, its
    time, the plain version's time and the least time the card could take
    (bound_ms); the semiring and Viterbi kernels get one row per size
-   class;
-12. the card's name and power limit, then the last line
+   class, the cluster kernels one for main path 4 and one for s8k;
+14. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero and prints no result.  It
@@ -84,6 +105,11 @@ PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
 TOL = 1e-4   # objf relative, gamma and traces absolute (docs/PARITY.md:21)
+# and, entry by entry, gamma and the alpha' stream: |d| <= RTOL |ref| + ATOL.
+# An entry of gamma or alpha' is about 1/P or 1/S_pad (1.7e-4 at P=6,000),
+# the size of TOL itself; both are sums of positive terms, so float32
+# rounding keeps each entry's relative error small.
+RTOL, ATOL = 1e-3, 1e-7
 
 
 def fail(msg):
@@ -126,12 +152,18 @@ def absmax(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def compare(fa, px, lens, leaky_c, debug, label):
-    """Kernel path vs plain path on the same inputs.  Returns the
-    observed errors."""
+def excess(got, ref):
+    """Entry-wise |got - ref| / (ATOL + RTOL |ref|): at most 1 passes."""
+    return ((got - ref).abs() / (ATOL + RTOL * ref.abs()))
+
+
+def compare(fa, px, lens, leaky_c, debug, label, run=None):
+    """Kernel path (``run``, default B1/B2's) vs plain path on the same
+    inputs.  Returns the observed errors."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import forward_backward_prob_fact
-    got = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c, debug=debug)
+    run = run or fk.forward_backward_prob_kernel
+    got = run(px, lens, fa, leaky_c, debug=debug)
     ref = forward_backward_prob_fact(px, lens, fa, leaky_c)
     torch.cuda.synchronize()
     if not debug:
@@ -140,21 +172,28 @@ def compare(fa, px, lens, leaky_c, debug, label):
             "gamma_abs": absmax(got.gamma, ref.gamma),
             "alpha_beta_abs": absmax(got.alpha_beta, ref.alpha_beta),
             "gamma_sum_abs": absmax(got.gamma_sum, ref.gamma_sum)}
+    gamma_excess = float(excess(got.gamma, ref.gamma).max())
     print(f"# {label} debug={debug}: " + " ".join(
-        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+        f"{k}={v:.3e}" for k, v in errs.items())
+        + f" gamma_excess={gamma_excess:.3e}", flush=True)
     for k, v in errs.items():
         check(v <= TOL, f"{label} debug={debug}: {k}={v:.3e} > {TOL}")
+    check(gamma_excess <= 1.0, f"{label} debug={debug}: a gamma entry "
+          f"differs by {gamma_excess:.3e} x ({RTOL} |ref| + {ATOL})")
     check(bool(got.ok.all()), f"{label}: ok flags {got.ok.tolist()}")
-    return errs
+    return {**errs, "gamma_excess": gamma_excess}
 
 
-def alpha_err(fa, px, lens, leaky_c):
-    """Forward kernel alone: its alpha' stream and sums against the
-    plain forward sweep on frames before each column's end."""
+def alpha_err(fa, px, lens, leaky_c, label, fwd=None):
+    """Forward kernel alone (``fwd``, default fact_fwd): its alpha' stream
+    (absolute and entry by entry) and sums (relative) against the plain
+    forward sweep on frames before each column's end.  Returns the larger
+    of the absolute and relative errors, and the largest entry's excess
+    (:func:`excess`)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import (forward_prob_fact,
                                                   px_time_major)
-    ad_ys, _, _, _, s_ys, _, _, _ = fk.fact_fwd(
+    ad_ys, _, _, _, s_ys, _, _, _ = (fwd or fk.fact_fwd)(
         px, lens.int(), fa, leaky_c)
     alpha_dash, alpha_sums, _, _ = forward_prob_fact(
         px_time_major(px, fa), lens.long(), fa, leaky_c)
@@ -162,9 +201,284 @@ def alpha_err(fa, px, lens, leaky_c):
     live = torch.arange(T, device=px.device)[None, :] < lens[:, None]
     ref_ad = alpha_dash[1:].permute(2, 0, 1)               # (B, T, S_pad)
     ref_s = alpha_sums[1:].t()
-    err_ad = float(((ad_ys - ref_ad).abs().amax(dim=2) * live).max())
-    err_s = float(((s_ys - ref_s).abs() / ref_s.abs() * live).max())
-    return max(err_ad, err_s)
+    err_ad = float(torch.where(live, (ad_ys - ref_ad).abs().amax(dim=2),
+                               0.0).max())
+    err_s = float(torch.where(live, (s_ys - ref_s).abs() / ref_s.abs(),
+                              0.0).max())
+    ad_excess = float(torch.where(live, excess(ad_ys, ref_ad).amax(dim=2),
+                                  0.0).max())
+    print(f"# {label} alpha' stream: abs err {err_ad:.3e}, excess "
+          f"{ad_excess:.3e}; s_t rel err {err_s:.3e}", flush=True)
+    check(max(err_ad, err_s) <= TOL, f"{label}: alpha' stream err "
+          f"{err_ad:.3e}, s_t rel err {err_s:.3e} > {TOL}")
+    check(ad_excess <= 1.0, f"{label}: an alpha' entry differs by "
+          f"{ad_excess:.3e} x ({RTOL} |ref| + {ATOL})")
+    return max(err_ad, err_s), ad_excess
+
+
+def worst(errs):
+    """Key by key, the largest of several compare() results."""
+    errs = list(errs)
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+MODES = (("source", "identity"), ("cross", "matrix"), ("separate", "stream"))
+
+
+def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True):
+    """CUDA-event milliseconds of a denominator kernel pair alone (fwd,
+    bwd: the signatures of fact_fwd / fact_bwd) and, with ``plain``, of
+    the plain version of each sweep, on the same inputs."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops.factorized import (backward_prob_fact,
+                                                  forward_prob_fact,
+                                                  px_time_major)
+    P = px.shape[2]
+    lens32 = lens.int()
+    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fwd(px, lens32, fa,
+                                                          leaky_c)
+    objf, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
+
+    def run_bwd():
+        return bwd(lens32, fa, leaky_c, ad_ys, w1ad, xdst, xsrc, s_ys, ad0,
+                   s0, tot.contiguous(), P, debug=False)
+
+    run_bwd()
+    fwd_ms = cuda_ms(lambda: fwd(px, lens32, fa, leaky_c), reps)
+    bwd_ms = cuda_ms(run_bwd, reps)
+    del ad_ys, w1ad, xdst, xsrc
+    if not plain:
+        return fwd_ms, bwd_ms
+    px_tm = px_time_major(px, fa)
+    with torch.no_grad():
+        plain = forward_prob_fact(px_tm, lens.long(), fa, leaky_c)
+        plain_fwd_ms = cuda_ms(
+            lambda: forward_prob_fact(px_tm, lens.long(), fa, leaky_c), 2)
+        plain_bwd_ms = cuda_ms(
+            lambda: backward_prob_fact(px_tm, lens.long(), fa, leaky_c,
+                                       plain[0], plain[1], plain[3]), 2)
+    return fwd_ms, bwd_ms, plain_fwd_ms, plain_bwd_ms
+
+
+def cluster_pair(C):
+    """The cluster kernels with the cluster size forced to C."""
+    import functools
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    return (functools.partial(stk.stream_fwd, cluster=C),
+            functools.partial(stk.stream_bwd, cluster=C))
+
+
+def fact_bytes_ops(fa, kg, lens, T, P):
+    """What a denominator sweep pair must move and compute for this run
+    (L live frames): the forward reads px at the pdfs the graph reads and
+    the graph once, and writes the streams, s_t and alpha'(T_b); the
+    backward reads the streams, s_t, the graph and its pdf lists, and
+    writes gamma and the two traces.  Returns (fwd_bytes, fwd_ops,
+    bwd_bytes, bwd_ops)."""
+    B, L = lens.shape[0], int(lens.sum())
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    s_pad, nnz = fa.s_pad, kg.nnz
+    graph_bytes = nnz * 8 + (s_pad + 1) * 8 + 4 * s_pad * 4
+    pdfs = set(kg.f_dst.tolist())
+    if kg.g_src is not None:
+        pdfs |= set(kg.g_src.tolist())
+    fwd_bytes = (L * len(pdfs) * 4 + graph_bytes
+                 + n_streams * L * s_pad * 4 + B * T * 4 + B * s_pad * 4)
+    fwd_ops = 2 * nnz * L + 7 * s_pad * L
+    bwd_bytes = (n_streams * L * s_pad * 4 + B * T * 4 + graph_bytes
+                 + (fa.p_pad + 1 + s_pad) * 4 + B * T * P * 4 + 2 * B * T * 4)
+    bwd_ops = 2 * nnz * L + 15 * s_pad * L
+    return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
+
+
+def check_smem():
+    """Each kernel's shared memory in Python equals its source's."""
+    import ctypes
+    import types
+    from pychain_tpu_torch.csrc import build
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    c_size = lambda name, *args: getattr(
+        build.load(name), f"{name}_smem_bytes")(*args)
+    for name in ("fact_fwd", "fact_bwd", "stream_fwd", "stream_bwd"):
+        getattr(build.load(name), f"{name}_smem_bytes").restype = \
+            ctypes.c_size_t
+    for s_pad, mode in ((3072, "identity"), (12032, "stream"),
+                        (384, "matrix"), (24320, "identity")):
+        fa = types.SimpleNamespace(s_pad=s_pad, xsrc_mode=mode)
+        identity = int(mode == "identity")
+        got = fk.smem_bytes(fa)
+        want = {"fact_fwd": c_size("fact_fwd", s_pad),
+                "fact_bwd": c_size("fact_bwd", s_pad, identity)}
+        for C in stk.CLUSTERS:
+            rows = stk.rows_per_cta(s_pad, C)
+            got.update({f"{k} C={C}": v
+                        for k, v in stk.smem_bytes(fa, C).items()})
+            want[f"stream_fwd C={C}"] = c_size("stream_fwd", s_pad, rows)
+            want[f"stream_bwd C={C}"] = c_size("stream_bwd", s_pad, rows,
+                                               identity)
+        check(got == want, f"smem_bytes S_pad={s_pad} {mode}: Python {got} "
+              f"!= sources {want}")
+    print("# shared memory: Python sizes equal the sources' "
+          "(fact_*, stream_* at C = 1, 2, 4, 8)", flush=True)
+
+
+def stream_small(dev, leaky_c):
+    """The cluster pair against the plain version on small graphs
+    (S_pad = 384: with C = 8 some CTAs own one slice, others two), the
+    cluster size forced to 2, 4 and 8; gamma bit-identical on a rerun."""
+    import functools
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    errs = []
+    for mode, want in MODES:
+        fst, P = denominator_fst(num_phones=150, states_per_phone=2, seed=3,
+                                 forward_pdf_mode=mode)
+        fa = ChainGraphBatch(ChainGraph(fst), 4, device=dev)._fact
+        check(fa.xsrc_mode == want,
+              f"{mode}: xsrc_mode {fa.xsrc_mode} != {want}")
+        g = torch.Generator(device=dev).manual_seed(1)
+        px = torch.exp(torch.randn(4, 16, P, generator=g, device=dev))
+        lens = torch.tensor([16, 11, 7, 1], device=dev)
+        for C in (2, 4, 8):
+            run = functools.partial(stk.forward_backward_prob_stream,
+                                    cluster=C)
+            for debug in (True, False):
+                errs.append(compare(fa, px, lens, leaky_c, debug,
+                                    f"stream small {mode} C={C}", run))
+            g1 = run(px, lens, fa, leaky_c).gamma
+            g2 = run(px, lens, fa, leaky_c).gamma
+            torch.cuda.synchronize()
+            check(torch.equal(g1, g2), f"stream small {mode} C={C}: two "
+                  "runs give different gamma")
+    print("# stream small: gamma bit-identical over two runs at every "
+          "mode and cluster size", flush=True)
+    return errs
+
+
+def s8k_class(dev, leaky_c):
+    """bench.py --s8k's graph at B=64, T=300 (the JAX package streams it
+    in float32) forced to engine="stream": against the plain version and
+    against B1/B2 on the same inputs, with both pairs' times."""
+    import dataclasses
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    B, T = 64, 300
+    t0 = time.perf_counter()
+    den_fst, P = denominator_fst(num_phones=4000, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+    den = ChainGraph(den_fst)
+    fa = dataclasses.replace(ChainGraphBatch(den, B, device=dev)._fact,
+                             engine="stream")
+    C = stk.cluster_size(fa)
+    kg = stk.graph_for(fa, C)
+    print(f"# s8k graph: S={den.num_states} K={den.num_transitions} P={P} "
+          f"s_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode} nnz={kg.nnz}; "
+          f"engine={fa.engine} cluster C={C}, smem "
+          f"{stk.smem_bytes(fa, C)}; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gx = torch.Generator(device=dev).manual_seed(12)
+    px = torch.exp(torch.randn(B, T, P, generator=gx, device=dev))
+    lens = torch.full((B,), T, device=dev)
+    errs = worst(compare(fa, px, lens, leaky_c, debug, "s8k stream",
+                         stk.forward_backward_prob_stream)
+                 for debug in (False, True))
+    a_err = alpha_err(fa, px, lens, leaky_c, "s8k", stk.stream_fwd)
+    got = stk.forward_backward_prob_stream(px, lens, fa, leaky_c)
+    res = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c)
+    vs_b12 = {"objf_rel": rel(got.objf, res.objf),
+              "gamma_abs": absmax(got.gamma, res.gamma)}
+    del got, res
+    print(f"# s8k: stream pair vs B1/B2 on the same inputs: {vs_b12}",
+          flush=True)
+    for k, v in vs_b12.items():
+        check(v <= TOL, f"s8k: stream vs B1/B2 {k}={v:.3e}")
+    times = pair_times(fa, px, lens, leaky_c, stk.stream_fwd, stk.stream_bwd,
+                       5)
+    fact_ms = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd,
+                         5, plain=False)
+    c2_ms = pair_times(fa, px, lens, leaky_c, *cluster_pair(2), 5,
+                       plain=False)
+    print(f"# s8k times: stream_fwd {times[0]:.3f} ms, stream_bwd "
+          f"{times[1]:.3f} ms (C={C}); at C=2 {c2_ms[0]:.3f} / "
+          f"{c2_ms[1]:.3f} ms; fact_fwd {fact_ms[0]:.3f} ms, fact_bwd "
+          f"{fact_ms[1]:.3f} ms; plain fwd {times[2]:.1f} ms, plain bwd "
+          f"{times[3]:.1f} ms", flush=True)
+    return errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), C
+
+
+def main_path_4(dev, leaky_c, counters):
+    """Main path 4: ChainLoss over the 12k-state Kaldi-topology
+    denominator at B=128, T=500 with linear numerators."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch, ChainLoss
+    from pychain_tpu_torch import loss as pt_loss
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.utils.testgraphs import (denominator_fst,
+                                                    linear_fst)
+    B, T = 128, 500
+    t0 = time.perf_counter()
+    den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
+                                 num_pdfs=3000, seed=0, bigram_fanout=30,
+                                 forward_pdf_mode="separate")
+    den = ChainGraph(den_fst)
+    loss_mod = ChainLoss(den)
+    fa = pt_loss.dispatch_arrays(loss_mod.den_batch(B))
+    engine, C = pt_loss.den_engine(fa), stk.cluster_size(fa)
+    check(engine == "stream" and C is not None,
+          f"main path 4: tier {engine!r}, cluster {C}")
+    kg = stk.graph_for(fa, C)
+    print(f"# main path 4 graph: S={den.num_states} K={den.num_transitions} "
+          f"P={P} s_pad={fa.s_pad} p_pad={fa.p_pad} xsrc_mode="
+          f"{fa.xsrc_mode} nnz(W1+W2)={kg.nnz}; tier engine={engine!r}, "
+          f"cluster size C={C}, smem per CTA {stk.smem_bytes(fa, C)} (B1/B2 "
+          f"would need {fk.smem_bytes(fa)} of {fk.MAX_SMEM}); built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gx = torch.Generator(device=dev).manual_seed(10)
+    px = torch.exp(torch.randn(B, T, P, generator=gx, device=dev))
+    lens = torch.full((B,), T, device=dev)
+    # debug=True: the alpha*beta and sum-gamma traces at every frame
+    errs = worst(compare(fa, px, lens, leaky_c, debug, "main path 4",
+                         stk.forward_backward_prob_stream)
+                 for debug in (False, True))
+    a_err = alpha_err(fa, px, lens, leaky_c, "main path 4", stk.stream_fwd)
+    times = pair_times(fa, px, lens, leaky_c, stk.stream_fwd, stk.stream_bwd,
+                       5)
+    other = {c: pair_times(fa, px, lens, leaky_c, *cluster_pair(c), 3,
+                           plain=False) for c in (4, 8)}
+    print(f"# main path 4 times: stream_fwd {times[0]:.3f} ms, stream_bwd "
+          f"{times[1]:.3f} ms (C={C}); " + ", ".join(
+              f"at C={c} {f:.3f} / {b:.3f} ms" for c, (f, b) in other.items())
+          + f"; plain fwd {times[2]:.1f} ms, plain bwd {times[3]:.1f} ms",
+          flush=True)
+    del px
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(4)
+    nums = [ChainGraph(linear_fst(rng.randint(0, P, size=T)),
+                       log_domain=True) for _ in range(B)]
+    num_batch = ChainGraphBatch(nums, max_num_transitions=T,
+                                max_num_states=T + 1, device=dev)
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(11), device=dev).requires_grad_(True)
+    x_lengths = torch.full((B,), T, dtype=torch.int32)
+    want = {k: 0 for c in counters for k in c}
+    want.update(stream_fwd=1, stream_bwd=1)
+    torch.cuda.reset_peak_memory_stats()
+    _, step_ms, launches = train_steps(
+        loss_mod, x, x_lengths, num_batch, counters, want,
+        "main path 4 (12k-state Kaldi-topology denominator)")
+    print(f"# main path 4: peak device memory over the steps "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profiled_step(loss_mod, x, x_lengths, num_batch,
+                  "main path 4 (cluster tier)")
+    del x
+    torch.cuda.empty_cache()
+    return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), C,
+            step_ms, launches)
 
 
 # ----------------------------------------------------------------------
@@ -687,9 +1001,7 @@ def main():
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch, ChainLoss
     from pychain_tpu_torch.csrc import build
     from pychain_tpu_torch.ops import fact_kernels as fk
-    from pychain_tpu_torch.ops.factorized import (backward_prob_fact,
-                                                  forward_prob_fact,
-                                                  px_time_major)
+    from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.utils.testgraphs import (denominator_fst,
                                                     linear_fst)
 
@@ -710,12 +1022,12 @@ def main():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"#   {name}: {line.strip()}")
+    check_smem()
     leaky_c = 1e-5
 
     # -- phase 3: kernels vs plain, small graphs -------------------------
     errs_small = []
-    for mode, want in (("source", "identity"), ("cross", "matrix"),
-                       ("separate", "stream")):
+    for mode, want in MODES:
         fst, P = denominator_fst(num_phones=12, states_per_phone=2, seed=3,
                                  forward_pdf_mode=mode)
         batch = ChainGraphBatch(ChainGraph(fst), 4, device=dev)
@@ -747,32 +1059,16 @@ def main():
     px = torch.exp(x)
     lens = torch.full((B,), T, device=dev)
     head = compare(fa, px, lens, leaky_c, False, "headline")
-    head_ad = alpha_err(fa, px, lens, leaky_c)
-    print(f"# headline alpha'/s stream err: {head_ad:.3e}")
-    check(head_ad <= TOL, f"headline alpha' stream err {head_ad:.3e}")
+    head_ad, _ = alpha_err(fa, px, lens, leaky_c, "headline")
 
-    # times: each kernel alone, and the plain version of each sweep
-    lens32 = lens.int()
-    fwd_out = fk.fact_fwd(px, lens32, fa, leaky_c)
-    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fwd_out
-    objf, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
-
-    def run_bwd():
-        return fk.fact_bwd(lens32, fa, leaky_c, ad_ys, w1ad, xdst, xsrc,
-                           s_ys, ad0, s0, tot.contiguous(), P, debug=False)
-
-    run_bwd()
-    fwd_ms = cuda_ms(lambda: fk.fact_fwd(px, lens32, fa, leaky_c), 5)
-    bwd_ms = cuda_ms(run_bwd, 5)
-    px_tm = px_time_major(px, fa)
-    with torch.no_grad():
-        plain = forward_prob_fact(px_tm, lens.long(), fa, leaky_c)
-        plain_fwd_ms = cuda_ms(
-            lambda: forward_prob_fact(px_tm, lens.long(), fa, leaky_c), 2)
-        plain_bwd_ms = cuda_ms(
-            lambda: backward_prob_fact(px_tm, lens.long(), fa, leaky_c,
-                                       plain[0], plain[1], plain[3]), 2)
-    del plain, px_tm, fwd_out, ad_ys, w1ad, xdst, xsrc
+    # times: each kernel alone, and the plain version of each sweep; the
+    # cluster kernels on two CTAs a column, for comparison
+    fwd_ms, bwd_ms, plain_fwd_ms, plain_bwd_ms = pair_times(
+        fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5)
+    head_c2 = pair_times(fa, px, lens, leaky_c, *cluster_pair(2), 5,
+                         plain=False)
+    print(f"# headline graph on the cluster kernels at C=2: stream_fwd "
+          f"{head_c2[0]:.3f} ms, stream_bwd {head_c2[1]:.3f} ms", flush=True)
     print(f"# headline times: fact_fwd {fwd_ms:.3f} ms, fact_bwd "
           f"{bwd_ms:.3f} ms; plain fwd {plain_fwd_ms:.1f} ms, plain bwd "
           f"{plain_bwd_ms:.1f} ms", flush=True)
@@ -912,20 +1208,23 @@ def main():
     # -- phase 10: decoding ----------------------------------------------
     dec_g, x_dec, dec_lens, dec_launches = decoding(dev, B, T, vk.LAUNCHES)
     vit_classes["decode"] = vit_class("decode", dec_g, x_dec, dec_lens, 5)
+    del x_dec, dec_g
+    fwd_bytes, fwd_ops, bwd_bytes, bwd_ops = fact_bytes_ops(fa, kg, lens, T,
+                                                            P)
+    del den_batch, fa, kg, px, x_lengths, flat_batch, num_batch, loss_mod
+    torch.cuda.empty_cache()
 
-    # -- phase 7: the kernels line ---------------------------------------
-    L = int(lens.sum())
-    n_streams = 3 if fa.xsrc_mode == "identity" else 4
-    s_pad, nnz = fa.s_pad, kg.nnz
-    graph_bytes = nnz * 8 + (fa.s_pad + 1) * 8 + 4 * s_pad * 4
-    n_pdfs_read = len(set(kg.f_dst.tolist()))
-    fwd_bytes = (L * n_pdfs_read * 4 + graph_bytes
-                 + n_streams * L * s_pad * 4 + B * T * 4 + B * s_pad * 4)
-    fwd_ops = 2 * nnz * L + 7 * s_pad * L
-    bwd_bytes = (n_streams * L * s_pad * 4 + B * T * 4 + graph_bytes
-                 + (fa.p_pad + 1 + s_pad) * 4 + B * T * P * 4 + 2 * B * T * 4)
-    bwd_ops = 2 * nnz * L + 15 * s_pad * L
+    # -- phase 11: the cluster kernels, small graphs and the s8k class ---
+    errs_stream_small = stream_small(dev, leaky_c)
+    stream_classes = {"s8k": s8k_class(dev, leaky_c)}
+    torch.cuda.empty_cache()
 
+    # -- phase 12: main path 4, the 12k-state Kaldi-topology denominator -
+    m4 = main_path_4(dev, leaky_c, (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES))
+    stream_classes["main4"] = m4[:5]
+    m4_step_ms, m4_launches = m4[5:]
+
+    # -- phase 13: the kernels line --------------------------------------
     rows = []
     for name, ms, plain_ms, nbytes, ops, err, fn in (
             ("fact_fwd", fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops,
@@ -959,6 +1258,30 @@ def main():
                 "max_abs_err": err, "max_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "bytes": nbytes, "ops": ops, "library_ms": None})
+    for cls, (errs, (a_err, a_excess), times, (fb, fo, bb, bo), C) in \
+            stream_classes.items():
+        for i, name in enumerate(("stream_fwd", "stream_bwd")):
+            nbytes, ops = ((fb, fo), (bb, bo))[i]
+            err = (max(a_err, errs["objf_rel"]) if i == 0 else
+                   max(errs["gamma_abs"], errs["alpha_beta_abs"],
+                       errs["gamma_sum_abs"]))
+            # alpha' (fwd) or gamma (bwd), entry by entry
+            entry_excess = a_excess if i == 0 else errs["gamma_excess"]
+            bms, by = bound(nbytes, ops)
+            line, fn = ((463, "_fwd_kernel_factory"),
+                        (668, "_bwd_kernel_factory"))[i]
+            rows.append({
+                "name": name, "route": "cuda", "size_class": cls,
+                "cluster": C, "source": f"pychain_tpu_torch/csrc/{name}.cu",
+                "replaces": f"pychain_tpu/ops/pallas_stream.py:{line}",
+                "replaces_fn": f"pychain_tpu/ops/pallas_stream.py::{fn}",
+                # main path 4 runs the "main4" class
+                "launches": m4_launches[name] if cls == "main4" else 0,
+                "on_main_path": cls == "main4",
+                "max_abs_err": err, "max_err": err,
+                "entry_excess": entry_excess, "ms": times[i],
+                "plain_ms": times[2 + i], "bound_ms": bms, "bound_by": by,
+                "bytes": nbytes, "ops": ops, "library_ms": None})
     vit_launches = {"realign": re_launches["viterbi"],
                     "decode": dec_launches["viterbi"], "b11": 0}
     for cls, (ms, plain_ms, nbytes, ops, err, bad) in vit_classes.items():
@@ -974,17 +1297,16 @@ def main():
             "max_abs_err": err, "max_err": err, "mismatches": bad,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops, "library_ms": None})
-    small_worst = {k: max(e[k] for e in errs_small) for k in errs_small[0]}
-    print(f"# small-graph worst errors (denominator): {small_worst}")
-    sr_worst = {k: max(e[k] for e in errs_sr_small)
-                for k in errs_sr_small[0]}
-    print(f"# small-batch worst errors (semiring): {sr_worst}")
+    print(f"# small-graph worst errors (denominator): {worst(errs_small)}")
+    print(f"# small-batch worst errors (semiring): {worst(errs_sr_small)}")
+    print(f"# small-graph worst errors (cluster kernels): "
+          f"{worst(errs_stream_small)}")
     print(f"# small-batch Viterbi mismatches: "
           f"{sum(b for b, _ in vit_small_out)}")
     print(f"# step ms (timed step, after warm-up): linear numerators "
           f"{step_ms[-1]:.3f}, flat-start numerators {flat_step_ms[-1]:.3f}"
-          f", constrained numerators {re_step_ms[-1]:.3f}; realignment "
-          f"viterbi_align {align_ms:.3f}")
+          f", constrained numerators {re_step_ms[-1]:.3f}, main path 4 "
+          f"{m4_step_ms[-1]:.3f}; realignment viterbi_align {align_ms:.3f}")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,11 @@ A diagnostic for PERF.md, run on a CUDA card: each variant is the
 kernel's source with a few statements replaced (the emission gather,
 the sparse products, the stream writes or reads, the gamma scatter),
 built with the same nvcc flags into pychain_tpu_torch/csrc/build/ablate/
-and timed at the headline size (bench.py's graph, B=128, T=500) with
-CUDA events.  A variant computes wrong numbers by design; only its time
+and timed with CUDA events: B1/B2 (fact_*) at the headline size
+(bench.py's graph, B=128, T=500), the cluster beta sweep (stream_bwd)
+at main path 4's (the 12k-state Kaldi-topology denominator, B=128,
+T=500, C=2), where its gamma stage reads each state's mass from the CTA
+that owns it, one 4-byte distributed-shared-memory load a state.  A variant computes wrong numbers by design; only its time
 means something: how much of the full kernel's time the removed phase
 accounts for (phases overlap, so the savings need not add up).
 """
@@ -46,6 +49,10 @@ BWD = {
     "no_gamma_scatter": [("if (p < n_pdf_lists) {", "if (false) {")],
     "no_gamma_writes": [("g_row[p] = acc;", "")],
 }
+STREAM_BWD = {
+    "full": [],
+    "no_gamma_stage": [("if (p < n_pdf_lists) {", "if (false) {")],
+}
 
 
 def build_variant(name, edits, out_dir):
@@ -72,12 +79,14 @@ def main():
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch
     from pychain_tpu_torch.csrc import build
     from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
 
     out_dir = build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for kernel, variants in (("fact_fwd", FWD), ("fact_bwd", BWD)):
+    for kernel, variants in (("fact_fwd", FWD), ("fact_bwd", BWD),
+                             ("stream_bwd", STREAM_BWD)):
         for label, edits in variants.items():
             jobs[(kernel, label)] = build_variant(kernel, edits, out_dir)
     for key, (proc, _) in jobs.items():
@@ -126,6 +135,24 @@ def main():
         result[f"fact_bwd/{label}"] = time_ms(
             lambda: fk.fact_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc, s_ys,
                                 ad0, s0, tot, P, debug=False))
+    del ad_ys, w1ad, xdst, xsrc, px
+
+    # the cluster beta sweep at main path 4
+    den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
+                                 num_pdfs=3000, seed=0, bigram_fanout=30,
+                                 forward_pdf_mode="separate")
+    fa = ChainGraphBatch(ChainGraph(den_fst), B, device=dev)._fact
+    C = stk.cluster_size(fa)
+    px = torch.exp(torch.randn(B, T, P, generator=g, device=dev))
+    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
+        px, lens, fa, c)
+    _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
+    tot = tot.contiguous()
+    for label in STREAM_BWD:
+        use("stream_bwd", label)
+        result[f"stream_bwd/{label} C={C}"] = time_ms(
+            lambda: stk.stream_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc,
+                                   s_ys, ad0, s0, tot, P, debug=False))
     for k, v in result.items():
         print(f"# {k:28s} {v:8.3f} ms")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -58,6 +58,7 @@ def factorized_from_numpy(fa, device="cpu") -> FactorizedArrays:
         res_src=_t(fa.res_src, np.int64), res_dst=_t(fa.res_dst, np.int64),
         res_pdf=_t(fa.res_pdf, np.int64),
         res_prob=_t(fa.res_prob, np.float32),
+        engine=str(getattr(fa, "engine", "xla")),
         xsrc_mode=str(fa.xsrc_mode),
     ).to(device)
 

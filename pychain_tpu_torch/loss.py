@@ -13,16 +13,26 @@ reference's ``pychain/loss.py``):
   with per-utterance numerator graphs:
   ``objf = -(num - den) [/ sum(lengths)]`` (loss.py:90-105).
 
-Dispatch: a factorized denominator goes to the CUDA kernels of
-``ops/fact_kernels.py`` (on CPU tensors, their plain version); a batch
-of linear numerators to the closed form of ``ops/linear.py``; any other
-log-domain list batch (cyclic, self-loop, flat-start) to the semiring
-kernels of ``ops/semiring_kernels.py``, which serve what the JAX package
-splits over ``impl="semiring_pallas"`` and ``"semiring_xl"`` (both taken
-here as ``"auto"``).
+Dispatch: a factorized denominator goes to a tier of CUDA kernels
+(:func:`den_engine`, ``pychain_tpu/loss.py::_pallas_tier`` with the
+card's limits): the resident pair of ``ops/fact_kernels.py`` (B1/B2,
+``engine="pallas"``) when the graph's state vectors fit one block's
+shared memory, else the cluster pair of ``ops/stream_kernels.py``
+(B3/B4, ``engine="stream"``); past the cluster limit the CUDA path
+raises (where the JAX package takes its XLA engine, the port has no
+kernel).  On CPU tensors every tier computes the plain version.  A batch
+of linear numerators goes to the closed form of ``ops/linear.py``; any
+other log-domain list batch (cyclic, self-loop, flat-start) to the
+semiring kernels of ``ops/semiring_kernels.py``, which serve what the
+JAX package splits over ``impl="semiring_pallas"`` and ``"semiring_xl"``
+(both taken here as ``"auto"``).  ``impl="pallas"``, the JAX package's
+name for its denominator tiering, is ``"auto"`` too (float32 tiles).
 ``impl="factorized"`` (denominator) and ``impl="semiring"`` (numerator
 lists) ask for the plain PyTorch engine on any device, as the JAX
-package's ``impl="semiring"`` forces its XLA scan.
+package's ``impl="semiring"`` forces its XLA scan.  A FactorizedArrays
+given with ``engine="pallas"`` or ``"stream"`` keeps that engine
+(as ``tools/stream_ab.py`` forces the stream engine in JAX); the default
+``"xla"`` takes the tier of :func:`den_engine`, chosen at each call.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import numpy as np
 import torch
 
 from .graph import ChainGraph, ChainGraphBatch
-from .ops.fact_kernels import forward_backward_prob_kernel
+from .ops import fact_kernels, stream_kernels
 from .ops.factorized import FactorizedArrays, forward_backward_prob_fact
 from .ops.fwdbwd import FwdBwdResult
 from .ops.linear import LinearArrays, forward_backward_linear
@@ -42,22 +52,48 @@ from .utils.device import resolve_device
 CLAMP = 30.0  # reference loss.py:30
 
 IMPLS = ("auto", "factorized", "linear", "semiring")
-# the JAX package's names for its semiring kernels: one kernel pair
-# serves both of its classes here, and "auto" already selects it
-_ALIASES = {"semiring_pallas": "auto", "semiring_xl": "auto"}
+# the JAX package's names for its semiring kernels (one kernel pair
+# serves both of its classes here) and for its denominator tiering:
+# "auto" already selects them
+_ALIASES = {"semiring_pallas": "auto", "semiring_xl": "auto",
+            "pallas": "auto"}
 # engines of the JAX package that the port does not have yet
-_NOT_PORTED = ("gather", "leveled", "dense_list", "pallas")
+_NOT_PORTED = ("gather", "leveled", "dense_list")
+
+
+def den_engine(fa: FactorizedArrays) -> str:
+    """The denominator tier for ``fa``: "pallas" (B1/B2) when its state
+    vectors fit one block's shared memory, else "stream" (B3/B4) when
+    they fit a cluster's, else, on the CPU, "xla" (the plain version,
+    what the CPU runs anyway); on CUDA past the cluster limit it raises
+    NotImplementedError.  A graph with residual arcs stays "pallas",
+    whose wrapper refuses it."""
+    if not fact_kernels.supports(fa) or fact_kernels.fits_on_chip(fa):
+        return "pallas"
+    if stream_kernels.fits_stream(fa):
+        return "stream"
+    if fa.device.type == "cuda":
+        c = max(stream_kernels.CLUSTERS)
+        raise NotImplementedError(
+            f"denominator graph with S_pad={fa.s_pad} needs "
+            f"{stream_kernels.smem_bytes(fa, c)} bytes of shared memory per "
+            f"CTA even on a cluster of {c} CTAs, over the "
+            f"{fact_kernels.MAX_SMEM} a Hopper block has: no CUDA kernel "
+            "serves it (impl='factorized' runs the plain version)")
+    return "xla"
 
 
 def dispatch_arrays(graphs, impl: str = "auto"):
     """The engine-facing arrays of a graph batch.
 
     impl: "auto" (linear closed form for linear numerator batches, the
-    semiring kernels for other log-domain lists, the factorized kernels
-    for a shared prob-domain graph), "factorized" (the plain PyTorch
-    engine for the denominator), "linear", or "semiring" (the plain
-    PyTorch engine for a log-domain list, built for a linear batch too).
-    "semiring_pallas" and "semiring_xl" are accepted as "auto"."""
+    semiring kernels for other log-domain lists, a shared prob-domain
+    graph's FactorizedArrays, whose kernel tier :func:`_run` takes from
+    its ``engine`` or :func:`den_engine`),
+    "factorized" (the plain PyTorch engine for the denominator),
+    "linear", or "semiring" (the plain PyTorch engine for a log-domain
+    list, built for a linear batch too).  "semiring_pallas",
+    "semiring_xl" and "pallas" are accepted as "auto"."""
     impl = _ALIASES.get(impl, impl)
     if impl not in IMPLS:
         if impl in _NOT_PORTED:
@@ -111,12 +147,19 @@ def _run(x, lengths, g, leaky_coefficient, impl="auto",
                 return forward_backward_semiring(x, lengths, g)
             return forward_backward_semiring_kernel(x, lengths, g)
         if isinstance(g, FactorizedArrays):
+            px = torch.exp(x)
             if impl == "factorized":
-                return forward_backward_prob_fact(torch.exp(x), lengths, g,
+                engine = "xla"
+            else:      # an engine the caller set is kept
+                engine = den_engine(g) if g.engine == "xla" else g.engine
+            if engine == "xla":
+                return forward_backward_prob_fact(px, lengths, g,
                                                   leaky_coefficient)
-            return forward_backward_prob_kernel(torch.exp(x), lengths, g,
-                                                leaky_coefficient,
-                                                debug=debug)
+            if engine == "stream":
+                return stream_kernels.forward_backward_prob_stream(
+                    px, lengths, g, leaky_coefficient, debug=debug)
+            return fact_kernels.forward_backward_prob_kernel(
+                px, lengths, g, leaky_coefficient, debug=debug)
     raise TypeError(f"no engine for {type(g).__name__}")
 
 

@@ -21,9 +21,9 @@ raises.  Each launch adds one to ``LAUNCHES[name]``.
 
 Covered: float32 ("parity") operands and the "full" stream mode.  The
 bfloat16 fast mode and the "lean"/"ckpt" stream modes raise
-``NotImplementedError`` on CUDA (ROADMAP.md queues them), as do graphs
-whose working set exceeds a block's shared memory (the streamed
-kernels' job, B3/B4 in ROADMAP.md).
+``NotImplementedError`` on CUDA (ROADMAP.md queues them); a graph whose
+state vectors exceed a block's shared memory raises here and is the
+cluster kernels' (``ops/stream_kernels.py``, B3/B4).
 """
 
 from __future__ import annotations
@@ -47,9 +47,11 @@ TILE = 128
 MAX_SMEM = 232448
 FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
 # "full" stream mode keeps three (T, S_pad, B) fwd->bwd streams (four
-# outside identity mode); the other modes are not ported yet.
+# outside identity mode); the other modes are not ported yet.  The JAX
+# package's fixed budget (pallas_fact.py:794-795, STREAM_BUDGET and
+# LEAN_BUDGET both 4 GiB, sized for a 16 GB TPU) is select_stream_mode's
+# default; the wrappers pass the card's own (stream_budget).
 STREAM_BUDGET = 4 * 1024 * 1024 * 1024
-LEAN_BUDGET = 4 * 1024 * 1024 * 1024
 
 LAUNCHES = {"fact_fwd": 0, "fact_bwd": 0}
 
@@ -80,15 +82,40 @@ def fits_on_chip(fa: FactorizedArrays) -> bool:
 
 
 def select_stream_mode(T: int, s_pad: int, B: int, itemsize: int,
-                       n_streams: int) -> str:
+                       n_streams: int, budget: int = STREAM_BUDGET) -> str:
     """Cheapest stream mode whose fwd->bwd streams fit the device-memory
-    budgets (pallas_fact.select_stream_mode :798)."""
+    budget (pallas_fact.select_stream_mode :798): all n_streams, else
+    one ("lean"), else checkpoints."""
     row_bytes = T * s_pad * B * itemsize
-    if n_streams * row_bytes <= STREAM_BUDGET:
+    if n_streams * row_bytes <= budget:
         return "full"
-    if row_bytes <= LEAN_BUDGET:
+    if row_bytes <= budget:
         return "lean"
     return "ckpt"
+
+
+def stream_budget(device) -> int:
+    """Bytes the fwd->bwd streams of one call may take on a CUDA card:
+    40% of its memory (the rule of pallas_stream.stream_hbm_budget), the
+    rest being for x, its exp, gamma, the gradient and the graph."""
+    device = torch.device(device)
+    _require(device.type == "cuda", f"stream_budget: {device} is no CUDA "
+             "device (the CPU path keeps no streams)")
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(total * 0.40)
+
+
+def require_full_mode(T: int, fa: FactorizedArrays, B: int, budget: int):
+    """Raise unless the "full" stream mode's streams fit ``budget``: the
+    other modes have no CUDA kernel yet."""
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    mode = select_stream_mode(T, fa.s_pad, B, 4, n_streams, budget)
+    if mode != "full":
+        raise NotImplementedError(
+            f"stream mode {mode!r}: {n_streams} float32 streams of (T={T}, "
+            f"S_pad={fa.s_pad}, B={B}) exceed the card's budget of "
+            f"{budget} bytes, and only \"full\" has a CUDA kernel yet "
+            "(ROADMAP.md, deferred modules)")
 
 
 # ----------------------------------------------------------------------
@@ -103,8 +130,11 @@ class KernelGraph:
     block's nonzeros + the tiles' nonzeros, each row in ascending column
     order.
     The one-hot E matrices become gathers through f_dst/g_src and, for
-    the posterior scatter, pdf -> states lists (all S_pad states:
-    padded states map to pdf 0 with zero mass)."""
+    the posterior scatter, pdf -> states lists: E_f^T's over all S_pad
+    states (padded states map to pdf 0 with zero mass), E_g^T's over the
+    states with a W2 out-arc only (any other state's E_g^T mass is
+    exactly 0: its W2^T row is empty; keeping them would put most
+    states in pdf 0's list, one thread's serial loop)."""
     w1: tuple            # (slice_ptr, col, val)
     w2: tuple
     w1t: tuple
@@ -182,9 +212,11 @@ def _sell(rows, cols, vals, n_rows):
             torch.from_numpy(scol), torch.from_numpy(sval))
 
 
-def _pdf_lists(pdf_of_state, n_pdfs):
-    s = np.arange(len(pdf_of_state), dtype=np.int64)
-    ptr, states, _ = _csr(pdf_of_state, s, np.zeros(len(s), np.float32),
+def _pdf_lists(pdf_of_state, n_pdfs, states=None):
+    """pdf -> ascending states lists over ``states`` (default all)."""
+    s = (np.arange(len(pdf_of_state), dtype=np.int64) if states is None
+         else np.asarray(states, np.int64))
+    ptr, states, _ = _csr(pdf_of_state[s], s, np.zeros(len(s), np.float32),
                           n_pdfs)
     return ptr, states
 
@@ -203,7 +235,7 @@ def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
         f_dst=torch.from_numpy(f.astype(np.int32)),
         g_src=None if identity else torch.from_numpy(g.astype(np.int32)),
         f_lists=_pdf_lists(f, p_pad),
-        g_lists=None if identity else _pdf_lists(g, p_pad),
+        g_lists=None if identity else _pdf_lists(g, p_pad, np.unique(c2)),
         n_pdf_lists=p_pad, nnz=len(v1) + len(v2),
         max_pdf=int(max(f.max(), 0 if identity else g.max())))
 
@@ -269,6 +301,11 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
     lengths (B,) int32 in [1, T].  Returns (ad_ys, w1ad_ys, xdst_ys,
     xsrc_ys or None, s_ys (B, T), ad_last (B, S_pad), ad0, s0)."""
     _check_cuda_inputs(px, lengths, fa)
+    _require(fits_on_chip(fa),
+             f"graph with S_pad={fa.s_pad} needs {smem_bytes(fa)} bytes "
+             f"of shared memory per block, over the {MAX_SMEM} a Hopper "
+             "block has; the cluster kernels serve it (engine=\"stream\", "
+             "ops/stream_kernels.py)")
     kg = graph_for(fa)
     B, T, P = px.shape
     _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
@@ -336,11 +373,6 @@ def _check_cuda_inputs(px, lengths, fa: FactorizedArrays):
             "kernel yet (ROADMAP.md, deferred modules); use float32")
     _require(supports(fa), "the kernels require a fully factorized graph "
              "(no residual arcs)")
-    _require(fits_on_chip(fa),
-             f"graph with S_pad={fa.s_pad} needs {smem_bytes(fa)} bytes "
-             f"of shared memory per block, over the {MAX_SMEM} a Hopper "
-             "block has; the streamed kernels (ROADMAP.md B3/B4) are "
-             "not ported yet")
 
 
 # ----------------------------------------------------------------------
@@ -374,17 +406,12 @@ def _frame0_traces(res: FwdBwdResult) -> FwdBwdResult:
     return res._replace(alpha_beta=ab, gamma_sum=gs)
 
 
-def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
-                                 leaky_coefficient=1e-5,
-                                 debug: bool = True) -> FwdBwdResult:
-    """Fused fwd+bwd on a fully-factorized graph.
-
-    px: (B, T, P) exp'd clamped nnet output (float32).  On CUDA this
-    launches ``fact_fwd`` then ``fact_bwd``; on the CPU it computes the
-    plain version.  debug: with True the alpha*beta and sum-gamma traces
-    cover every frame; with False only frame 0 (the reference's default,
-    chain-computation.cc:337-338), the other frames reading exactly
-    1.0.  Verbose level >= 1 forces the full traces."""
+def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
+                  debug, fwd, bwd) -> FwdBwdResult:
+    """The glue of a kernel pair: CPU tensors take the plain version;
+    CUDA tensors run ``fwd``, the objective and ``bwd`` (the signatures
+    of :func:`fact_fwd` / :func:`fact_bwd`), the streams' bytes held to
+    the card's :func:`stream_budget`."""
     debug = debug or get_verbose_level() >= 1
     if not supports(fa):
         raise ValueError("the factorized kernels require a fully "
@@ -394,12 +421,7 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
         return res if debug else _frame0_traces(res)
 
     B, T, P = px.shape
-    n_streams = 3 if fa.xsrc_mode == "identity" else 4
-    mode = select_stream_mode(T, fa.s_pad, B, 4, n_streams)
-    if mode != "full":
-        raise NotImplementedError(
-            f"stream mode {mode!r} (T={T}, S_pad={fa.s_pad}, B={B}) has no "
-            "CUDA kernel yet (ROADMAP.md, deferred modules)")
+    require_full_mode(T, fa, B, stream_budget(px.device))
     # checked on a host copy: lengths given on the host cost no wait
     lens_host = torch.as_tensor(lengths).cpu().to(torch.int32)
     _require(bool(((lens_host >= 1) & (lens_host <= T)).all()),
@@ -408,9 +430,25 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     px = px.float().contiguous()
     with torch.no_grad():
         ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, ad0, s0 = \
-            fact_fwd(px, lens, fa, leaky_coefficient)
+            fwd(px, lens, fa, leaky_coefficient)
         objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
-        gamma, ab, gs = fact_bwd(lens, fa, leaky_coefficient, ad_ys,
-                                 w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0,
-                                 tot_prob.contiguous(), P, debug=debug)
+        gamma, ab, gs = bwd(lens, fa, leaky_coefficient, ad_ys, w1ad_ys,
+                            xdst_ys, xsrc_ys, s_ys, ad0, s0,
+                            tot_prob.contiguous(), P, debug=debug)
     return _package_result(objf, gamma, ab, gs)
+
+
+def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
+                                 leaky_coefficient=1e-5,
+                                 debug: bool = True) -> FwdBwdResult:
+    """Fused fwd+bwd on a fully-factorized graph (the resident tier,
+    engine "pallas").
+
+    px: (B, T, P) exp'd clamped nnet output (float32).  On CUDA this
+    launches ``fact_fwd`` then ``fact_bwd``; on the CPU it computes the
+    plain version.  debug: with True the alpha*beta and sum-gamma traces
+    cover every frame; with False only frame 0 (the reference's default,
+    chain-computation.cc:337-338), the other frames reading exactly
+    1.0.  Verbose level >= 1 forces the full traces."""
+    return fused_fwd_bwd(px, lengths, fa, leaky_coefficient, debug,
+                         fact_fwd, fact_bwd)

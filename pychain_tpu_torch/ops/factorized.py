@@ -86,6 +86,11 @@ class FactorizedArrays:
     res_dst: torch.Tensor
     res_pdf: torch.Tensor
     res_prob: torch.Tensor
+    # which engine runs this graph (the JAX package's names): "xla" the
+    # plain version below, "pallas" the resident kernels B1/B2
+    # (ops/fact_kernels.py), "stream" the cluster kernels B3/B4
+    # (ops/stream_kernels.py)
+    engine: str = "xla"
     # "identity": g == f on W2's support, so x_src = x_dst;
     # "matrix"/"stream": x_src = E_g @ px (see graphs/factorize.py)
     xsrc_mode: str = "stream"

@@ -25,7 +25,8 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax():
     code = ("import sys, pychain_tpu_torch, pychain_tpu_torch.convert, "
             "pychain_tpu_torch.csrc.build, pychain_tpu_torch.ops.fact_kernels,"
-            " pychain_tpu_torch.ops.semiring, "
+            " pychain_tpu_torch.ops.stream_kernels, "
+            "pychain_tpu_torch.ops.semiring, "
             "pychain_tpu_torch.ops.semiring_kernels, "
             "pychain_tpu_torch.ops.viterbi, "
             "pychain_tpu_torch.ops.viterbi_kernels, "
