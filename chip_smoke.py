@@ -9,9 +9,12 @@ gamma and traces absolute errors of at most 1e-4, and gamma and the
 alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the seven kernels from csrc/*.cu with nvcc (sm_90a), all
-   sources at once, one nvcc each, and check that each kernel's shared
-   memory size in Python equals its source's;
+2. build the eight sources of csrc/*.cu with nvcc (sm_90a), all at
+   once, one nvcc each, and check that each kernel's shared memory size
+   in Python equals its source's; then run tests/test_torch_card.py (the
+   kernels against their plain versions, in pytest) in a fresh
+   interpreter without tests/conftest.py, which imports JAX: every test
+   must pass and none skip;
 3. the denominator kernels (fact_fwd, fact_bwd) against their plain
    PyTorch version on the card: small graphs in the three x_src modes
    with unequal lengths and debug True/False, then the headline graph
@@ -75,12 +78,22 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    and False, with both times (and the pair's at C=4 and 8), three SGD
    steps (loss finite and falling, gradient finite, one launch of each
    cluster kernel a step and none of B1/B2), a timed and a profiled step;
-13. one JSON line {"kernels": [...]} with each kernel's launches on the
-   main path that runs it, its error against the plain version, its
-   time, the plain version's time and the least time the card could take
-   (bound_ms); the semiring and Viterbi kernels get one row per size
-   class, the cluster kernels one for main path 4 and one for s8k;
-14. the card's name and power limit, then the last line
+13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
+   as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
+   f32 and bf16 forms): each form against its plain version on small
+   shapes (K not a multiple of 16, S not a multiple of 8, a state no arc
+   enters; xl_vpu twice, bit-identical) and at the tool's default size
+   (S=1000, K=3200, T=512, B=8), relative error with the tool's 1e-9
+   floor at most 1e-5 (f32 forms) and 5e-3 (bf16), each form's drift
+   against vpu printed; then the probe's own path, the tool's main()
+   at the default size with 5 iterations, with the launch counts read;
+14. one JSON line {"kernels": [...]} with each kernel's launches on the
+   path that runs it (the xl_* rows: the probe's), its error against the
+   plain version, its time, the plain version's time and the least time
+   the card could take (bound_ms); the semiring and Viterbi kernels get
+   one row per size class, the cluster kernels one for main path 4 and
+   one for s8k;
+15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero and prints no result.  It
@@ -89,8 +102,12 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +121,7 @@ import torch
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
+PEAK_BF16_TC_FLOPS = 989e12   # dense, tensor cores
 TOL = 1e-4   # objf relative, gamma and traces absolute (docs/PARITY.md:21)
 # and, entry by entry, gamma and the alpha' stream: |d| <= RTOL |ref| + ATOL.
 # An entry of gamma or alpha' is about 1/P or 1/S_pad (1.7e-4 at P=6,000),
@@ -319,8 +337,43 @@ def check_smem():
                                                identity)
         check(got == want, f"smem_bytes S_pad={s_pad} {mode}: Python {got} "
               f"!= sources {want}")
+    from pychain_tpu_torch.tools import xl_roofline as xr
+    xl = build.load("xl_roofline")
+    for fn in (xl.xl_vpu_smem_bytes, xl.xl_mxu_smem_bytes):
+        fn.restype = ctypes.c_size_t
+    for S, K in ((1000, 3200), (37, 45), (4000, 20000)):
+        check(xr.vpu_smem_bytes(S, K) == xl.xl_vpu_smem_bytes(S, K),
+              f"xl_vpu smem S={S} K={K}: Python {xr.vpu_smem_bytes(S, K)} "
+              f"!= source {xl.xl_vpu_smem_bytes(S, K)}")
+        for split in (1, 3):
+            py = xr.mxu_smem_bytes(S, K, split)
+            c = xl.xl_mxu_smem_bytes(S, K, split)
+            check(py == c, f"xl_mxu smem S_pad={S} K_pad={K} split={split}: "
+                  f"Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
-          "(fact_*, stream_* at C = 1, 2, 4, 8)", flush=True)
+          "(fact_*, stream_* at C = 1, 2, 4, 8, xl_vpu, xl_mxu)", flush=True)
+
+
+def card_tests():
+    """tests/test_torch_card.py on this card, in a fresh interpreter
+    without tests/conftest.py (which imports JAX): every test must pass
+    and none skip."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "-rs", "tests/test_torch_card.py"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    passed = re.search(r"(\d+) passed", summary)
+    check(out.returncode == 0 and passed is not None and not re.search(
+              r"skipped|failed|error|xfail|xpass|deselected", summary),
+          f"card tests (pytest rc={out.returncode}): {summary}\n"
+          f"{out.stdout[-6000:]}\n{out.stderr[-2000:]}")
+    print(f"# card tests (tests/test_torch_card.py, --noconftest): "
+          f"{passed.group(1)} passed, none skipped, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def stream_small(dev, leaky_c):
@@ -988,6 +1041,128 @@ def decoding(dev, B, T, vit_counter):
     return batch.semiring(), x_rand, lens, launches
 
 
+# ----------------------------------------------------------------------
+# The XL roofline probe (T1/T2)
+# ----------------------------------------------------------------------
+
+XL_TOL = {"vpu": 1e-5, "mxu_f32": 1e-5, "mxu_bf16": 5e-3}
+XL_REPLACES = {"vpu": ("tools/xl_roofline.py:72", "make_vpu kernel :50"),
+               "mxu_f32": ("tools/xl_roofline.py:126",
+                           "make_mxu kernel :94, f32 masks, HIGHEST"),
+               "mxu_bf16": ("tools/xl_roofline.py:126",
+                            "make_mxu kernel :94, bf16 masks, DEFAULT")}
+
+
+def xl_probe(dev):
+    """The probe's kernels against their plain versions, small shapes and
+    the tool's default size; then the tool's own path with the launches
+    counted.  Returns {form: row fields}."""
+    from pychain_tpu_torch.tools import xl_roofline as xr
+    for S, K, T, B in ((64, 192, 16, 2), (100, 250, 12, 3), (37, 45, 5, 2),
+                       (1000, 3200, 8, 2)):
+        rng = np.random.RandomState(S)
+        src = rng.randint(0, S, (B, K)).astype(np.int32)
+        dst = rng.randint(0, S, (B, K)).astype(np.int32)
+        dst[dst == 0] = 1                        # state 0: no in-arc
+        w = rng.rand(K).astype(np.float32) + 0.1
+        args = [torch.from_numpy(a).to(dev) for a in (src, dst, w)]
+        errs = {}
+        for form, run in xr.RUNNERS.items():
+            xr.reset_launch_counts()
+            got = run(*args, S, T)
+            check(xr.LAUNCHES[xr.KERNELS[form]] == 1
+                  and sum(xr.LAUNCHES.values()) == 1,
+                  f"xl {form} S={S}: launches {xr.LAUNCHES}, want one of "
+                  f"{xr.KERNELS[form]}")
+            errs[form] = xr.rel_diff(got, xr.plain(form, *args, S, T))
+            check(errs[form] <= XL_TOL[form] and bool((got[:, 0] == 0).all())
+                  and got.shape == (B, S),
+                  f"xl {form} S={S} K={K} T={T} B={B}: rel err "
+                  f"{errs[form]:.3e} (limit {XL_TOL[form]:.0e}), carry of "
+                  f"the state without in-arcs {got[:, 0].tolist()}")
+            if form == "vpu":
+                check(torch.equal(run(*args, S, T), got),
+                      f"xl_vpu S={S} K={K}: a rerun differs")
+        print(f"# xl small S={S} K={K} T={T} B={B}: rel err "
+              + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+              + "; xl_vpu bit-identical on a rerun", flush=True)
+
+    S, K, T, B = 1000, 3200, 512, 8              # tools/xl_roofline.py:149-152
+    src, dst, w = xr.inputs(S, K, B, dev)
+    rows, kernel_out = {}, {}
+    for form, run in xr.RUNNERS.items():
+        got = run(src, dst, w, S, T)
+        ref = xr.plain(form, src, dst, w, S, T)
+        torch.cuda.synchronize()
+        err, abs_err = xr.rel_diff(got, ref), absmax(got, ref)
+        check(bool(torch.isfinite(got).all()) and err <= XL_TOL[form],
+              f"xl {form} at S={S} K={K} T={T} B={B}: rel err {err:.3e} "
+              f"(limit {XL_TOL[form]:.0e})")
+        kernel_out[form] = got
+        plain_ms = cuda_ms(lambda: xr.plain(form, src, dst, w, S, T), 1)
+        # the kernel alone, on its prepared arrays (the runner's call adds
+        # the input checks' host sync and the CSR sort or the padding)
+        if form == "vpu":
+            prep = xr.vpu_csr(src, dst, w, S)
+            kernel_ms = cuda_ms(lambda: xr.vpu_kernel(*prep, S, T), 10)
+        else:
+            prep = xr.mxu_operands(src, dst, w)
+            kernel_ms = cuda_ms(
+                lambda: xr.mxu_kernel(xr.KERNELS[form], *prep, S, T), 3)
+        drift = xr.rel_diff(got, kernel_out["vpu"])
+        split = xr.SPLIT.get(xr.KERNELS[form], 0)
+        s_pad, k_pad = -(-S // 16) * 16, -(-K // 16) * 16
+        rows[form] = {"rel_err": err, "max_abs_err": abs_err,
+                      "ms": kernel_ms, "plain_ms": plain_ms,
+                      "drift_vs_vpu": drift,
+                      # the function's own work: K gathers and 2K flops a
+                      # frame and row; ids, weights in and the carry out
+                      "bytes": B * K * 8 + K * 4 + B * S * 4,
+                      "ops": 2 * K * B * T,
+                      # what the dense tensor-core form does
+                      "tc_dense_ops": 4 * s_pad * k_pad * B * T * split}
+        print(f"# xl {form} at S={S} K={K} T={T} B={B}: rel err {err:.3e}, "
+              f"max abs {abs_err:.3e} against the plain version; kernel "
+              f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; carry drift "
+              f"against vpu {drift:.3e}",
+              flush=True)
+        if split:
+            dense = rows[form]["tc_dense_ops"]
+            print(f"# xl {form}: dense tensor-core form {dense:.4e} ops, "
+                  f"{dense / PEAK_BF16_TC_FLOPS * 1e3:.4f} ms at "
+                  f"{PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s (a count over a "
+                  f"peak, not a timing)", flush=True)
+
+    # xl_vpu at B=128 rows, the batch of semiring_fwd's xl class
+    src128, dst128, w128 = xr.inputs(S, K, 128, dev)
+    prep = xr.vpu_csr(src128, dst128, w128, S)
+    xr.vpu_kernel(*prep, S, T)
+    ms128 = cuda_ms(lambda: xr.vpu_kernel(*prep, S, T), 10)
+    rows["vpu"]["b128_ms"] = ms128
+    print(f"# xl_vpu at B=128 (S={S} K={K} T={T}): {ms128:.3f} ms, "
+          f"{ms128 * 1e3 / (128 * T):.5f} us/frame/seq", flush=True)
+    del src128, dst128, w128, prep
+
+    # the probe's path: the tool's main(), launches counted
+    xr.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = xr.main(["--iters", "5"])
+    launches = dict(xr.LAUNCHES)
+    print(f"# xl_roofline: {buf.getvalue().strip()}")
+    print(f"# xl_roofline launches: {launches}", flush=True)
+    for form in xr.FORMS:
+        check(launches[xr.KERNELS[form]] >= 1,
+              f"the probe ran {form} without launching "
+              f"{xr.KERNELS[form]}")
+        res = out["results"][form]
+        rows[form].update(launches=launches[xr.KERNELS[form]],
+                          call_ms=res["ms_per_call"],
+                          us_per_frame=res["us_per_frame"],
+                          compile_s=res["compile_s"])
+    return rows
+
+
 def bound(nbytes, ops, peak_flops=PEAK_F32_FLOPS):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_flops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1023,6 +1198,7 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"#   {name}: {line.strip()}")
     check_smem()
+    card_tests()
     leaky_c = 1e-5
 
     # -- phase 3: kernels vs plain, small graphs -------------------------
@@ -1223,6 +1399,11 @@ def main():
     m4 = main_path_4(dev, leaky_c, (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES))
     stream_classes["main4"] = m4[:5]
     m4_step_ms, m4_launches = m4[5:]
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the XL roofline probe ----------------------------------
+    from pychain_tpu_torch.tools import xl_roofline as xr
+    xl_rows = xl_probe(dev)
 
     # -- phase 13: the kernels line --------------------------------------
     rows = []
@@ -1297,6 +1478,24 @@ def main():
             "max_abs_err": err, "max_err": err, "mismatches": bad,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops, "library_ms": None})
+    for form, r in xl_rows.items():
+        bms, by = bound(r["bytes"], r["ops"])
+        rows.append({
+            "name": xr.KERNELS[form], "route": "cuda",
+            "source": "pychain_tpu_torch/csrc/xl_roofline.cu",
+            "replaces": XL_REPLACES[form][0],
+            "replaces_fn": XL_REPLACES[form][1],
+            # the probe's path (its own main()); no main path runs it
+            "launches": r["launches"], "on_main_path": False,
+            "max_abs_err": r["max_abs_err"], "max_err": r["rel_err"],
+            "rel_err": r["rel_err"], "drift_vs_vpu": r["drift_vs_vpu"],
+            "ms": r["ms"], "call_ms": r["call_ms"],
+            "b128_ms": r.get("b128_ms"),
+            "us_per_frame": r["us_per_frame"],
+            "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "bytes": r["bytes"], "ops": r["ops"],
+            "tc_dense_ops": r["tc_dense_ops"] or None,
+            "library_ms": None})
     print(f"# small-graph worst errors (denominator): {worst(errs_small)}")
     print(f"# small-batch worst errors (semiring): {worst(errs_sr_small)}")
     print(f"# small-graph worst errors (cluster kernels): "

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fact_fwd", "fact_bwd", "stream_fwd", "stream_bwd",
-           "semiring_fwd", "semiring_bwd", "viterbi")
+           "semiring_fwd", "semiring_bwd", "viterbi", "xl_roofline")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -151,23 +151,3 @@ def test_simplefst_matches_jax(tmp_path):
     for u, v in zip(simplefst.StdVectorFst.fst_to_tensor(got, True),
                     j_simplefst.StdVectorFst.fst_to_tensor(ref, True)):
         np.testing.assert_array_equal(u, np.asarray(v))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_decoder_matches_cpu(cuda):
-    mine, _ = _decoders()
-    x, lengths = _oracle(mine.topo, 14)
-    x = np.random.RandomState(2).randn(*x.shape).astype(np.float32)
-    vk.reset_launch_counts()
-    got = mine(torch.from_numpy(x).to(cuda), lengths)
-    assert vk.LAUNCHES == {"viterbi": 1}
-    ref = mine(torch.from_numpy(x), lengths)
-    assert got.phones == ref.phones and got.durations == ref.durations
-    np.testing.assert_array_equal(got.scores, ref.scores)

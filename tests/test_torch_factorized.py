@@ -9,8 +9,8 @@ The CUDA kernels cannot run here; what surrounds them can.  A step-for-
 step emulation of the two kernels in PyTorch, on the KernelGraph the
 kernels read (CSR rows, pdf -> states lists), must match the plain
 version, and the kernel wrapper must take the plain path for CPU
-tensors without counting a launch.  The card-only tests compare the
-kernels themselves with the plain version.
+tensors without counting a launch.  tests/test_torch_card.py compares
+the kernels themselves with the plain version on the card.
 """
 
 import numpy as np
@@ -260,35 +260,3 @@ def test_stream_mode_and_shared_memory_sizing():
     sm = fk.smem_bytes(fa)
     assert sm["fact_fwd"] == (4 * fa.s_pad + 33) * 4
     assert fk.fits_on_chip(fa)
-
-
-# ----------------------------------------------------------------------
-# On the card: the kernels against their plain version
-# ----------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode,want", MODES)
-@pytest.mark.parametrize("debug", [True, False])
-def test_cuda_kernels_match_plain(cuda, mode, want, debug):
-    fst, x, lengths = _case(mode, seed=5)
-    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), x.shape[0],
-                            device=cuda)._fact
-    px = torch.exp(torch.from_numpy(x)).to(cuda)
-    lens = torch.from_numpy(lengths).to(cuda)
-    fk.reset_launch_counts()
-    got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY, debug=debug)
-    assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
-    ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
-    if not debug:
-        ref = fk._frame0_traces(ref)
-    torch.testing.assert_close(got.objf, ref.objf, rtol=1e-4, atol=0)
-    for name in ("gamma", "alpha_beta", "gamma_sum"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
-                                   rtol=0, atol=1e-4)

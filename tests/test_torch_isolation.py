@@ -2,7 +2,9 @@
 
 Checked two ways: importing pychain_tpu_torch in a fresh interpreter
 leaves no ``jax`` or ``pychain_tpu`` module loaded, and no source file
-of the port (nor chip_smoke.py) names either in an import statement.
+of the port (nor chip_smoke.py, nor tests/test_torch_card.py, which runs
+on a card machine without JAX) names either in an import statement or as
+a name.
 Module names are compared whole: ``pychain_tpu`` is a prefix of
 ``pychain_tpu_torch``.
 """
@@ -31,7 +33,8 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.ops.viterbi, "
             "pychain_tpu_torch.ops.viterbi_kernels, "
             "pychain_tpu_torch.decode, pychain_tpu_torch.simplefst, "
-            "pychain_tpu_torch.graphs.builder;"
+            "pychain_tpu_torch.graphs.builder, "
+            "pychain_tpu_torch.tools.xl_roofline;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
@@ -48,10 +51,12 @@ def _imports(path: Path):
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+        elif isinstance(node, ast.Name):
+            yield node.id
 
 
 SOURCES = sorted((ROOT / "pychain_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_card.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,

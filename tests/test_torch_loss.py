@@ -22,12 +22,11 @@ from pychain_tpu_torch.convert import factorized_from_numpy
 from pychain_tpu_torch.graphs.builder import ChainTopology, \
     make_numerator_fst
 from pychain_tpu_torch.graphs.fst import FST
-from pychain_tpu_torch.ops import fact_kernels as fk
 from pychain_tpu_torch.ops import semiring_kernels as sk
 from pychain_tpu_torch.utils.testgraphs import denominator_fst, linear_fst
 
 
-def _setup(B=3, T=8, seed=0, mode="source", num_lens=None, device="cpu"):
+def _setup(B=3, T=8, seed=0, mode="source", num_lens=None):
     den_fst, P = denominator_fst(num_phones=10, states_per_phone=2,
                                  seed=seed, forward_pdf_mode=mode)
     rng = np.random.RandomState(seed)
@@ -38,7 +37,7 @@ def _setup(B=3, T=8, seed=0, mode="source", num_lens=None, device="cpu"):
     K = int(max(num_lens))
     nums = pt.ChainGraphBatch(
         [pt.ChainGraph(linear_fst(s), log_domain=True) for s in seqs],
-        max_num_transitions=K, max_num_states=K + 1, device=device)
+        max_num_transitions=K, max_num_states=K + 1, device="cpu")
     jnums = JChainGraphBatch(
         [JChainGraph(linear_fst(s), log_domain=True) for s in seqs],
         max_num_transitions=K, max_num_states=K + 1)
@@ -176,31 +175,11 @@ def test_default_device_without_a_card_raises():
         pt.ChainGraphBatch(den, 2)
 
 
-@pytest.mark.cuda
-def test_cuda_chain_loss_matches_cpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    den_fst, x, lens, nums, _ = _setup(mode="cross")
-    cpu = pt.ChainLoss(pt.ChainGraph(den_fst), device="cpu")
-    xc = torch.from_numpy(x).requires_grad_(True)
-    vc = cpu(xc, lens, nums)
-    vc.backward()
-    gpu = pt.ChainLoss(pt.ChainGraph(den_fst))
-    _, _, _, num_gpu, _ = _setup(mode="cross", device="cuda")
-    xg = torch.from_numpy(x).cuda().requires_grad_(True)
-    fk.reset_launch_counts()
-    vg = gpu(xg, lens, num_gpu)
-    vg.backward()
-    assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
-    torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
-    torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)
-
-
 # ----------------------------------------------------------------------
 # Flat-start (end-to-end) numerators: the semiring path
 # ----------------------------------------------------------------------
 
-def _flat_start(B=3, T=9, seed=0, device="cpu"):
+def _flat_start(B=3, T=9, seed=0):
     """A denominator and B flat-start numerators (make_numerator_fst,
     lm=None) over its pdfs, N_b phones in T frames."""
     den_fst, P = denominator_fst(num_phones=10, states_per_phone=2,
@@ -214,7 +193,7 @@ def _flat_start(B=3, T=9, seed=0, device="cpu"):
     K, S = 2 * 4, 4 + 1
     nums = pt.ChainGraphBatch(
         [pt.ChainGraph(f, log_domain=True) for f in fsts],
-        max_num_transitions=K, max_num_states=S, device=device)
+        max_num_transitions=K, max_num_states=S, device="cpu")
     jnums = JChainGraphBatch([JChainGraph(f, log_domain=True) for f in fsts],
                              max_num_transitions=K, max_num_states=S)
     return den_fst, x, lens, nums, jnums
@@ -253,25 +232,3 @@ def test_flat_start_sgd_step_lowers_the_loss():
         losses.append(float(val.detach()))
     assert np.isfinite(losses).all() and losses[0] > losses[1] > losses[2]
     assert sk.LAUNCHES == {"semiring_fwd": 0, "semiring_bwd": 0}
-
-
-@pytest.mark.cuda
-def test_cuda_flat_start_chain_loss_matches_cpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    den_fst, x, lens, nums, _ = _flat_start(seed=2)
-    cpu = pt.ChainLoss(pt.ChainGraph(den_fst), device="cpu")
-    xc = torch.from_numpy(x).requires_grad_(True)
-    vc = cpu(xc, lens, nums)
-    vc.backward()
-    gpu = pt.ChainLoss(pt.ChainGraph(den_fst))
-    _, _, _, num_gpu, _ = _flat_start(seed=2, device="cuda")
-    xg = torch.from_numpy(x).cuda().requires_grad_(True)
-    fk.reset_launch_counts()
-    sk.reset_launch_counts()
-    vg = gpu(xg, lens, num_gpu)
-    vg.backward()
-    assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
-    assert sk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
-    torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
-    torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)

@@ -13,8 +13,9 @@ float32's: objf relative <= 1e-5, gamma and traces max-abs <= 1e-5.
 
 The CUDA kernels cannot run here; a step-for-step emulation of both on
 the arrays they read (arc ids, CSR lists, pdf lists), with the stream
-rows they never write set to NaN, must match the plain version.  The
-card-only tests compare the kernels themselves with the plain version.
+rows they never write set to NaN, must match the plain version.
+tests/test_torch_card.py compares the kernels themselves with the plain
+version on the card.
 """
 
 import dataclasses
@@ -65,12 +66,12 @@ def _fsts(seed=0):
             make_numerator_fst(rng.randint(0, P // 2, size=6), topo)]
 
 
-def _batches(fsts, device="cpu"):
+def _batches(fsts):
     gs = [pt.ChainGraph(f, log_domain=True) for f in fsts]
     K = max(g.num_transitions for g in gs)
     S = max(g.num_states for g in gs)
     mine = pt.ChainGraphBatch(gs, max_num_transitions=K, max_num_states=S,
-                              device=device)
+                              device="cpu")
     theirs = JChainGraphBatch([JChainGraph(f, log_domain=True)
                                for f in fsts],
                               max_num_transitions=K, max_num_states=S)
@@ -396,40 +397,3 @@ def test_list_build_is_vectorised_and_matches_per_graph_lists():
             assert torch.equal(getattr(one, f)[0], getattr(g, f)[b]), f
         n = one.n_pdfs
         assert torch.equal(one.pdf_ptr[0], g.pdf_ptr[b, :n + 1])
-
-
-# ----------------------------------------------------------------------
-# On the card: the kernels against their plain version
-# ----------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain(cuda):
-    mine, _ = _batches(_fsts(seed=7), device=cuda)
-    x = torch.from_numpy(_x(seed=7)).to(cuda)
-    lens = torch.from_numpy(LENGTHS).to(cuda)
-    sk.reset_launch_counts()
-    got = sk.forward_backward_semiring_kernel(x, lens, mine._semiring)
-    assert sk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
-    ref = sr.forward_backward_semiring(x, lens, mine._semiring)
-    torch.testing.assert_close(got.objf, ref.objf, rtol=1e-4, atol=0)
-    for name in ("gamma", "alpha_beta", "gamma_sum"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
-                                   rtol=0, atol=1e-4)
-    again = sk.forward_backward_semiring_kernel(x, lens, mine._semiring)
-    assert torch.equal(again.gamma, got.gamma)     # deterministic
-
-
-@pytest.mark.cuda
-def test_cuda_entry_points_default_to_the_card(cuda):
-    gs = [pt.ChainGraph(f, log_domain=True) for f in _fsts()]
-    batch = pt.ChainGraphBatch(
-        gs, max_num_transitions=max(g.num_transitions for g in gs),
-        max_num_states=max(g.num_states for g in gs))
-    assert batch._semiring.device.type == "cuda"

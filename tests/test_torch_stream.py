@@ -18,7 +18,8 @@ each column's state vectors over a thread-block cluster
   stream budget, sized by arithmetic on the shapes of main path 4's
   graph rather than by building it.
 
-The card-only tests hold the kernels themselves to the plain version.
+tests/test_torch_card.py holds the kernels themselves to the plain
+version on the card.
 """
 
 import dataclasses
@@ -457,37 +458,3 @@ def test_forced_cluster_size_past_the_limit_raises():
     with pytest.raises(NotImplementedError, match="cluster 3"):
         sk._cluster(fa, 3)
     assert sk._cluster(fa, None) == 1 and sk._cluster(fa, 8) == 8
-
-
-# ----------------------------------------------------------------------
-# On the card: the kernels against their plain version
-# ----------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("C", [2, 4, 8])
-@pytest.mark.parametrize("mode,want", MODES)
-@pytest.mark.parametrize("debug", [True, False])
-def test_cuda_stream_kernels_match_plain(cuda, mode, want, C, debug):
-    fa, px, lens = _case(mode)
-    fa, px, lens = fa.to(cuda), px.to(cuda), lens.to(cuda)
-    sk.reset_launch_counts()
-    got = sk.forward_backward_prob_stream(px, lens, fa, LEAKY, debug=debug,
-                                          cluster=C)
-    assert sk.LAUNCHES == {"stream_fwd": 1, "stream_bwd": 1}
-    ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
-    if not debug:
-        ref = fk._frame0_traces(ref)
-    torch.testing.assert_close(got.objf, ref.objf, rtol=1e-4, atol=0)
-    for name in ("gamma", "alpha_beta", "gamma_sum"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
-                                   rtol=0, atol=1e-4)
-    again = sk.forward_backward_prob_stream(px, lens, fa, LEAKY,
-                                            debug=debug, cluster=C)
-    assert torch.equal(again.gamma, got.gamma)

@@ -20,8 +20,9 @@ hold the arcs of the JAX package's backward lists in the same order
 (checked below), so the highest id achieving a max names the same arc.
 The CUDA kernel cannot run here; an emulation of its walk (in-arc lists
 in ascending id order, `>=` tie rule, lowest end state, one-thread
-traceback) on the arrays it reads must match JAX too.  The
-card-only test compares the kernel with the plain version, bit for bit.
+traceback) on the arrays it reads must match JAX too.
+tests/test_torch_card.py compares the kernel with the plain version on
+the card, bit for bit.
 """
 
 import dataclasses
@@ -101,17 +102,17 @@ def _case(name, seed=0):
     return [fst], True, np.array([9, 6, 4], np.int32), x
 
 
-def _batches(fsts, shared, B, device="cpu"):
+def _batches(fsts, shared, B):
     """The port's batch and the JAX package's, of the same graphs."""
     if shared:
         return (pt.ChainGraphBatch(pt.ChainGraph(fsts[0], log_domain=True),
-                                   B, device=device),
+                                   B, device="cpu"),
                 JChainGraphBatch(JChainGraph(fsts[0], log_domain=True), B))
     gs = [pt.ChainGraph(f, log_domain=True) for f in fsts]
     K = max(g.num_transitions for g in gs)
     S = max(g.num_states for g in gs)
     return (pt.ChainGraphBatch(gs, max_num_transitions=K, max_num_states=S,
-                               device=device),
+                               device="cpu"),
             JChainGraphBatch([JChainGraph(f, log_domain=True)
                               for f in fsts],
                              max_num_transitions=K, max_num_states=S))
@@ -356,29 +357,3 @@ def test_shared_memory_limit():
     row = lambda s: torch.zeros(1, s)
     assert vk.fits_on_chip(dataclasses.replace(g, initial=row(29056)))
     assert not vk.fits_on_chip(dataclasses.replace(g, initial=row(29057)))
-
-
-# ----------------------------------------------------------------------
-# On the card: the kernel against its plain version
-# ----------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "loud", "ties", "shared"])
-def test_cuda_kernel_matches_plain(case, cuda):
-    fsts, shared, lengths, x = _case(case, seed=5)
-    mine, _ = _batches(fsts, shared, x.shape[0], device=cuda)
-    xt = torch.from_numpy(x).to(cuda)
-    vk.reset_launch_counts()
-    got = pt.viterbi_align(xt, lengths, mine)
-    assert vk.LAUNCHES == {"viterbi": 1}
-    ref = pt.viterbi_align(xt, lengths, mine, sweep="scatter")
-    assert vk.LAUNCHES == {"viterbi": 1}
-    for name in got._fields:     # bit-identical: no tolerance
-        assert torch.equal(getattr(got, name), getattr(ref, name)), name
