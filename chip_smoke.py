@@ -20,7 +20,8 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    with unequal lengths and debug True/False, then the headline graph
    (bench.py's: denominator_fst(1500, 2, bigram_fanout=30), S=3000,
    K=49.5k, P=3000) at B=128, T=500, with the kernels' and the plain
-   version's times, and the cluster kernels' (phase 11) at C=2;
+   version's times, and the cluster kernels' (phase 11) at their plans
+   and at C=2, G=1;
 4. the semiring kernels (semiring_fwd, semiring_bwd) against their plain
    version: small cyclic (random_fst), sausage (sausage_fst) and
    flat-start (make_numerator_fst) batches with unequal lengths and one
@@ -62,20 +63,24 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    B=128, T=500, lengths 250..500: one launch per call, and the oracle
    decode must give the planned phones (PER 0) and durations;
 11. the cluster kernels (stream_fwd, stream_bwd: B3/B4) against their
-   plain version on small graphs in the three x_src modes with the
-   cluster size forced to 2, 4 and 8, unequal lengths and debug
-   True/False, each gamma bit-identical on a rerun; then the "s8k" class
+   plain version on small graphs in the three x_src modes (and one where
+   some ranks own no rows) at every plan
+   (C CTAs a cluster in 1, 2, 4, 8, G columns a CTA in 1, 2, 4), B=5
+   columns of unequal lengths and debug True/False, each gamma
+   bit-identical on a rerun and across G; then the "s8k" class
    (bench.py --s8k: denominator_fst(4000, 2, bigram_fanout=30), B=64,
    T=300, which the JAX package streams in float32) forced to
-   engine="stream", against the plain version and against B1/B2 on the
-   same inputs, with both pairs' times;
+   engine="stream": the plans (C, G, CTAs, active clusters, waves,
+   shared memory), against the plain version and against B1/B2 on the
+   same inputs, with both pairs' times and the cluster pair's at every
+   plan that fits;
 12. main path 4: ChainLoss over the 12k-state Kaldi-topology denominator
    (denominator_fst(6000, 2, num_pdfs=3000, bigram_fanout=30,
    forward_pdf_mode="separate"): S=12,000, K=198,000, P=6,000, past one
    block's shared memory) with B=128 linear numerators of length T=500
-   over random pdfs in [0, 6000): the tier and cluster size the dispatch
-   picks, the pair against the plain version at full B with debug True
-   and False, with both times (and the pair's at C=4 and 8), three SGD
+   over random pdfs in [0, 6000): the tier and plans the dispatch picks,
+   the pair against the plain version at full B with debug True and
+   False, with both times (and the pair's at every plan), three SGD
    steps (loss finite and falling, gradient finite, one launch of each
    cluster kernel a step and none of B1/B2), a timed and a profiled step;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
@@ -92,7 +97,7 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    plain version, its time, the plain version's time and the least time
    the card could take (bound_ms); the semiring and Viterbi kernels get
    one row per size class, the cluster kernels one for main path 4 and
-   one for s8k;
+   one for s8k, each with its plan;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -103,6 +108,8 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import io
 import json
 import math
@@ -278,12 +285,66 @@ def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True):
     return fwd_ms, bwd_ms, plain_fwd_ms, plain_bwd_ms
 
 
-def cluster_pair(C):
-    """The cluster kernels with the cluster size forced to C."""
-    import functools
+def cluster_pair(C, G):
+    """The cluster kernels with C and G forced."""
     from pychain_tpu_torch.ops import stream_kernels as stk
-    return (functools.partial(stk.stream_fwd, cluster=C),
-            functools.partial(stk.stream_bwd, cluster=C))
+    return (functools.partial(stk.stream_fwd, cluster=C, columns=G),
+            functools.partial(stk.stream_bwd, cluster=C, columns=G))
+
+
+def stream_plans(fa, B, label):
+    """Each cluster kernel's plan for this graph at B columns on this
+    card, printed with cudaOccupancyMaxActiveClusters; returns
+    {kernel: plan dict}."""
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    plans = stk.plan(fa, B, torch.cuda.get_device_properties(0))
+    out = {}
+    for name, p in plans.items():
+        out[name] = {**dataclasses.asdict(p),
+                     "active_clusters": stk.active_clusters(fa, p)}
+        print(f"# {label} plan {name}: C={p.cluster} G={p.columns} "
+              f"threads={p.threads} CTAs={p.ctas} (per SM {p.ctas_per_sm}) "
+              f"active clusters={out[name]['active_clusters']} "
+              f"waves={p.waves} smem={p.smem} cost={p.cost}", flush=True)
+    return out
+
+
+def plan_times(fa, px, lens, leaky_c, label, reps=3):
+    """CUDA-event ms of each kernel at every plan that fits (C, G), on the
+    same inputs; printed, cheapest by the plan's rule first."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    props = torch.cuda.get_device_properties(0)
+    B, T, P = px.shape
+    lens32 = lens.int()
+    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
+        px, lens32, fa, leaky_c)
+    _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
+    tot = tot.contiguous()
+    out = {}
+    for name in stk.LAUNCHES:
+        for p in stk.candidates(fa, name, B, props):
+            if name == "stream_fwd":
+                fn = lambda: stk.stream_fwd(px, lens32, fa, leaky_c,
+                                            cluster=p.cluster,
+                                            columns=p.columns)
+            else:
+                fn = lambda: stk.stream_bwd(
+                    lens32, fa, leaky_c, ad_ys, w1ad, xdst, xsrc, s_ys, ad0,
+                    s0, tot, P, debug=False, cluster=p.cluster,
+                    columns=p.columns)
+            fn()
+            out[f"{name} C={p.cluster} G={p.columns}"] = cuda_ms(fn, reps)
+    print(f"# {label} times at every plan (ms, the rule's order): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
+    for name in stk.LAUNCHES:
+        mine = {k: v for k, v in out.items() if k.startswith(name + " ")}
+        pick, fastest = next(iter(mine)), min(mine, key=mine.get)
+        print(f"# {label} {name}: the rule's plan {pick[len(name) + 1:]} "
+              f"{mine[pick]:.3f} ms, the fastest timed "
+              f"{fastest[len(name) + 1:]} {mine[fastest]:.3f} ms",
+              flush=True)
+    return out
 
 
 def fact_bytes_ops(fa, kg, lens, T, P):
@@ -330,11 +391,13 @@ def check_smem():
                 "fact_bwd": c_size("fact_bwd", s_pad, identity)}
         for C in stk.CLUSTERS:
             rows = stk.rows_per_cta(s_pad, C)
-            got.update({f"{k} C={C}": v
-                        for k, v in stk.smem_bytes(fa, C).items()})
-            want[f"stream_fwd C={C}"] = c_size("stream_fwd", s_pad, rows)
-            want[f"stream_bwd C={C}"] = c_size("stream_bwd", s_pad, rows,
-                                               identity)
+            for G in stk.COLUMNS:
+                got.update({f"{k} C={C} G={G}": v for k, v in
+                            stk.smem_bytes(fa, C, G).items()})
+                want[f"stream_fwd C={C} G={G}"] = c_size(
+                    "stream_fwd", s_pad, rows, C, G)
+                want[f"stream_bwd C={C} G={G}"] = c_size(
+                    "stream_bwd", s_pad, rows, identity, G)
         check(got == want, f"smem_bytes S_pad={s_pad} {mode}: Python {got} "
               f"!= sources {want}")
     from pychain_tpu_torch.tools import xl_roofline as xr
@@ -351,7 +414,8 @@ def check_smem():
             check(py == c, f"xl_mxu smem S_pad={S} K_pad={K} split={split}: "
                   f"Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
-          "(fact_*, stream_* at C = 1, 2, 4, 8, xl_vpu, xl_mxu)", flush=True)
+          "(fact_*, stream_* at C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, "
+          "xl_mxu)", flush=True)
 
 
 def card_tests():
@@ -378,43 +442,51 @@ def card_tests():
 
 def stream_small(dev, leaky_c):
     """The cluster pair against the plain version on small graphs
-    (S_pad = 384: with C = 8 some CTAs own one slice, others two), the
-    cluster size forced to 2, 4 and 8; gamma bit-identical on a rerun."""
-    import functools
+    (S_pad = 384: with C = 8 some CTAs own one slice, others two; and
+    S_pad = 128, where ranks 4-7 of 8 own none) at every (C, G), C in 1,
+    2, 4, 8 and G in 1, 2, 4, with B = 5 columns of unequal lengths (no
+    G > 1 divides B); gamma bit-identical on a rerun and across G at
+    each C."""
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch
     from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
     errs = []
-    for mode, want in MODES:
-        fst, P = denominator_fst(num_phones=150, states_per_phone=2, seed=3,
-                                 forward_pdf_mode=mode)
-        fa = ChainGraphBatch(ChainGraph(fst), 4, device=dev)._fact
+    for (mode, want), phones in zip(MODES + MODES[-1:], (150, 150, 150, 10)):
+        fst, P = denominator_fst(num_phones=phones, states_per_phone=2,
+                                 seed=3, forward_pdf_mode=mode)
+        fa = ChainGraphBatch(ChainGraph(fst), 5, device=dev)._fact
         check(fa.xsrc_mode == want,
               f"{mode}: xsrc_mode {fa.xsrc_mode} != {want}")
         g = torch.Generator(device=dev).manual_seed(1)
-        px = torch.exp(torch.randn(4, 16, P, generator=g, device=dev))
-        lens = torch.tensor([16, 11, 7, 1], device=dev)
-        for C in (2, 4, 8):
-            run = functools.partial(stk.forward_backward_prob_stream,
-                                    cluster=C)
-            for debug in (True, False):
-                errs.append(compare(fa, px, lens, leaky_c, debug,
-                                    f"stream small {mode} C={C}", run))
-            g1 = run(px, lens, fa, leaky_c).gamma
-            g2 = run(px, lens, fa, leaky_c).gamma
-            torch.cuda.synchronize()
-            check(torch.equal(g1, g2), f"stream small {mode} C={C}: two "
-                  "runs give different gamma")
-    print("# stream small: gamma bit-identical over two runs at every "
-          "mode and cluster size", flush=True)
+        px = torch.exp(torch.randn(5, 16, P, generator=g, device=dev))
+        lens = torch.tensor([16, 11, 7, 1, 13], device=dev)
+        for C in stk.CLUSTERS:
+            first = None
+            for G in stk.COLUMNS:
+                run = functools.partial(stk.forward_backward_prob_stream,
+                                        cluster=C, columns=G)
+                for debug in (True, False):
+                    errs.append(compare(
+                        fa, px, lens, leaky_c, debug, f"stream small {mode} "
+                        f"S_pad={fa.s_pad} C={C} G={G}", run))
+                g1 = run(px, lens, fa, leaky_c).gamma
+                g2 = run(px, lens, fa, leaky_c).gamma
+                torch.cuda.synchronize()
+                check(torch.equal(g1, g2), f"stream small {mode} C={C} "
+                      f"G={G}: two runs give different gamma")
+                first = g1 if first is None else first
+                check(torch.equal(g1, first), f"stream small {mode} C={C}: "
+                      f"gamma at G={G} differs from G=1")
+    print("# stream small: gamma bit-identical over two runs and across G "
+          "at every mode and cluster size", flush=True)
     return errs
 
 
 def s8k_class(dev, leaky_c):
     """bench.py --s8k's graph at B=64, T=300 (the JAX package streams it
     in float32) forced to engine="stream": against the plain version and
-    against B1/B2 on the same inputs, with both pairs' times."""
-    import dataclasses
+    against B1/B2 on the same inputs, with both pairs' times and the
+    cluster pair's at every plan."""
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import stream_kernels as stk
@@ -426,13 +498,12 @@ def s8k_class(dev, leaky_c):
     den = ChainGraph(den_fst)
     fa = dataclasses.replace(ChainGraphBatch(den, B, device=dev)._fact,
                              engine="stream")
-    C = stk.cluster_size(fa)
-    kg = stk.graph_for(fa, C)
+    kg = fk.graph_for(fa)
     print(f"# s8k graph: S={den.num_states} K={den.num_transitions} P={P} "
           f"s_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode} nnz={kg.nnz}; "
-          f"engine={fa.engine} cluster C={C}, smem "
-          f"{stk.smem_bytes(fa, C)}; built in "
+          f"engine={fa.engine}; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    plans = stream_plans(fa, B, "s8k")
     gx = torch.Generator(device=dev).manual_seed(12)
     px = torch.exp(torch.randn(B, T, P, generator=gx, device=dev))
     lens = torch.full((B,), T, device=dev)
@@ -453,14 +524,12 @@ def s8k_class(dev, leaky_c):
                        5)
     fact_ms = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd,
                          5, plain=False)
-    c2_ms = pair_times(fa, px, lens, leaky_c, *cluster_pair(2), 5,
-                       plain=False)
+    plan_times(fa, px, lens, leaky_c, "s8k")
     print(f"# s8k times: stream_fwd {times[0]:.3f} ms, stream_bwd "
-          f"{times[1]:.3f} ms (C={C}); at C=2 {c2_ms[0]:.3f} / "
-          f"{c2_ms[1]:.3f} ms; fact_fwd {fact_ms[0]:.3f} ms, fact_bwd "
-          f"{fact_ms[1]:.3f} ms; plain fwd {times[2]:.1f} ms, plain bwd "
-          f"{times[3]:.1f} ms", flush=True)
-    return errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), C
+          f"{times[1]:.3f} ms (plans above); fact_fwd {fact_ms[0]:.3f} ms, "
+          f"fact_bwd {fact_ms[1]:.3f} ms; plain fwd {times[2]:.1f} ms, "
+          f"plain bwd {times[3]:.1f} ms", flush=True)
+    return errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans
 
 
 def main_path_4(dev, leaky_c, counters):
@@ -480,16 +549,15 @@ def main_path_4(dev, leaky_c, counters):
     den = ChainGraph(den_fst)
     loss_mod = ChainLoss(den)
     fa = pt_loss.dispatch_arrays(loss_mod.den_batch(B))
-    engine, C = pt_loss.den_engine(fa), stk.cluster_size(fa)
-    check(engine == "stream" and C is not None,
-          f"main path 4: tier {engine!r}, cluster {C}")
-    kg = stk.graph_for(fa, C)
+    engine = pt_loss.den_engine(fa)
+    check(engine == "stream", f"main path 4: tier {engine!r}")
+    kg = fk.graph_for(fa)
     print(f"# main path 4 graph: S={den.num_states} K={den.num_transitions} "
           f"P={P} s_pad={fa.s_pad} p_pad={fa.p_pad} xsrc_mode="
-          f"{fa.xsrc_mode} nnz(W1+W2)={kg.nnz}; tier engine={engine!r}, "
-          f"cluster size C={C}, smem per CTA {stk.smem_bytes(fa, C)} (B1/B2 "
-          f"would need {fk.smem_bytes(fa)} of {fk.MAX_SMEM}); built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{fa.xsrc_mode} nnz(W1+W2)={kg.nnz}; tier engine={engine!r} "
+          f"(B1/B2 would need {fk.smem_bytes(fa)} of {fk.MAX_SMEM} bytes); "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    plans = stream_plans(fa, B, "main path 4")
     gx = torch.Generator(device=dev).manual_seed(10)
     px = torch.exp(torch.randn(B, T, P, generator=gx, device=dev))
     lens = torch.full((B,), T, device=dev)
@@ -500,13 +568,10 @@ def main_path_4(dev, leaky_c, counters):
     a_err = alpha_err(fa, px, lens, leaky_c, "main path 4", stk.stream_fwd)
     times = pair_times(fa, px, lens, leaky_c, stk.stream_fwd, stk.stream_bwd,
                        5)
-    other = {c: pair_times(fa, px, lens, leaky_c, *cluster_pair(c), 3,
-                           plain=False) for c in (4, 8)}
+    plan_times(fa, px, lens, leaky_c, "main path 4")
     print(f"# main path 4 times: stream_fwd {times[0]:.3f} ms, stream_bwd "
-          f"{times[1]:.3f} ms (C={C}); " + ", ".join(
-              f"at C={c} {f:.3f} / {b:.3f} ms" for c, (f, b) in other.items())
-          + f"; plain fwd {times[2]:.1f} ms, plain bwd {times[3]:.1f} ms",
-          flush=True)
+          f"{times[1]:.3f} ms (plans above); plain fwd {times[2]:.1f} ms, "
+          f"plain bwd {times[3]:.1f} ms", flush=True)
     del px
     torch.cuda.empty_cache()
 
@@ -530,7 +595,7 @@ def main_path_4(dev, leaky_c, counters):
                   "main path 4 (cluster tier)")
     del x
     torch.cuda.empty_cache()
-    return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), C,
+    return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
             step_ms, launches)
 
 
@@ -1238,13 +1303,24 @@ def main():
     head_ad, _ = alpha_err(fa, px, lens, leaky_c, "headline")
 
     # times: each kernel alone, and the plain version of each sweep; the
-    # cluster kernels on two CTAs a column, for comparison
+    # cluster kernels at their plans, at C=2, G=1 and at every plan, for
+    # comparison
     fwd_ms, bwd_ms, plain_fwd_ms, plain_bwd_ms = pair_times(
         fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5)
-    head_c2 = pair_times(fa, px, lens, leaky_c, *cluster_pair(2), 5,
+    head_plans = stream_plans(fa, B, "headline graph")
+    head_st = pair_times(fa, px, lens, leaky_c, stk.stream_fwd,
+                         stk.stream_bwd, 5, plain=False)
+    head_c2 = pair_times(fa, px, lens, leaky_c, *cluster_pair(2, 1), 5,
                          plain=False)
-    print(f"# headline graph on the cluster kernels at C=2: stream_fwd "
-          f"{head_c2[0]:.3f} ms, stream_bwd {head_c2[1]:.3f} ms", flush=True)
+    plan_times(fa, px, lens, leaky_c, "headline graph")
+    print(f"# headline graph on the cluster kernels: stream_fwd "
+          f"{head_st[0]:.3f} ms, stream_bwd {head_st[1]:.3f} ms at their "
+          f"plans (C={head_plans['stream_fwd']['cluster']} "
+          f"G={head_plans['stream_fwd']['columns']} / "
+          f"C={head_plans['stream_bwd']['cluster']} "
+          f"G={head_plans['stream_bwd']['columns']}); at C=2 G=1 "
+          f"{head_c2[0]:.3f} / {head_c2[1]:.3f} ms; fact_fwd {fwd_ms:.3f} "
+          f"ms, fact_bwd {bwd_ms:.3f} ms", flush=True)
     print(f"# headline times: fact_fwd {fwd_ms:.3f} ms, fact_bwd "
           f"{bwd_ms:.3f} ms; plain fwd {plain_fwd_ms:.1f} ms, plain bwd "
           f"{plain_bwd_ms:.1f} ms", flush=True)
@@ -1439,7 +1515,7 @@ def main():
                 "max_abs_err": err, "max_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "bytes": nbytes, "ops": ops, "library_ms": None})
-    for cls, (errs, (a_err, a_excess), times, (fb, fo, bb, bo), C) in \
+    for cls, (errs, (a_err, a_excess), times, (fb, fo, bb, bo), plans) in \
             stream_classes.items():
         for i, name in enumerate(("stream_fwd", "stream_bwd")):
             nbytes, ops = ((fb, fo), (bb, bo))[i]
@@ -1453,7 +1529,10 @@ def main():
                         (668, "_bwd_kernel_factory"))[i]
             rows.append({
                 "name": name, "route": "cuda", "size_class": cls,
-                "cluster": C, "source": f"pychain_tpu_torch/csrc/{name}.cu",
+                "cluster": plans[name]["cluster"],
+                "columns": plans[name]["columns"],
+                "active_clusters": plans[name]["active_clusters"],
+                "source": f"pychain_tpu_torch/csrc/{name}.cu",
                 "replaces": f"pychain_tpu/ops/pallas_stream.py:{line}",
                 "replaces_fn": f"pychain_tpu/ops/pallas_stream.py::{fn}",
                 # main path 4 runs the "main4" class

@@ -4,15 +4,15 @@
     python3 kernel_ablation.py
 
 A diagnostic for PERF.md, run on a CUDA card: each variant is the
-kernel's source with a few statements replaced (the emission gather,
-the sparse products, the stream writes or reads, the gamma scatter),
-built with the same nvcc flags into pychain_tpu_torch/csrc/build/ablate/
-and timed with CUDA events: B1/B2 (fact_*) at the headline size
-(bench.py's graph, B=128, T=500), the cluster beta sweep (stream_bwd)
-at main path 4's (the 12k-state Kaldi-topology denominator, B=128,
-T=500, C=2), where its gamma stage reads each state's mass from the CTA
-that owns it, one 4-byte distributed-shared-memory load a state.  A variant computes wrong numbers by design; only its time
-means something: how much of the full kernel's time the removed phase
+kernel's source with a few statements replaced (the emission gathers,
+the sparse products, the peer copies, the cluster barriers, the stream
+writes or reads, the gamma stage), built with the same nvcc flags into
+pychain_tpu_torch/csrc/build/ablate/ and timed with CUDA events: B1/B2
+(fact_*) at the headline size (bench.py's graph, B=128, T=500), the
+cluster pair (stream_fwd, stream_bwd) at main path 4's (the 12k-state
+Kaldi-topology denominator, B=128, T=500) at the plan it launches with.
+A variant computes wrong numbers by design; only its time means
+something: how much of the full kernel's time the removed phase
 accounts for (phases overlap, so the savings need not add up).
 """
 
@@ -49,8 +49,49 @@ BWD = {
     "no_gamma_scatter": [("if (p < n_pdf_lists) {", "if (false) {")],
     "no_gamma_writes": [("g_row[p] = acc;", "")],
 }
+# The cluster pair (a cluster a group of G columns, W1's vector alone
+# held whole, one / two cluster barriers a frame).
+STREAM_FWD = {
+    "full": [],
+    "no_emissions": [("x[g] = __ldg(px_t + fd);", "x[g] = 1.0f;"),
+                     ("g_src ? __ldg(px_t + gd) : x[g]", "x[g]"),
+                     ("__ldg(px + (row0[g] + t) * P + pdf)", "1.0f")],
+    "no_products": [
+        ("sell_row_dot_cols<G>(w1_ptr, w1_col, w1_val, d, ad, w1a);",
+         "load_cols<G>(ad + d * G, w1a);"),
+        ("const int end = __ldg(w2_ptr + slice + 1);",
+         "const int end = __ldg(w2_ptr + slice);")],
+    "no_w2_product": [("const int end = __ldg(w2_ptr + slice + 1);",
+                       "const int end = __ldg(w2_ptr + slice);")],
+    "no_peer_copies": [(": *cluster.map_shared_rank(src, owner);",
+                        ": *src;")],
+    "no_cluster_barriers": [
+        ("    cluster.sync();\n  }\n  if (rank == 0) {",
+         "    __syncthreads();\n  }\n  if (rank == 0) {")],
+    "no_stream_writes": [
+        ("__stcs(xdst_ys + o, x[g]);", ""),
+        ("if (xsrc_ys) __stcs(xsrc_ys + o, xs[g]);", ""),
+        ("__stcs(w1ad_ys + o, w1a[g]);", ""),
+        ("store_cols_stream<4 / G>(ad_ys + (row0[g] + t - 1) * s_pad + j0,",
+         "if (false) store_cols_stream<4 / G>(ad_ys,")],
+}
 STREAM_BWD = {
     "full": [],
+    "no_products": [
+        ("sell_row_dot_cols<G>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);",
+         "load_cols<G>(xb + d * G, w1t);"),
+        ("const int end = __ldg(w2t_ptr + slice + 1);",
+         "const int end = __ldg(w2t_ptr + slice);")],
+    "no_w2_product": [("const int end = __ldg(w2t_ptr + slice + 1);",
+                       "const int end = __ldg(w2t_ptr + slice);")],
+    "no_peer_copies": [("cluster_gather_cols<G>(xb, s_pad, rank, lc);",
+                        "")],
+    "no_cluster_barriers": [("cluster.sync();   // X1", "__syncthreads();"),
+                            ("cluster.sync();   // X2", "__syncthreads();")],
+    "no_stream_reads": [
+        ("__ldcs(xdst_ys + (row0[g] + u) * s_pad + d)", "1.0f"),
+        ("__ldcs((identity ? xdst_ys : xsrc_ys) + o)", "1.0f"),
+        ("__ldcs(ad_ys + o - s_pad)", "1.0f"), ("__ldcs(w1ad_ys + o)", "1.0f")],
     "no_gamma_stage": [("if (p < n_pdf_lists) {", "if (false) {")],
 }
 
@@ -86,6 +127,7 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for kernel, variants in (("fact_fwd", FWD), ("fact_bwd", BWD),
+                             ("stream_fwd", STREAM_FWD),
                              ("stream_bwd", STREAM_BWD)):
         for label, edits in variants.items():
             jobs[(kernel, label)] = build_variant(kernel, edits, out_dir)
@@ -142,15 +184,21 @@ def main():
                                  num_pdfs=3000, seed=0, bigram_fanout=30,
                                  forward_pdf_mode="separate")
     fa = ChainGraphBatch(ChainGraph(den_fst), B, device=dev)._fact
-    C = stk.cluster_size(fa)
+    tag = {k: f"C={p.cluster} G={p.columns}" for k, p in stk.plan(
+        fa, B, torch.cuda.get_device_properties(dev)).items()}
     px = torch.exp(torch.randn(B, T, P, generator=g, device=dev))
     ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
         px, lens, fa, c)
     _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
     tot = tot.contiguous()
+    for label in STREAM_FWD:
+        use("stream_fwd", label)
+        result[f"stream_fwd/{label} {tag['stream_fwd']}"] = time_ms(
+            lambda: stk.stream_fwd(px, lens, fa, c))
+    use("stream_fwd", "full")
     for label in STREAM_BWD:
         use("stream_bwd", label)
-        result[f"stream_bwd/{label} C={C}"] = time_ms(
+        result[f"stream_bwd/{label} {tag['stream_bwd']}"] = time_ms(
             lambda: stk.stream_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc,
                                    s_ys, ad0, s0, tot, P, debug=False))
     for k, v in result.items():

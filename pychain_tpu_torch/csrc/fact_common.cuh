@@ -6,11 +6,12 @@
 // Every kernel but the cluster pair gives one thread block to one batch
 // column (sequence) and runs that column's whole time loop inside the
 // block; a thread owns the state rows s = threadIdx.x + k * FACT_THREADS.
-// The cluster pair (stream_*.cu) gives one thread-block cluster to one
-// column: CTA r of the cluster owns the 32-row slices k = r (mod C) of
-// the states, computes those rows, and each frame copies its peers' rows
-// of the vectors its products gather into its own full copy, through
-// distributed shared memory (DSMEM).  Every sum is
+// The cluster pair (stream_*.cu) gives one thread-block cluster to a
+// group of G columns: CTA r of the cluster owns the 32-row slices
+// k = r (mod C) of the states, computes those rows in all G columns, and
+// each frame copies its peers' rows of the one vector its W1 (W1^T)
+// product gathers into its own whole copy, through distributed shared
+// memory (DSMEM).  Every sum is
 // taken in a fixed order (rows in ascending column order, warp shuffles,
 // then the warp partials in warp order, then the CTAs' totals in rank
 // order), so the results do not change from run to run and no atomics
@@ -112,11 +113,14 @@ __device__ __forceinline__ float sell_row_dot(const int* __restrict__ sptr,
   return acc;
 }
 
-// The cluster kernels' rows.  CTA r of a cluster of C owns the 32-row
-// slices k = r, r + C, r + 2C, ... of the S_pad states (interleaved, so
-// that the rows of every role of the permuted numbering are spread over
-// the CTAs), and keeps its own rows of a vector at local rows
-// i = 32 (k / C) + (s mod 32).
+// The cluster pair's layout.  A cluster of C CTAs (C a power of two)
+// serves G batch columns at once.  CTA r owns the 32-row slices
+// k = r, r + C, r + 2C, ... of the S_pad states (interleaved, so that
+// the rows of every role of the permuted numbering are spread over the
+// CTAs) and keeps its own rows of a vector at local rows
+// i = 32 (k / C) + (s mod 32).  Every per-state vector in shared memory
+// holds the G columns side by side, v[s * G + g], so that one 4-, 8- or
+// 16-byte access reads a state's value in every column of the group.
 __device__ __forceinline__ int cluster_own_rows(int s_pad, int rank, int C) {
   const int slices = s_pad >> 5;
   return rank < slices ? 32 * ((slices - rank + C - 1) / C) : 0;
@@ -126,63 +130,163 @@ __device__ __forceinline__ int cluster_row(int i, int rank, int C) {
   return (((i >> 5) * C + rank) << 5) | (i & 31);
 }
 
+// The owner rank and local row of state s in a cluster of 1 << lc CTAs.
+__device__ __forceinline__ int cluster_owner(int s, int lc) {
+  return (s >> 5) & ((1 << lc) - 1);
+}
+
+__device__ __forceinline__ int cluster_local(int s, int lc) {
+  return (((s >> 5) >> lc) << 5) | (s & 31);
+}
+
 // A state is named to a peer as (owner rank << CLUSTER_LOCAL_BITS) |
 // (local row in the owner): local rows stay below 2^16 (a CTA's shared
 // memory holds at most 58,112 floats).
 #define CLUSTER_LOCAL_BITS 16
 #define CLUSTER_LOCAL_MASK ((1 << CLUSTER_LOCAL_BITS) - 1)
 
-// The value at the packed state id c of a vector kept by local row in
-// each CTA (at the same shared memory offset in every CTA of the
-// cluster): one 4-byte DSMEM load unless the owner is this CTA.  For
-// values read once a frame (stream_bwd's posterior masses) this beats
-// copying the peers' rows in whole, which costs another cluster barrier
-// and the copy of every row (PERF.md); values read many times a frame,
-// as the products read their vectors, are copied (cluster_gather).
-__device__ __forceinline__ float cluster_load(const float* v, int c) {
-  namespace cg = cooperative_groups;
-  const float* p = cg::this_cluster().map_shared_rank(
-      v + (c & CLUSTER_LOCAL_MASK), c >> CLUSTER_LOCAL_BITS);
-  return *p;
+// G consecutive floats (16-byte aligned for G = 4, 8-byte for G = 2) as
+// one access; p may point into a peer's shared memory.
+template <int G>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[G]) {
+  static_assert(G == 1 || G == 2 || G == 4, "G is 1, 2 or 4");
+  if constexpr (G == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (G == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
 }
 
-// Fill the peers' rows of v, a full S_pad-float vector at the same shared
-// memory offset in every CTA of the cluster whose owners have written
-// their own rows: 16-byte DSMEM loads, consecutive threads on
-// consecutive addresses (8 float4 a 32-row slice).  Reading a peer's
-// scattered entries one 4-byte load at a time instead made the products
-// 5x slower (PERF.md).  The caller puts a cluster barrier before
-// (the owners' writes) and a block barrier after.
-__device__ __forceinline__ void cluster_gather(float* v, int s_pad) {
+template <int G>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[G]) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (G == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// load_cols / store_cols on device memory that other CTAs of the kernel
+// write or read in the same launch: cached in L2 only (ld.global.cg,
+// st.global.cg), never in an SM's L1, which is not kept coherent.
+template <int G>
+__device__ __forceinline__ void load_cols_l2(const float* p, float (&v)[G]) {
+  if constexpr (G == 4) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (G == 2) {
+    const float2 q = __ldcg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void store_cols_l2(float* p, const float (&v)[G]) {
+  if constexpr (G == 4) {
+    __stcg(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (G == 2) {
+    __stcg(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcg(p, v[0]);
+  }
+}
+
+// store_cols for the streams a kernel writes once and its partner reads
+// once (st.global.cs: evicted first, so that they do not push the sparse
+// rows and px out of L1 and L2; 18% of stream_fwd at main path 4, PERF.md).
+template <int G>
+__device__ __forceinline__ void store_cols_stream(float* p,
+                                                  const float (&v)[G]) {
+  if constexpr (G == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (G == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// sell_row_dot for G columns at once: row r of a sliced-ELL matrix times
+// the G interleaved columns of v.  Each entry's column id and value,
+// loaded once, feed G products (the graph is read once per G columns),
+// each column's sum in sell_row_dot's order.
+template <int G>
+__device__ __forceinline__ void sell_row_dot_cols(
+    const int* __restrict__ sptr, const int* __restrict__ col,
+    const float* __restrict__ val, int r, const float* v, float (&acc)[G]) {
+  const int lane = r & 31;
+  const int slice = r >> 5;
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+  const int end = __ldg(sptr + slice + 1);
+  for (int k = __ldg(sptr + slice); k < end; ++k) {
+    const int i = k * 32 + lane;
+    const float w = __ldg(val + i);
+    float x[G];
+    load_cols<G>(v + __ldg(col + i) * G, x);
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = fmaf(w, x[g], acc[g]);
+  }
+}
+
+// The G values at the packed state id c of a vector kept by local row in
+// each CTA (at the same shared memory offset in every CTA of the
+// cluster): one G-wide load, through DSMEM unless this CTA (rank) owns
+// the state.  For values read once a frame (stream_bwd's posterior masses
+// and its W2^T gathers of b: W2 has at most one entry a row in the
+// repository's graphs) this beats copying the peers' rows in whole, which
+// costs a cluster barrier and the copy of every row (PERF.md); the
+// vector W1^T gathers many times a frame is copied (cluster_gather_cols).
+template <int G>
+__device__ __forceinline__ void cluster_load_cols(const float* v, int c,
+                                                  int rank, float (&out)[G]) {
   namespace cg = cooperative_groups;
+  const float* p = v + (c & CLUSTER_LOCAL_MASK) * G;
+  const int owner = c >> CLUSTER_LOCAL_BITS;
+  load_cols<G>(owner == rank ? p : cg::this_cluster().map_shared_rank(p, owner),
+               out);
+}
+
+// Fill the peers' rows of v, a whole vector of S_pad x G interleaved
+// floats at the same shared memory offset in every CTA of a cluster of
+// 1 << lc, whose owners have written their own rows: 16-byte DSMEM
+// loads, consecutive threads on consecutive addresses (8 G float4 a
+// 32-row slice).  Reading a peer's scattered entries one load at a time
+// instead made the products 5x slower (PERF.md).  The caller puts a
+// cluster barrier before (the owners' writes) and a block barrier after.
+template <int G>
+__device__ __forceinline__ void cluster_gather_cols(float* v, int s_pad,
+                                                    int rank, int lc) {
+  namespace cg = cooperative_groups;
+  if (lc == 0) return;
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  if (C == 1) return;
+  constexpr int kSliceShift = G == 4 ? 5 : G == 2 ? 4 : 3;  // log2(8 G)
   float4* v4 = reinterpret_cast<float4*>(v);
-  for (int q = threadIdx.x; q < (s_pad >> 2); q += FACT_THREADS) {
-    const int owner = (q >> 3) % C;
+  const int mask = (1 << lc) - 1;
+  for (int q = threadIdx.x; q < (s_pad * G) >> 2; q += FACT_THREADS) {
+    const int owner = (q >> kSliceShift) & mask;
     if (owner != rank) v4[q] = *cluster.map_shared_rank(v4 + q, owner);
   }
 }
 
-// Sum each CTA's block totals v (every thread holds them, as block_sum
-// leaves them) over the cluster, adding the CTAs' totals in rank order
-// from 0, so that every thread of every CTA receives bit-identical sums.
-// slot: NV floats of shared memory at the same offset in every CTA.
-// Contains one cluster barrier, which is also a barrier for everything
-// before it in every CTA.  The slot is written again only by the next
-// call, so a cluster barrier must separate two calls (the callers' frame
-// loops have one), and one must come before a CTA exits.
+// The sum over the cluster's CTAs, in rank order from 0, of the NV
+// floats each CTA posted at `slot` (the same shared memory offset in
+// every CTA): every thread of every CTA receives bit-identical sums.  No
+// barrier inside: the caller posts, passes a cluster barrier, then sums,
+// and posts to the slot again only after another cluster barrier.
 template <int NV>
-__device__ __forceinline__ void cluster_sum(float (&v)[NV], float* slot) {
+__device__ __forceinline__ void cluster_rank_sum(const float* slot,
+                                                 float (&v)[NV]) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < NV; ++k) slot[k] = v[k];
-  }
-  cluster.sync();
 #pragma unroll
   for (int k = 0; k < NV; ++k) v[k] = 0.0f;
   const unsigned n = cluster.num_blocks();
@@ -202,14 +306,14 @@ __host__ inline cudaError_t fact_set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Launch configuration of B clusters of `cluster` CTAs of FACT_THREADS
-// threads (grid B * cluster: CTAs b * cluster .. b * cluster + cluster - 1
-// form column b's cluster).  attr (one entry) must outlive the launch.
-__host__ inline cudaLaunchConfig_t cluster_config(int B, int cluster,
+// Launch configuration of n clusters of `cluster` CTAs of FACT_THREADS
+// threads (grid n * cluster: CTAs q * cluster .. q * cluster + cluster - 1
+// form cluster q).  attr (one entry) must outlive the launch.
+__host__ inline cudaLaunchConfig_t cluster_config(int n, int cluster,
                                                   size_t smem, void* stream,
                                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * cluster, 1, 1);
+  cfg.gridDim = dim3(n * cluster, 1, 1);
   cfg.blockDim = dim3(FACT_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

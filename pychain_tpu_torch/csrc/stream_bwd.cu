@@ -1,6 +1,6 @@
 // Denominator beta sweep and posteriors for graphs whose state vectors
-// exceed one SM's shared memory: one thread-block cluster per batch
-// column (float32).
+// exceed one SM's shared memory: one thread-block cluster per group of G
+// batch columns (float32).
 //
 // Replaces pychain_tpu/ops/pallas_stream.py::_bwd_kernel_factory
 // (launched there by _bwd_stream), which computes what
@@ -22,37 +22,58 @@
 // `debug`, else at frame 0 only with 1.0 at the other frames; past a
 // column's end gamma is 0 and the traces 0 (debug) or 1.0.
 //
-// Design.  As in stream_fwd.cu: CTA r of column b's cluster owns the
-// 32-row slices r, r + C, ... (R rows) and keeps the two vectors the
-// products gather, b and xb, whole, copying its peers' rows of them each
-// frame (cluster_gather), and beta', c1 (and c2) on its own rows only:
-// 2 S_pad + 3 R floats (2 S_pad + 2 R in identity mode).  W1^T / W2^T are
-// the sliced-ELL rows by source state of fact_bwd.cu.  Gamma stays
-// deterministic without atomics (docs/PARITY.md:52-55): CTA r owns the
-// pdf columns [r ceil(P / C), (r + 1) ceil(P / C)), and for each it sums
-// c1 over the pdf's states in the host-built pdf -> states list (then c2
-// over the E_g list), in fact_bwd.cu's order, reading each state's mass
-// from the CTA that owns it (packed ids, cluster_load): each mass is read
-// once, so scattered DSMEM loads (3.9 of 26.9 ms at main path 4) beat
-// copying c1 and c2 in whole after another cluster barrier (+1.9 ms,
-// PERF.md).  A frame:
+// Design.  As in stream_fwd.cu: a cluster of C CTAs serves G columns, CTA
+// r owns the 32-row slices r, r + C, ... (R rows) in all G columns, and
+// every vector holds the G columns interleaved.  It holds whole only xb,
+// the vector W1^T gathers (S_pad G floats), copying its peers' rows each
+// frame (cluster_gather_cols), so one W1^T entry read from L2 feeds G
+// products.  In shared memory it keeps besides only the posterior masses
+// of its rows, c1 and c2, which the gamma stage reads (S_pad + 2 R floats
+// a column; S_pad + R in identity mode).  b, which peers read for W2^T
+// (at most one entry a row in the repository's graphs), and the beta'
+// carry live in a device-memory scratch by state, (groups, S_pad, G)
+// each, read and written through L2 only (load_cols_l2): that frees the
+// shared memory for G = 2 at main path 4, where b and the carry on chip
+// (S_pad + 4 R) allowed only G = 1 and took 28.4 ms against 21.5 on an
+// H100 (PERF.md).  Gamma stays deterministic without atomics
+// (docs/PARITY.md:52-55): CTA r owns
+// the pdf columns [r ceil(P / C), (r + 1) ceil(P / C)), and for each it
+// sums c1 over the pdf's states in the host-built pdf -> states list
+// (then c2 over the E_g list), in fact_bwd.cu's order, reading each
+// state's G masses from the CTA that owns it (packed ids).  A frame:
 //   1. b and xb on its rows;
-//   2. cluster barrier; copy the peers' rows of b and xb; block barrier;
+//   2. cluster barrier X1; the sum-gamma trace of frame u + 1 from the
+//      CTAs' partials in rank order; copy the peers' rows of xb; block
+//      barrier;
 //   3. its rows' W1^T xb and W2^T b, beta', c1, c2 and the partials of
-//      the next frame's leaky sum and of the alpha*beta trace;
-//   4. cluster barrier (c1 and c2 complete in every CTA);
-//   5. gamma on its pdf columns and the partial of the sum-gamma trace;
-//   6. cluster_sum of the three partials in rank order.
-// Three cluster barriers a frame; a last one before the CTAs exit.
+//      the next frame's leaky sum and of the alpha*beta trace, posted;
+//   4. cluster barrier X2; the leaky sums and the alpha*beta trace in
+//      rank order;
+//   5. gamma on its pdf columns; the partial of the sum-gamma trace,
+//      posted (read after the next X1).
+// Two cluster barriers a frame, no double buffers: every array peers read is
+// written again only after the barrier that follows its peers' reads
+// (b and xb after X2, c1 / c2 and the leaky-sum slot after the next X1,
+// the gamma slot after X2).  Columns of a group may differ in length: the
+// group runs to its longest; a column joins at its own last frame with
+// the injected carry and writes nothing past its end.  Two last cluster
+// barriers: the frame-0 gamma trace, then no peer reads this CTA's
+// shared memory any more.
+// The per-column arithmetic is written with explicit rounding (fmaf,
+// __fmul_rn, __fadd_rn, __fdiv_rn), so that no multiply-add the compiler
+// would fuse differs between the G instantiations: a column's results
+// are bit-identical at every G for a given C.
 //
 // Bound on an H100 at main path 4 (S_pad = 12,032, P = 6,000, B = 128,
 // T = 500, x_src "stream"): the sweep must read the four (T, S_pad, B)
 // float32 streams (12.3 GB) and write gamma (1.5 GB): about 13.9 GB,
 // 4.1 ms at 3.35 TB/s; the arc products, 2 * 198k * B * T = 25 GFLOP,
-// 0.38 ms at 67 TFLOP/s.  The bound is the bytes.
+// 0.38 ms at 67 TFLOP/s.  The bound is the bytes.  The streams, read
+// once, are loaded evict-first (__ldcs) and gamma stored so (__stcs).
 
 #include "fact_common.cuh"
 
+template <int G>
 __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
     const float* __restrict__ ad_ys,     // (B, T, S_pad) alpha'(u+1)
@@ -73,158 +94,286 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     const int* __restrict__ f_states,
     const int* __restrict__ g_ptr,       // null in identity mode
     const int* __restrict__ g_states,
-    int n_pdf_lists, float leaky_c, int T, int P, int s_pad, int rows,
-    int debug,
+    int n_pdf_lists, float leaky_c, int B, int T, int P, int s_pad,
+    int rows, int debug,
+    float* __restrict__ carry,           // scratch: 2 x (groups, S_pad, G)
     float* __restrict__ gamma,           // (B, T, P)
     float* __restrict__ ab,              // (B, T)
     float* __restrict__ gs) {            // (B, T)
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   const bool identity = xsrc_ys == nullptr;
-  float* xb = smem;            // x_dst * b, whole: gathered by W1^T's rows
-  float* bn = xb + s_pad;      // b, whole: gathered by W2^T's rows
-  float* bd = bn + s_pad;      // beta' carry on this CTA's rows
-  float* c1 = bd + rows;       // posterior mass per own state (E_f^T side)
-  float* c2 = identity ? c1 : c1 + rows;   // E_g^T side
-  float* red = c2 + rows;      // block_sum scratch
-  float* slot = red + 3 * FACT_WARPS + 3;  // cluster_sum slot
+  float* xb = reinterpret_cast<float*>(smem4);  // x_dst * b, whole, (S_pad, G)
+  float* c1 = xb + s_pad * G;     // posterior mass per own state (E_f^T side)
+  float* c2 = identity ? c1 : c1 + rows * G;    // E_g^T side
+  float* red = c2 + rows * G;     // block_sum scratch
+  float* slot_la = red + 2 * FACT_WARPS * G + 2 * G;  // leaky, alpha*beta
+  float* slot_gs = slot_la + 2 * G;                   // sum gamma
 
   const int tid = threadIdx.x;
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int b = blockIdx.x / C;
+  const int lc = __ffs(C) - 1;
+  const int group = static_cast<int>(blockIdx.x) / C;
+  const int b0 = group * G;
+  // b (peers read it) and the beta' carry, by state, in device memory
+  const size_t n_group = gridDim.x / C;
+  float* bn = carry + group * static_cast<size_t>(s_pad) * G;
+  float* bd = bn + n_group * s_pad * G;
   const int n = cluster_own_rows(s_pad, rank, C);
   const int p_per = (P + C - 1) / C;
   const int p0 = min(P, rank * p_per);
   const int p1 = min(P, p0 + p_per);             // this CTA's pdf columns
-  const int Tb = lengths[b];
-  const size_t row0 = static_cast<size_t>(b) * T;
-
-  // frames past the column's end
-  for (int u = Tb; u < T; ++u) {
-    float* g_row = gamma + (row0 + u) * P;
-    for (int p = p0 + tid; p < p1; p += FACT_THREADS) g_row[p] = 0.0f;
+  int Tb[G];
+  size_t row0[G];                  // (b, 0) row of the (B, T, ...) arrays
+  int t_max = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int b = b0 + g;
+    Tb[g] = b < B ? lengths[b] : 0;
+    row0[g] = static_cast<size_t>(min(b, B - 1)) * T;
+    t_max = max(t_max, Tb[g]);
   }
+
+  // frames past each column's end
   const float past_trace = debug ? 0.0f : 1.0f;
-  if (rank == 0) {
-    for (int u = Tb + tid; u < T; u += FACT_THREADS) {
-      ab[row0 + u] = past_trace;
-      gs[row0 + u] = past_trace;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (b0 + g >= B) continue;
+    for (int u = Tb[g]; u < T; ++u) {
+      float* g_row = gamma + (row0[g] + u) * P;
+      for (int p = p0 + tid; p < p1; p += FACT_THREADS) g_row[p] = 0.0f;
+    }
+    if (rank == 0) {
+      for (int u = Tb[g] + tid; u < T; u += FACT_THREADS) {
+        ab[row0[g] + u] = past_trace;
+        gs[row0[g] + u] = past_trace;
+      }
     }
   }
 
-  // injection at the last frame: beta'(T_b) = final / tot
-  const float tot_b = tot[b];
-  float inj[1] = {0.0f};
-  for (int i = tid; i < n; i += FACT_THREADS) {
-    const int d = cluster_row(i, rank, C);
-    const float v = final_p[d] / tot_b;
-    bd[i] = v;
-    inj[0] += v * leaky[d];
-  }
-  block_sum<1>(inj, red);
-  cluster_sum<1>(inj, slot);
-  float leak_sum = inj[0];
-
-  float part[3];
-  for (int u = Tb - 1; u >= 0; --u) {
-    const float s_u = u == 0 ? *s0 : s_ys[row0 + u - 1];
-    const float inv_s = 1.0f / s_u;
-    const size_t o = (row0 + u) * s_pad;
-    const float* ad_u = u == 0 ? ad0 : ad_ys + o - s_pad;
-    const float cl = leaky_c * leak_sum;
+  // the carry each column starts from at its last frame: final / tot.
+  // A row is read and written by one thread only (i = tid + k * threads).
+  float leak[G];
+  {
+    float tot_g[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      tot_g[g] = b0 + g < B ? tot[b0 + g] : 1.0f;
+      leak[g] = 0.0f;
+    }
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
-      const float v = bd[i] + cl;
-      bn[d] = v;
-      xb[d] = xdst_ys[o + d] * v;
+      const float lk = leaky[d];
+      float v[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        v[g] = __fdiv_rn(final_p[d], tot_g[g]);
+        leak[g] = fmaf(v[g], lk, leak[g]);
+      }
+      store_cols_l2<G>(bd + d * G, v);
+    }
+    block_sum<G>(leak, red);
+    if (tid == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) slot_la[g] = leak[g];
     }
     cluster.sync();
-    cluster_gather(xb, s_pad);
-    cluster_gather(bn, s_pad);
+    cluster_rank_sum<G>(slot_la, leak);
+  }
+
+  for (int u = t_max - 1; u >= 0; --u) {
+    // 1. b and xb on own rows
+    float cl[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) cl[g] = __fmul_rn(leaky_c, leak[g]);
+    for (int i = tid; i < n; i += FACT_THREADS) {
+      const int d = cluster_row(i, rank, C);
+      float v[G], x[G];
+      load_cols_l2<G>(bd + d * G, v);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        v[g] = __fadd_rn(v[g], cl[g]);
+        x[g] = __fmul_rn(__ldcs(xdst_ys + (row0[g] + u) * s_pad + d), v[g]);
+      }
+      store_cols_l2<G>(bn + d * G, v);
+      store_cols<G>(xb + d * G, x);
+    }
+    cluster.sync();   // X1
+    // 2. the sum-gamma trace of frame u + 1; the peers' rows of xb
+    if (u + 1 < t_max && rank == 0 && tid == 0) {
+      float s[G];
+      cluster_rank_sum<G>(slot_gs, s);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (u + 1 < Tb[g]) gs[row0[g] + u + 1] = debug ? s[g] : 1.0f;
+    }
+    cluster_gather_cols<G>(xb, s_pad, rank, lc);
     __syncthreads();
 
+    // 3. own rows: beta', c1, c2, partials
     const bool traces = debug || u == 0;
-    part[0] = part[1] = part[2] = 0.0f;
+    float inv_s[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      inv_s[g] = __fdiv_rn(1.0f, u == 0 ? *s0 : s_ys[row0[g] + u - 1]);
+    float part[2 * G];
+#pragma unroll
+    for (int g = 0; g < 2 * G; ++g) part[g] = 0.0f;
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
-      const float w1t = sell_row_dot(w1t_ptr, w1t_col, w1t_val, d, xb);
-      const float w2t = sell_row_dot(w2t_ptr, w2t_col, w2t_val, d, bn);
-      const float sw = (identity ? xdst_ys[o + d] : xsrc_ys[o + d]) * w2t;
-      const float bdt = (w1t + sw) * inv_s;
-      const float m1 = xb[d] * w1ad_ys[o + d] * inv_s;
-      const float m2 = sw * ad_u[d] * inv_s;
-      if (identity) {
-        c1[i] = m1 + m2;
-      } else {
-        c1[i] = m1;
-        c2[i] = m2;
-      }
-      bd[i] = bdt;
-      part[0] += bdt * leaky[d];
-      if (traces) part[1] += ad_u[d] * bdt;
-    }
-    cluster.sync();
-
-    float* g_row = gamma + (row0 + u) * P;
-    for (int p = p0 + tid; p < p1; p += FACT_THREADS) {
-      float acc = 0.0f;
-      if (p < n_pdf_lists) {
-        const int fe = __ldg(f_ptr + p + 1);
-        for (int k = __ldg(f_ptr + p); k < fe; ++k)
-          acc += cluster_load(c1, __ldg(f_states + k));
-        if (!identity) {
-          const int ge = __ldg(g_ptr + p + 1);
-          for (int k = __ldg(g_ptr + p); k < ge; ++k)
-            acc += cluster_load(c2, __ldg(g_states + k));
+      float w1t[G], w2t[G], xbd[G], bdv[G];
+      sell_row_dot_cols<G>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);
+#pragma unroll
+      for (int g = 0; g < G; ++g) w2t[g] = 0.0f;
+      {
+        const int lane = d & 31;
+        const int slice = d >> 5;
+        const int end = __ldg(w2t_ptr + slice + 1);
+        for (int e = __ldg(w2t_ptr + slice); e < end; ++e) {
+          const int j = __ldg(w2t_col + e * 32 + lane);
+          const float w = __ldg(w2t_val + e * 32 + lane);
+          float bj[G];
+          load_cols_l2<G>(bn + j * G, bj);
+#pragma unroll
+          for (int g = 0; g < G; ++g) w2t[g] = fmaf(w, bj[g], w2t[g]);
         }
       }
-      g_row[p] = acc;
-      if (traces) part[2] += acc;
+      load_cols<G>(xb + d * G, xbd);
+      load_cols_l2<G>(bd + d * G, bdv);
+      const float lk = leaky[d];
+      float m1v[G], m2v[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const size_t o = (row0[g] + u) * s_pad + d;
+        const float xs = __ldcs((identity ? xdst_ys : xsrc_ys) + o);
+        const float sw = __fmul_rn(xs, w2t[g]);
+        const float bdt = __fmul_rn(__fadd_rn(w1t[g], sw), inv_s[g]);
+        const float adu = u == 0 ? ad0[d] : __ldcs(ad_ys + o - s_pad);
+        const float m1 = __fmul_rn(__fmul_rn(xbd[g], __ldcs(w1ad_ys + o)),
+                                   inv_s[g]);
+        const float m2 = __fmul_rn(__fmul_rn(sw, adu), inv_s[g]);
+        m1v[g] = identity ? __fadd_rn(m1, m2) : m1;
+        m2v[g] = m2;
+        if (u < Tb[g]) {
+          bdv[g] = bdt;
+          part[g] = fmaf(bdt, lk, part[g]);
+          if (traces) part[G + g] = fmaf(adu, bdt, part[G + g]);
+        }
+      }
+      store_cols_l2<G>(bd + d * G, bdv);
+      store_cols<G>(c1 + i * G, m1v);
+      if (!identity) store_cols<G>(c2 + i * G, m2v);
     }
-    block_sum<3>(part, red);
-    // also the barrier after which bn, xb, c1 and c2 may be overwritten
-    cluster_sum<3>(part, slot);
-    leak_sum = part[0];
+    block_sum<2 * G>(part, red);
+    if (tid == 0) {
+#pragma unroll
+      for (int g = 0; g < 2 * G; ++g) slot_la[g] = part[g];
+    }
+    cluster.sync();   // X2
+    // 4. the leaky sums and the alpha*beta trace, rank order
+    cluster_rank_sum<2 * G>(slot_la, part);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (u < Tb[g]) leak[g] = part[g];
     if (rank == 0 && tid == 0) {
-      ab[row0 + u] = traces ? part[1] : 1.0f;
-      gs[row0 + u] = traces ? part[2] : 1.0f;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (u < Tb[g]) ab[row0[g] + u] = traces ? part[G + g] : 1.0f;
     }
+
+    // 5. gamma on this CTA's pdf columns
+    float pg[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) pg[g] = 0.0f;
+    for (int p = p0 + tid; p < p1; p += FACT_THREADS) {
+      float acc[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+      if (p < n_pdf_lists) {
+        float m[G];
+        const int fe = __ldg(f_ptr + p + 1);
+        for (int k = __ldg(f_ptr + p); k < fe; ++k) {
+          cluster_load_cols<G>(c1, __ldg(f_states + k), rank, m);
+#pragma unroll
+          for (int g = 0; g < G; ++g) acc[g] += m[g];
+        }
+        if (!identity) {
+          const int ge = __ldg(g_ptr + p + 1);
+          for (int k = __ldg(g_ptr + p); k < ge; ++k) {
+            cluster_load_cols<G>(c2, __ldg(g_states + k), rank, m);
+#pragma unroll
+            for (int g = 0; g < G; ++g) acc[g] += m[g];
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (u < Tb[g]) __stcs(gamma + (row0[g] + u) * P + p, acc[g]);
+        if (traces) pg[g] += acc[g];
+      }
+    }
+    block_sum<G>(pg, red);
+    if (tid == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) slot_gs[g] = pg[g];
+    }
+  }
+  cluster.sync();
+  if (rank == 0 && tid == 0) {    // the sum-gamma trace of frame 0
+    float s[G];
+    cluster_rank_sum<G>(slot_gs, s);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (b0 + g < B) gs[row0[g]] = s[g];
   }
   cluster.sync();
 }
 
-extern "C" size_t stream_bwd_smem_bytes(int s_pad, int rows, int identity) {
-  return (2 * static_cast<size_t>(s_pad) +
-          (identity ? 2 : 3) * static_cast<size_t>(rows) + 3 * FACT_WARPS +
-          6) * sizeof(float);
+extern "C" size_t stream_bwd_smem_bytes(int s_pad, int rows, int identity,
+                                        int columns) {
+  const size_t G = static_cast<size_t>(columns);
+  return (static_cast<size_t>(s_pad) * G +
+          (identity ? 1 : 2) * static_cast<size_t>(rows) * G +
+          2 * FACT_WARPS * G + 5 * G) * sizeof(float);
 }
 
-// Returns 0 on success, a cudaError_t, or -1 when
-// cudaOccupancyMaxActiveClusters says no cluster of this shape can be
-// resident.
-extern "C" int stream_bwd_launch(
-    const void* lengths, const void* ad_ys, const void* w1ad_ys,
-    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
-    const void* s0, const void* ad0, const void* final_p, const void* tot,
-    const void* leaky, const void* w1t_ptr, const void* w1t_col,
-    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
-    const void* w2t_val, const void* f_ptr, const void* f_states,
-    const void* g_ptr, const void* g_states, int n_pdf_lists,
-    float leaky_c, int B, int T, int P, int s_pad, int cluster, int rows,
-    int debug, void* gamma, void* ab, void* gs, void* stream) {
-  const size_t smem = stream_bwd_smem_bytes(s_pad, rows, xsrc_ys == nullptr);
-  cudaError_t err = fact_set_smem(stream_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// Ask for the kernel's shared memory and count the clusters of this shape
+// the card can hold at once (cudaOccupancyMaxActiveClusters).
+template <int G>
+static cudaError_t prepare(size_t smem, cudaLaunchConfig_t* cfg,
+                           int* active) {
+  cudaError_t err = fact_set_smem(stream_bwd_kernel<G>, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(active, stream_bwd_kernel<G>, cfg);
+}
+
+template <int G>
+static int launch(const void* lengths, const void* ad_ys,
+                  const void* w1ad_ys, const void* xdst_ys,
+                  const void* xsrc_ys, const void* s_ys, const void* s0,
+                  const void* ad0, const void* final_p, const void* tot,
+                  const void* leaky, const void* w1t_ptr,
+                  const void* w1t_col, const void* w1t_val,
+                  const void* w2t_ptr, const void* w2t_col,
+                  const void* w2t_val, const void* f_ptr,
+                  const void* f_states, const void* g_ptr,
+                  const void* g_states, int n_pdf_lists, float leaky_c,
+                  int B, int T, int P, int s_pad, int cluster, int rows,
+                  int debug, void* carry, void* gamma, void* ab, void* gs,
+                  void* stream) {
+  const size_t smem =
+      stream_bwd_smem_bytes(s_pad, rows, xsrc_ys == nullptr, G);
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, attr);
+  cudaLaunchConfig_t cfg =
+      cluster_config((B + G - 1) / G, cluster, smem, stream, attr);
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, stream_bwd_kernel, &cfg);
+  cudaError_t err = prepare<G>(smem, &cfg, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return -1;
   err = cudaLaunchKernelEx(
-      &cfg, stream_bwd_kernel, static_cast<const int*>(lengths),
+      &cfg, stream_bwd_kernel<G>, static_cast<const int*>(lengths),
       static_cast<const float*>(ad_ys), static_cast<const float*>(w1ad_ys),
       static_cast<const float*>(xdst_ys), static_cast<const float*>(xsrc_ys),
       static_cast<const float*>(s_ys), static_cast<const float*>(s0),
@@ -235,9 +384,56 @@ extern "C" int stream_bwd_launch(
       static_cast<const int*>(w2t_col), static_cast<const float*>(w2t_val),
       static_cast<const int*>(f_ptr), static_cast<const int*>(f_states),
       static_cast<const int*>(g_ptr), static_cast<const int*>(g_states),
-      n_pdf_lists, leaky_c, T, P, s_pad, rows, debug,
-      static_cast<float*>(gamma), static_cast<float*>(ab),
+      n_pdf_lists, leaky_c, B, T, P, s_pad, rows, debug,
+      static_cast<float*>(carry), static_cast<float*>(gamma),
+      static_cast<float*>(ab),
       static_cast<float*>(gs));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of this shape the card holds at once, or minus a
+// cudaError_t.
+extern "C" int stream_bwd_active_clusters(int s_pad, int rows, int identity,
+                                          int cluster, int columns) {
+  const size_t smem = stream_bwd_smem_bytes(s_pad, rows, identity, columns);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
+  int active = 0;
+  const cudaError_t err = columns == 1   ? prepare<1>(smem, &cfg, &active)
+                          : columns == 2 ? prepare<2>(smem, &cfg, &active)
+                          : columns == 4 ? prepare<4>(smem, &cfg, &active)
+                                         : cudaErrorInvalidValue;
+  return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
+// Returns 0 on success, a cudaError_t, or -1 when
+// cudaOccupancyMaxActiveClusters says no cluster of this shape can be
+// resident.  columns (G) is 1, 2 or 4; cluster (C) 1, 2, 4 or 8.
+extern "C" int stream_bwd_launch(
+    const void* lengths, const void* ad_ys, const void* w1ad_ys,
+    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
+    const void* s0, const void* ad0, const void* final_p, const void* tot,
+    const void* leaky, const void* w1t_ptr, const void* w1t_col,
+    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
+    const void* w2t_val, const void* f_ptr, const void* f_states,
+    const void* g_ptr, const void* g_states, int n_pdf_lists,
+    float leaky_c, int B, int T, int P, int s_pad, int cluster, int columns,
+    int rows, int debug, void* carry, void* gamma, void* ab, void* gs,
+    void* stream) {
+  switch (columns) {
+#define STREAM_BWD_CASE(G)                                                 \
+  case G:                                                                  \
+    return launch<G>(lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0,  \
+                     ad0, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val,  \
+                     w2t_ptr, w2t_col, w2t_val, f_ptr, f_states, g_ptr,    \
+                     g_states, n_pdf_lists, leaky_c, B, T, P, s_pad,       \
+                     cluster, rows, debug, carry, gamma, ab, gs, stream);
+    STREAM_BWD_CASE(1)
+    STREAM_BWD_CASE(2)
+    STREAM_BWD_CASE(4)
+#undef STREAM_BWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

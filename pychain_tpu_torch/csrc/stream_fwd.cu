@@ -1,5 +1,6 @@
 // Denominator alpha sweep for graphs whose working set exceeds one SM's
-// shared memory: one thread-block cluster per batch column (float32).
+// shared memory: one thread-block cluster per group of G batch columns
+// (float32).
 //
 // Replaces pychain_tpu/ops/pallas_stream.py::_fwd_kernel_factory
 // (launched there by _fwd_stream), which computes what
@@ -13,45 +14,59 @@
 //   s_t = sum(alpha)               alpha' = alpha + c * s_t * leaky
 //
 // with the same outputs: the (B, T, S_pad) streams alpha'(t+1),
-// W1 alpha'(t), x_dst(t) (and x_src(t) outside identity mode), s_t (B, T)
-// and alpha' at the column's last frame.
+// W1 alpha'(t), x_dst(t) (and x_src(t) outside identity mode), s_t (B, T;
+// 1 past the column's end) and alpha' at the column's last frame.
 //
 // Design.  On the TPU the kernel streams W1's 128 x 128 tiles from HBM in
 // chunks, because the graph's weights do not fit VMEM.  The port never
 // holds the weights on chip (W1/W2 are sliced-ELL rows read through L2,
-// as in fact_fwd.cu); what outgrows one SM here is the column's working
-// set, 4 S_pad floats in fact_fwd.cu.  So the column runs on the C CTAs
-// of a cluster.  CTA r owns the 32-row slices r, r + C, ... (R rows:
-// cluster_row, fact_common.cuh) and keeps the two vectors the products
-// gather, alpha' and u = x_src * alpha', whole, and x_dst and alpha on its
-// own rows only: 2 S_pad + 2 R floats.  A frame:
-//   1. gather its rows' emissions, write their stream entries, its rows
-//      of u;
-//   2. cluster barrier (every CTA's rows of alpha' and u written);
-//   3. copy its peers' rows of alpha' and u into its copies
-//      (cluster_gather: 16-byte DSMEM loads), block barrier;
-//   4. its rows' W1 alpha' and W2 u from its own copies, alpha, the
-//      block's partial of s_t;
-//   5. cluster_sum: partials posted, a cluster barrier, every CTA adds
-//      the C partials in rank order (s_t bit-identical in every CTA);
-//   6. the leaky term on its own rows of alpha' (no peer copies them
-//      until the next frame's barrier).
-// All CTAs of a cluster share the column's length, so they pass the same
-// barriers; a last cluster barrier keeps every CTA's shared memory alive
-// until no peer can read it.
+// as in fact_fwd.cu); what outgrows one SM here is the working set.  A
+// cluster of C CTAs serves G columns; CTA r owns the 32-row slices
+// r, r + C, ... (R rows: cluster_row, fact_common.cuh) in all G columns.
+// It holds whole only the vector W1 gathers, alpha' of the G columns
+// interleaved (S_pad G floats), so that one entry's column id and value,
+// loaded once from L2, and one G-wide shared-memory load feed G products
+// (sell_row_dot_cols).  W2 has at most one entry a row in the
+// repository's graphs; its product reads x_src * alpha' at the entry's
+// source from the whole alpha' and a gather of px (the source's pdf per
+// entry, w2_pdf), so no peer's u = x_src * alpha' is needed.  The rows'
+// alpha before the leaky term sit in a (R, G) buffer that peers read,
+// two of them by frame parity when C > 1.  A frame t:
+//   head (t > 0; after the cluster barrier of frame t - 1):
+//     1. s_{t-1} per column: the C CTAs' partials in rank order (bit-
+//        identical in every CTA);
+//     2. alpha'(t) = alpha + c s_{t-1} leaky for every state, each row
+//        read from its owner's buffer (16-byte DSMEM loads), into the
+//        whole copy; the owner writes its rows to the alpha' stream
+//        (frame t - 1) and alpha'(T_b); block barrier;
+//   tail (t < T_max):
+//     3. its rows: emissions, x_dst / x_src streams, W1 alpha' and W2 u
+//        for the G columns, alpha into the buffer of parity t, the W1
+//        alpha' stream, the block's partials of s_t;
+//     4. partials posted to the slot of parity t; one cluster barrier.
+// One cluster barrier a frame: a CTA writes frame t + 1's buffer and slot
+// only after the barrier of frame t + 1, which every peer passes after
+// its reads of frame t's (head of frame t + 1 reads parity t; it writes
+// parity t + 1 in its tail).  Columns of a group may differ in length:
+// the group runs to its longest, T_max, and a finished column's outputs
+// are not written (s_ys 1 past the end).  A last cluster barrier keeps
+// every CTA's shared memory alive until no peer can read it.
+// The per-column arithmetic is written with explicit rounding (fmaf,
+// __fmul_rn, __fadd_rn, __fdiv_rn), so that no multiply-add the compiler
+// would fuse differs between the G instantiations: a column's results
+// are bit-identical at every G for a given C.
 //
 // Bound on an H100 at main path 4 (S_pad = 12,032, P = 6,000, B = 128,
 // T = 500, x_src "stream"): the sweep must read px once (1.5 GB) and
 // write four (T, S_pad, B) float32 streams (12.3 GB): about 13.9 GB,
 // 4.1 ms at 3.35 TB/s; the arc products, 2 * 198k * B * T = 25 GFLOP, take
 // 0.38 ms at 67 TFLOP/s.  The bound is the bytes.  Stream writes are
-// coalesced (a warp's rows are one slice); the sparse rows are re-read
-// from L2 by every cluster at every frame, and every CTA copies
-// 2 S_pad (C - 1) / C floats from its peers a frame: the traffic this
-// first design does not remove (PERF.md).
+// coalesced (a warp's rows are one slice) and marked evict-first
+// (__stcs); the sparse rows are read from L2 once per G columns a frame.
 
 #include "fact_common.cuh"
 
+template <int G>
 __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     const float* __restrict__ px,        // (B, T, P) exp'd nnet output
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
@@ -61,10 +76,11 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     const float* __restrict__ w1_val,    // W1 by destination row
     const int* __restrict__ w2_ptr, const int* __restrict__ w2_col,
     const float* __restrict__ w2_val,    // W2 by destination row
+    const int* __restrict__ w2_pdf,      // x_src's pdf at each W2 entry's source
     const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
     const float* __restrict__ s0,        // (1,) sum of the initial probs
     const float* __restrict__ leaky,     // (S_pad,)
-    float leaky_c, int T, int P, int s_pad, int rows,
+    float leaky_c, int B, int T, int P, int s_pad, int rows,
     float* __restrict__ ad_ys,           // (B, T, S_pad) alpha'(t+1)
     float* __restrict__ w1ad_ys,         // (B, T, S_pad) W1 alpha'(t)
     float* __restrict__ xdst_ys,         // (B, T, S_pad)
@@ -73,109 +89,251 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     float* __restrict__ ad_last) {       // (B, S_pad) alpha'(T_b)
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ float smem[];
-  float* ad = smem;            // alpha', whole: gathered by W1's rows
-  float* u = ad + s_pad;       // x_src * alpha', whole: by W2's rows
-  float* xd = u + s_pad;       // x_dst(t) on this CTA's rows
-  float* a = xd + rows;        // alpha(t) before the leaky term, ditto
-  float* red = a + rows;       // block_sum scratch
-  float* slot = red + FACT_WARPS + 1;   // cluster_sum slot
-
+  extern __shared__ float4 smem4[];
   const int tid = threadIdx.x;
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int b = blockIdx.x / C;
+  const int lc = __ffs(C) - 1;
+  const int nbuf = C > 1 ? 2 : 1;
+  float* ad = reinterpret_cast<float*>(smem4);  // alpha', whole, (S_pad, G)
+  float* abuf = ad + s_pad * G;   // alpha on own rows, nbuf x (R, G)
+  float* red = abuf + nbuf * rows * G;          // block_sum scratch
+  float* slot = red + FACT_WARPS * G + G;       // partials, 2 x G
+
+  const int b0 = static_cast<int>(blockIdx.x) / C * G;
   const int n = cluster_own_rows(s_pad, rank, C);
-  const int Tb = lengths[b];
-  const size_t row0 = static_cast<size_t>(b) * T;
+  int Tb[G];
+  size_t row0[G];                  // (b, 0) row of the (B, T, ...) arrays
+  int t_max = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int b = b0 + g;
+    Tb[g] = b < B ? lengths[b] : 0;
+    row0[g] = static_cast<size_t>(min(b, B - 1)) * T;
+    t_max = max(t_max, Tb[g]);
+  }
 
-  for (int s = tid; s < s_pad; s += FACT_THREADS) ad[s] = ad0[s];
-  float s_prev = *s0;
+  for (int s = tid; s < s_pad; s += FACT_THREADS) {
+    const float v = ad0[s];
+#pragma unroll
+    for (int g = 0; g < G; ++g) ad[s * G + g] = v;
+  }
+  float s_prev[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s_prev[g] = *s0;
+  __syncthreads();
 
-  for (int t = 0; t < Tb; ++t) {
-    const float* px_t = px + (row0 + t) * P;
-    const size_t o = (row0 + t) * s_pad;
+  for (int t = 0; t <= t_max; ++t) {
+    if (t > 0) {
+      const int par = (t - 1) & 1;
+      float s_t[G];
+      cluster_rank_sum<G>(slot + par * G, s_t);
+      float cs[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) cs[g] = __fmul_rn(leaky_c, s_t[g]);
+      const float* a_buf = abuf + (par % nbuf) * rows * G;
+      const bool last = t == t_max;
+      // 4 interleaved floats a thread: 4 / G rows of one slice, G columns
+      for (int q = tid; q < (s_pad * G) >> 2; q += FACT_THREADS) {
+        const int j0 = (q << 2) / G;
+        const int owner = cluster_owner(j0, lc);
+        if (last && owner != rank) continue;
+        const float4* src = reinterpret_cast<const float4*>(
+            a_buf + cluster_local(j0, lc) * G);
+        const float4 a4 = owner == rank ? *src
+                                        : *cluster.map_shared_rank(src, owner);
+        float e[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          e[k] = fmaf(cs[k % G], __ldg(leaky + j0 + k / G), e[k]);
+        if (!last)
+          reinterpret_cast<float4*>(ad)[q] = make_float4(e[0], e[1], e[2], e[3]);
+        if (owner != rank) continue;
+        // own rows: the alpha' stream of frame t - 1 and alpha'(T_b)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (t - 1 >= Tb[g]) continue;
+          float v[4 / G];
+#pragma unroll
+          for (int k = 0; k < 4 / G; ++k) v[k] = e[k * G + g];
+          store_cols_stream<4 / G>(ad_ys + (row0[g] + t - 1) * s_pad + j0,
+                                   v);
+          if (t == Tb[g])
+            store_cols<4 / G>(ad_last + static_cast<size_t>(b0 + g) * s_pad + j0,
+                              v);
+        }
+      }
+      if (rank == 0 && tid == 0) {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (t - 1 < Tb[g]) s_ys[row0[g] + t - 1] = s_t[g];
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (t - 1 < Tb[g]) s_prev[g] = s_t[g];
+      if (last) break;
+      __syncthreads();
+    }
+
+    float part[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) part[g] = 0.0f;
+    float* a_out = abuf + ((t & 1) % nbuf) * rows * G;
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
-      const float x = __ldg(px_t + f_dst[d]);
-      const float xs = g_src ? __ldg(px_t + g_src[d]) : x;
-      xd[i] = x;
-      u[d] = xs * ad[d];
-      xdst_ys[o + d] = x;
-      if (xsrc_ys) xsrc_ys[o + d] = xs;
+      const int fd = f_dst[d];
+      const int gd = g_src ? g_src[d] : fd;
+      float x[G], xs[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float* px_t = px + (row0[g] + t) * P;
+        x[g] = __ldg(px_t + fd);
+        xs[g] = g_src ? __ldg(px_t + gd) : x[g];
+      }
+      float w1a[G];
+      sell_row_dot_cols<G>(w1_ptr, w1_col, w1_val, d, ad, w1a);
+      float w2u[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) w2u[g] = 0.0f;
+      {
+        const int lane = d & 31;
+        const int slice = d >> 5;
+        const int end = __ldg(w2_ptr + slice + 1);
+        for (int k = __ldg(w2_ptr + slice); k < end; ++k) {
+          const int e = k * 32 + lane;
+          const float w = __ldg(w2_val + e);
+          const int pdf = __ldg(w2_pdf + e);
+          float a[G];
+          load_cols<G>(ad + __ldg(w2_col + e) * G, a);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float u = __fmul_rn(__ldg(px + (row0[g] + t) * P + pdf),
+                                      a[g]);
+            w2u[g] = fmaf(w, u, w2u[g]);
+          }
+        }
+      }
+      float al[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        al[g] = __fdiv_rn(fmaf(x[g], w1a[g], w2u[g]), s_prev[g]);
+        part[g] += al[g];
+        if (t < Tb[g]) {
+          const size_t o = (row0[g] + t) * s_pad + d;
+          __stcs(xdst_ys + o, x[g]);
+          if (xsrc_ys) __stcs(xsrc_ys + o, xs[g]);
+          __stcs(w1ad_ys + o, w1a[g]);
+        }
+      }
+      store_cols<G>(a_out + i * G, al);
+    }
+    block_sum<G>(part, red);
+    if (tid == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) slot[(t & 1) * G + g] = part[g];
     }
     cluster.sync();
-    cluster_gather(ad, s_pad);
-    cluster_gather(u, s_pad);
-    __syncthreads();
-
-    float part[1] = {0.0f};
-    for (int i = tid; i < n; i += FACT_THREADS) {
-      const int d = cluster_row(i, rank, C);
-      const float w1a = sell_row_dot(w1_ptr, w1_col, w1_val, d, ad);
-      const float w2u = sell_row_dot(w2_ptr, w2_col, w2_val, d, u);
-      const float av = (xd[i] * w1a + w2u) / s_prev;
-      a[i] = av;
-      w1ad_ys[o + d] = w1a;
-      part[0] += av;
-    }
-    block_sum<1>(part, red);
-    // also the barrier after which ad and u may be overwritten
-    cluster_sum<1>(part, slot);
-    const float s_t = part[0];
-    const float cs = leaky_c * s_t;
-    for (int i = tid; i < n; i += FACT_THREADS) {
-      const int d = cluster_row(i, rank, C);
-      const float v = a[i] + cs * leaky[d];
-      ad[d] = v;
-      ad_ys[o + d] = v;
-      if (t == Tb - 1) ad_last[static_cast<size_t>(b) * s_pad + d] = v;
-    }
-    if (rank == 0 && tid == 0) s_ys[row0 + t] = s_t;
-    s_prev = s_t;
   }
-  if (rank == 0)
-    for (int t = Tb + tid; t < T; t += FACT_THREADS) s_ys[row0 + t] = 1.0f;
+  if (rank == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (b0 + g >= B) continue;
+      for (int t = Tb[g] + tid; t < T; t += FACT_THREADS)
+        s_ys[row0[g] + t] = 1.0f;
+    }
+  }
   cluster.sync();
 }
 
-extern "C" size_t stream_fwd_smem_bytes(int s_pad, int rows) {
-  return (2 * static_cast<size_t>(s_pad) + 2 * static_cast<size_t>(rows) +
-          FACT_WARPS + 2) * sizeof(float);
+extern "C" size_t stream_fwd_smem_bytes(int s_pad, int rows, int cluster,
+                                        int columns) {
+  const size_t G = static_cast<size_t>(columns);
+  const size_t nbuf = cluster > 1 ? 2 : 1;
+  return (static_cast<size_t>(s_pad) * G + nbuf * rows * G +
+          FACT_WARPS * G + 3 * G) * sizeof(float);
 }
 
-// Returns 0 on success, a cudaError_t, or -1 when
-// cudaOccupancyMaxActiveClusters says no cluster of this shape can be
-// resident.
-extern "C" int stream_fwd_launch(
-    const void* px, const void* lengths, const void* f_dst,
-    const void* g_src, const void* w1_ptr, const void* w1_col,
-    const void* w1_val, const void* w2_ptr, const void* w2_col,
-    const void* w2_val, const void* ad0, const void* s0, const void* leaky,
-    float leaky_c, int B, int T, int P, int s_pad, int cluster, int rows,
-    void* ad_ys, void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys,
-    void* ad_last, void* stream) {
-  const size_t smem = stream_fwd_smem_bytes(s_pad, rows);
-  cudaError_t err = fact_set_smem(stream_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// Ask for the kernel's shared memory and count the clusters of this shape
+// the card can hold at once (cudaOccupancyMaxActiveClusters).
+template <int G>
+static cudaError_t prepare(size_t smem, cudaLaunchConfig_t* cfg,
+                           int* active) {
+  cudaError_t err = fact_set_smem(stream_fwd_kernel<G>, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(active, stream_fwd_kernel<G>, cfg);
+}
+
+template <int G>
+static int launch(const void* px, const void* lengths, const void* f_dst,
+                  const void* g_src, const void* w1_ptr, const void* w1_col,
+                  const void* w1_val, const void* w2_ptr, const void* w2_col,
+                  const void* w2_val, const void* w2_pdf, const void* ad0,
+                  const void* s0, const void* leaky, float leaky_c, int B,
+                  int T, int P, int s_pad, int cluster, int rows,
+                  void* ad_ys, void* w1ad_ys, void* xdst_ys, void* xsrc_ys,
+                  void* s_ys, void* ad_last, void* stream) {
+  const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, G);
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, attr);
+  cudaLaunchConfig_t cfg =
+      cluster_config((B + G - 1) / G, cluster, smem, stream, attr);
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, stream_fwd_kernel, &cfg);
+  cudaError_t err = prepare<G>(smem, &cfg, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return -1;
   err = cudaLaunchKernelEx(
-      &cfg, stream_fwd_kernel, static_cast<const float*>(px),
+      &cfg, stream_fwd_kernel<G>, static_cast<const float*>(px),
       static_cast<const int*>(lengths), static_cast<const int*>(f_dst),
       static_cast<const int*>(g_src), static_cast<const int*>(w1_ptr),
       static_cast<const int*>(w1_col), static_cast<const float*>(w1_val),
       static_cast<const int*>(w2_ptr), static_cast<const int*>(w2_col),
-      static_cast<const float*>(w2_val), static_cast<const float*>(ad0),
-      static_cast<const float*>(s0), static_cast<const float*>(leaky),
-      leaky_c, T, P, s_pad, rows, static_cast<float*>(ad_ys),
-      static_cast<float*>(w1ad_ys), static_cast<float*>(xdst_ys),
-      static_cast<float*>(xsrc_ys), static_cast<float*>(s_ys),
-      static_cast<float*>(ad_last));
+      static_cast<const float*>(w2_val), static_cast<const int*>(w2_pdf),
+      static_cast<const float*>(ad0), static_cast<const float*>(s0),
+      static_cast<const float*>(leaky), leaky_c, B, T, P, s_pad, rows,
+      static_cast<float*>(ad_ys), static_cast<float*>(w1ad_ys),
+      static_cast<float*>(xdst_ys), static_cast<float*>(xsrc_ys),
+      static_cast<float*>(s_ys), static_cast<float*>(ad_last));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of this shape the card holds at once, or minus a
+// cudaError_t.
+extern "C" int stream_fwd_active_clusters(int s_pad, int rows, int cluster,
+                                          int columns) {
+  const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, columns);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
+  int active = 0;
+  const cudaError_t err = columns == 1   ? prepare<1>(smem, &cfg, &active)
+                          : columns == 2 ? prepare<2>(smem, &cfg, &active)
+                          : columns == 4 ? prepare<4>(smem, &cfg, &active)
+                                         : cudaErrorInvalidValue;
+  return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
+// Returns 0 on success, a cudaError_t, or -1 when
+// cudaOccupancyMaxActiveClusters says no cluster of this shape can be
+// resident.  columns (G) is 1, 2 or 4; cluster (C) 1, 2, 4 or 8.
+extern "C" int stream_fwd_launch(
+    const void* px, const void* lengths, const void* f_dst,
+    const void* g_src, const void* w1_ptr, const void* w1_col,
+    const void* w1_val, const void* w2_ptr, const void* w2_col,
+    const void* w2_val, const void* w2_pdf, const void* ad0, const void* s0,
+    const void* leaky, float leaky_c, int B, int T, int P, int s_pad,
+    int cluster, int columns, int rows, void* ad_ys, void* w1ad_ys,
+    void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* stream) {
+  switch (columns) {
+#define STREAM_FWD_CASE(G)                                                  \
+  case G:                                                                   \
+    return launch<G>(px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val,     \
+                     w2_ptr, w2_col, w2_val, w2_pdf, ad0, s0, leaky,        \
+                     leaky_c, B, T, P, s_pad, cluster, rows, ad_ys,         \
+                     w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, stream);
+    STREAM_FWD_CASE(1)
+    STREAM_FWD_CASE(2)
+    STREAM_FWD_CASE(4)
+#undef STREAM_FWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

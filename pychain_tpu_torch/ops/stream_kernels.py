@@ -9,22 +9,27 @@ W1/W2 as sliced-ELL rows through L2 every frame, ``fact_kernels``).
 What outgrows one SM here is the column's working set, which the
 resident kernels B1/B2 keep in one block's shared memory (4-5 S_pad
 floats, :func:`fact_kernels.smem_bytes`).  So the same "full"-mode sweep
-runs on one thread-block cluster per batch column: CTA r of C owns the
-32-row state slices r, r + C, ... (R rows), keeps whole only the two
-vectors its products gather (copying its peers' rows of them each frame
-through distributed shared memory) and the rest on its own rows:
+runs on thread-block clusters: a cluster of C CTAs serves a group of G
+batch columns, CTA r owns the 32-row state slices r, r + C, ... (R rows)
+in all G columns, every vector holds the G columns interleaved, and a CTA
+keeps whole only the vector its W1 (W1^T) product gathers, copying its
+peers' rows of it each frame through distributed shared memory, so that
+each sparse entry read from L2 feeds G columns:
 
 * ``stream_fwd`` (``csrc/stream_fwd.cu``, replaces
   ``pallas_stream._fwd_kernel_factory``): the alpha sweep, the same
-  streams and sums as ``fact_fwd``;
+  streams and sums as ``fact_fwd``, one cluster barrier a frame;
 * ``stream_bwd`` (``csrc/stream_bwd.cu``, replaces
   ``pallas_stream._bwd_kernel_factory``): the beta sweep, gamma and the
-  traces, as ``fact_bwd``.
+  traces, as ``fact_bwd``, two cluster barriers a frame.
 
-The kernels read the graph of ``fact_kernels.graph_for`` (the same
-device arrays as B1/B2) except the pdf -> states lists of the posterior,
-whose state ids are packed as (owner rank, local row) for the cluster
-size C (:func:`cluster_graph`): CTA r sums the pdf columns
+:func:`plan` picks (C, G) for each kernel from the card's properties by
+a written rule; ``cluster=`` / ``columns=`` override it.  The kernels
+read the graph of ``fact_kernels.graph_for`` (the same device arrays as
+B1/B2) plus, for stream_fwd, the x_src pdf at each W2 entry's source
+(:func:`w2_source_pdfs`), and the pdf -> states lists of the posterior
+with state ids packed as (owner rank, local row) for the cluster size C
+(:func:`cluster_graph`): CTA r sums the pdf columns
 [r ceil(P / C), (r + 1) ceil(P / C)) from the CTAs that own the states.
 
 A wrapper given CPU tensors computes the plain version
@@ -46,6 +51,12 @@ from .factorized import FactorizedArrays
 from .fwdbwd import FwdBwdResult
 
 CLUSTERS = (1, 2, 4, 8)      # portable cluster sizes, smallest first
+COLUMNS = (1, 2, 4)          # batch columns a CTA serves (G), as compiled
+THREADS = 32 * fk.FACT_WARPS   # FACT_THREADS in fact_common.cuh
+# __launch_bounds__(FACT_THREADS, 1) lets a thread hold 64 registers, so
+# the plan counts 64 a thread when it fits CTAs on an SM.
+REGS_PER_THREAD = 64
+RESERVED_SMEM = 1024         # shared memory the runtime keeps per block
 LOCAL_BITS = 16              # CLUSTER_LOCAL_BITS in fact_common.cuh
 
 LAUNCHES = {"stream_fwd": 0, "stream_bwd": 0}
@@ -62,33 +73,133 @@ def rows_per_cta(s_pad: int, cluster: int) -> int:
     return -(-(s_pad // fk.SLICE) // cluster) * fk.SLICE
 
 
-def smem_bytes(fa: FactorizedArrays, cluster: int) -> dict:
-    """Dynamic shared memory of each CTA for cluster size ``cluster``
-    (must equal stream_fwd_smem_bytes / stream_bwd_smem_bytes in the
-    sources): two whole vectors and two (fwd) or three (bwd; two in
-    identity mode) of the CTA's rows, plus the reductions' scratch."""
-    s_pad, rows = fa.s_pad, rows_per_cta(fa.s_pad, cluster)
+def smem_bytes(fa: FactorizedArrays, cluster: int, columns: int = 1) -> dict:
+    """Dynamic shared memory of each CTA for C = ``cluster`` CTAs serving
+    G = ``columns`` columns (must equal stream_fwd_smem_bytes /
+    stream_bwd_smem_bytes in the sources), every vector holding the G
+    columns: stream_fwd keeps alpha' whole and alpha on its R rows (two
+    buffers by frame parity when C > 1), stream_bwd x_dst * b whole and
+    c1, c2 on its rows (no c2 in identity mode; b and the beta' carry live
+    in device memory); plus the reductions' scratch and slots."""
+    s_pad, rows, G = fa.s_pad, rows_per_cta(fa.s_pad, cluster), columns
     identity = fa.xsrc_mode == "identity"
-    return {"stream_fwd": (2 * s_pad + 2 * rows + fk.FACT_WARPS + 2) * 4,
-            "stream_bwd": (2 * s_pad + (2 if identity else 3) * rows
-                           + 3 * fk.FACT_WARPS + 6) * 4}
+    nbuf = 2 if cluster > 1 else 1
+    return {"stream_fwd": (s_pad * G + nbuf * rows * G + fk.FACT_WARPS * G
+                           + 3 * G) * 4,
+            "stream_bwd": (s_pad * G + (1 if identity else 2) * rows * G
+                           + 2 * fk.FACT_WARPS * G + 5 * G) * 4}
 
 
-def cluster_size(fa: FactorizedArrays):
-    """The smallest C in CLUSTERS whose per-CTA share of both kernels'
-    working set fits a Hopper block's shared memory (the port's
-    counterpart of pallas_stream.fits_stream's VMEM estimate), or None."""
-    for c in CLUSTERS:
-        if max(smem_bytes(fa, c).values()) <= fk.MAX_SMEM:
-            return c
-    return None
+def fits(fa: FactorizedArrays, name: str, cluster: int, columns: int,
+         limit: int = fk.MAX_SMEM) -> bool:
+    """Whether kernel ``name``'s shared memory at (C, G) is within
+    ``limit``."""
+    return smem_bytes(fa, cluster, columns)[name] <= limit
 
 
 def fits_stream(fa: FactorizedArrays) -> bool:
     """Can the cluster kernels run this graph?  A fully factorized graph
-    whose state vectors fit the shared memory of a cluster of at most
-    max(CLUSTERS) CTAs."""
-    return fk.supports(fa) and cluster_size(fa) is not None
+    whose per-CTA share fits a Hopper block at one column a CTA on a
+    cluster of at most max(CLUSTERS) CTAs (the port's counterpart of
+    pallas_stream.fits_stream's VMEM estimate)."""
+    return fk.supports(fa) and any(
+        all(fits(fa, k, c, 1) for k in LAUNCHES) for c in CLUSTERS)
+
+
+# ----------------------------------------------------------------------
+# The launch plan
+# ----------------------------------------------------------------------
+
+# The plan's cost of one CTA's frame, in units of one row in one column
+# (its emissions, stream entries and arithmetic): each row also reads its
+# sparse entries from L2 once for all G columns (GRAPH_ROW), and each
+# float copied from a peer costs COPY_FLOAT (16-byte DSMEM loads).  Both
+# weights are set by hand, not fitted: on an H100 the cheapest plan was
+# the fastest one chip_smoke.py times at its three graphs, but the order
+# below it is rough (equal costs can differ 2x in time).
+GRAPH_ROW = 1.0
+COPY_FLOAT = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One kernel's launch: C CTAs a cluster, G columns a CTA."""
+    kernel: str
+    cluster: int
+    columns: int
+    threads: int
+    ctas: int            # C * ceil(B / G)
+    ctas_per_sm: int     # resident at once, by threads, smem, registers
+    waves: int           # ceil(ctas / (SMs * ctas_per_sm))
+    smem: int            # bytes a CTA
+    cost: float          # waves * the busiest SM's work a frame
+
+
+def _plan_of(fa, name, B, C, G, props) -> Plan:
+    rows = rows_per_cta(fa.s_pad, C)
+    smem = smem_bytes(fa, C, G)[name]
+    ctas = C * -(-B // G)
+    per_sm = min(props.max_threads_per_multi_processor // THREADS,
+                 props.shared_memory_per_multiprocessor
+                 // (smem + RESERVED_SMEM),
+                 props.regs_per_multiprocessor // (THREADS * REGS_PER_THREAD))
+    sms = props.multi_processor_count
+    waves = -(-ctas // (sms * per_sm)) if per_sm else 0
+    frame = rows * (G + GRAPH_ROW) + COPY_FLOAT * fa.s_pad * G * (C - 1) / C
+    busiest = min(per_sm, -(-ctas // sms))
+    return Plan(name, C, G, THREADS, ctas, per_sm, waves, smem,
+                waves * busiest * frame)
+
+
+def candidates(fa: FactorizedArrays, name: str, B: int, props,
+               cluster=None, columns=None) -> list:
+    """Every plan of kernel ``name`` for B columns that fits the card
+    (``props``: torch.cuda.get_device_properties), restricted to the
+    given C and G, cheapest first: by cost, then smaller C (fewer peers,
+    copies and cluster barriers), then larger G."""
+    out = []
+    for C in CLUSTERS if cluster is None else (int(cluster),):
+        for G in COLUMNS if columns is None else (int(columns),):
+            if C not in CLUSTERS or G not in COLUMNS:
+                continue        # not compiled: a forced C or G raises
+            if columns is None and G > B:
+                continue        # a group wider than the batch
+            if not fits(fa, name, C, G, props.shared_memory_per_block_optin):
+                continue
+            p = _plan_of(fa, name, B, C, G, props)
+            if p.ctas_per_sm >= 1:
+                out.append(p)
+    return sorted(out, key=lambda p: (p.cost, p.cluster, -p.columns))
+
+
+def plan_kernel(fa: FactorizedArrays, name: str, B: int, props,
+                cluster=None, columns=None) -> Plan:
+    """Kernel ``name``'s launch plan: the cheapest of :func:`candidates`.
+    Raises NotImplementedError when no plan fits."""
+    cand = candidates(fa, name, B, props, cluster, columns)
+    if not cand:
+        raise NotImplementedError(
+            f"{name}: graph with S_pad={fa.s_pad} fits no cluster of "
+            f"{CLUSTERS} CTAs at {COLUMNS} columns a CTA (cluster "
+            f"{cluster!r}, columns {columns!r} asked) within the "
+            f"{props.shared_memory_per_block_optin} bytes of shared "
+            "memory a block has on this card: no CUDA kernel serves it")
+    return cand[0]
+
+
+def plan(fa: FactorizedArrays, B: int, props, cluster=None,
+         columns=None) -> dict:
+    """The launch plan of each cluster kernel: {"stream_fwd": Plan,
+    "stream_bwd": Plan} (the two may differ: the streams' layout does not
+    depend on C or G).  The rule, from the card's SM count, shared memory
+    and registers (``props``: torch.cuda.get_device_properties): a CTA's
+    frame costs R (G + GRAPH_ROW) for its rows plus COPY_FLOAT for each
+    float it copies from its peers; the busiest SM runs min(CTAs per SM,
+    ceil(CTAs / SMs)) CTAs a wave; the plan with the fewest waves times
+    that wins, then the smaller C, then the larger G.  ``cluster`` /
+    ``columns`` restrict the choice (tests, chip_smoke.py)."""
+    return {name: plan_kernel(fa, name, B, props, cluster, columns)
+            for name in LAUNCHES}
 
 
 # ----------------------------------------------------------------------
@@ -114,6 +225,14 @@ def cluster_graph(kg: fk.KernelGraph, cluster: int) -> fk.KernelGraph:
                                g_lists=lists(kg.g_lists))
 
 
+def w2_source_pdfs(kg: fk.KernelGraph) -> torch.Tensor:
+    """x_src's pdf at each W2 entry's source state, in W2's sliced-ELL
+    layout (a padding entry names state 0): stream_fwd's W2 product reads
+    x_src * alpha' at the source from px and its whole alpha'."""
+    src = kg.f_dst if kg.g_src is None else kg.g_src
+    return src[kg.w2[1].long()].contiguous()
+
+
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -124,6 +243,15 @@ def graph_for(fa: FactorizedArrays, cluster: int) -> fk.KernelGraph:
     if cluster not in per:
         per[cluster] = cluster_graph(fk.graph_for(fa), cluster)
     return per[cluster]
+
+
+def w2_pdfs_for(fa: FactorizedArrays) -> torch.Tensor:
+    """``w2_source_pdfs`` of ``fact_kernels.graph_for(fa)``, built once per
+    graph."""
+    per = _graphs.setdefault(fa, {})
+    if "w2_pdf" not in per:
+        per["w2_pdf"] = w2_source_pdfs(fk.graph_for(fa))
+    return per["w2_pdf"]
 
 
 # ----------------------------------------------------------------------
@@ -141,45 +269,55 @@ def _lib(name):
     fn = getattr(build.load(name), f"{name}_launch")
     if fn.argtypes is None:
         if name == "stream_fwd":
-            fn.argtypes = [_P] * 13 + [_F] + [_I] * 6 + [_P] * 7
+            fn.argtypes = [_P] * 14 + [_F] + [_I] * 7 + [_P] * 7
         else:
-            fn.argtypes = [_P] * 21 + [_I, _F] + [_I] * 7 + [_P] * 4
+            fn.argtypes = [_P] * 21 + [_I, _F] + [_I] * 8 + [_P] * 5
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(rc, name, fa, cluster):
+def active_clusters(fa: FactorizedArrays, p: Plan) -> int:
+    """cudaOccupancyMaxActiveClusters for plan ``p`` on the current card:
+    the clusters of its shape that can be resident at once."""
+    from ..csrc import build
+    fn = getattr(build.load(p.kernel), f"{p.kernel}_active_clusters")
+    fn.restype = ctypes.c_int
+    rows = rows_per_cta(fa.s_pad, p.cluster)
+    if p.kernel == "stream_fwd":
+        n = fn(fa.s_pad, rows, p.cluster, p.columns)
+    else:
+        n = fn(fa.s_pad, rows, int(fa.xsrc_mode == "identity"), p.cluster,
+               p.columns)
+    fk._check(max(-n, 0), f"{p.kernel}_active_clusters")
+    return n
+
+
+def _check(rc, p: Plan):
     if rc == -1:
         raise RuntimeError(
-            f"{name}: cudaOccupancyMaxActiveClusters reports that no "
-            f"cluster of {cluster} CTAs with {smem_bytes(fa, cluster)[name]} "
-            "bytes of shared memory each can be resident on this card")
-    fk._check(rc, name)
+            f"{p.kernel}: cudaOccupancyMaxActiveClusters reports that no "
+            f"cluster of {p.cluster} CTAs with {p.smem} bytes of shared "
+            "memory each can be resident on this card")
+    fk._check(rc, p.kernel)
 
 
-def _cluster(fa: FactorizedArrays, cluster):
-    """The cluster size to launch: the caller's, else cluster_size(fa);
-    raises if the graph's rows do not fit it."""
-    c = cluster_size(fa) if cluster is None else int(cluster)
-    if c is None or c not in CLUSTERS or \
-            max(smem_bytes(fa, c).values()) > fk.MAX_SMEM:
-        raise NotImplementedError(
-            f"graph with S_pad={fa.s_pad} needs "
-            f"{smem_bytes(fa, max(CLUSTERS))} bytes of shared memory per "
-            f"CTA even on a cluster of {max(CLUSTERS)} CTAs (cluster "
-            f"{cluster!r} asked), over the {fk.MAX_SMEM} a Hopper block "
-            "has: no CUDA kernel serves it")
-    return c
+def _plan(fa: FactorizedArrays, B: int, device, name: str, cluster,
+          columns) -> Plan:
+    """The plan to launch ``name`` with on this card, restricted to the
+    caller's C and G."""
+    return plan_kernel(fa, name, B, torch.cuda.get_device_properties(device),
+                       cluster, columns)
 
 
 def stream_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
-               cluster=None):
+               cluster=None, columns=None):
     """Launch the cluster alpha sweep on CUDA tensors; the arguments and
-    results of :func:`fact_kernels.fact_fwd`."""
+    results of :func:`fact_kernels.fact_fwd`.  ``cluster`` / ``columns``
+    force C / G (default: :func:`plan`)."""
     fk._check_cuda_inputs(px, lengths, fa)
-    c = _cluster(fa, cluster)
-    kg = graph_for(fa, c)
     B, T, P = px.shape
+    p = _plan(fa, B, px.device, "stream_fwd", cluster, columns)
+    kg = graph_for(fa, p.cluster)
     _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
              f"only {P} columns")
     s_pad = fa.s_pad
@@ -192,58 +330,60 @@ def stream_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
     s_ys, ad_last = new(B, T), new(B, s_pad)
     rc = _lib("stream_fwd")(
         _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
-        *map(_ptr, kg.w1), *map(_ptr, kg.w2), _ptr(ad0), _ptr(s0),
-        _ptr(fa.leaky), float(leaky_coefficient), B, T, P, s_pad, c,
-        rows_per_cta(s_pad, c), _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
-        _ptr(xsrc_ys), _ptr(s_ys), _ptr(ad_last), _stream())
-    _check(rc, "stream_fwd", fa, c)
+        *map(_ptr, kg.w1), *map(_ptr, kg.w2), _ptr(w2_pdfs_for(fa)),
+        _ptr(ad0), _ptr(s0), _ptr(fa.leaky), float(leaky_coefficient), B,
+        T, P, s_pad, p.cluster, p.columns, rows_per_cta(s_pad, p.cluster),
+        _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys), _ptr(xsrc_ys),
+        _ptr(s_ys), _ptr(ad_last), _stream())
+    _check(rc, p)
     LAUNCHES["stream_fwd"] += 1
     return ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, ad0, s0
 
 
 def stream_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
                w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0, tot_prob, P,
-               debug=True, cluster=None):
+               debug=True, cluster=None, columns=None):
     """Launch the cluster beta sweep on the streams of :func:`stream_fwd`
     (or ``fact_fwd``).  Returns (gamma (B, T, P), alpha_beta (B, T),
     gamma_sum (B, T))."""
-    c = _cluster(fa, cluster)
-    kg = graph_for(fa, c)
     B, T, s_pad = ad_ys.shape
     for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, tot_prob):
         _require(t is None or (t.is_cuda and t.dtype == torch.float32
                                and t.is_contiguous()),
                  "stream_bwd: streams must be contiguous float32 on CUDA")
+    p = _plan(fa, B, ad_ys.device, "stream_bwd", cluster, columns)
+    kg = graph_for(fa, p.cluster)
     _require((xsrc_ys is None) == (kg.g_src is None),
              "stream_bwd: x_src stream present iff the graph is not "
              "identity")
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=ad_ys.device)
     gamma, ab, gs = new(B, T, P), new(B, T), new(B, T)
+    carry = new(2, -(-B // p.columns) * p.columns, s_pad)
     g_lists = kg.g_lists or (None, None)
     rc = _lib("stream_bwd")(
         _ptr(lengths), _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
         _ptr(xsrc_ys), _ptr(s_ys), _ptr(s0), _ptr(ad0), _ptr(fa.final),
         _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, kg.w1t),
         *map(_ptr, kg.w2t), *map(_ptr, kg.f_lists), *map(_ptr, g_lists),
-        kg.n_pdf_lists, float(leaky_coefficient), B, T, P, s_pad, c,
-        rows_per_cta(s_pad, c), int(bool(debug)), _ptr(gamma), _ptr(ab),
-        _ptr(gs), _stream())
-    _check(rc, "stream_bwd", fa, c)
+        kg.n_pdf_lists, float(leaky_coefficient), B, T, P, s_pad, p.cluster,
+        p.columns, rows_per_cta(s_pad, p.cluster), int(bool(debug)),
+        _ptr(carry), _ptr(gamma), _ptr(ab), _ptr(gs), _stream())
+    _check(rc, p)
     LAUNCHES["stream_bwd"] += 1
     return gamma, ab, gs
 
 
 def forward_backward_prob_stream(px, lengths, fa: FactorizedArrays,
                                  leaky_coefficient=1e-5, debug: bool = True,
-                                 cluster=None) -> FwdBwdResult:
+                                 cluster=None, columns=None) -> FwdBwdResult:
     """Fused fwd+bwd on the cluster kernels (engine "stream").
 
     The arguments and results of
-    :func:`fact_kernels.forward_backward_prob_kernel`; ``cluster`` forces
-    the cluster size (default :func:`cluster_size`).  On the CPU this
-    computes the plain version."""
+    :func:`fact_kernels.forward_backward_prob_kernel`; ``cluster`` and
+    ``columns`` force C and G for both kernels (default :func:`plan`,
+    per kernel).  On the CPU this computes the plain version."""
     return fk.fused_fwd_bwd(
         px, lengths, fa, leaky_coefficient, debug,
-        functools.partial(stream_fwd, cluster=cluster),
-        functools.partial(stream_bwd, cluster=cluster))
+        functools.partial(stream_fwd, cluster=cluster, columns=columns),
+        functools.partial(stream_bwd, cluster=cluster, columns=columns))

@@ -99,14 +99,15 @@ class TestFactorized:
 # The cluster kernels B3/B4 (ops/stream_kernels.py)
 # ----------------------------------------------------------------------
 
-def _stream_case(mode, B=4, T=9, seed=2, num_phones=150):
+def _stream_case(mode, B=5, T=9, seed=2, num_phones=150):
     """S = 300, S_pad = 384: 12 slices of 32 rows, so with C = 8 ranks
-    0-3 own two slices and ranks 4-7 one."""
+    0-3 own two slices and ranks 4-7 one.  B = 5 columns of unequal
+    lengths: no G > 1 divides B, and a group mixes lengths."""
     fst, P = denominator_fst(num_phones=num_phones, states_per_phone=2,
                              seed=seed, forward_pdf_mode=mode)
     rng = np.random.RandomState(seed)
     x = rng.randn(B, T, P).astype(np.float32)
-    lengths = np.array([T, T - 2, 3, 1][:B], np.int32)
+    lengths = np.array([T, T - 2, 3, 1, T - 4][:B], np.int32)
     fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, device="cpu")._fact
     return fa, torch.exp(torch.from_numpy(x)), torch.from_numpy(lengths)
 
@@ -114,25 +115,44 @@ def _stream_case(mode, B=4, T=9, seed=2, num_phones=150):
 class TestStream:
 
     @pytest.mark.cuda
-    @pytest.mark.parametrize("C", [2, 4, 8])
+    @pytest.mark.parametrize("G", [1, 2, 4])
+    @pytest.mark.parametrize("C", [1, 2, 4, 8])
     @pytest.mark.parametrize("mode,want", MODES)
     @pytest.mark.parametrize("debug", [True, False])
-    def test_cuda_stream_kernels_match_plain(self, cuda, mode, want, C,
+    def test_cuda_stream_kernels_match_plain(self, cuda, mode, want, C, G,
                                              debug):
         fa, px, lens = _stream_case(mode)
         assert fa.xsrc_mode == want
         fa, px, lens = fa.to(cuda), px.to(cuda), lens.to(cuda)
         stk.reset_launch_counts()
         got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
-                                               debug=debug, cluster=C)
+                                               debug=debug, cluster=C,
+                                               columns=G)
         assert stk.LAUNCHES == {"stream_fwd": 1, "stream_bwd": 1}
         ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
         if not debug:
             ref = fk._frame0_traces(ref)
         _assert_loss_close(got, ref)
         again = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
-                                                 debug=debug, cluster=C)
+                                                 debug=debug, cluster=C,
+                                                 columns=G)
         assert torch.equal(again.gamma, got.gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [1, 2, 8])
+    @pytest.mark.parametrize("mode,want", MODES)
+    def test_cuda_stream_gamma_is_the_same_at_every_g(self, cuda, mode,
+                                                      want, C):
+        """A column's arithmetic does not depend on the columns beside it:
+        at one C, gamma and the traces are bit-identical for G = 1, 2, 4."""
+        fa, px, lens = _stream_case(mode)
+        fa, px, lens = fa.to(cuda), px.to(cuda), lens.to(cuda)
+        res = [stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                                cluster=C, columns=G)
+               for G in (1, 2, 4)]
+        for r in res[1:]:
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                assert torch.equal(getattr(r, name), getattr(res[0], name))
 
 
 # ----------------------------------------------------------------------

@@ -2,9 +2,9 @@
 
 Checked two ways: importing pychain_tpu_torch in a fresh interpreter
 leaves no ``jax`` or ``pychain_tpu`` module loaded, and no source file
-of the port (nor chip_smoke.py, nor tests/test_torch_card.py, which runs
-on a card machine without JAX) names either in an import statement or as
-a name.
+of the port (nor chip_smoke.py, kernel_ablation.py or
+tests/test_torch_card.py, which run on a card machine without JAX) names
+either in an import statement or as a name.
 Module names are compared whole: ``pychain_tpu`` is a prefix of
 ``pychain_tpu_torch``.
 """
@@ -56,7 +56,8 @@ def _imports(path: Path):
 
 
 SOURCES = sorted((ROOT / "pychain_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_card.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ablation.py",
+    ROOT / "tests" / "test_torch_card.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -132,36 +132,43 @@ def test_chain_loss_forced_stream_matches_jax():
 # Emulation of the cluster kernels on the arrays they read
 # ----------------------------------------------------------------------
 
-def _case(mode, B=4, T=9, seed=2, num_phones=150):
+def _case(mode, B=5, T=9, seed=2, num_phones=150):
     """S = 300, S_pad = 384: 12 slices of 32 rows, so with C = 8 ranks
     0-3 own two slices and ranks 4-7 one (num_phones=10, S_pad = 128:
-    ranks 4-7 own none)."""
+    ranks 4-7 own none).  B = 5 columns of unequal lengths: no G > 1
+    divides B, and a group mixes lengths."""
     fst, P = denominator_fst(num_phones=num_phones, states_per_phone=2,
                              seed=seed, forward_pdf_mode=mode)
     rng = np.random.RandomState(seed)
     x = rng.randn(B, T, P).astype(np.float32)
-    lengths = np.array([T, T - 2, 3, 1][:B], np.int32)
+    lengths = np.array([T, T - 2, 3, 1, T - 4][:B], np.int32)
     fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, device="cpu")._fact
     return fa, torch.exp(torch.from_numpy(x)), torch.from_numpy(lengths)
 
 
-def _csr_mv(sell, v):
-    """A sliced-ELL operator (fact_kernels._sell) times v."""
+def _entries(sell):
+    """(row, col, val) of every entry of a sliced-ELL operator
+    (fact_kernels._sell), padding included."""
     sptr, col, val = sell
     slen = (sptr[1:] - sptr[:-1]).long()
-    entries = torch.arange(len(col))
+    k = torch.arange(len(col))
     row = (torch.repeat_interleave(torch.arange(len(slen)), slen * fk.SLICE)
-           * fk.SLICE + entries % fk.SLICE)
-    return torch.zeros(len(slen) * fk.SLICE).index_add_(
-        0, row, val * v[col.long()])
+           * fk.SLICE + k % fk.SLICE)
+    return row, col.long(), val
+
+
+def _mv(sell, V):
+    """A sliced-ELL operator times the G columns of V (S_pad, G)."""
+    row, col, val = _entries(sell)
+    return torch.zeros(V.shape).index_add_(0, row, val[:, None] * V[col])
 
 
 class _Cluster:
-    """The CTAs of one column's cluster: CTA r owns the 32-row slices
-    k = r (mod C), its rows' values at local rows (a (C, R) tensor per
-    vector) and whole copies of the vectors its products gather (a
-    (C, S_pad) tensor, its peers' rows copied in after each barrier); a
-    packed id reads its owner's local row."""
+    """The CTAs of one cluster: CTA r owns the 32-row slices k = r (mod C)
+    in all G columns of its group, its rows' values at local rows (a
+    (C, R, G) tensor per vector) and whole copies of the vector its W1
+    (W1^T) product gathers (a (C, S_pad, G) tensor); a state is read from
+    its owner's local row."""
 
     def __init__(self, fa, C):
         self.C, self.R = C, sk.rows_per_cta(fa.s_pad, C)
@@ -172,70 +179,106 @@ class _Cluster:
         self.n = [len(o) for o in self.own]
         assert sorted(torch.cat(self.own).tolist()) == list(range(fa.s_pad))
         assert max(self.n) == self.R
+        s = torch.arange(fa.s_pad)
+        self.owner = s // fk.SLICE % C
+        self.local = s // fk.SLICE // C * fk.SLICE + s % fk.SLICE
 
-    def local(self):
-        return torch.zeros(self.C, self.R)
+    def at(self, V, states):
+        """V (C, R, G) at the given states, each from its owner."""
+        return V[self.owner[states], self.local[states]]
 
     def load(self, V, packed):
         packed = packed.long()
         return V[packed >> sk.LOCAL_BITS, packed & ((1 << sk.LOCAL_BITS) - 1)]
 
     def gather(self, W):
-        """cluster_gather: every CTA's copy takes each row from its owner."""
+        """cluster_gather_cols: every CTA's copy takes each row from its
+        owner."""
         for r in range(self.C):
             W[:, self.own[r]] = W[r, self.own[r]]
 
-    def rank_sum(self, parts):
-        total = torch.zeros(())
-        for p in parts:                # rank order, from 0
-            total = total + p
+    def rank_sum(self, slots):
+        """cluster_rank_sum: the CTAs' slots (C, NV) added in rank order."""
+        total = torch.zeros(slots.shape[1:])
+        for q in range(self.C):
+            total = total + slots[q]
         return total
 
 
-def _emulate_cluster(px, lengths, fa, c, C, debug):
-    """csrc/stream_fwd.cu and csrc/stream_bwd.cu, one column at a time,
-    one CTA at a time between barriers."""
-    cl = _Cluster(fa, C)
+def _groups(lengths, B, G):
+    """Each group of G columns: (b0, the columns' rows into (B, ...)
+    arrays, clamped for columns past B, each column's length, 0 past B)."""
+    for b0 in range(0, B, G):
+        cols = [min(b0 + g, B - 1) for g in range(G)]
+        Tb = [int(lengths[b0 + g]) if b0 + g < B else 0 for g in range(G)]
+        yield b0, cols, Tb
+
+
+def _emulate_fwd(px, lengths, fa, c, C, G, cl):
+    """csrc/stream_fwd.cu: one group at a time, one CTA at a time between
+    barriers."""
     kg = cl.kg
     B, T, P = px.shape
     s_pad = fa.s_pad
     f = kg.f_dst.long()
-    g = None if kg.g_src is None else kg.g_src.long()
+    g_src = None if kg.g_src is None else kg.g_src.long()
+    w2_row, w2_col, w2_val = _entries(kg.w2)
+    w2_pdf = sk.w2_source_pdfs(kg).long()
+    leaky = fa.leaky[:, None]
     s0 = fa.initial.sum()
     ad0 = fa.initial + c * s0 * fa.leaky
+    nbuf = 2 if C > 1 else 1
     s_ys = torch.ones(B, T)
     ad_last = torch.zeros(B, s_pad)
     streams = torch.zeros(4, B, T, s_pad)   # ad, w1ad, xdst, xsrc
-    for b in range(B):
-        ad = ad0.expand(C, s_pad).clone()
-        u, xd = torch.zeros(C, s_pad), cl.local()
-        s_prev = s0
-        for t in range(int(lengths[b])):
+    for b0, cols, Tb in _groups(lengths, B, G):
+        ad = ad0[None, :, None].repeat(C, 1, G)      # every CTA's copy
+        A = torch.zeros(C, nbuf, cl.R, G)            # alpha on own rows
+        slot = torch.zeros(C, 2, G)
+        s_prev = s0.repeat(G)
+        for t in range(max(Tb) + 1):
+            if t > 0:
+                par = (t - 1) % 2
+                s_t = cl.rank_sum(slot[:, par])
+                new = cl.at(A[:, par % nbuf], torch.arange(s_pad)) \
+                    + c * s_t * leaky
+                for g in range(G):
+                    if t - 1 < Tb[g]:
+                        streams[0, b0 + g, t - 1] = new[:, g]
+                        s_ys[b0 + g, t - 1] = s_t[g]
+                        s_prev[g] = s_t[g]
+                    if t == Tb[g]:
+                        ad_last[b0 + g] = new[:, g]
+                if t == max(Tb):
+                    break
+                ad[:] = new
+            px_t = px[cols, t].t()                     # (P, G)
             for r, own in enumerate(cl.own):
-                x = px[b, t, f[own]]
-                xs = x if g is None else px[b, t, g[own]]
-                xd[r, :cl.n[r]] = x
-                u[r, own] = xs * ad[r, own]
-                streams[2, b, t, own] = x
-                streams[3, b, t, own] = xs
-            cl.gather(ad)
-            cl.gather(u)
-            a, parts = cl.local(), []
-            for r, own in enumerate(cl.own):
-                w1a = _csr_mv(kg.w1, ad[r])[own]
-                a[r, :cl.n[r]] = (xd[r, :cl.n[r]] * w1a
-                                  + _csr_mv(kg.w2, u[r])[own]) / s_prev
-                streams[1, b, t, own] = w1a
-                parts.append(a[r, :cl.n[r]].sum())
-            s_t = cl.rank_sum(parts)
-            for r, own in enumerate(cl.own):
-                ad[r, own] = a[r, :cl.n[r]] + c * s_t * fa.leaky[own]
-                streams[0, b, t, own] = ad[r, own]
-            s_ys[b, t] = s_t
-            s_prev = s_t
-        ad_last[b] = streams[0, b, int(lengths[b]) - 1]
-    objf, tot = fk._objf(s_ys, ad_last, lengths, fa, s0.reshape(1))
+                x = px_t[f[own]]
+                xs = x if g_src is None else px_t[g_src[own]]
+                w1a = _mv(kg.w1, ad[r])[own]
+                u = px_t[w2_pdf] * ad[r][w2_col]
+                w2u = torch.zeros(s_pad, G).index_add_(
+                    0, w2_row, w2_val[:, None] * u)[own]
+                al = (x * w1a + w2u) / s_prev
+                A[r, (t % 2) % nbuf, :cl.n[r]] = al
+                for g in range(G):
+                    if t < Tb[g]:
+                        streams[1:, b0 + g, t, own] = torch.stack(
+                            [w1a[:, g], x[:, g], xs[:, g]])
+                slot[r, t % 2] = al.sum(0)
+    return streams, s_ys, ad_last, ad0, s0
 
+
+def _emulate_bwd(lengths, fa, c, C, G, cl, streams, s_ys, ad0, s0, tot, P,
+                 debug):
+    """csrc/stream_bwd.cu: one group at a time, one CTA at a time between
+    barriers; b and the carry in a by-state array every CTA reads."""
+    kg = cl.kg
+    B, T = s_ys.shape
+    s_pad = fa.s_pad
+    identity = kg.g_src is None
+    w2t_row, w2t_col, w2t_val = _entries(kg.w2t)
     p_per = -(-P // C)
     owned = [(min(P, r * p_per), min(P, r * p_per + p_per))
              for r in range(C)]
@@ -245,82 +288,109 @@ def _emulate_cluster(px, lengths, fa, c, C, debug):
         ptr, states = (t.long() for t in lists)
         pdf = torch.repeat_interleave(torch.arange(len(ptr) - 1),
                                       ptr[1:] - ptr[:-1])
-        return torch.zeros(len(ptr) - 1).index_add_(0, pdf,
-                                                    cl.load(V, states))
+        return torch.zeros(len(ptr) - 1, V.shape[2]).index_add_(
+            0, pdf, cl.load(V, states))
 
     gamma = torch.zeros(B, T, P)
     ab = torch.full((B, T), 0.0 if debug else 1.0)
     gs = ab.clone()
-    for b in range(B):
-        Tb = int(lengths[b])
-        bd = cl.local()
-        inj = []
+    ad_ys, w1ad_ys, xdst_ys, xsrc_ys = streams
+    for b0, cols, Tb in _groups(lengths, B, G):
+        tot_g = torch.stack([tot[b0 + g] if b0 + g < B else torch.ones(())
+                             for g in range(G)])
+        c1, c2 = torch.zeros(C, cl.R, G), torch.zeros(C, cl.R, G)
+        xb = torch.zeros(C, s_pad, G)
+        # b and the beta' carry by state, in device memory
+        bn, bd = torch.zeros(s_pad, G), torch.zeros(s_pad, G)
+        slot_la, slot_gs = torch.zeros(C, 2 * G), torch.zeros(C, G)
         for r, own in enumerate(cl.own):
-            v = fa.final[own] / tot[b]
-            bd[r, :cl.n[r]] = v
-            inj.append((v * fa.leaky[own]).sum())
-        leak_sum = cl.rank_sum(inj)
-        for u_ in range(Tb - 1, -1, -1):
-            s_u = s0 if u_ == 0 else s_ys[b, u_ - 1]
-            ad_u = ad0 if u_ == 0 else streams[0, b, u_ - 1]
-            _, w1ad, xdst, xsrc = streams[:, b, u_]
-            bn, xb = torch.zeros(C, s_pad), torch.zeros(C, s_pad)
+            bd[own] = fa.final[own][:, None] / tot_g
+            slot_la[r, :G] = (bd[own] * fa.leaky[own][:, None]).sum(0)
+        leak = cl.rank_sum(slot_la[:, :G])
+        for u in range(max(Tb) - 1, -1, -1):
+            active = torch.tensor([u < tb for tb in Tb])
             for r, own in enumerate(cl.own):
-                bn[r, own] = bd[r, :cl.n[r]] + c * leak_sum
-                xb[r, own] = xdst[own] * bn[r, own]
-            cl.gather(bn)
+                bn[own] = bd[own] + c * leak
+                xb[r, own] = xdst_ys[cols, u][:, own].t() * bn[own]
+            # X1
+            if u + 1 < max(Tb):
+                s = cl.rank_sum(slot_gs)
+                for g in range(G):
+                    if u + 1 < Tb[g]:
+                        gs[b0 + g, u + 1] = s[g] if debug else 1.0
             cl.gather(xb)
-            c1, c2 = cl.local(), cl.local()
-            p_leak, p_ab = [], []
+            traces = debug or u == 0
+            s_u = s0.repeat(G) if u == 0 else s_ys[cols, u - 1]
             for r, own in enumerate(cl.own):
                 n = cl.n[r]
-                w1t = _csr_mv(kg.w1t, xb[r])[own]
-                sw = xsrc[own] * _csr_mv(kg.w2t, bn[r])[own]
+                w1t = _mv(kg.w1t, xb[r])[own]
+                w2t = torch.zeros(s_pad, G).index_add_(
+                    0, w2t_row, w2t_val[:, None] * bn[w2t_col])[own]
+                xs = (xdst_ys if identity else xsrc_ys)[cols, u][:, own].t()
+                sw = xs * w2t
                 bdt = (w1t + sw) / s_u
-                m1 = xb[r, own] * w1ad[own] / s_u
-                m2 = sw * ad_u[own] / s_u
-                if g is None:
-                    c1[r, :n] = m1 + m2
-                else:
-                    c1[r, :n], c2[r, :n] = m1, m2
-                bd[r, :n] = bdt
-                p_leak.append((bdt * fa.leaky[own]).sum())
-                p_ab.append((ad_u[own] * bdt).sum())
-            gp = torch.zeros(P)
+                adu = (ad0[own][:, None] if u == 0
+                       else ad_ys[cols, u - 1][:, own].t())
+                m1 = xb[r, own] * w1ad_ys[cols, u][:, own].t() / s_u
+                m2 = sw * adu / s_u
+                c1[r, :n] = m1 + m2 if identity else m1
+                c2[r, :n] = m2
+                bd[own] = torch.where(active, bdt, bd[own])
+                slot_la[r, :G] = (bdt * fa.leaky[own][:, None]).sum(0)
+                slot_la[r, G:] = (adu * bdt).sum(0) if traces else 0.0
+            # X2
+            tot2 = cl.rank_sum(slot_la)
+            leak = torch.where(active, tot2[:G], leak)
+            gp = torch.zeros(P, G)
             gp[:n_lists] = pdf_sums(kg.f_lists, c1)[:n_lists]
-            if g is not None:
+            if not identity:
                 gp[:n_lists] += pdf_sums(kg.g_lists, c2)[:n_lists]
-            p_gs = []
-            for p0, p1 in owned:
-                gamma[b, u_, p0:p1] = gp[p0:p1]
-                p_gs.append(gp[p0:p1].sum())
-            leak_sum = cl.rank_sum(p_leak)
-            if debug or u_ == 0:
-                ab[b, u_] = cl.rank_sum(p_ab)
-                gs[b, u_] = cl.rank_sum(p_gs)
-            else:
-                ab[b, u_] = gs[b, u_] = 1.0
+            for g in range(G):
+                if u < Tb[g]:
+                    ab[b0 + g, u] = tot2[G + g] if traces else 1.0
+                    gamma[b0 + g, u] = gp[:, g]
+            for r, (p0, p1) in enumerate(owned):
+                slot_gs[r] = gp[p0:p1].sum(0) if traces else 0.0
+        s = cl.rank_sum(slot_gs)
+        for g in range(G):
+            if b0 + g < B:
+                gs[b0 + g, 0] = s[g]
+    return gamma, ab, gs
+
+
+def _emulate_cluster(px, lengths, fa, c, C, G, debug):
+    cl = _Cluster(fa, C)
+    streams, s_ys, ad_last, ad0, s0 = _emulate_fwd(px, lengths, fa, c, C,
+                                                   G, cl)
+    objf, tot = fk._objf(s_ys, ad_last, lengths, fa, s0.reshape(1))
+    gamma, ab, gs = _emulate_bwd(lengths, fa, c, C, G, cl, streams, s_ys,
+                                 ad0, s0, tot, px.shape[2], debug)
     return objf, gamma, ab, gs
 
 
+@pytest.mark.parametrize("G", sk.COLUMNS)
 @pytest.mark.parametrize("C", sk.CLUSTERS)
 @pytest.mark.parametrize("mode,want", MODES)
-def test_cluster_emulation_matches_plain(mode, want, C):
+def test_cluster_emulation_matches_plain(mode, want, C, G):
     fa, px, lens = _case(mode)
     assert fa.xsrc_mode == want
-    _check_emulation(fa, px, lens, C)
+    assert all(sk.fits(fa, k, C, G) for k in sk.LAUNCHES)
+    _check_emulation(fa, px, lens, C, G, debug=C % 2 == 1 or G == 2)
 
 
-def test_cluster_emulation_with_idle_ranks():
+@pytest.mark.parametrize("G", sk.COLUMNS)
+def test_cluster_emulation_with_idle_ranks(G):
     fa, px, lens = _case("separate", num_phones=10)
     assert fa.s_pad == 128        # 4 slices: ranks 4-7 of 8 own no rows
-    _check_emulation(fa, px, lens, 8)
+    _check_emulation(fa, px, lens, 8, G, debug=True)
 
 
-def _check_emulation(fa, px, lens, C):
+def _check_emulation(fa, px, lens, C, G, debug):
     ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
-    objf, gamma, ab, gs = _emulate_cluster(px, lens, fa, LEAKY, C,
-                                           debug=True)
+    if not debug:
+        ref = fk._frame0_traces(ref)
+    objf, gamma, ab, gs = _emulate_cluster(px, lens, fa, LEAKY, C, G,
+                                           debug=debug)
     torch.testing.assert_close(objf, ref.objf, rtol=1e-5, atol=0)
     torch.testing.assert_close(gamma, ref.gamma, rtol=0, atol=1e-5)
     torch.testing.assert_close(ab, ref.alpha_beta, rtol=0, atol=1e-5)
@@ -408,26 +478,96 @@ def test_dispatch_tiering(monkeypatch):
         assert engine(g) == forced and engine(g, "factorized") == "xla"
 
 
+# An H100 SXM as torch.cuda.get_device_properties reports it (the fields
+# plan() reads).
+H100 = types.SimpleNamespace(
+    multi_processor_count=132, shared_memory_per_block_optin=232448,
+    shared_memory_per_multiprocessor=233472,
+    max_threads_per_multi_processor=2048, regs_per_multiprocessor=65536)
+
+
+def _shape(s_pad, xsrc_mode):
+    """A graph's sizes alone, as the tiering and the plan read them."""
+    return types.SimpleNamespace(s_pad=s_pad, xsrc_mode=xsrc_mode,
+                                 res_src=torch.zeros(0))
+
+
+MAIN4 = _shape(12032, "stream")
+S8K = _shape(8064, "identity")
+HEADLINE = _shape(3072, "identity")
+
+
 def test_tiers_of_the_repo_graphs_by_arithmetic():
     """Main path 4's graph (denominator_fst(6000, 2, num_pdfs=3000,
     bigram_fanout=30, forward_pdf_mode="separate"): S = 12,000, S_pad =
-    12,032, x_src "stream") is past the resident kernels and runs on a
-    cluster of 2; bench.py --s8k's (S = 8,000 "source", S_pad = 8,064)
-    fits them; a cluster of 8 CTAs ends at S_pad 24,320."""
-    main4 = types.SimpleNamespace(s_pad=12032, xsrc_mode="stream")
-    assert fk.smem_bytes(main4) == {"fact_fwd": 192644, "fact_bwd": 241036}
-    assert not fk.fits_on_chip(main4)
-    assert sk.cluster_size(main4) == 2
-    assert sk.rows_per_cta(12032, 2) == 6016
-    assert sk.smem_bytes(main4, 2) == {
-        "stream_fwd": (2 * 12032 + 2 * 6016 + 34) * 4,
-        "stream_bwd": (2 * 12032 + 3 * 6016 + 102) * 4}
-    s8k = types.SimpleNamespace(s_pad=8064, xsrc_mode="identity")
-    assert fk.fits_on_chip(s8k) and sk.cluster_size(s8k) == 1
-    edge = lambda s_pad: types.SimpleNamespace(s_pad=s_pad,
-                                               xsrc_mode="stream")
-    assert sk.cluster_size(edge(24320)) == 8
-    assert sk.cluster_size(edge(24448)) is None
+    12,032, x_src "stream") is past the resident kernels and on the
+    cluster tier; bench.py --s8k's (S = 8,000 "source", S_pad = 8,064)
+    fits them.  The cluster tier ends where no C fits one column a CTA:
+    at C = 8 past S_pad 46,368 (x_src "stream": stream_bwd's limit; 46,400
+    in identity mode: stream_fwd's)."""
+    assert fk.smem_bytes(MAIN4) == {"fact_fwd": 192644, "fact_bwd": 241036}
+    assert not fk.fits_on_chip(MAIN4) and sk.fits_stream(MAIN4)
+    assert fk.fits_on_chip(S8K)
+    edge = lambda s_pad: _shape(s_pad, "stream")
+    assert sk.fits_stream(edge(46368)) and not sk.fits_stream(edge(46400))
+    assert not sk.fits(edge(46400), "stream_bwd", 8, 1)
+    assert sk.fits(edge(46400), "stream_fwd", 8, 1)
+    assert sk.fits_stream(_shape(46400, "identity"))
+    assert not sk.fits(_shape(46432, "identity"), "stream_fwd", 8, 1)
+    assert sk.fits(_shape(46432, "identity"), "stream_bwd", 8, 1)
+
+
+@pytest.mark.parametrize("C,G", [(1, 1), (2, 1), (2, 2), (4, 2), (8, 4)])
+def test_smem_formulas_by_arithmetic(C, G):
+    """The per-CTA shared memory at main path 4: stream_fwd keeps alpha'
+    whole and alpha on its rows (two buffers by parity when C > 1),
+    stream_bwd x_dst * b whole and c1, c2 on its rows (no c2 in identity
+    mode; b and the beta' carry live in device memory), each for G
+    columns, plus the reductions' scratch."""
+    R = sk.rows_per_cta(12032, C)
+    assert R == 12032 // C
+    nbuf = 1 if C == 1 else 2
+    got = sk.smem_bytes(MAIN4, C, G)
+    assert got == {"stream_fwd": 4 * G * (12032 + nbuf * R + 32 + 3),
+                   "stream_bwd": 4 * G * (12032 + 2 * R + 64 + 5)}
+    ident = sk.smem_bytes(S8K, C, G)["stream_bwd"]
+    assert ident == 4 * G * (8064 + sk.rows_per_cta(8064, C) + 64 + 5)
+    for name, size in got.items():
+        assert sk.fits(MAIN4, name, C, G) == (size <= fk.MAX_SMEM)
+
+
+@pytest.mark.parametrize("graph,B,fwd,bwd", [
+    (MAIN4, 128, (2, 2, 128, 1), (2, 2, 128, 1)),
+    (S8K, 64, (2, 1, 128, 1), (2, 1, 128, 1)),
+    (HEADLINE, 128, (2, 2, 128, 1), (2, 2, 128, 1))])
+def test_plan_rule_on_the_repo_shapes(graph, B, fwd, bwd):
+    """plan() on an H100: one 1024-thread CTA an SM (64 registers a
+    thread), so each plan's cost is waves x the busiest SM's work a frame,
+    R (G + GRAPH_ROW) for its rows plus COPY_FLOAT a float copied from its
+    peers; (C, G, CTAs, waves) of the cheapest, ties to the smaller C,
+    then the larger G."""
+    got = sk.plan(graph, B, H100)
+    for name, want in (("stream_fwd", fwd), ("stream_bwd", bwd)):
+        p = got[name]
+        assert (p.cluster, p.columns, p.ctas, p.waves) == want, name
+        assert p.ctas_per_sm == 1 and p.threads == 1024
+        assert p.smem == sk.smem_bytes(graph, p.cluster, p.columns)[name]
+        for q in sk.candidates(graph, name, B, H100):
+            assert (p.cost, p.cluster, -p.columns) <= \
+                (q.cost, q.cluster, -q.columns)
+
+
+def test_plan_cost_by_hand():
+    """Main path 4's stream_fwd at C = 2, G = 2: 128 CTAs of 6,016 rows,
+    one wave, a frame (6,016 x 3 + 0.25 x 12,032 x 2 / 2) = 21,056; at
+    C = 2, G = 1 two waves of 256 CTAs, 2 x (6,016 x 2 + 1,504)."""
+    fwd = functools.partial(sk.plan_kernel, MAIN4, "stream_fwd")
+    p = fwd(128, H100, cluster=2, columns=2)
+    assert p.cost == 6016 * 3 + 0.25 * 12032 * 2 / 2 == 21056
+    q = fwd(128, H100, cluster=2, columns=1)
+    assert q.waves == 2 and q.cost == 2 * (6016 * 2 + 1504)
+    # B not a multiple of G: the last cluster serves fewer columns
+    assert fwd(5, H100, cluster=4, columns=2).ctas == 12
 
 
 def test_card_budget_admits_full_mode(monkeypatch):
@@ -454,7 +594,16 @@ def test_card_budget_admits_full_mode(monkeypatch):
 
 
 def test_forced_cluster_size_past_the_limit_raises():
-    fa, _, _ = _case("separate")
+    """cluster= / columns= restrict the plan; a (C, G) that does not fit
+    the card, or is not compiled, raises."""
     with pytest.raises(NotImplementedError, match="cluster 3"):
-        sk._cluster(fa, 3)
-    assert sk._cluster(fa, None) == 1 and sk._cluster(fa, 8) == 8
+        sk.plan(MAIN4, 128, H100, cluster=3)
+    with pytest.raises(NotImplementedError, match="stream_fwd"):
+        sk.plan(MAIN4, 128, H100, cluster=1, columns=4)   # 385,584 bytes
+    with pytest.raises(NotImplementedError, match="columns 3"):
+        sk.plan(MAIN4, 128, H100, columns=3)
+    p = sk.plan(MAIN4, 128, H100, cluster=8)
+    assert p["stream_fwd"].cluster == p["stream_bwd"].cluster == 8
+    fa, _, _ = _case("separate")
+    assert sk.plan(fa, 5, H100, cluster=1, columns=4)[
+        "stream_bwd"].columns == 4
