@@ -19,7 +19,10 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    PyTorch version on the card: small graphs in the three x_src modes
    with unequal lengths and debug True/False, then the headline graph
    (bench.py's: denominator_fst(1500, 2, bigram_fanout=30), S=3000,
-   K=49.5k, P=3000) at B=128, T=500, with the kernels' and the plain
+   K=49.5k, P=3000) at B=128, T=500: the gather wavefronts a frame of
+   each operator in ascending and in B1/B2's bank order (at most 1.6 a
+   slot-warp for W1 and W1^T), fact_bwd's ring depth (two stages here),
+   gamma bit-identical on a rerun, with the kernels' and the plain
    version's times, and the cluster kernels' (phase 11) at their plans
    and at C=2, G=1;
 4. the semiring kernels (semiring_fwd, semiring_bwd) against their plain
@@ -73,7 +76,11 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    engine="stream": the plans (C, G, CTAs, active clusters, waves,
    shared memory), against the plain version and against B1/B2 on the
    same inputs, with both pairs' times and the cluster pair's at every
-   plan that fits;
+   plan that fits; B1/B2 themselves against the plain version there (one
+   ring stage) and on an identity graph past one stage
+   (denominator_fst(6000, 2, bigram_fanout=4), S_pad 12,032, no ring:
+   the rows read from device memory) at B=6, T=40, gamma bit-identical
+   on a rerun;
 12. main path 4: ChainLoss over the 12k-state Kaldi-topology denominator
    (denominator_fst(6000, 2, num_pdfs=3000, bigram_fanout=30,
    forward_pdf_mode="separate"): S=12,000, K=198,000, P=6,000, past one
@@ -370,6 +377,69 @@ def fact_bytes_ops(fa, kg, lens, T, P):
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
+def resident_layout(fa, kg, label):
+    """B1/B2's operators for this graph (fact_kernels.bank_order): each
+    one's shared-memory gather wavefronts a frame in the ascending order
+    (the cluster kernels') and in B1/B2's bank order, and each kernel's
+    ring depth (fact_fwd has none).  Returns ({op: (slot-warps, ascending,
+    bank order)}, fact_bwd's ring depth)."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    out = {}
+    for name, op in zip(("w1", "w2", "w1t", "w2t"), kg.resident):
+        asc = fk.gather_wavefronts(getattr(kg, name))
+        banked = fk.gather_wavefronts(op)
+        check(len(asc) == len(banked), f"{label} {name}: slot counts differ")
+        out[name] = (len(asc), int(asc.sum()), int(banked.sum()))
+    stages = fk.ring_stages(fa)
+    print(f"# {label}: gather wavefronts a frame, ascending -> bank order "
+          "(slot-warps; a slot-warp each): " + ", ".join(
+              f"{k} {a} -> {b} ({n}; {a / max(n, 1):.3f} -> "
+              f"{b / max(n, 1):.3f})" for k, (n, a, b) in out.items())
+          + f"; ring depth: fact_fwd none, fact_bwd {stages} stage(s), "
+          f"smem {fk.smem_bytes(fa)}", flush=True)
+    return out, stages
+
+
+def resident_rerun(fa, px, lens, leaky_c, label):
+    """B1/B2 twice on the same inputs: gamma bit-identical."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    g1 = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c).gamma
+    g2 = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c).gamma
+    torch.cuda.synchronize()
+    check(torch.equal(g1, g2), f"{label}: two runs of B1/B2 give "
+          "different gamma")
+    print(f"# {label}: B1/B2 gamma bit-identical over two runs", flush=True)
+
+
+def ringless_class(dev, leaky_c):
+    """B1/B2 on an identity graph past one ring stage (S_pad 12,032:
+    fact_bwd reads its stream rows from device memory, ring depth 0)
+    against the plain version, at B=6, T=40 with lengths T, T-2, 3, 1, 17,
+    T-1; bigram fanout 4 keeps the host's bank-order search short."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    t0 = time.perf_counter()
+    fst, P = denominator_fst(num_phones=6000, states_per_phone=2, seed=0,
+                             bigram_fanout=4)
+    fa = ChainGraphBatch(ChainGraph(fst), 6, device=dev)._fact
+    kg = fk.graph_for(fa)
+    print(f"# ringless graph: S_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode} "
+          f"nnz={kg.nnz}; built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _, stages = resident_layout(fa, kg, "ringless graph")
+    check(stages == 0 and fk.fits_on_chip(fa),
+          f"ringless graph: ring depth {stages}, fits {fk.fits_on_chip(fa)}")
+    T = 40
+    g = torch.Generator(device=dev).manual_seed(13)
+    px = torch.exp(torch.randn(6, T, P, generator=g, device=dev))
+    lens = torch.tensor([T, T - 2, 3, 1, 17, T - 1], device=dev)
+    errs = worst(compare(fa, px, lens, leaky_c, debug, "ringless B1/B2")
+                 for debug in (False, True))
+    resident_rerun(fa, px, lens, leaky_c, "ringless graph")
+    return errs
+
+
 def check_smem():
     """Each kernel's shared memory in Python equals its source's."""
     import ctypes
@@ -386,9 +456,12 @@ def check_smem():
                         (384, "matrix"), (24320, "identity")):
         fa = types.SimpleNamespace(s_pad=s_pad, xsrc_mode=mode)
         identity = int(mode == "identity")
-        got = fk.smem_bytes(fa)
-        want = {"fact_fwd": c_size("fact_fwd", s_pad),
-                "fact_bwd": c_size("fact_bwd", s_pad, identity)}
+        got = {f"fact_bwd stages={k}": fk.smem_bytes(fa, k)["fact_bwd"]
+               for k in (0, 1, 2)}
+        got["fact_fwd"] = fk.smem_bytes(fa)["fact_fwd"]
+        want = {f"fact_bwd stages={k}": c_size("fact_bwd", s_pad, identity,
+                                               k) for k in (0, 1, 2)}
+        want["fact_fwd"] = c_size("fact_fwd", s_pad)
         for C in stk.CLUSTERS:
             rows = stk.rows_per_cta(s_pad, C)
             for G in stk.COLUMNS:
@@ -414,8 +487,8 @@ def check_smem():
             check(py == c, f"xl_mxu smem S_pad={S} K_pad={K} split={split}: "
                   f"Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
-          "(fact_*, stream_* at C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, "
-          "xl_mxu)", flush=True)
+          "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, stream_* at "
+          "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu)", flush=True)
 
 
 def card_tests():
@@ -503,6 +576,8 @@ def s8k_class(dev, leaky_c):
           f"s_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode} nnz={kg.nnz}; "
           f"engine={fa.engine}; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _, stages = resident_layout(fa, kg, "s8k")
+    check(stages == 1, f"s8k: fact_bwd ring {stages} != 1")
     plans = stream_plans(fa, B, "s8k")
     gx = torch.Generator(device=dev).manual_seed(12)
     px = torch.exp(torch.randn(B, T, P, generator=gx, device=dev))
@@ -511,6 +586,10 @@ def s8k_class(dev, leaky_c):
                          stk.forward_backward_prob_stream)
                  for debug in (False, True))
     a_err = alpha_err(fa, px, lens, leaky_c, "s8k", stk.stream_fwd)
+    # B1/B2 themselves (one ring stage here) against the plain version
+    errs_b12 = worst(compare(fa, px, lens, leaky_c, debug, "s8k B1/B2")
+                     for debug in (False, True))
+    alpha_err(fa, px, lens, leaky_c, "s8k B1")
     got = stk.forward_backward_prob_stream(px, lens, fa, leaky_c)
     res = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c)
     vs_b12 = {"objf_rel": rel(got.objf, res.objf),
@@ -529,7 +608,8 @@ def s8k_class(dev, leaky_c):
           f"{times[1]:.3f} ms (plans above); fact_fwd {fact_ms[0]:.3f} ms, "
           f"fact_bwd {fact_ms[1]:.3f} ms; plain fwd {times[2]:.1f} ms, "
           f"plain bwd {times[3]:.1f} ms", flush=True)
-    return errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans
+    return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
+            errs_b12, fact_ms)
 
 
 def main_path_4(dev, leaky_c, counters):
@@ -1295,12 +1375,19 @@ def main():
           f"xsrc_mode={fa.xsrc_mode} nnz(W1+W2)={kg.nnz} "
           f"smem={fk.smem_bytes(fa)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    head_wf, head_stages = resident_layout(fa, kg, "headline graph")
+    for name in ("w1", "w1t"):
+        n, _, banked = head_wf[name]
+        check(banked <= 1.6 * n, f"headline {name}: {banked / n:.3f} gather "
+              "wavefronts a slot-warp in bank order (at most 1.6)")
+    check(head_stages == 2, f"headline: fact_bwd ring {head_stages} != 2")
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(B, T, P, generator=g, device=dev)
     px = torch.exp(x)
     lens = torch.full((B,), T, device=dev)
     head = compare(fa, px, lens, leaky_c, False, "headline")
     head_ad, _ = alpha_err(fa, px, lens, leaky_c, "headline")
+    resident_rerun(fa, px, lens, leaky_c, "headline")
 
     # times: each kernel alone, and the plain version of each sweep; the
     # cluster kernels at their plans, at C=2, G=1 and at every plan, for
@@ -1468,7 +1555,10 @@ def main():
 
     # -- phase 11: the cluster kernels, small graphs and the s8k class ---
     errs_stream_small = stream_small(dev, leaky_c)
-    stream_classes = {"s8k": s8k_class(dev, leaky_c)}
+    s8k = s8k_class(dev, leaky_c)
+    stream_classes = {"s8k": s8k[:5]}
+    s8k_b12_errs, s8k_fact_ms = s8k[5:]
+    errs_ringless = ringless_class(dev, leaky_c)
     torch.cuda.empty_cache()
 
     # -- phase 12: main path 4, the 12k-state Kaldi-topology denominator -
@@ -1490,7 +1580,7 @@ def main():
              max(head["gamma_abs"], head["alpha_beta_abs"],
                  head["gamma_sum_abs"]), "_bwd_kernel_factory")):
         bms, by = bound(nbytes, ops)
-        line = {"fact_fwd": 213, "fact_bwd": 475}[name]
+        line = {"fact_fwd": 457, "fact_bwd": 768}[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"pychain_tpu_torch/csrc/{name}.cu",
@@ -1499,6 +1589,8 @@ def main():
             "launches": launches[name], "max_abs_err": err, "max_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "bytes": nbytes, "ops": ops,
+            "ring_stages": head_stages if name == "fact_bwd" else 0,
+            "s8k_ms": s8k_fact_ms[0 if name == "fact_fwd" else 1],
             "library_ms": None})
     for cls, res in classes.items():
         for i, side in enumerate(("fwd", "bwd")):
@@ -1579,6 +1671,8 @@ def main():
     print(f"# small-batch worst errors (semiring): {worst(errs_sr_small)}")
     print(f"# small-graph worst errors (cluster kernels): "
           f"{worst(errs_stream_small)}")
+    print(f"# B1/B2 worst errors at ring depth 1 (s8k): {s8k_b12_errs}; "
+          f"at depth 0 (S_pad 12,032): {errs_ringless}")
     print(f"# small-batch Viterbi mismatches: "
           f"{sum(b for b, _ in vit_small_out)}")
     print(f"# step ms (timed step, after warm-up): linear numerators "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the denominator kernels with one phase removed at a time.
 
-    python3 kernel_ablation.py
+    python3 kernel_ablation.py [--only fact_fwd,fact_bwd/full,...]
 
 A diagnostic for PERF.md, run on a CUDA card: each variant is the
 kernel's source with a few statements replaced (the emission gathers,
@@ -13,12 +13,18 @@ cluster pair (stream_fwd, stream_bwd) at main path 4's (the 12k-state
 Kaldi-topology denominator, B=128, T=500) at the plan it launches with.
 A variant computes wrong numbers by design; only its time means
 something: how much of the full kernel's time the removed phase
-accounts for (phases overlap, so the savings need not add up).
+accounts for (phases overlap, so the savings need not add up).  Some
+variants change what the host gives the kernel instead: B1/B2's
+operators in ascending slot order, or fact_bwd without its ring.
+``--only`` times the named kernels' variants (``fact_fwd``) or single
+variants (``fact_bwd/full``) alone; ``full`` alone times a kernel as it
+is, to compare two trees of the repository.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -28,26 +34,31 @@ import torch
 
 FWD = {
     "full": [],
+    "ascending_order": {"order": "ascending"},
     "no_emission_gather": [("__ldg(px_t + f_dst[s])", "1.0f")],
     "no_products": [
         ("sell_row_dot(w1_ptr, w1_col, w1_val, d, ad)", "ad[d]"),
         ("sell_row_dot(w2_ptr, w2_col, w2_val, d, u)", "u[d]")],
     "no_stream_writes": [
-        ("xdst_ys[o + s] = x;", ""), ("w1ad_ys[o + d] = w1a;", ""),
-        ("ad_ys[o + d] = v;", "")],
+        ("__stcs(xdst_ys + o + s, x);", ""),
+        ("if (xsrc_ys) __stcs(xsrc_ys + o + s, xs);", ""),
+        ("__stcs(w1ad_ys + o + d, w1a);", ""), ("__stcs(ad_ys + o + d, v);", "")],
     "no_block_sum": [("block_sum<1>(part, red);", "__syncthreads();")],
 }
 BWD = {
     "full": [],
+    "ascending_order": {"order": "ascending"},
+    # the stream rows read from device memory where the frame needs them
+    "no_ring": {"stages": 0},
     "no_products": [
         ("sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb)", "xb[s]"),
         ("sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn)", "bn[s]")],
-    "no_stream_reads": [
-        ("xb[s] = xdst_ys[o + s] * v;", "xb[s] = v;"),
-        ("(identity ? xdst_ys[o + s] : xsrc_ys[o + s])", "1.0f"),
-        ("w1ad_ys[o + s]", "1.0f"), ("ad_u[s]", "1.0f")],
+    # the ring's copies and waits (the stages' contents are stale)
+    "no_stream_fetch": [
+        ("mbar_wait(bar + i % stages, (i / stages) & 1);", ""),
+        ("fetch(Tb - 1 - k);", ";"), ("fetch(u - stages);", ";")],
     "no_gamma_scatter": [("if (p < n_pdf_lists) {", "if (false) {")],
-    "no_gamma_writes": [("g_row[p] = acc;", "")],
+    "no_gamma_writes": [("__stcs(g_row + p, acc);", "")],
 }
 # The cluster pair (a cluster a group of G columns, W1's vector alone
 # held whole, one / two cluster barriers a frame).
@@ -96,6 +107,17 @@ STREAM_BWD = {
 }
 
 
+def spec(variant):
+    """(source edits, host options) of a variant table entry: a list of
+    edits, or a dict with "edits" and the options "order" ("ascending":
+    B1/B2 read the cluster kernels' operators) and "stages" (fact_bwd's
+    ring depth)."""
+    if isinstance(variant, dict):
+        return variant.get("edits", []), {k: v for k, v in variant.items()
+                                          if k != "edits"}
+    return variant, {}
+
+
 def build_variant(name, edits, out_dir):
     from pychain_tpu_torch.csrc import build
     src = (build.CSRC / f"{name}.cu").read_text()
@@ -123,14 +145,26 @@ def main():
     from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
 
+    tables = {"fact_fwd": FWD, "fact_bwd": BWD, "stream_fwd": STREAM_FWD,
+              "stream_bwd": STREAM_BWD}
+    if "--only" in sys.argv:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
+        tables = {k: {label: v for label, v in table.items()
+                      if k in only or f"{k}/{label}" in only}
+                  for k, table in tables.items()}
     out_dir = build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for kernel, variants in (("fact_fwd", FWD), ("fact_bwd", BWD),
-                             ("stream_fwd", STREAM_FWD),
-                             ("stream_bwd", STREAM_BWD)):
-        for label, edits in variants.items():
-            jobs[(kernel, label)] = build_variant(kernel, edits, out_dir)
+    for kernel, table in tables.items():
+        # each forward kernel's full form writes the streams its partner
+        # reads
+        fwd = kernel.replace("bwd", "fwd")
+        if table and (fwd, "full") not in jobs:
+            jobs[(fwd, "full")] = build_variant(fwd, [], out_dir)
+        for label, variant in table.items():
+            if (kernel, label) not in jobs:
+                jobs[(kernel, label)] = build_variant(
+                    kernel, spec(variant)[0], out_dir)
     for key, (proc, _) in jobs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -138,22 +172,11 @@ def main():
 
     dev = torch.device("cuda")
     B, T = 128, 500
-    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
-                                 seed=0, bigram_fanout=30)
-    fa = ChainGraphBatch(ChainGraph(den_fst), B, device=dev)._fact
     g = torch.Generator(device=dev).manual_seed(0)
-    px = torch.exp(torch.randn(B, T, P, generator=g, device=dev))
-    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
     c = 1e-5
 
     def use(kernel, label):
         build._loaded[kernel] = ctypes.CDLL(str(jobs[(kernel, label)][1]))
-
-    use("fact_fwd", "full")
-    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fk.fact_fwd(
-        px, lens, fa, c)
-    _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
-    tot = tot.contiguous()
 
     def time_ms(fn, reps=5):
         fn()
@@ -168,39 +191,67 @@ def main():
         return start.elapsed_time(end) / reps
 
     result = {}
-    for label in FWD:
-        use("fact_fwd", label)
-        result[f"fact_fwd/{label}"] = time_ms(
-            lambda: fk.fact_fwd(px, lens, fa, c))
-    for label in BWD:
-        use("fact_bwd", label)
-        result[f"fact_bwd/{label}"] = time_ms(
-            lambda: fk.fact_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc, s_ys,
-                                ad0, s0, tot, P, debug=False))
-    del ad_ys, w1ad, xdst, xsrc, px
+    if tables["fact_fwd"] or tables["fact_bwd"]:
+        den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                     seed=0, bigram_fanout=30)
+        fa = ChainGraphBatch(ChainGraph(den_fst), B, device=dev)._fact
+        px = torch.exp(torch.randn(B, T, P, generator=g, device=dev))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        kept = fk.graph_for(fa)
 
-    # the cluster beta sweep at main path 4
-    den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
-                                 num_pdfs=3000, seed=0, bigram_fanout=30,
-                                 forward_pdf_mode="separate")
-    fa = ChainGraphBatch(ChainGraph(den_fst), B, device=dev)._fact
-    tag = {k: f"C={p.cluster} G={p.columns}" for k, p in stk.plan(
-        fa, B, torch.cuda.get_device_properties(dev)).items()}
-    px = torch.exp(torch.randn(B, T, P, generator=g, device=dev))
-    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
-        px, lens, fa, c)
-    _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
-    tot = tot.contiguous()
-    for label in STREAM_FWD:
-        use("stream_fwd", label)
-        result[f"stream_fwd/{label} {tag['stream_fwd']}"] = time_ms(
-            lambda: stk.stream_fwd(px, lens, fa, c))
-    use("stream_fwd", "full")
-    for label in STREAM_BWD:
-        use("stream_bwd", label)
-        result[f"stream_bwd/{label} {tag['stream_bwd']}"] = time_ms(
-            lambda: stk.stream_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc,
-                                   s_ys, ad0, s0, tot, P, debug=False))
+        def layout(opts):
+            # B1/B2's operators in the variant's slot order
+            fk._graphs[fa] = kept if opts.get("order") != "ascending" else \
+                dataclasses.replace(kept, resident=(kept.w1, kept.w2,
+                                                    kept.w1t, kept.w2t))
+
+        use("fact_fwd", "full")
+        ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fk.fact_fwd(
+            px, lens, fa, c)
+        _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
+        tot = tot.contiguous()
+        for label, variant in tables["fact_fwd"].items():
+            use("fact_fwd", label)
+            layout(spec(variant)[1])
+            result[f"fact_fwd/{label}"] = time_ms(
+                lambda: fk.fact_fwd(px, lens, fa, c))
+        for label, variant in tables["fact_bwd"].items():
+            use("fact_bwd", label)
+            opts = spec(variant)[1]
+            layout(opts)
+            kw = {"stages": opts["stages"]} if "stages" in opts else {}
+            result[f"fact_bwd/{label}"] = time_ms(
+                lambda: fk.fact_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc,
+                                    s_ys, ad0, s0, tot, P, debug=False,
+                                    **kw))
+        fk._graphs[fa] = kept
+        del ad_ys, w1ad, xdst, xsrc, px
+
+    if tables["stream_fwd"] or tables["stream_bwd"]:
+        # the cluster pair at main path 4
+        den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
+                                     num_pdfs=3000, seed=0, bigram_fanout=30,
+                                     forward_pdf_mode="separate")
+        fa = ChainGraphBatch(ChainGraph(den_fst), B, device=dev)._fact
+        tag = {k: f"C={p.cluster} G={p.columns}" for k, p in stk.plan(
+            fa, B, torch.cuda.get_device_properties(dev)).items()}
+        px = torch.exp(torch.randn(B, T, P, generator=g, device=dev))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        use("stream_fwd", "full")
+        ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
+            px, lens, fa, c)
+        _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
+        tot = tot.contiguous()
+        for label in tables["stream_fwd"]:
+            use("stream_fwd", label)
+            result[f"stream_fwd/{label} {tag['stream_fwd']}"] = time_ms(
+                lambda: stk.stream_fwd(px, lens, fa, c))
+        use("stream_fwd", "full")
+        for label in tables["stream_bwd"]:
+            use("stream_bwd", label)
+            result[f"stream_bwd/{label} {tag['stream_bwd']}"] = time_ms(
+                lambda: stk.stream_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc,
+                                       s_ys, ad0, s0, tot, P, debug=False))
     for k, v in result.items():
         print(f"# {k:28s} {v:8.3f} ms")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

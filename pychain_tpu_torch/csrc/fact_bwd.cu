@@ -22,22 +22,126 @@
 //
 // Design.  As in the forward kernel: one block per batch column running
 // the whole reverse time loop, W1^T and W2^T as sliced-ELL rows by source
-// state over the graph's arcs, each thread summing its own rows in a
-// fixed order.  The E^T scatters become gathers: thread p sums c over the
+// state over the graph's arcs, each row's entries in bank order (the
+// host's fixed order, chosen so that a slot's 32 gathers hit distinct
+// shared-memory banks; sell_row_dot, fact_common.cuh), each thread
+// summing its own rows in that order.  The E^T scatters become gathers:
+// thread p sums c over the
 // states whose pdf is p (a host-built pdf -> states list, ascending), so
 // gamma is deterministic without atomics (docs/PARITY.md:52-55).  The
 // per-frame reductions (the leaky sum for the next frame and both
 // traces) share one block_sum.
+//
+// The stream rows.  A frame reads three rows of the forward sweep's
+// streams (four outside identity mode), each a contiguous run of
+// 4 S_pad bytes: x_dst(u), W1 alpha'(u), alpha'(u) (row u - 1; frame 0
+// reads ad0) and x_src(u).  With one block an SM nothing else runs while
+// the frame waits on device memory for them, so thread 0 fetches them
+// `stages` frames ahead into a ring in shared memory, one bulk copy
+// (TMA, evicted first from L2) a row, completing on the stage's mbarrier;
+// every thread waits on that mbarrier before the frame's first read, and
+// after the frame's last read (the barrier before the gamma stage)
+// thread 0 refills the stage with frame u - stages.  No row past a
+// column's end or before row 0 is fetched.  Depth: two stages where they
+// fit a block's 232,448 bytes (the headline graph: 123,292 bytes), one
+// where only one fits (S_pad 8,064), none past that, the rows then read
+// where the frame needs them (__ldcs); the wrapper picks it
+// (fact_kernels.ring_stages) and the resident tier's limits are those
+// without a ring (S_pad 14,464 in identity mode, else 11,520).
 //
 // Bound on an H100 at the headline size (S_pad = 3072, P = 3000,
 // B = 128, T = 500): the sweep must read the three (T, S_pad, B) float32
 // streams (2.36 GB) and write gamma (0.77 GB): about 3.1 GB, 0.94 ms at
 // 3.35 TB/s; the arc products, 2 * 49.5k * B * T = 6.3 GFLOP, take
 // 0.09 ms at 67 TFLOP/s.  The bound is the bytes.  Stream reads and
-// gamma writes are coalesced; as in the forward kernel, the sparse rows
-// are re-read from L2 by every block at every frame.
+// gamma writes are coalesced.  What the kernel spends (kernel_ablation.py,
+// PERF.md): the sparse products 60-62%, the gamma stage 19-22%, the
+// ring's copies and waits 4-8% (without the ring it is 8-11% slower).  On
+// the wavefront model (the SM's L1 / shared-memory pipe at one wavefront
+// a clock) the products need about 5,250 wavefronts a frame: the
+// operator lines read from L2 by every block at every frame (two a
+// slot-warp) and the gathers (1.4 a slot-warp in bank order, 3.1 in
+// ascending order); the bank order saved 0.31 ms where that model
+// predicted 0.85, so it is not the whole bound (PERF.md, open questions).
 
 #include "fact_common.cuh"
+
+// The ring's TMA pieces: an mbarrier in shared memory that
+// bulk copies complete, and the copies.  One thread arms the barrier with
+// the bytes to expect and issues the copies (cp.async.bulk, one per
+// contiguous row); every thread that reads the stage first waits for the
+// barrier's phase (parity) to complete.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  // make the initialised barrier visible to the copy engine
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// An L2 policy for data read once: evicted first.
+__device__ __forceinline__ unsigned long long evict_first_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// device memory to this CTA's shared memory; the copy engine completes
+// that many bytes of the transaction count of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar,
+                                          unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// Order this CTA's earlier generic-proxy accesses to shared memory
+// before later copy-engine (async-proxy) ones: a stage read by every
+// thread, then (after a barrier) overwritten by a bulk copy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Stream rows a frame reads: x_dst(u), W1 alpha'(u), alpha'(u) (the
+// forward sweep's row u - 1) and, outside identity mode, x_src(u).
+#define RING_XDST 0
+#define RING_W1AD 1
+#define RING_AD 2
+#define RING_XSRC 3
 
 __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
@@ -59,12 +163,17 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     const int* __restrict__ g_ptr,       // null in identity mode
     const int* __restrict__ g_states,
     int n_pdf_lists, float leaky_c, int T, int P, int s_pad, int debug,
+    int stages,                          // ring depth: 0, 1 or 2
     float* __restrict__ gamma,           // (B, T, P)
     float* __restrict__ ab,              // (B, T)
     float* __restrict__ gs) {            // (B, T)
   extern __shared__ float smem[];
   const bool identity = xsrc_ys == nullptr;
-  float* bd = smem;            // beta' carry, read by the row's owner only
+  const int rows = identity ? 3 : 4;      // stream rows a frame
+  float* ring = smem;          // stages x rows x S_pad: frames' stream rows
+  unsigned long long* bar =    // one mbarrier a stage
+      reinterpret_cast<unsigned long long*>(ring + stages * rows * s_pad);
+  float* bd = ring + stages * (rows * s_pad + 2);  // beta' carry, own rows
   float* bn = bd + s_pad;      // b: gathered by W2^T's rows
   float* xb = bn + s_pad;      // x_dst * b: gathered by W1^T's rows
   float* c1 = xb + s_pad;      // posterior mass per state (E_f^T side)
@@ -75,6 +184,33 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   const int b = blockIdx.x;
   const int Tb = lengths[b];
   const size_t row0 = static_cast<size_t>(b) * T;
+
+  // Frame u (the (Tb - 1 - u)-th of the column's reverse loop) reads its
+  // stream rows from stage (Tb - 1 - u) % stages; thread 0 fetches them
+  // `stages` frames ahead, one bulk copy a row.  Frame 0 reads alpha'(0)
+  // from ad0, so no row before row 0 (or past T_b - 1) is fetched.
+  const unsigned long long policy = stages ? evict_first_policy() : 0ull;
+  const unsigned row_bytes = 4u * static_cast<unsigned>(s_pad);
+  auto fetch = [&](int u) {
+    const int k = (Tb - 1 - u) % stages;
+    float* st = ring + k * rows * s_pad;
+    const size_t o = (row0 + u) * s_pad;
+    mbar_expect_tx(bar + k, (u > 0 ? rows : rows - 1) * row_bytes);
+    bulk_load(st + RING_XDST * s_pad, xdst_ys + o, row_bytes, bar + k,
+              policy);
+    bulk_load(st + RING_W1AD * s_pad, w1ad_ys + o, row_bytes, bar + k,
+              policy);
+    if (u > 0)
+      bulk_load(st + RING_AD * s_pad, ad_ys + o - s_pad, row_bytes, bar + k,
+                policy);
+    if (!identity)
+      bulk_load(st + RING_XSRC * s_pad, xsrc_ys + o, row_bytes, bar + k,
+                policy);
+  };
+  if (tid == 0 && stages > 0) {
+    for (int k = 0; k < stages; ++k) mbar_init(bar + k, 1);
+    for (int k = 0; k < stages && k < Tb; ++k) fetch(Tb - 1 - k);
+  }
 
   // frames past the column's end
   const size_t n_past = static_cast<size_t>(T - Tb) * P;
@@ -94,6 +230,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     bd[s] = v;
     inj[0] += v * leaky[s];
   }
+  // also the barrier after which the mbarriers may be waited on
   block_sum<1>(inj, red);
   float leak_sum = inj[0];
 
@@ -101,13 +238,32 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   for (int u = Tb - 1; u >= 0; --u) {
     const float s_u = u == 0 ? *s0 : s_ys[row0 + u - 1];
     const float inv_s = 1.0f / s_u;
-    const size_t o = (row0 + u) * s_pad;
-    const float* ad_u = u == 0 ? ad0 : ad_ys + o - s_pad;
+    const float *xd_u, *w1a_u, *ad_u, *xs_u;
+    if (stages > 0) {
+      const int i = Tb - 1 - u;
+      const float* st = ring + (i % stages) * rows * s_pad;
+      mbar_wait(bar + i % stages, (i / stages) & 1);
+      xd_u = st + RING_XDST * s_pad;
+      w1a_u = st + RING_W1AD * s_pad;
+      ad_u = u == 0 ? ad0 : st + RING_AD * s_pad;
+      xs_u = identity ? xd_u : st + RING_XSRC * s_pad;
+    } else {
+      const size_t o = (row0 + u) * s_pad;
+      xd_u = xdst_ys + o;
+      w1a_u = w1ad_ys + o;
+      ad_u = u == 0 ? ad0 : ad_ys + o - s_pad;
+      xs_u = identity ? xd_u : xsrc_ys + o;
+    }
+    // a stream row's entry: from the ring, else read once from device
+    // memory, evicted first
+    auto row = [&](const float* r, int s) {
+      return stages > 0 ? r[s] : __ldcs(r + s);
+    };
     const float cl = leaky_c * leak_sum;
     for (int s = tid; s < s_pad; s += FACT_THREADS) {
       const float v = bd[s] + cl;
       bn[s] = v;
-      xb[s] = xdst_ys[o + s] * v;
+      xb[s] = row(xd_u, s) * v;
     }
     __syncthreads();
 
@@ -116,10 +272,11 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     for (int s = tid; s < s_pad; s += FACT_THREADS) {
       const float w1t = sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb);
       const float w2t = sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn);
-      const float sw = (identity ? xdst_ys[o + s] : xsrc_ys[o + s]) * w2t;
+      const float sw = row(xs_u, s) * w2t;
       const float bdt = (w1t + sw) * inv_s;
-      const float m1 = xb[s] * w1ad_ys[o + s] * inv_s;
-      const float m2 = sw * ad_u[s] * inv_s;
+      const float ad = row(ad_u, s);
+      const float m1 = xb[s] * row(w1a_u, s) * inv_s;
+      const float m2 = sw * ad * inv_s;
       if (identity) {
         c1[s] = m1 + m2;
       } else {
@@ -128,9 +285,14 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
       }
       bd[s] = bdt;
       part[0] += bdt * leaky[s];
-      if (traces) part[1] += ad_u[s] * bdt;
+      if (traces) part[1] += ad * bdt;
     }
     __syncthreads();
+    // the stage is read: refill it with frame u - stages' rows
+    if (tid == 0 && stages > 0 && u >= stages) {
+      fence_proxy_async();
+      fetch(u - stages);
+    }
 
     float* g_row = gamma + (row0 + u) * P;
     for (int p = tid; p < P; p += FACT_THREADS) {
@@ -145,7 +307,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
             acc += c2[__ldg(g_states + k)];
         }
       }
-      g_row[p] = acc;
+      __stcs(g_row + p, acc);
       if (traces) part[2] += acc;
     }
     // also the barrier after which bn, xb, c1 and c2 may be overwritten
@@ -158,9 +320,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   }
 }
 
-extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity) {
+extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages) {
+  const size_t rows = identity ? 3 : 4;
   return ((identity ? 4 : 5) * static_cast<size_t>(s_pad) +
-          3 * FACT_WARPS + 3) * sizeof(float);
+          3 * FACT_WARPS + 3 + stages * (rows * s_pad + 2)) * sizeof(float);
 }
 
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -172,9 +335,10 @@ extern "C" int fact_bwd_launch(
     const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
     const void* w2t_val, const void* f_ptr, const void* f_states,
     const void* g_ptr, const void* g_states, int n_pdf_lists,
-    float leaky_c, int B, int T, int P, int s_pad, int debug, void* gamma,
-    void* ab, void* gs, void* stream) {
-  const size_t smem = fact_bwd_smem_bytes(s_pad, xsrc_ys == nullptr);
+    float leaky_c, int B, int T, int P, int s_pad, int debug, int stages,
+    void* gamma, void* ab, void* gs, void* stream) {
+  const size_t smem =
+      fact_bwd_smem_bytes(s_pad, xsrc_ys == nullptr, stages);
   cudaError_t err = fact_set_smem(fact_bwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   fact_bwd_kernel<<<B, FACT_THREADS, smem,
@@ -190,7 +354,7 @@ extern "C" int fact_bwd_launch(
       static_cast<const float*>(w2t_val), static_cast<const int*>(f_ptr),
       static_cast<const int*>(f_states), static_cast<const int*>(g_ptr),
       static_cast<const int*>(g_states), n_pdf_lists, leaky_c, T, P, s_pad,
-      debug, static_cast<float*>(gamma), static_cast<float*>(ab),
+      debug, stages, static_cast<float*>(gamma), static_cast<float*>(ab),
       static_cast<float*>(gs));
   return static_cast<int>(cudaGetLastError());
 }

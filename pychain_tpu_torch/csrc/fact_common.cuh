@@ -12,10 +12,10 @@
 // each frame copies its peers' rows of the one vector its W1 (W1^T)
 // product gathers into its own whole copy, through distributed shared
 // memory (DSMEM).  Every sum is
-// taken in a fixed order (rows in ascending column order, warp shuffles,
-// then the warp partials in warp order, then the CTAs' totals in rank
-// order), so the results do not change from run to run and no atomics
-// are used.
+// taken in a fixed order (a row's entries in its slot order, warp
+// shuffles, then the warp partials in warp order, then the CTAs' totals
+// in rank order), so the results do not change from run to run and no
+// atomics are used.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -93,11 +93,20 @@ __device__ __forceinline__ void block_sum_max(F& s, F& m, F* red) {
 
 // Row r of a matrix in sliced ELL form times a vector v held in shared
 // memory.  Rows come in slices of 32; slice i holds sptr[i+1] - sptr[i]
-// entry columns of 32 values, entry k of row 32 i + l at index
-// 32 k + l, each row in ascending column order and zero-padded (column
-// 0, value 0) to the slice's longest row.  A warp's lanes own 32
-// consecutive rows, so every col/val load of the warp is one 128-byte
-// line.
+// slots of 32 values, slot k of row 32 i + l at index 32 k + l, each row
+// zero-padded (column 0, value 0) to the slice's longest row.  A warp's
+// lanes own 32 consecutive rows, so every col/val load of the warp is one
+// 128-byte line, and each slot's gather v[col] is one shared-memory load
+// of the warp, served in as many wavefronts as the fullest of the 32
+// banks (word c in bank c mod 32) has distinct words.  The order of a
+// row's entries among its slots is the sum's order, fixed by the host:
+// B1/B2 (fact_fwd.cu, fact_bwd.cu) read each row in bank order
+// (fact_kernels.bank_order: each slot's lanes on distinct banks as far
+// as a greedy pass finds, 1.41 / 1.36 wavefronts a slot for W1 / W1^T at
+// the headline graph against 2.87 / 3.10 in ascending order); the cluster
+// pair reads them in ascending column order (sell_row_dot_cols), since
+// its gathers are G columns wide (8 or 16 bytes a lane), which the banks
+// serve by another rule (ROADMAP.md queues an order for them).
 __device__ __forceinline__ float sell_row_dot(const int* __restrict__ sptr,
                                               const int* __restrict__ col,
                                               const float* __restrict__ val,

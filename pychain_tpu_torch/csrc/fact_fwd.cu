@@ -20,7 +20,11 @@
 // arithmetic is that of the arcs, and the one-hot E_f / E_g products
 // are gathers through f_dst / g_src.  The rows are stored as sliced ELL
 // (sell_row_dot, fact_common.cuh) so that a warp's loads of them are
-// whole 128-byte lines.  One block owns one batch column
+// whole 128-byte lines, each row's entries in bank order: the host
+// orders them among their slots so that a slot's 32 gathers from
+// shared memory hit distinct banks (1.41 wavefronts a slot for W1 at
+// the headline graph, 2.87 in ascending order; 3-7% of the kernel's
+// time, PERF.md).  One block owns one batch column
 // and runs its whole time loop, stopping at the column's own length:
 // nothing is computed or written for frames past it (the backward
 // sweep never reads them).  The carry alpha' and the W2 operand live in
@@ -32,10 +36,18 @@
 // at 3.35 TB/s.  The arc products are 2 * 49.5k * B * T = 6.3 GFLOP,
 // 0.09 ms at 67 TFLOP/s (float32 without tensor cores).  So the bound
 // is the bytes.  The stream writes are coalesced (consecutive threads,
-// consecutive states) and every stream element is written once; the
-// sparse rows (about 0.4 MB) are re-read from L2 by every block at every
-// frame, which is the traffic this design does not remove (chip_smoke.py
-// reports how far the kernel is from the bound; PERF.md, the history).
+// consecutive states), written once and evicted first (__stcs).  What
+// the kernel spends (kernel_ablation.py, PERF.md): the sparse products
+// 62%, the emission gathers 14-16%.  On the wavefront model (the SM's L1 /
+// shared-memory pipe at one wavefront a clock) the products need about
+// 6,400 wavefronts a frame: W1's and W2's rows (about 0.48 MB, read from
+// L2 by every block at every frame, two 128-byte lines a slot-warp) and
+// the gathers; they take about 5.8 us a frame where that is 3.6 us.  The
+// bank order saved 0.36 ms where the model predicted 0.9, and a search
+// that took off 491 more gather wavefronts a frame saved nothing, so the
+// model is not the whole bound (PERF.md, open questions).  Fetching the
+// next frame's px row by TMA and gathering from shared memory was 6%
+// slower (PERF.md).
 
 #include "fact_common.cuh"
 
@@ -81,8 +93,8 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
       const float xs = g_src ? __ldg(px_t + g_src[s]) : x;
       xd[s] = x;
       u[s] = xs * ad[s];
-      xdst_ys[o + s] = x;
-      if (xsrc_ys) xsrc_ys[o + s] = xs;
+      __stcs(xdst_ys + o + s, x);
+      if (xsrc_ys) __stcs(xsrc_ys + o + s, xs);
     }
     __syncthreads();
 
@@ -92,7 +104,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
       const float w2u = sell_row_dot(w2_ptr, w2_col, w2_val, d, u);
       const float av = (xd[d] * w1a + w2u) / s_prev;
       a[d] = av;
-      w1ad_ys[o + d] = w1a;
+      __stcs(w1ad_ys + o + d, w1a);
       part[0] += av;
     }
     // also the barrier after which ad and u may be overwritten
@@ -102,7 +114,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
     for (int d = tid; d < s_pad; d += FACT_THREADS) {
       const float v = a[d] + cs * leaky[d];
       ad[d] = v;
-      ad_ys[o + d] = v;
+      __stcs(ad_ys + o + d, v);
       if (t == Tb - 1) ad_last[static_cast<size_t>(b) * s_pad + d] = v;
     }
     if (tid == 0) s_ys[row0 + t] = s_t;

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import hashlib
 import weakref
 
 import numpy as np
@@ -66,19 +68,40 @@ def supports(fa: FactorizedArrays) -> bool:
     return int(fa.res_src.shape[0]) == 0
 
 
-def smem_bytes(fa: FactorizedArrays) -> dict:
-    """Dynamic shared memory of each kernel for this graph (must equal
-    fact_fwd_smem_bytes / fact_bwd_smem_bytes in the sources)."""
+def _bwd_smem_bytes(s_pad: int, identity: bool, stages: int) -> int:
+    rows = 3 if identity else 4            # stream rows a frame
+    return ((4 if identity else 5) * s_pad + 3 * FACT_WARPS + 3
+            + stages * (rows * s_pad + 2)) * 4
+
+
+def ring_stages(fa: FactorizedArrays) -> int:
+    """fact_bwd's ring depth for this graph: the frames whose stream rows
+    it holds in shared memory, fetched ahead by TMA (csrc/fact_bwd.cu).
+    Two stages where they fit a block's shared memory, one where only one
+    fits, none past that."""
     identity = fa.xsrc_mode == "identity"
+    for stages in (2, 1):
+        if _bwd_smem_bytes(fa.s_pad, identity, stages) <= MAX_SMEM:
+            return stages
+    return 0
+
+
+def smem_bytes(fa: FactorizedArrays, stages: int | None = None) -> dict:
+    """Dynamic shared memory of each kernel for this graph, fact_bwd's
+    with a ring of ``stages`` (default :func:`ring_stages`); must equal
+    fact_fwd_smem_bytes / fact_bwd_smem_bytes in the sources."""
+    identity = fa.xsrc_mode == "identity"
+    if stages is None:
+        stages = ring_stages(fa)
     return {"fact_fwd": (4 * fa.s_pad + FACT_WARPS + 1) * 4,
-            "fact_bwd": ((4 if identity else 5) * fa.s_pad
-                         + 3 * FACT_WARPS + 3) * 4}
+            "fact_bwd": _bwd_smem_bytes(fa.s_pad, identity, stages)}
 
 
 def fits_on_chip(fa: FactorizedArrays) -> bool:
     """Whether both kernels' per-column working set fits one block's
-    shared memory (replaces pallas_fact.fits_vmem)."""
-    return max(smem_bytes(fa).values()) <= MAX_SMEM
+    shared memory, fact_bwd's without a ring (replaces
+    pallas_fact.fits_vmem)."""
+    return max(smem_bytes(fa, stages=0).values()) <= MAX_SMEM
 
 
 def select_stream_mode(T: int, s_pad: int, B: int, itemsize: int,
@@ -128,7 +151,9 @@ class KernelGraph:
     (``_sell``).  W1/W2 by destination row (alpha sweep), W1^T/W2^T by
     source row (beta sweep); values and column ids from diag + the dense
     block's nonzeros + the tiles' nonzeros, each row in ascending column
-    order.
+    order: the cluster kernels' form.  ``resident`` holds the same four
+    operators as B1/B2 read them (each row's entries permuted among its
+    slots by :func:`bank_order`), built only for a graph that B1/B2 run.
     The one-hot E matrices become gathers through f_dst/g_src and, for
     the posterior scatter, pdf -> states lists: E_f^T's over all S_pad
     states (padded states map to pdf 0 with zero mass), E_g^T's over the
@@ -146,6 +171,7 @@ class KernelGraph:
     n_pdf_lists: int
     nnz: int             # arcs in W1 + W2 (the products' work)
     max_pdf: int         # largest pdf the emission gathers read
+    resident: tuple | None = None   # B1/B2's (w1, w2, w1t, w2t)
 
     def to(self, device) -> "KernelGraph":
         mv = lambda x: None if x is None else tuple(t.to(device) for t in x)
@@ -153,7 +179,9 @@ class KernelGraph:
             self, w1=mv(self.w1), w2=mv(self.w2), w1t=mv(self.w1t),
             w2t=mv(self.w2t), f_dst=self.f_dst.to(device),
             g_src=None if self.g_src is None else self.g_src.to(device),
-            f_lists=mv(self.f_lists), g_lists=mv(self.g_lists))
+            f_lists=mv(self.f_lists), g_lists=mv(self.g_lists),
+            resident=None if self.resident is None else tuple(
+                mv(op) for op in self.resident))
 
 
 def _coo(w: WArrays):
@@ -221,23 +249,142 @@ def _pdf_lists(pdf_of_state, n_pdfs, states=None):
     return ptr, states
 
 
+# ----------------------------------------------------------------------
+# B1/B2's slot order: bank-conflict-free gathers
+# ----------------------------------------------------------------------
+#
+# A warp's lanes own the 32 rows of a slice and step through its slots
+# together; at slot k lane l reads v[col[32 k + l]] from shared memory,
+# whose 32 banks hold word c in bank c mod 32.  The SM serves a warp's
+# load in as many wavefronts as the fullest bank has distinct words
+# (lanes reading one word share it).  A row's sum may take its entries
+# in any fixed order, so the order of each row's entries among its
+# slots is chosen to keep each slot's lanes in distinct banks.
+
+BANKS = 32
+
+
+def gather_wavefronts(sell) -> np.ndarray:
+    """Shared-memory wavefronts of each slot's gather v[col] for a warp
+    (one per slot of every slice, in slot order): the most distinct
+    column ids any bank receives.  Padding reads word 0."""
+    sptr, col = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+                 for t in sell[:2])
+    n = int(sptr[-1])
+    col = col.astype(np.int64)
+    c = np.sort(col[:n * SLICE].reshape(n, SLICE), axis=1)
+    first = np.ones(c.shape, bool)
+    first[:, 1:] = c[:, 1:] != c[:, :-1]
+    counts = np.zeros((n, BANKS + 1), np.int64)
+    np.add.at(counts, (np.repeat(np.arange(n), SLICE),
+                       np.where(first, c % BANKS, BANKS).ravel()), 1)
+    return counts[:, :BANKS].max(axis=1)
+
+
+def _order_slice(cols, real):
+    """The slot order of one slice.  cols, real: (K, 32), entry k of lane
+    l and whether it is an arc (else padding).  Returns src (K, 32): the
+    slot whose entry lane l takes at slot k, or -1 for padding.
+
+    Greedy slot by slot: the lanes with the most entries left choose
+    first, each the entry whose column some lane of this slot already
+    reads, else one in a bank no lane reads yet (of the banks with the
+    most entries left), else padding if the lane can still afford it
+    (word 0), else the least bad entry."""
+    K = cols.shape[0]
+    uniq, loc = np.unique(np.where(real, cols, 0), return_inverse=True)
+    loc = loc.reshape(K, SLICE)
+    if uniq[0] != 0:                 # padding reads column 0
+        uniq, loc = np.concatenate([[0], uniq]), loc + 1
+    bank = [int(c) % BANKS for c in uniq]
+    left_of = [[(int(loc[k, l]), k) for k in range(K) if real[k, l]]
+               for l in range(SLICE)]
+    src = [[-1] * K for _ in range(SLICE)]
+    for k in range(K):
+        slots_left = K - k
+        word = {}                                # bank -> column read
+        load = [0] * BANKS
+        for items in left_of:
+            for c, _ in items:
+                load[bank[c]] += 1
+        for l in sorted(range(SLICE), key=lambda l: -len(left_of[l])):
+            items = left_of[l]
+            pick, key = -1, None
+            for i, (c, _) in enumerate(items):
+                w = word.get(bank[c])
+                kk = ((0, 0) if w == c else (1, -load[bank[c]]) if w is None
+                      else (3, 0))
+                if key is None or kk < key:
+                    pick, key = i, kk
+            if len(items) < slots_left:
+                w = word.get(0)
+                kk = (0, 1) if w == 0 else (2, 0) if w is None else (4, 0)
+                if key is None or kk < key:
+                    pick = -1
+            if pick < 0:
+                word.setdefault(0, 0)
+            else:
+                c, s = items.pop(pick)
+                word.setdefault(bank[c], c)
+                src[l][k] = s
+    return np.array(src, np.int64).T
+
+
+_orders: dict = {}
+
+
+def bank_order(sell):
+    """``sell`` (a ``_sell`` triple) with each row's entries permuted among
+    its slots so that each slot's gathers hit as few words in one bank as
+    a greedy pass finds (:func:`_order_slice`): the same slice pointers, each
+    row the same (col, val) entries, padding (0, 0).  Memoized by
+    content: the batches of one graph share its order."""
+    sptr, col, val = (np.asarray(t) for t in sell)
+    key = hashlib.sha1(b"".join(np.ascontiguousarray(a).tobytes()
+                                for a in (sptr, col, val))).hexdigest()
+    if key not in _orders:
+        col2, val2 = col.copy(), val.copy()
+        lane = np.arange(SLICE)[None, :]
+        for i in range(len(sptr) - 1):
+            lo, hi = int(sptr[i]) * SLICE, int(sptr[i + 1]) * SLICE
+            if hi - lo <= SLICE:           # one slot: nothing to order
+                continue
+            c = col[lo:hi].reshape(-1, SLICE)
+            v = val[lo:hi].reshape(-1, SLICE)
+            s = _order_slice(c, v != 0)
+            at = np.maximum(s, 0)
+            col2[lo:hi] = np.where(s < 0, 0, c[at, lane]).ravel()
+            val2[lo:hi] = np.where(s < 0, 0, v[at, lane]).ravel()
+        if len(_orders) >= 8:
+            _orders.pop(next(iter(_orders)))
+        _orders[key] = (col2, val2)
+    col2, val2 = _orders[key]
+    return (torch.from_numpy(sptr.copy()), torch.from_numpy(col2.copy()),
+            torch.from_numpy(val2.copy()))
+
+
 def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
-    """Host-built sparse form of ``fa`` (CPU tensors)."""
+    """Host-built sparse form of ``fa`` (CPU tensors), with B1/B2's
+    operators in bank order (:func:`bank_order`) when the graph fits them
+    (:func:`fits_on_chip`)."""
     s_pad, p_pad = fa.s_pad, fa.p_pad
     identity = fa.xsrc_mode == "identity"
     r1, c1, v1 = _coo(fa.w1)
     r2, c2, v2 = _coo(fa.w2)
     f = fa.f_dst.cpu().numpy().astype(np.int64)
     g = fa.g_src.cpu().numpy().astype(np.int64)
+    ops = (_sell(r1, c1, v1, s_pad), _sell(r2, c2, v2, s_pad),
+           _sell(c1, r1, v1, s_pad), _sell(c2, r2, v2, s_pad))
+    resident = (tuple(bank_order(op) for op in ops) if fits_on_chip(fa)
+                else None)
     return KernelGraph(
-        w1=_sell(r1, c1, v1, s_pad), w2=_sell(r2, c2, v2, s_pad),
-        w1t=_sell(c1, r1, v1, s_pad), w2t=_sell(c2, r2, v2, s_pad),
-        f_dst=torch.from_numpy(f.astype(np.int32)),
+        *ops, f_dst=torch.from_numpy(f.astype(np.int32)),
         g_src=None if identity else torch.from_numpy(g.astype(np.int32)),
         f_lists=_pdf_lists(f, p_pad),
         g_lists=None if identity else _pdf_lists(g, p_pad, np.unique(c2)),
         n_pdf_lists=p_pad, nnz=len(v1) + len(v2),
-        max_pdf=int(max(f.max(), 0 if identity else g.max())))
+        max_pdf=int(max(f.max(), 0 if identity else g.max())),
+        resident=resident)
 
 
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -279,7 +426,7 @@ def _lib(name):
             fn.argtypes = [_P] * n_ptr_in + [_F, _I, _I, _I, _I] \
                 + [_P] * 6 + [_P]
         else:
-            fn.argtypes = [_P] * n_ptr_in + [_I, _F, _I, _I, _I, _I, _I] \
+            fn.argtypes = [_P] * n_ptr_in + [_I, _F] + [_I] * 6 \
                 + [_P] * 3 + [_P]
         fn.restype = ctypes.c_int
     return fn
@@ -307,6 +454,7 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
              "block has; the cluster kernels serve it (engine=\"stream\", "
              "ops/stream_kernels.py)")
     kg = graph_for(fa)
+    w1, w2 = kg.resident[:2]
     B, T, P = px.shape
     _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
              f"only {P} columns")
@@ -320,7 +468,7 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
     s_ys, ad_last = new(B, T), new(B, s_pad)
     rc = _lib("fact_fwd")(
         _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
-        *map(_ptr, kg.w1), *map(_ptr, kg.w2), _ptr(ad0), _ptr(s0),
+        *map(_ptr, w1), *map(_ptr, w2), _ptr(ad0), _ptr(s0),
         _ptr(fa.leaky), float(leaky_coefficient), B, T, P, s_pad,
         _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys), _ptr(xsrc_ys),
         _ptr(s_ys), _ptr(ad_last), _stream())
@@ -331,10 +479,19 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
 
 def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
              w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0, tot_prob, P,
-             debug=True):
-    """Launch the beta sweep on the streams of :func:`fact_fwd`.
-    Returns (gamma (B, T, P), alpha_beta (B, T), gamma_sum (B, T))."""
+             debug=True, stages=None):
+    """Launch the beta sweep on the streams of :func:`fact_fwd`, its ring
+    ``stages`` deep (default :func:`ring_stages`).  Returns (gamma
+    (B, T, P), alpha_beta (B, T), gamma_sum (B, T))."""
     kg = graph_for(fa)
+    _require(kg.resident is not None, f"graph with S_pad={fa.s_pad} does "
+             "not fit B1/B2 (fits_on_chip)")
+    w1t, w2t = kg.resident[2:]
+    if stages is None:
+        stages = ring_stages(fa)
+    _require(stages in (0, 1, 2) and smem_bytes(fa, stages)["fact_bwd"]
+             <= MAX_SMEM, f"fact_bwd: a ring of {stages} stages does not "
+             f"fit a block at S_pad={fa.s_pad}")
     B, T, s_pad = ad_ys.shape
     for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, tot_prob):
         _require(t is None or (t.is_cuda and t.dtype == torch.float32
@@ -349,10 +506,11 @@ def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
     rc = _lib("fact_bwd")(
         _ptr(lengths), _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
         _ptr(xsrc_ys), _ptr(s_ys), _ptr(s0), _ptr(ad0), _ptr(fa.final),
-        _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, kg.w1t),
-        *map(_ptr, kg.w2t), *map(_ptr, kg.f_lists), *map(_ptr, g_lists),
+        _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, w1t),
+        *map(_ptr, w2t), *map(_ptr, kg.f_lists), *map(_ptr, g_lists),
         kg.n_pdf_lists, float(leaky_coefficient), B, T, P, s_pad,
-        int(bool(debug)), _ptr(gamma), _ptr(ab), _ptr(gs), _stream())
+        int(bool(debug)), stages, _ptr(gamma), _ptr(ab), _ptr(gs),
+        _stream())
     _check(rc, "fact_bwd")
     LAUNCHES["fact_bwd"] += 1
     return gamma, ab, gs
@@ -440,7 +598,8 @@ def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
 
 def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
                                  leaky_coefficient=1e-5,
-                                 debug: bool = True) -> FwdBwdResult:
+                                 debug: bool = True,
+                                 stages: int | None = None) -> FwdBwdResult:
     """Fused fwd+bwd on a fully-factorized graph (the resident tier,
     engine "pallas").
 
@@ -449,6 +608,9 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     plain version.  debug: with True the alpha*beta and sum-gamma traces
     cover every frame; with False only frame 0 (the reference's default,
     chain-computation.cc:337-338), the other frames reading exactly
-    1.0.  Verbose level >= 1 forces the full traces."""
+    1.0.  Verbose level >= 1 forces the full traces.  stages: fact_bwd's
+    ring depth (default :func:`ring_stages`; the tests force each)."""
+    bwd = fact_bwd if stages is None else functools.partial(fact_bwd,
+                                                            stages=stages)
     return fused_fwd_bwd(px, lengths, fa, leaky_coefficient, debug,
-                         fact_fwd, fact_bwd)
+                         fact_fwd, bwd)

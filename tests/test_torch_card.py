@@ -94,6 +94,28 @@ class TestFactorized:
             ref = fk._frame0_traces(ref)
         _assert_loss_close(got, ref)
 
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("mode,want", MODES)
+    def test_cuda_kernels_match_plain_at_every_ring_depth(self, cuda, mode,
+                                                          want, stages):
+        """fact_bwd with its ring forced to each depth (lengths T, T - 2,
+        3 and 1: the ring's first and last frames), gamma bit-identical
+        on a rerun."""
+        fst, x, lengths = _den_case(mode, seed=6, num_phones=40)
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), x.shape[0],
+                                device=cuda)._fact
+        assert fa.xsrc_mode == want and fk.ring_stages(fa) == 2
+        px = torch.exp(torch.from_numpy(x)).to(cuda)
+        lens = torch.from_numpy(lengths).to(cuda)
+        got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                              stages=stages)
+        _assert_loss_close(got, forward_backward_prob_fact(px, lens, fa,
+                                                           LEAKY))
+        again = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                stages=stages)
+        assert torch.equal(again.gamma, got.gamma)
+
 
 # ----------------------------------------------------------------------
 # The cluster kernels B3/B4 (ops/stream_kernels.py)

@@ -149,9 +149,13 @@ def _lists_sum(lists, c, n):
     return torch.zeros(n).index_add_(0, rows, c[states])
 
 
-def _emulate(px, lengths, fa, c, debug):
-    """csrc/fact_fwd.cu and csrc/fact_bwd.cu, one column at a time."""
+def _emulate(px, lengths, fa, c, debug, resident=False):
+    """csrc/fact_fwd.cu and csrc/fact_bwd.cu, one column at a time, on
+    the ascending operators or (``resident``) on the operators B1/B2
+    read."""
     kg = fk.kernel_graph(fa)
+    w1, w2, w1t, w2t = (kg.resident if resident
+                        else (kg.w1, kg.w2, kg.w1t, kg.w2t))
     B, T, P = px.shape
     s_pad = fa.s_pad
     f = kg.f_dst.long()
@@ -166,8 +170,8 @@ def _emulate(px, lengths, fa, c, debug):
         for t in range(int(lengths[b])):
             x = px[b, t, f]
             xs = x if g is None else px[b, t, g]
-            w1a = _csr_mv(kg.w1, ad)
-            a = (x * w1a + _csr_mv(kg.w2, xs * ad)) / s_prev
+            w1a = _csr_mv(w1, ad)
+            a = (x * w1a + _csr_mv(w2, xs * ad)) / s_prev
             s_t = a.sum()
             ad = a + c * s_t * fa.leaky
             streams[:, b, t] = torch.stack([ad, w1a, x, xs])
@@ -188,8 +192,8 @@ def _emulate(px, lengths, fa, c, debug):
             _, w1ad, xd, xs = streams[:, b, u]
             bn = bd + c * (bd * fa.leaky).sum()
             xb = xd * bn
-            sw = xs * _csr_mv(kg.w2t, bn)
-            bd = (_csr_mv(kg.w1t, xb) + sw) / s_u
+            sw = xs * _csr_mv(w2t, bn)
+            bd = (_csr_mv(w1t, xb) + sw) / s_u
             m1 = xb * w1ad / s_u
             m2 = sw * ad_u / s_u
             if g is None:
@@ -215,6 +219,24 @@ def test_kernel_algorithm_emulation_matches_plain(mode, want):
     lens = torch.from_numpy(lengths)
     ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
     objf, gamma, ab, gs = _emulate(px, lens, fa, LEAKY, debug=True)
+    torch.testing.assert_close(objf, ref.objf, rtol=1e-5, atol=0)
+    torch.testing.assert_close(gamma, ref.gamma, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ab, ref.alpha_beta, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gs, ref.gamma_sum, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,want", MODES)
+def test_kernel_algorithm_emulation_on_resident_operators(mode, want):
+    """The emulation on B1/B2's operators (each row's entries in bank
+    order) matches the plain version as the ascending ones do."""
+    fst, x, lengths = _case(mode, seed=2, num_phones=40)
+    fa = _port_fact(fst, x.shape[0])
+    assert fa.xsrc_mode == want
+    px = torch.exp(torch.from_numpy(x))
+    lens = torch.from_numpy(lengths)
+    ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
+    objf, gamma, ab, gs = _emulate(px, lens, fa, LEAKY, debug=True,
+                                   resident=True)
     torch.testing.assert_close(objf, ref.objf, rtol=1e-5, atol=0)
     torch.testing.assert_close(gamma, ref.gamma, rtol=0, atol=1e-5)
     torch.testing.assert_close(ab, ref.alpha_beta, rtol=0, atol=1e-5)
