@@ -30,7 +30,9 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    flat-start (make_numerator_fst) batches with unequal lengths and one
    infeasible sequence, the backward run twice for bit-identical gamma;
    then one batch of each size class the JAX package splits over three
-   TPU kernel pairs, with the kernels' and the plain version's times:
+   TPU kernel pairs, with each kernel's layout (semiring_kernels.plan:
+   threads, ring stages, resident lists, gamma rows), the kernels' and
+   the plain version's times:
    "semiring" (B5/B6) the flat-start batch of main path 2, "xl" (B7/B8)
    bench.py --xl (B=128, T=500, random_fst(1000, 3000, 5)), "xlstream"
    (B9/B10) tools/xl_stream_indomain.py (B=32, T=150,
@@ -55,7 +57,8 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    tolerance-3 constrained numerators (make_constrained_numerator) from
    each best path, then three ChainLoss SGD steps on them: the loss
    must fall, the alignment launch viterbi once and each step each of
-   the four loss kernels once;
+   the four loss kernels once; then the semiring kernels at this
+   constrained batch ("xl" by the JAX package's rule) as in phase 4;
 9. three size classes of the Viterbi kernel, each bit-identical to the
    plain version, with both times and the bound: "realign" (main path
    2's batch and x), "b11" (bench.py --viterbi: B=128, T=500,
@@ -103,8 +106,10 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    path that runs it (the xl_* rows: the probe's), its error against the
    plain version, its time, the plain version's time and the least time
    the card could take (bound_ms); the semiring and Viterbi kernels get
-   one row per size class, the cluster kernels one for main path 4 and
-   one for s8k, each with its plan;
+   one row per size class (the semiring kernels also one for main path
+   3's batch, and their layouts; main paths 2 and 3 launch them three
+   times each), the cluster kernels one for main path 4 and one for s8k,
+   each with its plan;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -486,9 +491,28 @@ def check_smem():
             c = xl.xl_mxu_smem_bytes(S, K, split)
             check(py == c, f"xl_mxu smem S_pad={S} K_pad={K} split={split}: "
                   f"Python {py} != source {c}")
+    from pychain_tpu_torch.ops import semiring_kernels as sk
+    for name in ("semiring_fwd", "semiring_bwd"):
+        getattr(build.load(name), f"{name}_smem_bytes").restype = \
+            ctypes.c_size_t
+    up = lambda n, m: -(-n // m) * m
+    for S, K, P, E in ((151, 300, 3000, 300), (1391, 2280, 3000, 600),
+                       (37, 45, 13, 7), (3500, 7091, 512, 512)):
+        for res, st in sk.FWD_LADDER:
+            py = sk.fwd_smem_bytes(S, K, st, res)
+            c = c_size("semiring_fwd", S, K, up(K, 4), st, int(res))
+            check(py == c, f"semiring_fwd smem S={S} K={K} stages={st} "
+                  f"resident={res}: Python {py} != source {c}")
+        for res, st, pipe, grows in sk.BWD_LADDER:
+            py = sk.bwd_smem_bytes(S, K, P, E, st, res, pipe, grows)
+            c = c_size("semiring_bwd", S, K, up(K, 4), up(S, 2), up(P, 4),
+                       E, st, int(res), int(pipe), int(grows))
+            check(py == c, f"semiring_bwd smem S={S} K={K} P={P} E={E} "
+                  f"{(res, st, pipe, grows)}: Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
           "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, stream_* at "
-          "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu)", flush=True)
+          "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu, semiring_* at "
+          "every layout of their ladders)", flush=True)
 
 
 def card_tests():
@@ -758,7 +782,7 @@ def sr_sweeps(g, x, lens):
     from pychain_tpu_torch.ops import semiring_kernels as sk
     from pychain_tpu_torch.ops.semiring import objective, prepare
     lens32 = lens.int()
-    warc, c, n0, lz0 = prepare(x, g)
+    warc, c, n0, lz0 = prepare(x, g, row_align=sk.WARC_ALIGN)
     n_ys, raw, n_last = sk.semiring_fwd(warc, n0, lens32, g)
     rows = objective(raw, n_last, c, lz0, lens32, g)[1:]
     return lens32, warc, n0, (n_ys, raw, n_last), rows
@@ -790,19 +814,24 @@ def bit_identical_gamma(g, x, lens, label):
     print(f"# {label}: gamma bit-identical over two backward runs")
 
 
-def sr_class(name, batch, x, lens, reps):
-    """One size class: errors, kernel and plain times, bytes and ops."""
+def sr_class(name, batch, x, lens, reps, label=None):
+    """One size class (or, ``label``, one main path's batch of that
+    class): errors, kernel and plain times, bytes and ops, the layouts."""
     from pychain_tpu_torch.ops import semiring_kernels as sk
     from pychain_tpu_torch.ops.semiring import backward_plain, forward_plain
     g = batch.semiring()
     B, T, P = x.shape
+    label = label or f"class {name}"
     check(size_class(B, g.k_pad, g.num_states) == name,
-          f"class {name}: B={B} K={g.k_pad} S={g.num_states} is "
-          f"{size_class(B, g.k_pad, g.num_states)!r} in the JAX package")
-    errs = sr_compare(g, x, lens, f"class {name}", want_ok=[True] * B)
+          f"{label}: B={B} K={g.k_pad} S={g.num_states} is "
+          f"{size_class(B, g.k_pad, g.num_states)!r} in the JAX package, "
+          f"not {name!r}")
+    layouts = sk.layouts(g, P)
+    print(f"# {label}: layouts {layouts}", flush=True)
+    errs = sr_compare(g, x, lens, label, want_ok=[True] * B)
     a_err = sr_alpha_err(g, x, lens)
-    print(f"# class {name}: alpha stream / raw sums err {a_err:.3e}")
-    check(a_err <= TOL, f"class {name}: alpha stream err {a_err:.3e}")
+    print(f"# {label}: alpha stream / raw sums err {a_err:.3e}")
+    check(a_err <= TOL, f"{label}: alpha stream err {a_err:.3e}")
     lens32, warc, n0, (n_ys, raw, n_last), rows = sr_sweeps(g, x, lens)
     fwd_ms = cuda_ms(lambda: sk.semiring_fwd(warc, n0, lens32, g), reps)
     bwd_ms = cuda_ms(lambda: sk.semiring_bwd(warc, n_ys, n0, lens32, *rows,
@@ -838,14 +867,15 @@ def sr_class(name, batch, x, lens, reps):
     bwd_bytes = (4 * arc_frames + 4 * state_frames + 4 * B * T * P
                  + 4 * B * T + 8 * L + 8 * sum_s + 4 * B + 12 * sum_k)
     bwd_ops = 5 * arc_frames + 4 * state_frames
-    print(f"# class {name}: B={B} T={T} K_pad={g.k_pad} "
+    print(f"# {label}: B={B} T={T} K_pad={g.k_pad} "
           f"S_pad={g.num_states} P={P} arcs {int(n_arcs.min())}.."
           f"{int(n_arcs.max())} states {int(n_states.min())}.."
           f"{int(n_states.max())}; semiring_fwd "
           f"{fwd_ms:.3f} ms, semiring_bwd {bwd_ms:.3f} ms; plain fwd "
           f"{plain_fwd_ms:.1f} ms, plain bwd {plain_bwd_ms:.1f} ms",
           flush=True)
-    return {"fwd": (fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops,
+    return {"class": name, "layouts": layouts,
+            "fwd": (fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops,
                     max(errs["objf_rel"], a_err)),
             "bwd": (bwd_ms, plain_bwd_ms, bwd_bytes, bwd_ops,
                     max(errs["gamma_abs"], errs["alpha_beta_abs"],
@@ -1069,30 +1099,16 @@ def vit_class(name, g, x, lens, reps):
     return ms, plain_ms, nbytes, ops, err, bad
 
 
-def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
-            counters, vit_counter):
-    """Main path 3 (examples/train_corpus.py:552-586): align main path
-    2's batch with its x, build tolerance-3 constrained numerators from
-    the best paths, then three ChainLoss SGD steps on them.  Every count
-    is set to 0 before the alignment and read after the last step."""
-    from pychain_tpu_torch import viterbi_align
+def constrained_fsts(res, x_lengths, flat_phones, num_phones):
+    """Tolerance-3 constrained numerators (make_constrained_numerator)
+    from the best paths ``res`` of viterbi_align, and the phone
+    durations read from them."""
     from pychain_tpu_torch.graphs.builder import (ChainTopology,
                                                   durations_from_alignment,
                                                   make_constrained_numerator)
-    for c in (*counters, vit_counter):
-        for k in c:
-            c[k] = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    res = viterbi_align(x.detach(), x_lengths, flat_batch)
-    end.record()
-    torch.cuda.synchronize()
-    align_ms = start.elapsed_time(end)
-    t0 = time.perf_counter()
     ok = res.ok.cpu().numpy()
     states = res.states.cpu().numpy()
-    lens = x_lengths.cpu().numpy()
+    lens = torch.as_tensor(x_lengths).cpu().numpy()
     check(bool(ok.all()), f"realign: {int((~ok).sum())} sequences have no "
           "alignment")
     topo = ChainTopology(num_phones=num_phones)
@@ -1104,6 +1120,29 @@ def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
         durs_all.append(durs)
         fsts.append(make_constrained_numerator(phones, durs, topo,
                                                tolerance=3))
+    return fsts, durs_all
+
+
+def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
+            counters, vit_counter):
+    """Main path 3 (examples/train_corpus.py:552-586): align main path
+    2's batch with its x, build tolerance-3 constrained numerators from
+    the best paths, then three ChainLoss SGD steps on them.  Every count
+    is set to 0 before the alignment and read after the last step."""
+    from pychain_tpu_torch import viterbi_align
+    for c in (*counters, vit_counter):
+        for k in c:
+            c[k] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = viterbi_align(x.detach(), x_lengths, flat_batch)
+    end.record()
+    torch.cuda.synchronize()
+    align_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    fsts, durs_all = constrained_fsts(res, x_lengths, flat_phones,
+                                      num_phones)
     batch, batch_ms = list_batch(fsts, x.device)
     host_ms = (time.perf_counter() - t0) * 1e3
     g = batch.semiring()
@@ -1124,7 +1163,7 @@ def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
     check(vit_counter["viterbi"] == 1, f"realign: viterbi launched "
           f"{vit_counter['viterbi']} times, want 1")
     profiled_step(loss_mod, x, x_lengths, batch, "constrained numerators")
-    return step_ms, launches, align_ms, host_ms
+    return step_ms, launches, align_ms, host_ms, batch
 
 
 def decoding(dev, B, T, vit_counter):
@@ -1522,11 +1561,16 @@ def main():
 
     # -- phase 8: main path 3, realignment -------------------------------
     x_flat = x.detach().clone()      # main path 2's x, for the class below
-    re_step_ms, re_launches, align_ms, _ = realign(
+    re_step_ms, re_launches, align_ms, _, re_batch = realign(
         loss_mod, x, x_lengths, flat_batch,
         flat_start_phones(B, 1500, 100, 150, seed=0), 1500,
         (fk.LAUNCHES, sk.LAUNCHES), vk.LAUNCHES)
     del x
+    # the semiring pair at main path 3's constrained batch (the "xl" class
+    # by the JAX package's rule), under the x it was aligned on
+    classes["path3"] = sr_class("xl", re_batch, x_flat, lens, 5,
+                                label="main path 3's batch")
+    del re_batch
 
     # -- phase 9: the Viterbi size classes -------------------------------
     vit_classes = {"realign": vit_class("realign", flat_batch.semiring(),
@@ -1592,18 +1636,29 @@ def main():
             "ring_stages": head_stages if name == "fact_bwd" else 0,
             "s8k_ms": s8k_fact_ms[0 if name == "fact_fwd" else 1],
             "library_ms": None})
-    for cls, res in classes.items():
+    # main path 2 runs the "semiring" class (the flat-start batch), main
+    # path 3 its constrained batch ("xl" by the JAX package's rule); the
+    # other rows are kernel checks at bench.py's and the tool's sizes
+    sr_launches = {"semiring": flat_launches, "path3": re_launches}
+    for batch_name, res in classes.items():
+        cls = res["class"]
         for i, side in enumerate(("fwd", "bwd")):
             ms, plain_ms, nbytes, ops, err = res[side]
             name = f"semiring_{side}"
+            lay = res["layouts"][name]
             bms, by = bound(nbytes, ops, PEAK_F64_FLOPS)
             rows.append({
                 "name": name, "route": "cuda", "size_class": cls,
+                "batch": {"path3": "main path 3"}.get(batch_name,
+                                                      batch_name),
                 "source": f"pychain_tpu_torch/csrc/{name}.cu",
                 "replaces": SR_CLASSES[cls][i],
-                # main path 2 runs only the "semiring" class
-                "launches": flat_launches[name] if cls == "semiring" else 0,
-                "on_main_path": cls == "semiring",
+                "launches": sr_launches.get(batch_name, {}).get(name, 0),
+                "on_main_path": batch_name in sr_launches,
+                "threads": lay.threads, "stages": lay.stages,
+                "resident": lay.resident,
+                **({"pipe": lay.pipe, "grows": lay.grows}
+                   if side == "bwd" else {}),
                 "max_abs_err": err, "max_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "bytes": nbytes, "ops": ops, "library_ms": None})

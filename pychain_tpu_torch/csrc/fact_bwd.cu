@@ -66,76 +66,6 @@
 
 #include "fact_common.cuh"
 
-// The ring's TMA pieces: an mbarrier in shared memory that
-// bulk copies complete, and the copies.  One thread arms the barrier with
-// the bytes to expect and issues the copies (cp.async.bulk, one per
-// contiguous row); every thread that reads the stage first waits for the
-// barrier's phase (parity) to complete.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-  // make the initialised barrier visible to the copy engine
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// An L2 policy for data read once: evicted first.
-__device__ __forceinline__ unsigned long long evict_first_policy() {
-  unsigned long long policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(policy));
-  return policy;
-}
-
-// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
-// device memory to this CTA's shared memory; the copy engine completes
-// that many bytes of the transaction count of `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar,
-                                          unsigned long long policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
-      : "memory");
-}
-
-// Order this CTA's earlier generic-proxy accesses to shared memory
-// before later copy-engine (async-proxy) ones: a stage read by every
-// thread, then (after a barrier) overwritten by a bulk copy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // Stream rows a frame reads: x_dst(u), W1 alpha'(u), alpha'(u) (the
 // forward sweep's row u - 1) and, outside identity mode, x_src(u).
 #define RING_XDST 0

@@ -1,11 +1,13 @@
 // Shared pieces of the port's kernels (fact_fwd.cu, fact_bwd.cu,
 // stream_fwd.cu, stream_bwd.cu, semiring_fwd.cu, semiring_bwd.cu;
 // viterbi.cu takes only fact_set_smem): block shape, deterministic
-// block-wide and cluster-wide reductions and the sparse row products.
+// block-wide, warp-wide and cluster-wide reductions, the sparse row
+// products and the TMA pieces (bulk copies, mbarriers, bulk groups).
 //
 // Every kernel but the cluster pair gives one thread block to one batch
 // column (sequence) and runs that column's whole time loop inside the
-// block; a thread owns the state rows s = threadIdx.x + k * FACT_THREADS.
+// block; a thread owns the state rows s = threadIdx.x + k * FACT_THREADS
+// (the semiring pair: k * blockDim.x, a block sized to the graph).
 // The cluster pair (stream_*.cu) gives one thread-block cluster to a
 // group of G columns: CTA r of the cluster owns the 32-row slices
 // k = r (mod C) of the states, computes those rows in all G columns, and
@@ -304,6 +306,125 @@ __device__ __forceinline__ void cluster_rank_sum(const float* slot,
 #pragma unroll
     for (int k = 0; k < NV; ++k) v[k] += s[k];
   }
+}
+
+// TMA pieces (fact_bwd.cu's ring, the semiring pair's rings and gamma
+// rows): an mbarrier in shared memory that bulk copies complete, and the
+// copies.  One thread arms the barrier with
+// the bytes to expect and issues the copies (cp.async.bulk, one per
+// contiguous row); every thread that reads the stage first waits for the
+// barrier's phase (parity) to complete.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  // make the initialised barrier visible to the copy engine
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// An L2 policy for data read once: evicted first.
+__device__ __forceinline__ unsigned long long evict_first_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// device memory to this CTA's shared memory; the copy engine completes
+// that many bytes of the transaction count of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar,
+                                          unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// Order this CTA's earlier generic-proxy accesses to shared memory
+// before later copy-engine (async-proxy) ones: a stage read by every
+// thread, then (after a barrier) overwritten by a bulk copy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// this CTA's shared memory to device memory, as one bulk copy of the
+// issuing thread's current bulk group.  The threads that wrote the
+// source fence their writes (fence_proxy_async) before the barrier after
+// which one thread issues the copy.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until the issuing thread's bulk groups have read their shared
+// memory sources (the buffers may then be rewritten) ...
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// ... or have completed (before the CTA exits).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Sum and max over a warp, every lane receiving the same bits (a
+// butterfly: lane l adds x_l and x_{l^off}, commutative in IEEE
+// arithmetic).
+template <typename F>
+__device__ __forceinline__ F warp_sum_all(F x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename F>
+__device__ __forceinline__ F warp_max_all(F x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmax(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
 }
 
 // Dynamic shared memory above 48 KB must be asked for per kernel.

@@ -174,27 +174,31 @@ def semiring_arrays(graphs, max_k: int, max_s: int) -> SemiringArrays:
 # Glue shared by the plain version and the kernels' wrapper
 # ----------------------------------------------------------------------
 
-def prepare(x, g: SemiringArrays):
+def prepare(x, g: SemiringArrays, row_align: int = 1):
     """Arc weights and the normalised initial state
     (pallas_semiring.py:264-277, semiring_xl.py:642-653).
 
     Returns warc (B, T, K_pad) = exp(logp + x[pdf] - c) in x's float
     type, c (B, T) the per-(sequence, frame) arc max (0 where no arc is
     alive), n0 (B, S_pad) the initial probs normalised to sum 1 and lz0
-    (B,) their log sum, both float64 (the carries' type)."""
+    (B,) their log sum, both float64 (the carries' type).  With
+    ``row_align`` > 1, warc is a view of storage whose rows are padded to
+    a multiple of that many elements (the CUDA kernels' bulk copies)."""
     B, T, _ = x.shape
     K = g.k_pad
     em = torch.gather(x, 2, g.pdf.long()[:, None, :].expand(B, T, K))
     arc = g.logp[:, None, :] + em
     c = arc.amax(dim=2)
     c = torch.where(torch.isfinite(c), c, torch.zeros_like(c))
-    warc = torch.exp(arc - c[:, :, None])
+    kw = -(-K // row_align) * row_align
+    warc = torch.empty(B, T, kw, dtype=arc.dtype, device=arc.device)
+    warc = torch.exp(arc - c[:, :, None], out=warc[:, :, :K])
     ei = torch.exp(g.initial.double())
     z0 = ei.sum(dim=1)
     lz0 = torch.where(z0 > 0, torch.log(torch.clamp(z0, min=TINY)),
                       torch.zeros_like(z0))
     n0 = ei / torch.clamp(z0, min=TINY)[:, None]
-    return warc.contiguous(), c, n0.contiguous(), lz0
+    return warc, c, n0.contiguous(), lz0
 
 
 def objective(raw, n_last, c, lz0, lengths, g: SemiringArrays):

@@ -284,6 +284,25 @@ def _list_batch(fsts, device=None):
         max_num_states=max(g.num_states for g in gs), device=device)
 
 
+def _odd_case(device):
+    """A list batch padded to K_pad 45 and S_pad 37 with P = 13 columns
+    of x (none a multiple of 4): a cyclic graph, a self-loop graph and
+    two flat-start numerators, the second (6 phones) too long for its 4
+    frames; lengths 10, 1, 7, 4 of T = 10."""
+    rng = np.random.RandomState(11)
+    topo = ChainTopology(num_phones=6)
+    fsts = [random_fst(num_states=12, num_pdfs=13, max_arcs_per_state=3,
+                       seed=11), _selfloop_fst(),
+            make_numerator_fst(rng.randint(0, 6, size=3), topo),
+            make_numerator_fst(rng.randint(0, 6, size=6), topo)]
+    batch = pt.ChainGraphBatch(
+        [pt.ChainGraph(f, log_domain=True) for f in fsts],
+        max_num_transitions=45, max_num_states=37, device=device)
+    x = torch.from_numpy(rng.randn(4, 10, 13).astype(np.float32)).to(device)
+    lens = torch.tensor([10, 1, 7, 4], device=device)
+    return batch._semiring, x, lens
+
+
 class TestSemiring:
 
     @pytest.mark.cuda
@@ -305,6 +324,74 @@ class TestSemiring:
     def test_cuda_entry_points_default_to_the_card(self, cuda):
         batch = _list_batch(_sr_fsts())                # device=None
         assert batch._semiring.device.type == "cuda"
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("rung", range(len(semk.BWD_LADDER)))
+    def test_cuda_every_layout_matches_plain(self, cuda, rung):
+        """Each layout plan() can pick, forced (semiring_bwd's rung of
+        its ladder, semiring_fwd's the same or its last) on a batch whose
+        K_pad, S_pad and P are no multiples of 4, at lengths 10, 1, 7
+        and 4 of T = 10, the last infeasible: alpha stream and raw sums,
+        objf, gamma and traces against the plain version, exact zeros
+        past each length and on the infeasible sequence, gamma
+        bit-identical on a rerun."""
+        g, x, lens = _odd_case(cuda)
+        B, T, P = x.shape
+        S, K = g.num_states, g.k_pad
+        assert (S % 4, K % 4, P % 4) != (0, 0, 0) and S % 2 and K % 2
+        fres, fst = semk.FWD_LADDER[min(rung, len(semk.FWD_LADDER) - 1)]
+        res, st, pipe, grows = semk.BWD_LADDER[rung]
+        fl = semk.Layout(semk.threads_for(S), fst, fres)
+        bl = semk.Layout(semk.threads_for(max(S, K)), st, res, pipe, grows)
+        lens32 = lens.int()
+        warc, c, n0, lz0 = sr.prepare(x, g, row_align=semk.WARC_ALIGN)
+        n_ys, raw, n_last = semk.semiring_fwd(warc, n0, lens32, g,
+                                              layout=fl)
+        ref_n, ref_raw = sr.forward_plain(warc, n0, g)
+        live = torch.arange(T, device=cuda)[None, :] < lens[:, None]
+        torch.testing.assert_close(n_ys[live], ref_n[live], rtol=0,
+                                   atol=1e-4)
+        torch.testing.assert_close(raw[live], ref_raw[live], rtol=1e-4,
+                                   atol=0)
+        assert bool((raw[~live] == 1.0).all())
+        objf, rf, mf, c_row, cms = sr.objective(raw, n_last, c, lz0,
+                                                lens32, g)
+        gamma, ab = semk.semiring_bwd(warc, n_ys, n0, lens32, rf, mf, c_row,
+                                      cms, g, P, layout=bl)
+        again, ab2 = semk.semiring_bwd(warc, n_ys, n0, lens32, rf, mf,
+                                       c_row, cms, g, P, layout=bl)
+        assert torch.equal(again, gamma) and torch.equal(ab2, ab)
+        got = sr.package(objf, gamma, ab)
+        ref = sr.forward_backward_semiring(x, lens, g)
+        _assert_loss_close(got, ref)
+        assert got.ok.tolist() == ref.ok.tolist() == [True, True, True,
+                                                      False]
+        assert bool((gamma[~live] == 0).all()) and bool((ab[~live] == 0)
+                                                        .all())
+        assert bool((gamma[3] == 0).all()) and bool((ab[3] == 0).all())
+
+    @pytest.mark.cuda
+    def test_cuda_shape_at_the_limit_runs(self, cuda):
+        """2 S_pad + K_pad = 28,990 (S_pad 14,000, K_pad 990): the plan's
+        smallest layouts run and match the plain version."""
+        gs = [pt.ChainGraph(f, log_domain=True) for f in
+              (random_fst(num_states=40, num_pdfs=SR_P,
+                          max_arcs_per_state=6, seed=1), _selfloop_fst())]
+        batch = pt.ChainGraphBatch(gs, max_num_transitions=990,
+                                   max_num_states=14000, device=cuda)
+        g = batch._semiring
+        lay = semk.layouts(g, SR_P)
+        assert lay["semiring_bwd"] == semk.Layout(1024, 0, False, False,
+                                                  False)
+        assert lay["semiring_fwd"] == semk.Layout(1024, 0, False)
+        x = torch.from_numpy(np.random.RandomState(12).randn(
+            2, 6, SR_P).astype(np.float32)).to(cuda)
+        lens = torch.tensor([6, 3], dtype=torch.int32, device=cuda)
+        semk.reset_launch_counts()
+        got = semk.forward_backward_semiring_kernel(x, lens, g)
+        assert semk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
+        ref = sr.forward_backward_semiring(x, lens, g)
+        _assert_loss_close(got, ref)
 
 
 # ----------------------------------------------------------------------

@@ -124,68 +124,107 @@ def test_plain_matches_jax_engines(impl, monkeypatch):
 # Emulation of the CUDA kernels on the arrays they read
 # ----------------------------------------------------------------------
 
-@np.errstate(divide="ignore")          # log 0 = -inf, as logf gives
+def _warp_all(x, op=np.add):
+    """fact_common.cuh's warp_sum_all / warp_max_all on 32 lanes: a
+    butterfly, every lane ending with the same bits."""
+    x = np.array(x, np.float64)
+    for off in (16, 8, 4, 2, 1):
+        x = op(x, x[np.arange(32) ^ off])
+    return x[0]
+
+
+def _block_all(parts, op=np.add):
+    """A frame's reduction: each warp's lanes, then the warps' slots in
+    warp order, both by the butterfly."""
+    nthr = len(parts)
+    slots = [_warp_all(parts[w:w + 32], op) for w in range(0, nthr, 32)]
+    return _warp_all(slots + [0.0] * (32 - len(slots)), op)
+
+
+@np.errstate(divide="ignore")          # log 0 = -inf, as log gives
 def _emulate(x, lengths, g):
-    """csrc/semiring_fwd.cu and csrc/semiring_bwd.cu, one sequence, frame
-    and list at a time: float32 weights in, float64 carries."""
+    """csrc/semiring_fwd.cu and csrc/semiring_bwd.cu, one sequence, frame,
+    thread and list at a time, at the plan's thread counts: float32
+    weights in, float64 carries; the unnormalised alpha and b in parity
+    buffers, normalised by the reader (a_prev[src] * inv_prev,
+    b_prev[dst] * inv_prev); one reduction a frame over the threads'
+    partials; the occupancies a thread an out-list slot; b[s] over s's
+    out-list in ascending order; gamma a frame late over the compact pdf
+    list into a row zeroed once."""
     warc, c, n0, lz0 = sr.prepare(x, g)
     B, T, P_ = x.shape
     S, K = g.num_states, g.k_pad
     f64 = np.float64
     w, n0n = warc.numpy().astype(f64), n0.numpy()
+    kl = sk.kernel_lists(g)
+    lay = sk.plan(S, K, P_, kl.E)
     ids = {k: getattr(g, k).numpy() for k in
-           ("src", "dst", "in_ptr", "in_arcs", "out_ptr", "out_arcs",
-            "pdf_ptr", "pdf_arcs")}
+           ("in_ptr", "out_ptr", "out_arcs", "pdf_arcs")}
+    ids.update({k: getattr(kl, k).numpy() for k in
+                ("in_pack", "out_sd", "emit_pdf", "emit_ptr", "n_emit")})
     n_ys = np.full((B, T, S), np.nan)           # rows never written: NaN
     raw = np.ones((B, T))
     n_last = np.full((B, S), np.nan)
+    nthr = lay["semiring_fwd"].threads
     for b in range(B):
-        ptr, arcs, src = ids["in_ptr"][b], ids["in_arcs"][b], ids["src"][b]
-        n = n0n[b].copy()
+        ptr, pack = ids["in_ptr"][b], ids["in_pack"][b]
+        a_prev, inv = n0n[b].copy(), f64(1.0)
         for t in range(int(lengths[b])):
             a = np.zeros(S)
+            parts = np.zeros(nthr)
             for d in range(S):
                 acc = f64(0)
-                for k in arcs[ptr[d]:ptr[d + 1]]:
-                    acc += n[src[k]] * w[b, t, k]
+                for pk in pack[ptr[d]:ptr[d + 1]]:
+                    acc += (a_prev[pk >> 16] * inv) * w[b, t, pk & 0xffff]
                 a[d] = acc
-            r = a.sum()
-            n = a * (1.0 / max(r, sr.TINY))
-            n_ys[b, t], raw[b, t] = n, r
-        n_last[b] = n
+                parts[d % nthr] += acc
+            if t > 0:
+                n_ys[b, t - 1] = a_prev * inv
+            r = _block_all(parts)
+            raw[b, t] = r
+            a_prev, inv = a, 1.0 / max(r, sr.TINY)
+        n_ys[b, int(lengths[b]) - 1] = n_last[b] = a_prev * inv
     objf, rf, mf, c_row, cms = sr.objective(
         torch.from_numpy(raw), torch.from_numpy(n_last), c, lz0, lengths, g)
     rf, mf, c_row, cms = (v.numpy() for v in (rf, mf, c_row, cms))
     gamma = np.zeros((B, T, P_))
     ab = np.zeros((B, T))
+    nthr = lay["semiring_bwd"].threads
     for b in range(B):
-        optr, oarcs, dst = (ids["out_ptr"][b], ids["out_arcs"][b],
-                            ids["dst"][b])
-        pptr, parcs = ids["pdf_ptr"][b], ids["pdf_arcs"][b]
-        r, m = rf[b].copy(), mf[b]
+        optr, oarcs, osd = (ids["out_ptr"][b], ids["out_arcs"][b],
+                            ids["out_sd"][b])
+        eptr, epdf = ids["emit_ptr"][b], ids["emit_pdf"][b]
+        parcs = ids["pdf_arcs"][b]
+        b_prev, inv, m = rf[b].copy(), f64(1.0), mf[b]
+        row = np.zeros(P_)                       # zeroed once
         for u in range(int(lengths[b]) - 1, -1, -1):
             a_u = n0n[b] if u == 0 else n_ys[b, u - 1]
+            la = np.log(a_u)                     # once a state
             scale = m + c_row[b, u]
-            occ = np.full(K, np.nan)
             bl = np.zeros(S)
-            trace = f64(0)
+            mx = np.zeros(nthr)
             for s in range(S):
-                la = np.log(a_u[s])
                 acc = f64(0)
-                for k in oarcs[optr[s]:optr[s + 1]]:
-                    v = w[b, u, k] * r[dst[k]]
-                    acc += v
-                    occ[k] = np.exp(min(la + np.log(v) + scale,
-                                        sr.EXP_CLAMP))
-                    trace += occ[k]
+                for q in range(optr[s], optr[s + 1]):
+                    acc += w[b, u, oarcs[q]] * (b_prev[osd[q] & 0xffff] * inv)
                 bl[s] = acc
-            ab[b, u] = trace
-            mx = max(bl.max(), sr.TINY)
-            r = bl * (1.0 / mx)
-            m = m + cms[b, u] + np.log(mx)
-            for p in range(min(g.n_pdfs, P_)):
-                gamma[b, u, p] = sum((occ[k] for k in
-                                      parcs[pptr[p]:pptr[p + 1]]), f64(0))
+                mx[s % nthr] = max(mx[s % nthr], acc)
+            occ = np.full(K, np.nan)
+            trace = np.zeros(nthr)
+            for q in range(optr[S]):             # a thread a slot
+                k, sd = oarcs[q], osd[q]
+                v = w[b, u, k] * (b_prev[sd & 0xffff] * inv)
+                occ[k] = np.exp(min(la[sd >> 16] + np.log(v) + scale,
+                                    sr.EXP_CLAMP))
+                trace[q % nthr] += occ[k]
+            ab[b, u] = _block_all(trace)
+            mxb = _block_all(mx, np.maximum)
+            b_prev, inv = bl, 1.0 / max(mxb, sr.TINY)
+            m = m + cms[b, u] + np.log(max(mxb, sr.TINY))
+            for e in range(ids["n_emit"][b]):    # the compact pdf list
+                row[epdf[e]] = sum((occ[k] for k in
+                                    parcs[eptr[e]:eptr[e + 1]]), f64(0))
+            gamma[b, u] = row.astype(np.float32)
     return sr.package(objf, torch.from_numpy(gamma), torch.from_numpy(ab))
 
 
@@ -373,16 +412,19 @@ def test_size_classes_and_shared_memory_limits():
             SimpleNamespace(src_oh=SimpleNamespace(shape=(b, k, s))))
         assert (want == "semiring") == dense
         assert (want == "xlstream") == (not j_xl.fits_xl_budget(k, s))
-    assert sk.smem_bytes(151, 300)["semiring_bwd"] == (2 * 151 + 300 + 66) * 8
+    # the smallest layout: b's two double vectors, one double occupancy
+    # a padded arc and 64 warp slots
+    assert sk.bwd_smem_bytes(151, 300, 3000, 300, 0, False, False,
+                             False) == (2 * 151 + 300 + 64) * 8
     g = _batches(_fsts())[0]._semiring
     assert sk.fits_on_chip(g)
-    # one block's shared memory takes 2 S_pad + K_pad <= 28,990 doubles
+    # one block's shared memory takes 2 S_pad + K_pad <= 28,992 doubles
     ids = lambda k: torch.zeros(1, k, dtype=torch.int32)
     s = g.num_states
     assert sk.fits_on_chip(sr.SemiringArrays(
-        **{**vars(g), "src": ids(28990 - 2 * s)}))
+        **{**vars(g), "src": ids(28992 - 2 * s)}))
     assert not sk.fits_on_chip(sr.SemiringArrays(
-        **{**vars(g), "src": ids(28991 - 2 * s)}))
+        **{**vars(g), "src": ids(28993 - 2 * s)}))
 
 
 def test_list_build_is_vectorised_and_matches_per_graph_lists():
@@ -397,3 +439,128 @@ def test_list_build_is_vectorised_and_matches_per_graph_lists():
             assert torch.equal(getattr(one, f)[0], getattr(g, f)[b]), f
         n = one.n_pdfs
         assert torch.equal(one.pdf_ptr[0], g.pdf_ptr[b, :n + 1])
+
+
+def _constrained_fsts(seed=0):
+    """Tolerance-3 constrained numerators (main path 3's kind) over
+    seeded phone sequences and durations."""
+    from pychain_tpu_torch.graphs.builder import make_constrained_numerator
+    rng = np.random.RandomState(seed)
+    topo = ChainTopology(num_phones=P // 2)
+    out = []
+    for n in (3, 5, 4):
+        phones = rng.randint(0, P // 2, size=n)
+        durs = list(rng.randint(2, 6, size=n))
+        out.append(make_constrained_numerator(phones, durs, topo,
+                                              tolerance=3))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["flat_start", "cyclic", "self_loop",
+                                  "constrained"])
+def test_kernel_lists_hold_every_arc_once_in_ascending_order(kind):
+    """The compact pdf list semiring_bwd walks: only the pdfs a graph
+    emits, ascending, and together their lists hold each real arc exactly
+    once, ascending within a pdf; the packed in- and out-list slots
+    decode to the lists' own source, destination and arc ids."""
+    rng = np.random.RandomState(3)
+    topo = ChainTopology(num_phones=P // 2)
+    fsts = {"flat_start": [make_numerator_fst(rng.randint(0, P // 2,
+                                                          size=n), topo)
+                           for n in (2, 5, 3)],
+            "cyclic": [random_fst(num_states=30, num_pdfs=P,
+                                  max_arcs_per_state=5, seed=s)
+                       for s in range(3)],
+            "self_loop": [_selfloop_fst()] * 2,
+            "constrained": _constrained_fsts()}[kind]
+    g = _batches(fsts)[0]._semiring
+    kl = sk.kernel_lists(g)
+    assert sk.kernel_lists(g) is kl                 # built once a batch
+    src, dst, pdf = (t.numpy() for t in (g.src, g.dst, g.pdf))
+    for b in range(g.rows):
+        real = np.nonzero(src[b] < g.num_states)[0]
+        n = int(kl.n_emit[b])
+        pdfs = kl.emit_pdf[b, :n].numpy()
+        assert sorted(set(pdf[b][real])) == list(pdfs)
+        ptr = kl.emit_ptr[b].numpy()
+        assert ptr[0] == 0 and (ptr[n:] == len(real)).all()
+        arcs = g.pdf_arcs[b].numpy()
+        seen = []
+        for e, p in enumerate(pdfs):
+            grp = arcs[ptr[e]:ptr[e + 1]]
+            assert len(grp) > 0 and (pdf[b][grp] == p).all()
+            assert (np.diff(grp) > 0).all()
+            seen.extend(grp)
+        assert sorted(seen) == list(real) and len(seen) == len(set(seen))
+        n_in = int(g.in_ptr[b, -1])
+        pack = kl.in_pack[b, :n_in].numpy()
+        in_arcs = g.in_arcs[b, :n_in].numpy()
+        assert (pack & 0xffff == in_arcs).all()
+        assert (pack >> 16 == src[b][in_arcs]).all()
+        out_arcs = g.out_arcs[b, :n_in].numpy()
+        sd = kl.out_sd[b, :n_in].numpy()
+        assert (sd >> 16 == src[b][out_arcs]).all()
+        assert (sd & 0xffff == dst[b][out_arcs]).all()
+
+
+def test_layout_rule_by_arithmetic():
+    """plan() on the shapes of main paths 2 and 3, the xl and xlstream
+    classes and the limit: each kernel's layout is the first of its
+    ladder that fits a block's 232,448 bytes, its shared memory is the
+    kernels' own formula, and its block the multiple of 32 threads that
+    covers the graph, at most 1024."""
+    ladder = {"semiring_fwd": [sk.Layout(0, st, res)
+                               for res, st in sk.FWD_LADDER],
+              "semiring_bwd": [sk.Layout(0, st, res, pipe, grows)
+                               for res, st, pipe, grows in sk.BWD_LADDER]}
+
+    def fwd_formula(S, K, lay):
+        kw = -(-K // 4) * 4
+        return (lay.stages * (4 * kw + 8) + 2 * 8 * S + 2 * 32 * 8
+                + (4 * (S + 1 + K) if lay.resident else 0))
+
+    def bwd_formula(S, K, P_, E, lay):
+        kw, sw, pw = -(-K // 4) * 4, -(-S // 2) * 2, -(-P_ // 4) * 4
+        nb = 2 if lay.pipe else 1
+        return (lay.stages * (4 * kw + 8 * sw + 8)
+                + (2 * 4 * pw if lay.grows else 0)
+                + 8 * S * (4 if lay.pipe else 2) + nb * (8 * K + 64 * 8)
+                + (4 * (S + 1 + 3 * K + 2 * E + 1) if lay.resident else 0))
+
+    # (S_pad, K_pad, P, E): the picks' ladder indices and threads
+    cases = {"path 2": ((151, 300, 3000, 300), (0, 0), (160, 320)),
+             "path 3": ((1391, 2280, 3000, 600), (0, 0), (1024, 1024)),
+             "xl": ((1000, 3103, 3000, 3000), (0, 1), (1024, 1024)),
+             "xlstream": ((3500, 7091, 512, 512), (0, 3), (1024, 1024)),
+             "limit": ((10000, 8990, 3000, 3000), (3, 5), (1024, 1024)),
+             "odd": ((37, 45, 13, 7), (0, 0), (64, 64))}
+    for name, ((S, K, P_, E), picks, threads) in cases.items():
+        plan = sk.plan(S, K, P_, E)
+        for kernel, pick, nthr in zip(("semiring_fwd", "semiring_bwd"),
+                                      picks, threads):
+            lay = plan[kernel]
+            assert lay.threads == nthr, (name, kernel)
+            want = ladder[kernel][pick]
+            assert (lay.stages, lay.resident) == (want.stages,
+                                                  want.resident), name
+            if kernel == "semiring_bwd":
+                assert (lay.pipe, lay.grows) == (want.pipe, want.grows)
+                sizes = [bwd_formula(S, K, P_, E, c) for c in
+                         ladder[kernel]]
+                assert sk.bwd_smem_bytes(
+                    S, K, P_, E, lay.stages, lay.resident, lay.pipe,
+                    lay.grows) == sizes[pick]
+            else:
+                sizes = [fwd_formula(S, K, c) for c in ladder[kernel]]
+                assert sk.fwd_smem_bytes(S, K, lay.stages,
+                                         lay.resident) == sizes[pick]
+            assert sizes[pick] <= 232448
+            assert all(v > 232448 for v in sizes[:pick]), (name, kernel)
+    # 2 S_pad + K_pad = 28,990 runs (in the smallest layouts), one past
+    # 28,992 does not
+    assert sk.plan(14000, 990, 3000, 990)["semiring_bwd"] == sk.Layout(
+        1024, 0, False, False, False)
+    with pytest.raises(NotImplementedError, match="28,992"):
+        sk.plan(14000, 993, 3000, 993)
+    assert sk.threads_for(1) == 32 and sk.threads_for(33) == 64
+    assert sk.threads_for(5000) == 1024
