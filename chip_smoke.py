@@ -60,9 +60,11 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    the four loss kernels once; then the semiring kernels at this
    constrained batch ("xl" by the JAX package's rule) as in phase 4;
 9. three size classes of the Viterbi kernel, each bit-identical to the
-   plain version, with both times and the bound: "realign" (main path
-   2's batch and x), "b11" (bench.py --viterbi: B=128, T=500,
-   random_fst(512, 512, 4)), "decode" (the graph of phase 10);
+   plain version, with its layout (viterbi_kernels.plan: threads, L
+   lanes a state, the x ring's stages, resident lists, the
+   backpointers' width and place), both times and the bound: "realign"
+   (main path 2's batch and x), "b11" (bench.py --viterbi: B=128,
+   T=500, random_fst(512, 512, 4)), "decode" (the graph of phase 10);
 10. decoding: PhoneDecoder over a bigram phone LM of 2,000 seeded
    transcripts of 20-60 phones over 48 phones (ChainTopology(48): S=49,
    K=2,400, P=96), once on random x and once on +-8 oracle emissions, at
@@ -107,8 +109,9 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    plain version, its time, the plain version's time and the least time
    the card could take (bound_ms); the semiring and Viterbi kernels get
    one row per size class (the semiring kernels also one for main path
-   3's batch, and their layouts; main paths 2 and 3 launch them three
-   times each), the cluster kernels one for main path 4 and one for s8k,
+   3's batch; both pairs' rows with their layouts; main paths 2 and 3
+   launch the semiring pair three times each), the cluster kernels one
+   for main path 4 and one for s8k,
    each with its plan;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
@@ -509,10 +512,22 @@ def check_smem():
                        E, st, int(res), int(pipe), int(grows))
             check(py == c, f"semiring_bwd smem S={S} K={K} P={P} E={E} "
                   f"{(res, st, pipe, grows)}: Python {py} != source {c}")
+    from pychain_tpu_torch.ops import viterbi_kernels as vk
+    build.load("viterbi").viterbi_smem_bytes.restype = ctypes.c_size_t
+    for S, K, P, T in ((151, 300, 3000, 500), (49, 2400, 96, 500),
+                       (512, 1400, 512, 500), (3, 304, 8, 9),
+                       (29056, 60, 12, 40)):
+        for res, st, bps in vk.CHOICES:
+            for width in (1, 2, 4):
+                py = vk.smem_bytes(S, K, T, P, st, res, bps, width)
+                c = c_size("viterbi", S, K, T, P, st, int(res), int(bps),
+                           width)
+                check(py == c, f"viterbi smem S={S} K={K} T={T} P={P} "
+                      f"{(res, st, bps, width)}: Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
           "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, stream_* at "
-          "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu, semiring_* at "
-          "every layout of their ladders)", flush=True)
+          "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu, semiring_* and "
+          "viterbi at every layout their plans can choose)", flush=True)
 
 
 def card_tests():
@@ -1052,13 +1067,16 @@ def vit_small(dev):
 
 def vit_bytes_ops(g, lens, B, T):
     """What the function must move and compute for this run's data: x at
-    each graph's pdfs and one backpointer per state of each graph, for
-    live frames; each distinct graph's arrays once (src, pdf, logp;
-    initial, final, in-arc offsets); lengths, objf, pdfs and states.  A
-    backpointer need only name the winner's place in its state's in-arc
-    list: ceil(log2(max in-degree)) bits, in whole bytes, at least one
-    (the kernel writes int32 arc ids, a choice of its design).
-    Operations: two adds and a compare per arc and live frame."""
+    each graph's pdfs for live frames; each distinct graph's arrays once
+    (src, pdf, logp; initial, final, in-arc offsets); lengths, objf,
+    pdfs and states; and one backpointer per state of each graph and
+    live frame, but only for a sequence whose backpointers and
+    double-buffered scores do not fit one block's shared memory (the
+    others stay on chip).  A backpointer need only name the winner's
+    place in its state's in-arc list: ceil(log2(max in-degree)) bits, in
+    whole bytes, at least one.  Operations: two adds and a compare per
+    arc and live frame."""
+    from pychain_tpu_torch.ops.fact_kernels import MAX_SMEM
     real = g.dst < g.num_states
     n_arcs = real.sum(dim=1)
     n_states = torch.where(real, torch.maximum(g.src, g.dst),
@@ -1069,14 +1087,16 @@ def vit_bytes_ops(g, lens, B, T):
     bp_bytes = max(1, -(-math.ceil(math.log2(max(max_in, 1))) // 8))
     per_b = (lambda v: v.expand(B)) if g.rows == 1 else (lambda v: v)
     L = lens.to(g.device).long()
+    bp_seq = bp_bytes * L * per_b(n_states)
+    off_chip = bp_seq + 8 * per_b(n_states) > MAX_SMEM
     nbytes = (4 * int((L * per_b(n_pdfs)).sum())
-              + bp_bytes * int((L * per_b(n_states)).sum())
+              + int(bp_seq[off_chip].sum())
               + 12 * int(n_arcs.sum()) + 12 * int(n_states.sum())
               + 8 * B + 8 * B * T)
     ops = 3 * int((L * per_b(n_arcs)).sum())
     return nbytes, ops, (int(n_arcs.min()), int(n_arcs.max()),
                          int(n_states.min()), int(n_states.max()), max_in,
-                         bp_bytes)
+                         bp_bytes, int(off_chip.sum()))
 
 
 def vit_class(name, g, x, lens, reps):
@@ -1087,16 +1107,24 @@ def vit_class(name, g, x, lens, reps):
     B, T, P = x.shape
     bad, err = vit_compare(g, x, lens, f"viterbi class {name}")
     lens32 = lens.int().to(x.device)
+    lay = vk.plan_for(g, P, T)
     ms = cuda_ms(lambda: vk.viterbi_sweep(x, lens32, g), reps)
     plain_ms = cuda_ms(lambda: viterbi_plain(x, lens32, g), 1)
-    nbytes, ops, (k0, k1, s0, s1, max_in, bp_bytes) = vit_bytes_ops(
+    nbytes, ops, (k0, k1, s0, s1, max_in, bp_bytes, n_off) = vit_bytes_ops(
         g, lens, B, T)
     print(f"# viterbi class {name}: B={B} T={T} P={P} rows={g.rows} "
           f"K_pad={g.k_pad} S_pad={g.num_states} arcs {k0}..{k1} states "
-          f"{s0}..{s1} max in-degree {max_in} (backpointer {bp_bytes} B in "
-          f"the bound) lengths {int(lens.min())}..{int(lens.max())}; "
+          f"{s0}..{s1} max in-degree {max_in} (backpointers of {bp_bytes} B, "
+          f"in the bound for the {n_off} sequences whose backpointers do "
+          f"not fit on chip) lengths {int(lens.min())}..{int(lens.max())}; "
+          f"layout: {lay.threads} threads, L={lay.lanes} lanes a state, "
+          f"x ring {lay.stages} stages, lists "
+          f"{'resident' if lay.resident else 'in device memory'}, "
+          f"{lay.bp_width}-byte positions in "
+          f"{'shared' if lay.bp_smem else 'device'} memory, "
+          f"{vk.layout_smem(lay, g.num_states, g.k_pad, T, P)} B shared; "
           f"viterbi {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
-    return ms, plain_ms, nbytes, ops, err, bad
+    return ms, plain_ms, nbytes, ops, err, bad, lay
 
 
 def constrained_fsts(res, x_lengths, flat_phones, num_phones):
@@ -1162,6 +1190,12 @@ def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
     print(f"# main path 3 launches: {launches}", flush=True)
     check(vit_counter["viterbi"] == 1, f"realign: viterbi launched "
           f"{vit_counter['viterbi']} times, want 1")
+    # after the path's counts are read: a second call on the same batch,
+    # whose kernel lists are built by then
+    again_ms = cuda_ms(lambda: viterbi_align(x.detach(), x_lengths,
+                                             flat_batch), 1)
+    print(f"# main path 3: viterbi_align again on the same batch "
+          f"{again_ms:.3f} ms (CUDA events)", flush=True)
     profiled_step(loss_mod, x, x_lengths, batch, "constrained numerators")
     return step_ms, launches, align_ms, host_ms, batch
 
@@ -1691,7 +1725,8 @@ def main():
                 "bytes": nbytes, "ops": ops, "library_ms": None})
     vit_launches = {"realign": re_launches["viterbi"],
                     "decode": dec_launches["viterbi"], "b11": 0}
-    for cls, (ms, plain_ms, nbytes, ops, err, bad) in vit_classes.items():
+    for cls, (ms, plain_ms, nbytes, ops, err, bad, lay) in \
+            vit_classes.items():
         bms, by = bound(nbytes, ops)
         rows.append({
             "name": "viterbi", "route": "cuda", "size_class": cls,
@@ -1701,6 +1736,7 @@ def main():
             # main path 3 runs the "realign" class, decoding "decode"
             "launches": vit_launches[cls],
             "on_main_path": cls != "b11",
+            "layout": dataclasses.asdict(lay),
             "max_abs_err": err, "max_err": err, "mismatches": bad,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops, "library_ms": None})

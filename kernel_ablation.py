@@ -13,16 +13,17 @@ pychain_tpu_torch/csrc/build/ablate/ and timed with CUDA events: B1/B2
 cluster pair (stream_fwd, stream_bwd) at main path 4's (the 12k-state
 Kaldi-topology denominator, B=128, T=500) at the plan it launches with,
 the semiring pair (semiring_fwd, semiring_bwd) at main path 2's
-flat-start batch and at main path 3's constrained batch.
+flat-start batch and at main path 3's constrained batch, the Viterbi
+kernel (viterbi) at chip_smoke.py's realign, decode and b11 classes.
 A variant computes wrong numbers by design; only its time means
 something: how much of the full kernel's time the removed phase
 accounts for (phases overlap, so the savings need not add up).  Some
 variants change what the host gives the kernel instead: B1/B2's
 operators in ascending slot order, fact_bwd without its ring, or a
 semiring kernel at another layout than its plan's (a step of its design
-taken away).  The semiring tables match the source they find (the
-first design or the redesign), so the script, copied into an older
-tree's ``ab_*/`` copy, ablates that tree's kernels.
+taken away).  The semiring and Viterbi tables match the source they
+find (the first design or the redesign), so the script, copied into an
+older tree's ``ab_*/`` copy, ablates that tree's kernels.
 ``--only`` times the named kernels' variants (``fact_fwd``) or single
 variants (``fact_bwd/full``) alone; ``full`` alone times a kernel as it
 is, to compare two trees of the repository.
@@ -206,12 +207,88 @@ SR_DESIGNS = {"semiring_fwd": [("block_sum<1>(part, red);", SR_FWD_FIRST),
                                ("gamma_stage(", SR_BWD)]}
 
 
+# The Viterbi kernel B11 in its first design: one block a
+# sequence, a thread a state walking its in-arc list from device memory,
+# int32 arc backpointers in device memory, the tail on thread 0.
+VIT_FIRST = {
+    "full": [],
+    "no_x_loads": [("float e = __ldg(xt + __ldg(pdf_g + k));",
+                    "float e = 1.0f;")],
+    # no backpointer stored, none read back (the walk runs, finds -1)
+    "no_bp_writes": [
+        ("bpt[s] = best > -CUDART_INF_F ? arg : -1;", ""),
+        ("const int arc = bp[(static_cast<size_t>(b) * T + t) * S + c];",
+         "const int arc = -1;")],
+    "no_tail": [("  if (tid != 0) return;\n  const float* fin",
+                 "  return;\n  const float* fin")],
+}
+# The redesign: L lanes a state, resident slot lists, x fetched ahead,
+# byte positions in shared memory, the end scoring on the block.  The
+# "layout" variants force another layout (a function of the plan's and
+# S_pad): a design step taken away.
+def _vit(**kw):
+    """A layout variant: the plan's with ``kw`` changed, its threads
+    recounted (L lanes a state, a producer warp with a ring)."""
+    def forced(lay, S):
+        from pychain_tpu_torch.ops import viterbi_kernels as vk
+        lay = dataclasses.replace(lay, **kw)
+        return dataclasses.replace(lay, threads=vk.threads_for(
+            S, lay.lanes, lay.stages > 0))
+    return {"layout": forced}
+
+
+def _lanes(f):
+    """A layout variant with L = f(the plan's L)."""
+    def forced(lay, S):
+        return _vit(lanes=max(1, min(32, f(lay.lanes))))["layout"](lay, S)
+    return {"layout": forced}
+
+
+VIT = {
+    "full": [],
+    "lanes_1": _lanes(lambda L: 1),
+    "lanes_x2": _lanes(lambda L: 2 * L),
+    "lanes_half": _lanes(lambda L: L // 2),
+    "no_resident": _vit(resident=False),
+    "no_ring": _vit(stages=0),
+    "ring_2": _vit(stages=2),
+    "ring_8": _vit(stages=8),
+    "bp_in_device_memory": _vit(bp_smem=False),
+    # the first design's data flow in the new kernel: one lane a state,
+    # lists, x and positions in device memory
+    "last_rung": _vit(lanes=1, stages=0, resident=False, bp_smem=False),
+    "no_unroll": [("#pragma unroll 4\n", "")],
+    "unroll_8": [("#pragma unroll 4\n", "#pragma unroll 8\n")],
+    "no_x_reads": [("float e = RING ? xr[col] : __ldg(xr + col);",
+                    "float e = 1.0f;")],
+    # the end scoring and the traceback
+    "no_tail": [("  // the end state: the lowest state of the max",
+                 "  return;\n  // the end state: the lowest state of the max")],
+    # no state's work: what is left of a frame is the ring, the barrier
+    # and the loop (no tail: the positions are never written)
+    "empty_frames": [
+        ("for (int base = 0; !producer && base < S; base += ngroups) {",
+         "for (int base = 0; false && base < S; base += ngroups) {"),
+        ("  // the end state: the lowest state of the max",
+         "  return;\n  // the end state: the lowest state of the max")],
+    # the arcs' work without the frame's stores and the tail
+    "no_stores": [
+        ("        nxt[s] = best;\n        bp_put(bpb, bp_row + s, bp_width, "
+         "arg >= 0 ? arg - beg : 0);",
+         "        if (best == 1.2345f) nxt[s] = best + arg;"),
+        ("  // the end state: the lowest state of the max",
+         "  return;\n  // the end state: the lowest state of the max")],
+}
+VIT_DESIGNS = {"viterbi": [("bpt[s] = best > -CUDART_INF_F ? arg : -1;",
+                            VIT_FIRST), ("bp_put(", VIT)]}
+
+
 def sr_table(kernel):
     """The variant table that matches this tree's source of a semiring
     kernel."""
     from pychain_tpu_torch.csrc import build
     src = (build.CSRC / f"{kernel}.cu").read_text()
-    for marker, table in SR_DESIGNS[kernel]:
+    for marker, table in {**SR_DESIGNS, **VIT_DESIGNS}[kernel]:
         if marker in src:
             return table
     raise SystemExit(f"{kernel}: no variant table matches the source")
@@ -319,6 +396,74 @@ def semiring_ablation(tables, use, time_ms, dev):
     return result
 
 
+def viterbi_batches(dev, B=128, T=500):
+    """chip_smoke.py's three Viterbi size classes: "realign" (main path
+    2's flat-start batch, K_pad 300, S_pad 151, under seeded x, all
+    lengths T), "decode" (PhoneDecoder's 48-phone bigram graph, shared,
+    P = 96, lengths 250..500) and "b11" (bench.py --viterbi: 128
+    random_fst(512, 512, 4)).  Returns {label: (SemiringArrays, x,
+    lengths)}."""
+    import numpy as np
+    import chip_smoke as cs
+    from pychain_tpu_torch import ChainGraphBatch
+    from pychain_tpu_torch.decode import PhoneDecoder
+    from pychain_tpu_torch.graphs.builder import (ChainTopology,
+                                                  estimate_phone_lm)
+    from pychain_tpu_torch.utils.testgraphs import random_fst
+    gen = torch.Generator(device=dev)
+    flat, _ = cs.list_batch(cs.flat_start_fsts(B, 1500, 100, 150, seed=0),
+                            dev, pad=(300, 151))
+    out = {"realign": (flat.semiring(), torch.randn(
+        B, T, 3000, generator=gen.manual_seed(4), device=dev),
+        torch.full((B,), T, device=dev))}
+    rng = np.random.RandomState(7)
+    texts = [[int(p) for p in rng.randint(0, 48, size=rng.randint(20, 61))]
+             for _ in range(2000)]
+    dec = PhoneDecoder(estimate_phone_lm(texts, num_phones=48, order=2),
+                       ChainTopology(num_phones=48))
+    out["decode"] = (ChainGraphBatch(dec.graph, B, device=dev).semiring(),
+                     torch.randn(B, T, 96, generator=gen.manual_seed(8),
+                                 device=dev),
+                     torch.from_numpy(rng.randint(T // 2, T + 1, size=B)))
+    b11, _ = cs.list_batch([random_fst(num_states=512, num_pdfs=512,
+                                       max_arcs_per_state=4, seed=s)
+                            for s in range(B)], dev)
+    out["b11"] = (b11.semiring(), torch.randn(
+        B, T, 512, generator=gen.manual_seed(9), device=dev),
+        torch.full((B,), T, device=dev))
+    return out
+
+
+def viterbi_ablation(table, use, time_ms, dev):
+    """B11's variants at its three size classes.  Runs on the redesign's
+    wrappers and on the first design's (a tree without layouts); each
+    forced layout must give the full kernel's bits."""
+    from pychain_tpu_torch.ops import viterbi_kernels as vk
+    result = {}
+    for label, (g, x, lens) in viterbi_batches(dev).items():
+        lens32 = lens.int().to(dev)
+        lay = vk.plan_for(g, x.shape[2], x.shape[1]) if hasattr(
+            vk, "plan_for") else None
+        tag = f"{label} {lay}" if lay else label
+        use("viterbi", "full")
+        want = vk.viterbi_sweep(x, lens32, g)
+        for name, variant in table.items():
+            use("viterbi", name)
+            opts = spec(variant)[1]
+            kw = {"layout": opts["layout"](lay, g.num_states)} \
+                if "layout" in opts else {}
+            if kw:
+                got = vk.viterbi_sweep(x, lens32, g, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise SystemExit(f"viterbi/{name} {label}: layout "
+                                     f"{kw['layout']} differs from the "
+                                     "plan's")
+            result[f"viterbi/{name} {tag}"] = time_ms(
+                lambda: vk.viterbi_sweep(x, lens32, g, **kw))
+        del x
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -331,7 +476,8 @@ def main():
 
     tables = {"fact_fwd": FWD, "fact_bwd": BWD, "stream_fwd": STREAM_FWD,
               "stream_bwd": STREAM_BWD, "semiring_fwd": sr_table(
-                  "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd")}
+                  "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
+              "viterbi": sr_table("viterbi")}
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
         tables = {k: {label: v for label, v in table.items()
@@ -440,6 +586,8 @@ def main():
                                        s_ys, ad0, s0, tot, P, debug=False))
     if tables["semiring_fwd"] or tables["semiring_bwd"]:
         result.update(semiring_ablation(tables, use, time_ms, dev))
+    if tables["viterbi"]:
+        result.update(viterbi_ablation(tables["viterbi"], use, time_ms, dev))
     for k, v in result.items():
         print(f"# {k:28s} {v:8.3f} ms")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

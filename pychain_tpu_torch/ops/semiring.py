@@ -75,6 +75,8 @@ class SemiringArrays:
     out_arcs: torch.Tensor  # (B, K_pad) int32
     pdf_ptr: torch.Tensor   # (B, n_pdfs + 1) int32: arcs by pdf
     pdf_arcs: torch.Tensor  # (B, K_pad) int32
+    max_in_degree: int      # the longest in-list, counted on the host
+                            # (after take: the whole batch's, a bound)
 
     @property
     def device(self) -> torch.device:
@@ -98,10 +100,13 @@ class SemiringArrays:
         """Number of pdf lists: one more than the largest pdf any arc emits."""
         return int(self.pdf_ptr.shape[1]) - 1
 
+    def _tensors(self):
+        return [f.name for f in dataclasses.fields(self)
+                if f.name != "max_in_degree"]
+
     def to(self, device) -> "SemiringArrays":
         return dataclasses.replace(self, **{
-            f.name: host_to(getattr(self, f.name), device)
-            for f in dataclasses.fields(self)})
+            n: host_to(getattr(self, n), device) for n in self._tensors()})
 
     def take(self, index) -> "SemiringArrays":
         """The batch rows ``index`` (every list is local to its row, so
@@ -109,8 +114,8 @@ class SemiringArrays:
         idx = torch.as_tensor(np.asarray(index), dtype=torch.long,
                               device=self.device)
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).index_select(0, idx)
-            for f in dataclasses.fields(self)})
+            n: getattr(self, n).index_select(0, idx)
+            for n in self._tensors()})
 
 
 def _lists(key: np.ndarray, valid: np.ndarray, n_rows: int):
@@ -147,7 +152,8 @@ def semiring_from_ids(src, dst, pdf, logp, initial, final) -> SemiringArrays:
         src=t(src), dst=t(dst), pdf=t(np.where(valid, pdf, 0)),
         logp=t(logp), initial=t(initial), final=t(final),
         in_ptr=t(in_ptr), in_arcs=t(in_arcs), out_ptr=t(out_ptr),
-        out_arcs=t(out_arcs), pdf_ptr=t(pdf_ptr), pdf_arcs=t(pdf_arcs))
+        out_arcs=t(out_arcs), pdf_ptr=t(pdf_ptr), pdf_arcs=t(pdf_arcs),
+        max_in_degree=int(np.diff(in_ptr, axis=1).max(initial=0)))
 
 
 def semiring_arrays(graphs, max_k: int, max_s: int) -> SemiringArrays:

@@ -21,6 +21,8 @@ same association).  The XL roofline probe's kernels are checked in
 chip_smoke.py, not here.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,7 @@ from pychain_tpu_torch.ops import semiring_kernels as semk
 from pychain_tpu_torch.ops import stream_kernels as stk
 from pychain_tpu_torch.ops import viterbi_kernels as vk
 from pychain_tpu_torch.ops.factorized import forward_backward_prob_fact
+from pychain_tpu_torch.ops.viterbi import viterbi_plain
 from pychain_tpu_torch.decode import PhoneDecoder
 from pychain_tpu_torch.utils.testgraphs import (denominator_fst, linear_fst,
                                                 random_fst)
@@ -452,6 +455,37 @@ def _vit_case(name, seed=0):
     return [fst], True, np.array([9, 6, 4], np.int32), x
 
 
+def _wide_fst(n_par=300, seed=0):
+    """A graph with a state of n_par (> 256) in-arcs: state 0 -> 1 over
+    n_par parallel arcs in a few weights and pdfs, so that many of them
+    tie, then 1 -> 2 -> 1 and 2 -> 0 back; every state final (as
+    tests/test_torch_viterbi.py's)."""
+    rng = np.random.RandomState(seed)
+    arcs = [(0, 1, int(p) + 1, int(p) + 1, float(w)) for p, w in
+            zip(rng.randint(0, 3, size=n_par),
+                rng.choice([0.0, 0.5], size=n_par))]
+    arcs += [(1, 2, 4, 4, 0.0), (2, 1, 5, 5, 0.25), (2, 0, 6, 6, 0.0),
+             (1, 1, 7, 7, 1.0)]
+    return FST.from_arcs(3, 0, arcs, {s: 0.0 for s in range(3)})
+
+
+def _vit_batch(case, device, seed=5):
+    """(SemiringArrays, x on the device, lengths) of a case."""
+    fsts, shared, lengths, x = _vit_case(case, seed=seed)
+    if shared:
+        batch = pt.ChainGraphBatch(pt.ChainGraph(fsts[0], log_domain=True),
+                                   x.shape[0], device=device)
+    else:
+        batch = _list_batch(fsts, device=device)
+    return batch.semiring(), torch.from_numpy(x).to(device), lengths
+
+
+def _assert_vit_equal(got, ref):
+    for name in got._fields:     # bit-identical: no tolerance
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+
 class TestViterbi:
 
     @pytest.mark.cuda
@@ -470,8 +504,107 @@ class TestViterbi:
         assert vk.LAUNCHES == {"viterbi": 1}
         ref = pt.viterbi_align(xt, lengths, batch, sweep="scatter")
         assert vk.LAUNCHES == {"viterbi": 1}
-        for name in got._fields:     # bit-identical: no tolerance
-            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        _assert_vit_equal(got, ref)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", ["mixed", "loud", "ties", "shared"])
+    @pytest.mark.parametrize("res,stages,bp_smem", vk.CHOICES)
+    def test_cuda_every_layout_matches_plain(self, cuda, case, res, stages,
+                                             bp_smem):
+        """Each layout plan() can choose, forced: bit-identical to the
+        plain version."""
+        g, xt, lengths = _vit_batch(case, cuda)
+        lay = vk.plan_for(g, VIT_P, VIT_T)
+        lay = dataclasses.replace(
+            lay, stages=stages, resident=res, bp_smem=bp_smem,
+            threads=vk.threads_for(g.num_states, lay.lanes, stages > 0))
+        ref = viterbi_plain(xt, lengths, g)
+        _assert_vit_equal(vk.viterbi_kernel(xt, lengths, g, lay), ref)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", ["mixed", "loud", "ties", "shared"])
+    @pytest.mark.parametrize("lanes", [1, 2, 4, 16, 32])
+    def test_cuda_every_lane_count_matches_plain(self, cuda, case, lanes):
+        """L lanes a state (ties fall across lanes): the same bits."""
+        g, xt, lengths = _vit_batch(case, cuda)
+        lay = dataclasses.replace(
+            vk.plan_for(g, VIT_P, VIT_T), lanes=lanes,
+            threads=vk.threads_for(g.num_states, lanes))
+        ref = viterbi_plain(xt, lengths, g)
+        _assert_vit_equal(vk.viterbi_kernel(xt, lengths, g, lay), ref)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("bp_smem", [True, False])
+    def test_cuda_wide_in_degree_matches_plain(self, cuda, bp_smem):
+        """A state of 300 in-arcs, many tied: two-byte positions, held
+        in shared or in device memory, at 32 and 1 lanes."""
+        batch = _list_batch([_wide_fst(seed=0), _wide_fst(seed=1),
+                             make_numerator_fst([1, 3, 0], VIT_TOPO)],
+                            device=cuda)
+        g = batch.semiring()
+        rng = np.random.RandomState(5)
+        x = np.where(rng.rand(3, VIT_T, VIT_P) < 0.5, 0.0,
+                     rng.randn(3, VIT_T, VIT_P)).astype(np.float32)
+        x[0] = 1.0
+        xt = torch.from_numpy(x).to(cuda)
+        lengths = np.array([VIT_T, 7, 6], np.int32)
+        lay = vk.plan_for(g, VIT_P, VIT_T)
+        assert lay.bp_width == 2 and lay.lanes == 32 and lay.bp_smem
+        ref = viterbi_plain(xt, lengths, g)
+        assert bool(ref.ok.all())
+        for lanes in (32, 1):
+            forced = dataclasses.replace(
+                lay, bp_smem=bp_smem, lanes=lanes,
+                threads=vk.threads_for(g.num_states, lanes))
+            _assert_vit_equal(vk.viterbi_kernel(xt, lengths, g, forced),
+                              ref)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", ["mixed", "loud", "ties", "shared"])
+    @pytest.mark.parametrize("bp_smem", [True, False])
+    def test_cuda_four_byte_positions_match_plain(self, cuda, case, bp_smem):
+        """Four-byte positions (in-degree past 65,536 in plan(); forced
+        here), held in shared or in device memory: the same bits."""
+        g, xt, lengths = _vit_batch(case, cuda)
+        lay = dataclasses.replace(vk.plan_for(g, VIT_P, VIT_T),
+                                  bp_width=4, bp_smem=bp_smem)
+        ref = viterbi_plain(xt, lengths, g)
+        _assert_vit_equal(vk.viterbi_kernel(xt, lengths, g, lay), ref)
+
+    @pytest.mark.cuda
+    def test_cuda_end_scoring_on_many_warps(self, cuda):
+        """S_pad 40 at 32 lanes: 32 warps (31 computing, 40 states over
+        31 groups) post their end-state pairs into whichever delta buffer
+        is free after the last frame (odd and even lengths: either one),
+        and none of them reaches the scores read."""
+        fsts, _, lengths, x = _vit_case("mixed", seed=7)
+        g = pt.ChainGraphBatch(
+            [pt.ChainGraph(f, log_domain=True) for f in fsts],
+            max_num_transitions=45, max_num_states=40,
+            device=cuda).semiring()
+        xt = torch.from_numpy(x).to(cuda)
+        lay = dataclasses.replace(vk.plan_for(g, VIT_P, VIT_T), lanes=32,
+                                  threads=vk.threads_for(40, 32))
+        assert lay.threads == 1024
+        ref = viterbi_plain(xt, lengths, g)
+        _assert_vit_equal(vk.viterbi_kernel(xt, lengths, g, lay), ref)
+
+    @pytest.mark.cuda
+    def test_cuda_shape_at_the_limit_runs(self, cuda):
+        """S_pad 29,056: the least layout (delta alone in shared memory)
+        runs, one launch, the same bits as the plain version."""
+        fsts, _, lengths, x = _vit_case("mixed", seed=6)
+        batch = pt.ChainGraphBatch(
+            [pt.ChainGraph(f, log_domain=True) for f in fsts],
+            max_num_transitions=45, max_num_states=29056, device=cuda)
+        g = batch.semiring()
+        assert vk.plan_for(g, VIT_P, VIT_T) == vk.Layout(
+            1024, 1, 0, False, False, 1)
+        xt = torch.from_numpy(x).to(cuda)
+        vk.reset_launch_counts()
+        got = pt.viterbi_align(xt, lengths, batch)
+        assert vk.LAUNCHES == {"viterbi": 1}
+        _assert_vit_equal(got, viterbi_plain(xt, lengths, g))
 
 
 # ----------------------------------------------------------------------

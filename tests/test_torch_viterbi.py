@@ -160,66 +160,150 @@ def test_shared_batch_matches_its_listed_copy():
 # Emulation of the CUDA kernel on the arrays it reads
 # ----------------------------------------------------------------------
 
-def _emulate(x, lengths, g):
-    """csrc/viterbi.cu, one sequence, state and arc at a time, in float32;
-    backpointers never written hold a value that fails if read."""
+def _beats_slot(other, mine):
+    """The lanes' rule: the larger value, then the larger slot."""
+    return other[0] > mine[0] or (other[0] == mine[0] and other[1] > mine[1])
+
+
+def _beats_state(other, mine):
+    """The end scoring's rule: the larger value, then the lower state."""
+    return other[0] > mine[0] or (other[0] == mine[0] and other[1] < mine[1])
+
+
+def _butterfly(pairs, beats):
+    """__shfl_xor_sync over len(pairs) lanes: at each offset every lane
+    takes its partner's pair if it beats its own.  Returns lane 0's."""
+    off = len(pairs) // 2
+    while off:
+        pairs = [pairs[q ^ off] if beats(pairs[q ^ off], pairs[q])
+                 else pairs[q] for q in range(len(pairs))]
+        off //= 2
+    return pairs[0]
+
+
+def _emulate(x, lengths, g, lanes):
+    """csrc/viterbi.cu, one block a sequence, in float32, on the slot
+    lists it loads (each slot's arc's source, pdf and log weight through
+    in_arcs): state group s of ``lanes`` lanes,
+    lane l walking slots in_ptr[s] + l, + lanes, ... with `>=`, the
+    lanes' butterfly, positions stored at the plan's byte width (a
+    position that does not fit fails), the end scoring as the block's
+    reduction (per thread, per warp, over warps; a NaN at state 0 wins)
+    and the traceback through in_ptr and the slot lists."""
     x = np.asarray(x, np.float32)
     B, T_, _ = x.shape
     S = g.num_states
-    a = {k: getattr(g, k).numpy() for k in
-         ("src", "pdf", "logp", "in_ptr", "in_arcs", "initial", "final")}
+    width = vk.bp_width(g.max_in_degree)
+    nthr = vk.threads_for(S, lanes)
+    arcs = g.in_arcs.long()
+    a = {k: getattr(g, k).gather(1, arcs).numpy()
+         for k in ("src", "pdf", "logp")}
+    ptrs, inits, fins = (getattr(g, k).numpy() for k in
+                         ("in_ptr", "initial", "final"))
     objf = np.empty(B, np.float32)
     pdfs = np.empty((B, T_), np.int32)
     states = np.empty((B, T_), np.int32)
     neg = np.float32(-np.inf)
+    lo, hi = np.float32(-30.0), np.float32(30.0)
     for b in range(B):
         r = 0 if g.rows == 1 else b
-        src, pdf, logp, ptr, arcs = (a[k][r] for k in
-                                     ("src", "pdf", "logp", "in_ptr",
-                                      "in_arcs"))
-        cur = a["initial"][r].copy()
-        bp = np.full((T_, S), np.iinfo(np.int32).min, np.int64)
+        ptr = ptrs[r]
+        src, pdf, logp = (a[k][r] for k in ("src", "pdf", "logp"))
+        # unwritten positions hold the width's largest value, which
+        # names no slot of a small graph
+        bp = np.full((T_, S), 2 ** (8 * width) - 1, np.int64)
+        cur = inits[r].copy()
         Tb = int(lengths[b])
         for t in range(Tb):
+            row = x[b, t]
             nxt = np.empty(S, np.float32)
             for s in range(S):
-                best, arg = neg, -1
-                for j in range(ptr[s], ptr[s + 1]):
-                    k = arcs[j]
-                    e = min(max(x[b, t, pdf[k]], np.float32(-30.0)),
-                            np.float32(30.0))
-                    cand = (cur[src[k]] + logp[k]) + e
-                    if cand >= best:
-                        best, arg = cand, k
+                pairs = []
+                for lane in range(lanes):
+                    best, arg = neg, -1
+                    for j in range(ptr[s] + lane, ptr[s + 1], lanes):
+                        e = row[pdf[j]]
+                        e = lo if e < lo else (hi if e > hi else e)
+                        cand = (cur[src[j]] + logp[j]) + e
+                        if cand >= best:
+                            best, arg = cand, j
+                    pairs.append((best, arg))
+                best, arg = _butterfly(pairs, _beats_slot)
                 nxt[s] = best
-                bp[t, s] = arg if best > neg else -1
+                pos = arg - ptr[s] if arg >= 0 else 0
+                assert 0 <= pos < 2 ** (8 * width)
+                bp[t, s] = pos
             cur = nxt
-        end = cur + a["final"][r]
-        c, top = 0, end[0]
-        for s in range(1, S):
-            if end[s] > top:
-                c, top = s, end[s]
+        end = cur + fins[r]
+        part = []
+        for tid in range(nthr):
+            top, c = neg, 2 ** 31 - 1
+            for s in range(tid, S, nthr):
+                if _beats_state((end[s], s), (top, c)):
+                    top, c = end[s], s
+            part.append((top, c))
+        warps = [_butterfly(part[w:w + 32], _beats_state)
+                 for w in range(0, nthr, 32)]
+        top, c = _butterfly(warps + [(neg, 2 ** 31 - 1)] * (32 - len(warps)),
+                            _beats_state)
+        if np.isnan(end[0]):
+            top, c = end[0], 0
         objf[b] = top if Tb > 0 else neg
         ok = np.isfinite(objf[b])
-        for t in range(T_ - 1, -1, -1):
-            out_pdf = out_state = -1
-            if ok and t < Tb:
-                arc = int(bp[t, c])
-                if arc >= 0:
-                    out_pdf, out_state, c = int(pdf[arc]), c, int(src[arc])
-            pdfs[b, t], states[b, t] = out_pdf, out_state
+        pdfs[b], states[b] = -1, -1
+        for t in range(Tb - 1, -1, -1):
+            if ok:
+                j = ptr[c] + int(bp[t, c])
+                pdfs[b, t], states[b, t], c = pdf[j], c, int(src[j])
     return vt.ViterbiResult(objf=objf, pdfs=pdfs, states=states,
                             ok=np.isfinite(objf))
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 4, 16, 32])
 @pytest.mark.parametrize("case", ["mixed", "loud", "ties", "shared"])
-def test_kernel_algorithm_emulation_matches_jax(case):
+def test_kernel_algorithm_emulation_matches_jax(case, lanes):
     fsts, shared, lengths, x = _case(case, seed=1)
     mine, theirs = _batches(fsts, shared, x.shape[0])
-    got = _emulate(x, lengths, mine.semiring())
+    got = _emulate(x, lengths, mine.semiring(), lanes)
     _assert_same(got, pt.viterbi_align(torch.from_numpy(x), lengths, mine))
     _assert_same(got, j_viterbi(jnp.array(x), lengths, theirs,
                                 sweep="scatter"))
+
+
+def _wide_fst(n_par=300, seed=0):
+    """A graph with a state of n_par (> 256) in-arcs: state 0 -> 1 over
+    n_par parallel arcs in a few weights and pdfs, so that many of them
+    tie, then 1 -> 2 -> 1 and 2 -> 0 back; every state final."""
+    rng = np.random.RandomState(seed)
+    arcs = [(0, 1, int(p) + 1, int(p) + 1, float(w)) for p, w in
+            zip(rng.randint(0, 3, size=n_par),
+                rng.choice([0.0, 0.5], size=n_par))]
+    arcs += [(1, 2, 4, 4, 0.0), (2, 1, 5, 5, 0.25), (2, 0, 6, 6, 0.0),
+             (1, 1, 7, 7, 1.0)]
+    return FST.from_arcs(3, 0, arcs, {s: 0.0 for s in range(3)})
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_emulation_wide_in_degree_and_ties_across_lanes(lanes):
+    """A state of 300 in-arcs (two-byte positions), many of them tied
+    across lanes, under flat and random x: the emulation, the plain
+    version and the JAX package agree."""
+    fsts = [_wide_fst(seed=0), _wide_fst(seed=1), make_numerator_fst(
+        [1, 3, 0], TOPO)]
+    mine, theirs = _batches(fsts, False, 3)
+    g = mine.semiring()
+    assert g.max_in_degree > 256 and vk.bp_width(g.max_in_degree) == 2
+    assert vk.plan_for(g, P, T).bp_width == 2
+    rng = np.random.RandomState(5)
+    x = np.where(rng.rand(3, T, P) < 0.5, 0.0,
+                 rng.randn(3, T, P)).astype(np.float32)
+    x[0] = 1.0           # every parallel arc of one weight ties
+    lengths = np.array([T, 7, 6], np.int32)
+    want = pt.viterbi_align(torch.from_numpy(x), lengths, mine)
+    assert bool(want.ok.all())
+    _assert_same(_emulate(x, lengths, g, lanes), want)
+    _assert_same(want, j_viterbi(jnp.array(x), lengths, theirs,
+                                 sweep="scatter"))
 
 
 def test_in_arc_runs_are_the_backward_lists():
@@ -247,6 +331,21 @@ def test_in_arc_runs_are_the_backward_lists():
         np.testing.assert_array_equal(g.logp[b].numpy()[in_order],
                                       cg.backward_transition_probs)
         assert (g.logp[b, k:] == -np.inf).all()
+
+
+def test_max_in_degree_is_counted_on_the_host():
+    """The longest in-list, which plan() reads, is counted when the lists
+    are built, and kept (a bound for a subset) by take() and to()."""
+    fsts = [_wide_fst(n_par=40), *_case("mixed")[0]]
+    mine, _ = _batches(fsts, False, len(fsts))
+    g = mine.semiring()
+    deg = (g.in_ptr[:, 1:] - g.in_ptr[:, :-1]).amax(dim=1)
+    assert isinstance(g.max_in_degree, int)
+    assert g.max_in_degree == int(deg.max()) == 42
+    sub = g.take([2, 1])
+    assert sub.max_in_degree == 42 >= int(deg[[2, 1]].max())
+    assert sub.in_ptr.shape[0] == 2
+    assert g.to("cpu").max_in_degree == 42
 
 
 @pytest.mark.parametrize("case", ["mixed", "shared"])
@@ -352,8 +451,83 @@ def test_validation():
 
 
 def test_shared_memory_limit():
+    """The least layout (delta double-buffered alone) bounds S_pad at
+    29,056, as before."""
     g = _batches(*_case("mixed")[:2], 5)[0].semiring()
-    assert vk.smem_bytes(512) == 4096 and vk.fits_on_chip(g)
+    assert vk.fits_on_chip(g)
     row = lambda s: torch.zeros(1, s)
     assert vk.fits_on_chip(dataclasses.replace(g, initial=row(29056)))
     assert not vk.fits_on_chip(dataclasses.replace(g, initial=row(29057)))
+
+
+@pytest.mark.parametrize("shape,want,nbytes", [
+    # realign (main path 3: flat-start, 2 in-arcs at most, 12-kB rows):
+    # one lane a state
+    ((151, 300, 3000, 2, 500),
+     vk.Layout(192, 1, 4, True, True, 1),
+     4 * (4 * 3000 + 8) + 8 * 151 + 4 * 152 + 8 * 300 + 151 * 500),
+    # decode (48-phone bigram: 50 in-arcs, P = 96): 4 lanes
+    ((49, 2400, 96, 50, 500),
+     vk.Layout(256, 4, 4, True, True, 1),
+     4 * (4 * 96 + 8) + 8 * 64 + 4 * 50 + 8 * 2400 + 49 * 500),
+    # b11 (random_fst(512, 512, 4)): 2 lanes would take 1,024 compute
+    # threads, so 1; 256 kB of positions go to device memory
+    ((512, 1400, 512, 10, 500),
+     vk.Layout(544, 1, 4, True, False, 1),
+     4 * (4 * 512 + 8) + 8 * 512 + 4 * 513 + 8 * 1400),
+    # wide in-degree: two-byte positions, 32 lanes
+    ((3, 304, 8, 300, 9),
+     vk.Layout(128, 32, 4, True, True, 2),
+     4 * (4 * 8 + 8) + 8 * 64 + 4 * 4 + 8 * 304 + 9 * 3 * 2),
+    # realign at T = 1,200: the ring keeps its 4 stages, and the 181 kB
+    # of positions, which would fit beside 2, go to device memory
+    ((151, 300, 3000, 2, 1200),
+     vk.Layout(192, 1, 4, True, False, 1),
+     4 * (4 * 3000 + 8) + 8 * 151 + 4 * 152 + 8 * 300),
+    # P not a multiple of 4: no ring, positions still in shared memory
+    ((49, 2400, 98, 50, 500),
+     vk.Layout(224, 4, 0, True, True, 1),
+     8 * 64 + 4 * 50 + 8 * 2400 + 49 * 500),
+    # the limit: delta alone (8 S_pad bytes, all a block has)
+    ((29056, 60000, 3000, 4, 500),
+     vk.Layout(1024, 1, 0, False, False, 1), 232448),
+])
+def test_plan_by_arithmetic(shape, want, nbytes):
+    s, k, P_, max_in, T_ = shape
+    lay = vk.plan(s, k, P_, max_in, T_)
+    assert lay == want
+    assert vk.layout_smem(lay, s, k, T_, P_) == nbytes <= vk.MAX_SMEM
+    # each part left out does not fit beside those before it
+    size = lambda res, st, bps: vk.smem_bytes(s, k, T_, P_, st, res, bps,
+                                              lay.bp_width)
+    assert lay.resident or P_ > 1 << 16 or size(True, 0, False) > vk.MAX_SMEM
+    for st in vk.STAGES:
+        assert st <= lay.stages or P_ % 4 or \
+            size(lay.resident, st, False) > vk.MAX_SMEM
+    assert lay.bp_smem or size(lay.resident, lay.stages, True) > vk.MAX_SMEM
+
+
+def test_plan_limit_and_rules():
+    with pytest.raises(NotImplementedError, match="29,056"):
+        vk.plan(29057, 100, 96, 4, 500)
+    assert vk.plan(29056, 100, 96, 4, 500) == vk.Layout(
+        1024, 1, 0, False, False, 1)
+    # the least layout needs no more than the first design's 2 S_pad
+    # floats
+    # (each buffer at least 64 floats: the tail's scratch)
+    for s in (64, 512, 29056):
+        assert vk.smem_bytes(s, 100, 500, 96, 0, False, False, 1) == 8 * s
+    assert vk.smem_bytes(5, 100, 500, 96, 0, False, False, 1) == 512
+    # lanes: about 16 arcs a lane, S_pad * L compute threads of at most
+    # 1024, less the producer warp with a ring
+    assert [vk.lanes_for(49, d) for d in (1, 16, 17, 50, 200)] == \
+        [1, 1, 2, 4, 16]
+    assert vk.lanes_for(7, 600) == 32 and vk.lanes_for(2000, 50) == 1
+    assert vk.lanes_for(512, 20) == 1 and vk.lanes_for(512, 20, False) == 2
+    assert vk.threads_for(49, 4) == 256 and vk.threads_for(49, 4, False) == 224
+    assert vk.threads_for(2000, 1) == 1024
+    assert [vk.bp_width(d) for d in (1, 256, 257, 65536, 65537)] == \
+        [1, 1, 2, 2, 4]
+    # pdfs that do not pack into 16 bits are not resident
+    lay = vk.plan(49, 2400, 70000, 50, 20)
+    assert not lay.resident and lay.stages == 0
