@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero.
 Every loss kernel is held to its plain version with objf relative and
 gamma and traces absolute errors of at most 1e-4, and gamma and the
-alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
+alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7; B1/B2 in
+the fast mode (bfloat16 tiles) bit for bit.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the eight sources of csrc/*.cu with nvcc (sm_90a), all at
@@ -24,7 +25,16 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    slot-warp for W1 and W1^T), fact_bwd's ring depth (two stages here),
    gamma bit-identical on a rerun, with the kernels' and the plain
    version's times, and the cluster kernels' (phase 11) at their plans
-   and at C=2, G=1;
+   and at C=2, G=1; then B1/B2 in the fast mode (bfloat16 tiles,
+   fact_fwd_bf16 / fact_bwd_bf16) against the plain fast version, which
+   they must equal bit for bit: small graphs in the three x_src modes and
+   one without self-loops (no diagonal stratum) with unequal lengths,
+   debug True/False and the ring forced to 2, 1 and 0 stages, gamma
+   bit-identical on a rerun; then the headline graph (and the s8k class
+   in phase 11): both streams too, the fast pair against the float32
+   pair on the same px within the JAX package's bfloat16 budget (the
+   objf's relative difference printed), both precisions' times and
+   bounds and the ring depths;
 4. the semiring kernels (semiring_fwd, semiring_bwd) against their plain
    version: small cyclic (random_fst), sausage (sausage_fst) and
    flat-start (make_numerator_fst) batches with unequal lengths and one
@@ -42,6 +52,11 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    leaf x, three SGD steps; the loss must be finite and fall, the
    gradient finite, and each step must launch each denominator kernel
    exactly once; one step timed with CUDA events after the warm-up step;
+   then main path 1 in the fast mode (bench.py --full's configuration,
+   ChainLoss(den, precision="fast")): its loss against the float32
+   loss on the same x (JAX's bfloat16 budget, the relative difference
+   printed), three SGD steps each launching fact_fwd_bf16 and
+   fact_bwd_bf16 once and the float32 pair not at all, a profiled step;
 6. main path 2, the same with flat-start numerators
    (make_numerator_fst, lm=None; N_b phones drawn from 100..150, T=500,
    padded to K=300, S=151): each step must launch each of the four
@@ -95,6 +110,9 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    False, with both times (and the pair's at every plan), three SGD
    steps (loss finite and falling, gradient finite, one launch of each
    cluster kernel a step and none of B1/B2), a timed and a profiled step;
+   then ChainLoss(den, precision="fast") on it must raise
+   NotImplementedError (no fast mode of the cluster kernels yet) and
+   launch nothing;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -112,7 +130,8 @@ alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7.
    3's batch; both pairs' rows with their layouts; main paths 2 and 3
    launch the semiring pair three times each), the cluster kernels one
    for main path 4 and one for s8k,
-   each with its plan;
+   each with its plan, and B1/B2's fast forms one each (the headline's
+   time beside s8k's and the float32 pair's);
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -150,6 +169,15 @@ TOL = 1e-4   # objf relative, gamma and traces absolute (docs/PARITY.md:21)
 # the size of TOL itself; both are sums of positive terms, so float32
 # rounding keeps each entry's relative error small.
 RTOL, ATOL = 1e-3, 1e-7
+# In the fast mode (bfloat16 tiles) the kernels must equal their plain
+# version bit for bit: it takes every sum in their order.  (Summed in other
+# orders, the bfloat16 roundings make the two drift apart by 1e-2 in gamma
+# over a headline sequence.)  Against float32 the fast mode is held to the
+# JAX package's own bfloat16 budget (tests/test_pallas_bf16.py:45-61):
+# per-sequence objf 2e-2 relative, gamma 3e-2 relative with 5e-3
+# absolute, alpha*beta and sum(gamma) within 2e-2 of 1 on active frames.
+BF16_BUDGET = {"objf_rel": 2e-2, "gamma_rtol": 3e-2, "gamma_atol": 5e-3,
+               "trace": 2e-2}
 
 
 def fail(msg):
@@ -197,14 +225,22 @@ def excess(got, ref):
     return ((got - ref).abs() / (ATOL + RTOL * ref.abs()))
 
 
+def plain_for(fa):
+    """The plain version of the denominator kernels for this graph: the
+    fast one for bfloat16 tiles."""
+    from pychain_tpu_torch.ops import factorized as pf
+    return (pf.forward_backward_prob_fast if pf.is_fast(fa)
+            else pf.forward_backward_prob_fact)
+
+
 def compare(fa, px, lens, leaky_c, debug, label, run=None):
     """Kernel path (``run``, default B1/B2's) vs plain path on the same
     inputs.  Returns the observed errors."""
     from pychain_tpu_torch.ops import fact_kernels as fk
-    from pychain_tpu_torch.ops.factorized import forward_backward_prob_fact
+    from pychain_tpu_torch.ops.factorized import is_fast
     run = run or fk.forward_backward_prob_kernel
     got = run(px, lens, fa, leaky_c, debug=debug)
-    ref = forward_backward_prob_fact(px, lens, fa, leaky_c)
+    ref = plain_for(fa)(px, lens, fa, leaky_c)
     torch.cuda.synchronize()
     if not debug:
         ref = fk._frame0_traces(ref)
@@ -213,9 +249,18 @@ def compare(fa, px, lens, leaky_c, debug, label, run=None):
             "alpha_beta_abs": absmax(got.alpha_beta, ref.alpha_beta),
             "gamma_sum_abs": absmax(got.gamma_sum, ref.gamma_sum)}
     gamma_excess = float(excess(got.gamma, ref.gamma).max())
+    same = ""
+    if is_fast(fa):
+        diff = {k: int((getattr(got, k) != getattr(ref, k)).sum())
+                for k in ("objf", "gamma", "alpha_beta", "gamma_sum")}
+        same = f"; entries not bit-identical {diff}"
+        check(sum(diff.values()) == 0, f"{label} debug={debug}: the fast "
+              f"kernels differ from their plain version in {diff} entries")
+        check(torch.equal(got.gamma.bfloat16().float(), got.gamma),
+              f"{label}: fast-mode gamma holds no bfloat16 values")
     print(f"# {label} debug={debug}: " + " ".join(
         f"{k}={v:.3e}" for k, v in errs.items())
-        + f" gamma_excess={gamma_excess:.3e}", flush=True)
+        + f" gamma_excess={gamma_excess:.3e}{same}", flush=True)
     for k, v in errs.items():
         check(v <= TOL, f"{label} debug={debug}: {k}={v:.3e} > {TOL}")
     check(gamma_excess <= 1.0, f"{label} debug={debug}: a gamma entry "
@@ -227,28 +272,48 @@ def compare(fa, px, lens, leaky_c, debug, label, run=None):
 def alpha_err(fa, px, lens, leaky_c, label, fwd=None):
     """Forward kernel alone (``fwd``, default fact_fwd): its alpha' stream
     (absolute and entry by entry) and sums (relative) against the plain
-    forward sweep on frames before each column's end.  Returns the larger
-    of the absolute and relative errors, and the largest entry's excess
-    (:func:`excess`)."""
+    forward sweep on frames before each column's end; in the fast mode
+    its alpha' and W1 alpha' streams and sums bit for bit.  Returns the
+    larger of the absolute and relative errors, and the largest entry's
+    excess (:func:`excess`)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import (forward_prob_fact,
-                                                  px_time_major)
-    ad_ys, _, _, _, s_ys, _, _, _ = (fwd or fk.fact_fwd)(
+                                                  forward_prob_fast,
+                                                  is_fast, px_time_major)
+    ad_ys, w1ad_ys, _, _, s_ys, _, _, _ = (fwd or fk.fact_fwd)(
         px, lens.int(), fa, leaky_c)
-    alpha_dash, alpha_sums, _, _ = forward_prob_fact(
-        px_time_major(px, fa), lens.long(), fa, leaky_c)
+    fast = is_fast(fa)
+    with torch.no_grad():
+        if fast:
+            alpha_dash, w1_alpha, ref_s, _, _ = forward_prob_fast(
+                px_time_major(px, fa), lens.long(), fa, leaky_c)
+        else:
+            alpha_dash, alpha_sums, _, _ = forward_prob_fact(
+                px_time_major(px, fa), lens.long(), fa, leaky_c)
+            ref_s = alpha_sums[1:].t()
     B, T, _ = ad_ys.shape
     live = torch.arange(T, device=px.device)[None, :] < lens[:, None]
     ref_ad = alpha_dash[1:].permute(2, 0, 1)               # (B, T, S_pad)
-    ref_s = alpha_sums[1:].t()
-    err_ad = float(torch.where(live, (ad_ys - ref_ad).abs().amax(dim=2),
+    ad_f = ad_ys.float()
+    err_ad = float(torch.where(live, (ad_f - ref_ad).abs().amax(dim=2),
                                0.0).max())
     err_s = float(torch.where(live, (s_ys - ref_s).abs() / ref_s.abs(),
                               0.0).max())
-    ad_excess = float(torch.where(live, excess(ad_ys, ref_ad).amax(dim=2),
+    ad_excess = float(torch.where(live, excess(ad_f, ref_ad).amax(dim=2),
                                   0.0).max())
+    same = ""
+    if fast:
+        ref_w1 = w1_alpha.permute(2, 0, 1)
+        diff = {name: int(((got != ref) & live[:, :, None]).sum())
+                for name, got, ref in (("alpha'", ad_f, ref_ad),
+                                       ("W1 alpha'", w1ad_ys.float(),
+                                        ref_w1))}
+        diff["s_t"] = int(((s_ys != ref_s) & live).sum())
+        same = f"; entries not bit-identical {diff}"
+        check(sum(diff.values()) == 0, f"{label}: the fast forward kernel "
+              f"differs from its plain version in {diff} entries")
     print(f"# {label} alpha' stream: abs err {err_ad:.3e}, excess "
-          f"{ad_excess:.3e}; s_t rel err {err_s:.3e}", flush=True)
+          f"{ad_excess:.3e}; s_t rel err {err_s:.3e}{same}", flush=True)
     check(max(err_ad, err_s) <= TOL, f"{label}: alpha' stream err "
           f"{err_ad:.3e}, s_t rel err {err_s:.3e} > {TOL}")
     check(ad_excess <= 1.0, f"{label}: an alpha' entry differs by "
@@ -268,10 +333,13 @@ MODES = (("source", "identity"), ("cross", "matrix"), ("separate", "stream"))
 def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True):
     """CUDA-event milliseconds of a denominator kernel pair alone (fwd,
     bwd: the signatures of fact_fwd / fact_bwd) and, with ``plain``, of
-    the plain version of each sweep, on the same inputs."""
+    the plain version of each sweep (the fast one for bfloat16 tiles), on
+    the same inputs."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import (backward_prob_fact,
+                                                  backward_prob_fast,
                                                   forward_prob_fact,
+                                                  forward_prob_fast, is_fast,
                                                   px_time_major)
     P = px.shape[2]
     lens32 = lens.int()
@@ -290,13 +358,21 @@ def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True):
     if not plain:
         return fwd_ms, bwd_ms
     px_tm = px_time_major(px, fa)
+    lens64 = lens.long()
     with torch.no_grad():
-        plain = forward_prob_fact(px_tm, lens.long(), fa, leaky_c)
-        plain_fwd_ms = cuda_ms(
-            lambda: forward_prob_fact(px_tm, lens.long(), fa, leaky_c), 2)
-        plain_bwd_ms = cuda_ms(
-            lambda: backward_prob_fact(px_tm, lens.long(), fa, leaky_c,
-                                       plain[0], plain[1], plain[3]), 2)
+        if is_fast(fa):
+            ad, w1a, sums, _, tot = forward_prob_fast(px_tm, lens64, fa,
+                                                      leaky_c)
+            plain_fwd = lambda: forward_prob_fast(px_tm, lens64, fa, leaky_c)
+            plain_bwd = lambda: backward_prob_fast(px_tm, lens64, fa, leaky_c,
+                                                   ad, w1a, sums, tot)
+        else:
+            ad, sums, _, tot = forward_prob_fact(px_tm, lens64, fa, leaky_c)
+            plain_fwd = lambda: forward_prob_fact(px_tm, lens64, fa, leaky_c)
+            plain_bwd = lambda: backward_prob_fact(px_tm, lens64, fa, leaky_c,
+                                                   ad, sums, tot)
+        plain_fwd_ms = cuda_ms(plain_fwd, 2)
+        plain_bwd_ms = cuda_ms(plain_bwd, 2)
     return fwd_ms, bwd_ms, plain_fwd_ms, plain_bwd_ms
 
 
@@ -367,19 +443,29 @@ def fact_bytes_ops(fa, kg, lens, T, P):
     (L live frames): the forward reads px at the pdfs the graph reads and
     the graph once, and writes the streams, s_t and alpha'(T_b); the
     backward reads the streams, s_t, the graph and its pdf lists, and
-    writes gamma and the two traces.  Returns (fwd_bytes, fwd_ops,
-    bwd_bytes, bwd_ops)."""
+    writes gamma and the two traces.  The streams count at their type's
+    size: 2 bytes an entry in the fast mode (bfloat16 tiles), whose graph
+    is the off-diagonal entries at 6 bytes (column id, bfloat16 value)
+    and two float32 diagonals; px and gamma are float32 in both.
+    Returns (fwd_bytes, fwd_ops, bwd_bytes, bwd_ops)."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
     B, L = lens.shape[0], int(lens.sum())
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    entry = fk.stream_dtype(fa).itemsize
     s_pad, nnz = fa.s_pad, kg.nnz
-    graph_bytes = nnz * 8 + (s_pad + 1) * 8 + 4 * s_pad * 4
+    if kg.diag is None:
+        graph_bytes = nnz * 8
+    else:
+        n_diag = sum(int((d != 0).sum()) for d in kg.diag)
+        graph_bytes = (nnz - n_diag) * 6 + 2 * s_pad * 4
+    graph_bytes += (s_pad + 1) * 8 + 4 * s_pad * 4
     pdfs = set(kg.f_dst.tolist())
     if kg.g_src is not None:
         pdfs |= set(kg.g_src.tolist())
     fwd_bytes = (L * len(pdfs) * 4 + graph_bytes
-                 + n_streams * L * s_pad * 4 + B * T * 4 + B * s_pad * 4)
+                 + n_streams * L * s_pad * entry + B * T * 4 + B * s_pad * 4)
     fwd_ops = 2 * nnz * L + 7 * s_pad * L
-    bwd_bytes = (n_streams * L * s_pad * 4 + B * T * 4 + graph_bytes
+    bwd_bytes = (n_streams * L * s_pad * entry + B * T * 4 + graph_bytes
                  + (fa.p_pad + 1 + s_pad) * 4 + B * T * P * 4 + 2 * B * T * 4)
     bwd_ops = 2 * nnz * L + 15 * s_pad * L
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
@@ -388,13 +474,18 @@ def fact_bytes_ops(fa, kg, lens, T, P):
 def resident_layout(fa, kg, label):
     """B1/B2's operators for this graph (fact_kernels.bank_order): each
     one's shared-memory gather wavefronts a frame in the ascending order
-    (the cluster kernels') and in B1/B2's bank order, and each kernel's
-    ring depth (fact_fwd has none).  Returns ({op: (slot-warps, ascending,
-    bank order)}, fact_bwd's ring depth)."""
+    (the cluster kernels') and in B1/B2's bank order (in the fast mode
+    both of the off-diagonal entries), and each kernel's ring depth
+    (fact_fwd has none).  Returns ({op: (slot-warps, ascending, bank
+    order)}, fact_bwd's ring depth)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
+    ascending = (kg.w1, kg.w2, kg.w1t, kg.w2t) if kg.diag is None else \
+        fk._operators(fk._coo(fa.w1, diag=False),
+                      fk._coo(fa.w2, diag=False), fa.s_pad)
     out = {}
-    for name, op in zip(("w1", "w2", "w1t", "w2t"), kg.resident):
-        asc = fk.gather_wavefronts(getattr(kg, name))
+    for name, op, asc_op in zip(("w1", "w2", "w1t", "w2t"), kg.resident,
+                                ascending):
+        asc = fk.gather_wavefronts(asc_op)
         banked = fk.gather_wavefronts(op)
         check(len(asc) == len(banked), f"{label} {name}: slot counts differ")
         out[name] = (len(asc), int(asc.sum()), int(banked.sum()))
@@ -448,6 +539,187 @@ def ringless_class(dev, leaky_c):
     return errs
 
 
+# ----------------------------------------------------------------------
+# B1/B2 in the fast mode (bfloat16 tiles)
+# ----------------------------------------------------------------------
+
+def loopless_fst(num_states, num_pdfs, seed):
+    """A prob-domain graph without self-loops (so W1 and W2 have no
+    diagonal stratum): a ring of states, arcs s -> s + 1, s + 2, s + 5
+    (mod num_states), each with its destination's pdf."""
+    from pychain_tpu_torch.graphs.fst import FST
+    rng = np.random.RandomState(seed)
+    arcs = [(s, d, d % num_pdfs + 1, d % num_pdfs + 1,
+             float(rng.uniform(0.3, 1.5)))
+            for s in range(num_states)
+            for d in ((s + k) % num_states for k in (1, 2, 5))]
+    return FST.from_arcs(num_states, 0, arcs, {
+        s: float(rng.uniform(0.5, 2.0)) for s in range(0, num_states, 7)})
+
+
+def fast_small(dev, leaky_c):
+    """fact_fwd_bf16 / fact_bwd_bf16 against the plain fast version on
+    small graphs: the three x_src modes (a diagonal stratum in W1) and a
+    graph without self-loops (none), lengths 16, 11, 7 and 1, debug True
+    and False, the ring forced to each depth that fits and to none, gamma
+    bit-identical on a rerun; the fast pair's launches alone."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    graphs = [(f"fast small {mode}",) + denominator_fst(
+        num_phones=12, states_per_phone=2, seed=3, forward_pdf_mode=mode)
+        for mode, _ in MODES]
+    graphs.append(("fast small no-diagonal", loopless_fst(90, 40, 0), 40))
+    errs = []
+    for label, fst, P in graphs:
+        fa = ChainGraphBatch(ChainGraph(fst), 4, tile_dtype="bfloat16",
+                             device=dev)._fact
+        kg = fk.graph_for(fa)
+        n_diag = [int((d != 0).sum()) for d in kg.diag]
+        check(fk.ring_stages(fa) == 2, f"{label}: ring depth "
+              f"{fk.ring_stages(fa)}")
+        g = torch.Generator(device=dev).manual_seed(1)
+        px = torch.exp(torch.randn(4, 16, P, generator=g, device=dev))
+        lens = torch.tensor([16, 11, 7, 1], device=dev)
+        for stages in (2, 1, 0):
+            run = functools.partial(fk.forward_backward_prob_kernel,
+                                    stages=stages)
+            for debug in (True, False):
+                fk.reset_launch_counts()
+                errs.append(compare(
+                    fa, px, lens, leaky_c, debug, f"{label} S_pad="
+                    f"{fa.s_pad} {fa.xsrc_mode} diagonal entries {n_diag} "
+                    f"ring {stages}", run))
+                check(fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
+                                      "fact_fwd_bf16": 1,
+                                      "fact_bwd_bf16": 1},
+                      f"{label}: launches {fk.LAUNCHES}")
+            g1 = run(px, lens, fa, leaky_c).gamma
+            g2 = run(px, lens, fa, leaky_c).gamma
+            torch.cuda.synchronize()
+            check(torch.equal(g1, g2), f"{label} ring {stages}: two runs "
+                  "give different gamma")
+        alpha_err(fa, px, lens, leaky_c, label)
+    print("# fast small: gamma bit-identical over two runs at every ring "
+          "depth", flush=True)
+    return worst(errs)
+
+
+def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None):
+    """B1/B2 in the fast mode on ``den`` at B columns of T frames: against
+    the plain fast version (debug True and False, both streams entry by
+    entry, gamma bit-identical on a rerun), against the float32 kernels
+    on the same px (the JAX package's bfloat16 budget; the objf's
+    relative difference printed, ungated), both precisions' times, the
+    fast pair's plain sweeps' times, bounds and ring depths.  Returns the
+    row fields of each fast kernel."""
+    from pychain_tpu_torch import ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    t0 = time.perf_counter()
+    fa = ChainGraphBatch(den, B, tile_dtype="bfloat16", device=dev)._fact
+    f32 = f32_fa or ChainGraphBatch(den, B, device=dev)._fact
+    kg = fk.graph_for(fa)
+    print(f"# {label} fast: S_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode} "
+          f"nnz={kg.nnz}, diagonal entries "
+          f"{[int((d != 0).sum()) for d in kg.diag]} apart; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _, stages = resident_layout(fa, kg, f"{label} fast")
+    gx = torch.Generator(device=dev).manual_seed(seed)
+    px = torch.exp(torch.randn(B, T, P, generator=gx, device=dev))
+    lens = torch.full((B,), T, device=dev)
+    errs = worst(compare(fa, px, lens, leaky_c, debug, f"{label} fast")
+                 for debug in (False, True))
+    a_err, a_excess = alpha_err(fa, px, lens, leaky_c, f"{label} fast")
+    resident_rerun(fa, px, lens, leaky_c, f"{label} fast")
+
+    got = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c)
+    ref = fk.forward_backward_prob_kernel(px, lens, f32, leaky_c)
+    torch.cuda.synchronize()
+    vs = {"objf_rel": rel(got.objf, ref.objf),
+          "objf_sum_rel": rel(got.objf.sum(), ref.objf.sum()),
+          "gamma_abs": absmax(got.gamma, ref.gamma),
+          "trace_dev": max(float((got.alpha_beta - 1).abs().max()),
+                           float((got.gamma_sum - 1).abs().max()))}
+    gamma_ok = bool(((got.gamma - ref.gamma).abs() <= BF16_BUDGET[
+        "gamma_atol"] + BF16_BUDGET["gamma_rtol"] * ref.gamma.abs()).all())
+    print(f"# {label}: fast vs float32 kernels on the same px: "
+          + " ".join(f"{k}={v:.3e}" for k, v in vs.items())
+          + f"; gamma within the JAX bfloat16 budget: {gamma_ok} (the "
+          "design note's ~2e-7 agreement of the loss is printed, not "
+          "gated)", flush=True)
+    check(vs["objf_rel"] <= BF16_BUDGET["objf_rel"] and gamma_ok
+          and vs["trace_dev"] <= BF16_BUDGET["trace"],
+          f"{label}: fast vs float32 outside the JAX bfloat16 budget {vs}")
+    del got, ref
+
+    fast_t = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5)
+    f32_t = pair_times(f32, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5,
+                       plain=False)
+    fb, fo, bb, bo = fact_bytes_ops(fa, kg, lens, T, P)
+    f32_bytes = fact_bytes_ops(f32, fk.graph_for(f32), lens, T, P)
+    bounds = [bound(fb, fo), bound(bb, bo), bound(*f32_bytes[:2]),
+              bound(*f32_bytes[2:])]
+    print(f"# {label} times (ms): fast fact_fwd_bf16 {fast_t[0]:.3f} "
+          f"(bound {bounds[0][0]:.4f}), fact_bwd_bf16 {fast_t[1]:.3f} "
+          f"(bound {bounds[1][0]:.4f}, ring {stages}); float32 fact_fwd "
+          f"{f32_t[0]:.3f} (bound {bounds[2][0]:.4f}), fact_bwd "
+          f"{f32_t[1]:.3f} (bound {bounds[3][0]:.4f}, ring "
+          f"{fk.ring_stages(f32)}); plain fast fwd {fast_t[2]:.1f}, plain "
+          f"fast bwd {fast_t[3]:.1f}", flush=True)
+    del px
+    rows = {}
+    for i, name in enumerate(("fact_fwd_bf16", "fact_bwd_bf16")):
+        err = (max(a_err, errs["objf_rel"]) if i == 0 else
+               max(errs["gamma_abs"], errs["alpha_beta_abs"],
+                   errs["gamma_sum_abs"]))
+        rows[name] = {"ms": fast_t[i], "plain_ms": fast_t[2 + i],
+                      "float32_ms": f32_t[i], "bound": bounds[i],
+                      "bytes": (fb, bb)[i], "ops": (fo, bo)[i],
+                      "max_abs_err": err,
+                      "entry_excess": a_excess if i == 0
+                      else errs["gamma_excess"],
+                      "ring_stages": stages if i else 0,
+                      "vs_float32": vs}
+    return rows
+
+
+def main_path_1_fast(den, B, T, P, dev, counters):
+    """Main path 1 in the fast mode (bench.py --full's configuration:
+    ChainLoss(den, precision="fast")) with B linear numerators: the loss
+    against the float32 ChainLoss on the same x (within the JAX
+    package's bfloat16 budget, the relative difference printed), then
+    three SGD steps, each launching the fast pair once and the float32
+    pair not at all, and a profiled step."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch, ChainLoss
+    from pychain_tpu_torch.utils.testgraphs import linear_fst
+    rng = np.random.RandomState(14)
+    nums = [ChainGraph(linear_fst(rng.randint(0, P, size=T)),
+                       log_domain=True) for _ in range(B)]
+    num_batch = ChainGraphBatch(nums, max_num_transitions=T,
+                                max_num_states=T + 1, device=dev)
+    fast_loss = ChainLoss(den, precision="fast")
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(15), device=dev).requires_grad_(True)
+    x_lengths = torch.full((B,), T, dtype=torch.int32)
+    with torch.no_grad():
+        v_fast = float(fast_loss(x, x_lengths, num_batch))
+        v_f32 = float(ChainLoss(den)(x, x_lengths, num_batch))
+    loss_rel = abs(v_fast - v_f32) / abs(v_f32)
+    print(f"# main path 1 fast: loss {v_fast!r} against float32 {v_f32!r}: "
+          f"relative difference {loss_rel:.3e} (JAX bfloat16 budget "
+          f"{BF16_BUDGET['objf_rel']})", flush=True)
+    check(loss_rel <= BF16_BUDGET["objf_rel"], f"main path 1 fast: loss "
+          f"{v_fast} vs float32 {v_f32}")
+    want = {k: 0 for c in counters for k in c}
+    want.update(fact_fwd_bf16=1, fact_bwd_bf16=1)
+    _, step_ms, launches = train_steps(
+        fast_loss, x, x_lengths, num_batch, counters, want,
+        "main path 1 fast (precision=\"fast\", linear numerators)")
+    profiled_step(fast_loss, x, x_lengths, num_batch,
+                  "main path 1 fast (bfloat16 tiles)")
+    return step_ms, launches, loss_rel
+
+
 def check_smem():
     """Each kernel's shared memory in Python equals its source's."""
     import ctypes
@@ -464,12 +736,19 @@ def check_smem():
                         (384, "matrix"), (24320, "identity")):
         fa = types.SimpleNamespace(s_pad=s_pad, xsrc_mode=mode)
         identity = int(mode == "identity")
-        got = {f"fact_bwd stages={k}": fk.smem_bytes(fa, k)["fact_bwd"]
-               for k in (0, 1, 2)}
-        got["fact_fwd"] = fk.smem_bytes(fa)["fact_fwd"]
-        want = {f"fact_bwd stages={k}": c_size("fact_bwd", s_pad, identity,
-                                               k) for k in (0, 1, 2)}
-        want["fact_fwd"] = c_size("fact_fwd", s_pad)
+        got, want = {}, {}
+        for fast in (0, 1):
+            # the fast mode: a graph with bfloat16 tiles
+            fa.w1 = types.SimpleNamespace(
+                operand_dtype=torch.bfloat16 if fast else torch.float32)
+            got.update({f"fact_bwd fast={fast} stages={k}":
+                        fk.smem_bytes(fa, k)["fact_bwd"] for k in (0, 1, 2)})
+            got[f"fact_fwd fast={fast}"] = fk.smem_bytes(fa)["fact_fwd"]
+            want.update({f"fact_bwd fast={fast} stages={k}": c_size(
+                "fact_bwd", s_pad, identity, k, fast) for k in (0, 1, 2)})
+            want[f"fact_fwd fast={fast}"] = c_size("fact_fwd", s_pad,
+                                                   identity, fast)
+        del fa.w1
         for C in stk.CLUSTERS:
             rows = stk.rows_per_cta(s_pad, C)
             for G in stk.COLUMNS:
@@ -525,7 +804,8 @@ def check_smem():
                 check(py == c, f"viterbi smem S={S} K={K} T={T} P={P} "
                       f"{(res, st, bps, width)}: Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
-          "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, stream_* at "
+          "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, in both "
+          "precisions, stream_* at "
           "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu, semiring_* and "
           "viterbi at every layout their plans can choose)", flush=True)
 
@@ -647,8 +927,12 @@ def s8k_class(dev, leaky_c):
           f"{times[1]:.3f} ms (plans above); fact_fwd {fact_ms[0]:.3f} ms, "
           f"fact_bwd {fact_ms[1]:.3f} ms; plain fwd {times[2]:.1f} ms, "
           f"plain bwd {times[3]:.1f} ms", flush=True)
-    return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
-            errs_b12, fact_ms)
+    bytes_ops = fact_bytes_ops(fa, kg, lens, T, P)
+    del px
+    # B1/B2 in the fast mode (bench.py --s8k's bfloat16 tiles)
+    fast_rows = fast_class("s8k", den, P, B, T, dev, leaky_c, 12)
+    return (errs, a_err, times, bytes_ops, plans, errs_b12, fact_ms,
+            fast_rows)
 
 
 def main_path_4(dev, leaky_c, counters):
@@ -712,6 +996,18 @@ def main_path_4(dev, leaky_c, counters):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     profiled_step(loss_mod, x, x_lengths, num_batch,
                   "main path 4 (cluster tier)")
+    # the fast mode has no cluster kernels yet: it raises, and launches
+    # nothing
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    try:
+        ChainLoss(den, precision="fast")(x, x_lengths, num_batch)
+        fail("main path 4 fast: no NotImplementedError")
+    except NotImplementedError as e:
+        print(f"# main path 4 fast: NotImplementedError: {e}", flush=True)
+    check(all(v == 0 for c in counters for v in c.values()),
+          f"main path 4 fast launched {counters}")
     del x
     torch.cuda.empty_cache()
     return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
@@ -1183,8 +1479,9 @@ def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
           " frames", flush=True)
     losses, step_ms, launches = train_steps(
         loss_mod, x, x_lengths, batch, counters,
-        {"fact_fwd": 1, "fact_bwd": 1, "semiring_fwd": 1,
-         "semiring_bwd": 1}, "main path 3 (constrained numerators)",
+        {"fact_fwd": 1, "fact_bwd": 1, "fact_fwd_bf16": 0,
+         "fact_bwd_bf16": 0, "semiring_fwd": 1, "semiring_bwd": 1},
+        "main path 3 (constrained numerators)",
         reset=False)
     launches = {**launches, **vit_counter}
     print(f"# main path 3 launches: {launches}", flush=True)
@@ -1485,6 +1782,11 @@ def main():
           f"{bwd_ms:.3f} ms; plain fwd {plain_fwd_ms:.1f} ms, plain bwd "
           f"{plain_bwd_ms:.1f} ms", flush=True)
 
+    # -- phase 3b: B1/B2 in the fast mode (bfloat16 tiles) ---------------
+    errs_fast_small = fast_small(dev, leaky_c)
+    head_fast = fast_class("headline", den, P, B, T, dev, leaky_c, 0,
+                           f32_fa=fa)
+
     # -- phase 4: semiring kernels vs plain, small batches ---------------
     from pychain_tpu_torch.ops import semiring_kernels as sk
     from pychain_tpu_torch.utils.testgraphs import random_fst, sausage_fst
@@ -1575,17 +1877,23 @@ def main():
     x_lengths = torch.full((B,), T, dtype=torch.int32)
     _, step_ms, launches = train_steps(
         loss_mod, x, x_lengths, num_batch, (fk.LAUNCHES, sk.LAUNCHES),
-        {"fact_fwd": 1, "fact_bwd": 1, "semiring_fwd": 0,
-         "semiring_bwd": 0}, "main path 1 (linear numerators)")
+        {"fact_fwd": 1, "fact_bwd": 1, "fact_fwd_bf16": 0,
+         "fact_bwd_bf16": 0, "semiring_fwd": 0, "semiring_bwd": 0},
+        "main path 1 (linear numerators)")
     profiled_step(loss_mod, x, x_lengths, num_batch, "linear numerators")
+
+    # -- phase 5b: main path 1 in the fast mode --------------------------
+    fast_step_ms, fast_launches, fast_loss_rel = main_path_1_fast(
+        den, B, T, P, dev, (fk.LAUNCHES, sk.LAUNCHES))
 
     # -- phase 6: main path 2, flat-start numerators ---------------------
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
                     .manual_seed(5), device=dev).requires_grad_(True)
     _, flat_step_ms, flat_launches = train_steps(
         loss_mod, x, x_lengths, flat_batch, (fk.LAUNCHES, sk.LAUNCHES),
-        {"fact_fwd": 1, "fact_bwd": 1, "semiring_fwd": 1,
-         "semiring_bwd": 1}, "main path 2 (flat-start numerators)")
+        {"fact_fwd": 1, "fact_bwd": 1, "fact_fwd_bf16": 0,
+         "fact_bwd_bf16": 0, "semiring_fwd": 1, "semiring_bwd": 1},
+        "main path 2 (flat-start numerators)")
     profiled_step(loss_mod, x, x_lengths, flat_batch,
                   "flat-start numerators")
 
@@ -1635,7 +1943,7 @@ def main():
     errs_stream_small = stream_small(dev, leaky_c)
     s8k = s8k_class(dev, leaky_c)
     stream_classes = {"s8k": s8k[:5]}
-    s8k_b12_errs, s8k_fact_ms = s8k[5:]
+    s8k_b12_errs, s8k_fact_ms, s8k_fast = s8k[5:]
     errs_ringless = ringless_class(dev, leaky_c)
     torch.cuda.empty_cache()
 
@@ -1669,6 +1977,28 @@ def main():
             "bound_by": by, "bytes": nbytes, "ops": ops,
             "ring_stages": head_stages if name == "fact_bwd" else 0,
             "s8k_ms": s8k_fact_ms[0 if name == "fact_fwd" else 1],
+            "library_ms": None})
+    # the fast pair: its time at the headline (and s8k), launches on main
+    # path 1 in the fast mode
+    for name, line, fn in (("fact_fwd_bf16", 457, "_fwd_kernel_factory"),
+                           ("fact_bwd_bf16", 768, "_bwd_kernel_factory")):
+        r, r8 = head_fast[name], s8k_fast[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"pychain_tpu_torch/csrc/{name[:8]}.cu",
+            "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
+            "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, "
+                           "bfloat16 tiles (fast mode)",
+            "launches": fast_launches[name], "max_abs_err": r["max_abs_err"],
+            "max_err": r["max_abs_err"], "entry_excess": r["entry_excess"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "bytes": r["bytes"], "ops": r["ops"],
+            "float32_ms": r["float32_ms"], "ring_stages": r["ring_stages"],
+            "s8k_ms": r8["ms"], "s8k_bound_ms": r8["bound"][0],
+            "s8k_plain_ms": r8["plain_ms"], "s8k_float32_ms": r8["float32_ms"],
+            "s8k_ring_stages": r8["ring_stages"],
+            "vs_float32_objf_rel": r["vs_float32"]["objf_rel"],
             "library_ms": None})
     # main path 2 runs the "semiring" class (the flat-start batch), main
     # path 3 its constrained batch ("xl" by the JAX package's rule); the
@@ -1759,6 +2089,8 @@ def main():
             "tc_dense_ops": r["tc_dense_ops"] or None,
             "library_ms": None})
     print(f"# small-graph worst errors (denominator): {worst(errs_small)}")
+    print(f"# small-graph worst errors (denominator, fast mode): "
+          f"{errs_fast_small}")
     print(f"# small-batch worst errors (semiring): {worst(errs_sr_small)}")
     print(f"# small-graph worst errors (cluster kernels): "
           f"{worst(errs_stream_small)}")
@@ -1769,7 +2101,9 @@ def main():
     print(f"# step ms (timed step, after warm-up): linear numerators "
           f"{step_ms[-1]:.3f}, flat-start numerators {flat_step_ms[-1]:.3f}"
           f", constrained numerators {re_step_ms[-1]:.3f}, main path 4 "
-          f"{m4_step_ms[-1]:.3f}; realignment viterbi_align {align_ms:.3f}")
+          f"{m4_step_ms[-1]:.3f}, main path 1 fast {fast_step_ms[-1]:.3f} "
+          f"(loss {fast_loss_rel:.3e} from float32's); realignment "
+          f"viterbi_align {align_ms:.3f}")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -48,9 +48,10 @@ FWD = {
         ("sell_row_dot(w1_ptr, w1_col, w1_val, d, ad)", "ad[d]"),
         ("sell_row_dot(w2_ptr, w2_col, w2_val, d, u)", "u[d]")],
     "no_stream_writes": [
-        ("__stcs(xdst_ys + o + s, x);", ""),
-        ("if (xsrc_ys) __stcs(xsrc_ys + o + s, xs);", ""),
-        ("__stcs(w1ad_ys + o + d, w1a);", ""), ("__stcs(ad_ys + o + d, v);", "")],
+        ("stream_put(xdst_ys + o + s, x);", ""),
+        ("if (xsrc_ys) stream_put(xsrc_ys + o + s, xs);", ""),
+        ("stream_put(w1ad_ys + o + d, w1a);", ""),
+        ("stream_put(ad_ys + o + d, v);", "")],
     "no_block_sum": [("block_sum<1>(part, red);", "__syncthreads();")],
 }
 BWD = {
@@ -66,7 +67,7 @@ BWD = {
         ("mbar_wait(bar + i % stages, (i / stages) & 1);", ""),
         ("fetch(Tb - 1 - k);", ";"), ("fetch(u - stages);", ";")],
     "no_gamma_scatter": [("if (p < n_pdf_lists) {", "if (false) {")],
-    "no_gamma_writes": [("__stcs(g_row + p, acc);", "")],
+    "no_gamma_writes": [("__stcs(g_row + p, gv);", "")],
 }
 # The cluster pair (a cluster a group of G columns, W1's vector alone
 # held whole, one / two cluster barriers a frame).

@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define FACT_THREADS 1024
@@ -98,10 +99,11 @@ __device__ __forceinline__ void block_sum_max(F& s, F& m, F* red) {
 // slots of 32 values, slot k of row 32 i + l at index 32 k + l, each row
 // zero-padded (column 0, value 0) to the slice's longest row.  A warp's
 // lanes own 32 consecutive rows, so every col/val load of the warp is one
-// 128-byte line, and each slot's gather v[col] is one shared-memory load
-// of the warp, served in as many wavefronts as the fullest of the 32
-// banks (word c in bank c mod 32) has distinct words.  The order of a
-// row's entries among its slots is the sum's order, fixed by the host:
+// 128-byte line, and each slot's gather
+// v[col] is one shared-memory load of the warp, served in as many
+// wavefronts as the fullest of the 32 banks (word c in bank c mod 32) has
+// distinct words.  The order of a row's entries among its slots is the
+// sum's order, fixed by the host:
 // B1/B2 (fact_fwd.cu, fact_bwd.cu) read each row in bank order
 // (fact_kernels.bank_order: each slot's lanes on distinct banks as far
 // as a greedy pass finds, 1.41 / 1.36 wavefronts a slot for W1 / W1^T at
@@ -109,6 +111,22 @@ __device__ __forceinline__ void block_sum_max(F& s, F& m, F* red) {
 // pair reads them in ascending column order (sell_row_dot_cols), since
 // its gathers are G columns wide (8 or 16 bytes a lane), which the banks
 // serve by another rule (ROADMAP.md queues an order for them).
+//
+// The fast mode (bfloat16 tiles, pallas_fact.py:848-854) rounds the
+// operand of every off-diagonal product to bfloat16, whose values are
+// bfloat16 (_WK.apply :190, :201); the diagonal stratum stays float32 with
+// an unrounded operand (:180-186).  B1/B2 then read the off-diagonal
+// entries alone, their bfloat16 values held in float32 (loading 2-byte
+// values and widening each in this loop made fact_fwd 4% and fact_bwd 8%
+// slower at the headline size, PERF.md), and the caller adds the diagonal
+// term.  The vector v holds values already rounded to bfloat16, kept as
+// float32: each is rounded once, when its owner writes it, not at each of
+// its gathers (two conversions a slot in this loop, which takes about 60%
+// of each kernel), and the 4-byte words keep the bank rule and the host's
+// bank order valid.  A product of two bfloat16 values is exact in
+// float32, so each fmaf rounds once, as the float32 sum of the TPU's
+// matrix unit does.  Each row's owner keeps the unrounded value it needs
+// for the diagonal and the carry (fact_fwd.cu, fact_bwd.cu).
 __device__ __forceinline__ float sell_row_dot(const int* __restrict__ sptr,
                                               const int* __restrict__ col,
                                               const float* __restrict__ val,
@@ -122,6 +140,47 @@ __device__ __forceinline__ float sell_row_dot(const int* __restrict__ sptr,
     acc = fmaf(__ldg(val + i), v[__ldg(col + i)], acc);
   }
   return acc;
+}
+
+// The stream element types of B1/B2: float32, or bfloat16 in the fast
+// mode (pallas_fact.py stores the fwd->bwd streams in the tile dtype).
+// x rounded to bfloat16 (to nearest even) and kept as float32; identity
+// for the float32 mode.
+template <typename S>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(S) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+// A stream entry written once and read once by the partner kernel:
+// st.global.cs (evicted first), bfloat16 entries rounded to nearest even.
+__device__ __forceinline__ void stream_put(float* p, float v) {
+  __stcs(p, v);
+}
+
+__device__ __forceinline__ void stream_put(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+// A stream entry read from device memory once (ld.global.cs) ...
+__device__ __forceinline__ float stream_get(const float* p) {
+  return __ldcs(p);
+}
+
+__device__ __forceinline__ float stream_get(const __nv_bfloat16* p) {
+  const unsigned short h = __ldcs(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(h) << 16);
+}
+
+// ... or from shared memory, where a TMA ring put it.
+__device__ __forceinline__ float smem_get(const float* p) { return *p; }
+
+__device__ __forceinline__ float smem_get(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 
 // The cluster pair's layout.  A cluster of C CTAs (C a power of two)

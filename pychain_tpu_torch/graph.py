@@ -15,7 +15,9 @@ log-domain graphs (the numerators): linear chains in closed form
 arc-id form for the semiring kernels (``ops/semiring.py``).  Every
 log-domain batch, shared (the decoding graph: one row) or list, has the
 arc-id form that ``viterbi_align`` (``ops/viterbi.py``) reads, built on
-first use.  A list of prob-domain graphs needs an engine that is not
+first use, and every batch has the reference's batched views
+(``forward_transitions`` and the rest, graph.py:73-194), built on first
+use as well.  A list of prob-domain graphs needs an engine that is not
 ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item,
 and the loss on a shared log-domain batch raises in
 ``loss.dispatch_arrays`` (ROADMAP.md A.5).
@@ -114,6 +116,7 @@ class ChainGraphBatch:
         self._semiring = None
         self._graph = None
         self._graphs = None
+        self._views = {}
         gs = graphs if isinstance(graphs, (list, tuple)) else [graphs]
         self.num_pdfs = max(
             (getattr(g, "num_pdfs", 0) for g in gs), default=0)
@@ -199,11 +202,101 @@ class ChainGraphBatch:
                 self.num_transitions, self.num_states).to(self.device)
         return self._semiring
 
+    # -- the reference's batched views (graph.py:73-194) -----------------
+    def _view(self, name):
+        """The batched view ``name``, built on this batch's device on
+        first use: a shared graph's arrays broadcast over the batch, a
+        list's padded to (max_num_transitions, max_num_states) as the
+        JAX package pads them (log domain: -inf probs; prob domain: 0)."""
+        if name not in self._views:
+            if self.shared:
+                v = getattr(self._graph, name)
+                view = None if v is None else torch.as_tensor(
+                    np.asarray(v)).to(self.device).expand(
+                        self.batch_size, *np.shape(v))
+            else:
+                view = self._padded(name)
+            self._views[name] = view
+        return self._views[name]
+
+    def _padded(self, name):
+        B, K, S = self.batch_size, self.num_transitions, self.num_states
+        pad = NEG_INF if self.log_domain else 0.0
+        if name.endswith("_transitions"):
+            out, n = np.zeros((B, K, 3), np.int32), "num_transitions"
+        elif name.endswith("_transition_probs"):
+            out, n = np.full((B, K), pad, np.float32), "num_transitions"
+        elif name.endswith("_transition_indices"):
+            out, n = np.zeros((B, S, 2), np.int32), "num_states"
+        elif name == "leaky_probs" and self.log_domain:
+            return None
+        else:
+            fill = 0.0 if name == "leaky_probs" else pad
+            out, n = np.full((B, S), fill, np.float32), "num_states"
+        for i, g in enumerate(self._graphs):
+            out[i, :getattr(g, n)] = getattr(g, name)
+        return torch.from_numpy(out).to(self.device)
+
+    @property
+    def forward_transitions(self):
+        """(B, K, 3) int32: src, dst, pdf of each arc, by source."""
+        return self._view("forward_transitions")
+
+    @property
+    def backward_transitions(self):
+        """(B, K, 3) int32: the arcs by destination."""
+        return self._view("backward_transitions")
+
+    @property
+    def forward_transition_probs(self):
+        """(B, K) float32 (log probs in the log domain)."""
+        return self._view("forward_transition_probs")
+
+    @property
+    def backward_transition_probs(self):
+        return self._view("backward_transition_probs")
+
+    @property
+    def forward_transition_indices(self):
+        """(B, S, 2) int32: each state's [begin, end) in the forward arcs."""
+        return self._view("forward_transition_indices")
+
+    @property
+    def backward_transition_indices(self):
+        return self._view("backward_transition_indices")
+
+    @property
+    def initial_probs(self):
+        """(B, S) float32."""
+        return self._view("initial_probs")
+
+    @property
+    def final_probs(self):
+        return self._view("final_probs")
+
+    @property
+    def leaky_probs(self):
+        """(B, S) float32, or None in the log domain."""
+        return self._view("leaky_probs")
+
+    @property
+    def start_state(self):
+        """(B,) int32."""
+        if "start_state" not in self._views:
+            gs = [self._graph] * self.batch_size if self.shared \
+                else self._graphs
+            self._views["start_state"] = torch.tensor(
+                [g.start_state for g in gs], dtype=torch.int32,
+                device=self.device)
+        return self._views["start_state"]
+
     def reorder(self, new_order):
         """Permute the batch (reference graph.py:177-194).  Every
         per-sequence form moves with the graphs: the linear arrays, the
         arc-id arrays with their per-graph lists and the source graphs,
-        so no graph is paired with another sequence afterwards.  A broadcast batch is left as it is."""
+        so no graph is paired with another sequence afterwards; the
+        batched views are rebuilt on their next use.  A broadcast batch
+        is left as it is."""
         if self.shared:
             return
         order = [int(i) for i in np.asarray(new_order)]
@@ -218,3 +311,4 @@ class ChainGraphBatch:
         if self._semiring is not None:
             self._semiring = self._semiring.take(order)
         self._graphs = [self._graphs[i] for i in order]
+        self._views = {}

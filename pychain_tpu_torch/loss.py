@@ -26,7 +26,10 @@ other log-domain list batch (cyclic, self-loop, flat-start) to the
 semiring kernels of ``ops/semiring_kernels.py``, which serve what the
 JAX package splits over ``impl="semiring_pallas"`` and ``"semiring_xl"``
 (both taken here as ``"auto"``).  ``impl="pallas"``, the JAX package's
-name for its denominator tiering, is ``"auto"`` too (float32 tiles).
+name for its denominator tiering, is ``"auto"`` too.
+A denominator with bfloat16 tiles (``precision="fast"``) runs the fast
+mode of the same tiers (the cluster tier raises on CUDA: no kernel yet),
+or on the CPU its plain version, ``forward_backward_prob_fast``.
 ``impl="factorized"`` (denominator) and ``impl="semiring"`` (numerator
 lists) ask for the plain PyTorch engine on any device, as the JAX
 package's ``impl="semiring"`` forces its XLA scan.  A FactorizedArrays
@@ -275,9 +278,11 @@ class ChainLoss(torch.nn.Module):
         self.leaky_coefficient = leaky_coefficient
         self.avg = avg
         self.impl = impl
-        # precision="fast" selects bfloat16 transition operands (float32
-        # accumulation); "parity" (the default) keeps float32.
-        # tile_dtype is the expert form of the same switch.
+        # precision="fast" selects bfloat16 transition operands and
+        # streams (float32 accumulation: the Pallas kernels' fast mode,
+        # on the card the resident kernels' bfloat16 forms; the cluster
+        # tier raises); "parity" (the default) keeps float32.  tile_dtype
+        # is the expert form of the same switch.
         if precision not in (None, "parity", "fast"):
             raise ValueError(
                 f"precision must be 'parity' or 'fast', got {precision!r}")
@@ -292,11 +297,6 @@ class ChainLoss(torch.nn.Module):
                 tile_dtype) not in ("float32", "torch.float32"):
             raise ValueError("precision='parity' means float32 tiles; it "
                              f"contradicts tile_dtype={tile_dtype!r}")
-        if (tile_dtype is not None and "bfloat16" in str(tile_dtype)
-                and self.device.type == "cuda" and impl != "factorized"):
-            raise NotImplementedError(
-                "bfloat16 tiles (precision='fast') have no CUDA kernel "
-                "yet (ROADMAP.md, deferred modules)")
         self.tile_dtype = tile_dtype
         self._den_batches = {}  # batch_size -> ChainGraphBatch cache
 

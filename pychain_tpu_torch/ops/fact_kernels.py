@@ -19,11 +19,15 @@ A wrapper given CPU tensors computes its kernel's plain PyTorch version
 (``ops/factorized.py``); given CUDA tensors it launches the kernel or
 raises.  Each launch adds one to ``LAUNCHES[name]``.
 
-Covered: float32 ("parity") operands and the "full" stream mode.  The
-bfloat16 fast mode and the "lean"/"ckpt" stream modes raise
-``NotImplementedError`` on CUDA (ROADMAP.md queues them); a graph whose
-state vectors exceed a block's shared memory raises here and is the
-cluster kernels' (``ops/stream_kernels.py``, B3/B4).
+Covered: both precisions of the Pallas kernels, float32 ("parity")
+and the fast mode of bfloat16 tiles (``precision="fast"``: bfloat16
+operands and streams, float32 accumulation and carries; a
+second entry point of each source, counted as ``fact_fwd_bf16`` and
+``fact_bwd_bf16``), in the "full" stream mode.  Its plain version is
+``ops/factorized.forward_backward_prob_fast``.  The "lean"/"ckpt"
+stream modes raise ``NotImplementedError`` on CUDA (ROADMAP.md queues
+them); a graph whose state vectors exceed a block's shared memory raises
+here and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4).
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ import torch
 from ..utils.device import host_to
 from ..utils.diagnostics import get_verbose_level
 from .factorized import (FactorizedArrays, WArrays,
-                         forward_backward_prob_fact)
+                         forward_backward_prob_fact,
+                         forward_backward_prob_fast, initial_alpha, is_fast)
 from .fwdbwd import FwdBwdResult, _ok_flags
 
 TILE = 128
@@ -55,7 +60,8 @@ FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
 # default; the wrappers pass the card's own (stream_budget).
 STREAM_BUDGET = 4 * 1024 * 1024 * 1024
 
-LAUNCHES = {"fact_fwd": 0, "fact_bwd": 0}
+LAUNCHES = {"fact_fwd": 0, "fact_bwd": 0, "fact_fwd_bf16": 0,
+            "fact_bwd_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -68,20 +74,29 @@ def supports(fa: FactorizedArrays) -> bool:
     return int(fa.res_src.shape[0]) == 0
 
 
-def _bwd_smem_bytes(s_pad: int, identity: bool, stages: int) -> int:
+def stream_dtype(fa) -> torch.dtype:
+    """The type of the fwd->bwd streams: bfloat16 in the fast mode,
+    else float32 (also for a shape stub without ``w1``)."""
+    fast = getattr(fa, "w1", None) is not None and is_fast(fa)
+    return torch.bfloat16 if fast else torch.float32
+
+
+def _bwd_smem_bytes(s_pad: int, identity: bool, stages: int,
+                    entry: int = 4) -> int:
     rows = 3 if identity else 4            # stream rows a frame
-    return ((4 if identity else 5) * s_pad + 3 * FACT_WARPS + 3
-            + stages * (rows * s_pad + 2)) * 4
+    return (((4 if identity else 5) * s_pad + 3 * FACT_WARPS + 3) * 4
+            + stages * (rows * s_pad * entry + 8))
 
 
 def ring_stages(fa: FactorizedArrays) -> int:
     """fact_bwd's ring depth for this graph: the frames whose stream rows
     it holds in shared memory, fetched ahead by TMA (csrc/fact_bwd.cu).
     Two stages where they fit a block's shared memory, one where only one
-    fits, none past that."""
+    fits, none past that; a row is 2 S_pad bytes in the fast mode."""
     identity = fa.xsrc_mode == "identity"
+    entry = stream_dtype(fa).itemsize
     for stages in (2, 1):
-        if _bwd_smem_bytes(fa.s_pad, identity, stages) <= MAX_SMEM:
+        if _bwd_smem_bytes(fa.s_pad, identity, stages, entry) <= MAX_SMEM:
             return stages
     return 0
 
@@ -89,12 +104,15 @@ def ring_stages(fa: FactorizedArrays) -> int:
 def smem_bytes(fa: FactorizedArrays, stages: int | None = None) -> dict:
     """Dynamic shared memory of each kernel for this graph, fact_bwd's
     with a ring of ``stages`` (default :func:`ring_stages`); must equal
-    fact_fwd_smem_bytes / fact_bwd_smem_bytes in the sources."""
+    fact_fwd_smem_bytes / fact_bwd_smem_bytes in the sources.  In the
+    fast mode outside identity mode fact_fwd holds a fifth vector."""
     identity = fa.xsrc_mode == "identity"
+    entry = stream_dtype(fa).itemsize
     if stages is None:
         stages = ring_stages(fa)
-    return {"fact_fwd": (4 * fa.s_pad + FACT_WARPS + 1) * 4,
-            "fact_bwd": _bwd_smem_bytes(fa.s_pad, identity, stages)}
+    vectors = 5 if entry == 2 and not identity else 4
+    return {"fact_fwd": (vectors * fa.s_pad + FACT_WARPS + 1) * 4,
+            "fact_bwd": _bwd_smem_bytes(fa.s_pad, identity, stages, entry)}
 
 
 def fits_on_chip(fa: FactorizedArrays) -> bool:
@@ -129,14 +147,17 @@ def stream_budget(device) -> int:
 
 
 def require_full_mode(T: int, fa: FactorizedArrays, B: int, budget: int):
-    """Raise unless the "full" stream mode's streams fit ``budget``: the
-    other modes have no CUDA kernel yet."""
+    """Raise unless the "full" stream mode's streams, at the stream
+    type's size (pallas_fact.py:871), fit ``budget``: the other modes
+    have no CUDA kernel yet."""
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
-    mode = select_stream_mode(T, fa.s_pad, B, 4, n_streams, budget)
+    sd = stream_dtype(fa)
+    mode = select_stream_mode(T, fa.s_pad, B, sd.itemsize, n_streams,
+                              budget)
     if mode != "full":
         raise NotImplementedError(
-            f"stream mode {mode!r}: {n_streams} float32 streams of (T={T}, "
-            f"S_pad={fa.s_pad}, B={B}) exceed the card's budget of "
+            f"stream mode {mode!r}: {n_streams} {str(sd)[6:]} streams of "
+            f"(T={T}, S_pad={fa.s_pad}, B={B}) exceed the card's budget of "
             f"{budget} bytes, and only \"full\" has a CUDA kernel yet "
             "(ROADMAP.md, deferred modules)")
 
@@ -153,8 +174,11 @@ class KernelGraph:
     block's nonzeros + the tiles' nonzeros, each row in ascending column
     order: the cluster kernels' form.  ``resident`` holds the same four
     operators as B1/B2 read them (each row's entries permuted among its
-    slots by :func:`bank_order`), built only for a graph that B1/B2 run.
-    The one-hot E matrices become gathers through f_dst/g_src and, for
+    slots by :func:`bank_order`), built only for a graph that B1/B2 run;
+    in the fast mode (bfloat16 tiles) without the diagonal, whose float32
+    values are ``diag`` (W1's, W2's: a transpose has the same diagonal),
+    the Pallas kernels' strata (the off-diagonal values are bfloat16
+    values, held in float32: see sell_row_dot).  The one-hot E matrices become gathers through f_dst/g_src and, for
     the posterior scatter, pdf -> states lists: E_f^T's over all S_pad
     states (padded states map to pdf 0 with zero mass), E_g^T's over the
     states with a W2 out-arc only (any other state's E_g^T mass is
@@ -172,22 +196,24 @@ class KernelGraph:
     nnz: int             # arcs in W1 + W2 (the products' work)
     max_pdf: int         # largest pdf the emission gathers read
     resident: tuple | None = None   # B1/B2's (w1, w2, w1t, w2t)
+    diag: tuple | None = None       # fast mode: (W1's, W2's) (S_pad,) f32
 
     def to(self, device) -> "KernelGraph":
         mv = lambda x: None if x is None else tuple(t.to(device) for t in x)
         return dataclasses.replace(
             self, w1=mv(self.w1), w2=mv(self.w2), w1t=mv(self.w1t),
-            w2t=mv(self.w2t), f_dst=self.f_dst.to(device),
+            w2t=mv(self.w2t), diag=mv(self.diag), f_dst=self.f_dst.to(device),
             g_src=None if self.g_src is None else self.g_src.to(device),
             f_lists=mv(self.f_lists), g_lists=mv(self.g_lists),
             resident=None if self.resident is None else tuple(
                 mv(op) for op in self.resident))
 
 
-def _coo(w: WArrays):
-    """(rows, cols, vals) of every nonzero of a stratified matrix."""
+def _coo(w: WArrays, diag: bool = True):
+    """(rows, cols, vals) of every nonzero of a stratified matrix, or
+    with ``diag=False`` of its dense block and tiles alone."""
     rows, cols, vals = [], [], []
-    if w.diag is not None:
+    if diag and w.diag is not None:
         d = w.diag.float().cpu().numpy()
         nz = np.nonzero(d)[0]
         rows.append(nz), cols.append(nz), vals.append(d[nz])
@@ -363,20 +389,34 @@ def bank_order(sell):
             torch.from_numpy(val2.copy()))
 
 
+def _operators(w1, w2, s_pad):
+    """W1, W2 by destination row and W1^T, W2^T by source row, each
+    sliced ELL, from (rows, cols, vals) triples."""
+    (r1, c1, v1), (r2, c2, v2) = w1, w2
+    return (_sell(r1, c1, v1, s_pad), _sell(r2, c2, v2, s_pad),
+            _sell(c1, r1, v1, s_pad), _sell(c2, r2, v2, s_pad))
+
+
 def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
     """Host-built sparse form of ``fa`` (CPU tensors), with B1/B2's
     operators in bank order (:func:`bank_order`) when the graph fits them
-    (:func:`fits_on_chip`)."""
+    (:func:`fits_on_chip`): in the fast mode their off-diagonal entries
+    alone (bfloat16 values) and the diagonals apart."""
     s_pad, p_pad = fa.s_pad, fa.p_pad
     identity = fa.xsrc_mode == "identity"
     r1, c1, v1 = _coo(fa.w1)
     r2, c2, v2 = _coo(fa.w2)
     f = fa.f_dst.cpu().numpy().astype(np.int64)
     g = fa.g_src.cpu().numpy().astype(np.int64)
-    ops = (_sell(r1, c1, v1, s_pad), _sell(r2, c2, v2, s_pad),
-           _sell(c1, r1, v1, s_pad), _sell(c2, r2, v2, s_pad))
-    resident = (tuple(bank_order(op) for op in ops) if fits_on_chip(fa)
-                else None)
+    ops = _operators((r1, c1, v1), (r2, c2, v2), s_pad)
+    resident = diag = None
+    if fits_on_chip(fa) and is_fast(fa):
+        resident = tuple(map(bank_order, _operators(
+            _coo(fa.w1, diag=False), _coo(fa.w2, diag=False), s_pad)))
+        diag = tuple(w.diag.float().cpu().contiguous()
+                     for w in (fa.w1, fa.w2))
+    elif fits_on_chip(fa):
+        resident = tuple(bank_order(op) for op in ops)
     return KernelGraph(
         *ops, f_dst=torch.from_numpy(f.astype(np.int32)),
         g_src=None if identity else torch.from_numpy(g.astype(np.int32)),
@@ -384,7 +424,7 @@ def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
         g_lists=None if identity else _pdf_lists(g, p_pad, np.unique(c2)),
         n_pdf_lists=p_pad, nnz=len(v1) + len(v2),
         max_pdf=int(max(f.max(), 0 if identity else g.max())),
-        resident=resident)
+        resident=resident, diag=diag)
 
 
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -397,6 +437,21 @@ def graph_for(fa: FactorizedArrays) -> KernelGraph:
         kg = kernel_graph(fa).to(fa.device)
         _graphs[fa] = kg
     return kg
+
+
+def fast_operators(fa: FactorizedArrays):
+    """The fast mode's operators on fa's device: ((w1, w2, w1t, w2t), (W1's
+    diagonal, W2's)), each operator its off-diagonal entries as sliced
+    ELL.  B1/B2's (bank order) when the graph fits them, else the same
+    entries in ascending order: the rows the plain fast version
+    (``factorized.forward_backward_prob_fast``) sums."""
+    kg = graph_for(fa)
+    if kg.diag is not None:
+        return kg.resident, kg.diag
+    ops = _operators(_coo(fa.w1, diag=False), _coo(fa.w2, diag=False),
+                     fa.s_pad)
+    return (tuple(tuple(t.to(fa.device) for t in op) for op in ops),
+            (fa.w1.diag.float(), fa.w2.diag.float()))
 
 
 # ----------------------------------------------------------------------
@@ -417,12 +472,16 @@ def _stream():
 
 
 def _lib(name):
+    """The launch function ``name`` (fact_fwd, fact_bwd or their _bf16
+    forms, two entry points of one source each)."""
     from ..csrc import build
-    lib = build.load(name)
+    fast = name.endswith("_bf16")
+    lib = build.load(name[:-5] if fast else name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        n_ptr_in = {"fact_fwd": 13, "fact_bwd": 21}[name]
-        if name == "fact_fwd":
+        # the fast forms take W1's and W2's diagonals after the operators
+        n_ptr_in = {"fact_fwd": 13, "fact_bwd": 21}[name[:8]] + 2 * fast
+        if name.startswith("fact_fwd"):
             fn.argtypes = [_P] * n_ptr_in + [_F, _I, _I, _I, _I] \
                 + [_P] * 6 + [_P]
         else:
@@ -444,9 +503,12 @@ def _require(cond, msg):
 
 
 def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
-    """Launch the alpha sweep on CUDA tensors.  px (B, T, P) float32,
-    lengths (B,) int32 in [1, T].  Returns (ad_ys, w1ad_ys, xdst_ys,
-    xsrc_ys or None, s_ys (B, T), ad_last (B, S_pad), ad0, s0)."""
+    """Launch the alpha sweep on CUDA tensors: ``fact_fwd``, or
+    ``fact_fwd_bf16`` for a graph with bfloat16 tiles (the fast mode).
+    px (B, T, P) float32, lengths (B,) int32 in [1, T].  Returns (ad_ys,
+    w1ad_ys, xdst_ys, xsrc_ys or None: (B, T, S_pad) in
+    :func:`stream_dtype`; s_ys (B, T), ad_last (B, S_pad), ad0, s0:
+    float32)."""
     _check_cuda_inputs(px, lengths, fa)
     _require(fits_on_chip(fa),
              f"graph with S_pad={fa.s_pad} needs {smem_bytes(fa)} bytes "
@@ -459,30 +521,32 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
     _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
              f"only {P} columns")
     s_pad = fa.s_pad
-    s0 = fa.initial.sum().reshape(1)
-    ad0 = (fa.initial + leaky_coefficient * s0 * fa.leaky).contiguous()
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=px.device)
+    ad0, s0 = initial_alpha(fa, leaky_coefficient)
+    sd = stream_dtype(fa)
+    new = lambda *shape: torch.empty(shape, dtype=sd, device=px.device)
     ad_ys, w1ad_ys, xdst_ys = (new(B, T, s_pad) for _ in range(3))
     xsrc_ys = None if kg.g_src is None else new(B, T, s_pad)
-    s_ys, ad_last = new(B, T), new(B, s_pad)
-    rc = _lib("fact_fwd")(
+    s_ys = torch.empty((B, T), dtype=torch.float32, device=px.device)
+    ad_last = torch.empty((B, s_pad), dtype=torch.float32, device=px.device)
+    name = "fact_fwd_bf16" if kg.diag else "fact_fwd"
+    rc = _lib(name)(
         _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
-        *map(_ptr, w1), *map(_ptr, w2), _ptr(ad0), _ptr(s0),
-        _ptr(fa.leaky), float(leaky_coefficient), B, T, P, s_pad,
-        _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys), _ptr(xsrc_ys),
-        _ptr(s_ys), _ptr(ad_last), _stream())
-    _check(rc, "fact_fwd")
-    LAUNCHES["fact_fwd"] += 1
+        *map(_ptr, w1), *map(_ptr, w2), *map(_ptr, kg.diag or ()),
+        _ptr(ad0), _ptr(s0), _ptr(fa.leaky), float(leaky_coefficient), B,
+        T, P, s_pad, _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
+        _ptr(xsrc_ys), _ptr(s_ys), _ptr(ad_last), _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, ad0, s0
 
 
 def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
              w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0, tot_prob, P,
              debug=True, stages=None):
-    """Launch the beta sweep on the streams of :func:`fact_fwd`, its ring
+    """Launch the beta sweep on the streams of :func:`fact_fwd`
+    (``fact_bwd``, or ``fact_bwd_bf16`` in the fast mode), its ring
     ``stages`` deep (default :func:`ring_stages`).  Returns (gamma
-    (B, T, P), alpha_beta (B, T), gamma_sum (B, T))."""
+    (B, T, P) float32, alpha_beta (B, T), gamma_sum (B, T))."""
     kg = graph_for(fa)
     _require(kg.resident is not None, f"graph with S_pad={fa.s_pad} does "
              "not fit B1/B2 (fits_on_chip)")
@@ -493,26 +557,33 @@ def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
              <= MAX_SMEM, f"fact_bwd: a ring of {stages} stages does not "
              f"fit a block at S_pad={fa.s_pad}")
     B, T, s_pad = ad_ys.shape
-    for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, tot_prob):
-        _require(t is None or (t.is_cuda and t.dtype == torch.float32
+    sd = stream_dtype(fa)
+    for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys):
+        _require(t is None or (t.is_cuda and t.dtype == sd
                                and t.is_contiguous()),
-                 "fact_bwd: streams must be contiguous float32 on CUDA")
+                 f"fact_bwd: streams must be contiguous {sd} on CUDA")
+    for t in (s_ys, tot_prob):
+        _require(t.is_cuda and t.dtype == torch.float32
+                 and t.is_contiguous(),
+                 "fact_bwd: s_ys and tot_prob must be contiguous float32 "
+                 "on CUDA")
     _require((xsrc_ys is None) == (kg.g_src is None),
              "fact_bwd: x_src stream present iff the graph is not identity")
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=ad_ys.device)
     gamma, ab, gs = new(B, T, P), new(B, T), new(B, T)
     g_lists = kg.g_lists or (None, None)
-    rc = _lib("fact_bwd")(
+    name = "fact_bwd_bf16" if kg.diag else "fact_bwd"
+    rc = _lib(name)(
         _ptr(lengths), _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
         _ptr(xsrc_ys), _ptr(s_ys), _ptr(s0), _ptr(ad0), _ptr(fa.final),
         _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, w1t),
-        *map(_ptr, w2t), *map(_ptr, kg.f_lists), *map(_ptr, g_lists),
-        kg.n_pdf_lists, float(leaky_coefficient), B, T, P, s_pad,
-        int(bool(debug)), stages, _ptr(gamma), _ptr(ab), _ptr(gs),
+        *map(_ptr, w2t), *map(_ptr, kg.diag or ()), *map(_ptr, kg.f_lists),
+        *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
+        P, s_pad, int(bool(debug)), stages, _ptr(gamma), _ptr(ab), _ptr(gs),
         _stream())
-    _check(rc, "fact_bwd")
-    LAUNCHES["fact_bwd"] += 1
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return gamma, ab, gs
 
 
@@ -525,10 +596,9 @@ def _check_cuda_inputs(px, lengths, fa: FactorizedArrays):
              "lengths must be a (B,) int32 CUDA tensor")
     _require(fa.device == px.device,
              f"graph on {fa.device} but px on {px.device}")
-    if fa.w1.operand_dtype != torch.float32:
-        raise NotImplementedError(
-            "bfloat16 transition tiles (precision='fast') have no CUDA "
-            "kernel yet (ROADMAP.md, deferred modules); use float32")
+    _require(fa.w1.operand_dtype in (torch.float32, torch.bfloat16),
+             f"transition tiles of {fa.w1.operand_dtype}: the kernels take "
+             "float32 or bfloat16 (precision='fast')")
     _require(supports(fa), "the kernels require a fully factorized graph "
              "(no residual arcs)")
 
@@ -575,7 +645,9 @@ def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
         raise ValueError("the factorized kernels require a fully "
                          "factorized graph (no residual arcs)")
     if not px.is_cuda:
-        res = forward_backward_prob_fact(px, lengths, fa, leaky_coefficient)
+        plain = (forward_backward_prob_fast if is_fast(fa)
+                 else forward_backward_prob_fact)
+        res = plain(px, lengths, fa, leaky_coefficient)
         return res if debug else _frame0_traces(res)
 
     B, T, P = px.shape
@@ -604,8 +676,9 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     engine "pallas").
 
     px: (B, T, P) exp'd clamped nnet output (float32).  On CUDA this
-    launches ``fact_fwd`` then ``fact_bwd``; on the CPU it computes the
-    plain version.  debug: with True the alpha*beta and sum-gamma traces
+    launches ``fact_fwd`` then ``fact_bwd`` (their fast forms for a graph
+    with bfloat16 tiles); on the CPU it computes the plain version
+    (``forward_backward_prob_fast`` for bfloat16 tiles).  debug: with True the alpha*beta and sum-gamma traces
     cover every frame; with False only frame 0 (the reference's default,
     chain-computation.cc:337-338), the other frames reading exactly
     1.0.  Verbose level >= 1 forces the full traces.  stages: fact_bwd's

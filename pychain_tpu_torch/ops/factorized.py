@@ -8,10 +8,18 @@ block + 128x128 tiles), written as eager float32 PyTorch with a Python
 loop over frames.  Layout is state-major (S_pad, B) per frame, as in the
 JAX engine, so the two compare step for step.
 
-This is the PLAIN VERSION of the two CUDA kernels of
-``ops/fact_kernels.py``: the CPU path of their wrapper, and what
-``chip_smoke.py`` holds them against on the card.  It is not fast: each
-frame launches a handful of small PyTorch operations.
+Two engines.  :func:`forward_backward_prob_fact` is the counterpart of
+the JAX XLA engine (``impl="factorized"``): float32 throughout, and with
+bfloat16 tiles only the matrix operands rounded.  It is the PLAIN
+VERSION of the two CUDA kernels of ``ops/fact_kernels.py`` in float32.
+:func:`forward_backward_prob_fast` is the plain version of the same
+kernels in the fast mode (bfloat16 tiles): it rounds where the Pallas
+kernels of ``pychain_tpu/ops/pallas_fact.py`` round in that mode, and
+takes every sum in the CUDA kernels' order (on the graph's sliced-ELL
+rows and pdf lists, ``fact_kernels.fast_operators``), so that they
+equal it bit for bit.  Each is the CPU path of the kernels' wrapper and
+what ``chip_smoke.py`` holds the kernels against on the card.  Neither
+is fast: each frame launches a handful of small PyTorch operations.
 """
 
 from __future__ import annotations
@@ -154,7 +162,8 @@ def from_factorized_graph(fg, initial, final, leaky,
 
     tile_dtype: float32 (default, parity grade) or bfloat16 (the
     reference's fast mode: transition operands rounded to bfloat16,
-    float32 accumulation).  The CUDA kernels take float32 only."""
+    float32 accumulation; :func:`forward_backward_prob_fast`).  The
+    resident CUDA kernels take both, the cluster kernels float32 only."""
     from ..graphs.factorize import permute_state_vector
 
     td = _tile_dtype(tile_dtype)
@@ -371,6 +380,250 @@ def forward_backward_prob_fact(px, lengths, fa: FactorizedArrays,
         gamma_tm, alpha_beta, gamma_sum = backward_prob_fact(
             px_tm, lengths, fa, leaky_coefficient, alpha_dash, alpha_sums,
             tot_prob)
+        gamma = gamma_batch_major(gamma_tm, P)
+    ok = _ok_flags(objf, alpha_beta, gamma_sum)
+    return FwdBwdResult(objf, gamma, ok, alpha_beta, gamma_sum)
+
+
+# ----------------------------------------------------------------------
+# Fast mode: the Pallas kernels' rounding points (bfloat16 tiles)
+# ----------------------------------------------------------------------
+#
+# pallas_fact.py rounds, with bfloat16 tiles: px to bfloat16 once
+# (px_time_major(px, fa, dtype=bf16) :866, so x_dst and x_src are exact
+# gathers of bfloat16 values); the operand of every dense-block and tile
+# product (_WK.apply :190, :201), whose sums accumulate in float32, but
+# not the diagonal stratum's, which stays float32 (:180-186); each
+# state's posterior mass before the per-pdf sums (E^T applied with
+# bfloat16 operands, :620-626, :676-678); and what it stores: the alpha'
+# stream, W1 alpha' and the emission rows (:283-313), and gamma (:628).
+# The carries alpha' and beta', s_t, the objective and the traces stay
+# float32, and the backward sweep's alpha'(0) is the float32 ad0
+# (:567-573).
+
+def _bf(v):
+    """v rounded to bfloat16 (to nearest even), kept as float32."""
+    return v.to(torch.bfloat16).float()
+
+
+def is_fast(fa: FactorizedArrays) -> bool:
+    """Whether ``fa`` runs in the fast mode: bfloat16 transition tiles."""
+    return fa.w1.operand_dtype == torch.bfloat16
+
+
+def initial_alpha(fa: FactorizedArrays, leaky_coefficient):
+    """(ad0 (S_pad,), s0 (1,)): alpha'(0) = initial + c * s0 * leaky with
+    s0 = sum(initial), as the kernels' wrappers compute them."""
+    s0 = fa.initial.sum().reshape(1)
+    return (fa.initial + leaky_coefficient * s0 * fa.leaky).contiguous(), s0
+
+
+THREADS = 1024   # FACT_THREADS in csrc/fact_common.cuh: a kernel's block
+
+
+def block_sum(v):
+    """The sum over axis 0 of v (N, B) that the kernels' block_sum takes
+    (csrc/fact_common.cuh): thread t of the block adds rows t, t + 1024,
+    ... in order, then a shuffle-down tree sums each warp's 32 threads,
+    and another the 32 warps' partials.  Returns (B,)."""
+    n, B = v.shape
+    R = max(-(-n // THREADS), 1)
+    x = torch.nn.functional.pad(v, (0, 0, 0, R * THREADS - n)).view(
+        R, THREADS, B)
+    part = x[0]
+    for k in range(1, R):
+        part = part + x[k]
+    for groups in (32, 1):              # each warp's lanes, then the warps
+        part = part.reshape(groups, -1, B)
+        for off in (16, 8, 4, 2, 1):
+            part = part[:, :off] + part[:, off:2 * off]
+        part = part[:, 0]
+    return part[0]
+
+
+def _ell_table(sell):
+    """A sliced-ELL operator (``fact_kernels._sell``) as (cols, vals), two
+    (slots, rows) tables: entry k of row r at [k, r], zero past the row's
+    slice (a padding slot adds 0, as the kernels' (0, 0) entries do)."""
+    sptr, col, val = sell
+    sptr = sptr.long()
+    slen = sptr[1:] - sptr[:-1]
+    n_rows = len(slen) * 32
+    K = int(slen.max()) if len(slen) else 0
+    e = torch.arange(len(col), device=col.device)
+    sl = torch.repeat_interleave(torch.arange(len(slen), device=col.device),
+                                 slen * 32)
+    k, row = e // 32 - sptr[:-1][sl], sl * 32 + e % 32
+    cols = torch.zeros((K, n_rows), dtype=torch.long, device=col.device)
+    vals = torch.zeros((K, n_rows), dtype=torch.float32, device=col.device)
+    cols[k, row] = col.long()
+    vals[k, row] = val.float()
+    return cols, vals
+
+
+def _ell_apply(table, v):
+    """Each row of the operator times v (S_pad, B), its entries added in
+    slot order from the first: sell_row_dot's sum (csrc/fact_common.cuh),
+    whose products of two bfloat16 values are exact in float32."""
+    cols, vals = table
+    if cols.shape[0] == 0:
+        return torch.zeros_like(v)
+    terms = v[cols] * vals[:, :, None]              # (slots, S_pad, B)
+    acc = terms[0]
+    for k in range(1, terms.shape[0]):
+        acc = acc + terms[k]
+    return acc
+
+
+def _list_table(lists, s_pad):
+    """pdf -> states lists (``fact_kernels._pdf_lists``) as a (slots,
+    lists) table of states, padded with s_pad (a zero row)."""
+    ptr, states = (t.long() for t in lists)
+    lens = ptr[1:] - ptr[:-1]
+    n = len(lens)
+    L = int(lens.max()) if n else 0
+    table = torch.full((L, n), s_pad, dtype=torch.long, device=ptr.device)
+    e = torch.arange(len(states), device=ptr.device)
+    p = torch.repeat_interleave(torch.arange(n, device=ptr.device), lens)
+    table[e - ptr[:-1][p], p] = states
+    return table
+
+
+def _list_sums(table, c, acc=None):
+    """Each list's masses c (S_pad, B) added in list order, onto ``acc``
+    (default 0): the gamma stage's sums (csrc/fact_bwd.cu)."""
+    c = torch.cat([c, torch.zeros_like(c[:1])])
+    if acc is None:
+        acc = torch.zeros((table.shape[1], c.shape[1]), dtype=c.dtype,
+                          device=c.device)
+    for k in range(table.shape[0]):
+        acc = acc + c[table[k]]
+    return acc
+
+
+def _fast_graph(fa: FactorizedArrays):
+    """What the fast mode reads, on fa's device: the operators' tables,
+    the two diagonals (S_pad, 1), f_dst, g_src (or None) and the pdf
+    lists' tables."""
+    from . import fact_kernels as fk
+    kg = fk.graph_for(fa)
+    ops, (d1, d2) = fk.fast_operators(fa)
+    lists = [_list_table(kg.f_lists, fa.s_pad)]
+    if kg.g_lists is not None:
+        lists.append(_list_table(kg.g_lists, fa.s_pad))
+    return ([_ell_table(op) for op in ops], d1[:, None], d2[:, None],
+            kg.f_dst.long(), None if kg.g_src is None else kg.g_src.long(),
+            lists)
+
+
+def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
+                      leaky_coefficient, graph=None):
+    """Fast-mode alpha sweep.  px_tm: (T, P_eff, B) float32, rounded here.
+    Every sum is taken in fact_fwd.cu's order (each row's slots, then the
+    diagonal; :func:`block_sum`), so that the kernel gives these numbers
+    bit for bit.  Returns (alpha_dash (T+1, S_pad, B): alpha'(0) = ad0 in
+    float32, then the stored (bfloat16-rounded) alpha'(t); w1_alpha (T,
+    S_pad, B): the stored W1 alpha'(t); s_ys (B, T): s_1 .. s_T, 1 past a
+    column's end, as the kernel writes them; objf (B,), tot_prob (B,))."""
+    from .fact_kernels import _objf
+    tables, d1, d2, f, g, _ = graph or _fast_graph(fa)
+    T, _, B = px_tm.shape
+    leaky = fa.leaky[:, None]
+    ad0, s0 = initial_alpha(fa, leaky_coefficient)
+    own = ad0[:, None].expand(fa.s_pad, B)
+    ad_last = own
+    s_prev = s0.expand(B)
+    ad_ys, w1_ys, s_ys = [own], [], []
+    for t in range(T):
+        x = _bf(px_tm[t][f])
+        xs = x if g is None else _bf(px_tm[t][g])
+        w1a = _ell_apply(tables[0], _bf(own)) + d1 * own
+        u = xs * own
+        w2u = _ell_apply(tables[1], _bf(u)) + d2 * u
+        a = (x * w1a + w2u) * (1.0 / s_prev)[None, :]
+        s_t = block_sum(a)
+        v = a + (leaky_coefficient * s_t)[None, :] * leaky
+        active = t < lengths
+        own = torch.where(active[None, :], v, own)
+        s_prev = torch.where(active, s_t, s_prev)
+        ad_last = torch.where((lengths == t + 1)[None, :], v, ad_last)
+        ad_ys.append(_bf(own))
+        w1_ys.append(_bf(w1a))
+        s_ys.append(torch.where(active, s_t, 1.0))
+    s_ys = torch.stack(s_ys, dim=1)
+    objf, tot_prob = _objf(s_ys, ad_last.t().contiguous(), lengths, fa, s0)
+    return (torch.stack(ad_ys, dim=0), torch.stack(w1_ys, dim=0), s_ys,
+            objf, tot_prob)
+
+
+def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
+                       leaky_coefficient, alpha_dash, w1_alpha, s_ys,
+                       tot_prob, graph=None):
+    """Fast-mode beta sweep + posteriors on :func:`forward_prob_fast`'s
+    results, every sum in fact_bwd.cu's order.  Returns (gamma (T, P_eff,
+    B): bfloat16 values, zero past each column's end; alpha_beta (B, T),
+    gamma_sum (B, T))."""
+    tables, d1, d2, f, g, lists = graph or _fast_graph(fa)
+    T, P, B = px_tm.shape
+    leaky = fa.leaky[:, None]
+    _, s0 = initial_alpha(fa, leaky_coefficient)
+    bd_final = fa.final[:, None] / tot_prob[None, :]
+    leak_final = block_sum(bd_final * leaky)
+    bd = torch.zeros((fa.s_pad, B), dtype=torch.float32,
+                     device=px_tm.device)
+    leak = torch.zeros(B, dtype=torch.float32, device=px_tm.device)
+    gammas, abs_, gss = [None] * T, [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        inject = lengths == t + 1
+        bd = torch.where(inject[None, :], bd_final, bd)
+        leak = torch.where(inject, leak_final, leak)
+        inv = 1.0 / (s0.expand(B) if t == 0 else s_ys[:, t - 1])
+        x = _bf(px_tm[t][f])
+        xs = x if g is None else _bf(px_tm[t][g])
+        ad = alpha_dash[t]
+        v = bd + (leaky_coefficient * leak)[None, :]
+        xb = x * v
+        w1t = _ell_apply(tables[2], _bf(xb)) + d1 * xb
+        sw = xs * (_ell_apply(tables[3], _bf(v)) + d2 * v)
+        bd_t = (w1t + sw) * inv[None, :]
+        # each state's mass, unscaled, rounded before its pdf's sum
+        m1, m2 = xb * w1_alpha[t], sw * ad
+        if g is None:
+            acc = _list_sums(lists[0], _bf(m1 + m2))
+        else:
+            acc = _list_sums(lists[1], _bf(m2),
+                             _list_sums(lists[0], _bf(m1)))
+        acc = torch.nn.functional.pad(acc[:P], (0, 0, 0, P - min(
+            P, acc.shape[0])))
+        active = t < lengths
+        gammas[t] = torch.where(active[None, :], _bf(acc * inv[None, :]),
+                                0.0)
+        abs_[t] = torch.where(active, block_sum(ad * bd_t), 0.0)
+        gss[t] = torch.where(active, block_sum(acc) * inv, 0.0)
+        leak = torch.where(active, block_sum(bd_t * leaky), leak)
+        bd = torch.where(active[None, :], bd_t, bd)
+    return (torch.stack(gammas, dim=0), torch.stack(abs_, dim=1),
+            torch.stack(gss, dim=1))
+
+
+def forward_backward_prob_fast(px, lengths, fa: FactorizedArrays,
+                               leaky_coefficient=1e-5) -> FwdBwdResult:
+    """Fused fwd+bwd in the fast mode on a graph with bfloat16 tiles:
+    what the Pallas kernels compute with bfloat16 tiles (the rounding
+    points above), and the plain version of the resident CUDA kernels in
+    that mode, which give its numbers bit for bit (it takes every sum in
+    their order).  px: (B, T, P) exp'd output (float32); gamma is
+    returned in (B, T, P), float32 holding bfloat16 values."""
+    B, T, P = px.shape
+    lengths = host_to(torch.as_tensor(lengths), px.device).long()
+    with torch.no_grad():
+        graph = _fast_graph(fa)
+        px_tm = px.permute(1, 2, 0)
+        alpha_dash, w1_alpha, s_ys, objf, tot_prob = forward_prob_fast(
+            px_tm, lengths, fa, leaky_coefficient, graph)
+        gamma_tm, alpha_beta, gamma_sum = backward_prob_fast(
+            px_tm, lengths, fa, leaky_coefficient, alpha_dash, w1_alpha,
+            s_ys, tot_prob, graph)
         gamma = gamma_batch_major(gamma_tm, P)
     ok = _ok_flags(objf, alpha_beta, gamma_sum)
     return FwdBwdResult(objf, gamma, ok, alpha_beta, gamma_sum)

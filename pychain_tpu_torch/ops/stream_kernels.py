@@ -33,8 +33,12 @@ with state ids packed as (owner rank, local row) for the cluster size C
 [r ceil(P / C), (r + 1) ceil(P / C)) from the CTAs that own the states.
 
 A wrapper given CPU tensors computes the plain version
-(``ops/factorized.py``); given CUDA tensors it launches its kernel or
-raises.  Each launch adds one to ``LAUNCHES[name]``.
+(``ops/factorized.py``; the fast one for bfloat16 tiles); given CUDA
+tensors it launches its kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``.  The kernels take float32 tiles only: a graph with
+bfloat16 tiles (``precision="fast"``) raises ``NotImplementedError`` on
+CUDA (ROADMAP.md queues the fast mode of B3/B4 first among its
+modules).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import weakref
 import torch
 
 from . import fact_kernels as fk
-from .factorized import FactorizedArrays
+from .factorized import FactorizedArrays, initial_alpha, is_fast
 from .fwdbwd import FwdBwdResult
 
 CLUSTERS = (1, 2, 4, 8)      # portable cluster sizes, smallest first
@@ -309,20 +313,29 @@ def _plan(fa: FactorizedArrays, B: int, device, name: str, cluster,
                        cluster, columns)
 
 
+def _require_float32(fa: FactorizedArrays):
+    if is_fast(fa):
+        raise NotImplementedError(
+            f"the cluster kernels (S_pad={fa.s_pad}, past the resident "
+            "tier) have no fast mode yet: bfloat16 tiles "
+            "(precision='fast') on a graph this large wait for the fast "
+            "mode of B3/B4, queued in ROADMAP.md; use float32 tiles")
+
+
 def stream_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
                cluster=None, columns=None):
     """Launch the cluster alpha sweep on CUDA tensors; the arguments and
     results of :func:`fact_kernels.fact_fwd`.  ``cluster`` / ``columns``
     force C / G (default: :func:`plan`)."""
     fk._check_cuda_inputs(px, lengths, fa)
+    _require_float32(fa)
     B, T, P = px.shape
     p = _plan(fa, B, px.device, "stream_fwd", cluster, columns)
     kg = graph_for(fa, p.cluster)
     _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
              f"only {P} columns")
     s_pad = fa.s_pad
-    s0 = fa.initial.sum().reshape(1)
-    ad0 = (fa.initial + leaky_coefficient * s0 * fa.leaky).contiguous()
+    ad0, s0 = initial_alpha(fa, leaky_coefficient)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=px.device)
     ad_ys, w1ad_ys, xdst_ys = (new(B, T, s_pad) for _ in range(3))
@@ -346,6 +359,7 @@ def stream_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
     """Launch the cluster beta sweep on the streams of :func:`stream_fwd`
     (or ``fact_fwd``).  Returns (gamma (B, T, P), alpha_beta (B, T),
     gamma_sum (B, T))."""
+    _require_float32(fa)
     B, T, s_pad = ad_ys.shape
     for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, tot_prob):
         _require(t is None or (t.is_cuda and t.dtype == torch.float32

@@ -15,7 +15,10 @@ which match the JAX package's arc for arc; the CPU tests of each module
 
 Tolerances: the loss kernels against their plain version objf relative
 <= 1e-4 and gamma and traces max-abs <= 1e-4 (docs/PARITY.md:21; sums in
-another order), gamma bit-identical on a rerun (no atomics); the Viterbi
+another order), gamma bit-identical on a rerun (no atomics); in the fast
+mode (bfloat16 tiles) bit-identical to the plain fast version, which
+takes every sum in the kernels' order (in another order the bfloat16
+roundings drift apart by far more than float32 rounding); the Viterbi
 kernel bit-identical (it adds the plain version's float32 values in the
 same association).  The XL roofline probe's kernels are checked in
 chip_smoke.py, not here.
@@ -38,7 +41,8 @@ from pychain_tpu_torch.ops import semiring as sr
 from pychain_tpu_torch.ops import semiring_kernels as semk
 from pychain_tpu_torch.ops import stream_kernels as stk
 from pychain_tpu_torch.ops import viterbi_kernels as vk
-from pychain_tpu_torch.ops.factorized import forward_backward_prob_fact
+from pychain_tpu_torch.ops.factorized import (forward_backward_prob_fact,
+                                              forward_backward_prob_fast)
 from pychain_tpu_torch.ops.viterbi import viterbi_plain
 from pychain_tpu_torch.decode import PhoneDecoder
 from pychain_tpu_torch.utils.testgraphs import (denominator_fst, linear_fst,
@@ -91,7 +95,8 @@ class TestFactorized:
         fk.reset_launch_counts()
         got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
                                               debug=debug)
-        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
+        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1,
+                               "fact_fwd_bf16": 0, "fact_bwd_bf16": 0}
         ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
         if not debug:
             ref = fk._frame0_traces(ref)
@@ -118,6 +123,102 @@ class TestFactorized:
         again = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
                                                 stages=stages)
         assert torch.equal(again.gamma, got.gamma)
+
+
+class TestFast:
+    """B1/B2 in the fast mode (bfloat16 tiles) against the plain fast
+    version (ops/factorized.forward_backward_prob_fast)."""
+
+    @staticmethod
+    def _fast_case(cuda, mode, seed, num_phones):
+        fst, x, lengths = _den_case(mode, seed=seed, num_phones=num_phones)
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), x.shape[0],
+                                tile_dtype="bfloat16", device=cuda)._fact
+        px = torch.exp(torch.from_numpy(x)).to(cuda)
+        return fa, px, torch.from_numpy(lengths).to(cuda)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("debug", [True, False])
+    def test_fast_kernels_match_plain(self, cuda, mode, want, debug,
+                                      stages):
+        """Every ring depth (lengths T, T - 2, 3 and 1), the fast pair's
+        launches alone, bit-identical to the plain version and on a
+        rerun."""
+        fa, px, lens = self._fast_case(cuda, mode, 7, 40)
+        assert fa.xsrc_mode == want and fk.ring_stages(fa) == 2
+        fk.reset_launch_counts()
+        got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                              debug=debug, stages=stages)
+        assert fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
+                               "fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY)
+        if not debug:
+            ref = fk._frame0_traces(ref)
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert torch.equal(got.gamma.bfloat16().float(), got.gamma)
+        again = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                debug=debug, stages=stages)
+        assert torch.equal(again.gamma, got.gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("mode,want", MODES)
+    def test_fast_streams_are_bfloat16(self, cuda, mode, want):
+        """fact_fwd_bf16's streams against the plain fast forward sweep,
+        bit for bit: bfloat16 alpha' and W1 alpha', float32 s_t."""
+        from pychain_tpu_torch.ops.factorized import (forward_prob_fast,
+                                                      px_time_major)
+        fa, px, lens = self._fast_case(cuda, mode, 8, 40)
+        ad_ys, w1ad, xdst, xsrc, s_ys, _, _, _ = fk.fact_fwd(
+            px, lens.int(), fa, LEAKY)
+        assert ad_ys.dtype == w1ad.dtype == xdst.dtype == torch.bfloat16
+        assert (xsrc is None) == (want == "identity")
+        alpha_dash, w1_alpha, s_plain, _, _ = forward_prob_fast(
+            px_time_major(px, fa), lens.long(), fa, LEAKY)
+        T = px.shape[1]
+        for b, Tb in enumerate(lens.tolist()):
+            assert torch.equal(ad_ys[b, :Tb].float(),
+                               alpha_dash[1:Tb + 1, :, b])
+            assert torch.equal(w1ad[b, :Tb].float(), w1_alpha[:Tb, :, b])
+            assert torch.equal(s_ys[b, :Tb], s_plain[b, :Tb])
+            assert bool((s_ys[b, Tb:T] == 1.0).all())
+
+    @pytest.mark.cuda
+    def test_fast_chain_loss_matches_cpu(self, cuda):
+        den_fst, x, lens, nums = _linear_setup(mode="separate")
+        cpu = pt.ChainLoss(pt.ChainGraph(den_fst), precision="fast",
+                           device="cpu")
+        xc = torch.from_numpy(x).requires_grad_(True)
+        vc = cpu(xc, lens, nums)
+        vc.backward()
+        gpu = pt.ChainLoss(pt.ChainGraph(den_fst), precision="fast")
+        _, _, _, num_gpu = _linear_setup(mode="separate", device=cuda)
+        xg = torch.from_numpy(x).to(cuda).requires_grad_(True)
+        fk.reset_launch_counts()
+        vg = gpu(xg, lens, num_gpu)
+        vg.backward()
+        assert fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
+                               "fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
+        torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
+                                   atol=1e-6)
+
+    @pytest.mark.cuda
+    def test_fast_cluster_tier_raises(self, cuda):
+        """No fast mode of B3/B4 yet: a bfloat16 graph on the cluster tier
+        raises, and nothing falls back to float32 or the plain version."""
+        fa, px, lens = self._fast_case(cuda, "separate", 9, 40)
+        fa = dataclasses.replace(fa, engine="stream")
+        stk.reset_launch_counts()
+        fk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="fast mode of B3/B4"):
+            pt.loss._run(torch.log(px), lens, fa, LEAKY)
+        with pytest.raises(NotImplementedError, match="fast mode of B3/B4"):
+            stk.forward_backward_prob_stream(px, lens, fa, LEAKY)
+        assert set(stk.LAUNCHES.values()) == {0}
+        assert set(fk.LAUNCHES.values()) == {0}
 
 
 # ----------------------------------------------------------------------
@@ -230,7 +331,8 @@ class TestLoss:
         fk.reset_launch_counts()
         vg = gpu(xg, lens, num_gpu)
         vg.backward()
-        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
+        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1,
+                               "fact_fwd_bf16": 0, "fact_bwd_bf16": 0}
         torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)
 
@@ -248,7 +350,8 @@ class TestLoss:
         semk.reset_launch_counts()
         vg = gpu(xg, lens, num_gpu)
         vg.backward()
-        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1}
+        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1,
+                               "fact_fwd_bf16": 0, "fact_bwd_bf16": 0}
         assert semk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
         torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)

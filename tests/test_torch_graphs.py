@@ -132,3 +132,58 @@ def test_fst_ark_and_text_roundtrip(tmp_path):
     _assert_same(FST.from_text(fst.to_text()), fst)
     lin = testgraphs.linear_fst([3, 1, 4])
     assert lin.num_states == 4 and list(lin.ilabels) == [4, 2, 5]
+
+
+# ----------------------------------------------------------------------
+# ChainGraphBatch's batched views (the reference's graph.py:73-194)
+# ----------------------------------------------------------------------
+
+VIEWS = ("forward_transitions", "backward_transitions",
+         "forward_transition_probs", "backward_transition_probs",
+         "forward_transition_indices", "backward_transition_indices",
+         "initial_probs", "final_probs", "leaky_probs", "start_state")
+
+
+def _view_batches(kind):
+    """The same batch in both packages: a shared prob-domain denominator
+    broadcast over 3 sequences, or a log-domain list of 3 graphs of
+    different sizes padded past the largest."""
+    import pychain_tpu as jp
+    import pychain_tpu_torch as pt
+    if kind == "shared":
+        fst = testgraphs.denominator_fst(num_phones=10, seed=0)[0]
+        return (jp.ChainGraphBatch(jp.ChainGraph(fst), 3),
+                pt.ChainGraphBatch(pt.ChainGraph(fst), 3, device="cpu"))
+    fsts = [testgraphs.random_fst(num_states=5 + 3 * i, num_pdfs=7,
+                                  max_arcs_per_state=3, seed=i)
+            for i in range(3)]
+    K = max(n_arcs(f) for f in fsts) + 4
+    S = max(n_states(f) for f in fsts) + 2
+    return (jp.ChainGraphBatch([jp.ChainGraph(f, log_domain=True)
+                                for f in fsts], max_num_transitions=K,
+                               max_num_states=S),
+            pt.ChainGraphBatch([pt.ChainGraph(f, log_domain=True)
+                                for f in fsts], max_num_transitions=K,
+                               max_num_states=S, device="cpu"))
+
+
+def _assert_views(jb, pb, when):
+    for name in VIEWS:
+        want, got = getattr(jb, name), getattr(pb, name)
+        if want is None:
+            assert got is None, (name, when)
+            continue
+        want = np.asarray(want)
+        assert got.device.type == "cpu" and got.shape == want.shape, name
+        assert got.numpy().dtype == want.dtype, name
+        np.testing.assert_array_equal(got.numpy(), want,
+                                      err_msg=f"{name} {when}")
+
+
+@pytest.mark.parametrize("kind", ["shared", "list"])
+def test_batched_views_match_jax(kind):
+    jb, pb = _view_batches(kind)
+    _assert_views(jb, pb, "as built")
+    jb.reorder([2, 0, 1])
+    pb.reorder([2, 0, 1])
+    _assert_views(jb, pb, "after reorder")

@@ -114,12 +114,15 @@ def test_jax_arrays_through_convert_give_the_same_loss():
 
 
 def test_fast_precision_plain_path_matches_jax_bf16():
+    """The XLA engine with bfloat16 tiles on both sides (the Pallas
+    kernels' fast mode, which the port's default engine follows, is held
+    to JAX's in tests/test_torch_fast.py)."""
     den_fst, x, lens, nums, jnums = _setup()
     jloss = JChainLoss(JChainGraph(den_fst), precision="fast",
                        impl="factorized")
     jval = jloss(jnp.asarray(x), jnp.asarray(lens), jnums)
     loss_mod = pt.ChainLoss(pt.ChainGraph(den_fst), precision="fast",
-                            device="cpu")
+                            impl="factorized", device="cpu")
     val = loss_mod(torch.from_numpy(x), lens, nums)
     np.testing.assert_allclose(float(val.detach()), float(jval), rtol=1e-5)
 
