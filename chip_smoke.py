@@ -6,13 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero.
 Every loss kernel is held to its plain version with objf relative and
 gamma and traces absolute errors of at most 1e-4, and gamma and the
-alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7; B1/B2 in
-the fast mode (bfloat16 tiles) bit for bit.
+alpha' stream also entry by entry: |d| <= 1e-3 |ref| + 1e-7; B1/B2 and
+B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the eight sources of csrc/*.cu with nvcc (sm_90a), all at
    once, one nvcc each, and check that each kernel's shared memory size
-   in Python equals its source's; then run tests/test_torch_card.py (the
+   in Python equals its source's (the cluster pair's in both precisions,
+   with the same resident clusters for its float32 and bfloat16 forms at
+   main path 4's S_pad); then run tests/test_torch_card.py (the
    kernels against their plain versions, in pytest) in a fresh
    interpreter without tests/conftest.py, which imports JAX: every test
    must pass and none skip;
@@ -90,14 +92,20 @@ the fast mode (bfloat16 tiles) bit for bit.
    some ranks own no rows) at every plan
    (C CTAs a cluster in 1, 2, 4, 8, G columns a CTA in 1, 2, 4), B=5
    columns of unequal lengths and debug True/False, each gamma
-   bit-identical on a rerun and across G; then the "s8k" class
+   bit-identical on a rerun and across G, in both precisions (the fast
+   forms stream_fwd_bf16 / stream_bwd_bf16 bit for bit against the plain
+   fast version with cluster=C); then the "s8k" class
    (bench.py --s8k: denominator_fst(4000, 2, bigram_fanout=30), B=64,
    T=300, which the JAX package streams in float32) forced to
    engine="stream": the plans (C, G, CTAs, active clusters, waves,
    shared memory), against the plain version and against B1/B2 on the
    same inputs, with both pairs' times and the cluster pair's at every
-   plan that fits; B1/B2 themselves against the plain version there (one
-   ring stage) and on an identity graph past one stage
+   plan that fits; the fast cluster pair there at its plan (C=2, G=1) bit
+   for bit against the plain fast version at C=2 (debug True and False,
+   both streams, gamma on a rerun), against the float32 pair within the
+   JAX package's bfloat16 budget, both pairs' times and bounds; B1/B2
+   themselves against the plain version there (one ring stage) and on
+   an identity graph past one stage
    (denominator_fst(6000, 2, bigram_fanout=4), S_pad 12,032, no ring:
    the rows read from device memory) at B=6, T=40, gamma bit-identical
    on a rerun;
@@ -110,9 +118,16 @@ the fast mode (bfloat16 tiles) bit for bit.
    False, with both times (and the pair's at every plan), three SGD
    steps (loss finite and falling, gradient finite, one launch of each
    cluster kernel a step and none of B1/B2), a timed and a profiled step;
-   then ChainLoss(den, precision="fast") on it must raise
-   NotImplementedError (no fast mode of the cluster kernels yet) and
-   launch nothing;
+   then main path 4 in the fast mode, ChainLoss(den, precision="fast"):
+   the same tier, the fast cluster pair at full B against the plain fast
+   version at its plan's C bit for bit (debug True and False: objf,
+   gamma, traces; the alpha' and W1 alpha' streams and s_t; gamma on a
+   rerun), and at every plan that fits (each at its own C), against the
+   float32 pair on the same px within the JAX package's bfloat16 budget,
+   both pairs' times, the plain fast sweeps' and the bounds; three SGD
+   steps on a fresh x (loss finite and falling, one launch of
+   stream_fwd_bf16 and of stream_bwd_bf16 a step and of no other
+   denominator kernel), the peak device memory and a profiled step;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -130,8 +145,10 @@ the fast mode (bfloat16 tiles) bit for bit.
    3's batch; both pairs' rows with their layouts; main paths 2 and 3
    launch the semiring pair three times each), the cluster kernels one
    for main path 4 and one for s8k,
-   each with its plan, and B1/B2's fast forms one each (the headline's
-   time beside s8k's and the float32 pair's);
+   each with its plan, B1/B2's fast forms one each (the headline's
+   time beside s8k's and the float32 pair's), and the cluster kernels'
+   fast forms one for main path 4 fast (its launches) and one for s8k,
+   each with its plan and the float32 form's time in the same run;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -225,22 +242,27 @@ def excess(got, ref):
     return ((got - ref).abs() / (ATOL + RTOL * ref.abs()))
 
 
-def plain_for(fa):
+def plain_for(fa, cluster=None):
     """The plain version of the denominator kernels for this graph: the
-    fast one for bfloat16 tiles."""
+    fast one for bfloat16 tiles, in the cluster pair's order at
+    ``cluster`` CTAs a cluster when given (else B1/B2's)."""
     from pychain_tpu_torch.ops import factorized as pf
-    return (pf.forward_backward_prob_fast if pf.is_fast(fa)
-            else pf.forward_backward_prob_fact)
+    if pf.is_fast(fa):
+        return functools.partial(pf.forward_backward_prob_fast,
+                                 cluster=cluster)
+    return pf.forward_backward_prob_fact
 
 
-def compare(fa, px, lens, leaky_c, debug, label, run=None):
+def compare(fa, px, lens, leaky_c, debug, label, run=None, cluster=None):
     """Kernel path (``run``, default B1/B2's) vs plain path on the same
-    inputs.  Returns the observed errors."""
+    inputs (in the fast mode the plain version in the cluster pair's
+    order at ``cluster``, which ``run`` must then launch at).  Returns the
+    observed errors."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import is_fast
     run = run or fk.forward_backward_prob_kernel
     got = run(px, lens, fa, leaky_c, debug=debug)
-    ref = plain_for(fa)(px, lens, fa, leaky_c)
+    ref = plain_for(fa, cluster)(px, lens, fa, leaky_c)
     torch.cuda.synchronize()
     if not debug:
         ref = fk._frame0_traces(ref)
@@ -269,11 +291,12 @@ def compare(fa, px, lens, leaky_c, debug, label, run=None):
     return {**errs, "gamma_excess": gamma_excess}
 
 
-def alpha_err(fa, px, lens, leaky_c, label, fwd=None):
+def alpha_err(fa, px, lens, leaky_c, label, fwd=None, cluster=None):
     """Forward kernel alone (``fwd``, default fact_fwd): its alpha' stream
     (absolute and entry by entry) and sums (relative) against the plain
     forward sweep on frames before each column's end; in the fast mode
-    its alpha' and W1 alpha' streams and sums bit for bit.  Returns the
+    its alpha' and W1 alpha' streams and sums bit for bit (the plain sweep
+    in the cluster pair's order at ``cluster`` when given).  Returns the
     larger of the absolute and relative errors, and the largest entry's
     excess (:func:`excess`)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
@@ -286,7 +309,8 @@ def alpha_err(fa, px, lens, leaky_c, label, fwd=None):
     with torch.no_grad():
         if fast:
             alpha_dash, w1_alpha, ref_s, _, _ = forward_prob_fast(
-                px_time_major(px, fa), lens.long(), fa, leaky_c)
+                px_time_major(px, fa), lens.long(), fa, leaky_c,
+                cluster=cluster)
         else:
             alpha_dash, alpha_sums, _, _ = forward_prob_fact(
                 px_time_major(px, fa), lens.long(), fa, leaky_c)
@@ -330,11 +354,13 @@ def worst(errs):
 MODES = (("source", "identity"), ("cross", "matrix"), ("separate", "stream"))
 
 
-def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True):
+def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True,
+               cluster=None):
     """CUDA-event milliseconds of a denominator kernel pair alone (fwd,
     bwd: the signatures of fact_fwd / fact_bwd) and, with ``plain``, of
-    the plain version of each sweep (the fast one for bfloat16 tiles), on
-    the same inputs."""
+    the plain version of each sweep (the fast one for bfloat16 tiles, in
+    the cluster pair's order at ``cluster`` when given), on the same
+    inputs."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import (backward_prob_fact,
                                                   backward_prob_fast,
@@ -361,11 +387,13 @@ def pair_times(fa, px, lens, leaky_c, fwd, bwd, reps, plain=True):
     lens64 = lens.long()
     with torch.no_grad():
         if is_fast(fa):
-            ad, w1a, sums, _, tot = forward_prob_fast(px_tm, lens64, fa,
-                                                      leaky_c)
-            plain_fwd = lambda: forward_prob_fast(px_tm, lens64, fa, leaky_c)
-            plain_bwd = lambda: backward_prob_fast(px_tm, lens64, fa, leaky_c,
-                                                   ad, w1a, sums, tot)
+            ad, w1a, sums, _, tot = forward_prob_fast(
+                px_tm, lens64, fa, leaky_c, cluster=cluster)
+            plain_fwd = lambda: forward_prob_fast(px_tm, lens64, fa, leaky_c,
+                                                  cluster=cluster)
+            plain_bwd = lambda: backward_prob_fast(
+                px_tm, lens64, fa, leaky_c, ad, w1a, sums, tot,
+                cluster=cluster)
         else:
             ad, sums, _, tot = forward_prob_fact(px_tm, lens64, fa, leaky_c)
             plain_fwd = lambda: forward_prob_fact(px_tm, lens64, fa, leaky_c)
@@ -385,15 +413,17 @@ def cluster_pair(C, G):
 
 def stream_plans(fa, B, label):
     """Each cluster kernel's plan for this graph at B columns on this
-    card, printed with cudaOccupancyMaxActiveClusters; returns
-    {kernel: plan dict}."""
+    card, printed with cudaOccupancyMaxActiveClusters (of the kernel of
+    the graph's precision); returns {kernel: plan dict}."""
     from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.ops.factorized import is_fast
     plans = stk.plan(fa, B, torch.cuda.get_device_properties(0))
     out = {}
     for name, p in plans.items():
         out[name] = {**dataclasses.asdict(p),
                      "active_clusters": stk.active_clusters(fa, p)}
-        print(f"# {label} plan {name}: C={p.cluster} G={p.columns} "
+        print(f"# {label} plan {name}{'_bf16' if is_fast(fa) else ''}: "
+              f"C={p.cluster} G={p.columns} "
               f"threads={p.threads} CTAs={p.ctas} (per SM {p.ctas_per_sm}) "
               f"active clusters={out[name]['active_clusters']} "
               f"waves={p.waves} smem={p.smem} cost={p.cost}", flush=True)
@@ -402,38 +432,90 @@ def stream_plans(fa, B, label):
 
 def plan_times(fa, px, lens, leaky_c, label, reps=3):
     """CUDA-event ms of each kernel at every plan that fits (C, G), on the
-    same inputs; printed, cheapest by the plan's rule first."""
+    same inputs; printed, cheapest by the plan's rule first.  In the fast
+    mode each plan is also held to the plain fast version at its C, bit
+    for bit: the forward's alpha' and W1 alpha' streams and s_t, the
+    backward's gamma and traces (debug=True, on the streams of the
+    forward kernel at that C)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.ops.factorized import (backward_prob_fast,
+                                                  forward_prob_fast,
+                                                  gamma_batch_major, is_fast)
     props = torch.cuda.get_device_properties(0)
     B, T, P = px.shape
     lens32 = lens.int()
-    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
-        px, lens32, fa, leaky_c)
-    _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
-    tot = tot.contiguous()
-    out = {}
-    for name in stk.LAUNCHES:
-        for p in stk.candidates(fa, name, B, props):
-            if name == "stream_fwd":
-                fn = lambda: stk.stream_fwd(px, lens32, fa, leaky_c,
-                                            cluster=p.cluster,
-                                            columns=p.columns)
-            else:
-                fn = lambda: stk.stream_bwd(
-                    lens32, fa, leaky_c, ad_ys, w1ad, xdst, xsrc, s_ys, ad0,
-                    s0, tot, P, debug=False, cluster=p.cluster,
-                    columns=p.columns)
-            fn()
-            out[f"{name} C={p.cluster} G={p.columns}"] = cuda_ms(fn, reps)
+    fast = is_fast(fa)
+    cands = {name: stk.candidates(fa, name, B, props)
+             for name in stk.KERNELS}
+    key = lambda p: f"{p.kernel}{'_bf16' if fast else ''} C={p.cluster} " \
+        f"G={p.columns}"
+    out, diffs = {}, {}
+    live = torch.arange(T, device=px.device)[None, :] < lens[:, None]
+    # the float32 pair: every backward plan on the streams of the forward
+    # at its plan; the fast pair: one C at a time, against its plain order
+    for C in sorted({p.cluster for c in cands.values() for p in c}) \
+            if fast else [None]:
+        fwds = [p for p in cands["stream_fwd"] if C in (None, p.cluster)]
+        bwds = [p for p in cands["stream_bwd"] if C in (None, p.cluster)]
+        if fast:
+            with torch.no_grad():
+                ref_ad, ref_w1, ref_s, _, ref_tot = forward_prob_fast(
+                    px.permute(1, 2, 0), lens.long(), fa, leaky_c,
+                    cluster=C)
+        for p in fwds:
+            fn = functools.partial(stk.stream_fwd, px, lens32, fa, leaky_c,
+                                   cluster=p.cluster, columns=p.columns)
+            got = fn()
+            if fast:
+                n = int(((got[0].float() != ref_ad[1:].permute(2, 0, 1))
+                         & live[:, :, None]).sum())
+                n += int(((got[1].float() != ref_w1.permute(2, 0, 1))
+                          & live[:, :, None]).sum())
+                n += int(((got[4] != ref_s) & live).sum())
+                diffs[key(p)] = n
+            del got
+            out[key(p)] = cuda_ms(fn, reps)
+        ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
+            px, lens32, fa, leaky_c, cluster=C)
+        _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
+        tot = tot.contiguous()
+        if fast:
+            with torch.no_grad():
+                g_tm, ref_ab, ref_gs = backward_prob_fast(
+                    px.permute(1, 2, 0), lens.long(), fa, leaky_c, ref_ad,
+                    ref_w1, ref_s, ref_tot, cluster=C)
+                ref_gamma = gamma_batch_major(g_tm, P)
+            del g_tm, ref_ad, ref_w1
+        for p in bwds:
+            fn = functools.partial(
+                stk.stream_bwd, lens32, fa, leaky_c, ad_ys, w1ad, xdst, xsrc,
+                s_ys, ad0, s0, tot, P, cluster=p.cluster, columns=p.columns)
+            if fast:
+                gamma, ab, gs = fn(debug=True)
+                diffs[key(p)] = int((gamma != ref_gamma).sum()) + int(
+                    (ab != ref_ab).sum()) + int((gs != ref_gs).sum())
+                del gamma
+            fn(debug=False)
+            out[key(p)] = cuda_ms(lambda: fn(debug=False), reps)
+        del ad_ys, w1ad, xdst, xsrc
+        if fast:
+            del ref_gamma
     print(f"# {label} times at every plan (ms, the rule's order): "
           + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
-    for name in stk.LAUNCHES:
-        mine = {k: v for k, v in out.items() if k.startswith(name + " ")}
-        pick, fastest = next(iter(mine)), min(mine, key=mine.get)
-        print(f"# {label} {name}: the rule's plan {pick[len(name) + 1:]} "
+    if fast:
+        print(f"# {label} entries not bit-identical to the plain fast "
+              f"version at each plan's C: {diffs}", flush=True)
+        check(sum(diffs.values()) == 0, f"{label}: a plan's kernel differs "
+              f"from the plain fast version: {diffs}")
+    for name in stk.KERNELS:
+        mine = {k: v for k, v in out.items()
+                if k.split(" ")[0].removesuffix("_bf16") == name}
+        pick = key(cands[name][0])
+        fastest = min(mine, key=mine.get)
+        print(f"# {label} {name}: the rule's plan {pick.split(' ', 1)[1]} "
               f"{mine[pick]:.3f} ms, the fastest timed "
-              f"{fastest[len(name) + 1:]} {mine[fastest]:.3f} ms",
+              f"{fastest.split(' ', 1)[1]} {mine[fastest]:.3f} ms",
               flush=True)
     return out
 
@@ -479,9 +561,7 @@ def resident_layout(fa, kg, label):
     (fact_fwd has none).  Returns ({op: (slot-warps, ascending, bank
     order)}, fact_bwd's ring depth)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
-    ascending = (kg.w1, kg.w2, kg.w1t, kg.w2t) if kg.diag is None else \
-        fk._operators(fk._coo(fa.w1, diag=False),
-                      fk._coo(fa.w2, diag=False), fa.s_pad)
+    ascending = kg.off or (kg.w1, kg.w2, kg.w1t, kg.w2t)
     out = {}
     for name, op, asc_op in zip(("w1", "w2", "w1t", "w2t"), kg.resident,
                                 ascending):
@@ -605,7 +685,31 @@ def fast_small(dev, leaky_c):
     return worst(errs)
 
 
-def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None):
+def vs_float32(label, got, ref):
+    """The fast mode's results ``got`` against float32's ``ref`` on the
+    same px: within the JAX package's bfloat16 budget (the objf's
+    relative difference printed, ungated beyond the budget).  Returns the
+    differences."""
+    vs = {"objf_rel": rel(got.objf, ref.objf),
+          "objf_sum_rel": rel(got.objf.sum(), ref.objf.sum()),
+          "gamma_abs": absmax(got.gamma, ref.gamma),
+          "trace_dev": max(float((got.alpha_beta - 1).abs().max()),
+                           float((got.gamma_sum - 1).abs().max()))}
+    gamma_ok = bool(((got.gamma - ref.gamma).abs() <= BF16_BUDGET[
+        "gamma_atol"] + BF16_BUDGET["gamma_rtol"] * ref.gamma.abs()).all())
+    print(f"# {label}: fast vs float32 kernels on the same px: "
+          + " ".join(f"{k}={v:.3e}" for k, v in vs.items())
+          + f"; gamma within the JAX bfloat16 budget: {gamma_ok} (the "
+          "design note's ~2e-7 agreement of the loss is printed, not "
+          "gated)", flush=True)
+    check(vs["objf_rel"] <= BF16_BUDGET["objf_rel"] and gamma_ok
+          and vs["trace_dev"] <= BF16_BUDGET["trace"],
+          f"{label}: fast vs float32 outside the JAX bfloat16 budget {vs}")
+    return vs
+
+
+def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None,
+               fast_fa=None):
     """B1/B2 in the fast mode on ``den`` at B columns of T frames: against
     the plain fast version (debug True and False, both streams entry by
     entry, gamma bit-identical on a rerun), against the float32 kernels
@@ -616,7 +720,8 @@ def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None):
     from pychain_tpu_torch import ChainGraphBatch
     from pychain_tpu_torch.ops import fact_kernels as fk
     t0 = time.perf_counter()
-    fa = ChainGraphBatch(den, B, tile_dtype="bfloat16", device=dev)._fact
+    fa = fast_fa or ChainGraphBatch(den, B, tile_dtype="bfloat16",
+                                    device=dev)._fact
     f32 = f32_fa or ChainGraphBatch(den, B, device=dev)._fact
     kg = fk.graph_for(fa)
     print(f"# {label} fast: S_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode} "
@@ -635,21 +740,7 @@ def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None):
     got = fk.forward_backward_prob_kernel(px, lens, fa, leaky_c)
     ref = fk.forward_backward_prob_kernel(px, lens, f32, leaky_c)
     torch.cuda.synchronize()
-    vs = {"objf_rel": rel(got.objf, ref.objf),
-          "objf_sum_rel": rel(got.objf.sum(), ref.objf.sum()),
-          "gamma_abs": absmax(got.gamma, ref.gamma),
-          "trace_dev": max(float((got.alpha_beta - 1).abs().max()),
-                           float((got.gamma_sum - 1).abs().max()))}
-    gamma_ok = bool(((got.gamma - ref.gamma).abs() <= BF16_BUDGET[
-        "gamma_atol"] + BF16_BUDGET["gamma_rtol"] * ref.gamma.abs()).all())
-    print(f"# {label}: fast vs float32 kernels on the same px: "
-          + " ".join(f"{k}={v:.3e}" for k, v in vs.items())
-          + f"; gamma within the JAX bfloat16 budget: {gamma_ok} (the "
-          "design note's ~2e-7 agreement of the loss is printed, not "
-          "gated)", flush=True)
-    check(vs["objf_rel"] <= BF16_BUDGET["objf_rel"] and gamma_ok
-          and vs["trace_dev"] <= BF16_BUDGET["trace"],
-          f"{label}: fast vs float32 outside the JAX bfloat16 budget {vs}")
+    vs = vs_float32(label, got, ref)
     del got, ref
 
     fast_t = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5)
@@ -748,18 +839,42 @@ def check_smem():
                 "fact_bwd", s_pad, identity, k, fast) for k in (0, 1, 2)})
             want[f"fact_fwd fast={fast}"] = c_size("fact_fwd", s_pad,
                                                    identity, fast)
-        del fa.w1
-        for C in stk.CLUSTERS:
-            rows = stk.rows_per_cta(s_pad, C)
-            for G in stk.COLUMNS:
-                got.update({f"{k} C={C} G={G}": v for k, v in
-                            stk.smem_bytes(fa, C, G).items()})
-                want[f"stream_fwd C={C} G={G}"] = c_size(
-                    "stream_fwd", s_pad, rows, C, G)
-                want[f"stream_bwd C={C} G={G}"] = c_size(
-                    "stream_bwd", s_pad, rows, identity, G)
+        # the cluster pair: the same shared memory in both precisions (the
+        # sources' one formula), and the same resident clusters for the
+        # float32 and the bfloat16 kernel
+        for fast in (0, 1):
+            fa.w1 = types.SimpleNamespace(
+                operand_dtype=torch.bfloat16 if fast else torch.float32)
+            for C in stk.CLUSTERS:
+                rows = stk.rows_per_cta(s_pad, C)
+                for G in stk.COLUMNS:
+                    got.update({f"{k} fast={fast} C={C} G={G}": v
+                                for k, v in stk.smem_bytes(fa, C, G).items()})
+                    want[f"stream_fwd fast={fast} C={C} G={G}"] = c_size(
+                        "stream_fwd", s_pad, rows, C, G)
+                    want[f"stream_bwd fast={fast} C={C} G={G}"] = c_size(
+                        "stream_bwd", s_pad, rows, identity, G)
         check(got == want, f"smem_bytes S_pad={s_pad} {mode}: Python {got} "
               f"!= sources {want}")
+        if s_pad == 12032:
+            active = {}
+            for name in stk.KERNELS:
+                fn = getattr(build.load(name), f"{name}_active_clusters")
+                fn.restype = ctypes.c_int
+                for C in stk.CLUSTERS:
+                    rows = stk.rows_per_cta(s_pad, C)
+                    for G in stk.COLUMNS:
+                        if not stk.fits(fa, name, C, G):
+                            continue
+                        args = (s_pad, rows, C, G) if name == "stream_fwd" \
+                            else (s_pad, rows, identity, C, G)
+                        active[f"{name} C={C} G={G}"] = (fn(*args, 0),
+                                                         fn(*args, 1))
+            check(all(a == b for a, b in active.values()),
+                  f"active clusters float32 != bfloat16 at S_pad {s_pad}: "
+                  f"{active}")
+            print(f"# active clusters at S_pad {s_pad} ({mode}), float32 "
+                  f"and bfloat16 kernels alike: {active}", flush=True)
     from pychain_tpu_torch.tools import xl_roofline as xr
     xl = build.load("xl_roofline")
     for fn in (xl.xl_vpu_smem_bytes, xl.xl_mxu_smem_bytes):
@@ -806,7 +921,8 @@ def check_smem():
     print("# shared memory: Python sizes equal the sources' "
           "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, in both "
           "precisions, stream_* at "
-          "C = 1, 2, 4, 8 and G = 1, 2, 4, xl_vpu, xl_mxu, semiring_* and "
+          "C = 1, 2, 4, 8 and G = 1, 2, 4 in both precisions, xl_vpu, "
+          "xl_mxu, semiring_* and "
           "viterbi at every layout their plans can choose)", flush=True)
 
 
@@ -838,17 +954,24 @@ def stream_small(dev, leaky_c):
     S_pad = 128, where ranks 4-7 of 8 own none) at every (C, G), C in 1,
     2, 4, 8 and G in 1, 2, 4, with B = 5 columns of unequal lengths (no
     G > 1 divides B); gamma bit-identical on a rerun and across G at
-    each C."""
+    each C.  Both precisions: in the fast mode (bfloat16 tiles,
+    stream_fwd_bf16 / stream_bwd_bf16) bit-identical to the plain fast
+    version at each C."""
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch
     from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
     errs = []
-    for (mode, want), phones in zip(MODES + MODES[-1:], (150, 150, 150, 10)):
+    cases = [(m, p, td) for td in (None, "bfloat16") for m, p in
+             zip(MODES + MODES[-1:], (150, 150, 150, 10))]
+    for (mode, want), phones, tile_dtype in cases:
         fst, P = denominator_fst(num_phones=phones, states_per_phone=2,
                                  seed=3, forward_pdf_mode=mode)
-        fa = ChainGraphBatch(ChainGraph(fst), 5, device=dev)._fact
+        fa = ChainGraphBatch(ChainGraph(fst), 5, tile_dtype=tile_dtype,
+                             device=dev)._fact
         check(fa.xsrc_mode == want,
               f"{mode}: xsrc_mode {fa.xsrc_mode} != {want}")
+        if tile_dtype:
+            mode = f"{mode} fast"
         g = torch.Generator(device=dev).manual_seed(1)
         px = torch.exp(torch.randn(5, 16, P, generator=g, device=dev))
         lens = torch.tensor([16, 11, 7, 1, 13], device=dev)
@@ -860,7 +983,7 @@ def stream_small(dev, leaky_c):
                 for debug in (True, False):
                     errs.append(compare(
                         fa, px, lens, leaky_c, debug, f"stream small {mode} "
-                        f"S_pad={fa.s_pad} C={C} G={G}", run))
+                        f"S_pad={fa.s_pad} C={C} G={G}", run, cluster=C))
                 g1 = run(px, lens, fa, leaky_c).gamma
                 g2 = run(px, lens, fa, leaky_c).gamma
                 torch.cuda.synchronize()
@@ -870,7 +993,9 @@ def stream_small(dev, leaky_c):
                 check(torch.equal(g1, first), f"stream small {mode} C={C}: "
                       f"gamma at G={G} differs from G=1")
     print("# stream small: gamma bit-identical over two runs and across G "
-          "at every mode and cluster size", flush=True)
+          "at every mode and cluster size, in both precisions (the fast "
+          "pair bit-identical to the plain fast version at each C)",
+          flush=True)
     return errs
 
 
@@ -928,11 +1053,85 @@ def s8k_class(dev, leaky_c):
           f"fact_bwd {fact_ms[1]:.3f} ms; plain fwd {times[2]:.1f} ms, "
           f"plain bwd {times[3]:.1f} ms", flush=True)
     bytes_ops = fact_bytes_ops(fa, kg, lens, T, P)
+    # the cluster pair in the fast mode at its plan (C=2, G=1) on the same
+    # px, then B1/B2 in the fast mode (bench.py --s8k's bfloat16 tiles)
+    fast_fa = ChainGraphBatch(den, B, tile_dtype="bfloat16",
+                              device=dev)._fact
+    stream_fast = fast_cluster_class("s8k", fast_fa, fa, px, lens, leaky_c,
+                                     columns=1)
     del px
-    # B1/B2 in the fast mode (bench.py --s8k's bfloat16 tiles)
-    fast_rows = fast_class("s8k", den, P, B, T, dev, leaky_c, 12)
+    fast_rows = fast_class("s8k", den, P, B, T, dev, leaky_c, 12,
+                           f32_fa=fa, fast_fa=fast_fa)
     return (errs, a_err, times, bytes_ops, plans, errs_b12, fact_ms,
-            fast_rows)
+            fast_rows, stream_fast)
+
+
+def fast_cluster_class(label, fa, f32, px, lens, leaky_c, columns=None,
+                       every_plan=False):
+    """The cluster pair in the fast mode (stream_fwd_bf16, stream_bwd_bf16)
+    on ``fa`` (bfloat16 tiles) at its plan's C (and ``columns``, else the
+    plan's G there): against the plain fast version at that C, bit for bit
+    (debug False and True: objf, gamma and the traces; the alpha' and
+    W1 alpha' streams and s_t), gamma bit-identical on a rerun; against
+    the float32 cluster pair on ``f32`` and the same px (the JAX
+    package's bfloat16 budget); both pairs' times at their plans, the
+    plain fast sweeps' (in that C's order) and the bounds; with
+    ``every_plan``, every plan that fits, each held to the plain version
+    too.  Returns the row fields of each fast kernel."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    B, T, P = px.shape
+    plans = stream_plans(fa, B, f"{label} fast")
+    C = plans["stream_fwd"]["cluster"]
+    run = functools.partial(stk.forward_backward_prob_stream, cluster=C,
+                            columns=columns)
+    errs = worst(compare(fa, px, lens, leaky_c, debug,
+                         f"{label} fast cluster pair C={C} "
+                         f"G={columns or 'plan'}",
+                         run, cluster=C)
+                 for debug in (False, True))
+    a_err, a_excess = alpha_err(
+        fa, px, lens, leaky_c, f"{label} fast stream_fwd_bf16",
+        functools.partial(stk.stream_fwd, cluster=C, columns=columns),
+        cluster=C)
+    got = run(px, lens, fa, leaky_c)
+    again = run(px, lens, fa, leaky_c)
+    torch.cuda.synchronize()
+    check(torch.equal(got.gamma, again.gamma), f"{label} fast: two runs of "
+          "the cluster pair give different gamma")
+    del again
+    ref = stk.forward_backward_prob_stream(px, lens, f32, leaky_c)
+    vs = vs_float32(f"{label} cluster pair", got, ref)
+    del got, ref
+    fast_t = pair_times(fa, px, lens, leaky_c, stk.stream_fwd,
+                        stk.stream_bwd, 5, cluster=C)
+    f32_t = pair_times(f32, px, lens, leaky_c, stk.stream_fwd,
+                       stk.stream_bwd, 5, plain=False)
+    if every_plan:
+        plan_times(fa, px, lens, leaky_c, f"{label} fast")
+    fb, fo, bb, bo = fact_bytes_ops(fa, fk.graph_for(fa), lens, T, P)
+    bounds = [bound(fb, fo), bound(bb, bo)]
+    print(f"# {label} fast times (ms): stream_fwd_bf16 {fast_t[0]:.3f} "
+          f"(bound {bounds[0][0]:.4f}), stream_bwd_bf16 {fast_t[1]:.3f} "
+          f"(bound {bounds[1][0]:.4f}); float32 stream_fwd {f32_t[0]:.3f}, "
+          f"stream_bwd {f32_t[1]:.3f}; plain fast fwd {fast_t[2]:.1f}, "
+          f"plain fast bwd {fast_t[3]:.1f} (C={C})", flush=True)
+    rows = {}
+    for i, name in enumerate(("stream_fwd_bf16", "stream_bwd_bf16")):
+        plan = plans[name[:10]]
+        err = (max(a_err, errs["objf_rel"]) if i == 0 else
+               max(errs["gamma_abs"], errs["alpha_beta_abs"],
+                   errs["gamma_sum_abs"]))
+        rows[name] = {"ms": fast_t[i], "plain_ms": fast_t[2 + i],
+                      "float32_ms": f32_t[i], "bound": bounds[i],
+                      "bytes": (fb, bb)[i], "ops": (fo, bo)[i],
+                      "max_abs_err": err,
+                      "entry_excess": a_excess if i == 0
+                      else errs["gamma_excess"],
+                      "cluster": plan["cluster"], "columns": plan["columns"],
+                      "active_clusters": plan["active_clusters"],
+                      "vs_float32": vs}
+    return rows
 
 
 def main_path_4(dev, leaky_c, counters):
@@ -975,6 +1174,14 @@ def main_path_4(dev, leaky_c, counters):
     print(f"# main path 4 times: stream_fwd {times[0]:.3f} ms, stream_bwd "
           f"{times[1]:.3f} ms (plans above); plain fwd {times[2]:.1f} ms, "
           f"plain bwd {times[3]:.1f} ms", flush=True)
+    # the fast mode (bfloat16 tiles): ChainLoss(den, precision="fast")
+    # takes the same tier, on the cluster pair's bfloat16 forms
+    fast_loss = ChainLoss(den, precision="fast")
+    fa_fast = pt_loss.dispatch_arrays(fast_loss.den_batch(B))
+    check(pt_loss.den_engine(fa_fast) == "stream", "main path 4 fast: tier "
+          f"{pt_loss.den_engine(fa_fast)!r}")
+    fast_rows = fast_cluster_class("main path 4", fa_fast, fa, px, lens,
+                                   leaky_c, every_plan=True)
     del px
     torch.cuda.empty_cache()
 
@@ -996,22 +1203,27 @@ def main_path_4(dev, leaky_c, counters):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     profiled_step(loss_mod, x, x_lengths, num_batch,
                   "main path 4 (cluster tier)")
-    # the fast mode has no cluster kernels yet: it raises, and launches
-    # nothing
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    try:
-        ChainLoss(den, precision="fast")(x, x_lengths, num_batch)
-        fail("main path 4 fast: no NotImplementedError")
-    except NotImplementedError as e:
-        print(f"# main path 4 fast: NotImplementedError: {e}", flush=True)
-    check(all(v == 0 for c in counters for v in c.values()),
-          f"main path 4 fast launched {counters}")
+    del x
+    torch.cuda.empty_cache()
+    # main path 4 in the fast mode: three steps on a fresh x, each
+    # launching each fast cluster kernel once and no other denominator
+    # kernel
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(11), device=dev).requires_grad_(True)
+    want = {k: 0 for c in counters for k in c}
+    want.update(stream_fwd_bf16=1, stream_bwd_bf16=1)
+    torch.cuda.reset_peak_memory_stats()
+    _, fast_step_ms, fast_launches = train_steps(
+        fast_loss, x, x_lengths, num_batch, counters, want,
+        "main path 4 fast (precision=\"fast\", cluster tier)")
+    print(f"# main path 4 fast: peak device memory over the steps "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profiled_step(fast_loss, x, x_lengths, num_batch,
+                  "main path 4 fast (cluster tier, bfloat16 tiles)")
     del x
     torch.cuda.empty_cache()
     return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
-            step_ms, launches)
+            step_ms, launches, fast_rows, fast_step_ms, fast_launches)
 
 
 # ----------------------------------------------------------------------
@@ -1943,14 +2155,15 @@ def main():
     errs_stream_small = stream_small(dev, leaky_c)
     s8k = s8k_class(dev, leaky_c)
     stream_classes = {"s8k": s8k[:5]}
-    s8k_b12_errs, s8k_fact_ms, s8k_fast = s8k[5:]
+    s8k_b12_errs, s8k_fact_ms, s8k_fast, s8k_stream_fast = s8k[5:]
     errs_ringless = ringless_class(dev, leaky_c)
     torch.cuda.empty_cache()
 
     # -- phase 12: main path 4, the 12k-state Kaldi-topology denominator -
     m4 = main_path_4(dev, leaky_c, (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES))
     stream_classes["main4"] = m4[:5]
-    m4_step_ms, m4_launches = m4[5:]
+    m4_step_ms, m4_launches, m4_fast, m4_fast_step_ms, m4_fast_launches = \
+        m4[5:]
     torch.cuda.empty_cache()
 
     # -- phase 13: the XL roofline probe ----------------------------------
@@ -2053,6 +2266,30 @@ def main():
                 "entry_excess": entry_excess, "ms": times[i],
                 "plain_ms": times[2 + i], "bound_ms": bms, "bound_by": by,
                 "bytes": nbytes, "ops": ops, "library_ms": None})
+    # the fast cluster pair: its launches on main path 4 fast, s8k a kernel
+    # check at its plan
+    for cls, fast_rows in (("main4", m4_fast), ("s8k", s8k_stream_fast)):
+        for name, line, fn in (("stream_fwd_bf16", 463, "_fwd_kernel_factory"),
+                               ("stream_bwd_bf16", 668,
+                                "_bwd_kernel_factory")):
+            r = fast_rows[name]
+            rows.append({
+                "name": name, "route": "cuda", "size_class": cls,
+                "cluster": r["cluster"], "columns": r["columns"],
+                "active_clusters": r["active_clusters"],
+                "source": f"pychain_tpu_torch/csrc/{name[:10]}.cu",
+                "replaces": f"pychain_tpu/ops/pallas_stream.py:{line}",
+                "replaces_fn": f"pychain_tpu/ops/pallas_stream.py::{fn}, "
+                               "bfloat16 tiles (fast mode)",
+                "launches": m4_fast_launches[name] if cls == "main4" else 0,
+                "on_main_path": cls == "main4",
+                "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
+                "entry_excess": r["entry_excess"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "bytes": r["bytes"],
+                "ops": r["ops"], "float32_ms": r["float32_ms"],
+                "vs_float32_objf_rel": r["vs_float32"]["objf_rel"],
+                "library_ms": None})
     vit_launches = {"realign": re_launches["viterbi"],
                     "decode": dec_launches["viterbi"], "b11": 0}
     for cls, (ms, plain_ms, nbytes, ops, err, bad, lay) in \
@@ -2102,7 +2339,8 @@ def main():
           f"{step_ms[-1]:.3f}, flat-start numerators {flat_step_ms[-1]:.3f}"
           f", constrained numerators {re_step_ms[-1]:.3f}, main path 4 "
           f"{m4_step_ms[-1]:.3f}, main path 1 fast {fast_step_ms[-1]:.3f} "
-          f"(loss {fast_loss_rel:.3e} from float32's); realignment "
+          f"(loss {fast_loss_rel:.3e} from float32's), main path 4 fast "
+          f"{m4_fast_step_ms[-1]:.3f}; realignment "
           f"viterbi_align {align_ms:.3f}")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -73,11 +73,12 @@ BWD = {
 # held whole, one / two cluster barriers a frame).
 STREAM_FWD = {
     "full": [],
-    "no_emissions": [("x[g] = __ldg(px_t + fd);", "x[g] = 1.0f;"),
-                     ("g_src ? __ldg(px_t + gd) : x[g]", "x[g]"),
+    "no_emissions": [("x[g] = round_to<S>(__ldg(px_t + fd));",
+                      "x[g] = 1.0f;"),
+                     ("g_src ? round_to<S>(__ldg(px_t + gd)) : x[g]", "x[g]"),
                      ("__ldg(px + (row0[g] + t) * P + pdf)", "1.0f")],
     "no_products": [
-        ("sell_row_dot_cols<G>(w1_ptr, w1_col, w1_val, d, ad, w1a);",
+        ("sell_row_dot_cols<G, S>(w1_ptr, w1_col, w1_val, d, ad, w1a);",
          "load_cols<G>(ad + d * G, w1a);"),
         ("const int end = __ldg(w2_ptr + slice + 1);",
          "const int end = __ldg(w2_ptr + slice);")],
@@ -89,16 +90,16 @@ STREAM_FWD = {
         ("    cluster.sync();\n  }\n  if (rank == 0) {",
          "    __syncthreads();\n  }\n  if (rank == 0) {")],
     "no_stream_writes": [
-        ("__stcs(xdst_ys + o, x[g]);", ""),
-        ("if (xsrc_ys) __stcs(xsrc_ys + o, xs[g]);", ""),
-        ("__stcs(w1ad_ys + o, w1a[g]);", ""),
+        ("stream_put(xdst_ys + o, x[g]);", ""),
+        ("if (xsrc_ys) stream_put(xsrc_ys + o, xs[g]);", ""),
+        ("stream_put(w1ad_ys + o, w1a[g]);", ""),
         ("store_cols_stream<4 / G>(ad_ys + (row0[g] + t - 1) * s_pad + j0,",
          "if (false) store_cols_stream<4 / G>(ad_ys,")],
 }
 STREAM_BWD = {
     "full": [],
     "no_products": [
-        ("sell_row_dot_cols<G>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);",
+        ("sell_row_dot_cols<G, S>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);",
          "load_cols<G>(xb + d * G, w1t);"),
         ("const int end = __ldg(w2t_ptr + slice + 1);",
          "const int end = __ldg(w2t_ptr + slice);")],
@@ -109,9 +110,10 @@ STREAM_BWD = {
     "no_cluster_barriers": [("cluster.sync();   // X1", "__syncthreads();"),
                             ("cluster.sync();   // X2", "__syncthreads();")],
     "no_stream_reads": [
-        ("__ldcs(xdst_ys + (row0[g] + u) * s_pad + d)", "1.0f"),
-        ("__ldcs((identity ? xdst_ys : xsrc_ys) + o)", "1.0f"),
-        ("__ldcs(ad_ys + o - s_pad)", "1.0f"), ("__ldcs(w1ad_ys + o)", "1.0f")],
+        ("stream_get(xdst_ys + (row0[g] + u) * s_pad + d)", "1.0f"),
+        ("stream_get((identity ? xdst_ys : xsrc_ys) + o)", "1.0f"),
+        ("stream_get(ad_ys + o - s_pad)", "1.0f"),
+        ("stream_get(w1ad_ys + o)", "1.0f")],
     "no_gamma_stage": [("if (p < n_pdf_lists) {", "if (false) {")],
 }
 

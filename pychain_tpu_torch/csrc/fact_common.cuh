@@ -284,11 +284,37 @@ __device__ __forceinline__ void store_cols_stream(float* p,
   }
 }
 
+// The bits of x rounded to bfloat16 (to nearest even).
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// The same for a bfloat16 stream (the fast mode): G consecutive entries,
+// each rounded to nearest even, as one 8-, 4- or 2-byte store (p aligned
+// to it; element 0 at the lowest address).
+template <int G>
+__device__ __forceinline__ void store_cols_stream(__nv_bfloat16* p,
+                                                  const float (&v)[G]) {
+  if constexpr (G == 4) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
+                      bf16_bits(v[2]) | bf16_bits(v[3]) << 16));
+  } else if constexpr (G == 2) {
+    __stcs(reinterpret_cast<unsigned*>(p),
+           bf16_bits(v[0]) | bf16_bits(v[1]) << 16);
+  } else {
+    stream_put(p, v[0]);
+  }
+}
+
 // sell_row_dot for G columns at once: row r of a sliced-ELL matrix times
 // the G interleaved columns of v.  Each entry's column id and value,
 // loaded once, feed G products (the graph is read once per G columns),
-// each column's sum in sell_row_dot's order.
-template <int G>
+// each column's sum in sell_row_dot's order.  S = __nv_bfloat16 (the fast
+// mode): v holds unrounded float32 values (the row's owner reads them so
+// for the diagonal), and each gathered value is rounded to bfloat16 here,
+// so that each fmaf adds an exact product, as in sell_row_dot.
+template <int G, typename S = float>
 __device__ __forceinline__ void sell_row_dot_cols(
     const int* __restrict__ sptr, const int* __restrict__ col,
     const float* __restrict__ val, int r, const float* v, float (&acc)[G]) {
@@ -303,7 +329,7 @@ __device__ __forceinline__ void sell_row_dot_cols(
     float x[G];
     load_cols<G>(v + __ldg(col + i) * G, x);
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = fmaf(w, x[g], acc[g]);
+    for (int g = 0; g < G; ++g) acc[g] = fmaf(w, round_to<S>(x[g]), acc[g]);
   }
 }
 

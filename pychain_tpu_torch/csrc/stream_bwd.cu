@@ -1,11 +1,13 @@
 // Denominator beta sweep and posteriors for graphs whose state vectors
 // exceed one SM's shared memory: one thread-block cluster per group of G
-// batch columns (float32).
+// batch columns, float32 and fast mode.
 //
 // Replaces pychain_tpu/ops/pallas_stream.py::_bwd_kernel_factory
 // (launched there by _bwd_stream), which computes what
 // pallas_fact.py::_bwd_kernel_factory (B2, here fact_bwd.cu) computes, in
-// "full" stream mode, with W1^T streamed.  It reads the streams
+// "full" stream mode, with W1^T streamed, in both its precisions: float32
+// (stream_bwd_launch) and the fast mode of bfloat16 tiles
+// (stream_bwd_bf16_launch).  It reads the streams
 // stream_fwd.cu (or fact_fwd.cu) wrote and runs fact_bwd.cu's recurrence
 // per frame u of column b, from u = T_b - 1 down to 0:
 //
@@ -70,16 +72,34 @@
 // 4.1 ms at 3.35 TB/s; the arc products, 2 * 198k * B * T = 25 GFLOP,
 // 0.38 ms at 67 TFLOP/s.  The bound is the bytes.  The streams, read
 // once, are loaded evict-first (__ldcs) and gamma stored so (__stcs).
+//
+// The fast mode reads the bfloat16 streams stream_fwd.cu wrote in that
+// mode and rounds where the Pallas kernel does (pallas_stream.py:481-571,
+// the rounding points of fact_bwd.cu): the operands of W1^T's and W2^T's
+// off-diagonal products, bfloat16(x_dst * b) gathered from the whole
+// float32 copy of xb and bfloat16(b) from the float32 scratch bn (the
+// diagonals apart in float32, with the row's unrounded xb and b); each
+// state's mass, unscaled, before the pdf's sum (c1 and c2 hold bfloat16
+// values as float32); gamma = bfloat16(1 / s_u times that sum), stored as
+// float32 (the caller's gradient type); the sum-gamma trace is the unscaled
+// sum over the CTAs, times 1 / s_u.  alpha'(0) is the float32 ad0.  Every
+// product and sum is rounded on its own (no fused multiply-add but where
+// it adds an exact product of two bfloat16 values), in the order of the
+// plain version (ops/factorized.backward_prob_fast with cluster = C),
+// which this kernel equals bit for bit.  Shared memory is the float32
+// mode's.  Its bytes bound at main path 4 falls to about 2.3 ms (four
+// 2-byte streams of 1.54 GB each, gamma 1.54 GB).
 
 #include "fact_common.cuh"
 
-template <int G>
+// S: the stream type, float (float32 mode) or __nv_bfloat16 (fast mode).
+template <typename S, int G>
 __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
-    const float* __restrict__ ad_ys,     // (B, T, S_pad) alpha'(u+1)
-    const float* __restrict__ w1ad_ys,   // (B, T, S_pad) W1 alpha'(u)
-    const float* __restrict__ xdst_ys,   // (B, T, S_pad)
-    const float* __restrict__ xsrc_ys,   // (B, T, S_pad) or null (identity)
+    const S* __restrict__ ad_ys,         // (B, T, S_pad) alpha'(u+1)
+    const S* __restrict__ w1ad_ys,       // (B, T, S_pad) W1 alpha'(u)
+    const S* __restrict__ xdst_ys,       // (B, T, S_pad)
+    const S* __restrict__ xsrc_ys,       // (B, T, S_pad) or null (identity)
     const float* __restrict__ s_ys,      // (B, T) s_{u+1}
     const float* __restrict__ s0,        // (1,)
     const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
@@ -90,6 +110,8 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     const float* __restrict__ w1t_val,   // W1 by source row
     const int* __restrict__ w2t_ptr, const int* __restrict__ w2t_col,
     const float* __restrict__ w2t_val,   // W2 by source row
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
     const int* __restrict__ f_ptr,       // pdf -> states (packed ids)
     const int* __restrict__ f_states,
     const int* __restrict__ g_ptr,       // null in identity mode
@@ -100,6 +122,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     float* __restrict__ gamma,           // (B, T, P)
     float* __restrict__ ab,              // (B, T)
     float* __restrict__ gs) {            // (B, T)
+  constexpr bool kFast = sizeof(S) == 2;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -170,7 +193,8 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         v[g] = __fdiv_rn(final_p[d], tot_g[g]);
-        leak[g] = fmaf(v[g], lk, leak[g]);
+        leak[g] = kFast ? __fadd_rn(leak[g], __fmul_rn(v[g], lk))
+                        : fmaf(v[g], lk, leak[g]);
       }
       store_cols_l2<G>(bd + d * G, v);
     }
@@ -195,19 +219,24 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         v[g] = __fadd_rn(v[g], cl[g]);
-        x[g] = __fmul_rn(__ldcs(xdst_ys + (row0[g] + u) * s_pad + d), v[g]);
+        x[g] = __fmul_rn(stream_get(xdst_ys + (row0[g] + u) * s_pad + d),
+                         v[g]);
       }
       store_cols_l2<G>(bn + d * G, v);
       store_cols<G>(xb + d * G, x);
     }
     cluster.sync();   // X1
-    // 2. the sum-gamma trace of frame u + 1; the peers' rows of xb
+    // 2. the sum-gamma trace of frame u + 1 (in the fast mode the sum of
+    //    the unscaled masses, times 1 / s_{u+1}); the peers' rows of xb
     if (u + 1 < t_max && rank == 0 && tid == 0) {
       float s[G];
       cluster_rank_sum<G>(slot_gs, s);
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        if (u + 1 < Tb[g]) gs[row0[g] + u + 1] = debug ? s[g] : 1.0f;
+      for (int g = 0; g < G; ++g) {
+        if (u + 1 >= Tb[g]) continue;
+        if (kFast) s[g] = __fmul_rn(s[g], __fdiv_rn(1.0f, s_ys[row0[g] + u]));
+        gs[row0[g] + u + 1] = debug ? s[g] : 1.0f;
+      }
     }
     cluster_gather_cols<G>(xb, s_pad, rank, lc);
     __syncthreads();
@@ -224,7 +253,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
       float w1t[G], w2t[G], xbd[G], bdv[G];
-      sell_row_dot_cols<G>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);
+      sell_row_dot_cols<G, S>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);
 #pragma unroll
       for (int g = 0; g < G; ++g) w2t[g] = 0.0f;
       {
@@ -237,29 +266,56 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
           float bj[G];
           load_cols_l2<G>(bn + j * G, bj);
 #pragma unroll
-          for (int g = 0; g < G; ++g) w2t[g] = fmaf(w, bj[g], w2t[g]);
+          for (int g = 0; g < G; ++g)
+            w2t[g] = fmaf(w, round_to<S>(bj[g]), w2t[g]);
         }
       }
       load_cols<G>(xb + d * G, xbd);
       load_cols_l2<G>(bd + d * G, bdv);
       const float lk = leaky[d];
+      if constexpr (kFast) {
+        // the diagonal stratum: float32 values, the row's unrounded
+        // x_dst * b and b
+        float bv[G];
+        load_cols_l2<G>(bn + d * G, bv);
+        const float d1 = __ldg(diag1 + d), d2 = __ldg(diag2 + d);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          w1t[g] = __fadd_rn(w1t[g], __fmul_rn(d1, xbd[g]));
+          w2t[g] = __fadd_rn(w2t[g], __fmul_rn(d2, bv[g]));
+        }
+      }
       float m1v[G], m2v[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const size_t o = (row0[g] + u) * s_pad + d;
-        const float xs = __ldcs((identity ? xdst_ys : xsrc_ys) + o);
+        const float xs = stream_get((identity ? xdst_ys : xsrc_ys) + o);
         const float sw = __fmul_rn(xs, w2t[g]);
         const float bdt = __fmul_rn(__fadd_rn(w1t[g], sw), inv_s[g]);
-        const float adu = u == 0 ? ad0[d] : __ldcs(ad_ys + o - s_pad);
-        const float m1 = __fmul_rn(__fmul_rn(xbd[g], __ldcs(w1ad_ys + o)),
-                                   inv_s[g]);
-        const float m2 = __fmul_rn(__fmul_rn(sw, adu), inv_s[g]);
-        m1v[g] = identity ? __fadd_rn(m1, m2) : m1;
-        m2v[g] = m2;
-        if (u < Tb[g]) {
-          bdv[g] = bdt;
-          part[g] = fmaf(bdt, lk, part[g]);
-          if (traces) part[G + g] = fmaf(adu, bdt, part[G + g]);
+        const float adu = u == 0 ? ad0[d] : stream_get(ad_ys + o - s_pad);
+        const float w1ad = stream_get(w1ad_ys + o);
+        if constexpr (kFast) {
+          // each state's mass unscaled, rounded before its pdf's sum
+          const float m1 = __fmul_rn(xbd[g], w1ad);
+          const float m2 = __fmul_rn(sw, adu);
+          m1v[g] = round_to<S>(identity ? __fadd_rn(m1, m2) : m1);
+          m2v[g] = round_to<S>(m2);
+          if (u < Tb[g]) {
+            bdv[g] = bdt;
+            part[g] = __fadd_rn(part[g], __fmul_rn(bdt, lk));
+            if (traces)
+              part[G + g] = __fadd_rn(part[G + g], __fmul_rn(adu, bdt));
+          }
+        } else {
+          const float m1 = __fmul_rn(__fmul_rn(xbd[g], w1ad), inv_s[g]);
+          const float m2 = __fmul_rn(__fmul_rn(sw, adu), inv_s[g]);
+          m1v[g] = identity ? __fadd_rn(m1, m2) : m1;
+          m2v[g] = m2;
+          if (u < Tb[g]) {
+            bdv[g] = bdt;
+            part[g] = fmaf(bdt, lk, part[g]);
+            if (traces) part[G + g] = fmaf(adu, bdt, part[G + g]);
+          }
         }
       }
       store_cols_l2<G>(bd + d * G, bdv);
@@ -310,7 +366,9 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        if (u < Tb[g]) __stcs(gamma + (row0[g] + u) * P + p, acc[g]);
+        if (u < Tb[g])
+          __stcs(gamma + (row0[g] + u) * P + p,
+                 kFast ? round_to<S>(__fmul_rn(acc[g], inv_s[g])) : acc[g]);
         if (traces) pg[g] += acc[g];
       }
     }
@@ -326,7 +384,8 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     cluster_rank_sum<G>(slot_gs, s);
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      if (b0 + g < B) gs[row0[g]] = s[g];
+      if (b0 + g < B)
+        gs[row0[g]] = kFast ? __fmul_rn(s[g], __fdiv_rn(1.0f, *s0)) : s[g];
   }
   cluster.sync();
 }
@@ -341,15 +400,15 @@ extern "C" size_t stream_bwd_smem_bytes(int s_pad, int rows, int identity,
 
 // Ask for the kernel's shared memory and count the clusters of this shape
 // the card can hold at once (cudaOccupancyMaxActiveClusters).
-template <int G>
+template <typename S, int G>
 static cudaError_t prepare(size_t smem, cudaLaunchConfig_t* cfg,
                            int* active) {
-  cudaError_t err = fact_set_smem(stream_bwd_kernel<G>, smem);
+  cudaError_t err = fact_set_smem(stream_bwd_kernel<S, G>, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(active, stream_bwd_kernel<G>, cfg);
+  return cudaOccupancyMaxActiveClusters(active, stream_bwd_kernel<S, G>, cfg);
 }
 
-template <int G>
+template <typename S, int G>
 static int launch(const void* lengths, const void* ad_ys,
                   const void* w1ad_ys, const void* xdst_ys,
                   const void* xsrc_ys, const void* s_ys, const void* s0,
@@ -357,8 +416,8 @@ static int launch(const void* lengths, const void* ad_ys,
                   const void* leaky, const void* w1t_ptr,
                   const void* w1t_col, const void* w1t_val,
                   const void* w2t_ptr, const void* w2t_col,
-                  const void* w2t_val, const void* f_ptr,
-                  const void* f_states, const void* g_ptr,
+                  const void* w2t_val, const void* diag1, const void* diag2,
+                  const void* f_ptr, const void* f_states, const void* g_ptr,
                   const void* g_states, int n_pdf_lists, float leaky_c,
                   int B, int T, int P, int s_pad, int cluster, int rows,
                   int debug, void* carry, void* gamma, void* ab, void* gs,
@@ -369,42 +428,79 @@ static int launch(const void* lengths, const void* ad_ys,
   cudaLaunchConfig_t cfg =
       cluster_config((B + G - 1) / G, cluster, smem, stream, attr);
   int active = 0;
-  cudaError_t err = prepare<G>(smem, &cfg, &active);
+  cudaError_t err = prepare<S, G>(smem, &cfg, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return -1;
   err = cudaLaunchKernelEx(
-      &cfg, stream_bwd_kernel<G>, static_cast<const int*>(lengths),
-      static_cast<const float*>(ad_ys), static_cast<const float*>(w1ad_ys),
-      static_cast<const float*>(xdst_ys), static_cast<const float*>(xsrc_ys),
+      &cfg, stream_bwd_kernel<S, G>, static_cast<const int*>(lengths),
+      static_cast<const S*>(ad_ys), static_cast<const S*>(w1ad_ys),
+      static_cast<const S*>(xdst_ys), static_cast<const S*>(xsrc_ys),
       static_cast<const float*>(s_ys), static_cast<const float*>(s0),
       static_cast<const float*>(ad0), static_cast<const float*>(final_p),
       static_cast<const float*>(tot), static_cast<const float*>(leaky),
       static_cast<const int*>(w1t_ptr), static_cast<const int*>(w1t_col),
       static_cast<const float*>(w1t_val), static_cast<const int*>(w2t_ptr),
       static_cast<const int*>(w2t_col), static_cast<const float*>(w2t_val),
+      static_cast<const float*>(diag1), static_cast<const float*>(diag2),
       static_cast<const int*>(f_ptr), static_cast<const int*>(f_states),
       static_cast<const int*>(g_ptr), static_cast<const int*>(g_states),
       n_pdf_lists, leaky_c, B, T, P, s_pad, rows, debug,
       static_cast<float*>(carry), static_cast<float*>(gamma),
-      static_cast<float*>(ab),
-      static_cast<float*>(gs));
+      static_cast<float*>(ab), static_cast<float*>(gs));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The clusters of this shape the card holds at once, or minus a
-// cudaError_t.
+// cudaError_t; fast: the bfloat16 form's (the same shared memory).
 extern "C" int stream_bwd_active_clusters(int s_pad, int rows, int identity,
-                                          int cluster, int columns) {
+                                          int cluster, int columns,
+                                          int fast) {
   const size_t smem = stream_bwd_smem_bytes(s_pad, rows, identity, columns);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
   int active = 0;
-  const cudaError_t err = columns == 1   ? prepare<1>(smem, &cfg, &active)
-                          : columns == 2 ? prepare<2>(smem, &cfg, &active)
-                          : columns == 4 ? prepare<4>(smem, &cfg, &active)
-                                         : cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define STREAM_BWD_PREPARE(G)                                              \
+  if (columns == G)                                                        \
+    err = fast ? prepare<__nv_bfloat16, G>(smem, &cfg, &active)            \
+               : prepare<float, G>(smem, &cfg, &active);
+  STREAM_BWD_PREPARE(1)
+  STREAM_BWD_PREPARE(2)
+  STREAM_BWD_PREPARE(4)
+#undef STREAM_BWD_PREPARE
   return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
+template <typename S>
+static int run(const void* lengths, const void* ad_ys, const void* w1ad_ys,
+               const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
+               const void* s0, const void* ad0, const void* final_p,
+               const void* tot, const void* leaky, const void* w1t_ptr,
+               const void* w1t_col, const void* w1t_val,
+               const void* w2t_ptr, const void* w2t_col,
+               const void* w2t_val, const void* diag1, const void* diag2,
+               const void* f_ptr, const void* f_states, const void* g_ptr,
+               const void* g_states, int n_pdf_lists, float leaky_c, int B,
+               int T, int P, int s_pad, int cluster, int columns, int rows,
+               int debug, void* carry, void* gamma, void* ab, void* gs,
+               void* stream) {
+  switch (columns) {
+#define STREAM_BWD_CASE(G)                                                 \
+  case G:                                                                  \
+    return launch<S, G>(lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys,   \
+                        s0, ad0, final_p, tot, leaky, w1t_ptr, w1t_col,    \
+                        w1t_val, w2t_ptr, w2t_col, w2t_val, diag1, diag2,  \
+                        f_ptr, f_states, g_ptr, g_states, n_pdf_lists,     \
+                        leaky_c, B, T, P, s_pad, cluster, rows, debug,     \
+                        carry, gamma, ab, gs, stream);
+    STREAM_BWD_CASE(1)
+    STREAM_BWD_CASE(2)
+    STREAM_BWD_CASE(4)
+#undef STREAM_BWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Returns 0 on success, a cudaError_t, or -1 when
@@ -421,19 +517,31 @@ extern "C" int stream_bwd_launch(
     float leaky_c, int B, int T, int P, int s_pad, int cluster, int columns,
     int rows, int debug, void* carry, void* gamma, void* ab, void* gs,
     void* stream) {
-  switch (columns) {
-#define STREAM_BWD_CASE(G)                                                 \
-  case G:                                                                  \
-    return launch<G>(lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0,  \
-                     ad0, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val,  \
-                     w2t_ptr, w2t_col, w2t_val, f_ptr, f_states, g_ptr,    \
-                     g_states, n_pdf_lists, leaky_c, B, T, P, s_pad,       \
-                     cluster, rows, debug, carry, gamma, ab, gs, stream);
-    STREAM_BWD_CASE(1)
-    STREAM_BWD_CASE(2)
-    STREAM_BWD_CASE(4)
-#undef STREAM_BWD_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return run<float>(lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0,
+                    ad0, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val,
+                    w2t_ptr, w2t_col, w2t_val, nullptr, nullptr, f_ptr,
+                    f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T,
+                    P, s_pad, cluster, columns, rows, debug, carry, gamma,
+                    ab, gs, stream);
+}
+
+// The fast mode: bfloat16 streams, the operators' off-diagonal entries
+// alone (bfloat16 values held in float32), float32 diagonals diag1 (W1's)
+// and diag2 (W2's).
+extern "C" int stream_bwd_bf16_launch(
+    const void* lengths, const void* ad_ys, const void* w1ad_ys,
+    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
+    const void* s0, const void* ad0, const void* final_p, const void* tot,
+    const void* leaky, const void* w1t_ptr, const void* w1t_col,
+    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
+    const void* w2t_val, const void* diag1, const void* diag2,
+    const void* f_ptr, const void* f_states, const void* g_ptr,
+    const void* g_states, int n_pdf_lists, float leaky_c, int B, int T,
+    int P, int s_pad, int cluster, int columns, int rows, int debug,
+    void* carry, void* gamma, void* ab, void* gs, void* stream) {
+  return run<__nv_bfloat16>(
+      lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, final_p, tot,
+      leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr, w2t_col, w2t_val, diag1,
+      diag2, f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,
+      s_pad, cluster, columns, rows, debug, carry, gamma, ab, gs, stream);
 }

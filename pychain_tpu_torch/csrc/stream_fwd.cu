@@ -1,11 +1,13 @@
 // Denominator alpha sweep for graphs whose working set exceeds one SM's
-// shared memory: one thread-block cluster per group of G batch columns
-// (float32).
+// shared memory: one thread-block cluster per group of G batch columns,
+// float32 and fast mode.
 //
 // Replaces pychain_tpu/ops/pallas_stream.py::_fwd_kernel_factory
 // (launched there by _fwd_stream), which computes what
 // pallas_fact.py::_fwd_kernel_factory (B1, here fact_fwd.cu) computes, in
-// "full" stream mode, for graphs past the TPU kernel's VMEM.  Per frame t
+// "full" stream mode, for graphs past the TPU kernel's VMEM, in both its
+// precisions: float32 (stream_fwd_launch) and the fast mode of bfloat16
+// tiles (stream_fwd_bf16_launch).  Per frame t
 // of column b, the recurrence of fact_fwd.cu:
 //
 //   x_dst = px_t[f_dst]            x_src = px_t[g_src]  (= x_dst in
@@ -63,10 +65,29 @@
 // 0.38 ms at 67 TFLOP/s.  The bound is the bytes.  Stream writes are
 // coalesced (a warp's rows are one slice) and marked evict-first
 // (__stcs); the sparse rows are read from L2 once per G columns a frame.
+//
+// The fast mode rounds where the Pallas kernel does with bfloat16 tiles
+// (pallas_stream.py:318-460, the rounding points of fact_fwd.cu): px as it
+// is read, the operands of W1's and W2's off-diagonal products (their
+// entries bfloat16 values held in float32, the graph's fast form; the
+// diagonals apart in float32 with unrounded operands) and the four
+// streams, written as bfloat16.  The whole alpha' copy stays float32 and
+// unrounded, since the diagonal and W2's operand x_src * alpha' need the
+// unrounded value: each W1 gather rounds what it reads
+// (sell_row_dot_cols<G, S>), and W2's operand is rounded after its
+// product.  So shared memory, the plan and the limits are those of the
+// float32 mode.  alpha is scaled by 1 / s_{t-1}, the leaky term added
+// unfused, each product and sum rounded on its own (__fmul_rn, __fadd_rn)
+// in the order of the plain version (ops/factorized.forward_prob_fast with
+// cluster = C: each row's slots, then the diagonal; each CTA's block_sum,
+// then the CTAs in rank order), which this kernel equals bit for bit.
+// Its bytes bound at main path 4 falls to about 2.3 ms (px 1.54 GB and
+// four 2-byte streams of 1.54 GB each).
 
 #include "fact_common.cuh"
 
-template <int G>
+// S: the stream type, float (float32 mode) or __nv_bfloat16 (fast mode).
+template <typename S, int G>
 __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     const float* __restrict__ px,        // (B, T, P) exp'd nnet output
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
@@ -77,16 +98,19 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     const int* __restrict__ w2_ptr, const int* __restrict__ w2_col,
     const float* __restrict__ w2_val,    // W2 by destination row
     const int* __restrict__ w2_pdf,      // x_src's pdf at each W2 entry's source
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
     const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
     const float* __restrict__ s0,        // (1,) sum of the initial probs
     const float* __restrict__ leaky,     // (S_pad,)
     float leaky_c, int B, int T, int P, int s_pad, int rows,
-    float* __restrict__ ad_ys,           // (B, T, S_pad) alpha'(t+1)
-    float* __restrict__ w1ad_ys,         // (B, T, S_pad) W1 alpha'(t)
-    float* __restrict__ xdst_ys,         // (B, T, S_pad)
-    float* __restrict__ xsrc_ys,         // (B, T, S_pad) or null
+    S* __restrict__ ad_ys,               // (B, T, S_pad) alpha'(t+1)
+    S* __restrict__ w1ad_ys,             // (B, T, S_pad) W1 alpha'(t)
+    S* __restrict__ xdst_ys,             // (B, T, S_pad)
+    S* __restrict__ xsrc_ys,             // (B, T, S_pad) or null
     float* __restrict__ s_ys,            // (B, T) s_{t+1}; 1 past the end
     float* __restrict__ ad_last) {       // (B, S_pad) alpha'(T_b)
+  constexpr bool kFast = sizeof(S) == 2;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -144,8 +168,11 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
                                         : *cluster.map_shared_rank(src, owner);
         float e[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          e[k] = fmaf(cs[k % G], __ldg(leaky + j0 + k / G), e[k]);
+        for (int k = 0; k < 4; ++k) {
+          const float lk = __ldg(leaky + j0 + k / G);
+          e[k] = kFast ? __fadd_rn(e[k], __fmul_rn(cs[k % G], lk))
+                       : fmaf(cs[k % G], lk, e[k]);
+        }
         if (!last)
           reinterpret_cast<float4*>(ad)[q] = make_float4(e[0], e[1], e[2], e[3]);
         if (owner != rank) continue;
@@ -175,9 +202,12 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
       __syncthreads();
     }
 
-    float part[G];
+    float part[G], r[G];          // r: 1 / s_{t-1} (the fast mode's scale)
 #pragma unroll
-    for (int g = 0; g < G; ++g) part[g] = 0.0f;
+    for (int g = 0; g < G; ++g) {
+      part[g] = 0.0f;
+      r[g] = __fdiv_rn(1.0f, s_prev[g]);
+    }
     float* a_out = abuf + ((t & 1) % nbuf) * rows * G;
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
@@ -187,11 +217,11 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float* px_t = px + (row0[g] + t) * P;
-        x[g] = __ldg(px_t + fd);
-        xs[g] = g_src ? __ldg(px_t + gd) : x[g];
+        x[g] = round_to<S>(__ldg(px_t + fd));
+        xs[g] = g_src ? round_to<S>(__ldg(px_t + gd)) : x[g];
       }
       float w1a[G];
-      sell_row_dot_cols<G>(w1_ptr, w1_col, w1_val, d, ad, w1a);
+      sell_row_dot_cols<G, S>(w1_ptr, w1_col, w1_val, d, ad, w1a);
       float w2u[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) w2u[g] = 0.0f;
@@ -207,22 +237,40 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
           load_cols<G>(ad + __ldg(w2_col + e) * G, a);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
-            const float u = __fmul_rn(__ldg(px + (row0[g] + t) * P + pdf),
-                                      a[g]);
+            // fast mode: bfloat16(bfloat16(x_src) * alpha'), exact in the
+            // product with the bfloat16 entry w
+            const float u = round_to<S>(__fmul_rn(
+                round_to<S>(__ldg(px + (row0[g] + t) * P + pdf)), a[g]));
             w2u[g] = fmaf(w, u, w2u[g]);
           }
         }
       }
       float al[G];
+      if constexpr (kFast) {
+        // the diagonal stratum: float32 values, the row's unrounded
+        // alpha' (the plain version's order, bit for bit)
+        float own[G];
+        load_cols<G>(ad + d * G, own);
+        const float d1 = __ldg(diag1 + d), d2 = __ldg(diag2 + d);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          w1a[g] = __fadd_rn(w1a[g], __fmul_rn(d1, own[g]));
+          w2u[g] = __fadd_rn(w2u[g], __fmul_rn(d2, __fmul_rn(xs[g], own[g])));
+          al[g] = __fmul_rn(__fadd_rn(__fmul_rn(x[g], w1a[g]), w2u[g]), r[g]);
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          al[g] = __fdiv_rn(fmaf(x[g], w1a[g], w2u[g]), s_prev[g]);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        al[g] = __fdiv_rn(fmaf(x[g], w1a[g], w2u[g]), s_prev[g]);
         part[g] += al[g];
         if (t < Tb[g]) {
           const size_t o = (row0[g] + t) * s_pad + d;
-          __stcs(xdst_ys + o, x[g]);
-          if (xsrc_ys) __stcs(xsrc_ys + o, xs[g]);
-          __stcs(w1ad_ys + o, w1a[g]);
+          stream_put(xdst_ys + o, x[g]);
+          if (xsrc_ys) stream_put(xsrc_ys + o, xs[g]);
+          stream_put(w1ad_ys + o, w1a[g]);
         }
       }
       store_cols<G>(a_out + i * G, al);
@@ -255,60 +303,94 @@ extern "C" size_t stream_fwd_smem_bytes(int s_pad, int rows, int cluster,
 
 // Ask for the kernel's shared memory and count the clusters of this shape
 // the card can hold at once (cudaOccupancyMaxActiveClusters).
-template <int G>
+template <typename S, int G>
 static cudaError_t prepare(size_t smem, cudaLaunchConfig_t* cfg,
                            int* active) {
-  cudaError_t err = fact_set_smem(stream_fwd_kernel<G>, smem);
+  cudaError_t err = fact_set_smem(stream_fwd_kernel<S, G>, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(active, stream_fwd_kernel<G>, cfg);
+  return cudaOccupancyMaxActiveClusters(active, stream_fwd_kernel<S, G>, cfg);
 }
 
-template <int G>
+template <typename S, int G>
 static int launch(const void* px, const void* lengths, const void* f_dst,
                   const void* g_src, const void* w1_ptr, const void* w1_col,
                   const void* w1_val, const void* w2_ptr, const void* w2_col,
-                  const void* w2_val, const void* w2_pdf, const void* ad0,
-                  const void* s0, const void* leaky, float leaky_c, int B,
-                  int T, int P, int s_pad, int cluster, int rows,
-                  void* ad_ys, void* w1ad_ys, void* xdst_ys, void* xsrc_ys,
-                  void* s_ys, void* ad_last, void* stream) {
+                  const void* w2_val, const void* w2_pdf, const void* diag1,
+                  const void* diag2, const void* ad0, const void* s0,
+                  const void* leaky, float leaky_c, int B, int T, int P,
+                  int s_pad, int cluster, int rows, void* ad_ys,
+                  void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys,
+                  void* ad_last, void* stream) {
   const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, G);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       cluster_config((B + G - 1) / G, cluster, smem, stream, attr);
   int active = 0;
-  cudaError_t err = prepare<G>(smem, &cfg, &active);
+  cudaError_t err = prepare<S, G>(smem, &cfg, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return -1;
   err = cudaLaunchKernelEx(
-      &cfg, stream_fwd_kernel<G>, static_cast<const float*>(px),
+      &cfg, stream_fwd_kernel<S, G>, static_cast<const float*>(px),
       static_cast<const int*>(lengths), static_cast<const int*>(f_dst),
       static_cast<const int*>(g_src), static_cast<const int*>(w1_ptr),
       static_cast<const int*>(w1_col), static_cast<const float*>(w1_val),
       static_cast<const int*>(w2_ptr), static_cast<const int*>(w2_col),
       static_cast<const float*>(w2_val), static_cast<const int*>(w2_pdf),
+      static_cast<const float*>(diag1), static_cast<const float*>(diag2),
       static_cast<const float*>(ad0), static_cast<const float*>(s0),
       static_cast<const float*>(leaky), leaky_c, B, T, P, s_pad, rows,
-      static_cast<float*>(ad_ys), static_cast<float*>(w1ad_ys),
-      static_cast<float*>(xdst_ys), static_cast<float*>(xsrc_ys),
+      static_cast<S*>(ad_ys), static_cast<S*>(w1ad_ys),
+      static_cast<S*>(xdst_ys), static_cast<S*>(xsrc_ys),
       static_cast<float*>(s_ys), static_cast<float*>(ad_last));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The clusters of this shape the card holds at once, or minus a
-// cudaError_t.
+// cudaError_t; fast: the bfloat16 form's (the same shared memory).
 extern "C" int stream_fwd_active_clusters(int s_pad, int rows, int cluster,
-                                          int columns) {
+                                          int columns, int fast) {
   const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, columns);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
   int active = 0;
-  const cudaError_t err = columns == 1   ? prepare<1>(smem, &cfg, &active)
-                          : columns == 2 ? prepare<2>(smem, &cfg, &active)
-                          : columns == 4 ? prepare<4>(smem, &cfg, &active)
-                                         : cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define STREAM_FWD_PREPARE(G)                                               \
+  if (columns == G)                                                         \
+    err = fast ? prepare<__nv_bfloat16, G>(smem, &cfg, &active)             \
+               : prepare<float, G>(smem, &cfg, &active);
+  STREAM_FWD_PREPARE(1)
+  STREAM_FWD_PREPARE(2)
+  STREAM_FWD_PREPARE(4)
+#undef STREAM_FWD_PREPARE
   return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
+template <typename S>
+static int run(const void* px, const void* lengths, const void* f_dst,
+               const void* g_src, const void* w1_ptr, const void* w1_col,
+               const void* w1_val, const void* w2_ptr, const void* w2_col,
+               const void* w2_val, const void* w2_pdf, const void* diag1,
+               const void* diag2, const void* ad0, const void* s0,
+               const void* leaky, float leaky_c, int B, int T, int P,
+               int s_pad, int cluster, int columns, int rows, void* ad_ys,
+               void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys,
+               void* ad_last, void* stream) {
+  switch (columns) {
+#define STREAM_FWD_CASE(G)                                                  \
+  case G:                                                                   \
+    return launch<S, G>(px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val,  \
+                        w2_ptr, w2_col, w2_val, w2_pdf, diag1, diag2, ad0,  \
+                        s0, leaky, leaky_c, B, T, P, s_pad, cluster, rows,  \
+                        ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last,    \
+                        stream);
+    STREAM_FWD_CASE(1)
+    STREAM_FWD_CASE(2)
+    STREAM_FWD_CASE(4)
+#undef STREAM_FWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Returns 0 on success, a cudaError_t, or -1 when
@@ -322,18 +404,28 @@ extern "C" int stream_fwd_launch(
     const void* leaky, float leaky_c, int B, int T, int P, int s_pad,
     int cluster, int columns, int rows, void* ad_ys, void* w1ad_ys,
     void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* stream) {
-  switch (columns) {
-#define STREAM_FWD_CASE(G)                                                  \
-  case G:                                                                   \
-    return launch<G>(px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val,     \
-                     w2_ptr, w2_col, w2_val, w2_pdf, ad0, s0, leaky,        \
-                     leaky_c, B, T, P, s_pad, cluster, rows, ad_ys,         \
-                     w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, stream);
-    STREAM_FWD_CASE(1)
-    STREAM_FWD_CASE(2)
-    STREAM_FWD_CASE(4)
-#undef STREAM_FWD_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return run<float>(px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val,
+                    w2_ptr, w2_col, w2_val, w2_pdf, nullptr, nullptr, ad0,
+                    s0, leaky, leaky_c, B, T, P, s_pad, cluster, columns,
+                    rows, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last,
+                    stream);
+}
+
+// The fast mode: bfloat16 streams, the operators' off-diagonal entries
+// alone (bfloat16 values held in float32; w2_pdf in that W2's layout),
+// float32 diagonals diag1 (W1's) and diag2 (W2's).
+extern "C" int stream_fwd_bf16_launch(
+    const void* px, const void* lengths, const void* f_dst,
+    const void* g_src, const void* w1_ptr, const void* w1_col,
+    const void* w1_val, const void* w2_ptr, const void* w2_col,
+    const void* w2_val, const void* w2_pdf, const void* diag1,
+    const void* diag2, const void* ad0, const void* s0, const void* leaky,
+    float leaky_c, int B, int T, int P, int s_pad, int cluster, int columns,
+    int rows, void* ad_ys, void* w1ad_ys, void* xdst_ys, void* xsrc_ys,
+    void* s_ys, void* ad_last, void* stream) {
+  return run<__nv_bfloat16>(
+      px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr, w2_col,
+      w2_val, w2_pdf, diag1, diag2, ad0, s0, leaky, leaky_c, B, T, P, s_pad,
+      cluster, columns, rows, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys,
+      ad_last, stream);
 }

@@ -28,8 +28,8 @@ JAX package splits over ``impl="semiring_pallas"`` and ``"semiring_xl"``
 (both taken here as ``"auto"``).  ``impl="pallas"``, the JAX package's
 name for its denominator tiering, is ``"auto"`` too.
 A denominator with bfloat16 tiles (``precision="fast"``) runs the fast
-mode of the same tiers (the cluster tier raises on CUDA: no kernel yet),
-or on the CPU its plain version, ``forward_backward_prob_fast``.
+mode of the same tiers (B1/B2's and B3/B4's bfloat16 forms), or on the
+CPU its plain version, ``forward_backward_prob_fast``.
 ``impl="factorized"`` (denominator) and ``impl="semiring"`` (numerator
 lists) ask for the plain PyTorch engine on any device, as the JAX
 package's ``impl="semiring"`` forces its XLA scan.  A FactorizedArrays
@@ -280,9 +280,9 @@ class ChainLoss(torch.nn.Module):
         self.impl = impl
         # precision="fast" selects bfloat16 transition operands and
         # streams (float32 accumulation: the Pallas kernels' fast mode,
-        # on the card the resident kernels' bfloat16 forms; the cluster
-        # tier raises); "parity" (the default) keeps float32.  tile_dtype
-        # is the expert form of the same switch.
+        # on the card the bfloat16 forms of the resident and the cluster
+        # kernels); "parity" (the default) keeps float32.  tile_dtype is
+        # the expert form of the same switch.
         if precision not in (None, "parity", "fast"):
             raise ValueError(
                 f"precision must be 'parity' or 'fast', got {precision!r}")

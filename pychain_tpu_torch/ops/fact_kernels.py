@@ -178,7 +178,11 @@ class KernelGraph:
     in the fast mode (bfloat16 tiles) without the diagonal, whose float32
     values are ``diag`` (W1's, W2's: a transpose has the same diagonal),
     the Pallas kernels' strata (the off-diagonal values are bfloat16
-    values, held in float32: see sell_row_dot).  The one-hot E matrices become gathers through f_dst/g_src and, for
+    values, held in float32: see sell_row_dot).  ``off`` holds, in the
+    fast mode, the four operators' off-diagonal entries in ascending
+    order: what the cluster pair reads in that mode (for every graph, as
+    ``diag``).  The one-hot E matrices become gathers through f_dst/g_src
+    and, for
     the posterior scatter, pdf -> states lists: E_f^T's over all S_pad
     states (padded states map to pdf 0 with zero mass), E_g^T's over the
     states with a W2 out-arc only (any other state's E_g^T mass is
@@ -197,12 +201,15 @@ class KernelGraph:
     max_pdf: int         # largest pdf the emission gathers read
     resident: tuple | None = None   # B1/B2's (w1, w2, w1t, w2t)
     diag: tuple | None = None       # fast mode: (W1's, W2's) (S_pad,) f32
+    off: tuple | None = None        # fast mode: the four, off-diagonal
 
     def to(self, device) -> "KernelGraph":
         mv = lambda x: None if x is None else tuple(t.to(device) for t in x)
         return dataclasses.replace(
             self, w1=mv(self.w1), w2=mv(self.w2), w1t=mv(self.w1t),
-            w2t=mv(self.w2t), diag=mv(self.diag), f_dst=self.f_dst.to(device),
+            w2t=mv(self.w2t), diag=mv(self.diag),
+            off=None if self.off is None else tuple(mv(op) for op in self.off),
+            f_dst=self.f_dst.to(device),
             g_src=None if self.g_src is None else self.g_src.to(device),
             f_lists=mv(self.f_lists), g_lists=mv(self.g_lists),
             resident=None if self.resident is None else tuple(
@@ -400,8 +407,9 @@ def _operators(w1, w2, s_pad):
 def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
     """Host-built sparse form of ``fa`` (CPU tensors), with B1/B2's
     operators in bank order (:func:`bank_order`) when the graph fits them
-    (:func:`fits_on_chip`): in the fast mode their off-diagonal entries
-    alone (bfloat16 values) and the diagonals apart."""
+    (:func:`fits_on_chip`).  In the fast mode the operators' off-diagonal
+    entries alone (bfloat16 values), ascending (``off``, the cluster
+    pair's) and, for B1/B2, in bank order, and the diagonals apart."""
     s_pad, p_pad = fa.s_pad, fa.p_pad
     identity = fa.xsrc_mode == "identity"
     r1, c1, v1 = _coo(fa.w1)
@@ -409,14 +417,14 @@ def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
     f = fa.f_dst.cpu().numpy().astype(np.int64)
     g = fa.g_src.cpu().numpy().astype(np.int64)
     ops = _operators((r1, c1, v1), (r2, c2, v2), s_pad)
-    resident = diag = None
-    if fits_on_chip(fa) and is_fast(fa):
-        resident = tuple(map(bank_order, _operators(
-            _coo(fa.w1, diag=False), _coo(fa.w2, diag=False), s_pad)))
+    resident = diag = off = None
+    if is_fast(fa):
+        off = _operators(_coo(fa.w1, diag=False), _coo(fa.w2, diag=False),
+                         s_pad)
         diag = tuple(w.diag.float().cpu().contiguous()
                      for w in (fa.w1, fa.w2))
-    elif fits_on_chip(fa):
-        resident = tuple(bank_order(op) for op in ops)
+    if fits_on_chip(fa):
+        resident = tuple(map(bank_order, off or ops))
     return KernelGraph(
         *ops, f_dst=torch.from_numpy(f.astype(np.int32)),
         g_src=None if identity else torch.from_numpy(g.astype(np.int32)),
@@ -424,7 +432,7 @@ def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
         g_lists=None if identity else _pdf_lists(g, p_pad, np.unique(c2)),
         n_pdf_lists=p_pad, nnz=len(v1) + len(v2),
         max_pdf=int(max(f.max(), 0 if identity else g.max())),
-        resident=resident, diag=diag)
+        resident=resident, diag=diag, off=off)
 
 
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -439,19 +447,17 @@ def graph_for(fa: FactorizedArrays) -> KernelGraph:
     return kg
 
 
-def fast_operators(fa: FactorizedArrays):
+def fast_operators(fa: FactorizedArrays, ascending: bool = False):
     """The fast mode's operators on fa's device: ((w1, w2, w1t, w2t), (W1's
     diagonal, W2's)), each operator its off-diagonal entries as sliced
-    ELL.  B1/B2's (bank order) when the graph fits them, else the same
-    entries in ascending order: the rows the plain fast version
+    ELL.  B1/B2's (bank order) when the graph fits them, else (or with
+    ``ascending``) the same entries in ascending order, the cluster
+    pair's: the rows the plain fast version
     (``factorized.forward_backward_prob_fast``) sums."""
     kg = graph_for(fa)
-    if kg.diag is not None:
+    if kg.resident is not None and not ascending:
         return kg.resident, kg.diag
-    ops = _operators(_coo(fa.w1, diag=False), _coo(fa.w2, diag=False),
-                     fa.s_pad)
-    return (tuple(tuple(t.to(fa.device) for t in op) for op in ops),
-            (fa.w1.diag.float(), fa.w2.diag.float()))
+    return kg.off, kg.diag
 
 
 # ----------------------------------------------------------------------
@@ -635,18 +641,19 @@ def _frame0_traces(res: FwdBwdResult) -> FwdBwdResult:
 
 
 def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
-                  debug, fwd, bwd) -> FwdBwdResult:
-    """The glue of a kernel pair: CPU tensors take the plain version;
-    CUDA tensors run ``fwd``, the objective and ``bwd`` (the signatures
-    of :func:`fact_fwd` / :func:`fact_bwd`), the streams' bytes held to
-    the card's :func:`stream_budget`."""
+                  debug, fwd, bwd, plain=None) -> FwdBwdResult:
+    """The glue of a kernel pair: CPU tensors take the plain version
+    (``plain``, default the precision's: the fast one for bfloat16
+    tiles); CUDA tensors run ``fwd``, the objective and ``bwd`` (the
+    signatures of :func:`fact_fwd` / :func:`fact_bwd`), the streams' bytes
+    held to the card's :func:`stream_budget`."""
     debug = debug or get_verbose_level() >= 1
     if not supports(fa):
         raise ValueError("the factorized kernels require a fully "
                          "factorized graph (no residual arcs)")
     if not px.is_cuda:
-        plain = (forward_backward_prob_fast if is_fast(fa)
-                 else forward_backward_prob_fact)
+        plain = plain or (forward_backward_prob_fast if is_fast(fa)
+                          else forward_backward_prob_fact)
         res = plain(px, lengths, fa, leaky_coefficient)
         return res if debug else _frame0_traces(res)
 

@@ -17,15 +17,19 @@ kernels in the fast mode (bfloat16 tiles): it rounds where the Pallas
 kernels of ``pychain_tpu/ops/pallas_fact.py`` round in that mode, and
 takes every sum in the CUDA kernels' order (on the graph's sliced-ELL
 rows and pdf lists, ``fact_kernels.fast_operators``), so that they
-equal it bit for bit.  Each is the CPU path of the kernels' wrapper and
-what ``chip_smoke.py`` holds the kernels against on the card.  Neither
-is fast: each frame launches a handful of small PyTorch operations.
+equal it bit for bit; with ``cluster=C`` it takes them in the cluster
+kernels' order instead (``ops/stream_kernels.py``: the ascending rows,
+each sum over a vector's states split over C CTAs, :func:`cluster_sum`).
+Each is the CPU path of the kernels' wrapper and what ``chip_smoke.py``
+holds the kernels against on the card.  Neither is fast: each frame
+launches a handful of small PyTorch operations.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -162,8 +166,8 @@ def from_factorized_graph(fg, initial, final, leaky,
 
     tile_dtype: float32 (default, parity grade) or bfloat16 (the
     reference's fast mode: transition operands rounded to bfloat16,
-    float32 accumulation; :func:`forward_backward_prob_fast`).  The
-    resident CUDA kernels take both, the cluster kernels float32 only."""
+    float32 accumulation; :func:`forward_backward_prob_fast`).  Both
+    kernel pairs, resident and cluster, take both."""
     from ..graphs.factorize import permute_state_vector
 
     td = _tile_dtype(tile_dtype)
@@ -441,6 +445,47 @@ def block_sum(v):
     return part[0]
 
 
+SLICE = 32   # rows of a sliced-ELL slice (fact_kernels.SLICE)
+
+
+def cluster_rows(s_pad: int, cluster: int, device=None) -> list:
+    """The rows each CTA of a cluster of ``cluster`` owns, as the cluster
+    kernels lay them out (cluster_own_rows / cluster_row in
+    csrc/fact_common.cuh): CTA r the 32-row slices r, r + C, ...,
+    ascending, which it sums in this (local) order; none for a rank past
+    the last slice."""
+    slices = torch.arange(s_pad // SLICE, device=device)
+    lane = torch.arange(SLICE, device=device)
+    return [(slices[slices % cluster == r][:, None] * SLICE
+             + lane).reshape(-1) for r in range(cluster)]
+
+
+def pdf_columns(P: int, cluster: int) -> list:
+    """The pdf columns CTA r of a cluster sums gamma over in stream_bwd.cu:
+    [r ceil(P / C), (r + 1) ceil(P / C)), cut at P (empty past it)."""
+    per = -(-P // cluster)
+    return [slice(min(P, r * per), min(P, r * per + per))
+            for r in range(cluster)]
+
+
+def rank_sum(v, parts):
+    """The sum over axis 0 of v (N, B) that a cluster takes: each CTA's
+    part (``parts``: row indices or slices) by :func:`block_sum`, then the
+    C partials added in rank order from 0 (cluster_rank_sum); an idle
+    CTA's partial is 0.  Returns (B,)."""
+    total = torch.zeros(v.shape[1:], dtype=v.dtype, device=v.device)
+    for part in parts:
+        total = total + block_sum(v[part])
+    return total
+
+
+def cluster_sum(v, cluster: int):
+    """The sum over the states (axis 0) of v (S_pad, B) that the cluster
+    kernels take with C = ``cluster`` CTAs (:func:`cluster_rows`,
+    :func:`rank_sum`).  Returns (B,)."""
+    return rank_sum(v, cluster_rows(v.shape[0], cluster, v.device))
+
+
 def _ell_table(sell):
     """A sliced-ELL operator (``fact_kernels._sell``) as (cols, vals), two
     (slots, rows) tables: entry k of row r at [k, r], zero past the row's
@@ -501,13 +546,14 @@ def _list_sums(table, c, acc=None):
     return acc
 
 
-def _fast_graph(fa: FactorizedArrays):
-    """What the fast mode reads, on fa's device: the operators' tables,
-    the two diagonals (S_pad, 1), f_dst, g_src (or None) and the pdf
-    lists' tables."""
+def _fast_graph(fa: FactorizedArrays, cluster=None):
+    """What the fast mode reads, on fa's device: the operators' tables
+    (B1/B2's, or with ``cluster`` the cluster pair's ascending rows), the
+    two diagonals (S_pad, 1), f_dst, g_src (or None) and the pdf lists'
+    tables."""
     from . import fact_kernels as fk
     kg = fk.graph_for(fa)
-    ops, (d1, d2) = fk.fast_operators(fa)
+    ops, (d1, d2) = fk.fast_operators(fa, ascending=cluster is not None)
     lists = [_list_table(kg.f_lists, fa.s_pad)]
     if kg.g_lists is not None:
         lists.append(_list_table(kg.g_lists, fa.s_pad))
@@ -516,17 +562,30 @@ def _fast_graph(fa: FactorizedArrays):
             lists)
 
 
+def _state_sum(s_pad, cluster, device):
+    """The sum over the states the kernels take: fact_*.cu's
+    :func:`block_sum`, or with ``cluster`` the cluster pair's
+    (:func:`cluster_sum`)."""
+    if cluster is None:
+        return block_sum
+    return functools.partial(rank_sum,
+                             parts=cluster_rows(s_pad, cluster, device))
+
+
 def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
-                      leaky_coefficient, graph=None):
+                      leaky_coefficient, graph=None, cluster=None):
     """Fast-mode alpha sweep.  px_tm: (T, P_eff, B) float32, rounded here.
     Every sum is taken in fact_fwd.cu's order (each row's slots, then the
-    diagonal; :func:`block_sum`), so that the kernel gives these numbers
-    bit for bit.  Returns (alpha_dash (T+1, S_pad, B): alpha'(0) = ad0 in
-    float32, then the stored (bfloat16-rounded) alpha'(t); w1_alpha (T,
-    S_pad, B): the stored W1 alpha'(t); s_ys (B, T): s_1 .. s_T, 1 past a
-    column's end, as the kernel writes them; objf (B,), tot_prob (B,))."""
+    diagonal; :func:`block_sum`), or with ``cluster`` = C in stream_fwd.cu's
+    (the ascending rows; :func:`cluster_sum`), so that the kernel gives
+    these numbers bit for bit.  Returns (alpha_dash (T+1, S_pad, B):
+    alpha'(0) = ad0 in float32, then the stored (bfloat16-rounded)
+    alpha'(t); w1_alpha (T, S_pad, B): the stored W1 alpha'(t); s_ys (B,
+    T): s_1 .. s_T, 1 past a column's end, as the kernel writes them;
+    objf (B,), tot_prob (B,))."""
     from .fact_kernels import _objf
-    tables, d1, d2, f, g, _ = graph or _fast_graph(fa)
+    tables, d1, d2, f, g, _ = graph or _fast_graph(fa, cluster)
+    total = _state_sum(fa.s_pad, cluster, px_tm.device)
     T, _, B = px_tm.shape
     leaky = fa.leaky[:, None]
     ad0, s0 = initial_alpha(fa, leaky_coefficient)
@@ -541,7 +600,7 @@ def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
         u = xs * own
         w2u = _ell_apply(tables[1], _bf(u)) + d2 * u
         a = (x * w1a + w2u) * (1.0 / s_prev)[None, :]
-        s_t = block_sum(a)
+        s_t = total(a)
         v = a + (leaky_coefficient * s_t)[None, :] * leaky
         active = t < lengths
         own = torch.where(active[None, :], v, own)
@@ -558,17 +617,22 @@ def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
 
 def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
                        leaky_coefficient, alpha_dash, w1_alpha, s_ys,
-                       tot_prob, graph=None):
+                       tot_prob, graph=None, cluster=None):
     """Fast-mode beta sweep + posteriors on :func:`forward_prob_fast`'s
-    results, every sum in fact_bwd.cu's order.  Returns (gamma (T, P_eff,
+    results, every sum in fact_bwd.cu's order, or with ``cluster`` = C in
+    stream_bwd.cu's (the sum-gamma trace over each CTA's pdf columns,
+    :func:`pdf_columns`, then in rank order).  Returns (gamma (T, P_eff,
     B): bfloat16 values, zero past each column's end; alpha_beta (B, T),
     gamma_sum (B, T))."""
-    tables, d1, d2, f, g, lists = graph or _fast_graph(fa)
+    tables, d1, d2, f, g, lists = graph or _fast_graph(fa, cluster)
     T, P, B = px_tm.shape
+    total = _state_sum(fa.s_pad, cluster, px_tm.device)
+    pdf_total = block_sum if cluster is None else functools.partial(
+        rank_sum, parts=pdf_columns(P, cluster))
     leaky = fa.leaky[:, None]
     _, s0 = initial_alpha(fa, leaky_coefficient)
     bd_final = fa.final[:, None] / tot_prob[None, :]
-    leak_final = block_sum(bd_final * leaky)
+    leak_final = total(bd_final * leaky)
     bd = torch.zeros((fa.s_pad, B), dtype=torch.float32,
                      device=px_tm.device)
     leak = torch.zeros(B, dtype=torch.float32, device=px_tm.device)
@@ -598,32 +662,35 @@ def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
         active = t < lengths
         gammas[t] = torch.where(active[None, :], _bf(acc * inv[None, :]),
                                 0.0)
-        abs_[t] = torch.where(active, block_sum(ad * bd_t), 0.0)
-        gss[t] = torch.where(active, block_sum(acc) * inv, 0.0)
-        leak = torch.where(active, block_sum(bd_t * leaky), leak)
+        abs_[t] = torch.where(active, total(ad * bd_t), 0.0)
+        gss[t] = torch.where(active, pdf_total(acc) * inv, 0.0)
+        leak = torch.where(active, total(bd_t * leaky), leak)
         bd = torch.where(active[None, :], bd_t, bd)
     return (torch.stack(gammas, dim=0), torch.stack(abs_, dim=1),
             torch.stack(gss, dim=1))
 
 
 def forward_backward_prob_fast(px, lengths, fa: FactorizedArrays,
-                               leaky_coefficient=1e-5) -> FwdBwdResult:
+                               leaky_coefficient=1e-5,
+                               cluster=None) -> FwdBwdResult:
     """Fused fwd+bwd in the fast mode on a graph with bfloat16 tiles:
     what the Pallas kernels compute with bfloat16 tiles (the rounding
-    points above), and the plain version of the resident CUDA kernels in
-    that mode, which give its numbers bit for bit (it takes every sum in
-    their order).  px: (B, T, P) exp'd output (float32); gamma is
-    returned in (B, T, P), float32 holding bfloat16 values."""
+    points above), and the plain version of the CUDA kernels in that
+    mode, which give its numbers bit for bit (it takes every sum in their
+    order): the resident pair's, or with ``cluster`` = C the cluster
+    pair's at C CTAs a cluster (for any G columns a CTA).  px: (B, T, P)
+    exp'd output (float32); gamma is returned in (B, T, P), float32
+    holding bfloat16 values."""
     B, T, P = px.shape
     lengths = host_to(torch.as_tensor(lengths), px.device).long()
     with torch.no_grad():
-        graph = _fast_graph(fa)
+        graph = _fast_graph(fa, cluster)
         px_tm = px.permute(1, 2, 0)
         alpha_dash, w1_alpha, s_ys, objf, tot_prob = forward_prob_fast(
-            px_tm, lengths, fa, leaky_coefficient, graph)
+            px_tm, lengths, fa, leaky_coefficient, graph, cluster)
         gamma_tm, alpha_beta, gamma_sum = backward_prob_fast(
             px_tm, lengths, fa, leaky_coefficient, alpha_dash, w1_alpha,
-            s_ys, tot_prob, graph)
+            s_ys, tot_prob, graph, cluster)
         gamma = gamma_batch_major(gamma_tm, P)
     ok = _ok_flags(objf, alpha_beta, gamma_sum)
     return FwdBwdResult(objf, gamma, ok, alpha_beta, gamma_sum)

@@ -25,20 +25,26 @@ each sparse entry read from L2 feeds G columns:
 
 :func:`plan` picks (C, G) for each kernel from the card's properties by
 a written rule; ``cluster=`` / ``columns=`` override it.  The kernels
-read the graph of ``fact_kernels.graph_for`` (the same device arrays as
-B1/B2) plus, for stream_fwd, the x_src pdf at each W2 entry's source
-(:func:`w2_source_pdfs`), and the pdf -> states lists of the posterior
-with state ids packed as (owner rank, local row) for the cluster size C
-(:func:`cluster_graph`): CTA r sums the pdf columns
+read the graph of ``fact_kernels.graph_for`` (its ascending rows,
+:func:`operators`) plus, for stream_fwd, the x_src pdf at each W2
+entry's source (:func:`w2_source_pdfs`), and the pdf -> states lists of
+the posterior with state ids packed as (owner rank, local row) for the
+cluster size C (:func:`cluster_graph`): CTA r sums the pdf columns
 [r ceil(P / C), (r + 1) ceil(P / C)) from the CTAs that own the states.
 
+Both precisions of the Pallas kernels: float32 ("parity") and the fast
+mode of bfloat16 tiles (``precision="fast"``: bfloat16 operands and
+streams, float32 sums and carries; a second entry point of each source,
+``stream_fwd_bf16`` / ``stream_bwd_bf16``, reading the graph's fast form:
+``KernelGraph.off`` and ``diag``).  Its plain version is
+``factorized.forward_backward_prob_fast(..., cluster=C)``, which takes
+every sum in the order these kernels take it at C CTAs a cluster (for
+any G), so that the kernels give its numbers bit for bit.
+
 A wrapper given CPU tensors computes the plain version
-(``ops/factorized.py``; the fast one for bfloat16 tiles); given CUDA
-tensors it launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[name]``.  The kernels take float32 tiles only: a graph with
-bfloat16 tiles (``precision="fast"``) raises ``NotImplementedError`` on
-CUDA (ROADMAP.md queues the fast mode of B3/B4 first among its
-modules).
+(``ops/factorized.py``; the fast one for bfloat16 tiles, in the cluster
+order when the caller names C); given CUDA tensors it launches its
+kernel or raises.  Each launch adds one to ``LAUNCHES[name]``.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import weakref
 import torch
 
 from . import fact_kernels as fk
-from .factorized import FactorizedArrays, initial_alpha, is_fast
+from .factorized import (FactorizedArrays, forward_backward_prob_fast,
+                         initial_alpha, is_fast)
 from .fwdbwd import FwdBwdResult
 
 CLUSTERS = (1, 2, 4, 8)      # portable cluster sizes, smallest first
@@ -63,7 +70,9 @@ REGS_PER_THREAD = 64
 RESERVED_SMEM = 1024         # shared memory the runtime keeps per block
 LOCAL_BITS = 16              # CLUSTER_LOCAL_BITS in fact_common.cuh
 
-LAUNCHES = {"stream_fwd": 0, "stream_bwd": 0}
+KERNELS = ("stream_fwd", "stream_bwd")   # the plan's names, both precisions
+LAUNCHES = {"stream_fwd": 0, "stream_bwd": 0, "stream_fwd_bf16": 0,
+            "stream_bwd_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -84,7 +93,10 @@ def smem_bytes(fa: FactorizedArrays, cluster: int, columns: int = 1) -> dict:
     columns: stream_fwd keeps alpha' whole and alpha on its R rows (two
     buffers by frame parity when C > 1), stream_bwd x_dst * b whole and
     c1, c2 on its rows (no c2 in identity mode; b and the beta' carry live
-    in device memory); plus the reductions' scratch and slots."""
+    in device memory); plus the reductions' scratch and slots.  The same
+    in the fast mode: every vector stays float32 (the products gather
+    bfloat16-rounded values from it, the diagonal and the masses read it
+    unrounded)."""
     s_pad, rows, G = fa.s_pad, rows_per_cta(fa.s_pad, cluster), columns
     identity = fa.xsrc_mode == "identity"
     nbuf = 2 if cluster > 1 else 1
@@ -97,8 +109,9 @@ def smem_bytes(fa: FactorizedArrays, cluster: int, columns: int = 1) -> dict:
 def fits(fa: FactorizedArrays, name: str, cluster: int, columns: int,
          limit: int = fk.MAX_SMEM) -> bool:
     """Whether kernel ``name``'s shared memory at (C, G) is within
-    ``limit``."""
-    return smem_bytes(fa, cluster, columns)[name] <= limit
+    ``limit`` (a ``_bf16`` form's is its float32 form's)."""
+    return smem_bytes(fa, cluster, columns)[name.removesuffix("_bf16")] \
+        <= limit
 
 
 def fits_stream(fa: FactorizedArrays) -> bool:
@@ -107,7 +120,7 @@ def fits_stream(fa: FactorizedArrays) -> bool:
     cluster of at most max(CLUSTERS) CTAs (the port's counterpart of
     pallas_stream.fits_stream's VMEM estimate)."""
     return fk.supports(fa) and any(
-        all(fits(fa, k, c, 1) for k in LAUNCHES) for c in CLUSTERS)
+        all(fits(fa, k, c, 1) for k in KERNELS) for c in CLUSTERS)
 
 
 # ----------------------------------------------------------------------
@@ -203,7 +216,7 @@ def plan(fa: FactorizedArrays, B: int, props, cluster=None,
     that wins, then the smaller C, then the larger G.  ``cluster`` /
     ``columns`` restrict the choice (tests, chip_smoke.py)."""
     return {name: plan_kernel(fa, name, B, props, cluster, columns)
-            for name in LAUNCHES}
+            for name in KERNELS}
 
 
 # ----------------------------------------------------------------------
@@ -229,12 +242,20 @@ def cluster_graph(kg: fk.KernelGraph, cluster: int) -> fk.KernelGraph:
                                g_lists=lists(kg.g_lists))
 
 
+def operators(kg: fk.KernelGraph) -> tuple:
+    """The four operators (W1, W2, W1^T, W2^T) the cluster pair reads, in
+    ascending order: in the fast mode their off-diagonal entries alone
+    (``kg.off``; the diagonals are ``kg.diag``), else the whole rows."""
+    return kg.off or (kg.w1, kg.w2, kg.w1t, kg.w2t)
+
+
 def w2_source_pdfs(kg: fk.KernelGraph) -> torch.Tensor:
-    """x_src's pdf at each W2 entry's source state, in W2's sliced-ELL
-    layout (a padding entry names state 0): stream_fwd's W2 product reads
-    x_src * alpha' at the source from px and its whole alpha'."""
+    """x_src's pdf at each W2 entry's source state, in the sliced-ELL
+    layout of the W2 the cluster pair reads (:func:`operators`; a padding
+    entry names state 0): stream_fwd's W2 product reads x_src * alpha' at
+    the source from px and its whole alpha'."""
     src = kg.f_dst if kg.g_src is None else kg.g_src
-    return src[kg.w2[1].long()].contiguous()
+    return src[operators(kg)[1][1].long()].contiguous()
 
 
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -269,29 +290,42 @@ _ptr, _require, _stream = fk._ptr, fk._require, fk._stream
 
 
 def _lib(name):
+    """The launch function ``name`` (stream_fwd, stream_bwd or their _bf16
+    forms, two entry points of one source each)."""
     from ..csrc import build
-    fn = getattr(build.load(name), f"{name}_launch")
+    fast = name.endswith("_bf16")
+    fn = getattr(build.load(name.removesuffix("_bf16")), f"{name}_launch")
     if fn.argtypes is None:
-        if name == "stream_fwd":
-            fn.argtypes = [_P] * 14 + [_F] + [_I] * 7 + [_P] * 7
+        # the fast forms take W1's and W2's diagonals after the operators
+        if name.startswith("stream_fwd"):
+            fn.argtypes = [_P] * (14 + 2 * fast) + [_F] + [_I] * 7 + [_P] * 7
         else:
-            fn.argtypes = [_P] * 21 + [_I, _F] + [_I] * 8 + [_P] * 5
+            fn.argtypes = [_P] * (21 + 2 * fast) + [_I, _F] + [_I] * 8 \
+                + [_P] * 5
         fn.restype = ctypes.c_int
     return fn
 
 
+def _name(kernel: str, fa: FactorizedArrays) -> str:
+    """The entry point of ``kernel`` for this graph: its _bf16 form for
+    bfloat16 tiles."""
+    return kernel + "_bf16" if is_fast(fa) else kernel
+
+
 def active_clusters(fa: FactorizedArrays, p: Plan) -> int:
-    """cudaOccupancyMaxActiveClusters for plan ``p`` on the current card:
-    the clusters of its shape that can be resident at once."""
+    """cudaOccupancyMaxActiveClusters for plan ``p`` on the current card,
+    for the kernel of the graph's precision: the clusters of its shape
+    that can be resident at once."""
     from ..csrc import build
     fn = getattr(build.load(p.kernel), f"{p.kernel}_active_clusters")
     fn.restype = ctypes.c_int
     rows = rows_per_cta(fa.s_pad, p.cluster)
+    fast = int(is_fast(fa))
     if p.kernel == "stream_fwd":
-        n = fn(fa.s_pad, rows, p.cluster, p.columns)
+        n = fn(fa.s_pad, rows, p.cluster, p.columns, fast)
     else:
         n = fn(fa.s_pad, rows, int(fa.xsrc_mode == "identity"), p.cluster,
-               p.columns)
+               p.columns, fast)
     fk._check(max(-n, 0), f"{p.kernel}_active_clusters")
     return n
 
@@ -313,22 +347,14 @@ def _plan(fa: FactorizedArrays, B: int, device, name: str, cluster,
                        cluster, columns)
 
 
-def _require_float32(fa: FactorizedArrays):
-    if is_fast(fa):
-        raise NotImplementedError(
-            f"the cluster kernels (S_pad={fa.s_pad}, past the resident "
-            "tier) have no fast mode yet: bfloat16 tiles "
-            "(precision='fast') on a graph this large wait for the fast "
-            "mode of B3/B4, queued in ROADMAP.md; use float32 tiles")
-
-
 def stream_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
                cluster=None, columns=None):
-    """Launch the cluster alpha sweep on CUDA tensors; the arguments and
-    results of :func:`fact_kernels.fact_fwd`.  ``cluster`` / ``columns``
-    force C / G (default: :func:`plan`)."""
+    """Launch the cluster alpha sweep on CUDA tensors: ``stream_fwd``, or
+    ``stream_fwd_bf16`` for a graph with bfloat16 tiles (the fast mode);
+    the arguments and results of :func:`fact_kernels.fact_fwd` (streams
+    in ``fact_kernels.stream_dtype``).  ``cluster`` / ``columns`` force C
+    / G (default: :func:`plan`)."""
     fk._check_cuda_inputs(px, lengths, fa)
-    _require_float32(fa)
     B, T, P = px.shape
     p = _plan(fa, B, px.device, "stream_fwd", cluster, columns)
     kg = graph_for(fa, p.cluster)
@@ -336,35 +362,44 @@ def stream_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
              f"only {P} columns")
     s_pad = fa.s_pad
     ad0, s0 = initial_alpha(fa, leaky_coefficient)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=px.device)
+    sd = fk.stream_dtype(fa)
+    new = lambda *shape: torch.empty(shape, dtype=sd, device=px.device)
     ad_ys, w1ad_ys, xdst_ys = (new(B, T, s_pad) for _ in range(3))
     xsrc_ys = None if kg.g_src is None else new(B, T, s_pad)
-    s_ys, ad_last = new(B, T), new(B, s_pad)
-    rc = _lib("stream_fwd")(
+    s_ys = torch.empty((B, T), dtype=torch.float32, device=px.device)
+    ad_last = torch.empty((B, s_pad), dtype=torch.float32, device=px.device)
+    w1, w2 = operators(kg)[:2]
+    name = _name("stream_fwd", fa)
+    rc = _lib(name)(
         _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
-        *map(_ptr, kg.w1), *map(_ptr, kg.w2), _ptr(w2_pdfs_for(fa)),
-        _ptr(ad0), _ptr(s0), _ptr(fa.leaky), float(leaky_coefficient), B,
-        T, P, s_pad, p.cluster, p.columns, rows_per_cta(s_pad, p.cluster),
-        _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys), _ptr(xsrc_ys),
-        _ptr(s_ys), _ptr(ad_last), _stream())
+        *map(_ptr, w1), *map(_ptr, w2), _ptr(w2_pdfs_for(fa)),
+        *map(_ptr, kg.diag or ()), _ptr(ad0), _ptr(s0), _ptr(fa.leaky),
+        float(leaky_coefficient), B, T, P, s_pad, p.cluster, p.columns,
+        rows_per_cta(s_pad, p.cluster), _ptr(ad_ys), _ptr(w1ad_ys),
+        _ptr(xdst_ys), _ptr(xsrc_ys), _ptr(s_ys), _ptr(ad_last), _stream())
     _check(rc, p)
-    LAUNCHES["stream_fwd"] += 1
+    LAUNCHES[name] += 1
     return ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, ad0, s0
 
 
 def stream_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
                w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0, tot_prob, P,
                debug=True, cluster=None, columns=None):
-    """Launch the cluster beta sweep on the streams of :func:`stream_fwd`
-    (or ``fact_fwd``).  Returns (gamma (B, T, P), alpha_beta (B, T),
-    gamma_sum (B, T))."""
-    _require_float32(fa)
+    """Launch the cluster beta sweep (``stream_bwd``, or
+    ``stream_bwd_bf16`` in the fast mode) on the streams of
+    :func:`stream_fwd` (or ``fact_fwd``).  Returns (gamma (B, T, P)
+    float32, alpha_beta (B, T), gamma_sum (B, T))."""
     B, T, s_pad = ad_ys.shape
-    for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, tot_prob):
-        _require(t is None or (t.is_cuda and t.dtype == torch.float32
+    sd = fk.stream_dtype(fa)
+    for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys):
+        _require(t is None or (t.is_cuda and t.dtype == sd
                                and t.is_contiguous()),
-                 "stream_bwd: streams must be contiguous float32 on CUDA")
+                 f"stream_bwd: streams must be contiguous {sd} on CUDA")
+    for t in (s_ys, tot_prob):
+        _require(t.is_cuda and t.dtype == torch.float32
+                 and t.is_contiguous(),
+                 "stream_bwd: s_ys and tot_prob must be contiguous float32 "
+                 "on CUDA")
     p = _plan(fa, B, ad_ys.device, "stream_bwd", cluster, columns)
     kg = graph_for(fa, p.cluster)
     _require((xsrc_ys is None) == (kg.g_src is None),
@@ -375,29 +410,40 @@ def stream_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
     gamma, ab, gs = new(B, T, P), new(B, T), new(B, T)
     carry = new(2, -(-B // p.columns) * p.columns, s_pad)
     g_lists = kg.g_lists or (None, None)
-    rc = _lib("stream_bwd")(
+    w1t, w2t = operators(kg)[2:]
+    name = _name("stream_bwd", fa)
+    rc = _lib(name)(
         _ptr(lengths), _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
         _ptr(xsrc_ys), _ptr(s_ys), _ptr(s0), _ptr(ad0), _ptr(fa.final),
-        _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, kg.w1t),
-        *map(_ptr, kg.w2t), *map(_ptr, kg.f_lists), *map(_ptr, g_lists),
-        kg.n_pdf_lists, float(leaky_coefficient), B, T, P, s_pad, p.cluster,
-        p.columns, rows_per_cta(s_pad, p.cluster), int(bool(debug)),
-        _ptr(carry), _ptr(gamma), _ptr(ab), _ptr(gs), _stream())
+        _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, w1t), *map(_ptr, w2t),
+        *map(_ptr, kg.diag or ()), *map(_ptr, kg.f_lists),
+        *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
+        P, s_pad, p.cluster, p.columns, rows_per_cta(s_pad, p.cluster),
+        int(bool(debug)), _ptr(carry), _ptr(gamma), _ptr(ab), _ptr(gs),
+        _stream())
     _check(rc, p)
-    LAUNCHES["stream_bwd"] += 1
+    LAUNCHES[name] += 1
     return gamma, ab, gs
 
 
 def forward_backward_prob_stream(px, lengths, fa: FactorizedArrays,
                                  leaky_coefficient=1e-5, debug: bool = True,
                                  cluster=None, columns=None) -> FwdBwdResult:
-    """Fused fwd+bwd on the cluster kernels (engine "stream").
+    """Fused fwd+bwd on the cluster kernels (engine "stream"), in the fast
+    mode for a graph with bfloat16 tiles.
 
     The arguments and results of
     :func:`fact_kernels.forward_backward_prob_kernel`; ``cluster`` and
     ``columns`` force C and G for both kernels (default :func:`plan`,
-    per kernel).  On the CPU this computes the plain version."""
+    per kernel).  On the CPU this computes the plain version; in the fast
+    mode with the caller's ``cluster``, the sums in the order of the
+    kernels at that C."""
+    plain = None
+    if is_fast(fa) and cluster is not None:
+        plain = functools.partial(forward_backward_prob_fast,
+                                  cluster=int(cluster))
     return fk.fused_fwd_bwd(
         px, lengths, fa, leaky_coefficient, debug,
         functools.partial(stream_fwd, cluster=cluster, columns=columns),
-        functools.partial(stream_bwd, cluster=cluster, columns=columns))
+        functools.partial(stream_bwd, cluster=cluster, columns=columns),
+        plain)

@@ -17,8 +17,9 @@ Tolerances: the loss kernels against their plain version objf relative
 <= 1e-4 and gamma and traces max-abs <= 1e-4 (docs/PARITY.md:21; sums in
 another order), gamma bit-identical on a rerun (no atomics); in the fast
 mode (bfloat16 tiles) bit-identical to the plain fast version, which
-takes every sum in the kernels' order (in another order the bfloat16
-roundings drift apart by far more than float32 rounding); the Viterbi
+takes every sum in the kernels' order (``cluster=C`` for the cluster
+pair; in another order the bfloat16 roundings drift apart by far more
+than float32 rounding); the Viterbi
 kernel bit-identical (it adds the plain version's float32 values in the
 same association).  The XL roofline probe's kernels are checked in
 chip_smoke.py, not here.
@@ -205,36 +206,22 @@ class TestFast:
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
                                    atol=1e-6)
 
-    @pytest.mark.cuda
-    def test_fast_cluster_tier_raises(self, cuda):
-        """No fast mode of B3/B4 yet: a bfloat16 graph on the cluster tier
-        raises, and nothing falls back to float32 or the plain version."""
-        fa, px, lens = self._fast_case(cuda, "separate", 9, 40)
-        fa = dataclasses.replace(fa, engine="stream")
-        stk.reset_launch_counts()
-        fk.reset_launch_counts()
-        with pytest.raises(NotImplementedError, match="fast mode of B3/B4"):
-            pt.loss._run(torch.log(px), lens, fa, LEAKY)
-        with pytest.raises(NotImplementedError, match="fast mode of B3/B4"):
-            stk.forward_backward_prob_stream(px, lens, fa, LEAKY)
-        assert set(stk.LAUNCHES.values()) == {0}
-        assert set(fk.LAUNCHES.values()) == {0}
-
-
 # ----------------------------------------------------------------------
 # The cluster kernels B3/B4 (ops/stream_kernels.py)
 # ----------------------------------------------------------------------
 
-def _stream_case(mode, B=5, T=9, seed=2, num_phones=150):
+def _stream_case(mode, B=5, T=9, seed=2, num_phones=150, tile_dtype=None):
     """S = 300, S_pad = 384: 12 slices of 32 rows, so with C = 8 ranks
-    0-3 own two slices and ranks 4-7 one.  B = 5 columns of unequal
-    lengths: no G > 1 divides B, and a group mixes lengths."""
+    0-3 own two slices and ranks 4-7 one (num_phones=10, S_pad = 128:
+    ranks 4-7 own none).  B = 5 columns of unequal lengths: no G > 1
+    divides B, and a group mixes lengths."""
     fst, P = denominator_fst(num_phones=num_phones, states_per_phone=2,
                              seed=seed, forward_pdf_mode=mode)
     rng = np.random.RandomState(seed)
     x = rng.randn(B, T, P).astype(np.float32)
     lengths = np.array([T, T - 2, 3, 1, T - 4][:B], np.int32)
-    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, device="cpu")._fact
+    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, tile_dtype=tile_dtype,
+                            device="cpu")._fact
     return fa, torch.exp(torch.from_numpy(x)), torch.from_numpy(lengths)
 
 
@@ -254,7 +241,8 @@ class TestStream:
         got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
                                                debug=debug, cluster=C,
                                                columns=G)
-        assert stk.LAUNCHES == {"stream_fwd": 1, "stream_bwd": 1}
+        assert stk.LAUNCHES == {"stream_fwd": 1, "stream_bwd": 1,
+                                "stream_fwd_bf16": 0, "stream_bwd_bf16": 0}
         ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
         if not debug:
             ref = fk._frame0_traces(ref)
@@ -279,6 +267,145 @@ class TestStream:
         for r in res[1:]:
             for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
                 assert torch.equal(getattr(r, name), getattr(res[0], name))
+
+
+class TestStreamFast:
+    """B3/B4 in the fast mode (stream_fwd_bf16, stream_bwd_bf16) against
+    the plain fast version with cluster=C, bit for bit."""
+
+    @staticmethod
+    def _case(cuda, mode, num_phones=150):
+        fa, px, lens = _stream_case(mode, num_phones=num_phones,
+                                    tile_dtype="bfloat16")
+        return fa.to(cuda), px.to(cuda), lens.to(cuda)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("G", [1, 2, 4])
+    @pytest.mark.parametrize("C", [1, 2, 4, 8])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("debug", [True, False])
+    def test_cuda_fast_stream_kernels_match_plain(self, cuda, mode, want, C,
+                                                  G, debug):
+        """objf, gamma and both traces equal the plain fast version at
+        cluster=C; the fast pair's launches alone; gamma on a rerun."""
+        fa, px, lens = self._case(cuda, mode)
+        assert fa.xsrc_mode == want
+        stk.reset_launch_counts()
+        got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                               debug=debug, cluster=C,
+                                               columns=G)
+        assert stk.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
+                                "stream_fwd_bf16": 1, "stream_bwd_bf16": 1}
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=C)
+        if not debug:
+            ref = fk._frame0_traces(ref)
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert torch.equal(got.gamma.bfloat16().float(), got.gamma)
+        again = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                                 debug=debug, cluster=C,
+                                                 columns=G)
+        assert torch.equal(again.gamma, got.gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [1, 2, 4, 8])
+    @pytest.mark.parametrize("mode,want", MODES)
+    def test_cuda_fast_stream_streams_are_bfloat16(self, cuda, mode, want,
+                                                   C):
+        """stream_fwd_bf16's four streams are bfloat16 and equal the plain
+        fast sweep's (alpha', W1 alpha') and the rounded emissions (x_dst,
+        x_src) bit for bit; s_t float32, 1 past each column's end."""
+        from pychain_tpu_torch.ops.factorized import forward_prob_fast
+        fa, px, lens = self._case(cuda, mode)
+        ad_ys, w1ad, xdst, xsrc, s_ys, _, _, _ = stk.stream_fwd(
+            px, lens.int(), fa, LEAKY, cluster=C)
+        for t in (ad_ys, w1ad, xdst) + ((xsrc,) if xsrc is not None
+                                        else ()):
+            assert t.dtype == torch.bfloat16
+        assert (xsrc is None) == (want == "identity")
+        assert s_ys.dtype == torch.float32
+        alpha_dash, w1_alpha, s_plain, _, _ = forward_prob_fast(
+            px.permute(1, 2, 0), lens.long(), fa, LEAKY, cluster=C)
+        kg = fk.graph_for(fa)
+        T = px.shape[1]
+        for b, Tb in enumerate(lens.tolist()):
+            assert torch.equal(ad_ys[b, :Tb].float(),
+                               alpha_dash[1:Tb + 1, :, b])
+            assert torch.equal(w1ad[b, :Tb].float(), w1_alpha[:Tb, :, b])
+            x = px[b, :Tb]
+            assert torch.equal(xdst[b, :Tb], x[:, kg.f_dst.long()]
+                               .bfloat16())
+            if xsrc is not None:
+                assert torch.equal(xsrc[b, :Tb], x[:, kg.g_src.long()]
+                                   .bfloat16())
+            assert torch.equal(s_ys[b, :Tb], s_plain[b, :Tb])
+            assert bool((s_ys[b, Tb:T] == 1.0).all())
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [1, 2, 8])
+    @pytest.mark.parametrize("mode,want", MODES)
+    def test_cuda_fast_stream_gamma_is_the_same_at_every_g(self, cuda, mode,
+                                                           want, C):
+        fa, px, lens = self._case(cuda, mode)
+        res = [stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                                cluster=C, columns=G)
+               for G in (1, 2, 4)]
+        for r in res[1:]:
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                assert torch.equal(getattr(r, name), getattr(res[0], name))
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("G", [1, 2, 4])
+    def test_cuda_fast_stream_with_idle_ranks(self, cuda, G):
+        """S_pad 128 at C = 8: ranks 4-7 own no rows."""
+        fa, px, lens = self._case(cuda, "separate", num_phones=10)
+        assert fa.s_pad == 128
+        got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                               cluster=8, columns=G)
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=8)
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+    @pytest.mark.cuda
+    def test_cuda_fast_chain_loss_on_the_cluster_tier_matches_cpu(self,
+                                                                 cuda):
+        """ChainLoss(precision="fast") with the denominator forced to
+        engine="stream": one launch of each fast cluster kernel and none of
+        another denominator kernel; value and gradient against the CPU
+        (the plain fast version in B1/B2's order: sums in another order,
+        value relative 1e-5, gradient 1e-6 absolute)."""
+        den_fst, x, lens, nums = _linear_setup(mode="separate")
+        _, _, _, num_gpu = _linear_setup(mode="separate", device=cuda)
+        vals, grads = [], []
+        for device, nb in (("cpu", nums), (cuda, num_gpu)):
+            loss_mod = pt.ChainLoss(pt.ChainGraph(den_fst), precision="fast",
+                                    device=device)
+            den = loss_mod.den_batch(x.shape[0])
+            den._fact = dataclasses.replace(den._fact, engine="stream")
+            xt = torch.from_numpy(x).to(device).requires_grad_(True)
+            stk.reset_launch_counts()
+            fk.reset_launch_counts()
+            v = loss_mod(xt, lens, nb)
+            v.backward()
+            vals.append(float(v.detach()))
+            grads.append(xt.grad.cpu())
+        assert stk.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
+                                "stream_fwd_bf16": 1, "stream_bwd_bf16": 1}
+        assert set(fk.LAUNCHES.values()) == {0}
+        np.testing.assert_allclose(vals[1], vals[0], rtol=1e-5)
+        torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=1e-6)
+
+    @pytest.mark.cuda
+    def test_cuda_fast_stream_raises_only_for_a_resource_limit(self, cuda):
+        """A (C, G) that is not compiled raises before any launch; nothing
+        falls back to the float32 kernels or the plain version."""
+        fa, px, lens = self._case(cuda, "separate")
+        stk.reset_launch_counts()
+        fk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="cluster 3"):
+            stk.forward_backward_prob_stream(px, lens, fa, LEAKY, cluster=3)
+        assert set(stk.LAUNCHES.values()) == {0}
+        assert set(fk.LAUNCHES.values()) == {0}
 
 
 # ----------------------------------------------------------------------

@@ -36,7 +36,6 @@ from pychain_tpu.loss import chain_function_with_aux as j_aux
 
 import pychain_tpu_torch as pt
 from pychain_tpu_torch.ops import fact_kernels as fk
-from pychain_tpu_torch.ops import stream_kernels as stk
 from pychain_tpu_torch.ops.factorized import (forward_backward_prob_fact,
                                               forward_backward_prob_fast,
                                               initial_alpha, is_fast)
@@ -405,12 +404,3 @@ def test_fast_stream_budget_counts_two_bytes():
     with pytest.raises(NotImplementedError, match="bfloat16 streams"):
         fk.require_full_mode(501, fast, 128, budget)
     fk.require_full_mode(250, f32, 128, budget)
-
-
-def test_cluster_tier_has_no_fast_mode():
-    fa = _fast_fact(denominator_fst(num_phones=10, seed=0)[0], 2)
-    with pytest.raises(NotImplementedError, match="fast mode of B3/B4"):
-        stk._require_float32(fa)
-    stk._require_float32(pt.ChainGraphBatch(
-        pt.ChainGraph(denominator_fst(num_phones=10, seed=0)[0]), 2,
-        device="cpu")._fact)

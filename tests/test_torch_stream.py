@@ -13,7 +13,9 @@ each column's state vectors over a thread-block cluster
 * a step-for-step emulation of the two kernels on the arrays they read
   (packed state ids, each CTA's row range, the pdf columns each CTA
   owns, partial sums added in rank order) against the plain version, for
-  every cluster size and x_src mode, to 1e-5;
+  every cluster size and x_src mode, to 1e-5; in the fast mode (bfloat16
+  tiles: the graph's fast form, every sum in the kernels' order) equal
+  under torch.equal to the plain fast version with ``cluster=C``;
 * the tiering (resident, cluster, or NotImplementedError) and the card's
   stream budget, sized by arithmetic on the shapes of main path 4's
   graph rather than by building it.
@@ -45,7 +47,10 @@ import pychain_tpu_torch.graphs.factorize as pfz
 from pychain_tpu_torch import loss as pt_loss
 from pychain_tpu_torch.ops import fact_kernels as fk
 from pychain_tpu_torch.ops import stream_kernels as sk
-from pychain_tpu_torch.ops.factorized import forward_backward_prob_fact
+from pychain_tpu_torch.ops.factorized import (block_sum,
+                                              forward_backward_prob_fact,
+                                              forward_backward_prob_fast,
+                                              is_fast)
 from pychain_tpu_torch.utils.testgraphs import linear_fst
 
 LEAKY = 1e-5
@@ -132,7 +137,7 @@ def test_chain_loss_forced_stream_matches_jax():
 # Emulation of the cluster kernels on the arrays they read
 # ----------------------------------------------------------------------
 
-def _case(mode, B=5, T=9, seed=2, num_phones=150):
+def _case(mode, B=5, T=9, seed=2, num_phones=150, tile_dtype=None):
     """S = 300, S_pad = 384: 12 slices of 32 rows, so with C = 8 ranks
     0-3 own two slices and ranks 4-7 one (num_phones=10, S_pad = 128:
     ranks 4-7 own none).  B = 5 columns of unequal lengths: no G > 1
@@ -142,7 +147,8 @@ def _case(mode, B=5, T=9, seed=2, num_phones=150):
     rng = np.random.RandomState(seed)
     x = rng.randn(B, T, P).astype(np.float32)
     lengths = np.array([T, T - 2, 3, 1, T - 4][:B], np.int32)
-    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, device="cpu")._fact
+    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, tile_dtype=tile_dtype,
+                            device="cpu")._fact
     return fa, torch.exp(torch.from_numpy(x)), torch.from_numpy(lengths)
 
 
@@ -163,6 +169,38 @@ def _mv(sell, V):
     return torch.zeros(V.shape).index_add_(0, row, val[:, None] * V[col])
 
 
+def _slots(sell, s_pad, *extra):
+    """A sliced-ELL operator's arrays (col, val, then each array of
+    ``extra`` laid out like col) as (K, S_pad) tables: entry k of row r at
+    [k, r], zero past the row's slice (a padding slot: column 0, value
+    0)."""
+    row, _, _ = _entries(sell)
+    sptr = sell[0].long()
+    k = torch.arange(len(row)) // fk.SLICE - sptr[row // fk.SLICE]
+    K = int((sptr[1:] - sptr[:-1]).max())
+    out = []
+    for arr in (sell[1], sell[2], *extra):
+        t = torch.zeros((K, s_pad), dtype=arr.dtype)
+        t[k, row] = arr
+        out.append(t)
+    return out
+
+
+def _row_dot(table, rows, operand):
+    """sell_row_dot_cols on the given rows: each row's entries times
+    ``operand(k, cols)`` (the G columns of slot k's gathers), added in slot
+    order from 0."""
+    cols, vals = table[0][:, rows], table[1][:, rows]
+    acc = 0.0
+    for k in range(cols.shape[0]):
+        acc = acc + vals[k][:, None] * operand(k, cols[k])
+    return acc
+
+
+def _bf(v):
+    return v.to(torch.bfloat16).float()
+
+
 class _Cluster:
     """The CTAs of one cluster: CTA r owns the 32-row slices k = r (mod C)
     in all G columns of its group, its rows' values at local rows (a
@@ -173,6 +211,15 @@ class _Cluster:
     def __init__(self, fa, C):
         self.C, self.R = C, sk.rows_per_cta(fa.s_pad, C)
         self.kg = sk.cluster_graph(fk.kernel_graph(fa), C)
+        # the fast mode: the operators' off-diagonal rows as slot tables
+        # (W2's with the x_src pdf at each entry's source), the diagonals
+        self.fast = is_fast(fa)
+        if self.fast:
+            w1, w2, w1t, w2t = sk.operators(self.kg)
+            self.tables = (_slots(w1, fa.s_pad),
+                           _slots(w2, fa.s_pad, sk.w2_source_pdfs(self.kg)),
+                           _slots(w1t, fa.s_pad), _slots(w2t, fa.s_pad))
+            self.d1, self.d2 = (d[:, None] for d in self.kg.diag)
         slices = torch.arange(fa.s_pad // fk.SLICE)
         self.own = [(slices[slices % C == r][:, None] * fk.SLICE
                      + torch.arange(fk.SLICE)).reshape(-1) for r in range(C)]
@@ -204,6 +251,12 @@ class _Cluster:
             total = total + slots[q]
         return total
 
+    def part(self, V):
+        """A CTA's partial of the sum over its rows V (n, G): block_sum's
+        tree in the fast mode (the order the plain fast version takes),
+        else any order."""
+        return block_sum(V) if self.fast else V.sum(0)
+
 
 def _groups(lengths, B, G):
     """Each group of G columns: (b0, the columns' rows into (B, ...)
@@ -225,6 +278,7 @@ def _emulate_fwd(px, lengths, fa, c, C, G, cl):
     w2_row, w2_col, w2_val = _entries(kg.w2)
     w2_pdf = sk.w2_source_pdfs(kg).long()
     leaky = fa.leaky[:, None]
+    rnd = _bf if cl.fast else (lambda v: v)     # a stream entry's rounding
     s0 = fa.initial.sum()
     ad0 = fa.initial + c * s0 * fa.leaky
     nbuf = 2 if C > 1 else 1
@@ -244,7 +298,7 @@ def _emulate_fwd(px, lengths, fa, c, C, G, cl):
                     + c * s_t * leaky
                 for g in range(G):
                     if t - 1 < Tb[g]:
-                        streams[0, b0 + g, t - 1] = new[:, g]
+                        streams[0, b0 + g, t - 1] = rnd(new[:, g])
                         s_ys[b0 + g, t - 1] = s_t[g]
                         s_prev[g] = s_t[g]
                     if t == Tb[g]:
@@ -254,20 +308,55 @@ def _emulate_fwd(px, lengths, fa, c, C, G, cl):
                 ad[:] = new
             px_t = px[cols, t].t()                     # (P, G)
             for r, own in enumerate(cl.own):
-                x = px_t[f[own]]
-                xs = x if g_src is None else px_t[g_src[own]]
-                w1a = _mv(kg.w1, ad[r])[own]
-                u = px_t[w2_pdf] * ad[r][w2_col]
-                w2u = torch.zeros(s_pad, G).index_add_(
-                    0, w2_row, w2_val[:, None] * u)[own]
-                al = (x * w1a + w2u) / s_prev
+                if cl.fast:
+                    al, w1a, x, xs = _fast_rows_fwd(cl, own, px_t, ad[r],
+                                                    s_prev, f, g_src)
+                else:
+                    x = px_t[f[own]]
+                    xs = x if g_src is None else px_t[g_src[own]]
+                    w1a = _mv(kg.w1, ad[r])[own]
+                    u = px_t[w2_pdf] * ad[r][w2_col]
+                    w2u = torch.zeros(s_pad, G).index_add_(
+                        0, w2_row, w2_val[:, None] * u)[own]
+                    al = (x * w1a + w2u) / s_prev
                 A[r, (t % 2) % nbuf, :cl.n[r]] = al
                 for g in range(G):
                     if t < Tb[g]:
                         streams[1:, b0 + g, t, own] = torch.stack(
-                            [w1a[:, g], x[:, g], xs[:, g]])
-                slot[r, t % 2] = al.sum(0)
+                            [rnd(w1a[:, g]), x[:, g], xs[:, g]])
+                slot[r, t % 2] = cl.part(al)
     return streams, s_ys, ad_last, ad0, s0
+
+
+def _fast_rows_fwd(cl, own, px_t, ad, s_prev, f, g_src):
+    """stream_fwd_bf16 on one CTA's rows ``own``: px rounded as read, W1's
+    off-diagonal gathers of the whole float32 alpha' copy ``ad`` rounded,
+    W2's operand bfloat16(bfloat16(x_src) * alpha') at each entry's
+    source, the float32 diagonals on the row's unrounded alpha', scaled by
+    1 / s_{t-1}.  Returns (alpha, W1 alpha', x_dst, x_src) of the rows."""
+    x = _bf(px_t[f[own]])
+    xs = x if g_src is None else _bf(px_t[g_src[own]])
+    a = ad[own]
+    w1a = _row_dot(cl.tables[0], own, lambda k, c: _bf(ad[c])) \
+        + cl.d1[own] * a
+    pdfs = cl.tables[1][2][:, own]
+    w2u = _row_dot(cl.tables[1], own,
+                   lambda k, c: _bf(_bf(px_t[pdfs[k]]) * ad[c])) \
+        + cl.d2[own] * (xs * a)
+    return (x * w1a + w2u) * (1.0 / s_prev), w1a, x, xs
+
+
+def _list_sums(lists, cl, V, acc):
+    """Each pdf's masses (V: a CTA-local (C, R, G) vector, states packed)
+    added in list order onto ``acc`` (n_lists, G): the gamma stage's
+    sums."""
+    ptr, states = (t.long() for t in lists)
+    lens = ptr[1:] - ptr[:-1]
+    acc = acc.clone()
+    for k in range(int(lens.max())):
+        has = lens > k
+        acc[has] = acc[has] + cl.load(V, states[ptr[:-1][has] + k])
+    return acc
 
 
 def _emulate_bwd(lengths, fa, c, C, G, cl, streams, s_ys, ad0, s0, tot, P,
@@ -305,7 +394,7 @@ def _emulate_bwd(lengths, fa, c, C, G, cl, streams, s_ys, ad0, s0, tot, P,
         slot_la, slot_gs = torch.zeros(C, 2 * G), torch.zeros(C, G)
         for r, own in enumerate(cl.own):
             bd[own] = fa.final[own][:, None] / tot_g
-            slot_la[r, :G] = (bd[own] * fa.leaky[own][:, None]).sum(0)
+            slot_la[r, :G] = cl.part(bd[own] * fa.leaky[own][:, None])
         leak = cl.rank_sum(slot_la[:, :G])
         for u in range(max(Tb) - 1, -1, -1):
             active = torch.tensor([u < tb for tb in Tb])
@@ -315,6 +404,8 @@ def _emulate_bwd(lengths, fa, c, C, G, cl, streams, s_ys, ad0, s0, tot, P,
             # X1
             if u + 1 < max(Tb):
                 s = cl.rank_sum(slot_gs)
+                if cl.fast:        # the unscaled masses' sum, times 1 / s
+                    s = s * (1.0 / s_ys[cols, u])
                 for g in range(G):
                     if u + 1 < Tb[g]:
                         gs[b0 + g, u + 1] = s[g] if debug else 1.0
@@ -323,35 +414,63 @@ def _emulate_bwd(lengths, fa, c, C, G, cl, streams, s_ys, ad0, s0, tot, P,
             s_u = s0.repeat(G) if u == 0 else s_ys[cols, u - 1]
             for r, own in enumerate(cl.own):
                 n = cl.n[r]
-                w1t = _mv(kg.w1t, xb[r])[own]
-                w2t = torch.zeros(s_pad, G).index_add_(
-                    0, w2t_row, w2t_val[:, None] * bn[w2t_col])[own]
                 xs = (xdst_ys if identity else xsrc_ys)[cols, u][:, own].t()
-                sw = xs * w2t
-                bdt = (w1t + sw) / s_u
                 adu = (ad0[own][:, None] if u == 0
                        else ad_ys[cols, u - 1][:, own].t())
-                m1 = xb[r, own] * w1ad_ys[cols, u][:, own].t() / s_u
-                m2 = sw * adu / s_u
-                c1[r, :n] = m1 + m2 if identity else m1
-                c2[r, :n] = m2
+                w1ad = w1ad_ys[cols, u][:, own].t()
+                if cl.fast:
+                    # the off-diagonal gathers rounded, the float32
+                    # diagonals on the row's unrounded xb and b; masses
+                    # unscaled, rounded
+                    inv = 1.0 / s_u
+                    w1t = _row_dot(cl.tables[2], own,
+                                   lambda k, c: _bf(xb[r][c])) \
+                        + cl.d1[own] * xb[r, own]
+                    w2t = _row_dot(cl.tables[3], own,
+                                   lambda k, c: _bf(bn[c])) \
+                        + cl.d2[own] * bn[own]
+                    sw = xs * w2t
+                    bdt = (w1t + sw) * inv
+                    m1, m2 = xb[r, own] * w1ad, sw * adu
+                    c1[r, :n] = _bf(m1 + m2) if identity else _bf(m1)
+                    c2[r, :n] = _bf(m2)
+                else:
+                    w1t = _mv(kg.w1t, xb[r])[own]
+                    w2t = torch.zeros(s_pad, G).index_add_(
+                        0, w2t_row, w2t_val[:, None] * bn[w2t_col])[own]
+                    sw = xs * w2t
+                    bdt = (w1t + sw) / s_u
+                    m1 = xb[r, own] * w1ad / s_u
+                    m2 = sw * adu / s_u
+                    c1[r, :n] = m1 + m2 if identity else m1
+                    c2[r, :n] = m2
                 bd[own] = torch.where(active, bdt, bd[own])
-                slot_la[r, :G] = (bdt * fa.leaky[own][:, None]).sum(0)
-                slot_la[r, G:] = (adu * bdt).sum(0) if traces else 0.0
+                slot_la[r, :G] = cl.part(bdt * fa.leaky[own][:, None])
+                slot_la[r, G:] = cl.part(adu * bdt) if traces else 0.0
             # X2
             tot2 = cl.rank_sum(slot_la)
             leak = torch.where(active, tot2[:G], leak)
             gp = torch.zeros(P, G)
-            gp[:n_lists] = pdf_sums(kg.f_lists, c1)[:n_lists]
-            if not identity:
-                gp[:n_lists] += pdf_sums(kg.g_lists, c2)[:n_lists]
+            if cl.fast:        # each pdf's list in order, then E_g's
+                acc = torch.zeros(kg.n_pdf_lists, G)
+                acc = _list_sums(kg.f_lists, cl, c1, acc)
+                if not identity:
+                    acc = _list_sums(kg.g_lists, cl, c2, acc)
+                gp[:n_lists] = acc[:n_lists]
+            else:
+                gp[:n_lists] = pdf_sums(kg.f_lists, c1)[:n_lists]
+                if not identity:
+                    gp[:n_lists] += pdf_sums(kg.g_lists, c2)[:n_lists]
             for g in range(G):
                 if u < Tb[g]:
                     ab[b0 + g, u] = tot2[G + g] if traces else 1.0
-                    gamma[b0 + g, u] = gp[:, g]
+                    gamma[b0 + g, u] = (_bf(gp[:, g] * (1.0 / s_u[g]))
+                                        if cl.fast else gp[:, g])
             for r, (p0, p1) in enumerate(owned):
-                slot_gs[r] = gp[p0:p1].sum(0) if traces else 0.0
+                slot_gs[r] = cl.part(gp[p0:p1]) if traces else 0.0
         s = cl.rank_sum(slot_gs)
+        if cl.fast:
+            s = s * (1.0 / s0)
         for g in range(G):
             if b0 + g < B:
                 gs[b0 + g, 0] = s[g]
@@ -397,6 +516,49 @@ def _check_emulation(fa, px, lens, C, G, debug):
     torch.testing.assert_close(gs, ref.gamma_sum, rtol=0, atol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
+def _fast_case(mode, num_phones=150):
+    fa, px, lens = _case(mode, num_phones=num_phones, tile_dtype="bfloat16")
+    return fa, px, lens, {}
+
+
+def _fast_plain(mode, C, debug, num_phones=150):
+    """The plain fast version with cluster=C on the fast case, once."""
+    fa, px, lens, memo = _fast_case(mode, num_phones)
+    if (C, debug) not in memo:
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=C)
+        memo[C, debug] = ref if debug else fk._frame0_traces(ref)
+    return memo[C, debug]
+
+
+def _check_fast_emulation(mode, C, G, debug, num_phones=150):
+    fa, px, lens, _ = _fast_case(mode, num_phones)
+    assert is_fast(fa)
+    ref = _fast_plain(mode, C, debug, num_phones)
+    got = _emulate_cluster(px, lens, fa, LEAKY, C, G, debug=debug)
+    for name, g in zip(("objf", "gamma", "alpha_beta", "gamma_sum"), got):
+        assert torch.equal(g, getattr(ref, name)), name
+    assert torch.equal(_bf(got[1]), got[1])
+
+
+@pytest.mark.parametrize("G", sk.COLUMNS)
+@pytest.mark.parametrize("C", sk.CLUSTERS)
+@pytest.mark.parametrize("mode,want", MODES)
+def test_fast_cluster_emulation_equals_plain(mode, want, C, G):
+    """stream_fwd_bf16 / stream_bwd_bf16 emulated CTA by CTA equal the
+    plain fast version with cluster=C bit for bit, at every G (B = 5
+    columns of unequal lengths)."""
+    assert _fast_case(mode)[0].xsrc_mode == want
+    _check_fast_emulation(mode, C, G, debug=C % 2 == 1 or G == 2)
+
+
+@pytest.mark.parametrize("G", sk.COLUMNS)
+def test_fast_cluster_emulation_with_idle_ranks(G):
+    fa = _fast_case("separate", 10)[0]
+    assert fa.s_pad == 128        # 4 slices: ranks 4-7 of 8 own no rows
+    _check_fast_emulation("separate", 8, G, debug=True, num_phones=10)
+
+
 def test_cluster_graph_packs_the_pdf_lists():
     """Packed ids name each state's owner and local row; the sparse rows
     are B1/B2's own; E_g^T's lists hold only states with a W2 out-arc."""
@@ -422,7 +584,8 @@ def test_cpu_wrapper_takes_plain_path_without_launching():
     fa, px, lens = _case("cross")
     sk.reset_launch_counts()
     got = sk.forward_backward_prob_stream(px, lens, fa, LEAKY, debug=False)
-    assert sk.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0}
+    assert sk.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
+                           "stream_fwd_bf16": 0, "stream_bwd_bf16": 0}
     ref = fk._frame0_traces(forward_backward_prob_fact(px, lens, fa, LEAKY))
     for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
         torch.testing.assert_close(getattr(got, name), getattr(ref, name),
