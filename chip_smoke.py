@@ -59,6 +59,31 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    loss on the same x (JAX's bfloat16 budget, the relative difference
    printed), three SGD steps each launching fact_fwd_bf16 and
    fact_bwd_bf16 once and the float32 pair not at all, a profiled step;
+5b. main path 5, training: bench.py --train's step (bench.py:154-234)
+   through the port's public pieces, model(x, train=True) ->
+   ChainLoss(den, precision="fast") -> backward -> Adam(1e-3), with
+   PyTorch's TF32 defaults (printed): TDNN-512x5 (kernels 3, dilations
+   1,1,3,3,3) over 40 seeded features at B=128, T=500 with linear
+   numerators on the headline graph and main path 1 fast's denominator
+   batch, train-mode BatchNorm; three steps, each with a finite loss and
+   gradients, BatchNorm running statistics that moved and one launch of
+   fact_fwd_bf16 and of fact_bwd_bf16 and of no other loss kernel, the
+   third loss below the first; the timed step's ms and utts/s with the
+   card, the peak device memory; the same step in float32
+   (precision="parity", fact_fwd / fact_bwd once) on the same weights and
+   features within the JAX bfloat16 budget of the fast loss; one
+   chain_loss_xent(out, out, ...) step (xent 0.1, l2 0.01); the
+   checkpoint round trip (save after step 3, restore into a fresh model
+   and Adam on the card: every tensor equal, step 4's loss within 1e-6
+   relative, whether its gradients were bit-identical printed); TDNN-F
+   (512/128 x 6) three steps with constrain_semi_orthogonal after each
+   (the deviation must not grow); BLSTM (512 x 3, bidirectional) three
+   steps at lengths 250..500 passed to the model and the loss; then, not
+   counted, a profiled step split into the model's forward and backward,
+   B1/B2 fast, the glue and Adam, and the card's TDNN against the port's
+   CPU plain path at B=4 with TF32 off (float32 loss within 1e-4
+   relative, every parameter gradient within 1e-3 of its norm, the
+   BatchNorm statistics within 1e-5);
 6. main path 2, the same with flat-start numerators
    (make_numerator_fst, lm=None; N_b phones drawn from 100..150, T=500,
    padded to K=300, S=151): each step must launch each of the four
@@ -146,7 +171,9 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    launch the semiring pair three times each), the cluster kernels one
    for main path 4 and one for s8k,
    each with its plan, B1/B2's fast forms one each (the headline's
-   time beside s8k's and the float32 pair's), and the cluster kernels'
+   time beside s8k's and the float32 pair's; their launches main paths
+   1 fast and 5's, fact_fwd / fact_bwd's main paths 1 and 5's), and the
+   cluster kernels'
    fast forms one for main path 4 fast (its launches) and one for s8k,
    each with its plan and the float32 form's time in the same run;
 15. the card's name and power limit, then the last line
@@ -780,7 +807,8 @@ def main_path_1_fast(den, B, T, P, dev, counters):
     against the float32 ChainLoss on the same x (within the JAX
     package's bfloat16 budget, the relative difference printed), then
     three SGD steps, each launching the fast pair once and the float32
-    pair not at all, and a profiled step."""
+    pair not at all, and a profiled step.  Returns the fast ChainLoss too
+    (its denominator batch built), for main path 5."""
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch, ChainLoss
     from pychain_tpu_torch.utils.testgraphs import linear_fst
     rng = np.random.RandomState(14)
@@ -808,7 +836,7 @@ def main_path_1_fast(den, B, T, P, dev, counters):
         "main path 1 fast (precision=\"fast\", linear numerators)")
     profiled_step(fast_loss, x, x_lengths, num_batch,
                   "main path 1 fast (bfloat16 tiles)")
-    return step_ms, launches, loss_rel
+    return step_ms, launches, loss_rel, fast_loss
 
 
 def check_smem():
@@ -1224,6 +1252,416 @@ def main_path_4(dev, leaky_c, counters):
     torch.cuda.empty_cache()
     return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
             step_ms, launches, fast_rows, fast_step_ms, fast_launches)
+
+
+# ----------------------------------------------------------------------
+# Main path 5: training (bench.py --train's step)
+# ----------------------------------------------------------------------
+
+FEAT_DIM = 40      # bench.py:168
+CKPT_DIR = ".chip_smoke_ckpt"   # under the checkout, gitignored, removed
+
+
+@contextlib.contextmanager
+def tf32(matmul, cudnn):
+    """TF32 for float32 matmuls and cuDNN convolutions set as given, and
+    restored after."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def counts(counters):
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def bn_stats(model):
+    return [b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))]
+
+
+def model_step(model, opt, loss_fn, counters, after=None):
+    """One training step (zero_grad, ``loss_fn(model)``: the train-mode
+    forward and the loss, backward, Adam, then ``after(model)``), timed
+    with CUDA events.  Returns (loss, ms, launches, gradients finite,
+    BN running statistics moved: None without BatchNorm)."""
+    before, stats = counts(counters), bn_stats(model)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model)
+    loss.backward()
+    finite = torch.stack([torch.isfinite(p.grad).all() for p in
+                          model.parameters() if p.requires_grad]).all()
+    opt.step()
+    if after is not None:
+        after(model)
+    end.record()
+    torch.cuda.synchronize()
+    moved = (all(not torch.equal(a, b) for a, b in zip(stats,
+                                                       bn_stats(model)))
+             if stats else None)
+    return (float(loss.detach()), start.elapsed_time(end),
+            {k: v - before[k] for k, v in counts(counters).items()},
+            bool(finite), moved)
+
+
+def model_steps(label, model, opt, loss_fn, counters, want, n=3,
+                after=None):
+    """``n`` training steps, each with a finite loss and gradients, BN
+    running statistics that moved (where the model has BatchNorm) and
+    exactly the launches ``want``; the last loss below the first.
+    Returns (losses, step ms, launches summed over the steps)."""
+    losses, step_ms, total = [], [], dict.fromkeys(want, 0)
+    for step in range(n):
+        loss, ms, launched, finite, moved = model_step(model, opt, loss_fn,
+                                                       counters, after)
+        losses.append(loss)
+        step_ms.append(ms)
+        check(np.isfinite(loss) and finite, f"{label} step {step}: loss "
+              f"{loss}, gradients finite: {finite}")
+        check(moved is not False, f"{label} step {step}: the BatchNorm "
+              "running statistics did not move")
+        check(launched == want, f"{label} step {step} launches {launched}"
+              f", want {want}")
+        for k, v in launched.items():
+            total[k] += v
+    print(f"# {label}: losses {losses}; step ms {step_ms} (the first step "
+          f"warms up); launches per step {want}", flush=True)
+    if n > 1:
+        check(losses[-1] < losses[0], f"{label}: loss did not fall: "
+              f"{losses}")
+    return losses, step_ms, total
+
+
+def profiled_train_step(model, opt, loss_mod, feats, lengths, nums, label,
+                        **kw):
+    """Where one training step's device time goes: each part of the step
+    runs in its own profiler range, closed by a synchronize, and each
+    kernel counts for the part it ran in (B1/B2 by name)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    parts = ("model forward", "loss forward", "loss backward",
+             "model backward", "adam")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.zero_grad(set_to_none=True)
+        with record_function(parts[0]):
+            out = model(feats, True, **kw)
+            torch.cuda.synchronize()
+        with record_function(parts[1]):
+            loss = loss_mod(out, lengths, nums)
+            torch.cuda.synchronize()
+        with record_function(parts[2]):
+            (g,) = torch.autograd.grad(loss, out)
+            torch.cuda.synchronize()
+        with record_function(parts[3]):
+            out.backward(g)
+            torch.cuda.synchronize()
+        with record_function(parts[4]):
+            opt.step()
+            torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events if e.name in parts
+              and e.device_type.name == "CPU"}
+    split = dict.fromkeys(("model", "B1/B2 fast", "glue", "adam",
+                           "outside the parts"), 0.0)
+    model_kernels = {}
+    for e in events:
+        if e.device_type.name != "CUDA" or e.name in parts:
+            continue
+        part = next((p for p, (a, b) in ranges.items()
+                     if a <= e.time_range.start <= b), None)
+        key = ("B1/B2 fast" if "fact_" in e.name else
+               "model" if part in (parts[0], parts[3]) else
+               "glue" if part in (parts[1], parts[2]) else
+               "adam" if part == parts[4] else "outside the parts")
+        ms = e.time_range.elapsed_us() / 1e3
+        split[key] += ms
+        if key == "model":
+            name = f"{part[6:]}: {e.name[:70]}"
+            model_kernels[name] = model_kernels.get(name, 0.0) + ms
+    busy = sum(split.values())
+    print(f"# profiled step, {label}: device busy {busy:.3f} ms: " +
+          ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) +
+          "; the model's largest kernels (ms):", flush=True)
+    for name, ms in sorted(model_kernels.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"#   {ms:9.3f}  {name}")
+    return busy, split
+
+
+def linear_batch(P, lengths, seed, dev):
+    """Linear numerators over random pdfs, one of each length."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.utils.testgraphs import linear_fst
+    rng = np.random.RandomState(seed)
+    T = int(max(lengths))
+    return ChainGraphBatch(
+        [ChainGraph(linear_fst(rng.randint(0, P, size=int(n))),
+                    log_domain=True) for n in lengths],
+        max_num_transitions=T, max_num_states=T + 1, device=dev)
+
+
+def model_vs_cpu(den, cfg, state, feats, P):
+    """The card's TDNN train-mode forward and backward against the
+    port's CPU plain path at B=4 on the same weights and features, with
+    TF32 off: the float32 loss within 1e-4 relative, every parameter
+    gradient within 1e-3 of its norm, the updated BatchNorm statistics
+    within 1e-5."""
+    from pychain_tpu_torch import ChainLoss
+    from pychain_tpu_torch.models import TDNN
+    B4, T = 4, feats.shape[1]
+    lengths = torch.full((B4,), T, dtype=torch.int32)
+    got = []
+    with tf32(False, False):
+        for dev in (feats.device, torch.device("cpu")):
+            model = TDNN(cfg, FEAT_DIM, device=dev)
+            model.load_state_dict(state)
+            loss = ChainLoss(den, device=dev)(
+                model(feats[:B4].to(dev), True), lengths,
+                linear_batch(P, [T] * B4, 17, dev))
+            loss.backward()
+            got.append((float(loss.detach()),
+                        {n: p.grad.cpu() for n, p in
+                         model.named_parameters()},
+                        {n: b.cpu() for n, b in model.named_buffers()}))
+    (lc, gc, bc), (lp, gp, bp) = got
+    loss_rel = abs(lc - lp) / abs(lp)
+    grad_rel, worst_grad = max(
+        (float((gc[n] - gp[n]).norm() / gp[n].norm()), n) for n in gp)
+    bn_abs = max(float((bc[n] - bp[n]).abs().max()) for n in bp)
+    print(f"# main path 5, the card against the CPU (TDNN-512x5, B=4, "
+          f"T={T}, float32 loss, TF32 off): loss {lc!r} / {lp!r}, relative "
+          f"{loss_rel:.3e} (at most 1e-4); worst gradient "
+          f"|d| / |g| {grad_rel:.3e} ({worst_grad}; at most 1e-3); "
+          f"BatchNorm statistics "
+          f"{bn_abs:.3e} (1e-5)", flush=True)
+    check(loss_rel <= 1e-4 and grad_rel <= 1e-3 and bn_abs <= 1e-5,
+          "main path 5: the card's model disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "bn_abs": bn_abs}
+
+
+def checkpoint_round_trip(model, opt, cfg, loss_fn, counters, want):
+    """Save the model and Adam after step 3, restore them into a fresh
+    model and a fresh Adam on the card: every tensor equal; then one
+    more step of each: the losses within 1e-6 relative.  Returns
+    whether the two steps' gradients and updated weights were bit for
+    bit equal (cuDNN's weight-gradient algorithms need not be
+    deterministic)."""
+    import shutil
+    from pychain_tpu_torch.models import TDNN
+    from pychain_tpu_torch.utils.checkpoint import (latest_step,
+                                                    restore_checkpoint,
+                                                    save_checkpoint)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        CKPT_DIR)
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(path, 3, {"model": model.state_dict(),
+                                  "opt": opt.state_dict()})
+        save_s = time.perf_counter() - t0
+        fresh = TDNN(cfg, FEAT_DIM, generator=torch.Generator()
+                     .manual_seed(99))
+        fresh_opt = torch.optim.Adam(fresh.parameters(), lr=1e-3)
+        t0 = time.perf_counter()
+        step, state = restore_checkpoint(
+            path, {"model": fresh.state_dict(),
+                   "opt": fresh_opt.state_dict()})
+        fresh.load_state_dict(state["model"])
+        fresh_opt.load_state_dict(state["opt"])
+        load_s = time.perf_counter() - t0
+        check(step == 3 == latest_step(path), f"checkpoint step {step}")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    check(all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), fresh.state_dict().values())),
+        "checkpoint: the restored model differs from the saved one")
+    saved, restored = opt.state_dict(), fresh_opt.state_dict()
+    check(saved["state"].keys() == restored["state"].keys() and all(
+        torch.equal(v.cpu(), restored["state"][i][k].cpu())
+        for i, s in saved["state"].items() for k, v in s.items()),
+        "checkpoint: the restored Adam state differs from the saved one")
+    check(saved["param_groups"] == restored["param_groups"],
+          "checkpoint: the restored Adam settings differ")
+    check(all(a.device == b.device for a, b in zip(
+        model.state_dict().values(), fresh.state_dict().values())),
+        "checkpoint: the restored model is not on the card")
+    grads, after = [], []
+    losses = []
+    for m, o in ((model, opt), (fresh, fresh_opt)):
+        loss, _, launched, finite, _ = model_step(m, o, loss_fn, counters)
+        check(finite and launched == want, f"checkpoint step: launches "
+              f"{launched}, gradients finite: {finite}")
+        losses.append(loss)
+        grads.append([p.grad.clone() for p in m.parameters()])
+        after.append([p.detach().clone() for p in m.parameters()])
+    rel_d = abs(losses[0] - losses[1]) / abs(losses[0])
+    grads_equal = all(torch.equal(a, b) for a, b in zip(*grads))
+    weights_equal = all(torch.equal(a, b) for a, b in zip(*after))
+    print(f"# main path 5 checkpoint: saved in {save_s:.3f} s, restored "
+          f"in {load_s:.3f} s, every tensor equal; step 4 loss "
+          f"{losses[0]!r} / restored {losses[1]!r} (relative {rel_d:.3e}, "
+          f"at most 1e-6); step 4 gradients bit-identical: {grads_equal}, "
+          f"weights after it: {weights_equal}", flush=True)
+    check(rel_d <= 1e-6, "checkpoint: the restored step's loss differs")
+    return {"loss_rel": rel_d, "grads_equal": grads_equal,
+            "weights_equal": weights_equal}
+
+
+def main_path_5(den, fast_loss, f32_loss, B, T, P, dev, counters,
+                tf32_defaults):
+    """Main path 5, training: bench.py --train's step (TDNN-512x5,
+    FEAT_DIM 40, B=128, T=500, linear numerators, ChainLoss(den,
+    precision="fast"), train-mode BatchNorm, Adam at 1e-3) through the
+    port's public pieces, with PyTorch's TF32 defaults; then the same
+    step in float32, TDNN-F and BLSTM steps, a chain_loss_xent step and
+    the checkpoint round trip.  Returns the path's launches (set to 0
+    just before, read just after), the TDNN step's ms and the rest of
+    what the summary prints."""
+    from pychain_tpu_torch import chain_loss_xent
+    from pychain_tpu_torch.models import (BLSTM, BLSTMConfig, TDNN,
+                                          TDNNConfig, TDNNF, TDNNFConfig,
+                                          constrain_semi_orthogonal,
+                                          semi_orthogonal_deviation)
+    out = {}
+    cfg = TDNNConfig(num_pdfs=P, hidden_dim=512, kernel_sizes=(3,) * 5,
+                     dilations=(1, 1, 3, 3, 3), strides=(1,) * 5,
+                     dropout=0.0)
+    feats = torch.randn(B, T, FEAT_DIM, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    lengths = torch.full((B,), T, dtype=torch.int32)
+    nums = linear_batch(P, [T] * B, 18, dev)
+    fast_want = {k: 0 for c in counters for k in c}
+    fast_want.update(fact_fwd_bf16=1, fact_bwd_bf16=1)
+    f32_want = {k: 0 for c in counters for k in c}
+    f32_want.update(fact_fwd=1, fact_bwd=1)
+
+    def fast_step(m):
+        return fast_loss(m(feats, True), lengths, nums)
+
+    with tf32(*tf32_defaults):
+        model = TDNN(cfg, FEAT_DIM,
+                     generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        mm, cd = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+        print(f"# main path 5 (bench.py --train: TDNN-512x5, "
+              f"{sum(p.numel() for p in model.parameters())} parameters, "
+              f"B={B}, T={T}, P={P}, fast denominator, Adam 1e-3); TF32 "
+              f"(PyTorch's defaults, left as they are): matmul {mm}, cuDNN "
+              f"{cd}, so the convolutions run in "
+              f"{'TF32' if cd else 'float32'} and the classifier in "
+              f"{'TF32' if mm else 'float32'}", flush=True)
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, step_ms, launched = model_steps(
+            "main path 5 (TDNN-512x5, fast denominator)", model, opt,
+            fast_step, counters, fast_want)
+        peak = torch.cuda.max_memory_allocated()
+        out.update(step_ms=step_ms[-1], losses=losses,
+                   utts_s=B / (step_ms[-1] / 1e3),
+                   peak_gb=peak / 1e9, peak_over_gb=(peak - base) / 1e9)
+        print(f"# main path 5: step {step_ms[-1]:.3f} ms (timed after the "
+              f"warm-up step), {out['utts_s']:.1f} utts/s; peak device "
+              f"memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
+              f"over the {base / 1e9:.2f} GB held before the path); "
+              f"{card_line()}", flush=True)
+        # the same step in float32, on the initial weights
+        model32 = TDNN(cfg, FEAT_DIM)
+        model32.load_state_dict(initial)
+        opt32 = torch.optim.Adam(model32.parameters(), lr=1e-3)
+        loss32, ms32, got32, finite32, moved32 = model_step(
+            model32, opt32, lambda m: f32_loss(m(feats, True), lengths, nums),
+            counters)
+        rel32 = abs(loss32 - losses[0]) / abs(loss32)
+        print(f"# main path 5 in float32 (precision=\"parity\"): loss "
+              f"{loss32!r} against the fast step's {losses[0]!r}, relative "
+              f"{rel32:.3e} (JAX bfloat16 budget {BF16_BUDGET['objf_rel']}); "
+              f"step {ms32:.3f} ms", flush=True)
+        check(finite32 and moved32 and got32 == f32_want and
+              rel32 <= BF16_BUDGET["objf_rel"],
+              f"main path 5 float32 step: launches {got32}, finite "
+              f"{finite32}, relative {rel32}")
+        for k, v in got32.items():
+            launched[k] += v
+        out.update(f32_step_ms=ms32, f32_rel=rel32)
+        del model32, opt32
+
+        # chain_loss_xent, the same tensor feeding both heads
+        def xent_step(m):
+            o = m(feats, True)
+            return chain_loss_xent(o, o, lengths, nums,
+                                   fast_loss.den_batch(B),
+                                   xent_regularize=0.1, l2_regularize=0.01)[0]
+        xent_model = TDNN(cfg, FEAT_DIM)
+        xl, _, xs = model_steps(
+            "main path 5 chain_loss_xent (xent 0.1, l2 0.01)", xent_model,
+            torch.optim.Adam(xent_model.parameters(), lr=1e-3), xent_step,
+            counters, fast_want, n=1)
+        del xent_model
+        out["ckpt"] = checkpoint_round_trip(model, opt, cfg, fast_step,
+                                            counters, fast_want)
+        for d in (xs, fast_want, fast_want):
+            for k, v in d.items():
+                launched[k] += v
+
+        # TDNN-F at its default width, the constraint after each step
+        fcfg = TDNNFConfig(num_pdfs=P)
+        tdnnf = TDNNF(fcfg, FEAT_DIM)
+        dev0 = semi_orthogonal_deviation(tdnnf)
+        fl, fms, fs = model_steps(
+            "main path 5 TDNN-F (512/128 x 6, constrain_semi_orthogonal "
+            "after each step)", tdnnf,
+            torch.optim.Adam(tdnnf.parameters(), lr=1e-3), fast_step,
+            counters, fast_want, after=constrain_semi_orthogonal)
+        dev1 = semi_orthogonal_deviation(tdnnf)
+        print(f"# main path 5 TDNN-F: semi-orthogonal deviation {dev0:.6f} "
+              f"before, {dev1:.6f} after", flush=True)
+        check(dev1 <= dev0, "TDNN-F: the semi-orthogonal deviation grew")
+        del tdnnf
+        # the BLSTM at its default width, unequal lengths
+        rng = np.random.RandomState(19)
+        blens = rng.randint(T // 2, T + 1, size=B)
+        blens[0] = T
+        bnums = linear_batch(P, blens, 20, dev)
+        blens_t = torch.as_tensor(blens, dtype=torch.int32)
+        blstm = BLSTM(BLSTMConfig(num_pdfs=P, dropout=0.0), FEAT_DIM)
+        bl, bms, bs = model_steps(
+            f"main path 5 BLSTM (512 x 3 bidirectional, lengths "
+            f"{blens.min()}..{blens.max()})", blstm,
+            torch.optim.Adam(blstm.parameters(), lr=1e-3),
+            lambda m: fast_loss(m(feats, True, lengths=blens_t), blens_t,
+                                bnums), counters, fast_want)
+        read = counts(counters)
+        for d in (fs, bs):
+            for k, v in d.items():
+                launched[k] += v
+        check(read == launched, f"main path 5: counted {read}, the steps "
+              f"{launched}")
+        out.update(tdnnf_ms=fms[-1], blstm_ms=bms[-1], xent_loss=xl[0],
+                   deviation=(dev0, dev1), launches=read)
+        del blstm
+        # not counted: the profiled split and the comparison with the CPU
+        out["busy"], out["split"] = profiled_train_step(
+            model, opt, fast_loss, feats, lengths, nums,
+            "main path 5 (TDNN-512x5, fast denominator, Adam)")
+        torch.cuda.synchronize()
+    out["vs_cpu"] = model_vs_cpu(den, cfg, initial, feats, P)
+    del model, opt, feats, nums
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1908,6 +2346,10 @@ def main():
                                                     linear_fst)
 
     dev = torch.device("cuda")
+    # PyTorch's defaults, under which main path 5 trains; the kernel
+    # checks run without TF32
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2095,8 +2537,13 @@ def main():
     profiled_step(loss_mod, x, x_lengths, num_batch, "linear numerators")
 
     # -- phase 5b: main path 1 in the fast mode --------------------------
-    fast_step_ms, fast_launches, fast_loss_rel = main_path_1_fast(
-        den, B, T, P, dev, (fk.LAUNCHES, sk.LAUNCHES))
+    fast_step_ms, fast_launches, fast_loss_rel, fast_loss = \
+        main_path_1_fast(den, B, T, P, dev, (fk.LAUNCHES, sk.LAUNCHES))
+
+    # -- phase 5c: main path 5, training (bench.py --train) --------------
+    p5 = main_path_5(den, fast_loss, loss_mod, B, T, P, dev,
+                     (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES), tf32_defaults)
+    del fast_loss
 
     # -- phase 6: main path 2, flat-start numerators ---------------------
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
@@ -2185,14 +2632,18 @@ def main():
             "source": f"pychain_tpu_torch/csrc/{name}.cu",
             "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}",
-            "launches": launches[name], "max_abs_err": err, "max_err": err,
+            # main path 1's three steps and main path 5's float32 step
+            "launches": launches[name] + p5["launches"][name],
+            "launches_by_path": {"main path 1": launches[name],
+                                 "main path 5": p5["launches"][name]},
+            "max_abs_err": err, "max_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "bytes": nbytes, "ops": ops,
             "ring_stages": head_stages if name == "fact_bwd" else 0,
             "s8k_ms": s8k_fact_ms[0 if name == "fact_fwd" else 1],
             "library_ms": None})
     # the fast pair: its time at the headline (and s8k), launches on main
-    # path 1 in the fast mode
+    # path 1 in the fast mode and on main path 5
     for name, line, fn in (("fact_fwd_bf16", 457, "_fwd_kernel_factory"),
                            ("fact_bwd_bf16", 768, "_bwd_kernel_factory")):
         r, r8 = head_fast[name], s8k_fast[name]
@@ -2202,7 +2653,10 @@ def main():
             "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, "
                            "bfloat16 tiles (fast mode)",
-            "launches": fast_launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": fast_launches[name] + p5["launches"][name],
+            "launches_by_path": {"main path 1 fast": fast_launches[name],
+                                 "main path 5": p5["launches"][name]},
+            "max_abs_err": r["max_abs_err"],
             "max_err": r["max_abs_err"], "entry_excess": r["entry_excess"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
@@ -2340,8 +2794,10 @@ def main():
           f", constrained numerators {re_step_ms[-1]:.3f}, main path 4 "
           f"{m4_step_ms[-1]:.3f}, main path 1 fast {fast_step_ms[-1]:.3f} "
           f"(loss {fast_loss_rel:.3e} from float32's), main path 4 fast "
-          f"{m4_fast_step_ms[-1]:.3f}; realignment "
-          f"viterbi_align {align_ms:.3f}")
+          f"{m4_fast_step_ms[-1]:.3f}, main path 5 (TDNN-512x5 training, "
+          f"fast) {p5['step_ms']:.3f} (float32 {p5['f32_step_ms']:.3f}; "
+          f"TDNN-F {p5['tdnnf_ms']:.3f}, BLSTM {p5['blstm_ms']:.3f}); "
+          f"realignment viterbi_align {align_ms:.3f}")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ from .loss import (
     chain_function,
     chain_function_with_aux,
     chain_loss,
+    chain_loss_xent,
 )
 from .graphs.fst import FST
 from .ops.viterbi import ViterbiResult, viterbi_align
@@ -44,6 +45,7 @@ __all__ = [
     "chain_function",
     "chain_function_with_aux",
     "chain_loss",
+    "chain_loss_xent",
     "FST",
     "viterbi_align",
     "ViterbiResult",

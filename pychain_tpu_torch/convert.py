@@ -1,11 +1,14 @@
-"""Carry graph state from the JAX package into the port.
+"""Carry graph state and model weights from the JAX package into the port.
 
-The functions read attributes and go through ``np.asarray``, so they take
-the JAX package's ``FactorizedArrays`` / ``LinearArrays`` /
+The graph functions read attributes and go through ``np.asarray``, so
+they take the JAX package's ``FactorizedArrays`` / ``LinearArrays`` /
 ``SemiringXLArrays`` / ``GraphArrays`` (or anything with the same
-fields) without importing JAX, and return the port's tensors on
-``device`` (default: the CPU, since the result usually feeds a
-ChainGraphBatch-free call in a test or a script that moves it).
+fields) without importing JAX.  :func:`model_from_flax` takes a flax
+model's ``variables`` as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, variables)``) and :func:`model_to_flax`
+gives them back.  Every function puts its result on ``device``:
+``None`` means CUDA and raises with no card, as every entry point of the
+port does; pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from .ops.factorized import FactorizedArrays, WArrays
 from .ops.linear import LinearArrays
 from .ops.semiring import SemiringArrays, semiring_from_ids
+from .utils.device import resolve_device
 
 
 def _t(v, dtype=None):
@@ -41,8 +45,9 @@ def _warrays(w) -> WArrays:
         out_rows=int(w.out_rows))
 
 
-def factorized_from_numpy(fa, device="cpu") -> FactorizedArrays:
+def factorized_from_numpy(fa, device=None) -> FactorizedArrays:
     """The port's FactorizedArrays from the JAX package's fields."""
+    device = resolve_device(device)
     if getattr(fa, "log_semantics", False):
         raise NotImplementedError(
             "log_semantics factorized graphs are not ported yet "
@@ -63,8 +68,9 @@ def factorized_from_numpy(fa, device="cpu") -> FactorizedArrays:
     ).to(device)
 
 
-def linear_from_numpy(la, device="cpu") -> LinearArrays:
+def linear_from_numpy(la, device=None) -> LinearArrays:
     """The port's LinearArrays from the JAX package's fields."""
+    device = resolve_device(device)
     return LinearArrays(
         pdf_seq=_t(la.pdf_seq, np.int64), logp_seq=_t(la.logp_seq,
                                                       np.float32),
@@ -72,21 +78,23 @@ def linear_from_numpy(la, device="cpu") -> LinearArrays:
     ).to(device)
 
 
-def semiring_from_numpy(xa, device="cpu") -> SemiringArrays:
+def semiring_from_numpy(xa, device=None) -> SemiringArrays:
     """The port's SemiringArrays from the fields of the JAX package's
     ``SemiringXLArrays`` (arc ids padded with S_pad, logp with -inf): the
     kernels' per-graph lists are built here from the ids."""
+    device = resolve_device(device)
     return semiring_from_ids(
         *(np.asarray(getattr(xa, f)) for f in
           ("src", "dst", "pdf", "logp", "initial", "final"))).to(device)
 
 
-def viterbi_from_numpy(ga, device="cpu") -> SemiringArrays:
+def viterbi_from_numpy(ga, device=None) -> SemiringArrays:
     """The arrays ``viterbi_align`` reads from the fields of the JAX
     package's ``GraphArrays`` (log domain): ``bwd_*`` arcs (B, K) or,
     ``shared``, (K,) as one row.  The in-arc lists of the backward order
     are its own runs, so the arc ids are the JAX package's; its padded
     arcs (src = dst = 0, prob -inf) join state 0's list, inert."""
+    device = resolve_device(device)
     if getattr(ga, "leaky", None) is not None:
         raise ValueError("viterbi_from_numpy needs log-domain GraphArrays, "
                          "got prob-domain ones (leaky is set)")
@@ -95,3 +103,158 @@ def viterbi_from_numpy(ga, device="cpu") -> SemiringArrays:
     if ga.shared:
         f = [a[None] for a in f]
     return semiring_from_ids(*f).to(device)
+
+
+# ----------------------------------------------------------------------
+# Model weights: flax variables <-> the port's nn.Modules
+# ----------------------------------------------------------------------
+
+def _flatten(tree, prefix=()):
+    """{path tuple: leaf} of nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _nest(flat):
+    tree = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def _conv_leaves(scope, key, bias=True):
+    yield ("params",) + scope + ("kernel",), f"{key}.weight", None, "conv"
+    if bias:
+        yield ("params",) + scope + ("bias",), f"{key}.bias", None, "vec"
+
+
+def _bn_leaves(scope, key):
+    for coll, leaf, name in (("params", "scale", "weight"),
+                             ("params", "bias", "bias"),
+                             ("batch_stats", "mean", "running_mean"),
+                             ("batch_stats", "var", "running_var")):
+        yield (coll,) + scope + ("BatchNorm_0", leaf), f"{key}.{name}", \
+            None, "vec"
+
+
+def _dense_leaves(key):
+    yield ("params", "Dense_0", "kernel"), f"{key}.weight", None, "dense"
+    yield ("params", "Dense_0", "bias"), f"{key}.bias", None, "vec"
+
+
+def _flax_leaves(config):
+    """(flax path, torch state-dict key, gate, kind) for every leaf of
+    the flax model of ``config``.  ``gate`` names the rows of an LSTM
+    tensor ("i", "f", "g", "o": ``nn.LSTM``'s order) that a flax block
+    fills."""
+    from .models import BLSTMConfig, TDNNConfig, TDNNFConfig
+    if isinstance(config, TDNNConfig):
+        for i in range(len(config.kernel_sizes)):
+            scope, key = (f"TDNNLayer_{i}",), f"layers.{i}"
+            yield from _conv_leaves(scope + ("Conv_0",), f"{key}.conv")
+            yield from _bn_leaves(scope, f"{key}.bn")
+    elif isinstance(config, TDNNFConfig):
+        for i in range(config.num_layers):
+            scope, key = (f"tdnnf_{i}",), f"layers.{i}"
+            yield from _conv_leaves(scope + ("linear_bottleneck",),
+                                    f"{key}.linear_bottleneck", bias=False)
+            yield from _conv_leaves(scope + ("affine",), f"{key}.affine")
+            yield from _bn_leaves(scope, f"{key}.bn")
+    elif isinstance(config, BLSTMConfig):
+        dirs = ("", "_reverse")[:1 + config.bidirectional]
+        for layer in range(config.num_layers):
+            for d, sfx in enumerate(dirs):
+                cell = (f"OptimizedLSTMCell_{len(dirs) * layer + d}",)
+                key = f"lstms.{layer}"
+                for g in "ifgo":
+                    yield (("params",) + cell + (f"i{g}", "kernel"),
+                           f"{key}.weight_ih_l0{sfx}", g, "dense")
+                    yield (("params",) + cell + (f"h{g}", "kernel"),
+                           f"{key}.weight_hh_l0{sfx}", g, "dense")
+                    yield (("params",) + cell + (f"h{g}", "bias"),
+                           f"{key}.bias_hh_l0{sfx}", g, "vec")
+    else:
+        raise TypeError(f"no port model for {type(config).__name__}")
+    yield from _dense_leaves("classifier")
+
+
+def _layout(t, kind):
+    """A conv kernel (k, in, out) <-> weight (out, in, k), a Dense kernel
+    (in, out) <-> Linear weight (out, in); each map is its own inverse."""
+    return {"conv": lambda: t.permute(2, 1, 0), "dense": lambda: t.T,
+            "vec": lambda: t}[kind]()
+
+
+def _rows(t, gate):
+    """The rows of ``t`` that LSTM gate ``gate`` owns (all without)."""
+    if gate is None:
+        return t
+    h = t.shape[0] // 4
+    i = "ifgo".index(gate)
+    return t[i * h:(i + 1) * h]
+
+
+def model_from_flax(config, variables, device=None):
+    """The port's model for ``config`` (a ``TDNNConfig``,
+    ``TDNNFConfig`` or ``BLSTMConfig``) holding the flax ``variables``
+    (``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
+    arrays): the same function of its input.
+
+    Conv kernels (k, in, out) become weights (out, in, k), Dense kernels
+    (in, out) Linear weights (out, in), BatchNorm ``scale`` / ``bias`` /
+    ``mean`` / ``var`` the port's ``weight`` / ``bias`` /
+    ``running_mean`` / ``running_var``, and an LSTM cell's eight blocks
+    the rows of ``weight_ih`` / ``weight_hh`` / ``bias_hh``.  Raises
+    ValueError on a missing or a surplus leaf, or on a shape that does
+    not fit."""
+    from .models import BLSTM, BLSTMConfig, TDNN, TDNNConfig, TDNNF
+    device = resolve_device(device)
+    flat = _flatten(variables)
+    leaves = list(_flax_leaves(config))
+    want = {path for path, *_ in leaves}
+    missing = sorted("/".join(p) for p in want - flat.keys())
+    surplus = sorted("/".join(p) for p in flat.keys() - want)
+    if missing or surplus:
+        raise ValueError(f"flax variables do not fit {type(config).__name__}"
+                         f": missing {missing}, surplus {surplus}")
+    cls = (TDNN if isinstance(config, TDNNConfig) else
+           BLSTM if isinstance(config, BLSTMConfig) else TDNNF)
+    # the first leaf is the first layer's input kernel
+    path, _, _, kind = leaves[0]
+    input_dim = np.shape(flat[path])[1 if kind == "conv" else 0]
+    model = cls(config, int(input_dim), device="cpu")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    for path, key, gate, kind in leaves:
+        src = _layout(torch.as_tensor(np.array(flat[path], np.float32)),
+                      kind)
+        dst = _rows(state[key], gate)
+        if dst.shape != src.shape:
+            raise ValueError(f"flax leaf {'/'.join(path)} of shape "
+                             f"{tuple(np.shape(flat[path]))} does not fit "
+                             f"{key} {tuple(dst.shape)}")
+        dst.copy_(src)
+    model.load_state_dict(state)
+    return model.to(device)
+
+
+def model_to_flax(model) -> dict:
+    """The flax ``variables`` (nested dicts of float32 numpy arrays) of
+    the port's ``model``: the inverse of :func:`model_from_flax`.  An
+    LSTM gate's flax bias is ``bias_hh + bias_ih``."""
+    state = {k: v.detach().to("cpu", torch.float32)
+             for k, v in model.state_dict().items()}
+    flat = {}
+    for path, key, gate, kind in _flax_leaves(model.config):
+        t = _rows(state[key], gate)
+        if key.split(".")[-1].startswith("bias_hh"):
+            t = t + _rows(state[key.replace("bias_hh", "bias_ih")], gate)
+        flat[path] = _layout(t, kind).contiguous().numpy().copy()
+    return _nest(flat)

@@ -12,6 +12,8 @@ reference's ``pychain/loss.py``):
 * :class:`ChainLoss` / :func:`chain_loss` — the shared denominator graph
   with per-utterance numerator graphs:
   ``objf = -(num - den) [/ sum(lengths)]`` (loss.py:90-105).
+* :func:`chain_loss_xent` — the same with Kaldi's cross-entropy
+  regularizer on the numerator posteriors and an optional output-l2.
 
 Dispatch: a factorized denominator goes to a tier of CUDA kernels
 (:func:`den_engine`, ``pychain_tpu/loss.py::_pallas_tier`` with the
@@ -257,6 +259,43 @@ def chain_loss(x, x_lengths, num_graphs, den_graph_batch,
     if avg:
         objf = objf / int(_lengths(x_lengths).sum())
     return objf
+
+
+def chain_loss_xent(x, xent_out, x_lengths, num_graphs, den_graph_batch,
+                    leaky_coefficient=1e-5, xent_regularize=0.1,
+                    l2_regularize=0.0, avg=True, impl: str = "auto"):
+    """LF-MMI with cross-entropy regularization (``pychain_tpu/loss.py``
+    ``chain_loss_xent``; Kaldi's chain recipe's companion objective).
+
+    ``x`` feeds the MMI term; ``xent_out`` (same shape) is the xent
+    head's log-likelihoods, and may be ``x`` itself.  The numerator
+    forward-backward runs ONCE: its objf enters the MMI term and its
+    occupation posteriors, detached as soft targets, weight
+    ``log_softmax(xent_out)``.  ``l2_regularize`` penalises the chain
+    output's magnitude on real frames (Kaldi's output-l2).
+
+    Returns ``(loss, (mmi, xent))`` with
+    ``loss = mmi + xent_regularize * xent + l2_regularize * l2``; with
+    ``avg`` each term is divided by the total frames.  ``impl`` selects
+    the denominator's engine as in :func:`chain_function`."""
+    lengths = _lengths(x_lengths)
+    den_objf = chain_function(x, lengths, den_graph_batch,
+                              leaky_coefficient, impl)
+    num_objf, aux = chain_function_with_aux(x, lengths, num_graphs)
+    mmi = -(num_objf - den_objf)
+    # soft targets: numerator posteriors, zero on padded frames
+    gamma = aux.gamma.detach().to(xent_out.dtype)
+    xent = -torch.sum(gamma * torch.log_softmax(xent_out, dim=-1))
+    if l2_regularize > 0.0:
+        frames = torch.arange(x.shape[1], device=x.device)
+        mask = frames[None, :] < lengths.to(x.device)[:, None]
+        l2 = 0.5 * torch.sum(torch.square(x) * mask[:, :, None])
+    else:
+        l2 = x.new_zeros(())   # skip the (B, T, P) reduction
+    if avg:
+        denom = int(lengths.sum())
+        mmi, xent, l2 = mmi / denom, xent / denom, l2 / denom
+    return mmi + xent_regularize * xent + l2_regularize * l2, (mmi, xent)
 
 
 class ChainLoss(torch.nn.Module):

@@ -1,1 +1,1 @@
-"""Test graphs, diagnostics and device selection."""
+"""Test graphs, diagnostics, device selection and checkpoints."""

@@ -21,8 +21,10 @@ takes every sum in the kernels' order (``cluster=C`` for the cluster
 pair; in another order the bfloat16 roundings drift apart by far more
 than float32 rounding); the Viterbi
 kernel bit-identical (it adds the plain version's float32 values in the
-same association).  The XL roofline probe's kernels are checked in
-chip_smoke.py, not here.
+same association).  The acoustic models (cuDNN and cuBLAS, no kernel of
+the port's) against the CPU with TF32 off: outputs and BatchNorm
+statistics within 1e-5, parameter gradients within 1e-4 of their norm.
+The XL roofline probe's kernels are checked in chip_smoke.py, not here.
 """
 
 import dataclasses
@@ -36,7 +38,9 @@ from pychain_tpu_torch.graphs.builder import (ChainTopology,
                                               alignment_to_pdf_sequence,
                                               estimate_phone_lm,
                                               make_numerator_fst)
+from pychain_tpu_torch.convert import model_from_flax, model_to_flax
 from pychain_tpu_torch.graphs.fst import FST
+from pychain_tpu_torch import models as pm
 from pychain_tpu_torch.ops import fact_kernels as fk
 from pychain_tpu_torch.ops import semiring as sr
 from pychain_tpu_torch.ops import semiring_kernels as semk
@@ -46,6 +50,8 @@ from pychain_tpu_torch.ops.factorized import (forward_backward_prob_fact,
                                               forward_backward_prob_fast)
 from pychain_tpu_torch.ops.viterbi import viterbi_plain
 from pychain_tpu_torch.decode import PhoneDecoder
+from pychain_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
 from pychain_tpu_torch.utils.testgraphs import (denominator_fst, linear_fst,
                                                 random_fst)
 
@@ -872,3 +878,196 @@ class TestDecode:
         ref = dec(torch.from_numpy(x), lengths)
         assert got.phones == ref.phones and got.durations == ref.durations
         np.testing.assert_array_equal(got.scores, ref.scores)
+
+
+# ----------------------------------------------------------------------
+# The acoustic models (models/*) and checkpoints on the card
+# ----------------------------------------------------------------------
+
+MODEL_CASES = {
+    "tdnn": ("TDNN", dict(num_pdfs=20, hidden_dim=32,
+                          kernel_sizes=(3, 2, 3), dilations=(1, 3, 3),
+                          strides=(1, 1, 2), dropout=0.0)),
+    "tdnnf": ("TDNNF", dict(num_pdfs=20, hidden_dim=32, bottleneck_dim=16,
+                            num_layers=3)),
+    "blstm": ("BLSTM", dict(num_pdfs=20, hidden_dim=16, num_layers=2,
+                            dropout=0.0)),
+    "lstm_uni": ("BLSTM", dict(num_pdfs=20, hidden_dim=16, num_layers=2,
+                               dropout=0.0, bidirectional=False)),
+}
+M_B, M_T, M_D = 3, 40, 6
+M_LENGTHS = [40, 31, 17]
+
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _model(case, device, seed=0):
+    name, kw = MODEL_CASES[case]
+    return getattr(pm, name)(getattr(pm, name + "Config")(**kw), M_D,
+                             device=device,
+                             generator=torch.Generator().manual_seed(seed))
+
+
+def _forward(model, case, x, train=True):
+    kw = ({"lengths": torch.tensor(M_LENGTHS, device=x.device)}
+          if MODEL_CASES[case][0] == "BLSTM" else {})
+    return model(x, train, **kw)
+
+
+def _valid_mask(case, shape):
+    mask = torch.ones(shape)
+    if MODEL_CASES[case][0] == "BLSTM":
+        for b, n in enumerate(M_LENGTHS):
+            mask[b, n:] = 0
+    return mask
+
+
+class TestModels:
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", list(MODEL_CASES))
+    def test_cuda_train_step_matches_cpu(self, cuda, no_tf32, case):
+        """One train-mode forward and backward of sum(out * w) on the card
+        and on the CPU from the same weights (drawn on the CPU)."""
+        x = torch.from_numpy(np.random.RandomState(1).randn(
+            M_B, M_T, M_D).astype(np.float32))
+        res = []
+        for dev in (cuda, torch.device("cpu")):
+            model = _model(case, dev)
+            out = _forward(model, case, x.to(dev))
+            w = torch.from_numpy(np.random.RandomState(2).randn(
+                *out.shape).astype(np.float32))
+            w = (w * _valid_mask(case, out.shape)).to(dev)
+            (out * w).sum().backward()
+            res.append((out.detach().cpu() * w.cpu().ne(0),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None},
+                        {n: b.cpu() for n, b in model.named_buffers()}))
+        (out_c, g_c, b_c), (out_p, g_p, b_p) = res
+        torch.testing.assert_close(out_c, out_p, rtol=1e-5, atol=1e-5)
+        assert g_c.keys() == g_p.keys() and g_c
+        for n in g_p:
+            assert float((g_c[n] - g_p[n]).norm()) <= \
+                1e-4 * float(g_p[n].norm()) + 1e-12, n
+        for n in b_p:
+            torch.testing.assert_close(b_c[n], b_p[n], rtol=0, atol=1e-5)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("bidirectional", [True, False])
+    def test_cuda_blstm_reads_each_sequence_within_its_length(
+            self, cuda, no_tf32, bidirectional):
+        """With lengths (a CUDA tensor) each sequence's outputs are those
+        of the sequence run alone, unpadded: the backward direction never
+        reads the padding first."""
+        model = pm.BLSTM(pm.BLSTMConfig(num_pdfs=20, hidden_dim=16,
+                                        num_layers=2, dropout=0.0,
+                                        bidirectional=bidirectional), M_D,
+                         device=cuda)
+        x = torch.randn(M_B, M_T, M_D, generator=torch.Generator(
+            device=cuda).manual_seed(3), device=cuda)
+        with torch.no_grad():
+            out = model(x, lengths=torch.tensor(M_LENGTHS, device=cuda))
+            for b, n in enumerate(M_LENGTHS):
+                alone = model(x[b:b + 1, :n])
+                torch.testing.assert_close(out[b, :n], alone[0], rtol=1e-5,
+                                           atol=1e-5)
+
+    @pytest.mark.cuda
+    def test_cuda_models_default_to_the_card(self, cuda):
+        cpu = _model("tdnn", "cpu")
+        card = _model("tdnn", None)
+        assert all(t.is_cuda for t in card.state_dict().values())
+        for a, b in zip(cpu.state_dict().values(),
+                        card.state_dict().values()):
+            assert torch.equal(a, b.cpu())
+        name, kw = MODEL_CASES["tdnn"]
+        moved = model_from_flax(pm.TDNNConfig(**kw), model_to_flax(cpu))
+        assert all(t.is_cuda for t in moved.state_dict().values())
+        for a, b in zip(cpu.state_dict().values(),
+                        moved.state_dict().values()):
+            assert torch.equal(a, b.cpu())
+
+    @pytest.mark.cuda
+    def test_cuda_checkpoint_round_trip(self, cuda, tmp_path):
+        x = torch.randn(M_B, M_T, M_D, generator=torch.Generator(
+            device=cuda).manual_seed(4), device=cuda)
+        model = _model("tdnnf", cuda)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step(m, o):
+            o.zero_grad()
+            loss = _forward(m, "tdnnf", x).square().mean()
+            loss.backward()
+            o.step()
+            return float(loss.detach())
+        for _ in range(2):
+            step(model, opt)
+        save_checkpoint(tmp_path, 2, {"model": model.state_dict(),
+                                      "opt": opt.state_dict()})
+        fresh = _model("tdnnf", cuda, seed=7)
+        fresh_opt = torch.optim.Adam(fresh.parameters(), lr=1e-3)
+        n, state = restore_checkpoint(
+            tmp_path, {"model": fresh.state_dict(),
+                       "opt": fresh_opt.state_dict()})
+        assert n == 2
+        assert all(t.is_cuda for t in state["model"].values())
+        fresh.load_state_dict(state["model"])
+        fresh_opt.load_state_dict(state["opt"])
+        for a, b in zip(model.state_dict().values(),
+                        fresh.state_dict().values()):
+            assert torch.equal(a, b)
+        saved, got = opt.state_dict()["state"], fresh_opt.state_dict()[
+            "state"]
+        assert saved.keys() == got.keys()
+        for i in saved:
+            for k in saved[i]:
+                assert torch.equal(saved[i][k].cpu(), got[i][k].cpu())
+        a, b = step(model, opt), step(fresh, fresh_opt)
+        assert abs(a - b) <= 1e-6 * abs(a)
+
+    @pytest.mark.cuda
+    def test_cuda_training_step_through_the_fast_loss(self, cuda):
+        """A TDNN in front of ChainLoss(den, precision="fast") on the
+        card: one launch of each fast kernel, a finite loss within the
+        JAX package's bfloat16 budget (2e-2) of the float32 loss on the
+        CPU from the same weights, finite gradients, an Adam step."""
+        fst, P = denominator_fst(num_phones=10, states_per_phone=2, seed=0)
+        rng = np.random.RandomState(5)
+        seqs = [rng.randint(0, P, size=n) for n in (M_T, M_T - 7, 12)]
+        lengths = np.array([len(s) for s in seqs], np.int32)
+        x = torch.from_numpy(np.random.RandomState(6).randn(
+            M_B, M_T, M_D).astype(np.float32))
+        cfg = pm.TDNNConfig(num_pdfs=P, hidden_dim=32, kernel_sizes=(3, 3),
+                            dilations=(1, 3), strides=(1, 1), dropout=0.0)
+        losses = []
+        for dev, precision in ((cuda, "fast"), ("cpu", "parity")):
+            nums = pt.ChainGraphBatch(
+                [pt.ChainGraph(linear_fst(s), log_domain=True)
+                 for s in seqs], max_num_transitions=M_T,
+                max_num_states=M_T + 1, device=dev)
+            model = pm.TDNN(cfg, M_D, device=dev)
+            loss_mod = pt.ChainLoss(pt.ChainGraph(fst), precision=precision,
+                                    device=dev)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            fk.reset_launch_counts()
+            loss = loss_mod(model(x.to(dev), True), lengths, nums)
+            loss.backward()
+            assert all(torch.isfinite(p.grad).all()
+                       for p in model.parameters())
+            opt.step()
+            losses.append(float(loss.detach()))
+            if dev == cuda:
+                assert fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
+                                       "fact_fwd_bf16": 1,
+                                       "fact_bwd_bf16": 1}
+        assert np.isfinite(losses[0])
+        assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])

@@ -89,7 +89,7 @@ def test_port_arrays_equal_jax_arrays_through_convert():
     mine = from_factorized_graph(fg, init, cg.final_probs, leaky)
     theirs = factorized_from_numpy(j_from_fg(
         j_factorize.factorize(j_compiler.compile_fst(fst)), init,
-        cg.final_probs, leaky))
+        cg.final_probs, leaky), device="cpu")
     for f in dataclasses.fields(mine):
         a, b = getattr(mine, f.name), getattr(theirs, f.name)
         if dataclasses.is_dataclass(a):

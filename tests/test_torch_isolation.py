@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX (nor flax, optax or orbax) nor the JAX
+package.
 
 Checked two ways: importing pychain_tpu_torch in a fresh interpreter
 leaves no ``jax`` or ``pychain_tpu`` module loaded, and no source file
@@ -17,7 +18,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "pychain_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pychain_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -34,7 +35,8 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.ops.viterbi_kernels, "
             "pychain_tpu_torch.decode, pychain_tpu_torch.simplefst, "
             "pychain_tpu_torch.graphs.builder, "
-            "pychain_tpu_torch.tools.xl_roofline;"
+            "pychain_tpu_torch.tools.xl_roofline, pychain_tpu_torch.models, "
+            "pychain_tpu_torch.utils.checkpoint;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
@@ -69,4 +71,5 @@ def test_sources_import_no_jax(path):
 
 def test_forbidden_matches_whole_names():
     assert _forbidden("pychain_tpu.graphs") and _forbidden("jax.numpy")
+    assert _forbidden("flax.linen") and _forbidden("orbax.checkpoint")
     assert not _forbidden("pychain_tpu_torch.graphs")

@@ -55,7 +55,7 @@ def test_linear_detection_and_convert():
     rng = np.random.RandomState(1)
     seqs = [rng.randint(0, 5, size=4) for _ in range(2)]
     batch, jbatch = _batches(seqs, 4)
-    conv = linear_from_numpy(jbatch._linear)
+    conv = linear_from_numpy(jbatch._linear, device="cpu")
     for f in ("pdf_seq", "logp_seq", "final", "graph_len"):
         torch.testing.assert_close(getattr(conv, f),
                                    getattr(batch._linear, f))

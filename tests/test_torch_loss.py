@@ -102,7 +102,7 @@ def test_chain_function_with_aux_ok_flags_match_jax():
 def test_jax_arrays_through_convert_give_the_same_loss():
     den_fst, x, lens, _, _ = _setup(mode="cross")
     jden = JChainGraphBatch(JChainGraph(den_fst), 3)
-    fa = factorized_from_numpy(jden._fact)
+    fa = factorized_from_numpy(jden._fact, device="cpu")
     mine = pt.ChainGraphBatch(pt.ChainGraph(den_fst), 3, device="cpu")
     xt = torch.from_numpy(x)
     a = pt_loss.chain_function(xt, lens, fa)

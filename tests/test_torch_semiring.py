@@ -314,13 +314,13 @@ def test_semiring_from_numpy_round_trips():
     fsts = _fsts()
     mine, theirs = _batches(fsts)
     g = mine._semiring
-    back = semiring_from_numpy(g)
+    back = semiring_from_numpy(g, device="cpu")
     for f in ("src", "dst", "pdf", "logp", "initial", "final", "in_ptr",
               "in_arcs", "out_ptr", "out_arcs", "pdf_ptr", "pdf_arcs"):
         assert torch.equal(getattr(back, f), getattr(g, f)), f
     # the JAX package's XL arrays pad K to 128 and S to 8 with inert arcs
     xa = j_dispatch(theirs, "semiring_xl")
-    conv = semiring_from_numpy(xa)
+    conv = semiring_from_numpy(xa, device="cpu")
     assert conv.k_pad % 128 == 0 and conv.num_states % 8 == 0
     k, s = g.k_pad, g.num_states
     for f in ("pdf", "logp"):

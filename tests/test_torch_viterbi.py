@@ -352,7 +352,7 @@ def test_max_in_degree_is_counted_on_the_host():
 def test_viterbi_from_numpy_of_jax_graph_arrays(case):
     fsts, shared, lengths, x = _case(case, seed=2)
     mine, theirs = _batches(fsts, shared, x.shape[0])
-    conv = viterbi_from_numpy(j_graph_arrays(theirs))
+    conv = viterbi_from_numpy(j_graph_arrays(theirs), device="cpu")
     assert conv.rows == mine.semiring().rows
     xt = torch.from_numpy(x)
     a = pt.viterbi_align(xt, lengths, conv)
