@@ -11,13 +11,14 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the eight sources of csrc/*.cu with nvcc (sm_90a), all at
-   once, one nvcc each, and check that each kernel's shared memory size
-   in Python equals its source's (the cluster pair's in both precisions,
-   with the same resident clusters for its float32 and bfloat16 forms at
-   main path 4's S_pad); then run tests/test_torch_card.py (the
-   kernels against their plain versions, in pytest) in a fresh
-   interpreter without tests/conftest.py, which imports JAX: every test
-   must pass and none skip;
+   once, one nvcc each, and the native host library
+   (csrc/pychain_native.cc, g++), and check that each kernel's shared
+   memory size in Python equals its source's (the cluster pair's in both
+   precisions, with the same resident clusters for its float32 and
+   bfloat16 forms at main path 4's S_pad); then run
+   tests/test_torch_card.py (the kernels against their plain versions,
+   in pytest) in a fresh interpreter without tests/conftest.py, which
+   imports JAX: every test must pass and none skip;
 3. the denominator kernels (fact_fwd, fact_bwd) against their plain
    PyTorch version on the card: small graphs in the three x_src modes
    with unequal lengths and debug True/False, then the headline graph
@@ -153,6 +154,35 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    steps on a fresh x (loss finite and falling, one launch of
    stream_fwd_bf16 and of stream_bwd_bf16 a step and of no other
    denominator kernel), the peak device memory and a profiled step;
+12b. main path 6, the corpus recipe (examples/train_corpus.py through
+   the port's pychain_tpu_torch/examples/train_corpus.py, its main in
+   this process on the card, PyTorch's TF32 defaults; every kernel count
+   set to 0 before each run and read after): (a) the PER gates at
+   tests/test_recipe_smoke.py's arguments and thresholds (untrained >=
+   0.5, trained <= 0.15 and <= untrained / 3) in float32 and with
+   bfloat16 tiles, the decoder's viterbi launches; (b) flat start
+   (--num-style flat), realignment at step 20 and 40-frame chunks: each
+   semiring kernel's launches before and after the realignment (20 and
+   10 steps) and viterbi's at it (12 batches), the loss finite and every
+   diagnostic ok; (c) --device-corpus: the corpus staged, two
+   ChainGraphBatch built in the run (before the loop), B1/B2 once a step
+   and a diagnostic; (d) the recipe at bench.py's width (random graphs
+   over 1,500 phones, P=3,000, 512 utterances of 400-500 frames, B=128,
+   bfloat16 tiles, 12 steps): fact_fwd_bf16 and fact_bwd_bf16 once a
+   step, the steady-state utts/s and frames/s beside main path 5's rate,
+   the pipeline line (host assembly, transfer, starvation) and the peak
+   device memory, with the card; (e) six steps with --ckpt under
+   .chip_smoke_ckpt/, then a resume to twelve.  (a) checks that the
+   built phone-LM denominator runs the plain version (engine "xla": its
+   residual arcs take no kernel).  Each run's first inputs of each
+   kernel wrapper in each stage are captured (Capture; (d)'s in a
+   one-step rerun at its arguments, so that the timed run is left
+   undisturbed); after the runs,
+   TF32 off, each kernel is held against its plain version on them
+   (B1/B2 or its fast form in (c), (d), (e): compare and the alpha'
+   stream, the fast form bit for bit; the semiring pair in (b)'s flat and
+   constrained stages: sr_class; viterbi at (a)'s decoder and (b)'s
+   realignment: bit for bit) and timed there;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -175,7 +205,10 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    1 fast and 5's, fact_fwd / fact_bwd's main paths 1 and 5's), and the
    cluster kernels'
    fast forms one for main path 4 fast (its launches) and one for s8k,
-   each with its plan and the float32 form's time in the same run;
+   each with its plan and the float32 form's time in the same run; main
+   path 6 has rows of its own, one for each kernel in each stage that
+   launched it ("batch" or "size_class" "main path 6 (x)"), with that
+   stage's launches and the error, times and bound at its inputs;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -193,6 +226,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1775,12 +1809,13 @@ def bit_identical_gamma(g, x, lens, label):
     print(f"# {label}: gamma bit-identical over two backward runs")
 
 
-def sr_class(name, batch, x, lens, reps, label=None):
+def sr_class(name, g, x, lens, reps, label=None, feasible=True):
     """One size class (or, ``label``, one main path's batch of that
-    class): errors, kernel and plain times, bytes and ops, the layouts."""
+    class) of semiring arrays ``g``: errors, kernel and plain times,
+    bytes and ops, the layouts.  ``feasible``: every sequence must be
+    (else the kernel's ok flags need only equal the plain version's)."""
     from pychain_tpu_torch.ops import semiring_kernels as sk
     from pychain_tpu_torch.ops.semiring import backward_plain, forward_plain
-    g = batch.semiring()
     B, T, P = x.shape
     label = label or f"class {name}"
     check(size_class(B, g.k_pad, g.num_states) == name,
@@ -1789,7 +1824,8 @@ def sr_class(name, batch, x, lens, reps, label=None):
           f"not {name!r}")
     layouts = sk.layouts(g, P)
     print(f"# {label}: layouts {layouts}", flush=True)
-    errs = sr_compare(g, x, lens, label, want_ok=[True] * B)
+    errs = sr_compare(g, x, lens, label,
+                      want_ok=[True] * B if feasible else None)
     a_err = sr_alpha_err(g, x, lens)
     print(f"# {label}: alpha stream / raw sums err {a_err:.3e}")
     check(a_err <= TOL, f"{label}: alpha stream err {a_err:.3e}")
@@ -2328,6 +2364,371 @@ def xl_probe(dev):
     return rows
 
 
+def reset_counts(counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+class Capture:
+    """While main path 6 runs: the inputs of the first call of each kernel
+    wrapper in each stage of each run, copied to the host (px, x and the
+    lengths; the graph arrays kept as they are), so that each kernel is
+    held against its plain version at the shapes and on the data the path
+    gave it.  It wraps the wrappers where the port calls them (the loss's
+    denominator and semiring dispatch, viterbi_align) and restores them
+    on exit; the checks run after, on the wrappers themselves."""
+
+    def __init__(self):
+        self.stage, self.run, self.calls = None, 0, {}
+
+    def begin(self, stage):
+        self.stage, self.run = stage, self.run + 1
+
+    def keep(self, family, inputs):
+        key = (self.stage, family, self.run)
+        if key not in self.calls:
+            self.calls[key] = inputs()
+
+    def inputs(self):
+        """{(stage, family): [inputs of each run's first call]}"""
+        out = {}
+        for (stage, family, _), v in sorted(self.calls.items(),
+                                            key=lambda kv: kv[0][2]):
+            out.setdefault((stage, family), []).append(v)
+        return out
+
+    def __enter__(self):
+        from pychain_tpu_torch import loss
+        from pychain_tpu_torch.ops import fact_kernels as fk
+        from pychain_tpu_torch.ops import viterbi_kernels as vk
+        den = fk.forward_backward_prob_kernel
+        sr = loss.forward_backward_semiring_kernel
+        vit = vk.viterbi_kernel
+        host = lambda t: t.detach().to("cpu", copy=True)
+
+        def den_hook(px, lengths, fa, leaky_coefficient=1e-5, **kw):
+            self.keep("den", lambda: (host(px), host(lengths), fa,
+                                      leaky_coefficient))
+            return den(px, lengths, fa, leaky_coefficient, **kw)
+
+        def sr_hook(x, lengths, g):
+            self.keep("semiring", lambda: (host(x), host(lengths), g))
+            return sr(x, lengths, g)
+
+        def vit_hook(x, lengths, g):
+            self.keep("viterbi", lambda: (host(x), host(lengths), g))
+            return vit(x, lengths, g)
+        self._saved = ((fk, "forward_backward_prob_kernel", den),
+                       (loss, "forward_backward_semiring_kernel", sr),
+                       (vk, "viterbi_kernel", vit))
+        fk.forward_backward_prob_kernel = den_hook
+        loss.forward_backward_semiring_kernel = sr_hook
+        vk.viterbi_kernel = vit_hook
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def recipe_run(label, argv, counters, tf32_defaults, capture=None,
+               stage=None, on_event=None):
+    """The port's corpus recipe (its ``main``, in this process, on the
+    card, under PyTorch's TF32 defaults: a user's run) with every kernel
+    count set to 0 just before and read just after, and with ``capture``
+    each kernel's first inputs of the run captured under ``stage``.
+    Returns (result, launches, seconds)."""
+    from pychain_tpu_torch.examples import train_corpus as tc
+    print(f"# main path 6 {label}: python -m "
+          f"pychain_tpu_torch.examples.train_corpus {' '.join(argv)}",
+          flush=True)
+    if capture is not None:
+        capture.begin(stage)
+    with capture or contextlib.nullcontext(), tf32(*tf32_defaults):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        res = tc.main(argv, on_event=on_event)
+        secs = time.perf_counter() - t0
+        launched = counts(counters)
+    print(f"# main path 6 {label}: {secs:.1f} s, denominator engine "
+          f"{res['den_engine']!r}, launches "
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    return res, launched, secs
+
+
+def p6_den(label, caps, dev):
+    """B1/B2 (float32, or the fast pair for bfloat16 tiles) against the
+    plain version on each run's captured inputs of one stage of main path
+    6 (debug True and False; the alpha' stream), timed on the first run's
+    with the plain sweeps, and the bytes and operations of that run's
+    data.  Returns the row fields of each of the two kernels."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops.factorized import is_fast
+    errs, a_errs = [], []
+    for i, (px, lens, fa, leaky_c) in enumerate(caps):
+        px, lens = px.to(dev), lens.to(dev)
+        name = f"main path 6 {label}, run {i + 1}"
+        errs += [compare(fa, px, lens, leaky_c, debug, name)
+                 for debug in (False, True)]
+        a_errs.append(alpha_err(fa, px, lens, leaky_c, name))
+    px, lens, fa, leaky_c = caps[0]
+    px, lens = px.to(dev), lens.to(dev)
+    B, T, P = px.shape
+    t = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 3)
+    kg = fk.graph_for(fa)
+    fb, fo, bb, bo = fact_bytes_ops(fa, kg, lens, T, P)
+    e = worst(errs)
+    suffix = "_bf16" if is_fast(fa) else ""
+    print(f"# main path 6 {label}: B={B} T={T} P={P} S_pad={fa.s_pad} "
+          f"lengths {int(lens.min())}..{int(lens.max())}; fact_fwd{suffix} "
+          f"{t[0]:.3f} ms, fact_bwd{suffix} {t[1]:.3f} ms; plain fwd "
+          f"{t[2]:.1f} ms, plain bwd {t[3]:.1f} ms", flush=True)
+    shape = {"B": B, "T": T, "P": P, "s_pad": fa.s_pad,
+             "lengths": [int(lens.min()), int(lens.max())]}
+    return {f"fact_fwd{suffix}": {
+                "ms": t[0], "plain_ms": t[2], "bytes": fb, "ops": fo,
+                "max_abs_err": max(max(a for a, _ in a_errs),
+                                   e["objf_rel"]),
+                "entry_excess": max(x for _, x in a_errs), "shape": shape},
+            f"fact_bwd{suffix}": {
+                "ms": t[1], "plain_ms": t[3], "bytes": bb, "ops": bo,
+                "max_abs_err": max(e["gamma_abs"], e["alpha_beta_abs"],
+                                   e["gamma_sum_abs"]),
+                "entry_excess": e["gamma_excess"], "shape": shape}}
+
+
+def p6_semiring(label, caps, dev):
+    """The semiring pair against its plain version on the first run's
+    captured inputs of one stage of main path 6 (sr_class: both sweeps,
+    the alpha stream, times, bytes and operations), by the size class the
+    JAX package's rule gives that batch."""
+    x, lens, g = caps[0]
+    x, lens = x.to(dev), lens.to(dev)
+    cls = size_class(x.shape[0], g.k_pad, g.num_states)
+    return sr_class(cls, g, x, lens, 5, label=f"main path 6 {label}",
+                    feasible=False)
+
+
+def p6_viterbi(label, caps, dev):
+    """The Viterbi kernel against its plain version, bit for bit, on each
+    run's captured inputs of one stage of main path 6; timed (vit_class)
+    on the first run's."""
+    for i, (x, lens, g) in enumerate(caps[1:]):
+        vit_compare(g, x.to(dev), lens, f"main path 6 {label}, run {i + 2}")
+    x, lens, g = caps[0]
+    return vit_class(f"main path 6 {label}", g, x.to(dev), lens, 5)
+
+
+def main_path_6(counters, p5_utts_per_s, tf32_defaults):
+    """Main path 6, the corpus recipe (examples/train_corpus.py) through
+    the port's own (pychain_tpu_torch/examples/train_corpus.py) on the
+    card: (a) the PER gates in float32 and with bfloat16 tiles, (b) flat
+    start, realignment and chunking, (c) --device-corpus, (d) the recipe
+    at bench.py's width, (e) a checkpoint round trip.  Then every kernel
+    the path launched is held against its plain version on the inputs
+    it had in each stage, and timed there.  Returns the launches by
+    stage and kernel, the checks' row fields by stage and family, and
+    the figures."""
+    from pychain_tpu_torch import ChainGraphBatch
+    dev = torch.device("cuda")
+    per_args = ["--synthetic-graphs", "built", "--num-style", "aligned",
+                "--corpus-utts", "32", "--corpus-phones", "24",
+                "--signal", "1.2", "--steps", "60", "--batch-size", "8",
+                "--warmup-steps", "2", "--diag-every", "0", "--eval-per",
+                "--eval-per-untrained"]
+    cap = Capture()
+    stages = {}      # stage -> {kernel: launches}
+    out = {}
+
+    def add(stage, launched):
+        row = stages.setdefault(stage, {})
+        for k, v in launched.items():
+            if v:
+                row[k] = row.get(k, 0) + v
+
+    def run(label, argv, stage, on_event=None, capture=True):
+        return recipe_run(label, argv, counters, tf32_defaults,
+                          cap if capture else None, stage, on_event)
+
+    # (a) the PER gates (tests/test_recipe_smoke.py:68-119's arguments
+    # and thresholds).  The built phone-LM denominator keeps residual
+    # arcs, which no kernel takes: it runs the plain version (ROADMAP
+    # A.6), in float32 and with bfloat16 tiles alike
+    for tiles, extra in (("float32", []), ("bfloat16",
+                                           ["--tile-dtype", "bfloat16"])):
+        res, launched, secs = run(f"(a) PER gate, {tiles} tiles",
+                                  per_args + extra, "(a)")
+        untrained, trained = res["untrained_per"], res["per"]
+        print(f"# main path 6 (a) {tiles}: untrained PER {untrained!r}, "
+              f"trained PER {trained!r} (gates: untrained >= 0.5, trained "
+              f"<= 0.15 and <= untrained / 3); final loss {res['loss']!r}; "
+              f"denominator engine {res['den_engine']!r} (no denominator "
+              f"kernel)", flush=True)
+        check(untrained >= 0.5 and trained <= 0.15
+              and trained <= untrained / 3,
+              f"main path 6 (a) {tiles}: PER gate failed: untrained "
+              f"{untrained}, trained {trained}")
+        check(res["den_engine"] == "xla" and not any(
+            launched[k] for k in ("fact_fwd", "fact_bwd", "fact_fwd_bf16",
+                                  "fact_bwd_bf16")),
+              f"main path 6 (a) {tiles}: denominator engine "
+              f"{res['den_engine']!r}, launches {launched}")
+        check(launched["viterbi"] > 0, f"main path 6 (a) {tiles}: the "
+              "decoder launched no viterbi kernel")
+        add("(a)", launched)
+        out[f"per_{tiles}"] = (untrained, trained)
+
+    # (b) flat start, then realignment into tolerance-constrained,
+    # chunked numerators: each semiring kernel's launches before and after
+    # the realignment, and viterbi's at it
+    marks = {}
+
+    def mark(event):
+        marks[event] = counts(counters)
+        cap.stage = {"realign": "(b) realign",
+                     "realigned": "(b) constrained"}[event]
+    res, launched, secs = run(
+        "(b) flat start + realignment",
+        ["--synthetic-graphs", "built", "--num-style", "flat",
+         "--realign-at", "20", "--chunk-frames", "40", "--steps", "30",
+         "--warmup-steps", "2", "--diag-every", "5"], "(b) flat", mark)
+    check("realign" in marks and "realigned" in marks,
+          "main path 6 (b): no realignment")
+    before, at = marks["realign"], {k: marks["realigned"][k] -
+                                    marks["realign"][k] for k in launched}
+    after = {k: launched[k] - marks["realigned"][k] for k in launched}
+    print(f"# main path 6 (b): flat-start batches (K, S = "
+          f"{res['num_pad'][0]}) semiring_fwd {before['semiring_fwd']}, "
+          f"semiring_bwd {before['semiring_bwd']}; realignment viterbi "
+          f"{at['viterbi']}; constrained chunk batches (K, S = "
+          f"{res['num_pad'][1]}) semiring_fwd {after['semiring_fwd']}, "
+          f"semiring_bwd {after['semiring_bwd']}; final loss "
+          f"{res['loss']!r}, every diagnostic ok: {res['ok']}", flush=True)
+    check(np.isfinite(res["loss"]) and res["ok"],
+          f"main path 6 (b): loss {res['loss']}, diagnostics ok {res['ok']}")
+    check(before["semiring_fwd"] == before["semiring_bwd"] == 20
+          and after["semiring_fwd"] == after["semiring_bwd"] == 10
+          and at["viterbi"] == 12,
+          f"main path 6 (b): launches before {before}, at {at}, after "
+          f"{after}")
+    add("(b) flat", before)
+    add("(b) realign", at)
+    add("(b) constrained", after)
+
+    # (c) --device-corpus: the corpus staged once, no ChainGraphBatch
+    # built inside the loop
+    built = []
+    init = ChainGraphBatch.__init__
+
+    def counting(self, *a, **kw):
+        built.append(1)
+        init(self, *a, **kw)
+    ChainGraphBatch.__init__ = counting
+    try:
+        res, launched, secs = run(
+            "(c) --device-corpus", ["--device-corpus", "--steps", "20",
+                                    "--warmup-steps", "2", "--diag-every",
+                                    "10"], "(c)")
+    finally:
+        ChainGraphBatch.__init__ = init
+    print(f"# main path 6 (c): {res['staged_mb']:.1f} MB staged; "
+          f"ChainGraphBatch built {len(built)} times in the run (the "
+          f"corpus's numerators and the denominator, before the loop); "
+          f"steady state {res['utts_per_s']!r} utts/s", flush=True)
+    check(len(built) == 2 and res["staged_mb"] and np.isfinite(res["loss"])
+          and res["ok"], f"main path 6 (c): {len(built)} batches built, "
+          f"result {res}")
+    check(res["den_engine"] == "pallas"
+          and launched["fact_fwd"] == launched["fact_bwd"] == 20 + 3,
+          f"main path 6 (c): engine {res['den_engine']!r}, launches "
+          f"{launched} (20 steps, diagnostics at steps 1, 10 and 20)")
+    add("(c)", launched)
+
+    # (d) the recipe at bench.py's width: four full batches of 128 an
+    # epoch, the fast denominator pair once a step.  Its kernels' inputs
+    # are captured in a one-step rerun at the same arguments (the same
+    # corpus, weights and first batch), so that copying 0.77 GB of px to
+    # the host does not disturb the timed run or its peak memory
+    width = ["--synthetic-graphs", "random", "--corpus-phones", "1500",
+             "--corpus-utts", "512", "--corpus-min-t", "400",
+             "--corpus-max-t", "500", "--batch-size", "128", "--tile-dtype",
+             "bfloat16", "--model", "tdnn", "--diag-every", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    res, launched, secs = run(
+        "(d) bench width", width + ["--steps", "12", "--warmup-steps", "2"],
+        "(d)", capture=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pipe = res["pipeline"]
+    print(f"# main path 6 (d) on {card_line()}: steady state "
+          f"{res['utts_per_s']!r} utts/s, {res['frames_per_s']!r} frames/s "
+          f"over 10 steps (main path 5's TDNN-512x5 step in the same run: "
+          f"{p5_utts_per_s!r} utts/s); pipeline: host assembly "
+          f"{pipe['assemble']!r} ms/batch, transfer {pipe['transfer']!r} "
+          f"ms/batch, consumer starvation {pipe['starvation']!r} ms/step; "
+          f"peak device memory {peak:.3f} GiB; final loss {res['loss']!r}",
+          flush=True)
+    check(res["den_engine"] == "pallas"
+          and launched["fact_fwd_bf16"] == launched["fact_bwd_bf16"] == 12
+          and launched["fact_fwd"] == launched["fact_bwd"] == 0
+          and np.isfinite(res["loss"]),
+          f"main path 6 (d): engine {res['den_engine']!r}, launches "
+          f"{launched}, loss {res['loss']}")
+    add("(d)", launched)
+    run("(d) inputs, one step", width + ["--steps", "1", "--warmup-steps",
+                                         "1"], "(d)")
+    out["bench"] = {"utts_per_s": res["utts_per_s"],
+                    "frames_per_s": res["frames_per_s"], "pipeline": pipe,
+                    "peak_gib": peak, "seconds": secs}
+
+    # (e) a checkpoint round trip: six steps, then a resume to twelve
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chip_smoke_ckpt", "recipe")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        args = ["--steps", "6", "--ckpt", ckpt, "--warmup-steps", "1",
+                "--diag-every", "0"]
+        first, launched, _ = run("(e) checkpoint, steps 0-6", args, "(e)")
+        add("(e)", launched)
+        args[1] = "12"
+        second, launched, _ = run("(e) resume, steps 6-12", args, "(e)")
+        add("(e)", launched)
+        with open(os.path.join(ckpt, "LATEST")) as f:
+            latest = int(f.read())
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    print(f"# main path 6 (e): resumed from step {second['resumed_from']}, "
+          f"{second['steps']} steps, LATEST {latest}; losses "
+          f"{first['loss']!r} -> {second['loss']!r}", flush=True)
+    check(second["resumed_from"] == 6 and second["steps"] == 6
+          and latest == 12 and np.isfinite(second["loss"]),
+          f"main path 6 (e): {second}, LATEST {latest}")
+    print(f"# main path 6 launches by stage: {stages}", flush=True)
+
+    # every kernel the path launched, against its plain version on the
+    # inputs it had in each stage (TF32 off, as for every kernel check)
+    families = {"den": ("fact_fwd", "fact_bwd", "fact_fwd_bf16",
+                        "fact_bwd_bf16"),
+                "semiring": ("semiring_fwd", "semiring_bwd"),
+                "viterbi": ("viterbi",)}
+    checks = {"den": p6_den, "semiring": p6_semiring, "viterbi": p6_viterbi}
+    inputs = cap.inputs()
+    for stage, launched in stages.items():
+        for family, names in families.items():
+            ran = any(launched.get(k) for k in names)
+            check(ran == ((stage, family) in inputs),
+                  f"main path 6 {stage}: {family} launched {ran}, inputs "
+                  f"captured {(stage, family) in inputs}")
+    cap.calls.clear()
+    out["checks"] = {}
+    for key in list(inputs):
+        stage, family = key
+        out["checks"][key] = checks[family](stage, inputs.pop(key), dev)
+        torch.cuda.empty_cache()
+    out["stages"] = stages
+    return out
+
+
 def bound(nbytes, ops, peak_flops=PEAK_F32_FLOPS):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_flops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -2366,6 +2767,11 @@ def main():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"#   {name}: {line.strip()}")
+    from pychain_tpu_torch.csrc import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"# native host library (g++ {' '.join(native.FLAGS)}): "
+          f"{lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     check_smem()
     card_tests()
     leaky_c = 1e-5
@@ -2491,7 +2897,8 @@ def main():
     gx = torch.Generator(device=dev).manual_seed(4)
     classes = {}
     x_flat = torch.randn(B, T, P, generator=gx, device=dev)
-    classes["semiring"] = sr_class("semiring", flat_batch, x_flat, lens, 5)
+    classes["semiring"] = sr_class("semiring", flat_batch.semiring(),
+                                   x_flat, lens, 5)
     del x_flat
     # "xl": bench.py --xl (beyond the dense budget, masks resident: B7/B8)
     t0 = time.perf_counter()
@@ -2502,7 +2909,7 @@ def main():
           f"ChainGraphBatch (arc-id lists) {xl_host_ms:.1f} ms on the "
           "host", flush=True)
     x_xl = torch.randn(B, T, 3000, generator=gx, device=dev)
-    classes["xl"] = sr_class("xl", xl_batch, x_xl, lens, 3)
+    classes["xl"] = sr_class("xl", xl_batch.semiring(), x_xl, lens, 3)
     del x_xl, xl_batch
     # "xlstream": tools/xl_stream_indomain.py (beyond the resident budget:
     # masks re-expanded per arc chunk, B9/B10)
@@ -2515,7 +2922,7 @@ def main():
           f"ChainGraphBatch (arc-id lists) {xs_host_ms:.1f} ms on the "
           "host", flush=True)
     x_xs = torch.randn(Bs, Ts, 512, generator=gx, device=dev)
-    classes["xlstream"] = sr_class("xlstream", xs_batch, x_xs,
+    classes["xlstream"] = sr_class("xlstream", xs_batch.semiring(), x_xs,
                                    torch.full((Bs,), Ts, device=dev), 3)
     del x_xs, xs_batch
 
@@ -2569,8 +2976,8 @@ def main():
     del x
     # the semiring pair at main path 3's constrained batch (the "xl" class
     # by the JAX package's rule), under the x it was aligned on
-    classes["path3"] = sr_class("xl", re_batch, x_flat, lens, 5,
-                                label="main path 3's batch")
+    classes["path3"] = sr_class("xl", re_batch.semiring(), x_flat, lens,
+                                5, label="main path 3's batch")
     del re_batch
 
     # -- phase 9: the Viterbi size classes -------------------------------
@@ -2613,6 +3020,13 @@ def main():
         m4[5:]
     torch.cuda.empty_cache()
 
+    # -- phase 12b: main path 6, the corpus recipe -----------------------
+    # the recipe runs under PyTorch's defaults (a user's run), the checks
+    # of its kernels without TF32
+    p6 = main_path_6((fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES),
+                     B / (p5["step_ms"] / 1e3), tf32_defaults)
+    torch.cuda.empty_cache()
+
     # -- phase 13: the XL roofline probe ----------------------------------
     from pychain_tpu_torch.tools import xl_roofline as xr
     xl_rows = xl_probe(dev)
@@ -2633,6 +3047,7 @@ def main():
             "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}",
             # main path 1's three steps and main path 5's float32 step
+            # (main path 6's launches: its own rows)
             "launches": launches[name] + p5["launches"][name],
             "launches_by_path": {"main path 1": launches[name],
                                  "main path 5": p5["launches"][name]},
@@ -2667,10 +3082,42 @@ def main():
             "s8k_ring_stages": r8["ring_stages"],
             "vs_float32_objf_rel": r["vs_float32"]["objf_rel"],
             "library_ms": None})
+    # B1/B2 (either form) on main path 6's stages, at their own inputs
+    for (stage, family), res in p6["checks"].items():
+        if family != "den":
+            continue
+        for name, r in res.items():
+            line, fn = ((457, "_fwd_kernel_factory") if "fwd" in name
+                        else (768, "_bwd_kernel_factory"))
+            bms, by = bound(r["bytes"], r["ops"])
+            rows.append({
+                "name": name, "route": "cuda",
+                "batch": f"main path 6 {stage}",
+                "source": f"pychain_tpu_torch/csrc/{name[:8]}.cu",
+                "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
+                "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}"
+                               + (", bfloat16 tiles (fast mode)"
+                                  if name.endswith("_bf16") else ""),
+                "launches": p6["stages"][stage][name],
+                "launches_by_path": {"main path 6": p6["stages"][stage][name]},
+                "on_main_path": True, "shape": r["shape"],
+                "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
+                "entry_excess": r["entry_excess"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+                "bytes": r["bytes"], "ops": r["ops"], "library_ms": None})
     # main path 2 runs the "semiring" class (the flat-start batch), main
     # path 3 its constrained batch ("xl" by the JAX package's rule); the
     # other rows are kernel checks at bench.py's and the tool's sizes
     sr_launches = {"semiring": flat_launches, "path3": re_launches}
+    sr_paths = {"semiring": "main path 2", "path3": "main path 3"}
+    # main path 6's flat-start and constrained batches (B=8) at their own
+    # inputs, by the class the JAX package's rule gives each
+    for (stage, family), res in p6["checks"].items():
+        if family == "semiring":
+            key = f"main path 6 {stage}"
+            classes[key] = res
+            sr_launches[key] = p6["stages"][stage]
+            sr_paths[key] = "main path 6"
     for batch_name, res in classes.items():
         cls = res["class"]
         for i, side in enumerate(("fwd", "bwd")):
@@ -2678,13 +3125,16 @@ def main():
             name = f"semiring_{side}"
             lay = res["layouts"][name]
             bms, by = bound(nbytes, ops, PEAK_F64_FLOPS)
+            by_path = ({sr_paths[batch_name]: sr_launches[batch_name][name]}
+                       if batch_name in sr_launches else {})
             rows.append({
                 "name": name, "route": "cuda", "size_class": cls,
                 "batch": {"path3": "main path 3"}.get(batch_name,
                                                       batch_name),
                 "source": f"pychain_tpu_torch/csrc/{name}.cu",
                 "replaces": SR_CLASSES[cls][i],
-                "launches": sr_launches.get(batch_name, {}).get(name, 0),
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "on_main_path": batch_name in sr_launches,
                 "threads": lay.threads, "stages": lay.stages,
                 "resident": lay.resident,
@@ -2744,8 +3194,14 @@ def main():
                 "ops": r["ops"], "float32_ms": r["float32_ms"],
                 "vs_float32_objf_rel": r["vs_float32"]["objf_rel"],
                 "library_ms": None})
-    vit_launches = {"realign": re_launches["viterbi"],
-                    "decode": dec_launches["viterbi"], "b11": 0}
+    vit_paths = {"realign": {"main path 3": re_launches["viterbi"]},
+                 "decode": {"decoding": dec_launches["viterbi"]}, "b11": {}}
+    # main path 6's decoder (a) and realignment (b) at their own inputs
+    for (stage, family), res in p6["checks"].items():
+        if family == "viterbi":
+            cls = f"main path 6 {stage}"
+            vit_classes[cls] = res
+            vit_paths[cls] = {"main path 6": p6["stages"][stage]["viterbi"]}
     for cls, (ms, plain_ms, nbytes, ops, err, bad, lay) in \
             vit_classes.items():
         bms, by = bound(nbytes, ops)
@@ -2754,8 +3210,10 @@ def main():
             "source": "pychain_tpu_torch/csrc/viterbi.cu",
             "replaces": "pychain_tpu/ops/viterbi.py:175",
             "replaces_fn": "pychain_tpu/ops/viterbi.py::_vit_kernel",
-            # main path 3 runs the "realign" class, decoding "decode"
-            "launches": vit_launches[cls],
+            # main path 3 runs the "realign" class, decoding "decode",
+            # main path 6 its own
+            "launches": sum(vit_paths[cls].values()),
+            "launches_by_path": vit_paths[cls],
             "on_main_path": cls != "b11",
             "layout": dataclasses.asdict(lay),
             "max_abs_err": err, "max_err": err, "mismatches": bad,
@@ -2797,7 +3255,9 @@ def main():
           f"{m4_fast_step_ms[-1]:.3f}, main path 5 (TDNN-512x5 training, "
           f"fast) {p5['step_ms']:.3f} (float32 {p5['f32_step_ms']:.3f}; "
           f"TDNN-F {p5['tdnnf_ms']:.3f}, BLSTM {p5['blstm_ms']:.3f}); "
-          f"realignment viterbi_align {align_ms:.3f}")
+          f"realignment viterbi_align {align_ms:.3f}; main path 6 (the "
+          f"recipe at bench.py's width, bfloat16 tiles) "
+          f"{p6['bench']['utts_per_s']:.1f} utts/s")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

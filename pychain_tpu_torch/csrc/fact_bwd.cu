@@ -215,9 +215,11 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
       return stages > 0 ? smem_get(r + s) : stream_get(r + s);
     };
     auto alpha_at = [&](int s) { return u == 0 ? ad0[s] : row(ad_u, s); };
-    const float cl = leaky_c * leak_sum;
+    // the leaky term rounded on its own, then added (never fused into a
+    // multiply-add: the plain fast version rounds the product first)
+    const float cl = __fmul_rn(leaky_c, leak_sum);
     for (int s = tid; s < s_pad; s += FACT_THREADS) {
-      const float v = bd[s] + cl;
+      const float v = __fadd_rn(bd[s], cl);
       bn[s] = round_to<S>(v);
       xb[s] = round_to<S>(row(xd_u, s) * v);
     }
@@ -238,7 +240,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
         // order (ops/factorized.backward_prob_fast, bit for bit).  The
         // masses are unscaled: gamma is scaled by 1 / s_u after the pdf
         // sums (pallas_fact.py:620-628).
-        const float v = bd[s] + cl;
+        const float v = __fadd_rn(bd[s], cl);
         xbs = row(xd_u, s) * v;
         w1t = __fadd_rn(w1t, __fmul_rn(__ldg(diag1 + s), xbs));
         w2t = __fadd_rn(w2t, __fmul_rn(__ldg(diag2 + s), v));

@@ -81,6 +81,21 @@ class ChainGraph:
             if final_mode == "ones":
                 self.final_probs = np.ones(S, np.float32)
 
+    @classmethod
+    def from_compiled(cls, g: CompiledGraph, initial_probs,
+                      leaky_probs=None) -> "ChainGraph":
+        """A graph built directly from a :class:`CompiledGraph`, without
+        the FST (``pychain_tpu/graph.py::ChainGraph.from_compiled``):
+        ``initial_probs`` (S,) in the graph's domain and, for a
+        prob-domain graph, its ``leaky_probs`` (S,)."""
+        self = cls.__new__(cls)
+        self.log_domain = g.log_domain
+        self._set_compiled(g)
+        self.initial_probs = np.asarray(initial_probs, np.float32)
+        self.leaky_probs = None if leaky_probs is None else np.asarray(
+            leaky_probs, np.float32)
+        return self
+
     def _set_compiled(self, g: CompiledGraph):
         self.num_states = g.num_states
         self.num_transitions = g.num_transitions

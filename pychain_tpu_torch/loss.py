@@ -52,7 +52,7 @@ from .ops.fwdbwd import FwdBwdResult
 from .ops.linear import LinearArrays, forward_backward_linear
 from .ops.semiring import SemiringArrays, forward_backward_semiring
 from .ops.semiring_kernels import forward_backward_semiring_kernel
-from .utils.device import resolve_device
+from .utils.device import host_to, resolve_device
 
 CLAMP = 30.0  # reference loss.py:30
 
@@ -71,9 +71,17 @@ def den_engine(fa: FactorizedArrays) -> str:
     vectors fit one block's shared memory, else "stream" (B3/B4) when
     they fit a cluster's, else, on the CPU, "xla" (the plain version,
     what the CPU runs anyway); on CUDA past the cluster limit it raises
-    NotImplementedError.  A graph with residual arcs stays "pallas",
-    whose wrapper refuses it."""
-    if not fact_kernels.supports(fa) or fact_kernels.fits_on_chip(fa):
+    NotImplementedError.  A graph with residual arcs (arcs that neither
+    W1 nor W2 takes: a phone-LM denominator over ``ChainTopology``, as
+    ``graphs/builder.py`` composes it) is "xla" on every device: no
+    kernel takes such arcs, and the JAX package runs its XLA factorized
+    engine on such a graph on every backend (its loss.py dispatch
+    upgrades only ``pallas_fact.supports`` graphs to a kernel tier); the
+    port runs that engine's counterpart, the plain version, where ``fa``
+    lives."""
+    if not fact_kernels.supports(fa):
+        return "xla"
+    if fact_kernels.fits_on_chip(fa):
         return "pallas"
     if stream_kernels.fits_stream(fa):
         return "stream"
@@ -86,6 +94,12 @@ def den_engine(fa: FactorizedArrays) -> str:
             f"{fact_kernels.MAX_SMEM} a Hopper block has: no CUDA kernel "
             "serves it (impl='factorized' runs the plain version)")
     return "xla"
+
+
+def resolved_engine(fa: FactorizedArrays) -> str:
+    """The tier a denominator runs on under impl "auto": an engine the
+    caller set is kept, else :func:`den_engine`'s."""
+    return den_engine(fa) if fa.engine == "xla" else fa.engine
 
 
 def dispatch_arrays(graphs, impl: str = "auto"):
@@ -153,10 +167,7 @@ def _run(x, lengths, g, leaky_coefficient, impl="auto",
             return forward_backward_semiring_kernel(x, lengths, g)
         if isinstance(g, FactorizedArrays):
             px = torch.exp(x)
-            if impl == "factorized":
-                engine = "xla"
-            else:      # an engine the caller set is kept
-                engine = den_engine(g) if g.engine == "xla" else g.engine
+            engine = "xla" if impl == "factorized" else resolved_engine(g)
             if engine == "xla":
                 return forward_backward_prob_fact(px, lengths, g,
                                                   leaky_coefficient)
@@ -288,7 +299,7 @@ def chain_loss_xent(x, xent_out, x_lengths, num_graphs, den_graph_batch,
     xent = -torch.sum(gamma * torch.log_softmax(xent_out, dim=-1))
     if l2_regularize > 0.0:
         frames = torch.arange(x.shape[1], device=x.device)
-        mask = frames[None, :] < lengths.to(x.device)[:, None]
+        mask = frames[None, :] < host_to(lengths, x.device)[:, None]
         l2 = 0.5 * torch.sum(torch.square(x) * mask[:, :, None])
     else:
         l2 = x.new_zeros(())   # skip the (B, T, P) reduction

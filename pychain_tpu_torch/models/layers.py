@@ -91,8 +91,12 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+            # flax's arithmetic, through which autograd also reaches the
+            # running statistics when they are trained as parameters (the
+            # corpus recipe differentiates flax's whole variables tree)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean[:, None]) * mul[:, None]
+                    + self.bias[:, None])
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
             m = self.momentum

@@ -41,6 +41,15 @@ class LinearArrays:
     def to(self, device) -> "LinearArrays":
         return _move(self, device)
 
+    def take(self, index) -> "LinearArrays":
+        """The batch rows ``index`` (a (B,) tensor or sequence), gathered
+        on this batch's device: a corpus staged on the card once yields
+        each step's numerators from the step's index alone."""
+        idx = torch.as_tensor(index, dtype=torch.long).to(self.device)
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).index_select(0, idx)
+            for f in dataclasses.fields(self)})
+
 
 def is_linear_graph(g) -> bool:
     """True if a log-domain ChainGraph is a single linear chain.

@@ -75,9 +75,11 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def inputs(S: int, K: int, B: int, device="cpu"):
+def inputs(S: int, K: int, B: int, device=None):
     """The tool's inputs (tools/xl_roofline.py:157-160): the same draws of
-    ``np.random.RandomState(0)`` in the same order."""
+    ``np.random.RandomState(0)`` in the same order, on ``device``
+    (``None``: the card, raising without one)."""
+    device = resolve_device(device)
     rng = np.random.RandomState(0)
     src = rng.randint(0, S, (B, K)).astype(np.int32)
     dst = rng.randint(0, S, (B, K)).astype(np.int32)

@@ -1071,3 +1071,116 @@ class TestModels:
                                        "fact_bwd_bf16": 1}
         assert np.isfinite(losses[0])
         assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
+
+
+# ----------------------------------------------------------------------
+# The corpus recipe's pieces on the card (examples/train_corpus.py)
+# ----------------------------------------------------------------------
+
+def _recipe_corpus(tmp_path):
+    from pychain_tpu_torch.examples import train_corpus as tc
+    d = str(tmp_path / "corpus")
+    tc.make_synthetic_corpus(d, utts=12, num_phones=10, min_t=20, max_t=30)
+    return tc, tc.load_corpus(d)
+
+
+class TestRecipe:
+    """The host->device pipeline, the staged corpus, fbank_batch and one
+    recipe step on the card against the CPU."""
+
+    def test_cuda_prefetched_batch_equals_its_host_data(self, cuda):
+        from pychain_tpu_torch.data import prefetch
+        from pychain_tpu_torch.data.prefetch import to_device
+        from pychain_tpu_torch.ops.linear import linear_arrays
+        rng = np.random.RandomState(0)
+        graphs = [pt.ChainGraph(linear_fst(rng.randint(0, 9, size=n)),
+                                log_domain=True) for n in (7, 5, 6)]
+        items = [(torch.from_numpy(rng.randn(3, 7, 4).astype(np.float32)),
+                  linear_arrays(graphs, 8), np.array([7, 5, 6]))
+                 for _ in range(6)]
+        # the consumer's stream is busy while the copies land
+        busy = torch.randn(2048, 2048, device=cuda)
+        got = []
+        for x, lin, lens in prefetch(iter(items), depth=2,
+                                     transfer=to_device(cuda)):
+            for _ in range(4):
+                busy = busy @ busy / 2048.0
+            got.append((x * 1.0, lin.pdf_seq + 0, lens))
+        torch.cuda.synchronize()
+        assert len(got) == len(items)
+        for (x, pdf, lens), (hx, hlin, hlens) in zip(got, items):
+            assert x.is_cuda and pdf.is_cuda
+            assert torch.equal(x.cpu(), hx)
+            assert torch.equal(pdf.cpu(), hlin.pdf_seq)
+            np.testing.assert_array_equal(lens, hlens)
+
+    def test_cuda_device_corpus_gather_equals_host_assembly(self, cuda,
+                                                            tmp_path):
+        from pychain_tpu_torch.data import pad_to_bucket
+        from pychain_tpu_torch.loss import dispatch_arrays
+        from pychain_tpu_torch.utils.device import host_to
+        tc, (keys, feats, nums, den) = _recipe_corpus(tmp_path)
+        T = max(f.shape[0] for f in feats)
+        K = max(g.num_transitions for g in nums) + 1
+        S = max(g.num_states for g in nums) + 1
+        x_all, _ = pad_to_bucket(feats, list(range(len(keys))), T)
+        staged_x = host_to(torch.from_numpy(x_all), cuda)
+        staged = dispatch_arrays(pt.ChainGraphBatch(
+            nums, max_num_transitions=K, max_num_states=S, device=cuda))
+        idx = np.array([7, 2, 11, 2])
+        x_d = staged_x.index_select(0, torch.from_numpy(idx).to(cuda))
+        nums_d = staged.take(torch.from_numpy(idx).to(cuda))
+        x_h, _ = pad_to_bucket(feats, idx, T)
+        nums_h = dispatch_arrays(pt.ChainGraphBatch(
+            [nums[i] for i in idx], max_num_transitions=K, max_num_states=S,
+            device="cpu"))
+        assert torch.equal(x_d.cpu(), torch.from_numpy(x_h))
+        for name in ("pdf_seq", "logp_seq", "final", "graph_len"):
+            assert torch.equal(getattr(nums_d, name).cpu(),
+                               getattr(nums_h, name)), name
+
+    def test_cuda_fbank_batch_matches_cpu(self, cuda):
+        from pychain_tpu_torch.data import (add_deltas_batch, cmvn_batch,
+                                            fbank_batch)
+        x = (np.random.RandomState(3).randn(4, 8000) * 0.2).astype(
+            np.float32)
+        got = fbank_batch(x, device=cuda)
+        ref = fbank_batch(x, device="cpu")
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+        lens = np.array([49, 30, 12, 1])
+        torch.testing.assert_close(
+            add_deltas_batch(cmvn_batch(got, lens, device=cuda),
+                             device=cuda).cpu(),
+            add_deltas_batch(cmvn_batch(ref, lens, device="cpu"),
+                             device="cpu"), rtol=0, atol=1e-4)
+
+    def test_cuda_recipe_step_matches_cpu(self, cuda, no_tf32, tmp_path):
+        from pychain_tpu_torch.data import pad_to_bucket
+        from pychain_tpu_torch.loss import dispatch_arrays
+        from pychain_tpu_torch.utils.optim import ClipAdam
+        tc, (keys, feats, nums, den) = _recipe_corpus(tmp_path)
+        B, P, D = 4, 20, feats[0].shape[1]
+        T = max(f.shape[0] for f in feats)
+        x, lens = pad_to_bucket(feats, list(range(B)), T)
+        results = []
+        for dev in (cuda, torch.device("cpu")):
+            model = tc.build_model("tdnn", P, D, device=dev)
+            opt = ClipAdam(tc.trainables(model), lr=1e-3, clip=5.0)
+            den_g = dispatch_arrays(pt.ChainGraphBatch(den, B, device=dev))
+            num_g = dispatch_arrays(pt.ChainGraphBatch(
+                nums[:B], max_num_transitions=T + 1, max_num_states=T + 2,
+                device=dev))
+            fk.reset_launch_counts()
+            loss = tc.train_step(model, opt, torch.from_numpy(x).to(dev),
+                                 lens, num_g, den_g)
+            if dev.type == "cuda":
+                assert fk.LAUNCHES["fact_fwd"] == fk.LAUNCHES["fact_bwd"] \
+                    == 1
+            results.append((float(loss), {k: v.detach().cpu() for k, v in
+                                          model.state_dict().items()}))
+        (lc, sc), (lh, sh) = results
+        assert abs(lc - lh) <= 1e-4 * abs(lh), (lc, lh)
+        for k, want in sh.items():
+            err = float(torch.linalg.vector_norm(sc[k] - want))
+            assert err <= 1e-4 * float(torch.linalg.vector_norm(want)), k

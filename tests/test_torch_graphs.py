@@ -187,3 +187,51 @@ def test_batched_views_match_jax(kind):
     jb.reorder([2, 0, 1])
     pb.reorder([2, 0, 1])
     _assert_views(jb, pb, "after reorder")
+
+
+@pytest.mark.parametrize("log_domain", [False, True],
+                         ids=["prob-domain", "log-domain"])
+def test_from_compiled_matches_jax(log_domain):
+    """ChainGraph.from_compiled (no FST) against the JAX package's: the
+    graph's arrays, its leaky and initial probabilities, and the batched
+    views of a batch built from it."""
+    import pychain_tpu as jp
+    import pychain_tpu_torch as pt
+    fst = (testgraphs.denominator_fst(num_phones=8, seed=4)[0]
+           if not log_domain else
+           testgraphs.random_fst(num_states=9, num_pdfs=6, seed=5))
+    cg = compiler.compile_fst(fst, log_domain)
+    jcg = j_compiler.compile_fst(fst, log_domain)
+    S = cg.num_states
+    if log_domain:
+        init = np.full(S, -np.inf, np.float32)
+        init[cg.start_state] = 0.0
+        leaky = None
+    else:
+        leaky = compiler.leaky_probs(fst)
+        init = leaky.copy()
+    g = pt.ChainGraph.from_compiled(cg, init, leaky)
+    jg = jp.ChainGraph.from_compiled(jcg, init, leaky)
+    for name in ("num_states", "num_transitions", "start_state",
+                 "num_pdfs", "log_domain"):
+        assert getattr(g, name) == getattr(jg, name), name
+    for name in ("forward_transitions", "forward_transition_probs",
+                 "forward_transition_indices", "backward_transitions",
+                 "backward_transition_probs", "backward_transition_indices",
+                 "final_probs", "initial_probs", "leaky_probs"):
+        want = getattr(jg, name)
+        if want is None:
+            assert getattr(g, name) is None, name
+            continue
+        got = np.asarray(getattr(g, name))
+        assert got.dtype == np.asarray(want).dtype, name
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=name)
+    if log_domain:
+        jb = jp.ChainGraphBatch([jg], max_num_transitions=S * 4,
+                                max_num_states=S + 1)
+        pb = pt.ChainGraphBatch([g], max_num_transitions=S * 4,
+                                max_num_states=S + 1, device="cpu")
+    else:
+        jb = jp.ChainGraphBatch(jg, 2)
+        pb = pt.ChainGraphBatch(g, 2, device="cpu")
+    _assert_views(jb, pb, "from_compiled")

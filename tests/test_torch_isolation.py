@@ -36,7 +36,9 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.decode, pychain_tpu_torch.simplefst, "
             "pychain_tpu_torch.graphs.builder, "
             "pychain_tpu_torch.tools.xl_roofline, pychain_tpu_torch.models, "
-            "pychain_tpu_torch.utils.checkpoint;"
+            "pychain_tpu_torch.utils.checkpoint, pychain_tpu_torch.data, "
+            "pychain_tpu_torch.csrc.native, pychain_tpu_torch.utils.optim, "
+            "pychain_tpu_torch.examples.train_corpus;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

@@ -146,7 +146,7 @@ def test_bf16_carry_does_not_depend_on_the_order_of_the_sums(name):
 def _bf16_carry(normaliser, S=1000, K=3200, T=512, B=8):
     """The bf16 form's carry at the tool's default size, sum a taken by
     ``normaliser(a) -> (B, 1) float32``."""
-    src, dst, w = xr.inputs(S, K, B)
+    src, dst, w = xr.inputs(S, K, B, device="cpu")
     rows = torch.arange(B).unsqueeze(1) * S
     flat_src = (src.long() + rows).reshape(-1)
     flat_dst = (dst.long() + rows).reshape(-1)
@@ -303,7 +303,7 @@ def test_three_bf16_terms_hold_a_float32_exactly():
 # ----------------------------------------------------------------------
 
 def test_inputs_are_the_tools_draws():
-    src, dst, w = xr.inputs(30, 70, 3)
+    src, dst, w = xr.inputs(30, 70, 3, device="cpu")
     rng = np.random.RandomState(0)      # tools/xl_roofline.py:157-160
     np.testing.assert_array_equal(src.numpy(), rng.randint(0, 30, (3, 70)))
     np.testing.assert_array_equal(dst.numpy(), rng.randint(0, 30, (3, 70)))
@@ -335,10 +335,12 @@ def test_default_device_without_a_card_raises():
         xr.probe(20, 45, 2, 1, 1, device=None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         xr.main(["--s", "20", "--k", "45", "--t", "2", "--b", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xr.inputs(10, 16, 2)
 
 
 def test_runners_reject_bad_inputs():
-    src, dst, w = xr.inputs(10, 16, 2)
+    src, dst, w = xr.inputs(10, 16, 2, device="cpu")
     for run in xr.RUNNERS.values():
         with pytest.raises(ValueError, match="lie in"):
             run(src, dst, w, 5, 2)                     # ids past S
