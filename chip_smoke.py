@@ -183,6 +183,26 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    stream, the fast form bit for bit; the semiring pair in (b)'s flat and
    constrained stages: sr_class; viterbi at (a)'s decoder and (b)'s
    realignment: bit for bit) and timed there;
+12c. main path 7, long utterances: bench.py --long --big's
+   configuration unchanged (bench.py:66-83, 453-463: the headline graph,
+   B=64, T=3,700, all lengths T, bfloat16 tiles), its step the value and
+   gradient of the denominator objective through chain_function: under
+   "auto" (the card's budget: "full"; what it chose printed), then with
+   fact_kernels.stream_budget stubbed to one stream's bytes ("lean":
+   fact_fwd_snap_bf16, fact_bwd_lean_bf16) and to 1 byte ("ckpt" at the
+   default C=64: fact_fwd_snap_bf16 once, fact_fwd_init_bf16 and
+   fact_bwd_chunk_bf16 once a chunk), and forced (stream_mode="ckpt",
+   ckpt_chunk=96, which does not divide T); each mode's launches (every
+   count 0 before its run, read after), step ms (CUDA events, best of 3
+   after a warm-up), peak device memory, objf and its largest difference
+   from full; every kernel bit for bit against its plain version (the
+   full pair, the lean stream and backward, the snapshot rows, one
+   chunk's replay streams, the ckpt results at both chunks), each form's
+   time alone with its bytes bound and its plain version's time; the same
+   in float32 at T=1,000 (cut so the plain version's time stays small)
+   within the parity bars, the lean and ckpt results against the full
+   kernels' bit for bit (printed); bench.py --long (B=32, T=2,500) under
+   "auto": its mode, step ms, peak memory, the full pair bit for bit;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -208,7 +228,11 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    each with its plan and the float32 form's time in the same run; main
    path 6 has rows of its own, one for each kernel in each stage that
    launched it ("batch" or "size_class" "main path 6 (x)"), with that
-   stage's launches and the error, times and bound at its inputs;
+   stage's launches and the error, times and bound at its inputs; main
+   path 7 one for each form of B1/B2 in each stream mode, in both
+   precisions ("batch" "main path 7 ...", "stream_mode", "ckpt_chunk"),
+   with its launches in that mode's run (fact_fwd_init and
+   fact_bwd_chunk timed over all of a call's chunks, "ms_covers");
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -731,10 +755,9 @@ def fast_small(dev, leaky_c):
                     fa, px, lens, leaky_c, debug, f"{label} S_pad="
                     f"{fa.s_pad} {fa.xsrc_mode} diagonal entries {n_diag} "
                     f"ring {stages}", run))
-                check(fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
-                                      "fact_fwd_bf16": 1,
-                                      "fact_bwd_bf16": 1},
-                      f"{label}: launches {fk.LAUNCHES}")
+                check(fk.launched() == {"fact_fwd_bf16": 1,
+                                        "fact_bwd_bf16": 1},
+                      f"{label}: launches {fk.launched()}")
             g1 = run(px, lens, fa, leaky_c).gamma
             g2 = run(px, lens, fa, leaky_c).gamma
             torch.cuda.synchronize()
@@ -894,11 +917,15 @@ def check_smem():
             # the fast mode: a graph with bfloat16 tiles
             fa.w1 = types.SimpleNamespace(
                 operand_dtype=torch.bfloat16 if fast else torch.float32)
-            got.update({f"fact_bwd fast={fast} stages={k}":
-                        fk.smem_bytes(fa, k)["fact_bwd"] for k in (0, 1, 2)})
+            for lean in (0, 1):
+                got.update({f"fact_bwd fast={fast} lean={lean} stages={k}":
+                            fk.smem_bytes(fa, k, bool(lean))["fact_bwd"]
+                            for k in (0, 1, 2)})
+                want.update({
+                    f"fact_bwd fast={fast} lean={lean} stages={k}": c_size(
+                        "fact_bwd", s_pad, identity, k, fast, lean)
+                    for k in (0, 1, 2)})
             got[f"fact_fwd fast={fast}"] = fk.smem_bytes(fa)["fact_fwd"]
-            want.update({f"fact_bwd fast={fast} stages={k}": c_size(
-                "fact_bwd", s_pad, identity, k, fast) for k in (0, 1, 2)})
             want[f"fact_fwd fast={fast}"] = c_size("fact_fwd", s_pad,
                                                    identity, fast)
         # the cluster pair: the same shared memory in both precisions (the
@@ -981,8 +1008,8 @@ def check_smem():
                 check(py == c, f"viterbi smem S={S} K={K} T={T} P={P} "
                       f"{(res, st, bps, width)}: Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
-          "(fact_fwd, fact_bwd with a ring of 0, 1, 2 stages, in both "
-          "precisions, stream_* at "
+          "(fact_fwd, fact_bwd and fact_bwd_lean with a ring of 0, 1, 2 "
+          "stages, in both precisions, stream_* at "
           "C = 1, 2, 4, 8 and G = 1, 2, 4 in both precisions, xl_vpu, "
           "xl_mxu, semiring_* and "
           "viterbi at every layout their plans can choose)", flush=True)
@@ -1286,6 +1313,549 @@ def main_path_4(dev, leaky_c, counters):
     torch.cuda.empty_cache()
     return (errs, a_err, times, fact_bytes_ops(fa, kg, lens, T, P), plans,
             step_ms, launches, fast_rows, fast_step_ms, fast_launches)
+
+
+# ----------------------------------------------------------------------
+# Main path 7: long utterances (bench.py --long --big's denominator step)
+# ----------------------------------------------------------------------
+
+LONG_BIG = (64, 3700)   # bench.py --long --big (bench.py:66-83)
+LONG = (32, 2500)       # bench.py --long
+LONG_F32_T = 1000       # float32 at a cut T: the plain version's time
+ODD_CHUNK = 96          # a ckpt chunk that divides neither 3,700 nor 1,000
+
+
+@contextlib.contextmanager
+def card_budget(nbytes):
+    """fact_kernels.stream_budget stubbed to ``nbytes`` (None: the card's):
+    "auto" then takes the cheapest mode whose streams fit it."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    real = fk.stream_budget
+    if nbytes is not None:
+        fk.stream_budget = lambda device: nbytes
+    try:
+        yield
+    finally:
+        fk.stream_budget = real
+
+
+def event_ms(fn):
+    """fn() and its milliseconds on the card (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def den_step(x, lens, batch, budget=None):
+    """One value and gradient of the denominator objective through the
+    user's entry point, chain_function (bench.py:453-463: value_and_grad
+    of chain_function on the denominator batch), under "auto" with the
+    card's stream budget stubbed to ``budget`` when given."""
+    from pychain_tpu_torch.loss import chain_function
+    with card_budget(budget):
+        objf = chain_function(x, lens, batch)
+        objf.backward()
+    x.grad = None
+    return float(objf.detach())
+
+
+def step_stats(fn, reps=3):
+    """fn (one step) after a warm-up: (best ms, all ms, peak device
+    memory, the peak over the memory held before the steps)."""
+    fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = [event_ms(fn)[1] for _ in range(reps)]
+    peak = torch.cuda.max_memory_allocated()
+    return min(times), times, peak, peak - held
+
+
+def mode_bytes_ops(fa, kg, lens, T, P, C):
+    """What each kernel form must move and compute for one call in its
+    stream mode (fact_bytes_ops's terms: px at the pdfs the graph reads,
+    the graph, the streams at their type's size, s_t, alpha'(T_b), gamma,
+    the traces), per form: fact_fwd / fact_bwd (full), fact_fwd_snap at 1
+    (lean) and at C (ckpt), fact_bwd_lean (the alpha' stream and px in
+    place of the three streams, and W1's rows once more), and, summed over
+    the call's chunks, fact_fwd_init (the snapshots in, the streams out,
+    the graph once a chunk) and fact_bwd_chunk (the streams, the graph
+    and lists once a chunk, the beta' carry out and in).  Returns {form:
+    (bytes, ops)}."""
+    B, L = lens.shape[0], int(lens.sum())
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    entry = 2 if kg.diag else 4
+    s_pad, nnz = fa.s_pad, kg.nnz
+    val_bytes = 8 if kg.diag is None else 6
+    nnz_w1 = int((kg.resident[0][2] != 0).sum())
+    graph = nnz * val_bytes + (2 * s_pad * 4 if kg.diag else 0) \
+        + (s_pad + 1) * 8 + 4 * s_pad * 4
+    pdfs = set(kg.f_dst.tolist())
+    if kg.g_src is not None:
+        pdfs |= set(kg.g_src.tolist())
+    px_read = L * len(pdfs) * 4
+    stream = L * s_pad * entry
+    sums, last = B * T * 4, B * s_pad * 4
+    lists = (fa.p_pad + 1 + s_pad) * 4
+    gamma = B * T * P * 4 + 2 * B * T * 4
+    n_chunks = -(-T // C)
+    snaps = sum(int(n) // C for n in lens.tolist()) * s_pad * entry
+    fwd_ops = 2 * nnz * L + 7 * s_pad * L
+    bwd_ops = 2 * nnz * L + 15 * s_pad * L
+    return {
+        "fact_fwd": (px_read + graph + n_streams * stream + sums + last,
+                     fwd_ops),
+        "fact_bwd": (n_streams * stream + sums + graph + lists + gamma,
+                     bwd_ops),
+        "fact_fwd_snap lean": (px_read + graph + stream + sums + last,
+                               fwd_ops),
+        "fact_bwd_lean": (stream + px_read + sums + graph
+                          + nnz_w1 * val_bytes + lists + gamma,
+                          bwd_ops + 2 * nnz_w1 * L),
+        "fact_fwd_snap ckpt": (px_read + graph + snaps + sums + last,
+                               fwd_ops),
+        "fact_fwd_init": (px_read + n_chunks * graph + snaps
+                          + n_streams * stream, fwd_ops),
+        "fact_bwd_chunk": (n_streams * stream + snaps + sums
+                           + n_chunks * (graph + lists) + gamma
+                           + 2 * (n_chunks - 1) * B * (s_pad + 1) * 4,
+                           bwd_ops),
+    }
+
+
+def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
+    """Each kernel form alone on the card at this call's inputs (CUDA
+    events, the mean of ``reps`` calls): fact_fwd and fact_bwd (full),
+    fact_fwd_snap at 1 and fact_bwd_lean (lean), fact_fwd_snap at C and,
+    over all the call's chunks, fact_fwd_init and fact_bwd_chunk (ckpt),
+    each chunk's streams in buffers of their own.  Returns {form: ms}."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    B, T, P = px.shape
+    fwd_ms, bwd_ms = pair_times(fa, px, lens32, leaky_c, fk.fact_fwd,
+                                fk.fact_bwd, reps, plain=False)
+    out = {"fact_fwd": fwd_ms, "fact_bwd": bwd_ms}
+    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c)
+    _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
+    tot = tot.contiguous()
+    out["fact_fwd_snap lean"] = cuda_ms(
+        lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c), reps)
+    out["fact_bwd_lean"] = cuda_ms(
+        lambda: fk.fact_bwd_lean(lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0,
+                                 tot, debug=False), reps)
+    del ad1
+    snaps = fk.fact_fwd_snap(px, lens32, fa, leaky_c, C)[0]
+    out["fact_fwd_snap ckpt"] = cuda_ms(
+        lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c, C), reps)
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    entry = ad0.to(fk.stream_dtype(fa)).expand(B, fa.s_pad)
+    chunks = []
+    for k in range(snaps.shape[1]):
+        t0, n = k * C, min(C, T - k * C)
+        chunks.append((t0, entry if k == 0 else snaps[:, k - 1],
+                       s0.expand(B) if k == 0 else s_ys[:, t0 - 1],
+                       [torch.empty((B, n, fa.s_pad),
+                                    dtype=fk.stream_dtype(fa),
+                                    device=px.device)
+                        for _ in range(n_streams)]
+                       + [None] * (4 - n_streams)))
+
+    def replays():
+        for t0, ad_init, s_init, streams in chunks:
+            fk.fact_fwd_init(px, lens32, fa, leaky_c, t0, ad_init, s_init,
+                             streams)
+
+    outs = fk._outputs(B, T, P, px.device)
+    carry = (torch.empty((B, fa.s_pad), device=px.device),
+             torch.empty(B, device=px.device))
+
+    def backwards():
+        for t0, ad_init, _, streams in reversed(chunks):
+            fk.fact_bwd_chunk(lens32, fa, leaky_c, streams, s_ys, ad0, s0,
+                              tot, t0, ad_init, outs, carry, debug=False)
+
+    out["fact_fwd_init"] = cuda_ms(replays, reps)
+    out["fact_bwd_chunk"] = cuda_ms(backwards, reps)
+    return out
+
+
+def plain_ckpt_pieces(px, lens64, fa, leaky_c, C, graph, alpha_dash, s_ys,
+                      tot, probe=None):
+    """The plain fast version of the ckpt mode's chunk scan
+    (factorized.forward_backward_prob_ckpt's fast branch) on the first
+    sweep's snapshots (alpha_dash[k C]), its replays and its chunk
+    backwards timed apart.  ``probe``: a chunk whose replay streams are
+    returned.  Returns (gamma (B, T, P), alpha_beta, gamma_sum, replay
+    ms, backward ms, the probe chunk's (alpha' rows, W1 alpha' rows))."""
+    from pychain_tpu_torch.ops import factorized as pf
+    B, T, P = px.shape
+    px_tm = px.permute(1, 2, 0)
+    _, s0 = pf.initial_alpha(fa, leaky_c)
+    carry = (torch.zeros((fa.s_pad, B), device=px.device),
+             torch.zeros(B, device=px.device))
+    n_chunks = -(-T // C)
+    gammas, abs_, gss = [None] * n_chunks, [None] * n_chunks, \
+        [None] * n_chunks
+    fwd_ms = bwd_ms = 0.0
+    probed = None
+    for k in range(n_chunks - 1, -1, -1):
+        t0, n = k * C, min(C, T - k * C)
+        entry = pf._bf(alpha_dash[t0])
+        s_init = s0.expand(B) if k == 0 else s_ys[:, t0 - 1]
+
+        def replay():
+            ad_c, w1_c = [entry], []
+            for _, _, own, w1a, _, _ in pf._fast_frames(
+                    px_tm, lens64, fa, leaky_c, graph, pf.block_sum, t0, n,
+                    entry, s_init):
+                ad_c.append(pf._bf(own))
+                w1_c.append(pf._bf(w1a))
+            return ad_c, w1_c
+
+        (ad_c, w1_c), ms = event_ms(replay)
+        fwd_ms += ms
+        if k == probe:
+            probed = (torch.stack(ad_c[1:]), torch.stack(w1_c))
+        out, ms = event_ms(lambda: pf._fast_back(
+            px_tm, lens64, fa, leaky_c, ad_c, w1_c, s_ys, tot, graph, None,
+            t0, n, *carry))
+        bwd_ms += ms
+        gammas[k], abs_[k], gss[k] = (torch.stack(v, dim=i) for v, i in
+                                      zip(out[:3], (0, 1, 1)))
+        carry = out[3:]
+    gamma = pf.gamma_batch_major(torch.cat(gammas, dim=0), P)
+    return (gamma, torch.cat(abs_, dim=1), torch.cat(gss, dim=1), fwd_ms,
+            bwd_ms, probed)
+
+
+def bit_diff(got, ref, names=("objf", "gamma", "alpha_beta", "gamma_sum")):
+    """Entries of each result field that differ (``got`` a FwdBwdResult;
+    ``ref`` a FwdBwdResult or a dict of tensors)."""
+    field = lambda r, k: r[k] if isinstance(r, dict) else getattr(r, k)
+    return {k: int((field(got, k) != field(ref, k)).sum()) for k in names}
+
+
+def mode_steps(label, x, lens, batch, leaky_c, counters):
+    """Each stream mode's step on x (B, T, P), a leaf: through the user's
+    entry point, chain_function, under "auto" with the card's budget
+    ("full"), then with a budget of one stream ("lean") and of one byte
+    ("ckpt" at the default C); then the ckpt mode forced at a chunk that
+    does not divide T (stream_mode=, ckpt_chunk=, as
+    forward_backward_prob_pallas's callers ask: clamp, exp and the
+    kernels, as chain_function runs them, without autograd).  Every count
+    0 before each mode's first step, read after it, and checked.  Returns
+    {mode: objf, launches, best ms (of 3 after a warm-up), all ms, peak
+    memory, the peak over what was held before}."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    fa = batch._fact
+    B, T, _ = x.shape
+    C = fk.ckpt_chunk_length(T)
+    row = T * fa.s_pad * B * fk.stream_dtype(fa).itemsize
+    lens_dev = lens.to(x.device)
+    sfx = "_bf16" if fk.stream_dtype(fa) == torch.bfloat16 else ""
+    odd = f"ckpt C={ODD_CHUNK}"
+
+    def odd_step():
+        with torch.no_grad():
+            r = fk.forward_backward_prob_kernel(
+                torch.exp(torch.clamp(x, -30.0, 30.0)), lens_dev, fa, leaky_c,
+                debug=False, stream_mode="ckpt", ckpt_chunk=ODD_CHUNK)
+        return float(r.objf.sum())
+
+    steps = {"full": (None, "the card's"), "lean": (row, "one stream's"),
+             "ckpt": (1, "one byte's")}
+    stats = {}
+    for mode in ("full", "lean", "ckpt", odd):
+        if mode == odd:
+            fn, how = odd_step, (f"stream_mode=\"ckpt\", ckpt_chunk="
+                                 f"{ODD_CHUNK}, no autograd")
+        else:
+            stub, name = steps[mode]
+            fn = functools.partial(den_step, x, lens, batch, stub)
+            how = f"chain_function, auto under {name} budget"
+        reset_counts(counters)
+        objf = fn()
+        launched = fk.launched()
+        best, times, peak, over = step_stats(fn)
+        stats[mode] = {"objf": objf, "launches": launched, "ms": best,
+                       "all_ms": times, "peak": peak, "over_held": over}
+        print(f"# {label} {mode} ({how}): objf {objf!r}; launches "
+              f"{launched}; step ms {best:.3f} (best of "
+              f"{[round(t, 3) for t in times]}, CUDA events); peak device "
+              f"memory {peak / 1e9:.3f} GB, {over / 1e9:.3f} GB over what "
+              "was held before the step", flush=True)
+        n = -(-T // (ODD_CHUNK if mode == odd else C))
+        want = ({"fact_fwd": 1, "fact_bwd": 1} if mode == "full" else
+                {"fact_fwd_snap": 1, "fact_bwd_lean": 1} if mode == "lean"
+                else {"fact_fwd_snap": 1, "fact_fwd_init": n,
+                      "fact_bwd_chunk": n})
+        want = {k + sfx: v for k, v in want.items()}
+        check(launched == want, f"{label} {mode}: launches {launched}, want "
+              f"{want}")
+    return stats
+
+
+def long_fast(den, P, dev, leaky_c, counters):
+    """Main path 7 at bench.py --long --big's width in the fast mode: see
+    main_path_7.  Returns (per-mode stats, kernel rows' fields)."""
+    from pychain_tpu_torch import ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import factorized as pf
+    B, T = LONG_BIG
+    t0 = time.perf_counter()
+    batch = ChainGraphBatch(den, B, tile_dtype="bfloat16", device=dev)
+    fa = batch._fact
+    kg = fk.graph_for(fa)
+    C = fk.ckpt_chunk_length(T)
+    row = T * fa.s_pad * B * 2
+    budget = fk.stream_budget(dev)
+    auto = fk.resolve_stream_mode(T, B, fa, budget=budget, on_card=True)
+    label = f"main path 7 (bench.py --long --big: B={B}, T={T}, bfloat16)"
+    print(f"# {label}: S_pad={fa.s_pad} xsrc_mode={fa.xsrc_mode}, built in "
+          f"{time.perf_counter() - t0:.1f} s; streams a call: full 3 x {row} "
+          f"B, lean {row} B, ckpt {-(-T // C)} snapshots "
+          f"({-(-T // C) * B * fa.s_pad * 2} B) and one chunk's 3 streams "
+          f"({3 * C * fa.s_pad * B * 2} B) at C={C}; "
+          f"the card's budget {budget} B: auto -> {auto} (the JAX package's "
+          f"4 GiB -> {fk.resolve_stream_mode(T, B, fa)})", flush=True)
+    check(auto == "full", f"{label}: auto chose {auto} under {budget} B")
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(70), device=dev).requires_grad_(True)
+    lens = torch.full((B,), T, dtype=torch.int32)
+    lens32, lens64 = lens.to(dev), lens.to(dev).long()
+    stats = mode_steps(label, x, lens, batch, leaky_c, counters)
+    # every mode forced, for the comparisons
+    px = torch.exp(torch.clamp(x.detach(), -30.0, 30.0))
+    del x
+    res = {}
+    for key, mode, chunk in (("full", "full", None), ("lean", "lean", None),
+                             ("ckpt", "ckpt", None),
+                             (f"ckpt C={ODD_CHUNK}", "ckpt", ODD_CHUNK)):
+        res[key] = fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, stream_mode=mode, ckpt_chunk=chunk)
+        r = res[key]
+        check(tuple(r.gamma.shape) == (B, T, P) and bool(r.ok.all())
+              and bool(torch.isfinite(r.objf).all()),
+              f"{label} {key}: shape {tuple(r.gamma.shape)}, ok "
+              f"{int(r.ok.sum())}/{B}")
+        if key != "full":
+            stats[key]["vs_full"] = {
+                "objf_rel": rel(r.objf, res["full"].objf),
+                "gamma_abs": absmax(r.gamma, res["full"].gamma)}
+    for key in ("lean", "ckpt", f"ckpt C={ODD_CHUNK}"):
+        print(f"# {label} {key} against full: {stats[key]['vs_full']}",
+              flush=True)
+    # each kernel against its plain version, bit for bit
+    graph = pf._fast_graph(fa)
+    px_tm = px.permute(1, 2, 0)
+    (alpha_dash, w1_alpha, s_plain, objf_p, tot_p), fwd_plain_ms = event_ms(
+        lambda: pf.forward_prob_fast(px_tm, lens64, fa, leaky_c, graph))
+    full_p, full_bwd_ms = event_ms(lambda: pf.backward_prob_fast(
+        px_tm, lens64, fa, leaky_c, alpha_dash, w1_alpha, s_plain, tot_p,
+        graph))
+    del w1_alpha
+    want_full = {"objf": objf_p,
+                 "gamma": pf.gamma_batch_major(full_p[0], P),
+                 "alpha_beta": full_p[1], "gamma_sum": full_p[2]}
+    del full_p
+    diffs = {"full": bit_diff(res["full"], want_full)}
+    del want_full
+    ad1, s1 = fk.fact_fwd_snap(px, lens32, fa, leaky_c)[:2]
+    diffs["fact_fwd_snap lean"] = {
+        "alpha'": int((ad1.float() != alpha_dash[1:].permute(2, 0, 1))
+                      .sum()),
+        "s_t": int((s1 != s_plain).sum())}
+    del ad1
+    lean_p, lean_bwd_ms = event_ms(lambda: pf.backward_prob_fast(
+        px_tm, lens64, fa, leaky_c, alpha_dash, None, s_plain, tot_p, graph))
+    diffs["lean"] = bit_diff(res["lean"], {
+        "objf": objf_p, "gamma": pf.gamma_batch_major(lean_p[0], P),
+        "alpha_beta": lean_p[1], "gamma_sum": lean_p[2]})
+    del lean_p
+    snaps, s64 = fk.fact_fwd_snap(px, lens32, fa, leaky_c, C)[:2]
+    (snaps_p, _, s64_p, _, _), snap_plain_ms = event_ms(
+        lambda: pf.forward_prob_fast(px_tm, lens64, fa, leaky_c, graph,
+                                     snap=C))
+    n_chunks = -(-T // C)
+    diffs["fact_fwd_snap ckpt"] = {
+        "snapshots": int((snaps[:, :n_chunks - 1].float()
+                          != snaps_p[1:].permute(2, 0, 1)).sum()),
+        "s_t": int((s64 != s_plain).sum()) + int((s64_p != s_plain).sum()),
+        "plain snapshots": int((snaps_p[1:] != alpha_dash[C::C][
+            :n_chunks - 1]).sum())}
+    del snaps_p
+    probe = n_chunks // 2
+    g, ab, gs, init_plain_ms, chunk_plain_ms, (ad_pr, w1_pr) = \
+        plain_ckpt_pieces(px, lens64, fa, leaky_c, C, graph, alpha_dash,
+                          s_plain, tot_p, probe=probe)
+    diffs["ckpt"] = bit_diff(res["ckpt"], {
+        "objf": objf_p, "gamma": g, "alpha_beta": ab, "gamma_sum": gs})
+    del g, ab, gs, alpha_dash
+    t0p, n = probe * C, min(C, T - probe * C)
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    streams = [torch.empty((B, n, fa.s_pad), dtype=torch.bfloat16,
+                           device=dev) for _ in range(n_streams)]
+    streams += [None] * (4 - n_streams)
+    fk.fact_fwd_init(px, lens32, fa, leaky_c, t0p, snaps[:, probe - 1],
+                     s_plain[:, t0p - 1].contiguous(), streams)
+    diffs["fact_fwd_init"] = {
+        f"chunk {probe} alpha'": int((streams[0].float()
+                                      != ad_pr.permute(2, 0, 1)).sum()),
+        f"chunk {probe} W1 alpha'": int((streams[1].float()
+                                         != w1_pr.permute(2, 0, 1)).sum())}
+    del streams, ad_pr, w1_pr, snaps
+    odd, odd_plain_ms = event_ms(lambda: pf.forward_backward_prob_ckpt(
+        px, lens32, fa, leaky_c, ODD_CHUNK))
+    diffs[f"ckpt C={ODD_CHUNK}"] = bit_diff(res[f"ckpt C={ODD_CHUNK}"], odd)
+    del odd
+    print(f"# {label}: entries not bit-identical to the plain fast version "
+          f"{diffs}", flush=True)
+    check(all(v == 0 for d in diffs.values() for v in d.values()),
+          f"{label}: a kernel differs from its plain version: {diffs}")
+    del res
+    times = mode_kernel_times(fa, px, lens32, leaky_c, C)
+    costs = mode_bytes_ops(fa, kg, lens32, T, P, C)
+    plain = {"fact_fwd": fwd_plain_ms, "fact_bwd": full_bwd_ms,
+             "fact_fwd_snap lean": fwd_plain_ms,
+             "fact_bwd_lean": lean_bwd_ms,
+             "fact_fwd_snap ckpt": snap_plain_ms,
+             "fact_fwd_init": init_plain_ms,
+             "fact_bwd_chunk": chunk_plain_ms}
+    print(f"# {label} kernel ms (each alone; init and chunk over the call's "
+          f"{n_chunks} chunks): " + ", ".join(
+              f"{k} {v:.3f} (bound {bound(*costs[k])[0]:.4f}, plain "
+              f"{plain[k]:.1f})" for k, v in times.items()), flush=True)
+    del px
+    torch.cuda.empty_cache()
+    return stats, {k: {"ms": times[k], "plain_ms": plain[k],
+                       "bytes": costs[k][0], "ops": costs[k][1],
+                       "err": 0.0, "C": C, "n_chunks": n_chunks}
+                   for k in times}
+
+
+def long_f32(den, P, dev, leaky_c, counters):
+    """Main path 7's float32 part: the same graph at B=64 and a cut
+    T=LONG_F32_T (the plain version's time), each mode's step
+    (mode_steps), then each mode forced (stream_mode=) and held to the
+    plain version within the parity bars (in float32 the three modes'
+    plain versions are one function), the lean and ckpt results also
+    compared with the full kernels' bit for bit (printed).  Returns
+    (per-mode stats, kernel rows' fields)."""
+    from pychain_tpu_torch import ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    B, T = LONG_BIG[0], LONG_F32_T
+    batch = ChainGraphBatch(den, B, device=dev)
+    fa = batch._fact
+    kg = fk.graph_for(fa)
+    C = fk.ckpt_chunk_length(T)
+    label = f"main path 7 float32 (B={B}, T={T} cut from 3,700)"
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(71), device=dev).requires_grad_(True)
+    steps = mode_steps(label, x, torch.full((B,), T, dtype=torch.int32),
+                       batch, leaky_c, counters)
+    px = torch.exp(torch.clamp(x.detach(), -30.0, 30.0))
+    del x
+    lens = torch.full((B,), T, device=dev)
+    launches, errs, results = {}, {}, {}
+    for key, mode, chunk in (("full", "full", None), ("lean", "lean", None),
+                             ("ckpt", "ckpt", None),
+                             (f"ckpt C={ODD_CHUNK}", "ckpt", ODD_CHUNK)):
+        reset_counts(counters)
+        results[key] = fk.forward_backward_prob_kernel(
+            px, lens, fa, leaky_c, stream_mode=mode, ckpt_chunk=chunk)
+        torch.cuda.synchronize()
+        launches[key] = fk.launched()
+        errs[key] = compare(fa, px, lens, leaky_c, True, f"{label} {key}",
+                            functools.partial(fk.forward_backward_prob_kernel,
+                                              stream_mode=mode,
+                                              ckpt_chunk=chunk))
+    same = {k: bit_diff(results[k], results["full"])
+            for k in results if k != "full"}
+    print(f"# {label}: launches {launches}; entries that differ from the "
+          f"full kernels' (not gated) {same}", flush=True)
+    check(launches["lean"] == {"fact_fwd_snap": 1, "fact_bwd_lean": 1}
+          and launches["ckpt"] == {"fact_fwd_snap": 1,
+                                   "fact_fwd_init": -(-T // C),
+                                   "fact_bwd_chunk": -(-T // C)},
+          f"{label}: launches {launches}")
+    del results
+    times = mode_kernel_times(fa, px, lens.int(), leaky_c, C)
+    plain = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 1)
+    costs = mode_bytes_ops(fa, kg, lens, T, P, C)
+    fwd_err = max(errs[k]["objf_rel"] for k in errs)
+    bwd_err = max(max(e["gamma_abs"], e["alpha_beta_abs"],
+                      e["gamma_sum_abs"]) for e in errs.values())
+    rows = {}
+    for k, ms in times.items():
+        fwd = k.startswith("fact_fwd")
+        rows[k] = {"ms": ms, "plain_ms": plain[2 if fwd else 3],
+                   "bytes": costs[k][0], "ops": costs[k][1],
+                   "err": fwd_err if fwd else bwd_err, "C": C,
+                   "n_chunks": -(-T // C)}
+    print(f"# {label} kernel ms: " + ", ".join(
+        f"{k} {v['ms']:.3f} (bound {bound(v['bytes'], v['ops'])[0]:.4f})"
+        for k, v in rows.items()) + f"; plain fwd {plain[2]:.1f}, plain "
+        f"bwd {plain[3]:.1f} (the plain version of every mode in float32)",
+        flush=True)
+    del px
+    torch.cuda.empty_cache()
+    return steps, rows
+
+
+def long_auto(den, P, dev, leaky_c, counters):
+    """bench.py --long (B=32, T=2,500, bfloat16 tiles) under "auto"
+    through chain_function: the mode auto takes, the step's ms and peak
+    memory, and the full pair bit for bit against the plain fast
+    version."""
+    from pychain_tpu_torch import ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import factorized as pf
+    B, T = LONG
+    batch = ChainGraphBatch(den, B, tile_dtype="bfloat16", device=dev)
+    fa = batch._fact
+    label = f"main path 7 (bench.py --long: B={B}, T={T}, bfloat16)"
+    auto = fk.resolve_stream_mode(T, B, fa, budget=fk.stream_budget(dev),
+                                  on_card=True)
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(72), device=dev).requires_grad_(True)
+    lens = torch.full((B,), T, dtype=torch.int32)
+    reset_counts(counters)
+    objf = den_step(x, lens, batch)
+    launched = fk.launched()
+    best, times, peak, over = step_stats(lambda: den_step(x, lens, batch))
+    px = torch.exp(torch.clamp(x.detach(), -30.0, 30.0))
+    got = fk.forward_backward_prob_kernel(px, lens.to(dev), fa, leaky_c)
+    diff = bit_diff(got, pf.forward_backward_prob_fast(px, lens, fa,
+                                                       leaky_c))
+    print(f"# {label}: auto -> {auto}; objf {objf!r}; launches {launched}; "
+          f"step ms {best:.3f} (best of {[round(t, 3) for t in times]}); "
+          f"peak device memory {peak / 1e9:.3f} GB, {over / 1e9:.3f} GB over "
+          f"what was held; entries not bit-identical to the plain fast "
+          f"version {diff}", flush=True)
+    check(auto == "full" and launched == {"fact_fwd_bf16": 1,
+                                          "fact_bwd_bf16": 1}
+          and sum(diff.values()) == 0 and bool(got.ok.all()),
+          f"{label}: auto {auto}, launches {launched}, diff {diff}")
+    del x, px, got
+    torch.cuda.empty_cache()
+    return {"auto": auto, "objf": objf, "ms": best, "peak": peak,
+            "over_held": over, "launches": launched}
+
+
+def main_path_7(den, P, dev, leaky_c, counters):
+    """Main path 7, long utterances: bench.py --long --big's
+    configuration unchanged (the headline graph, B=64, T=3,700, all
+    lengths T, bfloat16 tiles), its step the value and gradient of the
+    denominator objective (bench.py:453-463)."""
+    stats, fast_rows = long_fast(den, P, dev, leaky_c, counters)
+    f32_stats, f32_rows = long_f32(den, P, dev, leaky_c, counters)
+    auto = long_auto(den, P, dev, leaky_c, counters)
+    return {"stats": stats, "fast_rows": fast_rows, "f32_stats": f32_stats,
+            "f32_rows": f32_rows, "long": auto}
 
 
 # ----------------------------------------------------------------------
@@ -1897,6 +2467,13 @@ def flat_start_fsts(B, num_phones, n_lo, n_hi, seed):
             flat_start_phones(B, num_phones, n_lo, n_hi, seed)]
 
 
+def want_launches(counters, **ones):
+    """Every count of ``counters`` 0 but those given."""
+    want = {k: 0 for c in counters for k in c}
+    want.update(ones)
+    return want
+
+
 def train_steps(loss_mod, x, x_lengths, nums, counters, want, label,
                 reset=True):
     """Three SGD steps with every launch count set to 0 just before
@@ -2165,8 +2742,8 @@ def realign(loss_mod, x, x_lengths, flat_batch, flat_phones, num_phones,
           " frames", flush=True)
     losses, step_ms, launches = train_steps(
         loss_mod, x, x_lengths, batch, counters,
-        {"fact_fwd": 1, "fact_bwd": 1, "fact_fwd_bf16": 0,
-         "fact_bwd_bf16": 0, "semiring_fwd": 1, "semiring_bwd": 1},
+        want_launches(counters, fact_fwd=1, fact_bwd=1, semiring_fwd=1,
+                      semiring_bwd=1),
         "main path 3 (constrained numerators)",
         reset=False)
     launches = {**launches, **vit_counter}
@@ -2938,8 +3515,7 @@ def main():
     x_lengths = torch.full((B,), T, dtype=torch.int32)
     _, step_ms, launches = train_steps(
         loss_mod, x, x_lengths, num_batch, (fk.LAUNCHES, sk.LAUNCHES),
-        {"fact_fwd": 1, "fact_bwd": 1, "fact_fwd_bf16": 0,
-         "fact_bwd_bf16": 0, "semiring_fwd": 0, "semiring_bwd": 0},
+        want_launches((fk.LAUNCHES, sk.LAUNCHES), fact_fwd=1, fact_bwd=1),
         "main path 1 (linear numerators)")
     profiled_step(loss_mod, x, x_lengths, num_batch, "linear numerators")
 
@@ -2957,8 +3533,8 @@ def main():
                     .manual_seed(5), device=dev).requires_grad_(True)
     _, flat_step_ms, flat_launches = train_steps(
         loss_mod, x, x_lengths, flat_batch, (fk.LAUNCHES, sk.LAUNCHES),
-        {"fact_fwd": 1, "fact_bwd": 1, "fact_fwd_bf16": 0,
-         "fact_bwd_bf16": 0, "semiring_fwd": 1, "semiring_bwd": 1},
+        want_launches((fk.LAUNCHES, sk.LAUNCHES), fact_fwd=1, fact_bwd=1,
+                      semiring_fwd=1, semiring_bwd=1),
         "main path 2 (flat-start numerators)")
     profiled_step(loss_mod, x, x_lengths, flat_batch,
                   "flat-start numerators")
@@ -3025,6 +3601,11 @@ def main():
     # of its kernels without TF32
     p6 = main_path_6((fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES),
                      B / (p5["step_ms"] / 1e3), tf32_defaults)
+    torch.cuda.empty_cache()
+
+    # -- phase 12c: main path 7, long utterances (bench.py --long --big) --
+    p7 = main_path_7(den, P, dev, leaky_c,
+                     (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES))
     torch.cuda.empty_cache()
 
     # -- phase 13: the XL roofline probe ----------------------------------
@@ -3105,6 +3686,46 @@ def main():
                 "entry_excess": r["entry_excess"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
                 "bytes": r["bytes"], "ops": r["ops"], "library_ms": None})
+    # B1/B2's forms on main path 7 (bench.py --long --big): each with its
+    # launches in its mode's run; fact_fwd_init and fact_bwd_chunk timed
+    # over all of a call's chunks
+    modes = {"fact_fwd": "full", "fact_bwd": "full",
+             "fact_fwd_snap lean": "lean", "fact_bwd_lean": "lean",
+             "fact_fwd_snap ckpt": "ckpt", "fact_fwd_init": "ckpt",
+             "fact_bwd_chunk": "ckpt"}
+    for fast, p7_rows in ((True, p7["fast_rows"]), (False, p7["f32_rows"])):
+        for key, r in p7_rows.items():
+            form = key.split()[0]
+            name = form + ("_bf16" if fast else "")
+            mode = modes[key]
+            launched = p7["stats" if fast else "f32_stats"][mode][
+                "launches"].get(name, 0)
+            line, fn = ((457, "_fwd_kernel_factory") if "fwd" in form
+                        else (768, "_bwd_kernel_factory"))
+            bms, by = bound(r["bytes"], r["ops"])
+            per_call = form in ("fact_fwd_init", "fact_bwd_chunk")
+            rows.append({
+                "name": name, "route": "cuda",
+                "batch": ("main path 7 (bench.py --long --big: B=64, "
+                          "T=3700)" if fast else "main path 7 float32 (B=64,"
+                          f" T={LONG_F32_T})"),
+                "stream_mode": mode,
+                "ckpt_chunk": r["C"] if mode == "ckpt" else None,
+                "source": f"pychain_tpu_torch/csrc/{form[:8]}.cu",
+                "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
+                "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, "
+                               f"{mode} stream mode"
+                               + (", bfloat16 tiles (fast mode)" if fast
+                                  else ""),
+                "launches": launched,
+                "launches_by_path": {"main path 7": launched},
+                "on_main_path": True,
+                "ms_covers": (f"one call: its {r['n_chunks']} chunk launches"
+                              if per_call else "one launch"),
+                "max_abs_err": r["err"], "max_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bms,
+                "bound_by": by, "bytes": r["bytes"], "ops": r["ops"],
+                "library_ms": None})
     # main path 2 runs the "semiring" class (the flat-start batch), main
     # path 3 its constrained batch ("xl" by the JAX package's rule); the
     # other rows are kernel checks at bench.py's and the tool's sizes
@@ -3258,6 +3879,18 @@ def main():
           f"realignment viterbi_align {align_ms:.3f}; main path 6 (the "
           f"recipe at bench.py's width, bfloat16 tiles) "
           f"{p6['bench']['utts_per_s']:.1f} utts/s")
+    st = p7["stats"]
+    print("# main path 7 (bench.py --long --big, B=64 T=3700 bfloat16; step "
+          "= denominator value and gradient): " + "; ".join(
+              f"{k} {v['ms']:.3f} ms, peak {v['peak'] / 1e9:.3f} GB "
+              f"({v['over_held'] / 1e9:.3f} GB over what was held), objf "
+              f"{v['objf']!r}" for k, v in st.items())
+          + "; float32 at T=1000: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms, {v['over_held'] / 1e9:.3f} GB over "
+              "what was held" for k, v in p7["f32_stats"].items())
+          + f"; bench.py --long (B=32 T=2500) auto -> {p7['long']['auto']} "
+          f"{p7['long']['ms']:.3f} ms, peak {p7['long']['peak'] / 1e9:.3f} "
+          "GB")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

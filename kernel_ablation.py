@@ -51,7 +51,7 @@ FWD = {
         ("stream_put(xdst_ys + o + s, x);", ""),
         ("if (xsrc_ys) stream_put(xsrc_ys + o + s, xs);", ""),
         ("stream_put(w1ad_ys + o + d, w1a);", ""),
-        ("stream_put(ad_ys + o + d, v);", "")],
+        ("stream_put(ad_ys + oa + d, v);", "")],
     "no_block_sum": [("block_sum<1>(part, red);", "__syncthreads();")],
 }
 BWD = {
@@ -65,7 +65,7 @@ BWD = {
     # the ring's copies and waits (the stages' contents are stale)
     "no_stream_fetch": [
         ("mbar_wait(bar + i % stages, (i / stages) & 1);", ""),
-        ("fetch(Tb - 1 - k);", ";"), ("fetch(u - stages);", ";")],
+        ("fetch(t_hi - 1 - k);", ";"), ("fetch(u - stages);", ";")],
     "no_gamma_scatter": [("if (p < n_pdf_lists) {", "if (false) {")],
     "no_gamma_writes": [("__stcs(g_row + p, gv);", "")],
 }

@@ -2,9 +2,9 @@
 // and fast mode.
 //
 // Replaces pychain_tpu/ops/pallas_fact.py::_bwd_kernel_factory (launched
-// there by _bwd_pallas), in its "full" stream mode and in both its
-// precisions, float32 (fact_bwd_launch) and the fast mode of bfloat16
-// tiles (fact_bwd_bf16_launch): it reads the streams fact_fwd.cu wrote.  Per frame u of
+// there by _bwd_pallas) in its three stream modes and in both its
+// precisions, float32 and the fast mode of bfloat16 tiles (the _bf16
+// entry points): it reads the streams fact_fwd.cu wrote.  Per frame u of
 // column b, from u = T_b - 1 down to 0:
 //
 //   beta'(T_b) = final / tot                  (injected at u = T_b - 1)
@@ -21,6 +21,26 @@
 // sum_p gamma(u): at every frame when `debug`, else at frame 0 only with
 // 1.0 at the other frames.  Past a column's end gamma is 0 and the
 // traces are 0 (debug) or 1.0; no stream row past the end is read.
+//
+// The stream modes (pallas_fact.py:475-545, :786-807):
+//
+// * fact_bwd ("full"): the rows of alpha', W1 alpha' and x_dst (x_src)
+//   that fact_fwd wrote;
+// * fact_bwd_lean ("lean", w1/ef/eg passed in, :488-492): alpha' rows
+//   alone (fact_fwd_snap at C = 1); it gathers x_dst(u) and x_src(u) from
+//   px itself, as fact_fwd does, and forms W1 alpha'(u) from W1's rows by
+//   destination (fact_fwd's operator, in fact_fwd's row loop: the same
+//   sums in the same order) over alpha'(u) held whole in shared memory.
+//   In the fast mode that product is a float32 sum of bfloat16 products
+//   plus the diagonal term of the stored (bfloat16) alpha', and is not
+//   rounded (:597-601), where the full mode reads fact_fwd's bfloat16 row;
+// * fact_bwd_chunk (the ckpt mode's chunks, ext_init and chunked,
+//   :475-545, :563-575): frames t0 .. t0 + n - 1 on the streams of
+//   fact_fwd_init for that chunk (local rows u - t0), alpha'(t0) from the
+//   snapshot (ad_init) in place of ad0, beta' and its leaky sum carried
+//   in from the chunk above (bd_io, leak_io) unless T_b - 1 lies in the
+//   chunk, and out to the chunk below; gamma and the traces go to the
+//   chunk's frames of the whole (B, T, P) / (B, T) outputs.
 //
 // Design.  As in the forward kernel: one block per batch column running
 // the whole reverse time loop, W1^T and W2^T as sliced-ELL rows by source
@@ -49,7 +69,13 @@
 // where only one fits (S_pad 8,064), none past that, the rows then read
 // where the frame needs them (__ldcs); the wrapper picks it
 // (fact_kernels.ring_stages) and the resident tier's limits are those
-// without a ring (S_pad 14,464 in identity mode, else 11,520).
+// without a ring (S_pad 14,464 in identity mode, else 11,520).  The lean
+// mode's ring holds alpha'(u) alone, and its frame holds alpha'(u),
+// x_dst(u) and x_src(u) as float32 vectors besides, two or three S_pad
+// floats more: its limit without a ring is S_pad 9,600 in identity mode,
+// else 7,168; two stages to 7,168 / 5,760 (fast mode 8,192 / 6,400).
+// fact_kernels.resolve_stream_mode takes the ckpt mode where "auto" would
+// choose a lean kernel that does not fit.
 //
 // Bound on an H100 at the headline size (S_pad = 3072, P = 3000,
 // B = 128, T = 500): the sweep must read the three (T, S_pad, B) float32
@@ -65,6 +91,11 @@
 // slot-warp) and the gathers (1.4 a slot-warp in bank order, 3.1 in
 // ascending order); the bank order saved 0.31 ms where that model
 // predicted 0.85, so it is not the whole bound (PERF.md, open questions).
+// At bench.py --long --big (B = 64, T = 3,700, the headline graph,
+// bfloat16 streams, gamma float32: 2.84 GB) fact_bwd_bf16 and the ckpt
+// mode's 58 fact_bwd_chunk_bf16 together must move 7.2 GB (2.15 ms), the
+// lean mode's fact_bwd_lean_bf16 the alpha' stream, px and gamma, 7.1 GB
+// (2.13 ms), and do the W1 product once more (0.05 ms of operations).
 //
 // The fast mode reads the bfloat16 streams fact_fwd.cu wrote in that mode
 // (through the ring, whose bulk copies are then rows of 2 S_pad bytes, or
@@ -84,23 +115,34 @@
 #include "fact_common.cuh"
 
 // Stream rows a frame reads: x_dst(u), W1 alpha'(u), alpha'(u) (the
-// forward sweep's row u - 1) and, outside identity mode, x_src(u).
+// forward sweep's row u - 1) and, outside identity mode, x_src(u); the
+// lean mode reads alpha'(u) alone.
 #define RING_XDST 0
 #define RING_W1AD 1
 #define RING_AD 2
 #define RING_XSRC 3
 
+// The forms of the entry points: fact_bwd, fact_bwd_lean, fact_bwd_chunk.
+enum BwdForm { BWD_FULL, BWD_LEAN, BWD_CHUNK };
+
 // S: the stream type, float (float32 mode) or __nv_bfloat16 (fast mode).
-template <typename S>
+// kForm: BWD_LEAN reads alpha' rows and px, the others the full mode's
+// streams; BWD_CHUNK runs frames t0 .. t0 + n - 1 with ad_init and the
+// carry.  The other forms' frame range and rows are compile-time
+// constants, so that fact_bwd compiles as it did before the other forms.
+template <typename S, int kForm>
 __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
-    const S* __restrict__ ad_ys,         // (B, T, S_pad) alpha'(u+1)
-    const S* __restrict__ w1ad_ys,       // (B, T, S_pad) W1 alpha'(u)
-    const S* __restrict__ xdst_ys,       // (B, T, S_pad)
-    const S* __restrict__ xsrc_ys,       // (B, T, S_pad) or null (identity)
+    const S* __restrict__ ad_ys,         // (B, ad_rows, S_pad) alpha'(u+1)
+    const S* __restrict__ w1ad_ys,       // (B, ad_rows, S_pad) W1 alpha'(u)
+    const S* __restrict__ xdst_ys,       // (B, ad_rows, S_pad)
+    const S* __restrict__ xsrc_ys,       // (B, ad_rows, S_pad) or null
+    const float* __restrict__ px,        // (B, T, P) (lean mode)
     const float* __restrict__ s_ys,      // (B, T) s_{u+1}
     const float* __restrict__ s0,        // (1,)
     const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
+    const S* __restrict__ ad_init,       // column b's alpha'(t0) at
+                                         // b * init_stride (BWD_CHUNK)
     const float* __restrict__ final_p,   // (S_pad,)
     const float* __restrict__ tot,       // (B,) sum(alpha'(T_b) * final)
     const float* __restrict__ leaky,     // (S_pad,)
@@ -108,6 +150,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     const float* __restrict__ w1t_val,       // W1 by source row
     const int* __restrict__ w2t_ptr, const int* __restrict__ w2t_col,
     const float* __restrict__ w2t_val,       // W2 by source row
+    const int* __restrict__ w1_ptr, const int* __restrict__ w1_col,
+    const float* __restrict__ w1_val,        // W1 by destination (lean)
+    const int* __restrict__ f_dst,       // (S_pad,) (lean mode)
+    const int* __restrict__ g_src,       // (S_pad,) or null (lean mode)
     const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
     const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
     const int* __restrict__ f_ptr, const int* __restrict__ f_states,
@@ -115,13 +161,21 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     const int* __restrict__ g_states,
     int n_pdf_lists, float leaky_c, int T, int P, int s_pad, int debug,
     int stages,                          // ring depth: 0, 1 or 2
+    int t0_arg, int n_arg, int rows_arg, int init_stride,
     float* __restrict__ gamma,           // (B, T, P)
     float* __restrict__ ab,              // (B, T)
-    float* __restrict__ gs) {            // (B, T)
+    float* __restrict__ gs,              // (B, T)
+    float* __restrict__ bd_io,           // (B, S_pad) beta' carry (BWD_CHUNK)
+    float* __restrict__ leak_io) {       // (B,) its leaky sum (BWD_CHUNK)
   constexpr bool kFast = sizeof(S) == 2;
+  constexpr bool kLean = kForm == BWD_LEAN;
+  constexpr bool kChunk = kForm == BWD_CHUNK;
+  const int t0 = kChunk ? t0_arg : 0;
+  const int n_frames = kChunk ? n_arg : T;
+  const int ad_rows = kChunk ? rows_arg : T;
   extern __shared__ float smem[];
-  const bool identity = xsrc_ys == nullptr;
-  const int rows = identity ? 3 : 4;      // stream rows a frame
+  const bool identity = kLean ? g_src == nullptr : xsrc_ys == nullptr;
+  const int rows = kLean ? 1 : identity ? 3 : 4;   // stream rows a frame
   // stages x rows x S_pad: frames' stream rows
   S* ring = reinterpret_cast<S*>(smem);
   unsigned long long* bar =    // one mbarrier a stage
@@ -131,30 +185,44 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   float* xb = bn + s_pad;      // x_dst * b: gathered by W1^T's rows
   float* c1 = xb + s_pad;      // posterior mass per state (E_f^T side)
   float* c2 = identity ? c1 : c1 + s_pad;   // E_g^T side
-  float* red = c2 + s_pad;     // block_sum scratch
+  // lean mode: alpha'(u) (gathered by W1's rows), x_dst(u) and x_src(u)
+  // (read by the row's owner)
+  float* av = c2 + s_pad;
+  float* xdv = av + s_pad;
+  float* xsv = identity ? xdv : xdv + s_pad;
+  float* red = kLean ? xsv + s_pad : c2 + s_pad;   // block_sum scratch
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int Tb = lengths[b];
   const size_t row0 = static_cast<size_t>(b) * T;
+  const int t_hi = min(t0 + n_frames, Tb);   // frames t0 .. t_hi - 1
 
-  // Frame u (the (Tb - 1 - u)-th of the column's reverse loop) reads its
-  // stream rows from stage (Tb - 1 - u) % stages; thread 0 fetches them
-  // `stages` frames ahead, one bulk copy a row.  Frame 0 reads alpha'(0)
-  // from ad0, so no row before row 0 (or past T_b - 1) is fetched.
+  // Frame u (the (t_hi - 1 - u)-th of the column's reverse loop) reads
+  // its stream rows from stage (t_hi - 1 - u) % stages; thread 0 fetches
+  // them `stages` frames ahead, one bulk copy a row.  Frame t0 takes
+  // alpha'(t0) from ad_init or ad0, so no row before the launch's first
+  // (or past T_b - 1) is fetched; in the lean mode frame t0 fetches
+  // nothing and does not wait.
   const unsigned long long policy = stages ? evict_first_policy() : 0ull;
   const unsigned row_bytes =
       static_cast<unsigned>(sizeof(S)) * static_cast<unsigned>(s_pad);
+  auto fetches = [&](int u) { return !kLean || u > t0; };
   auto fetch = [&](int u) {
-    const int k = (Tb - 1 - u) % stages;
+    const int k = (t_hi - 1 - u) % stages;
     S* st = ring + k * rows * s_pad;
-    const size_t o = (row0 + u) * s_pad;
-    mbar_expect_tx(bar + k, (u > 0 ? rows : rows - 1) * row_bytes);
+    const size_t o = (static_cast<size_t>(b) * ad_rows + (u - t0)) * s_pad;
+    if (kLean) {
+      mbar_expect_tx(bar + k, row_bytes);
+      bulk_load(st, ad_ys + o - s_pad, row_bytes, bar + k, policy);
+      return;
+    }
+    mbar_expect_tx(bar + k, (u > t0 ? rows : rows - 1) * row_bytes);
     bulk_load(st + RING_XDST * s_pad, xdst_ys + o, row_bytes, bar + k,
               policy);
     bulk_load(st + RING_W1AD * s_pad, w1ad_ys + o, row_bytes, bar + k,
               policy);
-    if (u > 0)
+    if (u > t0)
       bulk_load(st + RING_AD * s_pad, ad_ys + o - s_pad, row_bytes, bar + k,
                 policy);
     if (!identity)
@@ -163,65 +231,101 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   };
   if (tid == 0 && stages > 0) {
     for (int k = 0; k < stages; ++k) mbar_init(bar + k, 1);
-    for (int k = 0; k < stages && k < Tb; ++k) fetch(Tb - 1 - k);
+    for (int k = 0; k < stages && k < t_hi - t0; ++k)
+      if (fetches(t_hi - 1 - k)) fetch(t_hi - 1 - k);
   }
 
   // frames past the column's end
-  const size_t n_past = static_cast<size_t>(T - Tb) * P;
-  float* g_past = gamma + (row0 + Tb) * P;
+  const int past0 = max(Tb, t0), past1 = t0 + n_frames;
+  const size_t n_past = static_cast<size_t>(max(past1 - past0, 0)) * P;
+  float* g_past = gamma + (row0 + past0) * P;
   for (size_t i = tid; i < n_past; i += FACT_THREADS) g_past[i] = 0.0f;
   const float past_trace = debug ? 0.0f : 1.0f;
-  for (int u = Tb + tid; u < T; u += FACT_THREADS) {
+  for (int u = past0 + tid; u < past1; u += FACT_THREADS) {
     ab[row0 + u] = past_trace;
     gs[row0 + u] = past_trace;
   }
+  if (t_hi <= t0) return;      // the column ends before this launch
 
-  // injection at the last frame: beta'(T_b) = final / tot
-  const float tot_b = tot[b];
-  float inj[1] = {0.0f};
-  for (int s = tid; s < s_pad; s += FACT_THREADS) {
-    const float v = final_p[s] / tot_b;
-    bd[s] = v;
-    inj[0] = kFast ? __fadd_rn(inj[0], __fmul_rn(v, leaky[s]))
-                   : inj[0] + v * leaky[s];
+  float leak_sum;
+  if (!kChunk || Tb <= t0 + n_frames) {
+    // injection at the last frame: beta'(T_b) = final / tot
+    const float tot_b = tot[b];
+    float inj[1] = {0.0f};
+    for (int s = tid; s < s_pad; s += FACT_THREADS) {
+      const float v = final_p[s] / tot_b;
+      bd[s] = v;
+      inj[0] = kFast ? __fadd_rn(inj[0], __fmul_rn(v, leaky[s]))
+                     : inj[0] + v * leaky[s];
+    }
+    // also the barrier after which the mbarriers may be waited on
+    block_sum<1>(inj, red);
+    leak_sum = inj[0];
+  } else {
+    // beta'(t0 + n) and its leaky sum from the chunk above
+    for (int s = tid; s < s_pad; s += FACT_THREADS)
+      bd[s] = bd_io[static_cast<size_t>(b) * s_pad + s];
+    leak_sum = leak_io[b];
+    __syncthreads();
   }
-  // also the barrier after which the mbarriers may be waited on
-  block_sum<1>(inj, red);
-  float leak_sum = inj[0];
 
+  // alpha'(t0): the snapshot (stream type) or ad0
+  const S* init =
+      kChunk ? ad_init + static_cast<size_t>(b) * init_stride : nullptr;
   float part[3];
-  for (int u = Tb - 1; u >= 0; --u) {
+  for (int u = t_hi - 1; u >= t0; --u) {
     const float s_u = u == 0 ? *s0 : s_ys[row0 + u - 1];
     const float inv_s = 1.0f / s_u;
-    const S *xd_u, *w1a_u, *ad_u, *xs_u;   // ad_u: null at u = 0 (ad0)
+    // the frame's stream rows (the lean mode: alpha'(u) alone); ad_u is
+    // null at u = t0
+    const S *xd_u = nullptr, *w1a_u = nullptr, *ad_u = nullptr,
+            *xs_u = nullptr;
+    const int i = t_hi - 1 - u;
     if (stages > 0) {
-      const int i = Tb - 1 - u;
       const S* st = ring + (i % stages) * rows * s_pad;
-      mbar_wait(bar + i % stages, (i / stages) & 1);
-      xd_u = st + RING_XDST * s_pad;
-      w1a_u = st + RING_W1AD * s_pad;
-      ad_u = u == 0 ? nullptr : st + RING_AD * s_pad;
-      xs_u = identity ? xd_u : st + RING_XSRC * s_pad;
+      if (fetches(u)) mbar_wait(bar + i % stages, (i / stages) & 1);
+      if (u > t0) ad_u = kLean ? st : st + RING_AD * s_pad;
+      if (!kLean) {
+        xd_u = st + RING_XDST * s_pad;
+        w1a_u = st + RING_W1AD * s_pad;
+        xs_u = identity ? xd_u : st + RING_XSRC * s_pad;
+      }
     } else {
-      const size_t o = (row0 + u) * s_pad;
-      xd_u = xdst_ys + o;
-      w1a_u = w1ad_ys + o;
-      ad_u = u == 0 ? nullptr : ad_ys + o - s_pad;
-      xs_u = identity ? xd_u : xsrc_ys + o;
+      const size_t o = (static_cast<size_t>(b) * ad_rows + (u - t0)) * s_pad;
+      if (u > t0) ad_u = ad_ys + o - s_pad;
+      if (!kLean) {
+        xd_u = xdst_ys + o;
+        w1a_u = w1ad_ys + o;
+        xs_u = identity ? xd_u : xsrc_ys + o;
+      }
     }
     // a stream row's entry: from the ring, else read once from device
     // memory, evicted first
     auto row = [&](const S* r, int s) {
       return stages > 0 ? smem_get(r + s) : stream_get(r + s);
     };
-    auto alpha_at = [&](int s) { return u == 0 ? ad0[s] : row(ad_u, s); };
+    auto alpha_at = [&](int s) {
+      return u != t0 ? row(ad_u, s) : kChunk ? stream_get(init + s) : ad0[s];
+    };
+    const float* px_u = kLean ? px + (row0 + u) * P : nullptr;
     // the leaky term rounded on its own, then added (never fused into a
     // multiply-add: the plain fast version rounds the product first)
     const float cl = __fmul_rn(leaky_c, leak_sum);
     for (int s = tid; s < s_pad; s += FACT_THREADS) {
       const float v = __fadd_rn(bd[s], cl);
+      float x;
+      if (kLean) {
+        // x_dst and x_src as fact_fwd gathers them, and alpha'(u) for
+        // W1's rows (rounded where fact_fwd rounds its carry)
+        x = round_to<S>(__ldg(px_u + f_dst[s]));
+        xdv[s] = x;
+        if (!identity) xsv[s] = round_to<S>(__ldg(px_u + g_src[s]));
+        av[s] = round_to<S>(alpha_at(s));
+      } else {
+        x = row(xd_u, s);
+      }
       bn[s] = round_to<S>(v);
-      xb[s] = round_to<S>(row(xd_u, s) * v);
+      xb[s] = round_to<S>(x * v);
     }
     __syncthreads();
 
@@ -232,6 +336,20 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
       float w2t = sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn);
       float xbs = xb[s];
       const float ad = alpha_at(s);
+      // this row's x_dst(u), x_src(u) and W1 alpha'(u): the stream rows'
+      // entries, read where the full form always read them, or the lean
+      // form's own (W1 alpha'(u) by fact_fwd's row loop: the same rows,
+      // the same order; in the fast mode plus the diagonal term of
+      // alpha'(u), rounded on its own, and left unrounded)
+      float w1a_lean = 0.0f;
+      if (kLean) {
+        w1a_lean = sell_row_dot(w1_ptr, w1_col, w1_val, s, av);
+        if (kFast)
+          w1a_lean = __fadd_rn(w1a_lean, __fmul_rn(__ldg(diag1 + s), ad));
+      }
+      auto xd_at = [&]() { return kLean ? xdv[s] : row(xd_u, s); };
+      auto xs_at = [&]() { return kLean ? xsv[s] : row(xs_u, s); };
+      auto w1a_at = [&]() { return kLean ? w1a_lean : row(w1a_u, s); };
       float bdt;
       if (kFast) {
         // this row's unrounded b and x_dst * b (as the loop above made
@@ -241,12 +359,12 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
         // masses are unscaled: gamma is scaled by 1 / s_u after the pdf
         // sums (pallas_fact.py:620-628).
         const float v = __fadd_rn(bd[s], cl);
-        xbs = row(xd_u, s) * v;
+        xbs = xd_at() * v;
         w1t = __fadd_rn(w1t, __fmul_rn(__ldg(diag1 + s), xbs));
         w2t = __fadd_rn(w2t, __fmul_rn(__ldg(diag2 + s), v));
-        const float sw = __fmul_rn(row(xs_u, s), w2t);
+        const float sw = __fmul_rn(xs_at(), w2t);
         bdt = __fmul_rn(__fadd_rn(w1t, sw), inv_s);
-        const float m1 = __fmul_rn(xbs, row(w1a_u, s));
+        const float m1 = __fmul_rn(xbs, w1a_at());
         const float m2 = __fmul_rn(sw, ad);
         if (identity) {
           c1[s] = round_to<S>(__fadd_rn(m1, m2));
@@ -257,9 +375,9 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
         part[0] = __fadd_rn(part[0], __fmul_rn(bdt, leaky[s]));
         if (traces) part[1] = __fadd_rn(part[1], __fmul_rn(ad, bdt));
       } else {
-        const float sw = row(xs_u, s) * w2t;
+        const float sw = xs_at() * w2t;
         bdt = (w1t + sw) * inv_s;
-        const float m1 = xbs * row(w1a_u, s) * inv_s;
+        const float m1 = xbs * w1a_at() * inv_s;
         const float m2 = sw * ad * inv_s;
         if (identity) {
           c1[s] = m1 + m2;
@@ -274,7 +392,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     }
     __syncthreads();
     // the stage is read: refill it with frame u - stages' rows
-    if (tid == 0 && stages > 0 && u >= stages) {
+    if (tid == 0 && stages > 0 && u - stages >= t0 && fetches(u - stages)) {
       fence_proxy_async();
       fetch(u - stages);
     }
@@ -304,87 +422,107 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
       gs[row0 + u] = traces ? (kFast ? part[2] * inv_s : part[2]) : 1.0f;
     }
   }
+  // beta'(t0) and its leaky sum for the chunk below (each thread its own
+  // rows, as it wrote them)
+  if (kChunk && t0 > 0) {
+    for (int s = tid; s < s_pad; s += FACT_THREADS)
+      bd_io[static_cast<size_t>(b) * s_pad + s] = bd[s];
+    if (tid == 0) leak_io[b] = leak_sum;
+  }
 }
 
 extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages,
-                                      int fast) {
-  const size_t rows = identity ? 3 : 4;
+                                      int fast, int lean) {
+  const size_t rows = lean ? 1 : identity ? 3 : 4;
   const size_t entry = fast ? 2 : 4;   // a stream entry's bytes
-  return ((identity ? 4 : 5) * static_cast<size_t>(s_pad) + 3 * FACT_WARPS +
-          3) * sizeof(float) +
+  const size_t vectors =
+      (identity ? 4 : 5) + (lean ? (identity ? 2 : 3) : 0);
+  return (vectors * static_cast<size_t>(s_pad) + 3 * FACT_WARPS + 3) *
+             sizeof(float) +
          stages * (rows * s_pad * entry + sizeof(unsigned long long));
 }
 
-template <typename S>
+template <typename S, int kForm>
 static int fact_bwd_run(
     const void* lengths, const void* ad_ys, const void* w1ad_ys,
-    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
-    const void* s0, const void* ad0, const void* final_p, const void* tot,
-    const void* leaky, const void* w1t_ptr, const void* w1t_col,
-    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
-    const void* w2t_val, const void* diag1, const void* diag2,
-    const void* f_ptr, const void* f_states, const void* g_ptr,
-    const void* g_states, int n_pdf_lists, float leaky_c, int B, int T,
-    int P, int s_pad, int debug, int stages, void* gamma, void* ab, void* gs,
-    void* stream) {
-  const size_t smem = fact_bwd_smem_bytes(s_pad, xsrc_ys == nullptr, stages,
-                                          sizeof(S) == 2);
-  cudaError_t err = fact_set_smem(fact_bwd_kernel<S>, smem);
+    const void* xdst_ys, const void* xsrc_ys, const void* px,
+    const void* s_ys, const void* s0, const void* ad0, const void* ad_init,
+    const void* final_p, const void* tot, const void* leaky,
+    const void* w1t_ptr, const void* w1t_col, const void* w1t_val,
+    const void* w2t_ptr, const void* w2t_col, const void* w2t_val,
+    const void* w1_ptr, const void* w1_col, const void* w1_val,
+    const void* f_dst, const void* g_src, const void* diag1,
+    const void* diag2, const void* f_ptr, const void* f_states,
+    const void* g_ptr, const void* g_states, int n_pdf_lists, float leaky_c,
+    int B, int T, int P, int s_pad, int debug, int stages, int t0,
+    int n_frames, int ad_rows, int init_stride, void* gamma, void* ab,
+    void* gs, void* bd_io, void* leak_io, void* stream) {
+  constexpr bool kLean = kForm == BWD_LEAN;
+  const bool identity = kLean ? g_src == nullptr : xsrc_ys == nullptr;
+  const size_t smem =
+      fact_bwd_smem_bytes(s_pad, identity, stages, sizeof(S) == 2, kLean);
+  cudaError_t err = fact_set_smem(fact_bwd_kernel<S, kForm>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fact_bwd_kernel<S><<<B, FACT_THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  fact_bwd_kernel<S, kForm><<<B, FACT_THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(lengths), static_cast<const S*>(ad_ys),
       static_cast<const S*>(w1ad_ys), static_cast<const S*>(xdst_ys),
-      static_cast<const S*>(xsrc_ys), static_cast<const float*>(s_ys),
-      static_cast<const float*>(s0), static_cast<const float*>(ad0),
+      static_cast<const S*>(xsrc_ys), static_cast<const float*>(px),
+      static_cast<const float*>(s_ys), static_cast<const float*>(s0),
+      static_cast<const float*>(ad0), static_cast<const S*>(ad_init),
       static_cast<const float*>(final_p), static_cast<const float*>(tot),
       static_cast<const float*>(leaky), static_cast<const int*>(w1t_ptr),
       static_cast<const int*>(w1t_col), static_cast<const float*>(w1t_val),
       static_cast<const int*>(w2t_ptr), static_cast<const int*>(w2t_col),
-      static_cast<const float*>(w2t_val), static_cast<const float*>(diag1),
-      static_cast<const float*>(diag2), static_cast<const int*>(f_ptr),
-      static_cast<const int*>(f_states), static_cast<const int*>(g_ptr),
-      static_cast<const int*>(g_states), n_pdf_lists, leaky_c, T, P, s_pad,
-      debug, stages, static_cast<float*>(gamma), static_cast<float*>(ab),
-      static_cast<float*>(gs));
+      static_cast<const float*>(w2t_val), static_cast<const int*>(w1_ptr),
+      static_cast<const int*>(w1_col), static_cast<const float*>(w1_val),
+      static_cast<const int*>(f_dst), static_cast<const int*>(g_src),
+      static_cast<const float*>(diag1), static_cast<const float*>(diag2),
+      static_cast<const int*>(f_ptr), static_cast<const int*>(f_states),
+      static_cast<const int*>(g_ptr), static_cast<const int*>(g_states),
+      n_pdf_lists, leaky_c, T, P, s_pad, debug, stages, t0, n_frames,
+      ad_rows, init_stride, static_cast<float*>(gamma),
+      static_cast<float*>(ab), static_cast<float*>(gs),
+      static_cast<float*>(bd_io), static_cast<float*>(leak_io));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int fact_bwd_launch(
-    const void* lengths, const void* ad_ys, const void* w1ad_ys,
-    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
-    const void* s0, const void* ad0, const void* final_p, const void* tot,
-    const void* leaky, const void* w1t_ptr, const void* w1t_col,
-    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
-    const void* w2t_val, const void* f_ptr, const void* f_states,
-    const void* g_ptr, const void* g_states, int n_pdf_lists,
-    float leaky_c, int B, int T, int P, int s_pad, int debug, int stages,
-    void* gamma, void* ab, void* gs, void* stream) {
-  return fact_bwd_run<float>(
-      lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, final_p, tot,
-      leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr, w2t_col, w2t_val, nullptr,
-      nullptr, f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T,
-      P, s_pad, debug, stages, gamma, ab, gs, stream);
-}
+// Every entry point takes the same arguments and returns
+// cudaGetLastError() after the launch (0 on success).  The float32 forms
+// ignore diag1 and diag2; the fast forms (_bf16) take bfloat16 streams,
+// the operators' off-diagonal entries alone (bfloat16 values held in
+// float32) and the float32 diagonals diag1 (W1's) and diag2 (W2's).
+// fact_bwd: the full mode (t0 0, n_frames T, no ad_init, no carry);
+// fact_bwd_chunk: one chunk of the ckpt mode; fact_bwd_lean: the lean
+// mode (px, W1's rows by destination, f_dst and g_src; no W1 alpha' or
+// emission streams).
+#define FACT_BWD_ENTRY(NAME, S, FORM)                                         \
+  extern "C" int NAME(                                                        \
+      const void* lengths, const void* ad_ys, const void* w1ad_ys,            \
+      const void* xdst_ys, const void* xsrc_ys, const void* px,               \
+      const void* s_ys, const void* s0, const void* ad0, const void* ad_init, \
+      const void* final_p, const void* tot, const void* leaky,                \
+      const void* w1t_ptr, const void* w1t_col, const void* w1t_val,          \
+      const void* w2t_ptr, const void* w2t_col, const void* w2t_val,          \
+      const void* w1_ptr, const void* w1_col, const void* w1_val,             \
+      const void* f_dst, const void* g_src, const void* diag1,                \
+      const void* diag2, const void* f_ptr, const void* f_states,             \
+      const void* g_ptr, const void* g_states, int n_pdf_lists,               \
+      float leaky_c, int B, int T, int P, int s_pad, int debug, int stages,   \
+      int t0, int n_frames, int ad_rows, int init_stride, void* gamma,        \
+      void* ab, void* gs, void* bd_io, void* leak_io, void* stream) {         \
+    return fact_bwd_run<S, FORM>(                                             \
+        lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, px, s_ys, s0, ad0,         \
+        ad_init, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr,     \
+        w2t_col, w2t_val, w1_ptr, w1_col, w1_val, f_dst, g_src, diag1, diag2, \
+        f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,      \
+        s_pad, debug, stages, t0, n_frames, ad_rows, init_stride, gamma, ab,  \
+        gs, bd_io, leak_io, stream);                                          \
+  }
 
-// The fast mode: bfloat16 streams, the operators' off-diagonal entries
-// alone (bfloat16 values held in float32), float32 diagonals diag1 (W1's)
-// and diag2 (W2's).
-extern "C" int fact_bwd_bf16_launch(
-    const void* lengths, const void* ad_ys, const void* w1ad_ys,
-    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
-    const void* s0, const void* ad0, const void* final_p, const void* tot,
-    const void* leaky, const void* w1t_ptr, const void* w1t_col,
-    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
-    const void* w2t_val, const void* diag1, const void* diag2,
-    const void* f_ptr, const void* f_states, const void* g_ptr,
-    const void* g_states, int n_pdf_lists, float leaky_c, int B, int T,
-    int P, int s_pad, int debug, int stages, void* gamma, void* ab, void* gs,
-    void* stream) {
-  return fact_bwd_run<__nv_bfloat16>(
-      lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, final_p, tot,
-      leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr, w2t_col, w2t_val, diag1,
-      diag2, f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,
-      s_pad, debug, stages, gamma, ab, gs, stream);
-}
+FACT_BWD_ENTRY(fact_bwd_launch, float, BWD_FULL)
+FACT_BWD_ENTRY(fact_bwd_bf16_launch, __nv_bfloat16, BWD_FULL)
+FACT_BWD_ENTRY(fact_bwd_lean_launch, float, BWD_LEAN)
+FACT_BWD_ENTRY(fact_bwd_lean_bf16_launch, __nv_bfloat16, BWD_LEAN)
+FACT_BWD_ENTRY(fact_bwd_chunk_launch, float, BWD_CHUNK)
+FACT_BWD_ENTRY(fact_bwd_chunk_bf16_launch, __nv_bfloat16, BWD_CHUNK)

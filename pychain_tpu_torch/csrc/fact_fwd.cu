@@ -1,10 +1,10 @@
 // Denominator alpha sweep on the factorized graph, float32 and fast mode.
 //
 // Replaces pychain_tpu/ops/pallas_fact.py::_fwd_kernel_factory (launched
-// there by _fwd_pallas), in its "full" stream mode and in both its
-// precisions: float32 ("parity", fact_fwd_launch) and the fast mode of
-// bfloat16 tiles (fact_fwd_bf16_launch).  Per frame t of column b (the
-// reference's "version 3" recurrence, chain-computation.h:109-155):
+// there by _fwd_pallas) in its three stream modes and in both its
+// precisions: float32 ("parity") and the fast mode of bfloat16 tiles
+// (the _bf16 entry points).  Per frame t of column b (the reference's
+// "version 3" recurrence, chain-computation.h:109-155):
 //
 //   x_dst = px_t[f_dst]            x_src = px_t[g_src]  (= x_dst in
 //                                                        identity mode)
@@ -14,6 +14,26 @@
 // and it writes the streams the backward sweep reads: alpha'(t+1),
 // W1 alpha'(t), x_dst(t) (and x_src(t) outside identity mode), all
 // (B, T, S_pad), plus s_t (B, T) and alpha' at the column's last frame.
+//
+// The stream modes (pallas_fact.py:786-807), one kernel each entry point:
+//
+// * fact_fwd ("full"): all of the above (emit_aux, :223-230);
+// * fact_fwd_snap ("lean" and the first sweep of "ckpt"): no W1 alpha' or
+//   emission rows, and alpha' only at the frames t with (t + 1) % C == 0,
+//   at row (t + 1) / C - 1 of a (B, ceil(T / C), S_pad) stream
+//   (snap_every, :419-431): C = 1 is the lean mode's alpha' stream, C > 1
+//   the ckpt mode's snapshots, alpha' at each chunk's last frame;
+// * fact_fwd_init (the ckpt mode's replay of one chunk, ext_init,
+//   :237-275): frames t0 .. t0 + n - 1 from the snapshot alpha'(t0) (the
+//   stream type's values) and s_{t0} in place of alpha'(0) and s_0,
+//   writing the full mode's streams for those frames alone, at local rows
+//   t - t0 of (B, n, S_pad) streams, and neither s_t nor alpha'(T_b).
+//
+// A launch covers frames t0 .. min(t0 + n, T_b) - 1 of each column.  In
+// float32 a replay from the snapshot computes what the full sweep
+// computed (the same carry, the same s_{t0}, the same arithmetic); in the
+// fast mode the snapshot is the bfloat16 alpha', whose unrounded carry
+// the replay does not have, as in the Pallas kernel.
 //
 // Design.  The TPU kernel multiplied W1's dense block (1664 x 1536 at the
 // headline graph, under 2% nonzero) on its matrix unit.  Here W1 and W2
@@ -50,6 +70,14 @@
 // next frame's px row by TMA and gathering from shared memory was 6%
 // slower (PERF.md).
 //
+// The other stream modes do the same arithmetic and move fewer bytes.
+// At bench.py --long --big (B = 64, T = 3,700, the headline graph,
+// bfloat16 streams) px is 2.84 GB (0.85 ms at 3.35 TB/s) and a stream
+// 1.45 GB: fact_fwd_bf16 must move 7.2 GB (2.15 ms), the lean mode's
+// fact_fwd_snap_bf16 4.3 GB (1.28 ms), the ckpt mode's snapshot sweep px
+// and 58 rows a column (0.86 ms), and its 58 replays (fact_fwd_init_bf16)
+// together px and the three streams (2.15 ms).
+//
 // The fast mode rounds where the Pallas kernel does with bfloat16 tiles
 // (pallas_fact.py:178-205, :283-313, :866): px to bfloat16 as it is read
 // (so x_dst and x_src are bfloat16 values; no extra pass over x), the
@@ -74,8 +102,16 @@
 
 #include "fact_common.cuh"
 
+// The forms of the entry points: fact_fwd, fact_fwd_snap, fact_fwd_init.
+enum FwdForm { FWD_FULL, FWD_SNAP, FWD_INIT };
+
 // S: the stream type, float (float32 mode) or __nv_bfloat16 (fast mode).
-template <typename S>
+// kForm: FWD_FULL and FWD_INIT write W1 alpha' and the emission rows,
+// FWD_SNAP alpha' alone at every snap-th frame; FWD_INIT starts from
+// ad_init / s_init at frame t0 and writes neither s_t nor alpha'(T_b).
+// The full form's frame range, rows and snap are compile-time constants,
+// so that it compiles as it did before the other forms.
+template <typename S, int kForm>
 __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
     const float* __restrict__ px,        // (B, T, P) exp'd nnet output
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
@@ -89,15 +125,26 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
     const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
     const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
     const float* __restrict__ s0,        // (1,) sum of the initial probs
+    const S* __restrict__ ad_init,       // column b's alpha'(t0) at
+                                         // b * init_stride (FWD_INIT)
+    const float* __restrict__ s_init,    // column b's s_{t0} at
+                                         // b * s_stride (FWD_INIT)
     const float* __restrict__ leaky,     // (S_pad,)
-    float leaky_c, int T, int P, int s_pad,
-    S* __restrict__ ad_ys,               // (B, T, S_pad) alpha'(t+1)
-    S* __restrict__ w1ad_ys,             // (B, T, S_pad) W1 alpha'(t)
-    S* __restrict__ xdst_ys,             // (B, T, S_pad)
-    S* __restrict__ xsrc_ys,             // (B, T, S_pad) or null
+    float leaky_c, int T, int P, int s_pad, int t0_arg, int n_arg,
+    int snap_arg, int rows_arg, int init_stride, int s_stride,
+    S* __restrict__ ad_ys,               // (B, ad_rows, S_pad) alpha'(t+1)
+    S* __restrict__ w1ad_ys,             // (B, ad_rows, S_pad) W1 alpha'(t)
+    S* __restrict__ xdst_ys,             // (B, ad_rows, S_pad)
+    S* __restrict__ xsrc_ys,             // (B, ad_rows, S_pad) or null
     float* __restrict__ s_ys,            // (B, T) s_{t+1}; 1 past the end
     float* __restrict__ ad_last) {       // (B, S_pad) alpha'(T_b)
   constexpr bool kFast = sizeof(S) == 2;
+  constexpr bool kAux = kForm != FWD_SNAP;
+  constexpr bool kInit = kForm == FWD_INIT;
+  const int t0 = kInit ? t0_arg : 0;
+  const int n_frames = kInit ? n_arg : T;
+  const int snap = kForm == FWD_SNAP ? snap_arg : 1;
+  const int ad_rows = kForm == FWD_FULL ? T : rows_arg;
   extern __shared__ float smem[];
   float* ad = smem;            // alpha' carry: gathered by W1's rows
   float* u = ad + s_pad;       // x_src * alpha': gathered by W2's rows
@@ -112,17 +159,31 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
   const int b = blockIdx.x;
   const int Tb = lengths[b];
   const size_t row0 = static_cast<size_t>(b) * T;
+  const int t_end = min(t0 + n_frames, Tb);
 
-  for (int s = tid; s < s_pad; s += FACT_THREADS) {
-    ad[s] = round_to<S>(ad0[s]);
-    // fast mode: a holds each row's unrounded carry between frames
-    if (kFast) a[s] = ad0[s];
+  float s_prev;
+  if (kInit) {
+    // re-entry from a snapshot: its values are the carry (rounded to the
+    // stream type already, so the fast mode's gathered copy equals it)
+    const S* init = ad_init + static_cast<size_t>(b) * init_stride;
+    for (int s = tid; s < s_pad; s += FACT_THREADS) {
+      const float v = stream_get(init + s);
+      ad[s] = v;
+      if (kFast) a[s] = v;
+    }
+    s_prev = s_init[static_cast<size_t>(b) * s_stride];
+  } else {
+    for (int s = tid; s < s_pad; s += FACT_THREADS) {
+      ad[s] = round_to<S>(ad0[s]);
+      // fast mode: a holds each row's unrounded carry between frames
+      if (kFast) a[s] = ad0[s];
+    }
+    s_prev = *s0;
   }
-  float s_prev = *s0;
 
-  for (int t = 0; t < Tb; ++t) {
+  for (int t = t0; t < t_end; ++t) {
     const float* px_t = px + (row0 + t) * P;
-    const size_t o = (row0 + t) * s_pad;
+    const size_t o = (static_cast<size_t>(b) * ad_rows + (t - t0)) * s_pad;
     for (int s = tid; s < s_pad; s += FACT_THREADS) {
       const float x = round_to<S>(__ldg(px_t + f_dst[s]));
       const float xs = g_src ? round_to<S>(__ldg(px_t + g_src[s])) : x;
@@ -133,8 +194,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
       } else {
         u[s] = xs * ad[s];
       }
-      stream_put(xdst_ys + o + s, x);
-      if (xsrc_ys) stream_put(xsrc_ys + o + s, xs);
+      if (kAux) {
+        stream_put(xdst_ys + o + s, x);
+        if (xsrc_ys) stream_put(xsrc_ys + o + s, xs);
+      }
     }
     __syncthreads();
 
@@ -157,25 +220,33 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
         av = (xd[d] * w1a + w2u) / s_prev;
       }
       a[d] = av;
-      stream_put(w1ad_ys + o + d, w1a);
+      if (kAux) stream_put(w1ad_ys + o + d, w1a);
       part[0] += av;
     }
     // also the barrier after which ad and u may be overwritten
     block_sum<1>(part, red);
     const float s_t = part[0];
     const float cs = leaky_c * s_t;
+    // alpha' is written at every snap-th frame (each frame but in the
+    // ckpt mode's snapshot sweep), at its row of ad_ys
+    const bool put = (t + 1) % snap == 0;
+    const size_t oa =
+        (static_cast<size_t>(b) * ad_rows + ((t + 1) / snap - 1 - t0 / snap)) *
+        s_pad;
     for (int d = tid; d < s_pad; d += FACT_THREADS) {
       const float v = kFast ? __fadd_rn(a[d], __fmul_rn(cs, leaky[d]))
                             : a[d] + cs * leaky[d];
       if (kFast) a[d] = v;
       ad[d] = round_to<S>(v);
-      stream_put(ad_ys + o + d, v);
-      if (t == Tb - 1) ad_last[static_cast<size_t>(b) * s_pad + d] = v;
+      if (put) stream_put(ad_ys + oa + d, v);
+      if (!kInit && t == Tb - 1)
+        ad_last[static_cast<size_t>(b) * s_pad + d] = v;
     }
-    if (tid == 0) s_ys[row0 + t] = s_t;
+    if (!kInit && tid == 0) s_ys[row0 + t] = s_t;
     s_prev = s_t;
   }
-  for (int t = Tb + tid; t < T; t += FACT_THREADS) s_ys[row0 + t] = 1.0f;
+  if (!kInit)
+    for (int t = Tb + tid; t < T; t += FACT_THREADS) s_ys[row0 + t] = 1.0f;
 }
 
 extern "C" size_t fact_fwd_smem_bytes(int s_pad, int identity, int fast) {
@@ -184,23 +255,22 @@ extern "C" size_t fact_fwd_smem_bytes(int s_pad, int identity, int fast) {
          sizeof(float);
 }
 
-template <typename S>
-static int fact_fwd_run(const void* px, const void* lengths,
-                        const void* f_dst, const void* g_src,
-                        const void* w1_ptr, const void* w1_col,
-                        const void* w1_val, const void* w2_ptr,
-                        const void* w2_col, const void* w2_val,
-                        const void* diag1, const void* diag2, const void* ad0,
-                        const void* s0, const void* leaky, float leaky_c,
-                        int B, int T, int P, int s_pad, void* ad_ys,
-                        void* w1ad_ys, void* xdst_ys, void* xsrc_ys,
-                        void* s_ys, void* ad_last, void* stream) {
+template <typename S, int kForm>
+static int fact_fwd_run(
+    const void* px, const void* lengths, const void* f_dst, const void* g_src,
+    const void* w1_ptr, const void* w1_col, const void* w1_val,
+    const void* w2_ptr, const void* w2_col, const void* w2_val,
+    const void* diag1, const void* diag2, const void* ad0, const void* s0,
+    const void* ad_init, const void* s_init, const void* leaky, float leaky_c,
+    int B, int T, int P, int s_pad, int t0, int n_frames, int snap,
+    int ad_rows, int init_stride, int s_stride, void* ad_ys, void* w1ad_ys,
+    void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* stream) {
   const size_t smem = fact_fwd_smem_bytes(s_pad, g_src == nullptr,
                                           sizeof(S) == 2);
-  cudaError_t err = fact_set_smem(fact_fwd_kernel<S>, smem);
+  cudaError_t err = fact_set_smem(fact_fwd_kernel<S, kForm>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fact_fwd_kernel<S><<<B, FACT_THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  fact_fwd_kernel<S, kForm><<<B, FACT_THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(px), static_cast<const int*>(lengths),
       static_cast<const int*>(f_dst), static_cast<const int*>(g_src),
       static_cast<const int*>(w1_ptr), static_cast<const int*>(w1_col),
@@ -208,42 +278,44 @@ static int fact_fwd_run(const void* px, const void* lengths,
       static_cast<const int*>(w2_col), static_cast<const float*>(w2_val),
       static_cast<const float*>(diag1), static_cast<const float*>(diag2),
       static_cast<const float*>(ad0), static_cast<const float*>(s0),
-      static_cast<const float*>(leaky), leaky_c, T, P, s_pad,
-      static_cast<S*>(ad_ys), static_cast<S*>(w1ad_ys),
-      static_cast<S*>(xdst_ys), static_cast<S*>(xsrc_ys),
-      static_cast<float*>(s_ys), static_cast<float*>(ad_last));
+      static_cast<const S*>(ad_init), static_cast<const float*>(s_init),
+      static_cast<const float*>(leaky), leaky_c, T, P, s_pad, t0, n_frames,
+      snap, ad_rows, init_stride, s_stride, static_cast<S*>(ad_ys),
+      static_cast<S*>(w1ad_ys), static_cast<S*>(xdst_ys),
+      static_cast<S*>(xsrc_ys), static_cast<float*>(s_ys),
+      static_cast<float*>(ad_last));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int fact_fwd_launch(
-    const void* px, const void* lengths, const void* f_dst,
-    const void* g_src, const void* w1_ptr, const void* w1_col,
-    const void* w1_val, const void* w2_ptr, const void* w2_col,
-    const void* w2_val, const void* ad0, const void* s0, const void* leaky,
-    float leaky_c, int B, int T, int P, int s_pad, void* ad_ys,
-    void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,
-    void* stream) {
-  return fact_fwd_run<float>(px, lengths, f_dst, g_src, w1_ptr, w1_col,
-                             w1_val, w2_ptr, w2_col, w2_val, nullptr,
-                             nullptr, ad0, s0, leaky, leaky_c, B, T, P,
-                             s_pad, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys,
-                             ad_last, stream);
-}
+// Every entry point takes the same arguments and returns
+// cudaGetLastError() after the launch (0 on success).  The float32 forms
+// ignore diag1 and diag2; the fast forms (_bf16) take bfloat16 streams,
+// the operators' off-diagonal entries alone (bfloat16 values held in
+// float32) and the float32 diagonals diag1 (W1's) and diag2 (W2's).
+// fact_fwd reads neither ad_init, s_init nor the frame range; fact_fwd_init
+// writes neither s_ys nor ad_last.
+#define FACT_FWD_ENTRY(NAME, S, FORM)                                         \
+  extern "C" int NAME(                                                        \
+      const void* px, const void* lengths, const void* f_dst,                 \
+      const void* g_src, const void* w1_ptr, const void* w1_col,              \
+      const void* w1_val, const void* w2_ptr, const void* w2_col,             \
+      const void* w2_val, const void* diag1, const void* diag2,               \
+      const void* ad0, const void* s0, const void* ad_init,                   \
+      const void* s_init, const void* leaky, float leaky_c, int B, int T,     \
+      int P, int s_pad, int t0, int n_frames, int snap, int ad_rows,          \
+      int init_stride, int s_stride, void* ad_ys, void* w1ad_ys,              \
+      void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,                \
+      void* stream) {                                                         \
+    return fact_fwd_run<S, FORM>(                                             \
+        px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr, w2_col,    \
+        w2_val, diag1, diag2, ad0, s0, ad_init, s_init, leaky, leaky_c, B, T, \
+        P, s_pad, t0, n_frames, snap, ad_rows, init_stride, s_stride, ad_ys,  \
+        w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, stream);                    \
+  }
 
-// The fast mode: bfloat16 streams, the operators' off-diagonal entries
-// alone (bfloat16 values held in float32), float32 diagonals diag1 (W1's)
-// and diag2 (W2's).
-extern "C" int fact_fwd_bf16_launch(
-    const void* px, const void* lengths, const void* f_dst,
-    const void* g_src, const void* w1_ptr, const void* w1_col,
-    const void* w1_val, const void* w2_ptr, const void* w2_col,
-    const void* w2_val, const void* diag1, const void* diag2,
-    const void* ad0, const void* s0, const void* leaky, float leaky_c,
-    int B, int T, int P, int s_pad, void* ad_ys, void* w1ad_ys,
-    void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* stream) {
-  return fact_fwd_run<__nv_bfloat16>(
-      px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr, w2_col,
-      w2_val, diag1, diag2, ad0, s0, leaky, leaky_c, B, T, P, s_pad, ad_ys,
-      w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, stream);
-}
+FACT_FWD_ENTRY(fact_fwd_launch, float, FWD_FULL)
+FACT_FWD_ENTRY(fact_fwd_bf16_launch, __nv_bfloat16, FWD_FULL)
+FACT_FWD_ENTRY(fact_fwd_snap_launch, float, FWD_SNAP)
+FACT_FWD_ENTRY(fact_fwd_snap_bf16_launch, __nv_bfloat16, FWD_SNAP)
+FACT_FWD_ENTRY(fact_fwd_init_launch, float, FWD_INIT)
+FACT_FWD_ENTRY(fact_fwd_init_bf16_launch, __nv_bfloat16, FWD_INIT)

@@ -1,19 +1,30 @@
 """The factorized denominator forward-backward on hand-written CUDA kernels.
 
-The port's counterpart of ``pychain_tpu/ops/pallas_fact.py``.  Two
-kernels, built from ``csrc/fact_fwd.cu`` and ``csrc/fact_bwd.cu`` for
-Hopper (``sm_90a``) and loaded with ctypes (``csrc/build.py``):
+The port's counterpart of ``pychain_tpu/ops/pallas_fact.py``.  Its two
+kernels, each in the three stream modes of the Pallas kernels, built
+from ``csrc/fact_fwd.cu`` and ``csrc/fact_bwd.cu`` for Hopper
+(``sm_90a``) and loaded with ctypes (``csrc/build.py``):
 
-* ``fact_fwd`` — the alpha sweep (replaces ``_fwd_kernel_factory``):
+* B1, the alpha sweep (replaces ``_fwd_kernel_factory``): ``fact_fwd``
   emits the alpha' stream, W1 alpha' and the emission rows x_dst
-  (x_src), the per-frame sums s_t and alpha' at each column's last frame;
-* ``fact_bwd`` — the beta sweep (replaces ``_bwd_kernel_factory``):
-  gamma (B, T, P) and the alpha*beta / sum-gamma invariant traces.
+  (x_src), the per-frame sums s_t and alpha' at each column's last frame
+  ("full" mode); ``fact_fwd_snap`` alpha' alone at every C-th frame
+  (C = 1: the "lean" mode's stream; C > 1: the "ckpt" mode's snapshots);
+  ``fact_fwd_init`` one chunk's full-mode streams from a snapshot (the
+  ckpt mode's replay);
+* B2, the beta sweep (replaces ``_bwd_kernel_factory``): gamma (B, T, P)
+  and the alpha*beta / sum-gamma invariant traces, from the full mode's
+  streams (``fact_bwd``), from the alpha' stream and px (``fact_bwd_lean``:
+  it forms W1 alpha' and the emission rows itself), or one chunk at a
+  time with the beta' carry (``fact_bwd_chunk``).
 
 Between them the objective is reduced here (``_objf``, as
 ``_objf_pallas``).  The kernels take the graph as sparse rows over its
 arcs (``KernelGraph``: sliced ELL, built once per graph from the
 stratified parts) and pdf -> states lists for the posterior scatter.
+:func:`forward_backward_prob_kernel` picks the stream mode as
+``forward_backward_prob_pallas`` does (``stream_mode="auto"``: the
+cheapest whose streams fit the card's :func:`stream_budget`).
 
 A wrapper given CPU tensors computes its kernel's plain PyTorch version
 (``ops/factorized.py``); given CUDA tensors it launches the kernel or
@@ -21,13 +32,14 @@ raises.  Each launch adds one to ``LAUNCHES[name]``.
 
 Covered: both precisions of the Pallas kernels, float32 ("parity")
 and the fast mode of bfloat16 tiles (``precision="fast"``: bfloat16
-operands and streams, float32 accumulation and carries; a
-second entry point of each source, counted as ``fact_fwd_bf16`` and
-``fact_bwd_bf16``), in the "full" stream mode.  Its plain version is
-``ops/factorized.forward_backward_prob_fast``.  The "lean"/"ckpt"
-stream modes raise ``NotImplementedError`` on CUDA (ROADMAP.md queues
-them); a graph whose state vectors exceed a block's shared memory raises
-here and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4).
+operands and streams, float32 accumulation and carries; a second entry
+point of each form, counted as ``<name>_bf16``), in every stream mode.
+Their plain version is ``ops/factorized.forward_backward_prob_fact`` /
+``forward_backward_prob_fast`` (``lean=True`` for the lean mode's
+roundings) and ``forward_backward_prob_ckpt``.  A graph whose state
+vectors exceed a block's shared memory raises here and is the cluster
+kernels' (``ops/stream_kernels.py``, B3/B4), which have the "full" mode
+alone, as the JAX package's cluster tier does.
 """
 
 from __future__ import annotations
@@ -45,7 +57,8 @@ from ..utils.device import host_to
 from ..utils.diagnostics import get_verbose_level
 from .factorized import (FactorizedArrays, WArrays,
                          forward_backward_prob_fact,
-                         forward_backward_prob_fast, initial_alpha, is_fast)
+                         forward_backward_prob_fast,
+                         forward_backward_prob_mode, initial_alpha, is_fast)
 from .fwdbwd import FwdBwdResult, _ok_flags
 
 TILE = 128
@@ -53,20 +66,31 @@ TILE = 128
 # shared memory after cudaFuncSetAttribute.
 MAX_SMEM = 232448
 FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
-# "full" stream mode keeps three (T, S_pad, B) fwd->bwd streams (four
-# outside identity mode); the other modes are not ported yet.  The JAX
+# The stream modes (pallas_fact.py:786-807): "full" keeps three (T, S_pad,
+# B) fwd->bwd streams (four outside identity mode), "lean" the alpha'
+# stream alone, "ckpt" alpha' at each chunk's last frame.  The JAX
 # package's fixed budget (pallas_fact.py:794-795, STREAM_BUDGET and
 # LEAN_BUDGET both 4 GiB, sized for a 16 GB TPU) is select_stream_mode's
-# default; the wrappers pass the card's own (stream_budget).
+# default and the plain version's on the CPU; on a card the wrappers pass
+# the card's own (stream_budget).
 STREAM_BUDGET = 4 * 1024 * 1024 * 1024
+STREAM_MODES = ("full", "lean", "ckpt")
+FWD_FORMS = ("fact_fwd", "fact_fwd_snap", "fact_fwd_init")
+BWD_FORMS = ("fact_bwd", "fact_bwd_lean", "fact_bwd_chunk")
 
-LAUNCHES = {"fact_fwd": 0, "fact_bwd": 0, "fact_fwd_bf16": 0,
-            "fact_bwd_bf16": 0}
+LAUNCHES = {f"{form}{suffix}": 0 for form in FWD_FORMS + BWD_FORMS
+            for suffix in ("", "_bf16")}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launched() -> dict:
+    """The kernels launched since the counts were last reset, with their
+    counts."""
+    return {k: v for k, v in LAUNCHES.items() if v}
 
 
 def supports(fa: FactorizedArrays) -> bool:
@@ -82,44 +106,53 @@ def stream_dtype(fa) -> torch.dtype:
 
 
 def _bwd_smem_bytes(s_pad: int, identity: bool, stages: int,
-                    entry: int = 4) -> int:
-    rows = 3 if identity else 4            # stream rows a frame
-    return (((4 if identity else 5) * s_pad + 3 * FACT_WARPS + 3) * 4
+                    entry: int = 4, lean: bool = False) -> int:
+    rows = 1 if lean else 3 if identity else 4     # stream rows a frame
+    # lean: alpha'(u), x_dst(u) and x_src(u) as float32 vectors besides
+    vectors = (4 if identity else 5) + ((2 if identity else 3) if lean
+                                         else 0)
+    return ((vectors * s_pad + 3 * FACT_WARPS + 3) * 4
             + stages * (rows * s_pad * entry + 8))
 
 
-def ring_stages(fa: FactorizedArrays) -> int:
-    """fact_bwd's ring depth for this graph: the frames whose stream rows
-    it holds in shared memory, fetched ahead by TMA (csrc/fact_bwd.cu).
-    Two stages where they fit a block's shared memory, one where only one
-    fits, none past that; a row is 2 S_pad bytes in the fast mode."""
+def ring_stages(fa: FactorizedArrays, lean: bool = False) -> int:
+    """fact_bwd's ring depth for this graph (fact_bwd_lean's with
+    ``lean``): the frames whose stream rows it holds in shared memory,
+    fetched ahead by TMA (csrc/fact_bwd.cu).  Two stages where they fit
+    a block's shared memory, one where only one fits, none past that; a
+    row is 2 S_pad bytes in the fast mode."""
     identity = fa.xsrc_mode == "identity"
     entry = stream_dtype(fa).itemsize
     for stages in (2, 1):
-        if _bwd_smem_bytes(fa.s_pad, identity, stages, entry) <= MAX_SMEM:
+        if _bwd_smem_bytes(fa.s_pad, identity, stages, entry,
+                           lean) <= MAX_SMEM:
             return stages
     return 0
 
 
-def smem_bytes(fa: FactorizedArrays, stages: int | None = None) -> dict:
+def smem_bytes(fa: FactorizedArrays, stages: int | None = None,
+               lean: bool = False) -> dict:
     """Dynamic shared memory of each kernel for this graph, fact_bwd's
-    with a ring of ``stages`` (default :func:`ring_stages`); must equal
-    fact_fwd_smem_bytes / fact_bwd_smem_bytes in the sources.  In the
-    fast mode outside identity mode fact_fwd holds a fifth vector."""
+    (with ``lean`` fact_bwd_lean's) with a ring of ``stages`` (default
+    :func:`ring_stages`); must equal fact_fwd_smem_bytes /
+    fact_bwd_smem_bytes in the sources.  In the fast mode outside
+    identity mode fact_fwd holds a fifth vector.  Every forward form
+    takes fact_fwd's, fact_bwd_chunk fact_bwd's."""
     identity = fa.xsrc_mode == "identity"
     entry = stream_dtype(fa).itemsize
     if stages is None:
-        stages = ring_stages(fa)
+        stages = ring_stages(fa, lean)
     vectors = 5 if entry == 2 and not identity else 4
     return {"fact_fwd": (vectors * fa.s_pad + FACT_WARPS + 1) * 4,
-            "fact_bwd": _bwd_smem_bytes(fa.s_pad, identity, stages, entry)}
+            "fact_bwd": _bwd_smem_bytes(fa.s_pad, identity, stages, entry,
+                                        lean)}
 
 
-def fits_on_chip(fa: FactorizedArrays) -> bool:
+def fits_on_chip(fa: FactorizedArrays, lean: bool = False) -> bool:
     """Whether both kernels' per-column working set fits one block's
-    shared memory, fact_bwd's without a ring (replaces
-    pallas_fact.fits_vmem)."""
-    return max(smem_bytes(fa, stages=0).values()) <= MAX_SMEM
+    shared memory, fact_bwd's (with ``lean`` fact_bwd_lean's) without a
+    ring (replaces pallas_fact.fits_vmem)."""
+    return max(smem_bytes(fa, stages=0, lean=lean).values()) <= MAX_SMEM
 
 
 def select_stream_mode(T: int, s_pad: int, B: int, itemsize: int,
@@ -146,20 +179,67 @@ def stream_budget(device) -> int:
     return int(total * 0.40)
 
 
-def require_full_mode(T: int, fa: FactorizedArrays, B: int, budget: int):
-    """Raise unless the "full" stream mode's streams, at the stream
-    type's size (pallas_fact.py:871), fit ``budget``: the other modes
-    have no CUDA kernel yet."""
+def _auto_mode(T: int, fa: FactorizedArrays, B: int, budget: int) -> str:
+    """select_stream_mode on the streams of this graph, at the stream
+    type's size (pallas_fact.py:869-871)."""
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
-    sd = stream_dtype(fa)
-    mode = select_stream_mode(T, fa.s_pad, B, sd.itemsize, n_streams,
-                              budget)
+    return select_stream_mode(T, fa.s_pad, B, stream_dtype(fa).itemsize,
+                              n_streams, budget)
+
+
+def require_full_mode(T: int, fa: FactorizedArrays, B: int, budget: int):
+    """Raise unless the "full" stream mode's streams fit ``budget``: the
+    cluster kernels (B3/B4) have that mode alone, as the JAX package's
+    cluster tier has (pallas_stream.py:790-803, where it falls back to
+    its XLA engine instead)."""
+    mode = _auto_mode(T, fa, B, budget)
     if mode != "full":
+        n_streams = 3 if fa.xsrc_mode == "identity" else 4
         raise NotImplementedError(
-            f"stream mode {mode!r}: {n_streams} {str(sd)[6:]} streams of "
-            f"(T={T}, S_pad={fa.s_pad}, B={B}) exceed the card's budget of "
-            f"{budget} bytes, and only \"full\" has a CUDA kernel yet "
-            "(ROADMAP.md, deferred modules)")
+            f"stream mode {mode!r}: {n_streams} "
+            f"{str(stream_dtype(fa))[6:]} streams of (T={T}, "
+            f"S_pad={fa.s_pad}, B={B}) exceed the card's budget of {budget} "
+            "bytes, and the cluster kernels (B3/B4, ops/stream_kernels.py) "
+            "have the \"full\" mode alone, as the JAX package's cluster "
+            "tier does")
+
+
+def ckpt_chunk_length(T: int, ckpt_chunk: int | None = None) -> int:
+    """The ckpt mode's chunk C (pallas_fact.py:952-954): ``ckpt_chunk``,
+    default about sqrt(T) rounded up to a multiple of 8 (at least 8), at
+    most T."""
+    C = (ckpt_chunk if ckpt_chunk is not None
+         else max(8, -8 * (-int(T ** 0.5) // 8)))
+    return min(C, T)
+
+
+def resolve_stream_mode(T: int, B: int, fa: FactorizedArrays,
+                        stream_mode: str = "auto",
+                        ckpt_chunk: int | None = None,
+                        budget: int = STREAM_BUDGET,
+                        on_card: bool = False) -> str:
+    """The stream mode a call runs in, with forward_backward_prob_pallas's
+    checks (pallas_fact.py:862-881): ValueError for a ``ckpt_chunk``
+    that is no positive int or an unknown mode; "auto" the cheapest mode
+    whose streams fit ``budget`` (:func:`select_stream_mode`).  On the
+    card (``on_card``) "auto" takes "ckpt" where the lean mode's
+    fact_bwd_lean would not fit a block (:func:`fits_on_chip`)."""
+    if ckpt_chunk is not None and (not isinstance(ckpt_chunk, int)
+                                   or ckpt_chunk <= 0):
+        raise ValueError(f"ckpt_chunk must be a positive int, got "
+                         f"{ckpt_chunk!r}")
+    if stream_mode == "auto":
+        mode = _auto_mode(T, fa, B, budget)
+        if mode == "lean" and on_card and not fits_on_chip(fa, lean=True):
+            mode = "ckpt"
+        if get_verbose_level() >= 1:
+            import sys as _sys
+            print(f"pychain_tpu_torch: stream_mode auto -> {mode} (T={T}, "
+                  f"s_pad={fa.s_pad}, B={B})", file=_sys.stderr)
+        return mode
+    if stream_mode not in STREAM_MODES:
+        raise ValueError(f"unknown stream_mode {stream_mode!r}")
+    return stream_mode
 
 
 # ----------------------------------------------------------------------
@@ -478,21 +558,17 @@ def _stream():
 
 
 def _lib(name):
-    """The launch function ``name`` (fact_fwd, fact_bwd or their _bf16
-    forms, two entry points of one source each)."""
+    """The launch function ``name`` (a form of FWD_FORMS or BWD_FORMS, or
+    its _bf16 entry point): every entry point of a source takes the same
+    arguments (csrc/fact_fwd.cu, csrc/fact_bwd.cu)."""
     from ..csrc import build
-    fast = name.endswith("_bf16")
-    lib = build.load(name[:-5] if fast else name)
-    fn = getattr(lib, f"{name}_launch")
+    source = name[:8]
+    fn = getattr(build.load(source), f"{name}_launch")
     if fn.argtypes is None:
-        # the fast forms take W1's and W2's diagonals after the operators
-        n_ptr_in = {"fact_fwd": 13, "fact_bwd": 21}[name[:8]] + 2 * fast
-        if name.startswith("fact_fwd"):
-            fn.argtypes = [_P] * n_ptr_in + [_F, _I, _I, _I, _I] \
-                + [_P] * 6 + [_P]
+        if source == "fact_fwd":
+            fn.argtypes = [_P] * 17 + [_F] + [_I] * 10 + [_P] * 7
         else:
-            fn.argtypes = [_P] * n_ptr_in + [_I, _F] + [_I] * 6 \
-                + [_P] * 3 + [_P]
+            fn.argtypes = [_P] * 30 + [_I, _F] + [_I] * 10 + [_P] * 6
         fn.restype = ctypes.c_int
     return fn
 
@@ -508,6 +584,72 @@ def _require(cond, msg):
         raise ValueError(msg)
 
 
+def _name(form, fa):
+    return f"{form}_bf16" if is_fast(fa) else form
+
+
+def _resident_graph(fa: FactorizedArrays) -> KernelGraph:
+    kg = graph_for(fa)
+    _require(kg.resident is not None,
+             f"graph with S_pad={fa.s_pad} needs {smem_bytes(fa, 0)} bytes "
+             f"of shared memory per block, over the {MAX_SMEM} a Hopper "
+             "block has; the cluster kernels serve it (engine=\"stream\", "
+             "ops/stream_kernels.py)")
+    return kg
+
+
+def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
+                n_frames=None, snap=1, ad_rows=None, ad_init=None,
+                s_init=None, s_ys=None, ad_last=None):
+    """Launch one forward form on CUDA tensors.  outs: (ad_ys, w1ad_ys,
+    xdst_ys, xsrc_ys), each (B, ad_rows, S_pad) or None; ad_init (B,
+    S_pad) and s_init (B,) may be strided views (a snapshot's rows, the
+    s_ys column before the chunk, or one row expanded)."""
+    _check_cuda_inputs(px, lengths, fa)
+    kg = _resident_graph(fa)
+    w1, w2 = kg.resident[:2]
+    B, T, P = px.shape
+    _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
+             f"only {P} columns")
+    ad0, s0 = initial_alpha(fa, leaky_coefficient)
+    sd = stream_dtype(fa)
+    n_frames = T if n_frames is None else n_frames
+    ad_rows = T if ad_rows is None else ad_rows
+    _require(0 <= t0 and n_frames >= 1 and t0 + n_frames <= T and snap >= 1
+             and ad_rows >= -(-(t0 + n_frames) // snap) - t0 // snap,
+             f"{form}: frames {t0} .. {t0 + n_frames - 1} at snap {snap} "
+             f"into {ad_rows} rows do not fit T={T}")
+    for t in outs:
+        _require(t is None or (t.is_cuda and t.dtype == sd
+                               and t.is_contiguous()
+                               and t.shape == (B, ad_rows, fa.s_pad)),
+                 f"{form}: streams must be contiguous ({B}, {ad_rows}, "
+                 f"{fa.s_pad}) {sd} CUDA tensors")
+    if ad_init is not None:
+        _require(ad_init.is_cuda and ad_init.dtype == sd
+                 and ad_init.shape == (B, fa.s_pad)
+                 and ad_init.stride(1) == 1 and s_init.is_cuda
+                 and s_init.dtype == torch.float32 and s_init.shape == (B,),
+                 f"{form}: ad_init must be ({B}, {fa.s_pad}) {sd} rows, "
+                 f"s_init ({B},) float32, on CUDA")
+    name = _name(form, fa)
+    rc = _lib(name)(
+        _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
+        *map(_ptr, w1), *map(_ptr, w2), *map(_ptr, kg.diag or (None, None)),
+        _ptr(ad0), _ptr(s0), _ptr(ad_init), _ptr(s_init), _ptr(fa.leaky),
+        float(leaky_coefficient), B, T, P, fa.s_pad, t0, n_frames, snap,
+        ad_rows, 0 if ad_init is None else ad_init.stride(0),
+        0 if s_init is None else s_init.stride(0), *map(_ptr, outs),
+        _ptr(s_ys), _ptr(ad_last), _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return ad0, s0
+
+
+def _new(fa, device, *shape, dtype=None):
+    return torch.empty(shape, dtype=dtype or stream_dtype(fa), device=device)
+
+
 def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
     """Launch the alpha sweep on CUDA tensors: ``fact_fwd``, or
     ``fact_fwd_bf16`` for a graph with bfloat16 tiles (the fast mode).
@@ -515,35 +657,135 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
     w1ad_ys, xdst_ys, xsrc_ys or None: (B, T, S_pad) in
     :func:`stream_dtype`; s_ys (B, T), ad_last (B, S_pad), ad0, s0:
     float32)."""
-    _check_cuda_inputs(px, lengths, fa)
-    _require(fits_on_chip(fa),
-             f"graph with S_pad={fa.s_pad} needs {smem_bytes(fa)} bytes "
-             f"of shared memory per block, over the {MAX_SMEM} a Hopper "
-             "block has; the cluster kernels serve it (engine=\"stream\", "
-             "ops/stream_kernels.py)")
-    kg = graph_for(fa)
-    w1, w2 = kg.resident[:2]
-    B, T, P = px.shape
-    _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
-             f"only {P} columns")
+    B, T, _ = px.shape
     s_pad = fa.s_pad
-    ad0, s0 = initial_alpha(fa, leaky_coefficient)
+    streams = [_new(fa, px.device, B, T, s_pad) for _ in range(3)]
+    streams.append(None if fa.xsrc_mode == "identity"
+                   else _new(fa, px.device, B, T, s_pad))
+    s_ys = _new(fa, px.device, B, T, dtype=torch.float32)
+    ad_last = _new(fa, px.device, B, s_pad, dtype=torch.float32)
+    ad0, s0 = _fwd_launch("fact_fwd", px, lengths, fa, leaky_coefficient,
+                          streams, s_ys=s_ys, ad_last=ad_last)
+    return (*streams, s_ys, ad_last, ad0, s0)
+
+
+def fact_fwd_snap(px, lengths, fa: FactorizedArrays, leaky_coefficient,
+                  snap: int = 1):
+    """Launch the alpha sweep without the auxiliary streams
+    (``fact_fwd_snap`` or its _bf16 form): alpha' at the frames t with
+    (t + 1) % snap == 0, at row (t + 1) // snap - 1 (pallas_fact.py
+    :419-431: snap 1 is the lean mode's stream, snap C the ckpt mode's
+    snapshots, alpha' at each chunk's last frame).  Returns (ad_ys (B,
+    ceil(T / snap), S_pad) in :func:`stream_dtype`, s_ys (B, T), ad_last
+    (B, S_pad), ad0, s0)."""
+    B, T, _ = px.shape
+    rows = -(-T // snap)
+    ad_ys = _new(fa, px.device, B, rows, fa.s_pad)
+    s_ys = _new(fa, px.device, B, T, dtype=torch.float32)
+    ad_last = _new(fa, px.device, B, fa.s_pad, dtype=torch.float32)
+    ad0, s0 = _fwd_launch("fact_fwd_snap", px, lengths, fa,
+                          leaky_coefficient, (ad_ys, None, None, None),
+                          snap=snap, ad_rows=rows, s_ys=s_ys,
+                          ad_last=ad_last)
+    return ad_ys, s_ys, ad_last, ad0, s0
+
+
+def fact_fwd_init(px, lengths, fa: FactorizedArrays, leaky_coefficient,
+                  t0: int, ad_init, s_init, streams):
+    """Launch the ckpt mode's replay of frames t0 .. t0 + n - 1
+    (``fact_fwd_init`` or its _bf16 form; n = streams[0].shape[1], cut at
+    each column's length) from alpha'(t0) = ad_init (B, S_pad) and
+    s_{t0} = s_init (B,), into ``streams`` (alpha', W1 alpha', x_dst,
+    x_src or None: (B, n, S_pad), local rows t - t0)."""
+    n = streams[0].shape[1]
+    _fwd_launch("fact_fwd_init", px, lengths, fa, leaky_coefficient,
+                streams, t0=t0, n_frames=n, ad_rows=n, ad_init=ad_init,
+                s_init=s_init)
+    return streams
+
+
+def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
+                tot_prob, outs, debug, stages, px=None, t0=0, n_frames=None,
+                ad_init=None, carry=(None, None)):
+    """Launch one backward form.  streams: (ad_ys, w1ad_ys, xdst_ys,
+    xsrc_ys), any None; outs: (gamma (B, T, P), ab (B, T), gs (B, T));
+    carry: (bd (B, S_pad), leak (B,)) or Nones."""
+    lean = form == "fact_bwd_lean"
+    kg = _resident_graph(fa)
+    w1t, w2t = kg.resident[2:]
+    if stages is None:
+        stages = ring_stages(fa, lean)
+    _require(stages in (0, 1, 2)
+             and smem_bytes(fa, stages, lean)["fact_bwd"] <= MAX_SMEM,
+             f"{form}: a ring of {stages} stages does not fit a block at "
+             f"S_pad={fa.s_pad}")
+    ad_ys = streams[0]
+    B, rows, s_pad = ad_ys.shape
+    T = s_ys.shape[1]
+    n_frames = T if n_frames is None else n_frames
     sd = stream_dtype(fa)
-    new = lambda *shape: torch.empty(shape, dtype=sd, device=px.device)
-    ad_ys, w1ad_ys, xdst_ys = (new(B, T, s_pad) for _ in range(3))
-    xsrc_ys = None if kg.g_src is None else new(B, T, s_pad)
-    s_ys = torch.empty((B, T), dtype=torch.float32, device=px.device)
-    ad_last = torch.empty((B, s_pad), dtype=torch.float32, device=px.device)
-    name = "fact_fwd_bf16" if kg.diag else "fact_fwd"
+    for t in streams:
+        _require(t is None or (t.is_cuda and t.dtype == sd
+                               and t.is_contiguous()
+                               and t.shape == ad_ys.shape),
+                 f"{form}: streams must be contiguous {sd} on CUDA, of one "
+                 "shape")
+    for t in (s_ys, tot_prob):
+        _require(t.is_cuda and t.dtype == torch.float32
+                 and t.is_contiguous(),
+                 f"{form}: s_ys and tot_prob must be contiguous float32 on "
+                 "CUDA")
+    gamma, ab, gs = outs
+    P = gamma.shape[2]
+    _require(s_pad == fa.s_pad and s_ys.shape == (B, T)
+             and tot_prob.shape == (B,) and rows == n_frames
+             and 0 <= t0 and t0 + n_frames <= T
+             and gamma.shape == (B, T, P) and ab.shape == gs.shape == (B, T)
+             and all(o.is_cuda and o.dtype == torch.float32
+                     and o.is_contiguous() for o in outs),
+             f"{form}: streams of {rows} frames from {t0}, s_ys "
+             f"{tuple(s_ys.shape)}, gamma {tuple(gamma.shape)}: shapes "
+             "disagree")
+    if lean:
+        _require(px.is_cuda and px.dtype == torch.float32
+                 and px.is_contiguous(), f"{form}: px must be a contiguous "
+                 "float32 CUDA tensor")
+    else:
+        _require((streams[3] is None) == (kg.g_src is None),
+                 f"{form}: x_src stream present iff the graph is not "
+                 "identity")
+    if ad_init is not None:
+        bd, leak = carry
+        _require(ad_init.is_cuda and ad_init.dtype == sd
+                 and ad_init.shape == (B, s_pad) and ad_init.stride(1) == 1
+                 and bd.is_cuda and bd.dtype == torch.float32
+                 and bd.is_contiguous() and bd.shape == (B, s_pad)
+                 and leak.is_cuda and leak.dtype == torch.float32
+                 and leak.shape == (B,),
+                 f"{form}: ad_init ({B}, {s_pad}) {sd} rows, carry ({B}, "
+                 f"{s_pad}) and ({B},) float32, on CUDA")
+    g_lists = kg.g_lists or (None, None)
+    w1 = kg.resident[0] if lean else (None, None, None)
+    name = _name(form, fa)
     rc = _lib(name)(
-        _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
-        *map(_ptr, w1), *map(_ptr, w2), *map(_ptr, kg.diag or ()),
-        _ptr(ad0), _ptr(s0), _ptr(fa.leaky), float(leaky_coefficient), B,
-        T, P, s_pad, _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
-        _ptr(xsrc_ys), _ptr(s_ys), _ptr(ad_last), _stream())
+        _ptr(lengths), *map(_ptr, streams), _ptr(px), _ptr(s_ys), _ptr(s0),
+        _ptr(ad0), _ptr(ad_init), _ptr(fa.final), _ptr(tot_prob),
+        _ptr(fa.leaky), *map(_ptr, w1t), *map(_ptr, w2t), *map(_ptr, w1),
+        _ptr(kg.f_dst if lean else None), _ptr(kg.g_src if lean else None),
+        *map(_ptr, kg.diag or (None, None)), *map(_ptr, kg.f_lists),
+        *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
+        P, s_pad, int(bool(debug)), stages, t0, n_frames, rows,
+        0 if ad_init is None else ad_init.stride(0), _ptr(gamma), _ptr(ab),
+        _ptr(gs), *map(_ptr, carry), _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
-    return ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, ad0, s0
+    return gamma, ab, gs
+
+
+def _outputs(B, T, P, device):
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=device)
+    return new(B, T, P), new(B, T), new(B, T)
 
 
 def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
@@ -553,44 +795,40 @@ def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
     (``fact_bwd``, or ``fact_bwd_bf16`` in the fast mode), its ring
     ``stages`` deep (default :func:`ring_stages`).  Returns (gamma
     (B, T, P) float32, alpha_beta (B, T), gamma_sum (B, T))."""
-    kg = graph_for(fa)
-    _require(kg.resident is not None, f"graph with S_pad={fa.s_pad} does "
-             "not fit B1/B2 (fits_on_chip)")
-    w1t, w2t = kg.resident[2:]
-    if stages is None:
-        stages = ring_stages(fa)
-    _require(stages in (0, 1, 2) and smem_bytes(fa, stages)["fact_bwd"]
-             <= MAX_SMEM, f"fact_bwd: a ring of {stages} stages does not "
-             f"fit a block at S_pad={fa.s_pad}")
-    B, T, s_pad = ad_ys.shape
-    sd = stream_dtype(fa)
-    for t in (ad_ys, w1ad_ys, xdst_ys, xsrc_ys):
-        _require(t is None or (t.is_cuda and t.dtype == sd
-                               and t.is_contiguous()),
-                 f"fact_bwd: streams must be contiguous {sd} on CUDA")
-    for t in (s_ys, tot_prob):
-        _require(t.is_cuda and t.dtype == torch.float32
-                 and t.is_contiguous(),
-                 "fact_bwd: s_ys and tot_prob must be contiguous float32 "
-                 "on CUDA")
-    _require((xsrc_ys is None) == (kg.g_src is None),
-             "fact_bwd: x_src stream present iff the graph is not identity")
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=ad_ys.device)
-    gamma, ab, gs = new(B, T, P), new(B, T), new(B, T)
-    g_lists = kg.g_lists or (None, None)
-    name = "fact_bwd_bf16" if kg.diag else "fact_bwd"
-    rc = _lib(name)(
-        _ptr(lengths), _ptr(ad_ys), _ptr(w1ad_ys), _ptr(xdst_ys),
-        _ptr(xsrc_ys), _ptr(s_ys), _ptr(s0), _ptr(ad0), _ptr(fa.final),
-        _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, w1t),
-        *map(_ptr, w2t), *map(_ptr, kg.diag or ()), *map(_ptr, kg.f_lists),
-        *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
-        P, s_pad, int(bool(debug)), stages, _ptr(gamma), _ptr(ab), _ptr(gs),
-        _stream())
-    _check(rc, name)
-    LAUNCHES[name] += 1
-    return gamma, ab, gs
+    B, T, _ = ad_ys.shape
+    return _bwd_launch("fact_bwd", lengths, fa, leaky_coefficient,
+                       (ad_ys, w1ad_ys, xdst_ys, xsrc_ys), s_ys, ad0, s0,
+                       tot_prob, _outputs(B, T, P, ad_ys.device), debug,
+                       stages)
+
+
+def fact_bwd_lean(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
+                  px, s_ys, ad0, s0, tot_prob, debug=True, stages=None):
+    """Launch the lean mode's beta sweep (``fact_bwd_lean`` or its _bf16
+    form) on the alpha' stream of ``fact_fwd_snap(..., snap=1)`` and px
+    (B, T, P) float32, its ring ``stages`` deep (default
+    ``ring_stages(fa, lean=True)``).  Returns (gamma, alpha_beta,
+    gamma_sum) as :func:`fact_bwd`."""
+    B, T, P = px.shape
+    return _bwd_launch("fact_bwd_lean", lengths, fa, leaky_coefficient,
+                       (ad_ys, None, None, None), s_ys, ad0, s0, tot_prob,
+                       _outputs(B, T, P, px.device), debug, stages, px=px)
+
+
+def fact_bwd_chunk(lengths, fa: FactorizedArrays, leaky_coefficient,
+                   streams, s_ys, ad0, s0, tot_prob, t0, ad_init, outs,
+                   carry, debug=True, stages=None):
+    """Launch the beta sweep of one ckpt chunk, frames t0 .. t0 + n - 1
+    (``fact_bwd_chunk`` or its _bf16 form; n = streams[0].shape[1]), on
+    :func:`fact_fwd_init`'s streams for it, alpha'(t0) = ad_init (B,
+    S_pad): the chunk's gamma and traces into its frames of ``outs``
+    (gamma (B, T, P), ab, gs (B, T)); beta' and its leaky sum from
+    ``carry`` (bd (B, S_pad), leak (B,) float32) unless a column ends in
+    the chunk, and back into it for the chunk below (t0 > 0)."""
+    return _bwd_launch("fact_bwd_chunk", lengths, fa, leaky_coefficient,
+                       streams, s_ys, ad0, s0, tot_prob, outs, debug,
+                       stages, t0=t0, n_frames=streams[0].shape[1],
+                       ad_init=ad_init, carry=carry)
 
 
 def _check_cuda_inputs(px, lengths, fa: FactorizedArrays):
@@ -640,30 +878,38 @@ def _frame0_traces(res: FwdBwdResult) -> FwdBwdResult:
     return res._replace(alpha_beta=ab, gamma_sum=gs)
 
 
-def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
-                  debug, fwd, bwd, plain=None) -> FwdBwdResult:
-    """The glue of a kernel pair: CPU tensors take the plain version
-    (``plain``, default the precision's: the fast one for bfloat16
-    tiles); CUDA tensors run ``fwd``, the objective and ``bwd`` (the
-    signatures of :func:`fact_fwd` / :func:`fact_bwd`), the streams' bytes
-    held to the card's :func:`stream_budget`."""
-    debug = debug or get_verbose_level() >= 1
+def _card_lengths(px, lengths):
+    """lengths as a (B,) int32 tensor on px's card, checked to lie in
+    [1, T] on a host copy (lengths given on the host cost no wait)."""
+    T = px.shape[1]
+    lens_host = torch.as_tensor(lengths).cpu().to(torch.int32)
+    _require(bool(((lens_host >= 1) & (lens_host <= T)).all()),
+             f"lengths must lie in [1, T={T}]")
+    return host_to(lens_host.contiguous(), px.device)
+
+
+def _check_graph(fa: FactorizedArrays):
     if not supports(fa):
         raise ValueError("the factorized kernels require a fully "
                          "factorized graph (no residual arcs)")
+
+
+def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
+                  debug, fwd, bwd, plain=None) -> FwdBwdResult:
+    """The full stream mode's glue of a kernel pair: CPU tensors take the
+    plain version (``plain``, default the precision's: the fast one for
+    bfloat16 tiles); CUDA tensors run ``fwd``, the objective and ``bwd``
+    (the signatures of :func:`fact_fwd` / :func:`fact_bwd`)."""
+    debug = debug or get_verbose_level() >= 1
+    _check_graph(fa)
     if not px.is_cuda:
         plain = plain or (forward_backward_prob_fast if is_fast(fa)
                           else forward_backward_prob_fact)
         res = plain(px, lengths, fa, leaky_coefficient)
         return res if debug else _frame0_traces(res)
 
-    B, T, P = px.shape
-    require_full_mode(T, fa, B, stream_budget(px.device))
-    # checked on a host copy: lengths given on the host cost no wait
-    lens_host = torch.as_tensor(lengths).cpu().to(torch.int32)
-    _require(bool(((lens_host >= 1) & (lens_host <= T)).all()),
-             f"lengths must lie in [1, T={T}]")
-    lens = host_to(lens_host.contiguous(), px.device)
+    P = px.shape[2]
+    lens = _card_lengths(px, lengths)
     px = px.float().contiguous()
     with torch.no_grad():
         ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, ad0, s0 = \
@@ -675,22 +921,101 @@ def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
     return _package_result(objf, gamma, ab, gs)
 
 
+def _lean(px, lens, fa, c, debug, stages):
+    """The lean mode on the card: fact_fwd_snap's alpha' stream (snap 1),
+    then fact_bwd_lean on it and px."""
+    ad_ys, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, 1)
+    objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
+    return objf, fact_bwd_lean(lens, fa, c, ad_ys, px, s_ys, ad0, s0,
+                               tot_prob.contiguous(), debug, stages)
+
+
+def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk):
+    """The ckpt mode on the card (pallas_fact._forward_backward_ckpt):
+    fact_fwd_snap keeps alpha' at each chunk's last frame, then from the
+    last chunk down fact_fwd_init replays a chunk from the snapshot below
+    it and fact_bwd_chunk runs its backward from the beta' carry above:
+    alpha' rows for T / C snapshots and one chunk's three (four) streams,
+    where the full mode keeps T."""
+    B, T, P = px.shape
+    C = ckpt_chunk_length(T, ckpt_chunk)
+    snaps, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, C)
+    objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
+    tot_prob = tot_prob.contiguous()
+    outs = _outputs(B, T, P, px.device)
+    carry = (_new(fa, px.device, B, fa.s_pad, dtype=torch.float32),
+             _new(fa, px.device, B, dtype=torch.float32))
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    bufs = [_new(fa, px.device, B * C * fa.s_pad) for _ in range(n_streams)]
+    # chunk 0 enters from alpha'(0) in the stream type (pallas_fact.py
+    # :976-978)
+    entry = ad0.to(stream_dtype(fa)).expand(B, fa.s_pad)
+    for k in range(snaps.shape[1] - 1, -1, -1):
+        t0, n = k * C, min(C, T - k * C)
+        streams = [buf[:B * n * fa.s_pad].view(B, n, fa.s_pad)
+                   for buf in bufs] + [None] * (4 - n_streams)
+        ad_init = entry if k == 0 else snaps[:, k - 1]
+        s_init = s0.expand(B) if k == 0 else s_ys[:, t0 - 1]
+        fact_fwd_init(px, lens, fa, c, t0, ad_init, s_init, streams)
+        fact_bwd_chunk(lens, fa, c, streams, s_ys, ad0, s0, tot_prob, t0,
+                       ad_init, outs, carry, debug, stages)
+    return objf, outs
+
+
 def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
                                  leaky_coefficient=1e-5,
                                  debug: bool = True,
+                                 stream_mode: str = "auto",
+                                 ckpt_chunk: int | None = None,
                                  stages: int | None = None) -> FwdBwdResult:
     """Fused fwd+bwd on a fully-factorized graph (the resident tier,
-    engine "pallas").
+    engine "pallas"), with forward_backward_prob_pallas's stream modes.
 
-    px: (B, T, P) exp'd clamped nnet output (float32).  On CUDA this
-    launches ``fact_fwd`` then ``fact_bwd`` (their fast forms for a graph
-    with bfloat16 tiles); on the CPU it computes the plain version
-    (``forward_backward_prob_fast`` for bfloat16 tiles).  debug: with True the alpha*beta and sum-gamma traces
-    cover every frame; with False only frame 0 (the reference's default,
-    chain-computation.cc:337-338), the other frames reading exactly
-    1.0.  Verbose level >= 1 forces the full traces.  stages: fact_bwd's
-    ring depth (default :func:`ring_stages`; the tests force each)."""
-    bwd = fact_bwd if stages is None else functools.partial(fact_bwd,
-                                                            stages=stages)
-    return fused_fwd_bwd(px, lengths, fa, leaky_coefficient, debug,
-                         fact_fwd, bwd)
+    px: (B, T, P) exp'd clamped nnet output (float32).  stream_mode:
+    "full" (``fact_fwd`` emits W1 alpha' and the emission rows for
+    ``fact_bwd``), "lean" (the alpha' stream alone; ``fact_bwd_lean``
+    forms the rest from it and px: a third of the streams' memory),
+    "ckpt" (alpha' at every ckpt_chunk-th frame, default about sqrt(T);
+    each chunk replayed by ``fact_fwd_init`` before ``fact_bwd_chunk``:
+    T / C + C alpha' rows, one more forward sweep) or "auto" (the
+    cheapest whose streams fit the card's :func:`stream_budget`, on the
+    CPU the JAX package's STREAM_BUDGET; :func:`resolve_stream_mode`).
+    The fast forms run for a graph with bfloat16 tiles.  On the CPU this
+    computes the plain version of the mode
+    (``factorized.forward_backward_prob_mode``).  debug: with True the
+    alpha*beta and sum-gamma traces cover every frame; with False only
+    frame 0 (the reference's default, chain-computation.cc:337-338), the
+    other frames reading exactly 1.0.  Verbose level >= 1 forces the full
+    traces.  stages: the backward kernel's ring depth (default
+    :func:`ring_stages`; the tests force each)."""
+    debug = debug or get_verbose_level() >= 1
+    _check_graph(fa)
+    B, T, _ = px.shape
+    on_card = px.is_cuda
+    mode = resolve_stream_mode(
+        T, B, fa, stream_mode, ckpt_chunk,
+        stream_budget(px.device) if on_card else STREAM_BUDGET, on_card)
+    if not on_card:
+        res = forward_backward_prob_mode(px, lengths, fa, leaky_coefficient,
+                                         mode, ckpt_chunk)
+        return res if debug else _frame0_traces(res)
+    if mode == "lean":
+        _require(fits_on_chip(fa, lean=True), f"stream mode 'lean': "
+                 f"fact_bwd_lean needs {smem_bytes(fa, 0, lean=True)} bytes "
+                 f"of shared memory per block at S_pad={fa.s_pad}, over the "
+                 f"{MAX_SMEM} a Hopper block has (\"ckpt\" or \"full\" fit)")
+    if mode == "full":
+        bwd = fact_bwd if stages is None else functools.partial(
+            fact_bwd, stages=stages)
+        return fused_fwd_bwd(px, lengths, fa, leaky_coefficient, debug,
+                             fact_fwd, bwd)
+    lens = _card_lengths(px, lengths)
+    px = px.float().contiguous()
+    with torch.no_grad():
+        if mode == "lean":
+            objf, outs = _lean(px, lens, fa, leaky_coefficient, debug,
+                               stages)
+        else:
+            objf, outs = _ckpt(px, lens, fa, leaky_coefficient, debug,
+                               stages, ckpt_chunk)
+    return _package_result(objf, *outs)

@@ -21,8 +21,12 @@ equal it bit for bit; with ``cluster=C`` it takes them in the cluster
 kernels' order instead (``ops/stream_kernels.py``: the ascending rows,
 each sum over a vector's states split over C CTAs, :func:`cluster_sum`).
 Each is the CPU path of the kernels' wrapper and what ``chip_smoke.py``
-holds the kernels against on the card.  Neither is fast: each frame
-launches a handful of small PyTorch operations.
+holds the kernels against on the card.  The kernels' lean and ckpt
+stream modes have theirs too (:func:`forward_backward_prob_mode`): in
+float32 the same numbers, in the fast mode each mode's own rounding
+points (``lean=True``; :func:`forward_backward_prob_ckpt`, chunk by
+chunk as the card runs it).  Neither is fast: each frame launches a
+handful of small PyTorch operations.
 """
 
 from __future__ import annotations
@@ -248,23 +252,14 @@ def _residual_fwd(fa: FactorizedArrays, ad, x_t):
     return out.index_add_(0, fa.res_dst, w)
 
 
-def forward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
-                      leaky_coefficient):
-    """Alpha sweep.  px_tm: (T, P, B) exp'd nnet output, time-major,
-    pdf-major.  Returns (alpha_dash (T+1, S_pad, B), alpha_sums (T+1, B),
-    objf (B,), tot_prob (B,))."""
-    T, P, B = px_tm.shape
-    s_pad = fa.s_pad
+def _fact_frames(px_tm, lengths, fa: FactorizedArrays, leaky_coefficient,
+                 t0, n, ad_prev, s_prev):
+    """The alpha recurrence over frames t0 .. t0 + n - 1 from alpha'(t0)
+    = ad_prev (S_pad, B) and s_{t0} = s_prev (B,), each column's carry
+    frozen past its length.  Yields (t, s_t, alpha'(t), s_t frozen) after
+    frame t - 1, t = t0 + 1 .. t0 + n (1-based)."""
     leaky = fa.leaky[:, None]
-
-    alpha0 = fa.initial[:, None].expand(s_pad, B)
-    s0 = alpha0.sum(dim=0)
-    ad0 = alpha0 + leaky_coefficient * s0[None, :] * leaky
-
-    ad_prev, s_prev, ad_last = ad0, s0, ad0
-    loglike = torch.log(s0)
-    ad_ys, s_ys = [ad0], [s0]
-    for t in range(1, T + 1):
+    for t in range(t0 + 1, t0 + n + 1):
         px_t = px_tm[t - 1]
         x_dst = _apply_w(fa.e_f, px_t)                    # (S_pad, B)
         # identity mode: g == f on W2's support, and W2 zeroes the
@@ -278,12 +273,33 @@ def forward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
         s_t = a.sum(dim=0)
         ad_t = a + leaky_coefficient * s_t[None, :] * leaky
         active = t <= lengths
-        loglike = loglike + torch.where(
-            t < lengths, torch.log(torch.where(s_t > 0, s_t, 1.0)), 0.0)
         ad_prev = torch.where(active[None, :], ad_t, ad_prev)
         s_prev = torch.where(active, s_t, s_prev)
+        yield t, s_t, ad_prev, s_prev
+
+
+def forward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
+                      leaky_coefficient, snap=None):
+    """Alpha sweep.  px_tm: (T, P, B) exp'd nnet output, time-major,
+    pdf-major.  Returns (alpha_dash (T+1, S_pad, B), alpha_sums (T+1, B),
+    objf (B,), tot_prob (B,)); with ``snap`` = C alpha_dash holds
+    alpha'(k C) for k = 0 .. ceil(T / C) - 1 alone (the ckpt mode's
+    snapshots: each chunk's alpha' on entry)."""
+    T, P, B = px_tm.shape
+    alpha0 = fa.initial[:, None].expand(fa.s_pad, B)
+    s0 = alpha0.sum(dim=0)
+    ad0 = alpha0 + leaky_coefficient * s0[None, :] * fa.leaky[:, None]
+    ad_last = ad0
+    loglike = torch.log(s0)
+    ad_ys, s_ys = [ad0], [s0]
+    for t, s_t, ad_prev, s_prev in _fact_frames(px_tm, lengths, fa,
+                                                leaky_coefficient, 0, T, ad0,
+                                                s0):
+        loglike = loglike + torch.where(
+            t < lengths, torch.log(torch.where(s_t > 0, s_t, 1.0)), 0.0)
         ad_last = torch.where((t == lengths)[None, :], ad_prev, ad_last)
-        ad_ys.append(ad_prev)
+        if snap is None or (t % snap == 0 and t < T):
+            ad_ys.append(ad_prev)
         s_ys.append(s_prev)
 
     alpha_dash = torch.stack(ad_ys, dim=0)
@@ -293,20 +309,19 @@ def forward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
     return alpha_dash, alpha_sums, objf, tot_prob
 
 
-def backward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
-                       leaky_coefficient, alpha_dash, alpha_sums, tot_prob):
-    """Beta sweep + posteriors.  Returns (gamma (T, P_pad, B),
-    alpha_beta (B, T), gamma_sum (B, T))."""
-    T, P, B = px_tm.shape
-    s_pad = fa.s_pad
+def _fact_back(px_tm, lengths, fa: FactorizedArrays, leaky_coefficient,
+               alpha_dash, alpha_sums, tot_prob, t0, n, bd_next):
+    """Beta sweep + posteriors over frames t0 + n - 1 down to t0, with
+    alpha_dash[j] = alpha'(t0 + j) and alpha_sums[j] = s_{t0 + j}, from
+    the beta' carry bd_next (S_pad, B) of the frames above.  Returns
+    (gamma rows, alpha_beta columns, gamma_sum columns: lists of n,
+    beta'(t0))."""
     leaky = fa.leaky[:, None]
     bd_final = fa.final[:, None] / tot_prob[None, :]
-
-    bd_next = torch.zeros((s_pad, B), dtype=px_tm.dtype,
-                          device=px_tm.device)
-    gammas, abs_, gss = [None] * T, [None] * T, [None] * T
-    for t in range(T - 1, -1, -1):
-        px_t, ad_t, s_t = px_tm[t], alpha_dash[t], alpha_sums[t]
+    gammas, abs_, gss = [None] * n, [None] * n, [None] * n
+    for t in range(t0 + n - 1, t0 - 1, -1):
+        j = t - t0
+        px_t, ad_t, s_t = px_tm[t], alpha_dash[j], alpha_sums[j]
         inject = lengths == t + 1
         bd_eff = torch.where(inject[None, :], bd_final, bd_next)
         b_next = bd_eff + leaky_coefficient * (
@@ -343,9 +358,22 @@ def backward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
         active = t < lengths
         bd_next = torch.where(active[None, :], bd_t, bd_eff)
         gamma_t = torch.where(active[None, :], gamma_t, 0.0)
-        abs_[t] = (ad_t * bd_next).sum(dim=0)
-        gss[t] = gamma_t.sum(dim=0)
-        gammas[t] = gamma_t
+        abs_[j] = (ad_t * bd_next).sum(dim=0)
+        gss[j] = gamma_t.sum(dim=0)
+        gammas[j] = gamma_t
+    return gammas, abs_, gss, bd_next
+
+
+def backward_prob_fact(px_tm, lengths, fa: FactorizedArrays,
+                       leaky_coefficient, alpha_dash, alpha_sums, tot_prob):
+    """Beta sweep + posteriors.  Returns (gamma (T, P_pad, B),
+    alpha_beta (B, T), gamma_sum (B, T))."""
+    T, P, B = px_tm.shape
+    bd_next = torch.zeros((fa.s_pad, B), dtype=px_tm.dtype,
+                          device=px_tm.device)
+    gammas, abs_, gss, _ = _fact_back(px_tm, lengths, fa, leaky_coefficient,
+                                      alpha_dash, alpha_sums, tot_prob, 0,
+                                      T, bd_next)
     gamma_tm = torch.stack(gammas, dim=0)                   # (T, P_pad, B)
     alpha_beta = torch.stack(abs_, dim=1)                   # (B, T)
     gamma_sum = torch.stack(gss, dim=1)
@@ -572,28 +600,16 @@ def _state_sum(s_pad, cluster, device):
                              parts=cluster_rows(s_pad, cluster, device))
 
 
-def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
-                      leaky_coefficient, graph=None, cluster=None):
-    """Fast-mode alpha sweep.  px_tm: (T, P_eff, B) float32, rounded here.
-    Every sum is taken in fact_fwd.cu's order (each row's slots, then the
-    diagonal; :func:`block_sum`), or with ``cluster`` = C in stream_fwd.cu's
-    (the ascending rows; :func:`cluster_sum`), so that the kernel gives
-    these numbers bit for bit.  Returns (alpha_dash (T+1, S_pad, B):
-    alpha'(0) = ad0 in float32, then the stored (bfloat16-rounded)
-    alpha'(t); w1_alpha (T, S_pad, B): the stored W1 alpha'(t); s_ys (B,
-    T): s_1 .. s_T, 1 past a column's end, as the kernel writes them;
-    objf (B,), tot_prob (B,))."""
-    from .fact_kernels import _objf
-    tables, d1, d2, f, g, _ = graph or _fast_graph(fa, cluster)
-    total = _state_sum(fa.s_pad, cluster, px_tm.device)
-    T, _, B = px_tm.shape
+def _fast_frames(px_tm, lengths, fa: FactorizedArrays, leaky_coefficient,
+                 graph, total, t0, n, own, s_prev):
+    """The fast alpha recurrence over frames t0 .. t0 + n - 1 from the
+    carry own (S_pad, B; alpha'(t0), unrounded) and s_{t0} = s_prev (B,),
+    each column's carry frozen past its length.  Yields (t, alpha'(t + 1)
+    as computed, the carry, W1 alpha'(t), s_{t + 1}, active) after each
+    frame t."""
+    tables, d1, d2, f, g, _ = graph
     leaky = fa.leaky[:, None]
-    ad0, s0 = initial_alpha(fa, leaky_coefficient)
-    own = ad0[:, None].expand(fa.s_pad, B)
-    ad_last = own
-    s_prev = s0.expand(B)
-    ad_ys, w1_ys, s_ys = [own], [], []
-    for t in range(T):
+    for t in range(t0, t0 + n):
         x = _bf(px_tm[t][f])
         xs = x if g is None else _bf(px_tm[t][g])
         w1a = _ell_apply(tables[0], _bf(own)) + d1 * own
@@ -605,27 +621,59 @@ def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
         active = t < lengths
         own = torch.where(active[None, :], v, own)
         s_prev = torch.where(active, s_t, s_prev)
+        yield t, v, own, w1a, s_t, active
+
+
+def forward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
+                      leaky_coefficient, graph=None, cluster=None,
+                      snap=None):
+    """Fast-mode alpha sweep.  px_tm: (T, P_eff, B) float32, rounded here.
+    Every sum is taken in fact_fwd.cu's order (each row's slots, then the
+    diagonal; :func:`block_sum`), or with ``cluster`` = C in stream_fwd.cu's
+    (the ascending rows; :func:`cluster_sum`), so that the kernel gives
+    these numbers bit for bit.  Returns (alpha_dash (T+1, S_pad, B):
+    alpha'(0) = ad0 in float32, then the stored (bfloat16-rounded)
+    alpha'(t); w1_alpha (T, S_pad, B): the stored W1 alpha'(t); s_ys (B,
+    T): s_1 .. s_T, 1 past a column's end, as the kernel writes them;
+    objf (B,), tot_prob (B,)).  With ``snap`` = C (fact_fwd_snap's
+    snapshots) alpha_dash holds alpha'(k C) for k = 0 .. ceil(T / C) - 1
+    alone and w1_alpha is None."""
+    from .fact_kernels import _objf
+    graph = graph or _fast_graph(fa, cluster)
+    total = _state_sum(fa.s_pad, cluster, px_tm.device)
+    T, _, B = px_tm.shape
+    ad0, s0 = initial_alpha(fa, leaky_coefficient)
+    own = ad0[:, None].expand(fa.s_pad, B)
+    ad_last = own
+    ad_ys, w1_ys, s_ys = [own], [], []
+    for t, v, own, w1a, s_t, active in _fast_frames(
+            px_tm, lengths, fa, leaky_coefficient, graph, total, 0, T, own,
+            s0.expand(B)):
         ad_last = torch.where((lengths == t + 1)[None, :], v, ad_last)
-        ad_ys.append(_bf(own))
-        w1_ys.append(_bf(w1a))
+        if snap is None:
+            ad_ys.append(_bf(own))
+            w1_ys.append(_bf(w1a))
+        elif (t + 1) % snap == 0 and t + 1 < T:
+            ad_ys.append(_bf(own))
         s_ys.append(torch.where(active, s_t, 1.0))
     s_ys = torch.stack(s_ys, dim=1)
     objf, tot_prob = _objf(s_ys, ad_last.t().contiguous(), lengths, fa, s0)
-    return (torch.stack(ad_ys, dim=0), torch.stack(w1_ys, dim=0), s_ys,
-            objf, tot_prob)
+    return (torch.stack(ad_ys, dim=0),
+            torch.stack(w1_ys, dim=0) if snap is None else None, s_ys, objf,
+            tot_prob)
 
 
-def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
-                       leaky_coefficient, alpha_dash, w1_alpha, s_ys,
-                       tot_prob, graph=None, cluster=None):
-    """Fast-mode beta sweep + posteriors on :func:`forward_prob_fast`'s
-    results, every sum in fact_bwd.cu's order, or with ``cluster`` = C in
-    stream_bwd.cu's (the sum-gamma trace over each CTA's pdf columns,
-    :func:`pdf_columns`, then in rank order).  Returns (gamma (T, P_eff,
-    B): bfloat16 values, zero past each column's end; alpha_beta (B, T),
-    gamma_sum (B, T))."""
-    tables, d1, d2, f, g, lists = graph or _fast_graph(fa, cluster)
-    T, P, B = px_tm.shape
+def _fast_back(px_tm, lengths, fa: FactorizedArrays, leaky_coefficient,
+               alpha_dash, w1_alpha, s_ys, tot_prob, graph, cluster, t0, n,
+               bd, leak):
+    """The fast beta sweep over frames t0 + n - 1 down to t0, with
+    alpha_dash[j] = alpha'(t0 + j) and w1_alpha[j] the stored W1
+    alpha'(t0 + j) (None: the lean mode's, formed here from alpha'(t0 +
+    j), unrounded), from the carry bd (S_pad, B) and its leaky sum leak
+    (B,).  Returns (gamma rows (P, B), alpha_beta and gamma_sum columns:
+    lists of n, the carry and its leaky sum at t0)."""
+    tables, d1, d2, f, g, lists = graph
+    P, B = px_tm.shape[1], px_tm.shape[2]
     total = _state_sum(fa.s_pad, cluster, px_tm.device)
     pdf_total = block_sum if cluster is None else functools.partial(
         rank_sum, parts=pdf_columns(P, cluster))
@@ -633,25 +681,29 @@ def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
     _, s0 = initial_alpha(fa, leaky_coefficient)
     bd_final = fa.final[:, None] / tot_prob[None, :]
     leak_final = total(bd_final * leaky)
-    bd = torch.zeros((fa.s_pad, B), dtype=torch.float32,
-                     device=px_tm.device)
-    leak = torch.zeros(B, dtype=torch.float32, device=px_tm.device)
-    gammas, abs_, gss = [None] * T, [None] * T, [None] * T
-    for t in range(T - 1, -1, -1):
+    gammas, abs_, gss = [None] * n, [None] * n, [None] * n
+    for t in range(t0 + n - 1, t0 - 1, -1):
+        j = t - t0
         inject = lengths == t + 1
         bd = torch.where(inject[None, :], bd_final, bd)
         leak = torch.where(inject, leak_final, leak)
         inv = 1.0 / (s0.expand(B) if t == 0 else s_ys[:, t - 1])
         x = _bf(px_tm[t][f])
         xs = x if g is None else _bf(px_tm[t][g])
-        ad = alpha_dash[t]
+        ad = alpha_dash[j]
+        if w1_alpha is None:
+            # fact_bwd_lean: fact_fwd's rows over the stored alpha', plus
+            # the diagonal term, not rounded
+            w1a = _ell_apply(tables[0], _bf(ad)) + d1 * ad
+        else:
+            w1a = w1_alpha[j]
         v = bd + (leaky_coefficient * leak)[None, :]
         xb = x * v
         w1t = _ell_apply(tables[2], _bf(xb)) + d1 * xb
         sw = xs * (_ell_apply(tables[3], _bf(v)) + d2 * v)
         bd_t = (w1t + sw) * inv[None, :]
         # each state's mass, unscaled, rounded before its pdf's sum
-        m1, m2 = xb * w1_alpha[t], sw * ad
+        m1, m2 = xb * w1a, sw * ad
         if g is None:
             acc = _list_sums(lists[0], _bf(m1 + m2))
         else:
@@ -660,25 +712,48 @@ def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
         acc = torch.nn.functional.pad(acc[:P], (0, 0, 0, P - min(
             P, acc.shape[0])))
         active = t < lengths
-        gammas[t] = torch.where(active[None, :], _bf(acc * inv[None, :]),
+        gammas[j] = torch.where(active[None, :], _bf(acc * inv[None, :]),
                                 0.0)
-        abs_[t] = torch.where(active, total(ad * bd_t), 0.0)
-        gss[t] = torch.where(active, pdf_total(acc) * inv, 0.0)
+        abs_[j] = torch.where(active, total(ad * bd_t), 0.0)
+        gss[j] = torch.where(active, pdf_total(acc) * inv, 0.0)
         leak = torch.where(active, total(bd_t * leaky), leak)
         bd = torch.where(active[None, :], bd_t, bd)
+    return gammas, abs_, gss, bd, leak
+
+
+def backward_prob_fast(px_tm, lengths, fa: FactorizedArrays,
+                       leaky_coefficient, alpha_dash, w1_alpha, s_ys,
+                       tot_prob, graph=None, cluster=None):
+    """Fast-mode beta sweep + posteriors on :func:`forward_prob_fast`'s
+    results, every sum in fact_bwd.cu's order, or with ``cluster`` = C in
+    stream_bwd.cu's (the sum-gamma trace over each CTA's pdf columns,
+    :func:`pdf_columns`, then in rank order); w1_alpha None: the lean
+    mode's (fact_bwd_lean.cu's W1 alpha', formed from alpha_dash).
+    Returns (gamma (T, P_eff, B): bfloat16 values, zero past each
+    column's end; alpha_beta (B, T), gamma_sum (B, T))."""
+    graph = graph or _fast_graph(fa, cluster)
+    T, _, B = px_tm.shape
+    bd = torch.zeros((fa.s_pad, B), dtype=torch.float32,
+                     device=px_tm.device)
+    leak = torch.zeros(B, dtype=torch.float32, device=px_tm.device)
+    gammas, abs_, gss, _, _ = _fast_back(
+        px_tm, lengths, fa, leaky_coefficient, alpha_dash, w1_alpha, s_ys,
+        tot_prob, graph, cluster, 0, T, bd, leak)
     return (torch.stack(gammas, dim=0), torch.stack(abs_, dim=1),
             torch.stack(gss, dim=1))
 
 
 def forward_backward_prob_fast(px, lengths, fa: FactorizedArrays,
                                leaky_coefficient=1e-5,
-                               cluster=None) -> FwdBwdResult:
+                               cluster=None, lean=False) -> FwdBwdResult:
     """Fused fwd+bwd in the fast mode on a graph with bfloat16 tiles:
     what the Pallas kernels compute with bfloat16 tiles (the rounding
     points above), and the plain version of the CUDA kernels in that
     mode, which give its numbers bit for bit (it takes every sum in their
     order): the resident pair's, or with ``cluster`` = C the cluster
-    pair's at C CTAs a cluster (for any G columns a CTA).  px: (B, T, P)
+    pair's at C CTAs a cluster (for any G columns a CTA); with ``lean``
+    the lean stream mode's (fact_bwd_lean forms W1 alpha' from the stored
+    alpha' and does not round it, pallas_fact.py:597-601).  px: (B, T, P)
     exp'd output (float32); gamma is returned in (B, T, P), float32
     holding bfloat16 values."""
     B, T, P = px.shape
@@ -689,8 +764,97 @@ def forward_backward_prob_fast(px, lengths, fa: FactorizedArrays,
         alpha_dash, w1_alpha, s_ys, objf, tot_prob = forward_prob_fast(
             px_tm, lengths, fa, leaky_coefficient, graph, cluster)
         gamma_tm, alpha_beta, gamma_sum = backward_prob_fast(
-            px_tm, lengths, fa, leaky_coefficient, alpha_dash, w1_alpha,
-            s_ys, tot_prob, graph, cluster)
+            px_tm, lengths, fa, leaky_coefficient, alpha_dash,
+            None if lean else w1_alpha, s_ys, tot_prob, graph, cluster)
         gamma = gamma_batch_major(gamma_tm, P)
     ok = _ok_flags(objf, alpha_beta, gamma_sum)
     return FwdBwdResult(objf, gamma, ok, alpha_beta, gamma_sum)
+
+
+# ----------------------------------------------------------------------
+# The ckpt stream mode: snapshots and a chunked backward
+# ----------------------------------------------------------------------
+#
+# pallas_fact.py:936-1006 keeps alpha' at each chunk's last frame alone,
+# then scans the chunks from the last: each replays its forward from the
+# snapshot below it (the full mode's streams for its C frames), then runs
+# its backward from the beta' carry of the chunk above.  The kernels stop
+# at each column's length, so T is not padded to a multiple of C (the
+# Pallas grid runs every column to the padded T, :957-964): the last chunk
+# is cut at T.  Chunk 0 enters from alpha'(0) rounded to the stream type
+# (:976-978), and every chunk's backward reads the first sweep's s_t.
+
+def forward_backward_prob_ckpt(px, lengths, fa: FactorizedArrays,
+                               leaky_coefficient=1e-5,
+                               ckpt_chunk=None) -> FwdBwdResult:
+    """The plain version of B1/B2 in the ckpt stream mode, in either
+    precision (the fast one for bfloat16 tiles), chunk by chunk as the
+    card runs it (``fact_kernels.ckpt_chunk_length``: C = ckpt_chunk,
+    default about sqrt(T)).  In float32 it equals
+    :func:`forward_backward_prob_fact` bit for bit (the same arithmetic
+    from the same carries); in the fast mode each replay starts from the
+    bfloat16 snapshot."""
+    from .fact_kernels import ckpt_chunk_length
+    B, T, P = px.shape
+    C = ckpt_chunk_length(T, ckpt_chunk)
+    lengths = host_to(torch.as_tensor(lengths), px.device).long()
+    fast = is_fast(fa)
+    c = leaky_coefficient
+    with torch.no_grad(), _full_f32():
+        if fast:
+            graph = _fast_graph(fa)
+            px_tm = px.permute(1, 2, 0)
+            snaps, _, s_ys, objf, tot = forward_prob_fast(
+                px_tm, lengths, fa, c, graph, snap=C)
+            _, s0 = initial_alpha(fa, c)
+            snaps[0] = _bf(snaps[0])
+            carry = (torch.zeros((fa.s_pad, B), device=px.device),
+                     torch.zeros(B, device=px.device))
+        else:
+            px_tm = px_time_major(px, fa)
+            snaps, sums, objf, tot = forward_prob_fact(px_tm, lengths, fa, c,
+                                                       snap=C)
+            carry = (torch.zeros((fa.s_pad, B), device=px.device),)
+        n_chunks = -(-T // C)
+        gammas, abs_, gss = [None] * n_chunks, [None] * n_chunks, \
+            [None] * n_chunks
+        for k in range(n_chunks - 1, -1, -1):
+            t0, n = k * C, min(C, T - k * C)
+            if fast:
+                s_init = s0.expand(B) if k == 0 else s_ys[:, t0 - 1]
+                ad_c, w1_c = [snaps[k]], []
+                for _, _, own, w1a, _, _ in _fast_frames(
+                        px_tm, lengths, fa, c, graph, block_sum, t0, n,
+                        snaps[k], s_init):
+                    ad_c.append(_bf(own))
+                    w1_c.append(_bf(w1a))
+                out = _fast_back(px_tm, lengths, fa, c, ad_c, w1_c, s_ys,
+                                 tot, graph, None, t0, n, *carry)
+            else:
+                ad_c = [snaps[k]] + [ad for _, _, ad, _ in _fact_frames(
+                    px_tm, lengths, fa, c, t0, n - 1, snaps[k], sums[t0])]
+                out = _fact_back(px_tm, lengths, fa, c, ad_c,
+                                 sums[t0:t0 + n], tot, t0, n, *carry)
+            gammas[k], abs_[k], gss[k] = (torch.stack(x, dim=i) for x, i in
+                                          zip(out[:3], (0, 1, 1)))
+            carry = out[3:]
+        gamma = gamma_batch_major(torch.cat(gammas, dim=0), P)
+        alpha_beta, gamma_sum = torch.cat(abs_, dim=1), torch.cat(gss, dim=1)
+    ok = _ok_flags(objf, alpha_beta, gamma_sum)
+    return FwdBwdResult(objf, gamma, ok, alpha_beta, gamma_sum)
+
+
+def forward_backward_prob_mode(px, lengths, fa: FactorizedArrays,
+                               leaky_coefficient=1e-5, stream_mode="full",
+                               ckpt_chunk=None) -> FwdBwdResult:
+    """The plain version of B1/B2 in a stream mode ("full", "lean" or
+    "ckpt"; ``fact_kernels.resolve_stream_mode`` resolves "auto") and
+    the graph's precision: in float32 the three compute the same
+    numbers."""
+    if stream_mode == "ckpt":
+        return forward_backward_prob_ckpt(px, lengths, fa, leaky_coefficient,
+                                          ckpt_chunk)
+    if is_fast(fa):
+        return forward_backward_prob_fast(px, lengths, fa, leaky_coefficient,
+                                          lean=stream_mode == "lean")
+    return forward_backward_prob_fact(px, lengths, fa, leaky_coefficient)

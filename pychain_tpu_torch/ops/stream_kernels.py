@@ -438,6 +438,10 @@ def forward_backward_prob_stream(px, lengths, fa: FactorizedArrays,
     per kernel).  On the CPU this computes the plain version; in the fast
     mode with the caller's ``cluster``, the sums in the order of the
     kernels at that C."""
+    if px.is_cuda:
+        # the "full" stream mode alone: its streams must fit the card
+        fk.require_full_mode(px.shape[1], fa, px.shape[0],
+                             fk.stream_budget(px.device))
     plain = None
     if is_fast(fa) and cluster is not None:
         plain = functools.partial(forward_backward_prob_fast,

@@ -47,7 +47,8 @@ from pychain_tpu_torch.ops import semiring_kernels as semk
 from pychain_tpu_torch.ops import stream_kernels as stk
 from pychain_tpu_torch.ops import viterbi_kernels as vk
 from pychain_tpu_torch.ops.factorized import (forward_backward_prob_fact,
-                                              forward_backward_prob_fast)
+                                              forward_backward_prob_fast,
+                                              forward_backward_prob_mode)
 from pychain_tpu_torch.ops.viterbi import viterbi_plain
 from pychain_tpu_torch.decode import PhoneDecoder
 from pychain_tpu_torch.utils.checkpoint import (restore_checkpoint,
@@ -102,8 +103,7 @@ class TestFactorized:
         fk.reset_launch_counts()
         got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
                                               debug=debug)
-        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1,
-                               "fact_fwd_bf16": 0, "fact_bwd_bf16": 0}
+        assert fk.launched() == {"fact_fwd": 1, "fact_bwd": 1}
         ref = forward_backward_prob_fact(px, lens, fa, LEAKY)
         if not debug:
             ref = fk._frame0_traces(ref)
@@ -158,8 +158,7 @@ class TestFast:
         fk.reset_launch_counts()
         got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
                                               debug=debug, stages=stages)
-        assert fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
-                               "fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
         ref = forward_backward_prob_fast(px, lens, fa, LEAKY)
         if not debug:
             ref = fk._frame0_traces(ref)
@@ -206,11 +205,221 @@ class TestFast:
         fk.reset_launch_counts()
         vg = gpu(xg, lens, num_gpu)
         vg.backward()
-        assert fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
-                               "fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
         torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
                                    atol=1e-6)
+
+class TestStreamModes:
+    """B1/B2's lean and ckpt stream modes (fact_fwd_snap, fact_fwd_init,
+    fact_bwd_lean, fact_bwd_chunk and their _bf16 forms) against their
+    plain versions (factorized.forward_backward_prob_mode): float32
+    within the parity bars, the fast mode bit for bit.  B=5 columns of
+    T=12 frames, lengths 12, 8, 4, 1, 9 (ends on a chunk boundary of C=4,
+    in the first frame, one past a boundary)."""
+
+    LENGTHS = [12, 8, 4, 1, 9]
+
+    @classmethod
+    def _case(cls, cuda, mode, tile_dtype, seed=9, num_phones=40):
+        fst, P = denominator_fst(num_phones=num_phones, states_per_phone=2,
+                                 seed=seed, forward_pdf_mode=mode)
+        rng = np.random.RandomState(seed)
+        x = rng.randn(5, 12, P).astype(np.float32)
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 5, tile_dtype=tile_dtype,
+                                device=cuda)._fact
+        return (fa, torch.exp(torch.from_numpy(x)).to(cuda),
+                torch.tensor(cls.LENGTHS, dtype=torch.int32).to(cuda))
+
+    @staticmethod
+    def _check(got, ref, fast, debug):
+        if not debug:
+            ref = fk._frame0_traces(ref)
+        if fast:
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                assert torch.equal(getattr(got, name),
+                                   getattr(ref, name)), name
+            assert torch.equal(got.gamma.bfloat16().float(), got.gamma)
+        else:
+            _assert_loss_close(got, ref)
+        assert bool(got.ok.all())
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_lean_kernels_match_plain(self, cuda, tile_dtype, mode, want,
+                                      stages):
+        """fact_fwd_snap at C = 1 and fact_bwd_lean at every ring depth,
+        debug True and False, one launch each; gamma on a rerun."""
+        fa, px, lens = self._case(cuda, mode, tile_dtype)
+        assert fa.xsrc_mode == want and fk.ring_stages(fa, lean=True) == 2
+        sfx = "_bf16" if tile_dtype else ""
+        for debug in (True, False):
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="lean",
+                stages=stages)
+            assert fk.launched() == {f"fact_fwd_snap{sfx}": 1,
+                                     f"fact_bwd_lean{sfx}": 1}
+            ref = forward_backward_prob_mode(px, lens, fa, LEAKY, "lean")
+            self._check(got, ref, bool(tile_dtype), debug)
+        again = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="lean", stages=stages)
+        assert torch.equal(again.gamma,
+                           fk.forward_backward_prob_kernel(
+                               px, lens, fa, LEAKY, stream_mode="lean",
+                               stages=stages).gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("chunk", [4, 5, 12, 64])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_ckpt_kernels_match_plain(self, cuda, tile_dtype, mode, want,
+                                      chunk):
+        """C dividing T (4), not dividing it (5), equal to T and past it
+        (one chunk): one snapshot sweep, then a replay and a chunk's
+        backward a chunk; debug True and False; gamma on a rerun."""
+        fa, px, lens = self._case(cuda, mode, tile_dtype)
+        assert fa.xsrc_mode == want
+        sfx = "_bf16" if tile_dtype else ""
+        n = -(-12 // min(chunk, 12))
+        for debug in (True, False):
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="ckpt",
+                ckpt_chunk=chunk)
+            assert fk.launched() == {f"fact_fwd_snap{sfx}": 1,
+                                     f"fact_fwd_init{sfx}": n,
+                                     f"fact_bwd_chunk{sfx}": n}
+            ref = forward_backward_prob_mode(px, lens, fa, LEAKY, "ckpt",
+                                             chunk)
+            self._check(got, ref, bool(tile_dtype), debug)
+        again = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="ckpt", ckpt_chunk=chunk)
+        assert torch.equal(again.gamma, got.gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_ckpt_chunks_at_every_ring_depth(self, cuda, tile_dtype, stages):
+        """fact_bwd_chunk with its ring forced to each depth at C = 5."""
+        fa, px, lens = self._case(cuda, "separate", tile_dtype)
+        got = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="ckpt", ckpt_chunk=5,
+            stages=stages)
+        ref = forward_backward_prob_mode(px, lens, fa, LEAKY, "ckpt", 5)
+        self._check(got, ref, bool(tile_dtype), True)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_snapshot_sweep(self, cuda, tile_dtype):
+        """fact_fwd_snap's rows: at C = 1 the alpha' stream of fact_fwd,
+        at C = 4 its rows 3, 7 (alpha'(4), alpha'(8)), with the same s_t;
+        the fast form equals the plain fast sweep's snapshots bit for
+        bit."""
+        from pychain_tpu_torch.ops.factorized import forward_prob_fast
+        fa, px, lens = self._case(cuda, "cross", tile_dtype)
+        full = fk.fact_fwd(px, lens, fa, LEAKY)
+        one, s1, last1 = fk.fact_fwd_snap(px, lens, fa, LEAKY, 1)[:3]
+        four, s4, _ = fk.fact_fwd_snap(px, lens, fa, LEAKY, 4)[:3]
+        assert one.shape == full[0].shape and four.shape == (5, 3, fa.s_pad)
+        live = torch.arange(12, device=cuda)[None, :] < lens[:, None]
+        for b, Tb in enumerate(self.LENGTHS):
+            rows = [3, 7] if Tb >= 8 else [3] if Tb >= 4 else []
+            for s_ys in (s1, s4):
+                torch.testing.assert_close(s_ys[b], full[4][b], rtol=1e-6,
+                                           atol=0)
+            torch.testing.assert_close(one[b, :Tb].float(),
+                                       full[0][b, :Tb].float(), rtol=1e-5,
+                                       atol=1e-7)
+            for k, r in enumerate(rows):
+                torch.testing.assert_close(four[b, k].float(),
+                                           one[b, r].float(), rtol=1e-5,
+                                           atol=1e-7)
+        torch.testing.assert_close(last1, full[5], rtol=1e-5, atol=1e-7)
+        if tile_dtype:
+            snaps, _, s_plain, _, _ = forward_prob_fast(
+                px.permute(1, 2, 0), lens.long(), fa, LEAKY, snap=4)
+            assert torch.equal(s4[live], s_plain[live])
+            for b, Tb in enumerate(self.LENGTHS):
+                for k in range(1, 3):
+                    if 4 * k < Tb:
+                        assert torch.equal(four[b, k - 1].float(),
+                                           snaps[k][:, b])
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("want", ["lean", "ckpt"])
+    @pytest.mark.parametrize("precision", ["parity", "fast"])
+    def test_chain_loss_auto_reaches_the_mode(self, cuda, monkeypatch,
+                                              precision, want):
+        """ChainLoss under "auto" with the card's budget stubbed (one
+        stream's bytes: "lean"; 1 byte: "ckpt") launches that mode's
+        kernels, and matches ChainLoss on the CPU under the same budget
+        (value 1e-5 relative, gradient 1e-6)."""
+        den_fst, x, lens, nums = _linear_setup(mode="separate")
+        fa = pt.ChainGraphBatch(pt.ChainGraph(den_fst), 3, device="cpu",
+                                tile_dtype="bfloat16" if precision == "fast"
+                                else None)._fact
+        row = 8 * fa.s_pad * 3 * fk.stream_dtype(fa).itemsize
+        budget = row if want == "lean" else 1
+        monkeypatch.setattr(fk, "STREAM_BUDGET", budget)
+        monkeypatch.setattr(fk, "stream_budget", lambda device: budget)
+        cpu = pt.ChainLoss(pt.ChainGraph(den_fst), precision=precision,
+                           device="cpu")
+        xc = torch.from_numpy(x).requires_grad_(True)
+        vc = cpu(xc, lens, nums)
+        vc.backward()
+        gpu = pt.ChainLoss(pt.ChainGraph(den_fst), precision=precision)
+        _, _, _, num_gpu = _linear_setup(mode="separate", device=cuda)
+        xg = torch.from_numpy(x).to(cuda).requires_grad_(True)
+        fk.reset_launch_counts()
+        vg = gpu(xg, lens, num_gpu)
+        vg.backward()
+        sfx = "_bf16" if precision == "fast" else ""
+        n = -(-8 // fk.ckpt_chunk_length(8))
+        assert fk.launched() == (
+            {f"fact_fwd_snap{sfx}": 1, f"fact_bwd_lean{sfx}": 1}
+            if want == "lean" else
+            {f"fact_fwd_snap{sfx}": 1, f"fact_fwd_init{sfx}": n,
+             f"fact_bwd_chunk{sfx}": n})
+        torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
+        torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
+                                   atol=1e-6)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_cluster_tier_raises_past_its_budget(self, cuda, monkeypatch,
+                                                 tile_dtype):
+        """The cluster kernels keep the full mode alone: past the card's
+        budget they raise before any launch."""
+        fa, px, lens = self._case(cuda, "separate", tile_dtype)
+        monkeypatch.setattr(fk, "stream_budget", lambda device: 1)
+        stk.reset_launch_counts()
+        fk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="cluster kernels"):
+            stk.forward_backward_prob_stream(px, lens, fa, LEAKY)
+        assert set(stk.LAUNCHES.values()) == {0} and fk.launched() == {}
+        # the resident tier takes the ckpt mode there
+        fk.forward_backward_prob_kernel(px, lens, fa, LEAKY)
+        assert set(fk.launched()) == {
+            f"{k}{'_bf16' if tile_dtype else ''}"
+            for k in ("fact_fwd_snap", "fact_fwd_init", "fact_bwd_chunk")}
+
+    @pytest.mark.cuda
+    def test_stream_mode_errors_before_any_launch(self, cuda):
+        fa, px, lens = self._case(cuda, "source", None)
+        fk.reset_launch_counts()
+        with pytest.raises(ValueError, match="stream_mode"):
+            fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                            stream_mode="bogus")
+        for chunk in (0, -4, 2.5):
+            with pytest.raises(ValueError, match="ckpt_chunk"):
+                fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                stream_mode="ckpt",
+                                                ckpt_chunk=chunk)
+        assert fk.launched() == {}
+
 
 # ----------------------------------------------------------------------
 # The cluster kernels B3/B4 (ops/stream_kernels.py)
@@ -464,8 +673,7 @@ class TestLoss:
         fk.reset_launch_counts()
         vg = gpu(xg, lens, num_gpu)
         vg.backward()
-        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1,
-                               "fact_fwd_bf16": 0, "fact_bwd_bf16": 0}
+        assert fk.launched() == {"fact_fwd": 1, "fact_bwd": 1}
         torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)
 
@@ -483,8 +691,7 @@ class TestLoss:
         semk.reset_launch_counts()
         vg = gpu(xg, lens, num_gpu)
         vg.backward()
-        assert fk.LAUNCHES == {"fact_fwd": 1, "fact_bwd": 1,
-                               "fact_fwd_bf16": 0, "fact_bwd_bf16": 0}
+        assert fk.launched() == {"fact_fwd": 1, "fact_bwd": 1}
         assert semk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
         torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0, atol=1e-6)
@@ -1066,9 +1273,8 @@ class TestModels:
             opt.step()
             losses.append(float(loss.detach()))
             if dev == cuda:
-                assert fk.LAUNCHES == {"fact_fwd": 0, "fact_bwd": 0,
-                                       "fact_fwd_bf16": 1,
-                                       "fact_bwd_bf16": 1}
+                assert fk.launched() == {"fact_fwd_bf16": 1,
+                                         "fact_bwd_bf16": 1}
         assert np.isfinite(losses[0])
         assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
 
