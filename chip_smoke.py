@@ -192,16 +192,23 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    fact_fwd_snap_bf16, fact_bwd_lean_bf16) and to 1 byte ("ckpt" at the
    default C=64: fact_fwd_snap_bf16 once, fact_fwd_init_bf16 and
    fact_bwd_chunk_bf16 once a chunk), and forced (stream_mode="ckpt",
-   ckpt_chunk=96, which does not divide T); each mode's launches (every
+   ckpt_chunk=96, which does not divide T); first a plan line: the lean
+   forms' cluster size C (fact_kernels.lean_cluster: 2 at B=64 on 132
+   SMs); each mode's launches (every
    count 0 before its run, read after), step ms (CUDA events, best of 3
    after a warm-up), peak device memory, objf and its largest difference
    from full; every kernel bit for bit against its plain version (the
    full pair, the lean stream and backward, the snapshot rows, one
-   chunk's replay streams, the ckpt results at both chunks), each form's
-   time alone with its bytes bound and its plain version's time; the same
-   in float32 at T=1,000 (cut so the plain version's time stays small)
-   within the parity bars, the lean and ckpt results against the full
-   kernels' bit for bit (printed); bench.py --long (B=32, T=2,500) under
+   chunk's replay streams, the ckpt results at both chunks; the lean
+   pair also at C=1 and C=4 and at the plan's C with a ring of 0 and 1),
+   each cluster of a C launch on C
+   distinct SMs (%smid), the lean forms and the lean and ckpt calls at
+   C=1 against the plan's C in one call (in turns, with peak memory),
+   each form's time alone with its bytes bound and its plain version's
+   time; the same in float32 at T=1,000 (cut so the plain version's time
+   stays small) within the parity bars, the lean (at the plan's C and at
+   C=1) and ckpt results bit-identical to the full kernels' (gated);
+   bench.py --long (B=32, T=2,500) under
    "auto": its mode, step ms, peak memory, the full pair bit for bit;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
@@ -904,10 +911,15 @@ def check_smem():
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import stream_kernels as stk
     c_size = lambda name, *args: getattr(
-        build.load(name), f"{name}_smem_bytes")(*args)
+        build.load(name[:8] if name.startswith("fact") else name),
+        f"{name}_smem_bytes")(*args)
     for name in ("fact_fwd", "fact_bwd", "stream_fwd", "stream_bwd"):
         getattr(build.load(name), f"{name}_smem_bytes").restype = \
             ctypes.c_size_t
+    build.load("fact_fwd").fact_fwd_snap_cluster_smem_bytes.restype = \
+        ctypes.c_size_t
+    build.load("fact_bwd").fact_bwd_lean_cluster_smem_bytes.restype = \
+        ctypes.c_size_t
     for s_pad, mode in ((3072, "identity"), (12032, "stream"),
                         (384, "matrix"), (24320, "identity")):
         fa = types.SimpleNamespace(s_pad=s_pad, xsrc_mode=mode)
@@ -928,6 +940,18 @@ def check_smem():
             got[f"fact_fwd fast={fast}"] = fk.smem_bytes(fa)["fact_fwd"]
             want[f"fact_fwd fast={fast}"] = c_size("fact_fwd", s_pad,
                                                    identity, fast)
+            # the lean forms on a cluster (C > 1: one formula for every C;
+            # fact_bwd_lean's ring with px rows where they fit, P % 4 == 0)
+            for k in (0, 1, 2):
+                for P in (3000, 3001, 6000):
+                    cl = fk.lean_smem_bytes(fa, 2, k, P)
+                    key = f"cluster fast={fast} stages={k} P={P}"
+                    got[f"fact_fwd_snap {key}"] = cl["fact_fwd_snap"]
+                    want[f"fact_fwd_snap {key}"] = c_size(
+                        "fact_fwd_snap_cluster", s_pad, identity)
+                    got[f"fact_bwd_lean {key}"] = cl["fact_bwd_lean"]
+                    want[f"fact_bwd_lean {key}"] = c_size(
+                        "fact_bwd_lean_cluster", s_pad, identity, k, fast, P)
         # the cluster pair: the same shared memory in both precisions (the
         # sources' one formula), and the same resident clusters for the
         # float32 and the bfloat16 kernel
@@ -1599,6 +1623,99 @@ def mode_steps(label, x, lens, batch, leaky_c, counters):
     return stats
 
 
+def lean_plan(fa, B, P, dev, label):
+    """The lean forms' cluster plan for B columns on this card
+    (fact_kernels.lean_cluster), printed on a plan line with the SMs the
+    CTAs of one launch of each form at that C ran on (%smid: no two CTAs
+    of a cluster on one SM).  Returns C."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    props = torch.cuda.get_device_properties(dev)
+    C = fk.lean_cluster(B, props, fa)
+    stages = fk.ring_stages(fa, lean=True)
+    print(f"# {label} plan: the lean forms (fact_fwd_snap, fact_bwd_lean) "
+          f"on C={C} CTAs a column of 1024 threads: "
+          f"{B * C} CTAs on {props.multi_processor_count} SMs, shared "
+          f"memory a CTA {fk.lean_smem_bytes(fa, C, P=P)} B, fact_bwd_lean's "
+          f"ring {stages} stages, px rows in it "
+          f"{C > 1 and fk.lean_px_ring(fa, stages, P)} (rule: the largest C "
+          f"in {fk.LEAN_CLUSTERS} with B C <= SMs whose CTAs fit "
+          f"{props.shared_memory_per_block_optin} B)", flush=True)
+    return C
+
+
+def smid_check(label, C, B, fwd, bwd):
+    """Run fwd(smid) and bwd(smid) (a lean form's launch at C CTAs a
+    column recording each CTA's SM) and check that no cluster has two
+    CTAs on one SM; prints the distinct SMs of each launch."""
+    dev = torch.device("cuda")
+    seen = {}
+    for name, fn in (("fact_fwd_snap", fwd), ("fact_bwd_lean", bwd)):
+        smid = torch.full((B * C,), -1, dtype=torch.int32, device=dev)
+        fn(smid)
+        rows = smid.view(B, C).cpu()
+        seen[name] = (len(set(rows.flatten().tolist())),
+                      sum(len(set(r.tolist())) == C for r in rows))
+        check(bool((rows >= 0).all()) and seen[name][1] == B,
+              f"{label}: {name} at C={C}: a cluster with two CTAs on one SM "
+              f"({seen[name][1]} of {B} clusters on distinct SMs)")
+    print(f"# {label}: %smid at C={C}: " + ", ".join(
+        f"{k} {v[0]} distinct SMs for {B * C} CTAs, {v[1]} of {B} clusters "
+        "on C distinct SMs" for k, v in seen.items()), flush=True)
+    return seen
+
+
+def lean_bwd_smid(fa, px, lens32, leaky_c, C, smid):
+    """fact_bwd_lean at C CTAs a column recording each CTA's SM, on
+    fact_fwd_snap's stream at C."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c,
+                                                   cluster=C)
+    tot = fk._objf(s_ys, ad_last, lens32, fa, s0)[1].contiguous()
+    fk.fact_bwd_lean(lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0, tot,
+                     cluster=C, smid=smid)
+
+
+def lean_cluster_ab(fa, px, lens32, leaky_c, C, ckpt_chunk, reps=3):
+    """The lean forms at C = 1 and at the plan's C in one call, in turns
+    (1, C, C, 1): fact_fwd_snap's lean sweep (snap 1) and the ckpt
+    mode's snapshot sweep (snap ckpt_chunk), fact_bwd_lean (on C = 1's
+    stream), and the denominator call of the lean and ckpt modes
+    (forward_backward_prob_kernel, no autograd); each the mean of reps
+    calls, the best of its two turns, with the peak device memory of one
+    call over what was held.  Returns {name: {C: (ms, peak over held)}}."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c,
+                                                   cluster=1)
+    tot = fk._objf(s_ys, ad_last, lens32, fa, s0)[1].contiguous()
+    calls = {
+        "fact_fwd_snap lean": lambda c: fk.fact_fwd_snap(
+            px, lens32, fa, leaky_c, cluster=c),
+        "fact_fwd_snap ckpt": lambda c: fk.fact_fwd_snap(
+            px, lens32, fa, leaky_c, ckpt_chunk, cluster=c),
+        "fact_bwd_lean": lambda c: fk.fact_bwd_lean(
+            lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0, tot, debug=False,
+            cluster=c),
+        "lean call": lambda c: fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, debug=False, stream_mode="lean",
+            cluster=c),
+        "ckpt call": lambda c: fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, debug=False, stream_mode="ckpt",
+            cluster=c)}
+    out = {}
+    for name, fn in calls.items():
+        got = {1: [], C: []}
+        for c in (1, C, C, 1):
+            fn(c)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: fn(c), reps)
+            got[c].append((ms, torch.cuda.max_memory_allocated() - held))
+        out[name] = {c: min(v) for c, v in got.items()}
+    del ad1
+    return out
+
+
 def long_fast(den, P, dev, leaky_c, counters):
     """Main path 7 at bench.py --long --big's width in the fast mode: see
     main_path_7.  Returns (per-mode stats, kernel rows' fields)."""
@@ -1623,6 +1740,9 @@ def long_fast(den, P, dev, leaky_c, counters):
           f"the card's budget {budget} B: auto -> {auto} (the JAX package's "
           f"4 GiB -> {fk.resolve_stream_mode(T, B, fa)})", flush=True)
     check(auto == "full", f"{label}: auto chose {auto} under {budget} B")
+    C7 = lean_plan(fa, B, P, dev, label)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        check(C7 == 2, f"{label}: the plan chose C={C7} on 132 SMs")
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
                     .manual_seed(70), device=dev).requires_grad_(True)
     lens = torch.full((B,), T, dtype=torch.int32)
@@ -1672,10 +1792,23 @@ def long_fast(den, P, dev, leaky_c, counters):
     del ad1
     lean_p, lean_bwd_ms = event_ms(lambda: pf.backward_prob_fast(
         px_tm, lens64, fa, leaky_c, alpha_dash, None, s_plain, tot_p, graph))
-    diffs["lean"] = bit_diff(res["lean"], {
-        "objf": objf_p, "gamma": pf.gamma_batch_major(lean_p[0], P),
-        "alpha_beta": lean_p[1], "gamma_sum": lean_p[2]})
+    want_lean = {"objf": objf_p, "gamma": pf.gamma_batch_major(lean_p[0], P),
+                 "alpha_beta": lean_p[1], "gamma_sum": lean_p[2]}
     del lean_p
+    diffs["lean"] = bit_diff(res["lean"], want_lean)
+    # the lean pair at every C and ring depth at full width (the plan's C
+    # at its own depth is res["lean"])
+    for cl, stages in ((1, None), (4, None), (C7, 0), (C7, 1)):
+        r = fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, stream_mode="lean", cluster=cl,
+            stages=stages)
+        diffs[f"lean C={cl} stages={stages}"] = bit_diff(r, want_lean)
+        del r
+    del want_lean
+    if C7 > 1:
+        smid_check(label, C7, B, lambda smid: fk.fact_fwd_snap(
+            px, lens32, fa, leaky_c, cluster=C7, smid=smid),
+            lambda smid: lean_bwd_smid(fa, px, lens32, leaky_c, C7, smid))
     snaps, s64 = fk.fact_fwd_snap(px, lens32, fa, leaky_c, C)[:2]
     (snaps_p, _, s64_p, _, _), snap_plain_ms = event_ms(
         lambda: pf.forward_prob_fast(px_tm, lens64, fa, leaky_c, graph,
@@ -1729,12 +1862,25 @@ def long_fast(den, P, dev, leaky_c, counters):
           f"{n_chunks} chunks): " + ", ".join(
               f"{k} {v:.3f} (bound {bound(*costs[k])[0]:.4f}, plain "
               f"{plain[k]:.1f})" for k, v in times.items()), flush=True)
+    ab_c = lean_cluster_ab(fa, px, lens32, leaky_c, C7, C)
+    print(f"# {label}: the lean forms at C=1 and at the plan's C={C7} in one "
+          "call, in turns (1, C, C, 1; CUDA events, mean of 3, best turn; "
+          "peak device memory of a call over what was held): " + ", ".join(
+              f"{k} {v[1][0]:.3f} ms ({v[1][1] / 1e9:.3f} GB) -> "
+              f"{v[C7][0]:.3f} ms ({v[C7][1] / 1e9:.3f} GB)"
+              for k, v in ab_c.items()), flush=True)
     del px
     torch.cuda.empty_cache()
-    return stats, {k: {"ms": times[k], "plain_ms": plain[k],
-                       "bytes": costs[k][0], "ops": costs[k][1],
-                       "err": 0.0, "C": C, "n_chunks": n_chunks}
-                   for k in times}
+    rows = {k: {"ms": times[k], "plain_ms": plain[k],
+                "bytes": costs[k][0], "ops": costs[k][1],
+                "err": 0.0, "C": C, "n_chunks": n_chunks}
+            for k in times}
+    for k in ("fact_fwd_snap lean", "fact_fwd_snap ckpt", "fact_bwd_lean"):
+        rows[k].update({"cluster": C7,
+                        "ab_ms": ab_c[k][C7][0], "c1_ms": ab_c[k][1][0],
+                        "ab_peak_over_held": ab_c[k][C7][1],
+                        "c1_peak_over_held": ab_c[k][1][1]})
+    return stats, rows
 
 
 def long_f32(den, P, dev, leaky_c, counters):
@@ -1773,10 +1919,15 @@ def long_f32(den, P, dev, leaky_c, counters):
                             functools.partial(fk.forward_backward_prob_kernel,
                                               stream_mode=mode,
                                               ckpt_chunk=chunk))
+    # the lean forms at the plan's C (B=64: 2 on an H100) and at C = 1
+    results["lean C=1"] = fk.forward_backward_prob_kernel(
+        px, lens, fa, leaky_c, stream_mode="lean", cluster=1)
     same = {k: bit_diff(results[k], results["full"])
             for k in results if k != "full"}
     print(f"# {label}: launches {launches}; entries that differ from the "
-          f"full kernels' (not gated) {same}", flush=True)
+          f"full kernels' {same}", flush=True)
+    check(all(v == 0 for d in same.values() for v in d.values()),
+          f"{label}: float32 lean or ckpt not bit-identical to full: {same}")
     check(launches["lean"] == {"fact_fwd_snap": 1, "fact_bwd_lean": 1}
           and launches["ckpt"] == {"fact_fwd_snap": 1,
                                    "fact_fwd_init": -(-T // C),
@@ -1789,6 +1940,8 @@ def long_f32(den, P, dev, leaky_c, counters):
     fwd_err = max(errs[k]["objf_rel"] for k in errs)
     bwd_err = max(max(e["gamma_abs"], e["alpha_beta_abs"],
                       e["gamma_sum_abs"]) for e in errs.values())
+    # the lean forms ran on the plan's cluster (fact_kernels.lean_cluster)
+    lean_c = fk.lean_cluster(B, torch.cuda.get_device_properties(dev), fa)
     rows = {}
     for k, ms in times.items():
         fwd = k.startswith("fact_fwd")
@@ -1796,6 +1949,8 @@ def long_f32(den, P, dev, leaky_c, counters):
                    "bytes": costs[k][0], "ops": costs[k][1],
                    "err": fwd_err if fwd else bwd_err, "C": C,
                    "n_chunks": -(-T // C)}
+        if k.split()[0] in ("fact_fwd_snap", "fact_bwd_lean"):
+            rows[k]["cluster"] = lean_c
     print(f"# {label} kernel ms: " + ", ".join(
         f"{k} {v['ms']:.3f} (bound {bound(v['bytes'], v['ops'])[0]:.4f})"
         for k, v in rows.items()) + f"; plain fwd {plain[2]:.1f}, plain "
@@ -3725,6 +3880,11 @@ def main():
                 "max_abs_err": r["err"], "max_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bms,
                 "bound_by": by, "bytes": r["bytes"], "ops": r["ops"],
+                # the lean forms: CTAs a column, and the one-call A/B
+                # against C = 1 (fast mode)
+                **{k: r[k] for k in ("cluster", "ab_ms",
+                                     "c1_ms", "ab_peak_over_held",
+                                     "c1_peak_over_held") if k in r},
                 "library_ms": None})
     # main path 2 runs the "semiring" class (the flat-start batch), main
     # path 3 its constrained batch ("xl" by the JAX package's rule); the

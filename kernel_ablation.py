@@ -69,6 +69,156 @@ BWD = {
     "no_gamma_scatter": [("if (p < n_pdf_lists) {", "if (false) {")],
     "no_gamma_writes": [("__stcs(g_row + p, gv);", "")],
 }
+# B1/B2's lean forms at main path 7 (bench.py --long --big: B=64,
+# T=3,700, bfloat16 tiles), a column on C CTAs: the cluster size forced
+# (C1 again last, the drift of the run), CTAs of 1024 / C threads
+# ("split"), and at C=2 the sparse products removed, 2, 4 or 8 slots'
+# loads issued ahead in each row's
+# sum, fact_bwd_lean's px rows gathered from device memory (LEAN_PX_RING
+# 0) or its gamma stage spread over a CTA (without the trace), and
+# the cluster barriers of a frame made block barriers (their cost: the
+# peers' values are then read unsynchronised, the numbers wrong; the
+# barriers at a launch's start and end stay, so no CTA exits while a peer
+# writes to it).
+_FWD_FRAME_BARRIERS = [
+    ("    cluster_arrive();\n    // frame t + 1's",
+     "    __syncthreads();\n    // frame t + 1's"),
+    ("    cluster_wait();\n    cluster_warp_total<1>(part, red);",
+     "    cluster_warp_total<1>(part, red);"),
+    ("    cluster_arrive();\n    // alpha' is written",
+     "    __syncthreads();\n    // alpha' is written"),
+    ("    cluster_wait();\n  }\n  if (rank == 0)", "  }\n  if (rank == 0)")]
+_BWD_FRAME_BARRIERS = [
+    ("    cluster_arrive();   // X1", "    // X1"),
+    ("    cluster_wait();\n\n    const bool traces",
+     "\n    const bool traces"),
+    ("cluster_barrier();   // X2", "__syncthreads();"),
+    ("cluster_block_sum<1>(g1, red2, V, rank, lc);   // X3",
+     "cluster_post<1>(g1, red2, V, rank, lc);\n      __syncthreads();\n"
+     "      cluster_warp_total<1>(g1, red2);")]
+
+
+def _unrolled(u):
+    """Edits that put sell_row_dot with u slots' column ids and values
+    loaded ahead of their u multiply-adds (the same sum in the same
+    order) in place of sell_row_dot in a source."""
+    helper = f"""
+__device__ __forceinline__ float sell_row_dot_u(
+    const int* __restrict__ sptr, const int* __restrict__ col,
+    const float* __restrict__ val, int r, const float* v) {{
+  const int lane = r & 31;
+  const int slice = r >> 5;
+  float acc = 0.0f;
+  const int end = __ldg(sptr + slice + 1);
+  int k = __ldg(sptr + slice);
+  for (; k + {u} <= end; k += {u}) {{
+    int c[{u}];
+    float w[{u}];
+#pragma unroll
+    for (int j = 0; j < {u}; ++j) {{
+      c[j] = __ldg(col + (k + j) * 32 + lane);
+      w[j] = __ldg(val + (k + j) * 32 + lane);
+    }}
+#pragma unroll
+    for (int j = 0; j < {u}; ++j) acc = fmaf(w[j], v[c[j]], acc);
+  }}
+  for (; k < end; ++k)
+    acc = fmaf(__ldg(val + k * 32 + lane), v[__ldg(col + k * 32 + lane)],
+               acc);
+  return acc;
+}}
+#define sell_row_dot sell_row_dot_u
+"""
+    return [('#include "fact_common.cuh"\n',
+             '#include "fact_common.cuh"\n' + helper)]
+
+
+# fact_bwd_lean's gamma stage spread over all of a CTA's threads on the
+# frames without the sum-gamma trace (its order needs the virtual
+# threads)
+_GAMMA_SPREAD = [(
+    "    if (tid < V) {\n"
+    "      for (int p = cluster_row(tid, rank, C); p < P; p += FACT_THREADS) {",
+    "    const int own_p = cluster_own_rows((P + 31) & ~31, rank, C);\n"
+    "    for (int i = tid; !traces && i < own_p; i += NT) {\n"
+    "      const int p = cluster_row(i, rank, C);\n"
+    "      if (p >= P) continue;\n"
+    "      float acc = 0.0f;\n"
+    "      if (p < n_pdf_lists) {\n"
+    "        for (int k = __ldg(f_ptr + p); k < __ldg(f_ptr + p + 1); ++k)\n"
+    "          acc += c1[__ldg(f_states + k)];\n"
+    "        if (!identity)\n"
+    "          for (int k = __ldg(g_ptr + p); k < __ldg(g_ptr + p + 1); ++k)\n"
+    "            acc += c2[__ldg(g_states + k)];\n"
+    "      }\n"
+    "      __stcs(g_row + p, kFast ? round_to<S>(acc * inv_s) : acc);\n"
+    "    }\n"
+    "    if (traces && tid < V) {\n"
+    "      for (int p = cluster_row(tid, rank, C); p < P; "
+    "p += FACT_THREADS) {")]
+
+
+_FWD_PRODUCTS = [("sell_row_dot(w1_ptr, w1_col, w1_val, d, ad)", "ad[d]"),
+                 ("sell_row_dot(w2_ptr, w2_col, w2_val, d, u)", "u[d]")]
+_BWD_PRODUCTS = [("sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb)", "xb[s]"),
+                 ("sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn)", "bn[s]"),
+                 ("sell_row_dot(w1_ptr, w1_col, w1_val, s, av)", "av[s]")]
+
+
+# the cluster form's own work (wrong numbers): the DSMEM stores of the
+# vectors the products gather (each value stored in this CTA alone; the
+# warp totals still cross), the virtual threads' pass that adds their
+# rows in the one-block order
+_NO_PEER_STORES = [('#include "fact_common.cuh"\n',
+                    '#include "fact_common.cuh"\n'
+                    "#define cluster_put(p, x, rank, C) (*(p) = (x))\n")]
+_FWD_NO_READD = [("    if (tid < V)\n      for (int d = cluster_row(tid",
+                  "    if (false)\n      for (int d = cluster_row(tid")]
+_BWD_NO_READD = [("    if (tid < V) {\n      for (int s = cluster_row(tid",
+                  "    if (false) {\n      for (int s = cluster_row(tid")]
+
+
+# CTAs of 1024 / C threads (the one-block kernel's threads a column),
+# not built (LEAN_CLUSTER_THREADS is 1024)
+_SPLIT = [('#include "fact_common.cuh"\n',
+           '#include "fact_common.cuh"\n#undef LEAN_CLUSTER_THREADS\n'
+           "#define LEAN_CLUSTER_THREADS(C) (1024 / (C))\n")]
+
+
+def _lean_table(barriers, products, readd, px_ring=False):
+    """The lean variants of a source: {label: (C, edits)}; "split" marks
+    the CTAs of 1024 / C threads."""
+    table = {"C1": {"cluster": 1},
+             # what is left of a frame without its sparse products
+             "C1_no_products": {"cluster": 1, "edits": products}}
+    for C in (2, 4):
+        table[f"C{C}"] = {"cluster": C}
+        table[f"C{C}_split"] = {"cluster": C, "edits": _SPLIT}
+    for name, edits in (
+            ("no_products", products),
+            ("no_peer_stores", _NO_PEER_STORES),
+            ("no_readd", readd),
+            ("unroll2", _unrolled(2)), ("unroll4", _unrolled(4)),
+            ("unroll8", _unrolled(8)),
+            ("no_cluster_barriers", barriers),
+            ("split_no_cluster_barriers", _SPLIT + barriers)):
+        table[f"C2_{name}"] = {"cluster": 2, "edits": edits}
+    if px_ring:
+        table["C2_no_px_ring"] = {
+            "cluster": 2, "edits": [("#define LEAN_PX_RING 1\n",
+                                     "#define LEAN_PX_RING 0\n")]}
+        # the gamma stage spread over a CTA's threads off the trace frames
+        table["C2_gamma_spread"] = {"cluster": 2, "edits": _GAMMA_SPREAD}
+    table["C1_again"] = {"cluster": 1}
+    return table
+
+
+LEAN_FWD = _lean_table(_FWD_FRAME_BARRIERS, _FWD_PRODUCTS, _FWD_NO_READD)
+LEAN_BWD = _lean_table(_BWD_FRAME_BARRIERS, _BWD_PRODUCTS, _BWD_NO_READD,
+                       px_ring=True)
+# the source of a table that is not named after its source
+SOURCE = {"fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd"}
+
 # The cluster pair (a cluster a group of G columns, W1's vector alone
 # held whole, one / two cluster barriers a frame).
 STREAM_FWD = {
@@ -301,8 +451,8 @@ def spec(variant):
     """(source edits, host options) of a variant table entry: a list of
     edits, or a dict with "edits" and the options "order" ("ascending":
     B1/B2 read the cluster kernels' operators), "stages" (fact_bwd's
-    ring depth) and "layout" (a semiring kernel's layout, a function of
-    the plan's)."""
+    ring depth), "layout" (a semiring kernel's layout, a function of
+    the plan's) and "cluster" (the lean forms' CTAs a column)."""
     if isinstance(variant, dict):
         return variant.get("edits", []), {k: v for k, v in variant.items()
                                           if k != "edits"}
@@ -467,6 +617,46 @@ def viterbi_ablation(table, use, time_ms, dev):
     return result
 
 
+def lean_ablation(tables, use, time_ms, dev):
+    """The lean forms' variants at main path 7 (bench.py --long --big: the
+    headline graph, B=64, T=3,700, bfloat16 tiles), each call timed alone
+    (fact_bwd_lean on the C = 1 sweep's alpha' stream)."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    B, T, c = 64, 3700, 1e-5
+    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+    fa = ChainGraphBatch(ChainGraph(den_fst), B, tile_dtype="bfloat16",
+                         device=dev)._fact
+    px = torch.exp(torch.randn(B, T, P, generator=torch.Generator(
+        device=dev).manual_seed(70), device=dev))
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    use("fact_fwd", "full")
+    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens, fa, c,
+                                                   cluster=1)
+    tot = fk._objf(s_ys, ad_last, lens, fa, s0)[1].contiguous()
+    result = {}
+    tag = f"B={B} T={T}"
+    for label, variant in tables["fact_fwd_snap"].items():
+        use("fact_fwd_snap", label)
+        opts = spec(variant)[1]
+        result[f"fact_fwd_snap_bf16/{label} {tag}"] = time_ms(
+            lambda: fk.fact_fwd_snap(px, lens, fa, c,
+                                     cluster=opts["cluster"]), reps=3)
+    use("fact_fwd", "full")
+    for label, variant in tables["fact_bwd_lean"].items():
+        use("fact_bwd_lean", label)
+        opts = spec(variant)[1]
+        result[f"fact_bwd_lean_bf16/{label} {tag}"] = time_ms(
+            lambda: fk.fact_bwd_lean(lens, fa, c, ad1, px, s_ys, ad0, s0, tot,
+                                     debug=False, cluster=opts["cluster"]),
+            reps=3)
+    del px, ad1
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -477,7 +667,8 @@ def main():
     from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
 
-    tables = {"fact_fwd": FWD, "fact_bwd": BWD, "stream_fwd": STREAM_FWD,
+    tables = {"fact_fwd": FWD, "fact_bwd": BWD, "fact_fwd_snap": LEAN_FWD,
+              "fact_bwd_lean": LEAN_BWD, "stream_fwd": STREAM_FWD,
               "stream_bwd": STREAM_BWD, "semiring_fwd": sr_table(
                   "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
               "viterbi": sr_table("viterbi")}
@@ -492,13 +683,14 @@ def main():
     for kernel, table in tables.items():
         # each forward kernel's full form writes the streams its partner
         # reads
-        fwd = kernel.replace("bwd", "fwd")
+        src = SOURCE.get(kernel, kernel)
+        fwd = src.replace("bwd", "fwd")
         if table and (fwd, "full") not in jobs:
             jobs[(fwd, "full")] = build_variant(fwd, [], out_dir)
         for label, variant in table.items():
             if (kernel, label) not in jobs:
                 jobs[(kernel, label)] = build_variant(
-                    kernel, spec(variant)[0], out_dir)
+                    src, spec(variant)[0], out_dir)
     for key, (proc, _) in {id(j[0]): (k, j) for k, j in
                            jobs.items()}.values():
         out, _ = proc.communicate()
@@ -511,7 +703,8 @@ def main():
     c = 1e-5
 
     def use(kernel, label):
-        build._loaded[kernel] = ctypes.CDLL(str(jobs[(kernel, label)][1]))
+        build._loaded[SOURCE.get(kernel, kernel)] = ctypes.CDLL(
+            str(jobs[(kernel, label)][1]))
 
     def time_ms(fn, reps=5):
         fn()
@@ -561,6 +754,9 @@ def main():
                                     **kw))
         fk._graphs[fa] = kept
         del ad_ys, w1ad, xdst, xsrc, px
+
+    if tables["fact_fwd_snap"] or tables["fact_bwd_lean"]:
+        result.update(lean_ablation(tables, use, time_ms, dev))
 
     if tables["stream_fwd"] or tables["stream_bwd"]:
         # the cluster pair at main path 4

@@ -51,7 +51,7 @@ def factorized_from_numpy(fa, device=None) -> FactorizedArrays:
     if getattr(fa, "log_semantics", False):
         raise NotImplementedError(
             "log_semantics factorized graphs are not ported yet "
-            "(ROADMAP.md, deferred modules)")
+            "(ROADMAP.md: \"shared log-domain graphs\")")
     return FactorizedArrays(
         w1=_warrays(fa.w1), f_dst=_t(fa.f_dst, np.int64),
         e_f=_warrays(fa.e_f), w2=_warrays(fa.w2),

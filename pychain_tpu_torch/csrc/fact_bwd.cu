@@ -114,6 +114,11 @@
 
 #include "fact_common.cuh"
 
+// 1: the lean cluster form fetches each frame's px row into its ring by
+// TMA where fact_bwd_lean_px_ring allows; 0: never (it then gathers x_dst
+// and x_src from px by __ldg; kernel_ablation.py times both).
+#define LEAN_PX_RING 1
+
 // Stream rows a frame reads: x_dst(u), W1 alpha'(u), alpha'(u) (the
 // forward sweep's row u - 1) and, outside identity mode, x_src(u); the
 // lean mode reads alpha'(u) alone.
@@ -431,6 +436,330 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   }
 }
 
+// fact_bwd_lean on a cluster of C CTAs (C = 2 or 4) of NT threads a
+// column, as fact_fwd_snap's cluster form (fact_fwd.cu): CTA r owns the
+// virtual warps w = r (mod C) of the C = 1 block and their state rows
+// (fact_common.cuh), computes their W1^T, W2^T and lean W1 products, their
+// beta' and masses, and the pdfs p with p mod 1024 a virtual thread of
+// its own (their gamma entries and their part of the sum-gamma trace).
+// A frame:
+//
+//   own rows: b and x_dst * b to every CTA (DSMEM stores), x_dst(u) and
+//   x_src(u) for the owner; alpha'(u) whole from this CTA's ring ->
+//   cluster arrive (X1) -> own rows' W1 alpha'(u), which needs this
+//   CTA's alpha'(u) alone -> cluster wait -> own rows' W1^T and W2^T
+//   products, beta'(u) and masses c1 (c2) to every CTA -> the leaky sum's
+//   and the alpha*beta trace's virtual warp totals to every CTA ->
+//   cluster barrier X2 (the ring's stage read: refilled) -> the cross-warp
+//   trees -> gamma of own pdfs -> (where the sum-gamma trace is taken:
+//   its totals, cluster barrier X3, its tree).
+//
+// Two cluster barriers a frame off the trace frames (each exchange needs
+// the one before: the leaky sum makes b, b the products, the products the
+// masses and the masses gamma), three on them (frame 0, or every frame
+// with debug).  Every vector a peer writes is written only after the
+// barrier that follows the peers' last reads of it: the masses of frame
+// u - 1 cross after X1 of frame u - 1, which a peer passes after its gamma
+// stage of frame u.  Each CTA fetches the whole alpha'(u) row into its own
+// ring by TMA, as the C = 1 kernel does: W1's gathers need it whole, and
+// an L2 read of the row is cheaper than an exchange.  Where the ring has
+// room (fact_bwd_lean_px_ring) it also fetches px's row u, from which the
+// head gathers x_dst and x_src in shared memory (0.6-3.8% faster than
+// __ldg from px in three runs at main path 7, within their spread).  The
+// products are each row's own sell_row_dot and every sum is taken in the
+// C = 1 kernel's order (each pdf's list ascending), so the results are
+// that kernel's bit for bit.
+//
+// NT = 1024 (LEAN_CLUSTER_THREADS, see fact_fwd.cu): the products are
+// spread over the CTA's threads and the virtual threads (tid < 1024 / C)
+// then add their rows' leaky and trace terms in turn after a block
+// barrier; the gamma stage runs on the virtual threads (spread over all
+// threads where no trace is taken it was 16-19% slower).  At main path
+// 7, C = 2: 1024 threads 55.3 ms, 1024 / C 60.3 ms, C = 1 62.7 ms; the
+// products take about 22.6 ms against C = 1's 40.8, the rest of a frame
+// grows from 5.9 to 8.9 us: the cluster barriers 1.57 us a frame, the
+// DSMEM stores 0.65 us (PERF.md, kernel_ablation.py).  One CTA an SM: at least
+// LEAN_CLUSTER_MIN_SMEM bytes.  Shared memory as the C = 1 lean kernel's
+// (the vectors read whole are whole, the others indexed by state), and
+// the ring's px rows.
+template <typename S, int NT>
+__global__ void __launch_bounds__(NT, 1) fact_bwd_lean_cluster_kernel(
+    const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
+    const S* __restrict__ ad_ys,         // (B, T, S_pad) alpha'(u+1)
+    const float* __restrict__ px,        // (B, T, P)
+    const float* __restrict__ s_ys,      // (B, T) s_{u+1}
+    const float* __restrict__ s0,        // (1,)
+    const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
+    const float* __restrict__ final_p,   // (S_pad,)
+    const float* __restrict__ tot,       // (B,) sum(alpha'(T_b) * final)
+    const float* __restrict__ leaky,     // (S_pad,)
+    const int* __restrict__ w1t_ptr, const int* __restrict__ w1t_col,
+    const float* __restrict__ w1t_val,       // W1 by source row
+    const int* __restrict__ w2t_ptr, const int* __restrict__ w2t_col,
+    const float* __restrict__ w2t_val,       // W2 by source row
+    const int* __restrict__ w1_ptr, const int* __restrict__ w1_col,
+    const float* __restrict__ w1_val,        // W1 by destination
+    const int* __restrict__ f_dst,       // (S_pad,)
+    const int* __restrict__ g_src,       // (S_pad,) or null (identity mode)
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
+    const int* __restrict__ f_ptr, const int* __restrict__ f_states,
+    const int* __restrict__ g_ptr,       // null in identity mode
+    const int* __restrict__ g_states,
+    int n_pdf_lists, float leaky_c, int T, int P, int s_pad, int debug,
+    int stages,                          // ring depth: 0, 1 or 2
+    int px_ring,                         // 1: px rows in the ring too
+    float* __restrict__ gamma,           // (B, T, P)
+    float* __restrict__ ab,              // (B, T)
+    float* __restrict__ gs,              // (B, T)
+    int* __restrict__ smid) {            // (B * C,) each CTA's SM, or null
+  namespace cg = cooperative_groups;
+  constexpr bool kFast = sizeof(S) == 2;
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int lc = __ffs(C) - 1;
+  const int V = FACT_THREADS >> lc;      // this CTA's virtual threads
+  extern __shared__ float smem[];
+  const bool identity = g_src == nullptr;
+  // stages x (S_pad stream entries, and with px_ring P floats): frames'
+  // alpha'(u) rows (and px rows)
+  const unsigned row_bytes =
+      static_cast<unsigned>(sizeof(S)) * static_cast<unsigned>(s_pad);
+  const unsigned px_bytes = px_ring ? 4u * static_cast<unsigned>(P) : 0u;
+  char* ring = reinterpret_cast<char*>(smem);
+  unsigned long long* bar =    // one mbarrier a stage
+      reinterpret_cast<unsigned long long*>(ring + stages *
+                                            (row_bytes + px_bytes));
+  float* bd = reinterpret_cast<float*>(bar + stages);  // beta', own rows
+  float* bn = bd + s_pad;      // b, whole: gathered by W2^T's rows
+  float* xb = bn + s_pad;      // x_dst * b, whole: gathered by W1^T's rows
+  float* c1 = xb + s_pad;      // posterior mass per state, whole
+  float* c2 = identity ? c1 : c1 + s_pad;   // E_g^T side, whole
+  float* av = c2 + s_pad;      // alpha'(u), whole: gathered by W1's rows
+  float* xdv = av + s_pad;     // x_dst(u), own rows
+  float* xsv = identity ? xdv : xdv + s_pad;   // x_src(u), own rows
+  float* red = xsv + s_pad;    // totals: the leaky sum and alpha*beta,
+  float* red2 = red + 2 * FACT_WARPS + 2;   // and the sum-gamma trace
+
+  const int tid = threadIdx.x;
+  const int b = static_cast<int>(blockIdx.x) >> lc;
+  if (smid && tid == 0) smid[blockIdx.x] = sm_id();
+  const int Tb = lengths[b];
+  const size_t row0 = static_cast<size_t>(b) * T;
+  const int own = cluster_own_rows(s_pad, rank, C);
+  cluster_barrier();   // every CTA has started: peers may be written
+
+  // Frame u (the (T_b - 1 - u)-th of the reverse loop) reads alpha'(u),
+  // the forward sweep's row u - 1 (and with px_ring px's row u), from
+  // stage (T_b - 1 - u) % stages; thread 0 of each CTA fetches it `stages`
+  // frames ahead.  Frame 0 takes ad0 (and fetches px's row 0 alone).
+  const unsigned long long policy = stages ? evict_first_policy() : 0ull;
+  auto fetches = [&](int u) { return px_ring || u > 0; };
+  auto stage_ad = [&](int k) {
+    return reinterpret_cast<S*>(ring + k * (row_bytes + px_bytes));
+  };
+  auto stage_px = [&](int k) {
+    return reinterpret_cast<float*>(ring + k * (row_bytes + px_bytes) +
+                                    row_bytes);
+  };
+  auto fetch = [&](int u) {
+    const int k = (Tb - 1 - u) % stages;
+    const size_t o = (static_cast<size_t>(b) * T + u) * s_pad;
+    mbar_expect_tx(bar + k, (u > 0 ? row_bytes : 0u) + px_bytes);
+    if (u > 0)
+      bulk_load(stage_ad(k), ad_ys + o - s_pad, row_bytes, bar + k, policy);
+    if (px_ring)
+      bulk_load(stage_px(k), px + (row0 + u) * P, px_bytes, bar + k, policy);
+  };
+  if (tid == 0 && stages > 0) {
+    for (int k = 0; k < stages; ++k) mbar_init(bar + k, 1);
+    for (int k = 0; k < stages && k < Tb; ++k)
+      if (fetches(Tb - 1 - k)) fetch(Tb - 1 - k);
+  }
+
+  // frames past the column's end, spread over the cluster
+  const size_t n_past = static_cast<size_t>(T - Tb) * P;
+  float* g_past = gamma + (row0 + Tb) * P;
+  for (size_t i = rank * NT + tid; i < n_past; i += C * NT) g_past[i] = 0.0f;
+  const float past_trace = debug ? 0.0f : 1.0f;
+  for (int u = Tb + rank * NT + tid; u < T; u += C * NT) {
+    ab[row0 + u] = past_trace;
+    gs[row0 + u] = past_trace;
+  }
+
+  // injection at the last frame: beta'(T_b) = final / tot, the virtual
+  // threads' rows
+  const float tot_b = tot[b];
+  float inj[1] = {0.0f};
+  if (tid < V) {
+    for (int s = cluster_row(tid, rank, C); s < s_pad; s += FACT_THREADS) {
+      const float v = final_p[s] / tot_b;
+      bd[s] = v;
+      inj[0] = kFast ? __fadd_rn(inj[0], __fmul_rn(v, leaky[s]))
+                     : inj[0] + v * leaky[s];
+    }
+  }
+  // also the barrier after which the mbarriers may be waited on
+  cluster_block_sum<1>(inj, red, V, rank, lc);
+  float leak_sum = inj[0];
+
+  float part[3];
+  for (int u = Tb - 1; u >= 0; --u) {
+    const float s_u = u == 0 ? *s0 : s_ys[row0 + u - 1];
+    const float inv_s = 1.0f / s_u;
+    const int fi = Tb - 1 - u;
+    const S* ad_u = nullptr;   // alpha'(u)'s row; null at u = 0
+    const float* px_u = px + (row0 + u) * P;
+    if (stages > 0) {
+      if (fetches(u)) mbar_wait(bar + fi % stages, (fi / stages) & 1);
+      if (u > 0) ad_u = stage_ad(fi % stages);
+      if (px_ring) px_u = stage_px(fi % stages);
+    } else if (u > 0) {
+      ad_u = ad_ys + (static_cast<size_t>(b) * T + u) * s_pad - s_pad;
+    }
+    auto alpha_at = [&](int s) {
+      return u == 0 ? ad0[s] : stages > 0 ? smem_get(ad_u + s)
+                                          : stream_get(ad_u + s);
+    };
+    // px's row u: from the ring, or read where a gather needs it
+    auto px_at = [&](int pdf) {
+      return px_ring ? px_u[pdf] : __ldg(px_u + pdf);
+    };
+    // the leaky term rounded on its own, then added
+    const float cl = __fmul_rn(leaky_c, leak_sum);
+    for (int i = tid; i < own; i += NT) {
+      const int s = cluster_row(i, rank, C);
+      const float v = __fadd_rn(bd[s], cl);
+      const float x = round_to<S>(px_at(f_dst[s]));
+      xdv[s] = x;
+      if (!identity) xsv[s] = round_to<S>(px_at(g_src[s]));
+      cluster_put(bn + s, round_to<S>(v), rank, C);
+      cluster_put(xb + s, round_to<S>(x * v), rank, C);
+    }
+    for (int s = tid; s < s_pad; s += NT) av[s] = round_to<S>(alpha_at(s));
+    __syncthreads();
+    cluster_arrive();   // X1: b and x_dst * b to the peers
+    // W1 alpha'(u) on own rows (fact_fwd's row loop, the C = 1 lean
+    // kernel's sum; in the fast mode plus the diagonal term, rounded on
+    // its own) needs this CTA's alpha'(u) alone: taken while the peers'
+    // b arrive, and held in c1's own rows until the masses replace it
+    for (int i = tid; i < own; i += NT) {
+      const int s = cluster_row(i, rank, C);
+      float w = sell_row_dot(w1_ptr, w1_col, w1_val, s, av);
+      if (kFast) w = __fadd_rn(w, __fmul_rn(__ldg(diag1 + s), alpha_at(s)));
+      c1[s] = w;
+    }
+    cluster_wait();
+
+    const bool traces = debug || u == 0;
+    for (int i = tid; i < own; i += NT) {
+      const int s = cluster_row(i, rank, C);
+      float w1t = sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb);
+      float w2t = sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn);
+      float xbs = xb[s];
+      const float ad = alpha_at(s);
+      const float w1a_lean = c1[s];
+      float bdt;
+      if (kFast) {
+        // the C = 1 kernel's arithmetic, rounded where it rounds
+        const float v = __fadd_rn(bd[s], cl);
+        xbs = xdv[s] * v;
+        w1t = __fadd_rn(w1t, __fmul_rn(__ldg(diag1 + s), xbs));
+        w2t = __fadd_rn(w2t, __fmul_rn(__ldg(diag2 + s), v));
+        const float sw = __fmul_rn(xsv[s], w2t);
+        bdt = __fmul_rn(__fadd_rn(w1t, sw), inv_s);
+        const float m1 = __fmul_rn(xbs, w1a_lean);
+        const float m2 = __fmul_rn(sw, ad);
+        if (identity) {
+          cluster_put(c1 + s, round_to<S>(__fadd_rn(m1, m2)), rank, C);
+        } else {
+          cluster_put(c1 + s, round_to<S>(m1), rank, C);
+          cluster_put(c2 + s, round_to<S>(m2), rank, C);
+        }
+      } else {
+        const float sw = xsv[s] * w2t;
+        bdt = (w1t + sw) * inv_s;
+        const float m1 = xbs * w1a_lean * inv_s;
+        const float m2 = sw * ad * inv_s;
+        if (identity) {
+          cluster_put(c1 + s, m1 + m2, rank, C);
+        } else {
+          cluster_put(c1 + s, m1, rank, C);
+          cluster_put(c2 + s, m2, rank, C);
+        }
+      }
+      bd[s] = bdt;
+    }
+    // each virtual thread adds its rows' leaky and trace terms in turn,
+    // as the C = 1 kernel's row loop does
+    __syncthreads();
+    part[0] = part[1] = part[2] = 0.0f;
+    if (tid < V) {
+      for (int s = cluster_row(tid, rank, C); s < s_pad; s += FACT_THREADS) {
+        const float bdt = bd[s];
+        const float ad = alpha_at(s);
+        if (kFast) {
+          part[0] = __fadd_rn(part[0], __fmul_rn(bdt, leaky[s]));
+          if (traces) part[1] = __fadd_rn(part[1], __fmul_rn(ad, bdt));
+        } else {
+          part[0] += bdt * leaky[s];
+          if (traces) part[1] += ad * bdt;
+        }
+      }
+    }
+    // the leaky sum and the alpha*beta trace are complete: their totals
+    // cross on X2, which also publishes the masses
+    float rows2[2] = {part[0], part[1]};
+    cluster_post<2>(rows2, red, V, rank, lc);
+    cluster_barrier();   // X2
+    // the stage is read: refill it with frame u - stages' row
+    if (tid == 0 && stages > 0 && u - stages >= 0 && fetches(u - stages)) {
+      fence_proxy_async();
+      fetch(u - stages);
+    }
+    cluster_warp_total<2>(rows2, red);
+    leak_sum = rows2[0];
+
+    // gamma of own pdfs: virtual thread v sums pdfs v, v + 1024, ...
+    // (spreading them over all of a whole block's threads where no trace
+    // is taken was slower, PERF.md)
+    float* g_row = gamma + (row0 + u) * P;
+    if (tid < V) {
+      for (int p = cluster_row(tid, rank, C); p < P; p += FACT_THREADS) {
+        float acc = 0.0f;
+        if (p < n_pdf_lists) {
+          const int fe = __ldg(f_ptr + p + 1);
+          for (int k = __ldg(f_ptr + p); k < fe; ++k)
+            acc += c1[__ldg(f_states + k)];
+          if (!identity) {
+            const int ge = __ldg(g_ptr + p + 1);
+            for (int k = __ldg(g_ptr + p); k < ge; ++k)
+              acc += c2[__ldg(g_states + k)];
+          }
+        }
+        const float gv = kFast ? round_to<S>(acc * inv_s) : acc;
+        __stcs(g_row + p, gv);
+        if (traces) part[2] += acc;
+      }
+    }
+    // the sum-gamma trace (at every frame with debug, else at frame 0):
+    // a third barrier on those frames alone.  Without it a CTA may start
+    // frame u - 1 while a peer still sums gamma: the next writes of c1
+    // and c2 to a peer follow X1 of frame u - 1, which the peer passes
+    // after its gamma stage.
+    if (traces) {
+      float g1[1] = {part[2]};
+      cluster_block_sum<1>(g1, red2, V, rank, lc);   // X3
+      part[2] = g1[0];
+    }
+    if (rank == 0 && tid == 0) {
+      ab[row0 + u] = traces ? rows2[1] : 1.0f;
+      gs[row0 + u] = traces ? (kFast ? part[2] * inv_s : part[2]) : 1.0f;
+    }
+  }
+  cluster_barrier();   // no peer touches this CTA's shared memory after it
+}
+
 extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages,
                                       int fast, int lean) {
   const size_t rows = lean ? 1 : identity ? 3 : 4;
@@ -440,6 +769,83 @@ extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages,
   return (vectors * static_cast<size_t>(s_pad) + 3 * FACT_WARPS + 3) *
              sizeof(float) +
          stages * (rows * s_pad * entry + sizeof(unsigned long long));
+}
+
+// The cluster form's request: the C = 1 lean kernel's, and never less
+// than LEAN_CLUSTER_MIN_SMEM (one CTA an SM).
+// Whether the cluster form's ring also holds px's rows: a ring at all, P
+// floats a 16-byte multiple (TMA), and the CTA's request with them within
+// a block's 232,448 bytes (the ring's depth and the limits are C = 1's,
+// chosen without px rows).
+extern "C" int fact_bwd_lean_px_ring(int s_pad, int identity, int stages,
+                                     int fast, int P) {
+  return LEAN_PX_RING && stages > 0 && P % 4 == 0 &&
+         fact_bwd_smem_bytes(s_pad, identity, stages, fast, 1) +
+                 static_cast<size_t>(stages) * 4 * P <=
+             232448;
+}
+
+// The cluster form's request: the C = 1 lean kernel's, plus a px row a
+// stage (fact_bwd_lean_px_ring), and never less than LEAN_CLUSTER_MIN_SMEM
+// (one CTA an SM).
+extern "C" size_t fact_bwd_lean_cluster_smem_bytes(int s_pad, int identity,
+                                                   int stages, int fast,
+                                                   int P) {
+  const size_t need =
+      fact_bwd_smem_bytes(s_pad, identity, stages, fast, 1) +
+      (fact_bwd_lean_px_ring(s_pad, identity, stages, fast, P)
+           ? static_cast<size_t>(stages) * 4 * P
+           : 0);
+  return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
+}
+
+template <typename S, int NT>
+static int fact_bwd_lean_cluster_run(
+    const void* lengths, const void* ad_ys, const void* px, const void* s_ys,
+    const void* s0, const void* ad0, const void* final_p, const void* tot,
+    const void* leaky, const void* w1t_ptr, const void* w1t_col,
+    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
+    const void* w2t_val, const void* w1_ptr, const void* w1_col,
+    const void* w1_val, const void* f_dst, const void* g_src,
+    const void* diag1, const void* diag2, const void* f_ptr,
+    const void* f_states, const void* g_ptr, const void* g_states,
+    int n_pdf_lists, float leaky_c, int B, int T, int P, int s_pad,
+    int debug, int stages, int cluster, void* gamma, void* ab, void* gs,
+    void* smid, void* stream) {
+  auto kernel = fact_bwd_lean_cluster_kernel<S, NT>;
+  const int identity = g_src == nullptr;
+  const int px_ring =
+      fact_bwd_lean_px_ring(s_pad, identity, stages, sizeof(S) == 2, P);
+  const size_t smem = fact_bwd_lean_cluster_smem_bytes(
+      s_pad, identity, stages, sizeof(S) == 2, P);
+  cudaError_t err = fact_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, attr, NT);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return -1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int*>(lengths),
+      static_cast<const S*>(ad_ys), static_cast<const float*>(px),
+      static_cast<const float*>(s_ys), static_cast<const float*>(s0),
+      static_cast<const float*>(ad0), static_cast<const float*>(final_p),
+      static_cast<const float*>(tot), static_cast<const float*>(leaky),
+      static_cast<const int*>(w1t_ptr), static_cast<const int*>(w1t_col),
+      static_cast<const float*>(w1t_val), static_cast<const int*>(w2t_ptr),
+      static_cast<const int*>(w2t_col), static_cast<const float*>(w2t_val),
+      static_cast<const int*>(w1_ptr), static_cast<const int*>(w1_col),
+      static_cast<const float*>(w1_val), static_cast<const int*>(f_dst),
+      static_cast<const int*>(g_src), static_cast<const float*>(diag1),
+      static_cast<const float*>(diag2), static_cast<const int*>(f_ptr),
+      static_cast<const int*>(f_states), static_cast<const int*>(g_ptr),
+      static_cast<const int*>(g_states), n_pdf_lists, leaky_c, T, P, s_pad,
+      debug, stages, px_ring, static_cast<float*>(gamma),
+      static_cast<float*>(ab), static_cast<float*>(gs),
+      static_cast<int*>(smid));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S, int kForm>
@@ -455,9 +861,27 @@ static int fact_bwd_run(
     const void* diag2, const void* f_ptr, const void* f_states,
     const void* g_ptr, const void* g_states, int n_pdf_lists, float leaky_c,
     int B, int T, int P, int s_pad, int debug, int stages, int t0,
-    int n_frames, int ad_rows, int init_stride, void* gamma, void* ab,
-    void* gs, void* bd_io, void* leak_io, void* stream) {
+    int n_frames, int ad_rows, int init_stride, int cluster, void* gamma,
+    void* ab, void* gs, void* bd_io, void* leak_io, void* smid,
+    void* stream) {
   constexpr bool kLean = kForm == BWD_LEAN;
+  if (cluster != 1) {
+    // the cluster form: fact_bwd_lean alone, C = 2 or 4
+    if (!kLean) return static_cast<int>(cudaErrorInvalidValue);
+#define FACT_BWD_LEAN_CLUSTER(C)                                              \
+  if (cluster == C)                                                           \
+    return fact_bwd_lean_cluster_run<S, LEAN_CLUSTER_THREADS(C)>(             \
+        lengths, ad_ys, px, s_ys, s0, ad0, final_p, tot, leaky, w1t_ptr,      \
+        w1t_col, w1t_val, w2t_ptr, w2t_col, w2t_val, w1_ptr, w1_col, w1_val,  \
+        f_dst, g_src, diag1, diag2, f_ptr, f_states, g_ptr, g_states,         \
+        n_pdf_lists, leaky_c, B, T, P, s_pad, debug, stages, C, gamma, ab,    \
+        gs, smid, stream);
+    FACT_BWD_LEAN_CLUSTER(2)
+    FACT_BWD_LEAN_CLUSTER(4)
+#undef FACT_BWD_LEAN_CLUSTER
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smid != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const bool identity = kLean ? g_src == nullptr : xsrc_ys == nullptr;
   const size_t smem =
       fact_bwd_smem_bytes(s_pad, identity, stages, sizeof(S) == 2, kLean);
@@ -488,14 +912,18 @@ static int fact_bwd_run(
 }
 
 // Every entry point takes the same arguments and returns
-// cudaGetLastError() after the launch (0 on success).  The float32 forms
-// ignore diag1 and diag2; the fast forms (_bf16) take bfloat16 streams,
-// the operators' off-diagonal entries alone (bfloat16 values held in
-// float32) and the float32 diagonals diag1 (W1's) and diag2 (W2's).
-// fact_bwd: the full mode (t0 0, n_frames T, no ad_init, no carry);
-// fact_bwd_chunk: one chunk of the ckpt mode; fact_bwd_lean: the lean
-// mode (px, W1's rows by destination, f_dst and g_src; no W1 alpha' or
-// emission streams).
+// cudaGetLastError() after the launch (0 on success), or -1 when
+// cudaOccupancyMaxActiveClusters says no cluster of the asked shape can
+// be resident.  The float32 forms ignore diag1 and diag2; the fast forms
+// (_bf16) take bfloat16 streams, the operators' off-diagonal entries
+// alone (bfloat16 values held in float32) and the float32 diagonals
+// diag1 (W1's) and diag2 (W2's).  fact_bwd: the full mode (t0 0,
+// n_frames T, no ad_init, no carry); fact_bwd_chunk: one chunk of the
+// ckpt mode; fact_bwd_lean: the lean mode (px, W1's rows by destination,
+// f_dst and g_src; no W1 alpha' or emission streams).  cluster: 1 (one
+// 1024-thread block a column, smid null), or for fact_bwd_lean 2 or 4
+// CTAs a column, each writing its SM's id to smid[CTA] unless smid is
+// null.
 #define FACT_BWD_ENTRY(NAME, S, FORM)                                         \
   extern "C" int NAME(                                                        \
       const void* lengths, const void* ad_ys, const void* w1ad_ys,            \
@@ -509,15 +937,16 @@ static int fact_bwd_run(
       const void* diag2, const void* f_ptr, const void* f_states,             \
       const void* g_ptr, const void* g_states, int n_pdf_lists,               \
       float leaky_c, int B, int T, int P, int s_pad, int debug, int stages,   \
-      int t0, int n_frames, int ad_rows, int init_stride, void* gamma,        \
-      void* ab, void* gs, void* bd_io, void* leak_io, void* stream) {         \
+      int t0, int n_frames, int ad_rows, int init_stride, int cluster,        \
+      void* gamma, void* ab, void* gs, void* bd_io, void* leak_io,            \
+      void* smid, void* stream) {                                             \
     return fact_bwd_run<S, FORM>(                                             \
         lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, px, s_ys, s0, ad0,         \
         ad_init, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr,     \
         w2t_col, w2t_val, w1_ptr, w1_col, w1_val, f_dst, g_src, diag1, diag2, \
         f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,      \
-        s_pad, debug, stages, t0, n_frames, ad_rows, init_stride, gamma, ab,  \
-        gs, bd_io, leak_io, stream);                                          \
+        s_pad, debug, stages, t0, n_frames, ad_rows, init_stride, cluster,    \
+        gamma, ab, gs, bd_io, leak_io, smid, stream);                         \
   }
 
 FACT_BWD_ENTRY(fact_bwd_launch, float, BWD_FULL)

@@ -521,15 +521,16 @@ __host__ inline cudaError_t fact_set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Launch configuration of n clusters of `cluster` CTAs of FACT_THREADS
+// Launch configuration of n clusters of `cluster` CTAs of `threads`
 // threads (grid n * cluster: CTAs q * cluster .. q * cluster + cluster - 1
 // form cluster q).  attr (one entry) must outlive the launch.
 __host__ inline cudaLaunchConfig_t cluster_config(int n, int cluster,
                                                   size_t smem, void* stream,
-                                                  cudaLaunchAttribute* attr) {
+                                                  cudaLaunchAttribute* attr,
+                                                  int threads = FACT_THREADS) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n * cluster, 1, 1);
-  cfg.blockDim = dim3(FACT_THREADS, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -540,3 +541,122 @@ __host__ inline cudaLaunchConfig_t cluster_config(int n, int cluster,
   cfg.numAttrs = 1;
   return cfg;
 }
+
+// ----------------------------------------------------------------------
+// B1/B2's lean forms on a cluster (fact_fwd_snap, fact_bwd_lean at C > 1)
+// ----------------------------------------------------------------------
+//
+// One batch column on a cluster of C CTAs (C = 2 or 4) of NT threads.
+// The 1024-thread block of the C = 1 kernel becomes 1024 "virtual
+// threads": CTA r owns the virtual warps w with w mod C = r, i.e. the
+// virtual threads v = cluster_row(j, r, C) for j < 1024 / C, and with
+// them the state rows v, v + 1024, v + 2048, ... (all of one virtual
+// thread's rows lie in one CTA, since C divides 32), which are the
+// 32-row slices k = r (mod C) of the cluster pair's layout.  Each sum
+// that crosses rows is then taken in the C = 1 kernel's order: every
+// virtual thread adds its rows in turn on the CTA that owns them, each
+// virtual warp's shuffle tree runs there, its total goes to every CTA's
+// scratch at the warp's own index, and after a cluster barrier every CTA
+// runs block_sum's cross-warp tree on the 32 totals: bit for bit the
+// C = 1 kernel's sums, the same in every CTA.
+
+// A cluster barrier split in two: arrive (release: this thread's writes,
+// DSMEM stores included, are seen by every thread past the wait) and
+// wait (acquire).  Work that neither needs the peers' writes nor is read
+// by them can go between.  Also a barrier of the CTA's own threads.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The SM this thread runs on (a debug launch records it).
+__device__ __forceinline__ int sm_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+
+// x at p (an offset in this CTA's shared memory) in this CTA and in each
+// of its C - 1 peers (DSMEM stores, seen by the peers after the next
+// cluster barrier).
+__device__ __forceinline__ void cluster_put(float* p, float x, int rank,
+                                            int C) {
+  namespace cg = cooperative_groups;
+  *p = x;
+  for (int q = 1; q < C; ++q)
+    *cg::this_cluster().map_shared_rank(p, (rank + q) & (C - 1)) = x;
+}
+
+// Post this CTA's virtual warp totals of the NV sums v to every CTA of
+// the cluster (1 << lc CTAs): threads tid < V (= 1024 / C, whole warps)
+// are the virtual threads, each warp's shuffle tree is block_sum's, and
+// its total lands at red[w * NV + k] in every CTA, w the virtual warp.
+// The caller then passes a cluster barrier and calls cluster_warp_total.
+template <int NV>
+__device__ __forceinline__ void cluster_post(const float (&v)[NV],
+                                             float* red, int V, int rank,
+                                             int lc) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (static_cast<int>(threadIdx.x) >= V) return;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    float x = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) cluster_put(red + ((warp << lc) | rank) * NV + k, x, rank,
+                               1 << lc);
+  }
+}
+
+// block_sum's cross-warp tree on the 32 posted totals: every thread of
+// every CTA receives the C = 1 kernel's sums in v.  Contains a
+// __syncthreads().
+template <int NV>
+__device__ __forceinline__ void cluster_warp_total(float (&v)[NV],
+                                                   float* red) {
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) == 0) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float x = red[lane * NV + k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        x += __shfl_down_sync(0xffffffffu, x, off);
+      if (lane == 0) red[FACT_WARPS * NV + k] = x;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NV; ++k) v[k] = red[FACT_WARPS * NV + k];
+}
+
+// Both, with a cluster barrier between.
+template <int NV>
+__device__ __forceinline__ void cluster_block_sum(float (&v)[NV], float* red,
+                                                  int V, int rank, int lc) {
+  cluster_post<NV>(v, red, V, rank, lc);
+  cluster_barrier();
+  cluster_warp_total<NV>(v, red);
+}
+
+// Threads of a lean cluster CTA: a full block (at most two rows a
+// thread at the headline graph at C = 2, where C = 1 has three).  1024 / C
+// keeps the one-block kernel's threads a column; it was 6-29% slower at
+// main path 7 (kernel_ablation.py, PERF.md), so is not built.
+#define LEAN_CLUSTER_THREADS(C) 1024
+
+// A lean CTA's dynamic shared memory is at least this: 233,472 bytes an
+// SM hold two CTAs of 115,712 bytes (each also takes a 1 KB reserve),
+// so two CTAs of a cluster cannot share an SM (which would undo the
+// split; at the headline graph a CTA needs about 49-61 KB).
+#define LEAN_CLUSTER_MIN_SMEM 118784

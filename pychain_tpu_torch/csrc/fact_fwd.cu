@@ -249,10 +249,234 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
     for (int t = Tb + tid; t < T; t += FACT_THREADS) s_ys[row0 + t] = 1.0f;
 }
 
+// fact_fwd_snap on a cluster of C CTAs (C = 2 or 4) of NT threads a
+// column: the lean mode's alpha' stream (snap 1) and the ckpt mode's
+// snapshot sweep where B * C <= the card's SMs (fact_kernels.lean_cluster).
+//
+// Why.  The C = 1 kernel gives a column one block, so at bench.py --long
+// --big (B = 64) 64 blocks run on 132 SMs and half the card idles for the
+// whole 3,700-frame loop; a frame (about 9 us) is the serial work of one
+// SM.  Here CTA r of a column's cluster owns the virtual warps w = r
+// (mod C) of the C = 1 block and their rows (fact_common.cuh): it
+// computes those rows' W1 and W2 products, the emissions and the carry,
+// and writes the two vectors the products gather, alpha' (ad) and
+// x_src * alpha' (u), into its own shared memory and each peer's (DSMEM
+// stores), so that every CTA holds both whole.  A frame:
+//
+//   products on own rows -> alpha(t) -> virtual warp totals posted to
+//   every CTA -> cluster arrive -> own rows' emissions of frame t + 1
+//   gathered from px (they need nothing of the peers) -> cluster wait ->
+//   block_sum's cross-warp tree: s_t, the same bits in every CTA ->
+//   own rows' carry alpha'(t + 1) and u(t + 1) to every CTA -> cluster
+//   arrive -> own rows' stream row and alpha'(T_b) -> cluster wait.
+//
+// Two cluster barriers a frame (one more at a launch's start, before any
+// DSMEM store, and one at its end, so that no CTA exits while a peer
+// writes to it); every vector a peer writes is written only after the
+// barrier that follows the peers' last reads of it.  Each row's products
+// are its own sell_row_dot and every sum is taken in the C = 1 kernel's
+// order, so the results are that kernel's bit for bit (the card tests
+// hold float32 and the fast form to it, and the fast form to its plain
+// version).
+//
+// Threads per CTA (LEAN_CLUSTER_THREADS): NT = 1024, a full block (at
+// most two rows a thread at the headline graph, where C = 1 has three);
+// the virtual threads (tid < 1024 / C) add their rows' alpha in turn
+// after a block barrier.  At main path 7, C = 2 (PERF.md,
+// kernel_ablation.py): 1024 threads 27.5 ms, 1024 / C 35.4 ms, C = 1
+// 33.2 ms.  The sparse products take half the time of C = 1's (10.9
+// against 21.0 ms: the SM's throughput bounds them, given 32 warps), but
+// the rest of a frame grows from 3.3 to 4.5 us: the two cluster barriers
+// 0.71 us a frame (made block barriers, the kernel takes 24.9 ms), the
+// DSMEM stores and the virtual threads' pass.
+//
+// Co-location.  Two CTAs of a cluster fit one SM when both fit its
+// 228 KB (61 KB at the headline graph), which would undo the split: the
+// launch asks for at least LEAN_CLUSTER_MIN_SMEM bytes, so one CTA an SM
+// (%smid shows 128 CTAs on 128 SMs at main path 7).
+//
+// Shared memory: ad and u whole, x_dst and alpha on own rows (indexed by
+// state), x_src on own rows outside identity mode in both precisions
+// (frame t + 1's emissions are gathered before the new carry exists),
+// the scratch: (4 or 5) S_pad + 33 floats.
+template <typename S, int NT>
+__global__ void __launch_bounds__(NT, 1) fact_fwd_snap_cluster_kernel(
+    const float* __restrict__ px,        // (B, T, P) exp'd nnet output
+    const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
+    const int* __restrict__ f_dst,       // (S_pad,) pdf of each state's W1 term
+    const int* __restrict__ g_src,       // (S_pad,) or null (identity mode)
+    const int* __restrict__ w1_ptr, const int* __restrict__ w1_col,
+    const float* __restrict__ w1_val,        // W1 by destination row
+    const int* __restrict__ w2_ptr, const int* __restrict__ w2_col,
+    const float* __restrict__ w2_val,        // W2 by destination row
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
+    const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
+    const float* __restrict__ s0,        // (1,) sum of the initial probs
+    const float* __restrict__ leaky,     // (S_pad,)
+    float leaky_c, int T, int P, int s_pad, int snap, int ad_rows,
+    S* __restrict__ ad_ys,               // (B, ad_rows, S_pad) alpha'(t+1)
+    float* __restrict__ s_ys,            // (B, T) s_{t+1}; 1 past the end
+    float* __restrict__ ad_last,         // (B, S_pad) alpha'(T_b)
+    int* __restrict__ smid) {            // (B * C,) each CTA's SM, or null
+  namespace cg = cooperative_groups;
+  constexpr bool kFast = sizeof(S) == 2;
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int lc = __ffs(C) - 1;
+  const int V = FACT_THREADS >> lc;      // this CTA's virtual threads
+  extern __shared__ float smem[];
+  float* ad = smem;            // alpha' carry, whole: gathered by W1's rows
+  float* u = ad + s_pad;       // x_src * alpha', whole: by W2's rows
+  float* xd = u + s_pad;       // x_dst(t), own rows
+  float* a = xd + s_pad;       // alpha(t) before the leaky term, own rows
+  float* xs = g_src ? a + s_pad : xd;   // x_src(t), own rows
+  float* red = a + (g_src ? 2 : 1) * s_pad;   // totals and scratch
+
+  const int tid = threadIdx.x;
+  const int b = static_cast<int>(blockIdx.x) >> lc;
+  if (smid && tid == 0) smid[blockIdx.x] = sm_id();
+  const int Tb = lengths[b];
+  const size_t row0 = static_cast<size_t>(b) * T;
+  const int own = cluster_own_rows(s_pad, rank, C);
+
+  // own rows' x_dst(t) and x_src(t), rounded as the C = 1 kernel rounds
+  auto gather = [&](int t) {
+    const float* px_t = px + (row0 + t) * P;
+    for (int i = tid; i < own; i += NT) {
+      const int s = cluster_row(i, rank, C);
+      xd[s] = round_to<S>(__ldg(px_t + f_dst[s]));
+      if (g_src) xs[s] = round_to<S>(__ldg(px_t + g_src[s]));
+    }
+  };
+  // own rows' W2 operand (the C = 1 kernel's head) to every CTA, from the
+  // carry v (unrounded) of each row
+  auto put_u = [&](int i, float v) {
+    const int s = cluster_row(i, rank, C);
+    cluster_put(u + s, kFast ? round_to<S>(xs[s] * v) : xs[s] * v, rank, C);
+  };
+
+  for (int s = tid; s < s_pad; s += NT) {
+    ad[s] = round_to<S>(ad0[s]);
+    // fast mode: a holds each own row's unrounded carry between frames
+    if (kFast) a[s] = ad0[s];
+  }
+  gather(0);
+  cluster_barrier();   // every CTA has started: peers may be written
+  for (int i = tid; i < own; i += NT) put_u(i, ad0[cluster_row(i, rank, C)]);
+  cluster_barrier();
+  float s_prev = *s0;
+
+  for (int t = 0; t < Tb; ++t) {
+    const float r = 1.0f / s_prev;
+    for (int i = tid; i < own; i += NT) {
+      const int d = cluster_row(i, rank, C);
+      float w1a = sell_row_dot(w1_ptr, w1_col, w1_val, d, ad);
+      float w2u = sell_row_dot(w2_ptr, w2_col, w2_val, d, u);
+      float av;
+      if (kFast) {
+        // the C = 1 kernel's arithmetic, rounded where it rounds
+        const float own_a = a[d];
+        w1a = __fadd_rn(w1a, __fmul_rn(__ldg(diag1 + d), own_a));
+        w2u = __fadd_rn(w2u, __fmul_rn(__ldg(diag2 + d),
+                                       __fmul_rn(xs[d], own_a)));
+        av = __fmul_rn(__fadd_rn(__fmul_rn(xd[d], w1a), w2u), r);
+      } else {
+        av = (xd[d] * w1a + w2u) / s_prev;
+      }
+      a[d] = av;
+    }
+    // each virtual thread adds its rows in turn
+    __syncthreads();
+    float part[1] = {0.0f};
+    if (tid < V)
+      for (int d = cluster_row(tid, rank, C); d < s_pad; d += FACT_THREADS)
+        part[0] += a[d];
+    cluster_post<1>(part, red, V, rank, lc);
+    cluster_arrive();
+    // frame t + 1's emissions (each row's owner thread overwrites what it
+    // alone read above) while the peers' totals arrive
+    if (t + 1 < Tb) gather(t + 1);
+    cluster_wait();
+    cluster_warp_total<1>(part, red);
+    const float s_t = part[0];
+    const float cs = leaky_c * s_t;
+    for (int i = tid; i < own; i += NT) {
+      const int d = cluster_row(i, rank, C);
+      const float v = kFast ? __fadd_rn(a[d], __fmul_rn(cs, leaky[d]))
+                            : a[d] + cs * leaky[d];
+      a[d] = v;
+      cluster_put(ad + d, round_to<S>(v), rank, C);
+      if (t + 1 < Tb) put_u(i, v);
+    }
+    if (rank == 0 && tid == 0) s_ys[row0 + t] = s_t;
+    s_prev = s_t;
+    cluster_arrive();
+    // alpha' is written at every snap-th frame, at its row of ad_ys; the
+    // carry is this CTA's own (no peer writes these rows of a)
+    const bool put = (t + 1) % snap == 0;
+    const size_t oa =
+        (static_cast<size_t>(b) * ad_rows + ((t + 1) / snap - 1)) * s_pad;
+    for (int i = tid; i < own; i += NT) {
+      const int d = cluster_row(i, rank, C);
+      if (put) stream_put(ad_ys + oa + d, a[d]);
+      if (t == Tb - 1) ad_last[static_cast<size_t>(b) * s_pad + d] = a[d];
+    }
+    cluster_wait();
+  }
+  if (rank == 0)
+    for (int t = Tb + tid; t < T; t += NT) s_ys[row0 + t] = 1.0f;
+  cluster_barrier();   // no peer touches this CTA's shared memory after it
+}
+
 extern "C" size_t fact_fwd_smem_bytes(int s_pad, int identity, int fast) {
   const size_t vectors = fast && !identity ? 5 : 4;
   return (vectors * static_cast<size_t>(s_pad) + FACT_WARPS + 1) *
          sizeof(float);
+}
+
+// The cluster form's request: x_src on own rows outside identity mode in
+// both precisions, and never less than LEAN_CLUSTER_MIN_SMEM (one CTA an
+// SM).
+extern "C" size_t fact_fwd_snap_cluster_smem_bytes(int s_pad, int identity) {
+  const size_t need = ((identity ? 4 : 5) * static_cast<size_t>(s_pad) +
+                       FACT_WARPS + 1) * sizeof(float);
+  return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
+}
+
+template <typename S, int NT>
+static int fact_fwd_snap_cluster_run(
+    const void* px, const void* lengths, const void* f_dst, const void* g_src,
+    const void* w1_ptr, const void* w1_col, const void* w1_val,
+    const void* w2_ptr, const void* w2_col, const void* w2_val,
+    const void* diag1, const void* diag2, const void* ad0, const void* s0,
+    const void* leaky, float leaky_c, int B, int T, int P, int s_pad,
+    int snap, int ad_rows, int cluster, void* ad_ys, void* s_ys,
+    void* ad_last, void* smid, void* stream) {
+  auto kernel = fact_fwd_snap_cluster_kernel<S, NT>;
+  const size_t smem = fact_fwd_snap_cluster_smem_bytes(s_pad, g_src == nullptr);
+  cudaError_t err = fact_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, attr, NT);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return -1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(px),
+      static_cast<const int*>(lengths), static_cast<const int*>(f_dst),
+      static_cast<const int*>(g_src), static_cast<const int*>(w1_ptr),
+      static_cast<const int*>(w1_col), static_cast<const float*>(w1_val),
+      static_cast<const int*>(w2_ptr), static_cast<const int*>(w2_col),
+      static_cast<const float*>(w2_val), static_cast<const float*>(diag1),
+      static_cast<const float*>(diag2), static_cast<const float*>(ad0),
+      static_cast<const float*>(s0), static_cast<const float*>(leaky),
+      leaky_c, T, P, s_pad, snap, ad_rows, static_cast<S*>(ad_ys),
+      static_cast<float*>(s_ys), static_cast<float*>(ad_last),
+      static_cast<int*>(smid));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S, int kForm>
@@ -263,8 +487,24 @@ static int fact_fwd_run(
     const void* diag1, const void* diag2, const void* ad0, const void* s0,
     const void* ad_init, const void* s_init, const void* leaky, float leaky_c,
     int B, int T, int P, int s_pad, int t0, int n_frames, int snap,
-    int ad_rows, int init_stride, int s_stride, void* ad_ys, void* w1ad_ys,
-    void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* stream) {
+    int ad_rows, int init_stride, int s_stride, int cluster, void* ad_ys,
+    void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,
+    void* smid, void* stream) {
+  if (cluster != 1) {
+    // the cluster form: fact_fwd_snap alone, C = 2 or 4
+    if (kForm != FWD_SNAP) return static_cast<int>(cudaErrorInvalidValue);
+#define FACT_FWD_SNAP_CLUSTER(C)                                              \
+  if (cluster == C)                                                           \
+    return fact_fwd_snap_cluster_run<S, LEAN_CLUSTER_THREADS(C)>(             \
+        px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr, w2_col,    \
+        w2_val, diag1, diag2, ad0, s0, leaky, leaky_c, B, T, P, s_pad, snap,  \
+        ad_rows, C, ad_ys, s_ys, ad_last, smid, stream);
+    FACT_FWD_SNAP_CLUSTER(2)
+    FACT_FWD_SNAP_CLUSTER(4)
+#undef FACT_FWD_SNAP_CLUSTER
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smid != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fact_fwd_smem_bytes(s_pad, g_src == nullptr,
                                           sizeof(S) == 2);
   cudaError_t err = fact_set_smem(fact_fwd_kernel<S, kForm>, smem);
@@ -288,12 +528,16 @@ static int fact_fwd_run(
 }
 
 // Every entry point takes the same arguments and returns
-// cudaGetLastError() after the launch (0 on success).  The float32 forms
-// ignore diag1 and diag2; the fast forms (_bf16) take bfloat16 streams,
-// the operators' off-diagonal entries alone (bfloat16 values held in
-// float32) and the float32 diagonals diag1 (W1's) and diag2 (W2's).
-// fact_fwd reads neither ad_init, s_init nor the frame range; fact_fwd_init
-// writes neither s_ys nor ad_last.
+// cudaGetLastError() after the launch (0 on success), or -1 when
+// cudaOccupancyMaxActiveClusters says no cluster of the asked shape can
+// be resident.  The float32 forms ignore diag1 and diag2; the fast forms
+// (_bf16) take bfloat16 streams, the operators' off-diagonal entries
+// alone (bfloat16 values held in float32) and the float32 diagonals
+// diag1 (W1's) and diag2 (W2's).  fact_fwd reads neither ad_init, s_init
+// nor the frame range; fact_fwd_init writes neither s_ys nor ad_last.
+// cluster: 1 (one 1024-thread block a column, smid null), or for
+// fact_fwd_snap 2 or 4 CTAs a column, each writing its SM's id to
+// smid[CTA] unless smid is null.
 #define FACT_FWD_ENTRY(NAME, S, FORM)                                         \
   extern "C" int NAME(                                                        \
       const void* px, const void* lengths, const void* f_dst,                 \
@@ -303,14 +547,15 @@ static int fact_fwd_run(
       const void* ad0, const void* s0, const void* ad_init,                   \
       const void* s_init, const void* leaky, float leaky_c, int B, int T,     \
       int P, int s_pad, int t0, int n_frames, int snap, int ad_rows,          \
-      int init_stride, int s_stride, void* ad_ys, void* w1ad_ys,              \
-      void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,                \
-      void* stream) {                                                         \
+      int init_stride, int s_stride, int cluster, void* ad_ys,                \
+      void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys,                \
+      void* ad_last, void* smid, void* stream) {                              \
     return fact_fwd_run<S, FORM>(                                             \
         px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr, w2_col,    \
         w2_val, diag1, diag2, ad0, s0, ad_init, s_init, leaky, leaky_c, B, T, \
-        P, s_pad, t0, n_frames, snap, ad_rows, init_stride, s_stride, ad_ys,  \
-        w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, stream);                    \
+        P, s_pad, t0, n_frames, snap, ad_rows, init_stride, s_stride,         \
+        cluster, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last, smid,       \
+        stream);                                                              \
   }
 
 FACT_FWD_ENTRY(fact_fwd_launch, float, FWD_FULL)

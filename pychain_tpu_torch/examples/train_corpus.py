@@ -351,8 +351,8 @@ def parse_args(argv=None):
                          "throughput report (kernel builds, graph "
                          "layouts, allocator warm-up)")
     ap.add_argument("--dp", action="store_true",
-                    help="data parallelism: not ported yet (ROADMAP.md "
-                         "A.7); raises NotImplementedError")
+                    help="data parallelism: not ported yet (ROADMAP.md: "
+                         "\"parallelism\"); raises NotImplementedError")
     ap.add_argument("--device", type=str, default="cuda",
                     help="where the model, the loss and the decoder run "
                          "(the JAX recipe's JAX_PLATFORMS); 'cpu' runs "
@@ -428,8 +428,8 @@ def main(argv=None, on_event=None) -> dict:
     args = parse_args(argv)
     if args.dp:
         raise NotImplementedError(
-            "--dp: data parallelism is not ported yet (ROADMAP.md A.7, "
-            "parallelism); run on one device")
+            "--dp: data parallelism is not ported yet (ROADMAP.md: "
+            "\"parallelism\"); run on one device")
     dev = resolve_device(args.device)
 
     data_dir = args.data_dir

@@ -20,7 +20,7 @@ first use, and every batch has the reference's batched views
 use as well.  A list of prob-domain graphs needs an engine that is not
 ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item,
 and the loss on a shared log-domain batch raises in
-``loss.dispatch_arrays`` (ROADMAP.md A.5).
+``loss.dispatch_arrays`` (ROADMAP.md, "shared log-domain graphs").
 """
 
 from __future__ import annotations
@@ -193,9 +193,10 @@ class ChainGraphBatch:
         if not self.log_domain:
             raise NotImplementedError(
                 "a list batch of prob-domain graphs needs the dense_list or "
-                "gather engine, not ported yet (ROADMAP.md, deferred "
-                "modules); the port runs log-domain numerator lists and a "
-                "shared prob-domain denominator")
+                "gather engine, not ported yet (ROADMAP.md: \"the "
+                "generic gather engine\", \"the other list engines\"); the "
+                "port runs log-domain numerator lists and a shared "
+                "prob-domain denominator")
         # the source graphs (references) let a forced impl="semiring"
         # compile arc-id arrays for a batch the linear form claimed
         self._graphs = list(graphs)

@@ -117,16 +117,18 @@ def dispatch_arrays(graphs, impl: str = "auto"):
     if impl not in IMPLS:
         if impl in _NOT_PORTED:
             raise NotImplementedError(
-                f"impl={impl!r} is not ported yet (ROADMAP.md, deferred "
-                "modules); the port has " + ", ".join(IMPLS))
+                f"impl={impl!r} is not ported yet (ROADMAP.md: \"the "
+                "generic gather engine\", \"the other list engines\"); "
+                "the port has " + ", ".join(IMPLS))
         raise ValueError(f"unknown impl {impl!r}")
     if isinstance(graphs, (FactorizedArrays, LinearArrays, SemiringArrays)):
         return graphs
     if graphs.shared and graphs.log_domain:
         raise NotImplementedError(
             "the loss on a shared log-domain graph needs the factorized "
-            "log_semantics engine, not ported yet (ROADMAP.md A.5); such "
-            "a batch serves viterbi_align and PhoneDecoder only")
+            "log_semantics engine, not ported yet (ROADMAP.md: \"shared "
+            "log-domain graphs\"); such a batch serves viterbi_align and "
+            "PhoneDecoder only")
     if graphs._linear is not None and impl in ("auto", "linear"):
         return graphs._linear
     if impl == "linear":

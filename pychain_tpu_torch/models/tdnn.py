@@ -41,7 +41,7 @@ def require_no_mp_axis(mp_axis):
     if mp_axis is not None:
         raise NotImplementedError(
             f"mp_axis={mp_axis!r}: the port has no model parallelism yet "
-            "(ROADMAP.md A.7, parallelism); use mp_axis=None")
+            "(ROADMAP.md: \"parallelism\"); use mp_axis=None")
 
 
 def dense(in_features: int, out_features: int,

@@ -36,10 +36,20 @@ operands and streams, float32 accumulation and carries; a second entry
 point of each form, counted as ``<name>_bf16``), in every stream mode.
 Their plain version is ``ops/factorized.forward_backward_prob_fact`` /
 ``forward_backward_prob_fast`` (``lean=True`` for the lean mode's
-roundings) and ``forward_backward_prob_ckpt``.  A graph whose state
-vectors exceed a block's shared memory raises here and is the cluster
-kernels' (``ops/stream_kernels.py``, B3/B4), which have the "full" mode
-alone, as the JAX package's cluster tier does.
+roundings) and ``forward_backward_prob_ckpt``.
+
+The lean forms (``fact_fwd_snap``, which also sweeps the ckpt mode's
+snapshots, and ``fact_bwd_lean``) run a column on a thread-block cluster
+of C CTAs (``cluster=``; C = 1 is one block a column, as every other
+form): CTA r computes its share of the state rows and every sum is taken
+in the one-block kernel's order, so the results do not depend on C.
+:func:`lean_cluster` picks C from the card: the largest with B C CTAs on
+its SMs, so that a batch too small to fill the card with one block a
+column is spread over it.
+
+A graph whose state vectors exceed a block's shared memory raises here
+and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4), which
+have the "full" mode alone, as the JAX package's cluster tier does.
 """
 
 from __future__ import annotations
@@ -66,6 +76,11 @@ TILE = 128
 # shared memory after cudaFuncSetAttribute.
 MAX_SMEM = 232448
 FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
+# The lean forms' cluster sizes (C = 1: one block a column), and a
+# cluster CTA's least shared memory (LEAN_CLUSTER_MIN_SMEM in
+# fact_common.cuh: two such CTAs do not fit one SM's 233,472 bytes).
+LEAN_CLUSTERS = (1, 2, 4)
+LEAN_CLUSTER_MIN_SMEM = 118784
 # The stream modes (pallas_fact.py:786-807): "full" keeps three (T, S_pad,
 # B) fwd->bwd streams (four outside identity mode), "lean" the alpha'
 # stream alone, "ckpt" alpha' at each chunk's last frame.  The JAX
@@ -146,6 +161,83 @@ def smem_bytes(fa: FactorizedArrays, stages: int | None = None,
     return {"fact_fwd": (vectors * fa.s_pad + FACT_WARPS + 1) * 4,
             "fact_bwd": _bwd_smem_bytes(fa.s_pad, identity, stages, entry,
                                         lean)}
+
+
+def lean_px_ring(fa: FactorizedArrays, stages: int, P: int) -> bool:
+    """Whether fact_bwd_lean's cluster form (C > 1) also fetches each
+    frame's px row (P floats) into its ring by TMA (fact_bwd_lean_px_ring
+    in the source): a ring at all, P a multiple of 4 (16-byte copies) and
+    the request with them within a block.  The ring's depth and the
+    limits are chosen without them."""
+    identity = fa.xsrc_mode == "identity"
+    return (stages > 0 and P > 0 and P % 4 == 0
+            and _bwd_smem_bytes(fa.s_pad, identity, stages,
+                                stream_dtype(fa).itemsize, lean=True)
+            + stages * 4 * P <= MAX_SMEM)
+
+
+def lean_smem_bytes(fa: FactorizedArrays, cluster: int,
+                    stages: int | None = None, P: int = 0) -> dict:
+    """Dynamic shared memory a CTA of the lean forms asks for on a cluster
+    of ``cluster`` CTAs (fact_bwd_lean's with a ring of ``stages``,
+    default :func:`ring_stages`, for P pdfs); must equal the sources'
+    fact_fwd_snap_cluster_smem_bytes / fact_bwd_lean_cluster_smem_bytes.
+    At C = 1 :func:`smem_bytes`'.  At C > 1 fact_fwd_snap also keeps x_src
+    on its rows outside identity mode in float32 (frame t + 1's emissions
+    are gathered before its carry exists), fact_bwd_lean a px row a stage
+    where :func:`lean_px_ring` allows, and both ask for at least
+    LEAN_CLUSTER_MIN_SMEM, so that one CTA runs an SM."""
+    if stages is None:
+        stages = ring_stages(fa, lean=True)
+    one = smem_bytes(fa, stages, lean=True)
+    if cluster == 1:
+        return {"fact_fwd_snap": one["fact_fwd"],
+                "fact_bwd_lean": one["fact_bwd"]}
+    vectors = 4 if fa.xsrc_mode == "identity" else 5
+    px = stages * 4 * P if lean_px_ring(fa, stages, P) else 0
+    return {"fact_fwd_snap": max((vectors * fa.s_pad + FACT_WARPS + 1) * 4,
+                                 LEAN_CLUSTER_MIN_SMEM),
+            "fact_bwd_lean": max(one["fact_bwd"] + px,
+                                 LEAN_CLUSTER_MIN_SMEM)}
+
+
+def lean_fits(fa: FactorizedArrays, cluster: int,
+              limit: int = MAX_SMEM) -> bool:
+    """Whether both lean forms fit a CTA on a cluster of ``cluster`` CTAs
+    (fact_bwd_lean without a ring)."""
+    return max(lean_smem_bytes(fa, cluster, stages=0).values()) <= limit
+
+
+def lean_cluster(B: int, props, fa: FactorizedArrays,
+                 cluster: int | None = None) -> int:
+    """The lean forms' cluster size C for B columns on the card
+    (``props``: torch.cuda.get_device_properties): the largest C of
+    :data:`LEAN_CLUSTERS` with B C <= the card's SMs whose CTAs fit its
+    shared memory (an H100's 132 SMs: C = 1 at B = 128, 2 at B = 64, 4 at
+    B = 32), else 1.  ``cluster`` forces C; a C > 1 that is not built or
+    whose CTAs do not fit raises NotImplementedError (C = 1 is the
+    one-block kernels', which check their own shared memory)."""
+    limit = props.shared_memory_per_block_optin
+    if cluster is not None:
+        if cluster not in LEAN_CLUSTERS:
+            raise NotImplementedError(
+                f"lean forms on a cluster of {cluster!r} CTAs: the kernels "
+                f"are built for C in {LEAN_CLUSTERS}")
+        if cluster > 1 and not lean_fits(fa, cluster, limit):
+            raise NotImplementedError(
+                f"lean forms on a cluster of {cluster} CTAs: a CTA asks for "
+                f"{lean_smem_bytes(fa, cluster, 0)} bytes at "
+                f"S_pad={fa.s_pad}, over the {limit} a block has on this "
+                "card")
+        return cluster
+    for C in sorted(LEAN_CLUSTERS, reverse=True):
+        if B * C <= props.multi_processor_count and lean_fits(fa, C, limit):
+            return C
+    return 1
+
+
+def _card_props(device):
+    return torch.cuda.get_device_properties(device)
 
 
 def fits_on_chip(fa: FactorizedArrays, lean: bool = False) -> bool:
@@ -566,14 +658,17 @@ def _lib(name):
     fn = getattr(build.load(source), f"{name}_launch")
     if fn.argtypes is None:
         if source == "fact_fwd":
-            fn.argtypes = [_P] * 17 + [_F] + [_I] * 10 + [_P] * 7
+            fn.argtypes = [_P] * 17 + [_F] + [_I] * 11 + [_P] * 8
         else:
-            fn.argtypes = [_P] * 30 + [_I, _F] + [_I] * 10 + [_P] * 6
+            fn.argtypes = [_P] * 30 + [_I, _F] + [_I] * 11 + [_P] * 7
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check(rc, name):
+    if rc == -1:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters reports "
+                           "that no cluster of the asked shape fits the card")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} "
                            "(cudaGetLastError)")
@@ -598,19 +693,37 @@ def _resident_graph(fa: FactorizedArrays) -> KernelGraph:
     return kg
 
 
+def _cluster_args(form, B, cluster, smid):
+    """Check a launch's (cluster, smid): C = 1 for every form but the lean
+    ones, C in LEAN_CLUSTERS, smid a (B C,) int32 CUDA tensor or None."""
+    _require(cluster == 1 or form in ("fact_fwd_snap", "fact_bwd_lean"),
+             f"{form}: runs one block a column (cluster {cluster})")
+    _require(cluster in LEAN_CLUSTERS,
+             f"{form}: cluster {cluster} is not built (C in "
+             f"{LEAN_CLUSTERS})")
+    _require(smid is None or (cluster > 1 and smid.is_cuda
+                              and smid.dtype == torch.int32
+                              and smid.shape == (B * cluster,)),
+             f"{form}: smid must be a ({B * cluster},) int32 CUDA tensor, "
+             "for a cluster launch")
+
+
 def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
                 n_frames=None, snap=1, ad_rows=None, ad_init=None,
-                s_init=None, s_ys=None, ad_last=None):
+                s_init=None, s_ys=None, ad_last=None, cluster=1, smid=None):
     """Launch one forward form on CUDA tensors.  outs: (ad_ys, w1ad_ys,
     xdst_ys, xsrc_ys), each (B, ad_rows, S_pad) or None; ad_init (B,
     S_pad) and s_init (B,) may be strided views (a snapshot's rows, the
-    s_ys column before the chunk, or one row expanded)."""
+    s_ys column before the chunk, or one row expanded); cluster: CTAs a
+    column (fact_fwd_snap alone takes C > 1); smid: each CTA's SM,
+    written by a cluster launch."""
     _check_cuda_inputs(px, lengths, fa)
     kg = _resident_graph(fa)
     w1, w2 = kg.resident[:2]
     B, T, P = px.shape
     _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
              f"only {P} columns")
+    _cluster_args(form, B, cluster, smid)
     ad0, s0 = initial_alpha(fa, leaky_coefficient)
     sd = stream_dtype(fa)
     n_frames = T if n_frames is None else n_frames
@@ -639,8 +752,8 @@ def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
         _ptr(ad0), _ptr(s0), _ptr(ad_init), _ptr(s_init), _ptr(fa.leaky),
         float(leaky_coefficient), B, T, P, fa.s_pad, t0, n_frames, snap,
         ad_rows, 0 if ad_init is None else ad_init.stride(0),
-        0 if s_init is None else s_init.stride(0), *map(_ptr, outs),
-        _ptr(s_ys), _ptr(ad_last), _stream())
+        0 if s_init is None else s_init.stride(0), cluster,
+        *map(_ptr, outs), _ptr(s_ys), _ptr(ad_last), _ptr(smid), _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
     return ad0, s0
@@ -670,15 +783,18 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
 
 
 def fact_fwd_snap(px, lengths, fa: FactorizedArrays, leaky_coefficient,
-                  snap: int = 1):
+                  snap: int = 1, cluster: int | None = None, smid=None):
     """Launch the alpha sweep without the auxiliary streams
     (``fact_fwd_snap`` or its _bf16 form): alpha' at the frames t with
     (t + 1) % snap == 0, at row (t + 1) // snap - 1 (pallas_fact.py
     :419-431: snap 1 is the lean mode's stream, snap C the ckpt mode's
-    snapshots, alpha' at each chunk's last frame).  Returns (ad_ys (B,
+    snapshots, alpha' at each chunk's last frame).  A column runs on
+    ``cluster`` CTAs (default :func:`lean_cluster` on px's card);
+    ``smid`` (B C,) int32 receives each CTA's SM.  Returns (ad_ys (B,
     ceil(T / snap), S_pad) in :func:`stream_dtype`, s_ys (B, T), ad_last
     (B, S_pad), ad0, s0)."""
     B, T, _ = px.shape
+    cluster = lean_cluster(B, _card_props(px.device), fa, cluster)
     rows = -(-T // snap)
     ad_ys = _new(fa, px.device, B, rows, fa.s_pad)
     s_ys = _new(fa, px.device, B, T, dtype=torch.float32)
@@ -686,7 +802,7 @@ def fact_fwd_snap(px, lengths, fa: FactorizedArrays, leaky_coefficient,
     ad0, s0 = _fwd_launch("fact_fwd_snap", px, lengths, fa,
                           leaky_coefficient, (ad_ys, None, None, None),
                           snap=snap, ad_rows=rows, s_ys=s_ys,
-                          ad_last=ad_last)
+                          ad_last=ad_last, cluster=cluster, smid=smid)
     return ad_ys, s_ys, ad_last, ad0, s0
 
 
@@ -706,10 +822,11 @@ def fact_fwd_init(px, lengths, fa: FactorizedArrays, leaky_coefficient,
 
 def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
                 tot_prob, outs, debug, stages, px=None, t0=0, n_frames=None,
-                ad_init=None, carry=(None, None)):
+                ad_init=None, carry=(None, None), cluster=1, smid=None):
     """Launch one backward form.  streams: (ad_ys, w1ad_ys, xdst_ys,
     xsrc_ys), any None; outs: (gamma (B, T, P), ab (B, T), gs (B, T));
-    carry: (bd (B, S_pad), leak (B,)) or Nones."""
+    carry: (bd (B, S_pad), leak (B,)) or Nones; cluster, smid as
+    :func:`_fwd_launch` (fact_bwd_lean alone takes C > 1)."""
     lean = form == "fact_bwd_lean"
     kg = _resident_graph(fa)
     w1t, w2t = kg.resident[2:]
@@ -721,6 +838,7 @@ def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
              f"S_pad={fa.s_pad}")
     ad_ys = streams[0]
     B, rows, s_pad = ad_ys.shape
+    _cluster_args(form, B, cluster, smid)
     T = s_ys.shape[1]
     n_frames = T if n_frames is None else n_frames
     sd = stream_dtype(fa)
@@ -775,8 +893,8 @@ def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
         *map(_ptr, kg.diag or (None, None)), *map(_ptr, kg.f_lists),
         *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
         P, s_pad, int(bool(debug)), stages, t0, n_frames, rows,
-        0 if ad_init is None else ad_init.stride(0), _ptr(gamma), _ptr(ab),
-        _ptr(gs), *map(_ptr, carry), _stream())
+        0 if ad_init is None else ad_init.stride(0), cluster, _ptr(gamma),
+        _ptr(ab), _ptr(gs), *map(_ptr, carry), _ptr(smid), _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
     return gamma, ab, gs
@@ -803,16 +921,20 @@ def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
 
 
 def fact_bwd_lean(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
-                  px, s_ys, ad0, s0, tot_prob, debug=True, stages=None):
+                  px, s_ys, ad0, s0, tot_prob, debug=True, stages=None,
+                  cluster: int | None = None, smid=None):
     """Launch the lean mode's beta sweep (``fact_bwd_lean`` or its _bf16
     form) on the alpha' stream of ``fact_fwd_snap(..., snap=1)`` and px
     (B, T, P) float32, its ring ``stages`` deep (default
-    ``ring_stages(fa, lean=True)``).  Returns (gamma, alpha_beta,
-    gamma_sum) as :func:`fact_bwd`."""
+    ``ring_stages(fa, lean=True)``), a column on ``cluster`` CTAs (as
+    :func:`fact_fwd_snap`).  Returns (gamma, alpha_beta, gamma_sum) as
+    :func:`fact_bwd`."""
     B, T, P = px.shape
+    cluster = lean_cluster(B, _card_props(px.device), fa, cluster)
     return _bwd_launch("fact_bwd_lean", lengths, fa, leaky_coefficient,
                        (ad_ys, None, None, None), s_ys, ad0, s0, tot_prob,
-                       _outputs(B, T, P, px.device), debug, stages, px=px)
+                       _outputs(B, T, P, px.device), debug, stages, px=px,
+                       cluster=cluster, smid=smid)
 
 
 def fact_bwd_chunk(lengths, fa: FactorizedArrays, leaky_coefficient,
@@ -921,25 +1043,29 @@ def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
     return _package_result(objf, gamma, ab, gs)
 
 
-def _lean(px, lens, fa, c, debug, stages):
+def _lean(px, lens, fa, c, debug, stages, cluster=None):
     """The lean mode on the card: fact_fwd_snap's alpha' stream (snap 1),
-    then fact_bwd_lean on it and px."""
-    ad_ys, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, 1)
+    then fact_bwd_lean on it and px, both on ``cluster`` CTAs a column
+    (default :func:`lean_cluster`)."""
+    ad_ys, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, 1,
+                                                  cluster)
     objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
     return objf, fact_bwd_lean(lens, fa, c, ad_ys, px, s_ys, ad0, s0,
-                               tot_prob.contiguous(), debug, stages)
+                               tot_prob.contiguous(), debug, stages, cluster)
 
 
-def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk):
+def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None):
     """The ckpt mode on the card (pallas_fact._forward_backward_ckpt):
     fact_fwd_snap keeps alpha' at each chunk's last frame, then from the
     last chunk down fact_fwd_init replays a chunk from the snapshot below
     it and fact_bwd_chunk runs its backward from the beta' carry above:
     alpha' rows for T / C snapshots and one chunk's three (four) streams,
-    where the full mode keeps T."""
+    where the full mode keeps T.  The snapshot sweep runs on ``cluster``
+    CTAs a column (default :func:`lean_cluster`), the chunks on one."""
     B, T, P = px.shape
     C = ckpt_chunk_length(T, ckpt_chunk)
-    snaps, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, C)
+    snaps, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, C,
+                                                  cluster)
     objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
     tot_prob = tot_prob.contiguous()
     outs = _outputs(B, T, P, px.device)
@@ -967,7 +1093,8 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
                                  debug: bool = True,
                                  stream_mode: str = "auto",
                                  ckpt_chunk: int | None = None,
-                                 stages: int | None = None) -> FwdBwdResult:
+                                 stages: int | None = None,
+                                 cluster: int | None = None) -> FwdBwdResult:
     """Fused fwd+bwd on a fully-factorized graph (the resident tier,
     engine "pallas"), with forward_backward_prob_pallas's stream modes.
 
@@ -987,7 +1114,9 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     frame 0 (the reference's default, chain-computation.cc:337-338), the
     other frames reading exactly 1.0.  Verbose level >= 1 forces the full
     traces.  stages: the backward kernel's ring depth (default
-    :func:`ring_stages`; the tests force each)."""
+    :func:`ring_stages`; the tests force each).  cluster: the lean forms'
+    CTAs a column in the "lean" and "ckpt" modes (default
+    :func:`lean_cluster`; the results do not depend on it)."""
     debug = debug or get_verbose_level() >= 1
     _check_graph(fa)
     B, T, _ = px.shape
@@ -1014,8 +1143,8 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     with torch.no_grad():
         if mode == "lean":
             objf, outs = _lean(px, lens, fa, leaky_coefficient, debug,
-                               stages)
+                               stages, cluster)
         else:
             objf, outs = _ckpt(px, lens, fa, leaky_coefficient, debug,
-                               stages, ckpt_chunk)
+                               stages, ckpt_chunk, cluster)
     return _package_result(objf, *outs)

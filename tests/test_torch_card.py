@@ -349,6 +349,162 @@ class TestStreamModes:
                                            snaps[k][:, b])
 
     @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [2, 4])
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_lean_cluster_kernels_give_one_blocks_bits(
+            self, cuda, tile_dtype, mode, want, stages, C):
+        """fact_fwd_snap and fact_bwd_lean on C = 2 and 4 CTAs a column,
+        every ring depth: bit for bit the C = 1 kernels' results (float32
+        and fast), the fast forms also the plain version's; one launch
+        each; gamma on a rerun."""
+        fa, px, lens = self._case(cuda, mode, tile_dtype)
+        assert fa.xsrc_mode == want
+        sfx = "_bf16" if tile_dtype else ""
+        for debug in (True, False):
+            one = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="lean",
+                stages=stages, cluster=1)
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="lean",
+                stages=stages, cluster=C)
+            assert fk.launched() == {f"fact_fwd_snap{sfx}": 1,
+                                     f"fact_bwd_lean{sfx}": 1}
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum", "ok"):
+                assert torch.equal(getattr(got, name),
+                                   getattr(one, name)), name
+            ref = forward_backward_prob_mode(px, lens, fa, LEAKY, "lean")
+            self._check(got, ref, bool(tile_dtype), debug)
+        again = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="lean", stages=stages,
+            cluster=C)
+        assert torch.equal(again.gamma, fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="lean", stages=stages,
+            cluster=C).gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("num_phones", [40, 41])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_lean_cluster_px_rows(self, cuda, tile_dtype, num_phones):
+        """fact_bwd_lean's cluster form with px's rows in its ring (P % 4
+        == 0) and gathering them from px (P % 4 != 0): C = 1's bits at
+        C = 2 and 4, every ring depth."""
+        fa, px, lens = self._case(cuda, "cross", tile_dtype,
+                                  num_phones=num_phones)
+        P = px.shape[2]
+        assert P % 4 == (num_phones % 2) * 2
+        for stages in (0, 1, 2):
+            assert fk.lean_px_ring(fa, stages, P) == (stages > 0
+                                                      and P % 4 == 0)
+            one = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, stream_mode="lean", stages=stages,
+                cluster=1)
+            for C in (2, 4):
+                got = fk.forward_backward_prob_kernel(
+                    px, lens, fa, LEAKY, stream_mode="lean", stages=stages,
+                    cluster=C)
+                for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                    assert torch.equal(getattr(got, name),
+                                       getattr(one, name)), name
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [2, 4])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_ckpt_snapshot_sweep_on_a_cluster(self, cuda, tile_dtype, C):
+        """The ckpt mode with its snapshot sweep on C CTAs a column, at
+        C=5 and 12: C = 1's bits, and float32 the full mode's bits."""
+        fa, px, lens = self._case(cuda, "separate", tile_dtype)
+        full = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                               stream_mode="full")
+        for chunk in (5, 12):
+            one = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, stream_mode="ckpt", ckpt_chunk=chunk,
+                cluster=1)
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, stream_mode="ckpt", ckpt_chunk=chunk,
+                cluster=C)
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                assert torch.equal(getattr(got, name), getattr(one, name))
+                if not tile_dtype:
+                    assert torch.equal(getattr(got, name),
+                                       getattr(full, name)), name
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("debug", [True, False])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_lean_cluster_past_1024_states(self, cuda, tile_dtype, debug):
+        """S_pad 1,280 and P past 1,024 (two rows and two pdfs for some
+        virtual threads): lean at C = 2 and 4 gives C = 1's bits; float32
+        also the full mode's, the fast mode the plain version's."""
+        fst, P = denominator_fst(num_phones=600, states_per_phone=2, seed=3,
+                                 forward_pdf_mode="source")
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 3, tile_dtype=tile_dtype,
+                                device=cuda)._fact
+        assert fa.s_pad > 1024 and P > 1024
+        rng = np.random.RandomState(4)
+        px = torch.exp(torch.from_numpy(
+            rng.randn(3, 7, P).astype(np.float32))).to(cuda)
+        lens = torch.tensor([7, 5, 2], dtype=torch.int32).to(cuda)
+        one = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, debug=debug, stream_mode="lean", cluster=1)
+        full = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, debug=debug, stream_mode="full")
+        for C in (2, 4):
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="lean",
+                cluster=C)
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                assert torch.equal(getattr(got, name), getattr(one, name))
+                if not tile_dtype:
+                    assert torch.equal(getattr(got, name),
+                                       getattr(full, name)), name
+        if tile_dtype:
+            self._check(one, forward_backward_prob_mode(px, lens, fa, LEAKY,
+                                                        "lean"), True, debug)
+
+    @pytest.mark.cuda
+    def test_cluster_ctas_sit_on_distinct_sms(self, cuda):
+        """A C = 2 launch of each lean form at B = 64 (main path 7's batch)
+        on the headline-sized request: the two CTAs of every cluster run on
+        two SMs (the request keeps two CTAs off one SM), read from %smid;
+        at C = 4 the four likewise."""
+        fa, px, lens = self._case(cuda, "source", "bfloat16")
+        B = 64
+        px = px[:1].expand(B, -1, -1).contiguous()
+        lens = torch.full((B,), 12, dtype=torch.int32, device=cuda)
+        for C in (2, 4):
+            smid = torch.full((B * C,), -1, dtype=torch.int32, device=cuda)
+            ad_ys, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(
+                px, lens, fa, LEAKY, cluster=C, smid=smid)
+            pairs = smid.view(B, C).cpu()
+            assert bool((pairs >= 0).all())
+            assert all(len(set(row.tolist())) == C for row in pairs)
+            _, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
+            smid.fill_(-1)
+            fk.fact_bwd_lean(lens, fa, LEAKY, ad_ys, px, s_ys, ad0, s0,
+                             tot.contiguous(), cluster=C, smid=smid)
+            pairs = smid.view(B, C).cpu()
+            assert all(len(set(row.tolist())) == C for row in pairs)
+
+    @pytest.mark.cuda
+    def test_lean_cluster_errors_before_any_launch(self, cuda):
+        """A forced cluster that is not built raises NotImplementedError;
+        the full and chunk forms take C = 1 alone."""
+        fa, px, lens = self._case(cuda, "source", None)
+        fk.reset_launch_counts()
+        for bad in (3, 8):
+            with pytest.raises(NotImplementedError, match="cluster of"):
+                fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                stream_mode="lean",
+                                                cluster=bad)
+        with pytest.raises(ValueError, match="one block a column"):
+            fk._fwd_launch("fact_fwd", px, lens, fa, LEAKY,
+                           [None] * 4, cluster=2)
+        assert fk.launched() == {}
+
+    @pytest.mark.cuda
     @pytest.mark.parametrize("want", ["lean", "ckpt"])
     @pytest.mark.parametrize("precision", ["parity", "fast"])
     def test_chain_loss_auto_reaches_the_mode(self, cuda, monkeypatch,

@@ -22,8 +22,8 @@ against the JAX package's (examples/train_corpus.py, imported by path).
   (tests/test_recipe_smoke.py): the smoke run, --device-corpus, the PER
   gate (untrained >= 0.5, trained <= 0.15 and <= untrained / 3) in
   float32 and with bfloat16 tiles, flat start with realignment and
-  chunking, checkpoint resume, --dp refused naming ROADMAP A.7, and the
-  default device refused without a card.  Each run writes its corpus
+  chunking, checkpoint resume, --dp refused naming ROADMAP's
+  "parallelism", and the default device refused without a card.  Each run writes its corpus
   under its own TMPDIR.
 """
 
@@ -376,7 +376,8 @@ def test_recipe_checkpoint_resume(tmp_path):
 def test_recipe_dp_is_refused_naming_its_roadmap_item(tmp_path):
     r = _recipe(tmp_path, "--device", "cpu", "--dp", check=False)
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "A.7" in r.stderr
+    assert ("NotImplementedError" in r.stderr
+            and 'ROADMAP.md: "parallelism"' in r.stderr)
 
 
 def test_recipe_default_device_needs_a_card(tmp_path):

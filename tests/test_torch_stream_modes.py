@@ -26,8 +26,17 @@ entry, the stream buffers, the beta' carry) runs on emulations of the
 kernels (``_emu_fwd``, ``_emu_bwd``: one column at a time, each kernel's
 frame range, rows, injection and carry, its sums in its order) put in
 place of the launches; in the fast mode they give the plain version's
-numbers bit for bit.  tests/test_torch_card.py holds the kernels
-themselves to the plain version on the card.
+numbers bit for bit.  The lean forms run a column on a cluster of C CTAs
+(``cluster=``): the emulations compute each CTA's rows (and, in the
+backward, its pdfs) apart, assemble the vectors the products gather from
+every CTA's rows, and take each sum as the kernels do (each virtual
+thread's partial on the CTA that owns its rows, the warp trees there, the
+cross-warp tree on the 32 posted totals: ``_cluster_total``), so that
+C = 2 and C = 4 must give C = 1's bits; the plan rule
+(``fact_kernels.lean_cluster``) and the cluster form's shared memory and
+limits are checked by arithmetic on a stubbed card.
+tests/test_torch_card.py holds the kernels themselves to the plain version
+on the card.
 """
 
 import types
@@ -324,18 +333,88 @@ def _total(v):
     return pf.block_sum(v[:, None])[0]
 
 
+# An H100 as the plan rule reads it (torch.cuda.get_device_properties).
+H100 = types.SimpleNamespace(multi_processor_count=132,
+                             shared_memory_per_block_optin=232448)
+
+
 def _lists(table, c, acc=None):
     return pf._list_sums(table, c[:, None],
                          None if acc is None else acc[:, None])[:, 0]
 
 
+def _virtual(rank, C):
+    """CTA rank's virtual threads of the 1024-thread block:
+    cluster_row(j, rank, C) for j < 1024 / C (csrc/fact_common.cuh)."""
+    j = torch.arange(1024 // C)
+    return ((j >> 5) * C + rank) * 32 + (j & 31)
+
+
+def _owner(n, C):
+    """The CTA that owns each of n rows (or pdfs): slice (i >> 5) mod C."""
+    return (torch.arange(n) >> 5) % C
+
+
+def _cluster_total(own, C):
+    """The sum of the kernels' cluster form over n rows: own[r] (n,) holds
+    CTA r's terms on its rows (NaN elsewhere, never read).  Each virtual
+    thread v adds rows v, v + 1024, ... in turn on its CTA, each virtual
+    warp's shuffle tree runs there, and the cross-warp tree sums the 32
+    posted totals (block_sum's trees)."""
+    n = own[0].shape[0]
+    R = max(-(-n // 1024), 1)
+    totals = torch.zeros(32)
+    for r in range(C):
+        v = _virtual(r, C)
+        idx = v[None, :] + 1024 * torch.arange(R)[:, None]        # (R, V)
+        x = torch.where(idx < n, own[r][idx.clamp(max=n - 1)], 0.0)
+        assert not bool(torch.isnan(x).any()), "a term off its CTA's rows"
+        part = x[0]
+        for k in range(1, R):
+            part = part + x[k]
+        lanes = part.reshape(-1, 32)
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes[:, :off] + lanes[:, off:2 * off]
+        totals[torch.arange(len(v) // 32) * C + r] = lanes[:, 0]
+    t = totals[None, :]
+    for off in (16, 8, 4, 2, 1):
+        t = t[:, :off] + t[:, off:2 * off]
+    return t[0, 0]
+
+
+def _split(v, C):
+    """v's rows apart by owner: CTA r's copy holds its rows, NaN
+    elsewhere."""
+    who = _owner(v.shape[0], C)
+    return [torch.where(who == r, v, float("nan")) for r in range(C)]
+
+
+def _rows_mv(tab, v, rows):
+    """An operator's sums on a CTA's own rows (each its sell_row_dot)."""
+    cols, vals = tab
+    return pf._ell_apply((cols[:, rows], vals[:, rows]), v[:, None])[:, 0]
+
+
+def _assemble(parts, rows_of, n):
+    """A whole vector from each CTA's own rows (the DSMEM exchange)."""
+    out = torch.full((n,), float("nan"))
+    for part, rows in zip(parts, rows_of):
+        out[rows] = part
+    assert not bool(torch.isnan(out).any())
+    return out
+
+
 def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
              ad_rows=None, ad_init=None, s_init=None, s_ys=None,
-             ad_last=None):
+             ad_last=None, cluster=1, smid=None):
     """fact_fwd.cu's kernel in place of fact_kernels._fwd_launch, one
     column at a time: frames t0 .. min(t0 + n, T_b) - 1 from ad_init /
     s_init (or ad0, s0), the auxiliary streams at local rows t - t0, alpha'
-    at row (t + 1) / snap - 1 - t0 / snap when (t + 1) % snap == 0."""
+    at row (t + 1) / snap - 1 - t0 / snap when (t + 1) % snap == 0.  On a
+    cluster (fact_fwd_snap alone) each CTA computes its own rows from the
+    whole carry and W2 operand, and s_t is the cluster's sum."""
+    assert cluster == 1 or form == "fact_fwd_snap"
+    assert cluster in fk.LEAN_CLUSTERS and smid is None
     fk.LAUNCHES[fk._name(form, fa)] += 1
     f, g, tabs, d1, d2, _ = _graph(fa)
     fast = d1 is not None
@@ -343,6 +422,7 @@ def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
     n_frames = T if n_frames is None else n_frames
     ad0, s0 = pf.initial_alpha(fa, c)
     rnd = pf._bf if fast else (lambda v: v)
+    rows_of = pf.cluster_rows(fa.s_pad, cluster)
     for b in range(B):
         Tb = int(lengths[b])
         own, s_prev = ((ad0, s0[0]) if ad_init is None
@@ -350,15 +430,21 @@ def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
         for t in range(t0, min(t0 + n_frames, Tb)):
             x = rnd(px[b, t, f])
             xs = x if g is None else rnd(px[b, t, g])
-            if fast:
-                w1a = _mv(tabs[0], pf._bf(own)) + d1 * own
-                u = xs * own
-                w2u = _mv(tabs[1], pf._bf(u)) + d2 * u
-                a = (x * w1a + w2u) * (1.0 / s_prev)
-            else:
-                w1a = _mv(tabs[0], own)
-                a = (x * w1a + _mv(tabs[1], xs * own)) / s_prev
-            s_t = _total(a)
+            u = xs * own      # whole in every CTA, as the carry
+            parts, w1as = [], []
+            for R in rows_of:
+                if fast:
+                    w1a = _rows_mv(tabs[0], pf._bf(own), R) + d1[R] * own[R]
+                    w2u = _rows_mv(tabs[1], pf._bf(u), R) + d2[R] * u[R]
+                    parts.append((x[R] * w1a + w2u) * (1.0 / s_prev))
+                else:
+                    w1a = _rows_mv(tabs[0], own, R)
+                    parts.append((x[R] * w1a + _rows_mv(tabs[1], u, R))
+                                 / s_prev)
+                w1as.append(w1a)
+            a = _assemble(parts, rows_of, fa.s_pad)
+            w1a = _assemble(w1as, rows_of, fa.s_pad)
+            s_t = _cluster_total(_split(a, cluster), cluster)
             v = a + (c * s_t) * fa.leaky
             if outs[1] is not None:
                 outs[1][b, t - t0], outs[2][b, t - t0] = w1a, x
@@ -378,17 +464,24 @@ def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
 
 def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
              debug, stages, px=None, t0=0, n_frames=None, ad_init=None,
-             carry=(None, None)):
+             carry=(None, None), cluster=1, smid=None):
     """fact_bwd.cu's kernel in place of fact_kernels._bwd_launch, one
     column at a time: frames past the end zeroed in the launch's range,
     beta'(T_b) injected where T_b - 1 lies in it, else the carry read;
     frames min(t0 + n, T_b) - 1 .. t0 on the launch's stream rows (the
     lean mode: alpha' rows and px, W1 alpha' formed here), alpha'(t0)
-    from ad_init or ad0; the carry written for the launch below."""
+    from ad_init or ad0; the carry written for the launch below.  On a
+    cluster (fact_bwd_lean alone) each CTA computes its own rows' beta'
+    and masses from the whole b and x_dst * b, and its own pdfs' gamma
+    from the whole masses; every sum is the cluster's."""
+    assert cluster == 1 or form == "fact_bwd_lean"
+    assert cluster in fk.LEAN_CLUSTERS and smid is None
     fk.LAUNCHES[fk._name(form, fa)] += 1
     f, g, tabs, d1, d2, lists = _graph(fa)
     fast = d1 is not None
     lean = form == "fact_bwd_lean"
+    rows_of = pf.cluster_rows(fa.s_pad, cluster)
+    total = lambda v: _cluster_total(_split(v, cluster), cluster)
     gamma, ab, gs = outs
     B, T = s_ys.shape
     P = gamma.shape[2]
@@ -404,7 +497,7 @@ def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
             continue
         if Tb <= t0 + n:
             bd = fa.final / tot_prob[b]
-            leak = _total(bd * fa.leaky)
+            leak = total(bd * fa.leaky)
         else:
             bd, leak = carry[0][b].clone(), carry[1][b].clone()
         for u in range(t_hi - 1, t0 - 1, -1):
@@ -422,30 +515,42 @@ def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
                     streams[1][b, u - t0].float()
                 xs = x if g is None else streams[3][b, u - t0].float()
             v = bd + c * leak
-            xb = x * v
-            if fast:
-                w1t = _mv(tabs[2], pf._bf(xb)) + d1 * xb
-                sw = xs * (_mv(tabs[3], pf._bf(v)) + d2 * v)
-                bd_t = (w1t + sw) * inv
-                m1, m2 = xb * w1a, sw * ad
-                scale = inv
-            else:
-                sw = xs * _mv(tabs[3], v)
-                bd_t = (_mv(tabs[2], xb) + sw) * inv
-                m1, m2 = xb * w1a * inv, sw * ad * inv
-                scale = 1.0
+            xb = x * v       # b and x_dst * b: whole in every CTA
+            got = {"bd": [], "m1": [], "m2": []}
+            for R in rows_of:
+                if fast:
+                    w1t = _rows_mv(tabs[2], pf._bf(xb), R) + d1[R] * xb[R]
+                    sw = xs[R] * (_rows_mv(tabs[3], pf._bf(v), R)
+                                  + d2[R] * v[R])
+                    bd_r = (w1t + sw) * inv
+                    m1, m2 = xb[R] * w1a[R], sw * ad[R]
+                else:
+                    sw = xs[R] * _rows_mv(tabs[3], v, R)
+                    bd_r = (_rows_mv(tabs[2], xb, R) + sw) * inv
+                    m1, m2 = xb[R] * w1a[R] * inv, sw * ad[R] * inv
+                for k, val in (("bd", bd_r), ("m1", m1), ("m2", m2)):
+                    got[k].append(val)
+            bd_t, m1, m2 = (_assemble(got[k], rows_of, fa.s_pad)
+                            for k in ("bd", "m1", "m2"))
+            scale = inv if fast else 1.0
+            # every CTA's whole masses; each CTA's own pdfs' sums
             if g is None:
                 acc = _lists(lists[0], rnd(m1 + m2))
             else:
                 acc = _lists(lists[1], rnd(m2), _lists(lists[0], rnd(m1)))
             acc = torch.nn.functional.pad(acc[:P], (0, P - min(P, len(acc))))
+            acc = _assemble([acc[_owner(P, cluster) == r]
+                             for r in range(cluster)],
+                            [torch.nonzero(_owner(P, cluster) == r)[:, 0]
+                             for r in range(cluster)], P)
             gamma[b, u] = rnd(acc * scale)
             if debug or u == 0:
-                ab[b, u] = _total(ad * bd_t)
-                gs[b, u] = _total(acc) * scale
+                ab[b, u] = total(ad * bd_t)
+                gs[b, u] = _cluster_total(_split(acc, cluster),
+                                          cluster) * scale
             else:
                 ab[b, u] = gs[b, u] = 1.0
-            leak, bd = _total(bd_t * fa.leaky), bd_t
+            leak, bd = total(bd_t * fa.leaky), bd_t
         if carry[0] is not None and t0 > 0:
             carry[0][b], carry[1][b] = bd, leak
     return outs
@@ -466,7 +571,8 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
     also 1e-6 absolute: one column's is 3e-3; the kernels' float32 sums
     run in another order, the plain version's through dense products);
     one snapshot sweep and
-    one replay and one chunk backward a chunk."""
+    one replay and one chunk backward a chunk.  The card is an H100 stub
+    (132 SMs): the lean forms run at the plan rule's C = 4 (B = 5)."""
     fst, P = denominator_fst(num_phones=10, states_per_phone=2, seed=6,
                              forward_pdf_mode=fwd_mode)
     fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 5, tile_dtype=tile_dtype,
@@ -477,6 +583,7 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
     lens = torch.tensor([12, 8, 4, 1, 9], dtype=torch.int32)
     monkeypatch.setattr(fk, "_fwd_launch", _emu_fwd)
     monkeypatch.setattr(fk, "_bwd_launch", _emu_bwd)
+    monkeypatch.setattr(fk, "_card_props", lambda device: H100)
     fk.reset_launch_counts()
     sfx = "_bf16" if tile_dtype else ""
     for debug in (True, False):
@@ -511,3 +618,210 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
         "ckpt": {"fact_fwd_snap": 2, "fact_fwd_init": 2 * n,
                  "fact_bwd_chunk": 2 * n}}[stream_mode]
     assert fk.launched() == {k + sfx: v for k, v in want_launches.items()}
+
+
+# ----------------------------------------------------------------------
+# The lean forms on a cluster of C CTAs
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("n", [32, 128, 1000, 1280, 3000, 3072, 8064])
+def test_cluster_sum_is_the_block_sum(n, C):
+    """The cluster form's sums (each virtual thread's rows on the CTA that
+    owns them, the warp trees there, block_sum's cross-warp tree on the
+    posted totals) equal block_sum's bit for bit: over states (S_pad a
+    multiple of 32, one to eight rows a virtual thread) and over pdfs
+    (P = 1000, 3000)."""
+    rng = np.random.RandomState(n + C)
+    v = torch.from_numpy(rng.randn(n).astype(np.float32)
+                         * np.exp(rng.randn(n) * 4).astype(np.float32))
+    got = _cluster_total(_split(v, C), C)
+    assert torch.equal(got, _total(v))
+    if C > 1:
+        # every virtual thread's rows lie in one CTA: C divides 32
+        for r in range(C):
+            rows = pf.cluster_rows(-(-n // 32) * 32, C)[r]
+            assert bool((_owner(len(rows) and int(rows.max()) + 1, C)[rows]
+                         == r).all())
+
+
+def _cluster_run(monkeypatch, fa, px, lens, mode, cluster, chunk=None,
+                 debug=True):
+    """The card path of the lean or ckpt mode on emulated kernels with the
+    lean forms forced to ``cluster`` CTAs."""
+    monkeypatch.setattr(fk, "_fwd_launch", _emu_fwd)
+    monkeypatch.setattr(fk, "_bwd_launch", _emu_bwd)
+    monkeypatch.setattr(fk, "_card_props", lambda device: H100)
+    fk.reset_launch_counts()
+    if mode == "lean":
+        objf, outs = fk._lean(px, lens, fa, LEAKY, debug, None, cluster)
+    else:
+        objf, outs = fk._ckpt(px, lens, fa, LEAKY, debug, None, chunk,
+                              cluster)
+    return fk._package_result(objf, *outs), fk.launched()
+
+
+@pytest.mark.parametrize("C", [2, 4])
+@pytest.mark.parametrize("stream_mode,chunk", [("lean", None), ("ckpt", 5)])
+@pytest.mark.parametrize("fwd_mode,want", [("source", "identity"),
+                                           ("separate", "stream")])
+@pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+def test_cluster_forms_give_one_blocks_bits(monkeypatch, tile_dtype,
+                                            fwd_mode, want, stream_mode,
+                                            chunk, C):
+    """Lean and ckpt with the lean forms on C = 2 and 4 CTAs a column give
+    C = 1's bits, in both precisions, identity and not, at T=12 and
+    lengths 12, 8, 4, 1, 9 (C=5: every column but the first ends inside a
+    chunk), debug True and False; the launches are the mode's."""
+    fst, P = denominator_fst(num_phones=10, states_per_phone=2, seed=6,
+                             forward_pdf_mode=fwd_mode)
+    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 5, tile_dtype=tile_dtype,
+                            device="cpu")._fact
+    assert fa.xsrc_mode == want
+    rng = np.random.RandomState(16)
+    px = torch.exp(torch.from_numpy(rng.randn(5, 12, P).astype(np.float32)))
+    lens = torch.tensor([12, 8, 4, 1, 9], dtype=torch.int32)
+    sfx = "_bf16" if tile_dtype else ""
+    for debug in (True, False):
+        one, _ = _cluster_run(monkeypatch, fa, px, lens, stream_mode, 1,
+                              chunk=chunk, debug=debug)
+        got, launched = _cluster_run(monkeypatch, fa, px, lens, stream_mode,
+                                     C, chunk=chunk, debug=debug)
+        _assert_equal(got, one)
+        n = -(-12 // 5)
+        assert launched == {k + sfx: v for k, v in (
+            {"fact_fwd_snap": 1, "fact_bwd_lean": 1} if stream_mode == "lean"
+            else {"fact_fwd_snap": 1, "fact_fwd_init": n,
+                  "fact_bwd_chunk": n}).items()}
+
+
+@pytest.mark.parametrize("mode", ["lean", "ckpt"])
+@pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+def test_cluster_forms_past_1024_states(monkeypatch, tile_dtype, mode):
+    """A graph of S_pad 1,280 (two rows for some virtual threads, five
+    slices a CTA at C = 4 and their pdfs past 1,024): the lean mode and
+    the ckpt mode's snapshot sweep (chunk 3) at C = 2 and 4 give C = 1's
+    bits and, in the fast mode, the plain version's."""
+    fst, P = denominator_fst(num_phones=600, states_per_phone=2, seed=3,
+                             forward_pdf_mode="source")
+    fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 2, tile_dtype=tile_dtype,
+                            device="cpu")._fact
+    assert fa.s_pad > 1024 and P > 1024
+    rng = np.random.RandomState(4)
+    px = torch.exp(torch.from_numpy(rng.randn(2, 4, P).astype(np.float32)))
+    lens = torch.tensor([4, 3], dtype=torch.int32)
+    chunk = 3 if mode == "ckpt" else None
+    one, _ = _cluster_run(monkeypatch, fa, px, lens, mode, 1, chunk)
+    for C in (2, 4):
+        got, _ = _cluster_run(monkeypatch, fa, px, lens, mode, C, chunk)
+        _assert_equal(got, one)
+    if tile_dtype:
+        _assert_equal(one, pf.forward_backward_prob_mode(px, lens, fa, LEAKY,
+                                                         mode, chunk))
+
+
+@pytest.mark.parametrize("B,sms,optin,want", [
+    (128, 132, 232448, 1),    # the headline batch: 128 CTAs already
+    (64, 132, 232448, 2),     # bench.py --long --big (main path 7)
+    (32, 132, 232448, 4),     # bench.py --long
+    (33, 132, 232448, 4),     # 132 CTAs: the card exactly
+    (34, 132, 232448, 2),
+    (66, 132, 232448, 2),
+    (67, 132, 232448, 1),
+    (1, 132, 232448, 4),
+    (5, 16, 232448, 2),       # a card of 16 SMs
+    (32, 132, 101376, 1),     # 99 KB a block: no cluster CTA fits
+])
+def test_lean_cluster_rule(B, sms, optin, want):
+    """The largest C in (1, 2, 4) with B C CTAs on the card's SMs whose
+    CTAs fit its shared memory (at least 118,784 bytes a cluster CTA)."""
+    props = types.SimpleNamespace(multi_processor_count=sms,
+                                  shared_memory_per_block_optin=optin)
+    for fast in (False, True):
+        head = _shape(3072, "identity", fast)
+        assert fk.lean_cluster(B, props, head) == want
+        assert fk.lean_cluster(B, props, head, cluster=1) == 1
+
+
+def test_lean_cluster_forced_errors():
+    """A forced C that is not built, or whose CTA does not fit the card,
+    raises NotImplementedError with the numbers; a C that is not built,
+    or C > 1 for another form, raises ValueError at the launch."""
+    head = _shape(3072, "identity")
+    for bad in (3, 8, 0):
+        with pytest.raises(NotImplementedError, match="cluster of"):
+            fk.lean_cluster(64, H100, head, cluster=bad)
+    small = types.SimpleNamespace(multi_processor_count=132,
+                                  shared_memory_per_block_optin=101376)
+    with pytest.raises(NotImplementedError, match="118784"):
+        fk.lean_cluster(64, small, head, cluster=2)
+    big = _shape(9728, "identity")
+    with pytest.raises(NotImplementedError, match="S_pad=9728"):
+        fk.lean_cluster(16, H100, big, cluster=4)
+    for form, C in (("fact_fwd", 2), ("fact_bwd_chunk", 4),
+                    ("fact_fwd_init", 2), ("fact_bwd", 2),
+                    ("fact_fwd_snap", 8), ("fact_bwd_lean", 3)):
+        with pytest.raises(ValueError):
+            fk._cluster_args(form, 8, C, None)
+    fk._cluster_args("fact_fwd_snap", 8, 4, None)
+    fk._cluster_args("fact_bwd_lean", 8, 2, None)
+    fk._cluster_args("fact_fwd", 8, 1, None)
+
+
+@pytest.mark.parametrize("mode,limit", [("identity", 9600),
+                                        ("stream", 7168),
+                                        ("matrix", 7168)])
+def test_cluster_form_keeps_the_lean_limits(mode, limit):
+    """The cluster form's shared memory: fact_bwd_lean's formula (the
+    vectors read whole are whole), fact_fwd_snap's with x_src on own rows
+    outside identity mode, both at least 118,784 bytes; so the lean limits
+    (S_pad 9,600 identity, else 7,168) and the ring depth are C = 1's at
+    every C, in both precisions."""
+    for fast in (False, True):
+        fa = _shape(limit, mode, fast)
+        past = _shape(limit + 128, mode, fast)
+        for C in fk.LEAN_CLUSTERS:
+            assert fk.lean_fits(fa, C) and not fk.lean_fits(past, C)
+            got = fk.lean_smem_bytes(fa, C)
+            one = fk.smem_bytes(fa, lean=True)
+            if C == 1:
+                assert got == {"fact_fwd_snap": one["fact_fwd"],
+                               "fact_bwd_lean": one["fact_bwd"]}
+            else:
+                vectors = 4 if mode == "identity" else 5
+                assert got == {
+                    "fact_fwd_snap": (vectors * limit + 33) * 4,
+                    "fact_bwd_lean": one["fact_bwd"]}
+        head = _shape(3072, mode, fast)
+        for C in (2, 4):
+            small = fk.lean_smem_bytes(head, C)
+            one = fk.smem_bytes(head, lean=True)["fact_bwd"]
+            assert small["fact_bwd_lean"] == max(one,
+                                                 fk.LEAN_CLUSTER_MIN_SMEM)
+            assert small["fact_fwd_snap"] == fk.LEAN_CLUSTER_MIN_SMEM
+            assert 2 * (fk.LEAN_CLUSTER_MIN_SMEM + 1024) > 233472
+            assert fk.ring_stages(head, lean=True) == 2
+
+
+@pytest.mark.parametrize("s_pad,mode,fast,P,stages,want", [
+    (3072, "identity", True, 3000, 2, True),     # main path 7
+    (3072, "identity", True, 3001, 2, False),    # P % 4 != 0: no TMA copy
+    (3072, "identity", True, 3000, 0, False),    # no ring
+    (3072, "stream", False, 3000, 1, True),
+    (7168, "identity", False, 3000, 2, False),   # does not fit beside it
+    (7168, "identity", True, 3000, 2, True),
+    (5760, "stream", False, 3000, 2, False),
+])
+def test_lean_px_ring_rule(s_pad, mode, fast, P, stages, want):
+    """fact_bwd_lean's cluster form holds px's rows in its ring where there
+    is a ring, P floats are 16-byte copies and they fit beside the C = 1
+    layout (whose depth and limits they never change); its request then
+    grows by a row a stage, never below 118,784 bytes."""
+    fa = _shape(s_pad, mode, fast)
+    assert fk.lean_px_ring(fa, stages, P) == want
+    one = fk.smem_bytes(fa, stages, lean=True)["fact_bwd"]
+    got = fk.lean_smem_bytes(fa, 2, stages, P)["fact_bwd_lean"]
+    assert got == max(one + (stages * 4 * P if want else 0),
+                      fk.LEAN_CLUSTER_MIN_SMEM)
+    assert got <= fk.MAX_SMEM
+    assert fk.lean_smem_bytes(fa, 1, stages, P)["fact_bwd_lean"] == one

@@ -367,12 +367,14 @@ def test_loss_on_a_shared_log_domain_batch_raises():
     fsts, _, lengths, x = _case("shared")
     shared, _ = _batches(fsts, True, x.shape[0])
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: \"shared log-domain graphs\""):
         pt_loss.chain_function(xt, lengths, shared)
     loss = pt.ChainLoss(pt.ChainGraph(fsts[0], log_domain=True),
                         device="cpu")
     nums, _ = _batches(fsts * x.shape[0], False, x.shape[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: \"shared log-domain graphs\""):
         loss(xt, lengths, nums)
 
 
