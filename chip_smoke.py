@@ -192,24 +192,30 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    fact_fwd_snap_bf16, fact_bwd_lean_bf16) and to 1 byte ("ckpt" at the
    default C=64: fact_fwd_snap_bf16 once, fact_fwd_init_bf16 and
    fact_bwd_chunk_bf16 once a chunk), and forced (stream_mode="ckpt",
-   ckpt_chunk=96, which does not divide T); first a plan line: the lean
-   forms' cluster size C (fact_kernels.lean_cluster: 2 at B=64 on 132
-   SMs); each mode's launches (every
-   count 0 before its run, read after), step ms (CUDA events, best of 3
-   after a warm-up), peak device memory, objf and its largest difference
-   from full; every kernel bit for bit against its plain version (the
-   full pair, the lean stream and backward, the snapshot rows, one
-   chunk's replay streams, the ckpt results at both chunks; the lean
-   pair also at C=1 and C=4 and at the plan's C with a ring of 0 and 1),
-   each cluster of a C launch on C
-   distinct SMs (%smid), the lean forms and the lean and ckpt calls at
-   C=1 against the plan's C in one call (in turns, with peak memory),
-   each form's time alone with its bytes bound and its plain version's
-   time; the same in float32 at T=1,000 (cut so the plain version's time
-   stays small) within the parity bars, the lean (at the plan's C and at
-   C=1) and ckpt results bit-identical to the full kernels' (gated);
-   bench.py --long (B=32, T=2,500) under
-   "auto": its mode, step ms, peak memory, the full pair bit for bit;
+   ckpt_chunk=96, which does not divide T); first a plan line: each
+   form's cluster size C (fact_kernels.cluster_size: at B=64 on 132 SMs
+   2 for the forward forms and fact_bwd_lean, 1 for fact_bwd and
+   fact_bwd_chunk, whose cluster form is no faster); each mode's launches
+   (every count 0 before its run, read after), step ms (CUDA events,
+   best of 3 after a warm-up), peak device memory, objf and its largest
+   difference from full; every kernel bit for bit against its plain
+   version (the full pair, the lean stream and backward, the snapshot
+   rows, one chunk's replay streams, the ckpt results at both chunks;
+   the full mode and the ckpt mode with every form at C=1, 2 and 4, the
+   full pair at C=2 with a ring of 0 and 1; the lean pair also at C=1
+   and C=4 and at the plan's C with a ring of 0 and 1), each cluster of
+   a C=2 launch of each form on 2 distinct SMs (%smid), every form at
+   C=1 against C=2 (fact_fwd_init and fact_bwd_chunk over all of a
+   call's chunks) and each mode's call with every form at C=1 against
+   its plan in one call (in turns, with peak memory), each form's time
+   alone at its plan with its bytes bound and its plain version's time;
+   the same in float32 at T=1,000 (cut so the plain version's time stays
+   small) within the parity bars, the lean and ckpt results, and each
+   mode at C=1 and at C=2, bit-identical to the full kernels' (gated);
+   bench.py --long (B=32, T=2,500) under "auto": its plan line, mode,
+   step ms, peak memory, the full pair bit for bit against the plain fast
+   version, fact_fwd_bf16 and fact_bwd_bf16 at C=1, 2 and 4 and the full
+   call at C=1 and at its plan in turns;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -239,7 +245,10 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    path 7 one for each form of B1/B2 in each stream mode, in both
    precisions ("batch" "main path 7 ...", "stream_mode", "ckpt_chunk"),
    with its launches in that mode's run (fact_fwd_init and
-   fact_bwd_chunk timed over all of a call's chunks, "ms_covers");
+   fact_bwd_chunk timed over all of a call's chunks, "ms_covers"), its
+   plan's cluster size and its times at C=1 and C=2 ("cluster",
+   "c1_ms", "ab_ms"); bench.py --long's fact_fwd_bf16 and fact_bwd_bf16
+   one each (its plan's time, and at C=1, 2 and 4);
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -916,9 +925,9 @@ def check_smem():
     for name in ("fact_fwd", "fact_bwd", "stream_fwd", "stream_bwd"):
         getattr(build.load(name), f"{name}_smem_bytes").restype = \
             ctypes.c_size_t
-    build.load("fact_fwd").fact_fwd_snap_cluster_smem_bytes.restype = \
+    build.load("fact_fwd").fact_fwd_cluster_smem_bytes.restype = \
         ctypes.c_size_t
-    build.load("fact_bwd").fact_bwd_lean_cluster_smem_bytes.restype = \
+    build.load("fact_bwd").fact_bwd_cluster_smem_bytes.restype = \
         ctypes.c_size_t
     for s_pad, mode in ((3072, "identity"), (12032, "stream"),
                         (384, "matrix"), (24320, "identity")):
@@ -940,18 +949,21 @@ def check_smem():
             got[f"fact_fwd fast={fast}"] = fk.smem_bytes(fa)["fact_fwd"]
             want[f"fact_fwd fast={fast}"] = c_size("fact_fwd", s_pad,
                                                    identity, fast)
-            # the lean forms on a cluster (C > 1: one formula for every C;
+            # every form on a cluster (C > 1: one formula for every C;
             # fact_bwd_lean's ring with px rows where they fit, P % 4 == 0)
             for k in (0, 1, 2):
                 for P in (3000, 3001, 6000):
-                    cl = fk.lean_smem_bytes(fa, 2, k, P)
+                    cl = fk.cluster_smem_bytes(fa, 2, k, P)
                     key = f"cluster fast={fast} stages={k} P={P}"
-                    got[f"fact_fwd_snap {key}"] = cl["fact_fwd_snap"]
-                    want[f"fact_fwd_snap {key}"] = c_size(
-                        "fact_fwd_snap_cluster", s_pad, identity)
-                    got[f"fact_bwd_lean {key}"] = cl["fact_bwd_lean"]
-                    want[f"fact_bwd_lean {key}"] = c_size(
-                        "fact_bwd_lean_cluster", s_pad, identity, k, fast, P)
+                    for form in fk.FWD_FORMS:
+                        got[f"{form} {key}"] = cl[form]
+                        want[f"{form} {key}"] = c_size(
+                            "fact_fwd_cluster", s_pad, identity)
+                    for form in fk.BWD_FORMS:
+                        got[f"{form} {key}"] = cl[form]
+                        want[f"{form} {key}"] = c_size(
+                            "fact_bwd_cluster", s_pad, identity, k, fast, P,
+                            int(form == "fact_bwd_lean"))
         # the cluster pair: the same shared memory in both precisions (the
         # sources' one formula), and the same resident clusters for the
         # float32 and the bfloat16 kernel
@@ -1033,7 +1045,7 @@ def check_smem():
                       f"{(res, st, bps, width)}: Python {py} != source {c}")
     print("# shared memory: Python sizes equal the sources' "
           "(fact_fwd, fact_bwd and fact_bwd_lean with a ring of 0, 1, 2 "
-          "stages, in both precisions, stream_* at "
+          "stages, every form's cluster form, in both precisions, stream_* at "
           "C = 1, 2, 4, 8 and G = 1, 2, 4 in both precisions, xl_vpu, "
           "xl_mxu, semiring_* and "
           "viterbi at every layout their plans can choose)", flush=True)
@@ -1452,29 +1464,16 @@ def mode_bytes_ops(fa, kg, lens, T, P, C):
     }
 
 
-def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
-    """Each kernel form alone on the card at this call's inputs (CUDA
-    events, the mean of ``reps`` calls): fact_fwd and fact_bwd (full),
-    fact_fwd_snap at 1 and fact_bwd_lean (lean), fact_fwd_snap at C and,
-    over all the call's chunks, fact_fwd_init and fact_bwd_chunk (ckpt),
-    each chunk's streams in buffers of their own.  Returns {form: ms}."""
+def chunk_runs(fa, px, lens32, leaky_c, C):
+    """The ckpt mode's 58 (T / C) replays and chunk backwards of one call
+    on the fast sweep's snapshots, each chunk's streams in buffers of
+    their own: (replays(cluster), backwards(cluster)), each running all
+    of a call's chunks at ``cluster`` CTAs a column (None: the plan's)."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     B, T, P = px.shape
-    fwd_ms, bwd_ms = pair_times(fa, px, lens32, leaky_c, fk.fact_fwd,
-                                fk.fact_bwd, reps, plain=False)
-    out = {"fact_fwd": fwd_ms, "fact_bwd": bwd_ms}
-    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c)
-    _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
-    tot = tot.contiguous()
-    out["fact_fwd_snap lean"] = cuda_ms(
-        lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c), reps)
-    out["fact_bwd_lean"] = cuda_ms(
-        lambda: fk.fact_bwd_lean(lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0,
-                                 tot, debug=False), reps)
-    del ad1
-    snaps = fk.fact_fwd_snap(px, lens32, fa, leaky_c, C)[0]
-    out["fact_fwd_snap ckpt"] = cuda_ms(
-        lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c, C), reps)
+    snaps, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c,
+                                                     C)
+    tot = fk._objf(s_ys, ad_last, lens32, fa, s0)[1].contiguous()
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
     entry = ad0.to(fk.stream_dtype(fa)).expand(B, fa.s_pad)
     chunks = []
@@ -1487,21 +1486,47 @@ def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
                                     device=px.device)
                         for _ in range(n_streams)]
                        + [None] * (4 - n_streams)))
-
-    def replays():
-        for t0, ad_init, s_init, streams in chunks:
-            fk.fact_fwd_init(px, lens32, fa, leaky_c, t0, ad_init, s_init,
-                             streams)
-
     outs = fk._outputs(B, T, P, px.device)
     carry = (torch.empty((B, fa.s_pad), device=px.device),
              torch.empty(B, device=px.device))
 
-    def backwards():
+    def replays(cluster=None):
+        for t0, ad_init, s_init, streams in chunks:
+            fk.fact_fwd_init(px, lens32, fa, leaky_c, t0, ad_init, s_init,
+                             streams, cluster)
+
+    def backwards(cluster=None):
         for t0, ad_init, _, streams in reversed(chunks):
             fk.fact_bwd_chunk(lens32, fa, leaky_c, streams, s_ys, ad0, s0,
-                              tot, t0, ad_init, outs, carry, debug=False)
+                              tot, t0, ad_init, outs, carry, debug=False,
+                              cluster=cluster)
 
+    return replays, backwards
+
+
+def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
+    """Each kernel form alone on the card at this call's inputs and its
+    plan's cluster size (CUDA events, the mean of ``reps`` calls):
+    fact_fwd and fact_bwd (full), fact_fwd_snap at 1 and fact_bwd_lean
+    (lean), fact_fwd_snap at C and, over all the call's chunks,
+    fact_fwd_init and fact_bwd_chunk (ckpt), each chunk's streams in
+    buffers of their own.  Returns {form: ms}."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    fwd_ms, bwd_ms = pair_times(fa, px, lens32, leaky_c, fk.fact_fwd,
+                                fk.fact_bwd, reps, plain=False)
+    out = {"fact_fwd": fwd_ms, "fact_bwd": bwd_ms}
+    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c)
+    _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
+    tot = tot.contiguous()
+    out["fact_fwd_snap lean"] = cuda_ms(
+        lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c), reps)
+    out["fact_bwd_lean"] = cuda_ms(
+        lambda: fk.fact_bwd_lean(lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0,
+                                 tot, debug=False), reps)
+    del ad1
+    out["fact_fwd_snap ckpt"] = cuda_ms(
+        lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c, C), reps)
+    replays, backwards = chunk_runs(fa, px, lens32, leaky_c, C)
     out["fact_fwd_init"] = cuda_ms(replays, reps)
     out["fact_bwd_chunk"] = cuda_ms(backwards, reps)
     return out
@@ -1623,33 +1648,37 @@ def mode_steps(label, x, lens, batch, leaky_c, counters):
     return stats
 
 
-def lean_plan(fa, B, P, dev, label):
-    """The lean forms' cluster plan for B columns on this card
-    (fact_kernels.lean_cluster), printed on a plan line with the SMs the
-    CTAs of one launch of each form at that C ran on (%smid: no two CTAs
-    of a cluster on one SM).  Returns C."""
+def cluster_plan(fa, B, P, dev, label):
+    """Each form's cluster size for B columns on this card
+    (fact_kernels.cluster_size), printed on a plan line with each
+    form's shared memory a CTA and its ring.  Returns {form: C}."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     props = torch.cuda.get_device_properties(dev)
-    C = fk.lean_cluster(B, props, fa)
-    stages = fk.ring_stages(fa, lean=True)
-    print(f"# {label} plan: the lean forms (fact_fwd_snap, fact_bwd_lean) "
-          f"on C={C} CTAs a column of 1024 threads: "
-          f"{B * C} CTAs on {props.multi_processor_count} SMs, shared "
-          f"memory a CTA {fk.lean_smem_bytes(fa, C, P=P)} B, fact_bwd_lean's "
-          f"ring {stages} stages, px rows in it "
-          f"{C > 1 and fk.lean_px_ring(fa, stages, P)} (rule: the largest C "
-          f"in {fk.LEAN_CLUSTERS} with B C <= SMs whose CTAs fit "
-          f"{props.shared_memory_per_block_optin} B)", flush=True)
-    return C
+    forms = fk.FWD_FORMS + fk.BWD_FORMS
+    plan = {f: fk.cluster_size(B, props, fa, f) for f in forms}
+    smem = {f: fk.cluster_smem_bytes(fa, C, P=P)[f] for f, C in plan.items()}
+    rings = {"fact_bwd": fk.ring_stages(fa, cluster=plan["fact_bwd"]),
+             "fact_bwd_lean": fk.ring_stages(fa, lean=True)}
+    px_ring = plan["fact_bwd_lean"] > 1 and fk.lean_px_ring(
+        fa, rings["fact_bwd_lean"], P)
+    print(f"# {label} plan: C CTAs a column (of 1024 threads) by form "
+          f"{plan}: {B * max(plan.values())} CTAs on "
+          f"{props.multi_processor_count} SMs; shared memory a CTA {smem} "
+          f"B; rings {rings} stages, fact_bwd_lean's px rows in its ring "
+          f"{px_ring} "
+          f"(rule: the largest C of each form's {fk.PLAN_CLUSTERS} with "
+          f"B C <= SMs whose CTA fits {props.shared_memory_per_block_optin}"
+          " B)", flush=True)
+    return plan
 
 
-def smid_check(label, C, B, fwd, bwd):
-    """Run fwd(smid) and bwd(smid) (a lean form's launch at C CTAs a
+def smid_check(label, C, B, calls):
+    """Run each of ``calls`` ({form: fn(smid)}: a launch at C CTAs a
     column recording each CTA's SM) and check that no cluster has two
     CTAs on one SM; prints the distinct SMs of each launch."""
     dev = torch.device("cuda")
     seen = {}
-    for name, fn in (("fact_fwd_snap", fwd), ("fact_bwd_lean", bwd)):
+    for name, fn in calls.items():
         smid = torch.full((B * C,), -1, dtype=torch.int32, device=dev)
         fn(smid)
         rows = smid.view(B, C).cpu()
@@ -1664,47 +1693,50 @@ def smid_check(label, C, B, fwd, bwd):
     return seen
 
 
-def lean_bwd_smid(fa, px, lens32, leaky_c, C, smid):
-    """fact_bwd_lean at C CTAs a column recording each CTA's SM, on
-    fact_fwd_snap's stream at C."""
+def smid_calls(fa, px, lens32, leaky_c, C, ckpt_chunk):
+    """{form: fn(smid)}: one launch of each form at C CTAs a column (each
+    backward form on its forward's streams at C), a ckpt chunk in the
+    middle of the call for fact_fwd_init and fact_bwd_chunk."""
     from pychain_tpu_torch.ops import fact_kernels as fk
-    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c,
-                                                   cluster=C)
-    tot = fk._objf(s_ys, ad_last, lens32, fa, s0)[1].contiguous()
-    fk.fact_bwd_lean(lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0, tot,
-                     cluster=C, smid=smid)
+    B, T, P = px.shape
+    st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=C)
+    tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
+    ad1 = fk.fact_fwd_snap(px, lens32, fa, leaky_c, cluster=C)[0]
+    t0 = (T // ckpt_chunk // 2) * ckpt_chunk
+    chunk = [None if t is None else t[:, t0:t0 + ckpt_chunk].contiguous()
+             for t in st[:4]]
+    outs = fk._outputs(B, T, P, px.device)
+    carry = (torch.zeros((B, fa.s_pad), device=px.device),
+             torch.zeros(B, device=px.device))
+    return {
+        "fact_fwd": lambda smid: fk.fact_fwd(px, lens32, fa, leaky_c,
+                                             cluster=C, smid=smid),
+        "fact_bwd": lambda smid: fk.fact_bwd(
+            lens32, fa, leaky_c, *st[:5], st[6], st[7], tot, P,
+            cluster=C, smid=smid),
+        "fact_fwd_snap": lambda smid: fk.fact_fwd_snap(
+            px, lens32, fa, leaky_c, cluster=C, smid=smid),
+        "fact_bwd_lean": lambda smid: fk.fact_bwd_lean(
+            lens32, fa, leaky_c, ad1, px, st[4], st[6], st[7], tot,
+            cluster=C, smid=smid),
+        "fact_fwd_init": lambda smid: fk.fact_fwd_init(
+            px, lens32, fa, leaky_c, t0, st[0][:, t0 - 1],
+            st[4][:, t0 - 1].contiguous(), chunk, cluster=C, smid=smid),
+        "fact_bwd_chunk": lambda smid: fk.fact_bwd_chunk(
+            lens32, fa, leaky_c, chunk, st[4], st[6], st[7], tot, t0,
+            st[0][:, t0 - 1], outs, carry, cluster=C, smid=smid)}
 
 
-def lean_cluster_ab(fa, px, lens32, leaky_c, C, ckpt_chunk, reps=3):
-    """The lean forms at C = 1 and at the plan's C in one call, in turns
-    (1, C, C, 1): fact_fwd_snap's lean sweep (snap 1) and the ckpt
-    mode's snapshot sweep (snap ckpt_chunk), fact_bwd_lean (on C = 1's
-    stream), and the denominator call of the lean and ckpt modes
-    (forward_backward_prob_kernel, no autograd); each the mean of reps
-    calls, the best of its two turns, with the peak device memory of one
-    call over what was held.  Returns {name: {C: (ms, peak over held)}}."""
-    from pychain_tpu_torch.ops import fact_kernels as fk
-    ad1, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c,
-                                                   cluster=1)
-    tot = fk._objf(s_ys, ad_last, lens32, fa, s0)[1].contiguous()
-    calls = {
-        "fact_fwd_snap lean": lambda c: fk.fact_fwd_snap(
-            px, lens32, fa, leaky_c, cluster=c),
-        "fact_fwd_snap ckpt": lambda c: fk.fact_fwd_snap(
-            px, lens32, fa, leaky_c, ckpt_chunk, cluster=c),
-        "fact_bwd_lean": lambda c: fk.fact_bwd_lean(
-            lens32, fa, leaky_c, ad1, px, s_ys, ad0, s0, tot, debug=False,
-            cluster=c),
-        "lean call": lambda c: fk.forward_backward_prob_kernel(
-            px, lens32, fa, leaky_c, debug=False, stream_mode="lean",
-            cluster=c),
-        "ckpt call": lambda c: fk.forward_backward_prob_kernel(
-            px, lens32, fa, leaky_c, debug=False, stream_mode="ckpt",
-            cluster=c)}
+def sizes_ab(fns, sizes, reps=3):
+    """Each of ``fns`` ({name: fn(size)}) at each size of ``sizes`` in one
+    call, in turns (sizes, then reversed; CUDA events, the mean of reps
+    calls, the best of its two turns), with the peak device memory of one
+    call over what was held.  Returns {name: {size: (ms, peak over
+    held)}}."""
     out = {}
-    for name, fn in calls.items():
-        got = {1: [], C: []}
-        for c in (1, C, C, 1):
+    for name, fn in fns.items():
+        got = {c: [] for c in sizes}
+        for c in (*sizes, *reversed(sizes)):
             fn(c)
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
@@ -1712,8 +1744,47 @@ def lean_cluster_ab(fa, px, lens32, leaky_c, C, ckpt_chunk, reps=3):
             ms = cuda_ms(lambda: fn(c), reps)
             got[c].append((ms, torch.cuda.max_memory_allocated() - held))
         out[name] = {c: min(v) for c, v in got.items()}
-    del ad1
     return out
+
+
+def cluster_ab(fa, px, lens32, leaky_c, C, ckpt_chunk, reps=3):
+    """Every form at C = 1 and at C CTAs a column in one call, in turns
+    (1, C, C, 1): fact_fwd and fact_bwd (full), the 58 (T / chunk)
+    fact_fwd_init and fact_bwd_chunk launches of one ckpt call,
+    fact_fwd_snap's lean sweep and snapshot sweep and fact_bwd_lean;
+    and the denominator call of each mode (forward_backward_prob_kernel,
+    no autograd) with every form at C = 1 and at its plan's size (keyed
+    C); each the mean of reps calls, the best of its two turns, with the
+    peak device memory of one call over what was held.  Returns {name:
+    {1 or C: (ms, peak over held)}}."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    B, T, P = px.shape
+    st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=1)
+    tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
+    ad1 = fk.fact_fwd_snap(px, lens32, fa, leaky_c, cluster=1)[0]
+    replays, backwards = chunk_runs(fa, px, lens32, leaky_c, ckpt_chunk)
+    plan = lambda c: None if c == C else 1
+    call = lambda mode: lambda c: fk.forward_backward_prob_kernel(
+        px, lens32, fa, leaky_c, debug=False, stream_mode=mode,
+        cluster=plan(c))
+    calls = {
+        "fact_fwd": lambda c: fk.fact_fwd(px, lens32, fa, leaky_c,
+                                          cluster=c),
+        "fact_bwd": lambda c: fk.fact_bwd(
+            lens32, fa, leaky_c, *st[:5], st[6], st[7], tot, P,
+            debug=False, cluster=c),
+        "fact_fwd_init": replays,
+        "fact_bwd_chunk": backwards,
+        "fact_fwd_snap lean": lambda c: fk.fact_fwd_snap(
+            px, lens32, fa, leaky_c, cluster=c),
+        "fact_fwd_snap ckpt": lambda c: fk.fact_fwd_snap(
+            px, lens32, fa, leaky_c, ckpt_chunk, cluster=c),
+        "fact_bwd_lean": lambda c: fk.fact_bwd_lean(
+            lens32, fa, leaky_c, ad1, px, st[4], st[6], st[7], tot,
+            debug=False, cluster=c),
+        "full call": call("full"), "lean call": call("lean"),
+        "ckpt call": call("ckpt")}
+    return sizes_ab(calls, (1, C), reps)
 
 
 def long_fast(den, P, dev, leaky_c, counters):
@@ -1740,9 +1811,13 @@ def long_fast(den, P, dev, leaky_c, counters):
           f"the card's budget {budget} B: auto -> {auto} (the JAX package's "
           f"4 GiB -> {fk.resolve_stream_mode(T, B, fa)})", flush=True)
     check(auto == "full", f"{label}: auto chose {auto} under {budget} B")
-    C7 = lean_plan(fa, B, P, dev, label)
+    plan = cluster_plan(fa, B, P, dev, label)
+    C7 = 2   # the cluster size the plan takes at B=64 on 132 SMs
     if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
-        check(C7 == 2, f"{label}: the plan chose C={C7} on 132 SMs")
+        want_plan = {f: 1 if f in ("fact_bwd", "fact_bwd_chunk") else C7
+                     for f in plan}
+        check(plan == want_plan, f"{label}: the plan chose {plan} on 132 "
+              f"SMs, want {want_plan}")
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
                     .manual_seed(70), device=dev).requires_grad_(True)
     lens = torch.full((B,), T, dtype=torch.int32)
@@ -1783,6 +1858,13 @@ def long_fast(den, P, dev, leaky_c, counters):
                  "alpha_beta": full_p[1], "gamma_sum": full_p[2]}
     del full_p
     diffs = {"full": bit_diff(res["full"], want_full)}
+    # the full pair at every C and ring depth at full width
+    for cl, stages in ((1, None), (C7, None), (4, None), (C7, 0), (C7, 1)):
+        r = fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, stream_mode="full", cluster=cl,
+            stages=stages)
+        diffs[f"full C={cl} stages={stages}"] = bit_diff(r, want_full)
+        del r
     del want_full
     ad1, s1 = fk.fact_fwd_snap(px, lens32, fa, leaky_c)[:2]
     diffs["fact_fwd_snap lean"] = {
@@ -1805,10 +1887,7 @@ def long_fast(den, P, dev, leaky_c, counters):
         diffs[f"lean C={cl} stages={stages}"] = bit_diff(r, want_lean)
         del r
     del want_lean
-    if C7 > 1:
-        smid_check(label, C7, B, lambda smid: fk.fact_fwd_snap(
-            px, lens32, fa, leaky_c, cluster=C7, smid=smid),
-            lambda smid: lean_bwd_smid(fa, px, lens32, leaky_c, C7, smid))
+    smid_check(label, C7, B, smid_calls(fa, px, lens32, leaky_c, C7, C))
     snaps, s64 = fk.fact_fwd_snap(px, lens32, fa, leaky_c, C)[:2]
     (snaps_p, _, s64_p, _, _), snap_plain_ms = event_ms(
         lambda: pf.forward_prob_fast(px_tm, lens64, fa, leaky_c, graph,
@@ -1825,9 +1904,16 @@ def long_fast(den, P, dev, leaky_c, counters):
     g, ab, gs, init_plain_ms, chunk_plain_ms, (ad_pr, w1_pr) = \
         plain_ckpt_pieces(px, lens64, fa, leaky_c, C, graph, alpha_dash,
                           s_plain, tot_p, probe=probe)
-    diffs["ckpt"] = bit_diff(res["ckpt"], {
-        "objf": objf_p, "gamma": g, "alpha_beta": ab, "gamma_sum": gs})
-    del g, ab, gs, alpha_dash
+    want_ckpt = {"objf": objf_p, "gamma": g, "alpha_beta": ab,
+                 "gamma_sum": gs}
+    diffs["ckpt"] = bit_diff(res["ckpt"], want_ckpt)
+    # the ckpt mode with every form at each C
+    for cl in (1, C7, 4):
+        r = fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, stream_mode="ckpt", cluster=cl)
+        diffs[f"ckpt C={cl}"] = bit_diff(r, want_ckpt)
+        del r
+    del g, ab, gs, alpha_dash, want_ckpt
     t0p, n = probe * C, min(C, T - probe * C)
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
     streams = [torch.empty((B, n, fa.s_pad), dtype=torch.bfloat16,
@@ -1862,10 +1948,11 @@ def long_fast(den, P, dev, leaky_c, counters):
           f"{n_chunks} chunks): " + ", ".join(
               f"{k} {v:.3f} (bound {bound(*costs[k])[0]:.4f}, plain "
               f"{plain[k]:.1f})" for k, v in times.items()), flush=True)
-    ab_c = lean_cluster_ab(fa, px, lens32, leaky_c, C7, C)
-    print(f"# {label}: the lean forms at C=1 and at the plan's C={C7} in one "
-          "call, in turns (1, C, C, 1; CUDA events, mean of 3, best turn; "
-          "peak device memory of a call over what was held): " + ", ".join(
+    ab_c = cluster_ab(fa, px, lens32, leaky_c, C7, C)
+    print(f"# {label}: each form at C=1 and at C={C7}, each mode's call with "
+          "every form at C=1 and at its plan's C, in one call, in turns "
+          "(1, C, C, 1; CUDA events, mean of 3, best turn; peak device "
+          "memory of a call over what was held): " + ", ".join(
               f"{k} {v[1][0]:.3f} ms ({v[1][1] / 1e9:.3f} GB) -> "
               f"{v[C7][0]:.3f} ms ({v[C7][1] / 1e9:.3f} GB)"
               for k, v in ab_c.items()), flush=True)
@@ -1875,11 +1962,15 @@ def long_fast(den, P, dev, leaky_c, counters):
                 "bytes": costs[k][0], "ops": costs[k][1],
                 "err": 0.0, "C": C, "n_chunks": n_chunks}
             for k in times}
-    for k in ("fact_fwd_snap lean", "fact_fwd_snap ckpt", "fact_bwd_lean"):
-        rows[k].update({"cluster": C7,
+    for k in rows:
+        rows[k].update({"cluster": plan[k.split()[0]],
                         "ab_ms": ab_c[k][C7][0], "c1_ms": ab_c[k][1][0],
+                        "ab_cluster": C7,
                         "ab_peak_over_held": ab_c[k][C7][1],
                         "c1_peak_over_held": ab_c[k][1][1]})
+    for k in ("full call", "lean call", "ckpt call"):
+        stats[k.split()[0]]["call_ab"] = {"c1_ms": ab_c[k][1][0],
+                                          "plan_ms": ab_c[k][C7][0]}
     return stats, rows
 
 
@@ -1919,15 +2010,19 @@ def long_f32(den, P, dev, leaky_c, counters):
                             functools.partial(fk.forward_backward_prob_kernel,
                                               stream_mode=mode,
                                               ckpt_chunk=chunk))
-    # the lean forms at the plan's C (B=64: 2 on an H100) and at C = 1
-    results["lean C=1"] = fk.forward_backward_prob_kernel(
-        px, lens, fa, leaky_c, stream_mode="lean", cluster=1)
+    # every form at the plan's C (B=64 on an H100: 2, fact_bwd and
+    # fact_bwd_chunk 1), at C = 1 and at C = 2
+    for mode in ("full", "lean", "ckpt"):
+        for cl in (1, 2):
+            results[f"{mode} C={cl}"] = fk.forward_backward_prob_kernel(
+                px, lens, fa, leaky_c, stream_mode=mode, cluster=cl)
     same = {k: bit_diff(results[k], results["full"])
             for k in results if k != "full"}
     print(f"# {label}: launches {launches}; entries that differ from the "
           f"full kernels' {same}", flush=True)
     check(all(v == 0 for d in same.values() for v in d.values()),
-          f"{label}: float32 lean or ckpt not bit-identical to full: {same}")
+          f"{label}: float32 lean, ckpt or a cluster size not bit-identical "
+          f"to full: {same}")
     check(launches["lean"] == {"fact_fwd_snap": 1, "fact_bwd_lean": 1}
           and launches["ckpt"] == {"fact_fwd_snap": 1,
                                    "fact_fwd_init": -(-T // C),
@@ -1940,8 +2035,8 @@ def long_f32(den, P, dev, leaky_c, counters):
     fwd_err = max(errs[k]["objf_rel"] for k in errs)
     bwd_err = max(max(e["gamma_abs"], e["alpha_beta_abs"],
                       e["gamma_sum_abs"]) for e in errs.values())
-    # the lean forms ran on the plan's cluster (fact_kernels.lean_cluster)
-    lean_c = fk.lean_cluster(B, torch.cuda.get_device_properties(dev), fa)
+    # each form ran at its plan's cluster size (fact_kernels.cluster_size)
+    props = torch.cuda.get_device_properties(dev)
     rows = {}
     for k, ms in times.items():
         fwd = k.startswith("fact_fwd")
@@ -1949,8 +2044,7 @@ def long_f32(den, P, dev, leaky_c, counters):
                    "bytes": costs[k][0], "ops": costs[k][1],
                    "err": fwd_err if fwd else bwd_err, "C": C,
                    "n_chunks": -(-T // C)}
-        if k.split()[0] in ("fact_fwd_snap", "fact_bwd_lean"):
-            rows[k]["cluster"] = lean_c
+        rows[k]["cluster"] = fk.cluster_size(B, props, fa, k.split()[0])
     print(f"# {label} kernel ms: " + ", ".join(
         f"{k} {v['ms']:.3f} (bound {bound(v['bytes'], v['ops'])[0]:.4f})"
         for k, v in rows.items()) + f"; plain fwd {plain[2]:.1f}, plain "
@@ -1963,9 +2057,11 @@ def long_f32(den, P, dev, leaky_c, counters):
 
 def long_auto(den, P, dev, leaky_c, counters):
     """bench.py --long (B=32, T=2,500, bfloat16 tiles) under "auto"
-    through chain_function: the mode auto takes, the step's ms and peak
-    memory, and the full pair bit for bit against the plain fast
-    version."""
+    through chain_function: the plan, the mode auto takes, the step's ms
+    and peak memory, and the full pair bit for bit against the plain
+    fast version (each sweep's plain time); fact_fwd_bf16 and
+    fact_bwd_bf16 at C = 1, 2 and 4 and the full call at C = 1 and at the
+    plan in turns.  Returns (stats, the pair's kernel rows' fields)."""
     from pychain_tpu_torch import ChainGraphBatch
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import factorized as pf
@@ -1973,6 +2069,7 @@ def long_auto(den, P, dev, leaky_c, counters):
     batch = ChainGraphBatch(den, B, tile_dtype="bfloat16", device=dev)
     fa = batch._fact
     label = f"main path 7 (bench.py --long: B={B}, T={T}, bfloat16)"
+    plan = cluster_plan(fa, B, P, dev, label)
     auto = fk.resolve_stream_mode(T, B, fa, budget=fk.stream_budget(dev),
                                   on_card=True)
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
@@ -1983,9 +2080,22 @@ def long_auto(den, P, dev, leaky_c, counters):
     launched = fk.launched()
     best, times, peak, over = step_stats(lambda: den_step(x, lens, batch))
     px = torch.exp(torch.clamp(x.detach(), -30.0, 30.0))
-    got = fk.forward_backward_prob_kernel(px, lens.to(dev), fa, leaky_c)
-    diff = bit_diff(got, pf.forward_backward_prob_fast(px, lens, fa,
-                                                       leaky_c))
+    del x
+    lens32, lens64 = lens.to(dev), lens.to(dev).long()
+    got = fk.forward_backward_prob_kernel(px, lens32, fa, leaky_c)
+    graph = pf._fast_graph(fa)
+    px_tm = px.permute(1, 2, 0)
+    (alpha_dash, w1_alpha, s_plain, objf_p, tot_p), fwd_plain_ms = event_ms(
+        lambda: pf.forward_prob_fast(px_tm, lens64, fa, leaky_c, graph))
+    full_p, bwd_plain_ms = event_ms(lambda: pf.backward_prob_fast(
+        px_tm, lens64, fa, leaky_c, alpha_dash, w1_alpha, s_plain, tot_p,
+        graph))
+    del alpha_dash, w1_alpha
+    diff = bit_diff(got, {"objf": objf_p,
+                          "gamma": pf.gamma_batch_major(full_p[0], P),
+                          "alpha_beta": full_p[1], "gamma_sum": full_p[2]})
+    ok_all = bool(got.ok.all())
+    del full_p, got
     print(f"# {label}: auto -> {auto}; objf {objf!r}; launches {launched}; "
           f"step ms {best:.3f} (best of {[round(t, 3) for t in times]}); "
           f"peak device memory {peak / 1e9:.3f} GB, {over / 1e9:.3f} GB over "
@@ -1993,12 +2103,38 @@ def long_auto(den, P, dev, leaky_c, counters):
           f"version {diff}", flush=True)
     check(auto == "full" and launched == {"fact_fwd_bf16": 1,
                                           "fact_bwd_bf16": 1}
-          and sum(diff.values()) == 0 and bool(got.ok.all()),
+          and sum(diff.values()) == 0 and ok_all,
           f"{label}: auto {auto}, launches {launched}, diff {diff}")
-    del x, px, got
+    st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=1)
+    tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
+    ab = {k: {c: v[0] for c, v in r.items()} for k, r in sizes_ab({
+        "fact_fwd": lambda c: fk.fact_fwd(px, lens32, fa, leaky_c,
+                                          cluster=c),
+        "fact_bwd": lambda c: fk.fact_bwd(
+            lens32, fa, leaky_c, *st[:5], st[6], st[7], tot, P,
+            debug=False, cluster=c)}, (1, 2, 4)).items()}
+    del st
+    # 0: every form at its plan's size
+    call = {c: v[0] for c, v in sizes_ab({
+        "full call": lambda c: fk.forward_backward_prob_kernel(
+            px, lens32, fa, leaky_c, debug=False, stream_mode="full",
+            cluster=None if c == 0 else 1)}, (1, 0))["full call"].items()}
+    print(f"# {label}: fact_fwd_bf16 and fact_bwd_bf16 at C = 1, 2, 4 in "
+          f"turns (ms): {ab}; the full call with every form at C=1 "
+          f"{call[1]:.3f} ms, at the plan {call[0]:.3f} ms", flush=True)
+    kg = fk.graph_for(fa)
+    costs = mode_bytes_ops(fa, kg, lens32, T, P, fk.ckpt_chunk_length(T))
+    plain = {"fact_fwd": fwd_plain_ms, "fact_bwd": bwd_plain_ms}
+    rows = {k: {"ms": ab[k][plan[k]], "plain_ms": plain[k],
+                "bytes": costs[k][0], "ops": costs[k][1], "err": 0.0,
+                "cluster": plan[k], "c1_ms": ab[k][1], "c2_ms": ab[k][2],
+                "c4_ms": ab[k][4], "launches": launched[f"{k}_bf16"]}
+            for k in ("fact_fwd", "fact_bwd")}
+    del px
     torch.cuda.empty_cache()
     return {"auto": auto, "objf": objf, "ms": best, "peak": peak,
-            "over_held": over, "launches": launched}
+            "over_held": over, "launches": launched,
+            "call_c1_ms": call[1], "call_plan_ms": call[0]}, rows
 
 
 def main_path_7(den, P, dev, leaky_c, counters):
@@ -2008,9 +2144,9 @@ def main_path_7(den, P, dev, leaky_c, counters):
     denominator objective (bench.py:453-463)."""
     stats, fast_rows = long_fast(den, P, dev, leaky_c, counters)
     f32_stats, f32_rows = long_f32(den, P, dev, leaky_c, counters)
-    auto = long_auto(den, P, dev, leaky_c, counters)
+    auto, long_rows = long_auto(den, P, dev, leaky_c, counters)
     return {"stats": stats, "fast_rows": fast_rows, "f32_stats": f32_stats,
-            "f32_rows": f32_rows, "long": auto}
+            "f32_rows": f32_rows, "long": auto, "long_rows": long_rows}
 
 
 # ----------------------------------------------------------------------
@@ -3880,12 +4016,35 @@ def main():
                 "max_abs_err": r["err"], "max_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bms,
                 "bound_by": by, "bytes": r["bytes"], "ops": r["ops"],
-                # the lean forms: CTAs a column, and the one-call A/B
-                # against C = 1 (fast mode)
-                **{k: r[k] for k in ("cluster", "ab_ms",
+                # CTAs a column at the plan, and (fast mode) the one-call
+                # A/B of C = 1 against C = ab_cluster
+                **{k: r[k] for k in ("cluster", "ab_cluster", "ab_ms",
                                      "c1_ms", "ab_peak_over_held",
                                      "c1_peak_over_held") if k in r},
                 "library_ms": None})
+    # bench.py --long (B=32): the full pair at its plan, each form's time
+    # at C = 1, 2 and 4 in turns
+    for form, r in p7["long_rows"].items():
+        line, fn = ((457, "_fwd_kernel_factory") if "fwd" in form
+                    else (768, "_bwd_kernel_factory"))
+        bms, by = bound(r["bytes"], r["ops"])
+        rows.append({
+            "name": f"{form}_bf16", "route": "cuda",
+            "batch": f"main path 7 (bench.py --long: B={LONG[0]}, "
+                     f"T={LONG[1]})",
+            "stream_mode": "full",
+            "source": f"pychain_tpu_torch/csrc/{form}.cu",
+            "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
+            "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, full "
+                           "stream mode, bfloat16 tiles (fast mode)",
+            "launches": r["launches"],
+            "launches_by_path": {"main path 7": r["launches"]},
+            "on_main_path": True, "ms_covers": "one launch",
+            "max_abs_err": r["err"], "max_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "bytes": r["bytes"], "ops": r["ops"], "cluster": r["cluster"],
+            "c1_ms": r["c1_ms"], "c2_ms": r["c2_ms"], "c4_ms": r["c4_ms"],
+            "library_ms": None})
     # main path 2 runs the "semiring" class (the flat-start batch), main
     # path 3 its constrained batch ("xl" by the JAX package's rule); the
     # other rows are kernel checks at bench.py's and the tool's sizes
@@ -4048,9 +4207,15 @@ def main():
           + "; float32 at T=1000: " + "; ".join(
               f"{k} {v['ms']:.3f} ms, {v['over_held'] / 1e9:.3f} GB over "
               "what was held" for k, v in p7["f32_stats"].items())
+          + "; each call (no autograd) with every form at C=1 -> at its "
+          "plan: " + ", ".join(
+              f"{k} {v['call_ab']['c1_ms']:.3f} -> "
+              f"{v['call_ab']['plan_ms']:.3f} ms"
+              for k, v in st.items() if "call_ab" in v)
           + f"; bench.py --long (B=32 T=2500) auto -> {p7['long']['auto']} "
           f"{p7['long']['ms']:.3f} ms, peak {p7['long']['peak'] / 1e9:.3f} "
-          "GB")
+          f"GB, its call at C=1 {p7['long']['call_c1_ms']:.3f} -> at its "
+          f"plan {p7['long']['call_plan_ms']:.3f} ms")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

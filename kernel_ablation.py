@@ -81,13 +81,15 @@ BWD = {
 # barriers at a launch's start and end stay, so no CTA exits while a peer
 # writes to it).
 _FWD_FRAME_BARRIERS = [
-    ("    cluster_arrive();\n    // frame t + 1's",
-     "    __syncthreads();\n    // frame t + 1's"),
-    ("    cluster_wait();\n    cluster_warp_total<1>(part, red);",
-     "    cluster_warp_total<1>(part, red);"),
-    ("    cluster_arrive();\n    // alpha' is written",
-     "    __syncthreads();\n    // alpha' is written"),
-    ("    cluster_wait();\n  }\n  if (rank == 0)", "  }\n  if (rank == 0)")]
+    ("      cluster_arrive();\n    }\n    // frame t + 1's",
+     "      __syncthreads();\n    }\n    // frame t + 1's"),
+    ("    } else {\n      cluster_wait();\n    }\n"
+     "    cluster_warp_total<1>(part, red);",
+     "    }\n    cluster_warp_total<1>(part, red);"),
+    ("    if (!kAsync) cluster_arrive();\n    // alpha' is written",
+     "    if (!kAsync) __syncthreads();\n    // alpha' is written"),
+    ("    if (!kAsync) {\n      cluster_wait();\n    } else if",
+     "    if (!kAsync) {\n    } else if")]
 _BWD_FRAME_BARRIERS = [
     ("    cluster_arrive();   // X1", "    // X1"),
     ("    cluster_wait();\n\n    const bool traces",
@@ -216,8 +218,86 @@ def _lean_table(barriers, products, readd, px_ring=False):
 LEAN_FWD = _lean_table(_FWD_FRAME_BARRIERS, _FWD_PRODUCTS, _FWD_NO_READD)
 LEAN_BWD = _lean_table(_BWD_FRAME_BARRIERS, _BWD_PRODUCTS, _BWD_NO_READD,
                        px_ring=True)
+
+# B1/B2's full-stream forms at main path 7 (the same size), a column on C
+# CTAs: fact_fwd's cluster form (fact_fwd_init runs the same code) and
+# fact_bwd's (fact_bwd_chunk's likewise).  C = 1 and 2, each without its
+# sparse products; at C = 2 the exchanges by DSMEM stores and cluster
+# barriers (FACT_*_ASYNC 0) in place of st.async (also without the
+# products), without the virtual threads' pass, the forward without its
+# stream stores, the backward with its stream rows read where it needs
+# them (no ring: ring depth 0) and with its gamma stage spread over a
+# CTA's threads off the trace frames; and at bench.py --long's size
+# (B=32, T=2,500) C = 1, 2 and 4 ("batch").
+_FWD_OTHER_EXCHANGE = ("barriers", [("#define FACT_FWD_ASYNC 1\n",
+                                      "#define FACT_FWD_ASYNC 0\n")])
+_BWD_OTHER_EXCHANGE = ("barriers", [("#define FACT_BWD_ASYNC 1\n",
+                                     "#define FACT_BWD_ASYNC 0\n")])
+_FWD_NO_STREAM_STORES = [
+    ("        stream_put(xdst_ys + o + s, x);\n"
+     "        if (xsrc_ys) stream_put(xsrc_ys + o + s, xs[s]);", ""),
+    ("      if (kAux) stream_put(w1ad_ys + o + d, w1a);", ""),
+    ("      if (put) stream_put(ad_ys + oa + d, a[d]);", "")]
+_FULL_GAMMA_SPREAD = [(
+    "    if (tid < V) {\n"
+    "      for (int p = cluster_row(tid, rank, C); p < P; p += FACT_THREADS) {\n"
+    "        float acc = 0.0f;\n"
+    "        if (p < n_pdf_lists) {\n"
+    "          const int fe = __ldg(f_ptr + p + 1);\n"
+    "          for (int q",
+    "    const int own_p = cluster_own_rows((P + 31) & ~31, rank, C);\n"
+    "    for (int i = tid; !traces && i < own_p; i += NT) {\n"
+    "      const int p = cluster_row(i, rank, C);\n"
+    "      if (p >= P) continue;\n"
+    "      float acc = 0.0f;\n"
+    "      if (p < n_pdf_lists) {\n"
+    "        const int fe = __ldg(f_ptr + p + 1);\n"
+    "        for (int q = __ldg(f_ptr + p); q < fe; ++q)\n"
+    "          acc += c1[__ldg(f_states + q)];\n"
+    "        if (!identity) {\n"
+    "          const int ge = __ldg(g_ptr + p + 1);\n"
+    "          for (int q = __ldg(g_ptr + p); q < ge; ++q)\n"
+    "            acc += c2[__ldg(g_states + q)];\n"
+    "        }\n"
+    "      }\n"
+    "      __stcs(g_row + p, kFast ? round_to<S>(acc * inv_s) : acc);\n"
+    "    }\n"
+    "    if (traces && tid < V) {\n"
+    "      for (int p = cluster_row(tid, rank, C); p < P; p += FACT_THREADS) {\n"
+    "        float acc = 0.0f;\n"
+    "        if (p < n_pdf_lists) {\n"
+    "          const int fe = __ldg(f_ptr + p + 1);\n"
+    "          for (int q")]
+
+
+def _full_table(other_exchange, products, readd, extra):
+    """The full-stream forms' variants of a source: {label: options}
+    ("batch": (B, T) other than main path 7's); other_exchange: (name,
+    edits) of the exchange the source does not take."""
+    other, flip = other_exchange
+    table = {"C1": {"cluster": 1},
+             "C1_no_products": {"cluster": 1, "edits": products},
+             "C2": {"cluster": 2},
+             "C2_no_products": {"cluster": 2, "edits": products},
+             f"C2_{other}": {"cluster": 2, "edits": flip},
+             f"C2_{other}_no_products": {"cluster": 2,
+                                         "edits": flip + products},
+             "C2_no_readd": {"cluster": 2, "edits": readd}}
+    table.update(extra)
+    for C in (1, 2, 4):
+        table[f"B32_C{C}"] = {"cluster": C, "batch": (32, 2500)}
+    table["C1_again"] = {"cluster": 1}
+    return table
+
+
+FULL_FWD = _full_table(_FWD_OTHER_EXCHANGE, _FWD_PRODUCTS, _FWD_NO_READD, {
+    "C2_no_stream_stores": {"cluster": 2, "edits": _FWD_NO_STREAM_STORES}})
+FULL_BWD = _full_table(_BWD_OTHER_EXCHANGE, _BWD_PRODUCTS, _BWD_NO_READD, {
+    "C2_no_ring": {"cluster": 2, "stages": 0},
+    "C2_gamma_spread": {"cluster": 2, "edits": _FULL_GAMMA_SPREAD}})
 # the source of a table that is not named after its source
-SOURCE = {"fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd"}
+SOURCE = {"fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd",
+          "fact_fwd_cluster": "fact_fwd", "fact_bwd_cluster": "fact_bwd"}
 
 # The cluster pair (a cluster a group of G columns, W1's vector alone
 # held whole, one / two cluster barriers a frame).
@@ -657,6 +737,53 @@ def lean_ablation(tables, use, time_ms, dev):
     return result
 
 
+def full_cluster_ablation(tables, use, time_ms, dev):
+    """The full-stream forms' variants at main path 7 (bench.py --long
+    --big: the headline graph, B=64, T=3,700, bfloat16 tiles) and at
+    bench.py --long's B=32, T=2,500, each launch timed alone (fact_bwd on
+    the C = 1 sweep's streams)."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    c = 1e-5
+    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+    result = {}
+    for B, T in ((64, 3700), (32, 2500)):
+        at = lambda variant: spec(variant)[1].get("batch", (64, 3700)) \
+            == (B, T)
+        fwd = {k: v for k, v in tables["fact_fwd_cluster"].items() if at(v)}
+        bwd = {k: v for k, v in tables["fact_bwd_cluster"].items() if at(v)}
+        if not (fwd or bwd):
+            continue
+        fa = ChainGraphBatch(ChainGraph(den_fst), B, tile_dtype="bfloat16",
+                             device=dev)._fact
+        px = torch.exp(torch.randn(B, T, P, generator=torch.Generator(
+            device=dev).manual_seed(70), device=dev))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        use("fact_fwd", "full")
+        st = fk.fact_fwd(px, lens, fa, c, cluster=1)
+        tot = fk._objf(st[4], st[5], lens, fa, st[7])[1].contiguous()
+        tag = f"B={B} T={T}"
+        for label, variant in fwd.items():
+            use("fact_fwd_cluster", label)
+            opts = spec(variant)[1]
+            result[f"fact_fwd_bf16/{label} {tag}"] = time_ms(
+                lambda: fk.fact_fwd(px, lens, fa, c,
+                                    cluster=opts["cluster"]), reps=3)
+        use("fact_fwd", "full")
+        for label, variant in bwd.items():
+            use("fact_bwd_cluster", label)
+            opts = spec(variant)[1]
+            result[f"fact_bwd_bf16/{label} {tag}"] = time_ms(
+                lambda: fk.fact_bwd(lens, fa, c, *st[:5], st[6], st[7], tot,
+                                    P, debug=False, stages=opts.get("stages"),
+                                    cluster=opts["cluster"]), reps=3)
+        del px, st
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -668,7 +795,8 @@ def main():
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
 
     tables = {"fact_fwd": FWD, "fact_bwd": BWD, "fact_fwd_snap": LEAN_FWD,
-              "fact_bwd_lean": LEAN_BWD, "stream_fwd": STREAM_FWD,
+              "fact_bwd_lean": LEAN_BWD, "fact_fwd_cluster": FULL_FWD,
+              "fact_bwd_cluster": FULL_BWD, "stream_fwd": STREAM_FWD,
               "stream_bwd": STREAM_BWD, "semiring_fwd": sr_table(
                   "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
               "viterbi": sr_table("viterbi")}
@@ -757,6 +885,8 @@ def main():
 
     if tables["fact_fwd_snap"] or tables["fact_bwd_lean"]:
         result.update(lean_ablation(tables, use, time_ms, dev))
+    if tables["fact_fwd_cluster"] or tables["fact_bwd_cluster"]:
+        result.update(full_cluster_ablation(tables, use, time_ms, dev))
 
     if tables["stream_fwd"] or tables["stream_bwd"]:
         # the cluster pair at main path 4

@@ -42,9 +42,11 @@
 //   chunk, and out to the chunk below; gamma and the traces go to the
 //   chunk's frames of the whole (B, T, P) / (B, T) outputs.
 //
-// Design.  As in the forward kernel: one block per batch column running
-// the whole reverse time loop, W1^T and W2^T as sliced-ELL rows by source
-// state over the graph's arcs, each row's entries in bank order (the
+// Design.  As in the forward kernel: one block per batch column (or a
+// cluster of C CTAs: fact_bwd_lean_cluster_kernel and
+// fact_bwd_full_cluster_kernel below) running the whole reverse time
+// loop, W1^T and W2^T as sliced-ELL rows by source state over the
+// graph's arcs, each row's entries in bank order (the
 // host's fixed order, chosen so that a slot's 32 gathers hit distinct
 // shared-memory banks; sell_row_dot, fact_common.cuh), each thread
 // summing its own rows in that order.  The E^T scatters become gathers:
@@ -118,6 +120,12 @@
 // TMA where fact_bwd_lean_px_ring allows; 0: never (it then gathers x_dst
 // and x_src from px by __ldg; kernel_ablation.py times both).
 #define LEAN_PX_RING 1
+
+// The full and chunk forms' cluster form (fact_bwd_full_cluster_kernel)
+// exchanges its rows and totals by 1: st.async stores completing on the
+// receivers' mbarriers; 0: DSMEM stores and a cluster barrier
+// (kernel_ablation.py times both; see the kernel).
+#define FACT_BWD_ASYNC 1
 
 // Stream rows a frame reads: x_dst(u), W1 alpha'(u), alpha'(u) (the
 // forward sweep's row u - 1) and, outside identity mode, x_src(u); the
@@ -760,6 +768,410 @@ __global__ void __launch_bounds__(NT, 1) fact_bwd_lean_cluster_kernel(
   cluster_barrier();   // no peer touches this CTA's shared memory after it
 }
 
+// fact_bwd and fact_bwd_chunk on a cluster of C CTAs (C = 2 or 4) of NT
+// threads a column, where the caller asks for it (cluster=; the plan,
+// fact_kernels.cluster_size, keeps these forms at C = 1).  CTA r owns the virtual warps w = r (mod C) of the
+// C = 1 block and their state rows (fact_common.cuh): it computes their
+// W1^T and W2^T products, beta' and masses, and the pdfs p with p mod
+// 1024 a virtual thread of its own (their gamma entries and their part of
+// the sum-gamma trace).
+//
+// One exchange a frame.  The lean cluster form (above) exchanges twice:
+// b and x_dst * b (X1), then the masses and totals (X2); applied to these
+// forms that was slower than C = 1 with either exchange.  Here every CTA
+// holds beta' whole and reads x_dst(u) whole from its ring, so it forms b
+// and x_dst * b for every row itself, as the C = 1 kernel's head does,
+// and the frame's one exchange carries each CTA's rows of beta'(u), its
+// rows of the masses and its warp totals.  A frame:
+//
+//   b and x_dst * b, whole, from beta'(u + 1) whole -> own rows' W1^T and
+//   W2^T products, beta'(u) and masses c1 (c2) to every CTA -> the leaky
+//   sum's and the alpha*beta trace's virtual warp totals to every CTA ->
+//   X (the ring's stage read: refilled) -> the cross-warp trees -> gamma
+//   of own pdfs -> (where the sum-gamma trace is taken: its totals, X3,
+//   its tree).
+//
+// Without X1 a CTA may start frame u - 1 while a peer is still in frame
+// u, so beta', the masses and the totals are double-buffered by frame
+// parity: a peer writes a frame's values into the buffer that the
+// receiver last read two frames before, and it can only be past the
+// exchange of the frame between, which needs the receiver's values of
+// that frame, sent after those reads.  FACT_BWD_ASYNC picks the exchange:
+// 0, a cluster barrier (DSMEM stores before it); 1, st.async stores that
+// complete on the receiver's mbarrier of the frame's parity (a warp's
+// slice of a vector in 16-byte stores, warp_put_async; the totals one
+// float a store), armed by the receiver's thread 0 at the frame's start
+// with the bytes its peers send it and waited on at the parity of that
+// mbarrier's own phase count.  A frame's bytes land on one mbarrier and
+// the next frame's on the other, so a peer that runs ahead never adds to
+// a phase still open.  The sums are the same either way.
+//
+// The stream rows.  A CTA needs x_dst(u) whole (b for every row) and its
+// own rows of W1 alpha'(u), x_src(u) and alpha'(u) (the masses and the
+// alpha*beta trace); it fetches the whole rows through the C = 1
+// kernel's ring, one bulk copy a row (its own rows alone would be
+// S_pad / (32 C) copies of 64 or 128 bytes a row; a copy multicast to
+// the cluster would need every stage released by every peer before its
+// refill).  The peers read the same rows from L2 at nearly the same time,
+// so the card reads them from memory once.  Ring depth 0 reads each entry
+// where it is needed (kernel_ablation.py times the ways).
+//
+// At main path 7 this form takes C = 1's time (kernel_ablation.py,
+// PERF.md: 37.1 ms with st.async, 38.7 with the barrier, C = 1 37.5): its
+// products halve (20.1 -> 12.5 ms), but the rest of a frame grows by
+// about 2 us: the virtual threads' pass (3.1 ms of the kernel: each
+// reads its rows' leaky entries from device memory in turn; a copy in
+// shared memory gave no steady gain), the exchange, and the gamma stage
+// and head, which a cluster does not split.  So the plan keeps C = 1
+// (fact_kernels.PLAN_CLUSTERS).
+//
+// Each row's products are its own sell_row_dot and every sum is taken in
+// the C = 1 kernel's order (each pdf's list ascending), so the results
+// are that kernel's bit for bit.  One CTA an SM: at least
+// LEAN_CLUSTER_MIN_SMEM bytes.  Shared memory: beta' whole in two
+// buffers, b and x_dst * b whole, the masses in two buffers (one vector
+// in identity mode, else two), the totals in two buffers and the
+// sum-gamma trace's, the ring, its mbarriers and FACT_BWD_ASYNC's three,
+// padded to 16 bytes: (6 or 8) S_pad + 165 floats besides, so its S_pad
+// limit (9,600 in identity mode, else 7,168) lies below C = 1's.
+template <typename S, int NT, int kForm>
+__global__ void __launch_bounds__(NT, 1) fact_bwd_full_cluster_kernel(
+    const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
+    const S* __restrict__ ad_ys,         // (B, ad_rows, S_pad) alpha'(u+1)
+    const S* __restrict__ w1ad_ys,       // (B, ad_rows, S_pad) W1 alpha'(u)
+    const S* __restrict__ xdst_ys,       // (B, ad_rows, S_pad)
+    const S* __restrict__ xsrc_ys,       // (B, ad_rows, S_pad) or null
+    const float* __restrict__ s_ys,      // (B, T) s_{u+1}
+    const float* __restrict__ s0,        // (1,)
+    const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
+    const S* __restrict__ ad_init,       // column b's alpha'(t0) at
+                                         // b * init_stride (BWD_CHUNK)
+    const float* __restrict__ final_p,   // (S_pad,)
+    const float* __restrict__ tot,       // (B,) sum(alpha'(T_b) * final)
+    const float* __restrict__ leaky,     // (S_pad,)
+    const int* __restrict__ w1t_ptr, const int* __restrict__ w1t_col,
+    const float* __restrict__ w1t_val,       // W1 by source row
+    const int* __restrict__ w2t_ptr, const int* __restrict__ w2t_col,
+    const float* __restrict__ w2t_val,       // W2 by source row
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
+    const int* __restrict__ f_ptr, const int* __restrict__ f_states,
+    const int* __restrict__ g_ptr,       // null in identity mode
+    const int* __restrict__ g_states,
+    int n_pdf_lists, float leaky_c, int T, int P, int s_pad, int debug,
+    int stages,                          // ring depth: 0, 1 or 2
+    int t0_arg, int n_arg, int rows_arg, int init_stride,
+    float* __restrict__ gamma,           // (B, T, P)
+    float* __restrict__ ab,              // (B, T)
+    float* __restrict__ gs,              // (B, T)
+    float* __restrict__ bd_io,           // (B, S_pad) beta' carry (BWD_CHUNK)
+    float* __restrict__ leak_io,         // (B,) its leaky sum (BWD_CHUNK)
+    int* __restrict__ smid) {            // (B * C,) each CTA's SM, or null
+  namespace cg = cooperative_groups;
+  constexpr bool kFast = sizeof(S) == 2;
+  constexpr bool kChunk = kForm == BWD_CHUNK;
+  constexpr bool kAsync = FACT_BWD_ASYNC;
+  constexpr int kTotals = 2 * FACT_WARPS + 2;   // a totals buffer's floats
+  const int t0 = kChunk ? t0_arg : 0;
+  const int n_frames = kChunk ? n_arg : T;
+  const int ad_rows = kChunk ? rows_arg : T;
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int lc = __ffs(C) - 1;
+  const int V = FACT_THREADS >> lc;      // this CTA's virtual threads
+  extern __shared__ float smem[];
+  const bool identity = xsrc_ys == nullptr;
+  const int rows = identity ? 3 : 4;     // stream rows a frame
+  const int nm = identity ? 1 : 2;       // mass vectors
+  // stages x rows x S_pad: frames' stream rows
+  S* ring = reinterpret_cast<S*>(smem);
+  unsigned long long* bar =    // one mbarrier a stage, then kAsync's
+      reinterpret_cast<unsigned long long*>(ring + stages * rows * s_pad);
+  unsigned long long* xbar = bar + stages;   // X (even, odd frames), X3
+  const int n_bars = (stages + (kAsync ? 3 : 0) + 1) & ~1;
+  float* bdv = reinterpret_cast<float*>(bar + n_bars);  // beta', 2 buffers
+  float* bn = bdv + 2 * s_pad;   // b, whole: gathered by W2^T's rows
+  float* xb = bn + s_pad;        // x_dst * b, whole: gathered by W1^T's rows
+  float* cm = xb + s_pad;        // masses, 2 buffers of nm vectors, whole
+  float* red = cm + 2 * nm * s_pad;   // totals, 2 buffers
+  float* red2 = red + 2 * kTotals;    // the sum-gamma trace's totals
+
+  const int tid = threadIdx.x;
+  const int b = static_cast<int>(blockIdx.x) >> lc;
+  if (smid && tid == 0) smid[blockIdx.x] = sm_id();
+  const int Tb = lengths[b];
+  const size_t row0 = static_cast<size_t>(b) * T;
+  const int t_hi = min(t0 + n_frames, Tb);   // frames t0 .. t_hi - 1
+  const int own = cluster_own_rows(s_pad, rank, C);
+
+  // frames past the column's end, spread over the cluster
+  const int past0 = max(Tb, t0), past1 = t0 + n_frames;
+  const size_t n_past = static_cast<size_t>(max(past1 - past0, 0)) * P;
+  float* g_past = gamma + (row0 + past0) * P;
+  for (size_t i = rank * NT + tid; i < n_past; i += C * NT) g_past[i] = 0.0f;
+  const float past_trace = debug ? 0.0f : 1.0f;
+  for (int u = past0 + rank * NT + tid; u < past1; u += C * NT) {
+    ab[row0 + u] = past_trace;
+    gs[row0 + u] = past_trace;
+  }
+  // the column ends before this launch: every CTA of the cluster leaves
+  // here, before any DSMEM access
+  if (t_hi <= t0) return;
+
+  if (kAsync && tid == 0)
+    for (int k = 0; k < 3; ++k) mbar_init(xbar + k, 1);
+  cluster_barrier();   // every CTA has started: peers may be written
+
+  // Frame u (the (t_hi - 1 - u)-th of the reverse loop) reads its stream
+  // rows from stage (t_hi - 1 - u) % stages; thread 0 of each CTA fetches
+  // them `stages` frames ahead, one bulk copy a row.  Frame t0 takes
+  // alpha'(t0) from ad_init or ad0.
+  const unsigned long long policy = stages ? evict_first_policy() : 0ull;
+  const unsigned row_bytes =
+      static_cast<unsigned>(sizeof(S)) * static_cast<unsigned>(s_pad);
+  auto fetch = [&](int u) {
+    const int k = (t_hi - 1 - u) % stages;
+    S* st = ring + k * rows * s_pad;
+    const size_t o = (static_cast<size_t>(b) * ad_rows + (u - t0)) * s_pad;
+    mbar_expect_tx(bar + k, (u > t0 ? rows : rows - 1) * row_bytes);
+    bulk_load(st + RING_XDST * s_pad, xdst_ys + o, row_bytes, bar + k,
+              policy);
+    bulk_load(st + RING_W1AD * s_pad, w1ad_ys + o, row_bytes, bar + k,
+              policy);
+    if (u > t0)
+      bulk_load(st + RING_AD * s_pad, ad_ys + o - s_pad, row_bytes, bar + k,
+                policy);
+    if (!identity)
+      bulk_load(st + RING_XSRC * s_pad, xsrc_ys + o, row_bytes, bar + k,
+                policy);
+  };
+  if (tid == 0 && stages > 0) {
+    for (int k = 0; k < stages; ++k) mbar_init(bar + k, 1);
+    for (int k = 0; k < stages && k < t_hi - t0; ++k) fetch(t_hi - 1 - k);
+  }
+
+  float leak_sum;
+  if (!kChunk || Tb <= t0 + n_frames) {
+    // injection at the last frame: beta'(T_b) = final / tot, whole in
+    // every CTA; its leaky sum over the virtual threads' rows (on the
+    // trace's totals: the first frame's go to the first buffer)
+    const float tot_b = tot[b];
+    for (int s = tid; s < s_pad; s += NT) bdv[s] = final_p[s] / tot_b;
+    float inj[1] = {0.0f};
+    if (tid < V) {
+      for (int s = cluster_row(tid, rank, C); s < s_pad; s += FACT_THREADS) {
+        const float v = final_p[s] / tot_b;
+        inj[0] = kFast ? __fadd_rn(inj[0], __fmul_rn(v, leaky[s]))
+                       : inj[0] + v * leaky[s];
+      }
+    }
+    // also the barrier after which the mbarriers may be waited on
+    cluster_block_sum<1>(inj, red2, V, rank, lc);
+    leak_sum = inj[0];
+  } else {
+    // beta'(t0 + n), whole, and its leaky sum from the chunk above
+    for (int s = tid; s < s_pad; s += NT)
+      bdv[s] = bd_io[static_cast<size_t>(b) * s_pad + s];
+    leak_sum = leak_io[b];
+    __syncthreads();
+  }
+
+  // alpha'(t0): the snapshot (stream type) or ad0
+  const S* init =
+      kChunk ? ad_init + static_cast<size_t>(b) * init_stride : nullptr;
+  // kAsync: the bytes a CTA's peers send it in X (their rows of beta'
+  // and of the masses, (32 / C) warp totals of two sums from each) and in
+  // X3 (one sum's)
+  const unsigned peer_rows = static_cast<unsigned>(s_pad - own);
+  const unsigned warp_bytes = (C - 1) * (32u >> lc) * 4u;
+  const unsigned x_bytes = peer_rows * (1 + nm) * 4u + 2 * warp_bytes;
+  unsigned phase3 = 0;
+  float part[3];
+  float* bd_out = bdv;   // beta'(t0) after the loop
+  for (int u = t_hi - 1; u >= t0; --u) {
+    const int fi = t_hi - 1 - u;
+    const int k = fi & 1;        // this frame's buffers and mbarrier
+    const float* bd = bdv + k * s_pad;       // beta'(u + 1), whole
+    float* bd_new = bdv + (k ^ 1) * s_pad;   // beta'(u)
+    float* c1 = cm + k * nm * s_pad;
+    float* c2 = identity ? c1 : c1 + s_pad;
+    float* rd = red + k * kTotals;
+    bd_out = bd_new;
+    const float s_u = u == 0 ? *s0 : s_ys[row0 + u - 1];
+    const float inv_s = 1.0f / s_u;
+    const bool traces = debug || u == 0;
+    // the frame's stream rows; ad_u is null at u = t0
+    const S *xd_u, *w1a_u, *xs_u, *ad_u = nullptr;
+    if (stages > 0) {
+      const S* st = ring + (fi % stages) * rows * s_pad;
+      mbar_wait(bar + fi % stages, (fi / stages) & 1);
+      if (u > t0) ad_u = st + RING_AD * s_pad;
+      xd_u = st + RING_XDST * s_pad;
+      w1a_u = st + RING_W1AD * s_pad;
+      xs_u = identity ? xd_u : st + RING_XSRC * s_pad;
+    } else {
+      const size_t o = (static_cast<size_t>(b) * ad_rows + (u - t0)) * s_pad;
+      if (u > t0) ad_u = ad_ys + o - s_pad;
+      xd_u = xdst_ys + o;
+      w1a_u = w1ad_ys + o;
+      xs_u = identity ? xd_u : xsrc_ys + o;
+    }
+    // a stream row's entry: from the ring, else read once from device
+    // memory, evicted first
+    auto row = [&](const S* r, int s) {
+      return stages > 0 ? smem_get(r + s) : stream_get(r + s);
+    };
+    auto alpha_at = [&](int s) {
+      return u != t0 ? row(ad_u, s) : kChunk ? stream_get(init + s) : ad0[s];
+    };
+    // this frame's phases: armed once every thread passed their last
+    // waits (two frames before; X3 at the last trace frame)
+    if (kAsync && tid == 0) {
+      mbar_expect_tx(xbar + k, x_bytes);
+      if (traces) mbar_expect_tx(xbar + 2, warp_bytes);
+    }
+    // b and x_dst * b for every row (the C = 1 kernel's head; the leaky
+    // term rounded on its own, then added)
+    const float cl = __fmul_rn(leaky_c, leak_sum);
+    for (int s = tid; s < s_pad; s += NT) {
+      const float v = __fadd_rn(bd[s], cl);
+      bn[s] = round_to<S>(v);
+      xb[s] = round_to<S>(row(xd_u, s) * v);
+    }
+    __syncthreads();
+
+    // own rows: the products, beta'(u) and the masses, to every CTA
+    auto send = [&](float* p, float x) {
+      if (kAsync) {
+        warp_put_async(p, x, rank, C, xbar + k);
+      } else {
+        cluster_put(p, x, rank, C);
+      }
+    };
+    for (int i = tid; i < own; i += NT) {
+      const int s = cluster_row(i, rank, C);
+      float w1t = sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb);
+      float w2t = sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn);
+      float xbs = xb[s];
+      const float ad = alpha_at(s);
+      float bdt;
+      if (kFast) {
+        // the C = 1 kernel's arithmetic, rounded where it rounds
+        const float v = __fadd_rn(bd[s], cl);
+        xbs = row(xd_u, s) * v;
+        w1t = __fadd_rn(w1t, __fmul_rn(__ldg(diag1 + s), xbs));
+        w2t = __fadd_rn(w2t, __fmul_rn(__ldg(diag2 + s), v));
+        const float sw = __fmul_rn(row(xs_u, s), w2t);
+        bdt = __fmul_rn(__fadd_rn(w1t, sw), inv_s);
+        const float m1 = __fmul_rn(xbs, row(w1a_u, s));
+        const float m2 = __fmul_rn(sw, ad);
+        if (identity) {
+          send(c1 + s, round_to<S>(__fadd_rn(m1, m2)));
+        } else {
+          send(c1 + s, round_to<S>(m1));
+          send(c2 + s, round_to<S>(m2));
+        }
+      } else {
+        const float sw = row(xs_u, s) * w2t;
+        bdt = (w1t + sw) * inv_s;
+        const float m1 = xbs * row(w1a_u, s) * inv_s;
+        const float m2 = sw * ad * inv_s;
+        if (identity) {
+          send(c1 + s, m1 + m2);
+        } else {
+          send(c1 + s, m1);
+          send(c2 + s, m2);
+        }
+      }
+      send(bd_new + s, bdt);
+    }
+    // each virtual thread adds its rows' leaky and trace terms in turn,
+    // as the C = 1 kernel's row loop does
+    __syncthreads();
+    part[0] = part[1] = part[2] = 0.0f;
+    if (tid < V) {
+      for (int s = cluster_row(tid, rank, C); s < s_pad; s += FACT_THREADS) {
+        const float bdt = bd_new[s];
+        const float ad = alpha_at(s);
+        if (kFast) {
+          part[0] = __fadd_rn(part[0], __fmul_rn(bdt, leaky[s]));
+          if (traces) part[1] = __fadd_rn(part[1], __fmul_rn(ad, bdt));
+        } else {
+          part[0] += bdt * leaky[s];
+          if (traces) part[1] += ad * bdt;
+        }
+      }
+    }
+    // the leaky sum and the alpha*beta trace are complete: their totals
+    // cross on X with beta'(u) and the masses
+    float rows2[2] = {part[0], part[1]};
+    if (kAsync) {
+      cluster_post_async<2>(rows2, rd, V, rank, lc, xbar + k);
+      __syncthreads();   // this CTA's totals, and its stage reads, done
+    } else {
+      cluster_post<2>(rows2, rd, V, rank, lc);
+      cluster_barrier();   // X
+    }
+    // the stage is read: refill it with frame u - stages' rows
+    if (tid == 0 && stages > 0 && u - stages >= t0) {
+      fence_proxy_async();
+      fetch(u - stages);
+    }
+    if (kAsync) mbar_wait_cluster(xbar + k, (fi >> 1) & 1);
+    cluster_warp_total<2>(rows2, rd);
+    leak_sum = rows2[0];
+
+    // gamma of own pdfs: virtual thread v sums pdfs v, v + 1024, ...
+    float* g_row = gamma + (row0 + u) * P;
+    if (tid < V) {
+      for (int p = cluster_row(tid, rank, C); p < P; p += FACT_THREADS) {
+        float acc = 0.0f;
+        if (p < n_pdf_lists) {
+          const int fe = __ldg(f_ptr + p + 1);
+          for (int q = __ldg(f_ptr + p); q < fe; ++q)
+            acc += c1[__ldg(f_states + q)];
+          if (!identity) {
+            const int ge = __ldg(g_ptr + p + 1);
+            for (int q = __ldg(g_ptr + p); q < ge; ++q)
+              acc += c2[__ldg(g_states + q)];
+          }
+        }
+        const float gv = kFast ? round_to<S>(acc * inv_s) : acc;
+        __stcs(g_row + p, gv);
+        if (traces) part[2] += acc;
+      }
+    }
+    // the sum-gamma trace (at every frame with debug, else at frame 0):
+    // its own exchange on those frames alone
+    if (traces) {
+      float g1[1] = {part[2]};
+      if (kAsync) {
+        cluster_post_async<1>(g1, red2, V, rank, lc, xbar + 2);
+        __syncthreads();
+        mbar_wait_cluster(xbar + 2, phase3);
+        phase3 ^= 1;
+        cluster_warp_total<1>(g1, red2);
+      } else {
+        cluster_block_sum<1>(g1, red2, V, rank, lc);   // X3
+      }
+      part[2] = g1[0];
+    }
+    if (rank == 0 && tid == 0) {
+      ab[row0 + u] = traces ? rows2[1] : 1.0f;
+      gs[row0 + u] = traces ? (kFast ? part[2] * inv_s : part[2]) : 1.0f;
+    }
+  }
+  // beta'(t0) on own rows and its leaky sum for the chunk below
+  if (kChunk && t0 > 0) {
+    for (int i = tid; i < own; i += NT) {
+      const int s = cluster_row(i, rank, C);
+      bd_io[static_cast<size_t>(b) * s_pad + s] = bd_out[s];
+    }
+    if (rank == 0 && tid == 0) leak_io[b] = leak_sum;
+  }
+  cluster_barrier();   // no peer touches this CTA's shared memory after it
+}
+
 extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages,
                                       int fast, int lean) {
   const size_t rows = lean ? 1 : identity ? 3 : 4;
@@ -771,12 +1183,10 @@ extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages,
          stages * (rows * s_pad * entry + sizeof(unsigned long long));
 }
 
-// The cluster form's request: the C = 1 lean kernel's, and never less
-// than LEAN_CLUSTER_MIN_SMEM (one CTA an SM).
-// Whether the cluster form's ring also holds px's rows: a ring at all, P
-// floats a 16-byte multiple (TMA), and the CTA's request with them within
-// a block's 232,448 bytes (the ring's depth and the limits are C = 1's,
-// chosen without px rows).
+// Whether the lean cluster form's ring also holds px's rows: a ring at
+// all, P floats a 16-byte multiple (TMA), and the CTA's request with them
+// within a block's 232,448 bytes (the ring's depth and the limits are
+// C = 1's, chosen without px rows).
 extern "C" int fact_bwd_lean_px_ring(int s_pad, int identity, int stages,
                                      int fast, int P) {
   return LEAN_PX_RING && stages > 0 && P % 4 == 0 &&
@@ -785,17 +1195,29 @@ extern "C" int fact_bwd_lean_px_ring(int s_pad, int identity, int stages,
              232448;
 }
 
-// The cluster form's request: the C = 1 lean kernel's, plus a px row a
-// stage (fact_bwd_lean_px_ring), and never less than LEAN_CLUSTER_MIN_SMEM
-// (one CTA an SM).
-extern "C" size_t fact_bwd_lean_cluster_smem_bytes(int s_pad, int identity,
-                                                   int stages, int fast,
-                                                   int P) {
-  const size_t need =
-      fact_bwd_smem_bytes(s_pad, identity, stages, fast, 1) +
-      (fact_bwd_lean_px_ring(s_pad, identity, stages, fast, P)
-           ? static_cast<size_t>(stages) * 4 * P
-           : 0);
+// A cluster CTA's request (never less than LEAN_CLUSTER_MIN_SMEM: one CTA
+// an SM).  lean: the C = 1 lean kernel's, plus a px row a stage
+// (fact_bwd_lean_px_ring); else fact_bwd_full_cluster_kernel's layout.
+extern "C" size_t fact_bwd_cluster_smem_bytes(int s_pad, int identity,
+                                              int stages, int fast, int P,
+                                              int lean) {
+  size_t need;
+  if (lean) {
+    need = fact_bwd_smem_bytes(s_pad, identity, stages, fast, 1) +
+           (fact_bwd_lean_px_ring(s_pad, identity, stages, fast, P)
+                ? static_cast<size_t>(stages) * 4 * P
+                : 0);
+  } else {
+    const size_t rows = identity ? 3 : 4;
+    const size_t entry = fast ? 2 : 4;
+    const size_t vectors = identity ? 6 : 8;
+    const size_t bars = (stages + (FACT_BWD_ASYNC ? 3 : 0) + 1) & ~1;
+    need = stages * rows * static_cast<size_t>(s_pad) * entry +
+           bars * sizeof(unsigned long long) +
+           (vectors * static_cast<size_t>(s_pad) + 2 * (2 * FACT_WARPS + 2) +
+            FACT_WARPS + 1) *
+               sizeof(float);
+  }
   return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
 }
 
@@ -816,8 +1238,8 @@ static int fact_bwd_lean_cluster_run(
   const int identity = g_src == nullptr;
   const int px_ring =
       fact_bwd_lean_px_ring(s_pad, identity, stages, sizeof(S) == 2, P);
-  const size_t smem = fact_bwd_lean_cluster_smem_bytes(
-      s_pad, identity, stages, sizeof(S) == 2, P);
+  const size_t smem = fact_bwd_cluster_smem_bytes(
+      s_pad, identity, stages, sizeof(S) == 2, P, 1);
   cudaError_t err = fact_set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
@@ -848,6 +1270,53 @@ static int fact_bwd_lean_cluster_run(
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, int NT, int kForm>
+static int fact_bwd_full_cluster_run(
+    const void* lengths, const void* ad_ys, const void* w1ad_ys,
+    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
+    const void* s0, const void* ad0, const void* ad_init,
+    const void* final_p, const void* tot, const void* leaky,
+    const void* w1t_ptr, const void* w1t_col, const void* w1t_val,
+    const void* w2t_ptr, const void* w2t_col, const void* w2t_val,
+    const void* diag1, const void* diag2, const void* f_ptr,
+    const void* f_states, const void* g_ptr, const void* g_states,
+    int n_pdf_lists, float leaky_c, int B, int T, int P, int s_pad,
+    int debug, int stages, int t0, int n_frames, int ad_rows,
+    int init_stride, int cluster, void* gamma, void* ab, void* gs,
+    void* bd_io, void* leak_io, void* smid, void* stream) {
+  auto kernel = fact_bwd_full_cluster_kernel<S, NT, kForm>;
+  const size_t smem = fact_bwd_cluster_smem_bytes(
+      s_pad, xsrc_ys == nullptr, stages, sizeof(S) == 2, P, 0);
+  cudaError_t err = fact_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, attr, NT);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return -1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int*>(lengths),
+      static_cast<const S*>(ad_ys), static_cast<const S*>(w1ad_ys),
+      static_cast<const S*>(xdst_ys), static_cast<const S*>(xsrc_ys),
+      static_cast<const float*>(s_ys), static_cast<const float*>(s0),
+      static_cast<const float*>(ad0), static_cast<const S*>(ad_init),
+      static_cast<const float*>(final_p), static_cast<const float*>(tot),
+      static_cast<const float*>(leaky), static_cast<const int*>(w1t_ptr),
+      static_cast<const int*>(w1t_col), static_cast<const float*>(w1t_val),
+      static_cast<const int*>(w2t_ptr), static_cast<const int*>(w2t_col),
+      static_cast<const float*>(w2t_val), static_cast<const float*>(diag1),
+      static_cast<const float*>(diag2), static_cast<const int*>(f_ptr),
+      static_cast<const int*>(f_states), static_cast<const int*>(g_ptr),
+      static_cast<const int*>(g_states), n_pdf_lists, leaky_c, T, P, s_pad,
+      debug, stages, t0, n_frames, ad_rows, init_stride,
+      static_cast<float*>(gamma), static_cast<float*>(ab),
+      static_cast<float*>(gs), static_cast<float*>(bd_io),
+      static_cast<float*>(leak_io), static_cast<int*>(smid));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename S, int kForm>
 static int fact_bwd_run(
     const void* lengths, const void* ad_ys, const void* w1ad_ys,
@@ -866,8 +1335,8 @@ static int fact_bwd_run(
     void* stream) {
   constexpr bool kLean = kForm == BWD_LEAN;
   if (cluster != 1) {
-    // the cluster form: fact_bwd_lean alone, C = 2 or 4
-    if (!kLean) return static_cast<int>(cudaErrorInvalidValue);
+    // the cluster forms, C = 2 or 4
+    if constexpr (kLean) {
 #define FACT_BWD_LEAN_CLUSTER(C)                                              \
   if (cluster == C)                                                           \
     return fact_bwd_lean_cluster_run<S, LEAN_CLUSTER_THREADS(C)>(             \
@@ -876,9 +1345,22 @@ static int fact_bwd_run(
         f_dst, g_src, diag1, diag2, f_ptr, f_states, g_ptr, g_states,         \
         n_pdf_lists, leaky_c, B, T, P, s_pad, debug, stages, C, gamma, ab,    \
         gs, smid, stream);
-    FACT_BWD_LEAN_CLUSTER(2)
-    FACT_BWD_LEAN_CLUSTER(4)
+      FACT_BWD_LEAN_CLUSTER(2)
+      FACT_BWD_LEAN_CLUSTER(4)
 #undef FACT_BWD_LEAN_CLUSTER
+    } else {
+#define FACT_BWD_FULL_CLUSTER(C)                                              \
+  if (cluster == C)                                                           \
+    return fact_bwd_full_cluster_run<S, LEAN_CLUSTER_THREADS(C), kForm>(      \
+        lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, ad_init,    \
+        final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr, w2t_col,     \
+        w2t_val, diag1, diag2, f_ptr, f_states, g_ptr, g_states, n_pdf_lists, \
+        leaky_c, B, T, P, s_pad, debug, stages, t0, n_frames, ad_rows,        \
+        init_stride, C, gamma, ab, gs, bd_io, leak_io, smid, stream);
+      FACT_BWD_FULL_CLUSTER(2)
+      FACT_BWD_FULL_CLUSTER(4)
+#undef FACT_BWD_FULL_CLUSTER
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smid != nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -921,9 +1403,8 @@ static int fact_bwd_run(
 // n_frames T, no ad_init, no carry); fact_bwd_chunk: one chunk of the
 // ckpt mode; fact_bwd_lean: the lean mode (px, W1's rows by destination,
 // f_dst and g_src; no W1 alpha' or emission streams).  cluster: 1 (one
-// 1024-thread block a column, smid null), or for fact_bwd_lean 2 or 4
-// CTAs a column, each writing its SM's id to smid[CTA] unless smid is
-// null.
+// 1024-thread block a column, smid null), or 2 or 4 CTAs a column, each
+// writing its SM's id to smid[CTA] unless smid is null.
 #define FACT_BWD_ENTRY(NAME, S, FORM)                                         \
   extern "C" int NAME(                                                        \
       const void* lengths, const void* ad_ys, const void* w1ad_ys,            \

@@ -6,8 +6,10 @@
 //
 // Every kernel but the cluster pair gives one thread block to one batch
 // column (sequence) and runs that column's whole time loop inside the
-// block; a thread owns the state rows s = threadIdx.x + k * FACT_THREADS
-// (the semiring pair: k * blockDim.x, a block sized to the graph).
+// block (B1/B2 also run a column on a cluster of C CTAs, at the end of
+// this file); a thread owns the state rows
+// s = threadIdx.x + k * FACT_THREADS (the semiring pair: k * blockDim.x,
+// a block sized to the graph).
 // The cluster pair (stream_*.cu) gives one thread-block cluster to a
 // group of G columns: CTA r of the cluster owns the 32-row slices
 // k = r (mod C) of the states, computes those rows in all G columns, and
@@ -543,7 +545,7 @@ __host__ inline cudaLaunchConfig_t cluster_config(int n, int cluster,
 }
 
 // ----------------------------------------------------------------------
-// B1/B2's lean forms on a cluster (fact_fwd_snap, fact_bwd_lean at C > 1)
+// B1/B2 on a cluster (every form at C > 1)
 // ----------------------------------------------------------------------
 //
 // One batch column on a cluster of C CTAs (C = 2 or 4) of NT threads.
@@ -649,14 +651,116 @@ __device__ __forceinline__ void cluster_block_sum(float (&v)[NV], float* red,
   cluster_warp_total<NV>(v, red);
 }
 
-// Threads of a lean cluster CTA: a full block (at most two rows a
-// thread at the headline graph at C = 2, where C = 1 has three).  1024 / C
-// keeps the one-block kernel's threads a column; it was 6-29% slower at
-// main path 7 (kernel_ablation.py, PERF.md), so is not built.
+// The exchange without cluster barriers: a value stored into a peer's
+// shared memory by st.async, which completes its 4 bytes on an mbarrier
+// of that peer (at the same offset as `bar` here).  The receiver arms the
+// barrier with the bytes its peers send it in one exchange
+// (mbar_expect_tx) and waits on the phase's parity (mbar_wait_cluster);
+// the store's completion releases at cluster scope and the wait acquires
+// there, so the values are seen after the wait.  A store may land before
+// the receiver arms the phase (the transaction count then runs below 0
+// until the arming adds the bytes).
+__device__ __forceinline__ unsigned cluster_map(const void* p, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_async(const float* p, float x, int rank,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(cluster_map(p, rank)),
+      "r"(__float_as_uint(x)), "r"(cluster_map(bar, rank))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar,
+                                                  unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// cluster_put whose peer stores complete on `bar` in each peer.
+__device__ __forceinline__ void cluster_put_async(float* p, float x, int rank,
+                                                  int C,
+                                                  unsigned long long* bar) {
+  *p = x;
+  for (int q = 1; q < C; ++q) st_async(p, x, (rank + q) & (C - 1), bar);
+}
+
+// A warp's 32 lanes each hold x for p, 32 consecutive floats of one
+// 32-row slice (lane l at the slice's float l, the slice 16-byte
+// aligned): each lane stores its own here, and lanes 0-7 gather four
+// lanes' values each and store them into every peer as one 16-byte
+// st.async, completing on `bar` there: 8 transactions a slice a peer, a
+// quarter of one store a value.  Every lane of the warp calls it.
+__device__ __forceinline__ void warp_put_async(float* p, float x, int rank,
+                                               int C,
+                                               unsigned long long* bar) {
+  *p = x;
+  const int lane = threadIdx.x & 31;
+  float q[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = __shfl_sync(0xffffffffu, x, (4 * lane + k) & 31);
+  if (lane >= 8) return;
+  const float* dst = p - lane + 4 * lane;
+  for (int r = 1; r < C; ++r) {
+    const int peer = (rank + r) & (C - 1);
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+        "{%1, %2, %3, %4}, [%5];" ::"r"(cluster_map(dst, peer)),
+        "r"(__float_as_uint(q[0])), "r"(__float_as_uint(q[1])),
+        "r"(__float_as_uint(q[2])), "r"(__float_as_uint(q[3])),
+        "r"(cluster_map(bar, peer))
+        : "memory");
+  }
+}
+
+// cluster_post whose peer stores complete on `bar` in each peer: the
+// caller then passes a block barrier (this CTA's own totals), waits on
+// `bar` and calls cluster_warp_total.  A peer receives
+// (32 / C) NV floats from each CTA.
+template <int NV>
+__device__ __forceinline__ void cluster_post_async(const float (&v)[NV],
+                                                   float* red, int V,
+                                                   int rank, int lc,
+                                                   unsigned long long* bar) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (static_cast<int>(threadIdx.x) >= V) return;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    float x = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0)
+      cluster_put_async(red + ((warp << lc) | rank) * NV + k, x, rank,
+                        1 << lc, bar);
+  }
+}
+
+// Threads of a cluster CTA: a full block (at most two rows a thread at
+// the headline graph at C = 2, where C = 1 has three).  1024 / C keeps
+// the one-block kernel's threads a column; it was 6-29% slower at main
+// path 7 in the lean forms (kernel_ablation.py, PERF.md), so is not built.
 #define LEAN_CLUSTER_THREADS(C) 1024
 
-// A lean CTA's dynamic shared memory is at least this: 233,472 bytes an
-// SM hold two CTAs of 115,712 bytes (each also takes a 1 KB reserve),
+// A cluster CTA's dynamic shared memory is at least this: 233,472 bytes
+// an SM hold two CTAs of 115,712 bytes (each also takes a 1 KB reserve),
 // so two CTAs of a cluster cannot share an SM (which would undo the
 // split; at the headline graph a CTA needs about 49-61 KB).
 #define LEAN_CLUSTER_MIN_SMEM 118784

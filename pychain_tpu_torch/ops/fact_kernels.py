@@ -38,14 +38,13 @@ Their plain version is ``ops/factorized.forward_backward_prob_fact`` /
 ``forward_backward_prob_fast`` (``lean=True`` for the lean mode's
 roundings) and ``forward_backward_prob_ckpt``.
 
-The lean forms (``fact_fwd_snap``, which also sweeps the ckpt mode's
-snapshots, and ``fact_bwd_lean``) run a column on a thread-block cluster
-of C CTAs (``cluster=``; C = 1 is one block a column, as every other
-form): CTA r computes its share of the state rows and every sum is taken
-in the one-block kernel's order, so the results do not depend on C.
-:func:`lean_cluster` picks C from the card: the largest with B C CTAs on
-its SMs, so that a batch too small to fill the card with one block a
-column is spread over it.
+Every form runs a column on a thread-block cluster of C CTAs
+(``cluster=``; C = 1 is one block a column): CTA r computes its share of
+the state rows and every sum is taken in the one-block kernel's order, so
+the results do not depend on C.  :func:`cluster_size` picks C from the
+card: the largest with B C CTAs on its SMs among those that run the form
+faster than one block a column, so that a batch too small to fill the
+card is spread over it.
 
 A graph whose state vectors exceed a block's shared memory raises here
 and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4), which
@@ -76,11 +75,14 @@ TILE = 128
 # shared memory after cudaFuncSetAttribute.
 MAX_SMEM = 232448
 FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
-# The lean forms' cluster sizes (C = 1: one block a column), and a
-# cluster CTA's least shared memory (LEAN_CLUSTER_MIN_SMEM in
+# The cluster sizes built for every form (C = 1: one block a column), and
+# a cluster CTA's least shared memory (LEAN_CLUSTER_MIN_SMEM in
 # fact_common.cuh: two such CTAs do not fit one SM's 233,472 bytes).
 LEAN_CLUSTERS = (1, 2, 4)
 LEAN_CLUSTER_MIN_SMEM = 118784
+# fact_bwd and fact_bwd_chunk's cluster form: its exchange mbarriers
+# (3 with FACT_BWD_ASYNC in csrc/fact_bwd.cu, else 0).
+CLUSTER_XBARS = 3
 # The stream modes (pallas_fact.py:786-807): "full" keeps three (T, S_pad,
 # B) fwd->bwd streams (four outside identity mode), "lean" the alpha'
 # stream alone, "ckpt" alpha' at each chunk's last frame.  The JAX
@@ -92,6 +94,10 @@ STREAM_BUDGET = 4 * 1024 * 1024 * 1024
 STREAM_MODES = ("full", "lean", "ckpt")
 FWD_FORMS = ("fact_fwd", "fact_fwd_snap", "fact_fwd_init")
 BWD_FORMS = ("fact_bwd", "fact_bwd_lean", "fact_bwd_chunk")
+# The forms each stream mode launches, all at one cluster size.
+MODE_FORMS = {"full": ("fact_fwd", "fact_bwd"),
+              "lean": ("fact_fwd_snap", "fact_bwd_lean"),
+              "ckpt": ("fact_fwd_snap", "fact_fwd_init", "fact_bwd_chunk")}
 
 LAUNCHES = {f"{form}{suffix}": 0 for form in FWD_FORMS + BWD_FORMS
             for suffix in ("", "_bf16")}
@@ -130,17 +136,38 @@ def _bwd_smem_bytes(s_pad: int, identity: bool, stages: int,
             + stages * (rows * s_pad * entry + 8))
 
 
-def ring_stages(fa: FactorizedArrays, lean: bool = False) -> int:
+def _full_cluster_smem(fa: FactorizedArrays, stages: int) -> int:
+    """fact_bwd_full_cluster_kernel's request (fact_bwd_cluster_smem_bytes
+    with lean 0): beta' and the masses in two buffers, b and x_dst * b,
+    the totals in two buffers and the trace's, the ring and its mbarriers
+    with the exchange's, padded to 16 bytes."""
+    identity = fa.xsrc_mode == "identity"
+    rows = 3 if identity else 4
+    vectors = 6 if identity else 8
+    bars = (stages + CLUSTER_XBARS + 1) & ~1
+    need = (stages * rows * fa.s_pad * stream_dtype(fa).itemsize + bars * 8
+            + (vectors * fa.s_pad + 2 * (2 * FACT_WARPS + 2) + FACT_WARPS
+               + 1) * 4)
+    return max(need, LEAN_CLUSTER_MIN_SMEM)
+
+
+def ring_stages(fa: FactorizedArrays, lean: bool = False,
+                cluster: int = 1) -> int:
     """fact_bwd's ring depth for this graph (fact_bwd_lean's with
-    ``lean``): the frames whose stream rows it holds in shared memory,
-    fetched ahead by TMA (csrc/fact_bwd.cu).  Two stages where they fit
-    a block's shared memory, one where only one fits, none past that; a
-    row is 2 S_pad bytes in the fast mode."""
+    ``lean``) on ``cluster`` CTAs a column: the frames whose stream rows
+    it holds in shared memory, fetched ahead by TMA (csrc/fact_bwd.cu).
+    Two stages where they fit a block's shared memory, one where only one
+    fits, none past that; a row is 2 S_pad bytes in the fast mode.  The
+    lean form's cluster form keeps C = 1's depth; fact_bwd's and
+    fact_bwd_chunk's takes what fits beside its layout
+    (:func:`cluster_smem_bytes`)."""
     identity = fa.xsrc_mode == "identity"
     entry = stream_dtype(fa).itemsize
     for stages in (2, 1):
-        if _bwd_smem_bytes(fa.s_pad, identity, stages, entry,
-                           lean) <= MAX_SMEM:
+        need = (_full_cluster_smem(fa, stages) if cluster > 1 and not lean
+                else _bwd_smem_bytes(fa.s_pad, identity, stages, entry,
+                                     lean))
+        if need <= MAX_SMEM:
             return stages
     return 0
 
@@ -176,62 +203,96 @@ def lean_px_ring(fa: FactorizedArrays, stages: int, P: int) -> bool:
             + stages * 4 * P <= MAX_SMEM)
 
 
-def lean_smem_bytes(fa: FactorizedArrays, cluster: int,
-                    stages: int | None = None, P: int = 0) -> dict:
-    """Dynamic shared memory a CTA of the lean forms asks for on a cluster
-    of ``cluster`` CTAs (fact_bwd_lean's with a ring of ``stages``,
-    default :func:`ring_stages`, for P pdfs); must equal the sources'
-    fact_fwd_snap_cluster_smem_bytes / fact_bwd_lean_cluster_smem_bytes.
-    At C = 1 :func:`smem_bytes`'.  At C > 1 fact_fwd_snap also keeps x_src
-    on its rows outside identity mode in float32 (frame t + 1's emissions
-    are gathered before its carry exists), fact_bwd_lean a px row a stage
-    where :func:`lean_px_ring` allows, and both ask for at least
-    LEAN_CLUSTER_MIN_SMEM, so that one CTA runs an SM."""
-    if stages is None:
-        stages = ring_stages(fa, lean=True)
-    one = smem_bytes(fa, stages, lean=True)
+def cluster_smem_bytes(fa: FactorizedArrays, cluster: int,
+                       stages: int | None = None, P: int = 0) -> dict:
+    """Dynamic shared memory a CTA of each form asks for on a cluster of
+    ``cluster`` CTAs (the backward forms' with a ring of ``stages``,
+    default :func:`ring_stages` of the form, for P pdfs); must equal the
+    sources' fact_fwd_cluster_smem_bytes / fact_bwd_cluster_smem_bytes.
+    At C = 1 :func:`smem_bytes`'.  At C > 1 every forward form also keeps
+    x_src on its rows outside identity mode in float32 (frame t + 1's
+    emissions are gathered before its carry exists) and two mbarriers
+    (the full and init forms' exchanges), fact_bwd_lean a px
+    row a stage where :func:`lean_px_ring` allows, fact_bwd and
+    fact_bwd_chunk :func:`_full_cluster_smem`'s layout, and every form
+    asks for at least LEAN_CLUSTER_MIN_SMEM, so that one CTA runs an
+    SM."""
+    lean_stages = ring_stages(fa, lean=True) if stages is None else stages
+    full_stages = (ring_stages(fa, cluster=cluster) if stages is None
+                   else stages)
+    lean = smem_bytes(fa, lean_stages, lean=True)
     if cluster == 1:
-        return {"fact_fwd_snap": one["fact_fwd"],
-                "fact_bwd_lean": one["fact_bwd"]}
+        full = smem_bytes(fa, full_stages)["fact_bwd"]
+        out = {form: lean["fact_fwd"] for form in FWD_FORMS}
+        out.update({"fact_bwd": full, "fact_bwd_lean": lean["fact_bwd"],
+                    "fact_bwd_chunk": full})
+        return out
     vectors = 4 if fa.xsrc_mode == "identity" else 5
-    px = stages * 4 * P if lean_px_ring(fa, stages, P) else 0
-    return {"fact_fwd_snap": max((vectors * fa.s_pad + FACT_WARPS + 1) * 4,
-                                 LEAN_CLUSTER_MIN_SMEM),
-            "fact_bwd_lean": max(one["fact_bwd"] + px,
-                                 LEAN_CLUSTER_MIN_SMEM)}
+    # the vectors, the scratch padded to 16 bytes and two mbarriers
+    fwd = max((vectors * fa.s_pad + FACT_WARPS + 8) * 4,
+              LEAN_CLUSTER_MIN_SMEM)
+    px = lean_stages * 4 * P if lean_px_ring(fa, lean_stages, P) else 0
+    full = _full_cluster_smem(fa, full_stages)
+    out = {form: fwd for form in FWD_FORMS}
+    out.update({"fact_bwd": full, "fact_bwd_lean": max(
+        lean["fact_bwd"] + px, LEAN_CLUSTER_MIN_SMEM),
+        "fact_bwd_chunk": full})
+    return out
 
 
-def lean_fits(fa: FactorizedArrays, cluster: int,
-              limit: int = MAX_SMEM) -> bool:
-    """Whether both lean forms fit a CTA on a cluster of ``cluster`` CTAs
-    (fact_bwd_lean without a ring)."""
-    return max(lean_smem_bytes(fa, cluster, stages=0).values()) <= limit
+# The cluster sizes the plan takes for each form (:func:`cluster_size`),
+# from the card's times at main path 7 (B = 64) and bench.py --long
+# (B = 32) in PERF.md.  C = 4 is built but planned for no form: at B = 32
+# every form ran slower at C = 4 than at C = 1, its four-CTA exchange
+# costing more than the products it splits.  fact_bwd and fact_bwd_chunk
+# keep C = 1: their cluster form ran no faster than C = 1 at B = 64 and
+# slower at B = 32 (its exchange and its serial stages take what its
+# halved products save).
+PLAN_CLUSTERS = {"fact_fwd": (1, 2), "fact_fwd_snap": (1, 2),
+                 "fact_fwd_init": (1, 2), "fact_bwd": (1,),
+                 "fact_bwd_lean": (1, 2), "fact_bwd_chunk": (1,)}
 
 
-def lean_cluster(B: int, props, fa: FactorizedArrays,
+def cluster_fits(fa: FactorizedArrays, cluster: int, form: str,
+                 limit: int = MAX_SMEM) -> bool:
+    """Whether ``form``'s CTA fits a block on a cluster of ``cluster``
+    CTAs (a backward form without a ring)."""
+    return cluster_smem_bytes(fa, cluster, stages=0)[form] <= limit
+
+
+def cluster_size(B: int, props, fa: FactorizedArrays, form: str,
                  cluster: int | None = None) -> int:
-    """The lean forms' cluster size C for B columns on the card
+    """The cluster size C at which ``form`` runs B columns on the card
     (``props``: torch.cuda.get_device_properties): the largest C of
-    :data:`LEAN_CLUSTERS` with B C <= the card's SMs whose CTAs fit its
-    shared memory (an H100's 132 SMs: C = 1 at B = 128, 2 at B = 64, 4 at
-    B = 32), else 1.  ``cluster`` forces C; a C > 1 that is not built or
-    whose CTAs do not fit raises NotImplementedError (C = 1 is the
-    one-block kernels', which check their own shared memory)."""
+    :data:`PLAN_CLUSTERS` for the form with B C <= the card's SMs whose
+    CTA fits its shared memory (on an H100's 132 SMs, for the forward
+    forms and fact_bwd_lean: C = 1 at B = 128, 2 at B <= 66), else 1;
+    C = 1 where S_pad <= 1024: a thread of the one-block kernel then has
+    one row, so a split shortens no thread's rows and only adds the
+    exchange (main path 6 (c)'s 128 states, PERF.md).
+    ``cluster`` forces C; a C that is not built or whose CTA does not fit
+    raises NotImplementedError (C = 1 is the one-block kernels', which
+    check their own shared memory).  fact_bwd and fact_bwd_chunk's
+    cluster form holds 2-3 vectors more than C = 1 (S_pad 9,600 in
+    identity mode, else 7,168)."""
     limit = props.shared_memory_per_block_optin
     if cluster is not None:
         if cluster not in LEAN_CLUSTERS:
             raise NotImplementedError(
-                f"lean forms on a cluster of {cluster!r} CTAs: the kernels "
-                f"are built for C in {LEAN_CLUSTERS}")
-        if cluster > 1 and not lean_fits(fa, cluster, limit):
+                f"{form} on a cluster of {cluster!r} CTAs: the kernels are "
+                f"built for C in {LEAN_CLUSTERS}")
+        if cluster > 1 and not cluster_fits(fa, cluster, form, limit):
             raise NotImplementedError(
-                f"lean forms on a cluster of {cluster} CTAs: a CTA asks for "
-                f"{lean_smem_bytes(fa, cluster, 0)} bytes at "
+                f"{form} on a cluster of {cluster} CTAs: a CTA asks for "
+                f"{cluster_smem_bytes(fa, cluster, 0)[form]} bytes at "
                 f"S_pad={fa.s_pad}, over the {limit} a block has on this "
                 "card")
         return cluster
-    for C in sorted(LEAN_CLUSTERS, reverse=True):
-        if B * C <= props.multi_processor_count and lean_fits(fa, C, limit):
+    if fa.s_pad <= 32 * FACT_WARPS:
+        return 1
+    for C in sorted(PLAN_CLUSTERS[form], reverse=True):
+        if (B * C <= props.multi_processor_count
+                and cluster_fits(fa, C, form, limit)):
             return C
     return 1
 
@@ -694,10 +755,8 @@ def _resident_graph(fa: FactorizedArrays) -> KernelGraph:
 
 
 def _cluster_args(form, B, cluster, smid):
-    """Check a launch's (cluster, smid): C = 1 for every form but the lean
-    ones, C in LEAN_CLUSTERS, smid a (B C,) int32 CUDA tensor or None."""
-    _require(cluster == 1 or form in ("fact_fwd_snap", "fact_bwd_lean"),
-             f"{form}: runs one block a column (cluster {cluster})")
+    """Check a launch's (cluster, smid): C in LEAN_CLUSTERS, smid a (B C,)
+    int32 CUDA tensor or None."""
     _require(cluster in LEAN_CLUSTERS,
              f"{form}: cluster {cluster} is not built (C in "
              f"{LEAN_CLUSTERS})")
@@ -715,8 +774,7 @@ def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
     xdst_ys, xsrc_ys), each (B, ad_rows, S_pad) or None; ad_init (B,
     S_pad) and s_init (B,) may be strided views (a snapshot's rows, the
     s_ys column before the chunk, or one row expanded); cluster: CTAs a
-    column (fact_fwd_snap alone takes C > 1); smid: each CTA's SM,
-    written by a cluster launch."""
+    column; smid: each CTA's SM, written by a cluster launch."""
     _check_cuda_inputs(px, lengths, fa)
     kg = _resident_graph(fa)
     w1, w2 = kg.resident[:2]
@@ -763,14 +821,23 @@ def _new(fa, device, *shape, dtype=None):
     return torch.empty(shape, dtype=dtype or stream_dtype(fa), device=device)
 
 
-def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
+def _plan(form, B, device, fa, cluster):
+    """A wrapper's cluster size: :func:`cluster_size` on ``device``'s
+    card."""
+    return cluster_size(B, _card_props(device), fa, form, cluster)
+
+
+def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
+             cluster: int | None = None, smid=None):
     """Launch the alpha sweep on CUDA tensors: ``fact_fwd``, or
     ``fact_fwd_bf16`` for a graph with bfloat16 tiles (the fast mode).
-    px (B, T, P) float32, lengths (B,) int32 in [1, T].  Returns (ad_ys,
-    w1ad_ys, xdst_ys, xsrc_ys or None: (B, T, S_pad) in
-    :func:`stream_dtype`; s_ys (B, T), ad_last (B, S_pad), ad0, s0:
-    float32)."""
+    px (B, T, P) float32, lengths (B,) int32 in [1, T].  A column runs on
+    ``cluster`` CTAs (default :func:`cluster_size` on px's card); ``smid``
+    (B C,) int32 receives each CTA's SM.  Returns (ad_ys, w1ad_ys,
+    xdst_ys, xsrc_ys or None: (B, T, S_pad) in :func:`stream_dtype`;
+    s_ys (B, T), ad_last (B, S_pad), ad0, s0: float32)."""
     B, T, _ = px.shape
+    cluster = _plan("fact_fwd", B, px.device, fa, cluster)
     s_pad = fa.s_pad
     streams = [_new(fa, px.device, B, T, s_pad) for _ in range(3)]
     streams.append(None if fa.xsrc_mode == "identity"
@@ -778,7 +845,8 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient):
     s_ys = _new(fa, px.device, B, T, dtype=torch.float32)
     ad_last = _new(fa, px.device, B, s_pad, dtype=torch.float32)
     ad0, s0 = _fwd_launch("fact_fwd", px, lengths, fa, leaky_coefficient,
-                          streams, s_ys=s_ys, ad_last=ad_last)
+                          streams, s_ys=s_ys, ad_last=ad_last,
+                          cluster=cluster, smid=smid)
     return (*streams, s_ys, ad_last, ad0, s0)
 
 
@@ -789,12 +857,11 @@ def fact_fwd_snap(px, lengths, fa: FactorizedArrays, leaky_coefficient,
     (t + 1) % snap == 0, at row (t + 1) // snap - 1 (pallas_fact.py
     :419-431: snap 1 is the lean mode's stream, snap C the ckpt mode's
     snapshots, alpha' at each chunk's last frame).  A column runs on
-    ``cluster`` CTAs (default :func:`lean_cluster` on px's card);
-    ``smid`` (B C,) int32 receives each CTA's SM.  Returns (ad_ys (B,
+    ``cluster`` CTAs, ``smid`` as :func:`fact_fwd`.  Returns (ad_ys (B,
     ceil(T / snap), S_pad) in :func:`stream_dtype`, s_ys (B, T), ad_last
     (B, S_pad), ad0, s0)."""
     B, T, _ = px.shape
-    cluster = lean_cluster(B, _card_props(px.device), fa, cluster)
+    cluster = _plan("fact_fwd_snap", B, px.device, fa, cluster)
     rows = -(-T // snap)
     ad_ys = _new(fa, px.device, B, rows, fa.s_pad)
     s_ys = _new(fa, px.device, B, T, dtype=torch.float32)
@@ -807,16 +874,19 @@ def fact_fwd_snap(px, lengths, fa: FactorizedArrays, leaky_coefficient,
 
 
 def fact_fwd_init(px, lengths, fa: FactorizedArrays, leaky_coefficient,
-                  t0: int, ad_init, s_init, streams):
+                  t0: int, ad_init, s_init, streams,
+                  cluster: int | None = None, smid=None):
     """Launch the ckpt mode's replay of frames t0 .. t0 + n - 1
     (``fact_fwd_init`` or its _bf16 form; n = streams[0].shape[1], cut at
     each column's length) from alpha'(t0) = ad_init (B, S_pad) and
     s_{t0} = s_init (B,), into ``streams`` (alpha', W1 alpha', x_dst,
-    x_src or None: (B, n, S_pad), local rows t - t0)."""
+    x_src or None: (B, n, S_pad), local rows t - t0), a column on
+    ``cluster`` CTAs (``smid`` as :func:`fact_fwd`)."""
     n = streams[0].shape[1]
+    cluster = _plan("fact_fwd_init", px.shape[0], px.device, fa, cluster)
     _fwd_launch("fact_fwd_init", px, lengths, fa, leaky_coefficient,
                 streams, t0=t0, n_frames=n, ad_rows=n, ad_init=ad_init,
-                s_init=s_init)
+                s_init=s_init, cluster=cluster, smid=smid)
     return streams
 
 
@@ -826,19 +896,21 @@ def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
     """Launch one backward form.  streams: (ad_ys, w1ad_ys, xdst_ys,
     xsrc_ys), any None; outs: (gamma (B, T, P), ab (B, T), gs (B, T));
     carry: (bd (B, S_pad), leak (B,)) or Nones; cluster, smid as
-    :func:`_fwd_launch` (fact_bwd_lean alone takes C > 1)."""
+    :func:`_fwd_launch`."""
     lean = form == "fact_bwd_lean"
     kg = _resident_graph(fa)
     w1t, w2t = kg.resident[2:]
-    if stages is None:
-        stages = ring_stages(fa, lean)
-    _require(stages in (0, 1, 2)
-             and smem_bytes(fa, stages, lean)["fact_bwd"] <= MAX_SMEM,
-             f"{form}: a ring of {stages} stages does not fit a block at "
-             f"S_pad={fa.s_pad}")
     ad_ys = streams[0]
     B, rows, s_pad = ad_ys.shape
     _cluster_args(form, B, cluster, smid)
+    if stages is None:
+        stages = ring_stages(fa, lean, cluster)
+    P = outs[0].shape[2]
+    _require(stages in (0, 1, 2)
+             and cluster_smem_bytes(fa, cluster, stages, P)[form]
+             <= MAX_SMEM,
+             f"{form}: a ring of {stages} stages does not fit a block at "
+             f"S_pad={fa.s_pad}")
     T = s_ys.shape[1]
     n_frames = T if n_frames is None else n_frames
     sd = stream_dtype(fa)
@@ -854,7 +926,6 @@ def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
                  f"{form}: s_ys and tot_prob must be contiguous float32 on "
                  "CUDA")
     gamma, ab, gs = outs
-    P = gamma.shape[2]
     _require(s_pad == fa.s_pad and s_ys.shape == (B, T)
              and tot_prob.shape == (B,) and rows == n_frames
              and 0 <= t0 and t0 + n_frames <= T
@@ -908,16 +979,19 @@ def _outputs(B, T, P, device):
 
 def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
              w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0, tot_prob, P,
-             debug=True, stages=None):
+             debug=True, stages=None, cluster: int | None = None,
+             smid=None):
     """Launch the beta sweep on the streams of :func:`fact_fwd`
     (``fact_bwd``, or ``fact_bwd_bf16`` in the fast mode), its ring
-    ``stages`` deep (default :func:`ring_stages`).  Returns (gamma
+    ``stages`` deep (default :func:`ring_stages`), a column on
+    ``cluster`` CTAs (``smid`` as :func:`fact_fwd`).  Returns (gamma
     (B, T, P) float32, alpha_beta (B, T), gamma_sum (B, T))."""
     B, T, _ = ad_ys.shape
+    cluster = _plan("fact_bwd", B, ad_ys.device, fa, cluster)
     return _bwd_launch("fact_bwd", lengths, fa, leaky_coefficient,
                        (ad_ys, w1ad_ys, xdst_ys, xsrc_ys), s_ys, ad0, s0,
                        tot_prob, _outputs(B, T, P, ad_ys.device), debug,
-                       stages)
+                       stages, cluster=cluster, smid=smid)
 
 
 def fact_bwd_lean(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
@@ -930,7 +1004,7 @@ def fact_bwd_lean(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
     :func:`fact_fwd_snap`).  Returns (gamma, alpha_beta, gamma_sum) as
     :func:`fact_bwd`."""
     B, T, P = px.shape
-    cluster = lean_cluster(B, _card_props(px.device), fa, cluster)
+    cluster = _plan("fact_bwd_lean", B, px.device, fa, cluster)
     return _bwd_launch("fact_bwd_lean", lengths, fa, leaky_coefficient,
                        (ad_ys, None, None, None), s_ys, ad0, s0, tot_prob,
                        _outputs(B, T, P, px.device), debug, stages, px=px,
@@ -939,18 +1013,23 @@ def fact_bwd_lean(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
 
 def fact_bwd_chunk(lengths, fa: FactorizedArrays, leaky_coefficient,
                    streams, s_ys, ad0, s0, tot_prob, t0, ad_init, outs,
-                   carry, debug=True, stages=None):
+                   carry, debug=True, stages=None,
+                   cluster: int | None = None, smid=None):
     """Launch the beta sweep of one ckpt chunk, frames t0 .. t0 + n - 1
     (``fact_bwd_chunk`` or its _bf16 form; n = streams[0].shape[1]), on
     :func:`fact_fwd_init`'s streams for it, alpha'(t0) = ad_init (B,
     S_pad): the chunk's gamma and traces into its frames of ``outs``
     (gamma (B, T, P), ab, gs (B, T)); beta' and its leaky sum from
     ``carry`` (bd (B, S_pad), leak (B,) float32) unless a column ends in
-    the chunk, and back into it for the chunk below (t0 > 0)."""
+    the chunk, and back into it for the chunk below (t0 > 0); a column on
+    ``cluster`` CTAs (``smid`` as :func:`fact_fwd`)."""
+    cluster = _plan("fact_bwd_chunk", streams[0].shape[0],
+                    streams[0].device, fa, cluster)
     return _bwd_launch("fact_bwd_chunk", lengths, fa, leaky_coefficient,
                        streams, s_ys, ad0, s0, tot_prob, outs, debug,
                        stages, t0=t0, n_frames=streams[0].shape[1],
-                       ad_init=ad_init, carry=carry)
+                       ad_init=ad_init, carry=carry, cluster=cluster,
+                       smid=smid)
 
 
 def _check_cuda_inputs(px, lengths, fa: FactorizedArrays):
@@ -1043,15 +1122,26 @@ def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
     return _package_result(objf, gamma, ab, gs)
 
 
+def _mode_cluster(mode, px, fa, cluster):
+    """The cluster size of each form of a call in ``mode``
+    (:func:`cluster_size` on px's card; ``cluster`` forces every form's):
+    {form: C}."""
+    props = _card_props(px.device)
+    return {form: cluster_size(px.shape[0], props, fa, form, cluster)
+            for form in MODE_FORMS[mode]}
+
+
 def _lean(px, lens, fa, c, debug, stages, cluster=None):
     """The lean mode on the card: fact_fwd_snap's alpha' stream (snap 1),
-    then fact_bwd_lean on it and px, both on ``cluster`` CTAs a column
-    (default :func:`lean_cluster`)."""
+    then fact_bwd_lean on it and px, each on ``cluster`` CTAs a column
+    (default its :func:`cluster_size`)."""
+    Cs = _mode_cluster("lean", px, fa, cluster)
     ad_ys, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, 1,
-                                                  cluster)
+                                                  Cs["fact_fwd_snap"])
     objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
     return objf, fact_bwd_lean(lens, fa, c, ad_ys, px, s_ys, ad0, s0,
-                               tot_prob.contiguous(), debug, stages, cluster)
+                               tot_prob.contiguous(), debug, stages,
+                               Cs["fact_bwd_lean"])
 
 
 def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None):
@@ -1060,12 +1150,13 @@ def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None):
     last chunk down fact_fwd_init replays a chunk from the snapshot below
     it and fact_bwd_chunk runs its backward from the beta' carry above:
     alpha' rows for T / C snapshots and one chunk's three (four) streams,
-    where the full mode keeps T.  The snapshot sweep runs on ``cluster``
-    CTAs a column (default :func:`lean_cluster`), the chunks on one."""
+    where the full mode keeps T.  Each form runs on ``cluster`` CTAs a
+    column (default its :func:`cluster_size`)."""
     B, T, P = px.shape
+    Cs = _mode_cluster("ckpt", px, fa, cluster)
     C = ckpt_chunk_length(T, ckpt_chunk)
     snaps, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, C,
-                                                  cluster)
+                                                  Cs["fact_fwd_snap"])
     objf, tot_prob = _objf(s_ys, ad_last, lens, fa, s0)
     tot_prob = tot_prob.contiguous()
     outs = _outputs(B, T, P, px.device)
@@ -1082,9 +1173,11 @@ def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None):
                    for buf in bufs] + [None] * (4 - n_streams)
         ad_init = entry if k == 0 else snaps[:, k - 1]
         s_init = s0.expand(B) if k == 0 else s_ys[:, t0 - 1]
-        fact_fwd_init(px, lens, fa, c, t0, ad_init, s_init, streams)
+        fact_fwd_init(px, lens, fa, c, t0, ad_init, s_init, streams,
+                      Cs["fact_fwd_init"])
         fact_bwd_chunk(lens, fa, c, streams, s_ys, ad0, s0, tot_prob, t0,
-                       ad_init, outs, carry, debug, stages)
+                       ad_init, outs, carry, debug, stages,
+                       Cs["fact_bwd_chunk"])
     return objf, outs
 
 
@@ -1114,9 +1207,9 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     frame 0 (the reference's default, chain-computation.cc:337-338), the
     other frames reading exactly 1.0.  Verbose level >= 1 forces the full
     traces.  stages: the backward kernel's ring depth (default
-    :func:`ring_stages`; the tests force each).  cluster: the lean forms'
-    CTAs a column in the "lean" and "ckpt" modes (default
-    :func:`lean_cluster`; the results do not depend on it)."""
+    :func:`ring_stages`; the tests force each).  cluster: the kernels'
+    CTAs a column in every mode (default each form's
+    :func:`cluster_size`; the results do not depend on it)."""
     debug = debug or get_verbose_level() >= 1
     _check_graph(fa)
     B, T, _ = px.shape
@@ -1134,10 +1227,12 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
                  f"of shared memory per block at S_pad={fa.s_pad}, over the "
                  f"{MAX_SMEM} a Hopper block has (\"ckpt\" or \"full\" fit)")
     if mode == "full":
-        bwd = fact_bwd if stages is None else functools.partial(
-            fact_bwd, stages=stages)
-        return fused_fwd_bwd(px, lengths, fa, leaky_coefficient, debug,
-                             fact_fwd, bwd)
+        Cs = _mode_cluster("full", px, fa, cluster)
+        return fused_fwd_bwd(
+            px, lengths, fa, leaky_coefficient, debug,
+            functools.partial(fact_fwd, cluster=Cs["fact_fwd"]),
+            functools.partial(fact_bwd, stages=stages,
+                              cluster=Cs["fact_bwd"]))
     lens = _card_lengths(px, lengths)
     px = px.float().contiguous()
     with torch.no_grad():

@@ -28,6 +28,7 @@ The XL roofline probe's kernels are checked in chip_smoke.py, not here.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -490,18 +491,20 @@ class TestStreamModes:
 
     @pytest.mark.cuda
     def test_lean_cluster_errors_before_any_launch(self, cuda):
-        """A forced cluster that is not built raises NotImplementedError;
-        the full and chunk forms take C = 1 alone."""
+        """A forced cluster that is not built raises NotImplementedError
+        in every mode; a launch of any form at such a C raises
+        ValueError."""
         fa, px, lens = self._case(cuda, "source", None)
         fk.reset_launch_counts()
         for bad in (3, 8):
-            with pytest.raises(NotImplementedError, match="cluster of"):
-                fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
-                                                stream_mode="lean",
-                                                cluster=bad)
-        with pytest.raises(ValueError, match="one block a column"):
+            for mode in fk.STREAM_MODES:
+                with pytest.raises(NotImplementedError, match="cluster of"):
+                    fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                    stream_mode=mode,
+                                                    cluster=bad)
+        with pytest.raises(ValueError, match="is not built"):
             fk._fwd_launch("fact_fwd", px, lens, fa, LEAKY,
-                           [None] * 4, cluster=2)
+                           [None] * 4, cluster=3)
         assert fk.launched() == {}
 
     @pytest.mark.cuda
@@ -575,6 +578,188 @@ class TestStreamModes:
                                                 stream_mode="ckpt",
                                                 ckpt_chunk=chunk)
         assert fk.launched() == {}
+
+
+class TestFullCluster:
+    """B1/B2's full-stream forms on a cluster of C CTAs a column
+    (fact_fwd, fact_bwd: the full mode; fact_fwd_init, fact_bwd_chunk:
+    the ckpt mode's replays and chunk backwards) and their _bf16 forms:
+    C = 2 and 4 give the C = 1 kernels' bits, the fast forms also the
+    plain fast version's, at every ring depth, on TestStreamModes' case
+    (B=5, T=12, lengths 12, 8, 4, 1, 9)."""
+
+    @staticmethod
+    def _equal(got, ref):
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum", "ok"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [2, 4])
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_full_cluster_kernels_give_one_blocks_bits(
+            self, cuda, tile_dtype, mode, want, stages, C):
+        """The full mode at C, debug True and False: one launch of each
+        form, C = 1's bits, the fast forms the plain version's; the
+        streams of fact_fwd at C equal C = 1's on every column's frames;
+        gamma on a rerun."""
+        fa, px, lens = TestStreamModes._case(cuda, mode, tile_dtype)
+        assert fa.xsrc_mode == want
+        sfx = "_bf16" if tile_dtype else ""
+        for debug in (True, False):
+            one = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="full",
+                stages=stages, cluster=1)
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="full",
+                stages=stages, cluster=C)
+            assert fk.launched() == {f"fact_fwd{sfx}": 1,
+                                     f"fact_bwd{sfx}": 1}
+            self._equal(got, one)
+            if tile_dtype:
+                TestStreamModes._check(got, forward_backward_prob_fast(
+                    px, lens, fa, LEAKY), True, debug)
+        for a, b in zip(fk.fact_fwd(px, lens, fa, LEAKY, cluster=C)[:6],
+                        fk.fact_fwd(px, lens, fa, LEAKY, cluster=1)[:6]):
+            assert (a is None) == (b is None)
+            for col, Tb in enumerate(TestStreamModes.LENGTHS):
+                if a is not None and a.dim() == 3:
+                    assert torch.equal(a[col, :Tb], b[col, :Tb])
+                elif a is not None:
+                    assert torch.equal(a[col], b[col])
+        again = fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="full", stages=stages,
+            cluster=C)
+        assert torch.equal(again.gamma, fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode="full", stages=stages,
+            cluster=C).gamma)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("C", [2, 4])
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_ckpt_cluster_kernels_give_one_blocks_bits(
+            self, cuda, tile_dtype, mode, want, stages, C):
+        """The ckpt mode at C, chunk 5 (columns ending inside a chunk and
+        on no boundary), debug True and False: one snapshot sweep and a
+        replay and a chunk backward a chunk, all at C; C = 1's bits; the
+        fast forms the plain version's, float32 the full mode's."""
+        fa, px, lens = TestStreamModes._case(cuda, mode, tile_dtype)
+        assert fa.xsrc_mode == want
+        sfx = "_bf16" if tile_dtype else ""
+        for debug in (True, False):
+            one = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="ckpt",
+                ckpt_chunk=5, stages=stages, cluster=1)
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, debug=debug, stream_mode="ckpt",
+                ckpt_chunk=5, stages=stages, cluster=C)
+            assert fk.launched() == {f"fact_fwd_snap{sfx}": 1,
+                                     f"fact_fwd_init{sfx}": 3,
+                                     f"fact_bwd_chunk{sfx}": 3}
+            self._equal(got, one)
+            if tile_dtype:
+                TestStreamModes._check(got, forward_backward_prob_mode(
+                    px, lens, fa, LEAKY, "ckpt", 5), True, debug)
+            else:
+                self._equal(got, fk.forward_backward_prob_kernel(
+                    px, lens, fa, LEAKY, debug=debug, stream_mode="full",
+                    stages=stages, cluster=C))
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("mode", ["full", "ckpt"])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_full_cluster_past_1024_states(self, cuda, tile_dtype, mode):
+        """S_pad 1,280 and P past 1,024 (two rows and two pdfs for some
+        virtual threads): the full mode and the ckpt mode (chunk 3) at
+        C = 2 and 4 give C = 1's bits; the fast mode also the plain
+        version's."""
+        fst, P = denominator_fst(num_phones=600, states_per_phone=2, seed=3,
+                                 forward_pdf_mode="source")
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 3, tile_dtype=tile_dtype,
+                                device=cuda)._fact
+        assert fa.s_pad > 1024 and P > 1024
+        rng = np.random.RandomState(4)
+        px = torch.exp(torch.from_numpy(
+            rng.randn(3, 7, P).astype(np.float32))).to(cuda)
+        lens = torch.tensor([7, 5, 2], dtype=torch.int32).to(cuda)
+        run = lambda C: fk.forward_backward_prob_kernel(
+            px, lens, fa, LEAKY, stream_mode=mode, ckpt_chunk=3, cluster=C)
+        one = run(1)
+        for C in (2, 4):
+            self._equal(run(C), one)
+        if tile_dtype:
+            TestStreamModes._check(one, forward_backward_prob_mode(
+                px, lens, fa, LEAKY, mode, 3), True, True)
+
+    @pytest.mark.cuda
+    def test_full_cluster_ctas_sit_on_distinct_sms(self, cuda):
+        """A launch of each full and chunk form at B = 64 (main path 7's
+        batch) at C = 2 and 4: the CTAs of every cluster run on C distinct
+        SMs (%smid)."""
+        fa, px, lens = TestStreamModes._case(cuda, "separate", "bfloat16")
+        B = 64
+        px = px[:1].expand(B, -1, -1).contiguous()
+        lens = torch.full((B,), 12, dtype=torch.int32, device=cuda)
+
+        def distinct(smid, C):
+            rows = smid.view(B, C).cpu()
+            assert bool((rows >= 0).all())
+            assert all(len(set(r.tolist())) == C for r in rows)
+
+        for C in (2, 4):
+            smid = torch.full((B * C,), -1, dtype=torch.int32, device=cuda)
+            streams = fk.fact_fwd(px, lens, fa, LEAKY, cluster=C, smid=smid)
+            distinct(smid, C)
+            ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = streams
+            tot = fk._objf(s_ys, ad_last, lens, fa, s0)[1].contiguous()
+            smid.fill_(-1)
+            fk.fact_bwd(lens, fa, LEAKY, ad_ys, w1ad, xdst, xsrc, s_ys, ad0,
+                        s0, tot, px.shape[2], cluster=C, smid=smid)
+            distinct(smid, C)
+            chunk = [t[:, 4:8].contiguous() for t in (ad_ys, w1ad, xdst,
+                                                      xsrc)]
+            smid.fill_(-1)
+            fk.fact_fwd_init(px, lens, fa, LEAKY, 4, ad_ys[:, 3],
+                             s_ys[:, 3].contiguous(), chunk, cluster=C,
+                             smid=smid)
+            distinct(smid, C)
+            outs = fk._outputs(B, 12, px.shape[2], cuda)
+            carry = (torch.zeros((B, fa.s_pad), device=cuda),
+                     torch.zeros(B, device=cuda))
+            smid.fill_(-1)
+            fk.fact_bwd_chunk(lens, fa, LEAKY, chunk, s_ys, ad0, s0, tot, 4,
+                              ad_ys[:, 3], outs, carry, cluster=C,
+                              smid=smid)
+            distinct(smid, C)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("mode", ["full", "ckpt"])
+    def test_full_cluster_that_does_not_fit_raises_before_any_launch(
+            self, cuda, monkeypatch, mode):
+        """A forced C > 1 on a card whose block cannot hold a cluster CTA
+        (a 99 KB block, stubbed) raises NotImplementedError before any
+        launch; the plan then takes C = 1, which runs."""
+        fa, px, lens = TestStreamModes._case(cuda, "source", "bfloat16")
+        small = types.SimpleNamespace(multi_processor_count=132,
+                                      shared_memory_per_block_optin=101376)
+        monkeypatch.setattr(fk, "_card_props", lambda device: small)
+        fk.reset_launch_counts()
+        for C in (2, 4):
+            with pytest.raises(NotImplementedError, match="118784"):
+                fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                stream_mode=mode, cluster=C)
+        assert fk.launched() == {}
+        assert set(fk._mode_cluster(mode, px, fa, None).values()) == {1}
+        self._equal(fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                    stream_mode=mode),
+                    fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                    stream_mode=mode,
+                                                    cluster=1))
 
 
 # ----------------------------------------------------------------------

@@ -26,15 +26,16 @@ entry, the stream buffers, the beta' carry) runs on emulations of the
 kernels (``_emu_fwd``, ``_emu_bwd``: one column at a time, each kernel's
 frame range, rows, injection and carry, its sums in its order) put in
 place of the launches; in the fast mode they give the plain version's
-numbers bit for bit.  The lean forms run a column on a cluster of C CTAs
+numbers bit for bit.  Every form runs a column on a cluster of C CTAs
 (``cluster=``): the emulations compute each CTA's rows (and, in the
 backward, its pdfs) apart, assemble the vectors the products gather from
 every CTA's rows, and take each sum as the kernels do (each virtual
 thread's partial on the CTA that owns its rows, the warp trees there, the
 cross-warp tree on the 32 posted totals: ``_cluster_total``), so that
 C = 2 and C = 4 must give C = 1's bits; the plan rule
-(``fact_kernels.lean_cluster``) and the cluster form's shared memory and
-limits are checked by arithmetic on a stubbed card.
+(``fact_kernels.cluster_size``) and the lean forms' cluster shared memory
+and limits are checked by arithmetic on a stubbed card
+(tests/test_torch_full_cluster.py: the full and chunk forms').
 tests/test_torch_card.py holds the kernels themselves to the plain version
 on the card.
 """
@@ -411,9 +412,8 @@ def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
     column at a time: frames t0 .. min(t0 + n, T_b) - 1 from ad_init /
     s_init (or ad0, s0), the auxiliary streams at local rows t - t0, alpha'
     at row (t + 1) / snap - 1 - t0 / snap when (t + 1) % snap == 0.  On a
-    cluster (fact_fwd_snap alone) each CTA computes its own rows from the
-    whole carry and W2 operand, and s_t is the cluster's sum."""
-    assert cluster == 1 or form == "fact_fwd_snap"
+    cluster each CTA computes its own rows (and their stream entries) from
+    the whole carry and W2 operand, and s_t is the cluster's sum."""
     assert cluster in fk.LEAN_CLUSTERS and smid is None
     fk.LAUNCHES[fk._name(form, fa)] += 1
     f, g, tabs, d1, d2, _ = _graph(fa)
@@ -471,10 +471,9 @@ def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
     frames min(t0 + n, T_b) - 1 .. t0 on the launch's stream rows (the
     lean mode: alpha' rows and px, W1 alpha' formed here), alpha'(t0)
     from ad_init or ad0; the carry written for the launch below.  On a
-    cluster (fact_bwd_lean alone) each CTA computes its own rows' beta'
-    and masses from the whole b and x_dst * b, and its own pdfs' gamma
-    from the whole masses; every sum is the cluster's."""
-    assert cluster == 1 or form == "fact_bwd_lean"
+    cluster each CTA computes its own rows' beta' and masses from the
+    whole b and x_dst * b, and its own pdfs' gamma from the whole masses;
+    every sum is the cluster's."""
     assert cluster in fk.LEAN_CLUSTERS and smid is None
     fk.LAUNCHES[fk._name(form, fa)] += 1
     f, g, tabs, d1, d2, lists = _graph(fa)
@@ -572,7 +571,8 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
     run in another order, the plain version's through dense products);
     one snapshot sweep and
     one replay and one chunk backward a chunk.  The card is an H100 stub
-    (132 SMs): the lean forms run at the plan rule's C = 4 (B = 5)."""
+    (132 SMs); at S_pad 128 the plan rule keeps C = 1 (the cluster forms
+    run forced in the tests below)."""
     fst, P = denominator_fst(num_phones=10, states_per_phone=2, seed=6,
                              forward_pdf_mode=fwd_mode)
     fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 5, tile_dtype=tile_dtype,
@@ -723,49 +723,53 @@ def test_cluster_forms_past_1024_states(monkeypatch, tile_dtype, mode):
 @pytest.mark.parametrize("B,sms,optin,want", [
     (128, 132, 232448, 1),    # the headline batch: 128 CTAs already
     (64, 132, 232448, 2),     # bench.py --long --big (main path 7)
-    (32, 132, 232448, 4),     # bench.py --long
-    (33, 132, 232448, 4),     # 132 CTAs: the card exactly
-    (34, 132, 232448, 2),
-    (66, 132, 232448, 2),
+    (32, 132, 232448, 2),     # bench.py --long: C = 4 is not planned
+    (33, 132, 232448, 2),
+    (66, 132, 232448, 2),     # 132 CTAs: the card exactly
     (67, 132, 232448, 1),
-    (1, 132, 232448, 4),
+    (1, 132, 232448, 2),
     (5, 16, 232448, 2),       # a card of 16 SMs
+    (9, 16, 232448, 1),
     (32, 132, 101376, 1),     # 99 KB a block: no cluster CTA fits
 ])
 def test_lean_cluster_rule(B, sms, optin, want):
-    """The largest C in (1, 2, 4) with B C CTAs on the card's SMs whose
-    CTAs fit its shared memory (at least 118,784 bytes a cluster CTA)."""
+    """The largest C in (1, 2) (C = 4 is built, not planned: slower than
+    C = 1 at B = 32) with B C CTAs on the card's SMs whose CTAs fit its
+    shared memory (at least 118,784 bytes a cluster CTA)."""
     props = types.SimpleNamespace(multi_processor_count=sms,
                                   shared_memory_per_block_optin=optin)
     for fast in (False, True):
         head = _shape(3072, "identity", fast)
-        assert fk.lean_cluster(B, props, head) == want
-        assert fk.lean_cluster(B, props, head, cluster=1) == 1
+        for form in fk.MODE_FORMS["lean"]:
+            assert fk.cluster_size(B, props, head, form) == want
+            assert fk.cluster_size(B, props, head, form, cluster=1) == 1
 
 
 def test_lean_cluster_forced_errors():
     """A forced C that is not built, or whose CTA does not fit the card,
-    raises NotImplementedError with the numbers; a C that is not built,
-    or C > 1 for another form, raises ValueError at the launch."""
+    raises NotImplementedError with the numbers; a C that is not built
+    raises ValueError at the launch, for every form."""
     head = _shape(3072, "identity")
     for bad in (3, 8, 0):
-        with pytest.raises(NotImplementedError, match="cluster of"):
-            fk.lean_cluster(64, H100, head, cluster=bad)
+        for form in fk.MODE_FORMS["lean"]:
+            with pytest.raises(NotImplementedError, match="cluster of"):
+                fk.cluster_size(64, H100, head, form, cluster=bad)
     small = types.SimpleNamespace(multi_processor_count=132,
                                   shared_memory_per_block_optin=101376)
-    with pytest.raises(NotImplementedError, match="118784"):
-        fk.lean_cluster(64, small, head, cluster=2)
+    for form in fk.MODE_FORMS["lean"]:
+        with pytest.raises(NotImplementedError, match="118784"):
+            fk.cluster_size(64, small, head, form, cluster=2)
     big = _shape(9728, "identity")
     with pytest.raises(NotImplementedError, match="S_pad=9728"):
-        fk.lean_cluster(16, H100, big, cluster=4)
-    for form, C in (("fact_fwd", 2), ("fact_bwd_chunk", 4),
-                    ("fact_fwd_init", 2), ("fact_bwd", 2),
+        fk.cluster_size(16, H100, big, "fact_bwd_lean", cluster=4)
+    for form, C in (("fact_fwd", 8), ("fact_bwd_chunk", 3),
+                    ("fact_fwd_init", 0), ("fact_bwd", 8),
                     ("fact_fwd_snap", 8), ("fact_bwd_lean", 3)):
         with pytest.raises(ValueError):
             fk._cluster_args(form, 8, C, None)
-    fk._cluster_args("fact_fwd_snap", 8, 4, None)
-    fk._cluster_args("fact_bwd_lean", 8, 2, None)
-    fk._cluster_args("fact_fwd", 8, 1, None)
+    for form in fk.FWD_FORMS + fk.BWD_FORMS:
+        for C in fk.LEAN_CLUSTERS:
+            fk._cluster_args(form, 8, C, None)
 
 
 @pytest.mark.parametrize("mode,limit", [("identity", 9600),
@@ -774,15 +778,19 @@ def test_lean_cluster_forced_errors():
 def test_cluster_form_keeps_the_lean_limits(mode, limit):
     """The cluster form's shared memory: fact_bwd_lean's formula (the
     vectors read whole are whole), fact_fwd_snap's with x_src on own rows
-    outside identity mode, both at least 118,784 bytes; so the lean limits
+    outside identity mode, the scratch padded to 16 bytes and two
+    mbarriers, both at least 118,784 bytes;
+    so the lean limits
     (S_pad 9,600 identity, else 7,168) and the ring depth are C = 1's at
     every C, in both precisions."""
     for fast in (False, True):
         fa = _shape(limit, mode, fast)
         past = _shape(limit + 128, mode, fast)
+        lean = fk.MODE_FORMS["lean"]
         for C in fk.LEAN_CLUSTERS:
-            assert fk.lean_fits(fa, C) and not fk.lean_fits(past, C)
-            got = fk.lean_smem_bytes(fa, C)
+            assert all(fk.cluster_fits(fa, C, f) for f in lean)
+            assert not all(fk.cluster_fits(past, C, f) for f in lean)
+            got = {k: fk.cluster_smem_bytes(fa, C)[k] for k in lean}
             one = fk.smem_bytes(fa, lean=True)
             if C == 1:
                 assert got == {"fact_fwd_snap": one["fact_fwd"],
@@ -790,11 +798,11 @@ def test_cluster_form_keeps_the_lean_limits(mode, limit):
             else:
                 vectors = 4 if mode == "identity" else 5
                 assert got == {
-                    "fact_fwd_snap": (vectors * limit + 33) * 4,
+                    "fact_fwd_snap": (vectors * limit + 40) * 4,
                     "fact_bwd_lean": one["fact_bwd"]}
         head = _shape(3072, mode, fast)
         for C in (2, 4):
-            small = fk.lean_smem_bytes(head, C)
+            small = fk.cluster_smem_bytes(head, C)
             one = fk.smem_bytes(head, lean=True)["fact_bwd"]
             assert small["fact_bwd_lean"] == max(one,
                                                  fk.LEAN_CLUSTER_MIN_SMEM)
@@ -820,8 +828,8 @@ def test_lean_px_ring_rule(s_pad, mode, fast, P, stages, want):
     fa = _shape(s_pad, mode, fast)
     assert fk.lean_px_ring(fa, stages, P) == want
     one = fk.smem_bytes(fa, stages, lean=True)["fact_bwd"]
-    got = fk.lean_smem_bytes(fa, 2, stages, P)["fact_bwd_lean"]
+    got = fk.cluster_smem_bytes(fa, 2, stages, P)["fact_bwd_lean"]
     assert got == max(one + (stages * 4 * P if want else 0),
                       fk.LEAN_CLUSTER_MIN_SMEM)
     assert got <= fk.MAX_SMEM
-    assert fk.lean_smem_bytes(fa, 1, stages, P)["fact_bwd_lean"] == one
+    assert fk.cluster_smem_bytes(fa, 1, stages, P)["fact_bwd_lean"] == one
