@@ -216,6 +216,40 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    step ms, peak memory, the full pair bit for bit against the plain fast
    version, fact_fwd_bf16 and fact_bwd_bf16 at C=1, 2 and 4 and the full
    call at C=1 and at its plan in turns;
+12d. main path 8, a shared log-domain graph: bench.py --xlstream's
+   denominator (bench.py:246-372: the headline graph as
+   ChainGraph(..., log_domain=True), B=32, T=150), which auto serves in
+   normalized-linear form (FactorizedArrays with log_semantics, tier
+   "pallas", fact_fwd at the plan's C=2): the denominator's value and
+   gradient through chain_function (launches counted: one of each B1/B2
+   kernel; ms best of 3 after a warm-up, utts/s), B1/B2 at leaky 0
+   against the plain version (objf rel and gamma max-abs <= 1e-4; the
+   alpha' stream), the same with bfloat16 tiles (fact_fwd_bf16 /
+   fact_bwd_bf16 bit for bit), the gather A/B (impl="gather" on the same
+   batch: its ms, objf and gradient within 1e-4 of factorized-log, gamma
+   bit-identical on a rerun), a dead column (the graph behind a chain
+   of 8 states, a column of 8 frames: objf -inf, gamma 0, ok False, the
+   other 31 columns bit for bit as a batch without it, in both
+   precisions), an out-of-band copy (every arc -120 nats: log_shifts set,
+   objf = the unshifted objf - 120 T within 1e-4), and the cluster tier
+   (main path 4's graph in the log domain at B=8, T=100: auto -> B3/B4,
+   against the plain version at leaky 0, its plans and step);
+12e. the gather engine beside the kernels: bench.py --xl's batch
+   (B=128, T=500, random_fst(1000, 3000, 5)) through impl="gather"
+   against the semiring kernels, main path 1's denominator (B=128,
+   T=500) against B1/B2 (objf rel and gamma max-abs <= 1e-4, both ms, no
+   kernel launched under gather), a list of 8 per-sequence prob-domain
+   graphs (tools/prob_list_gather.py's: S=2000, K=13,000, T=300, P=2000)
+   through auto, which is the gather engine: finite, ok, equal on the
+   card and on the CPU within 1e-4, its ms; viterbi_align given the
+   GraphArrays of main path 3's batch equals it given the batch (after
+   phase 8);
+12f. the examples: python -m pychain_tpu_torch.tools.build_graphs on a
+   data dir holding wav_to_train.synth_corpus's text (den.fst and
+   num.scp read back), then examples.data_pipeline, examples.train_tdnn
+   (12 steps) and examples.wav_to_train (20 steps) in process with the
+   device at its default, the card: each one's launches (counts reset
+   before, read after) and losses, finite, wav_to_train's falling;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -248,7 +282,10 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    fact_bwd_chunk timed over all of a call's chunks, "ms_covers"), its
    plan's cluster size and its times at C=1 and C=2 ("cluster",
    "c1_ms", "ab_ms"); bench.py --long's fact_fwd_bf16 and fact_bwd_bf16
-   one each (its plan's time, and at C=1, 2 and 4);
+   one each (its plan's time, and at C=1, 2 and 4); main path 8 one for
+   each B1/B2 kernel in both precisions and one for each of B3/B4 at its
+   cluster-tier check ("leaky": 0, their launches in main path 8's
+   counted steps);
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -3597,6 +3634,441 @@ def main_path_6(counters, p5_utts_per_s, tf32_defaults):
     return out
 
 
+# ----------------------------------------------------------------------
+# Main path 8: a shared log-domain graph (bench.py --xlstream)
+# ----------------------------------------------------------------------
+
+XLSTREAM = (32, 150)    # bench.py --xlstream: B=32 utterances, T=150
+SHIFT = -120.0          # the out-of-band copy's arc shift, in nats
+DEAD_CHAIN = 8          # the infeasible check's entry chain: no path < 9
+
+
+def counted(counters, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, {kernel: launches})."""
+    reset_counts(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for c in counters for k, v in c.items() if v}
+
+
+def value_and_grad(x, lens, batch, impl="auto"):
+    """The denominator objective's value and gradient through the user's
+    entry point (bench.py --xlstream: value_and_grad of chain_function):
+    (objf, gradient)."""
+    from pychain_tpu_torch.loss import chain_function
+    objf = chain_function(x, lens, batch, impl=impl)
+    objf.backward()
+    grad, x.grad = x.grad, None
+    return float(objf.detach()), grad
+
+
+def log_step(label, x, lens, batch, counters, want):
+    """Main path 8's step on ``batch``: once with the counts reset before
+    and read after (they must be ``want``: one launch of each kernel of
+    its tier and none of any other), then best of 3 after a warm-up:
+    (objf, launches, ms, utts/s)."""
+    (objf, grad), launches = counted(
+        counters, lambda: value_and_grad(x, lens, batch))
+    check(np.isfinite(objf) and bool(torch.isfinite(grad).all()),
+          f"{label}: objf {objf!r} or its gradient is not finite")
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    ms, all_ms, peak, _ = step_stats(lambda: value_and_grad(x, lens, batch))
+    ups = x.shape[0] / (ms / 1e3)
+    print(f"# {label}: objf {objf!r}, launches {launches}; step (value and "
+          f"gradient) {ms:.3f} ms best of {all_ms}, {ups:.1f} utts/s, peak "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    return objf, launches, ms, ups
+
+
+def log_kernel_rows(label, fa, px, lens, launches, fwd, bwd, run, names,
+                    cluster=None):
+    """The kernel pair of main path 8's tier at leaky 0 against its plain
+    version (compare: debug False and True; the forward's alpha' stream;
+    in the fast mode bit for bit), each kernel's time alone, its plain
+    sweep's and its bound: {name: row fields}."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    B, T, P = px.shape
+    errs = worst(compare(fa, px, lens, 0.0, debug, label, run,
+                         cluster=cluster) for debug in (False, True))
+    a_err, a_excess = alpha_err(fa, px, lens, 0.0, label, fwd,
+                                cluster=cluster)
+    times = pair_times(fa, px, lens, 0.0, fwd, bwd, 5, cluster=cluster)
+    fb, fo, bb, bo = fact_bytes_ops(fa, fk.graph_for(fa), lens, T, P)
+    rows = {}
+    for i, name in enumerate(names):
+        err = (max(a_err, errs["objf_rel"]) if i == 0 else
+               max(errs["gamma_abs"], errs["alpha_beta_abs"],
+                   errs["gamma_sum_abs"]))
+        rows[name] = {"ms": times[i], "plain_ms": times[2 + i],
+                      "bound": bound((fb, bb)[i], (fo, bo)[i]),
+                      "bytes": (fb, bb)[i], "ops": (fo, bo)[i],
+                      "max_abs_err": err,
+                      "entry_excess": a_excess if i == 0
+                      else errs["gamma_excess"],
+                      "launches": launches.get(name, 0)}
+    print(f"# {label} at leaky 0: " + "; ".join(
+        f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, err "
+        f"{r['max_abs_err']:.3e})" for k, r in rows.items()), flush=True)
+    return rows
+
+
+def shifted_graph(fst, shift):
+    """The log-domain ChainGraph of ``fst`` with every arc weight moved by
+    ``shift`` nats (out of float32's exp-safe band for -120)."""
+    from pychain_tpu_torch import ChainGraph
+    g = ChainGraph(fst, log_domain=True)
+    g.forward_transition_probs = g.forward_transition_probs + \
+        np.float32(shift)
+    g.backward_transition_probs = g.backward_transition_probs + \
+        np.float32(shift)
+    return g
+
+
+def infeasible_check(den_fst, P, dev, counters, tile_dtype=None):
+    """A column no path can take through the kernel tier: the headline
+    graph entered through a chain of DEAD_CHAIN states at B=32, T=150,
+    column 3 of length DEAD_CHAIN; its objf -inf, gamma 0, ok False, and
+    every other column bit for bit as in the same batch with column 3
+    alive (length T): no NaN crosses columns.  (A batch one column
+    narrower gives the same gamma but not always the same objf bits:
+    the objective's sum over frames is a PyTorch row reduction, whose
+    order may follow the batch's width.)"""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.loss import chain_function_with_aux
+    from pychain_tpu_torch.utils.testgraphs import entry_chain_fst
+    B, T = XLSTREAM
+    graph = ChainGraph(entry_chain_fst(den_fst, DEAD_CHAIN), log_domain=True)
+    batch = ChainGraphBatch(graph, B, tile_dtype=tile_dtype, device=dev)
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(83), device=dev)
+    alive = torch.full((B,), T)
+    lens = alive.clone()
+    lens[3] = DEAD_CHAIN
+    live = [b for b in range(B) if b != 3]
+    res, launches = counted(counters, lambda: chain_function_with_aux(
+        x, lens, batch)[1])
+    ref = chain_function_with_aux(x, alive, batch)[1]
+    torch.cuda.synchronize()
+    label = f"main path 8 infeasible column ({tile_dtype or 'float32'})"
+    check(res.objf[3].item() == float("-inf") and not bool(res.ok[3])
+          and float(res.gamma[3].abs().sum()) == 0.0,
+          f"{label}: dead column objf {res.objf[3].item()!r}, ok "
+          f"{bool(res.ok[3])}, gamma sum {float(res.gamma[3].abs().sum())}")
+    same = {n: torch.equal(getattr(res, n)[live], getattr(ref, n)[live])
+            for n in ("objf", "gamma", "alpha_beta", "gamma_sum", "ok")}
+    check(all(same.values()), f"{label}: live columns differ from the batch "
+          f"with column 3 alive: {same}")
+    check(bool(res.ok[live].all()), f"{label}: live ok {res.ok.tolist()}")
+    print(f"# {label}: column 3 (length {DEAD_CHAIN} < {DEAD_CHAIN + 1}) "
+          f"objf -inf, gamma 0, ok False; the other {B - 1} bit for bit as "
+          f"with column 3 alive; launches {launches}", flush=True)
+    return launches
+
+
+def main_path_8(den_fst, P, dev, counters):
+    """Main path 8: bench.py --xlstream's denominator, the headline graph
+    as a shared log-domain graph (log_semantics: leaky 0) at B=32,
+    T=150, on B1/B2 in both precisions, with the gather engine beside it
+    and the guards.  Returns the rows' fields and the step figures."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.loss import (chain_function_with_aux,
+                                        dispatch_arrays, resolved_engine)
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.ops.factorized import FactorizedArrays
+    B, T = XLSTREAM
+    t0 = time.perf_counter()
+    graph = ChainGraph(den_fst, log_domain=True)
+    batch = ChainGraphBatch(graph, B, device=dev)
+    fa = dispatch_arrays(batch)
+    props = torch.cuda.get_device_properties(0)
+    plan = {f: fk.cluster_size(B, props, fa, f) for f in
+            ("fact_fwd", "fact_bwd")}
+    print(f"# main path 8 graph: S={graph.num_states} "
+          f"K={graph.num_transitions} P={P} s_pad={fa.s_pad}; dispatch "
+          f"{type(fa).__name__} log_semantics={fa.log_semantics} "
+          f"log_shifts={fa.log_shifts} tier {resolved_engine(fa)!r}, plan "
+          f"{plan}; built in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(isinstance(fa, FactorizedArrays) and fa.log_semantics
+          and fa.log_shifts is None and fa.s_pad == 3072,
+          "main path 8: auto must give the factorized-log form")
+    check(resolved_engine(fa) == "pallas", "main path 8: tier "
+          f"{resolved_engine(fa)!r}")
+    check(plan["fact_fwd"] == 2, f"main path 8: fact_fwd on {plan} CTAs")
+    x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
+                    .manual_seed(80), device=dev).requires_grad_(True)
+    lens = torch.full((B,), T, dtype=torch.int32)
+    lens_dev = torch.full((B,), T, device=dev)
+    want = {"fact_fwd": 1, "fact_bwd": 1}
+    objf, launches, ms, ups = log_step(
+        "main path 8 (shared log-domain graph)", x, lens, batch, counters,
+        want)
+    px = torch.exp(torch.clamp(x.detach(), -30.0, 30.0))
+    rows = log_kernel_rows("main path 8", fa, px, lens_dev, launches,
+                           fk.fact_fwd, fk.fact_bwd, None,
+                           ("fact_fwd", "fact_bwd"))
+
+    # the fast mode: B1/B2's bfloat16 forms, bit for bit
+    fast = ChainGraphBatch(graph, B, tile_dtype="bfloat16", device=dev)
+    fa_fast = dispatch_arrays(fast)
+    check(fa_fast.log_semantics and resolved_engine(fa_fast) == "pallas",
+          "main path 8 fast: tier")
+    f_objf, f_launches, f_ms, f_ups = log_step(
+        "main path 8 fast (shared log-domain graph, bfloat16 tiles)", x,
+        lens, fast, counters, {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1})
+    check(abs(f_objf - objf) <= BF16_BUDGET["objf_rel"] * abs(objf),
+          f"main path 8 fast: objf {f_objf} vs float32 {objf}")
+    rows.update(log_kernel_rows("main path 8 fast", fa_fast, px, lens_dev,
+                                f_launches, fk.fact_fwd, fk.fact_bwd, None,
+                                ("fact_fwd_bf16", "fact_bwd_bf16")))
+    del fast, fa_fast
+
+    # the gather A/B (bench.py:341-355): impl="gather" on the same batch
+    (g_objf, g_grad), g_ms = event_ms(
+        lambda: value_and_grad(x, lens, batch, "gather"))
+    _, g_ms2 = event_ms(lambda: value_and_grad(x, lens, batch, "gather"))
+    g_rel = abs(g_objf - objf) / abs(objf)
+    _, k_grad = value_and_grad(x, lens, batch)
+    g_abs = absmax(g_grad, k_grad)
+    ga = chain_function_with_aux(x.detach(), lens, batch, impl="gather")[1]
+    gb = chain_function_with_aux(x.detach(), lens, batch, impl="gather")[1]
+    kf = chain_function_with_aux(x.detach(), lens, batch)[1]
+    torch.cuda.synchronize()
+    g_seq = rel(ga.objf, kf.objf)
+    print(f"# main path 8 gather A/B: impl='gather' {min(g_ms, g_ms2):.1f} "
+          f"ms ({B / (min(g_ms, g_ms2) / 1e3):.1f} utts/s) against "
+          f"factorized-log {ms:.3f} ms ({ms and min(g_ms, g_ms2) / ms:.1f}x); "
+          f"objf rel diff {g_rel:.3e} (per sequence {g_seq:.3e}), gradient "
+          f"max-abs {g_abs:.3e}; gamma "
+          f"bit-identical on a rerun: {torch.equal(ga.gamma, gb.gamma)}",
+          flush=True)
+    check(max(g_rel, g_seq) <= TOL and g_abs <= TOL, f"main path 8 gather "
+          f"A/B: objf rel {g_rel:.3e} / {g_seq:.3e}, gradient {g_abs:.3e}")
+    check(torch.equal(ga.gamma, gb.gamma) and torch.equal(ga.objf, gb.objf),
+          "main path 8: the gather engine is not deterministic")
+    del ga, gb, kf, g_grad, k_grad
+
+    # the guards: a dead column, an out-of-band copy, the cluster tier
+    infeasible_check(den_fst, P, dev, counters)
+    infeasible_check(den_fst, P, dev, counters, "bfloat16")
+    moved = ChainGraphBatch(shifted_graph(den_fst, SHIFT), B, device=dev)
+    fm = dispatch_arrays(moved)
+    check(fm.log_shifts is not None and resolved_engine(fm) == "pallas",
+          f"main path 8 out of band: log_shifts {fm.log_shifts}")
+    o_objf = chain_function_with_aux(x.detach(), lens, moved)[1].objf
+    base = chain_function_with_aux(x.detach(), lens, batch)[1].objf
+    want_o = base.double() + SHIFT * T
+    o_rel = float(((o_objf.double() - want_o).abs() / want_o.abs()).max())
+    print(f"# main path 8 out of band (every arc {SHIFT} nats): log_shifts "
+          f"{fm.log_shifts.tolist()}; objf rel diff to the unshifted "
+          f"{SHIFT} * L: {o_rel:.3e}", flush=True)
+    check(o_rel <= TOL, f"main path 8 out of band: rel {o_rel:.3e}")
+    del moved, fm, x, px
+    torch.cuda.empty_cache()
+
+    # the cluster tier: main path 4's graph in the log domain, B=8, T=100
+    Bc, Tc = 8, 100
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    fst4, P4 = denominator_fst(num_phones=6000, states_per_phone=2,
+                               num_pdfs=3000, seed=0, bigram_fanout=30,
+                               forward_pdf_mode="separate")
+    c_batch = ChainGraphBatch(ChainGraph(fst4, log_domain=True), Bc,
+                              device=dev)
+    fc = dispatch_arrays(c_batch)
+    check(fc.log_semantics and resolved_engine(fc) == "stream",
+          f"main path 8 cluster tier: {resolved_engine(fc)!r}")
+    plans = stream_plans(fc, Bc, "main path 8 cluster tier")
+    xc = torch.randn(Bc, Tc, P4, generator=torch.Generator(device=dev)
+                     .manual_seed(84), device=dev).requires_grad_(True)
+    lens_c = torch.full((Bc,), Tc, dtype=torch.int32)
+    c_objf, c_launches, c_ms, _ = log_step(
+        "main path 8 cluster tier (12k-state graph, log domain, B=8, "
+        "T=100)", xc, lens_c, c_batch, counters,
+        {"stream_fwd": 1, "stream_bwd": 1})
+    pxc = torch.exp(torch.clamp(xc.detach(), -30.0, 30.0))
+    c_rows = log_kernel_rows("main path 8 cluster tier", fc, pxc,
+                             torch.full((Bc,), Tc, device=dev), c_launches,
+                             stk.stream_fwd, stk.stream_bwd,
+                             stk.forward_backward_prob_stream,
+                             ("stream_fwd", "stream_bwd"))
+    for name, r in c_rows.items():
+        r.update(cluster=plans[name]["cluster"],
+                 columns=plans[name]["columns"])
+    del c_batch, fc, xc, pxc
+    torch.cuda.empty_cache()
+    return {"rows": rows, "cluster_rows": c_rows, "ms": ms, "ups": ups,
+            "fast_ms": f_ms, "fast_ups": f_ups, "gather_ms": min(g_ms,
+                                                                 g_ms2),
+            "gather_rel": max(g_rel, g_seq), "cluster_ms": c_ms,
+            "plan": plan}
+
+
+def gather_beside_kernels(dev, head_den, P, counters):
+    """The generic gather engine beside the kernels: bench.py --xl's
+    batch against the semiring kernels, main path 1's denominator
+    against B1/B2 (objf rel and gamma max-abs <= 1e-4, both times), and
+    a list of per-sequence prob-domain graphs (tools/prob_list_gather.py's
+    size: B=8, S=2000, K=13,000, T=300) through auto, on the card and on
+    the CPU (1e-4).  Returns the figures printed."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.loss import chain_function_with_aux
+    from pychain_tpu_torch.utils.testgraphs import (denominator_fst,
+                                                    random_fst)
+    out = {}
+    B, T = 128, 500
+    for label, batch, Px in (
+            ("xl (B=128 T=500 random_fst(1000, 3000, 5))",
+             list_batch([random_fst(num_states=1000, num_pdfs=3000,
+                                    max_arcs_per_state=5, seed=s)
+                         for s in range(B)], dev)[0], 3000),
+            ("main path 1's denominator (B=128 T=500)",
+             ChainGraphBatch(head_den, B, device=dev), P)):
+        x = torch.randn(B, T, Px, generator=torch.Generator(device=dev)
+                        .manual_seed(85), device=dev)
+        lens = torch.full((B,), T, dtype=torch.int32)
+        # a first call of each builds what the batch keeps (the kernels'
+        # graph and lists, the gather engine's arrays and plans)
+        for impl in ("auto", "gather"):
+            chain_function_with_aux(x, lens, batch, impl=impl)
+        k, k_ms = event_ms(lambda: chain_function_with_aux(x, lens,
+                                                           batch)[1])
+        (g, launches), g_ms = event_ms(lambda: counted(
+            counters, lambda: chain_function_with_aux(x, lens, batch,
+                                                      impl="gather")[1]))
+        objf_rel = rel(g.objf, k.objf)
+        gamma_abs = absmax(g.gamma, k.gamma)
+        print(f"# gather beside the kernels, {label}: kernels {k_ms:.1f} "
+              f"ms, impl='gather' {g_ms:.1f} ms ({g_ms / k_ms:.1f}x), "
+              f"launches of any kernel under gather {launches}; objf rel "
+              f"{objf_rel:.3e}, gamma max-abs {gamma_abs:.3e}", flush=True)
+        check(not launches, f"{label}: impl='gather' launched {launches}")
+        check(objf_rel <= TOL and gamma_abs <= TOL, f"{label}: gather vs "
+              f"kernels objf rel {objf_rel:.3e}, gamma {gamma_abs:.3e}")
+        check(bool(g.ok.all()), f"{label}: gather ok {g.ok.tolist()}")
+        out[label] = (k_ms, g_ms)
+        del x, k, g, batch
+        torch.cuda.empty_cache()
+    # per-sequence prob-domain graphs: only the gather engine takes them
+    Bp, Tp = 8, 300
+    graphs = [ChainGraph(denominator_fst(num_phones=1000,
+                                         states_per_phone=2, seed=s,
+                                         bigram_fanout=10)[0])
+              for s in range(Bp)]
+    rng = np.random.RandomState(0)
+    Pp = 2000
+    x = torch.from_numpy(rng.randn(Bp, Tp, Pp).astype(np.float32) * 0.2)
+    lens = torch.from_numpy(np.clip(rng.randint(Tp // 2, Tp + 1, size=Bp),
+                                    1, Tp))
+    res = []
+    K = max(g.num_transitions for g in graphs)
+    S = max(g.num_states for g in graphs)
+    for d in (dev, torch.device("cpu")):
+        batch = ChainGraphBatch(graphs, max_num_transitions=K,
+                                max_num_states=S, device=d)
+        batch.graph_arrays()           # the arrays and plans, built once
+        if d.type == "cuda":
+            chain_function_with_aux(x.to(d), lens, batch)     # warm-up
+            (r, launches), p_ms = event_ms(lambda: counted(
+                counters, lambda: chain_function_with_aux(
+                    x.to(d), lens, batch)[1]))
+        else:
+            t0 = time.perf_counter()
+            r = chain_function_with_aux(x, lens, batch)[1]
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        res.append(r)
+    got, ref = res
+    objf_rel = rel(got.objf.cpu(), ref.objf)
+    gamma_abs = absmax(got.gamma.cpu(), ref.gamma)
+    print(f"# prob-domain list (B={Bp} S={graphs[0].num_states} "
+          f"K<={max(g.num_transitions for g in graphs)} T={Tp} P={Pp}) "
+          f"through auto (the gather engine): card {p_ms:.1f} ms, host "
+          f"{cpu_ms:.1f} ms, launches {launches}; card against CPU objf "
+          f"rel {objf_rel:.3e}, gamma max-abs {gamma_abs:.3e}", flush=True)
+    check(bool(torch.isfinite(got.objf).all()) and bool(got.ok.all()),
+          f"prob-domain list: objf {got.objf.tolist()}, ok "
+          f"{got.ok.tolist()}")
+    check(objf_rel <= TOL and gamma_abs <= TOL and not launches,
+          f"prob-domain list: card vs CPU {objf_rel:.3e}, {gamma_abs:.3e}")
+    out["prob list"] = (p_ms, cpu_ms)
+    return out
+
+
+def viterbi_of_graph_arrays(flat_batch, x, lens, vit_counter):
+    """viterbi_align given the GraphArrays of main path 3's batch equals
+    viterbi_align given the batch, bit for bit, on the viterbi kernel."""
+    from pychain_tpu_torch.loss import graph_arrays
+    from pychain_tpu_torch.ops.viterbi import viterbi_align
+    ga = graph_arrays(flat_batch)
+    (a, n), _ = event_ms(lambda: counted((vit_counter,), lambda:
+                                         viterbi_align(x, lens, ga)))
+    b = viterbi_align(x, lens, flat_batch)
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
+    print(f"# viterbi_align of main path 3's batch as GraphArrays: launches "
+          f"{n}, equal to the batch's alignment: {same}", flush=True)
+    check(same and n == {"viterbi": 1}, "viterbi_align(GraphArrays) differs "
+          "from viterbi_align(batch)")
+
+
+# ----------------------------------------------------------------------
+# The examples: the graph-building CLI and the three small examples
+# ----------------------------------------------------------------------
+
+def examples_phase(counters):
+    """python -m pychain_tpu_torch.tools.build_graphs on a synthetic data
+    dir (the text wav_to_train.synth_corpus writes; den.fst and num.scp
+    read back through the port's readers), then data_pipeline,
+    train_tdnn and wav_to_train in process with --device at its default
+    (the card), each's launches counted; each must print finite losses,
+    and wav_to_train's must fall (it checks, as the JAX example does)."""
+    import tempfile
+    from pychain_tpu_torch.data import read_scp
+    from pychain_tpu_torch.examples import (data_pipeline, train_tdnn,
+                                            wav_to_train)
+    from pychain_tpu_torch.graphs import FST
+    from pychain_tpu_torch.tools import build_graphs
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    out = {}
+    try:
+        wav_to_train.synth_corpus(work, utts=16, num_phones=8)
+        _, n = counted(counters, lambda: build_graphs.main(
+            ["--data-dir", work]))
+        den = FST.read(os.path.join(work, "den.fst"))
+        nums = [FST.read_ark(p, o)
+                for _, p, o in read_scp(os.path.join(work, "num.scp"))]
+        check(den.num_states > 0 and len(nums) == 16 and not n,
+              f"build_graphs: den {den.num_states} states, {len(nums)} "
+              f"numerators, launches {n}")
+        print(f"# build_graphs: den.fst {den.num_states} states "
+              f"{den.num_arcs} arcs, {len(nums)} numerators read back",
+              flush=True)
+        for name, fn in (
+                ("data_pipeline", lambda: data_pipeline.main([])),
+                ("train_tdnn", lambda: train_tdnn.main(
+                    ["--steps", "12", "--verbose", "0"])),
+                ("wav_to_train", lambda: wav_to_train.main(
+                    ["--data-dir", os.path.join(work, "wav")]))):
+            t0 = time.perf_counter()
+            res, launches = counted(counters, fn)
+            losses = ([r[2] for r in res] if name == "data_pipeline"
+                      else res["losses"])
+            secs = time.perf_counter() - t0
+            print(f"# example {name} on the card: losses {losses}; "
+                  f"launches {launches}; {secs:.1f} s", flush=True)
+            check(len(losses) > 0 and all(np.isfinite(losses)),
+                  f"{name}: losses {losses}")
+            check(launches, f"{name}: launched no kernel on the card")
+            out[name] = {"losses": losses, "launches": launches,
+                         "s": secs}
+        check(out["wav_to_train"]["losses"][-1]
+              < out["wav_to_train"]["losses"][0], "wav_to_train: the loss "
+              "did not fall")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def bound(nbytes, ops, peak_flops=PEAK_F32_FLOPS):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_flops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -3846,6 +4318,8 @@ def main():
     classes["path3"] = sr_class("xl", re_batch.semiring(), x_flat, lens,
                                 5, label="main path 3's batch")
     del re_batch
+    # the alignment of main path 3 given the batch's GraphArrays
+    viterbi_of_graph_arrays(flat_batch, x_flat, lens, vk.LAUNCHES)
 
     # -- phase 9: the Viterbi size classes -------------------------------
     vit_classes = {"realign": vit_class("realign", flat_batch.semiring(),
@@ -3898,6 +4372,20 @@ def main():
     p7 = main_path_7(den, P, dev, leaky_c,
                      (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES))
     torch.cuda.empty_cache()
+
+    # -- phase 12d: main path 8, a shared log-domain graph ---------------
+    all_counters = (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES)
+    t8 = time.perf_counter()
+    p8 = main_path_8(den_fst, P, dev, all_counters)
+    torch.cuda.empty_cache()
+    # -- phase 12e: the gather engine beside the kernels -----------------
+    gather_ab = gather_beside_kernels(dev, den, P, all_counters)
+    torch.cuda.empty_cache()
+    # -- phase 12f: the examples and the graph-building CLI ---------------
+    examples = examples_phase(all_counters)
+    torch.cuda.empty_cache()
+    print(f"# phases 12d-12f (main path 8, the gather A/Bs, the examples): "
+          f"{time.perf_counter() - t8:.1f} s", flush=True)
 
     # -- phase 13: the XL roofline probe ----------------------------------
     from pychain_tpu_torch.tools import xl_roofline as xr
@@ -4045,6 +4533,42 @@ def main():
             "bytes": r["bytes"], "ops": r["ops"], "cluster": r["cluster"],
             "c1_ms": r["c1_ms"], "c2_ms": r["c2_ms"], "c4_ms": r["c4_ms"],
             "library_ms": None})
+    # main path 8 (bench.py --xlstream): B1/B2 in both precisions at
+    # leaky 0 on the shared log-domain graph, B3/B4 on its cluster-tier
+    # check (main path 4's graph in the log domain)
+    for key, batch_label in (
+            ("rows", "main path 8 (shared log-domain graph: B=32, T=150)"),
+            ("cluster_rows", "main path 8 cluster tier (main path 4's "
+                             "graph in the log domain: B=8, T=100)")):
+        for name, r in p8[key].items():
+            form = name.split("_bf16")[0]
+            if form.startswith("stream"):
+                line, fn, mod = ((463, "_fwd_kernel_factory", "pallas_stream")
+                                 if "fwd" in form else
+                                 (668, "_bwd_kernel_factory",
+                                  "pallas_stream"))
+            else:
+                line, fn, mod = ((457, "_fwd_kernel_factory", "pallas_fact")
+                                 if "fwd" in form else
+                                 (768, "_bwd_kernel_factory", "pallas_fact"))
+            rows.append({
+                "name": name, "route": "cuda", "batch": batch_label,
+                "leaky": 0,
+                "source": f"pychain_tpu_torch/csrc/{form}.cu",
+                "replaces": f"pychain_tpu/ops/{mod}.py:{line}",
+                "replaces_fn": f"pychain_tpu/ops/{mod}.py::{fn}, "
+                               "log_semantics (leaky 0)"
+                               + (", bfloat16 tiles (fast mode)"
+                                  if name.endswith("_bf16") else ""),
+                "launches": r["launches"],
+                "launches_by_path": {"main path 8": r["launches"]},
+                "on_main_path": True,
+                **{k: r[k] for k in ("cluster", "columns") if k in r},
+                "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
+                "entry_excess": r["entry_excess"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "bytes": r["bytes"],
+                "ops": r["ops"], "library_ms": None})
     # main path 2 runs the "semiring" class (the flat-start batch), main
     # path 3 its constrained batch ("xl" by the JAX package's rule); the
     # other rows are kernel checks at bench.py's and the tool's sizes
@@ -4216,6 +4740,19 @@ def main():
           f"{p7['long']['ms']:.3f} ms, peak {p7['long']['peak'] / 1e9:.3f} "
           f"GB, its call at C=1 {p7['long']['call_c1_ms']:.3f} -> at its "
           f"plan {p7['long']['call_plan_ms']:.3f} ms")
+    print(f"# main path 8 (shared log-domain graph, B=32 T=150, leaky 0; "
+          f"step = value and gradient): float32 {p8['ms']:.3f} ms "
+          f"({p8['ups']:.1f} utts/s), bfloat16 tiles {p8['fast_ms']:.3f} "
+          f"ms ({p8['fast_ups']:.1f} utts/s), impl='gather' "
+          f"{p8['gather_ms']:.1f} ms (objf rel {p8['gather_rel']:.2e}); "
+          f"cluster tier (12k graph, B=8 T=100) {p8['cluster_ms']:.3f} ms; "
+          "gather beside the kernels (kernels ms, gather ms): "
+          + "; ".join(f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in
+                      gather_ab.items() if k != "prob list")
+          + f"; prob-domain list card {gather_ab['prob list'][0]:.1f} ms, "
+          f"host {gather_ab['prob list'][1]:.1f} ms; examples: "
+          + ", ".join(f"{k} {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}"
+                      f" ({v['s']:.1f} s)" for k, v in examples.items()))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

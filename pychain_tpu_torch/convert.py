@@ -46,12 +46,11 @@ def _warrays(w) -> WArrays:
 
 
 def factorized_from_numpy(fa, device=None) -> FactorizedArrays:
-    """The port's FactorizedArrays from the JAX package's fields."""
+    """The port's FactorizedArrays from the JAX package's fields, a
+    shared log-domain graph's ``log_semantics`` and ``log_shifts``
+    among them."""
     device = resolve_device(device)
-    if getattr(fa, "log_semantics", False):
-        raise NotImplementedError(
-            "log_semantics factorized graphs are not ported yet "
-            "(ROADMAP.md: \"shared log-domain graphs\")")
+    shifts = getattr(fa, "log_shifts", None)
     return FactorizedArrays(
         w1=_warrays(fa.w1), f_dst=_t(fa.f_dst, np.int64),
         e_f=_warrays(fa.e_f), w2=_warrays(fa.w2),
@@ -65,6 +64,8 @@ def factorized_from_numpy(fa, device=None) -> FactorizedArrays:
         res_prob=_t(fa.res_prob, np.float32),
         engine=str(getattr(fa, "engine", "xla")),
         xsrc_mode=str(fa.xsrc_mode),
+        log_semantics=bool(getattr(fa, "log_semantics", False)),
+        log_shifts=None if shifts is None else _t(shifts, np.float32),
     ).to(device)
 
 

@@ -8,24 +8,28 @@ reference's ``pychain/graph.py``):
   graph.py:25-70 of the reference,
 * :class:`ChainGraphBatch` — a batch of graphs as tensors on a device.
 
-Ported batch forms: a shared prob-domain graph broadcast over the batch
-(the denominator: factorized, ``ops/factorized.py``) and a list of
-log-domain graphs (the numerators): linear chains in closed form
-(``ops/linear.py``), any other graph (cyclic, self-loop, flat-start) in
-arc-id form for the semiring kernels (``ops/semiring.py``).  Every
-log-domain batch, shared (the decoding graph: one row) or list, has the
-arc-id form that ``viterbi_align`` (``ops/viterbi.py``) reads, built on
-first use, and every batch has the reference's batched views
-(``forward_transitions`` and the rest, graph.py:73-194), built on first
-use as well.  A list of prob-domain graphs needs an engine that is not
-ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item,
-and the loss on a shared log-domain batch raises in
-``loss.dispatch_arrays`` (ROADMAP.md, "shared log-domain graphs").
+Batch forms: a shared prob-domain graph broadcast over the batch (the
+denominator: factorized, ``ops/factorized.py``); a shared log-domain
+graph (the decoding graph, bench.py --xlstream's denominator), which
+the factorized engines serve in normalized-linear form
+(``log_semantics``: its weights exp'd, shifted into float32's exp-safe
+band where they lie outside it, leaky 0 at dispatch) with the arc-id
+form that ``viterbi_align`` reads beside it; a list of log-domain graphs
+(the numerators): linear chains in closed form (``ops/linear.py``), any
+other graph (cyclic, self-loop, flat-start) in arc-id form for the
+semiring kernels (``ops/semiring.py``); and a list of prob-domain graphs
+(per-sequence leaky-HMM graphs), which only the generic gather engine
+serves (``ops/fwdbwd.py``).  Every batch has that engine's arrays
+(:meth:`ChainGraphBatch.graph_arrays`, ``impl="gather"``) and the
+reference's batched views (``forward_transitions`` and the rest,
+graph.py:73-194), each built on first use.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import torch
@@ -36,6 +40,50 @@ from .graphs.fst import FST, n_arcs, n_states
 from .utils.device import resolve_device
 
 NEG_INF = float("-inf")
+
+# float32's exp-safe band: exp(w) keeps full relative precision for
+# w in about [-87.3, 88.7].  A log-domain graph served in
+# normalized-linear form with weights outside it would silently
+# underflow to 0 (removing legal paths) or overflow to inf.  A centered
+# shift re-admits spreads up to _EXP_SPREAD; wider graphs skip the
+# factorized form (pychain_tpu/graph.py:40-49).
+_EXP_LO, _EXP_HI = -87.0, 88.0
+_EXP_SPREAD = 160.0
+
+
+def _log_band_shifts(graph):
+    """Shifts bringing a log-domain graph's finite weights into the
+    float32 exp-safe band, or None when impossible (a spread over
+    _EXP_SPREAD nats, or +inf/NaN weights).  Returns (arc, init, fin):
+    subtracting them from the arc/initial/final log-weights rescales
+    every length-L path by exp(-(arc L + init + fin)), which the loss
+    adds back onto the objf (loss._run).  All zeros for a graph already
+    in the band (the common normalized case)."""
+
+    def shift_of(v):
+        v = np.asarray(v)
+        if np.isposinf(v).any() or np.isnan(v).any():
+            return None
+        f = v[np.isfinite(v)]
+        if f.size == 0:
+            return 0.0
+        lo, hi = float(f.min()), float(f.max())
+        if _EXP_LO <= lo and hi <= _EXP_HI:
+            return 0.0
+        if hi - lo > _EXP_SPREAD:
+            return None
+        return (lo + hi) / 2.0
+
+    shifts = [shift_of(v) for v in (graph.forward_transition_probs,
+                                    graph.initial_probs, graph.final_probs)]
+    return None if None in shifts else tuple(shifts)
+
+
+def _exp_shifted(v, shift):
+    """exp(v - shift) taken in float64 and cast once to float32, as the
+    JAX package takes it (so that the tiles are its bit for bit)."""
+    return np.exp((np.asarray(v) - shift).astype(np.float64)).astype(
+        np.float32)
 
 
 class ChainGraph:
@@ -129,8 +177,10 @@ class ChainGraphBatch:
         self._fact = None
         self._linear = None
         self._semiring = None
+        self._semiring_rows = None   # a shared graph's, B rows (the loss)
         self._graph = None
         self._graphs = None
+        self._gather = None
         self._views = {}
         gs = graphs if isinstance(graphs, (list, tuple)) else [graphs]
         self.num_pdfs = max(
@@ -159,24 +209,61 @@ class ChainGraphBatch:
                 "ChainGraph object or a list of ChainGraph objects but "
                 "given {}".format(type(graphs)))
 
-    # -- broadcast constructor (graph.py:203-222) ------------------------
+    # -- broadcast constructor (graph.py:203-305) ------------------------
     def _init_by_one(self, graph: ChainGraph):
         self.log_domain = graph.log_domain
         self.shared = True
         self.num_states = graph.num_states
         self.num_transitions = graph.num_transitions
         self._graph = graph
-        if graph.log_domain:
-            # the decoding graph: only semiring() builds anything, for
-            # viterbi_align; the loss raises on such a batch
-            # (loss.dispatch_arrays)
-            return
         from .graphs.factorize import factorize
         from .ops.factorized import from_factorized_graph
-        fg = factorize(graph)
-        self._fact = from_factorized_graph(
-            fg, graph.initial_probs, graph.final_probs, graph.leaky_probs,
-            tile_dtype=self._tile_dtype).to(self.device)
+        if not graph.log_domain:
+            fg = factorize(graph)
+            self._fact = from_factorized_graph(
+                fg, graph.initial_probs, graph.final_probs,
+                graph.leaky_probs, tile_dtype=self._tile_dtype).to(
+                    self.device)
+            return
+        # a shared log-domain graph is the same transition matrix with
+        # log weights: exp'd (exact for hard zeros, after re-centering
+        # out-of-band weights) the factorized engines serve it in
+        # normalized-linear form, B1/B2 or B3/B4 on the card; the loss
+        # forces leaky 0 and guards dead sequences (loss._run)
+        shifts = _log_band_shifts(graph)
+        if shifts is None:
+            import warnings
+            warnings.warn(
+                "pychain_tpu_torch: shared log-domain graph has finite "
+                f"log-weights spanning more than {_EXP_SPREAD:.0f} nats "
+                "(or +inf/NaN); the factorized-log form would silently "
+                "under/overflow in float32, so it is not built for this "
+                "graph: the loss runs on the semiring kernels instead",
+                RuntimeWarning, stacklevel=4)
+        else:
+            sa, si, sf = shifts
+            shim = types.SimpleNamespace(
+                log_domain=False, num_states=graph.num_states,
+                forward_transitions=graph.forward_transitions,
+                forward_transition_probs=_exp_shifted(
+                    graph.forward_transition_probs, sa),
+                final_probs=_exp_shifted(graph.final_probs, sf))
+            S = graph.num_states
+            fa = from_factorized_graph(
+                factorize(shim), _exp_shifted(graph.initial_probs, si),
+                shim.final_probs,
+                np.full(S, 1.0 / S, np.float32),   # unused: leaky is 0
+                tile_dtype=self._tile_dtype)
+            log_shifts = (None if sa == si == sf == 0.0 else
+                          torch.tensor([sa, si + sf], dtype=torch.float32))
+            self._fact = dataclasses.replace(
+                fa, log_semantics=True, log_shifts=log_shifts).to(
+                    self.device)
+        from .ops.linear import is_linear_graph, linear_arrays
+        if is_linear_graph(graph):
+            self._linear = linear_arrays([graph] * self.batch_size,
+                                         graph.num_transitions).to(
+                                             self.device)
 
     # -- list constructor (graph.py:350-369) -----------------------------
     def _init_by_list(self, graphs, max_k, max_s):
@@ -190,16 +277,14 @@ class ChainGraphBatch:
                     f"graph {i} exceeds padding shape: "
                     f"K={g.num_transitions}>{max_k} or "
                     f"S={g.num_states}>{max_s}")
-        if not self.log_domain:
-            raise NotImplementedError(
-                "a list batch of prob-domain graphs needs the dense_list or "
-                "gather engine, not ported yet (ROADMAP.md: \"the "
-                "generic gather engine\", \"the other list engines\"); the "
-                "port runs log-domain numerator lists and a shared "
-                "prob-domain denominator")
         # the source graphs (references) let a forced impl="semiring"
-        # compile arc-id arrays for a batch the linear form claimed
+        # compile arc-id arrays for a batch the linear form claimed, and
+        # build the gather engine's arrays on first use
         self._graphs = list(graphs)
+        if not self.log_domain:
+            # per-sequence leaky-HMM graphs: only the gather engine
+            # serves them (loss.dispatch_arrays)
+            return
         from .ops.linear import is_linear_graph, linear_arrays
         if all(is_linear_graph(g) for g in graphs):
             self._linear = linear_arrays(graphs, max_k).to(self.device)
@@ -236,6 +321,12 @@ class ChainGraphBatch:
         return self._views[name]
 
     def _padded(self, name):
+        h = self._padded_host(name)
+        return None if h is None else torch.from_numpy(h).to(self.device)
+
+    def _padded_host(self, name):
+        """A list batch's view ``name`` as a numpy array, padded as the
+        JAX package pads it (log domain: -inf probs; prob domain: 0)."""
         B, K, S = self.batch_size, self.num_transitions, self.num_states
         pad = NEG_INF if self.log_domain else 0.0
         if name.endswith("_transitions"):
@@ -251,7 +342,41 @@ class ChainGraphBatch:
             out, n = np.full((B, S), fill, np.float32), "num_states"
         for i, g in enumerate(self._graphs):
             out[i, :getattr(g, n)] = getattr(g, name)
-        return torch.from_numpy(out).to(self.device)
+        return out
+
+    def graph_arrays(self):
+        """The batch as the generic gather engine's
+        :class:`~pychain_tpu_torch.ops.fwdbwd.GraphArrays` on this
+        batch's device (``pychain_tpu/loss.py::graph_arrays``): a shared
+        graph's arrays unbatched, a list's padded; its segment plans are
+        built on the host here, once a batch."""
+        if self._gather is None:
+            from .ops.fwdbwd import GraphArrays
+            host = (functools.partial(getattr, self._graph) if self.shared
+                    else self._padded_host)
+            fwd, bwd = (np.asarray(host(f"{d}_transitions"))
+                        for d in ("forward", "backward"))
+            t = torch.from_numpy
+            leaky = host("leaky_probs")
+            ga = GraphArrays(
+                fwd_src=t(fwd[..., 0].copy()), fwd_dst=t(fwd[..., 1].copy()),
+                fwd_pdf=t(fwd[..., 2].copy()),
+                fwd_prob=t(np.asarray(host("forward_transition_probs"),
+                                      np.float32)),
+                bwd_src=t(bwd[..., 0].copy()), bwd_dst=t(bwd[..., 1].copy()),
+                bwd_pdf=t(bwd[..., 2].copy()),
+                bwd_prob=t(np.asarray(host("backward_transition_probs"),
+                                      np.float32)),
+                initial=t(np.asarray(host("initial_probs"), np.float32)),
+                final=t(np.asarray(host("final_probs"), np.float32)),
+                leaky=None if leaky is None else t(
+                    np.asarray(leaky, np.float32)),
+                shared=self.shared)
+            ga.plan("bwd_dst")
+            ga.plan("fwd_src")
+            ga.plan("fwd_pdf", ga.n_pdfs())
+            self._gather = ga.to(self.device)
+        return self._gather
 
     @property
     def forward_transitions(self):
@@ -311,7 +436,8 @@ class ChainGraphBatch:
         per-sequence form moves with the graphs: the linear arrays, the
         arc-id arrays with their per-graph lists and the source graphs,
         so no graph is paired with another sequence afterwards; the
-        batched views are rebuilt on their next use.  A broadcast batch
+        batched views and the gather engine's arrays are rebuilt on their
+        next use.  A broadcast batch
         is left as it is."""
         if self.shared:
             return
@@ -328,3 +454,4 @@ class ChainGraphBatch:
             self._semiring = self._semiring.take(order)
         self._graphs = [self._graphs[i] for i in order]
         self._views = {}
+        self._gather = None

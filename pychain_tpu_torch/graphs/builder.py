@@ -403,11 +403,11 @@ def make_constrained_numerator(phones, durations, topo: ChainTopology,
 
     The graph is time-synchronous by construction — state (t, i) means
     "frame t-1 was in phone i", every arc advances one frame — so it
-    levelizes with level width <= 2*tolerance + 1 and dispatches to the
-    banded leveled engine — provided the pruned width stays within the
-    engine's cap (16 slots, i.e. tolerance <= ~7 with short phones;
-    beyond it the graph still computes correctly on the generic gather
-    engine, and a UserWarning flags the downgrade).  ``tolerance=0``
+    levelizes with level width <= 2*tolerance + 1.  The port runs it on
+    the semiring kernels at any width; the JAX package's banded leveled
+    engine takes it while the pruned width stays within that engine's
+    cap (16 slots, i.e. tolerance <= ~7 with short phones), and a
+    UserWarning flags a wider graph.  ``tolerance=0``
     degenerates to the exact aligned linear path; ``tolerance=inf``
     would recover the flat-start graph of :func:`make_numerator_fst`
     (which is cyclic and cheaper to use directly).  Arc weights are 0
@@ -467,9 +467,10 @@ def make_constrained_numerator(phones, durations, topo: ChainTopology,
         import warnings
         warnings.warn(
             f"constrained supervision level width {width} exceeds the "
-            "leveled engine's 16-slot cap; the graph will run on the "
-            "generic gather engine (correct but slower) — use a smaller "
-            "tolerance or the flat-start make_numerator_fst",
+            "leveled engine's 16-slot cap; the port runs such a batch on "
+            "the semiring kernels (the JAX package on its generic gather "
+            "engine, correct but slower) — use a smaller tolerance or the "
+            "flat-start make_numerator_fst",
             UserWarning, stacklevel=2)
 
     ids = np.full((T + 1, n), -1, np.int64)

@@ -22,19 +22,27 @@ card's limits): the resident pair of ``ops/fact_kernels.py`` (B1/B2,
 shared memory, else the cluster pair of ``ops/stream_kernels.py``
 (B3/B4, ``engine="stream"``); past the cluster limit the CUDA path
 raises (where the JAX package takes its XLA engine, the port has no
-kernel).  On CPU tensors every tier computes the plain version.  A batch
-of linear numerators goes to the closed form of ``ops/linear.py``; any
-other log-domain list batch (cyclic, self-loop, flat-start) to the
-semiring kernels of ``ops/semiring_kernels.py``, which serve what the
-JAX package splits over ``impl="semiring_pallas"`` and ``"semiring_xl"``
-(both taken here as ``"auto"``).  ``impl="pallas"``, the JAX package's
-name for its denominator tiering, is ``"auto"`` too.
+kernel; ``impl="gather"`` runs such a graph).  On CPU tensors every
+tier computes the plain version.  A shared log-domain graph takes the
+same tiers in normalized-linear form (``log_semantics``: leaky 0, the
+``log_shifts`` correction, dead sequences guarded), or its closed form
+when it is linear, or the semiring kernels when its weights spread too
+wide for float32's exp (no factorized form).  A batch of linear
+numerators goes to the closed form of ``ops/linear.py``; any other
+log-domain list batch (cyclic, self-loop, flat-start) to the semiring
+kernels of ``ops/semiring_kernels.py``, which serve what the JAX
+package splits over ``impl="semiring_pallas"`` and ``"semiring_xl"``
+(both taken here as ``"auto"``).  A list of prob-domain graphs has no
+kernel: it runs on the generic gather engine (``ops/fwdbwd.py``), with
+a one-time warning.  ``impl="pallas"``, the JAX package's name for its
+denominator tiering, is ``"auto"`` too.
 A denominator with bfloat16 tiles (``precision="fast"``) runs the fast
 mode of the same tiers (B1/B2's and B3/B4's bfloat16 forms), or on the
 CPU its plain version, ``forward_backward_prob_fast``.
 ``impl="factorized"`` (denominator) and ``impl="semiring"`` (numerator
 lists) ask for the plain PyTorch engine on any device, as the JAX
-package's ``impl="semiring"`` forces its XLA scan.  A FactorizedArrays
+package's ``impl="semiring"`` forces its XLA scan; ``impl="gather"``
+asks for the generic gather engine on any batch.  A FactorizedArrays
 given with ``engine="pallas"`` or ``"stream"`` keeps that engine
 (as ``tools/stream_ab.py`` forces the stream engine in JAX); the default
 ``"xla"`` takes the tier of :func:`den_engine`, chosen at each call.
@@ -48,7 +56,8 @@ import torch
 from .graph import ChainGraph, ChainGraphBatch
 from .ops import fact_kernels, stream_kernels
 from .ops.factorized import FactorizedArrays, forward_backward_prob_fact
-from .ops.fwdbwd import FwdBwdResult
+from .ops.fwdbwd import (FwdBwdResult, GraphArrays, forward_backward_log,
+                         forward_backward_prob)
 from .ops.linear import LinearArrays, forward_backward_linear
 from .ops.semiring import SemiringArrays, forward_backward_semiring
 from .ops.semiring_kernels import forward_backward_semiring_kernel
@@ -56,14 +65,14 @@ from .utils.device import host_to, resolve_device
 
 CLAMP = 30.0  # reference loss.py:30
 
-IMPLS = ("auto", "factorized", "linear", "semiring")
+IMPLS = ("auto", "factorized", "gather", "linear", "semiring")
 # the JAX package's names for its semiring kernels (one kernel pair
 # serves both of its classes here) and for its denominator tiering:
 # "auto" already selects them
 _ALIASES = {"semiring_pallas": "auto", "semiring_xl": "auto",
             "pallas": "auto"}
 # engines of the JAX package that the port does not have yet
-_NOT_PORTED = ("gather", "leveled", "dense_list")
+_NOT_PORTED = ("leveled", "dense_list")
 
 
 def den_engine(fa: FactorizedArrays) -> str:
@@ -92,7 +101,8 @@ def den_engine(fa: FactorizedArrays) -> str:
             f"{stream_kernels.smem_bytes(fa, c)} bytes of shared memory per "
             f"CTA even on a cluster of {c} CTAs, over the "
             f"{fact_kernels.MAX_SMEM} a Hopper block has: no CUDA kernel "
-            "serves it (impl='factorized' runs the plain version)")
+            "serves it (impl='factorized' runs the plain version, "
+            "impl='gather' the generic gather engine)")
     return "xla"
 
 
@@ -102,14 +112,67 @@ def resolved_engine(fa: FactorizedArrays) -> str:
     return den_engine(fa) if fa.engine == "xla" else fa.engine
 
 
+def graph_arrays(batch: ChainGraphBatch) -> GraphArrays:
+    """The batch as the generic gather engine's GraphArrays
+    (``pychain_tpu/loss.py::graph_arrays``), built once a batch."""
+    return batch.graph_arrays()
+
+
+_gather_fallback_warned = False
+
+
+def _warn_gather_fallback(graphs):
+    """One-time warning when a list of prob-domain (leaky-HMM) graphs
+    drops onto the generic gather engine (pychain_tpu/loss.py:151-195):
+    no kernel of the port takes per-sequence prob-domain graphs, and the
+    engine is one Python loop of small operations a frame."""
+    global _gather_fallback_warned
+    if _gather_fallback_warned:
+        return
+    _gather_fallback_warned = True
+    import warnings
+    warnings.warn(
+        "pychain_tpu_torch: LIST-built prob-domain (leaky-HMM) graph "
+        f"batch (B={graphs.batch_size}, K={graphs.num_transitions}, "
+        f"S={graphs.num_states}) has no kernel — only a shared broadcast "
+        "denominator factorizes onto B1/B2 and B3/B4; dispatching to the "
+        "generic gather engine. If every sequence shares one denominator "
+        "graph, build it with ChainGraphBatch(graph, batch_size); "
+        "per-sequence prob-domain graphs run at gather speed.",
+        RuntimeWarning, stacklevel=4)
+
+
+def _shared_log(graphs, impl):
+    """The engine arrays of a shared log-domain batch: its closed form
+    where it is linear, else its factorized-log form (the kernel tier of
+    :func:`den_engine` under "auto"), else, when its weights spread too
+    wide for that form, the semiring arrays broadcast to B rows."""
+    if graphs._linear is not None and impl in ("auto", "linear"):
+        return graphs._linear
+    if impl == "linear":
+        raise ValueError("linear impl requires a batch of linear-chain "
+                         "log-domain graphs")
+    if graphs._fact is not None and impl in ("auto", "factorized"):
+        return graphs._fact
+    if impl == "factorized":
+        raise ValueError("factorized impl: this shared log-domain graph's "
+                         "weights spread too wide for its factorized form")
+    # "semiring" (the plain version) or auto past the factorized form
+    if graphs._semiring_rows is None:
+        graphs._semiring_rows = graphs.semiring().take(
+            [0] * graphs.batch_size)
+    return graphs._semiring_rows
+
+
 def dispatch_arrays(graphs, impl: str = "auto"):
     """The engine-facing arrays of a graph batch.
 
     impl: "auto" (linear closed form for linear numerator batches, the
-    semiring kernels for other log-domain lists, a shared prob-domain
-    graph's FactorizedArrays, whose kernel tier :func:`_run` takes from
-    its ``engine`` or :func:`den_engine`),
-    "factorized" (the plain PyTorch engine for the denominator),
+    semiring kernels for other log-domain lists, a shared graph's
+    FactorizedArrays, whose kernel tier :func:`_run` takes from its
+    ``engine`` or :func:`den_engine`, and the gather engine for a list
+    of prob-domain graphs), "factorized" (the plain PyTorch engine for
+    the denominator), "gather" (the generic gather engine, any batch),
     "linear", or "semiring" (the plain PyTorch engine for a log-domain
     list, built for a linear batch too).  "semiring_pallas",
     "semiring_xl" and "pallas" are accepted as "auto"."""
@@ -118,17 +181,15 @@ def dispatch_arrays(graphs, impl: str = "auto"):
         if impl in _NOT_PORTED:
             raise NotImplementedError(
                 f"impl={impl!r} is not ported yet (ROADMAP.md: \"the "
-                "generic gather engine\", \"the other list engines\"); "
-                "the port has " + ", ".join(IMPLS))
+                "other list engines\"); the port has " + ", ".join(IMPLS))
         raise ValueError(f"unknown impl {impl!r}")
-    if isinstance(graphs, (FactorizedArrays, LinearArrays, SemiringArrays)):
+    if isinstance(graphs, (FactorizedArrays, LinearArrays, SemiringArrays,
+                           GraphArrays)):
         return graphs
+    if impl == "gather":
+        return graph_arrays(graphs)
     if graphs.shared and graphs.log_domain:
-        raise NotImplementedError(
-            "the loss on a shared log-domain graph needs the factorized "
-            "log_semantics engine, not ported yet (ROADMAP.md: \"shared "
-            "log-domain graphs\"); such a batch serves viterbi_align and "
-            "PhoneDecoder only")
+        return _shared_log(graphs, impl)
     if graphs._linear is not None and impl in ("auto", "linear"):
         return graphs._linear
     if impl == "linear":
@@ -143,6 +204,11 @@ def dispatch_arrays(graphs, impl: str = "auto"):
         return sr
     if graphs._fact is not None:
         return graphs._fact
+    if impl == "auto" and not graphs.shared and not graphs.log_domain:
+        # per-sequence leaky-HMM graphs: no kernel takes them (on a TPU
+        # the JAX package runs its dense_list engine, not ported yet)
+        _warn_gather_fallback(graphs)
+        return graph_arrays(graphs)
     raise ValueError(f"impl={impl!r} requires a shared prob-domain "
                      "ChainGraphBatch (broadcast denominator)")
 
@@ -153,6 +219,45 @@ def _lengths(x_lengths) -> torch.Tensor:
     if isinstance(x_lengths, torch.Tensor):
         return x_lengths.long()
     return torch.as_tensor(np.asarray(x_lengths), dtype=torch.int64)
+
+
+def _guard_infeasible(res: FwdBwdResult) -> FwdBwdResult:
+    """The log engines' contract for dead sequences
+    (pychain_tpu/loss.py:362-382): a sequence whose path set is empty (or
+    dies mid-utterance) comes back as objf -inf, gamma 0 and ok False,
+    not the NaN or inf that the prob-domain division by tot_prob gives."""
+    feasible = torch.isfinite(res.objf)
+    objf = torch.where(feasible, res.objf, float("-inf"))
+    gamma = torch.where(torch.isfinite(res.gamma), res.gamma, 0.0)
+    gamma = torch.where(feasible[:, None, None], gamma, 0.0)
+    return FwdBwdResult(objf, gamma, res.ok & feasible, res.alpha_beta,
+                        res.gamma_sum)
+
+
+def _run_fact(x, lengths, g: FactorizedArrays, leaky_coefficient, impl,
+              debug) -> FwdBwdResult:
+    px = torch.exp(x)
+    if g.log_semantics:
+        # no leaky HMM in the log domain (graph.py:54-59)
+        leaky_coefficient = 0.0
+    engine = "xla" if impl == "factorized" else resolved_engine(g)
+    if engine == "xla":
+        res = forward_backward_prob_fact(px, lengths, g, leaky_coefficient)
+    elif engine == "stream":
+        res = stream_kernels.forward_backward_prob_stream(
+            px, lengths, g, leaky_coefficient, debug=debug)
+    else:
+        res = fact_kernels.forward_backward_prob_kernel(
+            px, lengths, g, leaky_coefficient, debug=debug)
+    if not g.log_semantics:
+        return res
+    if g.log_shifts is not None:
+        # undo the exp-safe band's re-centering: every length-L path was
+        # rescaled by exp(-(arc L + const)) (graph._log_band_shifts)
+        shifts = g.log_shifts.to(res.objf.device)
+        lens = host_to(torch.as_tensor(lengths), res.objf.device).float()
+        res = res._replace(objf=res.objf + shifts[0] * lens + shifts[1])
+    return _guard_infeasible(res)
 
 
 def _run(x, lengths, g, leaky_coefficient, impl="auto",
@@ -168,16 +273,12 @@ def _run(x, lengths, g, leaky_coefficient, impl="auto",
                 return forward_backward_semiring(x, lengths, g)
             return forward_backward_semiring_kernel(x, lengths, g)
         if isinstance(g, FactorizedArrays):
-            px = torch.exp(x)
-            engine = "xla" if impl == "factorized" else resolved_engine(g)
-            if engine == "xla":
-                return forward_backward_prob_fact(px, lengths, g,
-                                                  leaky_coefficient)
-            if engine == "stream":
-                return stream_kernels.forward_backward_prob_stream(
-                    px, lengths, g, leaky_coefficient, debug=debug)
-            return fact_kernels.forward_backward_prob_kernel(
-                px, lengths, g, leaky_coefficient, debug=debug)
+            return _run_fact(x, lengths, g, leaky_coefficient, impl, debug)
+        if isinstance(g, GraphArrays):
+            if g.leaky is not None:
+                return forward_backward_prob(torch.exp(x), lengths, g,
+                                             leaky_coefficient)
+            return forward_backward_log(x, lengths, g)
     raise TypeError(f"no engine for {type(g).__name__}")
 
 

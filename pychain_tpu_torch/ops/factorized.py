@@ -110,6 +110,17 @@ class FactorizedArrays:
     # "identity": g == f on W2's support, so x_src = x_dst;
     # "matrix"/"stream": x_src = E_g @ px (see graphs/factorize.py)
     xsrc_mode: str = "stream"
+    # True when this factorization serves a log-domain graph in
+    # normalized-linear form (its weights exp'd: exact for hard zeros).
+    # The loss then forces leaky_coefficient 0 (no leaky HMM in the log
+    # domain, graph.py:54-59) and guards dead sequences to the log
+    # engines' contract (objf -inf, gamma 0, ok False).
+    log_semantics: bool = False
+    # (2,) float32 [arc_shift, const_shift] when the log_semantics
+    # weights were re-centered into float32's exp-safe band: every
+    # length-L path was rescaled by exp(-(arc_shift L + const_shift)),
+    # which the loss adds back onto objf.  None for a graph in the band.
+    log_shifts: Optional[torch.Tensor] = None
 
     @property
     def s_pad(self) -> int:

@@ -146,7 +146,9 @@ def plan(s_pad: int, k_pad: int, P: int, n_emit: int) -> dict:
             f"shared memory per block than the {MAX_SMEM} bytes a Hopper "
             "block has, in every layout (2 S_pad + K_pad <= 28,992 fits); "
             "kernels that stream the state vectors are not written yet "
-            "(ROADMAP.md, B5-B10 limits)")
+            "(ROADMAP.md, B5-B10 limits): impl='gather' runs such a batch "
+            "on the generic gather engine, impl='semiring' on the plain "
+            "version")
     return out
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ..graph import ChainGraphBatch
 from ..utils.device import host_to
+from .fwdbwd import GraphArrays
 from .semiring import SemiringArrays
 
 NEG_INF = float("-inf")
@@ -138,6 +139,19 @@ def viterbi_plain(x, lengths, g: SemiringArrays) -> ViterbiResult:
     return _finish(lengths, delta_end, bps, g)
 
 
+def _from_graph_arrays(ga: GraphArrays) -> SemiringArrays:
+    """The arc-id form of a log-domain GraphArrays (its ``bwd_*`` arcs:
+    the in-arc lists are their runs), built once and kept with it."""
+    if ga.leaky is not None:
+        raise ValueError("viterbi_align needs a log-domain graph "
+                         "(numerator supervision), got a prob-domain one")
+    key = ("semiring", ga.device)
+    if key not in ga.plans:
+        from ..convert import viterbi_from_numpy
+        ga.plans[key] = viterbi_from_numpy(ga.to("cpu"), ga.device)
+    return ga.plans[key]
+
+
 # ----------------------------------------------------------------------
 # The entry point
 # ----------------------------------------------------------------------
@@ -149,8 +163,9 @@ def viterbi_align(x, x_lengths, graphs, emission_mode: str = "auto",
 
     x (B, T, P) nnet log-likelihoods (a tensor; the device it lies on
     runs the sweep), x_lengths (B,) in [0, T], graphs a log-domain
-    ``ChainGraphBatch`` (list or shared) or :class:`SemiringArrays` with
-    B rows or one on x's device.  Returns per-frame pdf ids and states
+    ``ChainGraphBatch`` (list or shared), the gather engine's
+    ``GraphArrays`` of one (its arc-id form: the same kernel) or
+    :class:`SemiringArrays` with B rows or one on x's device.  Returns per-frame pdf ids and states
     along the single best path: the max-plus counterpart of
     ``chain_function``.
 
@@ -181,9 +196,11 @@ def viterbi_align(x, x_lengths, graphs, emission_mode: str = "auto",
             raise ValueError(f"input batch size ({x.shape[0]}) does not "
                              f"equal the graph batch size "
                              f"({graphs.batch_size})")
+    elif isinstance(graphs, GraphArrays):
+        g = _from_graph_arrays(graphs)
     elif not isinstance(graphs, SemiringArrays):
-        raise TypeError("graphs must be a ChainGraphBatch or SemiringArrays,"
-                        f" got {type(graphs).__name__}")
+        raise TypeError("graphs must be a ChainGraphBatch, GraphArrays or "
+                        f"SemiringArrays, got {type(graphs).__name__}")
     B, T, P = x.shape
     if g.rows not in (1, B):
         raise ValueError(f"graph arrays have {g.rows} rows, the batch {B}")

@@ -133,7 +133,9 @@ def plan(s_pad: int, k_pad: int, P: int, max_in_degree: int,
             f"a Viterbi batch with S_pad={s_pad} states needs "
             f"{MAX_SMEM - room} bytes of shared memory per block for its "
             f"double-buffered scores, over the {MAX_SMEM} a Hopper block "
-            "has (S_pad <= 29,056)")
+            "has (S_pad <= 29,056): viterbi_align(..., sweep='scatter') "
+            "aligns such a batch on the plain version, and the loss on it "
+            "runs with impl='gather'")
     lists = 4 * (s_pad + 1) + 8 * k_pad       # as smem_bytes counts them
     resident = P <= 1 << 16 and lists <= room
     room -= lists * resident

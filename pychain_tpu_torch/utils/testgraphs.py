@@ -129,3 +129,26 @@ def sausage_fst(pdf_alternatives, seed=0):
         prev_level = level
     finals = {s: float(rng.uniform(0.0, 0.5)) for s in prev_level}
     return FST.from_arcs(num_states, 0, arcs, finals)
+
+
+def entry_chain_fst(fst, n, entry_label=1, chain_label=2):
+    """``fst`` entered through a chain of ``n`` new states (numbered after
+    its own, the first of them the start), so that no path is shorter
+    than n + the shortest path of ``fst``: a length below that is
+    infeasible for every sequence, a dead column in a shared graph.  The
+    arc into the old start carries ``entry_label`` (a denominator_fst's
+    start state is entered on label 1, so its emission stays that of
+    the state's other in-arcs and the graph still factorizes fully);
+    the chain's other arcs carry ``chain_label``.  Not in the JAX
+    package's copy."""
+    S = fst.num_states
+    arcs = [(S + i, S + i + 1, chain_label, chain_label, 0.2)
+            for i in range(n - 1)]
+    arcs.append((S + n - 1, fst.start, entry_label, entry_label, 0.1))
+    for s in range(S):
+        il, ol, w, nxt = fst.state_arcs(s)
+        arcs.extend((s, int(d), int(a), int(b), float(x))
+                    for a, b, x, d in zip(il, ol, w, nxt))
+    finals = {s: float(fst.final[s]) for s in range(S)
+              if np.isfinite(fst.final[s])}
+    return FST.from_arcs(S + n, S, arcs, finals)

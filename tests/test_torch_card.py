@@ -1731,3 +1731,210 @@ class TestRecipe:
         for k, want in sh.items():
             err = float(torch.linalg.vector_norm(sc[k] - want))
             assert err <= 1e-4 * float(torch.linalg.vector_norm(want)), k
+
+
+# ----------------------------------------------------------------------
+# Shared log-domain graphs (leaky 0) and the generic gather engine
+# ----------------------------------------------------------------------
+
+def _dead_batch(dev, tile_dtype=None, B=4, T=9, seed=8):
+    """A shared log-domain denominator entered through a chain of 4
+    states (no path shorter than 5 frames), x, and lengths whose second
+    column (3 frames) is dead."""
+    from pychain_tpu_torch.utils.testgraphs import entry_chain_fst
+    fst, P = denominator_fst(num_phones=8, states_per_phone=2, seed=4)
+    batch = pt.ChainGraphBatch(
+        pt.ChainGraph(entry_chain_fst(fst, 4), log_domain=True), B,
+        tile_dtype=tile_dtype, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, P, generator=g)
+    return batch, x, torch.tensor([9, 3, 7, 5][:B])
+
+
+def _guarded_match(got, ref, live, fast):
+    """got (card) and ref (plain) after the log engines' guard: the dead
+    column -inf / 0 / not ok, the live ones equal (bit for bit in the
+    fast mode, else within 1e-4)."""
+    from pychain_tpu_torch.loss import _guard_infeasible
+    got, ref = _guard_infeasible(got), _guard_infeasible(ref)
+    assert got.objf[1] == float("-inf") and not bool(got.ok[1])
+    assert float(got.gamma[1].abs().sum()) == 0.0
+    assert bool(got.ok[live].all())
+    if fast:
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+            assert torch.equal(getattr(got, name)[live].cpu(),
+                               getattr(ref, name)[live].cpu()), name
+    else:
+        _assert_loss_close(
+            got._replace(**{n: getattr(got, n)[live].cpu() for n in
+                            ("objf", "gamma", "alpha_beta", "gamma_sum")}),
+            ref._replace(**{n: getattr(ref, n)[live].cpu() for n in
+                            ("objf", "gamma", "alpha_beta", "gamma_sum")}))
+
+
+class TestLogSemantics:
+    """B1/B2 and B3/B4 at leaky 0 on a shared log-domain graph with a dead
+    column, against their plain version on the card; the loss on such a
+    graph against the CPU."""
+
+    @pytest.mark.parametrize("stream_mode", ["full", "lean", "ckpt"])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_cuda_b1_b2_at_leaky_zero(self, cuda, tile_dtype, stream_mode):
+        batch, x, lens = _dead_batch(cuda, tile_dtype)
+        fa = batch._fact
+        assert fa.log_semantics and fk.supports(fa)
+        px = torch.exp(x).to(cuda)
+        got = fk.forward_backward_prob_kernel(px, lens, fa, 0.0,
+                                              stream_mode=stream_mode,
+                                              ckpt_chunk=4)
+        ref = forward_backward_prob_mode(px, lens.to(cuda), fa, 0.0,
+                                         stream_mode, 4)
+        torch.cuda.synchronize()
+        _guarded_match(got, ref, [0, 2, 3], tile_dtype is not None)
+
+    @pytest.mark.parametrize("C", [1, 2])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_cuda_b3_b4_at_leaky_zero(self, cuda, tile_dtype, C):
+        batch, x, lens = _dead_batch(cuda, tile_dtype)
+        fa = batch._fact
+        px = torch.exp(x).to(cuda)
+        got = stk.forward_backward_prob_stream(px, lens, fa, 0.0, cluster=C,
+                                               columns=1)
+        if tile_dtype:
+            ref = forward_backward_prob_fast(px, lens.to(cuda), fa, 0.0,
+                                             cluster=C)
+        else:
+            ref = forward_backward_prob_fact(px, lens.to(cuda), fa, 0.0)
+        torch.cuda.synchronize()
+        _guarded_match(got, ref, [0, 2, 3], tile_dtype is not None)
+
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_cuda_dead_column_is_contained(self, cuda, tile_dtype):
+        """Every live column equals the same batch without the dead one,
+        bit for bit: no NaN crosses columns."""
+        batch, x, lens = _dead_batch(cuda, tile_dtype)
+        alone = pt.ChainGraphBatch(batch._graph, 3, tile_dtype=tile_dtype,
+                                   device=cuda)
+        live = [0, 2, 3]
+        a = pt.chain_function_with_aux(x.to(cuda), lens, batch)[1]
+        b = pt.chain_function_with_aux(x[live].to(cuda), lens[live],
+                                       alone)[1]
+        assert a.objf[1] == float("-inf")
+        for name in ("objf", "gamma", "ok"):
+            assert torch.equal(getattr(a, name)[live], getattr(b, name)), name
+
+    def test_cuda_loss_matches_cpu(self, cuda):
+        from pychain_tpu_torch.loss import dispatch_arrays, resolved_engine
+        fst, P = denominator_fst(num_phones=12, states_per_phone=2, seed=3)
+        lens = torch.tensor([16, 11, 7, 1])
+        x = torch.randn(4, 16, P, generator=torch.Generator().manual_seed(5))
+        res = []
+        for dev in (cuda, torch.device("cpu")):
+            batch = pt.ChainGraphBatch(pt.ChainGraph(fst, log_domain=True), 4,
+                                       device=dev)
+            fa = dispatch_arrays(batch)
+            assert fa.log_semantics and resolved_engine(fa) == "pallas"
+            fk.reset_launch_counts()
+            res.append(pt.chain_function_with_aux(x.to(dev), lens, batch)[1])
+            if dev.type == "cuda":
+                assert fk.launched() == {"fact_fwd": 1, "fact_bwd": 1}
+        _assert_loss_close(*[r._replace(**{n: getattr(r, n).cpu() for n in
+                                           ("objf", "gamma", "alpha_beta",
+                                            "gamma_sum")}) for r in res])
+
+
+class TestGather:
+    """The generic gather engine on the card: deterministic, equal to the
+    kernels on what they serve, equal to the CPU on a prob-domain list."""
+
+    @pytest.mark.parametrize("kind", ["shared prob", "list log",
+                                      "list prob"])
+    def test_cuda_gather_is_deterministic(self, cuda, kind):
+        if kind == "shared prob":
+            fst, P = denominator_fst(num_phones=12, states_per_phone=2,
+                                     seed=3)
+            batch = pt.ChainGraphBatch(pt.ChainGraph(fst), 4, device=cuda)
+        else:
+            P = 10
+            gs = [pt.ChainGraph(random_fst(num_states=6 + b, num_pdfs=P,
+                                           seed=b),
+                                log_domain=kind == "list log")
+                  for b in range(4)]
+            batch = pt.ChainGraphBatch(gs, max_num_transitions=max(
+                g.num_transitions for g in gs), max_num_states=9,
+                device=cuda)
+        x = torch.randn(4, 16, P, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+        lens = torch.tensor([16, 11, 7, 1])
+        a = pt.chain_function_with_aux(x, lens, batch, impl="gather")[1]
+        b = pt.chain_function_with_aux(x, lens, batch, impl="gather")[1]
+        torch.cuda.synchronize()
+        assert a.gamma.is_cuda
+        assert torch.equal(a.gamma, b.gamma) and torch.equal(a.objf, b.objf)
+
+    @pytest.mark.parametrize("log_domain", [False, True])
+    def test_cuda_gather_matches_b1_b2(self, cuda, log_domain):
+        fst, P = denominator_fst(num_phones=12, states_per_phone=2, seed=3)
+        batch = pt.ChainGraphBatch(pt.ChainGraph(fst, log_domain=log_domain),
+                                   4, device=cuda)
+        x = torch.randn(4, 16, P, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+        lens = torch.tensor([16, 11, 7, 1])
+        fk.reset_launch_counts()
+        k = pt.chain_function_with_aux(x, lens, batch)[1]
+        assert fk.launched() == {"fact_fwd": 1, "fact_bwd": 1}
+        g = pt.chain_function_with_aux(x, lens, batch, impl="gather")[1]
+        assert fk.launched() == {"fact_fwd": 1, "fact_bwd": 1}
+        _assert_loss_close(g, k)
+
+    def test_cuda_gather_matches_the_semiring_kernels(self, cuda):
+        gs = [pt.ChainGraph(random_fst(num_states=6 + b, num_pdfs=10, seed=b),
+                            log_domain=True) for b in range(4)]
+        batch = pt.ChainGraphBatch(gs, max_num_transitions=max(
+            g.num_transitions for g in gs), max_num_states=9, device=cuda)
+        x = torch.randn(4, 16, 10, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(3))
+        lens = torch.tensor([16, 11, 7, 1])
+        semk.reset_launch_counts()
+        k = pt.chain_function_with_aux(x, lens, batch)[1]
+        assert semk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
+        g = pt.chain_function_with_aux(x, lens, batch, impl="gather")[1]
+        torch.testing.assert_close(g.objf, k.objf, rtol=1e-4, atol=0)
+        torch.testing.assert_close(g.gamma, k.gamma, rtol=0, atol=1e-4)
+
+    def test_cuda_prob_list_matches_cpu(self, cuda):
+        P = 10
+        gs = [pt.ChainGraph(random_fst(num_states=5 + 2 * b, num_pdfs=P,
+                                       seed=20 + b)) for b in range(4)]
+        x = torch.randn(4, 12, P, generator=torch.Generator().manual_seed(4))
+        lens = torch.tensor([12, 5, 9, 1])
+        res = []
+        for dev in (cuda, torch.device("cpu")):
+            batch = pt.ChainGraphBatch(gs, max_num_transitions=max(
+                g.num_transitions for g in gs), max_num_states=11,
+                device=dev)
+            res.append(pt.chain_function_with_aux(x.to(dev), lens,
+                                                  batch)[1])
+        got, ref = res
+        torch.testing.assert_close(got.objf.cpu(), ref.objf, rtol=1e-5,
+                                   atol=0)
+        torch.testing.assert_close(got.gamma.cpu(), ref.gamma, rtol=0,
+                                   atol=1e-5)
+
+    def test_cuda_viterbi_of_graph_arrays(self, cuda):
+        from pychain_tpu_torch.loss import graph_arrays
+        topo = ChainTopology(num_phones=4)
+        gs = [pt.ChainGraph(make_numerator_fst(p, topo), log_domain=True)
+              for p in ([1, 3, 0], [2, 2, 1, 0], [3, 0])]
+        batch = pt.ChainGraphBatch(gs, max_num_transitions=max(
+            g.num_transitions for g in gs), max_num_states=max(
+            g.num_states for g in gs), device=cuda)
+        x = torch.randn(3, 9, 8, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(6))
+        lens = [9, 8, 5]
+        vk.reset_launch_counts()
+        a = pt.viterbi_align(x, lens, graph_arrays(batch))
+        b = pt.viterbi_align(x, lens, batch)
+        assert vk.LAUNCHES["viterbi"] == 2
+        for name in a._fields:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name

@@ -38,7 +38,12 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.tools.xl_roofline, pychain_tpu_torch.models, "
             "pychain_tpu_torch.utils.checkpoint, pychain_tpu_torch.data, "
             "pychain_tpu_torch.csrc.native, pychain_tpu_torch.utils.optim, "
-            "pychain_tpu_torch.examples.train_corpus;"
+            "pychain_tpu_torch.examples.train_corpus, "
+            "pychain_tpu_torch.ops.fwdbwd, "
+            "pychain_tpu_torch.tools.build_graphs, "
+            "pychain_tpu_torch.examples.data_pipeline, "
+            "pychain_tpu_torch.examples.train_tdnn, "
+            "pychain_tpu_torch.examples.wav_to_train;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

@@ -8,6 +8,7 @@ import torch
 from pychain_tpu import ChainGraph as JChainGraph
 from pychain_tpu import ChainGraphBatch as JChainGraphBatch
 from pychain_tpu.loss import chain_function_with_aux as j_aux
+from pychain_tpu.loss import graph_arrays as j_graph_arrays
 
 import pychain_tpu_torch as pt
 from pychain_tpu_torch.convert import linear_from_numpy
@@ -66,9 +67,20 @@ def test_linear_detection_and_convert():
     batch = pt.ChainGraphBatch([cyclic], max_num_transitions=20,
                                max_num_states=5, device="cpu")
     assert batch._linear is None and batch._semiring is not None
-    # a prob-domain list still has no engine in the port
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ChainGraphBatch([pt.ChainGraph(random_fst(num_states=5,
-                                                     seed=0))],
-                           max_num_transitions=20, max_num_states=5,
-                           device="cpu")
+    # a prob-domain list builds, with the gather engine's arrays (its
+    # only engine), padded as the JAX package pads them
+    prob = random_fst(num_states=5, seed=0)
+    batch = pt.ChainGraphBatch([pt.ChainGraph(prob)], max_num_transitions=20,
+                               max_num_states=5, device="cpu")
+    assert batch._linear is None and batch._semiring is None
+    assert batch._fact is None and batch.semiring() is None
+    ga = batch.graph_arrays()
+    jga = j_graph_arrays(JChainGraphBatch([JChainGraph(prob)],
+                                          max_num_transitions=20,
+                                          max_num_states=5))
+    assert not ga.shared and ga.leaky is not None
+    for f in ("fwd_src", "fwd_dst", "fwd_pdf", "fwd_prob", "bwd_src",
+              "bwd_dst", "bwd_pdf", "bwd_prob", "initial", "final",
+              "leaky"):
+        np.testing.assert_array_equal(getattr(ga, f).numpy(),
+                                      np.asarray(getattr(jga, f)), f)

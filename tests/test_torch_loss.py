@@ -144,13 +144,18 @@ def test_error_probes():
         loss_mod(xt, lens + 1, nums)
     with pytest.raises(ValueError, match="batch size should be"):
         pt.ChainGraphBatch(den, device="cpu")
-    # a shared log-domain batch builds (it serves viterbi_align); the
-    # loss on it is not ported
+    # the loss on a shared log-domain batch runs (the factorized-log
+    # form) and equals the JAX package's
     shared_log = pt.ChainGraphBatch(pt.ChainGraph(den_fst, log_domain=True),
                                     xt.shape[0], device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: \"shared log-domain graphs\""):
-        pt_loss.chain_function(xt, lens, shared_log)
+    _, got = pt_loss.chain_function_with_aux(xt, lens, shared_log)
+    _, ref = j_aux(jnp.asarray(x), jnp.asarray(lens), JChainGraphBatch(
+        JChainGraph(den_fst, log_domain=True), xt.shape[0]))
+    np.testing.assert_allclose(got.objf.numpy(), np.asarray(ref.objf),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.gamma.numpy(), np.asarray(ref.gamma),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_loss.chain_function(xt, lens, nums, impl="leveled")
 

@@ -34,7 +34,9 @@ import torch
 
 from pychain_tpu import ChainGraph as JChainGraph
 from pychain_tpu import ChainGraphBatch as JChainGraphBatch
+from pychain_tpu import ChainLoss as JChainLoss
 from pychain_tpu import viterbi_align as j_viterbi
+from pychain_tpu.loss import chain_function_with_aux as j_aux
 from pychain_tpu.loss import graph_arrays as j_graph_arrays
 
 import pychain_tpu_torch as pt
@@ -363,19 +365,52 @@ def test_viterbi_from_numpy_of_jax_graph_arrays(case):
                               sweep="scatter"))
 
 
-def test_loss_on_a_shared_log_domain_batch_raises():
-    fsts, _, lengths, x = _case("shared")
-    shared, _ = _batches(fsts, True, x.shape[0])
+@pytest.mark.parametrize("case", ["mixed", "loud", "ties", "shared"])
+def test_viterbi_of_graph_arrays(case):
+    """viterbi_align given the gather engine's GraphArrays of a batch
+    equals it given the batch (the same arc-id form) and the JAX
+    package's given its GraphArrays; a prob-domain GraphArrays raises
+    the JAX package's ValueError."""
+    fsts, shared, lengths, x = _case(case, seed=4)
+    mine, theirs = _batches(fsts, shared, x.shape[0])
+    ga = pt_loss.graph_arrays(mine)
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: \"shared log-domain graphs\""):
-        pt_loss.chain_function(xt, lengths, shared)
+    a = pt.viterbi_align(xt, lengths, ga)
+    b = pt.viterbi_align(xt, lengths, mine)
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert pt.viterbi_align(xt, lengths, ga).objf.equal(a.objf)   # kept
+    _assert_same(a, j_viterbi(jnp.array(x), lengths, j_graph_arrays(theirs),
+                              sweep="scatter"))
+    den = pt.ChainGraphBatch(pt.ChainGraph(random_fst(num_states=5,
+                                                      num_pdfs=P)),
+                             x.shape[0], device="cpu")
+    with pytest.raises(ValueError, match="prob-domain"):
+        pt.viterbi_align(xt, lengths, pt_loss.graph_arrays(den))
+
+
+def test_loss_on_a_shared_log_domain_batch_matches_jax():
+    """The loss on the shared flat-start batch (its factorized-log form)
+    and ChainLoss with that graph as the denominator both equal the JAX
+    package's."""
+    fsts, _, lengths, x = _case("shared")
+    shared, jshared = _batches(fsts, True, x.shape[0])
+    xt = torch.from_numpy(x)
+    _, got = pt_loss.chain_function_with_aux(xt, lengths, shared)
+    _, ref = j_aux(jnp.asarray(x), jnp.asarray(lengths), jshared)
+    np.testing.assert_allclose(got.objf.numpy(), np.asarray(ref.objf),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.gamma.numpy(), np.asarray(ref.gamma),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
     loss = pt.ChainLoss(pt.ChainGraph(fsts[0], log_domain=True),
                         device="cpu")
-    nums, _ = _batches(fsts * x.shape[0], False, x.shape[0])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: \"shared log-domain graphs\""):
-        loss(xt, lengths, nums)
+    jloss = JChainLoss(JChainGraph(fsts[0], log_domain=True))
+    nums, jnums = _batches(fsts * x.shape[0], False, x.shape[0])
+    np.testing.assert_allclose(
+        float(loss(xt, lengths, nums)),
+        float(jloss(jnp.asarray(x), jnp.asarray(lengths), jnums)),
+        rtol=1e-5)
 
 
 @pytest.mark.parametrize("built_before", [True, False])
