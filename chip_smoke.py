@@ -240,16 +240,43 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    T=500) against B1/B2 (objf rel and gamma max-abs <= 1e-4, both ms, no
    kernel launched under gather), a list of 8 per-sequence prob-domain
    graphs (tools/prob_list_gather.py's: S=2000, K=13,000, T=300, P=2000)
-   through auto, which is the gather engine: finite, ok, equal on the
-   card and on the CPU within 1e-4, its ms; viterbi_align given the
-   GraphArrays of main path 3's batch equals it given the batch (after
-   phase 8);
+   through impl="gather": finite, ok, equal on the card and on the CPU
+   within 1e-4, its ms; viterbi_align given the GraphArrays of main
+   path 3's batch equals it given the batch (after phase 8);
 12f. the examples: python -m pychain_tpu_torch.tools.build_graphs on a
    data dir holding wav_to_train.synth_corpus's text (den.fst and
    num.scp read back), then examples.data_pipeline, examples.train_tdnn
    (12 steps) and examples.wav_to_train (20 steps) in process with the
    device at its default, the card: each one's launches (counts reset
    before, read after) and losses, finite, wav_to_train's falling;
+12g. main path 9, the other list engines and data parallelism (each
+   multi-rank phase's ranks are subprocesses started as torchrun starts
+   them, under a 300 s limit, every exit code checked): (a)
+   python -m pychain_tpu_torch.tools.sharded_check --precision both:
+   ShardedChainLoss at main path 1's width (the headline denominator,
+   B=128, T=500, linear numerators) in float32 and with bfloat16 tiles,
+   on a group of one rank over NCCL (value and gradient bit for bit
+   ChainLoss's) and on 2 gloo ranks sharing the card (64 rows each: loss
+   within 1e-6 relative, each rank's gradient rows within 1e-4, whether
+   bit-identical printed), each rank's step beside ChainLoss's and main
+   path 1's, and train-mode BatchNorm on a rank's rows against the whole
+   batch's statistics (1e-5); (c) the 2 ranks' save_sharded /
+   restore_sharded round trip (each rank's rows, the whole array into a
+   plain tensor); (b) the
+   recipe with --dp at main path 6 (d)'s width on one rank (in this
+   process, NCCL: (d)'s 12 steps and 2 warm-up steps, the losses against
+   (d)'s within 1e-5, utts/s over the same 10 steps beside (d)'s), the
+   recipe at a small width and train_tdnn on 2 gloo
+   ranks (three steps, TF32 off, losses within 1e-5 of one process on
+   the whole batch); (d) dense_list at phase 12e's prob-domain list:
+   auto's choice on the card, against the gather engine (objf 1e-5,
+   gamma 1e-4), gamma bit-identical on a rerun, bfloat16 blocks within
+   the bfloat16 budget, both times; (e, run after phase 8)
+   impl="leveled" (the JAX package's banded engine, auto in the port)
+   at main path 3's constrained batch: the semiring kernels once each,
+   auto's bits, bit-identical on a rerun, its time; the launches of
+   B1/B2 in both forms and of the semiring pair on the path must be
+   nonzero;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -285,7 +312,8 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    one each (its plan's time, and at C=1, 2 and 4); main path 8 one for
    each B1/B2 kernel in both precisions and one for each of B3/B4 at its
    cluster-tier check ("leaky": 0, their launches in main path 8's
-   counted steps);
+   counted steps); the rows of B1/B2 (both forms) and of the semiring
+   pair at main path 3's batch also count main path 9's launches;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -3425,6 +3453,13 @@ def p6_viterbi(label, caps, dev):
     return vit_class(f"main path 6 {label}", g, x.to(dev), lens, 5)
 
 
+# main path 6 (d): the recipe at bench.py's width
+P6_WIDTH = ["--synthetic-graphs", "random", "--corpus-phones", "1500",
+            "--corpus-utts", "512", "--corpus-min-t", "400",
+            "--corpus-max-t", "500", "--batch-size", "128", "--tile-dtype",
+            "bfloat16", "--model", "tdnn", "--diag-every", "0"]
+
+
 def main_path_6(counters, p5_utts_per_s, tf32_defaults):
     """Main path 6, the corpus recipe (examples/train_corpus.py) through
     the port's own (pychain_tpu_torch/examples/train_corpus.py) on the
@@ -3555,10 +3590,7 @@ def main_path_6(counters, p5_utts_per_s, tf32_defaults):
     # are captured in a one-step rerun at the same arguments (the same
     # corpus, weights and first batch), so that copying 0.77 GB of px to
     # the host does not disturb the timed run or its peak memory
-    width = ["--synthetic-graphs", "random", "--corpus-phones", "1500",
-             "--corpus-utts", "512", "--corpus-min-t", "400",
-             "--corpus-max-t", "500", "--batch-size", "128", "--tile-dtype",
-             "bfloat16", "--model", "tdnn", "--diag-every", "0"]
+    width = P6_WIDTH
     torch.cuda.reset_peak_memory_stats()
     res, launched, secs = run(
         "(d) bench width", width + ["--steps", "12", "--warmup-steps", "2"],
@@ -3584,7 +3616,8 @@ def main_path_6(counters, p5_utts_per_s, tf32_defaults):
                                          "1"], "(d)")
     out["bench"] = {"utts_per_s": res["utts_per_s"],
                     "frames_per_s": res["frames_per_s"], "pipeline": pipe,
-                    "peak_gib": peak, "seconds": secs}
+                    "peak_gib": peak, "seconds": secs,
+                    "losses": res["losses"]}
 
     # (e) a checkpoint round trip: six steps, then a resume to twelve
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3910,8 +3943,10 @@ def gather_beside_kernels(dev, head_den, P, counters):
     batch against the semiring kernels, main path 1's denominator
     against B1/B2 (objf rel and gamma max-abs <= 1e-4, both times), and
     a list of per-sequence prob-domain graphs (tools/prob_list_gather.py's
-    size: B=8, S=2000, K=13,000, T=300) through auto, on the card and on
-    the CPU (1e-4).  Returns the figures printed."""
+    size: B=8, S=2000, K=13,000, T=300) through impl="gather", on the
+    card and on the CPU (1e-4).  Returns the figures printed, and the
+    prob-domain list's card batch, x, lengths and gather result under
+    "prob list batch" (main path 9 (d) runs dense_list on them)."""
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch
     from pychain_tpu_torch.loss import chain_function_with_aux
     from pychain_tpu_torch.utils.testgraphs import (denominator_fst,
@@ -3969,13 +4004,15 @@ def gather_beside_kernels(dev, head_den, P, counters):
                                 max_num_states=S, device=d)
         batch.graph_arrays()           # the arrays and plans, built once
         if d.type == "cuda":
-            chain_function_with_aux(x.to(d), lens, batch)     # warm-up
+            chain_function_with_aux(x.to(d), lens, batch,
+                                    impl="gather")           # warm-up
             (r, launches), p_ms = event_ms(lambda: counted(
                 counters, lambda: chain_function_with_aux(
-                    x.to(d), lens, batch)[1]))
+                    x.to(d), lens, batch, impl="gather")[1]))
+            card_batch = batch
         else:
             t0 = time.perf_counter()
-            r = chain_function_with_aux(x, lens, batch)[1]
+            r = chain_function_with_aux(x, lens, batch, impl="gather")[1]
             cpu_ms = (time.perf_counter() - t0) * 1e3
         res.append(r)
     got, ref = res
@@ -3983,7 +4020,7 @@ def gather_beside_kernels(dev, head_den, P, counters):
     gamma_abs = absmax(got.gamma.cpu(), ref.gamma)
     print(f"# prob-domain list (B={Bp} S={graphs[0].num_states} "
           f"K<={max(g.num_transitions for g in graphs)} T={Tp} P={Pp}) "
-          f"through auto (the gather engine): card {p_ms:.1f} ms, host "
+          f"through impl='gather': card {p_ms:.1f} ms, host "
           f"{cpu_ms:.1f} ms, launches {launches}; card against CPU objf "
           f"rel {objf_rel:.3e}, gamma max-abs {gamma_abs:.3e}", flush=True)
     check(bool(torch.isfinite(got.objf).all()) and bool(got.ok.all()),
@@ -3992,6 +4029,7 @@ def gather_beside_kernels(dev, head_den, P, counters):
     check(objf_rel <= TOL and gamma_abs <= TOL and not launches,
           f"prob-domain list: card vs CPU {objf_rel:.3e}, {gamma_abs:.3e}")
     out["prob list"] = (p_ms, cpu_ms)
+    out["prob list batch"] = (card_batch, x.to(dev), lens, got, graphs)
     return out
 
 
@@ -4067,6 +4105,305 @@ def examples_phase(counters):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# ----------------------------------------------------------------------
+# Main path 9: the other list engines and data parallelism
+# ----------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+RANK_TIMEOUT = 300     # seconds a multi-rank phase's ranks may take
+# a rank of an example under a launcher: its result's losses and every
+# kernel wrapper's launches, as one JSON line
+EXAMPLE_RANK = (
+    "import json, sys\n"
+    "from pychain_tpu_torch.examples import {mod} as m\n"
+    "from pychain_tpu_torch.ops import fact_kernels, semiring_kernels, "
+    "stream_kernels, viterbi_kernels\n"
+    "r = m.main(sys.argv[1:])\n"
+    "n = {{}}\n"
+    "for k in (fact_kernels, semiring_kernels, stream_kernels, "
+    "viterbi_kernels):\n"
+    "    n.update({{a: b for a, b in k.LAUNCHES.items() if b}})\n"
+    "print(json.dumps({{'example': {{'losses': r['losses'], 'dp': r['dp'], "
+    "'launches': n}}}}), flush=True)\n")
+
+
+def run_ranks(label, argv, n, **env_extra):
+    """``python argv`` in n processes, each started as torchrun starts a
+    rank (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT; and ``env_extra``), under one time limit.  A rank that fails or hangs
+    fails the phase (every process is killed first).  Returns each
+    rank's JSON lines, parsed."""
+    import socket
+    import tempfile
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       TMPDIR=tempfile.gettempdir(),
+                       PYTHONPATH=REPO + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""), **env_extra)
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], cwd=REPO, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        deadline = time.perf_counter() + RANK_TIMEOUT
+        logs = []
+        for r, p in enumerate(procs):
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                fail(f"main path 9 {label}: rank {r} of {n} ran past "
+                     f"{RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for r, (p, (so, se)) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"main path 9 {label}: rank {r} of {n} "
+              f"exited {p.returncode}:\n{se[-3000:]}")
+        out.append([json.loads(line) for line in so.splitlines()
+                    if line.startswith("{")])
+    return out
+
+
+def add_launches(total, launched):
+    for k, v in launched.items():
+        if v:
+            total[k] = total.get(k, 0) + v
+
+
+def p9_sharded(path1_ms, path1_fast_ms):
+    """(a) ShardedChainLoss at main path 1's full width (the headline
+    denominator, B=128, T=500, linear numerators), float32 and fast, on
+    a group of one rank (NCCL; equal to ChainLoss bit for bit) and on 2
+    gloo ranks sharing the card (64 rows each: loss within 1e-6
+    relative, each rank's gradient rows within 1e-4), and (c) the 2
+    ranks' sharded checkpoint round trip.  Returns the figures and the
+    kernel launches of the sharded steps."""
+    ckpt = os.path.join(REPO, ".chip_smoke_ckpt", "sharded")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out, launches = {}, {}
+    try:
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            ranks = run_ranks(
+                f"(a) {n} rank(s)",
+                ["-m", "pychain_tpu_torch.tools.sharded_check",
+                 "--precision", "both"] + (["--ckpt", ckpt] if n > 1 else []),
+                n)
+            secs = time.perf_counter() - t0
+            for lines in ranks:
+                for line in lines:
+                    r = line["sharded_check"]
+                    key = (n, r["precision"])
+                    out.setdefault(key, []).append(r)
+                    add_launches(launches, r["launches"])
+            print(f"# main path 9 (a) on {n} rank(s): {secs:.1f} s of "
+                  "command", flush=True)
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    for (n, prec), rs in sorted(out.items()):
+        ref_ms = path1_ms if prec == "parity" else path1_fast_ms
+        for r in rs:
+            print(f"# main path 9 (a) {prec}, rank {r['rank']} of {n} "
+                  f"({r['backend']}, {r['rows']} rows): loss {r['loss']!r} "
+                  f"(ChainLoss {r['plain_loss']!r}, rel {r['loss_rel']:.3e}, "
+                  f"bit-identical {r['loss_bitwise']}); gradient rows "
+                  f"max-abs {r['grad_abs']:.3e}, bit-identical "
+                  f"{r['grad_bitwise']}; BatchNorm over the ranks "
+                  f"{r.get('batchnorm')}; step {r['ms']:.3f} ms sharded, "
+                  f"{r['plain_ms']:.3f} ms ChainLoss on B=128 in the same "
+                  f"process (main path 1's step {ref_ms:.3f} ms); launches "
+                  f"{r['launches']} over {r['steps']} steps", flush=True)
+            pair = (("fact_fwd", "fact_bwd") if prec == "parity"
+                    else ("fact_fwd_bf16", "fact_bwd_bf16"))
+            check(all(r["launches"].get(k) == r["steps"] for k in pair)
+                  and r["finite"], f"main path 9 (a) {prec} rank "
+                  f"{r['rank']}/{n}: launches {r['launches']}")
+            bn = r.get("batchnorm")     # with the first precision's line
+            check(prec != "parity" or (bn["out_abs"] <= 1e-5
+                                       and bn["stats_abs"] <= 1e-6),
+                  f"main path 9 (a) BatchNorm over {n} rank(s): {bn}")
+            if n == 1:
+                check(r["backend"] == "nccl" and r["loss_bitwise"]
+                      and r["grad_bitwise"], f"main path 9 (a) {prec}, one "
+                      f"rank: {r}")
+            else:
+                check(r["backend"] == "gloo" and r["loss_rel"] <= 1e-6
+                      and r["grad_abs"] <= TOL, f"main path 9 (a) {prec}, "
+                      f"{n} ranks: {r}")
+                c = r.get("ckpt")    # with the first precision's line
+                check(prec != "parity" or (
+                    c and c["step"] == 7 and c["rows_equal"]
+                    and c["whole_equal"] and c["scalar"] == 7.0),
+                    f"main path 9 (c) rank {r['rank']}: {c}")
+        check(len({r["loss"] for r in rs}) == 1,
+              f"main path 9 (a) {prec}: the ranks' losses differ")
+    print("# main path 9 (c): save_sharded / restore_sharded on 2 ranks: "
+          "each rank's rows back bit for bit, the whole array into a "
+          "plain tensor, the scalar", flush=True)
+    return out, launches
+
+
+def example_ranks(label, mod, argv, n):
+    """``mod``'s main on n ranks under a launcher, TF32 off
+    (NVIDIA_TF32_OVERRIDE=0: cuDNN picks its algorithms by batch size, and
+    TF32 rounding would hide the comparison): each rank's losses and
+    launches."""
+    return [lines[-1]["example"] for lines in run_ranks(
+        label, ["-c", EXAMPLE_RANK.format(mod=mod), *argv], n,
+        NVIDIA_TF32_OVERRIDE="0")]
+
+
+def p9_recipe(counters, tf32_defaults, p6_bench):
+    """(b) --dp: the recipe at main path 6 (d)'s width on a group of one
+    rank (in this process, NCCL, PyTorch's TF32 defaults as in (d); (d)'s
+    12 steps with its 2 warm-up steps, so that both steady-state windows
+    are the same 10 steps; the 12 losses against (d)'s, 1e-5), then at a
+    small width
+    (B=8, 16 utterances) and train_tdnn (B=8, 64 utterances), each on 2
+    gloo ranks sharing the card against one process on the whole batch
+    (3 steps, 1e-5, TF32 off in both)."""
+    from pychain_tpu_torch.examples import train_corpus as tc
+    from pychain_tpu_torch.examples import train_tdnn as tt
+    out, launches = {}, {}
+    argv = P6_WIDTH + ["--steps", "12", "--warmup-steps", "2", "--dp"]
+    print("# main path 9 (b): python -m pychain_tpu_torch.examples."
+          f"train_corpus {' '.join(argv)}", flush=True)
+    try:
+        with tf32(*tf32_defaults):
+            t0 = time.perf_counter()
+            res, launched = counted(counters, lambda: tc.main(argv))
+            secs = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    add_launches(launches, launched)
+    rel_d = max(abs(a - b) / max(1.0, abs(b)) for a, b in
+                zip(res["losses"], p6_bench["losses"]))
+    print(f"# main path 9 (b) the recipe at main path 6 (d)'s width, --dp "
+          f"on {res['dp']} rank (nccl), 12 steps, 10 in the steady state "
+          f"as in (d): {res['utts_per_s']!r} utts/s (main path 6 (d) "
+          f"{p6_bench['utts_per_s']!r}); losses {res['losses']} against "
+          f"(d)'s {p6_bench['losses']}, rel {rel_d:.3e}; {secs:.1f} s "
+          f"((d) {p6_bench['seconds']:.1f} s)", flush=True)
+    check(res["dp"] == 1 and len(res["losses"]) == 12 and rel_d <= 1e-5
+          and launched.get("fact_fwd_bf16") == launched.get("fact_bwd_bf16")
+          == 12, f"main path 9 (b) width: {res['losses']}, launches "
+          f"{launched}")
+    out["width"] = {"utts_per_s": res["utts_per_s"], "rel": rel_d,
+                    "launches": launched}
+    small = ["--steps", "3", "--batch-size", "8", "--corpus-utts", "16",
+             "--warmup-steps", "1", "--diag-every", "2"]
+    for name, mod, argv, fn in (("recipe", "train_corpus", small, tc.main),
+                                ("train_tdnn", "train_tdnn",
+                                 ["--steps", "3", "--verbose", "0"],
+                                 tt.main)):
+        t0 = time.perf_counter()
+        ranks = example_ranks(f"(b) {name}", mod, argv + ["--dp"], 2)
+        secs = time.perf_counter() - t0
+        with tf32(False, False):
+            one = fn(argv)["losses"]
+        rel = max(abs(a - b) / max(1.0, abs(b))
+                  for a, b in zip(ranks[0]["losses"], one))
+        for r in ranks:
+            add_launches(launches, r["launches"])
+        print(f"# main path 9 (b) {name} --dp on 2 gloo ranks sharing the "
+              f"card: losses {ranks[0]['losses']}, one process "
+              f"{one}, rel {rel:.3e}; launches by rank "
+              f"{[r['launches'] for r in ranks]}; {secs:.1f} s", flush=True)
+        check(all(r["dp"] == 2 and r["losses"] == ranks[0]["losses"]
+                  and r["launches"] for r in ranks) and len(one) == 3
+              and rel <= 1e-5, f"main path 9 (b) {name}: {ranks}, {one}")
+        out[name] = {"rel": rel, "s": secs}
+    return out, launches
+
+
+def p9_dense_list(batch, x, lens, gather_res, gather_ms, graphs):
+    """(d) dense_list at the prob-domain list of the gather A/B (B=8,
+    S=2000, K=13,000, T=300, P=2000): auto's choice on the card, against
+    the gather engine (objf 1e-5 relative, gamma 1e-4), gamma
+    bit-identical on a rerun, and with bfloat16 blocks (within the
+    bfloat16 budget of float32)."""
+    from pychain_tpu_torch import ChainGraphBatch
+    from pychain_tpu_torch.loss import chain_function_with_aux, \
+        dispatch_arrays
+    from pychain_tpu_torch.ops.dense_list import DenseListArrays
+    t0 = time.perf_counter()
+    arrs = dispatch_arrays(batch, "auto")
+    build_s = time.perf_counter() - t0
+    check(isinstance(arrs, DenseListArrays), f"main path 9 (d): auto chose "
+          f"{type(arrs).__name__} on the card")
+    chain_function_with_aux(x, lens, batch)                # warm-up
+    got, ms = event_ms(lambda: chain_function_with_aux(x, lens, batch)[1])
+    again = chain_function_with_aux(x, lens, batch)[1]
+    objf_rel = rel(got.objf, gather_res.objf)
+    gamma_abs = absmax(got.gamma, gather_res.gamma)
+    same = (torch.equal(got.gamma, again.gamma)
+            and torch.equal(got.objf, again.objf))
+    fast = ChainGraphBatch(graphs, max_num_transitions=batch.num_transitions,
+                           max_num_states=batch.num_states,
+                           tile_dtype="bfloat16", device=batch.device)
+    chain_function_with_aux(x, lens, fast)
+    f, f_ms = event_ms(lambda: chain_function_with_aux(x, lens, fast)[1])
+    f_rel = rel(f.objf, got.objf)
+    print(f"# main path 9 (d) dense_list (auto on the card: "
+          f"{type(arrs).__name__}, S_pad {arrs.s_pad}, residual arcs "
+          f"{arrs.res_src.shape[1]}, x_same {arrs.x_same}, built in "
+          f"{build_s:.2f} s): {ms:.1f} ms against the gather engine's "
+          f"{gather_ms:.1f} ms ({gather_ms / ms:.1f}x); objf rel "
+          f"{objf_rel:.3e}, gamma max-abs {gamma_abs:.3e}, gamma "
+          f"bit-identical on a rerun {same}; bfloat16 blocks {f_ms:.1f} ms, "
+          f"objf rel to float32 {f_rel:.3e}", flush=True)
+    check(objf_rel <= 1e-5 and gamma_abs <= TOL and same
+          and bool(got.ok.all()) and f_rel <= BF16_BUDGET["objf_rel"],
+          f"main path 9 (d): objf rel {objf_rel:.3e}, gamma "
+          f"{gamma_abs:.3e}, rerun {same}, ok {got.ok.tolist()}, bf16 "
+          f"{f_rel:.3e}")
+    return {"ms": ms, "gather_ms": gather_ms, "bf16_ms": f_ms,
+            "objf_rel": objf_rel, "gamma_abs": gamma_abs, "build_s": build_s}
+
+
+def p9_leveled(batch, x, lens, counters):
+    """(e) impl="leveled" (the JAX package's banded engine, "auto" in the
+    port) at main path 3's constrained batch (tolerance 3, B=128,
+    T=500): auto's arrays, one launch of each semiring kernel (counts
+    reset before, read after), auto's bits, bit-identical on a rerun;
+    its time."""
+    from pychain_tpu_torch.loss import chain_function_with_aux, \
+        dispatch_arrays
+    from pychain_tpu_torch.ops.semiring import SemiringArrays
+    auto = dispatch_arrays(batch, "auto")
+    check(isinstance(auto, SemiringArrays)
+          and dispatch_arrays(batch, "leveled") is auto,
+          f"main path 9 (e): auto chose {type(auto).__name__}, leveled "
+          f"{type(dispatch_arrays(batch, 'leveled')).__name__}")
+    k = chain_function_with_aux(x, lens, batch)[1]     # auto; the warm-up
+    (got, launched), ms = event_ms(lambda: counted(
+        counters, lambda: chain_function_with_aux(x, lens, batch,
+                                                  impl="leveled")[1]))
+    again = chain_function_with_aux(x, lens, batch, impl="leveled")[1]
+    as_auto = torch.equal(got.gamma, k.gamma) and torch.equal(got.objf,
+                                                              k.objf)
+    same = (torch.equal(got.gamma, again.gamma)
+            and torch.equal(got.objf, again.objf))
+    print(f"# main path 9 (e) impl=\"leveled\" at main path 3's batch "
+          f"(B={x.shape[0]}, T={x.shape[1]}): {type(auto).__name__}, "
+          f"launches {launched}, {ms:.3f} ms; auto's bits {as_auto}, "
+          f"bit-identical on a rerun {same}", flush=True)
+    check(as_auto and same and bool(got.ok.all())
+          and launched == {"semiring_fwd": 1, "semiring_bwd": 1},
+          f"main path 9 (e): auto's bits {as_auto}, rerun {same}, "
+          f"launches {launched}")
+    return {"ms": ms, "launches": launched}
 
 
 def bound(nbytes, ops, peak_flops=PEAK_F32_FLOPS):
@@ -4317,6 +4654,9 @@ def main():
     # by the JAX package's rule), under the x it was aligned on
     classes["path3"] = sr_class("xl", re_batch.semiring(), x_flat, lens,
                                 5, label="main path 3's batch")
+    # main path 9 (e): the banded engine on the same batch and x
+    p9_lev = p9_leveled(re_batch, x_flat, lens,
+                        (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES))
     del re_batch
     # the alignment of main path 3 given the batch's GraphArrays
     viterbi_of_graph_arrays(flat_batch, x_flat, lens, vk.LAUNCHES)
@@ -4387,6 +4727,25 @@ def main():
     print(f"# phases 12d-12f (main path 8, the gather A/Bs, the examples): "
           f"{time.perf_counter() - t8:.1f} s", flush=True)
 
+    # -- phase 12g: main path 9, data parallelism and dense_list ----------
+    t9 = time.perf_counter()
+    p9_sh, p9_launches = p9_sharded(step_ms[-1], fast_step_ms[-1])
+    p9_rec, rec_launches = p9_recipe(all_counters, tf32_defaults,
+                                     p6["bench"])
+    add_launches(p9_launches, rec_launches)
+    add_launches(p9_launches, p9_lev["launches"])
+    pb, px_, pl, pres, pgraphs = gather_ab.pop("prob list batch")
+    p9_dense = p9_dense_list(pb, px_, pl, pres, gather_ab["prob list"][0],
+                             pgraphs)
+    del pb, px_, pres
+    torch.cuda.empty_cache()
+    print(f"# main path 9 launches (the sharded steps, the --dp runs, the "
+          f"semiring kernels of (e)): {p9_launches}; phase 12g "
+          f"{time.perf_counter() - t9:.1f} s", flush=True)
+    for k in ("fact_fwd", "fact_bwd", "fact_fwd_bf16", "fact_bwd_bf16",
+              "semiring_fwd", "semiring_bwd"):
+        check(p9_launches.get(k), f"main path 9 launched no {k}")
+
     # -- phase 13: the XL roofline probe ----------------------------------
     from pychain_tpu_torch.tools import xl_roofline as xr
     xl_rows = xl_probe(dev)
@@ -4406,11 +4765,14 @@ def main():
             "source": f"pychain_tpu_torch/csrc/{name}.cu",
             "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}",
-            # main path 1's three steps and main path 5's float32 step
-            # (main path 6's launches: its own rows)
-            "launches": launches[name] + p5["launches"][name],
+            # main path 1's three steps, main path 5's float32 step and
+            # main path 9's sharded steps (main path 6's launches: its
+            # own rows)
+            "launches": (launches[name] + p5["launches"][name]
+                         + p9_launches.get(name, 0)),
             "launches_by_path": {"main path 1": launches[name],
-                                 "main path 5": p5["launches"][name]},
+                                 "main path 5": p5["launches"][name],
+                                 "main path 9": p9_launches.get(name, 0)},
             "max_abs_err": err, "max_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "bytes": nbytes, "ops": ops,
@@ -4428,9 +4790,11 @@ def main():
             "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, "
                            "bfloat16 tiles (fast mode)",
-            "launches": fast_launches[name] + p5["launches"][name],
+            "launches": (fast_launches[name] + p5["launches"][name]
+                         + p9_launches.get(name, 0)),
             "launches_by_path": {"main path 1 fast": fast_launches[name],
-                                 "main path 5": p5["launches"][name]},
+                                 "main path 5": p5["launches"][name],
+                                 "main path 9": p9_launches.get(name, 0)},
             "max_abs_err": r["max_abs_err"],
             "max_err": r["max_abs_err"], "entry_excess": r["entry_excess"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4591,6 +4955,9 @@ def main():
             bms, by = bound(nbytes, ops, PEAK_F64_FLOPS)
             by_path = ({sr_paths[batch_name]: sr_launches[batch_name][name]}
                        if batch_name in sr_launches else {})
+            if batch_name == "path3":
+                # main path 9 (e) runs auto on main path 3's batch
+                by_path["main path 9"] = p9_lev["launches"].get(name, 0)
             rows.append({
                 "name": name, "route": "cuda", "size_class": cls,
                 "batch": {"path3": "main path 3"}.get(batch_name,
@@ -4753,6 +5120,18 @@ def main():
           f"host {gather_ab['prob list'][1]:.1f} ms; examples: "
           + ", ".join(f"{k} {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}"
                       f" ({v['s']:.1f} s)" for k, v in examples.items()))
+    print(f"# main path 9 (step = value and gradient; ShardedChainLoss at "
+          f"main path 1's width): " + "; ".join(
+              f"{prec} on {n} rank(s) {rs[0]['ms']:.3f} ms (ChainLoss "
+              f"{rs[0]['plain_ms']:.3f}), loss rel {rs[0]['loss_rel']:.2e}, "
+              f"gradient bit-identical {all(r['grad_bitwise'] for r in rs)}"
+              for (n, prec), rs in sorted(p9_sh.items()))
+          + f"; recipe --dp at (d)'s width {p9_rec['width']['utts_per_s']!r} "
+          f"utts/s (rel {p9_rec['width']['rel']:.2e}); dense_list "
+          f"{p9_dense['ms']:.1f} ms (bfloat16 {p9_dense['bf16_ms']:.1f}) "
+          f"against gather {p9_dense['gather_ms']:.1f} ms; "
+          f"impl=\"leveled\" (auto: the semiring kernels) "
+          f"{p9_lev['ms']:.3f} ms")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@ numerators on a closed form, and any other log-domain numerator list
 (``ops/viterbi_kernels.py``).  The XL roofline probe
 (``python -m pychain_tpu_torch.tools.xl_roofline``) times its recurrence
 on a CUDA-core kernel and a tensor-core one (``tools/xl_roofline.py``).
+A list of per-sequence prob-domain graphs runs on dense blocks
+(``ops/dense_list.py``, plain PyTorch); data parallelism is
+``parallel/`` over ``torch.distributed``.
 
 Public surface, for what is ported (the reference's
 ``__init__.py:1-2`` re-exports loss + graph):

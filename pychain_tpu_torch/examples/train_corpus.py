@@ -39,6 +39,16 @@ As in the JAX recipe, the model runs in inference mode in every step
 (flax's ``train=False``): BatchNorm normalises with its running
 statistics, and those statistics are trained by Adam with the weights,
 since the JAX recipe differentiates its whole variables tree.
+
+``--dp`` trains data-parallel, one process per device: under
+``torchrun`` in the group its ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` / ``MASTER_PORT`` describe, else one process per local
+card (one rank alone on a host with one card).  Each rank takes its
+rows of every bucketed batch, its term is taken over the whole batch's
+frames and the gradients are summed over the ranks
+(``parallel/data_parallel.py``), so the steps are those of one process
+on the whole batch, as the JAX recipe's ``--dp`` step over its global
+batch.  Only rank 0 prints and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -283,23 +293,36 @@ def apply_model(model, x, lens, takes_lengths):
 
 def train_step(model, opt, x, lens, num_g, den_g, leaky=1e-5,
                xent_regularize=0.0, l2_regularize=0.0,
-               takes_lengths=False):
+               takes_lengths=False, dp=None):
     """One step: the model, ``chain_loss`` (or ``chain_loss_xent(out,
     out, ...)``, the single-head variant of Kaldi's regularisers), the
     backward pass and ``opt.step()``.  ``lens`` are the host lengths
-    (numpy), so nothing here waits for the card.  Returns the loss,
-    detached, on the device."""
+    (numpy), so nothing here waits for the card.  ``dp`` is (group,
+    frames) under data parallelism: this rank's rows' term over the
+    whole batch's frames, its value summed over the ranks
+    (``global_value``) and the gradients too (``sum_gradients``).
+    Returns the loss, detached, on the device."""
     model.eval()
     out = apply_model(model, x, lens, takes_lengths)
+    avg = dp is None
     if xent_regularize > 0.0 or l2_regularize > 0.0:
         loss, _ = chain_loss_xent(out, out, lens, num_g, den_g,
                                   leaky_coefficient=leaky,
                                   xent_regularize=xent_regularize,
-                                  l2_regularize=l2_regularize)
+                                  l2_regularize=l2_regularize, avg=avg)
     else:
-        loss = chain_loss(out, lens, num_g, den_g, leaky_coefficient=leaky)
+        loss = chain_loss(out, lens, num_g, den_g, leaky_coefficient=leaky,
+                          avg=avg)
+    if dp is not None:
+        from pychain_tpu_torch.parallel import global_value
+        loss = global_value(loss / dp[1], dp[0])
     opt.zero_grad()
     loss.backward()
+    if dp is not None:
+        from pychain_tpu_torch.parallel import sum_gradients
+        # ClipAdam's tensors, or a torch optimizer's parameters
+        sum_gradients(getattr(opt, "tensors", None) or [
+            p for g in opt.param_groups for p in g["params"]], dp[0])
     opt.step()
     return loss.detach()
 
@@ -351,8 +374,10 @@ def parse_args(argv=None):
                          "throughput report (kernel builds, graph "
                          "layouts, allocator warm-up)")
     ap.add_argument("--dp", action="store_true",
-                    help="data parallelism: not ported yet (ROADMAP.md: "
-                         "\"parallelism\"); raises NotImplementedError")
+                    help="data-parallel, one process per device: under "
+                         "torchrun in its group, else one process per "
+                         "local card; the batch's rows spread over the "
+                         "ranks")
     ap.add_argument("--device", type=str, default="cuda",
                     help="where the model, the loss and the decoder run "
                          "(the JAX recipe's JAX_PLATFORMS); 'cpu' runs "
@@ -420,28 +445,39 @@ def main(argv=None, on_event=None) -> dict:
     ``transfer`` a batch, ``starvation`` a step), ``skipped``, ``per`` /
     ``untrained_per`` (with --eval-per), ``ok`` (every diagnostic's),
     ``staged_mb``, ``num_pad`` (the numerator batches' (max arcs, max
-    states), then after --realign-at the new ones) and ``den_engine``
-    (the denominator's tier, ``loss.resolved_engine``).  ``on_event(name)``,
+    states), then after --realign-at the new ones), ``den_engine``
+    (the denominator's tier, ``loss.resolved_engine``) and ``losses``
+    (each step's).  ``on_event(name)``,
     when given, is called with "realign" just before the realignment and
     "realigned" just after it (a caller counts the kernels' launches of
-    each stage)."""
+    each stage).  With ``--dp`` it is rank 0's, ``dp`` the number of
+    ranks."""
     args = parse_args(argv)
-    if args.dp:
-        raise NotImplementedError(
-            "--dp: data parallelism is not ported yet (ROADMAP.md: "
-            "\"parallelism\"); run on one device")
     dev = resolve_device(args.device)
+    if not args.dp:
+        return _run(args, dev, on_event)
+    from pychain_tpu_torch.parallel.multihost import dp_main
+    return dp_main(main, argv, dev, args.batch_size,
+                   lambda d, dp: _run(args, d, on_event, dp=dp))
 
+
+def _run(args, dev, on_event=None, dp=None) -> dict:
+    """The recipe on ``dev``; ``dp`` = (rank, world) under --dp."""
+    rank, world = dp or (0, 1)
+    group = torch.distributed.group.WORLD if dp else None
     data_dir = args.data_dir
     if not data_dir:
-        data_dir = make_synthetic_corpus(default_corpus_dir(),
-                                         utts=args.corpus_utts,
-                                         num_phones=args.corpus_phones,
-                                         min_t=args.corpus_min_t,
-                                         max_t=args.corpus_max_t,
-                                         graphs=args.synthetic_graphs,
-                                         num_style=args.num_style,
-                                         signal=args.signal)
+        data_dir = default_corpus_dir()
+        if rank == 0:
+            make_synthetic_corpus(data_dir, utts=args.corpus_utts,
+                                  num_phones=args.corpus_phones,
+                                  min_t=args.corpus_min_t,
+                                  max_t=args.corpus_max_t,
+                                  graphs=args.synthetic_graphs,
+                                  num_style=args.num_style,
+                                  signal=args.signal)
+        if dp:
+            torch.distributed.barrier()
 
     keys, feats, nums, den_graph = load_corpus(data_dir)
     feat_dim = feats[0].shape[1]
@@ -480,21 +516,24 @@ def main(argv=None, on_event=None) -> dict:
         opt.load_state_dict(state["opt"])
         print(f"resumed from step {step0}")
 
-    def step_fn(x, lens, num_g, den_g):
+    def step_fn(x, lens, num_g, den_g, frames):
         return train_step(model, opt, x, lens, num_g, den_g,
                           leaky=args.leaky,
                           xent_regularize=args.xent_regularize,
                           l2_regularize=args.l2_regularize,
-                          takes_lengths=takes_lengths)
+                          takes_lengths=takes_lengths,
+                          dp=(group, frames) if dp else None)
 
     bucketer = LengthBucketer(
         BucketSpec.linear(step=args.bucket_step, max_t=max_t),
         shuffle=True)
     tile_dtype = args.tile_dtype or None
     # the shared denominator batch: built once, here, for the one batch
-    # shape the loop takes (partial batches are skipped)
+    # shape the loop takes (partial batches are skipped); under --dp a
+    # rank's rows of it
+    local_b = args.batch_size // world
     den_g = dispatch_arrays(ChainGraphBatch(
-        den_graph, args.batch_size, tile_dtype=tile_dtype, device=dev))
+        den_graph, local_b, tile_dtype=tile_dtype, device=dev))
     # which tier the loss takes for it (the JAX package's names): "xla",
     # the plain version, for a graph with residual arcs, which no
     # kernel takes
@@ -554,20 +593,24 @@ def main(argv=None, on_event=None) -> dict:
             if len(idx) < args.batch_size:
                 continue  # static shapes
             t0 = time.time()
+            # every rank buckets the whole batch (its frames, its padded
+            # length) and keeps its rows of it
+            frames = int(sum(lengths_all[int(i)] for i in idx))
+            t_pad = bucketer.padded_shape(lengths_all, idx)
+            idx = idx[rank * local_b:(rank + 1) * local_b]
             lens = np.asarray([lengths_all[int(i)] for i in idx], np.int32)
             if staged is not None:
                 # the x slot carries the index vector; the step gathers
                 # the staged arrays on the device
                 item = (torch.from_numpy(np.asarray(idx, np.int64)), None,
-                        lens)
+                        lens, frames)
             else:
-                t_pad = bucketer.padded_shape(lengths_all, idx)
                 x, _ = pad_to_bucket(feats, idx, t_pad)
                 num_g = dispatch_arrays(ChainGraphBatch(
                     [nums[int(i)] for i in idx],
                     max_num_transitions=max_arcs, max_num_states=max_states,
                     device="cpu"))
-                item = (torch.from_numpy(x), num_g, lens)
+                item = (torch.from_numpy(x), num_g, lens, frames)
             pipe["assemble"] += time.time() - t0
             pipe["produced"] += 1
             yield item
@@ -652,10 +695,20 @@ def main(argv=None, on_event=None) -> dict:
         max_states = max(g.num_states for g in nums) + 1
         max_arcs = max(g.num_transitions for g in nums) + 1
 
+    def save_state(step):
+        """Rank 0 writes (every rank holds the same state); the others
+        wait for the file."""
+        if rank == 0:
+            save_checkpoint(args.ckpt, step, {"model": model.state_dict(),
+                                              "opt": opt.state_dict()})
+        if dp:
+            torch.distributed.barrier()
+
     num_pad = [(max_arcs, max_states)]
     step, epoch = step0, 0
     t_start = time.time()
     loss = torch.tensor(float("nan"))
+    step_losses = []          # device scalars, read once at the end
     realigned = False
     all_ok = True
     # steady-state accounting: everything after the warmup steps with
@@ -668,7 +721,7 @@ def main(argv=None, on_event=None) -> dict:
         want_realign = False
         with prefetch(assemble_batches(epoch), depth=2,
                       transfer=transfer) as batches:
-            for x_j, num_g, lens in timed_consume(batches):
+            for x_j, num_g, lens, frames in timed_consume(batches):
                 if step >= args.steps:
                     break
                 if (args.realign_at and not realigned
@@ -681,10 +734,11 @@ def main(argv=None, on_event=None) -> dict:
                     idx = x_j
                     x_j = staged["x"].index_select(0, idx)
                     num_g = staged["nums"].take(idx)
-                loss = step_fn(x_j, lens, num_g, den_g)
+                loss = step_fn(x_j, lens, num_g, den_g, frames)
+                step_losses.append(loss)
                 step += 1
-                utts_done += x_j.shape[0]
-                frames_done += int(lens.sum())
+                utts_done += x_j.shape[0] * world
+                frames_done += frames
                 if (steady_t0 is None
                         and step >= step0 + args.warmup_steps):
                     _ = loss.item()  # sync: exclude the warm-up's work
@@ -701,16 +755,17 @@ def main(argv=None, on_event=None) -> dict:
                     with torch.no_grad():
                         out = apply_model(model, x_j, lens, takes_lengths)
                         _, aux = chain_function_with_aux(out, lens, den_g)
-                    rep_ok = check_result(aux, lens)
-                    all_ok = all_ok and rep_ok.all_ok
+                    step_ok = check_result(aux, lens).all_ok
+                    if dp:   # every rank's rows
+                        from pychain_tpu_torch.parallel import all_ranks
+                        step_ok = all_ranks(step_ok)
+                    all_ok = all_ok and step_ok
                     print(f"step {step}: loss={loss.item():.4f} "
-                          f"ok={rep_ok.all_ok} "
+                          f"ok={step_ok} "
                           f"({(step - step0) / (time.time() - t_start):.2f}"
                           f" steps/s)")
                 if args.ckpt and step % 100 == 0:
-                    save_checkpoint(args.ckpt, step,
-                                    {"model": model.state_dict(),
-                                     "opt": opt.state_dict()})
+                    save_state(step)
         if want_realign:
             print(f"realigning {len(keys)} utterances at step {step} "
                   f"(tolerance {args.tolerance})")
@@ -722,13 +777,13 @@ def main(argv=None, on_event=None) -> dict:
                 on_event("realigned")
             realigned = True
     if args.ckpt:
-        save_checkpoint(args.ckpt, step, {"model": model.state_dict(),
-                                          "opt": opt.state_dict()})
+        save_state(step)
     final = loss.item()  # sync the last queued step before timing
     result = {"loss": final, "steps": step - step0, "resumed_from": step0,
               "utts_per_s": None, "frames_per_s": None, "pipeline": None,
               "ok": all_ok, "staged_mb": staged_mb, "num_pad": num_pad,
-              "den_engine": den_tier}
+              "den_engine": den_tier, "dp": world if dp else None,
+              "losses": [float(v) for v in step_losses]}
     if steady_t0 is not None and utts_done > steady_utts0:
         dt = time.time() - steady_t0
         n = max(1, pipe["produced"])
@@ -756,7 +811,7 @@ def main(argv=None, on_event=None) -> dict:
     print(f"done: {step - step0} steps in {time.time() - t_start:.1f}s; "
           f"final loss {final:.4f}")
 
-    if args.eval_per:
+    if args.eval_per and rank == 0:
         # end-to-end quality gate: a finite loss can hide numerics that
         # wreck the posterior, so decode the trained model and score it
         # against the reference transcripts

@@ -16,8 +16,11 @@ whole variables tree).
         --batch-size 16 [--device cpu]
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises on
-a machine with no card.  ``--dp`` (data parallelism) is not ported yet
-and raises.
+a machine with no card.  ``--dp`` trains data-parallel, one process per
+device (``torchrun``'s group, or one process per local card): each rank
+takes its rows of every batch, its term over the whole batch's frames,
+and the gradients are summed over the ranks, so the steps are those of
+one process on the whole batch.  Only rank 0 prints and saves.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from pychain_tpu_torch.data import BucketSpec, LengthBucketer, pad_to_bucket
 from pychain_tpu_torch.examples.train_corpus import trainables
 from pychain_tpu_torch.loss import chain_loss, dispatch_arrays, graph_arrays
 from pychain_tpu_torch.models import TDNN, TDNNConfig
+from pychain_tpu_torch.parallel import all_ranks, global_value, sum_gradients
 from pychain_tpu_torch.utils.checkpoint import (latest_step,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -64,8 +68,8 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt", type=str, default="")
     ap.add_argument("--dp", action="store_true",
-                    help="data-parallel over all local devices (not "
-                         "ported yet: raises)")
+                    help="data-parallel, one process per device (torchrun's "
+                         "group, or one per local card)")
     ap.add_argument("--verbose", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -95,14 +99,21 @@ def make_data(args):
 def main(argv=None, model=None) -> dict:
     """Run the example; ``model`` replaces the seeded TDNN (a caller's
     weights, e.g. ``convert.model_from_flax``).  Returns ``losses`` (one
-    a step), ``steps``, ``ok`` (the diagnostics') and ``model``."""
+    a step), ``steps``, ``ok`` (the diagnostics') and ``model``; with
+    ``--dp`` rank 0's, and ``dp`` the number of ranks."""
     args = parse_args(argv)
-    if args.dp:
-        raise NotImplementedError(
-            "--dp: data parallelism is not ported yet (ROADMAP.md: "
-            "\"parallelism\"); run on one device")
     set_verbose_level(args.verbose)
     dev = resolve_device(args.device)
+    if not args.dp:
+        return _run(args, dev, model)
+    from pychain_tpu_torch.parallel.multihost import dp_main
+    return dp_main(main, argv, dev, args.batch_size,
+                   lambda d, dp: _run(args, d, model, dp=dp))
+
+
+def _run(args, dev, model=None, dp=None) -> dict:
+    """The example on ``dev``; ``dp`` = (rank, world) under --dp."""
+    rank, world = dp or (0, 1)
 
     # 1-2. graphs, synthetic corpus and per-utterance numerator graphs
     den_graph, P, data = make_data(args)
@@ -113,7 +124,8 @@ def main(argv=None, model=None) -> dict:
     if model is None:
         model = TDNN(model_config(P), args.feat_dim, device=dev)
     model.eval()
-    opt = torch.optim.Adam(trainables(model), lr=args.lr)
+    trainables_ = trainables(model)
+    opt = torch.optim.Adam(trainables_, lr=args.lr)
     step0 = 0
     if args.ckpt and latest_step(args.ckpt) is not None:
         step0, state = restore_checkpoint(
@@ -139,6 +151,10 @@ def main(argv=None, model=None) -> dict:
             if len(idx) < args.batch_size:
                 continue  # keep shapes static
             t_pad = bucketer.padded_shape(lengths_all, idx)
+            # under --dp: the whole batch's frames, this rank's rows
+            frames = sum(lengths_all[int(i)] for i in idx)
+            nb = len(idx) // world
+            idx = idx[rank * nb:(rank + 1) * nb]
             feats, lens = pad_to_bucket([d[0] for d in data], idx, t_pad)
             num_batch = ChainGraphBatch(
                 [data[int(i)][1] for i in idx],
@@ -151,8 +167,15 @@ def main(argv=None, model=None) -> dict:
             num_g = graph_arrays(num_batch)
             x = torch.from_numpy(feats).to(dev)
             opt.zero_grad(set_to_none=True)
-            loss = chain_loss(model(x, train=False), lens, num_g, den_g)
-            loss.backward()
+            if dp:
+                loss = global_value(chain_loss(
+                    model(x, train=False), lens, num_g, den_g,
+                    avg=False) / frames)
+                loss.backward()
+                sum_gradients(trainables_)
+            else:
+                loss = chain_loss(model(x, train=False), lens, num_g, den_g)
+                loss.backward()
             opt.step()
             losses.append(float(loss.detach()))
             step += 1
@@ -161,25 +184,34 @@ def main(argv=None, model=None) -> dict:
                 with torch.no_grad():
                     out = model(x, train=False)
                 _, aux = chain_function_with_aux(out, lens, den_g)
-                rep = check_result(aux, lens)
-                oks.append(rep.all_ok)
+                step_ok = check_result(aux, lens).all_ok
+                if dp:   # every rank's rows
+                    step_ok = all_ranks(step_ok)
+                oks.append(step_ok)
                 print(f"step {step}: loss={losses[-1]:.4f} "
-                      f"ok={rep.all_ok} "
+                      f"ok={step_ok} "
                       f"({(step - step0) / (time.time() - t_start):.2f} "
                       f"steps/s)")
             if args.ckpt and step % 50 == 0:
-                save_checkpoint(args.ckpt, step,
-                                {"model": model.state_dict(),
-                                 "opt": opt.state_dict()})
+                save_state(args.ckpt, step, model, opt, rank, dp)
 
     if args.ckpt:
-        save_checkpoint(args.ckpt, step, {"model": model.state_dict(),
-                                          "opt": opt.state_dict()})
+        save_state(args.ckpt, step, model, opt, rank, dp)
     print(f"done: {step - step0} steps in {time.time() - t_start:.1f}s; "
           f"final loss {losses[-1]:.4f}" if losses else
           f"done: no step run (resumed at step {step0})")
     return {"losses": losses, "steps": step - step0, "ok": all(oks),
-            "model": model}
+            "model": model, "dp": world if dp else None}
+
+
+def save_state(path, step, model, opt, rank, dp):
+    """Rank 0 writes (every rank holds the same state); the others wait
+    for the file."""
+    if rank == 0:
+        save_checkpoint(path, step, {"model": model.state_dict(),
+                                     "opt": opt.state_dict()})
+    if dp:
+        torch.distributed.barrier()
 
 
 if __name__ == "__main__":

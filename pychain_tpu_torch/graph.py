@@ -18,9 +18,10 @@ form that ``viterbi_align`` reads beside it; a list of log-domain graphs
 (the numerators): linear chains in closed form (``ops/linear.py``), any
 other graph (cyclic, self-loop, flat-start) in arc-id form for the
 semiring kernels (``ops/semiring.py``); and a list of prob-domain graphs
-(per-sequence leaky-HMM graphs), which only the generic gather engine
-serves (``ops/fwdbwd.py``).  Every batch has that engine's arrays
-(:meth:`ChainGraphBatch.graph_arrays`, ``impl="gather"``) and the
+(per-sequence leaky-HMM graphs), as dense blocks (``ops/dense_list.py``)
+or on the generic gather engine (``ops/fwdbwd.py``).  Every batch has
+that engine's arrays (:meth:`ChainGraphBatch.graph_arrays`,
+``impl="gather"``) and the
 reference's batched views (``forward_transitions`` and the rest,
 graph.py:73-194), each built on first use.
 """
@@ -178,6 +179,7 @@ class ChainGraphBatch:
         self._linear = None
         self._semiring = None
         self._semiring_rows = None   # a shared graph's, B rows (the loss)
+        self._dense_list = None      # prob-domain lists: built on demand
         self._graph = None
         self._graphs = None
         self._gather = None
@@ -282,8 +284,8 @@ class ChainGraphBatch:
         # build the gather engine's arrays on first use
         self._graphs = list(graphs)
         if not self.log_domain:
-            # per-sequence leaky-HMM graphs: only the gather engine
-            # serves them (loss.dispatch_arrays)
+            # per-sequence leaky-HMM graphs: the dense engine or the
+            # gather engine, chosen at dispatch (loss.dispatch_arrays)
             return
         from .ops.linear import is_linear_graph, linear_arrays
         if all(is_linear_graph(g) for g in graphs):
@@ -437,8 +439,8 @@ class ChainGraphBatch:
         arc-id arrays with their per-graph lists and the source graphs,
         so no graph is paired with another sequence afterwards; the
         batched views and the gather engine's arrays are rebuilt on their
-        next use.  A broadcast batch
-        is left as it is."""
+        next use; the dense arrays (``impl="dense_list"``) move with their
+        rows.  A broadcast batch is left as it is."""
         if self.shared:
             return
         order = [int(i) for i in np.asarray(new_order)]
@@ -450,8 +452,10 @@ class ChainGraphBatch:
             self._linear = dataclasses.replace(self._linear, **{
                 f.name: getattr(self._linear, f.name).index_select(0, idx)
                 for f in dataclasses.fields(self._linear)})
-        if self._semiring is not None:
-            self._semiring = self._semiring.take(order)
+        for name in ("_semiring", "_dense_list"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(self, name, v.take(order))
         self._graphs = [self._graphs[i] for i in order]
         self._views = {}
         self._gather = None

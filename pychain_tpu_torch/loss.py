@@ -32,9 +32,14 @@ numerators goes to the closed form of ``ops/linear.py``; any other
 log-domain list batch (cyclic, self-loop, flat-start) to the semiring
 kernels of ``ops/semiring_kernels.py``, which serve what the JAX
 package splits over ``impl="semiring_pallas"`` and ``"semiring_xl"``
-(both taken here as ``"auto"``).  A list of prob-domain graphs has no
-kernel: it runs on the generic gather engine (``ops/fwdbwd.py``), with
-a one-time warning.  ``impl="pallas"``, the JAX package's name for its
+(both taken here as ``"auto"``), as is ``"leveled"``, its banded
+engine for time-synchronous graphs, which these kernels run faster
+(PERF.md).  A list of prob-domain graphs has no
+kernel: on the card it runs on the dense engine of
+``ops/dense_list.py`` (batched products) within its memory budget, as
+the JAX package's TPU dispatch does, and otherwise (on the CPU, or past
+the budget) on the generic gather engine (``ops/fwdbwd.py``), with a
+one-time warning.  ``impl="pallas"``, the JAX package's name for its
 denominator tiering, is ``"auto"`` too.
 A denominator with bfloat16 tiles (``precision="fast"``) runs the fast
 mode of the same tiers (B1/B2's and B3/B4's bfloat16 forms), or on the
@@ -55,6 +60,8 @@ import torch
 
 from .graph import ChainGraph, ChainGraphBatch
 from .ops import fact_kernels, stream_kernels
+from .ops.dense_list import (DenseListArrays, dense_list_arrays,
+                             fits_dense_list, forward_backward_prob_dense)
 from .ops.factorized import FactorizedArrays, forward_backward_prob_fact
 from .ops.fwdbwd import (FwdBwdResult, GraphArrays, forward_backward_log,
                          forward_backward_prob)
@@ -65,14 +72,14 @@ from .utils.device import host_to, resolve_device
 
 CLAMP = 30.0  # reference loss.py:30
 
-IMPLS = ("auto", "factorized", "gather", "linear", "semiring")
+IMPLS = ("auto", "dense_list", "factorized", "gather", "linear",
+         "semiring")
 # the JAX package's names for its semiring kernels (one kernel pair
-# serves both of its classes here) and for its denominator tiering:
-# "auto" already selects them
+# serves both of its classes here), for its banded engine of
+# time-synchronous lists (those kernels take such lists too) and for
+# its denominator tiering: "auto" already selects them
 _ALIASES = {"semiring_pallas": "auto", "semiring_xl": "auto",
-            "pallas": "auto"}
-# engines of the JAX package that the port does not have yet
-_NOT_PORTED = ("leveled", "dense_list")
+            "leveled": "auto", "pallas": "auto"}
 
 
 def den_engine(fa: FactorizedArrays) -> str:
@@ -124,8 +131,9 @@ _gather_fallback_warned = False
 def _warn_gather_fallback(graphs):
     """One-time warning when a list of prob-domain (leaky-HMM) graphs
     drops onto the generic gather engine (pychain_tpu/loss.py:151-195):
-    no kernel of the port takes per-sequence prob-domain graphs, and the
-    engine is one Python loop of small operations a frame."""
+    on the CPU, or on the card past the dense engine's budget.  No
+    kernel of the port takes per-sequence prob-domain graphs, and the
+    gather engine is one Python loop of small operations a frame."""
     global _gather_fallback_warned
     if _gather_fallback_warned:
         return
@@ -134,12 +142,27 @@ def _warn_gather_fallback(graphs):
     warnings.warn(
         "pychain_tpu_torch: LIST-built prob-domain (leaky-HMM) graph "
         f"batch (B={graphs.batch_size}, K={graphs.num_transitions}, "
-        f"S={graphs.num_states}) has no kernel — only a shared broadcast "
-        "denominator factorizes onto B1/B2 and B3/B4; dispatching to the "
-        "generic gather engine. If every sequence shares one denominator "
-        "graph, build it with ChainGraphBatch(graph, batch_size); "
-        "per-sequence prob-domain graphs run at gather speed.",
+        f"S={graphs.num_states}) runs off the card or past the dense "
+        "engine's budget (fits_dense_list, PYCHAIN_DENSE_LIST_BUDGET) — "
+        "only a shared broadcast denominator factorizes onto B1/B2 and "
+        "B3/B4; dispatching to the generic gather engine. If every "
+        "sequence shares one denominator graph, build it with "
+        "ChainGraphBatch(graph, batch_size); otherwise per-sequence "
+        "prob-domain graphs run at gather speed.",
         RuntimeWarning, stacklevel=4)
+
+
+def _dense_list(graphs):
+    """The batch's dense arrays, built once (None where the batch is not
+    a prob-domain list or its blocks are past the budget), as the JAX
+    package's ``_force_engine(graphs, "dense_list")``."""
+    if graphs._dense_list is None and graphs._graphs and \
+            not graphs.log_domain and fits_dense_list(graphs.batch_size,
+                                                      graphs.num_states):
+        graphs._dense_list = dense_list_arrays(
+            graphs._graphs, tile_dtype=graphs._tile_dtype or "float32",
+            device=graphs.device)
+    return graphs._dense_list
 
 
 def _shared_log(graphs, impl):
@@ -170,24 +193,30 @@ def dispatch_arrays(graphs, impl: str = "auto"):
     impl: "auto" (linear closed form for linear numerator batches, the
     semiring kernels for other log-domain lists, a shared graph's
     FactorizedArrays, whose kernel tier :func:`_run` takes from its
-    ``engine`` or :func:`den_engine`, and the gather engine for a list
-    of prob-domain graphs), "factorized" (the plain PyTorch engine for
-    the denominator), "gather" (the generic gather engine, any batch),
-    "linear", or "semiring" (the plain PyTorch engine for a log-domain
-    list, built for a linear batch too).  "semiring_pallas",
-    "semiring_xl" and "pallas" are accepted as "auto"."""
+    ``engine`` or :func:`den_engine`, and for a list of prob-domain
+    graphs the dense engine on the card within its budget, else the
+    gather engine), "dense_list" (the dense engine, any device; a
+    ValueError past its budget), "factorized" (the plain PyTorch engine
+    for the denominator), "gather" (the generic gather engine, any
+    batch), "linear", or "semiring" (the plain PyTorch engine for a
+    log-domain list, built for a linear batch too).  "semiring_pallas",
+    "semiring_xl", "leveled" and "pallas" are accepted as "auto"."""
     impl = _ALIASES.get(impl, impl)
     if impl not in IMPLS:
-        if impl in _NOT_PORTED:
-            raise NotImplementedError(
-                f"impl={impl!r} is not ported yet (ROADMAP.md: \"the "
-                "other list engines\"); the port has " + ", ".join(IMPLS))
         raise ValueError(f"unknown impl {impl!r}")
     if isinstance(graphs, (FactorizedArrays, LinearArrays, SemiringArrays,
-                           GraphArrays)):
+                           GraphArrays, DenseListArrays)):
         return graphs
     if impl == "gather":
         return graph_arrays(graphs)
+    if impl == "dense_list":
+        dl = (None if graphs.shared or graphs.log_domain
+              else _dense_list(graphs))
+        if dl is None:
+            raise ValueError("dense_list impl requires a prob-domain list "
+                             "batch whose dense blocks fit the budget "
+                             "(fits_dense_list)")
+        return dl
     if graphs.shared and graphs.log_domain:
         return _shared_log(graphs, impl)
     if graphs._linear is not None and impl in ("auto", "linear"):
@@ -205,8 +234,13 @@ def dispatch_arrays(graphs, impl: str = "auto"):
     if graphs._fact is not None:
         return graphs._fact
     if impl == "auto" and not graphs.shared and not graphs.log_domain:
-        # per-sequence leaky-HMM graphs: no kernel takes them (on a TPU
-        # the JAX package runs its dense_list engine, not ported yet)
+        # per-sequence leaky-HMM graphs: the dense engine on the card
+        # within its budget (the JAX package's TPU rule), kept once
+        # built; else the gather engine, with a one-time warning
+        if graphs._dense_list is not None or graphs.device.type == "cuda":
+            dl = _dense_list(graphs)
+            if dl is not None:
+                return dl
         _warn_gather_fallback(graphs)
         return graph_arrays(graphs)
     raise ValueError(f"impl={impl!r} requires a shared prob-domain "
@@ -268,6 +302,9 @@ def _run(x, lengths, g, leaky_coefficient, impl="auto",
         x = torch.clamp(x, -CLAMP, CLAMP)
         if isinstance(g, LinearArrays):
             return forward_backward_linear(x, lengths, g)
+        if isinstance(g, DenseListArrays):
+            return forward_backward_prob_dense(torch.exp(x), lengths, g,
+                                               leaky_coefficient)
         if isinstance(g, SemiringArrays):
             if impl == "semiring":
                 return forward_backward_semiring(x, lengths, g)

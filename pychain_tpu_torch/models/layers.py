@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.dist import all_reduce_sum, stats_group
+
 # the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 
@@ -78,7 +80,12 @@ class BatchNorm(nn.Module):
     In training the statistics are taken over every frame, padded ones
     included (as in flax), and the running statistics move by
     ``momentum * old + (1 - momentum) * batch`` with the biased batch
-    variance.  ``weight`` / ``bias`` are flax's ``scale`` / ``bias``."""
+    variance.  Under data parallelism (the group that ``parallel``
+    registers, ``utils.dist.stats_group``) the statistics are the whole
+    batch's: the ranks' sums and sums of squared deviations are
+    all-reduced, as the JAX recipe's ``--dp`` step takes them over its
+    global batch.  ``weight`` / ``bias`` are flax's ``scale`` /
+    ``bias``."""
 
     def __init__(self, features: int, momentum: float = 0.95,
                  eps: float = 1e-5):
@@ -97,13 +104,28 @@ class BatchNorm(nn.Module):
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
             return ((x - self.running_mean[:, None]) * mul[:, None]
                     + self.bias[:, None])
+        group = stats_group()
+        if group is None:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
+                self._update(mean, var)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        # the whole batch's statistics, two passes as var_mean takes them
+        n = all_reduce_sum(x.new_tensor(float(x.shape[0] * x.shape[2])),
+                           group)
+        mean = all_reduce_sum(x.sum(dim=(0, 2)), group) / n
+        d = x - mean[None, :, None]
+        var = all_reduce_sum((d * d).sum(dim=(0, 2)), group) / n
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+            self._update(mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return d * mul[None, :, None] + self.bias[None, :, None]
+
+    def _update(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
 
 
 class Dropout(nn.Module):

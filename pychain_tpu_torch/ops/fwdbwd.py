@@ -178,6 +178,18 @@ class GraphArrays:
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
+    def take(self, index) -> "GraphArrays":
+        """The batch rows ``index`` of a batched (not shared) graph; the
+        plans are built anew for the new rows at first use."""
+        if self.shared:
+            raise ValueError("a shared graph has no batch rows to take")
+        idx = torch.as_tensor(np.asarray(index), dtype=torch.long,
+                              device=self.device)
+        return dataclasses.replace(self, plans={}, **{
+            f.name: getattr(self, f.name).index_select(0, idx)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     def plan(self, side: str, num_segments: int = None) -> SegmentPlan:
         """The plan of ``side``: "bwd_dst" (alpha's sums into states),
         "fwd_src" (beta's) or "fwd_pdf" (gamma's, into num_segments

@@ -3,6 +3,8 @@ for the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -26,3 +28,18 @@ def host_to(t: torch.Tensor, device) -> torch.Tensor:
     if t.device == device or device.type != "cuda" or t.is_cuda:
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def ieee_float32():
+    """Float32 products in IEEE float32 on the card (no TF32) for the
+    duration, whatever the caller's setting; restored after."""
+    m = torch.backends.cuda.matmul.allow_tf32
+    c = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = m
+        torch.backends.cudnn.allow_tf32 = c

@@ -1938,3 +1938,172 @@ class TestGather:
         assert vk.LAUNCHES["viterbi"] == 2
         for name in a._fields:
             assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+# ----------------------------------------------------------------------
+# The dense list engine (ops/dense_list.py), impl="leveled" and data
+# parallelism (parallel/) on the card
+# ----------------------------------------------------------------------
+
+def _prob_list(kind, dev):
+    if kind == "den":
+        fsts = [denominator_fst(num_phones=6 + b, states_per_phone=2,
+                                seed=b)[0] for b in range(4)]
+    else:    # random graphs: residual arcs
+        fsts = [random_fst(num_states=7 + b, num_pdfs=6,
+                           max_arcs_per_state=4, seed=3 + b)
+                for b in range(4)]
+    gs = [pt.ChainGraph(f) for f in fsts]
+    P = max(g.num_pdfs for g in gs)
+    return gs, P, pt.ChainGraphBatch(
+        gs, max_num_transitions=max(g.num_transitions for g in gs),
+        max_num_states=max(g.num_states for g in gs), device=dev)
+
+
+class TestDenseList:
+    """impl="dense_list" on the card: equal to the gather engine and to
+    the CPU, gamma bit-identical on a rerun, taken by auto."""
+
+    @pytest.mark.parametrize("kind", ["den", "residual"])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_cuda_dense_list_matches_gather_and_cpu(self, cuda, kind,
+                                                    tile_dtype):
+        from pychain_tpu_torch.ops.dense_list import DenseListArrays
+        gs, P, batch = _prob_list(kind, cuda)
+        if tile_dtype:
+            batch = pt.ChainGraphBatch(
+                gs, max_num_transitions=batch.num_transitions,
+                max_num_states=batch.num_states, tile_dtype=tile_dtype,
+                device=cuda)
+        x = torch.randn(4, 14, P, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7))
+        lens = torch.tensor([14, 9, 5, 1])
+        a = pt.chain_function_with_aux(x, lens, batch)[1]
+        assert isinstance(batch._dense_list, DenseListArrays)
+        b = pt.chain_function_with_aux(x, lens, batch)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(a.gamma, b.gamma) and torch.equal(a.objf, b.objf)
+        if tile_dtype is None:
+            g = pt.chain_function_with_aux(x, lens, batch, impl="gather")[1]
+            _assert_loss_close(a, g)
+        cpu = pt.ChainGraphBatch(
+            gs, max_num_transitions=batch.num_transitions,
+            max_num_states=batch.num_states, tile_dtype=tile_dtype,
+            device="cpu")
+        c = pt.chain_function_with_aux(x.cpu(), lens, cpu,
+                                       impl="dense_list")[1]
+        torch.testing.assert_close(a.objf.cpu(), c.objf, rtol=1e-5, atol=0)
+        torch.testing.assert_close(a.gamma.cpu(), c.gamma, rtol=0,
+                                   atol=1e-5)
+
+    def test_cuda_dense_list_keeps_ieee_float32(self, cuda):
+        """TF32 on for the caller: the engine's products stay IEEE
+        float32, and the caller's setting is restored."""
+        gs, P, batch = _prob_list("den", cuda)
+        x = torch.randn(4, 14, P, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(8))
+        lens = torch.tensor([14, 9, 5, 1])
+        ref = pt.chain_function_with_aux(x, lens, batch)[1]
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = pt.chain_function_with_aux(x, lens, batch)[1]
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+        assert torch.equal(got.gamma, ref.gamma)
+
+
+def _leveled_batch(kind, dev):
+    from pychain_tpu_torch.graphs.builder import make_constrained_numerator
+    from pychain_tpu_torch.utils.testgraphs import sausage_fst
+    rng = np.random.RandomState(5)
+    if kind == "sausage":
+        lens = [12, 9, 12, 4]
+        fsts = [sausage_fst([list(rng.choice(10, size=rng.randint(1, 4),
+                                             replace=False))
+                             for _ in range(n)], seed=b)
+                for b, n in enumerate(lens)]
+        P = 10
+    else:
+        topo = ChainTopology(num_phones=6)
+        fsts, lens = [], []
+        for b in range(4):
+            n = 3 + b
+            durs = [int(d) for d in rng.randint(2, 5, size=n)]
+            fsts.append(make_constrained_numerator(
+                [int(p) for p in rng.randint(0, 6, size=n)], durs, topo,
+                tolerance=3))
+            lens.append(sum(durs))
+        P = topo.num_pdfs
+    gs = [pt.ChainGraph(f, log_domain=True) for f in fsts]
+    return gs, P, lens, pt.ChainGraphBatch(
+        gs, max_num_transitions=max(g.num_transitions for g in gs),
+        max_num_states=max(g.num_states for g in gs), device=dev)
+
+
+class TestLeveled:
+    """impl="leveled" (the JAX package's banded engine) is auto in the
+    port: on the card the semiring kernels, one launch of each a call,
+    auto's bits, equal to the CPU, gamma bit-identical on a rerun."""
+
+    @pytest.mark.parametrize("kind", ["sausage", "constrained"])
+    def test_cuda_leveled_matches_the_semiring_kernels(self, cuda, kind):
+        gs, P, lens, batch = _leveled_batch(kind, cuda)
+        x = torch.randn(4, max(lens), P, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9))
+        lens = torch.tensor(lens)
+        semk.reset_launch_counts()
+        k = pt.chain_function_with_aux(x, lens, batch)[1]
+        assert semk.LAUNCHES == {"semiring_fwd": 1, "semiring_bwd": 1}
+        a = pt.chain_function_with_aux(x, lens, batch, impl="leveled")[1]
+        b = pt.chain_function_with_aux(x, lens, batch, impl="leveled")[1]
+        torch.cuda.synchronize()
+        assert semk.LAUNCHES == {"semiring_fwd": 3, "semiring_bwd": 3}
+        assert torch.equal(a.gamma, b.gamma) and torch.equal(a.objf, b.objf)
+        assert torch.equal(a.gamma, k.gamma) and torch.equal(a.objf, k.objf)
+        assert bool(a.ok.all())
+        cpu = pt.ChainGraphBatch(gs, max_num_transitions=batch.num_transitions,
+                                 max_num_states=batch.num_states, device="cpu")
+        c = pt.chain_function_with_aux(x.cpu(), lens, cpu, impl="leveled")[1]
+        torch.testing.assert_close(a.objf.cpu(), c.objf, rtol=1e-5, atol=0)
+        torch.testing.assert_close(a.gamma.cpu(), c.gamma, rtol=0,
+                                   atol=1e-5)
+
+
+class TestParallel:
+    """ShardedChainLoss in a group of one rank over NCCL: the same kernels
+    at the same batch, so ChainLoss's value and gradient bit for bit."""
+
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_cuda_sharded_loss_world_one_nccl(self, cuda, tile_dtype):
+        from pychain_tpu_torch import parallel
+        assert not torch.distributed.is_initialized()
+        try:
+            mesh = parallel.make_mesh()
+            assert torch.distributed.get_backend() == "nccl"
+            fst, P = denominator_fst(num_phones=12, states_per_phone=2,
+                                     seed=3)
+            den = pt.ChainGraph(fst)
+            rng = np.random.RandomState(0)
+            nums = pt.ChainGraphBatch(
+                [pt.ChainGraph(linear_fst(rng.randint(0, P, size=16)),
+                               log_domain=True) for _ in range(4)],
+                max_num_transitions=16, max_num_states=17, device=cuda)
+            x = torch.randn(4, 16, P, device=cuda, generator=torch.Generator(
+                device=cuda).manual_seed(10))
+            lens = torch.full((4,), 16)
+            grads = []
+            for loss in (parallel.ShardedChainLoss(mesh, den,
+                                                   tile_dtype=tile_dtype),
+                         pt.ChainLoss(den, tile_dtype=tile_dtype)):
+                xt = x.clone().requires_grad_(True)
+                fk.reset_launch_counts()
+                v = loss(xt, lens, nums)
+                v.backward()
+                grads.append((v.detach(), xt.grad, fk.launched()))
+            (v1, g1, n1), (v2, g2, n2) = grads
+            assert torch.equal(v1, v2) and torch.equal(g1, g2)
+            assert n1 == n2 and sum(n1.values()) == 2
+        finally:
+            torch.distributed.destroy_process_group()

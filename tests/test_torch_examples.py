@@ -17,9 +17,10 @@ path), at small sizes on the CPU.
   tests/test_torch_recipe.py holds the recipe), and for train_tdnn
   every parameter and BatchNorm statistic after them within 1e-5 of its
   norm;
-* ``--dp`` raises naming ROADMAP's "parallelism"; without ``--device``
-  every example raises on a machine with no card; wav_to_train's
-  default directory is its own.
+* ``--dp`` in a group of one rank equal to the run without it (two
+  ranks: tests/test_torch_parallel.py); without ``--device`` every
+  example raises on a machine with no card; wav_to_train's default
+  directory is its own.
 """
 
 import importlib.util
@@ -343,8 +344,16 @@ def test_wav_default_dir_is_the_ports_own():
 # ----------------------------------------------------------------------
 
 def test_dp_raises_naming_parallelism():
-    with pytest.raises(NotImplementedError, match="\"parallelism\""):
-        ptt.main(TDNN_FLAGS + ["--dp", "--device", "cpu"])
+    """--dp runs: on the CPU with no launcher, a group of one rank,
+    whose steps are the single-process run's bit for bit."""
+    try:
+        dp = ptt.main(TDNN_FLAGS + ["--dp", "--device", "cpu"])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    one = ptt.main(TDNN_FLAGS + ["--device", "cpu"])
+    assert dp["dp"] == 1 and dp["steps"] == 3 and dp["ok"]
+    assert dp["losses"] == one["losses"]
 
 
 @pytest.mark.parametrize("name", ["data_pipeline", "train_tdnn",

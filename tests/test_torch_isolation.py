@@ -43,7 +43,11 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.tools.build_graphs, "
             "pychain_tpu_torch.examples.data_pipeline, "
             "pychain_tpu_torch.examples.train_tdnn, "
-            "pychain_tpu_torch.examples.wav_to_train;"
+            "pychain_tpu_torch.examples.wav_to_train, "
+            "pychain_tpu_torch.ops.dense_list, pychain_tpu_torch.utils.dist, "
+            "pychain_tpu_torch.parallel, "
+            "pychain_tpu_torch.parallel.data_parallel, "
+            "pychain_tpu_torch.parallel.multihost;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

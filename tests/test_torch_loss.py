@@ -128,7 +128,7 @@ def test_fast_precision_plain_path_matches_jax_bf16():
 
 
 def test_error_probes():
-    den_fst, x, lens, nums, _ = _setup()
+    den_fst, x, lens, nums, jnums = _setup()
     den = pt.ChainGraph(den_fst)
     loss_mod = pt.ChainLoss(den, device="cpu")
     xt = torch.from_numpy(x)
@@ -156,8 +156,19 @@ def test_error_probes():
     np.testing.assert_allclose(got.gamma.numpy(), np.asarray(ref.gamma),
                                rtol=1e-4, atol=1e-6)
     np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_loss.chain_function(xt, lens, nums, impl="leveled")
+    # impl="leveled" (the JAX package's banded engine) is "auto" in the
+    # port: the closed form on these linear numerators, equal to JAX's
+    # leveled
+    _, lev = pt_loss.chain_function_with_aux(xt, lens, nums, impl="leveled")
+    _, lin = pt_loss.chain_function_with_aux(xt, lens, nums)
+    np.testing.assert_allclose(lev.objf.numpy(), lin.objf.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(lev.gamma.numpy(), lin.gamma.numpy(),
+                               rtol=0, atol=1e-5)
+    _, jlev = j_aux(jnp.asarray(x), jnp.asarray(lens), jnums, impl="leveled")
+    np.testing.assert_allclose(lev.objf.numpy(), np.asarray(jlev.objf),
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown impl"):
+        pt_loss.chain_function(xt, lens, nums, impl="nope")
 
 
 def test_precision_errors():

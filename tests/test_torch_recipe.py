@@ -22,8 +22,8 @@ against the JAX package's (examples/train_corpus.py, imported by path).
   (tests/test_recipe_smoke.py): the smoke run, --device-corpus, the PER
   gate (untrained >= 0.5, trained <= 0.15 and <= untrained / 3) in
   float32 and with bfloat16 tiles, flat start with realignment and
-  chunking, checkpoint resume, --dp refused naming ROADMAP's
-  "parallelism", and the default device refused without a card.  Each run writes its corpus
+  chunking, checkpoint resume, --dp in a group of one rank equal to
+  the run without it, and the default device refused without a card.  Each run writes its corpus
   under its own TMPDIR.
 """
 
@@ -374,10 +374,20 @@ def test_recipe_checkpoint_resume(tmp_path):
 
 
 def test_recipe_dp_is_refused_naming_its_roadmap_item(tmp_path):
-    r = _recipe(tmp_path, "--device", "cpu", "--dp", check=False)
-    assert r.returncode != 0
-    assert ("NotImplementedError" in r.stderr
-            and 'ROADMAP.md: "parallelism"' in r.stderr)
+    """--dp runs: on the CPU with no launcher, a group of one rank (gloo),
+    with the losses of the run without it (two ranks:
+    tests/test_torch_parallel.py)."""
+    args = ("--device", "cpu", "--steps", "3", "--batch-size", "8",
+            "--corpus-utts", "16", "--warmup-steps", "1", "--diag-every",
+            "2")
+    dp = _recipe(tmp_path, *args, "--dp").stdout
+    assert "data parallel over 1 ranks (gloo)" in dp
+    one = _recipe(tmp_path, *args).stdout
+    losses = [re.findall(r"loss=(-?\d+\.\d+)", out) for out in (dp, one)]
+    assert losses[0] and losses[0] == losses[1]
+    final = [re.search(r"final loss (-?\d+\.\d+)", out).group(1)
+             for out in (dp, one)]
+    assert final[0] == final[1]
 
 
 def test_recipe_default_device_needs_a_card(tmp_path):
