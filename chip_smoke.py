@@ -281,11 +281,14 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
    shapes (K not a multiple of 16, S not a multiple of 8, a state no arc
-   enters; xl_vpu twice, bit-identical) and at the tool's default size
-   (S=1000, K=3200, T=512, B=8), relative error with the tool's 1e-9
-   floor at most 1e-5 (f32 forms) and 5e-3 (bf16), each form's drift
-   against vpu printed; then the probe's own path, the tool's main()
-   at the default size with 5 iterations, with the launch counts read;
+   enters, a state of 40 in-arcs; each twice, bit-identical) and at the
+   tool's default size (S=1000, K=3200, T=512, B=8), relative error with
+   the tool's 1e-9 floor at most 1e-5 (f32 forms) and 5e-3 (bf16), each
+   form's drift against vpu, whether xl_mxu_bf16 equals its plain
+   version bit for bit, and the tensor-core operations xl_mxu's tile
+   lists issue against the dense form's printed; each kernel's time at
+   B=8 and 128; then the probe's own path, the tool's main() at the
+   default size with 5 iterations, with the launch counts read;
 14. one JSON line {"kernels": [...]} with each kernel's launches on the
    path that runs it (the xl_* rows: the probe's), its error against the
    plain version, its time, the plain version's time and the least time
@@ -1070,9 +1073,12 @@ def check_smem():
     for fn in (xl.xl_vpu_smem_bytes, xl.xl_mxu_smem_bytes):
         fn.restype = ctypes.c_size_t
     for S, K in ((1000, 3200), (37, 45), (4000, 20000)):
-        check(xr.vpu_smem_bytes(S, K) == xl.xl_vpu_smem_bytes(S, K),
-              f"xl_vpu smem S={S} K={K}: Python {xr.vpu_smem_bytes(S, K)} "
-              f"!= source {xl.xl_vpu_smem_bytes(S, K)}")
+        for slots in (0, xr.VPU_SLOTS):
+            for threads in (32, 256, 512):
+                py = xr.vpu_smem_bytes(S, K, threads, slots)
+                c = xl.xl_vpu_smem_bytes(S, K, threads, slots)
+                check(py == c, f"xl_vpu smem S={S} arcs={K} threads={threads} "
+                      f"slots={slots}: Python {py} != source {c}")
         for split in (1, 3):
             py = xr.mxu_smem_bytes(S, K, split)
             c = xl.xl_mxu_smem_bytes(S, K, split)
@@ -3189,14 +3195,16 @@ XL_REPLACES = {"vpu": ("tools/xl_roofline.py:72", "make_vpu kernel :50"),
 
 def xl_probe(dev):
     """The probe's kernels against their plain versions, small shapes and
-    the tool's default size; then the tool's own path with the launches
-    counted.  Returns {form: row fields}."""
+    the tool's default size (and B=128); then the tool's own path with the
+    launches counted.  Returns {form: row fields}."""
     from pychain_tpu_torch.tools import xl_roofline as xr
     for S, K, T, B in ((64, 192, 16, 2), (100, 250, 12, 3), (37, 45, 5, 2),
-                       (1000, 3200, 8, 2)):
+                       (50, 170, 9, 2), (1000, 3200, 8, 2)):
         rng = np.random.RandomState(S)
         src = rng.randint(0, S, (B, K)).astype(np.int32)
         dst = rng.randint(0, S, (B, K)).astype(np.int32)
+        if S == 50:
+            dst[0, :40] = 5                      # 40 in-arcs: no slots hold it
         dst[dst == 0] = 1                        # state 0: no in-arc
         w = rng.rand(K).astype(np.float32) + 0.1
         args = [torch.from_numpy(a).to(dev) for a in (src, dst, w)]
@@ -3214,16 +3222,18 @@ def xl_probe(dev):
                   f"xl {form} S={S} K={K} T={T} B={B}: rel err "
                   f"{errs[form]:.3e} (limit {XL_TOL[form]:.0e}), carry of "
                   f"the state without in-arcs {got[:, 0].tolist()}")
-            if form == "vpu":
-                check(torch.equal(run(*args, S, T), got),
-                      f"xl_vpu S={S} K={K}: a rerun differs")
+            check(torch.equal(run(*args, S, T), got),
+                  f"xl {form} S={S} K={K}: a rerun differs")
+        plan = xr.vpu_plan(*args, S)
         print(f"# xl small S={S} K={K} T={T} B={B}: rel err "
               + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
-              + "; xl_vpu bit-identical on a rerun", flush=True)
+              + "; each bit-identical on a rerun; xl_vpu at "
+              f"{plan.threads // 32} warps, {plan.slots} slots", flush=True)
 
     S, K, T, B = 1000, 3200, 512, 8              # tools/xl_roofline.py:149-152
     src, dst, w = xr.inputs(S, K, B, dev)
     rows, kernel_out = {}, {}
+    s_pad, k_pad = -(-S // 16) * 16, -(-K // 16) * 16
     for form, run in xr.RUNNERS.items():
         got = run(src, dst, w, S, T)
         ref = xr.plain(form, src, dst, w, S, T)
@@ -3235,47 +3245,77 @@ def xl_probe(dev):
         kernel_out[form] = got
         plain_ms = cuda_ms(lambda: xr.plain(form, src, dst, w, S, T), 1)
         # the kernel alone, on its prepared arrays (the runner's call adds
-        # the input checks' host sync and the CSR sort or the padding)
-        if form == "vpu":
-            prep = xr.vpu_csr(src, dst, w, S)
-            kernel_ms = cuda_ms(lambda: xr.vpu_kernel(*prep, S, T), 10)
-        else:
-            prep = xr.mxu_operands(src, dst, w)
-            kernel_ms = cuda_ms(
-                lambda: xr.mxu_kernel(xr.KERNELS[form], *prep, S, T), 3)
-        drift = xr.rel_diff(got, kernel_out["vpu"])
+        # the input checks' host sync and the sorts)
         split = xr.SPLIT.get(xr.KERNELS[form], 0)
-        s_pad, k_pad = -(-S // 16) * 16, -(-K // 16) * 16
+        if form == "vpu":
+            prep = xr.vpu_plan(src, dst, w, S)
+            kernel_ms = cuda_ms(lambda: xr.vpu_kernel(prep, S, T), 10)
+            layout = {"warps": prep.threads // 32, "slots": prep.slots}
+            issued = None
+        else:
+            prep = xr.mxu_operands(src, dst, w, S)
+            kernel_ms = cuda_ms(
+                lambda: xr.mxu_kernel(xr.KERNELS[form], prep, S, T), 10)
+            first, second = xr.issued_fragments(prep)
+            layout = {"fragments_a_frame": [first / B, second / B]}
+            # the tensor-core operations the lists issue, in tc_dense_ops'
+            # units (each fragment's share of the dense form, a bf16 term)
+            issued = xr.issued_ops(prep) * split * T
+        drift = xr.rel_diff(got, kernel_out["vpu"])
         rows[form] = {"rel_err": err, "max_abs_err": abs_err,
                       "ms": kernel_ms, "plain_ms": plain_ms,
-                      "drift_vs_vpu": drift,
+                      "drift_vs_vpu": drift, "layout": layout,
+                      "bit_equal_plain": bool(torch.equal(got, ref)),
                       # the function's own work: K gathers and 2K flops a
                       # frame and row; ids, weights in and the carry out
                       "bytes": B * K * 8 + K * 4 + B * S * 4,
                       "ops": 2 * K * B * T,
                       # what the dense tensor-core form does
-                      "tc_dense_ops": 4 * s_pad * k_pad * B * T * split}
+                      "tc_dense_ops": 4 * s_pad * k_pad * B * T * split,
+                      "tc_issued_ops": issued}
         print(f"# xl {form} at S={S} K={K} T={T} B={B}: rel err {err:.3e}, "
               f"max abs {abs_err:.3e} against the plain version; kernel "
-              f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; carry drift "
-              f"against vpu {drift:.3e}",
-              flush=True)
+              f"{kernel_ms:.3f} ms ({kernel_ms * 1e3 / T:.4f} us a frame of "
+              f"a row), plain {plain_ms:.1f} ms; carry drift against vpu "
+              f"{drift:.3e}; layout {layout}", flush=True)
         if split:
             dense = rows[form]["tc_dense_ops"]
             print(f"# xl {form}: dense tensor-core form {dense:.4e} ops, "
                   f"{dense / PEAK_BF16_TC_FLOPS * 1e3:.4f} ms at "
-                  f"{PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s (a count over a "
-                  f"peak, not a timing)", flush=True)
+                  f"{PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s; the lists issue "
+                  f"{issued:.4e} ({issued / dense:.4f} of it), "
+                  f"{issued / PEAK_BF16_TC_FLOPS * 1e3:.6f} ms (a count over "
+                  f"a peak, not a timing)", flush=True)
+    print(f"# xl_mxu_bf16 at S={S} K={K} T={T} B={B} equals its plain "
+          f"version bit for bit: {rows['mxu_bf16']['bit_equal_plain']}",
+          flush=True)
 
-    # xl_vpu at B=128 rows, the batch of semiring_fwd's xl class
+    # each kernel at B=128 rows (semiring_fwd's xl class)
     src128, dst128, w128 = xr.inputs(S, K, 128, dev)
-    prep = xr.vpu_csr(src128, dst128, w128, S)
-    xr.vpu_kernel(*prep, S, T)
-    ms128 = cuda_ms(lambda: xr.vpu_kernel(*prep, S, T), 10)
+    ref128 = xr.plain("vpu", src128, dst128, w128, S, T)
+    prep = xr.vpu_plan(src128, dst128, w128, S)
+    got128 = xr.vpu_kernel(prep, S, T)
+    check(xr.rel_diff(got128, ref128) <= XL_TOL["vpu"],
+          f"xl_vpu at B=128: rel err {xr.rel_diff(got128, ref128):.3e}")
+    ms128 = cuda_ms(lambda: xr.vpu_kernel(prep, S, T), 10)
     rows["vpu"]["b128_ms"] = ms128
-    print(f"# xl_vpu at B=128 (S={S} K={K} T={T}): {ms128:.3f} ms, "
+    print(f"# xl_vpu at B=128 (S={S} K={K} T={T}, default plan "
+          f"{prep.threads // 32} warps): {ms128:.4f} ms, "
           f"{ms128 * 1e3 / (128 * T):.5f} us/frame/seq", flush=True)
-    del src128, dst128, w128, prep
+    ops128 = xr.mxu_operands(src128, dst128, w128, S)
+    for form in ("mxu_f32", "mxu_bf16"):
+        name = xr.KERNELS[form]
+        got128 = xr.mxu_kernel(name, ops128, S, T)
+        ref128 = xr.plain(form, src128, dst128, w128, S, T)
+        err128 = xr.rel_diff(got128, ref128)
+        check(bool(torch.isfinite(got128).all()) and err128 <= XL_TOL[form],
+              f"xl {form} at B=128: rel err {err128:.3e}")
+        ms = cuda_ms(lambda: xr.mxu_kernel(name, ops128, S, T), 10)
+        rows[form]["b128_ms"] = ms
+        print(f"# xl {form} at B=128: {ms:.4f} ms, {ms * 1e3 / (128 * T):.5f} "
+              f"us/frame/seq, rel err {err128:.3e}, bit for bit "
+              f"{bool(torch.equal(got128, ref128))}", flush=True)
+    del src128, dst128, w128, prep, ops128
 
     # the probe's path: the tool's main(), launches counted
     xr.reset_launch_counts()
@@ -5063,10 +5103,12 @@ def main():
             "rel_err": r["rel_err"], "drift_vs_vpu": r["drift_vs_vpu"],
             "ms": r["ms"], "call_ms": r["call_ms"],
             "b128_ms": r.get("b128_ms"),
+            "layout": r["layout"], "bit_equal_plain": r["bit_equal_plain"],
             "us_per_frame": r["us_per_frame"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "bytes": r["bytes"], "ops": r["ops"],
             "tc_dense_ops": r["tc_dense_ops"] or None,
+            "tc_issued_ops": r["tc_issued_ops"],
             "library_ms": None})
     print(f"# small-graph worst errors (denominator): {worst(errs_small)}")
     print(f"# small-graph worst errors (denominator, fast mode): "

@@ -14,7 +14,9 @@ cluster pair (stream_fwd, stream_bwd) at main path 4's (the 12k-state
 Kaldi-topology denominator, B=128, T=500) at the plan it launches with,
 the semiring pair (semiring_fwd, semiring_bwd) at main path 2's
 flat-start batch and at main path 3's constrained batch, the Viterbi
-kernel (viterbi) at chip_smoke.py's realign, decode and b11 classes.
+kernel (viterbi) at chip_smoke.py's realign, decode and b11 classes, the
+XL probe's kernels (xl_vpu, xl_mxu in both splits) at the tool's default
+size.
 A variant computes wrong numbers by design; only its time means
 something: how much of the full kernel's time the removed phase
 accounts for (phases overlap, so the savings need not add up).  Some
@@ -296,7 +298,8 @@ FULL_BWD = _full_table(_BWD_OTHER_EXCHANGE, _BWD_PRODUCTS, _BWD_NO_READD, {
     "C2_no_ring": {"cluster": 2, "stages": 0},
     "C2_gamma_spread": {"cluster": 2, "edits": _FULL_GAMMA_SPREAD}})
 # the source of a table that is not named after its source
-SOURCE = {"fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd",
+SOURCE = {"xl_vpu": "xl_roofline", "xl_mxu": "xl_roofline",
+          "fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd",
           "fact_fwd_cluster": "fact_fwd", "fact_bwd_cluster": "fact_bwd"}
 
 # The cluster pair (a cluster a group of G columns, W1's vector alone
@@ -514,6 +517,65 @@ VIT = {
 }
 VIT_DESIGNS = {"viterbi": [("bpt[s] = best > -CUDART_INF_F ? arg : -1;",
                             VIT_FIRST), ("bp_put(", VIT)]}
+
+
+# the XL probe's kernels (csrc/xl_roofline.cu) at the tool's default size
+XL_VPU = {
+    "full": [],
+    "summing_warp_idle": [(
+        "      const double v = xl_vpu_total(part_buf + cur * nt, nwarps, lane);",
+        "      const double v = 1.0;")],
+    "no_gathers": [(
+        "for (int r = 0; r < R; ++r) v[r] = b_prev[e[r] & XL_SRC_MASK];",
+        "for (int r = 0; r < R; ++r) v[r] = __int_as_float(e[r] & 0x3fffff);")],
+    "no_stores": [("    b_next[s] = x;\n", "    if (x == -1.0f) b_next[s] = x;\n")],
+    "no_partials": [("    part += x;\n    ++s;", "    ++s;")],
+    "no_barrier": [("    // scale slots, which no thread reads after this barrier.\n"
+                    "    __syncthreads();", "")],
+}
+XL_MXU = {
+    "full": [],
+    "no_mma": [("  asm volatile(\n      \"mma.sync",
+                "  if (a0 == 12345u) asm volatile(\n      \"mma.sync")],
+    # every occurrence is replaced: both loops of a product
+    "no_first_product": [("frag1(c, j);", ";")],
+    "no_second_product": [("frag2(c, j);", ";")],
+    "all_behind_a_branch": [("      for (int j = 0; j < jmin; ++j) {",
+                             "      for (int j = 0; j < 0; ++j) {"),
+                            ("      for (int j = jmin; j < jmax; ++j) {",
+                             "      for (int j = 0; j < jmax; ++j) {")],
+    "no_first_pass": [("k0 < 16 * p1_hi;\n", "k0 < 0;\n")],
+    "no_carry_terms": [("s < 16 * q_hi; s += 32) {", "s < 0; s += 32) {")],
+    "first_pass_one_at_a_time": [("#define XL_MXU_BATCH 4 ",
+                                  "#define XL_MXU_BATCH 1 ")],
+    "no_barriers": [
+        ("    __syncthreads();\n    // -- a^T = ohd", "    // -- a^T = ohd"),
+        ("that frame's first barrier\n    __syncthreads();",
+         "that frame's first barrier\n")],
+}
+
+
+def xl_ablation(tables, use, time_ms, dev):
+    """The probe's kernels at the tool's default size (S=1000, K=3200,
+    T=512, B=8) on their default plans: xl_vpu, and xl_mxu in both
+    splits."""
+    from pychain_tpu_torch.tools import xl_roofline as xr
+    S, K, T, B = 1000, 3200, 512, 8
+    src, dst, w = xr.inputs(S, K, B, dev)
+    plan = xr.vpu_plan(src, dst, w, S)
+    ops = xr.mxu_operands(src, dst, w, S)
+    result = {}
+    tag = f"{plan.threads // 32} warps {plan.slots} slots"
+    for label in tables["xl_vpu"]:
+        use("xl_vpu", label)
+        result[f"xl_vpu/{label} {tag}"] = time_ms(
+            lambda: xr.vpu_kernel(plan, S, T))
+    for label in tables["xl_mxu"]:
+        use("xl_mxu", label)
+        for name in ("xl_mxu_f32", "xl_mxu_bf16"):
+            result[f"{name}/{label}"] = time_ms(
+                lambda: xr.mxu_kernel(name, ops, S, T))
+    return result
 
 
 def sr_table(kernel):
@@ -799,7 +861,8 @@ def main():
               "fact_bwd_cluster": FULL_BWD, "stream_fwd": STREAM_FWD,
               "stream_bwd": STREAM_BWD, "semiring_fwd": sr_table(
                   "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
-              "viterbi": sr_table("viterbi")}
+              "viterbi": sr_table("viterbi"), "xl_vpu": XL_VPU,
+              "xl_mxu": XL_MXU}
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
         tables = {k: {label: v for label, v in table.items()
@@ -917,6 +980,8 @@ def main():
         result.update(semiring_ablation(tables, use, time_ms, dev))
     if tables["viterbi"]:
         result.update(viterbi_ablation(tables["viterbi"], use, time_ms, dev))
+    if tables["xl_vpu"] or tables["xl_mxu"]:
+        result.update(xl_ablation(tables, use, time_ms, dev))
     for k, v in result.items():
         print(f"# {k:28s} {v:8.3f} ms")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

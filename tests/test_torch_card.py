@@ -24,7 +24,9 @@ kernel bit-identical (it adds the plain version's float32 values in the
 same association).  The acoustic models (cuDNN and cuBLAS, no kernel of
 the port's) against the CPU with TF32 off: outputs and BatchNorm
 statistics within 1e-5, parameter gradients within 1e-4 of their norm.
-The XL roofline probe's kernels are checked in chip_smoke.py, not here.
+The XL roofline probe's kernels against their plain versions: the f32
+forms within 1e-5 relative, the bf16 form within 5e-3 (the tool's floor
+of 1e-9), each bit-identical on a rerun.
 """
 
 import dataclasses
@@ -51,6 +53,7 @@ from pychain_tpu_torch.ops.factorized import (forward_backward_prob_fact,
                                               forward_backward_prob_fast,
                                               forward_backward_prob_mode)
 from pychain_tpu_torch.ops.viterbi import viterbi_plain
+from pychain_tpu_torch.tools import xl_roofline as xr
 from pychain_tpu_torch.decode import PhoneDecoder
 from pychain_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
@@ -2107,3 +2110,62 @@ class TestParallel:
             assert n1 == n2 and sum(n1.values()) == 2
         finally:
             torch.distributed.destroy_process_group()
+
+
+# ----------------------------------------------------------------------
+# The XL roofline probe's kernels (tools/xl_roofline.py)
+# ----------------------------------------------------------------------
+
+XL_TOL = {"vpu": 1e-5, "mxu_f32": 1e-5, "mxu_bf16": 5e-3}
+# (S, K, T, B): K not a multiple of 16, S not of 8; "hub": a state of 40
+# in-arcs, a run longer than xl_vpu's register slots
+XL_CASES = {"s64": (64, 192, 16, 2), "s100": (100, 250, 12, 3),
+            "s37": (37, 45, 5, 2), "hub": (50, 170, 9, 2)}
+
+
+def _xl_case(name, dev):
+    """(src, dst, w, S, T) on dev; state 0 has no in-arc."""
+    S, K, T, B = XL_CASES[name]
+    rng = np.random.RandomState(S)
+    src = rng.randint(0, S, (B, K)).astype(np.int32)
+    dst = rng.randint(0, S, (B, K)).astype(np.int32)
+    if name == "hub":
+        dst[0, :40] = 5
+    dst[dst == 0] = 1
+    w = rng.rand(K).astype(np.float32) + 0.1
+    return (*(torch.from_numpy(a).to(dev) for a in (src, dst, w)), S, T)
+
+
+class TestXlRoofline:
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("form", ["vpu", "mxu_f32", "mxu_bf16"])
+    @pytest.mark.parametrize("name", sorted(XL_CASES))
+    def test_kernel_matches_plain(self, cuda, name, form):
+        src, dst, w, S, T = _xl_case(name, cuda)
+        xr.reset_launch_counts()
+        got = xr.RUNNERS[form](src, dst, w, S, T)
+        assert xr.LAUNCHES[xr.KERNELS[form]] == 1
+        assert sum(xr.LAUNCHES.values()) == 1
+        ref = xr.plain(form, src, dst, w, S, T)
+        assert got.shape == (src.shape[0], S)
+        assert bool(torch.isfinite(got).all())
+        assert xr.rel_diff(got, ref) <= XL_TOL[form]
+        assert bool((got[:, 0] == 0).all())          # no in-arc
+        assert torch.equal(xr.RUNNERS[form](src, dst, w, S, T), got)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("warps", [1, 2, 4, 8, 16])
+    @pytest.mark.parametrize("name", ["s100", "hub"])
+    def test_vpu_at_every_warp_count(self, cuda, monkeypatch, name, warps):
+        """Register slots or shared memory, each count of compute warps a
+        row that vpu_warps gives: the same CSR sums and a float64 sum b,
+        so the bits of the count that K selects."""
+        src, dst, w, S, T = _xl_case(name, cuda)
+        want = xr.xl_vpu(src, dst, w, S, T)
+        monkeypatch.setattr(xr, "vpu_warps", lambda K: warps)
+        plan = xr.vpu_plan(src, dst, w, S)
+        assert plan.threads == 32 * warps
+        got = xr.vpu_kernel(plan, S, T)
+        assert torch.equal(got, want)
+        assert xr.rel_diff(got, xr.plain("vpu", src, dst, w, S, T)) <= 1e-5

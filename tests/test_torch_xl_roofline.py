@@ -176,33 +176,98 @@ def test_float32_sum_order_moves_the_bf16_carry():
 # The kernels' algorithms on the arrays they read
 # ----------------------------------------------------------------------
 
-def _emulate_vpu(ptr, in_src, in_w, S, T):
-    """xl_vpu: each state sums its in-arcs in CSR order, each product
-    rounded, the carry read as a * inv; float32 but for sum a (float64,
-    rounded once)."""
-    B = ptr.shape[0]
+def _np(plan):
+    """A plan's or operands' tensors as numpy arrays (ints kept)."""
+    return type(plan)(*(a.numpy() if isinstance(a, torch.Tensor) else a
+                        for a in plan))
+
+
+def _thread_slots(plan, b):
+    """Row b's arcs as xl_vpu's threads hold them: (R, threads) sources
+    (bit 31: last in-arc) and weights.  Without register slots, each
+    thread's run of the arcs in shared memory, padded as slots are."""
+    if plan.slots:
+        return plan.src[b], plan.w[b]
+    toff = plan.toff[b]
+    count = np.diff(toff)
+    r = np.arange(max(int(count.max()), 1))[:, None]
+    live = r < count[None, :]
+    idx = np.minimum(toff[None, :-1] + r, plan.kc - 1)
+    zero_slot = int(plan.tbeg[b, -1])                  # S
+    return (np.where(live, plan.src[b][idx], zero_slot),
+            np.where(live, plan.w[b][idx], np.float32(0)))
+
+
+def _vpu_total(part, nwarps):
+    """The compute threads' float64 partials as xl_vpu's warps add them:
+    lane l adds those of threads l, l + 32, ... in order, then an xor
+    butterfly."""
+    lanes = np.zeros(32)
+    for i in range(nwarps):
+        lanes = lanes + part[32 * i:32 * i + 32]
+    return _butterfly(lanes)
+
+
+def _emulate_vpu(plan, S, T):
+    """xl_vpu: each thread walks its slots in order; a state's in-arcs'
+    products, each rounded, are summed in float32 and the sum scaled by c:
+    b_{t+1}[s] = (sum b_t[src] w) * c_t, with c_0 = 1 and c_t = 1 / sum
+    b_{t-1} (the summing warp's, a frame late); the carry is b_T * (1 /
+    sum b_T).  Each thread adds its states' b to a float64 partial in
+    order (b_0's: its states times 1/S); sums of b are totals of those
+    (_vpu_total)."""
+    B = plan.tbeg.shape[0]
+    nt = plan.threads
     out = np.empty((B, S), np.float32)
+    init = np.float32(1.0 / S)
     for b in range(B):
-        a = np.full(S, np.float32(1.0 / S), np.float32)
-        inv = np.float32(1.0)
-        lo, hi = ptr[b, :-1], ptr[b, 1:]
-        for _ in range(T):
-            prod = (a[in_src[b]] * inv) * in_w[b]
-            acc = np.zeros(S, np.float32)
-            for d in range(int((hi - lo).max(initial=0))):
-                live = lo + d < hi
-                acc[live] += prod[(lo + d)[live]]
-            a = acc
-            inv = np.float32(1.0) / max(np.float32(a.sum(dtype=np.float64)),
-                                        np.float32(xr.TINY))
-        out[b] = a * inv
+        E, W = _thread_slots(plan, b)
+        src = E & 0x7FFFFFFF
+        last = E < 0
+        a = np.zeros(S + 1, np.float32)
+        a[:S] = init
+        part = np.diff(plan.tbeg[b]).astype(np.float64) * np.float64(init)
+        scale = [np.float32(1.0), None]           # the two scale slots
+        for t in range(T):
+            # the summing warp: frame t + 1's scale from b_t's partials
+            scale[(t + 1) % 2] = np.float32(1.0) / max(
+                np.float32(_vpu_total(part, nt // 32)), np.float32(xr.TINY))
+            c = scale[t % 2]
+            v = a[src]
+            nxt = np.zeros(S + 1, np.float32)
+            acc = np.zeros(nt, np.float32)
+            s = plan.tbeg[b, :nt].astype(np.int64).copy()
+            part = np.zeros(nt)
+            for r in range(E.shape[0]):
+                acc = acc + v[r] * W[r]
+                m = last[r]
+                x = acc[m] * c
+                nxt[s[m]] = x
+                part[m] += x
+                s[m] += 1
+                acc[m] = 0
+            a = nxt
+        inv = (np.float32(1.0) / max(np.float32(_vpu_total(part, nt // 32)),
+                                     np.float32(xr.TINY))
+               if T > 0 else np.float32(1.0))
+        out[b] = a[:S] * inv
     return out
 
 
+def _pad_arcs(src, dst, k_pad):
+    """src, dst in arc order, padded with -1 to k_pad (the dense masks'
+    columns and rows)."""
+    B, K = src.shape
+    src_p = np.full((B, k_pad), -1, np.int32)
+    dst_p = np.full((B, k_pad), -1, np.int32)
+    src_p[:, :K], dst_p[:, :K] = src, dst
+    return src_p, dst_p
+
+
 def _fragment_masks(src_p, dst_p, s_pad):
-    """The dense masks xl_mxu's B fragments hold, rebuilt lane by lane
-    from the kernel's rules: ohs (S_pad, K_pad) of the first product and
-    ohd^T (K_pad, S_pad) of the second."""
+    """The dense masks of the dense form, rebuilt lane by lane from its
+    compares over every fragment: ohs (S_pad, K_pad) of the first product
+    and ohd^T (K_pad, S_pad) of the second, arcs in arc order."""
     k_pad = src_p.shape[0]
     ohs = np.zeros((s_pad, k_pad), np.float32)
     ohd_t = np.zeros((k_pad, s_pad), np.float32)
@@ -225,6 +290,41 @@ def _fragment_masks(src_p, dst_p, s_pad):
     return ohs, ohd_t
 
 
+def _issued(tiles):
+    """(n-tile, k-slab) of each fragment a tile list issues."""
+    return [(n, q) for n, (first, count) in enumerate(tiles)
+            for q in range(first, first + count)]
+
+
+def _listed_masks(ops, b, s_pad):
+    """The masks xl_mxu's issued fragments hold, rebuilt from its compares
+    in the sorted orders: ohs (S_pad, K_pad) over src-order arcs (the
+    first product's A tiles: lane (g, tig) holds arcs 16 n + g and + 8
+    against states 2 tig + {0, 1, 8, 9} of the slab) and ohd^T (K_pad,
+    S_pad) over dst-order arcs (the second's A tiles: states 16 m + g and
+    + 8 against arcs 2 tig + {0, 1, 8, 9} of the slab)."""
+    k_pad = ops.src_s.shape[1]
+    ohs = np.zeros((s_pad, k_pad), np.float32)
+    ohd_t = np.zeros((k_pad, s_pad), np.float32)
+    for n, q in _issued(ops.tiles1[b]):
+        for g in range(8):
+            for tig in range(4):
+                for arc in (16 * n + g, 16 * n + g + 8):   # A rows g, g + 8
+                    r = ops.src_s[b, arc] - 16 * q - 2 * tig
+                    for col in (0, 1, 8, 9):
+                        if r == col:
+                            ohs[16 * q + 2 * tig + col, arc] = 1.0
+    for m, p in _issued(ops.tiles2[b]):
+        for g in range(8):
+            for tig in range(4):
+                for state in (16 * m + g, 16 * m + g + 8):  # A rows g, g + 8
+                    for col in (0, 1, 8, 9):
+                        k = 16 * p + 2 * tig + col
+                        if ops.dst_d[b, k] == state:
+                            ohd_t[k, state] = 1.0
+    return ohs, ohd_t
+
+
 def _terms(x, split):
     """x as split bf16 terms, each the rounding of what the others left."""
     out = []
@@ -235,56 +335,266 @@ def _terms(x, split):
     return out
 
 
-def _emulate_mxu(src_p, dst_p, w_p, S, T, split):
-    """xl_mxu: the carry and contrib as bf16 terms through the dense
-    fragment masks; the terms' products are exact, the sums taken in
-    float64 and rounded to float32 once (the card accumulates in float32)."""
-    B, k_pad = src_p.shape
+def _butterfly(v):
+    """An xor butterfly over len(v) values (a power of two), float64: what
+    every lane holds after it."""
+    lanes = np.arange(len(v))
+    off = len(v) // 2
+    while off:
+        v = v + v[lanes ^ off]
+        off //= 2
+    return v[0]
+
+
+def _mxu_inv(red):
+    """1 / max(sum of the warps' partials, 1e-30): a 32-lane butterfly,
+    lanes past the warps holding 0."""
+    return np.float32(1.0) / max(np.float32(_butterfly(red)),
+                                 np.float32(xr.TINY))
+
+
+MXU_WARPS = 16          # xl_mxu's warps a row (XL_MXU_WARPS in the source)
+
+
+def _emulate_mxu(ops, S, T, split, warps=MXU_WARPS):
+    """xl_mxu on its operands: per frame the carry's terms from a * inv,
+    the first product over tiles1's fragments (columns 0 .. split - 1:
+    one term each; each arc's one nonzero, so exact), asel = (hi + mid) +
+    lo, contrib = asel * w and its terms moved to dst order by perm; the
+    second product over tiles2's fragments, each fragment's 16 products
+    summed in float64 and added to the float32 accumulator (the card's
+    accumulation rounds once a fragment here), a = (hi + mid) + lo; sum a
+    as the kernel's warps take it (each lane its states in order, a
+    butterfly in the warp, a 32-lane butterfly over the warps'
+    partials)."""
+    B, k_pad = ops.src_s.shape
     s_pad = -(-S // 16) * 16
+    n2 = s_pad // 16
     out = np.empty((B, S), np.float32)
     for b in range(B):
-        ohs, ohd_t = _fragment_masks(src_p[b], dst_p[b], s_pad)
-        nc = np.zeros(s_pad, np.float32)
-        nc[:S] = np.float32(1.0 / S)
-        for _ in range(T):
-            asel = sum(t.astype(np.float64) @ ohs
-                       for t in _terms(nc, split)).astype(np.float32)
-            contrib = asel * w_p
-            a = sum(t.astype(np.float64) @ ohd_t
-                    for t in _terms(contrib, split)).astype(np.float32)
-            raw = max(np.float32(a.sum(dtype=np.float64)),
-                      np.float32(xr.TINY))
-            nc = a * (np.float32(1.0) / raw)
-        out[b] = nc[:S]
+        a = np.zeros(s_pad, np.float32)
+        a[:S] = np.float32(1.0 / S)
+        inv = np.float32(1.0)
+        red = None
+        for t in range(T):
+            if t > 0:
+                inv = _mxu_inv(red)
+            nc = np.stack(_terms(a * inv, split))             # (split, S_pad)
+            st1 = np.zeros((split, k_pad), np.float32)
+            for n, q in _issued(ops.tiles1[b]):
+                cols = 16 * n + np.arange(16)
+                r = ops.src_s[b, cols] - 16 * q
+                hit = (r >= 0) & (r < 16)
+                st1[:, cols[hit]] += nc[:, 16 * q + r[hit]]
+            asel = st1[0]
+            for i in range(1, split):
+                asel = asel + st1[i]
+            ct = np.stack(_terms(asel * ops.w_s[b], split))
+            ct_d = np.zeros_like(ct)
+            ct_d[:, ops.perm[b]] = ct
+            st2 = np.zeros((split, s_pad), np.float32)
+            for m, p in _issued(ops.tiles2[b]):
+                ks = 16 * p + np.arange(16)
+                for state in range(16 * m, 16 * m + 16):
+                    hit = ops.dst_d[b, ks] == state
+                    st2[:, state] = (st2[:, state].astype(np.float64)
+                                     + ct_d[:, ks[hit]].astype(np.float64)
+                                     .sum(1)).astype(np.float32)
+            a = st2[0]
+            for i in range(1, split):
+                a = a + st2[i]
+            red = np.zeros(32)
+            for wp in range(warps):
+                lanes = np.zeros(32)      # lane 4 g: states 16 m + g, + 8
+                for m in range(wp * n2 // warps, (wp + 1) * n2 // warps):
+                    for g in range(8):
+                        lanes[4 * g] += a[16 * m + g]
+                        lanes[4 * g] += a[16 * m + g + 8]
+                red[wp] = _butterfly(lanes)
+        if T > 0:
+            inv = _mxu_inv(red)
+        out[b] = (a * inv)[:S]
     return out
+
+
+def _torch_case(name):
+    src, dst, w, S, T = _case(name)
+    return (torch.from_numpy(src), torch.from_numpy(dst),
+            torch.from_numpy(w), S, T)
+
+
+def _hub_case():
+    """A batch whose state 5 takes 40 in-arcs in row 0 (no register slots
+    hold its run), states without in-arcs, K not a multiple of 16."""
+    S, K, B = 50, 170, 2
+    rng = np.random.RandomState(7)
+    src = rng.randint(0, S, (B, K)).astype(np.int32)
+    dst = rng.randint(0, S, (B, K)).astype(np.int32)
+    dst[0, :40] = 5
+    dst[dst == 0] = 1
+    w = rng.rand(K).astype(np.float32) + 0.1
+    return src, dst, w, S, 9
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_vpu_kernel_emulation_matches_plain(name):
     src, dst, w, S, T = _case(name)
-    ptr, in_src, in_w = (t.numpy() for t in xr.vpu_csr(
-        torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(w),
-        S))
-    for b in range(src.shape[0]):      # every arc once, grouped by dst
-        assert ptr[b, 0] == 0 and ptr[b, -1] == src.shape[1]
-        assert ptr[b, 1] == ptr[b, 0]                   # state 0: no in-arc
-        order = np.argsort(dst[b], kind="stable")
-        np.testing.assert_array_equal(in_src[b], src[b, order])
-        np.testing.assert_array_equal(
-            np.repeat(np.arange(S), np.diff(ptr[b])), dst[b, order])
-    got = _emulate_vpu(ptr, in_src, in_w, S, T)
+    plan = _np(xr.vpu_plan(*_torch_case(name)[:3], S))
+    got = _emulate_vpu(plan, S, T)
     assert _rel(got, _port(name, "vpu")) <= 1e-6
+
+
+def _plan_at(monkeypatch, args, S, warps):
+    """vpu_plan's plan with ``warps`` compute warps a row, where vpu_warps
+    would give the count for K."""
+    monkeypatch.setattr(xr, "vpu_warps", lambda K: warps)
+    return xr.vpu_plan(*args, S)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name", sorted(CASES) + ["hub"])
+def test_vpu_plan_deals_every_arc_once(monkeypatch, name, warps):
+    """Each thread owns a contiguous run of whole states and holds their
+    in-arcs in CSR order (ascending arc id), the last one flagged; a state
+    without in-arcs has one arc from the zero slot S with weight 0; pad
+    slots read the zero slot; the arcs are in register slots where every
+    run fits them, else in shared memory."""
+    src, dst, w, S, T = _hub_case() if name == "hub" else _case(name)
+    plan = _np(_plan_at(monkeypatch, [torch.from_numpy(a)
+                                      for a in (src, dst, w)], S, warps))
+    nt = plan.threads
+    assert nt == 32 * warps
+    runs = np.diff(plan.toff, axis=1)
+    need = runs.max()
+    assert plan.slots == (xr.VPU_SLOTS if need <= xr.VPU_SLOTS else 0)
+    if name == "hub":
+        assert plan.slots == 0 and need >= 40
+    for b in range(src.shape[0]):
+        tbeg = plan.tbeg[b]
+        assert tbeg[0] == 0 and tbeg[-1] == S and np.all(np.diff(tbeg) >= 0)
+        E, W = _thread_slots(plan, b)
+        want_src, want_w, want_last = [], [], []
+        for s in range(S):                     # CSR order with the dummies
+            ids = np.flatnonzero(dst[b] == s)
+            if len(ids) == 0:
+                want_src.append([S]), want_w.append([0.0])
+            else:
+                want_src.append(src[b, ids]), want_w.append(w[ids])
+            want_last += [False] * (max(len(ids), 1) - 1) + [True]
+        got_src, got_w, got_last = [], [], []
+        for i in range(nt):
+            n = runs[b, i]
+            assert np.sum(E[:, i] < 0) == tbeg[i + 1] - tbeg[i]
+            got_src += list(E[:n, i] & 0x7FFFFFFF)
+            got_w += list(W[:n, i])
+            got_last += list(E[:n, i] < 0)
+            assert np.all(E[n:, i] == S) and np.all(W[n:, i] == 0)
+        np.testing.assert_array_equal(got_src, np.concatenate(want_src))
+        np.testing.assert_array_equal(got_w, np.concatenate(want_w))
+        np.testing.assert_array_equal(got_last, want_last)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["hub"])
+def test_vpu_carry_does_not_depend_on_the_warps(monkeypatch, name):
+    """Every warp count that vpu_warps gives deals the same CSR sums and
+    takes sum b in float64, rounded once: the emulated kernel's carry is
+    bit for bit the same at 1 to 16 warps, in register slots and in shared
+    memory, and within 1e-6 of the plain version."""
+    src, dst, w, S, T = _hub_case() if name == "hub" else _case(name)
+    args = [torch.from_numpy(a) for a in (src, dst, w)]
+    outs = [_emulate_vpu(_np(_plan_at(monkeypatch, args, S, warps)), S, T)
+            for warps in (1, 2, 4, 8, 16)]
+    for got in outs[1:]:
+        np.testing.assert_array_equal(got, outs[0])
+    assert _rel(outs[0], xr.recurrence_plain(*args, S, T).numpy()) <= 1e-6
+
+
+def test_vpu_default_warps():
+    assert [xr.vpu_warps(k) for k in (1, 512, 513, 3200, 8192, 8193,
+                                      10 ** 6)] == [1, 1, 2, 8, 16, 16, 16]
+    src, dst, w = xr.inputs(1000, 3200, 2, device="cpu")
+    plan = xr.vpu_plan(src, dst, w, 1000)
+    assert (plan.threads, plan.slots) == (32 * 8, 24)
 
 
 @pytest.mark.parametrize("form,split", [("mxu_f32", 3), ("mxu_bf16", 1)])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_mxu_kernel_emulation_matches_plain(name, form, split):
-    src, dst, w, S, T = _case(name)
-    src_p, dst_p, w_p = (t.numpy() for t in xr.mxu_operands(
-        torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(w)))
-    assert src_p.shape[1] % 16 == 0 and src_p.shape[1] >= src.shape[1]
-    got = _emulate_mxu(src_p, dst_p, w_p, S, T, split)
+    src, dst, w, S, T = _torch_case(name)
+    ops = _np(xr.mxu_operands(src, dst, w, S))
+    assert ops.src_s.shape[1] % 16 == 0 and ops.src_s.shape[1] >= src.shape[1]
+    got = _emulate_mxu(ops, S, T, split)
     assert _rel(got, _port(name, form)) <= (1e-5 if split == 3 else 1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["hub"])
+def test_mxu_tile_lists_issue_every_nonzero(name):
+    """The masks of the fragments the tile lists issue, mapped back to arc
+    order, are the dense form's masks: no nonzero is skipped, and the
+    padding arcs (-1) land in no fragment."""
+    src, dst, w, S, T = _hub_case() if name == "hub" else _case(name)
+    B, K = src.shape
+    ops = _np(xr.mxu_operands(torch.from_numpy(src), torch.from_numpy(dst),
+                              torch.from_numpy(w), S))
+    k_pad, s_pad = ops.src_s.shape[1], -(-S // 16) * 16
+    src_p, dst_p = _pad_arcs(src, dst, k_pad)
+    for b in range(B):
+        by_src = np.argsort(src[b], kind="stable")
+        by_dst = np.argsort(dst[b], kind="stable")
+        ohs, ohd_t = _listed_masks(ops, b, s_pad)
+        assert not ohs[:, K:].any() and not ohd_t[K:].any()
+        ohs_arc = np.zeros_like(ohs)
+        ohs_arc[:, by_src] = ohs[:, :K]
+        ohd_arc = np.zeros_like(ohd_t)
+        ohd_arc[by_dst] = ohd_t[:K]
+        want_ohs, want_ohd = _fragment_masks(src_p[b], dst_p[b], s_pad)
+        np.testing.assert_array_equal(ohs_arc, want_ohs)
+        np.testing.assert_array_equal(ohd_arc, want_ohd)
+        # tiles wholly of padding issue nothing
+        assert not ops.tiles1[b, -(-K // 16):, 1].any()
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["hub"])
+def test_mxu_permutation_round_trips(name):
+    """src_s, w_s are the arcs by a stable sort on src, dst_d by one on
+    dst, and perm sends each src-order position to the same arc's
+    dst-order position (padding to itself)."""
+    src, dst, w, S, T = _hub_case() if name == "hub" else _case(name)
+    B, K = src.shape
+    ops = _np(xr.mxu_operands(torch.from_numpy(src), torch.from_numpy(dst),
+                              torch.from_numpy(w), S))
+    k_pad = ops.src_s.shape[1]
+    for b in range(B):
+        by_src = np.argsort(src[b], kind="stable")
+        by_dst = np.argsort(dst[b], kind="stable")
+        np.testing.assert_array_equal(ops.src_s[b, :K], src[b, by_src])
+        np.testing.assert_array_equal(ops.w_s[b, :K], w[by_src])
+        np.testing.assert_array_equal(ops.dst_d[b, :K], dst[b, by_dst])
+        assert (ops.src_s[b, K:] == -1).all() and (ops.dst_d[b, K:] == -1) \
+            .all() and (ops.w_s[b, K:] == 0).all()
+        perm = ops.perm[b]
+        np.testing.assert_array_equal(np.sort(perm), np.arange(k_pad))
+        np.testing.assert_array_equal(by_dst[perm[:K]], by_src)
+        np.testing.assert_array_equal(perm[K:], np.arange(K, k_pad))
+        # and back: the dst-order arcs through the inverse are src order
+        back = np.empty(k_pad, np.int64)
+        back[perm] = np.arange(k_pad)
+        np.testing.assert_array_equal(ops.src_s[b, back[:K]],
+                                      src[b, by_dst])
+
+
+def test_issued_fragments_at_the_default_size():
+    """At the tool's default size the lists hold some 260 fragments a frame
+    and row in either product (the dense form 12,600 each), under a
+    twentieth of the dense form's operations."""
+    S, K, B = 1000, 3200, 8
+    ops = xr.mxu_operands(*xr.inputs(S, K, B, device="cpu"), S)
+    first, second = xr.issued_fragments(ops)
+    assert 220 * B <= first <= 300 * B and 220 * B <= second <= 300 * B
+    s_pad, k_pad = 1008, 3200
+    dense = 4 * s_pad * k_pad * B
+    assert dense == 2 * (k_pad // 16) * (s_pad // 16) * B * 2 * 16 * 16
+    assert xr.issued_ops(ops) <= dense / 20
 
 
 def test_three_bf16_terms_hold_a_float32_exactly():
