@@ -277,6 +277,33 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    auto's bits, bit-identical on a rerun, its time; the launches of
    B1/B2 in both forms and of the semiring pair on the path must be
    nonzero;
+12h. main path 10, the model axis (each multi-rank run's ranks
+   subprocesses sharing the card over gloo, under a 300 s limit (600 s
+   for the dryrun's), every exit code checked): (a)
+   tools/dryrun_multichip at n = 2 and 4 ((1 x 2) and (2 x 2) meshes,
+   __graft_entry__'s _setup sizes, TF32 off): JAX's two lines, each
+   rank's loss within 1e-5 relative of one process's entry() on the
+   card, the state after the SGD step within 1e-5 of its norm of one
+   process's step, each placed kernel's local shard half of it, the
+   replicated tensors bit-identical across the mp ranks, B1/B2
+   (float32) launched on every rank; (b) bench.py --train's TDNN-512x5
+   with mp_axis="mp" on a (1 x 2) mesh of 2 ranks (B=128, T=500, P=3000,
+   ChainLoss(den, precision="fast") over the headline denominator and
+   linear numerators, train-mode BatchNorm, Adam 1e-3, TF32 off, cuDNN
+   deterministic): each step's loss within 1e-5 of one process's on the
+   rank's weights, three steps' losses from the same seeds within 1e-5
+   of one process's in float32 (precision="parity") and within
+   P10_FAST_LOSS_TOL in the fast mode, every parameter's first-step
+   gradient (the same weights) within P10_GRAD_TOL of its norm of one
+   process's in float32 and P10_FAST_GRAD_TOL in the fast mode, the
+   parameters after the first and the third step printed, the local
+   shards half, the plain tensors bit-identical across the ranks, fact_fwd_bf16 / fact_bwd_bf16
+   (fact_fwd / fact_bwd in float32) once a step on each rank; a rank's
+   step beside one process's and main path 5's, the bytes the mp
+   collectives move in a step; (c) the placed
+   model's save_sharded / restore_sharded round trip (each rank's shards,
+   the whole arrays into a model without a mesh); the launches of B1/B2
+   in both forms on the path must be nonzero;
 13. the XL roofline probe (pychain_tpu_torch/tools/xl_roofline.py: T1
    as xl_vpu on the CUDA cores, T2 as xl_mxu on the tensor cores in its
    f32 and bf16 forms): each form against its plain version on small
@@ -316,7 +343,8 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    each B1/B2 kernel in both precisions and one for each of B3/B4 at its
    cluster-tier check ("leaky": 0, their launches in main path 8's
    counted steps); the rows of B1/B2 (both forms) and of the semiring
-   pair at main path 3's batch also count main path 9's launches;
+   pair at main path 3's batch also count main path 9's launches, and
+   B1/B2's those of main path 10;
 15. the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -4169,7 +4197,7 @@ EXAMPLE_RANK = (
     "'launches': n}}}}), flush=True)\n")
 
 
-def run_ranks(label, argv, n, **env_extra):
+def run_ranks(label, argv, n, path="main path 9", **env_extra):
     """``python argv`` in n processes, each started as torchrun starts a
     rank (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
     MASTER_PORT; and ``env_extra``), under one time limit.  A rank that fails or hangs
@@ -4199,7 +4227,7 @@ def run_ranks(label, argv, n, **env_extra):
                 logs.append(p.communicate(
                     timeout=max(1.0, deadline - time.perf_counter())))
             except subprocess.TimeoutExpired:
-                fail(f"main path 9 {label}: rank {r} of {n} ran past "
+                fail(f"{path} {label}: rank {r} of {n} ran past "
                      f"{RANK_TIMEOUT} s")
     finally:
         for p in procs:
@@ -4208,7 +4236,7 @@ def run_ranks(label, argv, n, **env_extra):
                 p.wait()
     out = []
     for r, (p, (so, se)) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"main path 9 {label}: rank {r} of {n} "
+        check(p.returncode == 0, f"{path} {label}: rank {r} of {n} "
               f"exited {p.returncode}:\n{se[-3000:]}")
         out.append([json.loads(line) for line in so.splitlines()
                     if line.startswith("{")])
@@ -4444,6 +4472,435 @@ def p9_leveled(batch, x, lens, counters):
           f"main path 9 (e): auto's bits {as_auto}, rerun {same}, "
           f"launches {launched}")
     return {"ms": ms, "launches": launched}
+
+
+# ----------------------------------------------------------------------
+# Main path 10: the model axis (the TDNN's kernels over "mp")
+# ----------------------------------------------------------------------
+
+# main path 10 (b): the mp ranks sum partial products in another order
+# than one process (the classifier's two halves of its input features,
+# each conv input's gradient's two halves of the output channels), so
+# their x and gradients differ from one process's in the last bits.  A
+# loss on the same weights stays within 1e-5, and so do the three losses
+# of a float32 run from the same seed.  In the fast mode B1/B2 round
+# exp(x) to bfloat16 tiles, where a last-bit difference of x can move an
+# entry by 2^-8: on an H100 (700 W) every parameter's first-step
+# gradient stood 2.2e-4 to 3.2e-4 of its norm from one process's on the
+# same weights, held to P10_FAST_GRAD_TOL, and the fast run's third loss
+# 1.758e-05 (of max(1, |loss|)) from one process's, held to
+# P10_FAST_LOSS_TOL.  A misplaced collective rule gives an mp-times or a
+# partial gradient, half its norm or more apart, which both gradient
+# limits catch.  The parameters after the steps are printed, not held:
+# Adam's update ignores a gradient's scale, so they cannot show a wrong
+# rule.  The SGD step of (a) and the CPU tests hold parameters to 1e-5.
+P10_LOSS_TOL = 1e-5
+P10_FAST_LOSS_TOL = 5e-5
+P10_GRAD_TOL = 1e-5
+P10_FAST_GRAD_TOL = 1e-3
+P10_STEPS = 3
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """Environment variables set as given for the duration (subprocesses
+    started meanwhile inherit them), and restored after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rel_norm(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def mp_pairs_identical(ranks):
+    """Whether the plain (replicated) tensors of the mp ranks of each dp
+    index hold the same bits."""
+    by_dp = {}
+    for r in ranks:
+        by_dp.setdefault(r["dp_index"], []).append(r["plain"])
+    return all(all(torch.equal(a[k], b[k]) for k in a)
+               for a, *rest in by_dp.values() for b in rest)
+
+
+def halves_ok(ranks):
+    """Every placed kernel's local shard is 1/n_mp of it along its dim."""
+    ok = True
+    for r in ranks:
+        for k in r["placed"]:
+            whole_shape = tuple(r["state"][k].shape)
+            loc = r["local_shapes"][k]
+            diff = [i for i, (a, b) in enumerate(zip(whole_shape, loc))
+                    if a != b]
+            ok &= (len(diff) == 1
+                   and loc[diff[0]] * r["n_mp"] == whole_shape[diff[0]])
+    return ok
+
+
+def p10_dryrun():
+    """(a) tools/dryrun_multichip at n = 2 and 4 ((1 x 2) and (2 x 2) gloo
+    ranks sharing the card, TF32 off), each rank's loss against one
+    process's entry() on the card (1e-5 relative) and its state after the
+    SGD step against one process's step (1e-5 of each tensor's norm);
+    the local shards half of each kernel, the replicated tensors
+    bit-identical across the mp ranks, B1/B2 (float32) launched on every
+    rank.  Returns the figures and the ranks' launches."""
+    from pychain_tpu_torch.tools import dryrun_multichip as dm
+    with tf32(False, False):
+        fn, args = dm.entry("cuda")
+        entry_loss = float(fn(*args).detach())
+        ref = dm.reference_step("cuda")
+    out, launches = {}, {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        with env_set(NVIDIA_TF32_OVERRIDE="0"):
+            ranks = dm.dryrun_multichip(n, timeout=RANK_TIMEOUT)
+        secs = time.perf_counter() - t0
+        for r in ranks:
+            add_launches(launches, r["launches"])
+        loss_rel = max(abs(r["loss"] - entry_loss) / abs(entry_loss)
+                       for r in ranks)
+        param_rel = max(rel_norm(r["state"][k], v) for r in ranks
+                        for k, v in ref["state"].items())
+        same, halves = mp_pairs_identical(ranks), halves_ok(ranks)
+        mesh = f"{ranks[0]['n_dp']}x{ranks[0]['n_mp']}"
+        print(f"# main path 10 (a) dryrun_multichip({n}) on {n} gloo ranks "
+              f"sharing the card ({mesh}): losses "
+              f"{[r['loss'] for r in ranks]} against one process's entry() "
+              f"{entry_loss!r}, rel {loss_rel:.3e}; parameters after the "
+              f"SGD step within {param_rel:.3e} of one process's (of their "
+              f"norm); placed {ranks[0]['placed']}, halves {halves}, "
+              f"replicated bit-identical across mp {same}; launches by rank "
+              f"{[r['launches'] for r in ranks]}; {secs:.1f} s", flush=True)
+        check(loss_rel <= 1e-5 and param_rel <= 1e-5 and same and halves
+              and len(ranks[0]["placed"]) == 3
+              and all(r["backend"] == "gloo" and r["launches"].get(
+                  "fact_fwd") and r["launches"].get("fact_bwd")
+                      for r in ranks),
+              f"main path 10 (a) n={n}: loss rel {loss_rel:.3e}, params "
+              f"{param_rel:.3e}, bit-identical {same}, halves {halves}, "
+              f"{[(r['backend'], r['launches']) for r in ranks]}")
+        out[n] = {"loss_rel": loss_rel, "param_rel": param_rel, "s": secs}
+    return out, launches
+
+
+def p10_problem(dev):
+    """Main path 10 (b)'s problem, main path 5's: the headline denominator,
+    40 seeded features at B=128, T=500, linear numerators (seed 18), and
+    bench.py --train's TDNN-512x5 (dropout 0) with mp_axis="mp"."""
+    from pychain_tpu_torch import ChainGraph
+    from pychain_tpu_torch.models import TDNNConfig
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    B, T = 128, 500
+    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+    cfg = TDNNConfig(num_pdfs=P, hidden_dim=512, kernel_sizes=(3,) * 5,
+                     dilations=(1, 1, 3, 3, 3), strides=(1,) * 5,
+                     dropout=0.0, mp_axis="mp")
+    feats = torch.randn(B, T, FEAT_DIM, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    return (ChainGraph(den_fst), cfg, feats,
+            torch.full((B,), T, dtype=torch.int32),
+            linear_batch(P, [T] * B, 18, dev))
+
+
+def p10_train(model, den, feats, lengths, nums, mesh=None, precision="fast",
+              keep=None):
+    """P10_STEPS steps of main path 5's kind: the train-mode model,
+    ChainLoss(den, precision=precision), backward, the gradients summed
+    over the mesh's dp dim (of size 1 here: a check of the rule), Adam at
+    1e-3 over model.parameters(); ``keep(model)`` before each step.
+    Returns (losses, step ms by CUDA events, host ms, launches, the mp
+    collectives' bytes in the last step, every parameter's first-step
+    gradient gathered whole on the CPU)."""
+    from pychain_tpu_torch import ChainLoss
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.parallel import model_parallel as mpl
+    from pychain_tpu_torch.parallel import sum_gradients
+    loss_fn = ChainLoss(den, precision=precision, device=feats.device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    losses, ms, host_ms, grads = [], [], [], None
+    fk.reset_launch_counts()
+    for _ in range(P10_STEPS):
+        if keep is not None:
+            keep(model)
+        mpl.reset_comm_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model(feats, train=True), lengths, nums)
+        loss.backward()
+        if mesh is not None:
+            sum_gradients(model.parameters(), mesh)
+        opt.step()
+        b.record()
+        b.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss.detach()))
+        if grads is None:
+            grads = {k: mpl.whole(p.grad).cpu()
+                     for k, p in model.named_parameters()}
+    return (losses, ms, host_ms, {k: v for k, v in fk.launched().items()
+                                  if v}, dict(mpl.COMM_BYTES), grads)
+
+
+def p10_width_rank(ckpt, out_dir):
+    """A rank of main path 10 (b) and (c), started by run_ranks, TF32 off
+    and cuDNN deterministic: the TDNN-512x5 placed over a (1 x world)
+    mesh's "mp" dim, P10_STEPS steps in the fast mode (its weights kept,
+    gathered whole, before each step), the same from the same seed in
+    float32, then the sharded checkpoint round trip of the fast run's
+    model (into a placed model of another seed, and whole into a model
+    without a mesh).  Writes the whole states and the plain tensors to
+    out_dir/p10_rank<r>.pt and prints one JSON line."""
+    from pychain_tpu_torch.models import TDNN
+    from pychain_tpu_torch.parallel import (make_mesh, restore_sharded,
+                                            save_sharded)
+    from pychain_tpu_torch.parallel.model_parallel import (local, mp_shard,
+                                                           whole)
+    from pychain_tpu_torch.parallel.multihost import join_job
+    from pychain_tpu_torch.utils.dist import set_stats_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rank, world, dev = join_job("cuda")
+    # the mp ranks hold the same rows: statistics over this process's, as
+    # in one process (join_job registers the whole group for --dp)
+    set_stats_group(None)
+    mesh = make_mesh(1, world, device=dev)
+    den, cfg, feats, lengths, nums = p10_problem(dev)
+
+    def placed_model(seed=0):
+        return TDNN(cfg, FEAT_DIM, generator=torch.Generator().manual_seed(
+            seed), mesh=mesh)
+
+    def whole_state(m):
+        return {k: whole(v).detach().cpu() for k, v in m.state_dict().items()}
+
+    kept = []
+    model = placed_model()
+    losses, ms, host_ms, launched, comm, grads = p10_train(
+        model, den, feats, lengths, nums, mesh,
+        keep=lambda m: kept.append(whole_state(m)))
+    state = model.state_dict()
+    res = {"rank": rank, "world": world, "dp_index": 0, "n_mp": world,
+           "backend": torch.distributed.get_backend(), "losses": losses,
+           "ms": ms, "host_ms": host_ms, "launches": launched,
+           "comm_bytes": comm,
+           "placed": sorted(k for k, v in model.named_parameters()
+                            if mp_shard(v) is not None),
+           "local_shapes": {k: tuple(local(v).shape)
+                            for k, v in state.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    f32, f32_kept = placed_model(), []
+    res["f32_losses"], _, _, f32_launched, _, f32_grads = p10_train(
+        f32, den, feats, lengths, nums, mesh, precision="parity",
+        keep=lambda m: f32_kept.append(whole_state(m)))
+    res["f32_launches"] = f32_launched
+    saved = {"state": whole_state(model), "kept": kept,
+             "f32_state": whole_state(f32), "f32_step1": f32_kept[1],
+             "grads1": grads, "f32_grads1": f32_grads,
+             "plain": {k: local(v).detach().cpu() for k, v in state.items()
+                       if mp_shard(v) is None}}
+    del f32
+    torch.save(saved, os.path.join(out_dir, f"p10_rank{rank}.pt"))
+    save_sharded(ckpt, P10_STEPS, state)
+    step, back = restore_sharded(ckpt, placed_model(5).state_dict())
+    plain_cfg = dataclasses.replace(cfg, mp_axis=None)
+    _, full = restore_sharded(ckpt, TDNN(plain_cfg, FEAT_DIM).state_dict())
+    res["ckpt"] = {
+        "step": step,
+        "placed_back": all(torch.equal(local(back[k]), local(v))
+                           and type(back[k]) is type(v)
+                           for k, v in state.items()),
+        "whole_back": all(torch.equal(full[k].cpu(), saved["state"][k])
+                          for k in saved["state"])}
+    torch.distributed.barrier()
+    print(json.dumps({"p10": res}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def p10_width(p5_step_ms):
+    """(b) TDNN-512x5 with mp_axis="mp" at bench.py --train's width on 2
+    gloo ranks sharing the card ((1 x 2) mesh), against one process on
+    the same seeds (TF32 off and cuDNN deterministic in both): each fast
+    step's loss within P10_LOSS_TOL of one process's loss on the rank's
+    own weights before that step; three steps from the same seed in
+    float32, losses within P10_LOSS_TOL of one process's, and in the fast
+    mode within P10_FAST_LOSS_TOL; every parameter's first-step gradient
+    within P10_GRAD_TOL (float32) or P10_FAST_GRAD_TOL of its norm of one
+    process's, the parameters after the first and the third step printed
+    (the comment above P10_LOSS_TOL says why); each placed
+    kernel's local shard half of it, the plain tensors bit-identical
+    across the mp ranks, fact_fwd_bf16 / fact_bwd_bf16 once a fast step
+    and fact_fwd / fact_bwd once a float32 step on each rank; a rank's
+    step beside one process's and main path 5's, the bytes the mp
+    collectives move in a step; (c) the ranks' sharded checkpoint round
+    trip.  Returns the figures and the ranks' launches."""
+    import tempfile
+    from pychain_tpu_torch import ChainLoss
+    from pychain_tpu_torch.models import TDNN
+    ckpt = os.path.join(REPO, CKPT_DIR, "mp")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t0 = time.perf_counter()
+            ranks = [lines[-1]["p10"] for lines in run_ranks(
+                "(b)", ["-c", "import sys, chip_smoke as c; "
+                        "c.p10_width_rank(sys.argv[1], sys.argv[2])",
+                        ckpt, tmp], 2, path="main path 10",
+                NVIDIA_TF32_OVERRIDE="0")]
+            secs = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+        for r in ranks:
+            r.update(torch.load(os.path.join(tmp, f"p10_rank{r['rank']}.pt"),
+                                weights_only=False))
+            add_launches(launches, r["launches"])
+            add_launches(launches, r["f32_launches"])
+    dev = torch.device("cuda")
+    den, cfg, feats, lengths, nums = p10_problem(dev)
+    plain_cfg = dataclasses.replace(cfg, mp_axis=None)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tf32(False, False):
+            # the mp forward at each step's weights
+            probe = TDNN(plain_cfg, FEAT_DIM)
+            fast = ChainLoss(den, precision="fast", device=dev)
+            same_w = []
+            for r in ranks:
+                for k, w in enumerate(r["kept"]):
+                    probe.load_state_dict(w)
+                    with torch.no_grad():
+                        v = float(fast(probe(feats, train=True), lengths,
+                                       nums))
+                    same_w.append(abs(r["losses"][k] - v) / max(1.0, abs(v)))
+            del probe, fast
+            runs = {}
+            for prec in ("fast", "parity"):
+                one = TDNN(cfg, FEAT_DIM,
+                           generator=torch.Generator().manual_seed(0))
+                kept = []
+                out = p10_train(one, den, feats, lengths, nums,
+                                precision=prec, keep=lambda m: kept.append(
+                                    {k: v.detach().cpu() for k, v in
+                                     m.state_dict().items()}))
+                runs[prec] = (out, kept[1], {k: v.detach().cpu() for k, v
+                                             in one.state_dict().items()})
+                del one
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def worst(key, ref):
+        params = {k: max(rel_norm(r[key][k], v) for r in ranks)
+                  for k, v in ref.items()}
+        k = max(params, key=params.get)
+        return params[k], k
+
+    def apart(prefix, prec):
+        (losses, ms, _, _, _, grads), ref1, ref = runs[prec]
+        loss = max(abs(a - b) / max(1.0, abs(b)) for r in ranks
+                   for a, b in zip(r[prefix + "losses"], losses))
+        every = all(set(r[prefix + "grads1"]) == set(grads) for r in ranks)
+        return (loss, worst(prefix + "grads1", grads), every,
+                worst(prefix + "step1", ref1), worst(prefix + "state", ref),
+                losses, ms)
+
+    for r in ranks:
+        r["step1"] = r["kept"][1]
+    loss_f, grad_f, every_f, step1_f, par_f, one_f, one_ms = apart("",
+                                                                   "fast")
+    loss_32, grad_32, every_32, step1_32, par_32, one_32, _ = apart(
+        "f32_", "parity")
+    same, halves = mp_pairs_identical(ranks), halves_ok(ranks)
+    r0 = ranks[0]
+    comm = sum(r0["comm_bytes"].values())
+    print(f"# main path 10 (b) TDNN-512x5, mp_axis=\"mp\", (1x2) mesh of 2 "
+          f"gloo ranks sharing the card, B=128 T=500 P=3000, train-mode "
+          f"BatchNorm, Adam 1e-3, TF32 off, cuDNN deterministic: each "
+          f"step's loss against one process's on the rank's weights before "
+          f"it within {max(same_w):.3e}; fast (ChainLoss(precision="
+          f"\"fast\")) losses {r0['losses']} against one process's "
+          f"{one_f} from the same seed, apart {loss_f:.3e}, first-step "
+          f"gradients within {grad_f[0]:.3e} of their norm ({grad_f[1]}), "
+          f"parameters after step 1 {step1_f[0]:.3e} ({step1_f[1]}), "
+          f"after {P10_STEPS} steps {par_f[0]:.3e} ({par_f[1]}); float32 "
+          f"losses {r0['f32_losses']} against {one_32}, apart "
+          f"{loss_32:.3e}, first-step gradients within {grad_32[0]:.3e} "
+          f"({grad_32[1]}), parameters after step 1 {step1_32[0]:.3e} "
+          f"({step1_32[1]}), after {P10_STEPS} {par_32[0]:.3e} "
+          f"({par_32[1]}); placed "
+          f"{r0['placed']}, halves {halves}; plain tensors bit-identical "
+          f"across mp {same}; launches by rank "
+          f"{[(r['launches'], r['f32_launches']) for r in ranks]}; "
+          f"{secs:.1f} s", flush=True)
+    print(f"# main path 10 (b) a rank's fast step {r0['ms'][-1]:.3f} ms (CUDA "
+          f"events; host {r0['host_ms'][-1]:.3f} ms; steps {r0['ms']}), one "
+          f"process with TF32 off {one_ms[-1]:.3f} ms, main path 5's "
+          f"one-process step (TF32 defaults) {p5_step_ms:.3f} ms; the mp "
+          f"collectives move {comm} bytes a step on a rank "
+          f"({r0['comm_bytes']}); peak {r0['peak_gb']:.2f} GB a rank; "
+          f"{card_line()}", flush=True)
+    check(max(same_w) <= P10_LOSS_TOL and loss_32 <= P10_LOSS_TOL
+          and loss_f <= P10_FAST_LOSS_TOL and every_f and every_32
+          and grad_32[0] <= P10_GRAD_TOL and grad_f[0] <= P10_FAST_GRAD_TOL
+          and same and halves and len(r0["placed"]) == 6
+          and all(r["backend"] == "gloo" and r["launches"] == {
+              "fact_fwd_bf16": P10_STEPS, "fact_bwd_bf16": P10_STEPS}
+                  and r["f32_launches"] == {"fact_fwd": P10_STEPS,
+                                            "fact_bwd": P10_STEPS}
+                  for r in ranks),
+          f"main path 10 (b): same weights {max(same_w):.3e}, float32 loss "
+          f"{loss_32:.3e} gradients {grad_32} (all {every_32}), fast loss "
+          f"{loss_f:.3e} gradients {grad_f} (all {every_f}), bit-identical "
+          f"{same}, halves {halves}, "
+          f"{[(r['backend'], r['launches'], r['f32_launches']) for r in ranks]}")
+    for r in ranks:
+        c = r["ckpt"]
+        check(c == {"step": P10_STEPS, "placed_back": True,
+                    "whole_back": True}, f"main path 10 (c) rank "
+              f"{r['rank']}: {c}")
+    print("# main path 10 (c): save_sharded / restore_sharded of the "
+          "placed TDNN-512x5 on 2 ranks: each rank's shards back bit for "
+          "bit into a placed model of another seed, the whole arrays into "
+          "a model without a mesh", flush=True)
+    return {"same_w": max(same_w), "loss_rel": loss_f,
+            "grad_rel": grad_f[0], "f32_grad_rel": grad_32[0],
+            "param_rel": par_f[0], "step1_rel": step1_f[0],
+            "f32_loss_rel": loss_32, "f32_param_rel": par_32[0],
+            "f32_step1_rel": step1_32[0],
+            "rank_ms": r0["ms"][-1], "rank_host_ms": r0["host_ms"][-1],
+            "one_ms": one_ms[-1], "comm_bytes": comm, "s": secs}, launches
+
+
+def main_path_10(p5_step_ms):
+    """Main path 10: (a) the dryrun, (b) the full-width step and (c) its
+    checkpoint.  Returns the figures and the kernel launches of the
+    ranks' steps (counted in the ranks: 0 before each rank's step)."""
+    t0 = time.perf_counter()
+    a, launches = p10_dryrun()
+    b, b_launches = p10_width(p5_step_ms)
+    add_launches(launches, b_launches)
+    print(f"# main path 10 launches (the ranks' steps): {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k in ("fact_fwd", "fact_bwd", "fact_fwd_bf16", "fact_bwd_bf16"):
+        check(launches.get(k), f"main path 10 launched no {k}")
+    return {"a": a, "b": b}, launches
 
 
 def bound(nbytes, ops, peak_flops=PEAK_F32_FLOPS):
@@ -4786,6 +5243,10 @@ def main():
               "semiring_fwd", "semiring_bwd"):
         check(p9_launches.get(k), f"main path 9 launched no {k}")
 
+    # -- phase 12h: main path 10, the model axis ---------------------------
+    p10, p10_launches = main_path_10(p5["step_ms"])
+    torch.cuda.empty_cache()
+
     # -- phase 13: the XL roofline probe ----------------------------------
     from pychain_tpu_torch.tools import xl_roofline as xr
     xl_rows = xl_probe(dev)
@@ -4805,14 +5266,16 @@ def main():
             "source": f"pychain_tpu_torch/csrc/{name}.cu",
             "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}",
-            # main path 1's three steps, main path 5's float32 step and
-            # main path 9's sharded steps (main path 6's launches: its
-            # own rows)
+            # main path 1's three steps, main path 5's float32 step, main
+            # path 9's sharded steps and main path 10's dryrun ranks (main
+            # path 6's launches: its own rows)
             "launches": (launches[name] + p5["launches"][name]
-                         + p9_launches.get(name, 0)),
+                         + p9_launches.get(name, 0)
+                         + p10_launches.get(name, 0)),
             "launches_by_path": {"main path 1": launches[name],
                                  "main path 5": p5["launches"][name],
-                                 "main path 9": p9_launches.get(name, 0)},
+                                 "main path 9": p9_launches.get(name, 0),
+                                 "main path 10": p10_launches.get(name, 0)},
             "max_abs_err": err, "max_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "bytes": nbytes, "ops": ops,
@@ -4831,10 +5294,12 @@ def main():
             "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, "
                            "bfloat16 tiles (fast mode)",
             "launches": (fast_launches[name] + p5["launches"][name]
-                         + p9_launches.get(name, 0)),
+                         + p9_launches.get(name, 0)
+                         + p10_launches.get(name, 0)),
             "launches_by_path": {"main path 1 fast": fast_launches[name],
                                  "main path 5": p5["launches"][name],
-                                 "main path 9": p9_launches.get(name, 0)},
+                                 "main path 9": p9_launches.get(name, 0),
+                                 "main path 10": p10_launches.get(name, 0)},
             "max_abs_err": r["max_abs_err"],
             "max_err": r["max_abs_err"], "entry_excess": r["entry_excess"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5174,6 +5639,20 @@ def main():
           f"against gather {p9_dense['gather_ms']:.1f} ms; "
           f"impl=\"leveled\" (auto: the semiring kernels) "
           f"{p9_lev['ms']:.3f} ms")
+    a, b = p10["a"], p10["b"]
+    print(f"# main path 10 (the model axis; gloo ranks sharing the card): "
+          f"dryrun_multichip(2) / (4) loss rel {a[2]['loss_rel']:.2e} / "
+          f"{a[4]['loss_rel']:.2e}, parameters {a[2]['param_rel']:.2e} / "
+          f"{a[4]['param_rel']:.2e}; TDNN-512x5 on a (1x2) mesh: a rank's "
+          f"step {b['rank_ms']:.3f} ms against one process's "
+          f"{b['one_ms']:.3f} ms (TF32 off), {b['comm_bytes']} bytes of mp "
+          f"collectives a step; losses on the same weights "
+          f"{b['same_w']:.2e} apart, from the same seed {b['loss_rel']:.2e} "
+          f"(float32 {b['f32_loss_rel']:.2e}), first-step gradients "
+          f"{b['grad_rel']:.2e} (float32 {b['f32_grad_rel']:.2e}), "
+          f"parameters after step 1 "
+          f"{b['step1_rel']:.2e} (float32 {b['f32_step1_rel']:.2e}), after "
+          f"step 3 {b['param_rel']:.2e} (float32 {b['f32_param_rel']:.2e})")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

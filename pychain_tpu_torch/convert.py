@@ -6,7 +6,9 @@ they take the JAX package's ``FactorizedArrays`` / ``LinearArrays`` /
 fields) without importing JAX.  :func:`model_from_flax` takes a flax
 model's ``variables`` as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, variables)``) and :func:`model_to_flax`
-gives them back.  Every function puts its result on ``device``:
+gives them back, each also for a model placed over a mesh's ``mp`` dim
+(each rank its slice; the whole arrays gathered back).  Every function
+puts its result on ``device``:
 ``None`` means CUDA and raises with no card, as every entry point of the
 port does; pass ``device="cpu"`` for the CPU.
 """
@@ -20,6 +22,7 @@ from .ops.factorized import FactorizedArrays, WArrays
 from .ops.linear import LinearArrays
 from .ops.semiring import SemiringArrays, semiring_from_ids
 from .utils.device import resolve_device
+from .utils.mp import whole
 
 
 def _t(v, dtype=None):
@@ -203,7 +206,7 @@ def _rows(t, gate):
     return t[i * h:(i + 1) * h]
 
 
-def model_from_flax(config, variables, device=None):
+def model_from_flax(config, variables, device=None, mesh=None):
     """The port's model for ``config`` (a ``TDNNConfig``,
     ``TDNNFConfig`` or ``BLSTMConfig``) holding the flax ``variables``
     (``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
@@ -213,9 +216,11 @@ def model_from_flax(config, variables, device=None):
     (in, out) Linear weights (out, in), BatchNorm ``scale`` / ``bias`` /
     ``mean`` / ``var`` the port's ``weight`` / ``bias`` /
     ``running_mean`` / ``running_var``, and an LSTM cell's eight blocks
-    the rows of ``weight_ih`` / ``weight_hh`` / ``bias_hh``.  Raises
-    ValueError on a missing or a surplus leaf, or on a shape that does
-    not fit."""
+    the rows of ``weight_ih`` / ``weight_hh`` / ``bias_hh``.  With
+    ``mesh`` and a config's ``mp_axis``, the kernels the model annotates
+    are placed over that mesh dim (``parallel.place_parameters``), each
+    rank keeping its slice of the flax arrays.  Raises ValueError on a
+    missing or a surplus leaf, or on a shape that does not fit."""
     from .models import BLSTM, BLSTMConfig, TDNN, TDNNConfig, TDNNF
     device = resolve_device(device)
     flat = _flatten(variables)
@@ -243,14 +248,19 @@ def model_from_flax(config, variables, device=None):
                              f"{key} {tuple(dst.shape)}")
         dst.copy_(src)
     model.load_state_dict(state)
-    return model.to(device)
+    model.to(device)
+    if mesh is not None and getattr(config, "mp_axis", None):
+        from .parallel.model_parallel import place_parameters
+        place_parameters(model, mesh)
+    return model
 
 
 def model_to_flax(model) -> dict:
     """The flax ``variables`` (nested dicts of float32 numpy arrays) of
     the port's ``model``: the inverse of :func:`model_from_flax`.  An
-    LSTM gate's flax bias is ``bias_hh + bias_ih``."""
-    state = {k: v.detach().to("cpu", torch.float32)
+    LSTM gate's flax bias is ``bias_hh + bias_ih``.  A placed weight is
+    gathered whole (every rank of the model's mesh calls it)."""
+    state = {k: whole(v).detach().to("cpu", torch.float32)
              for k, v in model.state_dict().items()}
     flat = {}
     for path, key, gate, kind in _flax_leaves(model.config):

@@ -12,6 +12,8 @@ computes in the JAX package's models.
   ``F.batch_norm`` would take the unbiased one (a factor n / (n - 1)).
 * :class:`Dropout` — inverted dropout whose mask comes from a generator
   the module holds.
+* :func:`conv_same` / :func:`linear` — a convolution or a dense layer
+  whose weight may be placed over a mesh's ``mp`` dim.
 
 Convolution layers work channels-first (B, C, T); a model transposes
 once at its entry and once at its exit.
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.dist import all_reduce_sum, stats_group
+from ..utils.mp import local, mp_apply, mp_shard
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -66,11 +69,31 @@ def same_padding(length: int, kernel_size: int, stride: int = 1,
 
 
 def conv_same(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (built with padding 0) over x (B, C, T) with SAME
-    padding."""
+    """``conv`` (built with padding 0) over x (B, C, T) with SAME padding;
+    a weight sharded over a mesh's mp dim runs its shard between the mp
+    collectives (``utils.mp.mp_apply``), a replicated one as its local
+    tensor."""
     pad = same_padding(x.shape[-1], conv.kernel_size[0], conv.stride[0],
                        conv.dilation[0])
-    return conv(F.pad(x, pad) if any(pad) else x)
+
+    def padded(v):
+        return F.pad(v, pad) if any(pad) else v
+
+    if mp_shard(conv.weight) is None:
+        return F.conv1d(padded(x), local(conv.weight), local(conv.bias),
+                        conv.stride, 0, conv.dilation, conv.groups)
+    # the collectives carry x unpadded
+    return mp_apply(lambda v, w: F.conv1d(padded(v), w, None, conv.stride,
+                                          0, conv.dilation),
+                    x, conv.weight, conv.bias, 1)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` over the last dim of x; a weight placed over a mesh's mp
+    dim as in :func:`conv_same`."""
+    if mp_shard(layer.weight) is None:
+        return F.linear(x, local(layer.weight), local(layer.bias))
+    return mp_apply(F.linear, x, layer.weight, layer.bias, -1)
 
 
 class BatchNorm(nn.Module):
@@ -85,7 +108,8 @@ class BatchNorm(nn.Module):
     batch's: the ranks' sums and sums of squared deviations are
     all-reduced, as the JAX recipe's ``--dp`` step takes them over its
     global batch.  ``weight`` / ``bias`` are flax's ``scale`` /
-    ``bias``."""
+    ``bias`` (replicated DTensors on a placed model: their local
+    tensors)."""
 
     def __init__(self, features: int, momentum: float = 0.95,
                  eps: float = 1e-5):
@@ -97,20 +121,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        weight, bias = local(self.weight), local(self.bias)
         if not train:
             # flax's arithmetic, through which autograd also reaches the
             # running statistics when they are trained as parameters (the
             # corpus recipe differentiates flax's whole variables tree)
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            mul = torch.rsqrt(self.running_var + self.eps) * weight
             return ((x - self.running_mean[:, None]) * mul[:, None]
-                    + self.bias[:, None])
+                    + bias[:, None])
         group = stats_group()
         if group is None:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
                 self._update(mean, var)
-            return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                                0.0, self.eps)
+            return F.batch_norm(x, None, None, weight, bias, True, 0.0,
+                                self.eps)
         # the whole batch's statistics, two passes as var_mean takes them
         n = all_reduce_sum(x.new_tensor(float(x.shape[0] * x.shape[2])),
                            group)
@@ -119,8 +144,8 @@ class BatchNorm(nn.Module):
         var = all_reduce_sum((d * d).sum(dim=(0, 2)), group) / n
         with torch.no_grad():
             self._update(mean, var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return d * mul[None, :, None] + self.bias[None, :, None]
+        mul = torch.rsqrt(var + self.eps) * weight
+        return d * mul[None, :, None] + bias[None, :, None]
 
     def _update(self, mean, var):
         m = self.momentum

@@ -9,6 +9,13 @@ initialisers (``lecun_normal`` kernels, zero biases).  The convolutions
 run channels-first through cuDNN; the model transposes once at its entry
 and once at its exit.  ``convert.model_from_flax`` carries the JAX
 package's weights across.
+
+With ``mp_axis`` set and a mesh whose dim of that name has n > 1 ranks,
+each rank holds 1/n of every kernel the JAX model annotates
+(``nn.with_partitioning``): each convolution's output channels and the
+classifier's input features (:meth:`TDNN.mp_spec`,
+``parallel.model_parallel``).  Without a mesh, or with n = 1, the model
+is the whole one, as flax's annotations only annotate.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .layers import (BatchNorm, Dropout, conv_same, dropout_seed,
-                     init_generator, lecun_normal_)
+                     init_generator, lecun_normal_, linear)
 
 
 @dataclass(frozen=True)
@@ -32,16 +39,8 @@ class TDNNConfig:
     dilations: Sequence[int] = (1, 1, 3, 3, 3)
     strides: Sequence[int] = (1, 1, 1, 1, 1)
     dropout: float = 0.1
-    # mesh axis name for kernel sharding in the JAX package; the port has
-    # no model parallelism yet, and anything but None raises
+    # the mesh dim the annotated kernels shard over; None: no annotations
     mp_axis: str | None = None
-
-
-def require_no_mp_axis(mp_axis):
-    if mp_axis is not None:
-        raise NotImplementedError(
-            f"mp_axis={mp_axis!r}: the port has no model parallelism yet "
-            "(ROADMAP.md: \"parallelism\"); use mp_axis=None")
 
 
 def dense(in_features: int, out_features: int,
@@ -93,12 +92,12 @@ class TDNN(nn.Module):
     weights are drawn on the CPU from ``generator`` (default: seeded
     with 0) and then moved, so a seed gives the same model everywhere.
     ``train=True`` normalises by batch statistics, moves the running
-    ones and applies dropout."""
+    ones and applies dropout.  ``mesh`` (a DeviceMesh with a dim named
+    ``config.mp_axis``) places the annotated kernels over that dim."""
 
     def __init__(self, config: TDNNConfig, input_dim: int, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         super().__init__()
-        require_no_mp_axis(config.mp_axis)
         device = resolve_device(device)
         generator = init_generator(generator)
         self.config = config
@@ -111,12 +110,26 @@ class TDNN(nn.Module):
                                               config.strides)))
         self.classifier = dense(dims[-1], config.num_pdfs, generator)
         self.to(device)
+        if mesh is not None and config.mp_axis is not None:
+            from ..parallel.model_parallel import place_parameters
+            place_parameters(self, mesh)
+
+    def mp_spec(self, name: str, param) -> int | None:
+        """The JAX model's annotations, in the port's layout: a conv
+        kernel (k, in, out) sharded (None, None, mp) is a weight (out, in,
+        k) sharded on dim 0, the classifier's (in, out) sharded (mp, None)
+        a Linear weight (out, in) on dim 1; None without ``mp_axis``."""
+        if self.config.mp_axis is None:
+            return None
+        if name.endswith(".conv.weight"):
+            return 0
+        return 1 if name == "classifier.weight" else None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.transpose(1, 2)
         for layer in self.layers:
             x = layer(x, train)
-        return self.classifier(x.transpose(1, 2))
+        return linear(self.classifier, x.transpose(1, 2))
 
     def output_lengths(self, input_lengths) -> torch.Tensor:
         """Frame subsampling from the strides."""

@@ -15,6 +15,12 @@ few optimizer steps (nnet-utils.cc ConstrainOrthonormalInternal,
 "floating" case): :func:`constrain_semi_orthogonal`, which updates every
 ``linear_bottleneck`` weight in place.  Call it after the optimizer step
 every ~4 steps.
+
+With ``mp_axis`` set and a mesh whose dim of that name has n > 1 ranks,
+each rank holds 1/n of every kernel the JAX model annotates: each
+``affine`` convolution's output channels and the classifier's input
+features (:meth:`TDNNF.mp_spec`).  The bottleneck stays whole, as in the
+JAX model, so :func:`constrain_semi_orthogonal` acts on it as it is.
 """
 
 from __future__ import annotations
@@ -26,9 +32,10 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.mp import local, mp_shard
 from .layers import (BatchNorm, Dropout, conv_same, dropout_seed,
-                     init_generator)
-from .tdnn import conv, dense, require_no_mp_axis
+                     init_generator, linear)
+from .tdnn import conv, dense
 
 BOTTLENECK_KERNEL_NAME = "linear_bottleneck"
 
@@ -78,12 +85,11 @@ class TDNNFLayer(nn.Module):
 
 class TDNNF(nn.Module):
     """x (B, T, input_dim) -> per-frame pdf scores (B, T, num_pdfs).
-    ``device`` and ``generator`` as in :class:`~.tdnn.TDNN`."""
+    ``device``, ``generator`` and ``mesh`` as in :class:`~.tdnn.TDNN`."""
 
     def __init__(self, config: TDNNFConfig, input_dim: int, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         super().__init__()
-        require_no_mp_axis(config.mp_axis)
         device = resolve_device(device)
         generator = init_generator(generator)
         self.config = config
@@ -99,12 +105,26 @@ class TDNNF(nn.Module):
         width = config.hidden_dim if config.num_layers else input_dim
         self.classifier = dense(width, config.num_pdfs, generator)
         self.to(device)
+        if mesh is not None and config.mp_axis is not None:
+            from ..parallel.model_parallel import place_parameters
+            place_parameters(self, mesh)
+
+    def mp_spec(self, name: str, param) -> int | None:
+        """The JAX model's annotations in the port's layout (as
+        :meth:`~.tdnn.TDNN.mp_spec`): each ``affine`` weight on dim 0
+        (output channels), the classifier's on dim 1 (input features), the
+        bottleneck none; None without ``mp_axis``."""
+        if self.config.mp_axis is None:
+            return None
+        if name.endswith(".affine.weight"):
+            return 0
+        return 1 if name == "classifier.weight" else None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.transpose(1, 2)
         for layer in self.layers:
             x = layer(x, train)
-        return self.classifier(x.transpose(1, 2))
+        return linear(self.classifier, x.transpose(1, 2))
 
     def output_lengths(self, input_lengths) -> torch.Tensor:
         return torch.as_tensor(input_lengths)   # no frame subsampling
@@ -112,14 +132,20 @@ class TDNNF(nn.Module):
 
 def _bottleneck_weights(model_or_state_dict):
     """Every ``linear_bottleneck`` conv weight (bneck, in, k), as the
-    tensors the model or state dict holds."""
+    tensors the model or state dict holds (a replicated DTensor's local
+    tensor, which shares its storage)."""
     sd = (model_or_state_dict.state_dict(keep_vars=True)
           if isinstance(model_or_state_dict, nn.Module)
           else model_or_state_dict)
     for key, w in sd.items():
         parts = key.split(".")
         if BOTTLENECK_KERNEL_NAME in parts[:-1] and parts[-1] == "weight":
-            yield w
+            if mp_shard(w) is not None:
+                raise ValueError(
+                    f"{key} is sharded: the semi-orthogonal update needs "
+                    "the whole bottleneck (the model's own annotations "
+                    "keep it whole)")
+            yield local(w)
 
 
 def _sigma2(m: torch.Tensor):

@@ -1,5 +1,7 @@
-"""Data parallelism over ``torch.distributed`` (``pychain_tpu.parallel``'s
-port): one process per device, the batch's rows spread over the ranks."""
+"""Data and model parallelism over ``torch.distributed``
+(``pychain_tpu.parallel``'s port): one process per device, the batch's
+rows spread over a mesh's ``dp`` dim and the models' annotated kernels
+over its ``mp`` dim."""
 
 from .data_parallel import (
     make_mesh,
@@ -10,6 +12,13 @@ from .data_parallel import (
     global_value,
     sum_gradients,
     all_ranks,
+)
+from .model_parallel import (
+    place_parameters,
+    copy_to_mp,
+    gather_from_mp,
+    scatter_to_mp,
+    reduce_from_mp,
 )
 from .multihost import (
     initialize,
@@ -29,6 +38,11 @@ __all__ = [
     "global_value",
     "sum_gradients",
     "all_ranks",
+    "place_parameters",
+    "copy_to_mp",
+    "gather_from_mp",
+    "scatter_to_mp",
+    "reduce_from_mp",
     "initialize",
     "global_dp_mesh",
     "host_local_batch_to_global",

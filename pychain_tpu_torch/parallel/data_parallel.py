@@ -6,7 +6,10 @@ PyTorch runs one process per device in a process group, and each rank
 holds its own rows of the batch.  The names stay:
 
 * :func:`make_mesh` — a ``DeviceMesh`` over the ranks with axes
-  ``("dp", "mp")``; the loss is batch-parallel, and ``mp`` stays 1.
+  ``("dp", "mp")``: rank r at dp index r // n_mp and mp index r % n_mp,
+  as JAX's ``reshape(n_dp, n_mp)``.  The loss is batch-parallel over
+  ``dp``; the mp ranks of one dp index hold the same rows, and the models
+  shard their kernels over ``mp`` (``model_parallel``).
 * :func:`shard_batch` — this rank's contiguous rows
   ``[r B / n, (r + 1) B / n)`` of a global batch.
 * :func:`engine_pspec` — which engine arrays replicate (a shared
@@ -21,7 +24,7 @@ the sum of their frames.  Its value is the same on every rank; its
 gradient is each rank's own: a rank's term is taken over the global
 frame count, and only the value is reduced (:func:`global_value`), so
 ``backward()`` on every rank gives each rank the gradient of its rows.
-The parameters' gradients are then summed over the ranks
+The parameters' gradients are then summed over the dp ranks
 (:func:`sum_gradients`), as the JAX step sums each shard's part of one
 objective (DDP would average them).
 """
@@ -38,15 +41,7 @@ from ..ops.factorized import FactorizedArrays
 from ..ops.fwdbwd import GraphArrays
 from ..utils.device import host_to, resolve_device
 from ..utils.dist import set_stats_group
-
-
-def _dtensor():
-    """(DTensor, Replicate, Shard) from this torch's module."""
-    try:
-        from torch.distributed.tensor import DTensor, Replicate, Shard
-    except ImportError:          # torch before 2.4
-        from torch.distributed._tensor import DTensor, Replicate, Shard
-    return DTensor, Replicate, Shard
+from ..utils.mp import _dtensor, local as _local
 
 
 def backend_for(device) -> str:
@@ -68,20 +63,20 @@ def ensure_group(device=None) -> None:
 
 def make_mesh(n_dp: int | None = None, n_mp: int = 1, device=None):
     """A ``("dp", "mp")`` DeviceMesh over the group's ranks (started as a
-    group of one if none runs).  ``n_dp`` defaults to every rank; the
-    mesh must cover the group.  ``device=None`` means the card."""
+    group of one if none runs), rank r at (r // n_mp, r % n_mp).
+    ``n_dp`` defaults to every rank over ``n_mp``; the mesh must cover
+    the group (ValueError, and no group is left started).
+    ``device=None`` means the card."""
     from torch.distributed.device_mesh import init_device_mesh
-    if n_mp != 1:
-        raise NotImplementedError(
-            f"n_mp={n_mp}: the port has no model parallelism yet "
-            "(ROADMAP.md: \"parallelism\"); use n_mp=1")
     dev = resolve_device(device)
-    ensure_group(dev)
-    world = torch.distributed.get_world_size()
-    n_dp = world if n_dp is None else int(n_dp)
-    if n_dp * n_mp != world:
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_mp = int(n_mp)
+    n_dp = max(1, world // max(n_mp, 1)) if n_dp is None else int(n_dp)
+    if n_dp < 1 or n_mp < 1 or n_dp * n_mp != world:
         raise ValueError(f"a ({n_dp}, {n_mp}) mesh needs {n_dp * n_mp} "
                          f"ranks; the process group has {world}")
+    ensure_group(dev)
     return init_device_mesh(dev.type, (n_dp, n_mp),
                             mesh_dim_names=("dp", "mp"))
 
@@ -180,23 +175,38 @@ def global_value(local: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def sum_gradients(params, group=None) -> None:
-    """Sum each tensor's ``.grad`` over the ranks, in place: one
+    """Sum each tensor's ``.grad`` over the dp ranks, in place: one
     all-reduce over the gradients laid end to end (a fixed order, so
-    every rank gets the same bits)."""
-    grads = [p.grad for p in params if p.grad is not None]
+    every rank gets the same bits); a DTensor's gradient by its local
+    shard.  ``group`` is a process group or a DeviceMesh (its ``dp``
+    group); None means the mesh of the DTensor parameters, else every
+    rank.  The mp ranks of a dp index hold different shards, so with
+    parameters placed over mp the sum must not cross them: a group of
+    another size than the mesh's dp dim raises ValueError."""
+    from torch.distributed.device_mesh import DeviceMesh
+    DTensor = _dtensor()[0]
+    params = list(params)
+    meshes = {p.device_mesh for p in params if isinstance(p, DTensor)}
+    if len(meshes) > 1:
+        raise ValueError("the parameters lie on more than one mesh")
+    if isinstance(group, DeviceMesh):
+        meshes.add(group)
+        group = group.get_group("dp")
+    elif group is None and meshes:
+        group = next(iter(meshes)).get_group("dp")
+    for mesh in meshes:
+        if torch.distributed.get_world_size(group) != mesh["dp"].size():
+            raise ValueError(
+                f"sum_gradients over {torch.distributed.get_world_size(group)}"
+                f" ranks: parameters placed on a {tuple(mesh.shape)} mesh "
+                "sum over its dp dim alone")
+    grads = [_local(p.grad) for p in params if p.grad is not None]
     if not grads or torch.distributed.get_world_size(group) == 1:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     torch.distributed.all_reduce(flat, group=group)
     for g, v in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(v.view_as(g))
-
-
-def _local(t):
-    """A DTensor's local rows (``host_local_batch_to_global``'s), or
-    ``t`` as it is."""
-    DTensor = _dtensor()[0]
-    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _comm_device(group) -> torch.device:
@@ -274,9 +284,10 @@ class ShardedChainLoss(torch.nn.Module):
     output, and adds Kaldi's regularizer on the numerator posteriors;
     ``l2_regularize`` adds the output-l2 on real frames (as
     ``chain_loss_xent``).  The value is the global objective on every
-    rank; the gradient, each rank's rows' (:func:`global_value`).  On
-    more than one rank it registers its ``dp`` group for the models'
-    train-mode statistics (``utils.dist.set_stats_group``)."""
+    rank; the gradient, each rank's rows' (:func:`global_value`).  It
+    registers its ``dp`` group for the models' train-mode statistics
+    (``utils.dist.set_stats_group``; none at a dp size of 1, where the
+    mp ranks hold the same rows)."""
 
     def __init__(self, mesh, den_graph, leaky_coefficient=1e-5, avg=True,
                  impl: str = "auto", tile_dtype=None, xent_regularize=0.0,
@@ -294,8 +305,7 @@ class ShardedChainLoss(torch.nn.Module):
         self._den_cache = {}
         self._rows_checked = set()
         group, _, size = dp_axis(mesh)
-        if size > 1:
-            set_stats_group(group)
+        set_stats_group(group if size > 1 else None)
 
     def den_arrays(self, batch_size: int):
         """The denominator's engine arrays for a LOCAL batch size, built

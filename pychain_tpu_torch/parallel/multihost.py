@@ -11,7 +11,8 @@ reduces its scalars over the group, on one host or many.
 * :func:`host_local_batch_to_global` — this rank's rows, kept as they
   are, as its shard of a global ``DTensor`` (``.to_local()`` gives them
   back; the loss takes either).
-* :func:`replicate_to_global` — rank 0's values on every rank.
+* :func:`replicate_to_global` — the values of the mesh's first rank on
+  every rank of the mesh.
 * :func:`save_sharded` / :func:`restore_sharded` — checkpoints over
   ``torch.distributed.checkpoint`` (for orbax): each rank writes its
   shards of a DTensor, and a plain tensor is saved once as replicated;
@@ -32,7 +33,8 @@ import torch
 from ..utils.checkpoint import latest_step
 from ..utils.device import resolve_device
 from ..utils.dist import set_stats_group
-from .data_parallel import _dtensor, backend_for, dp_axis, dp_placements
+from ..utils.mp import _dtensor
+from .data_parallel import backend_for, dp_placements
 
 
 def local_rank(process_id: int) -> int:
@@ -109,17 +111,21 @@ def host_local_batch_to_global(mesh, tree: Any) -> Any:
 
 
 def replicate_to_global(mesh, tree: Any) -> Any:
-    """Rank 0's values of each tensor or numpy leaf, broadcast over the
-    ``dp`` axis to every rank (the denominator graph's arrays, a seed's
-    weights)."""
-    group, _, _ = dp_axis(mesh)
-    src = torch.distributed.get_global_rank(group, 0)
+    """The values of each tensor or numpy leaf on the mesh's first rank
+    (every coordinate 0), broadcast to every rank of the mesh (the
+    denominator graph's arrays, a seed's weights): over each mesh dim in
+    turn from its first rank, last dim first, so that a (dp, mp) mesh's
+    mp ranks get rank 0's values too, not their own dp column's."""
+    groups = [mesh.get_group(name) for name in mesh.mesh_dim_names]
 
     def put(x):
         if not isinstance(x, (torch.Tensor, np.ndarray)):
             return x
         t = _on_mesh(x, mesh).clone()
-        torch.distributed.broadcast(t, src=src, group=group)
+        for group in reversed(groups):
+            torch.distributed.broadcast(
+                t, src=torch.distributed.get_global_rank(group, 0),
+                group=group)
         return t
 
     return _tree_map(put, tree)

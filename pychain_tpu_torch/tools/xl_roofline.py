@@ -130,9 +130,37 @@ def recurrence_plain(src, dst, w, S: int, T: int, bf16: bool = False):
     return nc
 
 
-def _check_inputs(src, dst, w, S: int, T: int):
-    """Shapes, types, device and id ranges (one host sync on the card: an
-    id out of range would read outside the kernels' shared memory)."""
+# the growth g of a frame that xl_vpu's late scale keeps exact: the sum of
+# the vector it stores runs through 1, g and g^2, which must stay a normal
+# float32 (csrc/xl_roofline.cu)
+VPU_GROWTH = (1e-19, 1e19)
+
+
+def growth_bounds(src, w, S: int):
+    """(least, largest) out-weight sum of a source state over the rows, as
+    float64 0-dim tensors (no host read).  For w >= 0 a frame's growth g,
+    sum a over sum nc = sum_s nc[s] out[s], is a mean of the out-weight
+    sums of the states that hold the carry: at most the largest, and at
+    least the least while the carry sits on sources (a carry drained into
+    states without out-arcs grows less).  (inf, 0) without arcs."""
+    B, K = src.shape
+    if B * K == 0:
+        inf = torch.tensor(float("inf"), dtype=torch.float64,
+                           device=src.device)
+        return inf, torch.zeros_like(inf)
+    idx = src.long()
+    out = torch.zeros(B, S, dtype=torch.float64, device=src.device)
+    out.scatter_add_(1, idx, w.double().expand(B, K))
+    is_src = torch.zeros(B, S, dtype=torch.bool, device=src.device)
+    is_src.scatter_(1, idx, True)
+    return out.masked_fill(~is_src, float("inf")).amin(), out.amax()
+
+
+def _check_inputs(src, dst, w, S: int, T: int, growth: bool = False):
+    """Shapes, types, device and id ranges, and with ``growth`` what
+    :func:`xl_vpu` takes besides (w >= 0 and the :func:`growth_bounds` of
+    the arcs within ``VPU_GROWTH``), in one host sync on the card (an id
+    out of range would read outside the kernels' shared memory)."""
     _require(src.dim() == 2 and dst.shape == src.shape
              and src.dtype == dst.dtype == torch.int32,
              "src and dst must be (B, K) int32 tensors of one shape")
@@ -142,8 +170,23 @@ def _check_inputs(src, dst, w, S: int, T: int):
     _require(src.device == dst.device == w.device,
              "src, dst and w must lie on one device")
     _require(S >= 1 and T >= 0, f"need S >= 1 and T >= 0, got S={S} T={T}")
-    _require(bool(((src >= 0) & (src < S) & (dst >= 0) & (dst < S)).all()),
-             f"src and dst must lie in [0, S={S})")
+    ids_ok = ((src >= 0) & (src < S) & (dst >= 0) & (dst < S)).all()
+    if not growth:
+        _require(bool(ids_ok), f"src and dst must lie in [0, S={S})")
+        return
+    lo, hi = growth_bounds(src.clamp(0, S - 1), w, S)
+    w_min = w.amin().double() if K else torch.zeros_like(lo)
+    ids_ok, lo, hi, w_min = torch.stack(
+        [ids_ok.double(), lo, hi, w_min]).tolist()
+    _require(ids_ok, f"src and dst must lie in [0, S={S})")
+    g_lo, g_hi = VPU_GROWTH
+    _require(w_min >= 0.0 and g_lo <= lo and hi <= g_hi,
+             f"xl_vpu applies each frame's scale a frame late, so its carry "
+             f"is the plain version's only while a frame's growth g (sum a "
+             f"over sum nc) stays within [{g_lo:g}, {g_hi:g}]: these arcs' "
+             f"source out-weight sums bound g to [{lo:g}, {hi:g}] (least w "
+             f"{w_min:g}; w must be >= 0); the mxu forms and the plain "
+             f"version take them")
 
 
 # ----------------------------------------------------------------------
@@ -160,9 +203,11 @@ class VpuPlan(NamedTuple):
     state without in-arcs has one arc from the zero slot S with weight 0.
     Thread i owns states tbeg[i] .. tbeg[i + 1] - 1 and their arcs toff[i]
     .. toff[i + 1] - 1.  With ``slots`` ``VPU_SLOTS``, ``src`` and ``w`` are
-    (B, slots, threads): slot r of thread i, padded with source S and
-VPU_SLOTS = 24          # register slots a thread (XL_VPU_SLOTS)
-    threads; the block has a warp more, which sums the carry."""
+    (B, slots, threads): slot r of thread i, the slots past a thread's arcs
+    padded with source S (the zero slot) and weight 0, so that they add
+    nothing; with ``slots`` 0 (a run past the slots), (B, kc) in arc order
+    in shared memory.  ``threads`` counts the compute threads; the block
+    has a warp more, which sums the carry."""
     src: torch.Tensor
     w: torch.Tensor
     tbeg: torch.Tensor
@@ -252,9 +297,10 @@ def xl_vpu(src, dst, w, S: int, T: int):
     version.  The kernel applies each frame's scale a frame late, so the
     sum of what it stores runs through 1, g and g^2 for a frame's growth g
     (sum a over sum nc): its carry is the plain version's while 1e-19 <= g
-    <= 1e19 (w >= 0 with K max w <= 1e19 keeps g under the top; the tool's
-    weights, 0.1 to 1.1, give g about 2)."""
-    _check_inputs(src, dst, w, S, T)
+    <= 1e19 (the tool's weights, 0.1 to 1.1, give g about 2).  On either
+    device it raises ValueError where a weight is negative or the
+    :func:`growth_bounds` of the arcs leave that range (``VPU_GROWTH``)."""
+    _check_inputs(src, dst, w, S, T, growth=True)
     if not src.is_cuda:
         return recurrence_plain(src, dst, w, S, T)
     return vpu_kernel(vpu_plan(src, dst, w, S), S, T)
@@ -432,7 +478,7 @@ def kernel_call(form: str, src, dst, w, S: int, T: int):
     runner makes of the arcs (a plan or operands), made once here: what
     the tool times on the card, where the runner adds a host read or two
     and a few dozen small operations to every call."""
-    _check_inputs(src, dst, w, S, T)
+    _check_inputs(src, dst, w, S, T, growth=form == "vpu")
     if form == "vpu":
         return functools.partial(vpu_kernel, vpu_plan(src, dst, w, S), S, T)
     return functools.partial(mxu_kernel, KERNELS[form],

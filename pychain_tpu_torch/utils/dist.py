@@ -5,9 +5,10 @@ The models read :func:`stats_group` and nothing else of data
 parallelism: it is None (statistics over this process's rows) until
 data parallelism registers its group with :func:`set_stats_group`
 (``parallel.multihost.join_job`` for an example's ``--dp``, and
-``parallel.ShardedChainLoss`` for its mesh's ``dp`` axis).  A process
-group that something else started (a user's own DDP job) leaves the
-models' statistics local.
+``parallel.ShardedChainLoss`` for its mesh's ``dp`` axis, never its
+``mp`` axis, whose ranks hold the same rows).  A process group that
+something else started (a user's own DDP job) leaves the models'
+statistics local.
 """
 
 from __future__ import annotations

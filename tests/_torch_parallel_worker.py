@@ -1,16 +1,18 @@
-"""One rank of tests/test_torch_parallel.py's job (the port only, no JAX).
+"""One rank of tests/test_torch_parallel.py's job, or of
+tests/test_torch_model_parallel.py's (the port only, no JAX).
 
-    python tests/_torch_parallel_worker.py RANK WORLD PORT OUT_DIR
+    python tests/_torch_parallel_worker.py RANK WORLD PORT OUT_DIR [mp]
 
 Joins a gloo group of WORLD processes on the CPU
 (``parallel.initialize("localhost:PORT", ...)``), runs every case of
-CASES with its own rows of each global batch, and writes
-``OUT_DIR/rank<RANK>.pt``: {case: {name: value}}, or {"error": text}
-for a case that raised.  The global problems are built from numpy seeds
-by the ``problem_*`` functions below, which the test module imports to
-build the JAX package's single-device references.
+CASES (with ``mp``: MP_CASES, on 4 ranks) with its own rows of each
+global batch, and writes ``OUT_DIR/rank<RANK>.pt``: {case: {name:
+value}}, or {"error": text} for a case that raised.  The global problems
+are built from numpy seeds by the ``problem_*`` functions below, which
+the test modules import to build their single-process references.
 """
 
+import functools
 import os
 import sys
 import traceback
@@ -403,25 +405,344 @@ CASES = ("factorized", "grad", "cache", "indivisible", "pjit_shared",
          "batchnorm", "examples")
 
 
+# ----------------------------------------------------------------------
+# The model axis: 4 ranks, a (2 x 2) mesh and two (1 x 2) meshes
+# ----------------------------------------------------------------------
+
+MP_MODELS = ("tdnn", "tdnnf")
+MP_MESHES = ("2x2", "1x2")
+MP_LR = 0.1
+
+
+def mp_model(kind, P, F, mesh=None, dropout=0.0):
+    """A small model of ``kind`` with ``mp_axis="mp"``, seeded alike on
+    every rank, placed over ``mesh`` by its own annotations (whole
+    without a mesh)."""
+    from pychain_tpu_torch.models import TDNN, TDNNConfig, TDNNF, \
+        TDNNFConfig
+    if kind == "tdnn":
+        cfg = TDNNConfig(num_pdfs=P, hidden_dim=32, kernel_sizes=(3, 3),
+                         dilations=(1, 2), strides=(1, 1), dropout=dropout,
+                         mp_axis="mp")
+        return TDNN(cfg, F, device="cpu", mesh=mesh)
+    cfg = TDNNFConfig(num_pdfs=P, hidden_dim=32, bottleneck_dim=8,
+                      num_layers=3, kernel_size=2, dilations=(1, 1, 2),
+                      mp_axis="mp")
+    return TDNNF(cfg, F, device="cpu", mesh=mesh)
+
+
+def mp_step(model, loss_fn, feats, lens, nums, mesh=None):
+    """One train-mode step: the loss, backward, the gradients summed over
+    the mesh's dp dim, SGD at MP_LR on the local shards; for a TDNN-F
+    then the semi-orthogonal update.  Returns the loss."""
+    from pychain_tpu_torch.models import TDNNF, constrain_semi_orthogonal
+    from pychain_tpu_torch.parallel import sum_gradients
+    from pychain_tpu_torch.parallel.model_parallel import local
+    loss = loss_fn(model(feats, train=True), lens, nums)
+    loss.backward()
+    if mesh is not None:
+        sum_gradients(model.parameters(), mesh)
+    with torch.no_grad():
+        for p in model.parameters():
+            local(p).sub_(MP_LR * local(p.grad))
+    if isinstance(model, TDNNF):
+        constrain_semi_orthogonal(model)
+    return float(loss.detach())
+
+
+@functools.lru_cache(maxsize=1)
+def _meshes():
+    """{"2x2": the (dp, mp) mesh over the 4 ranks, "1x2": this rank's pair
+    (ranks 0-1 or 2-3) as a (1 x 2) sub-mesh of a (pair, dp, mp) mesh},
+    made once."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from pychain_tpu_torch.parallel import make_mesh
+    pairs = init_device_mesh("cpu", (2, 1, 2),
+                             mesh_dim_names=("pair", "dp", "mp"))
+    return {"2x2": make_mesh(2, 2, device="cpu"),
+            "1x2": pairs["dp", "mp"]}
+
+
+def _placement(model):
+    from torch.distributed.tensor import DTensor
+    from pychain_tpu_torch.parallel.model_parallel import local, mp_shard, \
+        whole
+    return {"placed": sorted(k for k, v in model.named_parameters()
+                             if mp_shard(v) is not None),
+            "plain_params": sorted(
+                k for k, v in model.named_parameters()
+                if not isinstance(v, DTensor)),
+            "local_shapes": {k: tuple(local(v).shape)
+                             for k, v in model.state_dict().items()},
+            "plain": {k: local(v).detach().clone() for k, v in
+                      model.state_dict().items() if mp_shard(v) is None},
+            "state": {k: whole(v).detach().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def case_mp_models(out_dir):
+    """TDNN and TDNN-F, each on the (2 x 2) and on a (1 x 2) mesh: one
+    train-mode step of this rank's dp rows (ShardedChainLoss), the state
+    after it gathered whole, the plain tensors as they are, the local
+    shapes."""
+    from pychain_tpu_torch.parallel import ShardedChainLoss, shard_batch
+    den_fst, P, seqs, feats, lens = problem_model()
+    out = {}
+    for name, mesh in _meshes().items():
+        for kind in MP_MODELS:
+            model = mp_model(kind, P, feats.shape[2], mesh)
+            loss_fn = ShardedChainLoss(mesh, pt.ChainGraph(den_fst))
+            x, lx = shard_batch(mesh, (torch.from_numpy(feats), lens))
+            loss = mp_step(model, loss_fn, x, lx,
+                           linear_batch(seqs, feats.shape[1]), mesh)
+            out[f"{kind}-{name}"] = {
+                "loss": loss, "dp": mesh.get_local_rank("dp"),
+                "mp": mesh.get_local_rank("mp"), **_placement(model)}
+    return out
+
+
+def mp_adam_steps(model, loss_fn, feats, lens, nums, mesh=None, steps=2):
+    """``steps`` train-mode steps with Adam (1e-3) over
+    ``model.parameters()`` as they come (on a placed model every one a
+    DTensor), the gradients summed over the mesh's dp dim.  Returns the
+    losses."""
+    from pychain_tpu_torch.parallel import sum_gradients
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model(feats, train=True), lens, nums)
+        loss.backward()
+        if mesh is not None:
+            sum_gradients(model.parameters(), mesh)
+        opt.step()
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def case_mp_adam(out_dir):
+    """Two Adam steps of a TDNN on the (2 x 2) mesh: the losses and the
+    state after them, gathered whole."""
+    from pychain_tpu_torch.parallel import ShardedChainLoss, shard_batch
+    from pychain_tpu_torch.parallel.model_parallel import whole
+    den_fst, P, seqs, feats, lens = problem_model()
+    mesh = _meshes()["2x2"]
+    model = mp_model("tdnn", P, feats.shape[2], mesh)
+    x, lx = shard_batch(mesh, (torch.from_numpy(feats), lens))
+    losses = mp_adam_steps(model, ShardedChainLoss(mesh, pt.ChainGraph(
+        den_fst)), x, lx, linear_batch(seqs, feats.shape[1]), mesh)
+    return {"losses": losses, "state": {k: whole(v).detach().clone() for k, v
+                                        in model.state_dict().items()}}
+
+
+def case_mp_dropout(out_dir):
+    """A TDNN with dropout 0.5 on this rank's (1 x 2) mesh in train mode:
+    the whole batch's output (each mp rank draws its masks on the whole
+    activations from a generator seeded alike)."""
+    from pychain_tpu_torch.utils.dist import set_stats_group
+    den_fst, P, seqs, feats, lens = problem_model()
+    set_stats_group(None)
+    model = mp_model("tdnn", P, feats.shape[2], _meshes()["1x2"],
+                     dropout=0.5)
+    return {"out": model(torch.from_numpy(feats), train=True).detach()}
+
+
+def case_mp_collectives(out_dir):
+    """Each collective's forward and backward on the (2 x 2) mesh's mp
+    groups, in a column- and a row-parallel product against the same
+    product whole: outputs and the gradients of x and of the local
+    weight."""
+    from pychain_tpu_torch.parallel import model_parallel as mpl
+    mesh = _meshes()["2x2"]
+    group, r = mesh.get_group("mp"), mesh.get_local_rank("mp")
+    g = torch.Generator().manual_seed(7 + mesh.get_local_rank("dp"))
+    x = torch.randn(5, 8, generator=g)
+    w = torch.randn(6, 8, generator=g)
+    c = torch.randn(5, 6, generator=g)
+    out = {}
+    for name, dim in (("column", 0), ("row", 1)):
+        xs = x.clone().requires_grad_(True)
+        wl = w.chunk(2, dim)[r].clone().requires_grad_(True)
+        if dim == 0:
+            y = mpl.gather_from_mp(mpl.copy_to_mp(xs, group) @ wl.T, 1,
+                                   group)
+        else:
+            y = mpl.reduce_from_mp(mpl.scatter_to_mp(xs, 1, group) @ wl.T,
+                                   group)
+        (y * c).sum().backward()
+        xw = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        ref = xw @ ww.T
+        (ref * c).sum().backward()
+        out[name] = {"y": y.detach(), "y_ref": ref.detach(),
+                     "gx": xs.grad, "gx_ref": xw.grad, "gw": wl.grad,
+                     "gw_ref": ww.grad.chunk(2, dim)[r]}
+    return out
+
+
+def case_mp_dryrun(out_dir):
+    """The port's dryrun_multichip(4) rank in this job (``run_rank``, which
+    ``dryrun_multichip(4)`` calls under a job), on the flax weights of
+    __graft_entry__'s _setup (written by the test): its printed lines
+    and its result."""
+    import contextlib
+    import io
+    from pychain_tpu_torch.tools import dryrun_multichip as dm
+    variables = torch.load(os.path.join(out_dir, "variables.pt"),
+                           weights_only=False)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = dm.run_rank(4, device="cpu", variables=variables)
+    return {"printed": buf.getvalue(), **res}
+
+
+def case_mp_convert(out_dir):
+    """model_from_flax(..., mesh=) on the (2 x 2) mesh (the model's own
+    annotations), and the whole model placed by dryrun's param_spec: this
+    rank's local tensors, and model_to_flax's whole arrays back."""
+    import dataclasses
+    from pychain_tpu_torch.convert import model_from_flax, model_to_flax
+    from pychain_tpu_torch.models import TDNNConfig
+    from pychain_tpu_torch.parallel import place_parameters
+    from pychain_tpu_torch.parallel.model_parallel import local
+    from pychain_tpu_torch.tools.dryrun_multichip import param_spec
+    variables = torch.load(os.path.join(out_dir, "variables.pt"),
+                           weights_only=False)
+    cfg = TDNNConfig(num_pdfs=24, hidden_dim=32, kernel_sizes=(3, 3),
+                     dilations=(1, 1), strides=(1, 1), dropout=0.0)
+    mesh = _meshes()["2x2"]
+    out = {"mp": mesh.get_local_rank("mp")}
+    for name in ("own", "param_spec"):
+        if name == "own":
+            model = model_from_flax(dataclasses.replace(cfg, mp_axis="mp"),
+                                    variables, "cpu", mesh=mesh)
+        else:
+            model = place_parameters(model_from_flax(cfg, variables, "cpu"),
+                                     mesh, param_spec)
+        out[name] = {"local": {k: local(v).detach().clone() for k, v in
+                               model.state_dict().items()},
+                     "back": model_to_flax(model)}
+    return out
+
+
+def case_mp_replicate(out_dir):
+    """replicate_to_global over the (2 x 2) mesh: rank 0's values on
+    every rank (each rank offers its own rank number)."""
+    from pychain_tpu_torch.parallel import replicate_to_global
+    rank = torch.distributed.get_rank()
+    got = replicate_to_global(_meshes()["2x2"],
+                              {"w": np.full(3, rank, np.float32)})
+    return {"w": got["w"].numpy()}
+
+
+def case_mp_checkpoint(out_dir):
+    """save_sharded / restore_sharded of a TDNN placed over the (2 x 2)
+    mesh's mp dim: into a placed model of another seed (each rank its
+    shards back) and into a whole model's state (the whole arrays)."""
+    from pychain_tpu_torch.models import TDNN
+    from pychain_tpu_torch.parallel import restore_sharded, save_sharded
+    from pychain_tpu_torch.parallel.model_parallel import local, whole
+    den_fst, P, seqs, feats, lens = problem_model()
+    mesh = _meshes()["2x2"]
+    model = mp_model("tdnn", P, feats.shape[2], mesh)
+    state = model.state_dict()
+    ckpt = os.path.join(out_dir, "mp_ckpt")
+    save_sharded(ckpt, 3, state)
+    other = TDNN(model.config, feats.shape[2], device="cpu",
+                 generator=torch.Generator().manual_seed(5), mesh=mesh)
+    step, back = restore_sharded(ckpt, other.state_dict())
+    _, full = restore_sharded(ckpt, mp_model("tdnn", P, feats.shape[2])
+                              .state_dict())
+    return {"step": step,
+            "placed_back": all(torch.equal(local(back[k]), local(v))
+                               and type(back[k]) is type(v)
+                               for k, v in state.items()),
+            "whole_back": all(torch.equal(full[k], whole(v))
+                              for k, v in state.items()),
+            "differed": not torch.equal(local(other.state_dict()[
+                "layers.0.conv.weight"]), local(state[
+                    "layers.0.conv.weight"]))}
+
+
+def case_mp_stats(out_dir):
+    """make_mesh leaves the models' statistics group as it finds it (only
+    ShardedChainLoss and join_job register one)."""
+    from pychain_tpu_torch.parallel import make_mesh
+    from pychain_tpu_torch.utils.dist import set_stats_group, stats_group
+    group = torch.distributed.group.WORLD
+    set_stats_group(group)
+    make_mesh(2, 2, device="cpu")
+    unchanged = stats_group() is group
+    set_stats_group(None)
+    return {"unchanged": unchanged}
+
+
+def case_mp_refusals(out_dir):
+    """What the model axis refuses: a dim that does not divide, a sum of
+    mp-placed gradients over every rank, a weight's taps sharded, a
+    sharded TDNN-F bottleneck under the semi-orthogonal update."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from pychain_tpu_torch.models import constrain_semi_orthogonal
+    from pychain_tpu_torch.models.layers import conv_same
+    from pychain_tpu_torch.parallel import place_parameters, sum_gradients
+    from pychain_tpu_torch.tools.dryrun_multichip import param_spec
+    mesh = _meshes()["2x2"]
+    out = {}
+
+    def refused(key, fn, exc):
+        try:
+            fn()
+            out[key] = ""
+        except exc as e:
+            out[key] = str(e)
+
+    refused("indivisible", lambda: place_parameters(
+        mp_model("tdnn", 13, 16), mesh, param_spec), ValueError)
+    model = mp_model("tdnn", 12, 16, mesh)
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    refused("world_sum", lambda: sum_gradients(
+        model.parameters(), torch.distributed.group.WORLD), ValueError)
+    conv = torch.nn.Conv1d(4, 6, 2)
+    conv.weight = torch.nn.Parameter(DTensor.from_local(
+        conv.weight.detach()[:, :, :1], mesh, [Replicate(), Shard(2)],
+        run_check=False))
+    refused("taps", lambda: conv_same(conv, torch.zeros(1, 4, 5)),
+            NotImplementedError)
+    tdnnf = mp_model("tdnnf", 12, 16)
+    place_parameters(tdnnf, mesh, lambda n, p: 0 if p.dim() == 3 else None)
+    refused("bottleneck", lambda: constrain_semi_orthogonal(tdnnf),
+            ValueError)
+    return out
+
+
+MP_CASES = ("mp_models", "mp_adam", "mp_dropout", "mp_collectives", "mp_dryrun",
+            "mp_convert", "mp_replicate", "mp_checkpoint", "mp_stats",
+            "mp_refusals")
+
+
 def main():
     rank, world, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
                                   sys.argv[3], sys.argv[4])
+    mp = sys.argv[5:] == ["mp"]
     torch.set_num_threads(1)
     from pychain_tpu_torch.parallel import initialize, make_mesh
     initialize(f"localhost:{port}", world, rank, device="cpu")
     print(f"rank {rank}: joined", file=sys.stderr, flush=True)
-    mesh = make_mesh(device="cpu")
-    per = 8 // world
-    rows = slice(rank * per, (rank + 1) * per)
+    if mp:
+        cases, args = MP_CASES, (out_dir,)
+    else:
+        per = 8 // world
+        cases = CASES
+        args = (make_mesh(device="cpu"), slice(rank * per, (rank + 1) * per))
     results = {}
-    for name in CASES:
+    for name in cases:
         print(f"rank {rank}: {name}", file=sys.stderr, flush=True)
         fn = globals()[f"case_{name}"]
         try:
-            args = (mesh, rows)
-            if name == "multihost":
-                args += (os.path.join(out_dir, "ckpt"),)
-            results[name] = fn(*args)
+            extra = ((os.path.join(out_dir, "ckpt"),)
+                     if name == "multihost" else ())
+            results[name] = fn(*args, *extra)
         except Exception:
             results[name] = {"error": traceback.format_exc()}
         torch.distributed.barrier()

@@ -2169,3 +2169,151 @@ class TestXlRoofline:
         got = xr.vpu_kernel(plan, S, T)
         assert torch.equal(got, want)
         assert xr.rel_diff(got, xr.plain("vpu", src, dst, w, S, T)) <= 1e-5
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("scale", [1e20, 1e-20])
+    def test_vpu_refuses_where_its_kernel_would_differ(self, cuda, scale):
+        """Weights that put a frame's growth past [1e-19, 1e19]: xl_vpu
+        refuses them, and the kernel launched past that check (vpu_kernel
+        on its plan) leaves the plain version, which stays finite; the
+        tool's default inputs pass."""
+        src, dst, w, S, T = _xl_case("s64", cuda)
+        w = w * scale
+        with pytest.raises(ValueError, match="a frame late"):
+            xr.xl_vpu(src, dst, w, S, T)
+        got = xr.vpu_kernel(xr.vpu_plan(src, dst, w, S), S, T)
+        ref = xr.plain("vpu", src, dst, w, S, T)
+        assert bool(torch.isfinite(ref).all())
+        assert not xr.rel_diff(got, ref) <= 1e-3
+        assert xr.xl_vpu(*xr.inputs(1000, 3200, 2, cuda), 1000, 8).shape \
+            == (2, 1000)
+
+
+# ----------------------------------------------------------------------
+# The model axis: the mp collectives on CUDA tensors, 2 gloo ranks
+# ----------------------------------------------------------------------
+
+MP_WORLD = 2
+
+
+def _mp_rank(rank, port, out_dir):
+    """One of MP_WORLD ranks sharing the card over gloo: a column- and a
+    row-parallel product through the four mp collectives
+    (parallel/model_parallel.py) and the same product whole, forward and
+    backward, on CUDA tensors with TF32 off; then a TDNN layer's
+    convolution with its output channels placed over "mp"
+    (models/layers.conv_same).  Writes out_dir/mp<rank>.pt."""
+    import os
+    from pychain_tpu_torch.models.layers import conv_same
+    from pychain_tpu_torch.parallel import make_mesh, place_parameters
+    from pychain_tpu_torch.parallel import model_parallel as mpl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=MP_WORLD)
+    mesh = make_mesh(1, MP_WORLD, device="cuda")
+    group, r = mesh.get_group("mp"), mesh.get_local_rank("mp")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(64, 96, generator=g, device=dev)
+    w = torch.randn(80, 96, generator=g, device=dev)
+    c = torch.randn(64, 80, generator=g, device=dev)
+    out = {}
+    for name, dim in (("column", 0), ("row", 1)):
+        xs = x.clone().requires_grad_(True)
+        wl = w.chunk(MP_WORLD, dim)[r].clone().requires_grad_(True)
+        if dim == 0:
+            y = mpl.gather_from_mp(mpl.copy_to_mp(xs, group) @ wl.T, 1,
+                                   group)
+        else:
+            y = mpl.reduce_from_mp(mpl.scatter_to_mp(xs, 1, group) @ wl.T,
+                                   group)
+        (y * c).sum().backward()
+        xw = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        ref = xw @ ww.T
+        (ref * c).sum().backward()
+        out[name] = {k: v.detach().cpu() for k, v in (
+            ("y", y), ("y_ref", ref), ("gx", xs.grad), ("gx_ref", xw.grad),
+            ("gw", wl.grad), ("gw_ref", ww.grad.chunk(MP_WORLD, dim)[r]))}
+        out[name]["device"] = str(y.device)
+    torch.manual_seed(3)             # the same whole weights on each rank
+    conv = torch.nn.Conv1d(96, 64, 3, dilation=2).to(dev)
+    whole_conv = torch.nn.Conv1d(96, 64, 3, dilation=2).to(dev)
+    whole_conv.load_state_dict(conv.state_dict())
+    place_parameters(conv, mesh, lambda n, p: 0 if n == "weight" else None)
+    xc = torch.randn(4, 96, 50, generator=g, device=dev)
+    yc = conv_same(conv, xc)
+    out["conv"] = {"y": yc.detach().cpu(),
+                   "y_ref": conv_same(whole_conv, xc).detach().cpu(),
+                   "local": tuple(conv.weight.to_local().shape)}
+    torch.save(out, os.path.join(out_dir, f"mp{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="class")
+def mp_ranks(tmp_path_factory):
+    """MP_WORLD ranks of _mp_rank on the card (120 s limit, every exit
+    code checked), started once for the class."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = tmp_path_factory.mktemp("mp_card")
+    tests = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    code = (f"import sys; sys.path[:0] = [{os.path.dirname(tests)!r}, "
+            f"{tests!r}]; import test_torch_card as t; "
+            f"t._mp_rank(int(sys.argv[1]), {port}, {str(out)!r})")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(MP_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=120))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, logs):
+        assert p.returncode == 0, err[-3000:]
+    return [torch.load(out / f"mp{r}.pt") for r in range(MP_WORLD)]
+
+
+class TestModelParallel:
+    """The four mp collectives (parallel/model_parallel.py) on CUDA
+    tensors over gloo, each held to the product computed whole (1e-5):
+    copy_to_mp's all-reduce in the column product's x gradient,
+    gather_from_mp in its output and weight gradient, scatter_to_mp's
+    all-gather in the row product's x gradient, reduce_from_mp in its
+    output and weight gradient; and a convolution placed over "mp"."""
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("part", ["copy_to_mp", "gather_from_mp",
+                                      "scatter_to_mp", "reduce_from_mp"])
+    def test_collective_on_the_card(self, mp_ranks, part):
+        name, keys = {"copy_to_mp": ("column", ["gx"]),
+                      "gather_from_mp": ("column", ["y", "gw"]),
+                      "scatter_to_mp": ("row", ["gx"]),
+                      "reduce_from_mp": ("row", ["y", "gw"])}[part]
+        for r in mp_ranks:
+            assert r[name]["device"].startswith("cuda")
+            for k in keys:
+                torch.testing.assert_close(r[name][k], r[name][f"{k}_ref"],
+                                           rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.cuda
+    def test_placed_convolution_on_the_card(self, mp_ranks):
+        for r in mp_ranks:
+            assert r["conv"]["local"] == (64 // MP_WORLD, 96, 3)
+            torch.testing.assert_close(r["conv"]["y"], r["conv"]["y_ref"],
+                                       rtol=1e-5, atol=1e-5)
+        assert torch.equal(mp_ranks[0]["conv"]["y"], mp_ranks[1]["conv"]["y"])

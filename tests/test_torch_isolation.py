@@ -47,7 +47,10 @@ def test_import_loads_no_jax():
             "pychain_tpu_torch.ops.dense_list, pychain_tpu_torch.utils.dist, "
             "pychain_tpu_torch.parallel, "
             "pychain_tpu_torch.parallel.data_parallel, "
-            "pychain_tpu_torch.parallel.multihost;"
+            "pychain_tpu_torch.parallel.multihost, "
+            "pychain_tpu_torch.parallel.model_parallel, "
+            "pychain_tpu_torch.utils.mp, "
+            "pychain_tpu_torch.tools.dryrun_multichip;"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

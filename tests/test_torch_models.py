@@ -288,12 +288,22 @@ def test_model_from_flax_refuses_missing_and_surplus_leaves():
 
 def test_device_rule_and_mp_axis():
     cfg = pm.TDNNConfig(num_pdfs=5, hidden_dim=8)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: \"parallelism\""):
-        pm.TDNN(pm.TDNNConfig(mp_axis="mp"), D, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: \"parallelism\""):
-        pm.TDNNF(pm.TDNNFConfig(mp_axis="mp"), D, device="cpu")
+    # mp_axis with no mesh annotates only, as flax's with_partitioning:
+    # the same weights and outputs as the model without it
+    x = torch.from_numpy(_inputs())
+    for cls, conf in ((pm.TDNN, pm.TDNNConfig(num_pdfs=5, hidden_dim=8)),
+                      (pm.TDNNF, pm.TDNNFConfig(num_pdfs=5, hidden_dim=8,
+                                                bottleneck_dim=4,
+                                                num_layers=2))):
+        annotated = cls(dataclasses.replace(conf, mp_axis="mp"), D,
+                        device="cpu")
+        plain = cls(conf, D, device="cpu")
+        for a, b in zip(annotated.state_dict().values(),
+                        plain.state_dict().values()):
+            assert torch.equal(a, b)
+        for train in (False, True):
+            torch.testing.assert_close(annotated(x, train=train),
+                                       plain(x, train=train), rtol=0, atol=0)
     if torch.cuda.is_available():
         assert next(pm.TDNN(cfg, D).parameters()).is_cuda
         return

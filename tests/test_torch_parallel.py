@@ -32,9 +32,9 @@ rows of every global batch; the tests read their results:
   --device-corpus): three steps' losses equal to one process's on the
   whole batch (1e-5).
 
-In this process: the refusals (``n_mp`` > 1, ``local_device_count`` >
-1) and a group of one rank, whose ShardedChainLoss equals ChainLoss bit
-for bit.  In a process of its own (120 s limit): spawn_per_card (an
+In this process: the refusals (a mesh that does not cover the group,
+``local_device_count`` > 1) and a group of one rank, whose
+ShardedChainLoss equals ChainLoss bit for bit.  In a process of its own (120 s limit): spawn_per_card (an
 example's --dp with no launcher on a host with several cards) with the
 card count stubbed at 2, on gloo: rank 0's result, past a pipe's
 buffer, comes back.
@@ -350,7 +350,9 @@ def test_spawn_per_card_returns_a_large_result():
 
 
 def test_refusals_and_a_group_of_one():
-    with pytest.raises(NotImplementedError, match='"parallelism"'):
+    # a (1 x 2) mesh does not cover a group of one rank (the model axis
+    # runs in tests/test_torch_model_parallel.py's workers)
+    with pytest.raises(ValueError, match=r"a \(1, 2\) mesh needs 2 ranks"):
         parallel.make_mesh(n_mp=2, device="cpu")
     with pytest.raises(ValueError, match="one process per device"):
         parallel.initialize("localhost:1", 1, 0, local_device_count=2,

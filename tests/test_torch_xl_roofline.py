@@ -658,3 +658,53 @@ def test_runners_reject_bad_inputs():
             run(src.long(), dst, w, 10, 2)
         with pytest.raises(ValueError, match="float32"):
             run(src, dst, w.double(), 10, 2)
+
+
+@pytest.mark.parametrize("scale", [1e20, 1e-20])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_vpu_refuses_a_growth_its_late_scale_cannot_keep(name, scale):
+    """Weights that put a frame's growth past [1e-19, 1e19]: xl_vpu and the
+    tool's kernel_call refuse them on the CPU too, while the kernel's
+    emulation on its plan leaves the plain version (its stored sum g^2
+    overflows or goes subnormal in float32); the other forms take them."""
+    src, dst, w, S, T = _torch_case(name)
+    w = w * scale
+    lo, hi = (float(v) for v in xr.growth_bounds(src, w, S))
+    assert not xr.VPU_GROWTH[0] <= lo <= hi <= xr.VPU_GROWTH[1]
+    with pytest.raises(ValueError, match="a frame late"):
+        xr.xl_vpu(src, dst, w, S, T)
+    with pytest.raises(ValueError, match="a frame late"):
+        xr.kernel_call("vpu", src, dst, w, S, T)
+    ref = xr.plain("vpu", src, dst, w, S, T).numpy()
+    assert np.isfinite(ref).all()
+    with np.errstate(all="ignore"):
+        got = _emulate_vpu(_np(xr.vpu_plan(src, dst, w, S)), S, T)
+        assert not _rel(got, ref.astype(np.float64)) <= 1e-3
+    for form in ("mxu_f32", "mxu_bf16"):
+        assert np.isfinite(xr.RUNNERS[form](src, dst, w, S, T).numpy()).all()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_vpu_growth_bounds_hold_the_plain_growth(name):
+    """growth_bounds brackets every frame's growth of the plain recurrence
+    at the tests' and the tool's draws, which xl_vpu takes; a negative
+    weight is refused."""
+    src, dst, w, S, T = _torch_case(name)
+    lo, hi = (float(v) for v in xr.growth_bounds(src, w, S))
+    B, K = src.shape
+    rows = torch.arange(B)[:, None] * S
+    nc = torch.full((B, S), 1.0 / S, dtype=torch.float64)
+    for _ in range(T):
+        a = torch.zeros(B * S, dtype=torch.float64).index_add_(
+            0, (dst.long() + rows).reshape(-1),
+            (nc.reshape(-1)[(src.long() + rows).reshape(-1)]
+             * w.double().expand(B, K).reshape(-1))).view(B, S)
+        g = a.sum(1) / nc.sum(1)
+        assert bool((g >= lo).all() and (g <= hi).all()), (g, lo, hi)
+        nc = a / a.sum(1, keepdim=True)
+    assert xr.xl_vpu(src, dst, w, S, T).shape == (B, S)
+    xr.xl_vpu(*xr.inputs(100, 320, 2, device="cpu"), 100, 4)
+    neg = w.clone()
+    neg[3] = -0.5
+    with pytest.raises(ValueError, match="w must be >= 0"):
+        xr.xl_vpu(src, dst, neg, S, T)
