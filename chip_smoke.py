@@ -37,7 +37,12 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    in phase 11): both streams too, the fast pair against the float32
    pair on the same px within the JAX package's bfloat16 budget (the
    objf's relative difference printed), both precisions' times and
-   bounds and the ring depths;
+   bounds and the ring depths; at B=128 the fast pair's plan is its
+   group form (fact_kernels.group_size: G=2 columns a cluster of C=2
+   CTAs, the operators in shared memory), whose shared memory in Python
+   must equal its sources', timed beside one block a column, with a
+   "#" line of the operator bytes a sweep reads (host arithmetic, not
+   measured, and kept out of the kernels line);
 4. the semiring kernels (semiring_fwd, semiring_bwd) against their plain
    version: small cyclic (random_fst), sausage (sausage_fst) and
    flat-start (make_numerator_fst) batches with unequal lengths and one
@@ -325,8 +330,11 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    launch the semiring pair three times each), the cluster kernels one
    for main path 4 and one for s8k,
    each with its plan, B1/B2's fast forms one each (the headline's
-   time beside s8k's and the float32 pair's; their launches main paths
-   1 fast and 5's, fact_fwd / fact_bwd's main paths 1 and 5's), and the
+   time at its plan, "plan": [G, C] for the group form, beside one
+   block a column's in the same call ("one_block_ms"), s8k's time and
+   the float32 pair's; their launches main
+   paths 1 fast and 5's, fact_fwd / fact_bwd's main paths 1 and 5's),
+   and the
    cluster kernels'
    fast forms one for main path 4 fast (its launches) and one for s8k,
    each with its plan and the float32 form's time in the same run; main
@@ -904,6 +912,51 @@ def vs_float32(label, got, ref):
     return vs
 
 
+def operator_bytes(kg, lens, plan):
+    """Host arithmetic, not a measurement: the operator bytes a fast sweep
+    pair reads at this run's lengths, by kernel.  One block a column reads
+    every slot's column id and value (8 bytes) from L2 at every frame of
+    every column; the group form reads each CTA's slots (4 bytes, packed)
+    from device memory once a launch and from shared memory at every
+    frame of its cluster (a cluster's CTAs hold each slot once).  Returns
+    {name: (one block's L2 bytes, the plan's device-memory bytes, the
+    plan's shared-memory bytes)}."""
+    lens = lens.cpu().long()
+    out = {}
+    for name, ops in (("fact_fwd_bf16", kg.resident[:2]),
+                      ("fact_bwd_bf16", kg.resident[2:])):
+        slots = sum(int(op[0][-1]) * 32 for op in ops)
+        before = slots * 8 * int(lens.sum())
+        if isinstance(plan[name], tuple):
+            G, _ = plan[name]
+            groups = [lens[q:q + G] for q in range(0, len(lens), G)]
+            out[name] = (before, len(groups) * slots * 4,
+                         sum(slots * 4 * int(g.max()) for g in groups))
+        else:
+            out[name] = (before, before, 0)
+    return out
+
+
+def check_group_smem(fa, label):
+    """The group form's shared memory in Python equals its sources' at
+    every (G, C) built, for this graph's slot counts."""
+    import ctypes
+    from pychain_tpu_torch.csrc import build
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    words = fk.graph_for(fa).group_words
+    got, want = {}, {}
+    for form in fk.GROUP_FORMS:
+        fn = getattr(build.load(form), f"{form}_group_smem_bytes")
+        fn.restype = ctypes.c_size_t
+        for G, C in fk.GROUPS:
+            got[f"{form} {G} {C}"] = fk.group_smem_bytes(fa, G, C)[form]
+            want[f"{form} {G} {C}"] = fn(fa.s_pad, int(
+                fa.xsrc_mode == "identity"), G, C, words[(form, C)])
+    check(got == want, f"{label}: group smem Python {got} != sources {want}")
+    print(f"# {label} fast: group form shared memory (Python = sources) "
+          f"{got}", flush=True)
+
+
 def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None,
                fast_fa=None):
     """B1/B2 in the fast mode on ``den`` at B columns of T frames: against
@@ -939,15 +992,38 @@ def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None,
     vs = vs_float32(label, got, ref)
     del got, ref
 
+    # the plan (the group form past B = 66) and, beside it, one block a
+    # column on the same inputs
+    check_group_smem(fa, label)
+    names = ("fact_fwd_bf16", "fact_bwd_bf16")
+    plan = {name: fk._plan(name[:8], B, dev, fa, None) for name in names}
+    grouped = [name for name in names if isinstance(plan[name], tuple)]
+    if label == "headline":
+        check(len(grouped) == 2, f"headline fast: the plan {plan} is not "
+              "the group form for both kernels")
     fast_t = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5)
+    one_t = fast_t[:2]
+    if grouped:
+        one_t = pair_times(fa, px, lens, leaky_c,
+                           functools.partial(fk.fact_fwd, cluster=1),
+                           functools.partial(fk.fact_bwd, cluster=1), 5,
+                           plain=False)
     f32_t = pair_times(f32, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 5,
                        plain=False)
+    moved = operator_bytes(kg, lens, plan)
+    print(f"# {label} fast plan: {plan}; operator bytes a sweep reads "
+          "(host arithmetic, not measured): " + "; ".join(
+              f"{n} one block a column {a / 1e9:.3f} GB from L2, the plan "
+              f"{b / 1e9:.4f} GB from device memory and {c / 1e9:.3f} GB "
+              "from shared memory" for n, (a, b, c) in moved.items()),
+          flush=True)
     fb, fo, bb, bo = fact_bytes_ops(fa, kg, lens, T, P)
     f32_bytes = fact_bytes_ops(f32, fk.graph_for(f32), lens, T, P)
     bounds = [bound(fb, fo), bound(bb, bo), bound(*f32_bytes[:2]),
               bound(*f32_bytes[2:])]
     print(f"# {label} times (ms): fast fact_fwd_bf16 {fast_t[0]:.3f} "
-          f"(bound {bounds[0][0]:.4f}), fact_bwd_bf16 {fast_t[1]:.3f} "
+          f"[one block a column {one_t[0]:.3f}] (bound {bounds[0][0]:.4f}), "
+          f"fact_bwd_bf16 {fast_t[1]:.3f} [{one_t[1]:.3f}] "
           f"(bound {bounds[1][0]:.4f}, ring {stages}); float32 fact_fwd "
           f"{f32_t[0]:.3f} (bound {bounds[2][0]:.4f}), fact_bwd "
           f"{f32_t[1]:.3f} (bound {bounds[3][0]:.4f}, ring "
@@ -960,6 +1036,9 @@ def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None,
                max(errs["gamma_abs"], errs["alpha_beta_abs"],
                    errs["gamma_sum_abs"]))
         rows[name] = {"ms": fast_t[i], "plain_ms": fast_t[2 + i],
+                      "one_block_ms": one_t[i],
+                      "plan": list(plan[name]) if isinstance(
+                          plan[name], tuple) else plan[name],
                       "float32_ms": f32_t[i], "bound": bounds[i],
                       "bytes": (fb, bb)[i], "ops": (fo, bo)[i],
                       "max_abs_err": err,
@@ -3477,6 +3556,16 @@ def p6_den(label, caps, dev):
     px, lens = px.to(dev), lens.to(dev)
     B, T, P = px.shape
     t = pair_times(fa, px, lens, leaky_c, fk.fact_fwd, fk.fact_bwd, 3)
+    # each kernel's plan and, where it is the fast pair's group form, one
+    # block a column on the same inputs
+    plan = {form: fk._plan(form, B, dev, fa, None)
+            for form in ("fact_fwd", "fact_bwd")}
+    one = t[:2]
+    if any(isinstance(p, tuple) for p in plan.values()):
+        one = pair_times(fa, px, lens, leaky_c,
+                         functools.partial(fk.fact_fwd, cluster=1),
+                         functools.partial(fk.fact_bwd, cluster=1), 3,
+                         plain=False)
     kg = fk.graph_for(fa)
     fb, fo, bb, bo = fact_bytes_ops(fa, kg, lens, T, P)
     e = worst(errs)
@@ -3484,15 +3573,20 @@ def p6_den(label, caps, dev):
     print(f"# main path 6 {label}: B={B} T={T} P={P} S_pad={fa.s_pad} "
           f"lengths {int(lens.min())}..{int(lens.max())}; fact_fwd{suffix} "
           f"{t[0]:.3f} ms, fact_bwd{suffix} {t[1]:.3f} ms; plain fwd "
-          f"{t[2]:.1f} ms, plain bwd {t[3]:.1f} ms", flush=True)
+          f"{t[2]:.1f} ms, plain bwd {t[3]:.1f} ms; plan {plan}, one block "
+          f"a column {one[0]:.3f} / {one[1]:.3f} ms", flush=True)
     shape = {"B": B, "T": T, "P": P, "s_pad": fa.s_pad,
              "lengths": [int(lens.min()), int(lens.max())]}
+    plans = {k: list(v) if isinstance(v, tuple) else v
+             for k, v in plan.items()}
     return {f"fact_fwd{suffix}": {
+                "plan": plans["fact_fwd"], "one_block_ms": one[0],
                 "ms": t[0], "plain_ms": t[2], "bytes": fb, "ops": fo,
                 "max_abs_err": max(max(a for a, _ in a_errs),
                                    e["objf_rel"]),
                 "entry_excess": max(x for _, x in a_errs), "shape": shape},
             f"fact_bwd{suffix}": {
+                "plan": plans["fact_bwd"], "one_block_ms": one[1],
                 "ms": t[1], "plain_ms": t[3], "bytes": bb, "ops": bo,
                 "max_abs_err": max(e["gamma_abs"], e["alpha_beta_abs"],
                                    e["gamma_sum_abs"]),
@@ -5305,8 +5399,12 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "bytes": r["bytes"], "ops": r["ops"],
+            # the plan's form (the group form's [G, C] past B = 66) and,
+            # in brackets, one block a column in the same call
+            "plan": r["plan"], "one_block_ms": r["one_block_ms"],
             "float32_ms": r["float32_ms"], "ring_stages": r["ring_stages"],
-            "s8k_ms": r8["ms"], "s8k_bound_ms": r8["bound"][0],
+            "s8k_ms": r8["ms"], "s8k_plan": r8["plan"],
+            "s8k_bound_ms": r8["bound"][0],
             "s8k_plain_ms": r8["plain_ms"], "s8k_float32_ms": r8["float32_ms"],
             "s8k_ring_stages": r8["ring_stages"],
             "vs_float32_objf_rel": r["vs_float32"]["objf_rel"],
@@ -5333,7 +5431,8 @@ def main():
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "entry_excess": r["entry_excess"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
-                "bytes": r["bytes"], "ops": r["ops"], "library_ms": None})
+                "bytes": r["bytes"], "ops": r["ops"], "plan": r["plan"],
+                "one_block_ms": r["one_block_ms"], "library_ms": None})
     # B1/B2's forms on main path 7 (bench.py --long --big): each with its
     # launches in its mode's run; fact_fwd_init and fact_bwd_chunk timed
     # over all of a call's chunks

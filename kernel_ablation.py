@@ -13,7 +13,9 @@ pychain_tpu_torch/csrc/build/ablate/ and timed with CUDA events: B1/B2
 cluster pair (stream_fwd, stream_bwd) at main path 4's (the 12k-state
 Kaldi-topology denominator, B=128, T=500) at the plan it launches with,
 the semiring pair (semiring_fwd, semiring_bwd) at main path 2's
-flat-start batch and at main path 3's constrained batch, the Viterbi
+flat-start batch and at main path 3's constrained batch, the fast pair
+(fast_fwd, fast_bwd: fact_fwd_bf16 / fact_bwd_bf16 one block a column
+and in the group form) at the headline size, the Viterbi
 kernel (viterbi) at chip_smoke.py's realign, decode and b11 classes, the
 XL probe's kernels (xl_vpu, xl_mxu in both splits) at the tool's default
 size.
@@ -297,10 +299,152 @@ FULL_FWD = _full_table(_FWD_OTHER_EXCHANGE, _FWD_PRODUCTS, _FWD_NO_READD, {
 FULL_BWD = _full_table(_BWD_OTHER_EXCHANGE, _BWD_PRODUCTS, _BWD_NO_READD, {
     "C2_no_ring": {"cluster": 2, "stages": 0},
     "C2_gamma_spread": {"cluster": 2, "edits": _FULL_GAMMA_SPREAD}})
+# The fast pair (fact_fwd_bf16, fact_bwd_bf16: bfloat16 tiles, the full
+# mode) at the headline graph, T=500: the one-block form (C1) at B=128
+# and at B=8, 32, 64 (the L2 reads of the operators grow with the
+# columns: every block reads every slot every frame), at B=128 with each
+# slot's loads pinned to its slice's first slot ("one_slot": the operator
+# read from L1, the same number of loads, gathers and sums; an empty asm
+# on the index keeps the compiler from hoisting them) and without its
+# products; and the group form (G columns a cluster of C CTAs, each CTA's
+# rows of the operators in shared memory) at (2, 2) and (4, 4), also
+# without its products.  Pinning both loads also pins each lane's gather
+# to its first slot's column, so two more rows pin one load each:
+# "pinned_val" (the real slot's column from L2, its gather as in the
+# kernel; the value from the first slot) and "pinned_col" (the first
+# slot's column and gather; the real slot's value from L2).
+
+
+def _pinned(col_slot, val_slot):
+    """An edit replacing sell_row_dot by a copy that reads each slot's
+    column id at index ``col_slot`` and its value at ``val_slot``: "i"
+    the slot's own (k 32 + lane), "i0" the slice's first slot's."""
+    return [('#include "fact_common.cuh"\n', f'''#include "fact_common.cuh"
+__device__ __forceinline__ float sell_row_dot_pinned(
+    const int* __restrict__ sptr, const int* __restrict__ col,
+    const float* __restrict__ val, int r, const float* v) {{
+  const int lane = r & 31;
+  const int slice = r >> 5;
+  float acc = 0.0f;
+  const int beg = __ldg(sptr + slice);
+  const int end = __ldg(sptr + slice + 1);
+  for (int k = beg; k < end; ++k) {{
+    const int i = k * 32 + lane;
+    int i0 = beg * 32 + lane;
+    asm volatile("" : "+r"(i0));
+    acc = fmaf(__ldg(val + {val_slot}), v[__ldg(col + {col_slot})], acc);
+  }}
+  return acc;
+}}
+#define sell_row_dot sell_row_dot_pinned
+''')]
+
+
+_ONE_SLOT = _pinned("i0", "i0")
+_GROUP_FWD_PRODUCTS = [
+    ("group_row_dot<G>(ops1, lp1, i, ad, w1a);",
+     "load_packed<G>(ad, d, w1a);"),
+    ("group_row_dot<G>(ops2, lp2, i, u, w2u);",
+     "load_packed<G>(u, d, w2u);")]
+_GROUP_BWD_PRODUCTS = [
+    ("group_row_dot<G>(ops1, lp1, i, xb, w1t);",
+     "load_packed<G>(xb, d, w1t);"),
+    ("group_row_dot<G>(ops2, lp2, i, bn, w2t);",
+     "load_packed<G>(bn, d, w2t);")]
+
+
+def _fast_table(products, group_products):
+    table = {"C1": {"cluster": 1}}
+    for B in (8, 32, 64):
+        table[f"C1_B{B}"] = {"cluster": 1, "batch": B}
+    table["C1_one_slot"] = {"cluster": 1, "edits": _ONE_SLOT}
+    table["C1_pinned_val"] = {"cluster": 1, "edits": _pinned("i", "i0")}
+    table["C1_pinned_col"] = {"cluster": 1, "edits": _pinned("i0", "i")}
+    table["C1_no_products"] = {"cluster": 1, "edits": products}
+    for G, C in ((2, 2), (4, 4)):
+        table[f"G{G}C{C}"] = {"cluster": (G, C)}
+        table[f"G{G}C{C}_no_products"] = {"cluster": (G, C),
+                                          "edits": group_products}
+    table["C1_again"] = {"cluster": 1}
+    return table
+
+
+FAST_FWD = _fast_table(_FWD_PRODUCTS[:2], _GROUP_FWD_PRODUCTS)
+FAST_BWD = _fast_table(_BWD_PRODUCTS[:2], _GROUP_BWD_PRODUCTS)
+# the group form's other phases at (2, 2), one at a time (wrong numbers):
+# the emission gathers, the stream stores or reads, the virtual threads'
+# pass, the gamma stage (an exchange cannot go: an mbarrier phase armed
+# before the last one completed traps)
+_G22 = {"cluster": (2, 2)}
+FAST_FWD.update({
+    "G2C2_no_gather": dict(_G22, edits=[
+        ("cp_async4(xd + k, px_t + __ldg(f_dst + s));", ""),
+        ("if (g_src) cp_async4(xs + k, px_t + __ldg(g_src + s));", "")]),
+    "G2C2_no_stream_writes": dict(_G22, edits=[
+        ("          stream_put(w1ad_ys + o, v1);\n          stream_put(xdst_ys"
+         " + o, x);\n          if (g_src) stream_put(xsrc_ys + o, xsv);", ""),
+        ("stream_put(ad_ys + row * s_pad + d, v);", "")]),
+    "G2C2_no_readd": dict(_G22, edits=[
+        ("    if (tid < V)\n      for (int i = tid; i < own; i += V)\n"
+         "#pragma unroll\n        for (int g = 0; g < G; ++g) part[g] +=",
+         "    if (false)\n      for (int i = tid; i < own; i += V)\n"
+         "#pragma unroll\n        for (int g = 0; g < G; ++g) part[g] +=")]),
+})
+# the exchanges made local (no st.async to a peer, no mbarrier armed or
+# waited on; each CTA reads its own stale copies): what the two
+# exchanges a frame cost, the cluster's skew included
+FAST_FWD["G2C2_local"] = dict(_G22, edits=[
+    ("      mbar_expect_tx(xbar, warp_bytes);\n      if (t + 1 < t_end) "
+     "mbar_expect_tx(xbar + 1, carry_bytes);\n", ""),
+    ("    mbar_wait_cluster(xbar, parity);\n    cluster_warp_total_all<G>",
+     "    cluster_warp_total_all<G>"),
+    ("      mbar_wait_cluster(xbar + 1, parity);\n    }\n  }\n  if (rank "
+     "== 0)", "    }\n  }\n  if (rank == 0)"),
+    ("ad + (d & ~31) * W, w, rank, C, xbar + 1);",
+     "ad + (d & ~31) * W, w, rank, 1, xbar + 1);"),
+    ("u + (d & ~31) * W, w, rank, C, xbar + 1);",
+     "u + (d & ~31) * W, w, rank, 1, xbar + 1);"),
+    ("cluster_post_async<G>(part, red, V, rank, lc, xbar);",
+     "cluster_post_async<G>(part, red, V, rank, 0, xbar);")])
+FAST_BWD.update({
+    "G2C2_local": dict(_G22, edits=[
+        ("      mbar_expect_tx(xbar, x1_bytes);\n      mbar_expect_tx(xbar + "
+         "1, x2_bytes);\n", ""),
+        ("    mbar_wait_cluster(xbar, parity);\n\n    // own rows: the "
+         "products", "\n    // own rows: the products"),
+        ("    mbar_wait_cluster(xbar + 1, parity);\n    cluster_warp_total_"
+         "all<2 * G>", "    cluster_warp_total_all<2 * G>"),
+        ("bn + (d & ~31) * W, w, rank, C, xbar);",
+         "bn + (d & ~31) * W, w, rank, 1, xbar);"),
+        ("xb + (d & ~31) * W, w, rank, C, xbar);",
+         "xb + (d & ~31) * W, w, rank, 1, xbar);"),
+        ("c1 + (d & ~31) * W, w, rank, C, xbar + 1);",
+         "c1 + (d & ~31) * W, w, rank, 1, xbar + 1);"),
+        ("c2 + (d & ~31) * W, w, rank, C, xbar + 1);",
+         "c2 + (d & ~31) * W, w, rank, 1, xbar + 1);"),
+        ("cluster_post_async<2 * G>(rows2, red, V, rank, lc, xbar + 1);",
+         "cluster_post_async<2 * G>(rows2, red, V, rank, 0, xbar + 1);")]),
+    "G2C2_no_stream_reads": dict(_G22, edits=[
+        ("cp_async16(st + (j * G + g) * own_max + 8 * p, base + o);",
+         "")]),
+    "G2C2_no_gamma": dict(_G22, edits=[
+        ("        if (p < n_pdf_lists) {\n          const int fe = __ldg("
+         "f_ptr + p + 1);\n          for (int q = __ldg(f_ptr + p); q < fe;"
+         " ++q) {", "        if (false) {\n          const int fe = __ldg("
+         "f_ptr + p + 1);\n          for (int q = __ldg(f_ptr + p); q < fe;"
+         " ++q) {")]),
+    "G2C2_no_readd": dict(_G22, edits=[
+        ("    if (tid < V)\n      for (int i = tid; i < own; i += V) {\n"
+         "        const int d = cluster_row(i, rank, C);\n        const float "
+         "lk", "    if (false)\n      for (int i = tid; i < own; i += V) {\n"
+         "        const int d = cluster_row(i, rank, C);\n        const float "
+         "lk")]),
+})
 # the source of a table that is not named after its source
 SOURCE = {"xl_vpu": "xl_roofline", "xl_mxu": "xl_roofline",
           "fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd",
-          "fact_fwd_cluster": "fact_fwd", "fact_bwd_cluster": "fact_bwd"}
+          "fact_fwd_cluster": "fact_fwd", "fact_bwd_cluster": "fact_bwd",
+          "fast_fwd": "fact_fwd", "fast_bwd": "fact_bwd"}
 
 # The cluster pair (a cluster a group of G columns, W1's vector alone
 # held whole, one / two cluster barriers a frame).
@@ -846,6 +990,51 @@ def full_cluster_ablation(tables, use, time_ms, dev):
     return result
 
 
+def fast_ablation(tables, use, time_ms, dev):
+    """The fast pair's variants at the headline graph (bfloat16 tiles,
+    T=500, all columns full length) at B=128 unless a variant names its
+    batch, each launch timed alone (fact_bwd_bf16 on the one-block
+    sweep's streams, which the group form writes bit for bit alike)."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    T, c = 500, 1e-5
+    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+    fa = ChainGraphBatch(ChainGraph(den_fst), 128, tile_dtype="bfloat16",
+                         device=dev)._fact
+    result = {}
+    for B in (128, 64, 32, 8):
+        at = lambda v: spec(v)[1].get("batch", 128) == B
+        fwd = {k: v for k, v in tables["fast_fwd"].items() if at(v)}
+        bwd = {k: v for k, v in tables["fast_bwd"].items() if at(v)}
+        if not (fwd or bwd):
+            continue
+        px = torch.exp(torch.randn(B, T, P, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        use("fact_fwd", "full")
+        st = fk.fact_fwd(px, lens, fa, c, cluster=1)
+        tot = fk._objf(st[4], st[5], lens, fa, st[7])[1].contiguous()
+        tag = f"B={B} T={T}"
+        for label, variant in fwd.items():
+            use("fast_fwd", label)
+            opts = spec(variant)[1]
+            result[f"fact_fwd_bf16/{label} {tag}"] = time_ms(
+                lambda: fk.fact_fwd(px, lens, fa, c,
+                                    cluster=opts["cluster"]))
+        use("fact_fwd", "full")
+        for label, variant in bwd.items():
+            use("fast_bwd", label)
+            opts = spec(variant)[1]
+            result[f"fact_bwd_bf16/{label} {tag}"] = time_ms(
+                lambda: fk.fact_bwd(lens, fa, c, *st[:5], st[6], st[7], tot,
+                                    P, debug=False, cluster=opts["cluster"]))
+        del px, st
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -858,7 +1047,8 @@ def main():
 
     tables = {"fact_fwd": FWD, "fact_bwd": BWD, "fact_fwd_snap": LEAN_FWD,
               "fact_bwd_lean": LEAN_BWD, "fact_fwd_cluster": FULL_FWD,
-              "fact_bwd_cluster": FULL_BWD, "stream_fwd": STREAM_FWD,
+              "fact_bwd_cluster": FULL_BWD, "fast_fwd": FAST_FWD,
+              "fast_bwd": FAST_BWD, "stream_fwd": STREAM_FWD,
               "stream_bwd": STREAM_BWD, "semiring_fwd": sr_table(
                   "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
               "viterbi": sr_table("viterbi"), "xl_vpu": XL_VPU,
@@ -950,6 +1140,8 @@ def main():
         result.update(lean_ablation(tables, use, time_ms, dev))
     if tables["fact_fwd_cluster"] or tables["fact_bwd_cluster"]:
         result.update(full_cluster_ablation(tables, use, time_ms, dev))
+    if tables["fast_fwd"] or tables["fast_bwd"]:
+        result.update(fast_ablation(tables, use, time_ms, dev))
 
     if tables["stream_fwd"] or tables["stream_bwd"]:
         # the cluster pair at main path 4

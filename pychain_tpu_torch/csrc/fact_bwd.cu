@@ -44,7 +44,8 @@
 //
 // Design.  As in the forward kernel: one block per batch column (or a
 // cluster of C CTAs: fact_bwd_lean_cluster_kernel and
-// fact_bwd_full_cluster_kernel below) running the whole reverse time
+// fact_bwd_full_cluster_kernel below; G columns a cluster in the fast
+// mode's group form, fact_bwd_group_kernel) running the whole reverse time
 // loop, W1^T and W2^T as sliced-ELL rows by source state over the
 // graph's arcs, each row's entries in bank order (the
 // host's fixed order, chosen so that a slot's 32 gathers hit distinct
@@ -1172,6 +1173,419 @@ __global__ void __launch_bounds__(NT, 1) fact_bwd_full_cluster_kernel(
   cluster_barrier();   // no peer touches this CTA's shared memory after it
 }
 
+// fact_bwd_bf16 (the full mode, bfloat16 tiles) as a group of G columns
+// (G = 2 or 4) on a cluster of C CTAs (C = 2 or 4), where B is past C =
+// 2's reach (fact_kernels.group_size); the forward sweep's group form
+// (fact_fwd.cu) says why: a CTA loads its rows' slots of W1^T and W2^T
+// into shared memory once, packed, and one load of a slot feeds the G
+// columns' products; no frame reads the operator from device memory.
+//
+// CTA r owns the state rows of the cluster layout (cluster_row) and the
+// pdfs p with p mod 1024 one of its virtual threads, in all G columns.
+// It keeps beta' on its own rows alone, so a frame has two exchanges
+// (the lean cluster form's order; each needs the one before):
+//
+//   own rows' b and x_dst * b, packed, to every CTA (X1) -> the gamma
+//   stage of frame u + 1, deferred to here (its masses crossed in frame
+//   u + 1's X2), while X1 crosses -> wait -> own rows' W1^T and W2^T
+//   products, beta'(u) and the masses, packed, to every CTA, then the
+//   leaky sum's and the alpha*beta trace's virtual warp totals (X2) ->
+//   wait -> the cross-warp trees.  Frame 0's gamma stage follows the loop.
+//
+// Each exchange completes on an mbarrier of the receiver (st.async), one
+// phase a frame.  A peer's stores of frame u - 1 into b and x_dst * b or
+// the totals can only follow this CTA's reads of frame u (X1 of frame u -
+// 1 follows this CTA's X2 of frame u; X2 of frame u - 1 follows this
+// CTA's X1 sends of that frame).  The masses have two buffers by frame
+// parity: a peer writes frame u's after its X1 wait of frame u, which
+// may come while this CTA's deferred gamma stage reads frame u + 1's.
+//
+// The stream entries a frame reads on own rows (x_dst, W1 alpha', alpha',
+// x_src) are copied by cp.async, 16 bytes (8 rows) a copy, into a stage
+// of two buffers: frame u - 1's copies go out at frame u's start and land
+// by frame u - 1's (where the one-block kernel's TMA ring holds whole
+// rows).
+//
+// Each column runs from its own last frame, where beta'(T_b) = final /
+// tot is injected (its leaky sum taken for every column at the launch's
+// start), down to frame 0; gamma and the traces past a column's end are
+// written at the start as the one-block kernel writes them.  Every sum of
+// a column is taken in the one-block kernel's order (each row's slots in
+// the host's order, then the diagonal; the virtual threads' rows and
+// pdfs, the warp trees, the cross-warp tree; each pdf's states
+// ascending), each product and sum rounded where it rounds, so the
+// results are that kernel's bit for bit, and the plain fast version's.
+// The pdf lists leave out the states whose mass is always exactly 0
+// (fact_kernels.KernelGraph.group_lists: the padded states, 72 of pdf
+// 0's 73 at the headline graph, a serial chain the one-block kernel
+// walks every frame); adding +0 to a sum of terms >= +0 changes no bit.
+//
+// Shared memory: b and x_dst * b whole, packed, and the masses (one
+// vector in identity mode, else two) whole, packed, in two buffers;
+// beta' on rank 0's rows, G floats a row, and the stage (two buffers of
+// 3 or 4 streams, G bfloat16 entries a row); the scratch of X2's 2 G sums
+// and X3's G, three mbarriers, the local slice pointers of W1^T and W2^T
+// and their slots; at least LEAN_CLUSTER_MIN_SMEM bytes
+// (fact_bwd_group_smem_bytes).
+template <int G>
+__global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_group_kernel(
+    const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
+    const __nv_bfloat16* __restrict__ ad_ys,     // (B, T, S_pad) alpha'(u+1)
+    const __nv_bfloat16* __restrict__ w1ad_ys,   // (B, T, S_pad) W1 alpha'(u)
+    const __nv_bfloat16* __restrict__ xdst_ys,   // (B, T, S_pad)
+    const __nv_bfloat16* __restrict__ xsrc_ys,   // (B, T, S_pad) or null
+    const float* __restrict__ s_ys,      // (B, T) s_{u+1}
+    const float* __restrict__ s0,        // (1,)
+    const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
+    const float* __restrict__ final_p,   // (S_pad,)
+    const float* __restrict__ tot,       // (B,) sum(alpha'(T_b) * final)
+    const float* __restrict__ leaky,     // (S_pad,)
+    const int* __restrict__ w1t_ptr,     // W1^T's slice pointers
+    const unsigned* __restrict__ w1t_pack,   // W1^T's packed slots
+    const int* __restrict__ w2t_ptr, const unsigned* __restrict__ w2t_pack,
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal
+    const int* __restrict__ f_ptr, const int* __restrict__ f_states,
+    const int* __restrict__ g_ptr,       // null in identity mode
+    const int* __restrict__ g_states,
+    int n_pdf_lists, float leaky_c, int B, int T, int P, int s_pad,
+    int debug,
+    float* __restrict__ gamma,           // (B, T, P)
+    float* __restrict__ ab,              // (B, T)
+    float* __restrict__ gs,              // (B, T)
+    int* __restrict__ smid) {            // (ceil(B / G) C,) or null
+  namespace cg = cooperative_groups;
+  using S = __nv_bfloat16;
+  constexpr int W = G / 2;               // words a state of a packed vector
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int lc = __ffs(C) - 1;
+  const int V = FACT_THREADS >> lc;      // this CTA's virtual threads
+  const int own = cluster_own_rows(s_pad, rank, C);
+  const int own_max = cluster_own_rows(s_pad, 0, C);
+  const bool identity = xsrc_ys == nullptr;
+  const int nm = identity ? 1 : 2;       // mass vectors
+  const int n_streams = identity ? 3 : 4;
+  extern __shared__ float smem[];
+  unsigned* bn = reinterpret_cast<unsigned*>(smem);   // b, whole
+  unsigned* xb = bn + s_pad * W;         // x_dst * b, whole
+  unsigned* cm = xb + s_pad * W;         // masses, 2 buffers of nm, whole
+  float* bd = reinterpret_cast<float*>(cm + 2 * nm * s_pad * W);  // beta'
+  // own rows' stream entries as stored (bfloat16): two buffers by frame
+  // parity, each [n_streams][G][own_max] (x_dst, W1 alpha', alpha', x_src)
+  unsigned short* stage = reinterpret_cast<unsigned short*>(bd + own_max * G);
+  float* red = reinterpret_cast<float*>(stage + 2 * n_streams * G * own_max);
+  float* red2 = red + group_red_words(2 * G);   // X3's and the injection's
+  unsigned long long* xbar =             // X1, X2, X3
+      reinterpret_cast<unsigned long long*>(red2 + group_red_words(G));
+  int* lp1 = reinterpret_cast<int*>(xbar + 4);
+  int* lp2 = lp1 + group_lp_words(s_pad, C);
+  unsigned* ops1 = reinterpret_cast<unsigned*>(lp2 + group_lp_words(s_pad, C));
+
+  const int tid = threadIdx.x;
+  const int b0 = (static_cast<int>(blockIdx.x) >> lc) * G;
+  if (smid && tid == 0) smid[blockIdx.x] = sm_id();
+  int Tb[G];
+  int t_hi = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    Tb[g] = b0 + g < B ? lengths[b0 + g] : 0;
+    t_hi = max(t_hi, Tb[g]);
+  }
+
+  // frames past each column's end, spread over the cluster
+  const float past_trace = debug ? 0.0f : 1.0f;
+  for (int g = 0; g < G; ++g) {
+    if (b0 + g >= B) continue;
+    const size_t row0 = static_cast<size_t>(b0 + g) * T;
+    const size_t n_past = static_cast<size_t>(T - Tb[g]) * P;
+    float* g_past = gamma + (row0 + Tb[g]) * P;
+    for (size_t i = rank * FACT_THREADS + tid; i < n_past;
+         i += C * FACT_THREADS)
+      g_past[i] = 0.0f;
+    for (int u = Tb[g] + rank * FACT_THREADS + tid; u < T;
+         u += C * FACT_THREADS) {
+      ab[row0 + u] = past_trace;
+      gs[row0 + u] = past_trace;
+    }
+  }
+  // no column has a frame: every CTA of the cluster leaves here, before
+  // any DSMEM access
+  if (t_hi == 0) return;
+
+  group_load_ops(w1t_ptr, w1t_pack, s_pad, rank, C, lp1, ops1);
+  __syncthreads();   // lp1
+  unsigned* ops2 = ops1 + lp1[own >> 5] * 32;
+  group_load_ops(w2t_ptr, w2t_pack, s_pad, rank, C, lp2, ops2);
+  float tot_b[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) tot_b[g] = b0 + g < B ? tot[b0 + g] : 1.0f;
+  for (int i = tid; i < own_max * G; i += FACT_THREADS) bd[i] = 0.0f;
+  if (tid == 0)
+    for (int k = 0; k < 3; ++k) mbar_init(xbar + k, 1);
+  cluster_barrier();   // every CTA has started: peers may be written
+
+  // each column's injection beta'(T_b) = final / tot: its leaky sum over
+  // the virtual threads' rows
+  float inj[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) inj[g] = 0.0f;
+  if (tid < V)
+    for (int i = tid; i < own; i += V) {
+      const int d = cluster_row(i, rank, C);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        inj[g] = __fadd_rn(inj[g], __fmul_rn(final_p[d] / tot_b[g], leaky[d]));
+    }
+  // also the barrier after which the mbarriers and the slots may be used
+  cluster_block_sum<G>(inj, red2, V, rank, lc);
+
+  // issue the copies of own rows' stream entries of frame u in each
+  // column's frames into frame u's stage, 16 bytes (8 rows of a slice) a
+  // copy (alpha'(0) is ad0, read where it is needed); they land by
+  // cp_async_wait_all
+  const int pieces = own >> 3;
+  auto fetch = [&](int u) {
+    unsigned short* st = stage + (u & 1) * n_streams * G * own_max;
+    for (int q = tid; q < n_streams * G * pieces; q += FACT_THREADS) {
+      const int p = q % pieces;
+      const int g = (q / pieces) % G;
+      const int j = q / (pieces * G);
+      if (u >= Tb[g] || (j == 2 && u == 0)) continue;
+      const __nv_bfloat16* base = j == 0 ? xdst_ys : j == 1 ? w1ad_ys
+                                  : j == 2 ? ad_ys : xsrc_ys;
+      const size_t o = (static_cast<size_t>(b0 + g) * T + u - (j == 2)) *
+                           s_pad + cluster_row(8 * p, rank, C);
+      cp_async16(st + (j * G + g) * own_max + 8 * p, base + o);
+    }
+  };
+  // stream j's entry of local row i in column g at frame u, and alpha'(u)
+  auto staged = [&](int u, int j, int g, int i) {
+    const unsigned short* st = stage + (u & 1) * n_streams * G * own_max;
+    return __uint_as_float(
+        static_cast<unsigned>(st[(j * G + g) * own_max + i]) << 16);
+  };
+  auto alpha_at = [&](int u, int g, int i, int d) {
+    return u > 0 ? staged(u, 2, g, i) : ad0[d];
+  };
+  // the gamma stage of frame u (its masses whole in buffer u & 1, its
+  // 1 / s_u in inv) on this CTA's pdfs (the 32-pdf slices k = rank mod
+  // C): where the sum-gamma trace is taken (at every frame with debug,
+  // else at frame 0) virtual thread v sums pdfs v, v + 1024, ... for its
+  // order, the trace crossing on its own exchange (X3), rank 0 writing
+  // it; elsewhere every thread takes pdfs in turn
+  unsigned phase3 = 0;
+  const int own_p = cluster_own_rows((P + 31) & ~31, rank, C);
+  auto gamma_stage = [&](int u, const float (&inv)[G]) {
+    const bool traces = debug || u == 0;
+    const unsigned* c1 = cm + (u & 1) * nm * s_pad * W;
+    const unsigned* c2 = identity ? c1 : c1 + s_pad * W;
+    if (traces && tid == 0) mbar_expect_tx(xbar + 2, (C - 1) * (32u >> lc) *
+                                                         4u * G);
+    float pg[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) pg[g] = 0.0f;
+    if (!traces || tid < V)
+      for (int i = tid; i < own_p; i += traces ? V : FACT_THREADS) {
+        const int p = cluster_row(i, rank, C);
+        if (p >= P) continue;
+        float acc[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+        if (p < n_pdf_lists) {
+          const int fe = __ldg(f_ptr + p + 1);
+          for (int q = __ldg(f_ptr + p); q < fe; ++q) {
+            float x[G];
+            load_packed<G>(c1, __ldg(f_states + q), x);
+#pragma unroll
+            for (int g = 0; g < G; ++g) acc[g] += x[g];
+          }
+          if (!identity) {
+            const int ge = __ldg(g_ptr + p + 1);
+            for (int q = __ldg(g_ptr + p); q < ge; ++q) {
+              float x[G];
+              load_packed<G>(c2, __ldg(g_states + q), x);
+#pragma unroll
+              for (int g = 0; g < G; ++g) acc[g] += x[g];
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (u < Tb[g])
+            __stcs(gamma + (static_cast<size_t>(b0 + g) * T + u) * P + p,
+                   round_to<S>(acc[g] * inv[g]));
+          if (traces) pg[g] += acc[g];
+        }
+      }
+    if (traces) {
+      cluster_post_async<G>(pg, red2, V, rank, lc, xbar + 2);
+      __syncthreads();
+      mbar_wait_cluster(xbar + 2, phase3);
+      phase3 ^= 1;
+      cluster_warp_total_all<G>(pg, red2);
+    }
+    if (rank == 0 && tid == 0)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (u < Tb[g])
+          gs[static_cast<size_t>(b0 + g) * T + u] =
+              traces ? pg[g] * inv[g] : 1.0f;
+  };
+
+  // the bytes a CTA's peers send it: in X1 their rows of b and x_dst * b,
+  // in X2 their rows of the masses and (32 / C) warp totals of 2 G sums
+  const unsigned peer_rows = static_cast<unsigned>(s_pad - own);
+  const unsigned warp_bytes = (C - 1) * (32u >> lc) * 4u * G;
+  const unsigned x1_bytes = peer_rows * 8u * W;
+  const unsigned x2_bytes = peer_rows * 4u * W * nm + 2 * warp_bytes;
+  fetch(t_hi - 1);
+  float leak[G], inv[G], inv_next[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) leak[g] = inv_next[g] = 0.0f;
+  for (int u = t_hi - 1; u >= 0; --u) {
+    const unsigned parity = (t_hi - 1 - u) & 1;
+    const bool traces = debug || u == 0;
+    // frame u + 1's last reads are done, and frame u's stream entries
+    // have landed: frame u - 1's copies go out
+    cp_async_wait_all();
+    __syncthreads();
+    if (u > 0) fetch(u - 1);
+    if (tid == 0) {
+      mbar_expect_tx(xbar, x1_bytes);
+      mbar_expect_tx(xbar + 1, x2_bytes);
+    }
+    float cl[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (u == Tb[g] - 1) leak[g] = inj[g];
+      const float s_u = u == 0 ? *s0
+                        : b0 + g < B ? s_ys[static_cast<size_t>(b0 + g) * T +
+                                            u - 1]
+                                     : 1.0f;
+      inv[g] = 1.0f / s_u;
+      // the leaky term rounded on its own, then added
+      cl[g] = __fmul_rn(leaky_c, leak[g]);
+    }
+    // own rows: beta'(T_b) where a column starts, and b and x_dst * b to
+    // every CTA
+    for (int i = tid; i < own; i += FACT_THREADS) {
+      const int d = cluster_row(i, rank, C);
+      float bv[G], xv[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int k = i * G + g;
+        if (u == Tb[g] - 1) bd[k] = final_p[d] / tot_b[g];
+        const float v = __fadd_rn(bd[k], cl[g]);
+        bv[g] = round_to<S>(v);
+        xv[g] = round_to<S>(__fmul_rn(staged(u, 0, g, i), v));
+      }
+      unsigned w[W];
+      pack_cols<G>(bv, w);
+      warp_put_words_async<W>(bn + (d & ~31) * W, w, rank, C, xbar);
+      pack_cols<G>(xv, w);
+      warp_put_words_async<W>(xb + (d & ~31) * W, w, rank, C, xbar);
+    }
+    // frame u + 1's gamma stage while X1 crosses
+    if (u + 1 < t_hi) gamma_stage(u + 1, inv_next);
+    __syncthreads();   // this CTA's rows of b and x_dst * b
+    mbar_wait_cluster(xbar, parity);
+
+    // own rows: the products, beta'(u) and the masses to every CTA
+    unsigned* c1 = cm + (u & 1) * nm * s_pad * W;
+    unsigned* c2 = identity ? c1 : c1 + s_pad * W;
+    for (int i = tid; i < own; i += FACT_THREADS) {
+      const int d = cluster_row(i, rank, C);
+      float w1t[G], w2t[G], m1v[G], m2v[G];
+      group_row_dot<G>(ops1, lp1, i, xb, w1t);
+      group_row_dot<G>(ops2, lp2, i, bn, w2t);
+      const float dg1 = __ldg(diag1 + d), dg2 = __ldg(diag2 + d);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        // the one-block kernel's arithmetic, rounded where it rounds
+        const int k = i * G + g;
+        const float x = staged(u, 0, g, i);
+        const float v = __fadd_rn(bd[k], cl[g]);
+        const float xbs = __fmul_rn(x, v);
+        const float t1 = __fadd_rn(w1t[g], __fmul_rn(dg1, xbs));
+        const float t2 = __fadd_rn(w2t[g], __fmul_rn(dg2, v));
+        const float sw = __fmul_rn(identity ? x : staged(u, 3, g, i), t2);
+        bd[k] = __fmul_rn(__fadd_rn(t1, sw), inv[g]);
+        const float m1 = __fmul_rn(xbs, staged(u, 1, g, i));
+        const float m2 = __fmul_rn(sw, alpha_at(u, g, i, d));
+        if (identity) {
+          m1v[g] = round_to<S>(__fadd_rn(m1, m2));
+        } else {
+          m1v[g] = round_to<S>(m1);
+          m2v[g] = round_to<S>(m2);
+        }
+      }
+      unsigned w[W];
+      pack_cols<G>(m1v, w);
+      warp_put_words_async<W>(c1 + (d & ~31) * W, w, rank, C, xbar + 1);
+      if (!identity) {
+        pack_cols<G>(m2v, w);
+        warp_put_words_async<W>(c2 + (d & ~31) * W, w, rank, C, xbar + 1);
+      }
+    }
+    // each virtual thread adds its rows' leaky and trace terms in turn
+    __syncthreads();
+    float rows2[2 * G];
+#pragma unroll
+    for (int k = 0; k < 2 * G; ++k) rows2[k] = 0.0f;
+    if (tid < V)
+      for (int i = tid; i < own; i += V) {
+        const int d = cluster_row(i, rank, C);
+        const float lk = leaky[d];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float bdt = bd[i * G + g];
+          rows2[g] = __fadd_rn(rows2[g], __fmul_rn(bdt, lk));
+          if (traces)
+            rows2[G + g] = __fadd_rn(rows2[G + g],
+                                     __fmul_rn(alpha_at(u, g, i, d), bdt));
+        }
+      }
+    cluster_post_async<2 * G>(rows2, red, V, rank, lc, xbar + 1);
+    __syncthreads();   // this CTA's totals and masses
+    mbar_wait_cluster(xbar + 1, parity);
+    cluster_warp_total_all<2 * G>(rows2, red);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      leak[g] = rows2[g];
+      inv_next[g] = inv[g];
+    }
+    if (rank == 0 && tid == 0)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (u < Tb[g])
+          ab[static_cast<size_t>(b0 + g) * T + u] =
+              traces ? rows2[G + g] : 1.0f;
+  }
+  gamma_stage(0, inv_next);
+  cluster_barrier();   // no peer touches this CTA's shared memory after it
+}
+
+// The group form's request: b and x_dst * b whole, packed, and the masses
+// (1 or 2 vectors) whole, packed, in two buffers; beta' on rank 0's rows
+// (G floats a row) and the stage of x_dst, W1 alpha', alpha' and (outside
+// identity mode) x_src there in two buffers (G bfloat16 entries a row);
+// the scratch of 2 G and of G sums, three mbarriers (four slots), two sets
+// of local slice pointers and op_words words of slots (the most any CTA
+// of the cluster holds of W1^T and W2^T together); at least
+// LEAN_CLUSTER_MIN_SMEM.
+extern "C" size_t fact_bwd_group_smem_bytes(int s_pad, int identity, int G,
+                                            int C, int op_words) {
+  const size_t own_max = 32 * ((s_pad / 32 + C - 1) / C);
+  const size_t words =
+      (identity ? 4 : 6) * static_cast<size_t>(s_pad) * (G / 2) +
+      own_max * G + (identity ? 3 : 4) * own_max * G +
+      group_red_words(2 * G) +
+      group_red_words(G) + 8 + 2 * group_lp_words(s_pad, C) + op_words;
+  const size_t need = words * sizeof(float);
+  return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
+}
+
 extern "C" size_t fact_bwd_smem_bytes(int s_pad, int identity, int stages,
                                       int fast, int lean) {
   const size_t rows = lean ? 1 : identity ? 3 : 4;
@@ -1436,3 +1850,79 @@ FACT_BWD_ENTRY(fact_bwd_lean_launch, float, BWD_LEAN)
 FACT_BWD_ENTRY(fact_bwd_lean_bf16_launch, __nv_bfloat16, BWD_LEAN)
 FACT_BWD_ENTRY(fact_bwd_chunk_launch, float, BWD_CHUNK)
 FACT_BWD_ENTRY(fact_bwd_chunk_bf16_launch, __nv_bfloat16, BWD_CHUNK)
+
+template <int G>
+static int fact_bwd_group_run(
+    const void* lengths, const void* ad_ys, const void* w1ad_ys,
+    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
+    const void* s0, const void* ad0, const void* final_p, const void* tot,
+    const void* leaky, const void* w1t_ptr, const void* w1t_pack,
+    const void* w2t_ptr, const void* w2t_pack, const void* diag1,
+    const void* diag2, const void* f_ptr, const void* f_states,
+    const void* g_ptr, const void* g_states, int n_pdf_lists, float leaky_c,
+    int B, int T, int P, int s_pad, int debug, int C, int op_words,
+    void* gamma, void* ab, void* gs, void* smid, void* stream) {
+  auto kernel = fact_bwd_group_kernel<G>;
+  const size_t smem =
+      fact_bwd_group_smem_bytes(s_pad, xsrc_ys == nullptr, G, C, op_words);
+  cudaError_t err = fact_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config((B + G - 1) / G, C, smem, stream, attr);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return -1;
+  using S = __nv_bfloat16;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int*>(lengths),
+      static_cast<const S*>(ad_ys), static_cast<const S*>(w1ad_ys),
+      static_cast<const S*>(xdst_ys), static_cast<const S*>(xsrc_ys),
+      static_cast<const float*>(s_ys), static_cast<const float*>(s0),
+      static_cast<const float*>(ad0), static_cast<const float*>(final_p),
+      static_cast<const float*>(tot), static_cast<const float*>(leaky),
+      static_cast<const int*>(w1t_ptr),
+      static_cast<const unsigned*>(w1t_pack),
+      static_cast<const int*>(w2t_ptr),
+      static_cast<const unsigned*>(w2t_pack),
+      static_cast<const float*>(diag1), static_cast<const float*>(diag2),
+      static_cast<const int*>(f_ptr), static_cast<const int*>(f_states),
+      static_cast<const int*>(g_ptr), static_cast<const int*>(g_states),
+      n_pdf_lists, leaky_c, B, T, P, s_pad, debug,
+      static_cast<float*>(gamma), static_cast<float*>(ab),
+      static_cast<float*>(gs), static_cast<int*>(smid));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fact_bwd_bf16's group form (counted as fact_bwd_bf16): G columns (2 or
+// 4) a cluster of C CTAs (2 or 4), ceil(B / G) clusters, on fact_fwd's
+// bfloat16 streams; w1t_pack / w2t_pack the packed slots of the operators
+// whose slice pointers are w1t_ptr / w2t_ptr (B2's bank order); op_words
+// as fact_bwd_group_smem_bytes; smid (ceil(B / G) C,) or null.  Returns
+// as the other entry points, and cudaErrorInvalidValue for a (G, C) that
+// is not built.
+extern "C" int fact_bwd_group_launch(
+    const void* lengths, const void* ad_ys, const void* w1ad_ys,
+    const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
+    const void* s0, const void* ad0, const void* final_p, const void* tot,
+    const void* leaky, const void* w1t_ptr, const void* w1t_pack,
+    const void* w2t_ptr, const void* w2t_pack, const void* diag1,
+    const void* diag2, const void* f_ptr, const void* f_states,
+    const void* g_ptr, const void* g_states, int n_pdf_lists, float leaky_c,
+    int B, int T, int P, int s_pad, int debug, int G, int C, int op_words,
+    void* gamma, void* ab, void* gs, void* smid, void* stream) {
+  if (C != 2 && C != 4) return static_cast<int>(cudaErrorInvalidValue);
+#define FACT_BWD_GROUP(GG)                                                    \
+  if (G == GG)                                                                \
+    return fact_bwd_group_run<GG>(                                            \
+        lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, final_p,    \
+        tot, leaky, w1t_ptr, w1t_pack, w2t_ptr, w2t_pack, diag1, diag2,       \
+        f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,      \
+        s_pad, debug, C, op_words, gamma, ab, gs, smid, stream);
+  FACT_BWD_GROUP(2)
+  FACT_BWD_GROUP(4)
+#undef FACT_BWD_GROUP
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -764,3 +764,201 @@ __device__ __forceinline__ void cluster_post_async(const float (&v)[NV],
 // so two CTAs of a cluster cannot share an SM (which would undo the
 // split; at the headline graph a CTA needs about 49-61 KB).
 #define LEAN_CLUSTER_MIN_SMEM 118784
+
+// ----------------------------------------------------------------------
+// The fast pair's group form (fact_fwd_bf16 and fact_bwd_bf16 where B is
+// past C = 2's reach)
+// ----------------------------------------------------------------------
+//
+// A group of G batch columns (G = 2 or 4) on a cluster of C CTAs: CTA r
+// owns the 32-row slices k = r (mod C) (cluster_row) in all G columns,
+// holds its rows of the two operators its products read in shared memory
+// for the whole launch, and each frame sends its rows of the vectors
+// those products gather to its peers.  Every vector a product gathers
+// holds bfloat16 values (the fast mode rounds each operand), so it is
+// kept packed: a state's G values in G / 2 words, column 2j in the low
+// half of word j and 2j + 1 in the high half.  At G = 2 a state is one
+// 4-byte word, so the host's bank order of each row's slots holds for
+// the gathers as it does for the one-block kernels.
+
+// An operator's slot as the group form holds it (fact_kernels.pack_slots):
+// the column id in the low 16 bits (S_pad <= 14,464), the bfloat16 value's
+// bits in the high 16, so that the value is the word with its low half
+// cleared.
+__device__ __forceinline__ int slot_col(unsigned w) {
+  return static_cast<int>(w & 0xffffu);
+}
+
+__device__ __forceinline__ float slot_val(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// The G values of state s of a packed vector.
+template <int G>
+__device__ __forceinline__ void load_packed(const unsigned* v, int s,
+                                            float (&x)[G]) {
+  static_assert(G == 2 || G == 4, "G is 2 or 4");
+  if constexpr (G == 2) {
+    const unsigned w = v[s];
+    x[0] = __uint_as_float(w << 16);
+    x[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    const uint2 w = reinterpret_cast<const uint2*>(v)[s];
+    x[0] = __uint_as_float(w.x << 16);
+    x[1] = __uint_as_float(w.x & 0xffff0000u);
+    x[2] = __uint_as_float(w.y << 16);
+    x[3] = __uint_as_float(w.y & 0xffff0000u);
+  }
+}
+
+// G values that are bfloat16 values already (rounded by round_to), packed
+// exactly into G / 2 words.
+template <int G>
+__device__ __forceinline__ void pack_cols(const float (&x)[G],
+                                          unsigned (&w)[G / 2]) {
+#pragma unroll
+  for (int j = 0; j < G / 2; ++j)
+    w[j] = (__float_as_uint(x[2 * j]) >> 16) |
+           (__float_as_uint(x[2 * j + 1]) & 0xffff0000u);
+}
+
+// Local row i of this CTA times the G columns of the packed vector v:
+// the operator's slots of the row's slice, slice j = i / 32 of this CTA,
+// at ops[32 k + (i mod 32)] for lp[j] <= k < lp[j + 1], in the host's slot
+// order (sell_row_dot's sum: each slot's word, loaded once, feeds the G
+// columns' products, each column's sum in that order).
+template <int G>
+__device__ __forceinline__ void group_row_dot(const unsigned* ops,
+                                              const int* lp, int i,
+                                              const unsigned* v,
+                                              float (&acc)[G]) {
+  const int lane = i & 31;
+  const int j = i >> 5;
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+  const int end = lp[j + 1];
+  for (int k = lp[j]; k < end; ++k) {
+    const unsigned w = ops[k * 32 + lane];
+    const float val = slot_val(w);
+    float x[G];
+    load_packed<G>(v, slot_col(w), x);
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = fmaf(val, x[g], acc[g]);
+  }
+}
+
+// Load this CTA's slices of a packed operator (sptr: the sliced-ELL slice
+// pointers; pack: its slots, 32 words a slot) into shared memory: the
+// local slice pointers lp (own slices + 1 ints, thread 0) and the slots,
+// one warp a slice, 16 bytes a lane.  Returns nothing; the caller passes
+// a block barrier before reading either.  Each slice is 128-byte
+// aligned in both places.
+__device__ __forceinline__ void group_load_ops(
+    const int* __restrict__ sptr, const unsigned* __restrict__ pack,
+    int s_pad, int rank, int C, int* lp, unsigned* ops) {
+  const int own_slices = cluster_own_rows(s_pad, rank, C) >> 5;
+  if (threadIdx.x == 0) {
+    int at = 0;
+    for (int j = 0; j < own_slices; ++j) {
+      lp[j] = at;
+      const int k = j * C + rank;
+      at += __ldg(sptr + k + 1) - __ldg(sptr + k);
+    }
+    lp[own_slices] = at;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < own_slices; j += FACT_WARPS) {
+    const int k = j * C + rank;
+    const int lo = __ldg(sptr + k);
+    const int n = (__ldg(sptr + k + 1) - lo) * 8;   // 16-byte pieces
+    const uint4* src = reinterpret_cast<const uint4*>(pack) + lo * 8;
+    uint4* dst = reinterpret_cast<uint4*>(ops) + lp[j] * 8;
+    for (int q = lane; q < n; q += 32) dst[q] = __ldg(src + q);
+  }
+}
+
+// A warp's 32 lanes each hold the W words of one state of a 32-row slice
+// of a packed vector (the slice at `slice`, 16-byte aligned; lane l's
+// words at slice[W l .. W l + W - 1]): each lane stores its own here, and
+// lanes q < 8 W gather the slice's words 4 q .. 4 q + 3 and store them
+// into every peer as one 16-byte st.async, completing on `bar` there (a
+// peer receives 128 W bytes a slice).  Every lane of the warp calls it.
+template <int W>
+__device__ __forceinline__ void warp_put_words_async(unsigned* slice,
+                                                     const unsigned (&w)[W],
+                                                     int rank, int C,
+                                                     unsigned long long* bar) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < W; ++j) slice[lane * W + j] = w[j];
+  unsigned q[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = __shfl_sync(0xffffffffu, w[k % W], (4 * lane / W + k / W) & 31);
+  if (lane >= 8 * W) return;
+  const unsigned* dst = slice + 4 * lane;
+  for (int r = 1; r < C; ++r) {
+    const int peer = (rank + r) & (C - 1);
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+        "{%1, %2, %3, %4}, [%5];" ::"r"(cluster_map(dst, peer)),
+        "r"(q[0]), "r"(q[1]), "r"(q[2]), "r"(q[3]),
+        "r"(cluster_map(bar, peer))
+        : "memory");
+  }
+}
+
+// The words of the group form's scratch of NV sums: the 32 posted warp
+// totals and block_sum's output (cluster_warp_total), a 16-byte multiple.
+__host__ __device__ inline int group_red_words(int nv) {
+  return (33 * nv + 3) & ~3;
+}
+
+// The ints of a CTA's local slice pointers of one operator: its slices
+// (at most rank 0's) + 1, a 16-byte multiple.
+__host__ __device__ inline int group_lp_words(int s_pad, int C) {
+  return ((s_pad / 32 + C - 1) / C + 1 + 3) & ~3;
+}
+
+// Asynchronous copies from device memory to shared memory (cp.async,
+// LDGSTS): the thread goes on; its copies land by cp_async_wait_all, and
+// a block barrier after it shows them to the other threads.  4 bytes
+// through L1 (a gather of x), 16 bytes through L2 alone (a stream read
+// once); both addresses aligned to the size.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// cluster_warp_total with every warp taking block_sum's cross-warp tree
+// on the 32 posted totals itself (the same bits in every warp): no block
+// barrier.  The caller's next exchange may only follow every warp's
+// reads of red (a peer's next post needs this CTA's sends that follow
+// them).
+template <int NV>
+__device__ __forceinline__ void cluster_warp_total_all(float (&v)[NV],
+                                                       const float* red) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    float x = red[lane * NV + k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    v[k] = __shfl_sync(0xffffffffu, x, 0);
+  }
+}

@@ -46,7 +46,8 @@
 // shared memory hit distinct banks (1.41 wavefronts a slot for W1 at
 // the headline graph, 2.87 in ascending order; 3-7% of the kernel's
 // time, PERF.md).  One block owns one batch column (a cluster of C
-// CTAs where B C <= the card's SMs: fact_fwd_cluster_kernel below)
+// CTAs where B C <= the card's SMs: fact_fwd_cluster_kernel below; in
+// the fast mode past that, G columns a cluster: fact_fwd_group_kernel)
 // and runs its whole time loop, stopping at the column's own length:
 // nothing is computed or written for frames past it (the backward
 // sweep never reads them).  The carry alpha' and the W2 operand live in
@@ -550,6 +551,278 @@ __global__ void __launch_bounds__(NT, 1) fact_fwd_cluster_kernel(
   cluster_barrier();   // no peer touches this CTA's shared memory after it
 }
 
+// fact_fwd_bf16 (the full mode, bfloat16 tiles) as a group of G columns
+// (G = 2 or 4) on a cluster of C CTAs (C = 2 or 4), where B is past
+// C = 2's reach (fact_kernels.group_size): CTA r of cluster q serves
+// columns q G .. q G + G - 1 on its rows (cluster_row, as
+// fact_fwd_cluster_kernel).
+//
+// Why.  The one-block kernel reads each slot's column id and value from
+// device memory once per column per frame: at the headline graph W1's
+// and W2's slots are 0.45 MB, more than an SM's L1 holds beside the
+// kernel's shared memory, so every block reads them from L2 every frame
+// (28 GB a sweep at B = 128, T = 500).  Here a CTA loads its rows' slots
+// of W1 and W2 into shared memory once, at the launch, packed 4 bytes a
+// slot (group_load_ops), and one load of a slot feeds the G columns'
+// products (group_row_dot): no frame reads the operator from device
+// memory.
+//
+// A frame (the cluster form's async exchange, one row's G columns a
+// thread):
+//
+//   own rows' products in the G columns (their W1 alpha' stream rows) ->
+//   alpha(t) -> the virtual warps' totals of the G columns to every CTA
+//   (cluster_post_async) -> own rows' emissions of frame t + 1 (their
+//   x_dst and x_src stream rows) -> wait -> the cross-warp trees: s_t of
+//   each column, the same bits in every CTA -> own rows' carry alpha'(t +
+//   1) and u(t + 1) to every CTA, packed (warp_put_words_async) -> own
+//   rows' alpha' stream rows and alpha'(T_b) -> wait.
+//
+// Each column runs to its own length: its stream rows, s_t and alpha'(T_b)
+// are written for its frames alone, and a column past its end (or past B,
+// whose px is never read) goes on with values no other column reads.
+// Every sum of a column is taken in the one-block kernel's order (each
+// row's slots in the host's order, then the diagonal; the virtual
+// threads' rows, the warp trees, the cross-warp tree), each product and
+// sum rounded where it rounds, so the results are that kernel's bit for
+// bit, and the plain fast version's.
+//
+// Shared memory: alpha' and u whole, packed (2 S_pad G / 2 words); the
+// carry, x_dst and (outside identity mode) x_src on own rows (float32,
+// G a row); the totals' scratch, two mbarriers, the local slice pointers
+// of W1 and W2 and their slots (op_words: the most any CTA holds), at
+// least LEAN_CLUSTER_MIN_SMEM bytes (fact_fwd_group_smem_bytes).
+template <int G>
+__global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_group_kernel(
+    const float* __restrict__ px,        // (B, T, P) exp'd nnet output
+    const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
+    const int* __restrict__ f_dst,       // (S_pad,)
+    const int* __restrict__ g_src,       // (S_pad,) or null (identity mode)
+    const int* __restrict__ w1_ptr,      // W1's slice pointers
+    const unsigned* __restrict__ w1_pack,   // W1's packed slots
+    const int* __restrict__ w2_ptr, const unsigned* __restrict__ w2_pack,
+    const float* __restrict__ diag1,     // (S_pad,) W1's diagonal
+    const float* __restrict__ diag2,     // (S_pad,) W2's diagonal
+    const float* __restrict__ ad0,       // (S_pad,) alpha'(0)
+    const float* __restrict__ s0,        // (1,)
+    const float* __restrict__ leaky,     // (S_pad,)
+    float leaky_c, int B, int T, int P, int s_pad,
+    __nv_bfloat16* __restrict__ ad_ys,   // (B, T, S_pad) alpha'(t+1)
+    __nv_bfloat16* __restrict__ w1ad_ys, // (B, T, S_pad) W1 alpha'(t)
+    __nv_bfloat16* __restrict__ xdst_ys, // (B, T, S_pad)
+    __nv_bfloat16* __restrict__ xsrc_ys, // (B, T, S_pad) or null
+    float* __restrict__ s_ys,            // (B, T) s_{t+1}; 1 past the end
+    float* __restrict__ ad_last,         // (B, S_pad) alpha'(T_b)
+    int* __restrict__ smid) {            // (ceil(B / G) C,) or null
+  namespace cg = cooperative_groups;
+  using S = __nv_bfloat16;
+  constexpr int W = G / 2;               // words a state of a packed vector
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int lc = __ffs(C) - 1;
+  const int V = FACT_THREADS >> lc;      // this CTA's virtual threads
+  const int own = cluster_own_rows(s_pad, rank, C);
+  const int own_max = cluster_own_rows(s_pad, 0, C);
+  extern __shared__ float smem[];
+  unsigned* ad = reinterpret_cast<unsigned*>(smem);   // alpha', whole
+  unsigned* u = ad + s_pad * W;                       // x_src * alpha'
+  float* a = reinterpret_cast<float*>(u + s_pad * W); // carry, own rows
+  // px's entries at f_dst and (outside identity mode) g_src of own rows,
+  // unrounded, two buffers by frame parity: frame t + 1's land (cp.async)
+  // while frame t's products read frame t's
+  float* xd0 = a + own_max * G;
+  float* xs0 = g_src ? xd0 + 2 * own_max * G : xd0;
+  float* red = xs0 + 2 * own_max * G;    // the totals
+  unsigned long long* xbar =             // the totals' and the carry's
+      reinterpret_cast<unsigned long long*>(red + group_red_words(G));
+  int* lp1 = reinterpret_cast<int*>(xbar + 2);
+  int* lp2 = lp1 + group_lp_words(s_pad, C);
+  unsigned* ops1 = reinterpret_cast<unsigned*>(lp2 + group_lp_words(s_pad, C));
+
+  const int tid = threadIdx.x;
+  const int b0 = (static_cast<int>(blockIdx.x) >> lc) * G;
+  if (smid && tid == 0) smid[blockIdx.x] = sm_id();
+  int Tb[G];
+  int t_end = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    Tb[g] = b0 + g < B ? lengths[b0 + g] : 0;
+    t_end = max(t_end, Tb[g]);
+  }
+
+  group_load_ops(w1_ptr, w1_pack, s_pad, rank, C, lp1, ops1);
+  __syncthreads();   // lp1
+  unsigned* ops2 = ops1 + lp1[own >> 5] * 32;
+  group_load_ops(w2_ptr, w2_pack, s_pad, rank, C, lp2, ops2);
+
+  // issue the copies of own rows' px entries of frame t of each column in
+  // its frames into frame t's buffers (they land by cp_async_wait_all)
+  auto gather = [&](int t) {
+    float* xd = xd0 + (t & 1) * own_max * G;
+    float* xs = xs0 + (t & 1) * own_max * G;
+    for (int k = tid; k < own * G; k += FACT_THREADS) {
+      const int g = k % G;
+      if (t >= Tb[g]) continue;
+      const int s = cluster_row(k / G, rank, C);
+      const float* px_t = px + (static_cast<size_t>(b0 + g) * T + t) * P;
+      cp_async4(xd + k, px_t + __ldg(f_dst + s));
+      if (g_src) cp_async4(xs + k, px_t + __ldg(g_src + s));
+    }
+  };
+
+  // alpha'(0), the same in every column; the emissions of frame 0 (0 in a
+  // column with no frame)
+  for (int s = tid; s < s_pad; s += FACT_THREADS) {
+    const float v = round_to<S>(ad0[s]);
+    float x[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) x[g] = v;
+    unsigned w[W];
+    pack_cols<G>(x, w);
+#pragma unroll
+    for (int j = 0; j < W; ++j) ad[s * W + j] = w[j];
+  }
+  for (int i = tid; i < 2 * own_max * G; i += FACT_THREADS) {
+    if (i < own_max * G)
+      a[i] = i < own * G ? ad0[cluster_row(i / G, rank, C)] : 0.0f;
+    xd0[i] = xs0[i] = 0.0f;
+  }
+  __syncthreads();
+  gather(0);
+  cp_async_wait_all();
+  __syncthreads();
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    mbar_init(xbar + 1, 1);
+  }
+  cluster_barrier();   // every CTA has started: peers may be written
+  // own rows' u(0) to every CTA (DSMEM stores before a cluster barrier)
+  for (int i = tid; i < own; i += FACT_THREADS) {
+    const int d = cluster_row(i, rank, C);
+    float x[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      x[g] = round_to<S>(round_to<S>(xs0[i * G + g]) * a[i * G + g]);
+    unsigned w[W];
+    pack_cols<G>(x, w);
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      for (int q = 0; q < C; ++q)
+        *cg::this_cluster().map_shared_rank(u + d * W + j, q) = w[j];
+  }
+  cluster_barrier();
+
+  // the bytes a CTA's peers send it in the totals' exchange ((32 / C)
+  // warp totals of G sums from each) and the carry's (their rows of ad
+  // and u); the exchanges' order is the cluster form's (fact_fwd_cluster_
+  // kernel), so the phases of an mbarrier never overlap
+  const unsigned warp_bytes = (C - 1) * (32u >> lc) * 4u * G;
+  const unsigned carry_bytes = static_cast<unsigned>(s_pad - own) * 8u * W;
+  float s_prev[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s_prev[g] = *s0;
+
+  for (int t = 0; t < t_end; ++t) {
+    const unsigned parity = t & 1;
+    if (tid == 0) {
+      mbar_expect_tx(xbar, warp_bytes);
+      if (t + 1 < t_end) mbar_expect_tx(xbar + 1, carry_bytes);
+    }
+    // frame t + 1's emissions, into the other buffers
+    if (t + 1 < t_end) gather(t + 1);
+    float r[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) r[g] = 1.0f / s_prev[g];
+    const float* xd = xd0 + (t & 1) * own_max * G;        // frame t's
+    const float* xs = xs0 + (t & 1) * own_max * G;
+    const float* xs_next = xs0 + (~t & 1) * own_max * G;
+    for (int i = tid; i < own; i += FACT_THREADS) {
+      const int d = cluster_row(i, rank, C);
+      float w1a[G], w2u[G];
+      group_row_dot<G>(ops1, lp1, i, ad, w1a);
+      group_row_dot<G>(ops2, lp2, i, u, w2u);
+      const float dg1 = __ldg(diag1 + d), dg2 = __ldg(diag2 + d);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        // the one-block kernel's arithmetic, rounded where it rounds
+        const int k = i * G + g;
+        const float x = round_to<S>(xd[k]);
+        const float xsv = g_src ? round_to<S>(xs[k]) : x;
+        const float own_a = a[k];
+        const float v1 = __fadd_rn(w1a[g], __fmul_rn(dg1, own_a));
+        const float v2 = __fadd_rn(w2u[g], __fmul_rn(dg2,
+                                                     __fmul_rn(xsv, own_a)));
+        a[k] = __fmul_rn(__fadd_rn(__fmul_rn(x, v1), v2), r[g]);
+        if (t < Tb[g]) {
+          const size_t o =
+              (static_cast<size_t>(b0 + g) * T + t) * s_pad + d;
+          stream_put(w1ad_ys + o, v1);
+          stream_put(xdst_ys + o, x);
+          if (g_src) stream_put(xsrc_ys + o, xsv);
+        }
+      }
+    }
+    // each virtual thread adds its rows in turn
+    __syncthreads();
+    float part[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) part[g] = 0.0f;
+    if (tid < V)
+      for (int i = tid; i < own; i += V)
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[g] += a[i * G + g];
+    cluster_post_async<G>(part, red, V, rank, lc, xbar);
+    cp_async_wait_all();   // frame t + 1's emissions
+    __syncthreads();       // this CTA's totals, and the emissions
+    mbar_wait_cluster(xbar, parity);
+    cluster_warp_total_all<G>(part, red);
+    float cs[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) cs[g] = leaky_c * part[g];
+    for (int i = tid; i < own; i += FACT_THREADS) {
+      const int d = cluster_row(i, rank, C);
+      const float lk = leaky[d];
+      float vr[G], ur[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float v = __fadd_rn(a[i * G + g], __fmul_rn(cs[g], lk));
+        a[i * G + g] = v;
+        vr[g] = round_to<S>(v);
+        ur[g] = round_to<S>(round_to<S>(xs_next[i * G + g]) * v);
+        if (t < Tb[g]) {
+          const size_t row = static_cast<size_t>(b0 + g) * T + t;
+          stream_put(ad_ys + row * s_pad + d, v);
+          if (t == Tb[g] - 1)
+            ad_last[static_cast<size_t>(b0 + g) * s_pad + d] = v;
+        }
+      }
+      if (t + 1 < t_end) {
+        unsigned w[W];
+        pack_cols<G>(vr, w);
+        warp_put_words_async<W>(ad + (d & ~31) * W, w, rank, C, xbar + 1);
+        pack_cols<G>(ur, w);
+        warp_put_words_async<W>(u + (d & ~31) * W, w, rank, C, xbar + 1);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (rank == 0 && tid == 0 && t < Tb[g])
+        s_ys[static_cast<size_t>(b0 + g) * T + t] = part[g];
+      s_prev[g] = part[g];
+    }
+    if (t + 1 < t_end) {
+      __syncthreads();   // this CTA's rows of the carry
+      mbar_wait_cluster(xbar + 1, parity);
+    }
+  }
+  if (rank == 0)
+    for (int g = 0; g < G; ++g)
+      if (b0 + g < B)
+        for (int t = Tb[g] + tid; t < T; t += FACT_THREADS)
+          s_ys[static_cast<size_t>(b0 + g) * T + t] = 1.0f;
+  cluster_barrier();   // no peer touches this CTA's shared memory after it
+}
+
 extern "C" size_t fact_fwd_smem_bytes(int s_pad, int identity, int fast) {
   const size_t vectors = fast && !identity ? 5 : 4;
   return (vectors * static_cast<size_t>(s_pad) + FACT_WARPS + 1) *
@@ -689,3 +962,85 @@ FACT_FWD_ENTRY(fact_fwd_snap_launch, float, FWD_SNAP)
 FACT_FWD_ENTRY(fact_fwd_snap_bf16_launch, __nv_bfloat16, FWD_SNAP)
 FACT_FWD_ENTRY(fact_fwd_init_launch, float, FWD_INIT)
 FACT_FWD_ENTRY(fact_fwd_init_bf16_launch, __nv_bfloat16, FWD_INIT)
+
+// The group form's request: alpha' and u whole, packed; the carry, and
+// px's entries at f_dst and (outside identity mode) g_src in two buffers,
+// on rank 0's rows (the most a CTA owns), G floats a row; the totals'
+// scratch, two mbarriers, two sets of local slice pointers and op_words
+// words of slots (the most any CTA of the cluster holds of W1 and W2
+// together); at least LEAN_CLUSTER_MIN_SMEM (one CTA an SM).
+extern "C" size_t fact_fwd_group_smem_bytes(int s_pad, int identity, int G,
+                                            int C, int op_words) {
+  const size_t own_max = 32 * ((s_pad / 32 + C - 1) / C);
+  const size_t words = static_cast<size_t>(s_pad) * G +
+                       (identity ? 3 : 5) * own_max * G + group_red_words(G) +
+                       4 + 2 * group_lp_words(s_pad, C) + op_words;
+  const size_t need = words * sizeof(float);
+  return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
+}
+
+template <int G>
+static int fact_fwd_group_run(
+    const void* px, const void* lengths, const void* f_dst, const void* g_src,
+    const void* w1_ptr, const void* w1_pack, const void* w2_ptr,
+    const void* w2_pack, const void* diag1, const void* diag2,
+    const void* ad0, const void* s0, const void* leaky, float leaky_c, int B,
+    int T, int P, int s_pad, int C, int op_words, void* ad_ys, void* w1ad_ys,
+    void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* smid,
+    void* stream) {
+  auto kernel = fact_fwd_group_kernel<G>;
+  const size_t smem =
+      fact_fwd_group_smem_bytes(s_pad, g_src == nullptr, G, C, op_words);
+  cudaError_t err = fact_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config((B + G - 1) / G, C, smem, stream, attr);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return -1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(px),
+      static_cast<const int*>(lengths), static_cast<const int*>(f_dst),
+      static_cast<const int*>(g_src), static_cast<const int*>(w1_ptr),
+      static_cast<const unsigned*>(w1_pack), static_cast<const int*>(w2_ptr),
+      static_cast<const unsigned*>(w2_pack), static_cast<const float*>(diag1),
+      static_cast<const float*>(diag2), static_cast<const float*>(ad0),
+      static_cast<const float*>(s0), static_cast<const float*>(leaky),
+      leaky_c, B, T, P, s_pad, static_cast<__nv_bfloat16*>(ad_ys),
+      static_cast<__nv_bfloat16*>(w1ad_ys),
+      static_cast<__nv_bfloat16*>(xdst_ys),
+      static_cast<__nv_bfloat16*>(xsrc_ys), static_cast<float*>(s_ys),
+      static_cast<float*>(ad_last), static_cast<int*>(smid));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fact_fwd_bf16's group form (counted as fact_fwd_bf16): G columns (2 or 4)
+// a cluster of C CTAs (2 or 4), ceil(B / G) clusters; w1_pack / w2_pack
+// the packed slots of the operators whose slice pointers are w1_ptr /
+// w2_ptr (B1's bank order); op_words as fact_fwd_group_smem_bytes; smid
+// (ceil(B / G) C,) or null.  Returns as the other entry points, and
+// cudaErrorInvalidValue for a (G, C) that is not built.
+extern "C" int fact_fwd_group_launch(
+    const void* px, const void* lengths, const void* f_dst, const void* g_src,
+    const void* w1_ptr, const void* w1_pack, const void* w2_ptr,
+    const void* w2_pack, const void* diag1, const void* diag2,
+    const void* ad0, const void* s0, const void* leaky, float leaky_c, int B,
+    int T, int P, int s_pad, int G, int C, int op_words, void* ad_ys,
+    void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,
+    void* smid, void* stream) {
+  if (C != 2 && C != 4) return static_cast<int>(cudaErrorInvalidValue);
+#define FACT_FWD_GROUP(GG)                                                    \
+  if (G == GG)                                                                \
+    return fact_fwd_group_run<GG>(px, lengths, f_dst, g_src, w1_ptr,          \
+                                  w1_pack, w2_ptr, w2_pack, diag1, diag2,     \
+                                  ad0, s0, leaky, leaky_c, B, T, P, s_pad, C, \
+                                  op_words, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, \
+                                  s_ys, ad_last, smid, stream);
+  FACT_FWD_GROUP(2)
+  FACT_FWD_GROUP(4)
+#undef FACT_FWD_GROUP
+  return static_cast<int>(cudaErrorInvalidValue);
+}

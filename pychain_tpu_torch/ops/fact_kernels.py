@@ -44,7 +44,11 @@ the state rows and every sum is taken in the one-block kernel's order, so
 the results do not depend on C.  :func:`cluster_size` picks C from the
 card: the largest with B C CTAs on its SMs among those that run the form
 faster than one block a column, so that a batch too small to fill the
-card is spread over it.
+card is spread over it.  Past that reach the fast mode's full pair runs
+its group form (:func:`group_size`): G columns a cluster of C CTAs, each
+CTA's rows of its two operators in shared memory for the whole launch
+(:func:`pack_slots`), so that no frame reads the operator from device
+memory, with the one-block kernels' bits.
 
 A graph whose state vectors exceed a block's shared memory raises here
 and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4), which
@@ -80,6 +84,8 @@ FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
 # fact_common.cuh: two such CTAs do not fit one SM's 233,472 bytes).
 LEAN_CLUSTERS = (1, 2, 4)
 LEAN_CLUSTER_MIN_SMEM = 118784
+# The cluster sizes the fast pair's group form is built for (G in (2, 4)).
+GROUP_CLUSTERS = (2, 4)
 # fact_bwd and fact_bwd_chunk's cluster form: its exchange mbarriers
 # (3 with FACT_BWD_ASYNC in csrc/fact_bwd.cu, else 0).
 CLUSTER_XBARS = 3
@@ -297,6 +303,123 @@ def cluster_size(B: int, props, fa: FactorizedArrays, form: str,
     return 1
 
 
+# The fast pair's group form (fact_fwd_bf16, fact_bwd_bf16 in the full
+# mode): G columns a cluster of C CTAs, each CTA's rows of its operators
+# in shared memory for the whole launch (csrc/fact_fwd.cu,
+# csrc/fact_bwd.cu: fact_*_group_kernel).  It serves B past the cluster
+# forms' reach (B 2 > the card's SMs: B > 66 on an H100), where every
+# form's plan is one block a column.  GROUPS lists the (G, C) it takes;
+# PLAN_GROUPS the (G, C) the plan takes for each form, in order, from the
+# card's times at the headline graph (B = 128) in PERF.md: (2, 2) took
+# 3.5 / 4.5 ms where one block a column took 5.0 / 5.2; (4, 4) is built,
+# not planned (6.2-10.9 ms at B = 128, and at B = 67 slower than (2, 2);
+# ROADMAP.md queues its removal).
+GROUP_FORMS = ("fact_fwd", "fact_bwd")
+GROUPS = ((2, 2), (4, 4))
+PLAN_GROUPS = {"fact_fwd": ((2, 2),), "fact_bwd": ((2, 2),)}
+# The least operator bytes (its slots at 8 bytes: what one block a column
+# reads from L2 at every frame) at which the plan takes the group form:
+# below them the one-block kernel's L1 holds enough of the operator that
+# the group form's exchanges cost more than they save.  From the card's
+# times at B = 128 on bench.py's graph family (PERF.md): the
+# forward's group form won at 172 KB of W1 and W2 (3.1 against 3.5 ms)
+# and lost at 95 KB (3.0 against 2.7); the backward's won at 364 KB of W1^T
+# and W2^T (4.4 against 5.2), tied at 247 KB and lost at 130 KB (4.1
+# against 3.8).
+GROUP_MIN_OPERATOR_BYTES = {"fact_fwd": 128 * 1024, "fact_bwd": 300 * 1024}
+
+
+def _group_red_words(nv):
+    return (33 * nv + 3) & ~3          # group_red_words in the source
+
+
+def _group_lp_words(s_pad, C):
+    return ((s_pad // 32 + C - 1) // C + 1 + 3) & ~3    # group_lp_words
+
+
+def group_smem_bytes(fa: FactorizedArrays, G: int, C: int,
+                     words: dict | None = None) -> dict:
+    """Dynamic shared memory of a group-form CTA at (G, C), {form: bytes};
+    must equal fact_fwd_group_smem_bytes / fact_bwd_group_smem_bytes in
+    the sources.  The vectors the products gather whole, packed (S_pad
+    G / 2 words each: fact_fwd's alpha' and u, fact_bwd's b, x_dst * b
+    and one or two mass vectors), the per-row vectors on rank 0's rows
+    (fact_fwd's carry, x_dst and, outside identity mode, x_src, G floats
+    a row, the last two in two buffers; fact_bwd's beta', G floats a row,
+    and its stage of x_dst, W1 alpha', alpha' and x_src in two buffers,
+    G bfloat16 entries a row), the totals' scratch, the mbarriers, two
+    sets of local slice pointers and the operators' slots (``words``:
+    {(form, C): words}, default the graph's :func:`group_op_words`), at
+    least LEAN_CLUSTER_MIN_SMEM."""
+    identity = fa.xsrc_mode == "identity"
+    s_pad = fa.s_pad
+    own_max = 32 * -(-(s_pad // 32) // C)
+    words = words if words is not None else graph_for(fa).group_words
+    lp = 2 * _group_lp_words(s_pad, C)
+    fwd = (s_pad * G + (3 if identity else 5) * own_max * G
+           + _group_red_words(G) + 4 + lp + words[("fact_fwd", C)])
+    bwd = ((4 if identity else 6) * s_pad * (G // 2)
+           + own_max * G + (3 if identity else 4) * own_max * G
+           + _group_red_words(2 * G)
+           + _group_red_words(G) + 8 + lp + words[("fact_bwd", C)])
+    return {"fact_fwd": max(4 * fwd, LEAN_CLUSTER_MIN_SMEM),
+            "fact_bwd": max(4 * bwd, LEAN_CLUSTER_MIN_SMEM)}
+
+
+def _group_words(fa):
+    """The graph's group-form slot words, or None where the form does not
+    run (float32 tiles, or a graph past B1/B2's shared memory)."""
+    if not is_fast(fa) or not fits_on_chip(fa):
+        return None
+    return graph_for(fa).group_words
+
+
+def group_size(B: int, props, fa: FactorizedArrays, form: str,
+               cluster: tuple | None = None):
+    """The group form's (G, C) at which ``form`` runs B columns on the card
+    (``props`` as :func:`cluster_size`), or None for the form of
+    :func:`cluster_size`.  The plan takes it for fact_fwd and fact_bwd
+    with bfloat16 tiles past 1,024 states where B 2 > the card's SMs and
+    the form's operator takes at least :data:`GROUP_MIN_OPERATOR_BYTES`:
+    the first (G, C) of :data:`PLAN_GROUPS` with ceil(B / G) C CTAs on
+    the SMs whose CTA fits its shared memory.  ``cluster`` = (G, C) forces
+    one; a (G, C) that is not built, a form or a graph the group form
+    does not run, or a CTA that does not fit raises NotImplementedError
+    (nothing falls back to another form)."""
+    limit = props.shared_memory_per_block_optin
+    if cluster is not None:
+        G, C = cluster
+        if form not in GROUP_FORMS or (G, C) not in GROUPS:
+            raise NotImplementedError(
+                f"{form} as a group of {G} columns on {C} CTAs: the group "
+                f"form is built for {GROUP_FORMS} at (G, C) in {GROUPS}")
+        words = _group_words(fa)
+        if words is None:
+            raise NotImplementedError(
+                f"{form}'s group form runs bfloat16 tiles on a graph whose "
+                f"state vectors fit a block (S_pad={fa.s_pad})")
+        need = group_smem_bytes(fa, G, C, words)[form]
+        if need > limit:
+            raise NotImplementedError(
+                f"{form} as a group of {G} columns on {C} CTAs: a CTA asks "
+                f"for {need} bytes at S_pad={fa.s_pad}, over the {limit} a "
+                "block has on this card")
+        return G, C
+    sms = props.multi_processor_count
+    if (form not in PLAN_GROUPS or fa.s_pad <= 32 * FACT_WARPS
+            or 2 * B <= sms):
+        return None
+    words = _group_words(fa)
+    if words is None or 8 * words[(form, 1)] < GROUP_MIN_OPERATOR_BYTES[
+            form]:
+        return None
+    for G, C in PLAN_GROUPS[form]:
+        if (-(-B // G) * C <= sms
+                and group_smem_bytes(fa, G, C, words)[form] <= limit):
+            return G, C
+    return None
+
+
 def _card_props(device):
     return torch.cuda.get_device_properties(device)
 
@@ -414,8 +537,16 @@ class KernelGraph:
     values, held in float32: see sell_row_dot).  ``off`` holds, in the
     fast mode, the four operators' off-diagonal entries in ascending
     order: what the cluster pair reads in that mode (for every graph, as
-    ``diag``).  The one-hot E matrices become gathers through f_dst/g_src
-    and, for
+    ``diag``).  ``packed``, for a fast graph that B1/B2 run, holds
+    ``resident``'s slots packed 4 bytes each (:func:`pack_slots`): the
+    fast pair's group form loads them into shared memory; ``group_words``
+    the most slot words a CTA of that form holds at each cluster size
+    (:func:`group_op_words`), ``group_lists`` its E_f^T lists: ``f_lists``
+    without the states whose mass is always exactly 0 (no W1 entry into
+    the state and, in identity mode, no W2 entry out of it: the padded
+    states, 72 of pdf 0's 73 at the headline graph), whose sums are
+    ``f_lists``' bit for bit (adding +0 to a sum of terms >= +0).  The
+    one-hot E matrices become gathers through f_dst/g_src and, for
     the posterior scatter, pdf -> states lists: E_f^T's over all S_pad
     states (padded states map to pdf 0 with zero mass), E_g^T's over the
     states with a W2 out-arc only (any other state's E_g^T mass is
@@ -435,6 +566,9 @@ class KernelGraph:
     resident: tuple | None = None   # B1/B2's (w1, w2, w1t, w2t)
     diag: tuple | None = None       # fast mode: (W1's, W2's) (S_pad,) f32
     off: tuple | None = None        # fast mode: the four, off-diagonal
+    packed: tuple | None = None     # fast resident: the four's slots packed
+    group_words: dict | None = None   # {(form, C): slot words a CTA}
+    group_lists: tuple | None = None  # the group form's E_f^T lists
 
     def to(self, device) -> "KernelGraph":
         mv = lambda x: None if x is None else tuple(t.to(device) for t in x)
@@ -446,7 +580,10 @@ class KernelGraph:
             g_src=None if self.g_src is None else self.g_src.to(device),
             f_lists=mv(self.f_lists), g_lists=mv(self.g_lists),
             resident=None if self.resident is None else tuple(
-                mv(op) for op in self.resident))
+                mv(op) for op in self.resident),
+            packed=None if self.packed is None else tuple(
+                t.to(device) for t in self.packed),
+            group_lists=mv(self.group_lists))
 
 
 def _coo(w: WArrays, diag: bool = True):
@@ -629,6 +766,58 @@ def bank_order(sell):
             torch.from_numpy(val2.copy()))
 
 
+# ----------------------------------------------------------------------
+# The fast pair's group form: slots packed 4 bytes each
+# ----------------------------------------------------------------------
+#
+# fact_fwd_bf16 and fact_bwd_bf16's group form (csrc/fact_common.cuh,
+# group_row_dot) holds each CTA's rows of its two operators in shared
+# memory for the whole launch, a slot one 32-bit word: the column id in
+# the low 16 bits (S_pad <= 14,464 < 65,536) and the bfloat16 value's bits
+# in the high 16.  The fast mode's off-diagonal values are bfloat16 values
+# (see sell_row_dot), so the packing is exact.
+
+def pack_slots(col, val) -> torch.Tensor:
+    """A sliced-ELL operator's (col, val) slots (int32, float32; CPU) as
+    the group form's words (int32): col | bits(val) << 16.  Raises
+    ValueError for a column id past 16 bits or a value that is not a
+    bfloat16 value."""
+    col = torch.as_tensor(col).to(torch.int64)
+    val = torch.as_tensor(val).to(torch.float32)
+    _require(bool(((col >= 0) & (col < 1 << 16)).all()),
+             "pack_slots: a column id past 16 bits")
+    _require(torch.equal(val.to(torch.bfloat16).float(), val),
+             "pack_slots: a value that is not a bfloat16 value")
+    hi = (val.view(torch.int32).to(torch.int64) >> 16) & 0xFFFF
+    words = (col | hi << 16).numpy().astype(np.uint32).view(np.int32)
+    return torch.from_numpy(words.copy())
+
+
+def unpack_slots(words) -> tuple:
+    """:func:`pack_slots`'s words back to (col int32, val float32), as the
+    kernels read them (slot_col, slot_val)."""
+    w = torch.as_tensor(words).to(torch.int32)
+    col = (w & 0xFFFF).to(torch.int32)
+    val = (w & ~0xFFFF).view(torch.float32)
+    return col, val
+
+
+def group_op_words(ops) -> dict:
+    """The most slot words a CTA of the group form holds, {(form, C):
+    words} for C in :data:`GROUP_CLUSTERS`, and at C = 1 all of them:
+    fact_fwd's of W1 and W2 together, fact_bwd's of W1^T and W2^T
+    (``ops``: the four operators in B1/B2's order), CTA r holding the
+    slices k = r (mod C) (32 words a slot)."""
+    slen = [np.diff(np.asarray(op[0].cpu()).astype(np.int64)) for op in ops]
+    out = {}
+    for C in (1,) + GROUP_CLUSTERS:
+        for form, (a, b) in (("fact_fwd", (0, 1)), ("fact_bwd", (2, 3))):
+            out[(form, C)] = 32 * max(
+                int(slen[a][r::C].sum() + slen[b][r::C].sum())
+                for r in range(C))
+    return out
+
+
 def _operators(w1, w2, s_pad):
     """W1, W2 by destination row and W1^T, W2^T by source row, each
     sliced ELL, from (rows, cols, vals) triples."""
@@ -656,8 +845,16 @@ def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
                          s_pad)
         diag = tuple(w.diag.float().cpu().contiguous()
                      for w in (fa.w1, fa.w2))
+    packed = words = lists = None
     if fits_on_chip(fa):
         resident = tuple(map(bank_order, off or ops))
+        if off is not None:
+            packed = tuple(pack_slots(op[1], op[2]) for op in resident)
+            words = group_op_words(resident)
+            live = np.unique(r1)
+            if identity:
+                live = np.union1d(live, np.unique(c2))
+            lists = _pdf_lists(f, p_pad, live)
     return KernelGraph(
         *ops, f_dst=torch.from_numpy(f.astype(np.int32)),
         g_src=None if identity else torch.from_numpy(g.astype(np.int32)),
@@ -665,7 +862,8 @@ def kernel_graph(fa: FactorizedArrays) -> KernelGraph:
         g_lists=None if identity else _pdf_lists(g, p_pad, np.unique(c2)),
         n_pdf_lists=p_pad, nnz=len(v1) + len(v2),
         max_pdf=int(max(f.max(), 0 if identity else g.max())),
-        resident=resident, diag=diag, off=off)
+        resident=resident, diag=diag, off=off, packed=packed,
+        group_words=words, group_lists=lists)
 
 
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -817,25 +1015,139 @@ def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
     return ad0, s0
 
 
+def _group_lib(source):
+    """The group form's launch function of ``source`` ("fact_fwd" or
+    "fact_bwd"): fact_*_group_launch in csrc/fact_*.cu."""
+    from ..csrc import build
+    fn = getattr(build.load(source), f"{source}_group_launch")
+    if fn.argtypes is None:
+        if source == "fact_fwd":
+            fn.argtypes = [_P] * 13 + [_F] + [_I] * 7 + [_P] * 8
+        else:
+            fn.argtypes = [_P] * 21 + [_I, _F] + [_I] * 8 + [_P] * 5
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _group_args(form, B, fa, group, smid):
+    """Check a group launch's (G, C) and smid: built, the fast mode, a
+    (ceil(B / G) C,) int32 CUDA smid or None."""
+    _require(group in GROUPS, f"{form}: group {group} is not built "
+             f"((G, C) in {GROUPS})")
+    _require(is_fast(fa), f"{form}: the group form runs bfloat16 tiles")
+    G, C = group
+    n = -(-B // G) * C
+    _require(smid is None or (smid.is_cuda and smid.dtype == torch.int32
+                              and smid.shape == (n,)),
+             f"{form}: smid must be a ({n},) int32 CUDA tensor")
+
+
+def _fwd_group_launch(px, lengths, fa, leaky_coefficient, outs, s_ys,
+                      ad_last, group, smid=None):
+    """Launch fact_fwd_bf16's group form on CUDA tensors (counted as
+    fact_fwd_bf16): G columns a cluster of C CTAs, ``group`` = (G, C).
+    outs: (ad_ys, w1ad_ys, xdst_ys, xsrc_ys or None), (B, T, S_pad)
+    bfloat16; s_ys (B, T), ad_last (B, S_pad) float32."""
+    _check_cuda_inputs(px, lengths, fa)
+    kg = _resident_graph(fa)
+    B, T, P = px.shape
+    _require(kg.max_pdf < P, f"graph reads pdf {kg.max_pdf} but px has "
+             f"only {P} columns")
+    _group_args("fact_fwd", B, fa, group, smid)
+    for t in outs:
+        _require(t is None or (t.is_cuda and t.dtype == torch.bfloat16
+                               and t.is_contiguous()
+                               and t.shape == (B, T, fa.s_pad)),
+                 f"fact_fwd: streams must be contiguous ({B}, {T}, "
+                 f"{fa.s_pad}) bfloat16 CUDA tensors")
+    G, C = group
+    ad0, s0 = initial_alpha(fa, leaky_coefficient)
+    w1_ptr, w2_ptr = kg.resident[0][0], kg.resident[1][0]
+    rc = _group_lib("fact_fwd")(
+        _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
+        _ptr(w1_ptr), _ptr(kg.packed[0]), _ptr(w2_ptr), _ptr(kg.packed[1]),
+        *map(_ptr, kg.diag), _ptr(ad0), _ptr(s0), _ptr(fa.leaky),
+        float(leaky_coefficient), B, T, P, fa.s_pad, G, C,
+        kg.group_words[("fact_fwd", C)], *map(_ptr, outs), _ptr(s_ys),
+        _ptr(ad_last), _ptr(smid), _stream())
+    _check(rc, "fact_fwd_bf16")
+    LAUNCHES["fact_fwd_bf16"] += 1
+    return ad0, s0
+
+
+def _bwd_group_launch(lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
+                      tot_prob, outs, debug, group, smid=None):
+    """Launch fact_bwd_bf16's group form (counted as fact_bwd_bf16) on
+    fact_fwd's bfloat16 streams, ``group`` = (G, C).  outs: (gamma (B, T,
+    P), ab, gs (B, T)) float32."""
+    kg = _resident_graph(fa)
+    ad_ys = streams[0]
+    B, T, s_pad = ad_ys.shape
+    _group_args("fact_bwd", B, fa, group, smid)
+    for t in streams:
+        _require(t is None or (t.is_cuda and t.dtype == torch.bfloat16
+                               and t.is_contiguous()
+                               and t.shape == ad_ys.shape),
+                 "fact_bwd: streams must be contiguous bfloat16 on CUDA, of "
+                 "one shape")
+    _require((streams[3] is None) == (kg.g_src is None),
+             "fact_bwd: x_src stream present iff the graph is not identity")
+    gamma, ab, gs = outs
+    P = gamma.shape[2]
+    _require(s_pad == fa.s_pad and s_ys.shape == (B, T)
+             and tot_prob.shape == (B,) and gamma.shape == (B, T, P)
+             and ab.shape == gs.shape == (B, T)
+             and all(t.is_cuda and t.dtype == torch.float32
+                     and t.is_contiguous() for t in (s_ys, tot_prob, *outs)),
+             f"fact_bwd: streams {tuple(ad_ys.shape)}, s_ys "
+             f"{tuple(s_ys.shape)}, gamma {tuple(gamma.shape)}: shapes or "
+             "types disagree")
+    G, C = group
+    w1t_ptr, w2t_ptr = kg.resident[2][0], kg.resident[3][0]
+    g_lists = kg.g_lists or (None, None)
+    rc = _group_lib("fact_bwd")(
+        _ptr(lengths), *map(_ptr, streams), _ptr(s_ys), _ptr(s0), _ptr(ad0),
+        _ptr(fa.final), _ptr(tot_prob), _ptr(fa.leaky), _ptr(w1t_ptr),
+        _ptr(kg.packed[2]), _ptr(w2t_ptr), _ptr(kg.packed[3]),
+        *map(_ptr, kg.diag), *map(_ptr, kg.group_lists),
+        *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
+        P, s_pad, int(bool(debug)), G, C, kg.group_words[("fact_bwd", C)],
+        _ptr(gamma), _ptr(ab), _ptr(gs), _ptr(smid), _stream())
+    _check(rc, "fact_bwd_bf16")
+    LAUNCHES["fact_bwd_bf16"] += 1
+    return gamma, ab, gs
+
+
 def _new(fa, device, *shape, dtype=None):
     return torch.empty(shape, dtype=dtype or stream_dtype(fa), device=device)
 
 
 def _plan(form, B, device, fa, cluster):
-    """A wrapper's cluster size: :func:`cluster_size` on ``device``'s
-    card."""
-    return cluster_size(B, _card_props(device), fa, form, cluster)
+    """A wrapper's plan on ``device``'s card: the group form's (G, C)
+    (:func:`group_size`; ``cluster`` = (G, C) forces it), else the
+    cluster size C (:func:`cluster_size`; an int ``cluster`` forces it)."""
+    return _form_plan(form, B, _card_props(device), fa, cluster)
+
+
+def _form_plan(form, B, props, fa, cluster):
+    if cluster is None or isinstance(cluster, tuple):
+        group = group_size(B, props, fa, form, cluster)
+        if group is not None:
+            return group
+    return cluster_size(B, props, fa, form, cluster)
 
 
 def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
-             cluster: int | None = None, smid=None):
+             cluster: int | tuple | None = None, smid=None):
     """Launch the alpha sweep on CUDA tensors: ``fact_fwd``, or
     ``fact_fwd_bf16`` for a graph with bfloat16 tiles (the fast mode).
     px (B, T, P) float32, lengths (B,) int32 in [1, T].  A column runs on
-    ``cluster`` CTAs (default :func:`cluster_size` on px's card); ``smid``
-    (B C,) int32 receives each CTA's SM.  Returns (ad_ys, w1ad_ys,
-    xdst_ys, xsrc_ys or None: (B, T, S_pad) in :func:`stream_dtype`;
-    s_ys (B, T), ad_last (B, S_pad), ad0, s0: float32)."""
+    ``cluster`` CTAs, or with ``cluster`` = (G, C) a group of G columns on
+    C CTAs (the fast mode's group form; default :func:`_plan` on px's
+    card); ``smid`` (B C, or ceil(B / G) C) int32 receives each CTA's
+    SM.  Returns (ad_ys, w1ad_ys, xdst_ys, xsrc_ys or None: (B, T, S_pad)
+    in :func:`stream_dtype`; s_ys (B, T), ad_last (B, S_pad), ad0, s0:
+    float32)."""
     B, T, _ = px.shape
     cluster = _plan("fact_fwd", B, px.device, fa, cluster)
     s_pad = fa.s_pad
@@ -844,9 +1156,13 @@ def fact_fwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
                    else _new(fa, px.device, B, T, s_pad))
     s_ys = _new(fa, px.device, B, T, dtype=torch.float32)
     ad_last = _new(fa, px.device, B, s_pad, dtype=torch.float32)
-    ad0, s0 = _fwd_launch("fact_fwd", px, lengths, fa, leaky_coefficient,
-                          streams, s_ys=s_ys, ad_last=ad_last,
-                          cluster=cluster, smid=smid)
+    if isinstance(cluster, tuple):
+        ad0, s0 = _fwd_group_launch(px, lengths, fa, leaky_coefficient,
+                                    streams, s_ys, ad_last, cluster, smid)
+    else:
+        ad0, s0 = _fwd_launch("fact_fwd", px, lengths, fa,
+                              leaky_coefficient, streams, s_ys=s_ys,
+                              ad_last=ad_last, cluster=cluster, smid=smid)
     return (*streams, s_ys, ad_last, ad0, s0)
 
 
@@ -979,15 +1295,24 @@ def _outputs(B, T, P, device):
 
 def fact_bwd(lengths, fa: FactorizedArrays, leaky_coefficient, ad_ys,
              w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad0, s0, tot_prob, P,
-             debug=True, stages=None, cluster: int | None = None,
+             debug=True, stages=None, cluster: int | tuple | None = None,
              smid=None):
     """Launch the beta sweep on the streams of :func:`fact_fwd`
     (``fact_bwd``, or ``fact_bwd_bf16`` in the fast mode), its ring
     ``stages`` deep (default :func:`ring_stages`), a column on
-    ``cluster`` CTAs (``smid`` as :func:`fact_fwd`).  Returns (gamma
-    (B, T, P) float32, alpha_beta (B, T), gamma_sum (B, T))."""
+    ``cluster`` CTAs or a group on (G, C) (the group form has no ring;
+    ``smid`` as :func:`fact_fwd`).  Returns (gamma (B, T, P) float32,
+    alpha_beta (B, T), gamma_sum (B, T))."""
     B, T, _ = ad_ys.shape
     cluster = _plan("fact_bwd", B, ad_ys.device, fa, cluster)
+    if isinstance(cluster, tuple):
+        _require(stages is None, "fact_bwd: the group form has no ring "
+                 f"(stages={stages})")
+        return _bwd_group_launch(lengths, fa, leaky_coefficient,
+                                 (ad_ys, w1ad_ys, xdst_ys, xsrc_ys), s_ys,
+                                 ad0, s0, tot_prob,
+                                 _outputs(B, T, P, ad_ys.device), debug,
+                                 cluster, smid)
     return _bwd_launch("fact_bwd", lengths, fa, leaky_coefficient,
                        (ad_ys, w1ad_ys, xdst_ys, xsrc_ys), s_ys, ad0, s0,
                        tot_prob, _outputs(B, T, P, ad_ys.device), debug,
@@ -1123,11 +1448,11 @@ def fused_fwd_bwd(px, lengths, fa: FactorizedArrays, leaky_coefficient,
 
 
 def _mode_cluster(mode, px, fa, cluster):
-    """The cluster size of each form of a call in ``mode``
-    (:func:`cluster_size` on px's card; ``cluster`` forces every form's):
-    {form: C}."""
+    """The plan of each form of a call in ``mode`` (:func:`_plan` on px's
+    card: the group form's (G, C) or the cluster size C; ``cluster``
+    forces every form's): {form: C or (G, C)}."""
     props = _card_props(px.device)
-    return {form: cluster_size(px.shape[0], props, fa, form, cluster)
+    return {form: _form_plan(form, px.shape[0], props, fa, cluster)
             for form in MODE_FORMS[mode]}
 
 
@@ -1187,7 +1512,8 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
                                  stream_mode: str = "auto",
                                  ckpt_chunk: int | None = None,
                                  stages: int | None = None,
-                                 cluster: int | None = None) -> FwdBwdResult:
+                                 cluster: int | tuple | None = None
+                                 ) -> FwdBwdResult:
     """Fused fwd+bwd on a fully-factorized graph (the resident tier,
     engine "pallas"), with forward_backward_prob_pallas's stream modes.
 
@@ -1207,9 +1533,10 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
     frame 0 (the reference's default, chain-computation.cc:337-338), the
     other frames reading exactly 1.0.  Verbose level >= 1 forces the full
     traces.  stages: the backward kernel's ring depth (default
-    :func:`ring_stages`; the tests force each).  cluster: the kernels'
-    CTAs a column in every mode (default each form's
-    :func:`cluster_size`; the results do not depend on it)."""
+    :func:`ring_stages`; the tests force each; the fast pair's group
+    form has none).  cluster: the kernels' CTAs a column in every mode,
+    or (G, C) for the fast full mode's group form (default each form's
+    :func:`_plan`; the results do not depend on it)."""
     debug = debug or get_verbose_level() >= 1
     _check_graph(fa)
     B, T, _ = px.shape
@@ -1228,6 +1555,9 @@ def forward_backward_prob_kernel(px, lengths, fa: FactorizedArrays,
                  f"{MAX_SMEM} a Hopper block has (\"ckpt\" or \"full\" fit)")
     if mode == "full":
         Cs = _mode_cluster("full", px, fa, cluster)
+        _require(stages is None or not isinstance(Cs["fact_bwd"], tuple),
+                 f"fact_bwd's group form {Cs['fact_bwd']} has no ring "
+                 f"(stages={stages})")
         return fused_fwd_bwd(
             px, lengths, fa, leaky_coefficient, debug,
             functools.partial(fact_fwd, cluster=Cs["fact_fwd"]),

@@ -765,6 +765,172 @@ class TestFullCluster:
                                                     cluster=1))
 
 
+class TestGroupForm:
+    """The fast pair's group form (fact_fwd_bf16, fact_bwd_bf16 past B =
+    66: G columns a cluster of C CTAs, each CTA's rows of the operators in
+    shared memory) at the headline graph (bench.py's, S_pad 3,072), bit
+    for bit against the plain fast version: at B = 128 (the plan's (2,
+    2)), at B = 67 (the first batch past the cluster forms), at B = 128
+    with unequal lengths, outside identity mode, and with (4, 4) forced;
+    T = 120 (a frame's arithmetic does not depend on T)."""
+
+    @staticmethod
+    def _head(cuda, B, mode="source", seed=0, T=120, lengths=None):
+        fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30,
+                                 forward_pdf_mode=mode)
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, tile_dtype="bfloat16",
+                                device=cuda)._fact
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        px = torch.exp(torch.randn(B, T, P, generator=g, device=cuda))
+        lens = (torch.full((B,), T, dtype=torch.int32) if lengths is None
+                else torch.as_tensor(lengths, dtype=torch.int32))
+        return fa, px, lens.to(cuda)
+
+    @staticmethod
+    def _equal(got, ref):
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum", "ok"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", ["b128", "b67", "unequal", "stream"])
+    def test_group_form_matches_plain(self, cuda, case):
+        """The plan's group form, one launch of each fast kernel, the plain
+        fast version's objf, gamma and traces (debug True and False) bit
+        for bit, gamma bit-identical on a rerun; (4, 4) forced too."""
+        B = 67 if case == "b67" else 128
+        rng = np.random.RandomState(4)
+        lengths = None
+        if case == "unequal":
+            lengths = rng.randint(1, 121, size=B)
+            lengths[:3] = (120, 1, 2)
+        fa, px, lens = self._head(cuda, B, "separate" if case == "stream"
+                                  else "source", lengths=lengths)
+        assert fa.xsrc_mode == ("stream" if case == "stream" else "identity")
+        plan = fk._mode_cluster("full", px, fa, None)
+        assert plan == {"fact_fwd": (2, 2), "fact_bwd": (2, 2)}
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY)
+        for debug in (True, False):
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                  debug=debug)
+            assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+            self._equal(got, ref if debug else fk._frame0_traces(ref))
+        again = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                debug=False)
+        assert torch.equal(again.gamma, got.gamma)
+        if case != "stream":       # (4, 4) outside identity mode: 209 KB
+            self._equal(fk.forward_backward_prob_kernel(
+                px, lens, fa, LEAKY, cluster=(4, 4)), ref)
+
+    @pytest.mark.cuda
+    def test_group_streams_are_the_one_blocks(self, cuda):
+        """fact_fwd_bf16's group form writes the one-block form's streams,
+        s_t and alpha'(T_b) bit for bit (B = 67, unequal lengths, outside
+        identity mode)."""
+        lengths = np.random.RandomState(5).randint(1, 121, size=67)
+        fa, px, lens = self._head(cuda, 67, "separate", lengths=lengths)
+        one = fk.fact_fwd(px, lens, fa, LEAKY, cluster=1)
+        got = fk.fact_fwd(px, lens, fa, LEAKY, cluster=(2, 2))
+        for a, b in zip(one[:4], got[:4]):
+            for col, Tb in enumerate(lengths.tolist()):
+                assert torch.equal(a[col, :Tb], b[col, :Tb])
+        assert torch.equal(one[4], got[4]) and torch.equal(one[5], got[5])
+
+    @pytest.mark.cuda
+    def test_group_ctas_sit_on_distinct_sms(self, cuda):
+        """Every cluster of the plan's (2, 2) runs its CTAs on distinct
+        SMs (%smid), in both sweeps."""
+        fa, px, lens = self._head(cuda, 128, T=8)
+        smid = torch.full((128,), -1, dtype=torch.int32, device=cuda)
+        ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fk.fact_fwd(
+            px, lens, fa, LEAKY, cluster=(2, 2), smid=smid)
+        for rows in (smid.view(64, 2).cpu(),):
+            assert all(len(set(r.tolist())) == 2 for r in rows)
+        tot = fk._objf(s_ys, ad_last, lens, fa, s0)[1].contiguous()
+        smid.fill_(-1)
+        fk.fact_bwd(lens, fa, LEAKY, ad_ys, w1ad, xdst, xsrc, s_ys, ad0, s0,
+                    tot, px.shape[2], cluster=(2, 2), smid=smid)
+        assert all(len(set(r.tolist())) == 2 for r in smid.view(64, 2).cpu())
+
+    @pytest.mark.cuda
+    def test_group_that_does_not_fit_raises_before_any_launch(
+            self, cuda, monkeypatch):
+        """A forced (G, C) whose CTA does not fit raises
+        NotImplementedError before any launch: (4, 4) outside identity
+        mode at the headline graph (the backward CTA: 258,352 bytes),
+        (2, 2) on a card of 99 KB a block (stubbed), every (G, C) at
+        bench.py --s8k's graph (S_pad 8,064: W1's slots alone 147,712
+        bytes a CTA at C = 4), where the plan keeps one block a column,
+        which runs; a forced ring raises too."""
+        xfa, xpx, xlens = self._head(cuda, 128, "separate", T=4)
+        fk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="258352"):
+            fk.forward_backward_prob_kernel(xpx, xlens, xfa, LEAKY,
+                                            cluster=(4, 4))
+        fa, px, lens = self._head(cuda, 128, T=4)
+        with pytest.raises(ValueError, match="no ring"):
+            fk.forward_backward_prob_kernel(px, lens, fa, LEAKY, stages=2)
+        small = types.SimpleNamespace(multi_processor_count=132,
+                                      shared_memory_per_block_optin=101376)
+        monkeypatch.setattr(fk, "_card_props", lambda device: small)
+        with pytest.raises(NotImplementedError, match="101376"):
+            fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                            cluster=(2, 2))
+        monkeypatch.undo()
+        assert fk.launched() == {}
+        fst, P = denominator_fst(num_phones=4000, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+        s8k = pt.ChainGraphBatch(pt.ChainGraph(fst), 128,
+                                 tile_dtype="bfloat16", device=cuda)._fact
+        assert s8k.s_pad == 8064
+        px8 = torch.exp(torch.randn(128, 4, P, device=cuda))
+        fk.reset_launch_counts()
+        for group in fk.GROUPS:
+            with pytest.raises(NotImplementedError, match="S_pad=8064"):
+                fk.forward_backward_prob_kernel(px8, lens, s8k, LEAKY,
+                                                cluster=group)
+        assert fk.launched() == {}
+        assert set(fk._mode_cluster("full", px8, s8k, None).values()) == {1}
+        self._equal(fk.forward_backward_prob_kernel(px8, lens, s8k, LEAKY),
+                    forward_backward_prob_fast(px8, lens, s8k, LEAKY))
+
+    @pytest.mark.cuda
+    def test_fast_chain_loss_past_66_columns_matches_cpu(self, cuda):
+        """ChainLoss(den, precision="fast") at B = 67 on the headline
+        graph (the group form's launches, one of each) against the CPU as
+        TestFast holds it: the loss within 1e-5 relative, the gradient
+        within 1e-6."""
+        fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+        B, T = 67, 6
+        rng = np.random.RandomState(9)
+        x = rng.randn(B, T, P).astype(np.float32)
+        lens = rng.randint(3, T + 1, size=B).astype(np.int32)
+        seqs = [rng.randint(0, P, size=int(n)) for n in lens]
+
+        def nums(device):
+            return pt.ChainGraphBatch(
+                [pt.ChainGraph(linear_fst(s), log_domain=True)
+                 for s in seqs], max_num_transitions=T,
+                max_num_states=T + 1, device=device)
+
+        cpu = pt.ChainLoss(pt.ChainGraph(fst), precision="fast",
+                           device="cpu")
+        xc = torch.from_numpy(x).requires_grad_(True)
+        vc = cpu(xc, lens, nums("cpu"))
+        vc.backward()
+        gpu = pt.ChainLoss(pt.ChainGraph(fst), precision="fast")
+        xg = torch.from_numpy(x).to(cuda).requires_grad_(True)
+        fk.reset_launch_counts()
+        vg = gpu(xg, lens, nums(cuda))
+        vg.backward()
+        assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
+        torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
+                                   atol=1e-6)
+
+
 # ----------------------------------------------------------------------
 # The cluster kernels B3/B4 (ops/stream_kernels.py)
 # ----------------------------------------------------------------------
