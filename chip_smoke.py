@@ -150,12 +150,15 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    steps (loss finite and falling, gradient finite, one launch of each
    cluster kernel a step and none of B1/B2), a timed and a profiled step;
    then main path 4 in the fast mode, ChainLoss(den, precision="fast"):
-   the same tier, the fast cluster pair at full B against the plain fast
-   version at its plan's C bit for bit (debug True and False: objf,
-   gamma, traces; the alpha' and W1 alpha' streams and s_t; gamma on a
-   rerun), and at every plan that fits (each at its own C), against the
-   float32 pair on the same px within the JAX package's bfloat16 budget,
-   both pairs' times, the plain fast sweeps' and the bounds; three SGD
+   the same tier, the fast cluster pair at full B on its plan (the packed
+   layout: 4-byte slots, the gathered vector packed bfloat16) against
+   the plain fast version at its plan's C bit for bit (debug True and
+   False: objf, gamma, traces; the alpha' and W1 alpha' streams and s_t;
+   gamma on a rerun), and at every plan that fits in either layout (each
+   at its own C), against the float32 pair on the same px within the JAX
+   package's bfloat16 budget, both pairs' times, the fast pair's in the
+   float layout at (C, G) = (2, 2) in the same call (the design before
+   the packed layout), the plain fast sweeps' and the bounds; three SGD
    steps on a fresh x (loss finite and falling, one launch of
    stream_fwd_bf16 and of stream_bwd_bf16 a step and of no other
    denominator kernel), the peak device memory and a profiled step;
@@ -337,7 +340,8 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    and the
    cluster kernels'
    fast forms one for main path 4 fast (its launches) and one for s8k,
-   each with its plan and the float32 form's time in the same run; main
+   each with its plan and layout, the float layout's time
+   ("float_layout_ms") and the float32 form's in the same run; main
    path 6 has rows of its own, one for each kernel in each stage that
    launched it ("batch" or "size_class" "main path 6 (x)"), with that
    stage's launches and the error, times and bound at its inputs; main
@@ -622,13 +626,14 @@ def stream_plans(fa, B, label):
     the graph's precision); returns {kernel: plan dict}."""
     from pychain_tpu_torch.ops import stream_kernels as stk
     from pychain_tpu_torch.ops.factorized import is_fast
-    plans = stk.plan(fa, B, torch.cuda.get_device_properties(0))
+    plans = stk.plan(fa, B, torch.cuda.get_device_properties(0),
+                     active=stk.card_active(fa))
     out = {}
     for name, p in plans.items():
         out[name] = {**dataclasses.asdict(p),
                      "active_clusters": stk.active_clusters(fa, p)}
         print(f"# {label} plan {name}{'_bf16' if is_fast(fa) else ''}: "
-              f"C={p.cluster} G={p.columns} "
+              f"C={p.cluster} G={p.columns} layout={p.layout} "
               f"threads={p.threads} CTAs={p.ctas} (per SM {p.ctas_per_sm}) "
               f"active clusters={out[name]['active_clusters']} "
               f"waves={p.waves} smem={p.smem} cost={p.cost}", flush=True)
@@ -651,10 +656,11 @@ def plan_times(fa, px, lens, leaky_c, label, reps=3):
     B, T, P = px.shape
     lens32 = lens.int()
     fast = is_fast(fa)
-    cands = {name: stk.candidates(fa, name, B, props)
+    cands = {name: stk.candidates(fa, name, B, props,
+                                  active=stk.card_active(fa))
              for name in stk.KERNELS}
     key = lambda p: f"{p.kernel}{'_bf16' if fast else ''} C={p.cluster} " \
-        f"G={p.columns}"
+        f"G={p.columns} {p.layout}"
     out, diffs = {}, {}
     live = torch.arange(T, device=px.device)[None, :] < lens[:, None]
     # the float32 pair: every backward plan on the streams of the forward
@@ -670,7 +676,8 @@ def plan_times(fa, px, lens, leaky_c, label, reps=3):
                     cluster=C)
         for p in fwds:
             fn = functools.partial(stk.stream_fwd, px, lens32, fa, leaky_c,
-                                   cluster=p.cluster, columns=p.columns)
+                                   cluster=p.cluster, columns=p.columns,
+                                   layout=p.layout)
             got = fn()
             if fast:
                 n = int(((got[0].float() != ref_ad[1:].permute(2, 0, 1))
@@ -695,7 +702,8 @@ def plan_times(fa, px, lens, leaky_c, label, reps=3):
         for p in bwds:
             fn = functools.partial(
                 stk.stream_bwd, lens32, fa, leaky_c, ad_ys, w1ad, xdst, xsrc,
-                s_ys, ad0, s0, tot, P, cluster=p.cluster, columns=p.columns)
+                s_ys, ad0, s0, tot, P, cluster=p.cluster, columns=p.columns,
+                layout=p.layout)
             if fast:
                 gamma, ab, gs = fn(debug=True)
                 diffs[key(p)] = int((gamma != ref_gamma).sum()) + int(
@@ -1139,25 +1147,31 @@ def check_smem():
                         want[f"{form} {key}"] = c_size(
                             "fact_bwd_cluster", s_pad, identity, k, fast, P,
                             int(form == "fact_bwd_lean"))
-        # the cluster pair: the same shared memory in both precisions (the
-        # sources' one formula), and the same resident clusters for the
-        # float32 and the bfloat16 kernel
+        # the cluster pair: the float layout's shared memory in both
+        # precisions (the sources' one formula), and the same resident
+        # clusters for the float32 and the bfloat16 kernel; the fast
+        # forms' packed layout at G = 2 and 4
         for fast in (0, 1):
             fa.w1 = types.SimpleNamespace(
                 operand_dtype=torch.bfloat16 if fast else torch.float32)
             for C in stk.CLUSTERS:
                 rows = stk.rows_per_cta(s_pad, C)
                 for G in stk.COLUMNS:
-                    got.update({f"{k} fast={fast} C={C} G={G}": v
-                                for k, v in stk.smem_bytes(fa, C, G).items()})
-                    want[f"stream_fwd fast={fast} C={C} G={G}"] = c_size(
-                        "stream_fwd", s_pad, rows, C, G)
-                    want[f"stream_bwd fast={fast} C={C} G={G}"] = c_size(
-                        "stream_bwd", s_pad, rows, identity, G)
+                    for lay in stk.layouts(fa):
+                        if lay == "packed" and G == 1:
+                            continue
+                        key = f"fast={fast} C={C} G={G} {lay}"
+                        got.update({f"{k} {key}": v for k, v in
+                                    stk.smem_bytes(fa, C, G, lay).items()})
+                        packed = int(lay == "packed")
+                        want[f"stream_fwd {key}"] = c_size(
+                            "stream_fwd", s_pad, rows, C, G, packed)
+                        want[f"stream_bwd {key}"] = c_size(
+                            "stream_bwd", s_pad, rows, identity, G, packed)
         check(got == want, f"smem_bytes S_pad={s_pad} {mode}: Python {got} "
               f"!= sources {want}")
         if s_pad == 12032:
-            active = {}
+            active, packed = {}, {}
             for name in stk.KERNELS:
                 fn = getattr(build.load(name), f"{name}_active_clusters")
                 fn.restype = ctypes.c_int
@@ -1168,13 +1182,19 @@ def check_smem():
                             continue
                         args = (s_pad, rows, C, G) if name == "stream_fwd" \
                             else (s_pad, rows, identity, C, G)
-                        active[f"{name} C={C} G={G}"] = (fn(*args, 0),
-                                                         fn(*args, 1))
+                        active[f"{name} C={C} G={G}"] = (fn(*args, 0, 0),
+                                                         fn(*args, 1, 0))
+                        if stk.fits(fa, name, C, G, layout="packed"):
+                            packed[f"{name} C={C} G={G}"] = fn(*args, 1, 1)
             check(all(a == b for a, b in active.values()),
                   f"active clusters float32 != bfloat16 at S_pad {s_pad}: "
                   f"{active}")
+            check(packed and all(n >= 1 for n in packed.values()),
+                  f"packed layout's active clusters at S_pad {s_pad}: "
+                  f"{packed}")
             print(f"# active clusters at S_pad {s_pad} ({mode}), float32 "
-                  f"and bfloat16 kernels alike: {active}", flush=True)
+                  f"and bfloat16 kernels alike: {active}; the packed "
+                  f"layout's: {packed}", flush=True)
     from pychain_tpu_torch.tools import xl_roofline as xr
     xl = build.load("xl_roofline")
     for fn in (xl.xl_vpu_smem_bytes, xl.xl_mxu_smem_bytes):
@@ -1378,9 +1398,11 @@ def fast_cluster_class(label, fa, f32, px, lens, leaky_c, columns=None,
     W1 alpha' streams and s_t), gamma bit-identical on a rerun; against
     the float32 cluster pair on ``f32`` and the same px (the JAX
     package's bfloat16 budget); both pairs' times at their plans, the
-    plain fast sweeps' (in that C's order) and the bounds; with
-    ``every_plan``, every plan that fits, each held to the plain version
-    too.  Returns the row fields of each fast kernel."""
+    plain fast sweeps' (in that C's order) and the bounds; the fast pair
+    in the float layout at its plan before the packed layout (C = 2, G =
+    ``columns`` or 2) in the same call; with ``every_plan``, every plan
+    that fits, each held to the plain version too.  Returns the row
+    fields of each fast kernel."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import stream_kernels as stk
     B, T, P = px.shape
@@ -1410,13 +1432,22 @@ def fast_cluster_class(label, fa, f32, px, lens, leaky_c, columns=None,
                         stk.stream_bwd, 5, cluster=C)
     f32_t = pair_times(f32, px, lens, leaky_c, stk.stream_fwd,
                        stk.stream_bwd, 5, plain=False)
+    before = {"cluster": 2, "columns": columns or 2, "layout": "float"}
+    float_t = pair_times(fa, px, lens, leaky_c,
+                         functools.partial(stk.stream_fwd, **before),
+                         functools.partial(stk.stream_bwd, **before), 5,
+                         plain=False)
     if every_plan:
         plan_times(fa, px, lens, leaky_c, f"{label} fast")
     fb, fo, bb, bo = fact_bytes_ops(fa, fk.graph_for(fa), lens, T, P)
     bounds = [bound(fb, fo), bound(bb, bo)]
-    print(f"# {label} fast times (ms): stream_fwd_bf16 {fast_t[0]:.3f} "
-          f"(bound {bounds[0][0]:.4f}), stream_bwd_bf16 {fast_t[1]:.3f} "
-          f"(bound {bounds[1][0]:.4f}); float32 stream_fwd {f32_t[0]:.3f}, "
+    lay = f"C={C} G={plans['stream_fwd']['columns']} " \
+        f"{plans['stream_fwd']['layout']}"
+    print(f"# {label} fast times (ms) at the plan ({lay}), the float layout "
+          f"at C=2 G={before['columns']} in brackets: stream_fwd_bf16 "
+          f"{fast_t[0]:.3f} [{float_t[0]:.3f}] (bound {bounds[0][0]:.4f}), "
+          f"stream_bwd_bf16 {fast_t[1]:.3f} [{float_t[1]:.3f}] (bound "
+          f"{bounds[1][0]:.4f}); float32 stream_fwd {f32_t[0]:.3f}, "
           f"stream_bwd {f32_t[1]:.3f}; plain fast fwd {fast_t[2]:.1f}, "
           f"plain fast bwd {fast_t[3]:.1f} (C={C})", flush=True)
     rows = {}
@@ -1426,7 +1457,8 @@ def fast_cluster_class(label, fa, f32, px, lens, leaky_c, columns=None,
                max(errs["gamma_abs"], errs["alpha_beta_abs"],
                    errs["gamma_sum_abs"]))
         rows[name] = {"ms": fast_t[i], "plain_ms": fast_t[2 + i],
-                      "float32_ms": f32_t[i], "bound": bounds[i],
+                      "float32_ms": f32_t[i], "float_layout_ms": float_t[i],
+                      "layout": plan["layout"], "bound": bounds[i],
                       "bytes": (fb, bb)[i], "ops": (fo, bo)[i],
                       "max_abs_err": err,
                       "entry_excess": a_excess if i == 0
@@ -1485,6 +1517,9 @@ def main_path_4(dev, leaky_c, counters):
           f"{pt_loss.den_engine(fa_fast)!r}")
     fast_rows = fast_cluster_class("main path 4", fa_fast, fa, px, lens,
                                    leaky_c, every_plan=True)
+    check(all(r["layout"] == "packed" for r in fast_rows.values()),
+          "main path 4 fast: the plan is not the packed layout: "
+          f"{ {k: r['layout'] for k, r in fast_rows.items()} }")
     del px
     torch.cuda.empty_cache()
 
@@ -5627,6 +5662,8 @@ def main():
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "bytes": r["bytes"],
                 "ops": r["ops"], "float32_ms": r["float32_ms"],
+                "layout": r["layout"],
+                "float_layout_ms": r["float_layout_ms"],
                 "vs_float32_objf_rel": r["vs_float32"]["objf_rel"],
                 "library_ms": None})
     vit_paths = {"realign": {"main path 3": re_launches["viterbi"]},

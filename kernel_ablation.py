@@ -482,7 +482,7 @@ STREAM_BWD = {
          "const int end = __ldg(w2t_ptr + slice);")],
     "no_w2_product": [("const int end = __ldg(w2t_ptr + slice + 1);",
                        "const int end = __ldg(w2t_ptr + slice);")],
-    "no_peer_copies": [("cluster_gather_cols<G>(xb, s_pad, rank, lc);",
+    "no_peer_copies": [("cluster_gather_cols<W>(xb, s_pad, rank, lc);",
                         "")],
     "no_cluster_barriers": [("cluster.sync();   // X1", "__syncthreads();"),
                             ("cluster.sync();   // X2", "__syncthreads();")],
@@ -493,6 +493,464 @@ STREAM_BWD = {
         ("stream_get(w1ad_ys + o)", "1.0f")],
     "no_gamma_stage": [("if (p < n_pdf_lists) {", "if (false) {")],
 }
+
+# The cluster pair's fast forms (stream_fwd_bf16, stream_bwd_bf16) at
+# main path 4 fast (bfloat16 tiles, B=128, T=500), each launch timed alone
+# (stream_bwd_bf16 on the streams of stream_fwd_bf16 at the same plan).
+# The float layout (the design before the packed one: float32 copies, 8
+# bytes a slot) at its plan then, (C, G) = (2, 2): as it is, with each
+# slot's loads pinned to its slice's first slot ("one_slot": the operator
+# read from L1, the same loads, gathers and sums; an empty asm on the
+# index keeps the compiler from hoisting them), without the products, and
+# at B=8 (4 groups: a 16th of the operator's L2 reads a frame).  The
+# packed layout at its plan and at each (C, G) it fits at one or two
+# waves, the same rows, and each of its design steps taken away: 8-byte
+# slots on the packed vector ("slot8"), 4-byte slots on the float layout
+# ("float_slot4"); and a step tried on top, each slot's word loaded 4
+# slots ahead of its gather ("ahead4").
+# how a variant loads a slot's word: read-only through L1 (the kernels'
+# __ldg), L2 alone (__ldcg), or through L1 without allocating a line
+_WORD_LOADS = {
+    "ldg": "__ldg(pack + (A))",
+    "ldcg": "__ldcg(pack + (A))",
+    "noalloc": "ld_noalloc(pack + (A))"}
+_NOALLOC = """__device__ __forceinline__ unsigned ld_noalloc(const unsigned* p) {
+  unsigned w;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(w)
+               : "l"(p));
+  return w;
+}
+"""
+
+
+def _row_dot(name, vector, slot, pinned=False, ahead=1, word="ldg",
+             gather=True):
+    """An edit adding ``name``, a row product of G columns: slots read as
+    a packed word ("word": (sptr, pack), loaded as ``_WORD_LOADS[word]``)
+    or a column id and a float value ("colval": (sptr, col, val)),
+    gathered from the float32 copy ("float": each value rounded) or the
+    packed vector ("packed"), or with ``gather`` False not gathered (the
+    slot's value times itself); ``pinned``: every slot's loads at the
+    slice's first slot; ``ahead``: that many slots' loads issued before
+    their gathers, the rest one at a time (the same sum in the same
+    order)."""
+    args = ("const unsigned* __restrict__ pack" if slot == "word" else
+            "const int* __restrict__ col, const float* __restrict__ val")
+    vec = "const unsigned* v" if vector == "packed" else "const float* v"
+    load = ("{ const unsigned w = " + _WORD_LOADS[word] + "; c[j] = "
+            "slot_col(w); x[j] = slot_val(w); }" if slot == "word" else
+            "{ c[j] = __ldg(col + (A)); x[j] = __ldg(val + (A)); }")
+    gather = ("load_packed<G>(v, c[j], y);" if vector == "packed" else
+              "load_cols<G>(v + c[j] * G, y);\n#pragma unroll\n"
+              "        for (int g = 0; g < G; ++g) "
+              "y[g] = round_to<__nv_bfloat16>(y[g]);") if gather else (
+        "#pragma unroll\n        for (int g = 0; g < G; ++g) "
+        "y[g] = x[j] + c[j];")
+
+    def step(u):
+        at = "i0" if pinned else "(k + j) * 32 + lane"
+        pin = ('      int i0 = beg * 32 + lane;\n'
+               '      asm volatile("" : "+r"(i0));\n' if pinned else "")
+        return "\n".join([
+            f"      int c[{u}];",
+            f"      float x[{u}];",
+            pin.rstrip("\n"),
+            "#pragma unroll",
+            f"      for (int j = 0; j < {u}; ++j) {load.replace('(A)', at)}",
+            "#pragma unroll",
+            f"      for (int j = 0; j < {u}; ++j) {{",
+            "        float y[G];",
+            f"        {gather}",
+            "#pragma unroll",
+            "        for (int g = 0; g < G; ++g) "
+            "acc[g] = fmaf(x[j], y[g], acc[g]);",
+            "      }"])
+
+    body = "\n".join([
+        "template <int G>",
+        f"__device__ __forceinline__ void {name}(",
+        f"    const int* __restrict__ sptr, {args}, int r, {vec},",
+        "    float (&acc)[G]) {",
+        "  const int lane = r & 31;",
+        "  const int slice = r >> 5;",
+        "#pragma unroll",
+        "  for (int g = 0; g < G; ++g) acc[g] = 0.0f;",
+        "  const int beg = __ldg(sptr + slice);",
+        "  const int end = __ldg(sptr + slice + 1);",
+        "  int k = beg;",
+        f"  for (; k + {ahead} <= end; k += {ahead}) {{",
+        step(ahead),
+        "  }",
+        "  for (; k < end; ++k) {",
+        step(1).replace("(k + j)", "k"),
+        "  }",
+        "}", ""])
+    return [('#include "fact_common.cuh"\n',
+             '#include "fact_common.cuh"\n'
+             + (_NOALLOC if word == "noalloc" else "") + body)]
+
+
+# The packed layout with an operator ring (a design step tried and not
+# kept, slower at (2, 2)): each warp's W1 (W1^T) slots brought into shared
+# memory in pieces of 8 slots by bulk copies on mbarriers, 2 stages a
+# warp, across frames, instead of one load a slot.
+_RING = r"""
+// The packed layout with an operator ring: each warp's slot words of W1
+// (W1^T) come into shared memory by bulk copies (the TMA) instead of one
+// load a slot.  A warp's rows are one
+// 32-row slice, whose slots lie side by side (32 words a slot), so a
+// slice's slots are one contiguous run: the warp takes them in pieces of
+// at most STREAM_RING_SLOTS slots, each piece one bulk copy into one of
+// STREAM_RING_STAGES stages, its mbarrier completed by the copy.  The
+// pieces of a frame are the same every frame (the warp's slices in
+// order), so lane 0 keeps the copies STREAM_RING_STAGES - 1 pieces ahead
+// of the warp, across frames, and never past the launch's last piece:
+// every copy is waited on before the CTA exits.
+#define STREAM_RING_SLOTS 8
+#define STREAM_RING_STAGES 2
+
+// Shared memory of the ring, in 4-byte words: each warp's stages and
+// their mbarriers.
+__host__ __device__ inline int stream_ring_words() {
+  return FACT_WARPS * STREAM_RING_STAGES * (STREAM_RING_SLOTS * 32 + 2);
+}
+
+// An L2 policy for data every CTA reads again: evicted last.
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+struct SliceRing {
+  const int* sptr;             // the operator's slice pointers
+  const unsigned* pack;        // its packed slots
+  unsigned* buf;               // this warp's stages, SLOTS x 32 words each
+  unsigned long long* bar;     // this warp's mbarriers
+  unsigned long long policy;
+  int rank, C, own, first;     // own: this CTA's slices; first: the warp's
+  int total;                   // pieces of the launch
+  int used;                    // pieces the warp has read
+  int issued;                  // pieces lane 0 has asked for
+  int pj, pc;                  // the next piece to ask for: local slice, piece
+};
+
+// The ring of this warp over `frames` frames (every thread calls it;
+// lane 0 initialises the mbarriers and asks for the first pieces).  ring:
+// the CTA's ring (stream_ring_words words, 16-byte aligned).  The caller
+// passes a block barrier before the first ring_row_dot.
+__device__ __forceinline__ SliceRing ring_start(
+    const int* __restrict__ sptr, const unsigned* __restrict__ pack,
+    unsigned* ring, int s_pad, int rank, int C, int frames) {
+  const int warp = threadIdx.x >> 5;
+  SliceRing r;
+  r.sptr = sptr;
+  r.pack = pack;
+  r.buf = ring + warp * STREAM_RING_STAGES * STREAM_RING_SLOTS * 32;
+  r.bar = reinterpret_cast<unsigned long long*>(
+              ring + FACT_WARPS * STREAM_RING_STAGES * STREAM_RING_SLOTS * 32) +
+          warp * STREAM_RING_STAGES;
+  r.policy = evict_last_policy();
+  r.rank = rank;
+  r.C = C;
+  r.own = cluster_own_rows(s_pad, rank, C) >> 5;
+  r.first = warp;
+  int pieces = 0;
+  for (int j = warp; j < r.own; j += FACT_WARPS) {
+    const int k = j * C + rank;
+    const int len = __ldg(sptr + k + 1) - __ldg(sptr + k);
+    pieces += (len + STREAM_RING_SLOTS - 1) / STREAM_RING_SLOTS;
+  }
+  r.total = pieces * frames;
+  r.used = 0;
+  r.issued = 0;
+  r.pj = warp;
+  r.pc = 0;
+  if ((threadIdx.x & 31) == 0) {
+    for (int s = 0; s < STREAM_RING_STAGES; ++s) mbar_init(r.bar + s, 1);
+  }
+  return r;
+}
+
+// Lane 0: ask for the next piece, if the launch has one.
+__device__ __forceinline__ void ring_issue(SliceRing& r) {
+  if (r.issued >= r.total) return;
+  int k = r.pj * r.C + r.rank;
+  int lo = __ldg(r.sptr + k), len = __ldg(r.sptr + k + 1) - lo;
+  while (r.pc * STREAM_RING_SLOTS >= len) {   // the next slice with slots
+    r.pc = 0;
+    r.pj += FACT_WARPS;
+    if (r.pj >= r.own) r.pj = r.first;        // the next frame's first
+    k = r.pj * r.C + r.rank;
+    lo = __ldg(r.sptr + k);
+    len = __ldg(r.sptr + k + 1) - lo;
+  }
+  const int at = r.pc * STREAM_RING_SLOTS;
+  const int n = min(STREAM_RING_SLOTS, len - at);
+  const int s = r.issued % STREAM_RING_STAGES;
+  mbar_expect_tx(r.bar + s, n * 128);
+  bulk_load(r.buf + s * STREAM_RING_SLOTS * 32, r.pack + (lo + at) * 32,
+            n * 128, r.bar + s, r.policy);
+  ++r.pc;
+  ++r.issued;
+}
+
+// Lane 0: the first pieces (after the mbarriers' initialisation).
+__device__ __forceinline__ void ring_prime(SliceRing& r) {
+  if ((threadIdx.x & 31) != 0) return;
+  for (int s = 0; s < STREAM_RING_STAGES; ++s) ring_issue(r);
+}
+
+// sell_row_dot_packed on row r, the next slice of this warp's ring: the
+// same products in the same order, each slot's word read from the stage
+// its piece landed in.  Every lane of the warp calls it.
+template <int G>
+__device__ __forceinline__ void ring_row_dot(SliceRing& ring, int r,
+                                             const unsigned* v,
+                                             float (&acc)[G]) {
+  const int lane = r & 31;
+  const int slice = r >> 5;
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+  const int len = __ldg(ring.sptr + slice + 1) - __ldg(ring.sptr + slice);
+  for (int at = 0; at < len; at += STREAM_RING_SLOTS) {
+    const int s = ring.used % STREAM_RING_STAGES;
+    mbar_wait(ring.bar + s, (ring.used / STREAM_RING_STAGES) & 1);
+    const unsigned* st = ring.buf + s * STREAM_RING_SLOTS * 32 + lane;
+    const int n = min(STREAM_RING_SLOTS, len - at);
+    for (int k = 0; k < n; ++k) {
+      const unsigned w = st[k * 32];
+      const float val = slot_val(w);
+      float x[G];
+      load_packed<G>(v, slot_col(w), x);
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = fmaf(val, x[g], acc[g]);
+    }
+    ++ring.used;
+    // the stage is read: lane 0 refills it with a later piece
+    __syncwarp();
+    if (lane == 0) {
+      fence_proxy_async();
+      ring_issue(ring);
+    }
+  }
+}
+
+"""
+
+
+def _ring(kernel):
+    """The ring's edits of stream_fwd.cu or stream_bwd.cu (the packed
+    instantiations alone; its shared memory added to the launch's)."""
+    fwd = kernel == "stream_fwd"
+    after = ("  float* slot = red + FACT_WARPS * G + G;       // partials, 2 x G\n"
+             if fwd else
+             "  float* slot_gs = slot_la + 2 * G;                   // sum gamma\n")
+    words = ("s_pad * W + nbuf * rows * G + FACT_WARPS * G + 3 * G" if fwd
+             else "s_pad * W + (kPacked ? rows * G : 0) + (identity ? 1 : 2)"
+             " * rows * W + 2 * FACT_WARPS * G + 5 * G")
+    op, vec, out = ("w1", "adp", "w1a") if fwd else ("w1t", "xbp", "w1t")
+    ret = ("  return (static_cast<size_t>(s_pad) * W + nbuf * rows * G +\n"
+           "          FACT_WARPS * G + 3 * G) * sizeof(float);\n" if fwd else
+           "  return (static_cast<size_t>(s_pad) * W +\n"
+           "          (packed ? static_cast<size_t>(rows) * G : 0) +\n"
+           "          (identity ? 1 : 2) * static_cast<size_t>(rows) * W +\n"
+           "          2 * FACT_WARPS * G + 5 * G) * sizeof(float);\n")
+    ring_ret = ret.replace("  return (", "  const size_t w = (").replace(
+        ") * sizeof(float);", ");") + (
+        "  return ((packed ? (w + 3) / 4 * 4 + stream_ring_words() : w)) *\n"
+        "         sizeof(float);\n")
+    return [
+        ('#include "fact_common.cuh"\n', '#include "fact_common.cuh"\n' + _RING),
+        (after, after + f"  unsigned* ring_mem = reinterpret_cast<unsigned*>"
+         f"(smem4) + (({words} + 3) & ~3);\n"),
+        ("    t_max = max(t_max, Tb[g]);\n  }\n",
+         "    t_max = max(t_max, Tb[g]);\n  }\n  SliceRing ring;\n"
+         "  if constexpr (kPacked) {\n"
+         f"    ring = ring_start({op}_ptr, {op}_pack, ring_mem, s_pad, rank, C,"
+         " t_max);\n    ring_prime(ring);\n  }\n"),
+        (f"sell_row_dot_packed<G>({op}_ptr, {op}_pack, d, {vec}, {out});",
+         f"ring_row_dot<G>(ring, d, {vec}, {out});"),
+        (ret, ring_ret)]
+
+
+# The packed layout with the first slices of each CTA's operator rows
+# resident in shared memory (a design step tried): the block's shared
+# memory past the packed layout's (232,448 bytes a block in all) holds as
+# many of the CTA's first own slices of W1 (W1^T) as fit, loaded once a
+# launch; their rows read their slots there (group_row_dot), the others
+# from L2.
+_RESIDENT = r"""
+// Load this CTA's first own slices of a packed operator that fit `budget`
+// slot words into shared memory (lp: slice pointers, res: the slots);
+// returns in *n_res the slices loaded.  The caller passes a block
+// barrier before reading them.
+__device__ __forceinline__ void resident_load(
+    const int* __restrict__ sptr, const unsigned* __restrict__ pack,
+    int s_pad, int rank, int C, int budget, int* lp, unsigned* res,
+    int* n_res) {
+  const int own = cluster_own_rows(s_pad, rank, C) >> 5;
+  if (threadIdx.x == 0) {
+    int at = 0, j = 0;
+    for (; j < own; ++j) {
+      const int k = j * C + rank;
+      const int len = __ldg(sptr + k + 1) - __ldg(sptr + k);
+      if ((at + len) * 32 > budget) break;
+      lp[j] = at;
+      at += len;
+    }
+    lp[j] = at;
+    *n_res = j;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < *n_res; j += FACT_WARPS) {
+    const int k = j * C + rank;
+    const int lo = __ldg(sptr + k);
+    const int n = (__ldg(sptr + k + 1) - lo) * 8;   // 16-byte pieces
+    const uint4* src = reinterpret_cast<const uint4*>(pack) + lo * 8;
+    uint4* dst = reinterpret_cast<uint4*>(res) + lp[j] * 8;
+    for (int q = lane; q < n; q += 32) dst[q] = __ldg(src + q);
+  }
+}
+"""
+
+
+def _resident(kernel):
+    """The resident slices' edits of stream_fwd.cu or stream_bwd.cu (the
+    packed instantiations; the launch asks for the block's whole shared
+    memory in the packed layout)."""
+    fwd = kernel == "stream_fwd"
+    words = ("s_pad * W + nbuf * rows * G + FACT_WARPS * G + 3 * G" if fwd
+             else "s_pad * W + (kPacked ? rows * G : 0) + (identity ? 1 : 2)"
+             " * rows * W + 2 * FACT_WARPS * G + 5 * G")
+    op, vec, out = ("w1", "adp", "w1a") if fwd else ("w1t", "xbp", "w1t")
+    ret = ("  return (static_cast<size_t>(s_pad) * W + nbuf * rows * G +\n"
+           "          FACT_WARPS * G + 3 * G) * sizeof(float);\n" if fwd else
+           "  return (static_cast<size_t>(s_pad) * W +\n"
+           "          (packed ? static_cast<size_t>(rows) * G : 0) +\n"
+           "          (identity ? 1 : 2) * static_cast<size_t>(rows) * W +\n"
+           "          2 * FACT_WARPS * G + 5 * G) * sizeof(float);\n")
+    return [
+        ('#include "fact_common.cuh"\n',
+         '#include "fact_common.cuh"\n' + _RESIDENT),
+        ("    t_max = max(t_max, Tb[g]);\n  }\n",
+         "    t_max = max(t_max, Tb[g]);\n  }\n"
+         f"  const int res_at = (({words} + 3) & ~3) + 4;\n"
+         "  int* n_res = reinterpret_cast<int*>(smem4) + res_at - 4;\n"
+         "  int* res_lp = reinterpret_cast<int*>(smem4) + res_at;\n"
+         "  const int lp_words = group_lp_words(s_pad, C);\n"
+         "  unsigned* res_ops = reinterpret_cast<unsigned*>(res_lp + "
+         "lp_words);\n"
+         "  const int res_budget = 232448 / 4 - res_at - lp_words;\n"
+         "  if constexpr (kPacked)\n"
+         f"    resident_load({op}_ptr, {op}_pack, s_pad, rank, C, res_budget, "
+         "res_lp, res_ops, n_res);\n"),
+        (f"sell_row_dot_packed<G>({op}_ptr, {op}_pack, d, {vec}, {out});",
+         f"if ((i >> 5) < *n_res) group_row_dot<G>(res_ops, res_lp, i, {vec}, "
+         f"{out}); else sell_row_dot_packed<G>({op}_ptr, {op}_pack, d, {vec}, "
+         f"{out});"),
+        (ret, "  if (packed) return 232448;\n" + ret)]
+
+
+_TODAY = {"cluster": 2, "columns": 2, "layout": "float"}
+# each kernel's W1 product in the float and the packed layout, and the
+# prefix of its operator's arguments
+_FWD_W1 = ("sell_row_dot_cols<G, S>(w1_ptr, w1_col, w1_val, d, ad, w1a);",
+           "sell_row_dot_packed<G>(w1_ptr, w1_pack, d, adp, w1a);", "w1_",
+           "ad", "adp", "w1a")
+_BWD_W1 = ("sell_row_dot_cols<G, S>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);",
+           "sell_row_dot_packed<G>(w1t_ptr, w1t_pack, d, xbp, w1t);",
+           "w1t_", "xb", "xbp", "w1t")
+
+
+def _stream_fast_table(w1, no_products, no_w2, parts):
+    """The fast cluster table of a kernel (its W1 calls ``w1``, its float
+    layout's no_products edits, the edit that empties its W2 product, and
+    the float32 table whose phase rows the packed layout repeats)."""
+    f_call, p_call, ptr, fvec, pvec, out = w1
+
+    def call(name, slot, vec):
+        ops = (f"{ptr}ptr, {ptr}pack" if slot == "word" else
+               f"{ptr}ptr, {ptr}col, {ptr}val")
+        return f"{name}<G>({ops}, d, {vec}, {out});"
+
+    table = {
+        "full": {},
+        "float": dict(_TODAY),
+        "float_one_slot": dict(_TODAY, edits=_row_dot(
+            "rd_pinned", "float", "colval", pinned=True)
+            + [(f_call, call("rd_pinned", "colval", fvec))]),
+        "float_no_products": dict(_TODAY, edits=no_products),
+        "float_B8": dict(_TODAY, batch=8),
+        "float_slot4": dict(_TODAY, edits=_row_dot("rd_word", "float", "word")
+                            + [(f_call, call("rd_word", "word", fvec))]),
+    }
+    for C, G in ((2, 2), (4, 4)):
+        table[f"packed_C{C}G{G}"] = {"cluster": C, "columns": G,
+                                     "layout": "packed"}
+    pk = {"cluster": 2, "columns": 2, "layout": "packed"}
+    table.update({
+        "packed_one_slot": dict(pk, edits=_row_dot(
+            "rd_pinned", "packed", "word", pinned=True)
+            + [(p_call, call("rd_pinned", "word", pvec))]),
+        "packed_no_products": dict(pk, edits=[
+            (p_call, f"load_packed<G>({pvec}, d, {out});"), no_w2]),
+        "packed_B8": dict(pk, batch=8),
+        "packed_slot8": dict(pk, edits=_row_dot("rd_colval", "packed",
+                                                "colval")
+                             + [(p_call, call("rd_colval", "colval", pvec))]),
+        "packed_ahead1": dict(pk, edits=_row_dot("rd_ahead", "packed",
+                                                 "word")
+                              + [(p_call, call("rd_ahead", "word", pvec))]),
+        "packed_ahead4": dict(pk, edits=_row_dot("rd_ahead", "packed", "word",
+                                                 ahead=4)
+                              + [(p_call, call("rd_ahead", "word", pvec))]),
+        "packed_ahead8": dict(pk, edits=_row_dot("rd_ahead", "packed", "word",
+                                                 ahead=8)
+                              + [(p_call, call("rd_ahead", "word", pvec))]),
+        "packed_ldcg": dict(pk, edits=_row_dot("rd_ldcg", "packed", "word",
+                                               word="ldcg")
+                            + [(p_call, call("rd_ldcg", "word", pvec))]),
+        "packed_noalloc": dict(pk, edits=_row_dot(
+            "rd_noalloc", "packed", "word", word="noalloc")
+            + [(p_call, call("rd_noalloc", "word", pvec))]),
+        "packed_no_gather": dict(pk, edits=_row_dot(
+            "rd_nogather", "packed", "word", gather=False)
+            + [(p_call, call("rd_nogather", "word", pvec))]),
+        "packed_ring": dict(pk, edits=_ring(
+            "stream_fwd" if ptr == "w1_" else "stream_bwd")),
+        "packed_resident": dict(pk, edits=_resident(
+            "stream_fwd" if ptr == "w1_" else "stream_bwd")),
+        "float_again": dict(_TODAY),
+    })
+    if ptr == "w1_":
+        # W2's operand: alpha' at the source read from this CTA's own
+        # buffer (no DSMEM load), or x_src at the source not gathered
+        table["packed_w2_local"] = dict(pk, edits=[(
+            "      load_cols<G>(owner == rank ? p : cluster.map_shared_rank(p, "
+            "owner), a);", "      load_cols<G>(p, a);")])
+        table["packed_w2_no_px"] = dict(pk, edits=[(
+            "round_to<S>(__ldg(px + (row0[g] + t) * P + pdf))", "1.0f")])
+    # the packed layout's other phases, one at a time (wrong numbers)
+    for label in ("no_emissions", "no_w2_product", "no_peer_copies",
+                  "no_cluster_barriers", "no_stream_writes",
+                  "no_stream_reads", "no_gamma_stage"):
+        if label in parts:
+            table[f"packed_{label}"] = dict(pk, edits=parts[label])
+    return table
+
+
+STREAM_FAST_FWD = _stream_fast_table(
+    _FWD_W1, STREAM_FWD["no_products"],
+    ("const int end = __ldg(w2_ptr + slice + 1);",
+     "const int end = __ldg(w2_ptr + slice);"), STREAM_FWD)
+STREAM_FAST_BWD = _stream_fast_table(
+    _BWD_W1, STREAM_BWD["no_products"],
+    ("const int end = __ldg(w2t_ptr + slice + 1);",
+     "const int end = __ldg(w2t_ptr + slice);"), STREAM_BWD)
+SOURCE.update(stream_fast_fwd="stream_fwd", stream_fast_bwd="stream_bwd")
 
 # The semiring pair (B5/B6) in its first design: one 1024-thread block a
 # sequence, lists read from device memory, block_sum's two barriers and
@@ -1035,6 +1493,64 @@ def fast_ablation(tables, use, time_ms, dev):
     return result
 
 
+def stream_fast_ablation(tables, use, time_ms, dev):
+    """The fast cluster pair's variants at main path 4 fast's graph
+    (bfloat16 tiles, T=500, all columns full length) at B=128 unless a
+    variant names its batch; ``cluster`` / ``columns`` / ``layout`` force
+    the plan."""
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.ops import stream_kernels as stk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    T, c = 500, 1e-5
+    den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
+                                 num_pdfs=3000, seed=0, bigram_fanout=30,
+                                 forward_pdf_mode="separate")
+    fa = ChainGraphBatch(ChainGraph(den_fst), 128, tile_dtype="bfloat16",
+                         device=dev)._fact
+    forced = lambda opts: {k: opts[k] for k in ("cluster", "columns",
+                                                "layout") if k in opts}
+    props = torch.cuda.get_device_properties(dev)
+
+    def tag(name, B, opts):
+        # (a tree from before the packed layout has the float one alone)
+        p = stk.plan_kernel(fa, name, B, props, **forced(opts),
+                            **({"active": stk.card_active(fa)} if hasattr(
+                                stk, "card_active") else {}))
+        return f"C={p.cluster} G={p.columns} {getattr(p, 'layout', 'float')}"
+
+    result = {}
+    for B in (128, 8):
+        at = lambda v: spec(v)[1].get("batch", 128) == B
+        fwd = {k: v for k, v in tables["stream_fast_fwd"].items() if at(v)}
+        bwd = {k: v for k, v in tables["stream_fast_bwd"].items() if at(v)}
+        if not (fwd or bwd):
+            continue
+        px = torch.exp(torch.randn(B, T, P, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        for label, variant in fwd.items():
+            use("stream_fast_fwd", label)
+            opts = spec(variant)[1]
+            result[f"stream_fwd_bf16/{label} B={B} "
+                   f"{tag('stream_fwd', B, opts)}"] = time_ms(
+                lambda: stk.stream_fwd(px, lens, fa, c, **forced(opts)))
+        for label, variant in bwd.items():
+            opts = spec(variant)[1]
+            use("stream_fwd", "full")
+            st = stk.stream_fwd(px, lens, fa, c, **forced(opts))
+            tot = fk._objf(st[4], st[5], lens, fa, st[7])[1].contiguous()
+            use("stream_fast_bwd", label)
+            result[f"stream_bwd_bf16/{label} B={B} "
+                   f"{tag('stream_bwd', B, opts)}"] = time_ms(
+                lambda: stk.stream_bwd(lens, fa, c, *st[:5], st[6], st[7],
+                                       tot, P, debug=False, **forced(opts)))
+            del st
+        del px
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -1049,7 +1565,8 @@ def main():
               "fact_bwd_lean": LEAN_BWD, "fact_fwd_cluster": FULL_FWD,
               "fact_bwd_cluster": FULL_BWD, "fast_fwd": FAST_FWD,
               "fast_bwd": FAST_BWD, "stream_fwd": STREAM_FWD,
-              "stream_bwd": STREAM_BWD, "semiring_fwd": sr_table(
+              "stream_bwd": STREAM_BWD, "stream_fast_fwd": STREAM_FAST_FWD,
+              "stream_fast_bwd": STREAM_FAST_BWD, "semiring_fwd": sr_table(
                   "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
               "viterbi": sr_table("viterbi"), "xl_vpu": XL_VPU,
               "xl_mxu": XL_MXU}
@@ -1168,6 +1685,8 @@ def main():
             result[f"stream_bwd/{label} {tag['stream_bwd']}"] = time_ms(
                 lambda: stk.stream_bwd(lens, fa, c, ad_ys, w1ad, xdst, xsrc,
                                        s_ys, ad0, s0, tot, P, debug=False))
+    if tables["stream_fast_fwd"] or tables["stream_fast_bwd"]:
+        result.update(stream_fast_ablation(tables, use, time_ms, dev))
     if tables["semiring_fwd"] or tables["semiring_bwd"]:
         result.update(semiring_ablation(tables, use, time_ms, dev))
     if tables["viterbi"]:

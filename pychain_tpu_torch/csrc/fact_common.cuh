@@ -781,10 +781,11 @@ __device__ __forceinline__ void cluster_post_async(const float (&v)[NV],
 // 4-byte word, so the host's bank order of each row's slots holds for
 // the gathers as it does for the one-block kernels.
 
-// An operator's slot as the group form holds it (fact_kernels.pack_slots):
-// the column id in the low 16 bits (S_pad <= 14,464), the bfloat16 value's
-// bits in the high 16, so that the value is the word with its low half
-// cleared.
+// An operator's slot as the group form holds it (fact_kernels.pack_slots;
+// the cluster pair's packed layout reads its slots so from L2): the
+// column id in the low 16 bits (S_pad <= 46,368 on either tier), the
+// bfloat16 value's bits in the high 16, so that the value is the word
+// with its low half cleared.
 __device__ __forceinline__ int slot_col(unsigned w) {
   return static_cast<int>(w & 0xffffu);
 }
@@ -820,6 +821,61 @@ __device__ __forceinline__ void pack_cols(const float (&x)[G],
   for (int j = 0; j < G / 2; ++j)
     w[j] = (__float_as_uint(x[2 * j]) >> 16) |
            (__float_as_uint(x[2 * j + 1]) & 0xffff0000u);
+}
+
+// G values rounded to bfloat16 (to nearest even, as round_to) and packed
+// as state s of a packed vector.
+template <int G>
+__device__ __forceinline__ void store_packed(unsigned* v, int s,
+                                             const float (&x)[G]) {
+  static_assert(G == 2 || G == 4, "G is 2 or 4");
+  if constexpr (G == 2) {
+    v[s] = bf16_bits(x[0]) | bf16_bits(x[1]) << 16;
+  } else {
+    reinterpret_cast<uint2*>(v)[s] =
+        make_uint2(bf16_bits(x[0]) | bf16_bits(x[1]) << 16,
+                   bf16_bits(x[2]) | bf16_bits(x[3]) << 16);
+  }
+}
+
+// The cluster pair's packed layout (stream_fwd_bf16 and stream_bwd_bf16
+// at G = 2 or 4): sell_row_dot_cols with each slot one 4-byte word read
+// from L2 (half the bytes of a column id and a float value) and the
+// vector v packed (a state's G bfloat16 values in G / 2 words, so that a
+// CTA holds twice the columns of a float32 copy).  The same products in
+// the same order as sell_row_dot_cols<G, __nv_bfloat16> on the float32
+// copy of v: a packed value is round_to's.
+template <int G>
+__device__ __forceinline__ void sell_row_dot_packed(
+    const int* __restrict__ sptr, const unsigned* __restrict__ pack, int r,
+    const unsigned* v, float (&acc)[G]) {
+  const int lane = r & 31;
+  const int slice = r >> 5;
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+  const int end = __ldg(sptr + slice + 1);
+  for (int k = __ldg(sptr + slice); k < end; ++k) {
+    const unsigned w = __ldg(pack + k * 32 + lane);
+    const float val = slot_val(w);
+    float x[G];
+    load_packed<G>(v, slot_col(w), x);
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = fmaf(val, x[g], acc[g]);
+  }
+}
+
+// cluster_load_cols for a packed vector kept by local row (G / 2 words a
+// state).
+template <int G>
+__device__ __forceinline__ void cluster_load_packed(const unsigned* v, int c,
+                                                    int rank,
+                                                    float (&out)[G]) {
+  namespace cg = cooperative_groups;
+  const unsigned* p = v + (c & CLUSTER_LOCAL_MASK) * (G / 2);
+  const int owner = c >> CLUSTER_LOCAL_BITS;
+  load_packed<G>(
+      owner == rank ? p : cg::this_cluster().map_shared_rank(p, owner), 0,
+      out);
 }
 
 // Local row i of this CTA times the G columns of the packed vector v:

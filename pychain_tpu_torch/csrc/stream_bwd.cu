@@ -87,13 +87,28 @@
 // it adds an exact product of two bfloat16 values), in the order of the
 // plain version (ops/factorized.backward_prob_fast with cluster = C),
 // which this kernel equals bit for bit.  Shared memory is the float32
-// mode's.  Its bytes bound at main path 4 falls to about 2.3 ms (four
-// 2-byte streams of 1.54 GB each, gamma 1.54 GB).
+// mode's (the float layout).  Its bytes bound at main path 4 falls to
+// about 2.3 ms (four 2-byte streams of 1.54 GB each, gamma 1.54 GB).
+//
+// The fast mode's packed layout (G = 2 or 4), as in stream_fwd.cu: each
+// W1^T / W2^T slot one 4-byte word (fact_kernels.pack_slots), x_dst * b
+// held rounded and packed (S_pad G / 2 words; its peers' rows copied at
+// half the bytes) beside the own rows' unrounded values (R G floats, the
+// diagonal's), and the masses, bfloat16 values already, packed (R G / 2
+// words each, read by the gamma stage at half the DSMEM bytes).  The
+// same products and sums in the same order: the float layout's bits.  At
+// main path 4 (C = G = 2) B4 fast falls 13% (18.34 -> 15.91 ms on an
+// H100, PERF.md).
 
 #include "fact_common.cuh"
 
 // S: the stream type, float (float32 mode) or __nv_bfloat16 (fast mode).
-template <typename S, int G>
+// kPacked: the fast mode's packed layout (G = 2 or 4): the slots of W1^T
+// and W2^T one word each (w1t_pack, w2t_pack), x_dst * b kept whole
+// rounded and packed (S_pad G / 2 words) beside the own rows' unrounded
+// values (R G floats, the diagonal's), the masses packed (R G / 2 words
+// each).
+template <typename S, int G, bool kPacked>
 __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
     const S* __restrict__ ad_ys,         // (B, T, S_pad) alpha'(u+1)
@@ -108,8 +123,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     const float* __restrict__ leaky,     // (S_pad,)
     const int* __restrict__ w1t_ptr, const int* __restrict__ w1t_col,
     const float* __restrict__ w1t_val,   // W1 by source row
+    const unsigned* __restrict__ w1t_pack,  // its slots packed (kPacked)
     const int* __restrict__ w2t_ptr, const int* __restrict__ w2t_col,
     const float* __restrict__ w2t_val,   // W2 by source row
+    const unsigned* __restrict__ w2t_pack,  // its slots packed (kPacked)
     const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
     const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
     const int* __restrict__ f_ptr,       // pdf -> states (packed ids)
@@ -123,14 +140,18 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     float* __restrict__ ab,              // (B, T)
     float* __restrict__ gs) {            // (B, T)
   constexpr bool kFast = sizeof(S) == 2;
+  static_assert(!kPacked || (kFast && G >= 2), "packed: fast, G = 2 or 4");
+  constexpr int W = kPacked ? G / 2 : G;   // words a state of xb, a mass
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   const bool identity = xsrc_ys == nullptr;
   float* xb = reinterpret_cast<float*>(smem4);  // x_dst * b, whole, (S_pad, G)
-  float* c1 = xb + s_pad * G;     // posterior mass per own state (E_f^T side)
-  float* c2 = identity ? c1 : c1 + rows * G;    // E_g^T side
-  float* red = c2 + rows * G;     // block_sum scratch
+  unsigned* xbp = reinterpret_cast<unsigned*>(smem4);   // packed: (S_pad, W)
+  float* xbo = xb + s_pad * W;    // packed: own rows' x_dst * b, (R, G)
+  float* c1 = xbo + (kPacked ? rows * G : 0);   // mass per own state (E_f^T)
+  float* c2 = identity ? c1 : c1 + rows * W;    // E_g^T side
+  float* red = c2 + rows * W;     // block_sum scratch
   float* slot_la = red + 2 * FACT_WARPS * G + 2 * G;  // leaky, alpha*beta
   float* slot_gs = slot_la + 2 * G;                   // sum gamma
 
@@ -223,7 +244,12 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
                          v[g]);
       }
       store_cols_l2<G>(bn + d * G, v);
-      store_cols<G>(xb + d * G, x);
+      if constexpr (kPacked) {
+        store_cols<G>(xbo + i * G, x);
+        store_packed<G>(xbp, d, x);
+      } else {
+        store_cols<G>(xb + d * G, x);
+      }
     }
     cluster.sync();   // X1
     // 2. the sum-gamma trace of frame u + 1 (in the fast mode the sum of
@@ -238,7 +264,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
         gs[row0[g] + u + 1] = debug ? s[g] : 1.0f;
       }
     }
-    cluster_gather_cols<G>(xb, s_pad, rank, lc);
+    cluster_gather_cols<W>(xb, s_pad, rank, lc);
     __syncthreads();
 
     // 3. own rows: beta', c1, c2, partials
@@ -253,7 +279,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
       float w1t[G], w2t[G], xbd[G], bdv[G];
-      sell_row_dot_cols<G, S>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);
+      if constexpr (kPacked)
+        sell_row_dot_packed<G>(w1t_ptr, w1t_pack, d, xbp, w1t);
+      else
+        sell_row_dot_cols<G, S>(w1t_ptr, w1t_col, w1t_val, d, xb, w1t);
 #pragma unroll
       for (int g = 0; g < G; ++g) w2t[g] = 0.0f;
       {
@@ -261,8 +290,16 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
         const int slice = d >> 5;
         const int end = __ldg(w2t_ptr + slice + 1);
         for (int e = __ldg(w2t_ptr + slice); e < end; ++e) {
-          const int j = __ldg(w2t_col + e * 32 + lane);
-          const float w = __ldg(w2t_val + e * 32 + lane);
+          int j;
+          float w;
+          if constexpr (kPacked) {
+            const unsigned word = __ldg(w2t_pack + e * 32 + lane);
+            j = slot_col(word);
+            w = slot_val(word);
+          } else {
+            j = __ldg(w2t_col + e * 32 + lane);
+            w = __ldg(w2t_val + e * 32 + lane);
+          }
           float bj[G];
           load_cols_l2<G>(bn + j * G, bj);
 #pragma unroll
@@ -270,7 +307,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
             w2t[g] = fmaf(w, round_to<S>(bj[g]), w2t[g]);
         }
       }
-      load_cols<G>(xb + d * G, xbd);
+      load_cols<G>(kPacked ? xbo + i * G : xb + d * G, xbd);
       load_cols_l2<G>(bd + d * G, bdv);
       const float lk = leaky[d];
       if constexpr (kFast) {
@@ -319,8 +356,13 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
         }
       }
       store_cols_l2<G>(bd + d * G, bdv);
-      store_cols<G>(c1 + i * G, m1v);
-      if (!identity) store_cols<G>(c2 + i * G, m2v);
+      if constexpr (kPacked) {
+        store_packed<G>(reinterpret_cast<unsigned*>(c1), i, m1v);
+        if (!identity) store_packed<G>(reinterpret_cast<unsigned*>(c2), i, m2v);
+      } else {
+        store_cols<G>(c1 + i * G, m1v);
+        if (!identity) store_cols<G>(c2 + i * G, m2v);
+      }
     }
     block_sum<2 * G>(part, red);
     if (tid == 0) {
@@ -351,14 +393,22 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
         float m[G];
         const int fe = __ldg(f_ptr + p + 1);
         for (int k = __ldg(f_ptr + p); k < fe; ++k) {
-          cluster_load_cols<G>(c1, __ldg(f_states + k), rank, m);
+          if constexpr (kPacked)
+            cluster_load_packed<G>(reinterpret_cast<const unsigned*>(c1),
+                                   __ldg(f_states + k), rank, m);
+          else
+            cluster_load_cols<G>(c1, __ldg(f_states + k), rank, m);
 #pragma unroll
           for (int g = 0; g < G; ++g) acc[g] += m[g];
         }
         if (!identity) {
           const int ge = __ldg(g_ptr + p + 1);
           for (int k = __ldg(g_ptr + p); k < ge; ++k) {
-            cluster_load_cols<G>(c2, __ldg(g_states + k), rank, m);
+            if constexpr (kPacked)
+              cluster_load_packed<G>(reinterpret_cast<const unsigned*>(c2),
+                                     __ldg(g_states + k), rank, m);
+            else
+              cluster_load_cols<G>(c2, __ldg(g_states + k), rank, m);
 #pragma unroll
             for (int g = 0; g < G; ++g) acc[g] += m[g];
           }
@@ -391,56 +441,64 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_bwd_kernel(
 }
 
 extern "C" size_t stream_bwd_smem_bytes(int s_pad, int rows, int identity,
-                                        int columns) {
+                                        int columns, int packed) {
   const size_t G = static_cast<size_t>(columns);
-  return (static_cast<size_t>(s_pad) * G +
-          (identity ? 1 : 2) * static_cast<size_t>(rows) * G +
+  const size_t W = packed ? G / 2 : G;
+  return (static_cast<size_t>(s_pad) * W +
+          (packed ? static_cast<size_t>(rows) * G : 0) +
+          (identity ? 1 : 2) * static_cast<size_t>(rows) * W +
           2 * FACT_WARPS * G + 5 * G) * sizeof(float);
 }
 
 // Ask for the kernel's shared memory and count the clusters of this shape
 // the card can hold at once (cudaOccupancyMaxActiveClusters).
-template <typename S, int G>
+template <typename S, int G, bool kPacked>
 static cudaError_t prepare(size_t smem, cudaLaunchConfig_t* cfg,
                            int* active) {
-  cudaError_t err = fact_set_smem(stream_bwd_kernel<S, G>, smem);
+  cudaError_t err = fact_set_smem(stream_bwd_kernel<S, G, kPacked>, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(active, stream_bwd_kernel<S, G>, cfg);
+  return cudaOccupancyMaxActiveClusters(
+      active, stream_bwd_kernel<S, G, kPacked>, cfg);
 }
 
-template <typename S, int G>
+template <typename S, int G, bool kPacked>
 static int launch(const void* lengths, const void* ad_ys,
                   const void* w1ad_ys, const void* xdst_ys,
                   const void* xsrc_ys, const void* s_ys, const void* s0,
                   const void* ad0, const void* final_p, const void* tot,
                   const void* leaky, const void* w1t_ptr,
                   const void* w1t_col, const void* w1t_val,
-                  const void* w2t_ptr, const void* w2t_col,
-                  const void* w2t_val, const void* diag1, const void* diag2,
+                  const void* w1t_pack, const void* w2t_ptr,
+                  const void* w2t_col, const void* w2t_val,
+                  const void* w2t_pack, const void* diag1, const void* diag2,
                   const void* f_ptr, const void* f_states, const void* g_ptr,
                   const void* g_states, int n_pdf_lists, float leaky_c,
                   int B, int T, int P, int s_pad, int cluster, int rows,
                   int debug, void* carry, void* gamma, void* ab, void* gs,
                   void* stream) {
   const size_t smem =
-      stream_bwd_smem_bytes(s_pad, rows, xsrc_ys == nullptr, G);
+      stream_bwd_smem_bytes(s_pad, rows, xsrc_ys == nullptr, G, kPacked);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       cluster_config((B + G - 1) / G, cluster, smem, stream, attr);
   int active = 0;
-  cudaError_t err = prepare<S, G>(smem, &cfg, &active);
+  cudaError_t err = prepare<S, G, kPacked>(smem, &cfg, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return -1;
   err = cudaLaunchKernelEx(
-      &cfg, stream_bwd_kernel<S, G>, static_cast<const int*>(lengths),
+      &cfg, stream_bwd_kernel<S, G, kPacked>,
+      static_cast<const int*>(lengths),
       static_cast<const S*>(ad_ys), static_cast<const S*>(w1ad_ys),
       static_cast<const S*>(xdst_ys), static_cast<const S*>(xsrc_ys),
       static_cast<const float*>(s_ys), static_cast<const float*>(s0),
       static_cast<const float*>(ad0), static_cast<const float*>(final_p),
       static_cast<const float*>(tot), static_cast<const float*>(leaky),
       static_cast<const int*>(w1t_ptr), static_cast<const int*>(w1t_col),
-      static_cast<const float*>(w1t_val), static_cast<const int*>(w2t_ptr),
-      static_cast<const int*>(w2t_col), static_cast<const float*>(w2t_val),
+      static_cast<const float*>(w1t_val),
+      static_cast<const unsigned*>(w1t_pack),
+      static_cast<const int*>(w2t_ptr), static_cast<const int*>(w2t_col),
+      static_cast<const float*>(w2t_val),
+      static_cast<const unsigned*>(w2t_pack),
       static_cast<const float*>(diag1), static_cast<const float*>(diag2),
       static_cast<const int*>(f_ptr), static_cast<const int*>(f_states),
       static_cast<const int*>(g_ptr), static_cast<const int*>(g_states),
@@ -452,34 +510,41 @@ static int launch(const void* lengths, const void* ad_ys,
 }
 
 // The clusters of this shape the card holds at once, or minus a
-// cudaError_t; fast: the bfloat16 form's (the same shared memory).
+// cudaError_t; fast: the bfloat16 form's, packed (fast, G = 2 or 4): its
+// packed layout's.
 extern "C" int stream_bwd_active_clusters(int s_pad, int rows, int identity,
                                           int cluster, int columns,
-                                          int fast) {
-  const size_t smem = stream_bwd_smem_bytes(s_pad, rows, identity, columns);
+                                          int fast, int packed) {
+  const size_t smem =
+      stream_bwd_smem_bytes(s_pad, rows, identity, columns, packed);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
   int active = 0;
   cudaError_t err = cudaErrorInvalidValue;
 #define STREAM_BWD_PREPARE(G)                                              \
-  if (columns == G)                                                        \
-    err = fast ? prepare<__nv_bfloat16, G>(smem, &cfg, &active)            \
-               : prepare<float, G>(smem, &cfg, &active);
+  if (columns == G && !packed)                                             \
+    err = fast ? prepare<__nv_bfloat16, G, false>(smem, &cfg, &active)     \
+               : prepare<float, G, false>(smem, &cfg, &active);
   STREAM_BWD_PREPARE(1)
   STREAM_BWD_PREPARE(2)
   STREAM_BWD_PREPARE(4)
 #undef STREAM_BWD_PREPARE
+  if (packed && fast && columns == 2)
+    err = prepare<__nv_bfloat16, 2, true>(smem, &cfg, &active);
+  if (packed && fast && columns == 4)
+    err = prepare<__nv_bfloat16, 4, true>(smem, &cfg, &active);
   return err == cudaSuccess ? active : -static_cast<int>(err);
 }
 
-template <typename S>
+template <typename S, bool kPacked>
 static int run(const void* lengths, const void* ad_ys, const void* w1ad_ys,
                const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
                const void* s0, const void* ad0, const void* final_p,
                const void* tot, const void* leaky, const void* w1t_ptr,
                const void* w1t_col, const void* w1t_val,
-               const void* w2t_ptr, const void* w2t_col,
-               const void* w2t_val, const void* diag1, const void* diag2,
+               const void* w1t_pack, const void* w2t_ptr,
+               const void* w2t_col, const void* w2t_val,
+               const void* w2t_pack, const void* diag1, const void* diag2,
                const void* f_ptr, const void* f_states, const void* g_ptr,
                const void* g_states, int n_pdf_lists, float leaky_c, int B,
                int T, int P, int s_pad, int cluster, int columns, int rows,
@@ -488,12 +553,14 @@ static int run(const void* lengths, const void* ad_ys, const void* w1ad_ys,
   switch (columns) {
 #define STREAM_BWD_CASE(G)                                                 \
   case G:                                                                  \
-    return launch<S, G>(lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys,   \
-                        s0, ad0, final_p, tot, leaky, w1t_ptr, w1t_col,    \
-                        w1t_val, w2t_ptr, w2t_col, w2t_val, diag1, diag2,  \
-                        f_ptr, f_states, g_ptr, g_states, n_pdf_lists,     \
-                        leaky_c, B, T, P, s_pad, cluster, rows, debug,     \
-                        carry, gamma, ab, gs, stream);
+    if constexpr (!kPacked || G > 1)                        \
+      return launch<S, G, kPacked>(                                        \
+          lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0,        \
+          final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val, w1t_pack,        \
+          w2t_ptr, w2t_col, w2t_val, w2t_pack, diag1, diag2, f_ptr,        \
+          f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,        \
+          s_pad, cluster, rows, debug, carry, gamma, ab, gs, stream);      \
+    return static_cast<int>(cudaErrorInvalidValue);
     STREAM_BWD_CASE(1)
     STREAM_BWD_CASE(2)
     STREAM_BWD_CASE(4)
@@ -517,31 +584,35 @@ extern "C" int stream_bwd_launch(
     float leaky_c, int B, int T, int P, int s_pad, int cluster, int columns,
     int rows, int debug, void* carry, void* gamma, void* ab, void* gs,
     void* stream) {
-  return run<float>(lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0,
-                    ad0, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val,
-                    w2t_ptr, w2t_col, w2t_val, nullptr, nullptr, f_ptr,
-                    f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T,
-                    P, s_pad, cluster, columns, rows, debug, carry, gamma,
-                    ab, gs, stream);
+  return run<float, false>(
+      lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, final_p, tot,
+      leaky, w1t_ptr, w1t_col, w1t_val, nullptr, w2t_ptr, w2t_col, w2t_val,
+      nullptr, nullptr, nullptr, f_ptr, f_states, g_ptr, g_states,
+      n_pdf_lists, leaky_c, B, T, P, s_pad, cluster, columns, rows, debug,
+      carry, gamma, ab, gs, stream);
 }
 
 // The fast mode: bfloat16 streams, the operators' off-diagonal entries
-// alone (bfloat16 values held in float32), float32 diagonals diag1 (W1's)
-// and diag2 (W2's).
+// alone (bfloat16 values held in float32, and the same slots packed a word
+// each, fact_kernels.pack_slots), float32 diagonals diag1 (W1's) and diag2
+// (W2's).  packed (G = 2 or 4): the packed layout, which reads the packed
+// slots; else the float32 copy, which reads the column ids and values.
 extern "C" int stream_bwd_bf16_launch(
     const void* lengths, const void* ad_ys, const void* w1ad_ys,
     const void* xdst_ys, const void* xsrc_ys, const void* s_ys,
     const void* s0, const void* ad0, const void* final_p, const void* tot,
     const void* leaky, const void* w1t_ptr, const void* w1t_col,
-    const void* w1t_val, const void* w2t_ptr, const void* w2t_col,
-    const void* w2t_val, const void* diag1, const void* diag2,
-    const void* f_ptr, const void* f_states, const void* g_ptr,
-    const void* g_states, int n_pdf_lists, float leaky_c, int B, int T,
-    int P, int s_pad, int cluster, int columns, int rows, int debug,
-    void* carry, void* gamma, void* ab, void* gs, void* stream) {
-  return run<__nv_bfloat16>(
+    const void* w1t_val, const void* w1t_pack, const void* w2t_ptr,
+    const void* w2t_col, const void* w2t_val, const void* w2t_pack,
+    const void* diag1, const void* diag2, const void* f_ptr,
+    const void* f_states, const void* g_ptr, const void* g_states,
+    int n_pdf_lists, float leaky_c, int B, int T, int P, int s_pad,
+    int cluster, int columns, int rows, int packed, int debug, void* carry,
+    void* gamma, void* ab, void* gs, void* stream) {
+  return (packed ? run<__nv_bfloat16, true> : run<__nv_bfloat16, false>)(
       lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, s0, ad0, final_p, tot,
-      leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr, w2t_col, w2t_val, diag1,
-      diag2, f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,
-      s_pad, cluster, columns, rows, debug, carry, gamma, ab, gs, stream);
+      leaky, w1t_ptr, w1t_col, w1t_val, w1t_pack, w2t_ptr, w2t_col, w2t_val,
+      w2t_pack, diag1, diag2, f_ptr, f_states, g_ptr, g_states, n_pdf_lists,
+      leaky_c, B, T, P, s_pad, cluster, columns, rows, debug, carry, gamma,
+      ab, gs, stream);
 }

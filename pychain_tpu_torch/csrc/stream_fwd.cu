@@ -75,19 +75,43 @@
 // unrounded, since the diagonal and W2's operand x_src * alpha' need the
 // unrounded value: each W1 gather rounds what it reads
 // (sell_row_dot_cols<G, S>), and W2's operand is rounded after its
-// product.  So shared memory, the plan and the limits are those of the
-// float32 mode.  alpha is scaled by 1 / s_{t-1}, the leaky term added
+// product: the float layout, whose shared memory and limits are the
+// float32 mode's.  alpha is scaled by 1 / s_{t-1}, the leaky term added
 // unfused, each product and sum rounded on its own (__fmul_rn, __fadd_rn)
 // in the order of the plain version (ops/factorized.forward_prob_fast with
 // cluster = C: each row's slots, then the diagonal; each CTA's block_sum,
 // then the CTAs in rank order), which this kernel equals bit for bit.
 // Its bytes bound at main path 4 falls to about 2.3 ms (px 1.54 GB and
 // four 2-byte streams of 1.54 GB each).
+//
+// The fast mode's packed layout (G = 2 or 4; stream_kernels.plan takes
+// it where it fits, main path 4 at C = G = 2).  On an H100 the float
+// layout's W1 product waits on its operator's reads from L2, and not on
+// L2's bandwidth: at B = 8 (4 clusters) a launch takes 97% of B = 128's,
+// with the operator in L1 41% less (PERF.md).  So the packed
+// layout cuts what a slot costs: each slot is one 4-byte word (the
+// column id in the low 16 bits, the bfloat16 value's bits in the high
+// 16: fact_kernels.pack_slots; every id of the tier fits 16 bits and the
+// fast values are bfloat16 values, so nothing rounds), and the whole
+// alpha' copy is held rounded and packed (S_pad G / 2 words, G = 4 where
+// the float layout holds 2), which round_to at each gather would give.
+// The head packs each 16-byte read of a peer's alpha into 8 bytes.  W2's
+// operand and the diagonal need alpha' unrounded: a row reads the
+// source's alpha from its owner's buffer (DSMEM; W2 has at most one entry
+// a row in the repository's graphs) and adds the leaky term as the head
+// does, so two alpha buffers by parity at every C.  The same products in
+// the same order: the float layout's bits.  At main path 4 (C = G = 2)
+// B3 fast falls 12% (14.28 -> 12.61 ms); (4, 4) fits but takes two waves
+// (an H100 holds 30 clusters of 4 CTAs this size).
 
 #include "fact_common.cuh"
 
 // S: the stream type, float (float32 mode) or __nv_bfloat16 (fast mode).
-template <typename S, int G>
+// kPacked: the fast mode's packed layout (G = 2 or 4): the slots of W1
+// and W2 one word each (w1_pack, w2_pack), alpha' kept whole rounded and
+// packed (S_pad G / 2 words), W2's operand and the diagonal's alpha'
+// taken from the owner's alpha buffer.
+template <typename S, int G, bool kPacked>
 __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     const float* __restrict__ px,        // (B, T, P) exp'd nnet output
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
@@ -95,8 +119,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     const int* __restrict__ g_src,       // (S_pad,) or null (identity mode)
     const int* __restrict__ w1_ptr, const int* __restrict__ w1_col,
     const float* __restrict__ w1_val,    // W1 by destination row
+    const unsigned* __restrict__ w1_pack,   // its slots packed (kPacked)
     const int* __restrict__ w2_ptr, const int* __restrict__ w2_col,
     const float* __restrict__ w2_val,    // W2 by destination row
+    const unsigned* __restrict__ w2_pack,   // its slots packed (kPacked)
     const int* __restrict__ w2_pdf,      // x_src's pdf at each W2 entry's source
     const float* __restrict__ diag1,     // (S_pad,) W1's diagonal (fast mode)
     const float* __restrict__ diag2,     // (S_pad,) W2's diagonal (fast mode)
@@ -111,6 +137,8 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
     float* __restrict__ s_ys,            // (B, T) s_{t+1}; 1 past the end
     float* __restrict__ ad_last) {       // (B, S_pad) alpha'(T_b)
   constexpr bool kFast = sizeof(S) == 2;
+  static_assert(!kPacked || (kFast && G >= 2), "packed: fast, G = 2 or 4");
+  constexpr int W = kPacked ? G / 2 : G;   // words a state of the copy
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -118,9 +146,11 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int lc = __ffs(C) - 1;
-  const int nbuf = C > 1 ? 2 : 1;
+  // packed: frame t reads frame t - 1's buffer while it writes its own
+  const int nbuf = C > 1 || kPacked ? 2 : 1;
   float* ad = reinterpret_cast<float*>(smem4);  // alpha', whole, (S_pad, G)
-  float* abuf = ad + s_pad * G;   // alpha on own rows, nbuf x (R, G)
+  unsigned* adp = reinterpret_cast<unsigned*>(smem4);   // packed: (S_pad, W)
+  float* abuf = ad + s_pad * W;   // alpha on own rows, nbuf x (R, G)
   float* red = abuf + nbuf * rows * G;          // block_sum scratch
   float* slot = red + FACT_WARPS * G + G;       // partials, 2 x G
 
@@ -139,12 +169,22 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
 
   for (int s = tid; s < s_pad; s += FACT_THREADS) {
     const float v = ad0[s];
+    if constexpr (kPacked) {
+      const unsigned h = bf16_bits(v);
 #pragma unroll
-    for (int g = 0; g < G; ++g) ad[s * G + g] = v;
+      for (int j = 0; j < W; ++j) adp[s * W + j] = h | h << 16;
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g) ad[s * G + g] = v;
+    }
   }
   float s_prev[G];
+  float cs[G];                     // leaky_c * s_{t-1}
 #pragma unroll
-  for (int g = 0; g < G; ++g) s_prev[g] = *s0;
+  for (int g = 0; g < G; ++g) {
+    s_prev[g] = *s0;
+    cs[g] = 0.0f;
+  }
   __syncthreads();
 
   for (int t = 0; t <= t_max; ++t) {
@@ -152,7 +192,6 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
       const int par = (t - 1) & 1;
       float s_t[G];
       cluster_rank_sum<G>(slot + par * G, s_t);
-      float cs[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) cs[g] = __fmul_rn(leaky_c, s_t[g]);
       const float* a_buf = abuf + (par % nbuf) * rows * G;
@@ -173,8 +212,15 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
           e[k] = kFast ? __fadd_rn(e[k], __fmul_rn(cs[k % G], lk))
                        : fmaf(cs[k % G], lk, e[k]);
         }
-        if (!last)
-          reinterpret_cast<float4*>(ad)[q] = make_float4(e[0], e[1], e[2], e[3]);
+        if (!last) {
+          if constexpr (kPacked)    // the 4 values' bfloat16 bits, 8 bytes
+            reinterpret_cast<uint2*>(adp)[q] =
+                make_uint2(bf16_bits(e[0]) | bf16_bits(e[1]) << 16,
+                           bf16_bits(e[2]) | bf16_bits(e[3]) << 16);
+          else
+            reinterpret_cast<float4*>(ad)[q] =
+                make_float4(e[0], e[1], e[2], e[3]);
+        }
         if (owner != rank) continue;
         // own rows: the alpha' stream of frame t - 1 and alpha'(T_b)
 #pragma unroll
@@ -209,6 +255,24 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
       r[g] = __fdiv_rn(1.0f, s_prev[g]);
     }
     float* a_out = abuf + ((t & 1) % nbuf) * rows * G;
+    // packed: alpha of frame t - 1 by local row, in every CTA
+    const float* a_in = abuf + (((t - 1) & 1) % nbuf) * rows * G;
+    // packed: alpha'(t) at state j, unrounded (ad0 at t = 0, else the
+    // owner's alpha plus the leaky term, as the head adds it)
+    auto alpha_dash = [&](int j, float (&a)[G]) {
+      if (t == 0) {
+        const float v = __ldg(ad0 + j);
+#pragma unroll
+        for (int g = 0; g < G; ++g) a[g] = v;
+        return;
+      }
+      const int owner = cluster_owner(j, lc);
+      const float* p = a_in + cluster_local(j, lc) * G;
+      load_cols<G>(owner == rank ? p : cluster.map_shared_rank(p, owner), a);
+      const float lk = __ldg(leaky + j);
+#pragma unroll
+      for (int g = 0; g < G; ++g) a[g] = __fadd_rn(a[g], __fmul_rn(cs[g], lk));
+    };
     for (int i = tid; i < n; i += FACT_THREADS) {
       const int d = cluster_row(i, rank, C);
       const int fd = f_dst[d];
@@ -221,7 +285,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
         xs[g] = g_src ? round_to<S>(__ldg(px_t + gd)) : x[g];
       }
       float w1a[G];
-      sell_row_dot_cols<G, S>(w1_ptr, w1_col, w1_val, d, ad, w1a);
+      if constexpr (kPacked)
+        sell_row_dot_packed<G>(w1_ptr, w1_pack, d, adp, w1a);
+      else
+        sell_row_dot_cols<G, S>(w1_ptr, w1_col, w1_val, d, ad, w1a);
       float w2u[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) w2u[g] = 0.0f;
@@ -231,10 +298,16 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
         const int end = __ldg(w2_ptr + slice + 1);
         for (int k = __ldg(w2_ptr + slice); k < end; ++k) {
           const int e = k * 32 + lane;
-          const float w = __ldg(w2_val + e);
           const int pdf = __ldg(w2_pdf + e);
-          float a[G];
-          load_cols<G>(ad + __ldg(w2_col + e) * G, a);
+          float w, a[G];
+          if constexpr (kPacked) {
+            const unsigned word = __ldg(w2_pack + e);
+            w = slot_val(word);
+            alpha_dash(slot_col(word), a);
+          } else {
+            w = __ldg(w2_val + e);
+            load_cols<G>(ad + __ldg(w2_col + e) * G, a);
+          }
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             // fast mode: bfloat16(bfloat16(x_src) * alpha'), exact in the
@@ -250,7 +323,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
         // the diagonal stratum: float32 values, the row's unrounded
         // alpha' (the plain version's order, bit for bit)
         float own[G];
-        load_cols<G>(ad + d * G, own);
+        if constexpr (kPacked)
+          alpha_dash(d, own);
+        else
+          load_cols<G>(ad + d * G, own);
         const float d1 = __ldg(diag1 + d), d2 = __ldg(diag2 + d);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -294,48 +370,55 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) stream_fwd_kernel(
 }
 
 extern "C" size_t stream_fwd_smem_bytes(int s_pad, int rows, int cluster,
-                                        int columns) {
+                                        int columns, int packed) {
   const size_t G = static_cast<size_t>(columns);
-  const size_t nbuf = cluster > 1 ? 2 : 1;
-  return (static_cast<size_t>(s_pad) * G + nbuf * rows * G +
+  const size_t W = packed ? G / 2 : G;
+  const size_t nbuf = cluster > 1 || packed ? 2 : 1;
+  return (static_cast<size_t>(s_pad) * W + nbuf * rows * G +
           FACT_WARPS * G + 3 * G) * sizeof(float);
 }
 
 // Ask for the kernel's shared memory and count the clusters of this shape
 // the card can hold at once (cudaOccupancyMaxActiveClusters).
-template <typename S, int G>
+template <typename S, int G, bool kPacked>
 static cudaError_t prepare(size_t smem, cudaLaunchConfig_t* cfg,
                            int* active) {
-  cudaError_t err = fact_set_smem(stream_fwd_kernel<S, G>, smem);
+  cudaError_t err = fact_set_smem(stream_fwd_kernel<S, G, kPacked>, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(active, stream_fwd_kernel<S, G>, cfg);
+  return cudaOccupancyMaxActiveClusters(
+      active, stream_fwd_kernel<S, G, kPacked>, cfg);
 }
 
-template <typename S, int G>
+template <typename S, int G, bool kPacked>
 static int launch(const void* px, const void* lengths, const void* f_dst,
                   const void* g_src, const void* w1_ptr, const void* w1_col,
-                  const void* w1_val, const void* w2_ptr, const void* w2_col,
-                  const void* w2_val, const void* w2_pdf, const void* diag1,
+                  const void* w1_val, const void* w1_pack,
+                  const void* w2_ptr, const void* w2_col,
+                  const void* w2_val, const void* w2_pack,
+                  const void* w2_pdf, const void* diag1,
                   const void* diag2, const void* ad0, const void* s0,
                   const void* leaky, float leaky_c, int B, int T, int P,
                   int s_pad, int cluster, int rows, void* ad_ys,
                   void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys,
                   void* ad_last, void* stream) {
-  const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, G);
+  const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, G, kPacked);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       cluster_config((B + G - 1) / G, cluster, smem, stream, attr);
   int active = 0;
-  cudaError_t err = prepare<S, G>(smem, &cfg, &active);
+  cudaError_t err = prepare<S, G, kPacked>(smem, &cfg, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return -1;
   err = cudaLaunchKernelEx(
-      &cfg, stream_fwd_kernel<S, G>, static_cast<const float*>(px),
+      &cfg, stream_fwd_kernel<S, G, kPacked>, static_cast<const float*>(px),
       static_cast<const int*>(lengths), static_cast<const int*>(f_dst),
       static_cast<const int*>(g_src), static_cast<const int*>(w1_ptr),
       static_cast<const int*>(w1_col), static_cast<const float*>(w1_val),
+      static_cast<const unsigned*>(w1_pack),
       static_cast<const int*>(w2_ptr), static_cast<const int*>(w2_col),
-      static_cast<const float*>(w2_val), static_cast<const int*>(w2_pdf),
+      static_cast<const float*>(w2_val),
+      static_cast<const unsigned*>(w2_pack),
+      static_cast<const int*>(w2_pdf),
       static_cast<const float*>(diag1), static_cast<const float*>(diag2),
       static_cast<const float*>(ad0), static_cast<const float*>(s0),
       static_cast<const float*>(leaky), leaky_c, B, T, P, s_pad, rows,
@@ -347,43 +430,53 @@ static int launch(const void* px, const void* lengths, const void* f_dst,
 }
 
 // The clusters of this shape the card holds at once, or minus a
-// cudaError_t; fast: the bfloat16 form's (the same shared memory).
+// cudaError_t; fast: the bfloat16 form's, packed (fast, G = 2 or 4): its
+// packed layout's.
 extern "C" int stream_fwd_active_clusters(int s_pad, int rows, int cluster,
-                                          int columns, int fast) {
-  const size_t smem = stream_fwd_smem_bytes(s_pad, rows, cluster, columns);
+                                          int columns, int fast,
+                                          int packed) {
+  const size_t smem =
+      stream_fwd_smem_bytes(s_pad, rows, cluster, columns, packed);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
   int active = 0;
   cudaError_t err = cudaErrorInvalidValue;
 #define STREAM_FWD_PREPARE(G)                                               \
-  if (columns == G)                                                         \
-    err = fast ? prepare<__nv_bfloat16, G>(smem, &cfg, &active)             \
-               : prepare<float, G>(smem, &cfg, &active);
+  if (columns == G && !packed)                                              \
+    err = fast ? prepare<__nv_bfloat16, G, false>(smem, &cfg, &active)      \
+               : prepare<float, G, false>(smem, &cfg, &active);
   STREAM_FWD_PREPARE(1)
   STREAM_FWD_PREPARE(2)
   STREAM_FWD_PREPARE(4)
 #undef STREAM_FWD_PREPARE
+  if (packed && fast && columns == 2)
+    err = prepare<__nv_bfloat16, 2, true>(smem, &cfg, &active);
+  if (packed && fast && columns == 4)
+    err = prepare<__nv_bfloat16, 4, true>(smem, &cfg, &active);
   return err == cudaSuccess ? active : -static_cast<int>(err);
 }
 
-template <typename S>
+template <typename S, bool kPacked>
 static int run(const void* px, const void* lengths, const void* f_dst,
                const void* g_src, const void* w1_ptr, const void* w1_col,
-               const void* w1_val, const void* w2_ptr, const void* w2_col,
-               const void* w2_val, const void* w2_pdf, const void* diag1,
-               const void* diag2, const void* ad0, const void* s0,
-               const void* leaky, float leaky_c, int B, int T, int P,
-               int s_pad, int cluster, int columns, int rows, void* ad_ys,
-               void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys,
-               void* ad_last, void* stream) {
+               const void* w1_val, const void* w1_pack, const void* w2_ptr,
+               const void* w2_col, const void* w2_val, const void* w2_pack,
+               const void* w2_pdf, const void* diag1, const void* diag2,
+               const void* ad0, const void* s0, const void* leaky,
+               float leaky_c, int B, int T, int P, int s_pad, int cluster,
+               int columns, int rows, void* ad_ys, void* w1ad_ys,
+               void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,
+               void* stream) {
   switch (columns) {
 #define STREAM_FWD_CASE(G)                                                  \
   case G:                                                                   \
-    return launch<S, G>(px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val,  \
-                        w2_ptr, w2_col, w2_val, w2_pdf, diag1, diag2, ad0,  \
-                        s0, leaky, leaky_c, B, T, P, s_pad, cluster, rows,  \
-                        ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last,    \
-                        stream);
+    if constexpr (!kPacked || G > 1)                         \
+      return launch<S, G, kPacked>(                                         \
+          px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w1_pack,       \
+          w2_ptr, w2_col, w2_val, w2_pack, w2_pdf, diag1, diag2, ad0, s0,   \
+          leaky, leaky_c, B, T, P, s_pad, cluster, rows, ad_ys, w1ad_ys,    \
+          xdst_ys, xsrc_ys, s_ys, ad_last, stream);                         \
+    return static_cast<int>(cudaErrorInvalidValue);
     STREAM_FWD_CASE(1)
     STREAM_FWD_CASE(2)
     STREAM_FWD_CASE(4)
@@ -404,28 +497,32 @@ extern "C" int stream_fwd_launch(
     const void* leaky, float leaky_c, int B, int T, int P, int s_pad,
     int cluster, int columns, int rows, void* ad_ys, void* w1ad_ys,
     void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last, void* stream) {
-  return run<float>(px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val,
-                    w2_ptr, w2_col, w2_val, w2_pdf, nullptr, nullptr, ad0,
-                    s0, leaky, leaky_c, B, T, P, s_pad, cluster, columns,
-                    rows, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last,
-                    stream);
+  return run<float, false>(
+      px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, nullptr, w2_ptr,
+      w2_col, w2_val, nullptr, w2_pdf, nullptr, nullptr, ad0, s0, leaky,
+      leaky_c, B, T, P, s_pad, cluster, columns, rows, ad_ys, w1ad_ys,
+      xdst_ys, xsrc_ys, s_ys, ad_last, stream);
 }
 
 // The fast mode: bfloat16 streams, the operators' off-diagonal entries
-// alone (bfloat16 values held in float32; w2_pdf in that W2's layout),
-// float32 diagonals diag1 (W1's) and diag2 (W2's).
+// alone (bfloat16 values held in float32, and the same slots packed a word
+// each, fact_kernels.pack_slots; w2_pdf in that W2's layout), float32
+// diagonals diag1 (W1's) and diag2 (W2's).  packed (G = 2 or 4): the
+// packed layout, which reads the packed slots; else the float32 copy,
+// which reads the column ids and values.
 extern "C" int stream_fwd_bf16_launch(
     const void* px, const void* lengths, const void* f_dst,
     const void* g_src, const void* w1_ptr, const void* w1_col,
-    const void* w1_val, const void* w2_ptr, const void* w2_col,
-    const void* w2_val, const void* w2_pdf, const void* diag1,
-    const void* diag2, const void* ad0, const void* s0, const void* leaky,
-    float leaky_c, int B, int T, int P, int s_pad, int cluster, int columns,
-    int rows, void* ad_ys, void* w1ad_ys, void* xdst_ys, void* xsrc_ys,
+    const void* w1_val, const void* w1_pack, const void* w2_ptr,
+    const void* w2_col, const void* w2_val, const void* w2_pack,
+    const void* w2_pdf, const void* diag1, const void* diag2,
+    const void* ad0, const void* s0, const void* leaky, float leaky_c,
+    int B, int T, int P, int s_pad, int cluster, int columns, int rows,
+    int packed, void* ad_ys, void* w1ad_ys, void* xdst_ys, void* xsrc_ys,
     void* s_ys, void* ad_last, void* stream) {
-  return run<__nv_bfloat16>(
-      px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr, w2_col,
-      w2_val, w2_pdf, diag1, diag2, ad0, s0, leaky, leaky_c, B, T, P, s_pad,
-      cluster, columns, rows, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys,
-      ad_last, stream);
+  return (packed ? run<__nv_bfloat16, true> : run<__nv_bfloat16, false>)(
+      px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w1_pack, w2_ptr,
+      w2_col, w2_val, w2_pack, w2_pdf, diag1, diag2, ad0, s0, leaky,
+      leaky_c, B, T, P, s_pad, cluster, columns, rows, ad_ys, w1ad_ys,
+      xdst_ys, xsrc_ys, s_ys, ad_last, stream);
 }

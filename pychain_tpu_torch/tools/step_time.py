@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Main path 1's step on the card, for A/Bs between two trees.
+"""Main path 1's (or 4's) step on the card, for A/Bs between two trees.
 
-    python -m pychain_tpu_torch.tools.step_time LABEL
+    python -m pychain_tpu_torch.tools.step_time LABEL [--main4]
 
 ``ChainLoss(den)`` over the headline graph (``denominator_fst(1500, 2,
-bigram_fanout=30)``) with B=128 linear numerators of T=500 frames, its
-backward pass and an SGD update of x, in float32 and with
-``precision="fast"``: 3 warm-up steps, then 20 steps timed one by one
-with CUDA events; prints the median and the least ms of each, after
-LABEL.  To compare two trees, unpack each into a directory and run the
-tool from each in turns in one call (A, B, B, A).  It needs a card.
+bigram_fanout=30)``; with ``--main4`` main path 4's 12k-state graph,
+``denominator_fst(6000, 2, num_pdfs=3000, bigram_fanout=30,
+forward_pdf_mode="separate")``, on the cluster tier) with B=128 linear
+numerators of T=500 frames, its backward pass and an SGD update of x, in
+float32 and with ``precision="fast"``: 3 warm-up steps, then 20 steps
+timed one by one with CUDA events; prints the median and the least ms
+of each, after LABEL.  To compare two trees, unpack each into a
+directory and run the tool from each in turns in one call (A, B, B, A;
+a tree without this tool, or without ``--main4``, runs this file with
+its own package first on PYTHONPATH).  It needs a card.
 """
 
 from __future__ import annotations
@@ -49,13 +53,21 @@ def step_times(loss_mod, nums, lens, P, dev, steps=20, warmup=3):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    main4 = "--main4" in argv
+    argv = [a for a in argv if a != "--main4"]
     label = argv[0] if argv else "step"
     dev = resolve_device(None)
     build.build()
     torch.backends.cuda.matmul.allow_tf32 = False
     B, T = 128, 500
-    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
-                                 seed=0, bigram_fanout=30)
+    if main4:
+        den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
+                                     num_pdfs=3000, seed=0,
+                                     bigram_fanout=30,
+                                     forward_pdf_mode="separate")
+    else:
+        den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                     seed=0, bigram_fanout=30)
     den = ChainGraph(den_fst)
     rng = np.random.RandomState(0)
     nums = ChainGraphBatch(

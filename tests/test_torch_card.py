@@ -994,9 +994,15 @@ class TestStream:
                 assert torch.equal(getattr(r, name), getattr(res[0], name))
 
 
+# The fast cluster pair's (G, layout) pairs: the float layout at every G,
+# the packed layout at G = 2 and 4.
+FAST_PLANS = [(1, "float"), (2, "float"), (4, "float"), (2, "packed"),
+              (4, "packed")]
+
+
 class TestStreamFast:
     """B3/B4 in the fast mode (stream_fwd_bf16, stream_bwd_bf16) against
-    the plain fast version with cluster=C, bit for bit."""
+    the plain fast version with cluster=C, bit for bit, in both layouts."""
 
     @staticmethod
     def _case(cuda, mode, num_phones=150):
@@ -1005,12 +1011,12 @@ class TestStreamFast:
         return fa.to(cuda), px.to(cuda), lens.to(cuda)
 
     @pytest.mark.cuda
-    @pytest.mark.parametrize("G", [1, 2, 4])
+    @pytest.mark.parametrize("G,layout", FAST_PLANS)
     @pytest.mark.parametrize("C", [1, 2, 4, 8])
     @pytest.mark.parametrize("mode,want", MODES)
     @pytest.mark.parametrize("debug", [True, False])
     def test_cuda_fast_stream_kernels_match_plain(self, cuda, mode, want, C,
-                                                  G, debug):
+                                                  G, layout, debug):
         """objf, gamma and both traces equal the plain fast version at
         cluster=C; the fast pair's launches alone; gamma on a rerun."""
         fa, px, lens = self._case(cuda, mode)
@@ -1018,7 +1024,7 @@ class TestStreamFast:
         stk.reset_launch_counts()
         got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
                                                debug=debug, cluster=C,
-                                               columns=G)
+                                               columns=G, layout=layout)
         assert stk.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
                                 "stream_fwd_bf16": 1, "stream_bwd_bf16": 1}
         ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=C)
@@ -1029,21 +1035,22 @@ class TestStreamFast:
         assert torch.equal(got.gamma.bfloat16().float(), got.gamma)
         again = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
                                                  debug=debug, cluster=C,
-                                                 columns=G)
+                                                 columns=G, layout=layout)
         assert torch.equal(again.gamma, got.gamma)
 
     @pytest.mark.cuda
+    @pytest.mark.parametrize("layout", ["float", "packed"])
     @pytest.mark.parametrize("C", [1, 2, 4, 8])
     @pytest.mark.parametrize("mode,want", MODES)
     def test_cuda_fast_stream_streams_are_bfloat16(self, cuda, mode, want,
-                                                   C):
+                                                   C, layout):
         """stream_fwd_bf16's four streams are bfloat16 and equal the plain
         fast sweep's (alpha', W1 alpha') and the rounded emissions (x_dst,
         x_src) bit for bit; s_t float32, 1 past each column's end."""
         from pychain_tpu_torch.ops.factorized import forward_prob_fast
         fa, px, lens = self._case(cuda, mode)
         ad_ys, w1ad, xdst, xsrc, s_ys, _, _, _ = stk.stream_fwd(
-            px, lens.int(), fa, LEAKY, cluster=C)
+            px, lens.int(), fa, LEAKY, cluster=C, columns=2, layout=layout)
         for t in (ad_ys, w1ad, xdst) + ((xsrc,) if xsrc is not None
                                         else ()):
             assert t.dtype == torch.bfloat16
@@ -1073,20 +1080,22 @@ class TestStreamFast:
                                                            want, C):
         fa, px, lens = self._case(cuda, mode)
         res = [stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
-                                                cluster=C, columns=G)
-               for G in (1, 2, 4)]
+                                                cluster=C, columns=G,
+                                                layout=layout)
+               for G, layout in FAST_PLANS]
         for r in res[1:]:
             for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
                 assert torch.equal(getattr(r, name), getattr(res[0], name))
 
     @pytest.mark.cuda
-    @pytest.mark.parametrize("G", [1, 2, 4])
-    def test_cuda_fast_stream_with_idle_ranks(self, cuda, G):
+    @pytest.mark.parametrize("G,layout", FAST_PLANS)
+    def test_cuda_fast_stream_with_idle_ranks(self, cuda, G, layout):
         """S_pad 128 at C = 8: ranks 4-7 own no rows."""
         fa, px, lens = self._case(cuda, "separate", num_phones=10)
         assert fa.s_pad == 128
         got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
-                                               cluster=8, columns=G)
+                                               cluster=8, columns=G,
+                                               layout=layout)
         ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=8)
         for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
             assert torch.equal(getattr(got, name), getattr(ref, name)), name
@@ -1129,8 +1138,89 @@ class TestStreamFast:
         fk.reset_launch_counts()
         with pytest.raises(NotImplementedError, match="cluster 3"):
             stk.forward_backward_prob_stream(px, lens, fa, LEAKY, cluster=3)
+        # the packed layout at G = 1, a layout that is not one
+        with pytest.raises(NotImplementedError, match="layout 'packed'"):
+            stk.forward_backward_prob_stream(px, lens, fa, LEAKY, columns=1,
+                                             layout="packed")
+        with pytest.raises(NotImplementedError, match="layout 'wide'"):
+            stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                             layout="wide")
         assert set(stk.LAUNCHES.values()) == {0}
         assert set(fk.LAUNCHES.values()) == {0}
+
+    @pytest.mark.cuda
+    def test_cuda_packed_layout_is_the_fast_modes_alone(self, cuda):
+        """A float32 graph has the float layout alone: the packed one
+        forced raises before any launch."""
+        fa, px, lens = _stream_case("separate")
+        fa, px, lens = fa.to(cuda), px.to(cuda), lens.to(cuda)
+        stk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="layout 'packed'"):
+            stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                             layout="packed")
+        assert set(stk.LAUNCHES.values()) == {0}
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("debug", [True, False])
+    def test_cuda_fast_stream_plan_at_main_path_4_width(self, cuda, debug):
+        """Main path 4's graph (S_pad 12,032) at B = 128 columns of
+        unequal lengths, T = 8, on the plan the card picks (the packed
+        layout at C = G = 2) and on the float layout at (2, 2): both equal
+        the plain fast version at C = 2 bit for bit, and the plan's gamma
+        is the same on a rerun."""
+        den_fst, P = denominator_fst(num_phones=6000, states_per_phone=2,
+                                     num_pdfs=3000, seed=0, bigram_fanout=30,
+                                     forward_pdf_mode="separate")
+        B = 128
+        fa = pt.ChainGraphBatch(pt.ChainGraph(den_fst), B,
+                                tile_dtype="bfloat16", device=cuda)._fact
+        assert fa.s_pad == 12032
+        g = torch.Generator(device=cuda).manual_seed(5)
+        px = torch.exp(torch.randn(B, 8, P, generator=g, device=cuda))
+        lens = torch.randint(1, 9, (B,), generator=g, device=cuda)
+        plans = stk.plan(fa, B, torch.cuda.get_device_properties(cuda),
+                         active=stk.card_active(fa))
+        assert {(p.cluster, p.columns, p.layout) for p in plans.values()} \
+            == {(2, 2, "packed")}
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=2)
+        if not debug:
+            ref = fk._frame0_traces(ref)
+        for kw in ({}, {"cluster": 2, "columns": 2, "layout": "float"}):
+            got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                                   debug=debug, **kw)
+            for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+                assert torch.equal(getattr(got, name), getattr(ref, name)), \
+                    (kw, name)
+        again = stk.forward_backward_prob_stream(px, lens, fa, LEAKY,
+                                                 debug=debug)
+        assert torch.equal(again.gamma, ref.gamma)
+
+    @pytest.mark.cuda
+    def test_cuda_fast_stream_near_the_tiers_largest_graph(self, cuda):
+        """S_pad 46,336 (the tier ends at 46,368 outside identity mode):
+        no packed plan fits, so the plan keeps the float layout (C = 8,
+        G = 1) and the fast pair runs it, bit for bit against the plain
+        fast version."""
+        den_fst, P = denominator_fst(num_phones=23168, states_per_phone=2,
+                                     num_pdfs=3000, seed=0, bigram_fanout=2,
+                                     forward_pdf_mode="separate")
+        fa = pt.ChainGraphBatch(pt.ChainGraph(den_fst), 2,
+                                tile_dtype="bfloat16", device=cuda)._fact
+        assert fa.s_pad == 46336 and stk.fits_stream(fa)
+        plans = stk.plan(fa, 2, torch.cuda.get_device_properties(cuda),
+                         active=stk.card_active(fa))
+        assert {(p.cluster, p.columns, p.layout) for p in plans.values()} \
+            == {(8, 1, "float")}
+        g = torch.Generator(device=cuda).manual_seed(6)
+        px = torch.exp(torch.randn(2, 6, P, generator=g, device=cuda))
+        lens = torch.tensor([6, 4], device=cuda)
+        stk.reset_launch_counts()
+        got = stk.forward_backward_prob_stream(px, lens, fa, LEAKY)
+        assert stk.LAUNCHES["stream_fwd_bf16"] == 1
+        assert stk.LAUNCHES["stream_bwd_bf16"] == 1
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY, cluster=8)
+        for name in ("objf", "gamma", "alpha_beta", "gamma_sum"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
 
 # ----------------------------------------------------------------------

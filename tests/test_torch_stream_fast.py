@@ -18,8 +18,9 @@ they give its numbers bit for bit on the card.  Here, on the CPU:
 * the CPU wrapper: the plain fast version in the caller's cluster order,
   no launch;
 * the graph's fast form for the cluster tier (``KernelGraph.off`` and
-  ``diag``), the W2 source pdfs in its layout, the cluster sums' order,
-  and the shared memory and plan, which do not depend on the precision.
+  ``diag``), the W2 source pdfs in its layout and the cluster sums'
+  order (the fast forms' shared memory and plan, which their packed
+  layout sets, are tests/test_torch_stream_packed.py's).
 
 tests/test_torch_stream.py emulates the fast cluster kernels CTA by CTA
 against the same plain version (bit for bit); tests/test_torch_card.py
@@ -28,7 +29,6 @@ holds the kernels themselves to it on the card.
 
 import dataclasses
 import functools
-import types
 
 import numpy as np
 import jax
@@ -282,32 +282,3 @@ def test_cluster_sum_order(C):
     per = -(-P // C)
     assert [(c.start, c.stop) for c in cols] == [
         (min(P, r * per), min(P, r * per + per)) for r in range(C)]
-
-
-def test_fast_shared_memory_and_plan_are_float32s():
-    """The fast cluster pair keeps every vector in float32, so its shared
-    memory, fits, the tier's limit and the plan are the float32 pair's
-    (stream_fwd_bf16 / stream_bwd_bf16 ask what their float32 forms
-    ask)."""
-    h100 = types.SimpleNamespace(
-        multi_processor_count=132, shared_memory_per_block_optin=232448,
-        shared_memory_per_multiprocessor=233472,
-        max_threads_per_multi_processor=2048,
-        regs_per_multiprocessor=65536)
-    for fast in (False, True):
-        dt = torch.bfloat16 if fast else torch.float32
-        main4 = types.SimpleNamespace(
-            s_pad=12032, xsrc_mode="stream", res_src=torch.zeros(0),
-            w1=types.SimpleNamespace(operand_dtype=dt))
-        assert fk.stream_dtype(main4) == dt
-        assert sk.smem_bytes(main4, 2, 2) == {"stream_fwd": 192792,
-                                              "stream_bwd": 193064}
-        for name in sk.KERNELS:
-            for C in sk.CLUSTERS:
-                for G in sk.COLUMNS:
-                    assert sk.fits(main4, name + "_bf16", C, G) == \
-                        sk.fits(main4, name, C, G)
-        assert sk.fits_stream(main4) and not fk.fits_on_chip(main4)
-        plans = sk.plan(main4, 128, h100)
-        assert set(plans) == set(sk.KERNELS)
-        assert {(p.cluster, p.columns) for p in plans.values()} == {(2, 2)}
