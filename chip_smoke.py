@@ -378,6 +378,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -437,6 +438,23 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+PATH_SECONDS = {}   # each main path's (and phase's) seconds in this run
+
+
+def note_seconds(name, t0):
+    """Print and keep the seconds since t0 (a phase's start)."""
+    PATH_SECONDS[name] = time.perf_counter() - t0
+    print(f"# {name}: {PATH_SECONDS[name]:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def timed_path(name):
+    """Print and keep the seconds of the work inside (a main path)."""
+    t0 = time.perf_counter()
+    yield
+    note_seconds(name, t0)
+
+
 def rel(a, b):
     a, b = a.double(), b.double()
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
@@ -462,16 +480,19 @@ def plain_for(fa, cluster=None):
     return pf.forward_backward_prob_fact
 
 
-def compare(fa, px, lens, leaky_c, debug, label, run=None, cluster=None):
+def compare(fa, px, lens, leaky_c, debug, label, run=None, cluster=None,
+            ref=None):
     """Kernel path (``run``, default B1/B2's) vs plain path on the same
     inputs (in the fast mode the plain version in the cluster pair's
-    order at ``cluster``, which ``run`` must then launch at).  Returns the
+    order at ``cluster``, which ``run`` must then launch at; ``ref``: its
+    result, computed once by the caller for several runs).  Returns the
     observed errors."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops.factorized import is_fast
     run = run or fk.forward_backward_prob_kernel
     got = run(px, lens, fa, leaky_c, debug=debug)
-    ref = plain_for(fa, cluster)(px, lens, fa, leaky_c)
+    if ref is None:
+        ref = plain_for(fa, cluster)(px, lens, fa, leaky_c)
     torch.cuda.synchronize()
     if not debug:
         ref = fk._frame0_traces(ref)
@@ -641,8 +662,9 @@ def stream_plans(fa, B, label):
 
 
 def plan_times(fa, px, lens, leaky_c, label, reps=3):
-    """CUDA-event ms of each kernel at every plan that fits (C, G), on the
-    same inputs; printed, cheapest by the plan's rule first.  In the fast
+    """Each kernel at every plan that fits (C, G), on the same inputs, and
+    the CUDA-event ms of the rule's plan and its runner-up (the rule's
+    first two); printed, cheapest by the plan's rule first.  In the fast
     mode each plan is also held to the plain fast version at its C, bit
     for bit: the forward's alpha' and W1 alpha' streams and s_t, the
     backward's gamma and traces (debug=True, on the streams of the
@@ -661,6 +683,7 @@ def plan_times(fa, px, lens, leaky_c, label, reps=3):
              for name in stk.KERNELS}
     key = lambda p: f"{p.kernel}{'_bf16' if fast else ''} C={p.cluster} " \
         f"G={p.columns} {p.layout}"
+    timed = {key(p) for c in cands.values() for p in c[:2]}
     out, diffs = {}, {}
     live = torch.arange(T, device=px.device)[None, :] < lens[:, None]
     # the float32 pair: every backward plan on the streams of the forward
@@ -687,7 +710,8 @@ def plan_times(fa, px, lens, leaky_c, label, reps=3):
                 n += int(((got[4] != ref_s) & live).sum())
                 diffs[key(p)] = n
             del got
-            out[key(p)] = cuda_ms(fn, reps)
+            if key(p) in timed:
+                out[key(p)] = cuda_ms(fn, reps)
         ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = stk.stream_fwd(
             px, lens32, fa, leaky_c, cluster=C)
         _, tot = fk._objf(s_ys, ad_last, lens32, fa, s0)
@@ -710,11 +734,13 @@ def plan_times(fa, px, lens, leaky_c, label, reps=3):
                     (ab != ref_ab).sum()) + int((gs != ref_gs).sum())
                 del gamma
             fn(debug=False)
-            out[key(p)] = cuda_ms(lambda: fn(debug=False), reps)
+            if key(p) in timed:
+                out[key(p)] = cuda_ms(lambda: fn(debug=False), reps)
         del ad_ys, w1ad, xdst, xsrc
         if fast:
             del ref_gamma
-    print(f"# {label} times at every plan (ms, the rule's order): "
+    print(f"# {label} times at the rule's plan and its runner-up (ms, the "
+          "rule's order; every plan ran): "
           + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
     if fast:
         print(f"# {label} entries not bit-identical to the plain fast "
@@ -1102,11 +1128,13 @@ def check_smem():
     from pychain_tpu_torch.csrc import build
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import stream_kernels as stk
+    lib_of = lambda name: ("fact_ckpt" if name == "fact_ckpt_pair" else
+                           name[:8] if name.startswith("fact") else name)
     c_size = lambda name, *args: getattr(
-        build.load(name[:8] if name.startswith("fact") else name),
-        f"{name}_smem_bytes")(*args)
-    for name in ("fact_fwd", "fact_bwd", "stream_fwd", "stream_bwd"):
-        getattr(build.load(name), f"{name}_smem_bytes").restype = \
+        build.load(lib_of(name)), f"{name}_smem_bytes")(*args)
+    for name in ("fact_fwd", "fact_bwd", "fact_ckpt_pair", "stream_fwd",
+                 "stream_bwd"):
+        getattr(build.load(lib_of(name)), f"{name}_smem_bytes").restype = \
             ctypes.c_size_t
     build.load("fact_fwd").fact_fwd_cluster_smem_bytes.restype = \
         ctypes.c_size_t
@@ -1132,6 +1160,12 @@ def check_smem():
             got[f"fact_fwd fast={fast}"] = fk.smem_bytes(fa)["fact_fwd"]
             want[f"fact_fwd fast={fast}"] = c_size("fact_fwd", s_pad,
                                                    identity, fast)
+            # the ckpt mode's pair kernel: the larger of its roles'
+            for k in (0, 1, 2):
+                got[f"fact_ckpt_pair fast={fast} stages={k}"] = \
+                    fk.pair_smem_bytes(fa, k)
+                want[f"fact_ckpt_pair fast={fast} stages={k}"] = c_size(
+                    "fact_ckpt_pair", s_pad, identity, k, fast)
             # every form on a cluster (C > 1: one formula for every C;
             # fact_bwd_lean's ring with px rows where they fit, P % 4 == 0)
             for k in (0, 1, 2):
@@ -1249,26 +1283,69 @@ def check_smem():
           "viterbi at every layout their plans can choose)", flush=True)
 
 
-def card_tests():
-    """tests/test_torch_card.py on this card, in a fresh interpreter
-    without tests/conftest.py (which imports JAX): every test must pass
-    and none skip."""
+CARD_TEST_SHARDS = 3   # pytest processes at once on the card
+
+
+def card_tests(shards=CARD_TEST_SHARDS):
+    """tests/test_torch_card.py on this card, in fresh interpreters
+    without tests/conftest.py (which imports JAX), its classes spread over
+    ``shards`` pytest processes run at once (each test class whole in one,
+    each process its own --basetemp): every test must pass and none skip.
+    The tests hold bits, not times, and nothing else runs on the card
+    meanwhile."""
+    import tempfile
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-p",
-         "no:cacheprovider", "-q", "-rs", "tests/test_torch_card.py"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=600)
-    lines = out.stdout.strip().splitlines()
-    summary = lines[-1] if lines else ""
-    passed = re.search(r"(\d+) passed", summary)
-    check(out.returncode == 0 and passed is not None and not re.search(
-              r"skipped|failed|error|xfail|xpass|deselected", summary),
-          f"card tests (pytest rc={out.returncode}): {summary}\n"
-          f"{out.stdout[-6000:]}\n{out.stderr[-2000:]}")
-    print(f"# card tests (tests/test_torch_card.py, --noconftest): "
-          f"{passed.group(1)} passed, none skipped, in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    pytest = [sys.executable, "-m", "pytest", "--noconftest", "-p",
+              "no:cacheprovider", "-q", "-rs"]
+    listed = subprocess.run(pytest + ["--collect-only",
+                                      "tests/test_torch_card.py"],
+                            cwd=root, capture_output=True, text=True,
+                            timeout=300)
+    ids = [line for line in listed.stdout.splitlines()
+           if line.startswith("tests/test_torch_card.py::")]
+    check(listed.returncode == 0 and ids, f"card tests: collection failed "
+          f"(rc={listed.returncode})\n{listed.stdout[-3000:]}"
+          f"\n{listed.stderr[-2000:]}")
+    classes = {}
+    for node in ids:
+        classes.setdefault("::".join(node.split("::")[:2]), []).append(node)
+    lots = [[] for _ in range(shards)]
+    for tests in sorted(classes.values(), key=len, reverse=True):
+        min(lots, key=len).extend(tests)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_card_tests_")
+    procs = []
+    try:
+        for k, lot in enumerate(lots):
+            if lot:
+                procs.append(subprocess.Popen(
+                    pytest + ["--durations=4", f"--basetemp={tmp}/{k}",
+                              *lot], cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    total, slow = 0, []
+    for p, (out, err) in zip(procs, outs):
+        lines = out.strip().splitlines()
+        summary = lines[-1] if lines else ""
+        passed = re.search(r"(\d+) passed", summary)
+        check(p.returncode == 0 and passed is not None and not re.search(
+                  r"skipped|failed|error|xfail|xpass|deselected", summary),
+              f"card tests (pytest rc={p.returncode}): {summary}\n"
+              f"{out[-6000:]}\n{err[-2000:]}")
+        total += int(passed.group(1))
+        slow += [" ".join(line.split()) for line in lines
+                 if re.match(r"\s*[0-9.]+s (call|setup|teardown) ", line)]
+    check(total == len(ids), f"card tests: {total} passed of {len(ids)}")
+    print(f"# card tests (tests/test_torch_card.py, --noconftest): {total} "
+          f"passed, none skipped, in {time.perf_counter() - t0:.1f} s on "
+          f"{len(procs)} pytest processes at once ({[len(x) for x in lots]} "
+          f"tests); the slowest: {'; '.join(slow)}", flush=True)
 
 
 def stream_small(dev, leaky_c):
@@ -1572,6 +1649,7 @@ LONG_BIG = (64, 3700)   # bench.py --long --big (bench.py:66-83)
 LONG = (32, 2500)       # bench.py --long
 LONG_F32_T = 1000       # float32 at a cut T: the plain version's time
 ODD_CHUNK = 96          # a ckpt chunk that divides neither 3,700 nor 1,000
+PAIR_NAME = {True: "fact_ckpt_pair_bf16", False: "fact_ckpt_pair"}
 
 
 @contextlib.contextmanager
@@ -1634,7 +1712,8 @@ def mode_bytes_ops(fa, kg, lens, T, P, C):
     place of the three streams, and W1's rows once more), and, summed over
     the call's chunks, fact_fwd_init (the snapshots in, the streams out,
     the graph once a chunk) and fact_bwd_chunk (the streams, the graph
-    and lists once a chunk, the beta' carry out and in).  Returns {form:
+    and lists once a chunk, the beta' carry out and in), and the two
+    together for the paired scan (fact_ckpt_pair).  Returns {form:
     (bytes, ops)}."""
     B, L = lens.shape[0], int(lens.sum())
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
@@ -1656,7 +1735,7 @@ def mode_bytes_ops(fa, kg, lens, T, P, C):
     snaps = sum(int(n) // C for n in lens.tolist()) * s_pad * entry
     fwd_ops = 2 * nnz * L + 7 * s_pad * L
     bwd_ops = 2 * nnz * L + 15 * s_pad * L
-    return {
+    out = {
         "fact_fwd": (px_read + graph + n_streams * stream + sums + last,
                      fwd_ops),
         "fact_bwd": (n_streams * stream + sums + graph + lists + gamma,
@@ -1675,13 +1754,16 @@ def mode_bytes_ops(fa, kg, lens, T, P, C):
                            + 2 * (n_chunks - 1) * B * (s_pad + 1) * 4,
                            bwd_ops),
     }
+    # the paired scan: both forms' work
+    out["fact_ckpt_pair"] = tuple(a + b for a, b in zip(
+        out["fact_fwd_init"], out["fact_bwd_chunk"]))
+    return out
 
 
-def chunk_runs(fa, px, lens32, leaky_c, C):
-    """The ckpt mode's 58 (T / C) replays and chunk backwards of one call
-    on the fast sweep's snapshots, each chunk's streams in buffers of
-    their own: (replays(cluster), backwards(cluster)), each running all
-    of a call's chunks at ``cluster`` CTAs a column (None: the plan's)."""
+def ckpt_chunks(fa, px, lens32, leaky_c, C):
+    """One ckpt call's chunks on the fast sweep's snapshots, each chunk's
+    streams in buffers of their own: a namespace of chunks [(t0, alpha'(t0),
+    s_{t0}, streams)], s_ys, ad0, s0, tot, the outputs and the carry."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     B, T, P = px.shape
     snaps, s_ys, ad_last, ad0, s0 = fk.fact_fwd_snap(px, lens32, fa, leaky_c,
@@ -1699,22 +1781,45 @@ def chunk_runs(fa, px, lens32, leaky_c, C):
                                     device=px.device)
                         for _ in range(n_streams)]
                        + [None] * (4 - n_streams)))
-    outs = fk._outputs(B, T, P, px.device)
-    carry = (torch.empty((B, fa.s_pad), device=px.device),
-             torch.empty(B, device=px.device))
+    return types.SimpleNamespace(
+        chunks=chunks, s_ys=s_ys, ad0=ad0, s0=s0, tot=tot,
+        outs=fk._outputs(B, T, P, px.device),
+        carry=(torch.empty((B, fa.s_pad), device=px.device),
+               torch.empty(B, device=px.device)))
+
+
+def chunk_runs(fa, px, lens32, leaky_c, C):
+    """The ckpt mode's 58 (T / C) replays and chunk backwards of one call
+    (:func:`ckpt_chunks`): (replays(cluster), backwards(cluster), paired()),
+    the first two running all of a call's chunks at ``cluster`` CTAs a
+    column (None: the plan's), the third the paired scan
+    (fact_ckpt_pair on fact_kernels.pair_schedule) over the same
+    buffers."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    ck = ckpt_chunks(fa, px, lens32, leaky_c, C)
 
     def replays(cluster=None):
-        for t0, ad_init, s_init, streams in chunks:
+        for t0, ad_init, s_init, streams in ck.chunks:
             fk.fact_fwd_init(px, lens32, fa, leaky_c, t0, ad_init, s_init,
                              streams, cluster)
 
     def backwards(cluster=None):
-        for t0, ad_init, _, streams in reversed(chunks):
-            fk.fact_bwd_chunk(lens32, fa, leaky_c, streams, s_ys, ad0, s0,
-                              tot, t0, ad_init, outs, carry, debug=False,
-                              cluster=cluster)
+        for t0, ad_init, _, streams in reversed(ck.chunks):
+            fk.fact_bwd_chunk(lens32, fa, leaky_c, streams, ck.s_ys, ck.ad0,
+                              ck.s0, ck.tot, t0, ad_init, ck.outs, ck.carry,
+                              debug=False, cluster=cluster)
 
-    return replays, backwards
+    def paired():
+        for kb, kf in fk.pair_schedule(len(ck.chunks)):
+            back = None if kb is None else ck.chunks[kb]
+            fk.fact_ckpt_pair(
+                px, lens32, fa, leaky_c,
+                None if kf is None else ck.chunks[kf],
+                None if back is None else (back[0], back[1], back[3]),
+                ck.s_ys, ck.ad0, ck.s0, ck.tot, ck.outs, ck.carry,
+                debug=False)
+
+    return replays, backwards, paired
 
 
 def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
@@ -1722,7 +1827,8 @@ def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
     plan's cluster size (CUDA events, the mean of ``reps`` calls):
     fact_fwd and fact_bwd (full), fact_fwd_snap at 1 and fact_bwd_lean
     (lean), fact_fwd_snap at C and, over all the call's chunks,
-    fact_fwd_init and fact_bwd_chunk (ckpt), each chunk's streams in
+    fact_fwd_init and fact_bwd_chunk (ckpt, unpaired) and the paired scan
+    (fact_ckpt_pair: its T / C + 1 launches), each chunk's streams in
     buffers of their own.  Returns {form: ms}."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     fwd_ms, bwd_ms = pair_times(fa, px, lens32, leaky_c, fk.fact_fwd,
@@ -1739,10 +1845,45 @@ def mode_kernel_times(fa, px, lens32, leaky_c, C, reps=3):
     del ad1
     out["fact_fwd_snap ckpt"] = cuda_ms(
         lambda: fk.fact_fwd_snap(px, lens32, fa, leaky_c, C), reps)
-    replays, backwards = chunk_runs(fa, px, lens32, leaky_c, C)
+    replays, backwards, paired = chunk_runs(fa, px, lens32, leaky_c, C)
     out["fact_fwd_init"] = cuda_ms(replays, reps)
     out["fact_bwd_chunk"] = cuda_ms(backwards, reps)
+    paired()
+    out["fact_ckpt_pair"] = cuda_ms(paired, reps)
     return out
+
+
+def pair_checks(label, fa, px, lens32, leaky_c, C, res):
+    """The ckpt mode's paired scan against the unpaired one (both through
+    fact_kernels._ckpt, the choice forced; ``res``: the paired result of
+    forward_backward_prob_kernel), bit for bit, and one pair launch's
+    blocks on 2 B distinct SMs (smid), chunk k's backward beside chunk
+    k - 1's replay in the middle of the call."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    B, T, P = px.shape
+    objf, outs = fk._ckpt(px, lens32, fa, leaky_c, True, None, C,
+                          paired=False)
+    diff = bit_diff(res, {"objf": objf, "gamma": outs[0],
+                          "alpha_beta": outs[1], "gamma_sum": outs[2]})
+    del outs
+    ck = ckpt_chunks(fa, px, lens32, leaky_c, C)
+    k = len(ck.chunks) // 2
+    t0, ad_init, _, streams = ck.chunks[k]
+    fk.fact_fwd_init(px, lens32, fa, leaky_c, *ck.chunks[k], cluster=1)
+    smid = torch.full((2 * B,), -1, dtype=torch.int32, device=px.device)
+    fk.fact_ckpt_pair(px, lens32, fa, leaky_c, ck.chunks[k - 1],
+                      (t0, ad_init, streams), ck.s_ys, ck.ad0, ck.s0, ck.tot,
+                      ck.outs, ck.carry, smid=smid)
+    torch.cuda.synchronize()
+    sms = len(set(smid.tolist()))
+    del ck
+    print(f"# {label}: ckpt paired against unpaired, entries that differ "
+          f"{diff}; one pair launch (chunk {k}'s backward beside chunk "
+          f"{k - 1}'s replay) on {sms} distinct SMs for {2 * B} blocks",
+          flush=True)
+    check(sum(diff.values()) == 0 and bool((smid >= 0).all())
+          and sms == 2 * B, f"{label}: paired ckpt {diff}, {sms} SMs")
+    return sms
 
 
 def plain_ckpt_pieces(px, lens64, fa, leaky_c, C, graph, alpha_dash, s_ys,
@@ -1801,17 +1942,36 @@ def bit_diff(got, ref, names=("objf", "gamma", "alpha_beta", "gamma_sum")):
     return {k: int((field(got, k) != field(ref, k)).sum()) for k in names}
 
 
+@contextlib.contextmanager
+def ckpt_unpaired():
+    """The ckpt mode's chunk scan unpaired (fact_fwd_init, then
+    fact_bwd_chunk, at their plans), as before the pair kernel:
+    fact_kernels.ckpt_paired stubbed to False."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    real = fk.ckpt_paired
+    fk.ckpt_paired = lambda *args, **kw: False
+    try:
+        yield
+    finally:
+        fk.ckpt_paired = real
+
+
 def mode_steps(label, x, lens, batch, leaky_c, counters):
     """Each stream mode's step on x (B, T, P), a leaf: through the user's
     entry point, chain_function, under "auto" with the card's budget
     ("full"), then with a budget of one stream ("lean") and of one byte
-    ("ckpt" at the default C); then the ckpt mode forced at a chunk that
-    does not divide T (stream_mode=, ckpt_chunk=, as
+    ("ckpt" at the default C, its chunk scan paired where the plan takes
+    the pair: B <= 66 on an H100), the same with the scan unpaired
+    (:func:`ckpt_unpaired`: "ckpt unpaired"); then the ckpt mode forced at
+    a chunk that does not divide T (stream_mode=, ckpt_chunk=, as
     forward_backward_prob_pallas's callers ask: clamp, exp and the
     kernels, as chain_function runs them, without autograd).  Every count
-    0 before each mode's first step, read after it, and checked.  Returns
-    {mode: objf, launches, best ms (of 3 after a warm-up), all ms, peak
-    memory, the peak over what was held before}."""
+    0 before each mode's first step, read after it, and checked (the
+    pair's roles too).  The paired ckpt step's peak over what was held
+    exceeds the unpaired one's by at most one chunk's streams (its
+    second set).  Returns {mode: objf, launches, roles, best ms (of 3
+    after a warm-up), all ms, peak memory, the peak over what was held
+    before}."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     fa = batch._fact
     B, T, _ = x.shape
@@ -1820,6 +1980,8 @@ def mode_steps(label, x, lens, batch, leaky_c, counters):
     lens_dev = lens.to(x.device)
     sfx = "_bf16" if fk.stream_dtype(fa) == torch.bfloat16 else ""
     odd = f"ckpt C={ODD_CHUNK}"
+    paired = fk.ckpt_paired(B, torch.cuda.get_device_properties(x.device),
+                            fa)
 
     def odd_step():
         with torch.no_grad():
@@ -1829,9 +1991,9 @@ def mode_steps(label, x, lens, batch, leaky_c, counters):
         return float(r.objf.sum())
 
     steps = {"full": (None, "the card's"), "lean": (row, "one stream's"),
-             "ckpt": (1, "one byte's")}
+             "ckpt": (1, "one byte's"), "ckpt unpaired": (1, "one byte's")}
     stats = {}
-    for mode in ("full", "lean", "ckpt", odd):
+    for mode in ("full", "lean", "ckpt", "ckpt unpaired", odd):
         if mode == odd:
             fn, how = odd_step, (f"stream_mode=\"ckpt\", ckpt_chunk="
                                  f"{ODD_CHUNK}, no autograd")
@@ -1839,25 +2001,45 @@ def mode_steps(label, x, lens, batch, leaky_c, counters):
             stub, name = steps[mode]
             fn = functools.partial(den_step, x, lens, batch, stub)
             how = f"chain_function, auto under {name} budget"
-        reset_counts(counters)
-        objf = fn()
-        launched = fk.launched()
-        best, times, peak, over = step_stats(fn)
-        stats[mode] = {"objf": objf, "launches": launched, "ms": best,
-                       "all_ms": times, "peak": peak, "over_held": over}
+        scope = ckpt_unpaired() if mode == "ckpt unpaired" else \
+            contextlib.nullcontext()
+        with scope:
+            reset_counts(counters)
+            fk.reset_launch_counts()
+            objf = fn()
+            launched, roles = fk.launched(), fk.roles_launched()
+            best, times, peak, over = step_stats(fn)
+        stats[mode] = {"objf": objf, "launches": launched, "roles": roles,
+                       "ms": best, "all_ms": times, "peak": peak,
+                       "over_held": over}
         print(f"# {label} {mode} ({how}): objf {objf!r}; launches "
-              f"{launched}; step ms {best:.3f} (best of "
-              f"{[round(t, 3) for t in times]}, CUDA events); peak device "
-              f"memory {peak / 1e9:.3f} GB, {over / 1e9:.3f} GB over what "
-              "was held before the step", flush=True)
+              f"{launched}, the pair's roles {roles}; step ms {best:.3f} "
+              f"(best of {[round(t, 3) for t in times]}, CUDA events); peak "
+              f"device memory {peak / 1e9:.3f} GB, {over / 1e9:.3f} GB over "
+              "what was held before the step", flush=True)
         n = -(-T // (ODD_CHUNK if mode == odd else C))
+        pair = paired and mode != "ckpt unpaired"
         want = ({"fact_fwd": 1, "fact_bwd": 1} if mode == "full" else
                 {"fact_fwd_snap": 1, "fact_bwd_lean": 1} if mode == "lean"
+                else {"fact_fwd_snap": 1, "fact_ckpt_pair": n + 1} if pair
                 else {"fact_fwd_snap": 1, "fact_fwd_init": n,
                       "fact_bwd_chunk": n})
         want = {k + sfx: v for k, v in want.items()}
-        check(launched == want, f"{label} {mode}: launches {launched}, want "
-              f"{want}")
+        want_roles = ({f"fact_fwd_init{sfx}": n, f"fact_bwd_chunk{sfx}": n}
+                      if pair and mode.startswith("ckpt") else {})
+        check(launched == want and roles == want_roles,
+              f"{label} {mode}: launches {launched}, roles {roles}, want "
+              f"{want}, {want_roles}")
+    # the second set of chunk streams: at most one chunk's more
+    n_streams = 3 if fa.xsrc_mode == "identity" else 4
+    chunk_bytes = n_streams * B * C * fa.s_pad * fk.stream_dtype(fa).itemsize
+    more = stats["ckpt"]["over_held"] - stats["ckpt unpaired"]["over_held"]
+    print(f"# {label}: ckpt paired {stats['ckpt']['ms']:.3f} ms against "
+          f"unpaired {stats['ckpt unpaired']['ms']:.3f} ms a step; its peak "
+          f"over what was held {more} bytes more (one chunk's streams: "
+          f"{chunk_bytes})", flush=True)
+    check(more <= chunk_bytes, f"{label}: the paired ckpt step holds {more} "
+          f"bytes more than the unpaired, past one chunk's {chunk_bytes}")
     return stats
 
 
@@ -1975,7 +2157,8 @@ def cluster_ab(fa, px, lens32, leaky_c, C, ckpt_chunk, reps=3):
     st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=1)
     tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
     ad1 = fk.fact_fwd_snap(px, lens32, fa, leaky_c, cluster=1)[0]
-    replays, backwards = chunk_runs(fa, px, lens32, leaky_c, ckpt_chunk)
+    replays, backwards, _ = chunk_runs(fa, px, lens32, leaky_c,
+                                       ckpt_chunk)
     plan = lambda c: None if c == C else 1
     call = lambda mode: lambda c: fk.forward_backward_prob_kernel(
         px, lens32, fa, leaky_c, debug=False, stream_mode=mode,
@@ -2120,6 +2303,13 @@ def long_fast(den, P, dev, leaky_c, counters):
     want_ckpt = {"objf": objf_p, "gamma": g, "alpha_beta": ab,
                  "gamma_sum": gs}
     diffs["ckpt"] = bit_diff(res["ckpt"], want_ckpt)
+    # the chunk that divides neither T: its plain scan from the same
+    # sweep's snapshots (factorized.forward_backward_prob_ckpt's)
+    odd = plain_ckpt_pieces(px, lens64, fa, leaky_c, ODD_CHUNK, graph,
+                            alpha_dash, s_plain, tot_p)[:3]
+    diffs[f"ckpt C={ODD_CHUNK}"] = bit_diff(res[f"ckpt C={ODD_CHUNK}"], dict(
+        zip(("objf", "gamma", "alpha_beta", "gamma_sum"), (objf_p, *odd))))
+    del odd
     # the ckpt mode with every form at each C
     for cl in (1, C7, 4):
         r = fk.forward_backward_prob_kernel(
@@ -2140,14 +2330,11 @@ def long_fast(den, P, dev, leaky_c, counters):
         f"chunk {probe} W1 alpha'": int((streams[1].float()
                                          != w1_pr.permute(2, 0, 1)).sum())}
     del streams, ad_pr, w1_pr, snaps
-    odd, odd_plain_ms = event_ms(lambda: pf.forward_backward_prob_ckpt(
-        px, lens32, fa, leaky_c, ODD_CHUNK))
-    diffs[f"ckpt C={ODD_CHUNK}"] = bit_diff(res[f"ckpt C={ODD_CHUNK}"], odd)
-    del odd
     print(f"# {label}: entries not bit-identical to the plain fast version "
           f"{diffs}", flush=True)
     check(all(v == 0 for d in diffs.values() for v in d.values()),
           f"{label}: a kernel differs from its plain version: {diffs}")
+    pair_sms = pair_checks(label, fa, px, lens32, leaky_c, C, res["ckpt"])
     del res
     times = mode_kernel_times(fa, px, lens32, leaky_c, C)
     costs = mode_bytes_ops(fa, kg, lens32, T, P, C)
@@ -2156,15 +2343,18 @@ def long_fast(den, P, dev, leaky_c, counters):
              "fact_bwd_lean": lean_bwd_ms,
              "fact_fwd_snap ckpt": snap_plain_ms,
              "fact_fwd_init": init_plain_ms,
-             "fact_bwd_chunk": chunk_plain_ms}
+             "fact_bwd_chunk": chunk_plain_ms,
+             "fact_ckpt_pair": init_plain_ms + chunk_plain_ms}
     print(f"# {label} kernel ms (each alone; init and chunk over the call's "
-          f"{n_chunks} chunks): " + ", ".join(
+          f"{n_chunks} chunks, unpaired, and the paired scan's "
+          f"{n_chunks + 1} launches): " + ", ".join(
               f"{k} {v:.3f} (bound {bound(*costs[k])[0]:.4f}, plain "
               f"{plain[k]:.1f})" for k, v in times.items()), flush=True)
-    ab_c = cluster_ab(fa, px, lens32, leaky_c, C7, C)
+    ab_c = cluster_ab(fa, px, lens32, leaky_c, C7, C, reps=1)
     print(f"# {label}: each form at C=1 and at C={C7}, each mode's call with "
           "every form at C=1 and at its plan's C, in one call, in turns "
-          "(1, C, C, 1; CUDA events, mean of 3, best turn; peak device "
+          "(1, C, C, 1; CUDA events, one timed call a turn, the best; "
+          "peak device "
           "memory of a call over what was held): " + ", ".join(
               f"{k} {v[1][0]:.3f} ms ({v[1][1] / 1e9:.3f} GB) -> "
               f"{v[C7][0]:.3f} ms ({v[C7][1] / 1e9:.3f} GB)"
@@ -2176,6 +2366,9 @@ def long_fast(den, P, dev, leaky_c, counters):
                 "err": 0.0, "C": C, "n_chunks": n_chunks}
             for k in times}
     for k in rows:
+        if k == "fact_ckpt_pair":
+            rows[k].update({"cluster": 1, "pair_sms": pair_sms})
+            continue
         rows[k].update({"cluster": plan[k.split()[0]],
                         "ab_ms": ab_c[k][C7][0], "c1_ms": ab_c[k][1][0],
                         "ab_cluster": C7,
@@ -2211,6 +2404,8 @@ def long_f32(den, P, dev, leaky_c, counters):
     del x
     lens = torch.full((B,), T, device=dev)
     launches, errs, results = {}, {}, {}
+    # in float32 every mode's plain version is one function: run it once
+    ref = plain_for(fa, None)(px, lens, fa, leaky_c)
     for key, mode, chunk in (("full", "full", None), ("lean", "lean", None),
                              ("ckpt", "ckpt", None),
                              (f"ckpt C={ODD_CHUNK}", "ckpt", ODD_CHUNK)):
@@ -2222,13 +2417,18 @@ def long_f32(den, P, dev, leaky_c, counters):
         errs[key] = compare(fa, px, lens, leaky_c, True, f"{label} {key}",
                             functools.partial(fk.forward_backward_prob_kernel,
                                               stream_mode=mode,
-                                              ckpt_chunk=chunk))
+                                              ckpt_chunk=chunk), ref=ref)
+    del ref
     # every form at the plan's C (B=64 on an H100: 2, fact_bwd and
     # fact_bwd_chunk 1), at C = 1 and at C = 2
     for mode in ("full", "lean", "ckpt"):
         for cl in (1, 2):
             results[f"{mode} C={cl}"] = fk.forward_backward_prob_kernel(
                 px, lens, fa, leaky_c, stream_mode=mode, cluster=cl)
+    # the ckpt mode's scan unpaired at its plan (the paired one: "ckpt")
+    objf, outs = fk._ckpt(px, lens.int(), fa, leaky_c, True, None, C,
+                          paired=False)
+    results["ckpt unpaired"] = fk._package_result(objf, *outs)
     same = {k: bit_diff(results[k], results["full"])
             for k in results if k != "full"}
     print(f"# {label}: launches {launches}; entries that differ from the "
@@ -2238,8 +2438,7 @@ def long_f32(den, P, dev, leaky_c, counters):
           f"to full: {same}")
     check(launches["lean"] == {"fact_fwd_snap": 1, "fact_bwd_lean": 1}
           and launches["ckpt"] == {"fact_fwd_snap": 1,
-                                   "fact_fwd_init": -(-T // C),
-                                   "fact_bwd_chunk": -(-T // C)},
+                                   "fact_ckpt_pair": -(-T // C) + 1},
           f"{label}: launches {launches}")
     del results
     times = mode_kernel_times(fa, px, lens.int(), leaky_c, C)
@@ -2253,11 +2452,15 @@ def long_f32(den, P, dev, leaky_c, counters):
     rows = {}
     for k, ms in times.items():
         fwd = k.startswith("fact_fwd")
-        rows[k] = {"ms": ms, "plain_ms": plain[2 if fwd else 3],
+        pair = k == "fact_ckpt_pair"
+        rows[k] = {"ms": ms, "plain_ms": (plain[2] + plain[3] if pair else
+                                          plain[2 if fwd else 3]),
                    "bytes": costs[k][0], "ops": costs[k][1],
-                   "err": fwd_err if fwd else bwd_err, "C": C,
+                   "err": max(fwd_err, bwd_err) if pair
+                   else fwd_err if fwd else bwd_err, "C": C,
                    "n_chunks": -(-T // C)}
-        rows[k]["cluster"] = fk.cluster_size(B, props, fa, k.split()[0])
+        rows[k]["cluster"] = 1 if pair else fk.cluster_size(
+            B, props, fa, k.split()[0])
     print(f"# {label} kernel ms: " + ", ".join(
         f"{k} {v['ms']:.3f} (bound {bound(v['bytes'], v['ops'])[0]:.4f})"
         for k, v in rows.items()) + f"; plain fwd {plain[2]:.1f}, plain "
@@ -2355,9 +2558,12 @@ def main_path_7(den, P, dev, leaky_c, counters):
     configuration unchanged (the headline graph, B=64, T=3,700, all
     lengths T, bfloat16 tiles), its step the value and gradient of the
     denominator objective (bench.py:453-463)."""
-    stats, fast_rows = long_fast(den, P, dev, leaky_c, counters)
-    f32_stats, f32_rows = long_f32(den, P, dev, leaky_c, counters)
-    auto, long_rows = long_auto(den, P, dev, leaky_c, counters)
+    with timed_path("main path 7, B=64 T=3700 bfloat16"):
+        stats, fast_rows = long_fast(den, P, dev, leaky_c, counters)
+    with timed_path("main path 7, float32 at T=1000"):
+        f32_stats, f32_rows = long_f32(den, P, dev, leaky_c, counters)
+    with timed_path("main path 7, bench.py --long"):
+        auto, long_rows = long_auto(den, P, dev, leaky_c, counters)
     return {"stats": stats, "fast_rows": fast_rows, "f32_stats": f32_stats,
             "f32_rows": f32_rows, "long": auto, "long_rows": long_rows}
 
@@ -5049,6 +5255,7 @@ def main():
     from pychain_tpu_torch.utils.testgraphs import (denominator_fst,
                                                     linear_fst)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     # PyTorch's defaults, under which main path 5 trains; the kernel
     # checks run without TF32
@@ -5076,8 +5283,10 @@ def main():
     print(f"# native host library (g++ {' '.join(native.FLAGS)}): "
           f"{lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     check_smem()
-    card_tests()
+    with timed_path("card tests"):
+        card_tests()
     leaky_c = 1e-5
+    t_phase = time.perf_counter()
 
     # -- phase 3: kernels vs plain, small graphs -------------------------
     errs_small = []
@@ -5239,31 +5448,37 @@ def main():
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
                     .manual_seed(2), device=dev).requires_grad_(True)
     x_lengths = torch.full((B,), T, dtype=torch.int32)
-    _, step_ms, launches = train_steps(
-        loss_mod, x, x_lengths, num_batch, (fk.LAUNCHES, sk.LAUNCHES),
-        want_launches((fk.LAUNCHES, sk.LAUNCHES), fact_fwd=1, fact_bwd=1),
-        "main path 1 (linear numerators)")
-    profiled_step(loss_mod, x, x_lengths, num_batch, "linear numerators")
+    note_seconds("kernel checks before main path 1", t_phase)
+    with timed_path("main path 1"):
+        _, step_ms, launches = train_steps(
+            loss_mod, x, x_lengths, num_batch, (fk.LAUNCHES, sk.LAUNCHES),
+            want_launches((fk.LAUNCHES, sk.LAUNCHES), fact_fwd=1,
+                          fact_bwd=1), "main path 1 (linear numerators)")
+        profiled_step(loss_mod, x, x_lengths, num_batch, "linear numerators")
 
     # -- phase 5b: main path 1 in the fast mode --------------------------
-    fast_step_ms, fast_launches, fast_loss_rel, fast_loss = \
-        main_path_1_fast(den, B, T, P, dev, (fk.LAUNCHES, sk.LAUNCHES))
+    with timed_path("main path 1 fast"):
+        fast_step_ms, fast_launches, fast_loss_rel, fast_loss = \
+            main_path_1_fast(den, B, T, P, dev, (fk.LAUNCHES, sk.LAUNCHES))
 
     # -- phase 5c: main path 5, training (bench.py --train) --------------
-    p5 = main_path_5(den, fast_loss, loss_mod, B, T, P, dev,
-                     (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES), tf32_defaults)
+    with timed_path("main path 5"):
+        p5 = main_path_5(den, fast_loss, loss_mod, B, T, P, dev,
+                         (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES),
+                         tf32_defaults)
     del fast_loss
 
     # -- phase 6: main path 2, flat-start numerators ---------------------
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
                     .manual_seed(5), device=dev).requires_grad_(True)
-    _, flat_step_ms, flat_launches = train_steps(
-        loss_mod, x, x_lengths, flat_batch, (fk.LAUNCHES, sk.LAUNCHES),
-        want_launches((fk.LAUNCHES, sk.LAUNCHES), fact_fwd=1, fact_bwd=1,
-                      semiring_fwd=1, semiring_bwd=1),
-        "main path 2 (flat-start numerators)")
-    profiled_step(loss_mod, x, x_lengths, flat_batch,
-                  "flat-start numerators")
+    with timed_path("main path 2"):
+        _, flat_step_ms, flat_launches = train_steps(
+            loss_mod, x, x_lengths, flat_batch, (fk.LAUNCHES, sk.LAUNCHES),
+            want_launches((fk.LAUNCHES, sk.LAUNCHES), fact_fwd=1,
+                          fact_bwd=1, semiring_fwd=1, semiring_bwd=1),
+            "main path 2 (flat-start numerators)")
+        profiled_step(loss_mod, x, x_lengths, flat_batch,
+                      "flat-start numerators")
 
     # -- phase 7: the Viterbi kernel vs plain, small batches --------------
     from pychain_tpu_torch.ops import viterbi_kernels as vk
@@ -5271,10 +5486,11 @@ def main():
 
     # -- phase 8: main path 3, realignment -------------------------------
     x_flat = x.detach().clone()      # main path 2's x, for the class below
-    re_step_ms, re_launches, align_ms, _, re_batch = realign(
-        loss_mod, x, x_lengths, flat_batch,
-        flat_start_phones(B, 1500, 100, 150, seed=0), 1500,
-        (fk.LAUNCHES, sk.LAUNCHES), vk.LAUNCHES)
+    with timed_path("main path 3"):
+        re_step_ms, re_launches, align_ms, _, re_batch = realign(
+            loss_mod, x, x_lengths, flat_batch,
+            flat_start_phones(B, 1500, 100, 150, seed=0), 1500,
+            (fk.LAUNCHES, sk.LAUNCHES), vk.LAUNCHES)
     del x
     # the semiring pair at main path 3's constrained batch (the "xl" class
     # by the JAX package's rule), under the x it was aligned on
@@ -5287,6 +5503,7 @@ def main():
     # the alignment of main path 3 given the batch's GraphArrays
     viterbi_of_graph_arrays(flat_batch, x_flat, lens, vk.LAUNCHES)
 
+    t_phase = time.perf_counter()
     # -- phase 9: the Viterbi size classes -------------------------------
     vit_classes = {"realign": vit_class("realign", flat_batch.semiring(),
                                         x_flat, lens, 5)}
@@ -5312,6 +5529,8 @@ def main():
     del den_batch, fa, kg, px, x_lengths, flat_batch, num_batch, loss_mod
     torch.cuda.empty_cache()
 
+    note_seconds("the Viterbi classes and decoding", t_phase)
+    t_phase = time.perf_counter()
     # -- phase 11: the cluster kernels, small graphs and the s8k class ---
     errs_stream_small = stream_small(dev, leaky_c)
     s8k = s8k_class(dev, leaky_c)
@@ -5320,8 +5539,12 @@ def main():
     errs_ringless = ringless_class(dev, leaky_c)
     torch.cuda.empty_cache()
 
+    note_seconds("the cluster kernels' checks (small, s8k, ringless)",
+                 t_phase)
     # -- phase 12: main path 4, the 12k-state Kaldi-topology denominator -
-    m4 = main_path_4(dev, leaky_c, (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES))
+    with timed_path("main path 4"):
+        m4 = main_path_4(dev, leaky_c,
+                         (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES))
     stream_classes["main4"] = m4[:5]
     m4_step_ms, m4_launches, m4_fast, m4_fast_step_ms, m4_fast_launches = \
         m4[5:]
@@ -5330,13 +5553,16 @@ def main():
     # -- phase 12b: main path 6, the corpus recipe -----------------------
     # the recipe runs under PyTorch's defaults (a user's run), the checks
     # of its kernels without TF32
-    p6 = main_path_6((fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES),
-                     B / (p5["step_ms"] / 1e3), tf32_defaults)
+    with timed_path("main path 6"):
+        p6 = main_path_6((fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES,
+                          vk.LAUNCHES), B / (p5["step_ms"] / 1e3),
+                         tf32_defaults)
     torch.cuda.empty_cache()
 
     # -- phase 12c: main path 7, long utterances (bench.py --long --big) --
-    p7 = main_path_7(den, P, dev, leaky_c,
-                     (fk.LAUNCHES, sk.LAUNCHES, stk.LAUNCHES, vk.LAUNCHES))
+    with timed_path("main path 7"):
+        p7 = main_path_7(den, P, dev, leaky_c, (fk.LAUNCHES, sk.LAUNCHES,
+                                                stk.LAUNCHES, vk.LAUNCHES))
     torch.cuda.empty_cache()
 
     # -- phase 12d: main path 8, a shared log-domain graph ---------------
@@ -5350,8 +5576,7 @@ def main():
     # -- phase 12f: the examples and the graph-building CLI ---------------
     examples = examples_phase(all_counters)
     torch.cuda.empty_cache()
-    print(f"# phases 12d-12f (main path 8, the gather A/Bs, the examples): "
-          f"{time.perf_counter() - t8:.1f} s", flush=True)
+    note_seconds("main path 8, the gather A/Bs, the examples", t8)
 
     # -- phase 12g: main path 9, data parallelism and dense_list ----------
     t9 = time.perf_counter()
@@ -5366,19 +5591,21 @@ def main():
     del pb, px_, pres
     torch.cuda.empty_cache()
     print(f"# main path 9 launches (the sharded steps, the --dp runs, the "
-          f"semiring kernels of (e)): {p9_launches}; phase 12g "
-          f"{time.perf_counter() - t9:.1f} s", flush=True)
+          f"semiring kernels of (e)): {p9_launches}", flush=True)
+    note_seconds("main path 9", t9)
     for k in ("fact_fwd", "fact_bwd", "fact_fwd_bf16", "fact_bwd_bf16",
               "semiring_fwd", "semiring_bwd"):
         check(p9_launches.get(k), f"main path 9 launched no {k}")
 
     # -- phase 12h: main path 10, the model axis ---------------------------
-    p10, p10_launches = main_path_10(p5["step_ms"])
+    with timed_path("main path 10"):
+        p10, p10_launches = main_path_10(p5["step_ms"])
     torch.cuda.empty_cache()
 
     # -- phase 13: the XL roofline probe ----------------------------------
     from pychain_tpu_torch.tools import xl_roofline as xr
-    xl_rows = xl_probe(dev)
+    with timed_path("the XL probe"):
+        xl_rows = xl_probe(dev)
 
     # -- phase 13: the kernels line --------------------------------------
     rows = []
@@ -5471,21 +5698,30 @@ def main():
     # B1/B2's forms on main path 7 (bench.py --long --big): each with its
     # launches in its mode's run; fact_fwd_init and fact_bwd_chunk timed
     # over all of a call's chunks
+    # launches in its mode's run (the paired ckpt scan: the pair's
+    # launches, and its roles' in the init and chunk rows); fact_fwd_init
+    # and fact_bwd_chunk carry the paired scan's time for a call, the
+    # pair's work as their bound, and their own time and bound unpaired
     modes = {"fact_fwd": "full", "fact_bwd": "full",
              "fact_fwd_snap lean": "lean", "fact_bwd_lean": "lean",
              "fact_fwd_snap ckpt": "ckpt", "fact_fwd_init": "ckpt",
-             "fact_bwd_chunk": "ckpt"}
+             "fact_bwd_chunk": "ckpt", "fact_ckpt_pair": "ckpt"}
     for fast, p7_rows in ((True, p7["fast_rows"]), (False, p7["f32_rows"])):
+        stats = p7["stats" if fast else "f32_stats"]
+        pair = p7_rows["fact_ckpt_pair"]
         for key, r in p7_rows.items():
             form = key.split()[0]
             name = form + ("_bf16" if fast else "")
             mode = modes[key]
-            launched = p7["stats" if fast else "f32_stats"][mode][
-                "launches"].get(name, 0)
+            launched = (stats[mode]["launches"].get(name, 0)
+                        + stats[mode]["roles"].get(name, 0))
+            role = form in ("fact_fwd_init", "fact_bwd_chunk")
+            per_call = role or form == "fact_ckpt_pair"
             line, fn = ((457, "_fwd_kernel_factory") if "fwd" in form
                         else (768, "_bwd_kernel_factory"))
-            bms, by = bound(r["bytes"], r["ops"])
-            per_call = form in ("fact_fwd_init", "fact_bwd_chunk")
+            work = pair if role else r
+            bms, by = bound(work["bytes"], work["ops"])
+            src = "fact_ckpt" if form == "fact_ckpt_pair" else form[:8]
             rows.append({
                 "name": name, "route": "cuda",
                 "batch": ("main path 7 (bench.py --long --big: B=64, "
@@ -5493,25 +5729,41 @@ def main():
                           f" T={LONG_F32_T})"),
                 "stream_mode": mode,
                 "ckpt_chunk": r["C"] if mode == "ckpt" else None,
-                "source": f"pychain_tpu_torch/csrc/{form[:8]}.cu",
+                "source": f"pychain_tpu_torch/csrc/{src}.cu",
+                **({"kernel": "pychain_tpu_torch/csrc/fact_ckpt.cu "
+                              f"(fact_ckpt_pair{'_bf16' if fast else ''})"}
+                   if role else {}),
                 "replaces": f"pychain_tpu/ops/pallas_fact.py:{line}",
-                "replaces_fn": f"pychain_tpu/ops/pallas_fact.py::{fn}, "
-                               f"{mode} stream mode"
-                               + (", bfloat16 tiles (fast mode)" if fast
-                                  else ""),
+                "replaces_fn": (
+                    "pychain_tpu/ops/pallas_fact.py::_fwd_kernel_factory "
+                    "(ext_init, :457) and _bwd_kernel_factory (ext_init, "
+                    "chunked, :768), as _forward_backward_ckpt (:936) "
+                    "launches them" if form == "fact_ckpt_pair" else
+                    f"pychain_tpu/ops/pallas_fact.py::{fn}, {mode} stream "
+                    "mode") + (", bfloat16 tiles (fast mode)" if fast
+                               else ""),
                 "launches": launched,
                 "launches_by_path": {"main path 7": launched},
+                **({"pair_launches": stats["ckpt"]["launches"].get(
+                    PAIR_NAME[fast], 0)} if role else {}),
                 "on_main_path": True,
-                "ms_covers": (f"one call: its {r['n_chunks']} chunk launches"
-                              if per_call else "one launch"),
+                "ms_covers": (
+                    f"one call: the paired scan's {r['n_chunks'] + 1} "
+                    "launches, both roles" if per_call else "one launch"),
                 "max_abs_err": r["err"], "max_err": r["err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bms,
-                "bound_by": by, "bytes": r["bytes"], "ops": r["ops"],
+                "ms": pair["ms"] if role else r["ms"],
+                "plain_ms": work["plain_ms"], "bound_ms": bms,
+                "bound_by": by, "bytes": work["bytes"], "ops": work["ops"],
+                # the form alone, unpaired, over a call's chunks
+                **({"unpaired_ms": r["ms"], "unpaired_plain_ms":
+                    r["plain_ms"], "form_bound_ms": bound(
+                        r["bytes"], r["ops"])[0]} if role else {}),
                 # CTAs a column at the plan, and (fast mode) the one-call
                 # A/B of C = 1 against C = ab_cluster
                 **{k: r[k] for k in ("cluster", "ab_cluster", "ab_ms",
                                      "c1_ms", "ab_peak_over_held",
-                                     "c1_peak_over_held") if k in r},
+                                     "c1_peak_over_held", "pair_sms")
+                   if k in r},
                 "library_ms": None})
     # bench.py --long (B=32): the full pair at its plan, each form's time
     # at C = 1, 2 and 4 in turns
@@ -5789,6 +6041,9 @@ def main():
           f"parameters after step 1 "
           f"{b['step1_rel']:.2e} (float32 {b['f32_step1_rel']:.2e}), after "
           f"step 3 {b['param_rel']:.2e} (float32 {b['f32_param_rel']:.2e})")
+    print(f"# seconds by main path: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PATH_SECONDS.items())
+        + f"; {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -440,11 +440,33 @@ FAST_BWD.update({
          "        const int d = cluster_row(i, rank, C);\n        const float "
          "lk")]),
 })
+# The ckpt mode's pair kernel (csrc/fact_ckpt.cu) at main path 7 fast
+# (B=64, T=3,700), bench.py --long (B=32, T=2,500) and main path 7's
+# float32 cut (B=64, T=1,000): beside each variant ckpt_ablation times,
+# on chip_smoke.ckpt_chunks' per-chunk buffers, today's unpaired scan,
+# each form alone and the two on two CUDA streams.  Variants: the fast
+# chunk role reading W1^T and W2^T as column ids and float values
+# ("float_slots": FACT_PAIR_WORDS 0, the graph's packed slots replaced by
+# the column ids for the run; the packed words are the design, the same
+# bits), and a role's body made empty (its blocks launch and exit: what
+# the other role costs in the shared grid).
+CKPT_PAIR = {
+    "full": [],
+    "float_slots": {"edits": [("#define FACT_PAIR_WORDS 1\n",
+                               "#define FACT_PAIR_WORDS 0\n")],
+                    "float_slots": True},
+    "no_backward": [("    fact_bwd_column<S, BWD_CHUNK, ",
+                     "    if (false) fact_bwd_column<S, BWD_CHUNK, ")],
+    "no_replay": [("    fact_fwd_column<S, FWD_INIT>(",
+                   "    if (false) fact_fwd_column<S, FWD_INIT>(")],
+}
+
 # the source of a table that is not named after its source
 SOURCE = {"xl_vpu": "xl_roofline", "xl_mxu": "xl_roofline",
           "fact_fwd_snap": "fact_fwd", "fact_bwd_lean": "fact_bwd",
           "fact_fwd_cluster": "fact_fwd", "fact_bwd_cluster": "fact_bwd",
-          "fast_fwd": "fact_fwd", "fast_bwd": "fact_bwd"}
+          "fast_fwd": "fact_fwd", "fast_bwd": "fact_bwd",
+          "ckpt_pair": "fact_ckpt"}
 
 # The cluster pair (a cluster a group of G columns, W1's vector alone
 # held whole, one / two cluster barriers a frame).
@@ -1551,6 +1573,155 @@ def stream_fast_ablation(tables, use, time_ms, dev):
     return result
 
 
+def ckpt_ablation(tables, use, time_ms, dev):
+    """The ckpt mode's chunk scan at main path 7 fast (B=64, T=3,700),
+    bench.py --long (B=32, T=2,500) and main path 7's float32 cut (B=64,
+    T=1,000), each over one call's chunks (chip_smoke.ckpt_chunks'
+    per-chunk buffers, the snapshot sweep outside the timing): today's
+    unpaired scan (fact_fwd_init at its plan's C, then fact_bwd_chunk),
+    fact_fwd_init and fact_bwd_chunk alone at C = 1, the two at C = 1 on
+    two CUDA streams with events (chunk k's backward beside chunk k - 1's
+    replay, a replay waiting for the backward two chunks above it, as the
+    pair's two stream sets), each of the pair's roles alone (one-role
+    pair launches: the replay's at its own smaller shared memory) and the
+    pair kernel's variants, the slots' A/B in turns (full, float_slots,
+    float_slots, full).  Also the SMs of one step's blocks (smid):
+    one-role pair launches on the two streams (distinct SMs of each, and
+    of both together) and one pair launch."""
+    import chip_smoke as cs
+    from pychain_tpu_torch import ChainGraph, ChainGraphBatch
+    from pychain_tpu_torch.csrc import build
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    from pychain_tpu_torch.utils.testgraphs import denominator_fst
+    c = 1e-5
+    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+    props = torch.cuda.get_device_properties(dev)
+    result = {}
+    # the unpaired forms from the tree's own build
+    for src in ("fact_fwd", "fact_bwd"):
+        build._loaded.pop(src, None)
+    for B, T, tile in ((64, 3700, "bfloat16"), (32, 2500, "bfloat16"),
+                       (64, 1000, None)):
+        fa = ChainGraphBatch(ChainGraph(den_fst), B, tile_dtype=tile,
+                             device=dev)._fact
+        px = torch.exp(torch.randn(B, T, P, generator=torch.Generator(
+            device=dev).manual_seed(70), device=dev))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        C = fk.ckpt_chunk_length(T)
+        use("ckpt_pair", "full")
+        ck = cs.ckpt_chunks(fa, px, lens, c, C)
+        n = len(ck.chunks)
+        tag = f"B={B} T={T}{' float32' if tile is None else ''}"
+
+        def replay(k, cluster=1, smid=None):
+            t0, ad_init, s_init, streams = ck.chunks[k]
+            fk.fact_fwd_init(px, lens, fa, c, t0, ad_init, s_init, streams,
+                             cluster, smid)
+
+        def backward(k):
+            t0, ad_init, _, streams = ck.chunks[k]
+            fk.fact_bwd_chunk(lens, fa, c, streams, ck.s_ys, ck.ad0, ck.s0,
+                              ck.tot, t0, ad_init, ck.outs, ck.carry,
+                              debug=False, cluster=1)
+
+        def pair(kb, kf, smid=None):
+            back = None if kb is None else ck.chunks[kb]
+            fk.fact_ckpt_pair(
+                px, lens, fa, c, None if kf is None else ck.chunks[kf],
+                None if back is None else (back[0], back[1], back[3]),
+                ck.s_ys, ck.ad0, ck.s0, ck.tot, ck.outs, ck.carry,
+                debug=False, smid=smid)
+
+        init_c = fk.cluster_size(B, props, fa, "fact_fwd_init")
+
+        def today():
+            for k in range(n - 1, -1, -1):
+                replay(k, init_c)
+                backward(k)
+
+        side = torch.cuda.Stream()
+        main = torch.cuda.current_stream()
+
+        def two_streams():
+            done_rep = [torch.cuda.Event() for _ in range(n)]
+            done_back = [torch.cuda.Event() for _ in range(n)]
+            side.wait_stream(main)
+            for kb, kf in fk.pair_schedule(n):
+                if kf is not None:
+                    with torch.cuda.stream(side):
+                        if kf + 2 < n:
+                            side.wait_event(done_back[kf + 2])
+                        replay(kf)
+                        done_rep[kf].record(side)
+                if kb is not None:
+                    main.wait_event(done_rep[kb])
+                    backward(kb)
+                    done_back[kb].record(main)
+            main.wait_stream(side)
+
+        def paired():
+            for kb, kf in fk.pair_schedule(n):
+                pair(kb, kf)
+
+        result[f"ckpt/today (init C={init_c}) {tag}"] = time_ms(today, 3)
+        result[f"ckpt/init alone C=1 {tag}"] = time_ms(
+            lambda: [replay(k) for k in range(n)], 3)
+        result[f"ckpt/chunk alone C=1 {tag}"] = time_ms(
+            lambda: [backward(k) for k in range(n - 1, -1, -1)], 3)
+        result[f"ckpt/two streams C=1 {tag}"] = time_ms(two_streams, 3)
+        # the SMs of one step in the middle of the call
+        k = n // 2
+        a = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        b = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            pair(None, k - 1, smid=b)
+        pair(k, None, smid=a)
+        main.wait_stream(side)
+        both = torch.full((2 * B,), -1, dtype=torch.int32, device=dev)
+        pair(k, k - 1, smid=both)
+        torch.cuda.synchronize()
+        sa, sb = set(a.tolist()), set(b.tolist())
+        print(f"# ckpt {tag}: SMs of one step on two streams (one-role "
+              f"pair launches): backward {len(sa)}, replay {len(sb)}, "
+              f"together {len(sa | sb)} distinct; one pair launch "
+              f"{len(set(both.tolist()))} distinct SMs for {2 * B} blocks",
+              flush=True)
+        result[f"ckpt/pair's replay role alone {tag}"] = time_ms(
+            lambda: [pair(None, k) for k in range(n)], 3)
+        result[f"ckpt/pair's backward role alone {tag}"] = time_ms(
+            lambda: [pair(k, None) for k in range(n - 1, -1, -1)], 3)
+        table = tables["ckpt_pair"]
+        # the slots' A/B in turns (full, float_slots, float_slots, full),
+        # then the other variants
+        ab = [label for label in ("full", "float_slots", "float_slots",
+                                  "full") if label in table
+              and (label == "full" or fk.is_fast(fa))]
+        rest = [label for label in table
+                if label not in ("full", "float_slots")]
+        kept = fk.graph_for(fa)
+        for i, label in enumerate(ab + rest):
+            use("ckpt_pair", label)
+            if spec(table[label])[1].get("float_slots"):
+                fk._graphs[fa] = dataclasses.replace(kept, packed=(
+                    *kept.packed[:2], kept.resident[2][1],
+                    kept.resident[3][1]))
+            turn = f" (turn {ab[:i + 1].count(label)})" if i < len(ab) else ""
+            result[f"ckpt/pair {label} {tag}{turn}"] = time_ms(paired, 3)
+            fk._graphs[fa] = kept
+            if i == 0:
+                gamma = ck.outs[0].clone()
+            elif label == "float_slots":
+                print(f"# ckpt {tag}: the float slots give the pair's gamma "
+                      f"bit for bit: {torch.equal(ck.outs[0], gamma)}",
+                      flush=True)
+        use("ckpt_pair", "full")
+        del px, ck
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -1569,7 +1740,7 @@ def main():
               "stream_fast_bwd": STREAM_FAST_BWD, "semiring_fwd": sr_table(
                   "semiring_fwd"), "semiring_bwd": sr_table("semiring_bwd"),
               "viterbi": sr_table("viterbi"), "xl_vpu": XL_VPU,
-              "xl_mxu": XL_MXU}
+              "xl_mxu": XL_MXU, "ckpt_pair": CKPT_PAIR}
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
         tables = {k: {label: v for label, v in table.items()
@@ -1659,6 +1830,8 @@ def main():
         result.update(full_cluster_ablation(tables, use, time_ms, dev))
     if tables["fast_fwd"] or tables["fast_bwd"]:
         result.update(fast_ablation(tables, use, time_ms, dev))
+    if tables["ckpt_pair"]:
+        result.update(ckpt_ablation(tables, use, time_ms, dev))
 
     if tables["stream_fwd"] or tables["stream_bwd"]:
         # the cluster pair at main path 4

@@ -3,8 +3,9 @@
 Each ``<name>.cu`` in this directory is compiled on its own, for Hopper
 (``sm_90a``), into ``build/lib<name>-<hash>.so`` with a plain C interface
 (no PyTorch headers, so a build takes seconds).  The hash covers the
-source, every shared header (``*.cuh``) of this directory and the flags,
-so an edited source or header builds anew.  Nothing is built
+source, the sources it includes (:data:`INCLUDES`), every shared header
+(``*.cuh``) of this directory and the flags, so an edited source or
+header builds anew.  Nothing is built
 when this module is imported: ``load`` builds at first use, and
 ``build`` compiles several sources at once, one nvcc each, in parallel.
 No ``--use_fast_math``: the recurrences need IEEE float32 and no
@@ -23,8 +24,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "build"
-SOURCES = ("fact_fwd", "fact_bwd", "stream_fwd", "stream_bwd",
+SOURCES = ("fact_fwd", "fact_bwd", "fact_ckpt", "stream_fwd", "stream_bwd",
            "semiring_fwd", "semiring_bwd", "viterbi", "xl_roofline")
+# Sources that include others: fact_ckpt.cu takes the column bodies of
+# fact_fwd.cu and fact_bwd.cu.
+INCLUDES = {"fact_ckpt": ("fact_fwd", "fact_bwd")}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,7 +48,9 @@ def nvcc_path() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+    for src in (CSRC / f"{name}.cu",
+                *(CSRC / f"{inc}.cu" for inc in INCLUDES.get(name, ())),
+                *sorted(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -144,8 +144,15 @@ enum BwdForm { BWD_FULL, BWD_LEAN, BWD_CHUNK };
 // streams; BWD_CHUNK runs frames t0 .. t0 + n - 1 with ad_init and the
 // carry.  The other forms' frame range and rows are compile-time
 // constants, so that fact_bwd compiles as it did before the other forms.
-template <typename S, int kForm>
-__global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
+// The body runs column b on the calling block: fact_bwd_kernel below
+// gives it block b, the ckpt mode's pair kernel (fact_ckpt.cu) a block of
+// its backward role.  Its early return ends the block.  kWords: W1^T's
+// and W2^T's slots as packed words (w1t_col / w2t_col hold
+// fact_kernels.pack_slots' words, w1t_val / w2t_val are not read;
+// sell_row_dot_words), the same bits; the pair's fast chunk role alone.
+template <typename S, int kForm, bool kWords = false>
+__device__ __forceinline__ void fact_bwd_column(
+    const int b,                         // the batch column
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
     const S* __restrict__ ad_ys,         // (B, ad_rows, S_pad) alpha'(u+1)
     const S* __restrict__ w1ad_ys,       // (B, ad_rows, S_pad) W1 alpha'(u)
@@ -207,7 +214,6 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
   float* red = kLean ? xsv + s_pad : c2 + s_pad;   // block_sum scratch
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x;
   const int Tb = lengths[b];
   const size_t row0 = static_cast<size_t>(b) * T;
   const int t_hi = min(t0 + n_frames, Tb);   // frames t0 .. t_hi - 1
@@ -346,8 +352,10 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
     const bool traces = debug || u == 0;
     part[0] = part[1] = part[2] = 0.0f;
     for (int s = tid; s < s_pad; s += FACT_THREADS) {
-      float w1t = sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb);
-      float w2t = sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn);
+      float w1t = kWords ? sell_row_dot_words(w1t_ptr, w1t_col, s, xb)
+                         : sell_row_dot(w1t_ptr, w1t_col, w1t_val, s, xb);
+      float w2t = kWords ? sell_row_dot_words(w2t_ptr, w2t_col, s, bn)
+                         : sell_row_dot(w2t_ptr, w2t_col, w2t_val, s, bn);
       float xbs = xb[s];
       const float ad = alpha_at(s);
       // this row's x_dst(u), x_src(u) and W1 alpha'(u): the stream rows'
@@ -443,6 +451,38 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
       bd_io[static_cast<size_t>(b) * s_pad + s] = bd[s];
     if (tid == 0) leak_io[b] = leak_sum;
   }
+}
+
+// Every form, one 1024-thread block a column.
+template <typename S, int kForm>
+__global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_kernel(
+    const int* __restrict__ lengths, const S* __restrict__ ad_ys,
+    const S* __restrict__ w1ad_ys, const S* __restrict__ xdst_ys,
+    const S* __restrict__ xsrc_ys, const float* __restrict__ px,
+    const float* __restrict__ s_ys, const float* __restrict__ s0,
+    const float* __restrict__ ad0, const S* __restrict__ ad_init,
+    const float* __restrict__ final_p, const float* __restrict__ tot,
+    const float* __restrict__ leaky, const int* __restrict__ w1t_ptr,
+    const int* __restrict__ w1t_col, const float* __restrict__ w1t_val,
+    const int* __restrict__ w2t_ptr, const int* __restrict__ w2t_col,
+    const float* __restrict__ w2t_val, const int* __restrict__ w1_ptr,
+    const int* __restrict__ w1_col, const float* __restrict__ w1_val,
+    const int* __restrict__ f_dst, const int* __restrict__ g_src,
+    const float* __restrict__ diag1, const float* __restrict__ diag2,
+    const int* __restrict__ f_ptr, const int* __restrict__ f_states,
+    const int* __restrict__ g_ptr, const int* __restrict__ g_states,
+    int n_pdf_lists, float leaky_c, int T, int P, int s_pad, int debug,
+    int stages, int t0_arg, int n_arg, int rows_arg, int init_stride,
+    float* __restrict__ gamma, float* __restrict__ ab,
+    float* __restrict__ gs, float* __restrict__ bd_io,
+    float* __restrict__ leak_io) {
+  fact_bwd_column<S, kForm>(
+      blockIdx.x, lengths, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, px, s_ys, s0,
+      ad0, ad_init, final_p, tot, leaky, w1t_ptr, w1t_col, w1t_val, w2t_ptr,
+      w2t_col, w2t_val, w1_ptr, w1_col, w1_val, f_dst, g_src, diag1, diag2,
+      f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, T, P, s_pad,
+      debug, stages, t0_arg, n_arg, rows_arg, init_stride, gamma, ab, gs,
+      bd_io, leak_io);
 }
 
 // fact_bwd_lean on a cluster of C CTAs (C = 2 or 4) of NT threads a
@@ -1635,6 +1675,10 @@ extern "C" size_t fact_bwd_cluster_smem_bytes(int s_pad, int identity,
   return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
 }
 
+// fact_ckpt.cu includes this file for fact_bwd_column and the requests
+// above alone.
+#ifndef FACT_COLUMNS_ONLY
+
 template <typename S, int NT>
 static int fact_bwd_lean_cluster_run(
     const void* lengths, const void* ad_ys, const void* px, const void* s_ys,
@@ -1926,3 +1970,5 @@ extern "C" int fact_bwd_group_launch(
 #undef FACT_BWD_GROUP
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#endif  // FACT_COLUMNS_ONLY

@@ -794,6 +794,26 @@ __device__ __forceinline__ float slot_val(unsigned w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
+// sell_row_dot with each slot one 4-byte word (fact_kernels.pack_slots of
+// the operator's bank-ordered slots, read from L2 in place of a column id
+// and a float value: half the bytes): the same products in the same
+// order, so the same sum bit for bit.  The fast mode's chunk backward in
+// the ckpt mode's pair kernel reads W1^T and W2^T so (fact_ckpt.cu).
+__device__ __forceinline__ float sell_row_dot_words(
+    const int* __restrict__ sptr, const int* __restrict__ words, int r,
+    const float* v) {
+  const int lane = r & 31;
+  const int slice = r >> 5;
+  float acc = 0.0f;
+  const int end = __ldg(sptr + slice + 1);
+  for (int k = __ldg(sptr + slice); k < end; ++k) {
+    const unsigned w =
+        __ldg(reinterpret_cast<const unsigned*>(words) + k * 32 + lane);
+    acc = fmaf(slot_val(w), v[slot_col(w)], acc);
+  }
+  return acc;
+}
+
 // The G values of state s of a packed vector.
 template <int G>
 __device__ __forceinline__ void load_packed(const unsigned* v, int s,

@@ -118,9 +118,12 @@ enum FwdForm { FWD_FULL, FWD_SNAP, FWD_INIT };
 // FWD_SNAP alpha' alone at every snap-th frame; FWD_INIT starts from
 // ad_init / s_init at frame t0 and writes neither s_t nor alpha'(T_b).
 // The full form's frame range, rows and snap are compile-time constants,
-// so that it compiles as it did before the other forms.
+// so that it compiles as it did before the other forms.  The body runs
+// column b on the calling block: fact_fwd_kernel below gives it block b,
+// the ckpt mode's pair kernel (fact_ckpt.cu) a block of its replay role.
 template <typename S, int kForm>
-__global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
+__device__ __forceinline__ void fact_fwd_column(
+    const int b,                         // the batch column
     const float* __restrict__ px,        // (B, T, P) exp'd nnet output
     const int* __restrict__ lengths,     // (B,)  1 <= T_b <= T
     const int* __restrict__ f_dst,       // (S_pad,) pdf of each state's W1 term
@@ -164,7 +167,6 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
   float* red = a + (own_xs ? 2 : 1) * s_pad;   // block_sum scratch
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x;
   const int Tb = lengths[b];
   const size_t row0 = static_cast<size_t>(b) * T;
   const int t_end = min(t0 + n_frames, Tb);
@@ -255,6 +257,29 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
   }
   if (!kInit)
     for (int t = Tb + tid; t < T; t += FACT_THREADS) s_ys[row0 + t] = 1.0f;
+}
+
+// Every form, one 1024-thread block a column.
+template <typename S, int kForm>
+__global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_kernel(
+    const float* __restrict__ px, const int* __restrict__ lengths,
+    const int* __restrict__ f_dst, const int* __restrict__ g_src,
+    const int* __restrict__ w1_ptr, const int* __restrict__ w1_col,
+    const float* __restrict__ w1_val, const int* __restrict__ w2_ptr,
+    const int* __restrict__ w2_col, const float* __restrict__ w2_val,
+    const float* __restrict__ diag1, const float* __restrict__ diag2,
+    const float* __restrict__ ad0, const float* __restrict__ s0,
+    const S* __restrict__ ad_init, const float* __restrict__ s_init,
+    const float* __restrict__ leaky, float leaky_c, int T, int P, int s_pad,
+    int t0_arg, int n_arg, int snap_arg, int rows_arg, int init_stride,
+    int s_stride, S* __restrict__ ad_ys, S* __restrict__ w1ad_ys,
+    S* __restrict__ xdst_ys, S* __restrict__ xsrc_ys,
+    float* __restrict__ s_ys, float* __restrict__ ad_last) {
+  fact_fwd_column<S, kForm>(
+      blockIdx.x, px, lengths, f_dst, g_src, w1_ptr, w1_col, w1_val, w2_ptr,
+      w2_col, w2_val, diag1, diag2, ad0, s0, ad_init, s_init, leaky, leaky_c,
+      T, P, s_pad, t0_arg, n_arg, snap_arg, rows_arg, init_stride, s_stride,
+      ad_ys, w1ad_ys, xdst_ys, xsrc_ys, s_ys, ad_last);
 }
 
 // Every form on a cluster of C CTAs (C = 2 or 4) of NT threads a column,
@@ -838,6 +863,10 @@ extern "C" size_t fact_fwd_cluster_smem_bytes(int s_pad, int identity) {
   return need > LEAN_CLUSTER_MIN_SMEM ? need : LEAN_CLUSTER_MIN_SMEM;
 }
 
+// fact_ckpt.cu includes this file for fact_fwd_column and the request
+// above alone.
+#ifndef FACT_COLUMNS_ONLY
+
 template <typename S, int NT, int kForm>
 static int fact_fwd_cluster_run(
     const void* px, const void* lengths, const void* f_dst, const void* g_src,
@@ -1044,3 +1073,5 @@ extern "C" int fact_fwd_group_launch(
 #undef FACT_FWD_GROUP
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#endif  // FACT_COLUMNS_ONLY

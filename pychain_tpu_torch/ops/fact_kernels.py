@@ -105,19 +105,36 @@ MODE_FORMS = {"full": ("fact_fwd", "fact_bwd"),
               "lean": ("fact_fwd_snap", "fact_bwd_lean"),
               "ckpt": ("fact_fwd_snap", "fact_fwd_init", "fact_bwd_chunk")}
 
-LAUNCHES = {f"{form}{suffix}": 0 for form in FWD_FORMS + BWD_FORMS
+# The ckpt mode's pair kernel (csrc/fact_ckpt.cu): one grid running a
+# chunk's backward beside the replay of the chunk below (:func:`_ckpt`).
+PAIR = "fact_ckpt_pair"
+PAIR_ROLES = ("fact_fwd_init", "fact_bwd_chunk")
+
+LAUNCHES = {f"{form}{suffix}": 0 for form in FWD_FORMS + BWD_FORMS + (PAIR,)
             for suffix in ("", "_bf16")}
+# Each role's runs in the pair's launches, by the role's form (a launch
+# with both roles adds one to each): a pair launch is counted in LAUNCHES
+# alone.
+ROLE_LAUNCHES = {f"{form}{suffix}": 0 for form in PAIR_ROLES
+                 for suffix in ("", "_bf16")}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROLE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launched() -> dict:
     """The kernels launched since the counts were last reset, with their
     counts."""
     return {k: v for k, v in LAUNCHES.items() if v}
+
+
+def roles_launched() -> dict:
+    """The pair kernel's roles run since the counts were last reset, with
+    their counts (:data:`ROLE_LAUNCHES`)."""
+    return {k: v for k, v in ROLE_LAUNCHES.items() if v}
 
 
 def supports(fa: FactorizedArrays) -> bool:
@@ -301,6 +318,59 @@ def cluster_size(B: int, props, fa: FactorizedArrays, form: str,
                 and cluster_fits(fa, C, form, limit)):
             return C
     return 1
+
+
+# The ckpt mode's chunk scan, paired (csrc/fact_ckpt.cu): one launch runs
+# chunk k's backward (fact_bwd_chunk's body) in blocks 0 .. B - 1 and chunk
+# k - 1's replay (fact_fwd_init's) in blocks B .. 2 B - 1, each one block a
+# column, the chunk streams in two sets (chunk k in set k mod 2).  It
+# serves B with 2 B <= the card's SMs (B <= 66 on an H100), where every
+# block has an SM of its own and a launch takes about the slower role's
+# time: at main path 7 (B = 64) and bench.py --long (B = 32) the paired
+# scan ran faster than the unpaired one at its plan (PERF.md).  Past that
+# reach one role alone fills the card, and the scan stays unpaired.
+
+def pair_smem_bytes(fa: FactorizedArrays, stages: int | None = None) -> int:
+    """fact_ckpt_pair's shared memory for this graph (the source's
+    fact_ckpt_pair_smem_bytes): the larger of the two roles' one-block
+    requests, the backward's ring ``stages`` deep (default
+    :func:`ring_stages`)."""
+    sm = smem_bytes(fa, stages)
+    return max(sm["fact_fwd"], sm["fact_bwd"])
+
+
+def pair_schedule(n_chunks: int) -> list:
+    """The paired scan's launches over ``n_chunks`` chunks, in order: one
+    (backward chunk, replay chunk) a launch, either None: the last chunk's
+    replay alone, then chunk k's backward beside chunk k - 1's replay,
+    then chunk 0's backward alone (n_chunks + 1 launches).  Chunk k's
+    streams live in set k % 2, so a launch's replay writes the set its
+    backward does not read, and the next launch's backward reads it."""
+    return [(k + 1 if k + 1 < n_chunks else None, k if k >= 0 else None)
+            for k in range(n_chunks - 1, -2, -1)]
+
+
+def ckpt_paired(B: int, props, fa: FactorizedArrays,
+                cluster: int | None = None, paired: bool | None = None,
+                stages: int | None = None) -> bool:
+    """Whether the ckpt mode runs its chunk scan paired
+    (:func:`fact_ckpt_pair`) for B columns on the card (``props``): where
+    2 B <= its SMs and the pair's CTA (:func:`pair_smem_bytes`) fits its
+    shared memory, and no ``cluster`` is forced (a forced C runs every
+    form at C, unpaired).  ``paired`` forces the choice: True where the
+    pair does not fit (or with a cluster of more than one CTA) raises
+    NotImplementedError."""
+    limit = props.shared_memory_per_block_optin
+    need = pair_smem_bytes(fa, stages)
+    fits = 2 * B <= props.multi_processor_count and need <= limit
+    if paired is None:
+        return cluster is None and fits
+    if paired and (not fits or cluster not in (None, 1)):
+        raise NotImplementedError(
+            f"the paired ckpt scan at B={B}, cluster={cluster!r}: it runs "
+            f"2 B one-block CTAs ({2 * B} on {props.multi_processor_count} "
+            f"SMs) of {need} bytes of shared memory ({limit} a block)")
+    return bool(paired)
 
 
 # The fast pair's group form (fact_fwd_bf16, fact_bwd_bf16 in the full
@@ -973,6 +1043,19 @@ def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
     S_pad) and s_init (B,) may be strided views (a snapshot's rows, the
     s_ys column before the chunk, or one row expanded); cluster: CTAs a
     column; smid: each CTA's SM, written by a cluster launch."""
+    name, args, ad0, s0 = _fwd_args(
+        form, px, lengths, fa, leaky_coefficient, outs, t0, n_frames, snap,
+        ad_rows, ad_init, s_init, s_ys, ad_last, cluster, smid)
+    _check(_lib(name)(*args, _ptr(smid), _stream()), name)
+    LAUNCHES[name] += 1
+    return ad0, s0
+
+
+def _fwd_args(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
+              n_frames=None, snap=1, ad_rows=None, ad_init=None, s_init=None,
+              s_ys=None, ad_last=None, cluster=1, smid=None):
+    """:func:`_fwd_launch`'s checks: (its entry point's name, the entry
+    point's arguments up to ad_last, ad0, s0)."""
     _check_cuda_inputs(px, lengths, fa)
     kg = _resident_graph(fa)
     w1, w2 = kg.resident[:2]
@@ -1001,18 +1084,15 @@ def _fwd_launch(form, px, lengths, fa, leaky_coefficient, outs, t0=0,
                  and s_init.dtype == torch.float32 and s_init.shape == (B,),
                  f"{form}: ad_init must be ({B}, {fa.s_pad}) {sd} rows, "
                  f"s_init ({B},) float32, on CUDA")
-    name = _name(form, fa)
-    rc = _lib(name)(
-        _ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
-        *map(_ptr, w1), *map(_ptr, w2), *map(_ptr, kg.diag or (None, None)),
-        _ptr(ad0), _ptr(s0), _ptr(ad_init), _ptr(s_init), _ptr(fa.leaky),
-        float(leaky_coefficient), B, T, P, fa.s_pad, t0, n_frames, snap,
-        ad_rows, 0 if ad_init is None else ad_init.stride(0),
-        0 if s_init is None else s_init.stride(0), cluster,
-        *map(_ptr, outs), _ptr(s_ys), _ptr(ad_last), _ptr(smid), _stream())
-    _check(rc, name)
-    LAUNCHES[name] += 1
-    return ad0, s0
+    args = (_ptr(px), _ptr(lengths), _ptr(kg.f_dst), _ptr(kg.g_src),
+            *map(_ptr, w1), *map(_ptr, w2),
+            *map(_ptr, kg.diag or (None, None)), _ptr(ad0), _ptr(s0),
+            _ptr(ad_init), _ptr(s_init), _ptr(fa.leaky),
+            float(leaky_coefficient), B, T, P, fa.s_pad, t0, n_frames, snap,
+            ad_rows, 0 if ad_init is None else ad_init.stride(0),
+            0 if s_init is None else s_init.stride(0), cluster,
+            *map(_ptr, outs), _ptr(s_ys), _ptr(ad_last))
+    return _name(form, fa), args, ad0, s0
 
 
 def _group_lib(source):
@@ -1213,9 +1293,31 @@ def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
     xsrc_ys), any None; outs: (gamma (B, T, P), ab (B, T), gs (B, T));
     carry: (bd (B, S_pad), leak (B,)) or Nones; cluster, smid as
     :func:`_fwd_launch`."""
+    name, args = _bwd_args(form, lengths, fa, leaky_coefficient, streams,
+                           s_ys, ad0, s0, tot_prob, outs, debug, stages, px,
+                           t0, n_frames, ad_init, carry, cluster, smid)
+    _check(_lib(name)(*args, _ptr(smid), _stream()), name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def _bwd_args(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
+              tot_prob, outs, debug, stages, px=None, t0=0, n_frames=None,
+              ad_init=None, carry=(None, None), cluster=1, smid=None,
+              words=False):
+    """:func:`_bwd_launch`'s checks: (its entry point's name, the entry
+    point's arguments up to leak_io).  ``words``: W1^T's and W2^T's
+    column ids replaced by their packed slots (KernelGraph.packed), as the
+    pair kernel's fast chunk role reads them (FACT_PAIR_WORDS in
+    csrc/fact_ckpt.cu; the values are passed too, and not read)."""
     lean = form == "fact_bwd_lean"
     kg = _resident_graph(fa)
     w1t, w2t = kg.resident[2:]
+    if words:
+        _require(kg.packed is not None, f"{form}: packed slots exist for a "
+                 "fast graph alone")
+        w1t, w2t = ((w1t[0], kg.packed[2], w1t[2]),
+                    (w2t[0], kg.packed[3], w2t[2]))
     ad_ys = streams[0]
     B, rows, s_pad = ad_ys.shape
     _cluster_args(form, B, cluster, smid)
@@ -1271,20 +1373,17 @@ def _bwd_launch(form, lengths, fa, leaky_coefficient, streams, s_ys, ad0, s0,
                  f"{s_pad}) and ({B},) float32, on CUDA")
     g_lists = kg.g_lists or (None, None)
     w1 = kg.resident[0] if lean else (None, None, None)
-    name = _name(form, fa)
-    rc = _lib(name)(
-        _ptr(lengths), *map(_ptr, streams), _ptr(px), _ptr(s_ys), _ptr(s0),
-        _ptr(ad0), _ptr(ad_init), _ptr(fa.final), _ptr(tot_prob),
-        _ptr(fa.leaky), *map(_ptr, w1t), *map(_ptr, w2t), *map(_ptr, w1),
-        _ptr(kg.f_dst if lean else None), _ptr(kg.g_src if lean else None),
-        *map(_ptr, kg.diag or (None, None)), *map(_ptr, kg.f_lists),
-        *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient), B, T,
-        P, s_pad, int(bool(debug)), stages, t0, n_frames, rows,
-        0 if ad_init is None else ad_init.stride(0), cluster, _ptr(gamma),
-        _ptr(ab), _ptr(gs), *map(_ptr, carry), _ptr(smid), _stream())
-    _check(rc, name)
-    LAUNCHES[name] += 1
-    return gamma, ab, gs
+    args = (_ptr(lengths), *map(_ptr, streams), _ptr(px), _ptr(s_ys),
+            _ptr(s0), _ptr(ad0), _ptr(ad_init), _ptr(fa.final),
+            _ptr(tot_prob), _ptr(fa.leaky), *map(_ptr, w1t), *map(_ptr, w2t),
+            *map(_ptr, w1), _ptr(kg.f_dst if lean else None),
+            _ptr(kg.g_src if lean else None),
+            *map(_ptr, kg.diag or (None, None)), *map(_ptr, kg.f_lists),
+            *map(_ptr, g_lists), kg.n_pdf_lists, float(leaky_coefficient),
+            B, T, P, s_pad, int(bool(debug)), stages, t0, n_frames, rows,
+            0 if ad_init is None else ad_init.stride(0), cluster,
+            _ptr(gamma), _ptr(ab), _ptr(gs), *map(_ptr, carry))
+    return _name(form, fa), args
 
 
 def _outputs(B, T, P, device):
@@ -1355,6 +1454,101 @@ def fact_bwd_chunk(lengths, fa: FactorizedArrays, leaky_coefficient,
                        stages, t0=t0, n_frames=streams[0].shape[1],
                        ad_init=ad_init, carry=carry, cluster=cluster,
                        smid=smid)
+
+
+def _pair_lib(name):
+    """fact_ckpt_pair's launch function ``name`` (or its _bf16 entry
+    point): fact_fwd_init's arguments up to ad_last, then fact_bwd_chunk's
+    up to leak_io, smid and the stream (csrc/fact_ckpt.cu)."""
+    from ..csrc import build
+    fn = getattr(build.load("fact_ckpt"), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 17 + [_F] + [_I] * 11 + [_P] * 6
+                       + [_P] * 30 + [_I, _F] + [_I] * 11 + [_P] * 5
+                       + [_P] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# An absent role's arguments: no columns (B = 0).
+_NO_REPLAY = (None,) * 17 + (0.0,) + (0,) * 11 + (None,) * 6
+_NO_BACKWARD = (None,) * 30 + (0, 0.0) + (0,) * 11 + (None,) * 5
+
+
+def _pair_launch(fa, replay, backward, smid=None):
+    """Launch fact_ckpt_pair (fact_ckpt_pair_bf16 in the fast mode): its
+    first blocks run ``backward`` (:func:`_bwd_launch`'s keyword arguments
+    for fact_bwd_chunk), the rest ``replay`` (:func:`_fwd_launch`'s for
+    fact_fwd_init), one block a column; either may be None, not both.
+    smid: a (blocks,) int32 CUDA tensor receiving each block's SM, or
+    None.  Counts one launch of the pair and one of each role it ran."""
+    _require(replay is not None or backward is not None,
+             "fact_ckpt_pair: a launch runs a replay, a backward or both")
+    fwd = bwd = None
+    if replay is not None:
+        fwd = _fwd_args(**replay)
+    if backward is not None:
+        # the fast chunk role reads W1^T and W2^T as packed words
+        bwd = _bwd_args(**backward, words=is_fast(fa))
+    blocks = sum(role["lengths"].shape[0] for role in (replay, backward)
+                 if role is not None)
+    if replay is not None and backward is not None:
+        r_px, b_st = replay["px"], backward["streams"][0]
+        _require(replay["lengths"] is backward["lengths"]
+                 and r_px.shape[0] == b_st.shape[0]
+                 and r_px.shape[1] == backward["s_ys"].shape[1]
+                 and r_px.shape[2] == backward["outs"][0].shape[2],
+                 "fact_ckpt_pair: the roles' lengths and shapes differ")
+        spans = lambda ts: [(t.data_ptr(), t.data_ptr()
+                             + t.numel() * t.element_size())
+                            for t in ts if t is not None]
+        _require(not any(a < d and c < b
+                         for a, b in spans(replay["outs"])
+                         for c, d in spans(backward["streams"])),
+                 "fact_ckpt_pair: the replay writes streams its backward "
+                 "reads")
+    _require(smid is None or (smid.is_cuda and smid.dtype == torch.int32
+                              and smid.shape == (blocks,)),
+             f"fact_ckpt_pair: smid must be a ({blocks},) int32 CUDA tensor")
+    name = _name(PAIR, fa)
+    rc = _pair_lib(name)(*(fwd[1] if fwd else _NO_REPLAY),
+                         *(bwd[1] if bwd else _NO_BACKWARD), _ptr(smid),
+                         _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    for role in (fwd, bwd):
+        if role is not None:
+            ROLE_LAUNCHES[role[0]] += 1
+
+
+def fact_ckpt_pair(px, lengths, fa: FactorizedArrays, leaky_coefficient,
+                   replay, backward, s_ys, ad0, s0, tot_prob, outs, carry,
+                   debug=True, stages=None, smid=None):
+    """Launch the ckpt mode's pair kernel (``fact_ckpt_pair`` or its _bf16
+    form, csrc/fact_ckpt.cu): ``backward`` = (t0, ad_init, streams) runs
+    that chunk's backward as :func:`fact_bwd_chunk` does (its ring
+    ``stages`` deep), in blocks 0 .. B - 1, and ``replay`` = (t0, ad_init,
+    s_init, streams) that chunk's replay as :func:`fact_fwd_init` does, in
+    the blocks after them; either None.  The replay's streams must not
+    overlap the backward's.  ``smid`` ((blocks,) int32) receives each
+    block's SM."""
+    fwd = bwd = None
+    if replay is not None:
+        t0, ad_init, s_init, streams = replay
+        n = streams[0].shape[1]
+        fwd = dict(form="fact_fwd_init", px=px, lengths=lengths, fa=fa,
+                   leaky_coefficient=leaky_coefficient, outs=streams, t0=t0,
+                   n_frames=n, ad_rows=n, ad_init=ad_init, s_init=s_init)
+    if backward is not None:
+        t0, ad_init, streams = backward
+        bwd = dict(form="fact_bwd_chunk", lengths=lengths, fa=fa,
+                   leaky_coefficient=leaky_coefficient, streams=streams,
+                   s_ys=s_ys, ad0=ad0, s0=s0, tot_prob=tot_prob, outs=outs,
+                   debug=debug, stages=stages, t0=t0,
+                   n_frames=streams[0].shape[1], ad_init=ad_init,
+                   carry=carry)
+    _pair_launch(fa, fwd, bwd, smid)
+    return outs
 
 
 def _check_cuda_inputs(px, lengths, fa: FactorizedArrays):
@@ -1469,16 +1663,23 @@ def _lean(px, lens, fa, c, debug, stages, cluster=None):
                                Cs["fact_bwd_lean"])
 
 
-def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None):
+def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None,
+          paired=None):
     """The ckpt mode on the card (pallas_fact._forward_backward_ckpt):
     fact_fwd_snap keeps alpha' at each chunk's last frame, then from the
-    last chunk down fact_fwd_init replays a chunk from the snapshot below
-    it and fact_bwd_chunk runs its backward from the beta' carry above:
-    alpha' rows for T / C snapshots and one chunk's three (four) streams,
-    where the full mode keeps T.  Each form runs on ``cluster`` CTAs a
-    column (default its :func:`cluster_size`)."""
+    last chunk down each chunk is replayed from the snapshot below it and
+    its backward runs from the beta' carry above: alpha' rows for T / C
+    snapshots and one chunk's three (four) streams, where the full mode
+    keeps T.  Where :func:`ckpt_paired` says so the chunk scan is paired
+    (:func:`fact_ckpt_pair` on :func:`pair_schedule`: chunk k's backward
+    beside chunk k - 1's replay, the streams in two sets); else
+    fact_fwd_init and fact_bwd_chunk run in turn, each on ``cluster`` CTAs
+    a column (default its :func:`cluster_size`).  ``paired`` forces the
+    choice (the tests and kernel_ablation.py compare the two)."""
     B, T, P = px.shape
     Cs = _mode_cluster("ckpt", px, fa, cluster)
+    pair = ckpt_paired(B, _card_props(px.device), fa, cluster, paired,
+                       stages)
     C = ckpt_chunk_length(T, ckpt_chunk)
     snaps, s_ys, ad_last, ad0, s0 = fact_fwd_snap(px, lens, fa, c, C,
                                                   Cs["fact_fwd_snap"])
@@ -1488,16 +1689,33 @@ def _ckpt(px, lens, fa, c, debug, stages, ckpt_chunk, cluster=None):
     carry = (_new(fa, px.device, B, fa.s_pad, dtype=torch.float32),
              _new(fa, px.device, B, dtype=torch.float32))
     n_streams = 3 if fa.xsrc_mode == "identity" else 4
-    bufs = [_new(fa, px.device, B * C * fa.s_pad) for _ in range(n_streams)]
+    sets = [[_new(fa, px.device, B * C * fa.s_pad) for _ in range(n_streams)]
+            for _ in range(2 if pair else 1)]
     # chunk 0 enters from alpha'(0) in the stream type (pallas_fact.py
     # :976-978)
     entry = ad0.to(stream_dtype(fa)).expand(B, fa.s_pad)
-    for k in range(snaps.shape[1] - 1, -1, -1):
+
+    def chunk(k):
+        """Chunk k's first frame, alpha'(t0), s_{t0} and streams."""
         t0, n = k * C, min(C, T - k * C)
         streams = [buf[:B * n * fa.s_pad].view(B, n, fa.s_pad)
-                   for buf in bufs] + [None] * (4 - n_streams)
-        ad_init = entry if k == 0 else snaps[:, k - 1]
-        s_init = s0.expand(B) if k == 0 else s_ys[:, t0 - 1]
+                   for buf in sets[k % len(sets)]] + [None] * (4 - n_streams)
+        return (t0, entry if k == 0 else snaps[:, k - 1],
+                s0.expand(B) if k == 0 else s_ys[:, t0 - 1], streams)
+
+    n_chunks = snaps.shape[1]
+    if pair:
+        for kb, kf in pair_schedule(n_chunks):
+            back = None
+            if kb is not None:
+                t0, ad_init, _, streams = chunk(kb)
+                back = (t0, ad_init, streams)
+            fact_ckpt_pair(px, lens, fa, c, None if kf is None else chunk(kf),
+                           back, s_ys, ad0, s0, tot_prob, outs, carry, debug,
+                           stages)
+        return objf, outs
+    for k in range(n_chunks - 1, -1, -1):
+        t0, ad_init, s_init, streams = chunk(k)
         fact_fwd_init(px, lens, fa, c, t0, ad_init, s_init, streams,
                       Cs["fact_fwd_init"])
         fact_bwd_chunk(lens, fa, c, streams, s_ys, ad0, s0, tot_prob, t0,

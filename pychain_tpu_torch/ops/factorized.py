@@ -797,14 +797,19 @@ def forward_backward_prob_fast(px, lengths, fa: FactorizedArrays,
 
 def forward_backward_prob_ckpt(px, lengths, fa: FactorizedArrays,
                                leaky_coefficient=1e-5,
-                               ckpt_chunk=None) -> FwdBwdResult:
+                               ckpt_chunk=None,
+                               schedule=None) -> FwdBwdResult:
     """The plain version of B1/B2 in the ckpt stream mode, in either
     precision (the fast one for bfloat16 tiles), chunk by chunk as the
     card runs it (``fact_kernels.ckpt_chunk_length``: C = ckpt_chunk,
     default about sqrt(T)).  In float32 it equals
     :func:`forward_backward_prob_fact` bit for bit (the same arithmetic
     from the same carries); in the fast mode each replay starts from the
-    bfloat16 snapshot."""
+    bfloat16 snapshot.  ``schedule``: the launches of the chunk scan, each
+    a (backward chunk, replay chunk) pair, either None, run backward then
+    replay, chunk k's replay kept in set k % 2 until its backward reads it
+    (``fact_kernels.pair_schedule``, the paired scan); default each
+    chunk's replay then its backward, from the last chunk down."""
     from .fact_kernels import ckpt_chunk_length
     B, T, P = px.shape
     C = ckpt_chunk_length(T, ckpt_chunk)
@@ -829,7 +834,9 @@ def forward_backward_prob_ckpt(px, lengths, fa: FactorizedArrays,
         n_chunks = -(-T // C)
         gammas, abs_, gss = [None] * n_chunks, [None] * n_chunks, \
             [None] * n_chunks
-        for k in range(n_chunks - 1, -1, -1):
+        sets = {}   # set -> (chunk, its replayed streams)
+
+        def replay(k):
             t0, n = k * C, min(C, T - k * C)
             if fast:
                 s_init = s0.expand(B) if k == 0 else s_ys[:, t0 - 1]
@@ -839,16 +846,35 @@ def forward_backward_prob_ckpt(px, lengths, fa: FactorizedArrays,
                         snaps[k], s_init):
                     ad_c.append(_bf(own))
                     w1_c.append(_bf(w1a))
-                out = _fast_back(px_tm, lengths, fa, c, ad_c, w1_c, s_ys,
-                                 tot, graph, None, t0, n, *carry)
+                sets[k % 2] = (k, (ad_c, w1_c))
             else:
-                ad_c = [snaps[k]] + [ad for _, _, ad, _ in _fact_frames(
-                    px_tm, lengths, fa, c, t0, n - 1, snaps[k], sums[t0])]
-                out = _fact_back(px_tm, lengths, fa, c, ad_c,
+                sets[k % 2] = (k, [snaps[k]] + [
+                    ad for _, _, ad, _ in _fact_frames(
+                        px_tm, lengths, fa, c, t0, n - 1, snaps[k],
+                        sums[t0])])
+
+        def backward(k, carry):
+            t0, n = k * C, min(C, T - k * C)
+            held, streams = sets[k % 2]
+            assert held == k, f"chunk {k}'s set holds chunk {held}"
+            if fast:
+                out = _fast_back(px_tm, lengths, fa, c, *streams, s_ys, tot,
+                                 graph, None, t0, n, *carry)
+            else:
+                out = _fact_back(px_tm, lengths, fa, c, streams,
                                  sums[t0:t0 + n], tot, t0, n, *carry)
             gammas[k], abs_[k], gss[k] = (torch.stack(x, dim=i) for x, i in
                                           zip(out[:3], (0, 1, 1)))
-            carry = out[3:]
+            return out[3:]
+
+        if schedule is None:
+            schedule = [launch for k in range(n_chunks - 1, -1, -1)
+                        for launch in ((None, k), (k, None))]
+        for kb, kf in schedule:
+            if kb is not None:
+                carry = backward(kb, carry)
+            if kf is not None:
+                replay(kf)
         gamma = gamma_batch_major(torch.cat(gammas, dim=0), P)
         alpha_beta, gamma_sum = torch.cat(abs_, dim=1), torch.cat(gss, dim=1)
     ok = _ok_flags(objf, alpha_beta, gamma_sum)

@@ -282,8 +282,9 @@ class TestStreamModes:
     def test_ckpt_kernels_match_plain(self, cuda, tile_dtype, mode, want,
                                       chunk):
         """C dividing T (4), not dividing it (5), equal to T and past it
-        (one chunk): one snapshot sweep, then a replay and a chunk's
-        backward a chunk; debug True and False; gamma on a rerun."""
+        (one chunk): one snapshot sweep, then the paired chunk scan (B=5:
+        n + 1 pair launches, a replay and a chunk's backward a chunk);
+        debug True and False; gamma on a rerun."""
         fa, px, lens = self._case(cuda, mode, tile_dtype)
         assert fa.xsrc_mode == want
         sfx = "_bf16" if tile_dtype else ""
@@ -294,8 +295,9 @@ class TestStreamModes:
                 px, lens, fa, LEAKY, debug=debug, stream_mode="ckpt",
                 ckpt_chunk=chunk)
             assert fk.launched() == {f"fact_fwd_snap{sfx}": 1,
-                                     f"fact_fwd_init{sfx}": n,
-                                     f"fact_bwd_chunk{sfx}": n}
+                                     f"fact_ckpt_pair{sfx}": n + 1}
+            assert fk.roles_launched() == {f"fact_fwd_init{sfx}": n,
+                                           f"fact_bwd_chunk{sfx}": n}
             ref = forward_backward_prob_mode(px, lens, fa, LEAKY, "ckpt",
                                              chunk)
             self._check(got, ref, bool(tile_dtype), debug)
@@ -543,8 +545,7 @@ class TestStreamModes:
         assert fk.launched() == (
             {f"fact_fwd_snap{sfx}": 1, f"fact_bwd_lean{sfx}": 1}
             if want == "lean" else
-            {f"fact_fwd_snap{sfx}": 1, f"fact_fwd_init{sfx}": n,
-             f"fact_bwd_chunk{sfx}": n})
+            {f"fact_fwd_snap{sfx}": 1, f"fact_ckpt_pair{sfx}": n + 1})
         torch.testing.assert_close(vg.cpu(), vc.detach(), rtol=1e-5, atol=0)
         torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
                                    atol=1e-6)
@@ -562,11 +563,11 @@ class TestStreamModes:
         with pytest.raises(NotImplementedError, match="cluster kernels"):
             stk.forward_backward_prob_stream(px, lens, fa, LEAKY)
         assert set(stk.LAUNCHES.values()) == {0} and fk.launched() == {}
-        # the resident tier takes the ckpt mode there
+        # the resident tier takes the ckpt mode there (paired at B=5)
         fk.forward_backward_prob_kernel(px, lens, fa, LEAKY)
         assert set(fk.launched()) == {
             f"{k}{'_bf16' if tile_dtype else ''}"
-            for k in ("fact_fwd_snap", "fact_fwd_init", "fact_bwd_chunk")}
+            for k in ("fact_fwd_snap", "fact_ckpt_pair")}
 
     @pytest.mark.cuda
     def test_stream_mode_errors_before_any_launch(self, cuda):
@@ -763,6 +764,195 @@ class TestFullCluster:
                     fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
                                                     stream_mode=mode,
                                                     cluster=1))
+
+
+class TestCkptPair:
+    """The ckpt mode's paired chunk scan (fact_ckpt_pair, _bf16: chunk k's
+    backward in blocks 0 .. B - 1 beside chunk k - 1's replay in blocks
+    B .. 2 B - 1, the chunk streams in two sets) against the unpaired scan
+    (fact_fwd_init, then fact_bwd_chunk, one block a column), through
+    fact_kernels._ckpt with the choice forced: bit for bit in both
+    precisions (objf, gamma, both traces and the beta' carry out of every
+    chunk, on the columns that chunk writes it for)."""
+
+    @staticmethod
+    def _batch(cuda, B, T, lengths, mode="separate", tile_dtype=None,
+               seed=9):
+        fst, P = denominator_fst(num_phones=40, states_per_phone=2,
+                                 seed=seed, forward_pdf_mode=mode)
+        rng = np.random.RandomState(seed)
+        x = rng.randn(B, T, P).astype(np.float32)
+        fa = pt.ChainGraphBatch(pt.ChainGraph(fst), B, tile_dtype=tile_dtype,
+                                device=cuda)._fact
+        return (fa, torch.exp(torch.from_numpy(x)).to(cuda),
+                torch.tensor(lengths, dtype=torch.int32).to(cuda))
+
+    @staticmethod
+    def _run(monkeypatch, fa, px, lens, paired, chunk, debug=True,
+             stages=None):
+        """_ckpt's result with ``paired`` forced, the carry (bd, leak)
+        after each chunk's backward by the chunk's first frame, and the
+        launches and roles counted."""
+        carries = {}
+        pair, back = fk.fact_ckpt_pair, fk.fact_bwd_chunk
+
+        def spy_pair(*a):
+            pair(*a)
+            if a[5] is not None:
+                carries[a[5][0]] = tuple(t.clone() for t in a[11])
+
+        def spy_back(*a):
+            back(*a)
+            carries[a[8]] = tuple(t.clone() for t in a[11])
+
+        monkeypatch.setattr(fk, "fact_ckpt_pair", spy_pair)
+        monkeypatch.setattr(fk, "fact_bwd_chunk", spy_back)
+        fk.reset_launch_counts()
+        objf, outs = fk._ckpt(px, lens, fa, LEAKY, debug, stages, chunk,
+                              paired=paired)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        return (fk._package_result(objf, *outs), carries, fk.launched(),
+                fk.roles_launched())
+
+    def _check_pair(self, monkeypatch, fa, px, lens, chunk, debug=True,
+                    stages=None):
+        got, carries, launched, roles = self._run(
+            monkeypatch, fa, px, lens, True, chunk, debug, stages)
+        one, one_carries, one_launched, _ = self._run(
+            monkeypatch, fa, px, lens, False, chunk, debug, stages)
+        TestFullCluster._equal(got, one)
+        assert sorted(carries) == sorted(one_carries)
+        for t0, (bd, leak) in carries.items():
+            live = (lens > t0) if t0 > 0 else lens < 0   # written for
+            assert torch.equal(bd[live], one_carries[t0][0][live]), t0
+            assert torch.equal(leak[live], one_carries[t0][1][live]), t0
+        n = len(carries)
+        sfx = "_bf16" if fk.is_fast(fa) else ""
+        assert launched == {f"fact_fwd_snap{sfx}": 1,
+                            f"fact_ckpt_pair{sfx}": n + 1}
+        assert roles == {f"fact_fwd_init{sfx}": n,
+                         f"fact_bwd_chunk{sfx}": n}
+        assert one_launched == {f"fact_fwd_snap{sfx}": 1,
+                                f"fact_fwd_init{sfx}": n,
+                                f"fact_bwd_chunk{sfx}": n}
+        if fk.is_fast(fa):
+            TestStreamModes._check(got, forward_backward_prob_mode(
+                px, lens, fa, LEAKY, "ckpt", chunk), True, debug)
+        return got
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("chunk", [1, 4, 5, 12])
+    @pytest.mark.parametrize("mode,want", MODES)
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_paired_scan_gives_the_unpaired_bits(self, cuda, monkeypatch,
+                                                 tile_dtype, mode, want,
+                                                 chunk):
+        """B=5, T=12, lengths 12, 8, 4, 1, 9 (one ends inside the first
+        chunk, others before later launches), chunks of 1 (12 chunks), 4,
+        5 and 12 (one chunk: two launches, each one role), debug True and
+        False; the fast mode also the plain version's."""
+        fa, px, lens = TestStreamModes._case(cuda, mode, tile_dtype)
+        assert fa.xsrc_mode == want
+        for debug in (True, False):
+            self._check_pair(monkeypatch, fa, px, lens, chunk, debug)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("stages", [0, 1, 2])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_paired_scan_at_every_ring_depth(self, cuda, monkeypatch,
+                                             tile_dtype, stages):
+        """The backward role's ring forced to each depth, chunk 5."""
+        fa, px, lens = TestStreamModes._case(cuda, "source", tile_dtype)
+        self._check_pair(monkeypatch, fa, px, lens, 5, stages=stages)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_paired_scan_at_an_odd_chunk(self, cuda, monkeypatch,
+                                         tile_dtype):
+        """ckpt_chunk=96 at T=250 (three chunks, the last of 58 frames),
+        lengths 250, 193, 97, 96, 40 (ends in each chunk and on a
+        boundary)."""
+        fa, px, lens = self._batch(cuda, 5, 250, [250, 193, 97, 96, 40],
+                                   tile_dtype=tile_dtype)
+        self._check_pair(monkeypatch, fa, px, lens, 96)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("B", [1, 66])
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_paired_scan_at_its_batch_limits(self, cuda, monkeypatch,
+                                             tile_dtype, B):
+        """B=1 and B=66 (132 blocks: every SM of an H100), lengths
+        ragged over 1 .. 20, chunk 4; the plan takes the pair at both."""
+        fa, px, lens = self._batch(cuda, B, 20,
+                                   [20 - (b * 7) % 20 for b in range(B)],
+                                   tile_dtype=tile_dtype)
+        props = torch.cuda.get_device_properties(cuda)
+        assert fk.ckpt_paired(B, props, fa) == (
+            2 * B <= props.multi_processor_count)
+        self._check_pair(monkeypatch, fa, px, lens, 4)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("tile_dtype", [None, "bfloat16"])
+    def test_paired_gamma_on_a_rerun(self, cuda, tile_dtype):
+        fa, px, lens = TestStreamModes._case(cuda, "cross", tile_dtype)
+        run = lambda: fk._ckpt(px, lens, fa, LEAKY, True, None, 4,
+                               paired=True)[1][0]
+        assert torch.equal(run(), run())
+
+    @pytest.mark.cuda
+    def test_pair_blocks_sit_on_distinct_sms(self, cuda):
+        """One pair launch at B = 64 (main path 7's batch): its 128
+        blocks on 128 distinct SMs."""
+        fa, px, lens = self._batch(cuda, 64, 8, [8] * 64,
+                                   tile_dtype="bfloat16")
+        st = fk.fact_fwd(px, lens, fa, LEAKY, cluster=1)
+        ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = st
+        tot = fk._objf(s_ys, ad_last, lens, fa, s0)[1].contiguous()
+        chunk = lambda a, b: [t[:, a:b].contiguous() for t in (ad_ys, w1ad,
+                                                               xdst, xsrc)]
+        outs = fk._outputs(64, 8, px.shape[2], cuda)
+        carry = (torch.zeros((64, fa.s_pad), device=cuda),
+                 torch.zeros(64, device=cuda))
+        smid = torch.full((128,), -1, dtype=torch.int32, device=cuda)
+        fk.fact_ckpt_pair(px, lens, fa, LEAKY,
+                          (0, ad0.bfloat16().expand(64, fa.s_pad),
+                           s0.expand(64), chunk(0, 4)),
+                          (4, ad_ys[:, 3], chunk(4, 8)), s_ys, ad0, s0,
+                          tot, outs, carry, smid=smid)
+        torch.cuda.synchronize()
+        assert bool((smid >= 0).all())
+        assert len(set(smid.tolist())) == 128
+
+    @pytest.mark.cuda
+    def test_forced_pair_that_does_not_fit_raises(self, cuda):
+        """The pair forced at B=67 (134 blocks on 132 SMs) or beside a
+        forced cluster raises NotImplementedError before any launch; a
+        replay writing the streams its backward reads raises ValueError."""
+        fa, px, lens = self._batch(cuda, 67, 8, [8] * 67,
+                                   tile_dtype="bfloat16")
+        fk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="134"):
+            fk._ckpt(px, lens, fa, LEAKY, True, None, 4, paired=True)
+        with pytest.raises(NotImplementedError, match="cluster=2"):
+            fk._ckpt(px[:5], lens[:5], fa, LEAKY, True, None, 4, cluster=2,
+                     paired=True)
+        assert fk.launched() == {}
+        assert not fk.ckpt_paired(67, torch.cuda.get_device_properties(
+            cuda), fa)
+        st = fk.fact_fwd(px, lens, fa, LEAKY)
+        tot = fk._objf(st[4], st[5], lens, fa, st[7])[1].contiguous()
+        streams = [t[:, :4].contiguous() for t in st[:4]]
+        outs = fk._outputs(67, 8, px.shape[2], cuda)
+        carry = (torch.zeros((67, fa.s_pad), device=cuda),
+                 torch.zeros(67, device=cuda))
+        fk.reset_launch_counts()
+        with pytest.raises(ValueError, match="streams its backward"):
+            fk.fact_ckpt_pair(px, lens, fa, LEAKY,
+                              (0, st[0][:, 0], st[4][:, 0], streams),
+                              (0, st[0][:, 0], streams), st[4], st[6], st[7],
+                              tot, outs, carry)
+        assert fk.launched() == {}
 
 
 class TestGroupForm:

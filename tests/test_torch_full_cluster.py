@@ -29,7 +29,7 @@ from pychain_tpu_torch.ops import fact_kernels as fk
 from pychain_tpu_torch.utils.testgraphs import denominator_fst
 
 from test_torch_stream_modes import (H100, LEAKY, MODES, _assert_equal,
-                                     _emu_bwd, _emu_fwd, _shape)
+                                     _emu_bwd, _emu_fwd, _emu_pair, _shape)
 
 
 def _graph_case(fwd_mode, tile_dtype, num_phones=10, seed=6, B=5, T=12,
@@ -52,8 +52,15 @@ def _emulate(monkeypatch, seen=None):
                 seen.append((form, kw.get("cluster", 1)))
             return emu(form, *args, **kw)
         return launch
+    def pair(fa, replay, backward, smid=None):
+        # the paired ckpt scan's roles, one block a column
+        if seen is not None:
+            seen.extend((role["form"], 1) for role in (replay, backward)
+                        if role is not None)
+        return _emu_pair(fa, replay, backward, smid)
     monkeypatch.setattr(fk, "_fwd_launch", spy(_emu_fwd))
     monkeypatch.setattr(fk, "_bwd_launch", spy(_emu_bwd))
+    monkeypatch.setattr(fk, "_pair_launch", pair)
     monkeypatch.setattr(fk, "_card_props", lambda device: H100)
 
 
@@ -160,8 +167,9 @@ def test_a_call_runs_every_launch_at_one_cluster_size(monkeypatch, mode):
     """Each launch of a call takes its form's cluster size: on an H100
     at B=2 and S_pad 1,280 C = 2 for every form but fact_bwd and
     fact_bwd_chunk, which the plan keeps at C = 1 (the full mode's pair
-    takes its sizes from the same rule, fact_kernels._mode_cluster), and
-    a forced C reaches every launch."""
+    takes its sizes from the same rule, fact_kernels._mode_cluster), but
+    the paired ckpt scan's roles, which run one block a column (B=2: 2 B
+    <= 132); a forced C reaches every launch (unpaired)."""
     fa, px, lens = _graph_case("source", "bfloat16", num_phones=600, seed=3,
                                B=2, T=4, lengths=(4, 3))
     assert fa.s_pad > 1024
@@ -177,6 +185,8 @@ def test_a_call_runs_every_launch_at_one_cluster_size(monkeypatch, mode):
         else:
             fk._ckpt(px, lens, fa, LEAKY, True, None, 3, forced)
         want = fk._mode_cluster(mode, px, fa, forced)
+        if mode == "ckpt" and forced is None:
+            want["fact_fwd_init"] = 1
         assert {form for form, _ in seen} == set(want)
         assert all(c == want[form] for form, c in seen)
 

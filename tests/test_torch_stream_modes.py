@@ -407,7 +407,7 @@ def _assemble(parts, rows_of, n):
 
 def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
              ad_rows=None, ad_init=None, s_init=None, s_ys=None,
-             ad_last=None, cluster=1, smid=None):
+             ad_last=None, cluster=1, smid=None, count=True):
     """fact_fwd.cu's kernel in place of fact_kernels._fwd_launch, one
     column at a time: frames t0 .. min(t0 + n, T_b) - 1 from ad_init /
     s_init (or ad0, s0), the auxiliary streams at local rows t - t0, alpha'
@@ -415,7 +415,7 @@ def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
     cluster each CTA computes its own rows (and their stream entries) from
     the whole carry and W2 operand, and s_t is the cluster's sum."""
     assert cluster in fk.LEAN_CLUSTERS and smid is None
-    fk.LAUNCHES[fk._name(form, fa)] += 1
+    fk.LAUNCHES[fk._name(form, fa)] += count
     f, g, tabs, d1, d2, _ = _graph(fa)
     fast = d1 is not None
     B, T, _ = px.shape
@@ -464,7 +464,7 @@ def _emu_fwd(form, px, lengths, fa, c, outs, t0=0, n_frames=None, snap=1,
 
 def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
              debug, stages, px=None, t0=0, n_frames=None, ad_init=None,
-             carry=(None, None), cluster=1, smid=None):
+             carry=(None, None), cluster=1, smid=None, count=True):
     """fact_bwd.cu's kernel in place of fact_kernels._bwd_launch, one
     column at a time: frames past the end zeroed in the launch's range,
     beta'(T_b) injected where T_b - 1 lies in it, else the carry read;
@@ -475,7 +475,7 @@ def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
     whole b and x_dst * b, and its own pdfs' gamma from the whole masses;
     every sum is the cluster's."""
     assert cluster in fk.LEAN_CLUSTERS and smid is None
-    fk.LAUNCHES[fk._name(form, fa)] += 1
+    fk.LAUNCHES[fk._name(form, fa)] += count
     f, g, tabs, d1, d2, lists = _graph(fa)
     fast = d1 is not None
     lean = form == "fact_bwd_lean"
@@ -555,6 +555,27 @@ def _emu_bwd(form, lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
     return outs
 
 
+def _emu_pair(fa, replay, backward, smid=None):
+    """csrc/fact_ckpt.cu's kernel in place of fact_kernels._pair_launch:
+    the replay role (_emu_fwd on its fact_fwd_init arguments), then the
+    backward role (_emu_bwd on its fact_bwd_chunk arguments).  The roles
+    share nothing, so their order does not matter to a right schedule;
+    the replay first makes a wrong one show (it would overwrite the
+    streams its backward reads).  Counted as the pair and its roles."""
+    assert smid is None and (replay or backward)
+    fk.LAUNCHES[fk._name(fk.PAIR, fa)] += 1
+    for emu, kw, heads in (
+            (_emu_fwd, replay, ("form", "px", "lengths", "fa",
+                                "leaky_coefficient", "outs")),
+            (_emu_bwd, backward, ("form", "lengths", "fa",
+                                  "leaky_coefficient", "streams"))):
+        if kw is not None:
+            kw = dict(kw)
+            args = [kw.pop(k) for k in heads]
+            emu(*args, count=False, **kw)
+            fk.ROLE_LAUNCHES[fk._name(args[0], fa)] += 1
+
+
 @pytest.mark.parametrize("stream_mode,chunk", [
     ("full", None), ("lean", None), ("ckpt", 3), ("ckpt", 4),
     ("ckpt", 12), ("ckpt", None)])
@@ -569,10 +590,10 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
     plain version's numbers bit for bit, in float32 within 1e-5 (objf
     also 1e-6 absolute: one column's is 3e-3; the kernels' float32 sums
     run in another order, the plain version's through dense products);
-    one snapshot sweep and
-    one replay and one chunk backward a chunk.  The card is an H100 stub
-    (132 SMs); at S_pad 128 the plan rule keeps C = 1 (the cluster forms
-    run forced in the tests below)."""
+    one snapshot sweep, then the paired chunk scan (B = 5: 2 B <= 132):
+    n + 1 pair launches for n chunks, one replay and one chunk backward a
+    chunk.  The card is an H100 stub (132 SMs); at S_pad 128 the plan
+    rule keeps C = 1 (the cluster forms run forced in the tests below)."""
     fst, P = denominator_fst(num_phones=10, states_per_phone=2, seed=6,
                              forward_pdf_mode=fwd_mode)
     fa = pt.ChainGraphBatch(pt.ChainGraph(fst), 5, tile_dtype=tile_dtype,
@@ -583,6 +604,7 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
     lens = torch.tensor([12, 8, 4, 1, 9], dtype=torch.int32)
     monkeypatch.setattr(fk, "_fwd_launch", _emu_fwd)
     monkeypatch.setattr(fk, "_bwd_launch", _emu_bwd)
+    monkeypatch.setattr(fk, "_pair_launch", _emu_pair)
     monkeypatch.setattr(fk, "_card_props", lambda device: H100)
     fk.reset_launch_counts()
     sfx = "_bf16" if tile_dtype else ""
@@ -615,9 +637,11 @@ def test_host_code_on_emulated_kernels(monkeypatch, tile_dtype, fwd_mode,
     want_launches = {
         "full": {"fact_fwd": 2, "fact_bwd": 2},
         "lean": {"fact_fwd_snap": 2, "fact_bwd_lean": 2},
-        "ckpt": {"fact_fwd_snap": 2, "fact_fwd_init": 2 * n,
-                 "fact_bwd_chunk": 2 * n}}[stream_mode]
+        "ckpt": {"fact_fwd_snap": 2, "fact_ckpt_pair": 2 * (n + 1)}}[
+            stream_mode]
     assert fk.launched() == {k + sfx: v for k, v in want_launches.items()}
+    assert fk.roles_launched() == ({} if stream_mode != "ckpt" else {
+        f"fact_fwd_init{sfx}": 2 * n, f"fact_bwd_chunk{sfx}": 2 * n})
 
 
 # ----------------------------------------------------------------------
