@@ -203,7 +203,12 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    ckpt_chunk=96, which does not divide T); first a plan line: each
    form's cluster size C (fact_kernels.cluster_size: at B=64 on 132 SMs
    2 for the forward forms and fact_bwd_lean, 1 for fact_bwd and
-   fact_bwd_chunk, whose cluster form is no faster); each mode's launches
+   fact_bwd_chunk, whose cluster form is no faster), and fact_bwd_bf16's
+   plan, the group form at G = 1 ((1, 2): one column a cluster of 2
+   CTAs; one_column_checks: its shared memory in Python and the source,
+   the clusters the card holds at once, bit for bit against one block a
+   column and on a rerun, 2 B CTAs on 2 B distinct SMs; its time beside
+   one block a column's in the same call); each mode's launches
    (every count 0 before its run, read after), step ms (CUDA events,
    best of 3 after a warm-up), peak device memory, objf and its largest
    difference from full; every kernel bit for bit against its plain
@@ -222,8 +227,9 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    mode at C=1 and at C=2, bit-identical to the full kernels' (gated);
    bench.py --long (B=32, T=2,500) under "auto": its plan line, mode,
    step ms, peak memory, the full pair bit for bit against the plain fast
-   version, fact_fwd_bf16 and fact_bwd_bf16 at C=1, 2 and 4 and the full
-   call at C=1 and at its plan in turns;
+   version, fact_bwd_bf16's group form at G = 1 as at B=64,
+   fact_fwd_bf16 at C=1, 2 and 4, fact_bwd_bf16 at C=1, 2, 4 and its
+   plan, and the full call at C=1 and at its plan in turns;
 12d. main path 8, a shared log-domain graph: bench.py --xlstream's
    denominator (bench.py:246-372: the headline graph as
    ChainGraph(..., log_domain=True), B=32, T=150), which auto serves in
@@ -233,7 +239,8 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    kernel; ms best of 3 after a warm-up, utts/s), B1/B2 at leaky 0
    against the plain version (objf rel and gamma max-abs <= 1e-4; the
    alpha' stream), the same with bfloat16 tiles (fact_fwd_bf16 /
-   fact_bwd_bf16 bit for bit), the gather A/B (impl="gather" on the same
+   fact_bwd_bf16 bit for bit; their plan printed: fact_fwd_bf16 at C=2,
+   fact_bwd_bf16's group form at (1, 2)), the gather A/B (impl="gather" on the same
    batch: its ms, objf and gradient within 1e-4 of factorized-log, gamma
    bit-identical on a rerun), a dead column (the graph behind a chain
    of 8 states, a column of 8 frames: objf -inf, gamma 0, ok False, the
@@ -295,7 +302,8 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    process's step, each placed kernel's local shard half of it, the
    replicated tensors bit-identical across the mp ranks, B1/B2
    (float32) launched on every rank; (b) bench.py --train's TDNN-512x5
-   with mp_axis="mp" on a (1 x 2) mesh of 2 ranks (B=128, T=500, P=3000,
+   cut to its first two layers (P10_LAYERS), with mp_axis="mp" on a
+   (1 x 2) mesh of 2 ranks (B=128, T=500, P=3000,
    ChainLoss(den, precision="fast") over the headline denominator and
    linear numerators, train-mode BatchNorm, Adam 1e-3, TF32 off, cuDNN
    deterministic): each step's loss within 1e-5 of one process's on the
@@ -350,8 +358,10 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    with its launches in that mode's run (fact_fwd_init and
    fact_bwd_chunk timed over all of a call's chunks, "ms_covers"), its
    plan's cluster size and its times at C=1 and C=2 ("cluster",
-   "c1_ms", "ab_ms"); bench.py --long's fact_fwd_bf16 and fact_bwd_bf16
-   one each (its plan's time, and at C=1, 2 and 4); main path 8 one for
+   "c1_ms", "ab_ms"; fact_bwd_bf16's "cluster" the group form's [G, C],
+   "ms" its time there, "c1_ms" one block a column's); bench.py --long's
+   fact_fwd_bf16 and fact_bwd_bf16 one each (its plan's time, and at
+   C=1, 2 and 4); main path 8 one for
    each B1/B2 kernel in both precisions and one for each of B3/B4 at its
    cluster-tier check ("leaky": 0, their launches in main path 8's
    counted steps); the rows of B1/B2 (both forms) and of the semiring
@@ -973,7 +983,8 @@ def operator_bytes(kg, lens, plan):
 
 def check_group_smem(fa, label):
     """The group form's shared memory in Python equals its sources' at
-    every (G, C) built, for this graph's slot counts."""
+    every (G, C) built for each form (fact_kernels.FORM_GROUPS), for this
+    graph's slot counts.  Returns {"form G C": bytes}."""
     import ctypes
     from pychain_tpu_torch.csrc import build
     from pychain_tpu_torch.ops import fact_kernels as fk
@@ -982,13 +993,59 @@ def check_group_smem(fa, label):
     for form in fk.GROUP_FORMS:
         fn = getattr(build.load(form), f"{form}_group_smem_bytes")
         fn.restype = ctypes.c_size_t
-        for G, C in fk.GROUPS:
+        for G, C in fk.FORM_GROUPS[form]:
             got[f"{form} {G} {C}"] = fk.group_smem_bytes(fa, G, C)[form]
             want[f"{form} {G} {C}"] = fn(fa.s_pad, int(
                 fa.xsrc_mode == "identity"), G, C, words[(form, C)])
     check(got == want, f"{label}: group smem Python {got} != sources {want}")
     print(f"# {label} fast: group form shared memory (Python = sources) "
           f"{got}", flush=True)
+    return got
+
+
+def one_column_checks(label, fa, px, lens32, leaky_c):
+    """fact_bwd_bf16's plan at this batch (fact_kernels._form_plan; on an
+    H100 at B <= 66 the group form at G = 1: one column a cluster of 2
+    CTAs), its shared memory in Python against the source's, the clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters) against B, and
+    on one forward sweep's streams: the plan's launch against one block a
+    column bit for bit (gamma and both traces), again on a rerun, and its
+    2 B CTAs on 2 B distinct SMs (%smid).  Returns the figures."""
+    from pychain_tpu_torch.ops import fact_kernels as fk
+    B, T, P = px.shape
+    props = torch.cuda.get_device_properties(px.device)
+    group = fk._form_plan("fact_bwd", B, props, fa, None)
+    if props.multi_processor_count == 132:
+        check(group == (1, 2), f"{label}: fact_bwd's plan {group} on 132 "
+              "SMs, want (1, 2)")
+    smem = check_group_smem(fa, label)[f"fact_bwd {group[0]} {group[1]}"]
+    active = fk.group_active_clusters(fa, group)
+    st = fk.fact_fwd(px, lens32, fa, leaky_c)
+    tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
+
+    def bwd(cluster, smid=None):
+        return fk.fact_bwd(lens32, fa, leaky_c, *st[:5], st[6], st[7], tot,
+                           P, cluster=cluster, smid=smid)
+
+    n = -(-B // group[0]) * group[1]
+    smid = torch.full((n,), -1, dtype=torch.int32, device=px.device)
+    got, again, one = bwd(group, smid), bwd(group), bwd(1)
+    torch.cuda.synchronize()
+    diff = {k: int((a != b).sum()) for k, a, b in
+            zip(("gamma", "alpha_beta", "gamma_sum"), got, one)}
+    rerun = int((again[0] != got[0]).sum())
+    sms = len(set(smid.tolist()))
+    del st, got, again, one
+    print(f"# {label}: fact_bwd_bf16's plan {group} ({n} CTAs, {smem} B of "
+          f"shared memory a CTA, Python = source; {active} clusters at once "
+          f"for {-(-B // group[0])}); against one block a column, entries "
+          f"that differ {diff}; gamma on a rerun {rerun}; {sms} distinct "
+          f"SMs for {n} CTAs", flush=True)
+    check(sum(diff.values()) == 0 and rerun == 0 and bool((smid >= 0).all())
+          and sms == n and active >= -(-B // group[0]),
+          f"{label}: fact_bwd_bf16 at {group}: diff {diff}, rerun {rerun}, "
+          f"{sms} SMs for {n} CTAs, {active} clusters at once")
+    return {"plan": list(group), "smem": smem, "active": active, "sms": sms}
 
 
 def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None,
@@ -1283,7 +1340,7 @@ def check_smem():
           "viterbi at every layout their plans can choose)", flush=True)
 
 
-CARD_TEST_SHARDS = 3   # pytest processes at once on the card
+CARD_TEST_SHARDS = 4   # pytest processes at once on the card
 
 
 def card_tests(shards=CARD_TEST_SHARDS):
@@ -2209,6 +2266,7 @@ def long_fast(den, P, dev, leaky_c, counters):
     check(auto == "full", f"{label}: auto chose {auto} under {budget} B")
     plan = cluster_plan(fa, B, P, dev, label)
     C7 = 2   # the cluster size the plan takes at B=64 on 132 SMs
+    # fact_bwd's plan: the group form at G = 1 (one column a cluster of 2)
     if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
         want_plan = {f: 1 if f in ("fact_bwd", "fact_bwd_chunk") else C7
                      for f in plan}
@@ -2262,6 +2320,7 @@ def long_fast(den, P, dev, leaky_c, counters):
         diffs[f"full C={cl} stages={stages}"] = bit_diff(r, want_full)
         del r
     del want_full
+    one_col = one_column_checks(label, fa, px, lens32, leaky_c)
     ad1, s1 = fk.fact_fwd_snap(px, lens32, fa, leaky_c)[:2]
     diffs["fact_fwd_snap lean"] = {
         "alpha'": int((ad1.float() != alpha_dash[1:].permute(2, 0, 1))
@@ -2345,7 +2404,8 @@ def long_fast(den, P, dev, leaky_c, counters):
              "fact_fwd_init": init_plain_ms,
              "fact_bwd_chunk": chunk_plain_ms,
              "fact_ckpt_pair": init_plain_ms + chunk_plain_ms}
-    print(f"# {label} kernel ms (each alone; init and chunk over the call's "
+    print(f"# {label} kernel ms (each alone, at its plan: fact_bwd "
+          f"{tuple(one_col['plan'])}; init and chunk over the call's "
           f"{n_chunks} chunks, unpaired, and the paired scan's "
           f"{n_chunks + 1} launches): " + ", ".join(
               f"{k} {v:.3f} (bound {bound(*costs[k])[0]:.4f}, plain "
@@ -2374,6 +2434,16 @@ def long_fast(den, P, dev, leaky_c, counters):
                         "ab_cluster": C7,
                         "ab_peak_over_held": ab_c[k][C7][1],
                         "c1_peak_over_held": ab_c[k][1][1]})
+    # fact_bwd runs its group form at G = 1: the plan's (G, C), its time
+    # at it ("ms") beside one block a column's ("c1_ms"), and its SMs
+    rows["fact_bwd"].update({"cluster": one_col["plan"],
+                             "active_clusters": one_col["active"],
+                             "smem": one_col["smem"],
+                             "plan_sms": one_col["sms"]})
+    print(f"# {label}: fact_bwd_bf16 at its plan {tuple(one_col['plan'])} "
+          f"{times['fact_bwd']:.3f} ms [one block a column "
+          f"{ab_c['fact_bwd'][1][0]:.3f}] in one call; {card_line()}",
+          flush=True)
     for k in ("full call", "lean call", "ckpt call"):
         stats[k.split()[0]]["call_ab"] = {"c1_ms": ab_c[k][1][0],
                                           "plan_ms": ab_c[k][C7][0]}
@@ -2475,9 +2545,11 @@ def long_auto(den, P, dev, leaky_c, counters):
     """bench.py --long (B=32, T=2,500, bfloat16 tiles) under "auto"
     through chain_function: the plan, the mode auto takes, the step's ms
     and peak memory, and the full pair bit for bit against the plain
-    fast version (each sweep's plain time); fact_fwd_bf16 and
-    fact_bwd_bf16 at C = 1, 2 and 4 and the full call at C = 1 and at the
-    plan in turns.  Returns (stats, the pair's kernel rows' fields)."""
+    fast version (each sweep's plain time); fact_bwd_bf16's group form at
+    G = 1 (one_column_checks); fact_fwd_bf16 at C = 1, 2 and 4,
+    fact_bwd_bf16 at C = 1, 2, 4 and its plan, and the full call at C = 1
+    and at the plan in turns.  Returns (stats, the pair's kernel rows'
+    fields)."""
     from pychain_tpu_torch import ChainGraphBatch
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import factorized as pf
@@ -2485,7 +2557,7 @@ def long_auto(den, P, dev, leaky_c, counters):
     batch = ChainGraphBatch(den, B, tile_dtype="bfloat16", device=dev)
     fa = batch._fact
     label = f"main path 7 (bench.py --long: B={B}, T={T}, bfloat16)"
-    plan = cluster_plan(fa, B, P, dev, label)
+    cluster_plan(fa, B, P, dev, label)
     auto = fk.resolve_stream_mode(T, B, fa, budget=fk.stream_budget(dev),
                                   on_card=True)
     x = torch.randn(B, T, P, generator=torch.Generator(device=dev)
@@ -2521,31 +2593,41 @@ def long_auto(den, P, dev, leaky_c, counters):
                                           "fact_bwd_bf16": 1}
           and sum(diff.values()) == 0 and ok_all,
           f"{label}: auto {auto}, launches {launched}, diff {diff}")
+    one_col = one_column_checks(label, fa, px, lens32, leaky_c)
+    # each form's plan: fact_fwd's cluster form, fact_bwd's group form
+    plan = fk._mode_cluster("full", px, fa, None)
     st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=1)
     tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
     ab = {k: {c: v[0] for c, v in r.items()} for k, r in sizes_ab({
         "fact_fwd": lambda c: fk.fact_fwd(px, lens32, fa, leaky_c,
-                                          cluster=c),
+                                          cluster=c)}, (1, 2, 4)).items()}
+    ab.update({k: {c: v[0] for c, v in r.items()} for k, r in sizes_ab({
         "fact_bwd": lambda c: fk.fact_bwd(
             lens32, fa, leaky_c, *st[:5], st[6], st[7], tot, P,
-            debug=False, cluster=c)}, (1, 2, 4)).items()}
+            debug=False, cluster=c)}, (1, 2, 4, plan["fact_bwd"])).items()})
     del st
     # 0: every form at its plan's size
     call = {c: v[0] for c, v in sizes_ab({
         "full call": lambda c: fk.forward_backward_prob_kernel(
             px, lens32, fa, leaky_c, debug=False, stream_mode="full",
             cluster=None if c == 0 else 1)}, (1, 0))["full call"].items()}
-    print(f"# {label}: fact_fwd_bf16 and fact_bwd_bf16 at C = 1, 2, 4 in "
-          f"turns (ms): {ab}; the full call with every form at C=1 "
-          f"{call[1]:.3f} ms, at the plan {call[0]:.3f} ms", flush=True)
+    print(f"# {label}: fact_fwd_bf16 at C = 1, 2, 4 and fact_bwd_bf16 at C ="
+          f" 1, 2, 4 and its plan {plan['fact_bwd']} in turns (ms): {ab}; the "
+          f"full call with every form at C=1 {call[1]:.3f} ms, at the plan "
+          f"{call[0]:.3f} ms; {card_line()}", flush=True)
     kg = fk.graph_for(fa)
     costs = mode_bytes_ops(fa, kg, lens32, T, P, fk.ckpt_chunk_length(T))
     plain = {"fact_fwd": fwd_plain_ms, "fact_bwd": bwd_plain_ms}
     rows = {k: {"ms": ab[k][plan[k]], "plain_ms": plain[k],
                 "bytes": costs[k][0], "ops": costs[k][1], "err": 0.0,
-                "cluster": plan[k], "c1_ms": ab[k][1], "c2_ms": ab[k][2],
+                "cluster": (list(plan[k]) if isinstance(plan[k], tuple)
+                            else plan[k]),
+                "c1_ms": ab[k][1], "c2_ms": ab[k][2],
                 "c4_ms": ab[k][4], "launches": launched[f"{k}_bf16"]}
             for k in ("fact_fwd", "fact_bwd")}
+    rows["fact_bwd"].update({"active_clusters": one_col["active"],
+                             "smem": one_col["smem"],
+                             "plan_sms": one_col["sms"]})
     del px
     torch.cuda.empty_cache()
     return {"auto": auto, "objf": objf, "ms": best, "peak": peak,
@@ -4251,6 +4333,13 @@ def main_path_8(den_fst, P, dev, counters):
     fa_fast = dispatch_arrays(fast)
     check(fa_fast.log_semantics and resolved_engine(fa_fast) == "pallas",
           "main path 8 fast: tier")
+    fast_plan = {f: fk._form_plan(f, B, props, fa_fast, None)
+                 for f in ("fact_fwd", "fact_bwd")}
+    print(f"# main path 8 fast plan {fast_plan} (fact_bwd_bf16's group "
+          "form at G = 1 within the cluster forms' reach)", flush=True)
+    if props.multi_processor_count == 132:
+        check(fast_plan == {"fact_fwd": 2, "fact_bwd": (1, 2)},
+              f"main path 8 fast: plan {fast_plan}")
     f_objf, f_launches, f_ms, f_ups = log_step(
         "main path 8 fast (shared log-domain graph, bfloat16 tiles)", x,
         lens, fast, counters, {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1})
@@ -4259,6 +4348,19 @@ def main_path_8(den_fst, P, dev, counters):
     rows.update(log_kernel_rows("main path 8 fast", fa_fast, px, lens_dev,
                                 f_launches, fk.fact_fwd, fk.fact_bwd, None,
                                 ("fact_fwd_bf16", "fact_bwd_bf16")))
+    for f, name in (("fact_fwd", "fact_fwd_bf16"),
+                    ("fact_bwd", "fact_bwd_bf16")):
+        p = fast_plan[f]
+        rows[name]["cluster"] = list(p) if isinstance(p, tuple) else p
+    if isinstance(fast_plan["fact_bwd"], tuple):
+        # one block a column on the same inputs, beside the group form
+        one = pair_times(fa_fast, px, lens_dev, 0.0, fk.fact_fwd,
+                         functools.partial(fk.fact_bwd, cluster=1), 5,
+                         plain=False)
+        rows["fact_bwd_bf16"]["one_block_ms"] = one[1]
+        print(f"# main path 8 fast: fact_bwd_bf16 at {fast_plan['fact_bwd']}"
+              f" {rows['fact_bwd_bf16']['ms']:.3f} ms [one block a column "
+              f"{one[1]:.3f}]; {card_line()}", flush=True)
     del fast, fa_fast
 
     # the gather A/B (bench.py:341-355): impl="gather" on the same batch
@@ -4834,6 +4936,10 @@ P10_FAST_LOSS_TOL = 5e-5
 P10_GRAD_TOL = 1e-5
 P10_FAST_GRAD_TOL = 1e-3
 P10_STEPS = 3
+# (b)'s TDNN layers: bench.py --train's TDNN-512x5 cut to its first two
+# (the width and the placement rule kept; gloo's bytes and time a step
+# fall with the layers)
+P10_LAYERS = 2
 
 
 @contextlib.contextmanager
@@ -4931,16 +5037,18 @@ def p10_dryrun():
 def p10_problem(dev):
     """Main path 10 (b)'s problem, main path 5's: the headline denominator,
     40 seeded features at B=128, T=500, linear numerators (seed 18), and
-    bench.py --train's TDNN-512x5 (dropout 0) with mp_axis="mp"."""
+    bench.py --train's TDNN-512x5 cut to P10_LAYERS layers (dropout 0)
+    with mp_axis="mp"."""
     from pychain_tpu_torch import ChainGraph
     from pychain_tpu_torch.models import TDNNConfig
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
     B, T = 128, 500
     den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
                                  seed=0, bigram_fanout=30)
-    cfg = TDNNConfig(num_pdfs=P, hidden_dim=512, kernel_sizes=(3,) * 5,
-                     dilations=(1, 1, 3, 3, 3), strides=(1,) * 5,
-                     dropout=0.0, mp_axis="mp")
+    cfg = TDNNConfig(num_pdfs=P, hidden_dim=512,
+                     kernel_sizes=(3,) * P10_LAYERS,
+                     dilations=(1, 1, 3, 3, 3)[:P10_LAYERS],
+                     strides=(1,) * P10_LAYERS, dropout=0.0, mp_axis="mp")
     feats = torch.randn(B, T, FEAT_DIM, generator=torch.Generator(
         device=dev).manual_seed(1), device=dev)
     return (ChainGraph(den_fst), cfg, feats,
@@ -4994,7 +5102,7 @@ def p10_train(model, den, feats, lengths, nums, mesh=None, precision="fast",
 
 def p10_width_rank(ckpt, out_dir):
     """A rank of main path 10 (b) and (c), started by run_ranks, TF32 off
-    and cuDNN deterministic: the TDNN-512x5 placed over a (1 x world)
+    and cuDNN deterministic: the TDNN-512 placed over a (1 x world)
     mesh's "mp" dim, P10_STEPS steps in the fast mode (its weights kept,
     gathered whole, before each step), the same from the same seed in
     float32, then the sharded checkpoint round trip of the fast run's
@@ -5069,8 +5177,9 @@ def p10_width_rank(ckpt, out_dir):
 
 
 def p10_width(p5_step_ms):
-    """(b) TDNN-512x5 with mp_axis="mp" at bench.py --train's width on 2
-    gloo ranks sharing the card ((1 x 2) mesh), against one process on
+    """(b) TDNN-512 (P10_LAYERS layers) with mp_axis="mp" at bench.py
+    --train's width on 2 gloo ranks sharing the card ((1 x 2) mesh),
+    against one process on
     the same seeds (TF32 off and cuDNN deterministic in both): each fast
     step's loss within P10_LOSS_TOL of one process's loss on the rank's
     own weights before that step; three steps from the same seed in
@@ -5165,7 +5274,8 @@ def p10_width(p5_step_ms):
     same, halves = mp_pairs_identical(ranks), halves_ok(ranks)
     r0 = ranks[0]
     comm = sum(r0["comm_bytes"].values())
-    print(f"# main path 10 (b) TDNN-512x5, mp_axis=\"mp\", (1x2) mesh of 2 "
+    print(f"# main path 10 (b) TDNN-512x{P10_LAYERS}, mp_axis=\"mp\", "
+          f"(1x2) mesh of 2 "
           f"gloo ranks sharing the card, B=128 T=500 P=3000, train-mode "
           f"BatchNorm, Adam 1e-3, TF32 off, cuDNN deterministic: each "
           f"step's loss against one process's on the rank's weights before "
@@ -5194,7 +5304,7 @@ def p10_width(p5_step_ms):
     check(max(same_w) <= P10_LOSS_TOL and loss_32 <= P10_LOSS_TOL
           and loss_f <= P10_FAST_LOSS_TOL and every_f and every_32
           and grad_32[0] <= P10_GRAD_TOL and grad_f[0] <= P10_FAST_GRAD_TOL
-          and same and halves and len(r0["placed"]) == 6
+          and same and halves and len(r0["placed"]) == P10_LAYERS + 1
           and all(r["backend"] == "gloo" and r["launches"] == {
               "fact_fwd_bf16": P10_STEPS, "fact_bwd_bf16": P10_STEPS}
                   and r["f32_launches"] == {"fact_fwd": P10_STEPS,
@@ -5211,9 +5321,9 @@ def p10_width(p5_step_ms):
                     "whole_back": True}, f"main path 10 (c) rank "
               f"{r['rank']}: {c}")
     print("# main path 10 (c): save_sharded / restore_sharded of the "
-          "placed TDNN-512x5 on 2 ranks: each rank's shards back bit for "
-          "bit into a placed model of another seed, the whole arrays into "
-          "a model without a mesh", flush=True)
+          f"placed TDNN-512x{P10_LAYERS} on 2 ranks: each rank's shards "
+          "back bit for bit into a placed model of another seed, the whole "
+          "arrays into a model without a mesh", flush=True)
     return {"same_w": max(same_w), "loss_rel": loss_f,
             "grad_rel": grad_f[0], "f32_grad_rel": grad_32[0],
             "param_rel": par_f[0], "step1_rel": step1_f[0],
@@ -5762,7 +5872,8 @@ def main():
                 # A/B of C = 1 against C = ab_cluster
                 **{k: r[k] for k in ("cluster", "ab_cluster", "ab_ms",
                                      "c1_ms", "ab_peak_over_held",
-                                     "c1_peak_over_held", "pair_sms")
+                                     "c1_peak_over_held", "pair_sms",
+                                     "active_clusters", "smem", "plan_sms")
                    if k in r},
                 "library_ms": None})
     # bench.py --long (B=32): the full pair at its plan, each form's time
@@ -5787,6 +5898,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "bytes": r["bytes"], "ops": r["ops"], "cluster": r["cluster"],
             "c1_ms": r["c1_ms"], "c2_ms": r["c2_ms"], "c4_ms": r["c4_ms"],
+            **{k: r[k] for k in ("active_clusters", "smem", "plan_sms")
+               if k in r},
             "library_ms": None})
     # main path 8 (bench.py --xlstream): B1/B2 in both precisions at
     # leaky 0 on the shared log-domain graph, B3/B4 on its cluster-tier
@@ -5818,7 +5931,8 @@ def main():
                 "launches": r["launches"],
                 "launches_by_path": {"main path 8": r["launches"]},
                 "on_main_path": True,
-                **{k: r[k] for k in ("cluster", "columns") if k in r},
+                **{k: r[k] for k in ("cluster", "columns", "one_block_ms")
+                   if k in r},
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "entry_excess": r["entry_excess"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -6031,7 +6145,8 @@ def main():
     print(f"# main path 10 (the model axis; gloo ranks sharing the card): "
           f"dryrun_multichip(2) / (4) loss rel {a[2]['loss_rel']:.2e} / "
           f"{a[4]['loss_rel']:.2e}, parameters {a[2]['param_rel']:.2e} / "
-          f"{a[4]['param_rel']:.2e}; TDNN-512x5 on a (1x2) mesh: a rank's "
+          f"{a[4]['param_rel']:.2e}; TDNN-512x{P10_LAYERS} on a (1x2) "
+          f"mesh: a rank's "
           f"step {b['rank_ms']:.3f} ms against one process's "
           f"{b['one_ms']:.3f} ms (TF32 off), {b['comm_bytes']} bytes of mp "
           f"collectives a step; losses on the same weights "

@@ -440,6 +440,45 @@ FAST_BWD.update({
          "        const int d = cluster_row(i, rank, C);\n        const float "
          "lk")]),
 })
+# fact_bwd_bf16's group form at G = 1 (one column a cluster of 2 CTAs,
+# the plan within the cluster forms' reach) beside one block a column:
+# at main path 7's shape (B=64, T=3,700) as it is and without its
+# products, its exchanges (made local), its gamma stage or its stream
+# reads; at T=500 at B=8, 16, 32 and 64 (the plan's low end); at B=64
+# on the headline family with bigram fan-outs 10 and 20 (W1^T and W2^T
+# 132,608 and about 250,000 bytes: whether GROUP_MIN_OPERATOR_BYTES
+# holds at G = 1); at bench.py --long's shape (B=32, T=2,500) at C = 2
+# and C = 4 ("G1C4": the launch's refusal of G = 1 past C = 2 edited
+# out; fast_ablation prints the clusters the card holds at once).
+_P7 = {"batch": 64, "frames": 3700}
+_G12 = dict(_P7, cluster=(1, 2))
+FAST_BWD.update({
+    "C1_B64_T3700": dict(_P7, cluster=1),
+    "G1C2_B64_T3700": _G12,
+    "G1C2_B64_T3700_no_products": dict(_G12, edits=_GROUP_BWD_PRODUCTS),
+    "G1C2_B64_T3700_local": dict(_G12,
+                                 edits=FAST_BWD["G2C2_local"]["edits"]),
+    "G1C2_B64_T3700_no_gamma": dict(_G12,
+                                    edits=FAST_BWD["G2C2_no_gamma"]["edits"]),
+    "G1C2_B64_T3700_no_stream_reads": dict(
+        _G12, edits=FAST_BWD["G2C2_no_stream_reads"]["edits"]),
+    "C1_B16": {"cluster": 1, "batch": 16},
+})
+for _B in (8, 16, 32, 64):
+    FAST_BWD[f"G1C2_B{_B}"] = {"cluster": (1, 2), "batch": _B}
+for _f in (10, 20):
+    FAST_BWD[f"C1_B64_fanout{_f}"] = {"cluster": 1, "batch": 64,
+                                      "fanout": _f}
+    FAST_BWD[f"G1C2_B64_fanout{_f}"] = {"cluster": (1, 2), "batch": 64,
+                                        "fanout": _f}
+_LONG = {"batch": 32, "frames": 2500}
+FAST_BWD.update({
+    "C1_B32_T2500": dict(_LONG, cluster=1),
+    "G1C2_B32_T2500": dict(_LONG, cluster=(1, 2)),
+    "G1C4_B32_T2500": dict(_LONG, cluster=(1, 4), edits=[(
+        "  if (G == 1 && C != 2) return static_cast<int>(cudaErrorInvalidValue"
+        ");\n", "")]),
+})
 # The ckpt mode's pair kernel (csrc/fact_ckpt.cu) at main path 7 fast
 # (B=64, T=3,700), bench.py --long (B=32, T=2,500) and main path 7's
 # float32 cut (B=64, T=1,000): beside each variant ckpt_ablation times,
@@ -1472,31 +1511,49 @@ def full_cluster_ablation(tables, use, time_ms, dev):
 
 def fast_ablation(tables, use, time_ms, dev):
     """The fast pair's variants at the headline graph (bfloat16 tiles,
-    T=500, all columns full length) at B=128 unless a variant names its
-    batch, each launch timed alone (fact_bwd_bf16 on the one-block
-    sweep's streams, which the group form writes bit for bit alike)."""
+    all columns full length) at B=128, T=500 unless a variant names its
+    batch, frames or bigram fan-out, each launch timed alone
+    (fact_bwd_bf16 on the one-block sweep's streams, which the group form
+    writes bit for bit alike).  G = 1 past C = 2 is taken for this run
+    (fact_kernels.FORM_GROUPS); the clusters of each G = 1 shape the card
+    holds at once are printed."""
     from pychain_tpu_torch import ChainGraph, ChainGraphBatch
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.utils.testgraphs import denominator_fst
-    T, c = 500, 1e-5
-    den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
-                                 seed=0, bigram_fanout=30)
-    fa = ChainGraphBatch(ChainGraph(den_fst), 128, tile_dtype="bfloat16",
-                         device=dev)._fact
+    c = 1e-5
+    fk.FORM_GROUPS = {**fk.FORM_GROUPS, "fact_bwd": tuple(dict.fromkeys(
+        fk.FORM_GROUPS["fact_bwd"] + ((1, 4),)))}
+    graphs = {}
+
+    def graph(fanout):
+        if fanout not in graphs:
+            den_fst, P = denominator_fst(num_phones=1500, states_per_phone=2,
+                                         seed=0, bigram_fanout=fanout)
+            graphs[fanout] = (ChainGraphBatch(
+                ChainGraph(den_fst), 128, tile_dtype="bfloat16",
+                device=dev)._fact, P)
+        return graphs[fanout]
+
+    def shape(v):
+        o = spec(v)[1]
+        return o.get("batch", 128), o.get("frames", 500), o.get("fanout", 30)
+
     result = {}
-    for B in (128, 64, 32, 8):
-        at = lambda v: spec(v)[1].get("batch", 128) == B
-        fwd = {k: v for k, v in tables["fast_fwd"].items() if at(v)}
-        bwd = {k: v for k, v in tables["fast_bwd"].items() if at(v)}
-        if not (fwd or bwd):
-            continue
+    keys = dict.fromkeys(shape(v) for k in ("fast_fwd", "fast_bwd")
+                         for v in tables[k].values())
+    for B, T, fanout in keys:
+        fwd = {k: v for k, v in tables["fast_fwd"].items()
+               if shape(v) == (B, T, fanout)}
+        bwd = {k: v for k, v in tables["fast_bwd"].items()
+               if shape(v) == (B, T, fanout)}
+        fa, P = graph(fanout)
         px = torch.exp(torch.randn(B, T, P, generator=torch.Generator(
             device=dev).manual_seed(0), device=dev))
         lens = torch.full((B,), T, dtype=torch.int32, device=dev)
         use("fact_fwd", "full")
         st = fk.fact_fwd(px, lens, fa, c, cluster=1)
         tot = fk._objf(st[4], st[5], lens, fa, st[7])[1].contiguous()
-        tag = f"B={B} T={T}"
+        tag = f"B={B} T={T}" + (f" fanout={fanout}" if fanout != 30 else "")
         for label, variant in fwd.items():
             use("fast_fwd", label)
             opts = spec(variant)[1]
@@ -1507,9 +1564,14 @@ def fast_ablation(tables, use, time_ms, dev):
         for label, variant in bwd.items():
             use("fast_bwd", label)
             opts = spec(variant)[1]
+            group = opts["cluster"]
+            if isinstance(group, tuple) and group[0] == 1:
+                print(f"# fact_bwd_bf16 {group} at {tag}: "
+                      f"{fk.group_active_clusters(fa, group)} clusters at "
+                      f"once for {B}", flush=True)
             result[f"fact_bwd_bf16/{label} {tag}"] = time_ms(
                 lambda: fk.fact_bwd(lens, fa, c, *st[:5], st[6], st[7], tot,
-                                    P, debug=False, cluster=opts["cluster"]))
+                                    P, debug=False, cluster=group))
         del px, st
         torch.cuda.empty_cache()
     return result

@@ -1214,11 +1214,20 @@ __global__ void __launch_bounds__(NT, 1) fact_bwd_full_cluster_kernel(
 }
 
 // fact_bwd_bf16 (the full mode, bfloat16 tiles) as a group of G columns
-// (G = 2 or 4) on a cluster of C CTAs (C = 2 or 4), where B is past C =
-// 2's reach (fact_kernels.group_size); the forward sweep's group form
-// (fact_fwd.cu) says why: a CTA loads its rows' slots of W1^T and W2^T
-// into shared memory once, packed, and one load of a slot feeds the G
-// columns' products; no frame reads the operator from device memory.
+// (G = 1, 2 or 4) on a cluster of C CTAs (C = 2 or 4)
+// (fact_kernels.group_size): G = 1 where B C CTAs fit the card's SMs (B
+// <= 66 on an H100 at C = 2, where one block a column leaves half the
+// SMs idle), G = 2 past that; the forward sweep's group form (fact_fwd.cu)
+// says why: a CTA loads its rows' slots of W1^T and W2^T into shared
+// memory once, packed, and one load of a slot feeds the G columns'
+// products; no frame reads the operator from device memory (the
+// one-block kernel reads all of it from L2 at every frame).
+//
+// At G = 1 every packed vector keeps a word a state (packed_words in
+// fact_common.cuh: the bfloat16 value's float32 bits, so the host's bank
+// order still spreads a slot's gathers over the banks), and the loop is
+// the G = 2 form's with one column: the products gather the same rounded
+// values, and every sum keeps its order.
 //
 // CTA r owns the state rows of the cluster layout (cluster_row) and the
 // pdfs p with p mod 1024 one of its virtual threads, in all G columns.
@@ -1296,7 +1305,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_group_kernel(
     int* __restrict__ smid) {            // (ceil(B / G) C,) or null
   namespace cg = cooperative_groups;
   using S = __nv_bfloat16;
-  constexpr int W = G / 2;               // words a state of a packed vector
+  constexpr int W = packed_words<G>();   // words a state of a packed vector
   const int C = static_cast<int>(cg::this_cluster().num_blocks());
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int lc = __ffs(C) - 1;
@@ -1606,8 +1615,9 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_group_kernel(
   cluster_barrier();   // no peer touches this CTA's shared memory after it
 }
 
-// The group form's request: b and x_dst * b whole, packed, and the masses
-// (1 or 2 vectors) whole, packed, in two buffers; beta' on rank 0's rows
+// The group form's request: b and x_dst * b whole, packed (S_pad
+// packed_words words each), and the masses (1 or 2 vectors) whole,
+// packed, in two buffers; beta' on rank 0's rows
 // (G floats a row) and the stage of x_dst, W1 alpha', alpha' and (outside
 // identity mode) x_src there in two buffers (G bfloat16 entries a row);
 // the scratch of 2 G and of G sums, three mbarriers (four slots), two sets
@@ -1618,7 +1628,7 @@ extern "C" size_t fact_bwd_group_smem_bytes(int s_pad, int identity, int G,
                                             int C, int op_words) {
   const size_t own_max = 32 * ((s_pad / 32 + C - 1) / C);
   const size_t words =
-      (identity ? 4 : 6) * static_cast<size_t>(s_pad) * (G / 2) +
+      (identity ? 4 : 6) * static_cast<size_t>(s_pad) * (G > 1 ? G / 2 : 1) +
       own_max * G + (identity ? 3 : 4) * own_max * G +
       group_red_words(2 * G) +
       group_red_words(G) + 8 + 2 * group_lp_words(s_pad, C) + op_words;
@@ -1940,8 +1950,34 @@ static int fact_bwd_group_run(
   return static_cast<int>(cudaGetLastError());
 }
 
-// fact_bwd_bf16's group form (counted as fact_bwd_bf16): G columns (2 or
-// 4) a cluster of C CTAs (2 or 4), ceil(B / G) clusters, on fact_fwd's
+// The clusters of the group form at (G, C) that the card holds at once
+// for this graph (cudaOccupancyMaxActiveClusters), or minus the CUDA error
+// (cudaErrorInvalidValue for a (G, C) that is not built).
+extern "C" int fact_bwd_group_active_clusters(int s_pad, int identity, int G,
+                                              int C, int op_words) {
+  if (C != 2 && C != 4) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      fact_bwd_group_smem_bytes(s_pad, identity, G, C, op_words);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, C, smem, nullptr, attr);
+  int active = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+#define FACT_BWD_GROUP_ACTIVE(GG)                                             \
+  if (G == GG) {                                                              \
+    err = fact_set_smem(fact_bwd_group_kernel<GG>, smem);                     \
+    if (err == cudaSuccess)                                                   \
+      err = cudaOccupancyMaxActiveClusters(&active, fact_bwd_group_kernel<GG>, \
+                                           &cfg);                             \
+  }
+  FACT_BWD_GROUP_ACTIVE(1)
+  FACT_BWD_GROUP_ACTIVE(2)
+  FACT_BWD_GROUP_ACTIVE(4)
+#undef FACT_BWD_GROUP_ACTIVE
+  return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
+// fact_bwd_bf16's group form (counted as fact_bwd_bf16): G columns (1, 2
+// or 4) a cluster of C CTAs (2 or 4), ceil(B / G) clusters, on fact_fwd's
 // bfloat16 streams; w1t_pack / w2t_pack the packed slots of the operators
 // whose slice pointers are w1t_ptr / w2t_ptr (B2's bank order); op_words
 // as fact_bwd_group_smem_bytes; smid (ceil(B / G) C,) or null.  Returns
@@ -1958,6 +1994,8 @@ extern "C" int fact_bwd_group_launch(
     int B, int T, int P, int s_pad, int debug, int G, int C, int op_words,
     void* gamma, void* ab, void* gs, void* smid, void* stream) {
   if (C != 2 && C != 4) return static_cast<int>(cudaErrorInvalidValue);
+  // G = 1 runs at C = 2 alone (kernel_ablation.py times C = 4)
+  if (G == 1 && C != 2) return static_cast<int>(cudaErrorInvalidValue);
 #define FACT_BWD_GROUP(GG)                                                    \
   if (G == GG)                                                                \
     return fact_bwd_group_run<GG>(                                            \
@@ -1965,6 +2003,7 @@ extern "C" int fact_bwd_group_launch(
         tot, leaky, w1t_ptr, w1t_pack, w2t_ptr, w2t_pack, diag1, diag2,       \
         f_ptr, f_states, g_ptr, g_states, n_pdf_lists, leaky_c, B, T, P,      \
         s_pad, debug, C, op_words, gamma, ab, gs, smid, stream);
+  FACT_BWD_GROUP(1)
   FACT_BWD_GROUP(2)
   FACT_BWD_GROUP(4)
 #undef FACT_BWD_GROUP

@@ -770,16 +770,25 @@ __device__ __forceinline__ void cluster_post_async(const float (&v)[NV],
 // past C = 2's reach)
 // ----------------------------------------------------------------------
 //
-// A group of G batch columns (G = 2 or 4) on a cluster of C CTAs: CTA r
-// owns the 32-row slices k = r (mod C) (cluster_row) in all G columns,
+// A group of G batch columns (G = 1, 2 or 4) on a cluster of C CTAs: CTA
+// r owns the 32-row slices k = r (mod C) (cluster_row) in all G columns,
 // holds its rows of the two operators its products read in shared memory
 // for the whole launch, and each frame sends its rows of the vectors
 // those products gather to its peers.  Every vector a product gathers
 // holds bfloat16 values (the fast mode rounds each operand), so it is
 // kept packed: a state's G values in G / 2 words, column 2j in the low
-// half of word j and 2j + 1 in the high half.  At G = 2 a state is one
-// 4-byte word, so the host's bank order of each row's slots holds for
-// the gathers as it does for the one-block kernels.
+// half of word j and 2j + 1 in the high half.  At G = 1 a state keeps a
+// word of its own, the value's float32 bits (low half 0), not two states
+// a word: the host's bank order places each slot's 32 gathers on
+// distinct 4-byte banks, which two states a word would undo.  So at G = 1
+// and G = 2 a state is one 4-byte word, and the bank order holds for the
+// gathers as it does for the one-block kernels.
+
+// The words a state of a packed vector of G columns takes.
+template <int G>
+__host__ __device__ constexpr int packed_words() {
+  return G > 1 ? G / 2 : 1;
+}
 
 // An operator's slot as the group form holds it (fact_kernels.pack_slots;
 // the cluster pair's packed layout reads its slots so from L2): the
@@ -818,8 +827,10 @@ __device__ __forceinline__ float sell_row_dot_words(
 template <int G>
 __device__ __forceinline__ void load_packed(const unsigned* v, int s,
                                             float (&x)[G]) {
-  static_assert(G == 2 || G == 4, "G is 2 or 4");
-  if constexpr (G == 2) {
+  static_assert(G == 1 || G == 2 || G == 4, "G is 1, 2 or 4");
+  if constexpr (G == 1) {
+    x[0] = __uint_as_float(v[s]);
+  } else if constexpr (G == 2) {
     const unsigned w = v[s];
     x[0] = __uint_as_float(w << 16);
     x[1] = __uint_as_float(w & 0xffff0000u);
@@ -833,14 +844,18 @@ __device__ __forceinline__ void load_packed(const unsigned* v, int s,
 }
 
 // G values that are bfloat16 values already (rounded by round_to), packed
-// exactly into G / 2 words.
+// exactly into packed_words<G>() words.
 template <int G>
 __device__ __forceinline__ void pack_cols(const float (&x)[G],
-                                          unsigned (&w)[G / 2]) {
+                                          unsigned (&w)[packed_words<G>()]) {
+  if constexpr (G == 1) {
+    w[0] = __float_as_uint(x[0]);
+  } else {
 #pragma unroll
-  for (int j = 0; j < G / 2; ++j)
-    w[j] = (__float_as_uint(x[2 * j]) >> 16) |
-           (__float_as_uint(x[2 * j + 1]) & 0xffff0000u);
+    for (int j = 0; j < G / 2; ++j)
+      w[j] = (__float_as_uint(x[2 * j]) >> 16) |
+             (__float_as_uint(x[2 * j + 1]) & 0xffff0000u);
+  }
 }
 
 // G values rounded to bfloat16 (to nearest even, as round_to) and packed

@@ -44,11 +44,13 @@ the state rows and every sum is taken in the one-block kernel's order, so
 the results do not depend on C.  :func:`cluster_size` picks C from the
 card: the largest with B C CTAs on its SMs among those that run the form
 faster than one block a column, so that a batch too small to fill the
-card is spread over it.  Past that reach the fast mode's full pair runs
-its group form (:func:`group_size`): G columns a cluster of C CTAs, each
-CTA's rows of its two operators in shared memory for the whole launch
+card is spread over it.  The fast mode's full pair has a group form
+(:func:`group_size`): G columns a cluster of C CTAs, each CTA's rows of
+its two operators in shared memory for the whole launch
 (:func:`pack_slots`), so that no frame reads the operator from device
-memory, with the one-block kernels' bits.
+memory, with the one-block kernels' bits; both forms take it past the
+cluster forms' reach, and fact_bwd also below it, one column a cluster
+(G = 1).
 
 A graph whose state vectors exceed a block's shared memory raises here
 and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4), which
@@ -84,7 +86,7 @@ FACT_WARPS = 32                       # FACT_THREADS / 32 in fact_common.cuh
 # fact_common.cuh: two such CTAs do not fit one SM's 233,472 bytes).
 LEAN_CLUSTERS = (1, 2, 4)
 LEAN_CLUSTER_MIN_SMEM = 118784
-# The cluster sizes the fast pair's group form is built for (G in (2, 4)).
+# The cluster sizes the fast pair's group form is built for.
 GROUP_CLUSTERS = (2, 4)
 # fact_bwd and fact_bwd_chunk's cluster form: its exchange mbarriers
 # (3 with FACT_BWD_ASYNC in csrc/fact_bwd.cu, else 0).
@@ -376,17 +378,27 @@ def ckpt_paired(B: int, props, fa: FactorizedArrays,
 # The fast pair's group form (fact_fwd_bf16, fact_bwd_bf16 in the full
 # mode): G columns a cluster of C CTAs, each CTA's rows of its operators
 # in shared memory for the whole launch (csrc/fact_fwd.cu,
-# csrc/fact_bwd.cu: fact_*_group_kernel).  It serves B past the cluster
-# forms' reach (B 2 > the card's SMs: B > 66 on an H100), where every
-# form's plan is one block a column.  GROUPS lists the (G, C) it takes;
-# PLAN_GROUPS the (G, C) the plan takes for each form, in order, from the
-# card's times at the headline graph (B = 128) in PERF.md: (2, 2) took
-# 3.5 / 4.5 ms where one block a column took 5.0 / 5.2; (4, 4) is built,
-# not planned (6.2-10.9 ms at B = 128, and at B = 67 slower than (2, 2);
-# ROADMAP.md queues its removal).
+# csrc/fact_bwd.cu: fact_*_group_kernel).  GROUPS lists the (G, C) both
+# forms are built for, FORM_GROUPS each form's: fact_bwd also runs one
+# column a cluster (G = 1).  PLAN_GROUPS gives the (G, C) the plan takes
+# for each form, in order, from the card's times at the headline graph in
+# PERF.md.  Past the cluster forms' reach (B 2 > the card's SMs: B > 66 on
+# an H100), where every form's cluster plan is one block a column, (2, 2)
+# took 3.5 / 4.5 ms at B = 128 where one block a column took 5.0 / 5.2;
+# (4, 4) is built, not planned (6.2-10.9 ms at B = 128, and at B = 67
+# slower than (2, 2); ROADMAP.md queues its removal).  Within that reach
+# fact_bwd takes (1, 2): B clusters of 2 CTAs, one a SM, in one wave (66
+# clusters of 2 at once on an H100, cudaOccupancyMaxActiveClusters).  At
+# the headline graph it took 3.339 / 3.313 / 3.381 / 3.399 ms at B = 8 /
+# 16 / 32 / 64 (T = 500) where one block a column took 5.022 / 4.981 /
+# 5.055 / 5.040, so the plan takes it from B = 1; (1, 4) is not built:
+# at bench.py --long (B = 32) the card holds 30 clusters of 4 at once, and
+# it took 23.257 ms against (1, 2)'s 16.557.  fact_fwd keeps its cluster
+# form there.
 GROUP_FORMS = ("fact_fwd", "fact_bwd")
 GROUPS = ((2, 2), (4, 4))
-PLAN_GROUPS = {"fact_fwd": ((2, 2),), "fact_bwd": ((2, 2),)}
+FORM_GROUPS = {"fact_fwd": GROUPS, "fact_bwd": ((1, 2),) + GROUPS}
+PLAN_GROUPS = {"fact_fwd": ((2, 2),), "fact_bwd": ((1, 2), (2, 2))}
 # The least operator bytes (its slots at 8 bytes: what one block a column
 # reads from L2 at every frame) at which the plan takes the group form:
 # below them the one-block kernel's L1 holds enough of the operator that
@@ -397,6 +409,11 @@ PLAN_GROUPS = {"fact_fwd": ((2, 2),), "fact_bwd": ((2, 2),)}
 # and W2^T (4.4 against 5.2), tied at 247 KB and lost at 130 KB (4.1
 # against 3.8).
 GROUP_MIN_OPERATOR_BYTES = {"fact_fwd": 128 * 1024, "fact_bwd": 300 * 1024}
+# The same at G = 1, where the one-block kernel it replaces leaves half
+# the SMs idle: at B = 64 (T = 500) (1, 2) won at 373 KB of W1^T and W2^T
+# (3.399 against 5.040 ms), at about 250 KB (3.231 against 4.206) and at
+# 130 KB (3.134 against 3.889); smaller operators were not measured.
+GROUP_ONE_MIN_OPERATOR_BYTES = 128 * 1024
 
 
 def _group_red_words(nv):
@@ -411,9 +428,10 @@ def group_smem_bytes(fa: FactorizedArrays, G: int, C: int,
                      words: dict | None = None) -> dict:
     """Dynamic shared memory of a group-form CTA at (G, C), {form: bytes};
     must equal fact_fwd_group_smem_bytes / fact_bwd_group_smem_bytes in
-    the sources.  The vectors the products gather whole, packed (S_pad
-    G / 2 words each: fact_fwd's alpha' and u, fact_bwd's b, x_dst * b
-    and one or two mass vectors), the per-row vectors on rank 0's rows
+    the sources (fact_fwd's only for a G it is built for).  The vectors
+    the products gather whole, packed (S_pad G / 2 words each, S_pad at G
+    = 1: fact_fwd's alpha' and u, fact_bwd's b, x_dst * b and one or two
+    mass vectors), the per-row vectors on rank 0's rows
     (fact_fwd's carry, x_dst and, outside identity mode, x_src, G floats
     a row, the last two in two buffers; fact_bwd's beta', G floats a row,
     and its stage of x_dst, W1 alpha', alpha' and x_src in two buffers,
@@ -428,7 +446,7 @@ def group_smem_bytes(fa: FactorizedArrays, G: int, C: int,
     lp = 2 * _group_lp_words(s_pad, C)
     fwd = (s_pad * G + (3 if identity else 5) * own_max * G
            + _group_red_words(G) + 4 + lp + words[("fact_fwd", C)])
-    bwd = ((4 if identity else 6) * s_pad * (G // 2)
+    bwd = ((4 if identity else 6) * s_pad * max(G // 2, 1)
            + own_max * G + (3 if identity else 4) * own_max * G
            + _group_red_words(2 * G)
            + _group_red_words(G) + 8 + lp + words[("fact_bwd", C)])
@@ -448,21 +466,26 @@ def group_size(B: int, props, fa: FactorizedArrays, form: str,
                cluster: tuple | None = None):
     """The group form's (G, C) at which ``form`` runs B columns on the card
     (``props`` as :func:`cluster_size`), or None for the form of
-    :func:`cluster_size`.  The plan takes it for fact_fwd and fact_bwd
-    with bfloat16 tiles past 1,024 states where B 2 > the card's SMs and
-    the form's operator takes at least :data:`GROUP_MIN_OPERATOR_BYTES`:
-    the first (G, C) of :data:`PLAN_GROUPS` with ceil(B / G) C CTAs on
-    the SMs whose CTA fits its shared memory.  ``cluster`` = (G, C) forces
-    one; a (G, C) that is not built, a form or a graph the group form
-    does not run, or a CTA that does not fit raises NotImplementedError
-    (nothing falls back to another form)."""
+    :func:`cluster_size`.  The plan takes it for the forms of
+    :data:`PLAN_GROUPS` with bfloat16 tiles past 1,024 states where the
+    form's operator takes at least :data:`GROUP_MIN_OPERATOR_BYTES`: the
+    first (G, C) of the form's PLAN_GROUPS with ceil(B / G) C CTAs on the
+    SMs whose CTA fits its shared memory, G > 1 only past the cluster
+    forms' reach (B 2 > the SMs; below it a column has a cluster of its
+    own), G = 1 where the operator takes at least
+    :data:`GROUP_ONE_MIN_OPERATOR_BYTES`.  On an H100 at the headline
+    graph: fact_bwd (1, 2) to B = 66, (2, 2) from 67 to 132; fact_fwd (2,
+    2) from 67 to 132.  ``cluster`` = (G, C) forces one; a
+    (G, C) that is not built for the form (:data:`FORM_GROUPS`), a form
+    or a graph the group form does not run, or a CTA that does not fit
+    raises NotImplementedError (nothing falls back to another form)."""
     limit = props.shared_memory_per_block_optin
     if cluster is not None:
         G, C = cluster
-        if form not in GROUP_FORMS or (G, C) not in GROUPS:
+        if form not in GROUP_FORMS or (G, C) not in FORM_GROUPS[form]:
             raise NotImplementedError(
                 f"{form} as a group of {G} columns on {C} CTAs: the group "
-                f"form is built for {GROUP_FORMS} at (G, C) in {GROUPS}")
+                f"form is built for (G, C) in {FORM_GROUPS}")
         words = _group_words(fa)
         if words is None:
             raise NotImplementedError(
@@ -476,18 +499,37 @@ def group_size(B: int, props, fa: FactorizedArrays, form: str,
                 "block has on this card")
         return G, C
     sms = props.multi_processor_count
-    if (form not in PLAN_GROUPS or fa.s_pad <= 32 * FACT_WARPS
-            or 2 * B <= sms):
+    if form not in PLAN_GROUPS or fa.s_pad <= 32 * FACT_WARPS:
         return None
     words = _group_words(fa)
-    if words is None or 8 * words[(form, 1)] < GROUP_MIN_OPERATOR_BYTES[
-            form]:
+    if words is None:
         return None
     for G, C in PLAN_GROUPS[form]:
+        least = (GROUP_ONE_MIN_OPERATOR_BYTES if G == 1
+                 else GROUP_MIN_OPERATOR_BYTES[form])
+        if 8 * words[(form, 1)] < least or (G > 1 and 2 * B <= sms):
+            continue
         if (-(-B // G) * C <= sms
                 and group_smem_bytes(fa, G, C, words)[form] <= limit):
             return G, C
     return None
+
+
+def group_active_clusters(fa: FactorizedArrays, group: tuple,
+                          device=None) -> int:
+    """The clusters of fact_bwd_bf16's group form at ``group`` = (G, C)
+    that the card of ``device`` holds at once for this graph
+    (cudaOccupancyMaxActiveClusters, fact_bwd_group_active_clusters in
+    csrc/fact_bwd.cu)."""
+    from ..csrc import build
+    fn = build.load("fact_bwd").fact_bwd_group_active_clusters
+    fn.restype = ctypes.c_int
+    G, C = group
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        n = fn(fa.s_pad, int(fa.xsrc_mode == "identity"), G, C,
+               graph_for(fa).group_words.get(("fact_bwd", C), 0))
+    _check(max(-n, 0), "fact_bwd_group_active_clusters")
+    return n
 
 
 def _card_props(device):
@@ -1112,8 +1154,8 @@ def _group_lib(source):
 def _group_args(form, B, fa, group, smid):
     """Check a group launch's (G, C) and smid: built, the fast mode, a
     (ceil(B / G) C,) int32 CUDA smid or None."""
-    _require(group in GROUPS, f"{form}: group {group} is not built "
-             f"((G, C) in {GROUPS})")
+    _require(group in FORM_GROUPS[form], f"{form}: group {group} is not "
+             f"built ((G, C) in {FORM_GROUPS[form]})")
     _require(is_fast(fa), f"{form}: the group form runs bfloat16 tiles")
     G, C = group
     n = -(-B // G) * C

@@ -962,7 +962,9 @@ class TestGroupForm:
     for bit against the plain fast version: at B = 128 (the plan's (2,
     2)), at B = 67 (the first batch past the cluster forms), at B = 128
     with unequal lengths, outside identity mode, and with (4, 4) forced;
-    T = 120 (a frame's arithmetic does not depend on T)."""
+    and fact_bwd_bf16 at G = 1 (one column a cluster of 2 CTAs, the plan
+    at B <= 66) at B = 64 and 32, with unequal lengths and outside
+    identity mode; T = 120 (a frame's arithmetic does not depend on T)."""
 
     @staticmethod
     def _head(cuda, B, mode="source", seed=0, T=120, lengths=None):
@@ -1012,6 +1014,60 @@ class TestGroupForm:
         if case != "stream":       # (4, 4) outside identity mode: 209 KB
             self._equal(fk.forward_backward_prob_kernel(
                 px, lens, fa, LEAKY, cluster=(4, 4)), ref)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", ["b64", "b32", "unequal", "stream"])
+    def test_one_column_a_cluster_matches_plain(self, cuda, case):
+        """fact_bwd_bf16 at the plan's (1, 2) beside fact_fwd_bf16's
+        cluster form (C = 2): one launch of each fast kernel, the plain
+        fast version's and the one-block kernels' objf, gamma and traces
+        (debug True and False) bit for bit, gamma bit-identical on a
+        rerun, 2 B CTAs on 2 B distinct SMs (%smid), every cluster
+        resident at once (cudaOccupancyMaxActiveClusters)."""
+        B = 32 if case == "b32" else 64
+        lengths = None
+        if case == "unequal":
+            lengths = np.random.RandomState(6).randint(1, 121, size=B)
+            lengths[:3] = (120, 1, 2)
+        fa, px, lens = self._head(cuda, B, "separate" if case == "stream"
+                                  else "source", lengths=lengths)
+        assert fk._mode_cluster("full", px, fa, None) == {
+            "fact_fwd": 2, "fact_bwd": (1, 2)}
+        ref = forward_backward_prob_fast(px, lens, fa, LEAKY)
+        self._equal(fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                    cluster=1), ref)
+        for debug in (True, False):
+            fk.reset_launch_counts()
+            got = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                  debug=debug)
+            assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+            self._equal(got, ref if debug else fk._frame0_traces(ref))
+        again = fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                                debug=False)
+        assert torch.equal(again.gamma, got.gamma)
+        ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fk.fact_fwd(
+            px, lens, fa, LEAKY)
+        tot = fk._objf(s_ys, ad_last, lens, fa, s0)[1].contiguous()
+        smid = torch.full((2 * B,), -1, dtype=torch.int32, device=cuda)
+        fk.fact_bwd(lens, fa, LEAKY, ad_ys, w1ad, xdst, xsrc, s_ys, ad0, s0,
+                    tot, px.shape[2], cluster=(1, 2), smid=smid)
+        assert bool((smid >= 0).all()) and len(set(smid.tolist())) == 2 * B
+        assert fk.group_active_clusters(fa, (1, 2)) >= B
+
+    @pytest.mark.cuda
+    def test_one_column_a_cluster_refusals(self, cuda):
+        """fact_fwd has no G = 1 form: a forced (1, 2) raises
+        NotImplementedError before any launch (a (1, 2) that does not fit
+        raises on the CPU: tests/test_torch_group.py); the card's query
+        refuses a (G, C) that is not built."""
+        fa, px, lens = self._head(cuda, 8, T=4)
+        fk.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="built"):
+            fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                            cluster=(1, 2))
+        assert fk.launched() == {}
+        with pytest.raises(RuntimeError, match="fact_bwd_group_active"):
+            fk.group_active_clusters(fa, (1, 8))
 
     @pytest.mark.cuda
     def test_group_streams_are_the_one_blocks(self, cuda):

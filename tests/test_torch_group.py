@@ -8,6 +8,10 @@ whole launch, packed 4 bytes a slot (``fact_kernels.pack_slots``), and
 one load of a slot feeds the G columns' products (csrc/fact_fwd.cu and
 csrc/fact_bwd.cu, ``fact_*_group_kernel``).
 
+Within that reach (B 2 <= the SMs) fact_bwd_bf16 runs its group form
+at G = 1, one column on a cluster of 2 CTAs (``cluster=(1, 2)``), while
+fact_fwd_bf16 keeps its cluster form; a forced fact_fwd at G = 1 raises.
+
 The CUDA kernels cannot run here.  ``_emu_group_fwd`` / ``_emu_group_bwd``
 emulate them CTA by CTA on the arrays they read, put in place of the
 launches (``fact_kernels._fwd_group_launch``, ``_bwd_group_launch``):
@@ -199,7 +203,7 @@ def _emu_group_bwd(lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
                    debug, group, smid=None):
     """fact_bwd_group_kernel in place of fact_kernels._bwd_group_launch,
     one cluster at a time, each CTA's rows (and pdfs) apart."""
-    assert group in fk.GROUPS and smid is None
+    assert group in fk.FORM_GROUPS["fact_bwd"] and smid is None
     fk.LAUNCHES["fact_bwd_bf16"] += 1
     G, C = group
     kg = fk.graph_for(fa)
@@ -362,9 +366,10 @@ def test_the_plan_reaches_the_group_form_on_a_call(monkeypatch):
     (fact_kernels._mode_cluster): at B = 67 on an H100 past 1,024 states,
     with the operator-size rule stubbed to take any operator (this
     graph's are far below it, which keeps one block a column), fact_fwd
-    and fact_bwd run as groups (PLAN_GROUPS' first (G, C)) and the lean
-    and ckpt forms keep one block a column; a forced (G, C) reaches both
-    launches; the results are the plain fast version's."""
+    and fact_bwd run as groups at (2, 2) and the lean and ckpt forms keep
+    one block a column; at B = 66 fact_bwd runs one column a cluster, (1,
+    2), and fact_fwd its cluster form (C = 2); a forced (G, C) reaches
+    both launches; the results are the plain fast version's."""
     fa, px, lens = _case("source", num_phones=600, seed=3, B=67, T=3,
                          lengths=[3 - k % 3 for k in range(67)])
     assert fa.s_pad > 1024
@@ -372,18 +377,17 @@ def test_the_plan_reaches_the_group_form_on_a_call(monkeypatch):
     assert set(fk._mode_cluster("full", px, fa, None).values()) == {1}
     monkeypatch.setattr(fk, "GROUP_MIN_OPERATOR_BYTES",
                         {"fact_fwd": 0, "fact_bwd": 0})
+    monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES", 0)
     plan = fk._mode_cluster("full", px, fa, None)
-    assert plan == {"fact_fwd": fk.PLAN_GROUPS["fact_fwd"][0],
-                    "fact_bwd": fk.PLAN_GROUPS["fact_bwd"][0]}
+    assert plan == {"fact_fwd": (2, 2), "fact_bwd": (2, 2)}
     assert set(fk._mode_cluster("lean", px, fa, None).values()) == {1}
     assert set(fk._mode_cluster("ckpt", px, fa, None).values()) == {1}
     assert fk._mode_cluster("full", px, fa, (4, 4)) == {
         "fact_fwd": (4, 4), "fact_bwd": (4, 4)}
     with pytest.raises(NotImplementedError, match="group"):
         fk._mode_cluster("lean", px, fa, (2, 2))
-    for f in ("fact_fwd", "fact_bwd"):
-        assert fk._plan(f, 66, "cpu", fa, None) == (2 if f == "fact_fwd"
-                                                    else 1)
+    assert fk._plan("fact_fwd", 66, "cpu", fa, None) == 2
+    assert fk._plan("fact_bwd", 66, "cpu", fa, None) == (1, 2)
     got, _ = _full(fa, px, lens, plan["fact_fwd"])
     _assert_equal(got, pf.forward_backward_prob_fast(px, lens, fa, LEAKY))
 
@@ -431,9 +435,10 @@ def test_group_shared_memory_and_plan_at_the_headline_s8k_and_main4():
     S_pad G / 2 words, the per-row vectors on rank 0's rows, the scratch,
     the mbarriers, the local slice pointers, the slots of the CTA that
     holds the most), and the plan on a stubbed H100 (132 SMs, 232,448
-    bytes a block): the headline graph (S_pad 3,072) takes PLAN_GROUPS'
-    first (G, C) from B = 67 to 132 and the cluster rule's form at B <=
-    66 or past 132; outside identity mode (4, 4)'s backward CTA does not
+    bytes a block): the headline graph (S_pad 3,072) takes (2, 2) from B
+    = 67 to 132 and the cluster rule's form past 132, and at B <= 66
+    fact_bwd takes (1, 2), fact_fwd its cluster form; outside identity
+    mode (4, 4)'s backward CTA does not
     fit and a forced one raises; bench.py --s8k's graph (S_pad
     8,064: W1 alone 147,712 bytes a CTA at C = 4) fits no (G, C), so the
     plan keeps one block a column
@@ -459,11 +464,9 @@ def test_group_shared_memory_and_plan_at_the_headline_s8k_and_main4():
     assert fk.group_smem_bytes(head, 4, 4) == {"fact_fwd": 144384,
                                               "fact_bwd": 196912}
     for form in fk.GROUP_FORMS:
-        first = fk.PLAN_GROUPS[form][0]
-        for B, want in ((8, None), (66, None), (67, first), (128, first),
-                        (132, first), (133, None)):
-            if B == 133 and -(-B // first[0]) * first[1] <= 132:
-                want = first
+        low = (1, 2) if form == "fact_bwd" else None
+        for B, want in ((8, low), (66, low), (67, (2, 2)), (128, (2, 2)),
+                        (132, (2, 2)), (133, None)):
             assert fk.group_size(B, H100, head, form) == want
             assert fk.group_size(B, H100, s8k, form) is None
         with pytest.raises(NotImplementedError, match="S_pad=8064"):
@@ -530,3 +533,136 @@ def test_group_form_refusals(monkeypatch):
     with pytest.raises(ValueError, match="no ring"):
         fk.fact_bwd(lens, fa, LEAKY, ad_ys, ad_ys, ad_ys, None, None, None,
                     None, None, px.shape[2], stages=2, cluster=(2, 2))
+
+
+# ----------------------------------------------------------------------
+# fact_bwd_bf16 at G = 1: one column a cluster, within the cluster forms'
+# reach
+# ----------------------------------------------------------------------
+
+ONE = [g for g in fk.FORM_GROUPS["fact_bwd"] if g[0] == 1]
+
+
+def _one_column(fa, px, lens, group, debug=True):
+    """fact_fwd at its plan (one block a column at these sizes, or C = 2
+    past 1,024 states), the objective, then fact_bwd forced to ``group``
+    (None: its plan).  Returns the result."""
+    P = px.shape[2]
+    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fk.fact_fwd(
+        px, lens, fa, LEAKY)
+    objf, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
+    outs = fk.fact_bwd(lens, fa, LEAKY, ad_ys, w1ad, xdst, xsrc, s_ys, ad0,
+                       s0, tot, P, debug, cluster=group)
+    return fk._package_result(objf, *outs)
+
+
+@pytest.mark.parametrize("group", ONE)
+@pytest.mark.parametrize("fwd_mode,want", [("source", "identity"),
+                                           ("separate", "stream"),
+                                           ("cross", "matrix")])
+def test_one_column_a_cluster_gives_the_plain_fast_versions_bits(
+        monkeypatch, group, fwd_mode, want):
+    """fact_bwd at G = 1 (each (1, C) of FORM_GROUPS["fact_bwd"]), emulated
+    CTA by CTA, on the forward's streams: B = 6 columns of lengths 12, 8,
+    1, 2, 4, 9 (each its own cluster, so its own last frame and its own
+    injection), debug True and False: the plain fast version's objf,
+    gamma and traces under torch.equal; one launch of each fast kernel."""
+    fa, px, lens = _case(fwd_mode, B=6, lengths=(12, 8, 1, 2, 4, 9))
+    assert fa.xsrc_mode == want
+    _emulate(monkeypatch)
+    plain = pf.forward_backward_prob_fast(px, lens, fa, LEAKY)
+    for debug in (True, False):
+        fk.reset_launch_counts()
+        got = _one_column(fa, px, lens, group, debug)
+        assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        _assert_equal(got, plain if debug else fk._frame0_traces(plain))
+
+
+@pytest.mark.parametrize("fwd_mode", ["source", "separate"])
+def test_one_column_a_cluster_past_1024_states(monkeypatch, fwd_mode):
+    """S_pad 1,280 and P past 1,024 (a virtual thread with two rows and
+    two pdfs), lengths 4, 1, 2: fact_bwd at (1, 2) through the plan (the
+    operator-size rule stubbed to take any operator) beside fact_fwd's
+    cluster form at C = 2, the plain fast version's bits."""
+    fa, px, lens = _case(fwd_mode, num_phones=600, seed=3, B=3, T=4,
+                         lengths=(4, 1, 2))
+    assert fa.s_pad > 1024 and px.shape[2] > 1024
+    _emulate(monkeypatch)
+    monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES", 0)
+    assert fk._mode_cluster("full", px, fa, None) == {"fact_fwd": 2,
+                                                      "fact_bwd": (1, 2)}
+    fk.reset_launch_counts()
+    got = _one_column(fa, px, lens, None)
+    assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+    _assert_equal(got, pf.forward_backward_prob_fast(px, lens, fa, LEAKY))
+
+
+def test_one_column_a_cluster_shared_memory():
+    """fact_bwd's CTA at (1, 2) by the formula: b, x_dst * b and the
+    masses (one vector in identity mode, two else, in two buffers) a word
+    a state; beta' and the stage of 3 or 4 streams on rank 0's rows, one
+    column; the scratch of 2 and 1 sums, the mbarriers, two sets of local
+    slice pointers, and rank 0's or rank 1's slots of W1^T and W2^T,
+    whichever are more: 169,824 bytes at the headline graph (95,232 of
+    them slots), 200,544 outside identity mode."""
+    head = _graph(1500)
+    xhead = _graph(1500, forward_pdf_mode="separate")
+    for fa, streams, want in ((head, 3, 169824), (xhead, 4, 200544)):
+        s_pad, own = fa.s_pad, fa.s_pad // 2
+        words = _words(fa, (2, 3), 2)
+        lp = 2 * ((s_pad // 32 + 1) // 2 + 1 + 3 & ~3)
+        bwd = ((2 + 2 * (streams - 2)) * s_pad + own + streams * own
+               + (66 + 3 & ~3) + (33 + 3 & ~3) + 8 + lp + words)
+        assert fk.group_smem_bytes(fa, 1, 2)["fact_bwd"] == 4 * bwd == want
+    assert 4 * _words(head, (2, 3), 2) == 95232
+
+
+@pytest.mark.parametrize("graph", ["headline", "s8k", "recipe", "float32"])
+def test_one_column_a_cluster_plan(graph):
+    """The plan on a stubbed H100 at B = 8, 32, 64, 66, 67 and 132: at the
+    headline graph fact_bwd takes (1, 2) to B = 66 and (2, 2) past it,
+    fact_fwd its cluster form (C = 2) to 66 and (2, 2) past it; at the
+    corpus recipe's (W1^T and W2^T 132,608 bytes: over
+    GROUP_ONE_MIN_OPERATOR_BYTES, under GROUP_MIN_OPERATOR_BYTES) fact_bwd
+    takes (1, 2) to 66 and one block a column past it; bench.py --s8k's
+    graph (W1^T alone does not fit two CTAs) and float32 tiles keep the
+    cluster rule's forms at every B."""
+    fa = {"headline": lambda: _graph(1500), "s8k": lambda: _graph(4000),
+          "recipe": lambda: _graph(1500, bigram_fanout=10),
+          "float32": lambda: pt.ChainGraphBatch(pt.ChainGraph(
+              denominator_fst(num_phones=1500, states_per_phone=2,
+                              seed=0)[0]), 2, device="cpu")._fact}[graph]()
+    for B in (8, 32, 64, 66, 67, 132):
+        plan = {f: fk._form_plan(f, B, H100, fa, None)
+                for f in fk.GROUP_FORMS}
+        if graph == "headline":
+            want = ({"fact_fwd": 2, "fact_bwd": (1, 2)} if B <= 66 else
+                    {"fact_fwd": (2, 2), "fact_bwd": (2, 2)})
+        elif graph == "recipe":
+            want = ({"fact_fwd": 2, "fact_bwd": (1, 2)} if B <= 66 else
+                    {"fact_fwd": (2, 2), "fact_bwd": 1})
+        else:
+            want = ({"fact_fwd": 2, "fact_bwd": 1} if B <= 66 else
+                    {"fact_fwd": 1, "fact_bwd": 1})
+        assert plan == want, (graph, B)
+
+
+def test_a_forced_one_column_forward_raises(monkeypatch):
+    """fact_fwd has no G = 1 form: forcing (1, 2) on it raises
+    NotImplementedError before any launch, alone and as a call's plan; a
+    (1, 2) that does not fit (bench.py --s8k's graph) raises for
+    fact_bwd too."""
+    monkeypatch.setattr(fk, "_card_props", lambda device: H100)
+    fa, px, lens = _case("source", num_phones=600, seed=3, B=2, T=2,
+                         lengths=(2, 1))
+    with pytest.raises(NotImplementedError, match="built"):
+        fk.group_size(8, H100, fa, "fact_fwd", cluster=(1, 2))
+    with pytest.raises(NotImplementedError, match="built"):
+        fk.fact_fwd(px, lens, fa, LEAKY, cluster=(1, 2))
+    with pytest.raises(NotImplementedError, match="built"):
+        fk._mode_cluster("full", px, fa, (1, 2))
+    with pytest.raises(ValueError, match="not built"):
+        fk._group_args("fact_fwd", 2, fa, (1, 2), None)
+    assert fk.group_size(8, H100, fa, "fact_bwd", cluster=(1, 2)) == (1, 2)
+    with pytest.raises(NotImplementedError, match="S_pad=8064"):
+        fk.group_size(8, H100, _graph(4000), "fact_bwd", cluster=(1, 2))
