@@ -203,12 +203,14 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    ckpt_chunk=96, which does not divide T); first a plan line: each
    form's cluster size C (fact_kernels.cluster_size: at B=64 on 132 SMs
    2 for the forward forms and fact_bwd_lean, 1 for fact_bwd and
-   fact_bwd_chunk, whose cluster form is no faster), and fact_bwd_bf16's
+   fact_bwd_chunk, whose cluster form is no faster), and the full pair's
    plan, the group form at G = 1 ((1, 2): one column a cluster of 2
-   CTAs; one_column_checks: its shared memory in Python and the source,
-   the clusters the card holds at once, bit for bit against one block a
-   column and on a rerun, 2 B CTAs on 2 B distinct SMs; its time beside
-   one block a column's in the same call); each mode's launches
+   CTAs; one_column_checks: each form's shared memory in Python and the
+   source, the clusters the card holds at once, fact_fwd_bf16's streams,
+   s_t and alpha'(T_b) bit for bit against the C=2 cluster form, one
+   block a column and a rerun, fact_bwd_bf16 bit for bit against one
+   block a column and on a rerun, 2 B CTAs of each on 2 B distinct SMs);
+   each mode's launches
    (every count 0 before its run, read after), step ms (CUDA events,
    best of 3 after a warm-up), peak device memory, objf and its largest
    difference from full; every kernel bit for bit against its plain
@@ -227,9 +229,9 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    mode at C=1 and at C=2, bit-identical to the full kernels' (gated);
    bench.py --long (B=32, T=2,500) under "auto": its plan line, mode,
    step ms, peak memory, the full pair bit for bit against the plain fast
-   version, fact_bwd_bf16's group form at G = 1 as at B=64,
-   fact_fwd_bf16 at C=1, 2 and 4, fact_bwd_bf16 at C=1, 2, 4 and its
-   plan, and the full call at C=1 and at its plan in turns;
+   version, the full pair's group form at G = 1 as at B=64,
+   fact_fwd_bf16 and fact_bwd_bf16 at C=1, 2, 4 and their plans, and the
+   full call at C=1 and at its plan in turns;
 12d. main path 8, a shared log-domain graph: bench.py --xlstream's
    denominator (bench.py:246-372: the headline graph as
    ChainGraph(..., log_domain=True), B=32, T=150), which auto serves in
@@ -239,8 +241,10 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    kernel; ms best of 3 after a warm-up, utts/s), B1/B2 at leaky 0
    against the plain version (objf rel and gamma max-abs <= 1e-4; the
    alpha' stream), the same with bfloat16 tiles (fact_fwd_bf16 /
-   fact_bwd_bf16 bit for bit; their plan printed: fact_fwd_bf16 at C=2,
-   fact_bwd_bf16's group form at (1, 2)), the gather A/B (impl="gather" on the same
+   fact_bwd_bf16 bit for bit; their plan printed and, on 132 SMs,
+   checked: the group form at (1, 2) for both, timed beside the forms it
+   replaced, fact_fwd_bf16's cluster form at C=2 and fact_bwd_bf16's one
+   block a column), the gather A/B (impl="gather" on the same
    batch: its ms, objf and gradient within 1e-4 of factorized-log, gamma
    bit-identical on a rerun), a dead column (the graph behind a chain
    of 8 states, a column of 8 frames: objf -inf, gamma 0, ok False, the
@@ -268,13 +272,14 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    multi-rank phase's ranks are subprocesses started as torchrun starts
    them, under a 300 s limit, every exit code checked): (a)
    python -m pychain_tpu_torch.tools.sharded_check --precision both:
-   ShardedChainLoss at main path 1's width (the headline denominator,
-   B=128, T=500, linear numerators) in float32 and with bfloat16 tiles,
+   ShardedChainLoss at main path 1's width (the headline
+   denominator, B=128, linear numerators; its depth cut to T=150)
+   in float32 and with bfloat16 tiles,
    on a group of one rank over NCCL (value and gradient bit for bit
    ChainLoss's) and on 2 gloo ranks sharing the card (64 rows each: loss
    within 1e-6 relative, each rank's gradient rows within 1e-4, whether
-   bit-identical printed), each rank's step beside ChainLoss's and main
-   path 1's, and train-mode BatchNorm on a rank's rows against the whole
+   bit-identical printed), each rank's step beside ChainLoss's on the
+   same batch, and train-mode BatchNorm on a rank's rows against the whole
    batch's statistics (1e-5); (c) the 2 ranks' save_sharded /
    restore_sharded round trip (each rank's rows, the whole array into a
    plain tensor); (b) the
@@ -358,10 +363,13 @@ B3/B4 in the fast mode (bfloat16 tiles) bit for bit.
    with its launches in that mode's run (fact_fwd_init and
    fact_bwd_chunk timed over all of a call's chunks, "ms_covers"), its
    plan's cluster size and its times at C=1 and C=2 ("cluster",
-   "c1_ms", "ab_ms"; fact_bwd_bf16's "cluster" the group form's [G, C],
-   "ms" its time there, "c1_ms" one block a column's); bench.py --long's
+   "c1_ms", "ab_ms"; the full pair's "cluster" the group form's [G, C],
+   "ms" its time there, "c1_ms" one block a column's, fact_fwd_bf16's
+   "cluster_form_ms" the C=2 cluster form's, its "ab_ms")); bench.py
+   --long's
    fact_fwd_bf16 and fact_bwd_bf16 one each (its plan's time, and at
-   C=1, 2 and 4); main path 8 one for
+   C=1, 2 and 4; fact_fwd_bf16's "cluster_form_ms" = "c2_ms"); main
+   path 8 one for
    each B1/B2 kernel in both precisions and one for each of B3/B4 at its
    cluster-tier check ("leaky": 0, their launches in main path 8's
    counted steps); the rows of B1/B2 (both forms) and of the semiring
@@ -1004,48 +1012,85 @@ def check_group_smem(fa, label):
 
 
 def one_column_checks(label, fa, px, lens32, leaky_c):
-    """fact_bwd_bf16's plan at this batch (fact_kernels._form_plan; on an
-    H100 at B <= 66 the group form at G = 1: one column a cluster of 2
-    CTAs), its shared memory in Python against the source's, the clusters
-    the card holds at once (cudaOccupancyMaxActiveClusters) against B, and
-    on one forward sweep's streams: the plan's launch against one block a
-    column bit for bit (gamma and both traces), again on a rerun, and its
-    2 B CTAs on 2 B distinct SMs (%smid).  Returns the figures."""
+    """fact_fwd_bf16's and fact_bwd_bf16's plans at this batch
+    (fact_kernels._form_plan; on an H100 at B <= 66 the group form at G =
+    1: one column a cluster of 2 CTAs), each one's shared memory in Python
+    against the source's and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) against B; fact_fwd at its plan
+    against the C = 2 cluster form and one block a column bit for bit
+    (the streams on each column's frames, s_t, alpha'(T_b)) and again on a
+    rerun; on its streams fact_bwd's plan against one block a column bit
+    for bit (gamma and both traces) and on a rerun; each plan's CTAs on
+    distinct SMs (%smid).  Returns {form: figures}."""
     from pychain_tpu_torch.ops import fact_kernels as fk
     B, T, P = px.shape
     props = torch.cuda.get_device_properties(px.device)
-    group = fk._form_plan("fact_bwd", B, props, fa, None)
-    if props.multi_processor_count == 132:
-        check(group == (1, 2), f"{label}: fact_bwd's plan {group} on 132 "
-              "SMs, want (1, 2)")
-    smem = check_group_smem(fa, label)[f"fact_bwd {group[0]} {group[1]}"]
-    active = fk.group_active_clusters(fa, group)
-    st = fk.fact_fwd(px, lens32, fa, leaky_c)
+    smem_all = check_group_smem(fa, label)
+    plan, out = {}, {}
+    for form in fk.GROUP_FORMS:
+        group = plan[form] = fk._form_plan(form, B, props, fa, None)
+        if props.multi_processor_count == 132:
+            check(group == (1, 2), f"{label}: {form}'s plan {group} on 132 "
+                  "SMs, want (1, 2)")
+        n = -(-B // group[0]) * group[1]
+        out[form] = {"plan": list(group), "n": n,
+                     "smem": smem_all[f"{form} {group[0]} {group[1]}"],
+                     "active": fk.group_active_clusters(fa, form, group),
+                     "smid": torch.full((n,), -1, dtype=torch.int32,
+                                        device=px.device)}
+    live = (torch.arange(T, device=px.device)[None, :]
+            < lens32.long()[:, None])[:, :, None]
+
+    def fwd_diff(a, b):
+        d = {n: int(((x != y) & live).sum()) for n, x, y in
+             zip(("alpha'", "W1 alpha'", "x_dst", "x_src"), a[:4], b[:4])
+             if x is not None}
+        d["s_t"] = int((a[4] != b[4]).sum())
+        d["alpha'(T_b)"] = int((a[5] != b[5]).sum())
+        return d
+
+    st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=plan["fact_fwd"],
+                     smid=out["fact_fwd"]["smid"])
+    fdiff = {}
+    for key, cl in (("rerun", plan["fact_fwd"]), ("C=2", 2),
+                    ("one block", 1)):
+        ref = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=cl)
+        fdiff[key] = fwd_diff(st, ref)
+        del ref
     tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
 
     def bwd(cluster, smid=None):
         return fk.fact_bwd(lens32, fa, leaky_c, *st[:5], st[6], st[7], tot,
                            P, cluster=cluster, smid=smid)
 
-    n = -(-B // group[0]) * group[1]
-    smid = torch.full((n,), -1, dtype=torch.int32, device=px.device)
-    got, again, one = bwd(group, smid), bwd(group), bwd(1)
+    got = bwd(plan["fact_bwd"], out["fact_bwd"]["smid"])
+    again, one = bwd(plan["fact_bwd"]), bwd(1)
     torch.cuda.synchronize()
-    diff = {k: int((a != b).sum()) for k, a, b in
-            zip(("gamma", "alpha_beta", "gamma_sum"), got, one)}
-    rerun = int((again[0] != got[0]).sum())
-    sms = len(set(smid.tolist()))
-    del st, got, again, one
-    print(f"# {label}: fact_bwd_bf16's plan {group} ({n} CTAs, {smem} B of "
-          f"shared memory a CTA, Python = source; {active} clusters at once "
-          f"for {-(-B // group[0])}); against one block a column, entries "
-          f"that differ {diff}; gamma on a rerun {rerun}; {sms} distinct "
-          f"SMs for {n} CTAs", flush=True)
-    check(sum(diff.values()) == 0 and rerun == 0 and bool((smid >= 0).all())
-          and sms == n and active >= -(-B // group[0]),
-          f"{label}: fact_bwd_bf16 at {group}: diff {diff}, rerun {rerun}, "
-          f"{sms} SMs for {n} CTAs, {active} clusters at once")
-    return {"plan": list(group), "smem": smem, "active": active, "sms": sms}
+    bdiff = {k: int((a != b).sum()) for k, a, b in
+             zip(("gamma", "alpha_beta", "gamma_sum"), got, one)}
+    bdiff["gamma on a rerun"] = int((again[0] != got[0]).sum())
+    del st, got, again, one, live
+    for form, o in out.items():
+        smid = o.pop("smid")
+        o["sms"] = len(set(smid.tolist()))
+        o["all_recorded"] = bool((smid >= 0).all())
+        print(f"# {label}: {form}_bf16's plan {tuple(o['plan'])} ({o['n']} "
+              f"CTAs, {o['smem']} B of shared memory a CTA, Python = "
+              f"source; {o['active']} clusters at once for "
+              f"{-(-B // o['plan'][0])}); {o['sms']} distinct SMs for "
+              f"{o['n']} CTAs", flush=True)
+    print(f"# {label}: fact_fwd_bf16 at {plan['fact_fwd']}, entries that "
+          f"differ {fdiff}; fact_bwd_bf16 at {plan['fact_bwd']} against one "
+          f"block a column, entries that differ {bdiff}; {card_line()}",
+          flush=True)
+    check(all(v == 0 for d in fdiff.values() for v in d.values())
+          and sum(bdiff.values()) == 0
+          and all(o["all_recorded"] and o["sms"] == o["n"]
+                  and o["active"] >= -(-B // o["plan"][0])
+                  for o in out.values()),
+          f"{label}: the group form at {plan}: fact_fwd {fdiff}, fact_bwd "
+          f"{bdiff}, {out}")
+    return out
 
 
 def fast_class(label, den, P, B, T, dev, leaky_c, seed, f32_fa=None,
@@ -2404,8 +2449,10 @@ def long_fast(den, P, dev, leaky_c, counters):
              "fact_fwd_init": init_plain_ms,
              "fact_bwd_chunk": chunk_plain_ms,
              "fact_ckpt_pair": init_plain_ms + chunk_plain_ms}
-    print(f"# {label} kernel ms (each alone, at its plan: fact_bwd "
-          f"{tuple(one_col['plan'])}; init and chunk over the call's "
+    print(f"# {label} kernel ms (each alone, at its plan: fact_fwd "
+          f"{tuple(one_col['fact_fwd']['plan'])}, fact_bwd "
+          f"{tuple(one_col['fact_bwd']['plan'])}; init and chunk over the "
+          "call's "
           f"{n_chunks} chunks, unpaired, and the paired scan's "
           f"{n_chunks + 1} launches): " + ", ".join(
               f"{k} {v:.3f} (bound {bound(*costs[k])[0]:.4f}, plain "
@@ -2434,13 +2481,20 @@ def long_fast(den, P, dev, leaky_c, counters):
                         "ab_cluster": C7,
                         "ab_peak_over_held": ab_c[k][C7][1],
                         "c1_peak_over_held": ab_c[k][1][1]})
-    # fact_bwd runs its group form at G = 1: the plan's (G, C), its time
-    # at it ("ms") beside one block a column's ("c1_ms"), and its SMs
-    rows["fact_bwd"].update({"cluster": one_col["plan"],
-                             "active_clusters": one_col["active"],
-                             "smem": one_col["smem"],
-                             "plan_sms": one_col["sms"]})
-    print(f"# {label}: fact_bwd_bf16 at its plan {tuple(one_col['plan'])} "
+    # the full pair runs its group form at G = 1: the plan's (G, C), its
+    # time at it ("ms") beside one block a column's ("c1_ms") and, for
+    # fact_fwd, the cluster form's at C7 ("cluster_form_ms", "ab_ms"), and
+    # its SMs
+    for k in ("fact_fwd", "fact_bwd"):
+        o = one_col[k]
+        rows[k].update({"cluster": o["plan"], "active_clusters": o["active"],
+                        "smem": o["smem"], "plan_sms": o["sms"]})
+    rows["fact_fwd"]["cluster_form_ms"] = ab_c["fact_fwd"][C7][0]
+    print(f"# {label}: fact_fwd_bf16 at its plan "
+          f"{tuple(one_col['fact_fwd']['plan'])} {times['fact_fwd']:.3f} ms "
+          f"[the cluster form at C={C7} {ab_c['fact_fwd'][C7][0]:.3f}, one "
+          f"block a column {ab_c['fact_fwd'][1][0]:.3f}]; fact_bwd_bf16 at "
+          f"its plan {tuple(one_col['fact_bwd']['plan'])} "
           f"{times['fact_bwd']:.3f} ms [one block a column "
           f"{ab_c['fact_bwd'][1][0]:.3f}] in one call; {card_line()}",
           flush=True)
@@ -2546,10 +2600,9 @@ def long_auto(den, P, dev, leaky_c, counters):
     through chain_function: the plan, the mode auto takes, the step's ms
     and peak memory, and the full pair bit for bit against the plain
     fast version (each sweep's plain time); fact_bwd_bf16's group form at
-    G = 1 (one_column_checks); fact_fwd_bf16 at C = 1, 2 and 4,
-    fact_bwd_bf16 at C = 1, 2, 4 and its plan, and the full call at C = 1
-    and at the plan in turns.  Returns (stats, the pair's kernel rows'
-    fields)."""
+    G = 1 (one_column_checks); fact_fwd_bf16 and fact_bwd_bf16 at C = 1,
+    2, 4 and their plans, and the full call at C = 1 and at the plan in
+    turns.  Returns (stats, the pair's kernel rows' fields)."""
     from pychain_tpu_torch import ChainGraphBatch
     from pychain_tpu_torch.ops import fact_kernels as fk
     from pychain_tpu_torch.ops import factorized as pf
@@ -2594,13 +2647,14 @@ def long_auto(den, P, dev, leaky_c, counters):
           and sum(diff.values()) == 0 and ok_all,
           f"{label}: auto {auto}, launches {launched}, diff {diff}")
     one_col = one_column_checks(label, fa, px, lens32, leaky_c)
-    # each form's plan: fact_fwd's cluster form, fact_bwd's group form
+    # each form's plan: the group form at G = 1
     plan = fk._mode_cluster("full", px, fa, None)
     st = fk.fact_fwd(px, lens32, fa, leaky_c, cluster=1)
     tot = fk._objf(st[4], st[5], lens32, fa, st[7])[1].contiguous()
     ab = {k: {c: v[0] for c, v in r.items()} for k, r in sizes_ab({
         "fact_fwd": lambda c: fk.fact_fwd(px, lens32, fa, leaky_c,
-                                          cluster=c)}, (1, 2, 4)).items()}
+                                          cluster=c)},
+        (1, 2, 4, plan["fact_fwd"])).items()}
     ab.update({k: {c: v[0] for c, v in r.items()} for k, r in sizes_ab({
         "fact_bwd": lambda c: fk.fact_bwd(
             lens32, fa, leaky_c, *st[:5], st[6], st[7], tot, P,
@@ -2611,8 +2665,9 @@ def long_auto(den, P, dev, leaky_c, counters):
         "full call": lambda c: fk.forward_backward_prob_kernel(
             px, lens32, fa, leaky_c, debug=False, stream_mode="full",
             cluster=None if c == 0 else 1)}, (1, 0))["full call"].items()}
-    print(f"# {label}: fact_fwd_bf16 at C = 1, 2, 4 and fact_bwd_bf16 at C ="
-          f" 1, 2, 4 and its plan {plan['fact_bwd']} in turns (ms): {ab}; the "
+    print(f"# {label}: fact_fwd_bf16 at C = 1, 2, 4 and its plan "
+          f"{plan['fact_fwd']}, fact_bwd_bf16 at C = 1, 2, 4 and its plan "
+          f"{plan['fact_bwd']} in turns (ms): {ab}; the "
           f"full call with every form at C=1 {call[1]:.3f} ms, at the plan "
           f"{call[0]:.3f} ms; {card_line()}", flush=True)
     kg = fk.graph_for(fa)
@@ -2625,9 +2680,12 @@ def long_auto(den, P, dev, leaky_c, counters):
                 "c1_ms": ab[k][1], "c2_ms": ab[k][2],
                 "c4_ms": ab[k][4], "launches": launched[f"{k}_bf16"]}
             for k in ("fact_fwd", "fact_bwd")}
-    rows["fact_bwd"].update({"active_clusters": one_col["active"],
-                             "smem": one_col["smem"],
-                             "plan_sms": one_col["sms"]})
+    for k in ("fact_fwd", "fact_bwd"):
+        o = one_col[k]
+        rows[k].update({"active_clusters": o["active"], "smem": o["smem"],
+                        "plan_sms": o["sms"]})
+    # the cluster form the plan replaced, in the same turns
+    rows["fact_fwd"]["cluster_form_ms"] = ab["fact_fwd"][2]
     del px
     torch.cuda.empty_cache()
     return {"auto": auto, "objf": objf, "ms": best, "peak": peak,
@@ -4335,10 +4393,10 @@ def main_path_8(den_fst, P, dev, counters):
           "main path 8 fast: tier")
     fast_plan = {f: fk._form_plan(f, B, props, fa_fast, None)
                  for f in ("fact_fwd", "fact_bwd")}
-    print(f"# main path 8 fast plan {fast_plan} (fact_bwd_bf16's group "
+    print(f"# main path 8 fast plan {fast_plan} (the fast pair's group "
           "form at G = 1 within the cluster forms' reach)", flush=True)
     if props.multi_processor_count == 132:
-        check(fast_plan == {"fact_fwd": 2, "fact_bwd": (1, 2)},
+        check(fast_plan == {"fact_fwd": (1, 2), "fact_bwd": (1, 2)},
               f"main path 8 fast: plan {fast_plan}")
     f_objf, f_launches, f_ms, f_ups = log_step(
         "main path 8 fast (shared log-domain graph, bfloat16 tiles)", x,
@@ -4353,12 +4411,17 @@ def main_path_8(den_fst, P, dev, counters):
         p = fast_plan[f]
         rows[name]["cluster"] = list(p) if isinstance(p, tuple) else p
     if isinstance(fast_plan["fact_bwd"], tuple):
-        # one block a column on the same inputs, beside the group form
-        one = pair_times(fa_fast, px, lens_dev, 0.0, fk.fact_fwd,
+        # the forms the group form replaced on the same inputs, beside it:
+        # fact_fwd's cluster form at C = 2, fact_bwd's one block a column
+        one = pair_times(fa_fast, px, lens_dev, 0.0,
+                         functools.partial(fk.fact_fwd, cluster=2),
                          functools.partial(fk.fact_bwd, cluster=1), 5,
                          plain=False)
+        rows["fact_fwd_bf16"]["cluster_form_ms"] = one[0]
         rows["fact_bwd_bf16"]["one_block_ms"] = one[1]
-        print(f"# main path 8 fast: fact_bwd_bf16 at {fast_plan['fact_bwd']}"
+        print(f"# main path 8 fast: fact_fwd_bf16 at {fast_plan['fact_fwd']}"
+              f" {rows['fact_fwd_bf16']['ms']:.3f} ms [the cluster form at "
+              f"C=2 {one[0]:.3f}]; fact_bwd_bf16 at {fast_plan['fact_bwd']}"
               f" {rows['fact_bwd_bf16']['ms']:.3f} ms [one block a column "
               f"{one[1]:.3f}]; {card_line()}", flush=True)
     del fast, fa_fast
@@ -4686,9 +4749,9 @@ def add_launches(total, launched):
             total[k] = total.get(k, 0) + v
 
 
-def p9_sharded(path1_ms, path1_fast_ms):
-    """(a) ShardedChainLoss at main path 1's full width (the headline
-    denominator, B=128, T=500, linear numerators), float32 and fast, on
+def p9_sharded():
+    """(a) ShardedChainLoss at main path 1's width (the headline
+    denominator, B=128 linear numerators, T=150), float32 and fast, on
     a group of one rank (NCCL; equal to ChainLoss bit for bit) and on 2
     gloo ranks sharing the card (64 rows each: loss within 1e-6
     relative, each rank's gradient rows within 1e-4), and (c) the 2
@@ -4703,7 +4766,8 @@ def p9_sharded(path1_ms, path1_fast_ms):
             ranks = run_ranks(
                 f"(a) {n} rank(s)",
                 ["-m", "pychain_tpu_torch.tools.sharded_check",
-                 "--precision", "both"] + (["--ckpt", ckpt] if n > 1 else []),
+                 "--precision", "both"]
+                + (["--ckpt", ckpt] if n > 1 else []),
                 n)
             secs = time.perf_counter() - t0
             for lines in ranks:
@@ -4717,7 +4781,6 @@ def p9_sharded(path1_ms, path1_fast_ms):
     finally:
         shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
     for (n, prec), rs in sorted(out.items()):
-        ref_ms = path1_ms if prec == "parity" else path1_fast_ms
         for r in rs:
             print(f"# main path 9 (a) {prec}, rank {r['rank']} of {n} "
                   f"({r['backend']}, {r['rows']} rows): loss {r['loss']!r} "
@@ -4726,8 +4789,8 @@ def p9_sharded(path1_ms, path1_fast_ms):
                   f"max-abs {r['grad_abs']:.3e}, bit-identical "
                   f"{r['grad_bitwise']}; BatchNorm over the ranks "
                   f"{r.get('batchnorm')}; step {r['ms']:.3f} ms sharded, "
-                  f"{r['plain_ms']:.3f} ms ChainLoss on B=128 in the same "
-                  f"process (main path 1's step {ref_ms:.3f} ms); launches "
+                  f"{r['plain_ms']:.3f} ms ChainLoss on B=128, T={r['T']} "
+                  f"in the same process; launches "
                   f"{r['launches']} over {r['steps']} steps", flush=True)
             pair = (("fact_fwd", "fact_bwd") if prec == "parity"
                     else ("fact_fwd_bf16", "fact_bwd_bf16"))
@@ -5690,7 +5753,7 @@ def main():
 
     # -- phase 12g: main path 9, data parallelism and dense_list ----------
     t9 = time.perf_counter()
-    p9_sh, p9_launches = p9_sharded(step_ms[-1], fast_step_ms[-1])
+    p9_sh, p9_launches = p9_sharded()
     p9_rec, rec_launches = p9_recipe(all_counters, tf32_defaults,
                                      p6["bench"])
     add_launches(p9_launches, rec_launches)
@@ -5873,7 +5936,8 @@ def main():
                 **{k: r[k] for k in ("cluster", "ab_cluster", "ab_ms",
                                      "c1_ms", "ab_peak_over_held",
                                      "c1_peak_over_held", "pair_sms",
-                                     "active_clusters", "smem", "plan_sms")
+                                     "active_clusters", "smem", "plan_sms",
+                                     "cluster_form_ms")
                    if k in r},
                 "library_ms": None})
     # bench.py --long (B=32): the full pair at its plan, each form's time
@@ -5898,7 +5962,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "bytes": r["bytes"], "ops": r["ops"], "cluster": r["cluster"],
             "c1_ms": r["c1_ms"], "c2_ms": r["c2_ms"], "c4_ms": r["c4_ms"],
-            **{k: r[k] for k in ("active_clusters", "smem", "plan_sms")
+            **{k: r[k] for k in ("active_clusters", "smem", "plan_sms",
+                                 "cluster_form_ms")
                if k in r},
             "library_ms": None})
     # main path 8 (bench.py --xlstream): B1/B2 in both precisions at
@@ -5931,7 +5996,8 @@ def main():
                 "launches": r["launches"],
                 "launches_by_path": {"main path 8": r["launches"]},
                 "on_main_path": True,
-                **{k: r[k] for k in ("cluster", "columns", "one_block_ms")
+                **{k: r[k] for k in ("cluster", "columns", "one_block_ms",
+                                     "cluster_form_ms")
                    if k in r},
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "entry_excess": r["entry_excess"], "ms": r["ms"],
@@ -6130,7 +6196,7 @@ def main():
           + ", ".join(f"{k} {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}"
                       f" ({v['s']:.1f} s)" for k, v in examples.items()))
     print(f"# main path 9 (step = value and gradient; ShardedChainLoss at "
-          f"main path 1's width): " + "; ".join(
+          "main path 1's width, T=150): " + "; ".join(
               f"{prec} on {n} rank(s) {rs[0]['ms']:.3f} ms (ChainLoss "
               f"{rs[0]['plain_ms']:.3f}), loss rel {rs[0]['loss_rel']:.2e}, "
               f"gradient bit-identical {all(r['grad_bitwise'] for r in rs)}"

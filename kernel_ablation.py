@@ -479,6 +479,40 @@ FAST_BWD.update({
         "  if (G == 1 && C != 2) return static_cast<int>(cudaErrorInvalidValue"
         ");\n", "")]),
 })
+# fact_fwd_bf16's group form at G = 1 (one column a cluster of 2 CTAs),
+# beside one block a column and the cluster form at C = 2 (the plan it
+# replaces within the cluster forms' reach): at main path 7's shape as it
+# is and without its products, its exchanges (made local), its emission
+# gathers or its stream writes; at T=500 at B=8, 16, 32 and 64; at B=64
+# on the headline family with bigram fan-outs 5, 6, 7, 10 and 20 (W1 and
+# W2 97,024, 113,152, 132,864, 176,640 and 343,808 bytes: where
+# GROUP_ONE_MIN_OPERATOR_BYTES stands for the forward); at bench.py
+# --long's shape.
+FAST_FWD.update({
+    "C1_B64_T3700": dict(_P7, cluster=1),
+    "C2_B64_T3700": dict(_P7, cluster=2),
+    "G1C2_B64_T3700": _G12,
+    "G1C2_B64_T3700_no_products": dict(_G12, edits=_GROUP_FWD_PRODUCTS),
+    "G1C2_B64_T3700_local": dict(_G12,
+                                 edits=FAST_FWD["G2C2_local"]["edits"]),
+    "G1C2_B64_T3700_no_gather": dict(
+        _G12, edits=FAST_FWD["G2C2_no_gather"]["edits"]),
+    "G1C2_B64_T3700_no_stream_writes": dict(
+        _G12, edits=FAST_FWD["G2C2_no_stream_writes"]["edits"]),
+    "C1_B16": {"cluster": 1, "batch": 16},
+})
+for _B in (8, 16, 32, 64):
+    FAST_FWD[f"C2_B{_B}"] = {"cluster": 2, "batch": _B}
+    FAST_FWD[f"G1C2_B{_B}"] = {"cluster": (1, 2), "batch": _B}
+for _f in (5, 6, 7, 10, 20):
+    FAST_FWD[f"C2_B64_fanout{_f}"] = {"cluster": 2, "batch": 64,
+                                      "fanout": _f}
+    FAST_FWD[f"G1C2_B64_fanout{_f}"] = {"cluster": (1, 2), "batch": 64,
+                                        "fanout": _f}
+FAST_FWD.update({
+    "C2_B32_T2500": dict(_LONG, cluster=2),
+    "G1C2_B32_T2500": dict(_LONG, cluster=(1, 2)),
+})
 # The ckpt mode's pair kernel (csrc/fact_ckpt.cu) at main path 7 fast
 # (B=64, T=3,700), bench.py --long (B=32, T=2,500) and main path 7's
 # float32 cut (B=64, T=1,000): beside each variant ckpt_ablation times,
@@ -1554,9 +1588,16 @@ def fast_ablation(tables, use, time_ms, dev):
         st = fk.fact_fwd(px, lens, fa, c, cluster=1)
         tot = fk._objf(st[4], st[5], lens, fa, st[7])[1].contiguous()
         tag = f"B={B} T={T}" + (f" fanout={fanout}" if fanout != 30 else "")
+        def active(form, group):
+            if isinstance(group, tuple) and group[0] == 1:
+                print(f"# {form}_bf16 {group} at {tag}: "
+                      f"{fk.group_active_clusters(fa, form, group)} "
+                      f"clusters at once for {B}", flush=True)
+
         for label, variant in fwd.items():
             use("fast_fwd", label)
             opts = spec(variant)[1]
+            active("fact_fwd", opts["cluster"])
             result[f"fact_fwd_bf16/{label} {tag}"] = time_ms(
                 lambda: fk.fact_fwd(px, lens, fa, c,
                                     cluster=opts["cluster"]))
@@ -1565,10 +1606,7 @@ def fast_ablation(tables, use, time_ms, dev):
             use("fast_bwd", label)
             opts = spec(variant)[1]
             group = opts["cluster"]
-            if isinstance(group, tuple) and group[0] == 1:
-                print(f"# fact_bwd_bf16 {group} at {tag}: "
-                      f"{fk.group_active_clusters(fa, group)} clusters at "
-                      f"once for {B}", flush=True)
+            active("fact_bwd", group)
             result[f"fact_bwd_bf16/{label} {tag}"] = time_ms(
                 lambda: fk.fact_bwd(lens, fa, c, *st[:5], st[6], st[7], tot,
                                     P, debug=False, cluster=group))

@@ -1305,7 +1305,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_bwd_group_kernel(
     int* __restrict__ smid) {            // (ceil(B / G) C,) or null
   namespace cg = cooperative_groups;
   using S = __nv_bfloat16;
-  constexpr int W = packed_words<G>();   // words a state of a packed vector
+  constexpr int W = packed_words(G);   // words a state of a packed vector
   const int C = static_cast<int>(cg::this_cluster().num_blocks());
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int lc = __ffs(C) - 1;
@@ -1628,7 +1628,7 @@ extern "C" size_t fact_bwd_group_smem_bytes(int s_pad, int identity, int G,
                                             int C, int op_words) {
   const size_t own_max = 32 * ((s_pad / 32 + C - 1) / C);
   const size_t words =
-      (identity ? 4 : 6) * static_cast<size_t>(s_pad) * (G > 1 ? G / 2 : 1) +
+      (identity ? 4 : 6) * static_cast<size_t>(s_pad) * packed_words(G) +
       own_max * G + (identity ? 3 : 4) * own_max * G +
       group_red_words(2 * G) +
       group_red_words(G) + 8 + 2 * group_lp_words(s_pad, C) + op_words;
@@ -1919,17 +1919,14 @@ static int fact_bwd_group_run(
   auto kernel = fact_bwd_group_kernel<G>;
   const size_t smem =
       fact_bwd_group_smem_bytes(s_pad, xsrc_ys == nullptr, G, C, op_words);
-  cudaError_t err = fact_set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int active = group_active_clusters(kernel, smem, C);
+  if (active < 0) return -active;
+  if (active < 1) return -1;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       cluster_config((B + G - 1) / G, C, smem, stream, attr);
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (active < 1) return -1;
   using S = __nv_bfloat16;
-  err = cudaLaunchKernelEx(
+  cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const int*>(lengths),
       static_cast<const S*>(ad_ys), static_cast<const S*>(w1ad_ys),
       static_cast<const S*>(xdst_ys), static_cast<const S*>(xsrc_ys),
@@ -1958,22 +1955,10 @@ extern "C" int fact_bwd_group_active_clusters(int s_pad, int identity, int G,
   if (C != 2 && C != 4) return -static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       fact_bwd_group_smem_bytes(s_pad, identity, G, C, op_words);
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(1, C, smem, nullptr, attr);
-  int active = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-#define FACT_BWD_GROUP_ACTIVE(GG)                                             \
-  if (G == GG) {                                                              \
-    err = fact_set_smem(fact_bwd_group_kernel<GG>, smem);                     \
-    if (err == cudaSuccess)                                                   \
-      err = cudaOccupancyMaxActiveClusters(&active, fact_bwd_group_kernel<GG>, \
-                                           &cfg);                             \
-  }
-  FACT_BWD_GROUP_ACTIVE(1)
-  FACT_BWD_GROUP_ACTIVE(2)
-  FACT_BWD_GROUP_ACTIVE(4)
-#undef FACT_BWD_GROUP_ACTIVE
-  return err == cudaSuccess ? active : -static_cast<int>(err);
+  if (G == 1) return group_active_clusters(fact_bwd_group_kernel<1>, smem, C);
+  if (G == 2) return group_active_clusters(fact_bwd_group_kernel<2>, smem, C);
+  if (G == 4) return group_active_clusters(fact_bwd_group_kernel<4>, smem, C);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // fact_bwd_bf16's group form (counted as fact_bwd_bf16): G columns (1, 2

@@ -544,6 +544,21 @@ __host__ inline cudaLaunchConfig_t cluster_config(int n, int cluster,
   return cfg;
 }
 
+// The clusters of C CTAs of `smem` bytes that the card holds at once for
+// `kernel` (cudaOccupancyMaxActiveClusters), or minus the CUDA error: the
+// group forms' query (fact_fwd_group_active_clusters,
+// fact_bwd_group_active_clusters) and their launches' check.
+template <typename K>
+__host__ inline int group_active_clusters(K kernel, size_t smem, int C) {
+  cudaError_t err = fact_set_smem(kernel, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, C, smem, nullptr, attr);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
 // ----------------------------------------------------------------------
 // B1/B2 on a cluster (every form at C > 1)
 // ----------------------------------------------------------------------
@@ -785,8 +800,7 @@ __device__ __forceinline__ void cluster_post_async(const float (&v)[NV],
 // gathers as it does for the one-block kernels.
 
 // The words a state of a packed vector of G columns takes.
-template <int G>
-__host__ __device__ constexpr int packed_words() {
+__host__ __device__ constexpr int packed_words(int G) {
   return G > 1 ? G / 2 : 1;
 }
 
@@ -844,10 +858,10 @@ __device__ __forceinline__ void load_packed(const unsigned* v, int s,
 }
 
 // G values that are bfloat16 values already (rounded by round_to), packed
-// exactly into packed_words<G>() words.
+// exactly into packed_words(G) words.
 template <int G>
 __device__ __forceinline__ void pack_cols(const float (&x)[G],
-                                          unsigned (&w)[packed_words<G>()]) {
+                                          unsigned (&w)[packed_words(G)]) {
   if constexpr (G == 1) {
     w[0] = __float_as_uint(x[0]);
   } else {

@@ -577,9 +577,11 @@ __global__ void __launch_bounds__(NT, 1) fact_fwd_cluster_kernel(
 }
 
 // fact_fwd_bf16 (the full mode, bfloat16 tiles) as a group of G columns
-// (G = 2 or 4) on a cluster of C CTAs (C = 2 or 4), where B is past
-// C = 2's reach (fact_kernels.group_size): CTA r of cluster q serves
-// columns q G .. q G + G - 1 on its rows (cluster_row, as
+// (G = 1, 2 or 4) on a cluster of C CTAs (C = 2 or 4)
+// (fact_kernels.group_size): G = 1 where B C CTAs fit the card's SMs (B
+// <= 66 on an H100 at C = 2, where the cluster form reads its rows of W1
+// and W2 from L2 at every frame), G = 2 past that.  CTA r of cluster q
+// serves columns q G .. q G + G - 1 on its rows (cluster_row, as
 // fact_fwd_cluster_kernel).
 //
 // Why.  The one-block kernel reads each slot's column id and value from
@@ -603,6 +605,11 @@ __global__ void __launch_bounds__(NT, 1) fact_fwd_cluster_kernel(
 //   1) and u(t + 1) to every CTA, packed (warp_put_words_async) -> own
 //   rows' alpha' stream rows and alpha'(T_b) -> wait.
 //
+// At G = 1 alpha' and u keep a word a state (packed_words in
+// fact_common.cuh: the bfloat16 value's float32 bits, so the host's bank
+// order still spreads a slot's gathers over the banks), and the loop is
+// the G = 2 form's with one column.
+//
 // Each column runs to its own length: its stream rows, s_t and alpha'(T_b)
 // are written for its frames alone, and a column past its end (or past B,
 // whose px is never read) goes on with values no other column reads.
@@ -612,7 +619,7 @@ __global__ void __launch_bounds__(NT, 1) fact_fwd_cluster_kernel(
 // sum rounded where it rounds, so the results are that kernel's bit for
 // bit, and the plain fast version's.
 //
-// Shared memory: alpha' and u whole, packed (2 S_pad G / 2 words); the
+// Shared memory: alpha' and u whole, packed (2 S_pad packed_words words); the
 // carry, x_dst and (outside identity mode) x_src on own rows (float32,
 // G a row); the totals' scratch, two mbarriers, the local slice pointers
 // of W1 and W2 and their slots (op_words: the most any CTA holds), at
@@ -641,7 +648,7 @@ __global__ void __launch_bounds__(FACT_THREADS, 1) fact_fwd_group_kernel(
     int* __restrict__ smid) {            // (ceil(B / G) C,) or null
   namespace cg = cooperative_groups;
   using S = __nv_bfloat16;
-  constexpr int W = G / 2;               // words a state of a packed vector
+  constexpr int W = packed_words(G);   // words a state of a packed vector
   const int C = static_cast<int>(cg::this_cluster().num_blocks());
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int lc = __ffs(C) - 1;
@@ -992,7 +999,8 @@ FACT_FWD_ENTRY(fact_fwd_snap_bf16_launch, __nv_bfloat16, FWD_SNAP)
 FACT_FWD_ENTRY(fact_fwd_init_launch, float, FWD_INIT)
 FACT_FWD_ENTRY(fact_fwd_init_bf16_launch, __nv_bfloat16, FWD_INIT)
 
-// The group form's request: alpha' and u whole, packed; the carry, and
+// The group form's request: alpha' and u whole, packed (S_pad
+// packed_words words each); the carry, and
 // px's entries at f_dst and (outside identity mode) g_src in two buffers,
 // on rank 0's rows (the most a CTA owns), G floats a row; the totals'
 // scratch, two mbarriers, two sets of local slice pointers and op_words
@@ -1001,7 +1009,7 @@ FACT_FWD_ENTRY(fact_fwd_init_bf16_launch, __nv_bfloat16, FWD_INIT)
 extern "C" size_t fact_fwd_group_smem_bytes(int s_pad, int identity, int G,
                                             int C, int op_words) {
   const size_t own_max = 32 * ((s_pad / 32 + C - 1) / C);
-  const size_t words = static_cast<size_t>(s_pad) * G +
+  const size_t words = 2 * static_cast<size_t>(s_pad) * packed_words(G) +
                        (identity ? 3 : 5) * own_max * G + group_red_words(G) +
                        4 + 2 * group_lp_words(s_pad, C) + op_words;
   const size_t need = words * sizeof(float);
@@ -1020,16 +1028,13 @@ static int fact_fwd_group_run(
   auto kernel = fact_fwd_group_kernel<G>;
   const size_t smem =
       fact_fwd_group_smem_bytes(s_pad, g_src == nullptr, G, C, op_words);
-  cudaError_t err = fact_set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int active = group_active_clusters(kernel, smem, C);
+  if (active < 0) return -active;
+  if (active < 1) return -1;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       cluster_config((B + G - 1) / G, C, smem, stream, attr);
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (active < 1) return -1;
-  err = cudaLaunchKernelEx(
+  cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const float*>(px),
       static_cast<const int*>(lengths), static_cast<const int*>(f_dst),
       static_cast<const int*>(g_src), static_cast<const int*>(w1_ptr),
@@ -1046,8 +1051,22 @@ static int fact_fwd_group_run(
   return static_cast<int>(cudaGetLastError());
 }
 
-// fact_fwd_bf16's group form (counted as fact_fwd_bf16): G columns (2 or 4)
-// a cluster of C CTAs (2 or 4), ceil(B / G) clusters; w1_pack / w2_pack
+// The clusters of the group form at (G, C) that the card holds at once
+// for this graph (cudaOccupancyMaxActiveClusters), or minus the CUDA error
+// (cudaErrorInvalidValue for a (G, C) that is not built).
+extern "C" int fact_fwd_group_active_clusters(int s_pad, int identity, int G,
+                                              int C, int op_words) {
+  if (C != 2 && C != 4) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      fact_fwd_group_smem_bytes(s_pad, identity, G, C, op_words);
+  if (G == 1) return group_active_clusters(fact_fwd_group_kernel<1>, smem, C);
+  if (G == 2) return group_active_clusters(fact_fwd_group_kernel<2>, smem, C);
+  if (G == 4) return group_active_clusters(fact_fwd_group_kernel<4>, smem, C);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// fact_fwd_bf16's group form (counted as fact_fwd_bf16): G columns (1, 2
+// or 4) a cluster of C CTAs (2 or 4), ceil(B / G) clusters; w1_pack / w2_pack
 // the packed slots of the operators whose slice pointers are w1_ptr /
 // w2_ptr (B1's bank order); op_words as fact_fwd_group_smem_bytes; smid
 // (ceil(B / G) C,) or null.  Returns as the other entry points, and
@@ -1061,6 +1080,8 @@ extern "C" int fact_fwd_group_launch(
     void* w1ad_ys, void* xdst_ys, void* xsrc_ys, void* s_ys, void* ad_last,
     void* smid, void* stream) {
   if (C != 2 && C != 4) return static_cast<int>(cudaErrorInvalidValue);
+  // G = 1 runs at C = 2 alone, as fact_bwd's
+  if (G == 1 && C != 2) return static_cast<int>(cudaErrorInvalidValue);
 #define FACT_FWD_GROUP(GG)                                                    \
   if (G == GG)                                                                \
     return fact_fwd_group_run<GG>(px, lengths, f_dst, g_src, w1_ptr,          \
@@ -1068,6 +1089,7 @@ extern "C" int fact_fwd_group_launch(
                                   ad0, s0, leaky, leaky_c, B, T, P, s_pad, C, \
                                   op_words, ad_ys, w1ad_ys, xdst_ys, xsrc_ys, \
                                   s_ys, ad_last, smid, stream);
+  FACT_FWD_GROUP(1)
   FACT_FWD_GROUP(2)
   FACT_FWD_GROUP(4)
 #undef FACT_FWD_GROUP

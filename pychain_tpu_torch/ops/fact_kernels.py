@@ -49,8 +49,7 @@ card is spread over it.  The fast mode's full pair has a group form
 its two operators in shared memory for the whole launch
 (:func:`pack_slots`), so that no frame reads the operator from device
 memory, with the one-block kernels' bits; both forms take it past the
-cluster forms' reach, and fact_bwd also below it, one column a cluster
-(G = 1).
+cluster forms' reach, and below it too, one column a cluster (G = 1).
 
 A graph whose state vectors exceed a block's shared memory raises here
 and is the cluster kernels' (``ops/stream_kernels.py``, B3/B4), which
@@ -378,27 +377,28 @@ def ckpt_paired(B: int, props, fa: FactorizedArrays,
 # The fast pair's group form (fact_fwd_bf16, fact_bwd_bf16 in the full
 # mode): G columns a cluster of C CTAs, each CTA's rows of its operators
 # in shared memory for the whole launch (csrc/fact_fwd.cu,
-# csrc/fact_bwd.cu: fact_*_group_kernel).  GROUPS lists the (G, C) both
-# forms are built for, FORM_GROUPS each form's: fact_bwd also runs one
-# column a cluster (G = 1).  PLAN_GROUPS gives the (G, C) the plan takes
+# csrc/fact_bwd.cu: fact_*_group_kernel).  GROUPS lists the (G, C) of
+# two or more columns a cluster, FORM_GROUPS each form's: both also run
+# one column a cluster (G = 1).  PLAN_GROUPS gives the (G, C) the plan takes
 # for each form, in order, from the card's times at the headline graph in
 # PERF.md.  Past the cluster forms' reach (B 2 > the card's SMs: B > 66 on
 # an H100), where every form's cluster plan is one block a column, (2, 2)
 # took 3.5 / 4.5 ms at B = 128 where one block a column took 5.0 / 5.2;
 # (4, 4) is built, not planned (6.2-10.9 ms at B = 128, and at B = 67
 # slower than (2, 2); ROADMAP.md queues its removal).  Within that reach
-# fact_bwd takes (1, 2): B clusters of 2 CTAs, one a SM, in one wave (66
+# both take (1, 2): B clusters of 2 CTAs, one a SM, in one wave (66
 # clusters of 2 at once on an H100, cudaOccupancyMaxActiveClusters).  At
-# the headline graph it took 3.339 / 3.313 / 3.381 / 3.399 ms at B = 8 /
-# 16 / 32 / 64 (T = 500) where one block a column took 5.022 / 4.981 /
-# 5.055 / 5.040, so the plan takes it from B = 1; (1, 4) is not built:
-# at bench.py --long (B = 32) the card holds 30 clusters of 4 at once, and
-# it took 23.257 ms against (1, 2)'s 16.557.  fact_fwd keeps its cluster
-# form there.
+# the headline graph fact_bwd took 3.339 / 3.313 / 3.381 / 3.399 ms at B
+# = 8 / 16 / 32 / 64 (T = 500) where one block a column took 5.022 /
+# 4.981 / 5.055 / 5.040, and fact_fwd 2.538 / 2.574 / 2.560 / 2.545 where
+# its cluster form (C = 2) took 3.710 / 3.743 / 3.732 / 3.834, so the
+# plan takes it from B = 1; (1, 4) is not built: at bench.py --long (B =
+# 32) the card holds 30 clusters of 4 at once, and fact_bwd took 23.257
+# ms there against (1, 2)'s 16.557.
 GROUP_FORMS = ("fact_fwd", "fact_bwd")
 GROUPS = ((2, 2), (4, 4))
-FORM_GROUPS = {"fact_fwd": GROUPS, "fact_bwd": ((1, 2),) + GROUPS}
-PLAN_GROUPS = {"fact_fwd": ((2, 2),), "fact_bwd": ((1, 2), (2, 2))}
+FORM_GROUPS = {f: ((1, 2),) + GROUPS for f in GROUP_FORMS}
+PLAN_GROUPS = {f: ((1, 2), (2, 2)) for f in GROUP_FORMS}
 # The least operator bytes (its slots at 8 bytes: what one block a column
 # reads from L2 at every frame) at which the plan takes the group form:
 # below them the one-block kernel's L1 holds enough of the operator that
@@ -409,11 +409,21 @@ PLAN_GROUPS = {"fact_fwd": ((2, 2),), "fact_bwd": ((1, 2), (2, 2))}
 # and W2^T (4.4 against 5.2), tied at 247 KB and lost at 130 KB (4.1
 # against 3.8).
 GROUP_MIN_OPERATOR_BYTES = {"fact_fwd": 128 * 1024, "fact_bwd": 300 * 1024}
-# The same at G = 1, where the one-block kernel it replaces leaves half
-# the SMs idle: at B = 64 (T = 500) (1, 2) won at 373 KB of W1^T and W2^T
-# (3.399 against 5.040 ms), at about 250 KB (3.231 against 4.206) and at
-# 130 KB (3.134 against 3.889); smaller operators were not measured.
-GROUP_ONE_MIN_OPERATOR_BYTES = 128 * 1024
+# The same at G = 1, where the form it replaces (one block a column, or
+# fact_fwd's cluster form) reads its rows of the operator from L2 at
+# every frame: at B = 64 (T = 500) fact_bwd's (1, 2) won at 373 KB of
+# W1^T and W2^T (3.399 against 5.040 ms), at about 250 KB (3.231 against
+# 4.206) and at 130 KB (3.134 against 3.889); fact_fwd's at 454 KB of W1
+# and W2 (2.545 against C = 2's 3.834), 344 KB (2.439 against 3.539),
+# 177 KB (2.294 against 3.142), 133 KB (2.278 against 2.990), 113 KB
+# (2.252 against 3.054) and 97,024 bytes (2.272 against 2.997).  The
+# forward's least is the smallest operator measured, the backward's just
+# under its; smaller ones were not measured.
+GROUP_ONE_MIN_OPERATOR_BYTES = {"fact_fwd": 97_024, "fact_bwd": 128 * 1024}
+
+
+def _packed_words(G):
+    return G // 2 if G > 1 else 1      # packed_words in fact_common.cuh
 
 
 def _group_red_words(nv):
@@ -428,9 +438,9 @@ def group_smem_bytes(fa: FactorizedArrays, G: int, C: int,
                      words: dict | None = None) -> dict:
     """Dynamic shared memory of a group-form CTA at (G, C), {form: bytes};
     must equal fact_fwd_group_smem_bytes / fact_bwd_group_smem_bytes in
-    the sources (fact_fwd's only for a G it is built for).  The vectors
-    the products gather whole, packed (S_pad G / 2 words each, S_pad at G
-    = 1: fact_fwd's alpha' and u, fact_bwd's b, x_dst * b and one or two
+    the sources.  The vectors the products gather whole, packed (S_pad G
+    / 2 words each, S_pad at G = 1: fact_fwd's alpha' and u, fact_bwd's
+    b, x_dst * b and one or two
     mass vectors), the per-row vectors on rank 0's rows
     (fact_fwd's carry, x_dst and, outside identity mode, x_src, G floats
     a row, the last two in two buffers; fact_bwd's beta', G floats a row,
@@ -444,9 +454,10 @@ def group_smem_bytes(fa: FactorizedArrays, G: int, C: int,
     own_max = 32 * -(-(s_pad // 32) // C)
     words = words if words is not None else graph_for(fa).group_words
     lp = 2 * _group_lp_words(s_pad, C)
-    fwd = (s_pad * G + (3 if identity else 5) * own_max * G
+    fwd = (2 * s_pad * _packed_words(G)
+           + (3 if identity else 5) * own_max * G
            + _group_red_words(G) + 4 + lp + words[("fact_fwd", C)])
-    bwd = ((4 if identity else 6) * s_pad * max(G // 2, 1)
+    bwd = ((4 if identity else 6) * s_pad * _packed_words(G)
            + own_max * G + (3 if identity else 4) * own_max * G
            + _group_red_words(2 * G)
            + _group_red_words(G) + 8 + lp + words[("fact_bwd", C)])
@@ -474,8 +485,8 @@ def group_size(B: int, props, fa: FactorizedArrays, form: str,
     forms' reach (B 2 > the SMs; below it a column has a cluster of its
     own), G = 1 where the operator takes at least
     :data:`GROUP_ONE_MIN_OPERATOR_BYTES`.  On an H100 at the headline
-    graph: fact_bwd (1, 2) to B = 66, (2, 2) from 67 to 132; fact_fwd (2,
-    2) from 67 to 132.  ``cluster`` = (G, C) forces one; a
+    graph both forms take (1, 2) to B = 66 and (2, 2) from 67 to 132.
+    ``cluster`` = (G, C) forces one; a
     (G, C) that is not built for the form (:data:`FORM_GROUPS`), a form
     or a graph the group form does not run, or a CTA that does not fit
     raises NotImplementedError (nothing falls back to another form)."""
@@ -506,7 +517,7 @@ def group_size(B: int, props, fa: FactorizedArrays, form: str,
         return None
     for G, C in PLAN_GROUPS[form]:
         least = (GROUP_ONE_MIN_OPERATOR_BYTES if G == 1
-                 else GROUP_MIN_OPERATOR_BYTES[form])
+                 else GROUP_MIN_OPERATOR_BYTES)[form]
         if 8 * words[(form, 1)] < least or (G > 1 and 2 * B <= sms):
             continue
         if (-(-B // G) * C <= sms
@@ -515,20 +526,22 @@ def group_size(B: int, props, fa: FactorizedArrays, form: str,
     return None
 
 
-def group_active_clusters(fa: FactorizedArrays, group: tuple,
+def group_active_clusters(fa: FactorizedArrays, form: str, group: tuple,
                           device=None) -> int:
-    """The clusters of fact_bwd_bf16's group form at ``group`` = (G, C)
-    that the card of ``device`` holds at once for this graph
-    (cudaOccupancyMaxActiveClusters, fact_bwd_group_active_clusters in
-    csrc/fact_bwd.cu)."""
+    """The clusters of ``form``'s group form (fact_fwd or fact_bwd, bfloat16
+    tiles) at ``group`` = (G, C) that the card of ``device`` holds at once
+    for this graph (cudaOccupancyMaxActiveClusters,
+    fact_*_group_active_clusters in csrc/fact_*.cu)."""
     from ..csrc import build
-    fn = build.load("fact_bwd").fact_bwd_group_active_clusters
+    _require(form in GROUP_FORMS, f"{form} has no group form")
+    name = f"{form}_group_active_clusters"
+    fn = getattr(build.load(form), name)
     fn.restype = ctypes.c_int
     G, C = group
     with torch.cuda.device(device or torch.cuda.current_device()):
         n = fn(fa.s_pad, int(fa.xsrc_mode == "identity"), G, C,
-               graph_for(fa).group_words.get(("fact_bwd", C), 0))
-    _check(max(-n, 0), "fact_bwd_group_active_clusters")
+               graph_for(fa).group_words.get((form, C), 0))
+    _check(max(-n, 0), name)
     return n
 
 

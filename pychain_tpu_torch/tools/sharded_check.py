@@ -10,14 +10,14 @@ Alone it is a group of one rank (NCCL); under a launcher, the group that
 (``parallel.multihost.join_job``: NCCL with a card a rank, gloo for
 ranks that share one).  The problem is bench.py's headline, main path
 1's: ``denominator_fst(1500, 2, bigram_fanout=30)`` (S=3000, K=49.5k,
-P=3000), B=128 linear numerators over numpy seed 0, T=500, x from a
-CUDA generator seeded 2.  Each rank takes its rows, times the sharded
-value and gradient (CUDA events, best of 3 after a warm-up) and
-ChainLoss's on the whole batch, and compares them: the value's relative
-difference, the largest difference of its rows' gradient, and whether
-both are bit-identical (``--precision both``: float32, then bfloat16
-tiles).  With ``--ckpt DIR`` it also saves its rows of
-x's first 16 frames as a DTensor shard with ``save_sharded`` and
+P=3000), B=128 linear numerators over numpy seed 0, at a depth cut to
+T=150 frames, x from a CUDA generator seeded 2.  Each rank takes its
+rows, times the sharded value and gradient (CUDA events, best of 3
+after a warm-up) and ChainLoss's on the whole batch, and compares them:
+the value's relative difference, the largest difference of its rows'
+gradient, and whether both are bit-identical (``--precision both``:
+float32, then bfloat16 tiles).  With ``--ckpt DIR`` it also saves its
+rows of x's first 16 frames as a DTensor shard with ``save_sharded`` and
 restores them, and the whole array into a plain tensor.  Last,
 train-mode BatchNorm on this rank's rows of seeded features, against
 the whole batch's statistics.  Every rank prints one JSON line,
@@ -46,7 +46,7 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-B, T, PHONES, REPS = 128, 500, 1500, 3
+B, T, PHONES, REPS = 128, 150, 1500, 3
 
 
 def _step_ms(fn):

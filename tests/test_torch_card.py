@@ -962,9 +962,10 @@ class TestGroupForm:
     for bit against the plain fast version: at B = 128 (the plan's (2,
     2)), at B = 67 (the first batch past the cluster forms), at B = 128
     with unequal lengths, outside identity mode, and with (4, 4) forced;
-    and fact_bwd_bf16 at G = 1 (one column a cluster of 2 CTAs, the plan
-    at B <= 66) at B = 64 and 32, with unequal lengths and outside
-    identity mode; T = 120 (a frame's arithmetic does not depend on T)."""
+    and both at G = 1 (one column a cluster of 2 CTAs, the plan at B <=
+    66) at B = 64, 32 and 8, with unequal lengths and outside identity
+    mode, fact_fwd_bf16's streams also against its cluster form (C = 2);
+    T = 120 (a frame's arithmetic does not depend on T)."""
 
     @staticmethod
     def _head(cuda, B, mode="source", seed=0, T=120, lengths=None):
@@ -1015,24 +1016,30 @@ class TestGroupForm:
             self._equal(fk.forward_backward_prob_kernel(
                 px, lens, fa, LEAKY, cluster=(4, 4)), ref)
 
-    @pytest.mark.cuda
-    @pytest.mark.parametrize("case", ["b64", "b32", "unequal", "stream"])
-    def test_one_column_a_cluster_matches_plain(self, cuda, case):
-        """fact_bwd_bf16 at the plan's (1, 2) beside fact_fwd_bf16's
-        cluster form (C = 2): one launch of each fast kernel, the plain
-        fast version's and the one-block kernels' objf, gamma and traces
-        (debug True and False) bit for bit, gamma bit-identical on a
-        rerun, 2 B CTAs on 2 B distinct SMs (%smid), every cluster
-        resident at once (cudaOccupancyMaxActiveClusters)."""
-        B = 32 if case == "b32" else 64
+    @staticmethod
+    def _one_column_case(cuda, case):
+        B = {"b32": 32, "b8": 8}.get(case, 64)
         lengths = None
-        if case == "unequal":
+        if case in ("unequal", "b8"):
             lengths = np.random.RandomState(6).randint(1, 121, size=B)
             lengths[:3] = (120, 1, 2)
-        fa, px, lens = self._head(cuda, B, "separate" if case == "stream"
-                                  else "source", lengths=lengths)
+        return TestGroupForm._head(cuda, B, "separate" if case == "stream"
+                                   else "source", lengths=lengths)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("case", ["b64", "b32", "b8", "unequal",
+                                      "stream"])
+    def test_one_column_a_cluster_matches_plain(self, cuda, case):
+        """fact_fwd_bf16 and fact_bwd_bf16 at the plan's (1, 2): one
+        launch of each fast kernel, the plain fast version's and the
+        one-block kernels' objf, gamma and traces (debug True and False)
+        bit for bit, gamma bit-identical on a rerun, fact_bwd's 2 B CTAs
+        on 2 B distinct SMs (%smid), every cluster resident at once
+        (cudaOccupancyMaxActiveClusters)."""
+        fa, px, lens = self._one_column_case(cuda, case)
+        B = px.shape[0]
         assert fk._mode_cluster("full", px, fa, None) == {
-            "fact_fwd": 2, "fact_bwd": (1, 2)}
+            "fact_fwd": (1, 2), "fact_bwd": (1, 2)}
         ref = forward_backward_prob_fast(px, lens, fa, LEAKY)
         self._equal(fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
                                                     cluster=1), ref)
@@ -1052,22 +1059,65 @@ class TestGroupForm:
         fk.fact_bwd(lens, fa, LEAKY, ad_ys, w1ad, xdst, xsrc, s_ys, ad0, s0,
                     tot, px.shape[2], cluster=(1, 2), smid=smid)
         assert bool((smid >= 0).all()) and len(set(smid.tolist())) == 2 * B
-        assert fk.group_active_clusters(fa, (1, 2)) >= B
+        assert fk.group_active_clusters(fa, "fact_bwd", (1, 2)) >= B
 
     @pytest.mark.cuda
-    def test_one_column_a_cluster_refusals(self, cuda):
-        """fact_fwd has no G = 1 form: a forced (1, 2) raises
-        NotImplementedError before any launch (a (1, 2) that does not fit
-        raises on the CPU: tests/test_torch_group.py); the card's query
-        refuses a (G, C) that is not built."""
+    @pytest.mark.parametrize("case", ["b64", "b32", "b8", "unequal",
+                                      "stream"])
+    def test_one_column_forward_streams(self, cuda, case):
+        """fact_fwd_bf16 at (1, 2) writes the C = 2 cluster form's and the
+        one-block form's streams, s_t and alpha'(T_b) bit for bit (each
+        column's frames), the same again on a rerun; its 2 B CTAs sit on
+        2 B distinct SMs, every cluster resident at once."""
+        fa, px, lens = self._one_column_case(cuda, case)
+        B = px.shape[0]
+        smid = torch.full((2 * B,), -1, dtype=torch.int32, device=cuda)
+        got = fk.fact_fwd(px, lens, fa, LEAKY, cluster=(1, 2), smid=smid)
+        again = fk.fact_fwd(px, lens, fa, LEAKY, cluster=(1, 2))
+        for ref in (fk.fact_fwd(px, lens, fa, LEAKY, cluster=2),
+                    fk.fact_fwd(px, lens, fa, LEAKY, cluster=1), again):
+            for a, b in zip(ref[:4], got[:4]):
+                assert (a is None) == (b is None)
+                if a is None:
+                    continue
+                for col, Tb in enumerate(lens.tolist()):
+                    assert torch.equal(a[col, :Tb], b[col, :Tb])
+            assert torch.equal(ref[4], got[4]) and torch.equal(ref[5],
+                                                               got[5])
+        assert bool((smid >= 0).all()) and len(set(smid.tolist())) == 2 * B
+        assert fk.group_active_clusters(fa, "fact_fwd", (1, 2)) >= B
+
+    @pytest.mark.cuda
+    def test_one_column_a_cluster_refusals(self, cuda, monkeypatch):
+        """A G = 1 that is not built ((1, 4)), float32 tiles, or a CTA past
+        the block (a stubbed card of 99 KB a block; bench.py --s8k's
+        graph on the CPU: tests/test_torch_group.py) raises
+        NotImplementedError before any launch, for either form; the
+        card's query refuses a (G, C) that is not built."""
         fa, px, lens = self._head(cuda, 8, T=4)
+        fst, _ = denominator_fst(num_phones=1500, states_per_phone=2,
+                                 seed=0, bigram_fanout=30)
+        f32 = pt.ChainGraphBatch(pt.ChainGraph(fst), 8, device=cuda)._fact
         fk.reset_launch_counts()
         with pytest.raises(NotImplementedError, match="built"):
             fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                            cluster=(1, 4))
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            fk.forward_backward_prob_kernel(px, lens, f32, LEAKY,
                                             cluster=(1, 2))
+        small = types.SimpleNamespace(multi_processor_count=132,
+                                      shared_memory_per_block_optin=101376)
+        monkeypatch.setattr(fk, "_card_props", lambda device: small)
+        with pytest.raises(NotImplementedError, match="101376"):
+            fk.forward_backward_prob_kernel(px, lens, fa, LEAKY,
+                                            cluster=(1, 2))
+        with pytest.raises(NotImplementedError, match="101376"):
+            fk.fact_fwd(px, lens, fa, LEAKY, cluster=(1, 2))
+        monkeypatch.undo()
         assert fk.launched() == {}
-        with pytest.raises(RuntimeError, match="fact_bwd_group_active"):
-            fk.group_active_clusters(fa, (1, 8))
+        for form in fk.GROUP_FORMS:
+            with pytest.raises(RuntimeError, match=f"{form}_group_active"):
+                fk.group_active_clusters(fa, form, (1, 8))
 
     @pytest.mark.cuda
     def test_group_streams_are_the_one_blocks(self, cuda):

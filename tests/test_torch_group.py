@@ -8,9 +8,9 @@ whole launch, packed 4 bytes a slot (``fact_kernels.pack_slots``), and
 one load of a slot feeds the G columns' products (csrc/fact_fwd.cu and
 csrc/fact_bwd.cu, ``fact_*_group_kernel``).
 
-Within that reach (B 2 <= the SMs) fact_bwd_bf16 runs its group form
-at G = 1, one column on a cluster of 2 CTAs (``cluster=(1, 2)``), while
-fact_fwd_bf16 keeps its cluster form; a forced fact_fwd at G = 1 raises.
+Within that reach (B 2 <= the SMs) both run their group form at G = 1,
+one column on a cluster of 2 CTAs (``cluster=(1, 2)``), each packed
+vector a word a state.
 
 The CUDA kernels cannot run here.  ``_emu_group_fwd`` / ``_emu_group_bwd``
 emulate them CTA by CTA on the arrays they read, put in place of the
@@ -19,7 +19,9 @@ each CTA's slots copied through its local slice pointers from the packed
 words and unpacked as the kernels unpack them, the G columns of a group
 side by side with each column's own length (a column past its end, or
 past B, runs on and is never written), the vectors the products gather
-assembled from every CTA's rows after rounding to bfloat16, beta'(T_b)
+assembled from every CTA's rows after rounding to bfloat16 and packed as
+the kernels pack them (``_packed``: G / 2 words a state, one at G = 1),
+beta'(T_b)
 injected at each column's own last frame, and every sum taken as the
 kernels take it (each row's slots in order; the virtual threads' rows and
 pdfs, the warp trees, the cross-warp tree: ``_cluster_total``).  The
@@ -122,6 +124,27 @@ def _whole(parts, rows_of, n, G):
     return out
 
 
+def _packed(v):
+    """A vector (n, G) of bfloat16 values through the group form's packed
+    words and back (pack_cols / load_packed in csrc/fact_common.cuh): at
+    G = 1 a word a state, the value's float32 bits; else G / 2 words a
+    state, column 2j in the low half of word j, 2j + 1 in the high half.
+    The words must hold the values exactly."""
+    G = v.shape[1]
+    bits = v.contiguous().view(torch.int32)
+    if G == 1:
+        words = bits.clone()
+        back = words.view(torch.float32)
+    else:
+        lo, hi = bits[:, 0::2], bits[:, 1::2]
+        words = ((lo >> 16) & 0xffff) | (hi & -65536)
+        back = torch.stack([words << 16, words & -65536], 2).reshape(
+            v.shape).view(torch.float32)
+    assert words.shape == (v.shape[0], fk._packed_words(G))
+    assert torch.equal(back, v), "not bfloat16 values"
+    return back
+
+
 def _groups(B, G, lengths):
     """Each cluster's columns and lengths (0 past B)."""
     for q in range(-(-B // G)):
@@ -133,7 +156,7 @@ def _emu_group_fwd(px, lengths, fa, c, outs, s_ys, ad_last, group,
                    smid=None):
     """fact_fwd_group_kernel in place of fact_kernels._fwd_group_launch,
     one cluster (G columns) at a time, each CTA's rows apart."""
-    assert group in fk.GROUPS and smid is None
+    assert group in fk.FORM_GROUPS["fact_fwd"] and smid is None
     fk.LAUNCHES["fact_fwd_bf16"] += 1
     G, C = group
     kg = fk.graph_for(fa)
@@ -162,9 +185,9 @@ def _emu_group_fwd(px, lengths, fa, c, outs, s_ys, ad_last, group,
                         outs[3][b, t] = xs[:, g]
 
         a = ad0[:, None].expand(n, G).clone()
-        ad = bf(a)
+        ad = _packed(bf(a))
         gather(0)
-        u = bf(xs * a)
+        u = _packed(bf(xs * a))
         s_prev = s0.expand(G).clone()
         for t in range(t_end):
             r = 1.0 / s_prev
@@ -192,7 +215,7 @@ def _emu_group_fwd(px, lengths, fa, c, outs, s_ys, ad_last, group,
                     s_ys[b, t] = s_t[g]
                     if t == Tb[g] - 1:
                         ad_last[b] = v[:, g]
-            a, ad, u, s_prev = v, bf(v), bf(xs * v), s_t
+            a, ad, u, s_prev = v, _packed(bf(v)), _packed(bf(xs * v)), s_t
         for g, b in enumerate(cols):
             if b < B:
                 s_ys[b, Tb[g]:] = 1.0
@@ -255,7 +278,7 @@ def _emu_group_bwd(lengths, fa, c, streams, s_ys, ad0, s0, tot_prob, outs,
                         streams[3][b, u].float()
             cl = c * leak
             v = bd + cl[None, :]
-            bn, xb = bf(v), bf(xo * v)      # each CTA's rows, exchanged
+            bn, xb = _packed(bf(v)), _packed(bf(xo * v))   # exchanged
             parts = {"bd": [], "m1": [], "m2": []}
             for k, R in enumerate(rows_of):
                 xbs = xo[R] * v[R]
@@ -367,9 +390,9 @@ def test_the_plan_reaches_the_group_form_on_a_call(monkeypatch):
     with the operator-size rule stubbed to take any operator (this
     graph's are far below it, which keeps one block a column), fact_fwd
     and fact_bwd run as groups at (2, 2) and the lean and ckpt forms keep
-    one block a column; at B = 66 fact_bwd runs one column a cluster, (1,
-    2), and fact_fwd its cluster form (C = 2); a forced (G, C) reaches
-    both launches; the results are the plain fast version's."""
+    one block a column; at B = 66 both run one column a cluster, (1, 2);
+    a forced (G, C) reaches both launches; the results are the plain fast
+    version's."""
     fa, px, lens = _case("source", num_phones=600, seed=3, B=67, T=3,
                          lengths=[3 - k % 3 for k in range(67)])
     assert fa.s_pad > 1024
@@ -377,7 +400,8 @@ def test_the_plan_reaches_the_group_form_on_a_call(monkeypatch):
     assert set(fk._mode_cluster("full", px, fa, None).values()) == {1}
     monkeypatch.setattr(fk, "GROUP_MIN_OPERATOR_BYTES",
                         {"fact_fwd": 0, "fact_bwd": 0})
-    monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES", 0)
+    monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES",
+                        {"fact_fwd": 0, "fact_bwd": 0})
     plan = fk._mode_cluster("full", px, fa, None)
     assert plan == {"fact_fwd": (2, 2), "fact_bwd": (2, 2)}
     assert set(fk._mode_cluster("lean", px, fa, None).values()) == {1}
@@ -386,7 +410,7 @@ def test_the_plan_reaches_the_group_form_on_a_call(monkeypatch):
         "fact_fwd": (4, 4), "fact_bwd": (4, 4)}
     with pytest.raises(NotImplementedError, match="group"):
         fk._mode_cluster("lean", px, fa, (2, 2))
-    assert fk._plan("fact_fwd", 66, "cpu", fa, None) == 2
+    assert fk._plan("fact_fwd", 66, "cpu", fa, None) == (1, 2)
     assert fk._plan("fact_bwd", 66, "cpu", fa, None) == (1, 2)
     got, _ = _full(fa, px, lens, plan["fact_fwd"])
     _assert_equal(got, pf.forward_backward_prob_fast(px, lens, fa, LEAKY))
@@ -436,9 +460,8 @@ def test_group_shared_memory_and_plan_at_the_headline_s8k_and_main4():
     the mbarriers, the local slice pointers, the slots of the CTA that
     holds the most), and the plan on a stubbed H100 (132 SMs, 232,448
     bytes a block): the headline graph (S_pad 3,072) takes (2, 2) from B
-    = 67 to 132 and the cluster rule's form past 132, and at B <= 66
-    fact_bwd takes (1, 2), fact_fwd its cluster form; outside identity
-    mode (4, 4)'s backward CTA does not
+    = 67 to 132 and the cluster rule's form past 132, and at B <= 66 (1,
+    2); outside identity mode (4, 4)'s backward CTA does not
     fit and a forced one raises; bench.py --s8k's graph (S_pad
     8,064: W1 alone 147,712 bytes a CTA at C = 4) fits no (G, C), so the
     plan keeps one block a column
@@ -464,9 +487,8 @@ def test_group_shared_memory_and_plan_at_the_headline_s8k_and_main4():
     assert fk.group_smem_bytes(head, 4, 4) == {"fact_fwd": 144384,
                                               "fact_bwd": 196912}
     for form in fk.GROUP_FORMS:
-        low = (1, 2) if form == "fact_bwd" else None
-        for B, want in ((8, low), (66, low), (67, (2, 2)), (128, (2, 2)),
-                        (132, (2, 2)), (133, None)):
+        for B, want in ((8, (1, 2)), (66, (1, 2)), (67, (2, 2)),
+                        (128, (2, 2)), (132, (2, 2)), (133, None)):
             assert fk.group_size(B, H100, head, form) == want
             assert fk.group_size(B, H100, s8k, form) is None
         with pytest.raises(NotImplementedError, match="S_pad=8064"):
@@ -518,7 +540,7 @@ def test_group_form_refusals(monkeypatch):
     f32 = pt.ChainGraphBatch(pt.ChainGraph(denominator_fst(
         num_phones=600, states_per_phone=2, seed=3)[0]), 2,
         device="cpu")._fact
-    for bad in ((3, 2), (2, 8), (1, 2), (2, 1), (2, 4), (4, 2)):
+    for bad in ((3, 2), (2, 8), (1, 4), (2, 1), (2, 4), (4, 2)):
         with pytest.raises(NotImplementedError, match="built"):
             fk.group_size(128, H100, fa, "fact_fwd", cluster=bad)
     for form in ("fact_fwd_snap", "fact_bwd_lean", "fact_fwd_init",
@@ -536,24 +558,33 @@ def test_group_form_refusals(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# fact_bwd_bf16 at G = 1: one column a cluster, within the cluster forms'
+# The fast pair at G = 1: one column a cluster, within the cluster forms'
 # reach
 # ----------------------------------------------------------------------
 
 ONE = [g for g in fk.FORM_GROUPS["fact_bwd"] if g[0] == 1]
+ONE_FWD = [g for g in fk.FORM_GROUPS["fact_fwd"] if g[0] == 1]
 
 
-def _one_column(fa, px, lens, group, debug=True):
-    """fact_fwd at its plan (one block a column at these sizes, or C = 2
-    past 1,024 states), the objective, then fact_bwd forced to ``group``
-    (None: its plan).  Returns the result."""
+def _one_column(fa, px, lens, group, debug=True, fwd_group=None):
+    """fact_fwd at ``fwd_group`` (None: its plan: one block a column at
+    these sizes, or (1, 2) past 1,024 states), the objective, then
+    fact_bwd forced to ``group`` (None: its plan).  Returns (the result,
+    the forward's outputs)."""
     P = px.shape[2]
-    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fk.fact_fwd(
-        px, lens, fa, LEAKY)
+    fwd = fk.fact_fwd(px, lens, fa, LEAKY, cluster=fwd_group)
+    ad_ys, w1ad, xdst, xsrc, s_ys, ad_last, ad0, s0 = fwd
     objf, tot = fk._objf(s_ys, ad_last, lens, fa, s0)
     outs = fk.fact_bwd(lens, fa, LEAKY, ad_ys, w1ad, xdst, xsrc, s_ys, ad0,
                        s0, tot, P, debug, cluster=group)
-    return fk._package_result(objf, *outs)
+    return fk._package_result(objf, *outs), fwd
+
+
+def _forward_equal(got, ref, lens):
+    """The forward's streams on each column's frames, s_t and alpha'(T_b)
+    under torch.equal."""
+    _streams_equal(got[:4], ref[:4], lens)
+    assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])
 
 
 @pytest.mark.parametrize("group", ONE)
@@ -573,28 +604,55 @@ def test_one_column_a_cluster_gives_the_plain_fast_versions_bits(
     plain = pf.forward_backward_prob_fast(px, lens, fa, LEAKY)
     for debug in (True, False):
         fk.reset_launch_counts()
-        got = _one_column(fa, px, lens, group, debug)
+        got, _ = _one_column(fa, px, lens, group, debug)
         assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
         _assert_equal(got, plain if debug else fk._frame0_traces(plain))
+
+
+@pytest.mark.parametrize("group", ONE_FWD)
+@pytest.mark.parametrize("fwd_mode,want", [("source", "identity"),
+                                           ("separate", "stream"),
+                                           ("cross", "matrix")])
+def test_one_column_forward_gives_the_plain_fast_versions_bits(
+        monkeypatch, group, fwd_mode, want):
+    """fact_fwd at G = 1 (each (1, C) of FORM_GROUPS["fact_fwd"]), emulated
+    CTA by CTA with alpha' and u a word a state: B = 5 columns of lengths
+    12, 8, 4, 1, 9 (each its own cluster, its own last frame), then
+    fact_bwd at G = 1 on its streams, debug True and False: the plain fast
+    version's objf, gamma and traces under torch.equal, and the one-block
+    form's streams, s_t and alpha'(T_b); one launch of each fast kernel."""
+    fa, px, lens = _case(fwd_mode)
+    assert fa.xsrc_mode == want
+    _emulate(monkeypatch)
+    plain = pf.forward_backward_prob_fast(px, lens, fa, LEAKY)
+    one = fk.fact_fwd(px, lens, fa, LEAKY, cluster=1)
+    for debug in (True, False):
+        fk.reset_launch_counts()
+        got, fwd = _one_column(fa, px, lens, ONE[0], debug, group)
+        assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
+        _assert_equal(got, plain if debug else fk._frame0_traces(plain))
+        _forward_equal(fwd, one, lens)
 
 
 @pytest.mark.parametrize("fwd_mode", ["source", "separate"])
 def test_one_column_a_cluster_past_1024_states(monkeypatch, fwd_mode):
     """S_pad 1,280 and P past 1,024 (a virtual thread with two rows and
-    two pdfs), lengths 4, 1, 2: fact_bwd at (1, 2) through the plan (the
-    operator-size rule stubbed to take any operator) beside fact_fwd's
-    cluster form at C = 2, the plain fast version's bits."""
+    two pdfs), lengths 4, 1, 2: both forms at (1, 2) through the plan (the
+    operator-size rule stubbed to take any operator), the plain fast
+    version's bits, and the forward's streams the C = 2 cluster form's."""
     fa, px, lens = _case(fwd_mode, num_phones=600, seed=3, B=3, T=4,
                          lengths=(4, 1, 2))
     assert fa.s_pad > 1024 and px.shape[2] > 1024
     _emulate(monkeypatch)
-    monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES", 0)
-    assert fk._mode_cluster("full", px, fa, None) == {"fact_fwd": 2,
+    monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES",
+                        {"fact_fwd": 0, "fact_bwd": 0})
+    assert fk._mode_cluster("full", px, fa, None) == {"fact_fwd": (1, 2),
                                                       "fact_bwd": (1, 2)}
     fk.reset_launch_counts()
-    got = _one_column(fa, px, lens, None)
+    got, fwd = _one_column(fa, px, lens, None)
     assert fk.launched() == {"fact_fwd_bf16": 1, "fact_bwd_bf16": 1}
     _assert_equal(got, pf.forward_backward_prob_fast(px, lens, fa, LEAKY))
+    _forward_equal(fwd, fk.fact_fwd(px, lens, fa, LEAKY, cluster=2), lens)
 
 
 def test_one_column_a_cluster_shared_memory():
@@ -617,16 +675,46 @@ def test_one_column_a_cluster_shared_memory():
     assert 4 * _words(head, (2, 3), 2) == 95232
 
 
+def test_one_column_forward_shared_memory():
+    """fact_fwd's CTA at (1, 2) by the formula, on a stubbed H100: alpha'
+    and u a word a state (2 S_pad words, where (2, 2) holds S_pad G), the
+    carry, x_dst and (outside identity mode) x_src on rank 0's rows, one
+    column, the last two in two buffers; the scratch of one sum, the
+    mbarriers, two sets of local slice pointers and rank 0's or rank 1's
+    slots of W1 and W2: at the headline graph 39,376 words = 157,504
+    bytes (28,480 words of slots), 169,792 outside identity mode, within
+    the block; at bench.py --s8k's graph (S_pad 8,064) 412,448 bytes, past
+    it, so a forced (1, 2) raises; main path 4's (S_pad 12,032) is past
+    B1/B2's limit and raises too."""
+    head, s8k = _graph(1500), _graph(4000)
+    xhead = _graph(1500, forward_pdf_mode="separate")
+    for fa, rows, want in ((head, 3, 157504), (xhead, 5, 169792),
+                           (s8k, 3, 412448)):
+        s_pad, own = fa.s_pad, fa.s_pad // 2
+        lp = 2 * ((s_pad // 32 + 1) // 2 + 1 + 3 & ~3)
+        fwd = (2 * s_pad + rows * own + (33 + 3 & ~3) + 4 + lp
+               + _words(fa, (0, 1), 2))
+        assert fk.group_smem_bytes(fa, 1, 2)["fact_fwd"] == 4 * fwd == want
+    assert fk.graph_for(head).group_words[("fact_fwd", 2)] == 28480
+    assert 4 * 39376 == 157504 <= H100.shared_memory_per_block_optin
+    assert fk.group_size(64, H100, head, "fact_fwd", (1, 2)) == (1, 2)
+    with pytest.raises(NotImplementedError, match="412448 bytes"):
+        fk.group_size(64, H100, s8k, "fact_fwd", cluster=(1, 2))
+    with pytest.raises(NotImplementedError, match="S_pad=12032"):
+        fk.group_size(64, H100, _shape(12032, "stream", fast=True),
+                      "fact_fwd", cluster=(1, 2))
+
+
 @pytest.mark.parametrize("graph", ["headline", "s8k", "recipe", "float32"])
 def test_one_column_a_cluster_plan(graph):
     """The plan on a stubbed H100 at B = 8, 32, 64, 66, 67 and 132: at the
-    headline graph fact_bwd takes (1, 2) to B = 66 and (2, 2) past it,
-    fact_fwd its cluster form (C = 2) to 66 and (2, 2) past it; at the
-    corpus recipe's (W1^T and W2^T 132,608 bytes: over
-    GROUP_ONE_MIN_OPERATOR_BYTES, under GROUP_MIN_OPERATOR_BYTES) fact_bwd
-    takes (1, 2) to 66 and one block a column past it; bench.py --s8k's
-    graph (W1^T alone does not fit two CTAs) and float32 tiles keep the
-    cluster rule's forms at every B."""
+    headline graph both forms take (1, 2) to B = 66 and (2, 2) past it;
+    at the corpus recipe's (W1 and W2 176,640 bytes, W1^T and W2^T
+    132,608: over GROUP_ONE_MIN_OPERATOR_BYTES; the backward's under
+    GROUP_MIN_OPERATOR_BYTES) both take (1, 2) to 66, past it fact_fwd
+    (2, 2) and fact_bwd one block a column; bench.py --s8k's graph (W1^T
+    alone does not fit two CTAs) and float32 tiles keep the cluster
+    rule's forms at every B."""
     fa = {"headline": lambda: _graph(1500), "s8k": lambda: _graph(4000),
           "recipe": lambda: _graph(1500, bigram_fanout=10),
           "float32": lambda: pt.ChainGraphBatch(pt.ChainGraph(
@@ -636,33 +724,98 @@ def test_one_column_a_cluster_plan(graph):
         plan = {f: fk._form_plan(f, B, H100, fa, None)
                 for f in fk.GROUP_FORMS}
         if graph == "headline":
-            want = ({"fact_fwd": 2, "fact_bwd": (1, 2)} if B <= 66 else
-                    {"fact_fwd": (2, 2), "fact_bwd": (2, 2)})
+            want = ({"fact_fwd": (1, 2), "fact_bwd": (1, 2)} if B <= 66
+                    else {"fact_fwd": (2, 2), "fact_bwd": (2, 2)})
         elif graph == "recipe":
-            want = ({"fact_fwd": 2, "fact_bwd": (1, 2)} if B <= 66 else
-                    {"fact_fwd": (2, 2), "fact_bwd": 1})
+            want = ({"fact_fwd": (1, 2), "fact_bwd": (1, 2)} if B <= 66
+                    else {"fact_fwd": (2, 2), "fact_bwd": 1})
         else:
             want = ({"fact_fwd": 2, "fact_bwd": 1} if B <= 66 else
                     {"fact_fwd": 1, "fact_bwd": 1})
         assert plan == want, (graph, B)
 
 
+def test_one_column_plan_at_every_batch():
+    """At the headline graph on a stubbed H100 (132 SMs), B = 1 ... 132:
+    both forms at (1, 2) while B 2 <= 132 (B clusters of 2, one CTA an
+    SM), at (2, 2) from 67 to 132 (ceil(B / 2) clusters of 2); past 132
+    the cluster rule's one block a column.  On a card of 114 SMs the
+    switch moves to B = 57."""
+    head = _graph(1500)
+    for B in range(1, 134):
+        want = (1, 2) if 2 * B <= 132 else (2, 2) if B <= 132 else 1
+        for form in fk.GROUP_FORMS:
+            assert fk._form_plan(form, B, H100, head, None) == want, (form,
+                                                                      B)
+    small = type(H100)(multi_processor_count=114,
+                       shared_memory_per_block_optin=232448)
+    for form in fk.GROUP_FORMS:
+        assert fk._form_plan(form, 57, small, head, None) == (1, 2)
+        assert fk._form_plan(form, 58, small, head, None) == (2, 2)
+
+
+def test_one_column_forward_threshold(monkeypatch):
+    """GROUP_ONE_MIN_OPERATOR_BYTES gives each form its own least: the
+    forward's the smallest W1 and W2 at which the card's (1, 2) was timed
+    against the C = 2 cluster form at B = 64 (97,024 bytes, bigram fan-out
+    5; it won there and at 113,152, 132,864, 176,640, 343,808 and 453,888:
+    PERF.md), the backward's 128 KB.  The plan takes (1, 2) at B = 64
+    where the form's operator (slots at 8 bytes) takes at least it, else
+    the cluster form at C = 2 (fact_bwd one block); each form is held to
+    its own operator's bytes (the headline's W1 and W2 453,888, W1^T and
+    W2^T 373,248)."""
+    assert fk.GROUP_ONE_MIN_OPERATOR_BYTES == {"fact_fwd": 97024,
+                                               "fact_bwd": 131072}
+    for fanout, sizes, want in (
+            (4, (82176, 61440), {"fact_fwd": 2, "fact_bwd": 1}),
+            (5, (97024, 73728), {"fact_fwd": (1, 2), "fact_bwd": 1}),
+            (7, (132864, 96512), {"fact_fwd": (1, 2), "fact_bwd": 1})):
+        fa = _graph(1500, bigram_fanout=fanout)
+        words = fk.graph_for(fa).group_words
+        assert (8 * words[("fact_fwd", 1)],
+                8 * words[("fact_bwd", 1)]) == sizes, fanout
+        assert {f: fk._form_plan(f, 64, H100, fa, None)
+                for f in fk.GROUP_FORMS} == want, fanout
+    head = _graph(1500)
+    words = fk.graph_for(head).group_words
+    fwd, bwd = 8 * words[("fact_fwd", 1)], 8 * words[("fact_bwd", 1)]
+    assert (fwd, bwd) == (453888, 373248)
+    for least, want in ((fwd + 1, {"fact_fwd": 2, "fact_bwd": 1}),
+                        (fwd, {"fact_fwd": (1, 2), "fact_bwd": 1}),
+                        (bwd, {"fact_fwd": (1, 2), "fact_bwd": (1, 2)})):
+        monkeypatch.setattr(fk, "GROUP_ONE_MIN_OPERATOR_BYTES",
+                            {f: least for f in fk.GROUP_FORMS})
+        assert {f: fk._form_plan(f, 64, H100, head, None)
+                for f in fk.GROUP_FORMS} == want, least
+
+
 def test_a_forced_one_column_forward_raises(monkeypatch):
-    """fact_fwd has no G = 1 form: forcing (1, 2) on it raises
-    NotImplementedError before any launch, alone and as a call's plan; a
-    (1, 2) that does not fit (bench.py --s8k's graph) raises for
-    fact_bwd too."""
-    monkeypatch.setattr(fk, "_card_props", lambda device: H100)
+    """A forced (1, 2) on fact_fwd reaches _fwd_group_launch (emulated
+    here; one launch, the plain fast version's bits), alone and as a
+    call's plan; a (1, 2) that does not fit (bench.py --s8k's graph)
+    raises NotImplementedError for both forms before any launch."""
+    _emulate(monkeypatch)
+    seen = []
+    launch = fk._fwd_group_launch
+    monkeypatch.setattr(fk, "_fwd_group_launch", lambda *a, **k: (
+        seen.append(a[7]), launch(*a, **k))[1])
     fa, px, lens = _case("source", num_phones=600, seed=3, B=2, T=2,
                          lengths=(2, 1))
-    with pytest.raises(NotImplementedError, match="built"):
-        fk.group_size(8, H100, fa, "fact_fwd", cluster=(1, 2))
-    with pytest.raises(NotImplementedError, match="built"):
-        fk.fact_fwd(px, lens, fa, LEAKY, cluster=(1, 2))
-    with pytest.raises(NotImplementedError, match="built"):
-        fk._mode_cluster("full", px, fa, (1, 2))
+    assert fk.group_size(8, H100, fa, "fact_fwd", cluster=(1, 2)) == (1, 2)
+    fk.reset_launch_counts()
+    fwd = fk.fact_fwd(px, lens, fa, LEAKY, cluster=(1, 2))
+    assert seen == [(1, 2)] and fk.launched() == {"fact_fwd_bf16": 1}
+    _forward_equal(fwd, fk.fact_fwd(px, lens, fa, LEAKY, cluster=1), lens)
+    assert fk._mode_cluster("full", px, fa, (1, 2)) == {"fact_fwd": (1, 2),
+                                                         "fact_bwd": (1, 2)}
+    got, _ = _full(fa, px, lens, (1, 2))
+    assert seen == [(1, 2), (1, 2)]
+    _assert_equal(got, pf.forward_backward_prob_fast(px, lens, fa, LEAKY))
+    fk._group_args("fact_fwd", 2, fa, (1, 2), None)
     with pytest.raises(ValueError, match="not built"):
-        fk._group_args("fact_fwd", 2, fa, (1, 2), None)
-    assert fk.group_size(8, H100, fa, "fact_bwd", cluster=(1, 2)) == (1, 2)
-    with pytest.raises(NotImplementedError, match="S_pad=8064"):
-        fk.group_size(8, H100, _graph(4000), "fact_bwd", cluster=(1, 2))
+        fk._group_args("fact_fwd", 2, fa, (1, 4), None)
+    fk.reset_launch_counts()
+    for form in fk.GROUP_FORMS:
+        with pytest.raises(NotImplementedError, match="S_pad=8064"):
+            fk.group_size(8, H100, _graph(4000), form, cluster=(1, 2))
+    assert fk.launched() == {}
